@@ -1,0 +1,64 @@
+"""Status-carrying errors of the serving engine.
+
+The port's own copy of the classes of ``kubeml_tpu/api/errors.py`` that the
+paged engine raises: every error carries the HTTP status the wire layer
+answers with (400 for a request the arena can never hold, 429 at the queue
+limit, 503 once the engine is closed or faulted) and serialises to the
+``{"error": <message>, "code": <status>}`` envelope.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+
+class KubeMLError(Exception):
+    """Base error with an HTTP status code and JSON envelope."""
+
+    status_code = 500
+
+    def __init__(self, message: str = "", status_code: Optional[int] = None):
+        super().__init__(message or self.__class__.__name__)
+        self.message = message or self.__class__.__name__
+        if status_code is not None:
+            self.status_code = status_code
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"error": self.message, "code": self.status_code}
+
+
+class OverloadedError(KubeMLError):
+    """Serving admission refused under overload: 429 with a Retry-After
+    hint carried in the envelope."""
+
+    status_code = 429
+
+    def __init__(self, message: str = "", retry_after: float = 1.0):
+        super().__init__(message or "server overloaded, retry later")
+        self.retry_after = float(retry_after)
+
+    def to_dict(self) -> Dict[str, Any]:
+        d = super().to_dict()
+        d["retry_after"] = self.retry_after
+        return d
+
+
+class EngineFaultError(KubeMLError):
+    """Retryable serving-engine failure (503): the decode engine faulted
+    while this request was in flight. ``partial_tokens`` holds the tokens
+    each row emitted before the fault."""
+
+    status_code = 503
+
+    def __init__(self, message: str = "",
+                 partial_tokens: Optional[list] = None,
+                 status_code: Optional[int] = None):
+        super().__init__(message or "decode engine fault, retry", status_code)
+        self.retryable = True
+        self.partial_tokens = [list(t) for t in (partial_tokens or [])]
+
+    def to_dict(self) -> Dict[str, Any]:
+        d = super().to_dict()
+        d["retryable"] = True
+        d["partial_tokens"] = self.partial_tokens
+        return d
