@@ -1,18 +1,18 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the PyTorch port's paged serving path (one NVIDIA
-H100). Run from the repo root::
+"""On-card smoke run of the PyTorch port (one NVIDIA H100): the paged
+serving path and the GPT training path. Run from the repo root::
 
     python3 chip_smoke.py
 
 Phases, each reported on its own lines:
 
 1. device - the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build  - both CUDA kernels from ``kubeml_tpu_torch/csrc`` (nvcc,
-   sm_90a), with the build seconds;
-3. kernels against their plain PyTorch versions at the serving path's
-   shapes (GPT-2-small width: H 12, D 64, page_tokens 16, 64-page tables,
-   8 rows), with max abs error, kernel / plain / library times on the card
-   and the bound from bytes and operations;
+2. build  - every CUDA kernel from ``kubeml_tpu_torch/csrc`` (nvcc,
+   sm_90a, one process per source), with the build seconds;
+3. serving kernels against their plain PyTorch versions at the serving
+   path's shapes (GPT-2-small width: H 12, D 64, page_tokens 16, 64-page
+   tables, 8 rows), with max abs error, kernel / plain / library times on
+   the card and the bound from bytes and operations;
 4. serve f32 - 16 requests from threads through ``PagedBatchingDecoder`` at
    GPT-2-small width (seeded random weights), greedy tokens held identical
    to the same engine reading the arena through the plain gather path, the
@@ -22,7 +22,20 @@ Phases, each reported on its own lines:
    matmul kernel and int8 KV pages; both launch counters must move, and
    teacher-forced logits (prefill + 4 steps) must match the plain-path
    engine;
-6. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+6. flash kernels - forward (out, lse), dQ and dK/dV against their plain
+   versions in bf16 and f32 at the training shape (B 8, L 2048, H 8, D 64,
+   causal), a ragged causal shape with 37 padded keys, cross attention
+   (Lq 300, Lk 1000) and D 128; repeated backwards bit-identical, padded
+   keys' dK/dV exactly 0; then kernel / plain / SDPA / bound times over
+   L 128-4096 at 16,384 tokens;
+7. train bf16 - ``benchmarks.longcontext.run_point`` at the long-context
+   flagship's full width (E 512, depth 8, vocab 32000, remat, AdamW),
+   L 2048: one warm-up and 10 timed steps through the kernels (launches
+   per step held to fwd 2 x depth, dq and dkv depth; the loss must fall),
+   a profiler window over 3 steps, then the same run on the plain path;
+8. train f32 - one step through the kernels against the plain path from
+   the same weights and batch: loss and every parameter's gradient;
+9. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Any failure raises and the script exits non-zero; without a CUDA device it
 exits non-zero before printing any result.
@@ -46,6 +59,10 @@ SLOTS, PAGE_TOKENS, CHUNK = 8, 16, 16
 # kernel-phase shapes: the engine's default arena for 8 slots of 1024
 # positions (8 x 64 pages + the trash page)
 H, D, P, B, N_PAGES = 12, 64, 64, 8, 513
+# --- training: the long-context flagship (kubeml_tpu/benchmarks/
+# longcontext.py) at full width, 16,384 tokens a step; flash-phase heads and
+# head dim of its attention
+FLASH_H, FLASH_D, TRAIN_TOKENS, DEPTH = 8, 64, 16384, 8
 
 # published H100 SXM peaks (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -356,29 +373,25 @@ def report_serve(tag, run) -> None:
         f"{int(t['prefill_waves'])} prefill waves)")
 
 
-def profile_window(dec, reqs) -> None:
-    """Where the time goes: a torch.profiler window over 8 concurrent
-    requests (32 new tokens each) on ``dec``. Prints the window's wall,
-    the device-busy time (the sum of kernel times: one stream, so kernels
-    do not overlap), the idle share, and the five kernels with the most
-    device time."""
+def device_profile(run) -> float:
+    """Where the time goes: a torch.profiler window around ``run()``.
+    Prints the window's wall, the device-busy time (the sum of kernel
+    times: one stream, so kernels do not overlap; user annotations such as
+    ``Optimizer.step`` span kernels already counted and are left out), the
+    idle share, and the five kernels with the most device time. Returns
+    the busy ms (0.0 when the profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
-
-    from kubeml_tpu_torch.api import GenerateRequest
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        entries = [dec.submit(GenerateRequest(
-            prompts=[r["prompt"].tolist()], max_new_tokens=32))
-            for r in reqs[:8]]
-        for e in entries:
-            dec.wait(e, timeout=600)
+        run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.monotonic() - t0)
     kernels = []
     for evt in prof.key_averages():
-        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+        if (str(getattr(evt, "device_type", "")).endswith("CUDA")
+                and not getattr(evt, "is_user_annotation", False)):
             t = getattr(evt, "self_device_time_total", None)
             if t is None:
                 t = evt.self_cuda_time_total
@@ -386,12 +399,28 @@ def profile_window(dec, reqs) -> None:
     busy_ms = sum(k[0] for k in kernels)
     if busy_ms <= 0:
         log("  profile: the profiler recorded no device time (not measured)")
-        return
+        return 0.0
     log(f"  profile: window {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
         f"idle share {1 - busy_ms / wall_ms:.3f}")
     for ms, count, name in sorted(kernels, reverse=True)[:5]:
         log(f"    {100 * ms / busy_ms:5.1f}% {ms:8.2f} ms x{count:<6} "
             f"{name[:90]}")
+    return busy_ms
+
+
+def profile_window(dec, reqs) -> None:
+    """A profiler window over 8 concurrent requests (32 new tokens each)
+    on the serving engine ``dec``."""
+    from kubeml_tpu_torch.api import GenerateRequest
+
+    def run():
+        entries = [dec.submit(GenerateRequest(
+            prompts=[r["prompt"].tolist()], max_new_tokens=32))
+            for r in reqs[:8]]
+        for e in entries:
+            dec.wait(e, timeout=600)
+
+    device_profile(run)
 
 
 def gpt2_small():
@@ -429,6 +458,257 @@ def teacher_forced_logits(dec, prompt, forced):
     return torch.stack(out)
 
 
+# --- phase 6: flash kernels against their plain versions -----------------
+
+
+def flash_tol(dtype, ref) -> float:
+    """Kernel vs plain tolerance, relative to the largest |value|: f32
+    1e-5 (both sum in f32, the kernel with an online softmax over 64-key
+    tiles, the plain version with one max per row, in other orders); bf16
+    2^-6, two bf16 ulps (both round one f32 value to bf16, and values a
+    few f32 ulps apart may round to neighbouring bf16 values)."""
+    scale = max(1.0, ref.float().abs().max().item())
+    return (1e-5 if dtype == torch.float32 else 2.0 ** -6) * scale
+
+
+def attended_pairs(Lq, valid, causal) -> int:
+    """(query, key) pairs the mask lets through, summed over rows (per
+    head): the work the kernels must do on this data."""
+    cum = torch.cumsum(valid.double(), dim=1)  # [B, Lk]
+    if not causal:
+        return int(cum[:, -1].sum().item()) * Lq
+    idx = torch.arange(Lq, device=valid.device).clamp(max=valid.shape[1] - 1)
+    return int(cum[:, idx].sum().item())
+
+
+def flash_bounds(q, k, valid, causal):
+    """Bound ms and what sets it for (fwd, dq, dkv): bytes each function
+    must move (inputs once, outputs once) over 3.35 TB/s, and its products
+    (2, 3 and 4 of them, 2 x D operations per attended pair each) over the
+    peak for the input type."""
+    B, Lq, H, D = q.shape
+    el = q.element_size()
+    qb = q.numel() * el
+    kb = k.numel() * el
+    rows = B * H * Lq * 4  # one f32 per (row, head): lse, dsum
+    vb = valid.numel() * 4
+    pairs = attended_pairs(Lq, valid, causal) * H
+    work = {"fwd": (qb + 2 * kb + vb + qb + rows, 2),
+            "dq": (2 * qb + 2 * kb + 2 * rows + vb + qb, 3),
+            "dkv": (2 * qb + 2 * kb + 2 * rows + vb + 2 * kb, 4)}
+    out = {}
+    for name, (nbytes, products) in work.items():
+        t_b = nbytes / HBM_BYTES_PER_S
+        t_o = products * 2 * D * pairs / PEAK_OPS[q.dtype]
+        out[name] = (1e3 * max(t_b, t_o),
+                     "bytes" if t_b >= t_o else "operations")
+    return out
+
+
+def flash_inputs(g, B, Lq, Lk, D, dtype, pad_rows=0, pad=0):
+    mk = lambda L: torch.randn(B, L, FLASH_H, D, generator=g).to(dtype).cuda()
+    q, k, v, do = mk(Lq), mk(Lk), mk(Lk), mk(Lq)
+    valid = torch.ones(B, Lk)
+    if pad:
+        valid[B - pad_rows:, Lk - pad:] = 0
+    return q, k, v, do, valid.cuda()
+
+
+def check_flash(timer, g):
+    """The three flash kernels against the plain versions at the listed
+    shapes, repeated backwards bit-identical, padded keys' dK/dV zero; then
+    times at the training shape over L 128-4096 (B = 16384 / L)."""
+    import torch.nn.functional as F
+
+    from kubeml_tpu_torch.ops import flash_attention as fa
+
+    shapes = [  # (tag, B, Lq, Lk, D, causal, rows padded, pad keys)
+        ("a train", 8, 2048, 2048, 64, True, 0, 0),
+        ("b ragged", 2, 2000, 2000, 64, True, 1, 37),
+        ("c cross", 2, 300, 1000, 64, False, 1, 50),
+        ("d D128", 4, 1024, 1024, 128, True, 0, 0)]
+    errs = {}
+    for tag, B, Lq, Lk, D, causal, prow, pad in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do, valid = flash_inputs(g, B, Lq, Lk, D, dtype, prow,
+                                              pad)
+            out, lse = fa._flash_fwd_cuda(q, k, v, valid, causal)
+            ro, rl = fa.flash_attention_fwd_ref(q, k, v, valid, causal)
+            dsum = fa._dsum(do, ro)
+            bwd = lambda: (fa._flash_dq_cuda(q, k, v, valid, rl, do, dsum,
+                                             causal),
+                           *fa._flash_dkv_cuda(q, k, v, valid, rl, do, dsum,
+                                               causal))
+            grads, again = bwd(), bwd()
+            refs = fa.flash_attention_bwd_ref(q, k, v, valid, ro, rl, do,
+                                              causal)
+            torch.cuda.synchronize()
+            row = {}
+            for name, a, b in [("out", out, ro), ("lse", lse, rl)] + list(
+                    zip(("dq", "dk", "dv"), grads, refs)):
+                err = (a.float() - b.float()).abs().max().item()
+                # lse is f32 whatever the input type (no row here is fully
+                # masked, so no lse sits at -1e30)
+                tol = flash_tol(torch.float32 if name == "lse" else dtype, b)
+                if not err <= tol:
+                    raise AssertionError(f"flash {tag} {dtype} {name}: max "
+                                         f"abs err {err} > {tol}")
+                row[name] = err
+            if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                raise AssertionError(f"flash {tag} {dtype}: two backward "
+                                     f"runs differ")
+            if pad and max(t[B - prow:, Lk - pad:].abs().max().item()
+                           for t in grads[1:]) != 0.0:
+                raise AssertionError(f"flash {tag} {dtype}: padded keys got "
+                                     f"non-zero dK/dV")
+            errs[(tag, dtype)] = row
+            log(f"  flash {tag} B{B} Lq{Lq} Lk{Lk} D{D} "
+                f"{'causal' if causal else 'full'} pad {pad} "
+                f"{str(dtype).split('.')[-1]}: max abs err "
+                + " ".join(f"{n} {e:.2e}" for n, e in row.items())
+                + "; backward bit-identical on repeat"
+                + ("; padded keys' dK/dV exactly 0" if pad else ""))
+            del q, k, v, do, out, lse, ro, rl, grads, again, refs
+    sweep = {}
+    # 512-4096 around the training shape; 128 and 256 for the length at
+    # which the kernels stop beating the plain path (the dispatch threshold)
+    for L in (128, 256, 512, 1024, 2048, 4096):
+        B = TRAIN_TOKENS // L
+        q, k, v, do, valid = flash_inputs(g, B, L, L, FLASH_D, torch.bfloat16)
+        out, lse = fa._flash_fwd_cuda(q, k, v, valid, True)
+        dsum = fa._dsum(do, out)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        sd_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        dot_ = do.transpose(1, 2).contiguous()
+        row = dict(
+            L=L, B=B,
+            fwd_ms=timer.ms(lambda: fa._flash_fwd_cuda(q, k, v, valid, True)),
+            fwd_plain_ms=timer.ms(lambda: fa.flash_attention_fwd_ref(
+                q, k, v, valid, True)),
+            fwd_library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True)),
+            dq_ms=timer.ms(lambda: fa._flash_dq_cuda(q, k, v, valid, lse, do,
+                                                     dsum, True)),
+            dkv_ms=timer.ms(lambda: fa._flash_dkv_cuda(q, k, v, valid, lse,
+                                                       do, dsum, True)),
+            bwd_plain_ms=timer.ms(lambda: fa.flash_attention_bwd_ref(
+                q, k, v, valid, out, lse, do, True)),
+            bwd_library_ms=timer.ms(lambda: torch.autograd.grad(
+                sd_out, (qt, kt, vt), dot_, retain_graph=True)))
+        for name, (ms, by) in flash_bounds(q, k, valid, True).items():
+            row[f"{name}_bound_ms"], row[f"{name}_bound_by"] = ms, by
+        log("  flash sweep", json.dumps(row))
+        sweep[L] = row
+        del q, k, v, do, out, lse, qt, kt, vt, sd_out, dot_
+    torch.cuda.empty_cache()
+    return errs, sweep
+
+
+# --- phases 7-8: training -------------------------------------------------
+
+def flash_counts():
+    from kubeml_tpu_torch.ops.flash_attention import flash_attention as f
+
+    return f.fwd_launches, f.dq_launches, f.dkv_launches
+
+
+def reset_flash_counts() -> None:
+    from kubeml_tpu_torch.ops.flash_attention import flash_attention as f
+
+    f.fwd_launches = f.dq_launches = f.dkv_launches = 0
+
+
+def train_run(tag, flash: bool):
+    """``run_point`` at the long-context flagship's full width (E 512,
+    depth 8, 8 heads, vocab 32000, remat, bf16, AdamW 3e-4), L 2048,
+    16,384 tokens a step: one warm-up step and 10 timed steps on one
+    batch. Returns the row and the flash launch counts of the run."""
+    from kubeml_tpu_torch.benchmarks.longcontext import run_point
+    from kubeml_tpu_torch.ops import attention
+
+    attention.FLASH_MIN_KV_LEN = 0 if flash else None
+    reset_flash_counts()
+    row = run_point(seq_len=2048, tokens_per_step=TRAIN_TOKENS, steps=10,
+                    dtype="bf16", repeats=1, device="cuda")
+    counts = flash_counts()
+    attention.FLASH_MIN_KV_LEN = 0
+    torch.cuda.empty_cache()
+    log(f"  {tag}: {row['value']:.1f} tokens/s, step {row['step_ms']:.2f} ms"
+        f", max memory allocated {row['max_memory_allocated'] / 2**30:.2f} "
+        f"GiB, loss step 1 {row['first_loss']:.4f} -> step "
+        f"{row['steps_run']} {row['loss']:.4f}; flash launches fwd/dq/dkv "
+        f"{counts}")
+    if not (np.isfinite(row["loss"]) and row["loss"] < row["first_loss"]):
+        raise AssertionError(f"{tag}: loss {row['first_loss']} -> "
+                             f"{row['loss']} (must be finite and fall)")
+    return row, counts
+
+
+def train_profile() -> float:
+    """A profiler window over 3 kernel-path training steps (after one
+    warm-up step); returns the device-busy ms per step."""
+    from kubeml_tpu_torch.benchmarks.longcontext import make_trainer
+
+    trainer, tokens = make_trainer(2048, TRAIN_TOKENS, "bf16", device="cuda")
+    trainer.train_step(tokens)
+
+    def run():
+        for _ in range(3):
+            trainer.train_step(tokens)
+
+    busy_ms = device_profile(run) / 3
+    del trainer
+    torch.cuda.empty_cache()
+    return busy_ms
+
+
+# kernel vs plain f32 training step: the loss within 1e-5 relative (f32
+# throughout; the kernels' online softmax and tile order round differently
+# from the plain one-pass softmax at ~1e-7 relative); each parameter's
+# gradient within 1e-3 of its largest |entry| (those ~1e-7 differences
+# pass back through 8 layers and sums over 16,384 positions, and the
+# bound is relative to a tensor's largest entry because its small entries
+# carry the absolute error of the large ones)
+F32_LOSS_RTOL, F32_GRAD_RTOL = 1e-5, 1e-3
+
+
+def f32_step(flash: bool):
+    from kubeml_tpu_torch.benchmarks.longcontext import make_trainer
+    from kubeml_tpu_torch.ops import attention
+
+    attention.FLASH_MIN_KV_LEN = 0 if flash else None
+    trainer, tokens = make_trainer(2048, TRAIN_TOKENS, "f32", device="cuda")
+    loss = float(trainer.train_step(tokens))
+    grads = {n: p.grad.detach().clone()
+             for n, p in trainer.module.named_parameters()}
+    attention.FLASH_MIN_KV_LEN = 0
+    del trainer
+    torch.cuda.empty_cache()
+    return loss, grads
+
+
+def check_f32_step() -> None:
+    reset_flash_counts()
+    kl, kg = f32_step(True)
+    counts = flash_counts()
+    pl_, pg = f32_step(False)
+    if counts != (2 * DEPTH, DEPTH, DEPTH):
+        raise AssertionError(f"f32 kernel step launched {counts}")
+    rel = abs(kl - pl_) / abs(pl_)
+    worst = max(((kg[n] - pg[n]).abs().max().item()
+                 / max(pg[n].abs().max().item(), 1e-30), n) for n in pg)
+    log(f"  f32 step, kernel vs plain: loss {kl:.7f} vs {pl_:.7f} (rel "
+        f"{rel:.2e}, tolerance {F32_LOSS_RTOL}); worst gradient "
+        f"{worst[1]} at {worst[0]:.2e} of its largest entry (tolerance "
+        f"{F32_GRAD_RTOL}); launches fwd/dq/dkv {counts}")
+    if not rel <= F32_LOSS_RTOL:
+        raise AssertionError(f"f32 loss differs: {kl} vs {pl_}")
+    if not worst[0] <= F32_GRAD_RTOL:
+        raise AssertionError(f"f32 gradient {worst[1]} differs by "
+                             f"{worst[0]} of its scale")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one NVIDIA card",
@@ -444,7 +724,7 @@ def main() -> int:
 
     # 1. device
     smi = nvidia_smi()
-    log("[1/6 device]")
+    log("[1/9 device]")
     log(smi)
     log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} devices "
@@ -459,14 +739,14 @@ def main() -> int:
     spills = [f"{lines[i - 1].split('for ')[-1][:70]}: {ln.strip()}"
               for i, ln in enumerate(lines)
               if re.search(r"[1-9]\d* bytes (stack frame|spill)", ln)]
-    log(f"[2/6 build] {time.monotonic() - t0:.2f} s (nvcc "
+    log(f"[2/9 build] {time.monotonic() - t0:.2f} s (nvcc "
         f"{kernels.build_seconds:.2f} s), kernels with a stack frame or "
         f"spills: {len(spills)}")
     for ln in spills:
         log(f"  {ln}")
 
     # 3. kernels against their plain versions
-    log("[3/6 kernels]")
+    log("[3/9 kernels]")
     timer = Timer()
     g = torch.Generator().manual_seed(SEED)
     pa_rows = check_paged_attention(timer, g)
@@ -474,7 +754,7 @@ def main() -> int:
     del timer
 
     # 4. serve f32: kernel engine, then the plain (gather) twin
-    log("[4/6 serve f32]")
+    log("[4/9 serve f32]")
     reqs = workload(np.random.default_rng(SEED))
     model = gpt2_small()
     common = dict(slots=SLOTS, page_tokens=PAGE_TOKENS, chunk_steps=CHUNK,
@@ -513,7 +793,7 @@ def main() -> int:
     del model
 
     # 5. serve int8: int8 weights through the kernel, int8 KV pages
-    log("[5/6 serve int8]")
+    log("[5/9 serve int8]")
     q_kw = dict(quantize="int8", int8_matmul=True, kv_quant="int8", **common)
     qdec = PagedBatchingDecoder(gpt2_small(), **q_kw)
     tele = qdec.telemetry()
@@ -553,9 +833,44 @@ def main() -> int:
         raise AssertionError(f"int8 teacher-forced logits differ by {tf_err}")
     qdec.close()
     qplain.close()
+    del qdec, qplain
+    torch.cuda.empty_cache()
 
-    # 6. results
-    log("[6/6 results]")
+    # 6. flash kernels against their plain versions, and the L sweep
+    log("[6/9 flash kernels]")
+    timer = Timer()
+    flash_errs, sweep = check_flash(timer, g)
+    del timer
+
+    # 7. train: the kernel path, its profile, then the plain path
+    log("[7/9 train bf16]")
+    krow, kcounts = train_run("kernel path", flash=True)
+    want = (2 * DEPTH * krow["steps_run"], DEPTH * krow["steps_run"],
+            DEPTH * krow["steps_run"])
+    if kcounts != want:
+        raise AssertionError(f"flash launches fwd/dq/dkv {kcounts} != "
+                             f"{want} (2 x depth, depth, depth per step)")
+    log(f"  launches per step: fwd {kcounts[0] // krow['steps_run']}, dq "
+        f"{kcounts[1] // krow['steps_run']}, dkv "
+        f"{kcounts[2] // krow['steps_run']} (depth {DEPTH}, remat)")
+    busy = train_profile()
+    # the profiler slows the host; against the unprofiled step the idle
+    # share is the time the card waited on the host in a normal step
+    log(f"  device busy {busy:.2f} ms per step, unprofiled step "
+        f"{krow['step_ms']:.2f} ms: idle share "
+        f"{1 - busy / krow['step_ms']:.3f} of the unprofiled step")
+    prow, pcounts = train_run("plain path (FLASH_MIN_KV_LEN = None)",
+                              flash=False)
+    if pcounts != (0, 0, 0):
+        raise AssertionError(f"the plain path launched flash kernels "
+                             f"{pcounts}")
+
+    # 8. f32: one step through the kernels against the plain path
+    log("[8/9 train f32 parity]")
+    check_f32_step()
+
+    # 9. results
+    log("[9/9 results]")
     pa = pa_rows[0]   # the decode step: L = 1, f32 arena
     mm = next(r for r in mm_rows if r["M"] == 8 and r["N"] == VOCAB
               and r["x"] == "float32")  # the lm_head at decode
@@ -575,6 +890,26 @@ def main() -> int:
          "plain_ms": mm["plain_ms"], "bound_ms": mm["bound_ms"],
          "bound_by": mm["bound_by"], "library_ms": mm["library_ms"]},
     ]}
+    # the flash kernels at the training shape (B 8, L 2048, bf16, causal)
+    tr = sweep[2048]
+    err_a = flash_errs[("a train", torch.bfloat16)]
+    for name, line_no, count, err, ms, plain, lib in (
+            ("flash_fwd", 120, kcounts[0], err_a["out"], tr["fwd_ms"],
+             tr["fwd_plain_ms"], tr["fwd_library_ms"]),
+            ("flash_dq", 227, kcounts[1], err_a["dq"], tr["dq_ms"],
+             tr["bwd_plain_ms"], tr["bwd_library_ms"]),
+            ("flash_dkv", 269, kcounts[2], max(err_a["dk"], err_a["dv"]),
+             tr["dkv_ms"], tr["bwd_plain_ms"], tr["bwd_library_ms"])):
+        short = name.split("_")[1]
+        line["kernels"].append(
+            {"name": name, "route": "cuda",
+             "source": "kubeml_tpu_torch/csrc/flash_attention.cu",
+             "replaces": f"kubeml_tpu/ops/flash_attention.py:{line_no}",
+             "launches": count, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain, "bound_ms": tr[f"{short}_bound_ms"],
+             "bound_by": tr[f"{short}_bound_by"], "library_ms": lib})
+    log(f"  train bf16 tokens/s: kernel {krow['value']:.1f}, plain "
+        f"{prow['value']:.1f}")
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""The port's models: the causal transformer with its paged decode branch."""
+"""The port's models: the causal transformer with its paged decode branch
+and its training forward."""
 
 from .gpt import CausalTransformer, GPTSmall, GPTTiny
 

@@ -1,10 +1,17 @@
 """Causal transformer LM, the port of ``kubeml_tpu/models/gpt.py``.
 
 Ported: the non-cache forward (causal attention over the whole sequence,
-learned or rotary positions) and the PAGED decode branch (:121-265) the
-serving engine drives. The dense per-row cache decode, MoE interleaving,
-sequence parallelism and rematerialisation are still to be ported
-(ROADMAP).
+learned or rotary positions) with its training options, and the PAGED
+decode branch (:121-265) the serving engine drives. The dense per-row
+cache decode, MoE interleaving, sequence parallelism (a mesh) and dropout
+other than 0.0 are still to be ported (ROADMAP) and raise.
+
+Training (:558-582): ``remat=True`` recomputes each block's forward in the
+backward (``torch.utils.checkpoint``, non-reentrant) on the non-decode
+path, the counterpart of Flax ``nn.remat``; the block names stay
+``block_{i}``, so a remat model's Flax weights convert unchanged. The
+non-cache attention goes through ``ops.attention.dot_product_attention``,
+which takes the flash kernels on a CUDA tensor.
 
 Layout and names follow the Flax module, so a Flax variables tree maps
 onto ``state_dict`` names one for one (``interop.from_flax``): dense
@@ -39,6 +46,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dot_product_attention
 from ..ops.paged_attention import paged_attention, paged_attention_ref
@@ -219,10 +227,22 @@ class CausalTransformer(nn.Module):
                  mlp_ratio: int = 4, dtype: torch.dtype = torch.float32,
                  ln_eps: float = 1e-6, attn_bias: bool = False,
                  pos: str = "learned", rope_theta: float = 10000.0,
-                 seed: int = 0, device=None):
+                 remat: bool = False, dropout: float = 0.0,
+                 moe_every: int = 0, mesh=None, seed: int = 0, device=None):
         super().__init__()
         if pos not in ("learned", "rope"):
             raise ValueError(f"unknown pos {pos!r} (valid: 'learned', 'rope')")
+        if dropout != 0.0:
+            raise NotImplementedError(
+                "dropout > 0 is not ported yet (every JAX trainer of this "
+                "path uses 0.0; dropout with an explicit generator is a "
+                "ROADMAP item)")
+        if moe_every > 0:
+            raise NotImplementedError("MoE interleaving is not ported yet")
+        if mesh is not None:
+            raise NotImplementedError("the port runs on one card; a mesh "
+                                      "(sharding over torch.distributed) is "
+                                      "not ported yet")
         dev = resolve_device(device)
         self.vocab_size = vocab_size
         self.max_len = max_len
@@ -231,6 +251,8 @@ class CausalTransformer(nn.Module):
         self.num_heads = num_heads
         self.dtype = dtype
         self.pos = pos
+        self.remat = remat
+        self.dropout = dropout
         self.token_embed = Embed(vocab_size, embed_dim)
         if pos == "learned":
             self.pos_embed = nn.Parameter(torch.empty(1, max_len, embed_dim))
@@ -263,12 +285,14 @@ class CausalTransformer(nn.Module):
     def blocks(self):
         return [getattr(self, f"block_{i}") for i in range(self.depth)]
 
-    def forward(self, token_ids, decode: bool = False,
+    def forward(self, token_ids, train: bool = False, decode: bool = False,
                 return_hidden: bool = False, positions=None, pages=None,
                 seq_lens=None, cache=None):
         """Logits ``[B, L, vocab]`` (f32), or the final hidden states
         ``[B, L, E]`` with ``return_hidden``. ``decode=True`` runs the paged
-        decode branch against ``cache`` (see the module docstring)."""
+        decode branch against ``cache`` (see the module docstring).
+        ``train`` steers dropout in the JAX module; with dropout 0.0 (the
+        only value ported) it changes nothing."""
         ids = token_ids.long()
         B, L = ids.shape
         dev = ids.device
@@ -289,9 +313,14 @@ class CausalTransformer(nn.Module):
             x = (x + self.pos_embed[0][pos_full]).to(self.dtype)
         else:
             x = (x + self.pos_embed[:, :L]).to(self.dtype)
+        remat = self.remat and not decode and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks()):
-            x = block(x, valid, decode=decode, positions=positions,
-                      pages=pages, seq_lens=seq_lens, cache=cache, layer=i)
+            if remat:
+                x = checkpoint(block, x, valid, use_reentrant=False)
+            else:
+                x = block(x, valid, decode=decode, positions=positions,
+                          pages=pages, seq_lens=seq_lens, cache=cache,
+                          layer=i)
         x = self.ln_f(x).to(self.dtype)
         if return_hidden:
             return x

@@ -30,7 +30,7 @@ from typing import List, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = CSRC / "build"
-SOURCES = ("paged_attention.cu", "int8_matmul.cu")
+SOURCES = ("paged_attention.cu", "int8_matmul.cu", "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,6 +47,14 @@ _SIGNATURES = {
     # x, q, s, y, workspace, M, K, N, bm, splits, k_per_split,
     # x_dtype, y_dtype, stream
     "kubeml_int8_matmul": [_P] * 5 + [_I] * 8 + [_P],
+    # q, k, v, valid, out, lse, B, Lq, Lk, H, D, causal, dtype, stream
+    "kubeml_flash_fwd": [_P] * 6 + [_I] * 7 + [_P],
+    # q, k, v, valid, lse, dout, dsum, dq, B, Lq, Lk, H, D, causal, dtype,
+    # stream
+    "kubeml_flash_dq": [_P] * 8 + [_I] * 7 + [_P],
+    # q, k, v, valid, lse, dout, dsum, dk, dv, B, Lq, Lk, H, D, causal,
+    # dtype, stream
+    "kubeml_flash_dkv": [_P] * 9 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()

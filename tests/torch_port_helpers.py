@@ -7,6 +7,7 @@ arrays; weights travel Flax -> numpy -> ``interop.from_flax``."""
 import flax.linen as nn
 import jax
 import numpy as np
+import torch
 
 from kubeml_tpu.models.gpt import CausalTransformer as JaxTransformer
 from kubeml_tpu_torch.interop.from_flax import from_flax
@@ -32,12 +33,14 @@ def numpy_tree(variables):
 
 
 def torch_twin(jm, variables):
-    """The port's CausalTransformer with ``jm``'s config and weights, on
-    the CPU."""
+    """The port's CausalTransformer with ``jm``'s config (compute dtype,
+    remat and dropout included) and weights, on the CPU."""
     tm = CausalTransformer(vocab_size=jm.vocab_size, max_len=jm.max_len,
                            embed_dim=jm.embed_dim, depth=jm.depth,
                            num_heads=jm.num_heads, mlp_ratio=jm.mlp_ratio,
                            ln_eps=jm.ln_eps, attn_bias=jm.attn_bias,
                            pos=jm.pos, rope_theta=jm.rope_theta,
+                           dtype=getattr(torch, np.dtype(jm.dtype).name),
+                           remat=jm.remat, dropout=jm.dropout,
                            device="cpu")
     return load_tree(tm, from_flax(numpy_tree(variables)))
