@@ -47,9 +47,10 @@ def dot_product_attention(
     Masking comes as a dense ``mask`` (plain path only) and/or structurally
     as ``causal`` / ``kv_valid`` (eligible for the flash kernels). On the
     plain path masked scores take ``finfo(f32).min`` and masked weights are
-    zeroed, so a fully masked row yields zeros, not NaN. The automatic
-    choice takes the kernels only for the head dims and dtypes they are
-    built for (``flash_attention.SUPPORTED_*``)."""
+    zeroed, so a fully masked row yields zeros, not NaN. On a CUDA tensor
+    the automatic choice does not fall back to the plain path: a head dim
+    or dtype the kernels are not built for raises there; pass
+    ``impl="plain"`` to take the plain path."""
     impl = (impl or "auto").lower()
     if impl not in VALID_IMPLS:
         raise ValueError(f"unknown attention impl {impl!r} (valid: "
@@ -57,8 +58,7 @@ def dot_product_attention(
     if impl == "auto":
         impl = ("cuda" if FLASH_MIN_KV_LEN is not None and mask is None
                 and q.is_cuda and k.shape[1] >= FLASH_MIN_KV_LEN
-                and q.shape[-1] in _flash.SUPPORTED_HEAD_DIMS
-                and q.dtype in _flash.SUPPORTED_DTYPES else "plain")
+                else "plain")
     if impl in ("cuda", "pallas"):
         if mask is not None:
             raise ValueError("the flash kernels take causal/kv_valid, not a "

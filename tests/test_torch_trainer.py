@@ -13,11 +13,14 @@ Tolerances, each with its reason:
   sides, summed in other orders.
 - SGD steps: per-step losses 1e-5 and final parameters 1e-5; SGD is linear
   in the gradient, so f32 rounding differences stay at that size.
-- AdamW steps: per-step losses 1e-5; parameters within 3 steps x 2 x lr.
-  Adam's normalised step m / (sqrt(v) + eps) is about +-lr whatever the
-  gradient's size, so where a gradient is near zero the two frameworks'
-  other summation orders can flip its sign: each step may then move a
-  parameter by up to 2 x lr differently.
+- AdamW steps: per-step losses 1e-5; each parameter's movement (final
+  minus initial) within 1e-5 of JAX's movement, which is about lr per step
+  (so a trainer that leaves a parameter in place, or updates only some of
+  them, fails). Adam's normalised step m / (sqrt(v) + eps) is about +-lr
+  whatever the gradient's size, so where a gradient is near zero the two
+  frameworks' other summation orders can flip its sign: such an entry may
+  move up to 2 x lr a step differently. At most 0.1% of the entries may
+  take that allowance (none does at this size).
 """
 
 import functools
@@ -155,10 +158,18 @@ def test_three_train_steps_match_jax_trainer(monkeypatch, remat, opt, attn):
     np.testing.assert_allclose(tlosses, jlosses, **TOL)
     assert trainer.last_moe_overflow == -1.0
     params = dict(tm.named_parameters())
-    ptol = TOL if opt == "sgd" else dict(atol=3 * 2 * ADAM_LR, rtol=0)
+    start = _flat(init["params"])
+    flips = entries = 0
     for name, want in _flat(jfinal).items():
-        np.testing.assert_allclose(params[name].detach().numpy(), want,
-                                   err_msg=name, **ptol)
+        got = params[name].detach().numpy()
+        if opt == "sgd":
+            np.testing.assert_allclose(got, want, err_msg=name, **TOL)
+            continue
+        off = np.abs((got - start[name]) - (want - start[name]))
+        assert off.max() <= 3 * 2 * ADAM_LR, name
+        flips += int((off > 1e-5).sum())
+        entries += off.size
+    assert flips <= entries // 1000, f"{flips} of {entries} entries"
 
 
 def test_default_optimizer_is_optax_adamw_twin():
