@@ -8,7 +8,11 @@ Phases, each reported on its own lines:
 
 1. device - the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build  - every CUDA kernel from ``kubeml_tpu_torch/csrc`` (nvcc,
-   sm_90a, one process per source), with the build seconds;
+   sm_90a, one process per source), with the build seconds; the two
+   Hopper flash kernels (bf16 forward and dK/dV) must hold warpgroup
+   products (HGMMA) and TMA loads (UTMALDG) in their SASS
+   (``cuobjdump -sass``), must not spill, and ptxas must not have
+   serialized their wgmma;
 3. serving kernels against their plain PyTorch versions at the serving
    path's shapes (GPT-2-small width: H 12, D 64, page_tokens 16, 64-page
    tables, 8 rows), with max abs error, kernel / plain / library times on
@@ -25,10 +29,12 @@ Phases, each reported on its own lines:
 6. flash kernels - forward (out, lse), dQ and dK/dV against their plain
    versions in bf16 and f32 at the training shape (B 8, L 2048, H 8, D 64,
    causal), a ragged causal shape with 37 padded keys, cross attention
-   (Lq 300, Lk 1000) and D 128, each 64-row tile held to a relative
-   error (``FLASH_TILE_RTOL``); repeated backwards bit-identical, padded
-   keys' dK/dV exactly 0; then kernel / plain / SDPA / bound times over
-   L 128-4096 at 16,384 tokens;
+   (Lq 300, Lk 1000), D 128, D 128 cross attention with padded keys
+   inside tiles (every 7th key of one row), and causal Lq != Lk at full
+   (384 x 1024) and ragged (1000 x 640) tiles, each 64-row tile held to a
+   relative error (``FLASH_TILE_RTOL``); repeated backwards bit-identical,
+   padded keys' dK/dV exactly 0; then kernel / plain / SDPA / bound times
+   over L 128-4096 at 16,384 tokens, with kernel / SDPA ratios;
 7. train bf16 - ``benchmarks.longcontext.run_point`` at the long-context
    flagship's full width (E 512, depth 8, vocab 32000, remat, AdamW),
    L 2048: one warm-up and 10 timed steps through the kernels (launches
@@ -88,6 +94,66 @@ TF_ATOL = 5e-2
 
 def log(*parts) -> None:
     print(*parts, flush=True)
+
+
+# the Hopper kernels of the flash path: their SASS must hold warpgroup
+# products (HGMMA) and TMA loads (UTMALDG), ptxas must not have serialized
+# their wgmma, and they must not spill
+WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_dkv_wgmma_kernel")
+
+
+def check_compiled(so_path: str, build_log: str) -> None:
+    """Phase 2's check of the compiled wgmma kernels: HGMMA and UTMALDG in
+    the SASS of every instantiation (``cuobjdump -sass`` on the built
+    library), registers and spills from ptxas -v, no "wgmma ...
+    serialized" warning. Raises on any miss."""
+    import os
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        raise RuntimeError("cuobjdump not found: the compiled wgmma kernels "
+                           "cannot be checked")
+    sass = subprocess.run([tool, "-sass", so_path], capture_output=True,
+                          text=True, check=True).stdout
+    funcs = re.split(r"\n\s*Function : ", sass)[1:]
+    # ptxas -v: "Function properties for NAME", then "N bytes stack frame,
+    # N bytes spill stores, N bytes spill loads", then "Used N registers"
+    props, name = {}, None
+    for ln in build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            name = m.group(1)
+            props[name] = {}
+        elif name and "spill stores" in ln:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)
+            props[name]["spill"] = int(st) + int(ld)
+        elif name and "Used" in ln and "registers" in ln:
+            props[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", ln).group(1))
+    serialized = [ln.strip() for ln in build_log.splitlines()
+                  if "wgmma" in ln and "serializ" in ln]
+    for kname in WGMMA_KERNELS:
+        bodies = [f for f in funcs if kname in f.split("\n", 1)[0]]
+        info = [p for n, p in props.items() if kname in n]
+        hgmma = [f.count("HGMMA") for f in bodies]
+        utma = [f.count("UTMALDG") for f in bodies]
+        log(f"  {kname}: {len(bodies)} instantiations, HGMMA per "
+            f"instantiation {hgmma}, UTMALDG {utma}, registers "
+            f"{[p.get('registers') for p in info]}, spill bytes "
+            f"{[p.get('spill') for p in info]}")
+        if not bodies or min(hgmma) == 0:
+            raise AssertionError(f"{kname}: no HGMMA in its SASS")
+        if min(utma) == 0:
+            raise AssertionError(f"{kname}: no UTMALDG in its SASS")
+        if len(info) != len(bodies) or any(p.get("spill", 1) for p in info):
+            raise AssertionError(f"{kname}: spills (or no ptxas report)")
+    log(f"  ptxas wgmma serialization warnings: {len(serialized)}")
+    for ln in serialized:
+        log(f"    {ln[:200]}")
+    if serialized:
+        raise AssertionError("ptxas serialized wgmma in a kernel")
 
 
 def nvidia_smi() -> str:
@@ -374,13 +440,14 @@ def report_serve(tag, run) -> None:
         f"{int(t['prefill_waves'])} prefill waves)")
 
 
-def device_profile(run) -> float:
+def device_profile(run, also: str = "") -> float:
     """Where the time goes: a torch.profiler window around ``run()``.
     Prints the window's wall, the device-busy time (the sum of kernel
     times: one stream, so kernels do not overlap; user annotations such as
     ``Optimizer.step`` span kernels already counted and are left out), the
-    idle share, and the five kernels with the most device time. Returns
-    the busy ms (0.0 when the profiler saw no device time)."""
+    idle share, and the five kernels with the most device time, then any
+    other kernel whose name holds ``also``. Returns the busy ms (0.0 when
+    the profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -403,9 +470,11 @@ def device_profile(run) -> float:
         return 0.0
     log(f"  profile: window {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
         f"idle share {1 - busy_ms / wall_ms:.3f}")
-    for ms, count, name in sorted(kernels, reverse=True)[:5]:
-        log(f"    {100 * ms / busy_ms:5.1f}% {ms:8.2f} ms x{count:<6} "
-            f"{name[:90]}")
+    ranked = sorted(kernels, reverse=True)
+    for i, (ms, count, name) in enumerate(ranked):
+        if i < 5 or (also and also in name):
+            log(f"    {100 * ms / busy_ms:5.1f}% {ms:8.2f} ms x{count:<6} "
+                f"{name[:90]}")
     return busy_ms
 
 
@@ -527,12 +596,17 @@ def flash_bounds(q, k, valid, causal):
     return out
 
 
-def flash_inputs(g, B, Lq, Lk, D, dtype, pad_rows=0, pad=0):
+def flash_inputs(g, B, Lq, Lk, D, dtype, pad_rows=0, pad=0, holes=False):
+    """Seeded q, k, v, dO and kv_valid: the last ``pad_rows`` rows end in
+    ``pad`` padded keys; ``holes`` pads every 7th key of row 0 (from key
+    3), so padded keys sit inside tiles."""
     mk = lambda L: torch.randn(B, L, FLASH_H, D, generator=g).to(dtype).cuda()
     q, k, v, do = mk(Lq), mk(Lk), mk(Lk), mk(Lq)
     valid = torch.ones(B, Lk)
     if pad:
         valid[B - pad_rows:, Lk - pad:] = 0
+    if holes:
+        valid[0, 3::7] = 0
     return q, k, v, do, valid.cuda()
 
 
@@ -544,16 +618,19 @@ def check_flash(timer, g):
 
     from kubeml_tpu_torch.ops import flash_attention as fa
 
-    shapes = [  # (tag, B, Lq, Lk, D, causal, rows padded, pad keys)
-        ("a train", 8, 2048, 2048, 64, True, 0, 0),
-        ("b ragged", 2, 2000, 2000, 64, True, 1, 37),
-        ("c cross", 2, 300, 1000, 64, False, 1, 50),
-        ("d D128", 4, 1024, 1024, 128, True, 0, 0)]
+    shapes = [  # (tag, B, Lq, Lk, D, causal, rows padded, pad keys, holes)
+        ("a train", 8, 2048, 2048, 64, True, 0, 0, False),
+        ("b ragged", 2, 2000, 2000, 64, True, 1, 37, False),
+        ("c cross", 2, 300, 1000, 64, False, 1, 50, False),
+        ("d D128", 4, 1024, 1024, 128, True, 0, 0, False),
+        ("e holes D128", 2, 1000, 1100, 128, False, 1, 13, True),
+        ("f causal 384x1024", 2, 384, 1024, 64, True, 0, 0, False),
+        ("g causal 1000x640", 2, 1000, 640, 64, True, 0, 0, False)]
     errs = {}
-    for tag, B, Lq, Lk, D, causal, prow, pad in shapes:
+    for tag, B, Lq, Lk, D, causal, prow, pad, holes in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, do, valid = flash_inputs(g, B, Lq, Lk, D, dtype, prow,
-                                              pad)
+                                              pad, holes)
             out, lse = fa._flash_fwd_cuda(q, k, v, valid, causal)
             ro, rl = fa.flash_attention_fwd_ref(q, k, v, valid, causal)
             dsum = fa._dsum(do, ro)
@@ -581,13 +658,15 @@ def check_flash(timer, g):
             if not all(torch.equal(a, b) for a, b in zip(grads, again)):
                 raise AssertionError(f"flash {tag} {dtype}: two backward "
                                      f"runs differ")
-            if pad and max(t[B - prow:, Lk - pad:].abs().max().item()
-                           for t in grads[1:]) != 0.0:
+            dead = valid == 0
+            if dead.any() and max(t[dead].abs().max().item()
+                                  for t in grads[1:]) != 0.0:
                 raise AssertionError(f"flash {tag} {dtype}: padded keys got "
                                      f"non-zero dK/dV")
             errs[(tag, dtype)] = row
             log(f"  flash {tag} B{B} Lq{Lq} Lk{Lk} D{D} "
-                f"{'causal' if causal else 'full'} pad {pad} "
+                f"{'causal' if causal else 'full'} pad {pad}"
+                f"{' + holes' if holes else ''} "
                 f"{str(dtype).split('.')[-1]}: max abs err "
                 + " ".join(f"{n} {e:.2e}" for n, e in row.items())
                 + "; worst 64-row tile's relative error "
@@ -595,8 +674,9 @@ def check_flash(timer, g):
                 + f" (tolerance {FLASH_TILE_RTOL[dtype]:.2e}, lse "
                 f"{FLASH_TILE_RTOL[torch.float32]:.0e})"
                 + "; backward bit-identical on repeat"
-                + ("; padded keys' dK/dV exactly 0" if pad else ""))
-            del q, k, v, do, out, lse, ro, rl, grads, again, refs
+                + (f"; {int(dead.sum())} padded keys' dK/dV exactly 0"
+                   if dead.any() else ""))
+            del q, k, v, do, out, lse, ro, rl, grads, again, refs, dead
     sweep = {}
     # 512-4096 around the training shape; 128 and 256 for the length at
     # which the kernels stop beating the plain path (the dispatch threshold)
@@ -626,6 +706,10 @@ def check_flash(timer, g):
                 sd_out, (qt, kt, vt), dot_, retain_graph=True)))
         for name, (ms, by) in flash_bounds(q, k, valid, True).items():
             row[f"{name}_bound_ms"], row[f"{name}_bound_by"] = ms, by
+        # within-call ratios to the library calls (SDPA forward; SDPA's
+        # whole backward, dQ + dK + dV, for dK/dV)
+        row["fwd_over_library"] = row["fwd_ms"] / row["fwd_library_ms"]
+        row["dkv_over_library"] = row["dkv_ms"] / row["bwd_library_ms"]
         log("  flash sweep", json.dumps(row))
         sweep[L] = row
         del q, k, v, do, out, lse, qt, kt, vt, sd_out, dot_
@@ -685,7 +769,7 @@ def train_profile() -> float:
         for _ in range(3):
             trainer.train_step(tokens)
 
-    busy_ms = device_profile(run) / 3
+    busy_ms = device_profile(run, also="flash_") / 3
     del trainer
     torch.cuda.empty_cache()
     return busy_ms
@@ -772,6 +856,17 @@ def main() -> int:
         f"spills: {len(spills)}")
     for ln in spills:
         log(f"  {ln}")
+    build_log = kernels.build_log
+    if not build_log:  # the library came from an earlier run's build
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            build_log = subprocess.run(
+                [kernels._nvcc(), *kernels.NVCC_FLAGS, "-c",
+                 str(kernels.CSRC / "flash_attention.cu"), "-o",
+                 f"{tmp}/flash_attention.o"], capture_output=True, text=True,
+                check=True).stdout
+    check_compiled(kernels.library()._name, build_log)
 
     # 3. kernels against their plain versions
     log("[3/9 kernels]")

@@ -140,8 +140,9 @@ def _check_cuda_args(q, k, v, valid) -> None:
 
 
 def _dense(t):
-    """Contiguous, and 16-byte aligned for the bf16 kernels' vector loads
-    (a contiguous view may start at an odd offset of its storage)."""
+    """Contiguous, and 16-byte aligned for the bf16 kernels' TMA maps and
+    vector loads (a contiguous view may start at an odd offset of its
+    storage)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 

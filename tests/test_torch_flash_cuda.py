@@ -90,6 +90,27 @@ def test_kernels_match_plain_versions(card, dtype, D, Lq, Lk, causal):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Lq,Lk,D,causal,holes", [
+    (1000, 1100, 128, False, True),  # padded keys inside tiles
+    (384, 1024, 64, True, False),    # causal, Lq < Lk, full tiles
+    (1000, 640, 64, True, False)])   # causal, Lq > Lk, ragged tiles
+def test_masks_inside_tiles_and_causal_cross_lengths(card, dtype, Lq, Lk, D,
+                                                     causal, holes):
+    """The per-tile mask decisions of the bf16 kernels (the diagonal, a
+    tile holding a padded key, a ragged last tile) and TMA's zero fill
+    past L: every 7th key of row 0 and the last 13 keys of row 1 padded,
+    or causal masks with Lq != Lk; padded keys get exactly zero dK/dV."""
+    valid = torch.ones(2, Lk)
+    if holes:
+        valid[0, 3::7] = 0
+        valid[1, -13:] = 0
+    _, _, _, dk, dv = run(card, 2, Lq, Lk, 2, D, dtype, causal, valid)
+    dead = valid.cuda() == 0
+    if holes:
+        assert dk[dead].abs().max() == 0 and dv[dead].abs().max() == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fully_masked_rows(card, dtype):
     """A row whose keys are all padding: output 0, lse ~ -1e30, zero
     gradients for its keys, and no NaN anywhere."""
