@@ -8,8 +8,8 @@ Phases, each reported on its own lines:
 
 1. device - the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build  - every CUDA kernel from ``kubeml_tpu_torch/csrc`` (nvcc,
-   sm_90a, one process per source), with the build seconds; the two
-   Hopper flash kernels (bf16 forward and dK/dV) must hold warpgroup
+   sm_90a, one process per source), with the build seconds; the three
+   Hopper flash kernels (bf16 forward, dQ and dK/dV) must hold warpgroup
    products (HGMMA) and TMA loads (UTMALDG) in their SASS
    (``cuobjdump -sass``), must not spill, and ptxas must not have
    serialized their wgmma;
@@ -31,7 +31,9 @@ Phases, each reported on its own lines:
    causal), a ragged causal shape with 37 padded keys, cross attention
    (Lq 300, Lk 1000), D 128, D 128 cross attention with padded keys
    inside tiles (every 7th key of one row), and causal Lq != Lk at full
-   (384 x 1024) and ragged (1000 x 640) tiles, each 64-row tile held to a
+   (384 x 1024) and ragged (1000 x 640) tiles, and causal 130 x 130 (the
+   last 128-query block holds 2 real rows: one consumer warpgroup's rows
+   all lie past Lq), each 64-row tile held to a
    relative error (``FLASH_TILE_RTOL``); repeated backwards bit-identical,
    padded keys' dK/dV exactly 0; then kernel / plain / SDPA / bound times
    over L 128-4096 at 16,384 tokens, with kernel / SDPA ratios;
@@ -99,7 +101,8 @@ def log(*parts) -> None:
 # the Hopper kernels of the flash path: their SASS must hold warpgroup
 # products (HGMMA) and TMA loads (UTMALDG), ptxas must not have serialized
 # their wgmma, and they must not spill
-WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_dkv_wgmma_kernel")
+WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel",
+                 "flash_dkv_wgmma_kernel")
 
 
 def check_compiled(so_path: str, build_log: str) -> None:
@@ -625,7 +628,8 @@ def check_flash(timer, g):
         ("d D128", 4, 1024, 1024, 128, True, 0, 0, False),
         ("e holes D128", 2, 1000, 1100, 128, False, 1, 13, True),
         ("f causal 384x1024", 2, 384, 1024, 64, True, 0, 0, False),
-        ("g causal 1000x640", 2, 1000, 640, 64, True, 0, 0, False)]
+        ("g causal 1000x640", 2, 1000, 640, 64, True, 0, 0, False),
+        ("h causal 130x130", 2, 130, 130, 64, True, 1, 13, False)]
     errs = {}
     for tag, B, Lq, Lk, D, causal, prow, pad, holes in shapes:
         for dtype in (torch.bfloat16, torch.float32):
@@ -707,8 +711,9 @@ def check_flash(timer, g):
         for name, (ms, by) in flash_bounds(q, k, valid, True).items():
             row[f"{name}_bound_ms"], row[f"{name}_bound_by"] = ms, by
         # within-call ratios to the library calls (SDPA forward; SDPA's
-        # whole backward, dQ + dK + dV, for dK/dV)
+        # whole backward, dQ + dK + dV, for dQ and for dK/dV)
         row["fwd_over_library"] = row["fwd_ms"] / row["fwd_library_ms"]
+        row["dq_over_library"] = row["dq_ms"] / row["bwd_library_ms"]
         row["dkv_over_library"] = row["dkv_ms"] / row["bwd_library_ms"]
         log("  flash sweep", json.dumps(row))
         sweep[L] = row

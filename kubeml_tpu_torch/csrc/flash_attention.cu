@@ -4,7 +4,7 @@
 // Replaces the three Pallas TPU kernels of kubeml_tpu/ops/flash_attention.py:
 //   flash_fwd_kernel (f32), flash_fwd_wgmma_kernel (bf16) <- _fa_kernel
 //       (wrapper _flash_fwd_impl)
-//   flash_dq_kernel (f32), flash_dq_mma_kernel (bf16)     <- _dq_kernel
+//   flash_dq_kernel (f32), flash_dq_wgmma_kernel (bf16)   <- _dq_kernel
 //       (wrapper _flash_bwd_impl, first call)
 //   flash_dkv_kernel (f32), flash_dkv_wgmma_kernel (bf16) <- _dkv_kernel
 //       (wrapper _flash_bwd_impl, second call)
@@ -23,21 +23,26 @@
 //     starting at the diagonal when causal. Every block owns its output
 //     tile, so there are no atomics and the gradients are bit-identical
 //     from run to run;
-//   * bf16 forward and dK/dV (the training path's two largest kernels) use
-//     what only Hopper has (see the wgmma section below): warpgroup wgmma
-//     products, the only way to the tensor cores' full rate, with operands
-//     read from shared memory through descriptors (V, dO and Q transposed
-//     by the descriptor, no transposed copies); tiles brought by the Tensor
-//     Memory Accelerator into a two-stage ring by a producer warp, so the
-//     next tile loads while the current one is multiplied; two consumer
+//   * bf16 kernels (the training path) use what only Hopper has (see the
+//     wgmma section below): warpgroup wgmma products, the only way to the
+//     tensor cores' full rate, with operands read from shared memory
+//     through descriptors (V, dO, Q and, for dQ, K transposed by the
+//     descriptor, no transposed copies); tiles brought by the Tensor Memory
+//     Accelerator into a two-stage ring by a producer warp, so the next
+//     tile loads while the current one is multiplied; two consumer
 //     warpgroups of 64 rows each (128-row tiles: each K/V or Q/dO tile read
 //     feeds 128 rows; dK/dV at D 128 keeps one, for registers); the
 //     per-element mask only on tiles that cross the causal diagonal, run
 //     past L or hold a padded key (one vote per tile), and the softmax in
 //     exp2 with scale * log2(e) folded into one FMA;
-//   * bf16 dQ still uses mma.sync m16n8k16 (Ampere-style warp products with
-//     plain loads into shared memory, K transposed by 2-byte stores), 4
-//     warps per 64-query block; its redesign is the next step;
+//   * bf16 dQ (flash_dq_wgmma_kernel) does three products per (query, key)
+//     pair, S, dP and dS.K, so it is bound by operations like the others.
+//     Its block holds Q and dO of 128 queries for the whole walk and
+//     streams 64-key K/V tiles: S = Q K^T and dP = dO V^T as SS wgmma, P and
+//     dS in registers (each row's lse and dsum read once into registers),
+//     dQ += dS K as RS wgmma reading the same K stage MN-major. 64-key
+//     tiles keep S, dP and dQ (up to 128 f32 a thread at D 128) within the
+//     registers of two consumer warpgroups;
 //   * f32 inputs compute in f32 on the CUDA cores, so the chain to the CPU
 //     tests stays exact: tiles staged in shared memory as f32, each of 256
 //     threads holding a 4 x 4 block of the score tile in registers (rows
@@ -413,126 +418,13 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Args a) {
   }
 }
 
-// --- bf16 dQ on the tensor cores with mma.sync ----------------------------
-//
-// mma.sync m16n8k16 (bf16 in, f32 accumulate): 4 warps per block, each warp
-// owns 16 rows of the block's 64-row tile. Tiles sit in shared memory as
-// bf16, rows padded by 8 elements so the fragment loads hit 32 distinct
-// banks; the right-hand operand of dS.K is staged transposed ([D][64]). The
-// score tile's accumulator fragments are, pair by pair, the left-hand
-// fragments of the next product (dS), so dS never leaves registers; it is
-// rounded to bf16 by that packing, as the Pallas kernel casts it. The
-// wgmma kernels below reuse that fragment layout: a wgmma accumulator is
-// the same per-warp pattern over 64 rows.
+// --- bf16 helpers -----------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
-constexpr int kMmaThreads = 128;
-constexpr int kTS = kTile + 8;  // row stride of a transposed [D][64] tile
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Rows [row0, row0 + 64) of head h of a [B, L, H, D] bf16 tensor into a
-// [64][D + 8] tile, 16 bytes per thread and copy; rows past L are zeros.
-template <int D>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* __restrict__ src,
-                                               int b, int h, int row0, int L, int H) {
-  constexpr int VPR = D / 8;
-  for (int idx = threadIdx.x; idx < kTile * VPR; idx += kMmaThreads) {
-    const int r = idx / VPR;
-    const int c = idx - r * VPR;
-    const int row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < L)
-      val = *reinterpret_cast<const uint4*>(src + (((size_t)b * L + row) * H + h) * D + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c * 8) = val;
-  }
-}
-
-// The same rows transposed into a [D][64 + 8] tile. Consecutive threads take
-// consecutive rows of one 8-column chunk, so the 2-byte stores of a warp
-// fall in distinct words.
-template <int D>
-__device__ __forceinline__ void load_tile_bf16_t(bf16* dst, const bf16* __restrict__ src,
-                                                 int b, int h, int row0, int L, int H) {
-  constexpr int VPR = D / 8;
-  for (int idx = threadIdx.x; idx < kTile * VPR; idx += kMmaThreads) {
-    const int c = idx / kTile;
-    const int r = idx - c * kTile;
-    const int row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < L)
-      val = *reinterpret_cast<const uint4*>(src + (((size_t)b * L + row) * H + h) * D + c * 8);
-    const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[(c * 8 + i) * kTS + r] = e[i];
-  }
-}
-
-// Left-hand fragment of rows [r0, r0 + 16), k-step kk, of a [64][D + 8] tile.
-template <int D>
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* t, int r0, int kk,
-                                       int g, int tig) {
-  const bf16* p = t + (r0 + g) * (D + 8) + kk * 16 + tig * 2;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * (D + 8));
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * (D + 8) + 8);
-}
-
-// acc[nb] += A(rows r0.., D) . Y(rows nb*8.., D)^T for the 8 column blocks of
-// a 64-row tile Y: a [16, 64] score-like tile from two [.., D] tiles.
-template <int D>
-__device__ __forceinline__ void mma_scores(float (&acc)[8][4], const bf16* A, int r0,
-                                           const bf16* Y, int g, int tig) {
-#pragma unroll
-  for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[nb][c] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    frag_a<D>(a, A, r0, kk, g, tig);
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-      const bf16* p = Y + (nb * 8 + g) * (D + 8) + kk * 16 + tig * 2;
-      mma_bf16(acc[nb], a, ld32(p), ld32(p + 8));
-    }
-  }
-}
-
-// acc[nb] += X(16 x 64, the f32 accumulator fragments x, rounded to bf16) .
-// Z for a transposed tile Zt [D][64 + 8] (Z[t][n] = Zt[n][t]).
-template <int D>
-__device__ __forceinline__ void mma_rows_by_tile(float (&acc)[D / 8][4], const float (&x)[8][4],
-                                                 const bf16* Zt, int g, int tig) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const uint32_t a[4] = {pack_bf16(x[2 * j][0], x[2 * j][1]),
-                           pack_bf16(x[2 * j][2], x[2 * j][3]),
-                           pack_bf16(x[2 * j + 1][0], x[2 * j + 1][1]),
-                           pack_bf16(x[2 * j + 1][2], x[2 * j + 1][3])};
-#pragma unroll
-    for (int nb = 0; nb < D / 8; ++nb) {
-      const bf16* p = Zt + (nb * 8 + g) * kTS + j * 16 + tig * 2;
-      mma_bf16(acc[nb], a, ld32(p), ld32(p + 8));
-    }
-  }
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -545,109 +437,43 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-
-template <int D>
-constexpr size_t dq_mma_smem() {  // sQ, sdO, sK, sV, sKt, sValid, sLse, sDsum
-  return 2 * (4 * kTile * (D + 8) + D * kTS) + sizeof(float) * 3 * kTile;
-}
-
-template <int D, bool kCausal>
-__global__ void __launch_bounds__(kMmaThreads) flash_dq_mma_kernel(const Args a) {
-  constexpr int NB = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sdO = sQ + kTile * (D + 8);
-  bf16* sK = sdO + kTile * (D + 8);
-  bf16* sV = sK + kTile * (D + 8);
-  bf16* sKt = sV + kTile * (D + 8);
-  float* sValid = reinterpret_cast<float*>(sKt + D * kTS);
-  float* sLse = sValid + kTile;
-  float* sDsum = sLse + kTile;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int g = (threadIdx.x & 31) >> 2;
-  const int tig = threadIdx.x & 3;
-  const int r0 = warp * 16;
-  const bf16* k = static_cast<const bf16*>(a.k);
-  const bf16* v = static_cast<const bf16*>(a.v);
-
-  load_tile_bf16<D>(sQ, static_cast<const bf16*>(a.q), b, h, q0, a.Lq, a.H);
-  load_tile_bf16<D>(sdO, static_cast<const bf16*>(a.dout), b, h, q0, a.Lq, a.H);
-  load_rows(sLse, a.lse, b, h, q0, a.Lq, a.H);
-  load_rows(sDsum, a.dsum, b, h, q0, a.Lq, a.H);
-  float acc[NB][4];
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[nb][c] = 0.f;
-  const int k_end = kCausal ? min(a.Lk, q0 + kTile) : a.Lk;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();
-    load_tile_bf16<D>(sK, k, b, h, k0, a.Lk, a.H);
-    load_tile_bf16<D>(sV, v, b, h, k0, a.Lk, a.H);
-    load_tile_bf16_t<D>(sKt, k, b, h, k0, a.Lk, a.H);
-    load_valid(sValid, a.valid, b, k0, a.Lk);
-    __syncthreads();
-    float s[8][4], dp[8][4];
-    mma_scores<D>(s, sQ, r0, sK, g, tig);
-    mma_scores<D>(dp, sdO, r0, sV, g, tig);
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int key = nb * 8 + tig * 2 + (c & 1);
-        const int r = r0 + g + 8 * (c >> 1);
-        const bool keep = sValid[key] > 0.f && (!kCausal || k0 + key <= q0 + r);
-        const float x = keep ? s[nb][c] * a.scale : kNeg;
-        const float p = x <= 0.5f * kNeg ? 0.f : expf(x - sLse[r]);
-        s[nb][c] = p * (dp[nb][c] - sDsum[r]) * a.scale;  // dS
-      }
-    mma_rows_by_tile<D>(acc, s, sKt, g, tig);
-  }
-  bf16* dq = static_cast<bf16*>(a.out);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + r0 + g + 8 * i;
-    if (row >= a.Lq) continue;
-    bf16* qrow = dq + (((size_t)b * a.Lq + row) * a.H + h) * D + tig * 2;
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
-      *reinterpret_cast<uint32_t*>(qrow + nb * 8) =
-          pack_bf16(acc[nb][2 * i], acc[nb][2 * i + 1]);
-  }
-}
-
-// --- bf16 forward and dK/dV: Hopper warpgroups fed by TMA -------------------
+// --- bf16 forward, dQ and dK/dV: Hopper warpgroups fed by TMA --------------
 //
-// flash_fwd_wgmma_kernel and flash_dkv_wgmma_kernel: consumer warpgroups
-// (two; one for dK/dV at D 128, see dkv_groups) that each own 64 rows of
-// the block's tile and multiply with wgmma, then one producer warp that
-// streams tiles into a ring of kStages shared-memory stages with the Tensor
-// Memory Accelerator. Every stage has a full mbarrier (32 producer lanes
-// arrive, TMA adds the bytes) and an empty one (the consumer warps arrive
-// once their products have read it). A producer warp rather than a
-// producer warpgroup, and no setmaxnreg: ptxas gives every thread of the
-// block the same register budget whether or not setmaxnreg moves registers
-// at run time, so a whole producer warpgroup would only shrink the
-// consumers' budget (168 registers a thread at 384 threads, as at 288). Each
-// [B, L, H, D] tensor is a 4-D TMA map (D, H, L, B) read in place, boxes of
-// 64 columns (128 bytes, 128-byte swizzle) by the tile's rows; rows past L
-// arrive as zeros, and a box never leaves its (b, h) slice. The wgmma
-// descriptors match that layout: 8-row atoms of 1024 bytes, K-major for
-// the operands whose reduction runs along D, MN-major (transposed by the
-// descriptor, no copy) for V, dO and Q where it runs along the rows.
+// flash_fwd_wgmma_kernel, flash_dq_wgmma_kernel and flash_dkv_wgmma_kernel:
+// consumer warpgroups (two; one for dK/dV at D 128, see dkv_groups) that
+// each own 64 rows of the block's tile and multiply with wgmma, then one
+// producer warp that streams tiles into a ring of kStages shared-memory
+// stages with the Tensor Memory Accelerator. Every stage has a full mbarrier
+// (32 producer lanes arrive, TMA adds the bytes) and an empty one (the
+// consumer warps arrive once their products have read it). A producer warp
+// rather than a producer warpgroup, and no setmaxnreg: ptxas gives every
+// thread of the block the same register budget whether or not setmaxnreg
+// moves registers at run time, so a whole producer warpgroup would only
+// shrink the consumers' budget (168 registers a thread at 384 threads, as at
+// 288). Each [B, L, H, D] tensor is a 4-D TMA map (D, H, L, B) read in
+// place, boxes of 64 columns (128 bytes, 128-byte swizzle) by the tile's
+// rows; rows past L arrive as zeros, and a box never leaves its (b, h)
+// slice. The wgmma descriptors match that layout: 8-row atoms of 1024
+// bytes, K-major for the operands whose reduction runs along D, MN-major
+// (transposed by the descriptor, no copy) for V, dO, Q and K where it runs
+// along the rows.
 
 constexpr int kWgThreads = 128;             // one warpgroup
 constexpr int kFwdThreads = 2 * kWgThreads + 32;  // two consumers + producer
 constexpr int kFwdRows = 128;               // queries per forward block
 constexpr int kFwdKeys = 128;               // keys per forward K/V tile
 constexpr int kDkvRows = 64;                // queries per dK/dV Q/dO tile
+constexpr int kDqKeys = 64;                 // keys per dQ K/V tile
+// queries per dQ block: two consumer warpgroups at both head dims. A thread
+// holds dQ (D / 2 f32), S and dP of one 64-key tile (32 each) and dS as
+// bf16 pairs (16), which fits the 168 registers a thread of a 288-thread
+// block gets, also at D 128 (ptxas: 154 and 168 registers, no spill)
+constexpr int kDqRows = 128;
 constexpr int kStages = 2;
 constexpr float kLog2e = 1.4426950408889634f;
-static_assert(kFwdKeys == 128 && kDkvRows == 64 && kFwdRows == 2 * 64,
-              "two 64-row forward warpgroups; score products m64n128 and m64n64");
+static_assert(kFwdKeys == 128 && kDkvRows == 64 && kDqKeys == 64 && kFwdRows == 2 * 64 &&
+                  kDqRows == 2 * 64,
+              "two 64-row forward and dQ warpgroups; score products m64n128 and m64n64");
 
 // Consumer warpgroups of a dK/dV block, each owning 64 keys: two at D 64;
 // one at D 128, where dK and dV (128 f32 accumulators a thread) with S^T
@@ -814,6 +640,42 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// The producer warp's walk over n_tiles K/V tiles of kKeys keys (forward
+// and dQ): for each, wait until its stage is free, stage the tile's
+// kv_valid (keys past Lk count as padded) and its all-real vote, then start
+// the TMA loads of K and V, which complete on the stage's full barrier. sk,
+// sv: stage 0's K and V tiles, kKeys * D * 2 bytes a stage.
+template <int D, int kKeys>
+__device__ __forceinline__ void stream_kv(const Args& a, const CUtensorMap* tk,
+                                          const CUtensorMap* tv, uint32_t sk, uint32_t sv,
+                                          float* sValid, int* sFlag, uint32_t full,
+                                          uint32_t empty, int n_tiles, int h, int b, int lane) {
+  constexpr int kBytes = kKeys * D * 2;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kStages;
+    mbar_wait(empty + 8 * s, ((t / kStages) & 1) ^ 1);
+    const int k0 = t * kKeys;
+    bool all = true;
+    for (int j = lane; j < kKeys; j += 32) {
+      const float v = k0 + j < a.Lk ? a.valid[(size_t)b * a.Lk + k0 + j] : 0.f;
+      sValid[s * kKeys + j] = v;
+      all = all && v > 0.f;
+    }
+    all = __all_sync(0xffffffffu, all);
+    if (lane == 0) {
+      sFlag[s] = all;
+      const uint32_t bar = full + 8 * s;
+      mbar_expect_tx(bar, 2 * kBytes);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load(sk + s * kBytes + c * kKeys * 128, tk, bar, 64 * c, h, k0, b);
+        tma_load(sv + s * kBytes + c * kKeys * 128, tv, bar, 64 * c, h, k0, b);
+      }
+    } else {
+      mbar_arrive(full + 8 * s);
+    }
+  }
+}
+
 // Shared memory of the forward, byte offsets from a 1024-aligned base:
 // Q [D/64 boxes][128 rows][128 B]; kStages K and V tiles, the same shape;
 // kv_valid and the tile's all-real vote per stage; the mbarriers.
@@ -912,29 +774,8 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       for (int c = 0; c < D / 64; ++c)
         tma_load(base + S::kQ + c * kFwdRows * 128, &tq, qbar, 64 * c, h, q0, b);
     }
-    for (int t = 0; t < n_tiles; ++t) {
-      const int s = t % kStages;
-      mbar_wait(empty + 8 * s, ((t / kStages) & 1) ^ 1);
-      const int k0 = t * kFwdKeys;
-      bool all = true;
-      for (int j = lane; j < kFwdKeys; j += 32) {
-        const float v = k0 + j < a.Lk ? a.valid[(size_t)b * a.Lk + k0 + j] : 0.f;
-        sValid[s * kFwdKeys + j] = v;
-        all = all && v > 0.f;
-      }
-      all = __all_sync(0xffffffffu, all);
-      if (lane == 0) {
-        sFlag[s] = all;
-        const uint32_t bar = full + 8 * s;
-        mbar_expect_tx(bar, 2 * S::kTile);
-        for (int c = 0; c < D / 64; ++c) {
-          tma_load(base + S::kK + s * S::kTile + c * kFwdKeys * 128, &tk, bar, 64 * c, h, k0, b);
-          tma_load(base + S::kV + s * S::kTile + c * kFwdKeys * 128, &tv, bar, 64 * c, h, k0, b);
-        }
-      } else {
-        mbar_arrive(full + 8 * s);
-      }
-    }
+    stream_kv<D, kFwdKeys>(a, &tk, &tv, base + S::kK, base + S::kV, sValid, sFlag, full, empty,
+                           n_tiles, h, b, lane);
   } else {  // consumers: warpgroup cw owns query rows q0 + 64 cw ..
     const int cw = threadIdx.x / kWgThreads;
     const int tid = threadIdx.x % kWgThreads;
@@ -1013,6 +854,173 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       if (t4 == 0)
         a.lse_out[((size_t)b * a.H + h) * a.Lq + row] =
             (m[r] <= 0.5f * kNeg ? kNeg : m[r] * a.scale) + logf(lc);
+    }
+  }
+}
+
+// Shared memory of dQ: Q and dO of the block's queries, once; kStages K and
+// V tiles of 64 keys; kv_valid and the tile's all-real vote per stage; the
+// mbarriers.
+template <int D>
+struct DqSmem {
+  static constexpr int kTile = kDqKeys * D * 2;
+  static constexpr int kQ = 0;
+  static constexpr int kdO = kQ + kDqRows * D * 2;
+  static constexpr int kK = kdO + kDqRows * D * 2;
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kValid = kV + kStages * kTile;
+  static constexpr int kFlag = kValid + kStages * kDqKeys * 4;
+  static constexpr int kBar = kFlag + 16;  // full[kStages], empty[kStages], q/dO
+  static constexpr int kBytes = kBar + 8 * (2 * kStages + 1) + 1024;
+};
+
+// dQ, bf16 (replaces _dq_kernel): one block per (query tile, h, b),
+// longest causal walks first, walking the K/V tiles (to the diagonal when
+// causal). Each consumer warpgroup owns 64 queries, whose lse and dsum it
+// holds in registers: S = Q K^T and dP = dO V^T as SS wgmma m64n64k16 (all
+// K-major); P and dS = P (dP - dsum) scale stay in registers and feed
+// dQ += dS K as RS wgmma m64nDk16, with the same K stage read MN-major
+// through a second descriptor.
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    flash_dq_wgmma_kernel(const Args a, const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo) {
+  using S = DqSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  float* sValid = reinterpret_cast<float*>(sm + S::kValid);
+  int* sFlag = reinterpret_cast<int*>(sm + S::kFlag);
+  const uint32_t full = base + S::kBar, empty = full + 8 * kStages,
+                 qbar = empty + 8 * kStages;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kDqRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int k_end = kCausal ? min(a.Lk, q0 + kDqRows) : a.Lk;
+  const int n_tiles = (k_end + kDqKeys - 1) / kDqKeys;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 32);
+      mbar_init(empty + 8 * s, 8);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 2 * kWgThreads) {  // the producer warp
+    const int lane = threadIdx.x - 2 * kWgThreads;
+    if (lane == 0) {
+      mbar_expect_tx(qbar, 2 * kDqRows * D * 2);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load(base + S::kQ + c * kDqRows * 128, &tq, qbar, 64 * c, h, q0, b);
+        tma_load(base + S::kdO + c * kDqRows * 128, &tdo, qbar, 64 * c, h, q0, b);
+      }
+    }
+    stream_kv<D, kDqKeys>(a, &tk, &tv, base + S::kK, base + S::kV, sValid, sFlag, full, empty,
+                          n_tiles, h, b, lane);
+  } else {  // consumers: warpgroup cw owns query rows q0 + 64 cw ..
+    const int cw = threadIdx.x / kWgThreads;
+    const int tid = threadIdx.x % kWgThreads;
+    const int w4 = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+    const int qw0 = q0 + 64 * cw;
+    const int qrow = qw0 + 16 * w4 + g;  // this thread's rows: qrow, qrow + 8
+    const float c2 = a.scale * kLog2e;
+    // the rows' lse (exp2 domain) and dsum; rows past Lq read 0 (their Q
+    // and dO arrive as zeros, so their dS is 0, and they are not stored)
+    float lse2[2], dsum[2];
+    const size_t rows = ((size_t)b * a.H + h) * a.Lq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool in = qrow + 8 * r < a.Lq;
+      lse2[r] = in ? a.lse[rows + qrow + 8 * r] * kLog2e : 0.f;
+      dsum[r] = in ? a.dsum[rows + qrow + 8 * r] : 0.f;
+    }
+    // operands: Q and dO rows of this warpgroup, K and V K-major for S and
+    // dP; K MN-major for dQ; descriptors are built at each product from
+    // 32-bit shared addresses
+    const uint32_t sq = base + S::kQ + cw * 64 * 128;
+    const uint32_t sdo = base + S::kdO + cw * 64 * 128;
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    mbar_wait(qbar, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kStages;
+      mbar_wait(full + 8 * s, (t / kStages) & 1);
+      const int k0 = t * kDqKeys;
+      const uint32_t sk = base + S::kK + s * S::kTile;
+      const uint32_t sv = base + S::kV + s * S::kTile;
+      float sc[kDqKeys / 2], dp[kDqKeys / 2];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {  // k16 steps: 32 bytes within a box
+        const uint32_t offa = (kk >> 2) * kDqRows * 128 + (kk & 3) * 32;
+        const uint32_t offb = (kk >> 2) * kDqKeys * 128 + (kk & 3) * 32;
+        wgmma_ss_n64(sc, sw128_desc(sq + offa, 16), sw128_desc(sk + offb, 16), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t offa = (kk >> 2) * kDqRows * 128 + (kk & 3) * 32;
+        const uint32_t offb = (kk >> 2) * kDqKeys * 128 + (kk & 3) * 32;
+        wgmma_ss_n64(dp, sw128_desc(sdo + offa, 16), sw128_desc(sv + offb, 16), kk > 0);
+      }
+      wg_commit();
+      wg_wait0();
+      reg_fence(sc);
+      reg_fence(dp);
+      // the per-element mask only where the tile crosses this warpgroup's
+      // causal diagonal, holds a padded key or runs past Lk. A select, not
+      // a product: a fully masked row's lse is ~ -1e30, so its p is +inf
+      const float* valid = sValid + s * kDqKeys;
+      const bool masked = !sFlag[s] || (kCausal && k0 + kDqKeys - 1 > qw0);
+#pragma unroll
+      for (int i = 0; i < kDqKeys / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        float p = fast_exp2(fmaf(sc[i], c2, -lse2[r]));
+        if (masked) {
+          const int key = 8 * (i >> 2) + 2 * t4 + (i & 1);
+          const bool keep =
+              valid[key] > 0.f && (!kCausal || k0 + key <= qrow + 8 * r);
+          p = keep ? p : 0.f;
+        }
+        dp[i] = p * (dp[i] - dsum[r]) * a.scale;
+      }
+      uint32_t da[kDqKeys / 16][4];  // dS rounded to bf16, as the A fragments
+#pragma unroll
+      for (int kk = 0; kk < kDqKeys / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          da[kk][e] = pack_bf16(dp[8 * kk + 2 * e], dp[8 * kk + 2 * e + 1]);
+      reg_fence(dq);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDqKeys / 16; ++kk) {  // 16 keys = 2 atoms
+        const uint64_t bk = sw128_desc(sk + kk * 16 * 128, kDqKeys * 128);
+        if constexpr (D == 64)
+          wgmma_rs_n64(dq, da[kk], bk);
+        else
+          wgmma_rs_n128(dq, da[kk], bk);
+      }
+      wg_commit();
+      wg_wait0();
+      reg_fence(dq);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+    }
+    bf16* out = static_cast<bf16*>(a.out);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = qrow + 8 * r;
+      if (row >= a.Lq) continue;
+      bf16* drow = out + (((size_t)b * a.Lq + row) * a.H + h) * D + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(drow + 8 * j) =
+            pack_bf16(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
     }
   }
 }
@@ -1275,8 +1283,7 @@ int bf16_map(CUtensorMap* map, const void* p, int B, int L, int H, int D, int ro
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// f32 on the CUDA cores; bf16 forward and dK/dV with wgmma and TMA, bf16
-// dQ with mma.sync
+// f32 on the CUDA cores; bf16 with wgmma and TMA
 template <typename T, int D, bool C>
 struct Fwd {
   static int go(const Args& a, cudaStream_t s) {
@@ -1300,11 +1307,21 @@ struct Fwd {
 template <typename T, int D, bool C>
 struct Dq {
   static int go(const Args& a, cudaStream_t s) {
-    const dim3 grid(tiles(a.Lq), a.H, a.B);
-    if constexpr (std::is_same<T, bf16>::value)
-      return run(flash_dq_mma_kernel<D, C>, grid, kMmaThreads, dq_mma_smem<D>(), a, s);
-    else
-      return run(flash_dq_kernel<D, C>, grid, kThreads, dq_smem<D>(), a, s);
+    if constexpr (std::is_same<T, bf16>::value) {
+      CUtensorMap tq, tk, tv, tdo;
+      int e;
+      if ((e = bf16_map(&tq, a.q, a.B, a.Lq, a.H, D, kDqRows)) ||
+          (e = bf16_map(&tk, a.k, a.B, a.Lk, a.H, D, kDqKeys)) ||
+          (e = bf16_map(&tv, a.v, a.B, a.Lk, a.H, D, kDqKeys)) ||
+          (e = bf16_map(&tdo, a.dout, a.B, a.Lq, a.H, D, kDqRows)))
+        return e;
+      const dim3 grid((a.Lq + kDqRows - 1) / kDqRows, a.H, a.B);
+      return run(flash_dq_wgmma_kernel<D, C>, grid, kFwdThreads, DqSmem<D>::kBytes, a, s, tq,
+                 tk, tv, tdo);
+    } else {
+      return run(flash_dq_kernel<D, C>, dim3(tiles(a.Lq), a.H, a.B), kThreads, dq_smem<D>(), a,
+                 s);
+    }
   }
 };
 

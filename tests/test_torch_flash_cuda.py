@@ -79,10 +79,13 @@ def run(g, B, Lq, Lk, H, D, dtype, causal, valid=None, strided=False):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("Lq,Lk,causal", [(150, 150, True), (70, 200, True),
-                                          (200, 70, True), (100, 260, False)])
+                                          (200, 70, True), (100, 260, False),
+                                          (130, 130, True), (130, 300, False)])
 def test_kernels_match_plain_versions(card, dtype, D, Lq, Lk, causal):
     """Ragged lengths, Lq != Lk both ways under the top-left causal mask,
-    cross attention; padded keys in one row get exactly zero dK/dV."""
+    cross attention, Lq 130 (the last 128-query block of the bf16 forward
+    and dQ holds 2 real rows, so one consumer warpgroup's rows all lie past
+    Lq); padded keys in one row get exactly zero dK/dV."""
     valid = torch.ones(2, Lk)
     valid[1, -13:] = 0
     _, _, _, dk, dv = run(card, 2, Lq, Lk, 3, D, dtype, causal, valid)
