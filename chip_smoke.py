@@ -8,15 +8,17 @@ Phases, each reported on its own lines:
 
 1. device - the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build  - every CUDA kernel from ``kubeml_tpu_torch/csrc`` (nvcc,
-   sm_90a, one process per source), with the build seconds; the three
-   Hopper flash kernels (bf16 forward, dQ and dK/dV) must hold warpgroup
-   products (HGMMA) and TMA loads (UTMALDG) in their SASS
-   (``cuobjdump -sass``), must not spill, and ptxas must not have
-   serialized their wgmma;
+   sm_90a, one process per source), with the build seconds; the four
+   Hopper kernels (the bf16 flash forward, dQ and dK/dV, and the int8
+   weight matmul) must hold warpgroup products (HGMMA) and TMA loads
+   (UTMALDG) in the SASS of every instantiation (``cuobjdump -sass``),
+   must not spill, and ptxas must not have serialized their wgmma;
 3. serving kernels against their plain PyTorch versions at the serving
    path's shapes (GPT-2-small width: H 12, D 64, page_tokens 16, 64-page
    tables, 8 rows), with max abs error, kernel / plain / library times on
-   the card and the bound from bytes and operations;
+   the card and the bound from bytes and operations; the int8 matmul at
+   M 1, 8, 256 and 2048 over the four GPT-2-small (K, N) in f32 and bf16,
+   with its kernel / library ratio and the host time of one call;
 4. serve f32 - 16 requests from threads through ``PagedBatchingDecoder`` at
    GPT-2-small width (seeded random weights), greedy tokens held identical
    to the same engine reading the arena through the plain gather path, the
@@ -25,7 +27,9 @@ Phases, each reported on its own lines:
 5. serve int8 - the same requests with int8 weights through the int8
    matmul kernel and int8 KV pages; both launch counters must move, and
    teacher-forced logits (prefill + 4 steps) must match the plain-path
-   engine;
+   engine; the profile window prints the int8 matmul's device time per
+   forward and must show no split-K reduce kernel and no more kernel
+   launches than ``int8_matmul`` calls;
 6. flash kernels - forward (out, lse), dQ and dK/dV against their plain
    versions in bf16 and f32 at the training shape (B 8, L 2048, H 8, D 64,
    causal), a ragged causal shape with 37 padded keys, cross attention
@@ -98,11 +102,14 @@ def log(*parts) -> None:
     print(*parts, flush=True)
 
 
-# the Hopper kernels of the flash path: their SASS must hold warpgroup
-# products (HGMMA) and TMA loads (UTMALDG), ptxas must not have serialized
-# their wgmma, and they must not spill
+# the Hopper kernels: their SASS must hold warpgroup products (HGMMA) and
+# TMA loads (UTMALDG), ptxas must not have serialized their wgmma, and they
+# must not spill
 WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel",
-                 "flash_dkv_wgmma_kernel")
+                 "flash_dkv_wgmma_kernel", "int8_mm_wgmma_kernel")
+# launches of int8_matmul in one GPT-2-small forward: 6 projections in each
+# of 12 layers and the lm_head
+INT8_PER_FORWARD = 73
 
 
 def check_compiled(so_path: str, build_log: str) -> None:
@@ -168,12 +175,18 @@ def nvidia_smi() -> str:
 
 class Timer:
     """Mean device time of one call, each launch on a cold L2 (a 256 MB
-    buffer is rewritten between launches: on the serving path each layer's
-    weights and pages are read once per step, so they come from HBM)."""
+    buffer is read between launches: on the serving path each layer's
+    weights and pages are read once per step, so they come from HBM; read,
+    not written, so that the L2 holds no dirty lines whose write-back the
+    call would pay for). The card then spins for about 0.1 ms before the
+    start event, so that the host's work for the call (argument checks, the
+    launch plan) is done before the card reaches the start event and is not
+    counted."""
 
     def __init__(self):
-        self.flush = torch.empty(64 * 2 ** 20, dtype=torch.float32,
-                                 device="cuda")
+        self.flush = torch.ones(64 * 2 ** 20, dtype=torch.float32,
+                                device="cuda")
+        self.sink = torch.empty((), dtype=torch.float32, device="cuda")
         self.start = torch.cuda.Event(enable_timing=True)
         self.end = torch.cuda.Event(enable_timing=True)
 
@@ -182,7 +195,8 @@ class Timer:
         torch.cuda.synchronize()
         total = 0.0
         for _ in range(iters):
-            self.flush.zero_()
+            torch.sum(self.flush, dim=0, out=self.sink)
+            torch.cuda._sleep(200_000)
             self.start.record()
             fn()
             self.end.record()
@@ -319,11 +333,27 @@ def check_paged_attention(timer, g):
     return rows
 
 
+def host_us(fn, calls: int = 200) -> float:
+    """Host time of one call: ``calls`` calls enqueued back to back (the
+    launch queue does not fill), then one synchronize outside the clock."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / calls
+
+
 def check_int8_matmul(timer, g):
+    """The int8 matmul at the serving path's shapes: M 1 and 8 (decode),
+    256 and 2048 (prefill) over the four GPT-2-small (K, N), f32 and bf16
+    x, against int8_dot within MM_RTOL, repeated calls bit-identical."""
     from kubeml_tpu_torch.ops.int8_matmul import int8_dot, int8_matmul
 
     rows = []
-    for M in (8, 256):
+    for M in (1, 8, 256, 2048):
         for K, N in ((768, 768), (768, 3072), (3072, 768), (768, VOCAB)):
             q = torch.randint(-127, 128, (K, N), generator=g,
                               dtype=torch.int8).cuda()
@@ -331,6 +361,7 @@ def check_int8_matmul(timer, g):
             for xd in (torch.float32, torch.bfloat16):
                 x = torch.randn(M, K, generator=g).to(xd).cuda()
                 y = int8_matmul(x, q, s)
+                again = int8_matmul(x, q, s)
                 ref = int8_dot(x, q, s)
                 torch.cuda.synchronize()
                 err = (y.float() - ref.float()).abs().max().item()
@@ -339,6 +370,10 @@ def check_int8_matmul(timer, g):
                     raise AssertionError(
                         f"int8_matmul M={M} K={K} N={N} {xd}: max abs err "
                         f"{err} > {MM_RTOL[xd]} x {scale}")
+                if not torch.equal(y, again):
+                    raise AssertionError(f"int8_matmul M={M} K={K} N={N} "
+                                         f"{xd}: two calls differ")
+                del y, again, ref
                 nbytes = (x.numel() * x.element_size() + q.numel()
                           + s.numel() * 4 + M * N * x.element_size())
                 t_bytes = nbytes / HBM_BYTES_PER_S
@@ -352,6 +387,9 @@ def check_int8_matmul(timer, g):
                         lambda: torch.matmul(x, q.to(x.dtype)) * s),
                     bound_ms=1e3 * max(t_bytes, t_ops),
                     bound_by="bytes" if t_bytes >= t_ops else "operations")
+                row["over_library"] = row["ms"] / row["library_ms"]
+                if M == 8 and N == VOCAB:
+                    row["host_us"] = host_us(lambda: int8_matmul(x, q, s))
                 log("  int8_matmul", json.dumps(row))
                 rows.append(row)
     return rows
@@ -443,14 +481,15 @@ def report_serve(tag, run) -> None:
         f"{int(t['prefill_waves'])} prefill waves)")
 
 
-def device_profile(run, also: str = "") -> float:
+def device_profile(run, also: str = ""):
     """Where the time goes: a torch.profiler window around ``run()``.
     Prints the window's wall, the device-busy time (the sum of kernel
     times: one stream, so kernels do not overlap; user annotations such as
     ``Optimizer.step`` span kernels already counted and are left out), the
     idle share, and the five kernels with the most device time, then any
     other kernel whose name holds ``also``. Returns the busy ms (0.0 when
-    the profiler saw no device time)."""
+    the profiler saw no device time) and the (ms, launches, name) of every
+    kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -470,7 +509,7 @@ def device_profile(run, also: str = "") -> float:
     busy_ms = sum(k[0] for k in kernels)
     if busy_ms <= 0:
         log("  profile: the profiler recorded no device time (not measured)")
-        return 0.0
+        return 0.0, kernels
     log(f"  profile: window {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
         f"idle share {1 - busy_ms / wall_ms:.3f}")
     ranked = sorted(kernels, reverse=True)
@@ -478,12 +517,12 @@ def device_profile(run, also: str = "") -> float:
         if i < 5 or (also and also in name):
             log(f"    {100 * ms / busy_ms:5.1f}% {ms:8.2f} ms x{count:<6} "
                 f"{name[:90]}")
-    return busy_ms
+    return busy_ms, kernels
 
 
-def profile_window(dec, reqs) -> None:
+def profile_window(dec, reqs, also: str = ""):
     """A profiler window over 8 concurrent requests (32 new tokens each)
-    on the serving engine ``dec``."""
+    on the serving engine ``dec``; returns ``device_profile``'s result."""
     from kubeml_tpu_torch.api import GenerateRequest
 
     def run():
@@ -493,7 +532,30 @@ def profile_window(dec, reqs) -> None:
         for e in entries:
             dec.wait(e, timeout=600)
 
-    device_profile(run)
+    return device_profile(run, also)
+
+
+def int8_profile(busy_ms, kernels, launches) -> None:
+    """The int8 engine's profile window: the int8 matmul's device time per
+    forward, no split-K reduce kernel, and no more kernel launches than
+    ``int8_matmul`` calls (``launches`` in the window; one launch per call
+    is held exactly by the card tests). The profiler may drop a few per
+    cent of a long window's kernel records, so the paged-attention kernel's
+    count (12 a forward) is printed beside as the drop's yardstick."""
+    mm = [(ms, n) for ms, n, name in kernels if "int8_mm_wgmma_kernel" in name]
+    pa = sum(n for _, n, name in kernels if "paged_attention_kernel" in name)
+    split = [name for _, _, name in kernels if "splitk_reduce_kernel" in name]
+    mm_ms, mm_count = sum(m for m, _ in mm), sum(n for _, n in mm)
+    forwards = launches / INT8_PER_FORWARD
+    log(f"  int8 window: device busy {busy_ms:.2f} ms; int8_mm_wgmma_kernel "
+        f"{mm_ms:.2f} ms over {mm_count} recorded launches for {launches} "
+        f"int8_matmul calls ({forwards:.1f} forwards; paged_attention_kernel "
+        f"{pa} recorded for {round(12 * forwards)}): "
+        f"{mm_ms / max(mm_count, 1) * INT8_PER_FORWARD:.4f} ms per forward; "
+        f"split-K reduce kernels: {len(split)}")
+    if busy_ms > 0 and (mm_count > launches or split):
+        raise AssertionError(f"int8 window: {mm_count} kernel launches for "
+                             f"{launches} calls, reduce kernels {split}")
 
 
 def gpt2_small():
@@ -774,7 +836,7 @@ def train_profile() -> float:
         for _ in range(3):
             trainer.train_step(tokens)
 
-    busy_ms = device_profile(run, also="flash_") / 3
+    busy_ms = device_profile(run, also="flash_")[0] / 3
     del trainer
     torch.cuda.empty_cache()
     return busy_ms
@@ -866,11 +928,11 @@ def main() -> int:
         import tempfile
 
         with tempfile.TemporaryDirectory() as tmp:
-            build_log = subprocess.run(
+            build_log = "".join(subprocess.run(
                 [kernels._nvcc(), *kernels.NVCC_FLAGS, "-c",
-                 str(kernels.CSRC / "flash_attention.cu"), "-o",
-                 f"{tmp}/flash_attention.o"], capture_output=True, text=True,
-                check=True).stdout
+                 str(kernels.CSRC / src), "-o", f"{tmp}/{src}.o"],
+                capture_output=True, text=True, check=True).stdout
+                for src in ("flash_attention.cu", "int8_matmul.cu"))
     check_compiled(kernels.library()._name, build_log)
 
     # 3. kernels against their plain versions
@@ -931,7 +993,9 @@ def main() -> int:
     qrun = serve(qdec, reqs)
     q_launches = (paged_attention.launches, int8_matmul.launches)
     report_serve("kernel engine", qrun)
-    profile_window(qdec, reqs)
+    int8_matmul.launches = 0
+    qbusy, qkernels = profile_window(qdec, reqs, also="int8")
+    int8_profile(qbusy, qkernels, int8_matmul.launches)
     if min(q_launches) <= 0:
         raise AssertionError(f"int8 serving launches {q_launches}")
     log(f"  launches: paged_attention {q_launches[0]}, int8_matmul "

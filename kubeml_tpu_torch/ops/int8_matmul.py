@@ -5,11 +5,13 @@ against the int8 weight values directly and the per-output-channel scale
 multiplies the f32 sum after the contraction, so no dense ``W~`` exists.
 
 * :func:`int8_matmul` - the wrapper of the hand-written CUDA kernel
-  (``csrc/int8_matmul.cu``, the port of the Pallas ``_mm_kernel``): int8
-  converts on its load into shared memory, f32 accumulation over all of K,
-  the scale once in the epilogue, ragged edges masked in the kernel. It
-  launches the kernel for CUDA tensors and takes :func:`int8_dot` for CPU
-  tensors; there is no other fallback.
+  (``csrc/int8_matmul.cu``, the port of the Pallas ``_mm_kernel``): one
+  launch of warpgroup products with the int8 weights as the 64-row operand
+  (converted to bf16 in registers), f32 x split exactly into three bf16
+  terms, weights and x streamed into a shared-memory ring, split K over a
+  thread-block cluster reduced in rank order, the scale once in the
+  epilogue. It launches the kernel for CUDA tensors and takes
+  :func:`int8_dot` for CPU tensors; there is no other fallback.
 * :func:`int8_dot` - the plain PyTorch version (the JAX ``int8_dot``): the
   contraction in f32 on the int8-valued weights, then the scale. Accepts q
   of any rank (x's last axis against q's first).
@@ -29,9 +31,13 @@ from . import kernels
 
 VALID_IMPLS = ("auto", "cuda", "pallas", "dot")
 
-# tile geometry of csrc/int8_matmul.cu: output tiles are BM x 64 (BM 16 for
-# decode-sized M, else 64), K is walked in 64-deep tiles
-_BM_SMALL, _BM, _BN, _BK = 16, 64, 64, 64
+# tile geometry of csrc/int8_matmul.cu: a block computes 128 columns of y
+# for an M tile of 8 or 32 rows over a K range walked in 64-deep chunks; a
+# cluster of up to 8 blocks splits K
+_M_TILES, _BN, _BK, _MAX_CLUSTER = (8, 32), 128, 64, 8
+# blocks resident on one SM (bound by registers: about 100 a thread at M
+# tile 8, 150 at 32), which sets how many blocks make one wave
+_BLOCKS_PER_SM = {8: 3, 32: 2}
 
 
 def resolve_int8_matmul(value: Optional[str], device) -> str:
@@ -56,15 +62,18 @@ def int8_dot(x, q, s, *, out_dtype=None):
 
 
 def _plan(M: int, K: int, N: int, sm_count: int):
-    """Tile height, K splits and K rows per split for one launch: split K
-    only as far as needed to put about two blocks on every SM."""
-    bm = _BM_SMALL if M <= _BM_SMALL else _BM
-    tiles = -(-M // bm) * -(-N // _BN)
-    k_tiles = -(-K // _BK)
-    splits = max(1, min(k_tiles, -(-2 * sm_count // tiles)))
-    per = -(-k_tiles // splits)  # K tiles per split
-    splits = -(-k_tiles // per)  # no empty split
-    return bm, splits, per * _BK
+    """M tile, cluster size and K rows per cluster rank for one launch:
+    8 rows for M <= 8 (decode), else 32 (measured faster than 64 at every
+    prefill shape on the H100), then K split over a cluster only as far as
+    needed for about one wave of blocks."""
+    mt = next((t for t in _M_TILES if M <= t), _M_TILES[-1])
+    tiles = -(-M // mt) * -(-N // _BN)
+    chunks = -(-K // _BK)
+    cluster = max(1, min(_MAX_CLUSTER, chunks,
+                         _BLOCKS_PER_SM[mt] * sm_count // tiles))
+    per = -(-chunks // cluster)  # K chunks per rank
+    cluster = -(-chunks // per)  # no empty rank
+    return mt, cluster, per * _BK
 
 
 def int8_matmul(x, q, s, *, out_dtype=None):
@@ -99,15 +108,12 @@ def int8_matmul(x, q, s, *, out_dtype=None):
     y = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if M == 0:
         return y.reshape(*lead, N)
-    bm, splits, k_per_split = _plan(M, K, N,
+    mt, cluster, k_per_rank = _plan(M, K, N,
                                     kernels.sm_count(x.device.index))
-    ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-          if splits > 1 else None)
     codes = kernels.DTYPE_CODES
     err = kernels.library().kubeml_int8_matmul(
-        x2.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(),
-        ws.data_ptr() if ws is not None else None, M, K, N, bm, splits,
-        k_per_split, codes[str(x.dtype).split(".")[-1]],
+        x2.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(), M, K, N, mt,
+        cluster, k_per_rank, codes[str(x.dtype).split(".")[-1]],
         codes[str(out_dtype).split(".")[-1]],
         torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(err, "int8_matmul")

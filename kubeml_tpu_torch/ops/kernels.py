@@ -44,9 +44,9 @@ _SIGNATURES = {
     # workspace, B, L, H, D, pt, P, splits, pages_per_split, q_dtype,
     # kv_dtype, stream
     "kubeml_paged_attention": [_P] * 9 + [_I] * 10 + [_P],
-    # x, q, s, y, workspace, M, K, N, bm, splits, k_per_split,
-    # x_dtype, y_dtype, stream
-    "kubeml_int8_matmul": [_P] * 5 + [_I] * 8 + [_P],
+    # x, q, s, y, M, K, N, m_tile, cluster, k_per_rank, x_dtype, y_dtype,
+    # stream
+    "kubeml_int8_matmul": [_P] * 4 + [_I] * 8 + [_P],
     # q, k, v, valid, out, lse, B, Lq, Lk, H, D, causal, dtype, stream
     "kubeml_flash_fwd": [_P] * 6 + [_I] * 7 + [_P],
     # q, k, v, valid, lse, dout, dsum, dq, B, Lq, Lk, H, D, causal, dtype,

@@ -1,0 +1,113 @@
+"""The int8 weight matmul CUDA kernel (``csrc/int8_matmul.cu``) against its
+plain version ``int8_dot`` on an NVIDIA card. Card-only: every test carries
+the ``cuda`` marker and skips on a host without a card. Imports torch and
+the port only, so it runs on a machine without JAX::
+
+    python -m pytest -m cuda tests/test_torch_int8_cuda.py
+
+Tolerance, as ``chip_smoke.py`` holds the kernel (``MM_RTOL``), relative to
+the largest |output|: f32 out 1e-5 (f32 x splits exactly into three bf16
+terms and every product is exact; the tensor cores add them in f32 in
+another order than the plain version); bf16 out 1e-2 (one rounding of the
+output to bf16).
+"""
+
+import pytest
+import torch
+
+from kubeml_tpu_torch.ops.int8_matmul import _plan, int8_dot, int8_matmul
+
+pytestmark = pytest.mark.cuda
+
+MM_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA CUDA card")
+    return torch.Generator().manual_seed(0)
+
+
+def weights(g, K, N):
+    q = torch.randint(-127, 128, (K, N), generator=g, dtype=torch.int8)
+    return q.cuda(), (torch.rand(1, N, generator=g) * 0.02).cuda()
+
+
+@pytest.mark.parametrize("K", [100, 101, 768, 3072, 3100])
+@pytest.mark.parametrize("N", [257, 768, 50257])
+def test_kernel_matches_int8_dot(card, K, N):
+    """M 1, 3, 8 (one 8-row tile), 9, 17 and 200 (32-row tiles, ragged);
+    ragged K and N (257 and 50257 are not multiples of 16, so Q arrives by
+    16-byte copies of each row, not TMA boxes; K 101 leaves x's rows 4-byte
+    aligned in f32 and 2-byte aligned in bf16, copied value by value); f32
+    and bf16 in and out; repeated calls bit-identical."""
+    q, s = weights(card, K, N)
+    for M in (1, 3, 8, 9, 17, 200):
+        for xd in (torch.float32, torch.bfloat16):
+            x = torch.randn(M, K, generator=card).to(xd).cuda()
+            for yd in (torch.float32, torch.bfloat16):
+                y = int8_matmul(x, q, s, out_dtype=yd)
+                again = int8_matmul(x, q, s, out_dtype=yd)
+                ref = int8_dot(x, q, s, out_dtype=torch.float32)
+                torch.cuda.synchronize()
+                assert y.shape == (M, N) and y.dtype == yd
+                err = (y.float() - ref).abs().max().item()
+                tol = MM_RTOL[yd] * ref.abs().max().item()
+                assert err <= tol, (M, K, N, xd, yd, _plan(M, K, N, 132), err)
+                assert torch.equal(y, again)
+
+
+def test_one_launch_per_call(card):
+    """The counter moves by one per call and the profiler sees exactly one
+    kernel, ``int8_mm_wgmma_kernel``, per call: no reduce kernel, also where
+    the plan splits K over a cluster."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for M, K, N in ((8, 3072, 768), (8, 768, 50257), (256, 768, 3072)):
+        q, s = weights(card, K, N)
+        x = torch.randn(M, K, generator=card).cuda()
+        int8_matmul(x, q, s)
+        torch.cuda.synchronize()
+        before = int8_matmul.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                int8_matmul(x, q, s)
+            torch.cuda.synchronize()
+        assert int8_matmul.launches - before == 3
+        kernels = [(e.key, e.count) for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        assert len(kernels) == 1 and "int8_mm_wgmma_kernel" in kernels[0][0]
+        assert kernels[0][1] == 3
+
+
+@pytest.mark.parametrize("xd", [torch.float32, torch.bfloat16])
+def test_non_finite_x_propagates_as_in_int8_dot(card, xd):
+    q, s = weights(card, 768, 3072)
+    x = torch.randn(8, 768, generator=card)
+    x[0, 3], x[2, 5], x[3, 7] = float("inf"), float("nan"), -float("inf")
+    x[5, 0] = x[5, 1] = float("inf")
+    x = x.to(xd).cuda()
+    y, ref = int8_matmul(x, q, s), int8_dot(x, q, s)
+    torch.cuda.synchronize()
+    assert torch.equal(y.isnan(), ref.isnan())
+    assert torch.equal(y.isposinf(), ref.isposinf())
+    assert torch.equal(y.isneginf(), ref.isneginf())
+    fin = ref.isfinite()
+    tol = MM_RTOL[xd] * ref[fin].float().abs().max().item()
+    assert (y[fin].float() - ref[fin].float()).abs().max().item() <= tol
+
+
+def test_bad_arguments_raise(card):
+    q, s = weights(card, 64, 96)
+    x = torch.randn(4, 64, generator=card).cuda()
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_matmul(x, q.t().contiguous().t(), s)
+    with pytest.raises(ValueError):
+        int8_matmul(x, q.float(), s)
+    with pytest.raises(ValueError):
+        int8_matmul(x, q, s.double())
+    with pytest.raises(TypeError):
+        int8_matmul(x.half(), q, s)
+    with pytest.raises(ValueError, match="features"):
+        int8_matmul(x[:, :32], q, s)

@@ -4,7 +4,8 @@ Pallas ``int8_matmul`` in interpret mode and the JAX ``int8_dot`` on ragged
 shapes, and ``quantize_tree`` against JAX's.
 
 Tolerances: matmul rtol 1e-5 (f32 accumulation in another summation
-order); quantized values must be EQUAL (both round w/scale half-to-even
+order; the emulated three-term kernel arithmetic within 1e-5 of the largest
+|output|, as the card check holds the kernel); quantized values must be EQUAL (both round w/scale half-to-even
 in f32), scales within rtol 1e-6.
 """
 
@@ -111,14 +112,59 @@ def test_quantized_dot_impls_and_resolver():
 
 @pytest.mark.parametrize("M,K,N", [(8, 768, 768), (8, 3072, 768),
                                    (8, 768, 50257), (256, 768, 3072),
-                                   (3, 100, 257), (4096, 768, 3072)])
+                                   (3, 100, 257), (4096, 768, 3072),
+                                   (1, 768, 768), (4096, 768, 50257)])
 def test_launch_plan_covers_k_without_empty_splits(M, K, N):
-    """The kernel's split-K plan (computed in Python, used only on the
-    card): K-tiles of 64 per split, every split non-empty, all of K
-    covered, and the decode-sized tile for M <= 16."""
+    """The kernel's launch plan (computed in Python, used only on the
+    card): the M tile covers M (8 rows at decode), the cluster has at most
+    8 ranks of 64-row K chunks, every rank's K range is non-empty and the
+    ranks cover all of K."""
     from kubeml_tpu_torch.ops.int8_matmul import _plan
 
-    bm, splits, per = _plan(M, K, N, sm_count=132)
-    assert bm == (16 if M <= 16 else 64)
+    mt, cluster, per = _plan(M, K, N, sm_count=132)
+    assert mt == (8 if M <= 8 else 32)
+    assert 1 <= cluster <= 8
     assert per % 64 == 0 and per > 0
-    assert (splits - 1) * per < K <= splits * per
+    assert (cluster - 1) * per < K <= cluster * per
+
+
+def _split3(x):
+    """The kernel's split of f32 x into three bf16 terms: each term is the
+    leading 8 significant bits (truncation) of what the earlier terms left;
+    a non-finite x is all in the first term."""
+    bits = torch.from_numpy(x).view(torch.int32)
+    hi = (bits & -65536).view(torch.float32)
+    r = torch.from_numpy(x) - hi
+    mid = (r.view(torch.int32) & -65536).view(torch.float32)
+    lo = r - mid
+    return hi, mid, lo
+
+
+@pytest.mark.parametrize("M,K,N", [(3, 100, 257), (8, 3072, 768),
+                                   (5, 768, 130), (17, 3100, 96)])
+def test_three_bf16_terms_reproduce_int8_dot(M, K, N):
+    """The arithmetic of the CUDA kernel on f32 x, emulated in PyTorch: x
+    splits exactly into three bf16 terms (hi + mid + lo == x, each exact in
+    bf16), each term times the int8 values is exact in f32, and the three
+    products summed in f32 then scaled match the JAX ``int8_dot`` and the
+    Pallas kernel (interpret mode) within 1e-5 of the largest |output|, for
+    x of magnitudes 1e-6 to 1e4."""
+    rng = np.random.default_rng(M * 7 + K)
+    x = (rng.normal(size=(M, K)) * 10.0 ** rng.uniform(-6, 4, size=(M, K))
+         ).astype(np.float32)
+    q = rng.integers(-127, 128, size=(K, N)).astype(np.int8)
+    s = (rng.random((1, N)) * 0.02).astype(np.float32)
+    hi, mid, lo = _split3(x)
+    assert torch.equal(hi + mid + lo, torch.from_numpy(x))
+    for t in (hi, mid, lo):
+        assert torch.equal(t.to(torch.bfloat16).float(), t)
+    qf = torch.from_numpy(q).float()
+    acc = hi @ qf + mid @ qf + lo @ qf
+    out = (acc * torch.from_numpy(s)).numpy()
+    kern = np.asarray(jax_int8_matmul(jnp.asarray(x), jnp.asarray(q),
+                                      jnp.asarray(s), interpret=True))
+    dot = np.asarray(jax_int8_dot(jnp.asarray(x), jnp.asarray(q),
+                                  jnp.asarray(s)))
+    scale = np.abs(dot).max()
+    np.testing.assert_allclose(out, dot, rtol=0, atol=1e-5 * scale)
+    np.testing.assert_allclose(out, kern, rtol=0, atol=1e-5 * scale)
