@@ -37,9 +37,10 @@
 //     box (128-byte swizzle, rows past K arrive as zeros) where Q's rows are
 //     16-byte aligned (N % 16 == 0), else 16-byte asynchronous copies of the
 //     16-byte-aligned span around each row's 128 bytes (the lm_head, N =
-//     50257: TMA needs 16-byte row strides). The same warp copies each
-//     64-deep x chunk into the stage beside Q (asynchronous copies), so no
-//     consumer waits on a global load; the consumers split it into bf16
+//     50257: TMA needs 16-byte row strides). The same warp brings each
+//     64-deep x chunk into the stage beside Q (a TMA box where x's rows are
+//     16-byte aligned, else value by value), so no consumer waits on a
+//     global load; the consumers split it into bf16
 //     planes in shared memory (128-byte swizzle, double-buffered) and
 //     release the stage as soon as its bytes are in registers and planes,
 //     before their products run. Rows past M and K read as zeros, columns
@@ -57,6 +58,7 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <atomic>
 #include <type_traits>
 
 #include "hopper.cuh"
@@ -105,9 +107,8 @@ struct Args {
   int M, K, N;
   int k_per_rank;    // K rows per cluster rank, a multiple of kBK
   int rows_copied;   // Q stages by 16-byte copies of each row, not TMA boxes
-  int x_piece;       // bytes of one copy of x: 16 (rows 16-byte aligned:
-                     // TMA boxes), 8 or 4 (asynchronous copies); 0 (rows not
-                     // 4-byte aligned: value by value)
+  int x_tma;         // x stages by TMA boxes (rows 16-byte aligned), else
+                     // value by value
 };
 
 // One box of a 2-D tensor map into shared memory; completes on `bar`.
@@ -120,15 +121,10 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// `bytes` (16, 8 or 4) from `bytes`-aligned global `src`: an asynchronous
-// copy that a later cp.async.mbarrier.arrive waits for
-__device__ __forceinline__ void copy_async(uint32_t dst, uintptr_t src, int bytes) {
-  if (bytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src) : "memory");
-  else if (bytes == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(dst), "l"(src) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst), "l"(src) : "memory");
+// 16 bytes from 16-byte-aligned global `src`: an asynchronous copy that a
+// later cp.async.mbarrier.arrive waits for
+__device__ __forceinline__ void copy16_async(uint32_t dst, uintptr_t src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src) : "memory");
 }
 
 // d (+)= A . B over one k16 step: A (bf16 pairs) in registers, B (8 rows of
@@ -203,28 +199,15 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // The producer warp's copy of x[m0 .., k0 .. k0 + 64) into a stage's raw
-// rows ([MT][64] TX at `raw`, shared address `raw_s`) where x's rows are
-// not 16-byte aligned (else a TMA box brings them). Values outside x are
-// not copied: the consumers read them as 0.
+// rows ([MT][64] TX at `raw`), value by value, where x's rows are not
+// 16-byte aligned (else a TMA box brings them). Values outside x are not
+// copied: the consumers read them as 0.
 template <typename TX, int MT>
-__device__ __forceinline__ void stage_x(const Args& a, TX* raw, uint32_t raw_s, int m0, int k0,
-                                        int lane) {
+__device__ __forceinline__ void stage_x(const Args& a, TX* raw, int m0, int k0, int lane) {
   const TX* x = static_cast<const TX*>(a.x);
-  if (a.x_piece) {
-    const int per = a.x_piece / (int)sizeof(TX);  // values a piece
-    const int lg = 31 - __clz(kBK / per);          // log2(pieces a row)
-    for (int i = lane; i < (MT << lg); i += 32) {
-      const int r = i >> lg, kc = (i & ((1 << lg) - 1)) * per;
-      const int m = m0 + r, k = k0 + kc;
-      if (m < a.M && k < a.K)
-        copy_async(raw_s + (r * kBK + kc) * (int)sizeof(TX),
-                   reinterpret_cast<uintptr_t>(x + (size_t)m * a.K + k), a.x_piece);
-    }
-  } else {
-    for (int i = lane; i < MT * kBK; i += 32) {
-      const int m = m0 + i / kBK, k = k0 + i % kBK;
-      if (m < a.M && k < a.K) raw[i] = x[(size_t)m * a.K + k];
-    }
+  for (int i = lane; i < MT * kBK; i += 32) {
+    const int m = m0 + i / kBK, k = k0 + i % kBK;
+    if (m < a.M && k < a.K) raw[i] = x[(size_t)m * a.K + k];
   }
 }
 
@@ -306,11 +289,10 @@ __global__ void __launch_bounds__(kThreads)
       mbar_wait(empty + 8 * st, ((c / kStages) & 1) ^ 1);
       const int k0 = kbeg + c * kBK;
       const uint32_t dst = base + st * S::kStage, bar = full + 8 * st;
-      const bool x_tma = a.x_piece == 16;
       if (pl == 0) {
-        mbar_expect_tx(bar, (a.rows_copied ? 0 : kBK * kCols) + (x_tma ? MT * S::kXRow : 0));
+        mbar_expect_tx(bar, (a.rows_copied ? 0 : kBK * kCols) + (a.x_tma ? MT * S::kXRow : 0));
         if (!a.rows_copied) tma_load_2d(dst, &tq, bar, n0, k0);
-        if (x_tma) tma_load_2d(dst + kQBytes, &tx, bar, k0, m0);
+        if (a.x_tma) tma_load_2d(dst + kQBytes, &tx, bar, k0, m0);
       }
       if (a.rows_copied) {
         // each row's 16-byte-aligned span around columns [n0, min(N, n0 +
@@ -323,14 +305,14 @@ __global__ void __launch_bounds__(kThreads)
           const uintptr_t row = reinterpret_cast<uintptr_t>(a.q) + (size_t)(k0 + r) * a.N;
           const uintptr_t lo = ((row + n0) & ~uintptr_t(15)) + 16 * piece;
           const uintptr_t hi = row + min(a.N, n0 + kCols);
-          if (k0 + r < kend && lo < hi) copy_async(dst + r * kRowBytes + 16 * piece, lo, 16);
+          if (k0 + r < kend && lo < hi) copy16_async(dst + r * kRowBytes + 16 * piece, lo);
         }
       }
-      if (!x_tma)
-        stage_x<TX, MT>(a, reinterpret_cast<TX*>(sm + st * S::kStage + kQBytes),
-                        dst + kQBytes, m0, k0, pl);
-      // each lane's arrival waits for its own asynchronous copies
-      if (a.x_piece) {
+      if (!a.x_tma)
+        stage_x<TX, MT>(a, reinterpret_cast<TX*>(sm + st * S::kStage + kQBytes), m0, k0, pl);
+      // each lane's arrival waits for its own asynchronous copies; x stored
+      // value by value is in shared memory before the lane arrives
+      if (a.x_tma) {
         asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(bar)
                      : "memory");
       } else {
@@ -501,8 +483,18 @@ int launch(const Args& a, const CUtensorMap& tq, const CUtensorMap& tx, int clus
            cudaStream_t stream) {
   const auto kern = int8_mm_wgmma_kernel<TX, TY, MT>;
   const int smem = Smem<TX, MT>::kBytes;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // the shared-memory limit is raised once per device for this
+  // instantiation, not on every call
+  static std::atomic<uint64_t> raised{0};  // a bit per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
+  const uint64_t bit = uint64_t(1) << (dev & 63);
+  if (!(raised.load(std::memory_order_relaxed) & bit)) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    raised.fetch_or(bit);
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cluster, (a.N + kCols - 1) / kCols, (a.M + MT - 1) / MT);
   cfg.blockDim = dim3(kThreads);
@@ -565,14 +557,9 @@ extern "C" int kubeml_int8_matmul(const void* x, const void* q, const void* s, v
   a.k_per_rank = k_per_rank;
   // TMA needs 16-byte-aligned rows
   a.rows_copied = N % 16 != 0 || reinterpret_cast<uintptr_t>(q) % 16 != 0;
-  // x by the widest copy that every row's start allows
+  // TMA boxes of x need 16-byte-aligned rows too
   const int xsize = x_dtype == kF32 ? 4 : 2;
-  const size_t row = (size_t)K * xsize;
-  for (const int p : {16, 8, 4})
-    if (row % p == 0 && reinterpret_cast<uintptr_t>(x) % p == 0) {
-      a.x_piece = p;
-      break;
-    }
+  a.x_tma = (size_t)K * xsize % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   CUtensorMap tq, tx;
   memset(&tq, 0, sizeof(tq));
   memset(&tx, 0, sizeof(tx));
@@ -580,7 +567,7 @@ extern "C" int kubeml_int8_matmul(const void* x, const void* q, const void* s, v
   if (!a.rows_copied && (e = map_2d(&tq, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K, N, kCols, kBK,
                                     CU_TENSOR_MAP_SWIZZLE_128B)))
     return e;
-  if (a.x_piece == 16 &&
+  if (a.x_tma &&
       (e = map_2d(&tx, x,
                   x_dtype == kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,

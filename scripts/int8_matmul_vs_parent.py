@@ -1,120 +1,126 @@
 #!/usr/bin/env python3
-"""The port's int8 weight matmul against an earlier version of its CUDA
-source, in one process on one card: both at chip_smoke's phase-3 shapes
-(M 1, 8, 256, 2048 over the four GPT-2-small (K, N), f32 and bf16 x), each
-timed twice, in turns, under two cold-L2 flushes (a 256 MB buffer read, as
-chip_smoke's ``Timer``, and written, as chip_smoke's timer did up to the
-split-K kernel), with the two results' largest difference relative to the
-earlier kernel's largest |output|. One JSON row a shape. Run from the repo
-root on a machine with the card and ``nvcc``::
+"""The port's int8 weight matmul in two checkouts, timed in turns on one
+card: an earlier tree (``--parent``) and the tree that holds this script.
 
-    git show <commit>:kubeml_tpu_torch/csrc/int8_matmul.cu > /tmp/old.cu
-    python3 scripts/int8_matmul_vs_parent.py --parent-src /tmp/old.cu
+Each run is a process of its own that imports ``kubeml_tpu_torch`` from its
+tree (which builds that tree's kernels at first use) and calls its
+``int8_matmul(x, q, s)``, so each tree runs with its own wrapper and launch
+plan. At chip_smoke's phase-3 shapes (M 1, 8, 256, 2048 over the four
+GPT-2-small (K, N), f32 and bf16 x, made from one seed) a run prints, one
+JSON row a shape:
 
-The earlier source is the split-K FMA kernel (C entry point
-``kubeml_int8_matmul(x, q, s, y, workspace, M, K, N, bm, splits,
-k_per_split, x_dtype, y_dtype, stream)``), launched with its own plan.
+* ``write_ms``: the mean device time of one call on a cold L2 made by
+  rewriting a 256 MB buffer, as ``chip_smoke.py``'s ``Timer`` makes it;
+* ``read_ms``: the same with the buffer read instead (the L2 then holds no
+  dirty lines whose write-back the call pays for);
+* ``host_us`` (M <= 8): the host time of one call, 200 calls enqueued back
+  to back;
+* ``rel_err``: the largest difference from the tree's ``int8_dot``,
+  relative to its largest |output|.
+
+The runs go parent, change, change, parent. Run from the repo root on a
+machine with the card and ``nvcc``, with the earlier tree unpacked inside
+the checkout, under the gitignored ``scratch/``::
+
+    mkdir -p scratch/parent && git archive <commit> | tar -x -C scratch/parent
+    python3 scripts/int8_matmul_vs_parent.py --parent scratch/parent
 """
 
 import argparse
-import ctypes
 import json
 import os
 import subprocess
 import sys
+import time
 
-import torch
-
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-from chip_smoke import VOCAB, Timer  # noqa: E402
-from kubeml_tpu_torch.ops import kernels  # noqa: E402
-from kubeml_tpu_torch.ops.int8_matmul import int8_matmul  # noqa: E402
+VOCAB = 50257
+SHAPES = [(M, K, N) for M in (1, 8, 256, 2048)
+          for K, N in ((768, 768), (768, 3072), (3072, 768), (768, VOCAB))]
 
 
-def load_parent(src: str, build_dir: str):
-    os.makedirs(build_dir, exist_ok=True)
-    so = os.path.join(build_dir, "parent_int8_matmul.so")
-    subprocess.run([kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", so,
-                    src], check=True)
-    fn = ctypes.CDLL(so).kubeml_int8_matmul
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def run_tree(tree: str, iters: int) -> int:
+    """Time ``tree``'s ``int8_matmul`` at every shape; one JSON row each."""
+    sys.path.insert(0, tree)
+    import torch
 
+    from kubeml_tpu_torch.ops.int8_matmul import int8_dot, int8_matmul
 
-def parent_plan(M, K, N, sm):
-    """The earlier wrapper's plan: tile height, K splits, K rows a split."""
-    bm = 16 if M <= 16 else 64
-    tiles = -(-M // bm) * -(-N // 64)
-    kt = -(-K // 64)
-    splits = max(1, min(kt, -(-2 * sm // tiles)))
-    per = -(-kt // splits)
-    return bm, -(-kt // per), per * 64
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    sink = torch.empty((), dtype=torch.float32, device="cuda")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
 
-
-class WriteFlush(Timer):
-    """chip_smoke's ``Timer`` with the cold L2 made by writing the buffer."""
-
-    def ms(self, fn, iters: int = 10) -> float:
+    def device_ms(fn, cold) -> float:
         fn()
         torch.cuda.synchronize()
         total = 0.0
         for _ in range(iters):
-            self.flush.zero_()
-            torch.cuda._sleep(200_000)
-            self.start.record()
+            cold()
+            start.record()
             fn()
-            self.end.record()
-            self.end.synchronize()
-            total += self.start.elapsed_time(self.end)
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end)
         return total / iters
+
+    def host_us(fn, calls: int = 200) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return 1e6 * (t1 - t0) / calls
+
+    g = torch.Generator().manual_seed(0)
+    for M, K, N in SHAPES:
+        q = torch.randint(-127, 128, (K, N), generator=g,
+                          dtype=torch.int8).cuda()
+        s = (torch.rand(1, N, generator=g) * 0.02).cuda()
+        for xd in (torch.float32, torch.bfloat16):
+            x = torch.randn(M, K, generator=g).to(xd).cuda()
+            call = lambda: int8_matmul(x, q, s)  # noqa: E731
+            ref = int8_dot(x, q, s).float()
+            row = dict(M=M, K=K, N=N, x=str(xd).split(".")[-1],
+                       rel_err=((call().float() - ref).abs().max()
+                                / ref.abs().max()).item(),
+                       write_ms=device_ms(call, flush.zero_),
+                       read_ms=device_ms(
+                           call, lambda: torch.sum(flush, dim=0, out=sink)))
+            if M <= 8:
+                row["host_us"] = host_us(call)
+            print(json.dumps(row), flush=True)
+    return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--parent-src", required=True)
-    ap.add_argument("--build-dir", default="kubeml_tpu_torch/csrc/build/parent")
+    ap.add_argument("--parent", help="root of the earlier tree")
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--tree", help=argparse.SUPPRESS)  # one run, internal
     args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("needs an NVIDIA card", file=sys.stderr)
-        return 1
-    old = load_parent(args.parent_src, args.build_dir)
-    kernels.library()
-    sm = torch.cuda.get_device_properties(0).multi_processor_count
-
-    def old_call(x, q, s):
-        M, K = x.shape
-        N = q.shape[1]
-        bm, splits, per = parent_plan(M, K, N, sm)
-        y = torch.empty(M, N, dtype=x.dtype, device="cuda")
-        ws = torch.empty(splits, M, N, device="cuda") if splits > 1 else None
-        code = kernels.DTYPE_CODES[str(x.dtype).split(".")[-1]]
-        err = old(x.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(),
-                  ws.data_ptr() if ws is not None else None, M, K, N, bm, splits, per,
-                  code, code, torch.cuda.current_stream().cuda_stream)
-        kernels.check(err, "parent int8_matmul")
-        return y
-
-    timers = (("read", Timer()), ("write", WriteFlush()))
-    g = torch.Generator().manual_seed(0)
-    for M in (1, 8, 256, 2048):
-        for K, N in ((768, 768), (768, 3072), (3072, 768), (768, VOCAB)):
-            q = torch.randint(-127, 128, (K, N), generator=g, dtype=torch.int8).cuda()
-            s = (torch.rand(1, N, generator=g) * 0.02).cuda()
-            for xd in (torch.float32, torch.bfloat16):
-                x = torch.randn(M, K, generator=g).to(xd).cuda()
-                a, b = old_call(x, q, s).float(), int8_matmul(x, q, s).float()
-                row = dict(M=M, K=K, N=N, x=str(xd).split(".")[-1],
-                           rel_diff=((a - b).abs().max() / a.abs().max()).item())
-                for name, t in timers:  # parent, change, change, parent
-                    row[f"parent_{name}_ms"] = t.ms(lambda: old_call(x, q, s), args.iters)
-                    row[f"change_{name}_ms"] = t.ms(lambda: int8_matmul(x, q, s), args.iters)
-                    row[f"change2_{name}_ms"] = t.ms(lambda: int8_matmul(x, q, s), args.iters)
-                    row[f"parent2_{name}_ms"] = t.ms(lambda: old_call(x, q, s), args.iters)
-                print(json.dumps(row), flush=True)
+    if args.tree:
+        return run_tree(os.path.abspath(args.tree), args.iters)
+    if not args.parent:
+        ap.error("--parent is required")
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    trees = {"parent": os.path.abspath(args.parent), "change": here}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    print(smi.stdout.strip(), flush=True)
+    for i, name in enumerate(("parent", "change", "change", "parent")):
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--tree", trees[name],
+             "--iters", str(args.iters)], cwd=trees[name],
+            capture_output=True, text=True)
+        if out.returncode != 0:
+            print(out.stderr[-4000:], file=sys.stderr)
+            return out.returncode
+        for line in out.stdout.splitlines():
+            row = json.loads(line)
+            print(json.dumps({"run": i, "tree": name, **row}), flush=True)
     return 0
 
 
