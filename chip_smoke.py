@@ -12,25 +12,33 @@ Phases, each reported on its own lines:
    Hopper kernels (the bf16 flash forward, dQ and dK/dV, and the int8
    weight matmul) must hold warpgroup products (HGMMA) and TMA loads
    (UTMALDG) in the SASS of every instantiation (``cuobjdump -sass``),
-   must not spill, and ptxas must not have serialized their wgmma;
+   must not spill, and ptxas must not have serialized their wgmma; the
+   paged-attention kernel must hold bulk copies (UBLKCP) or TMA loads in
+   every instantiation and must not spill;
 3. serving kernels against their plain PyTorch versions at the serving
    path's shapes (GPT-2-small width: H 12, D 64, page_tokens 16, 64-page
-   tables, 8 rows), with max abs error, kernel / plain / library times on
-   the card and the bound from bytes and operations; the int8 matmul at
+   tables, 8 rows; paged attention also at one row at position 1023, L 16
+   and 17, and depths ending mid-page; two launches bit-identical; the host
+   time of a decode call), with max abs error, kernel / plain / library
+   times on the card and the bound from bytes and operations; the int8
+   matmul at
    M 1, 8, 256 and 2048 over the four GPT-2-small (K, N) in f32 and bf16,
    with its kernel / library ratio and the host time of one call;
 4. serve f32 - 16 requests from threads through ``PagedBatchingDecoder`` at
    GPT-2-small width (seeded random weights), greedy tokens held identical
    to the same engine reading the arena through the plain gather path, the
-   paged-attention launch counter held to the engine's forward count, and
-   three shared-prefix requests held to 64 cached tokens;
+   paged-attention launch counter held to the engine's forward count,
+   three shared-prefix requests held to 64 cached tokens, and a profile
+   window with one paged-attention kernel record per call and no combine
+   kernel (in phase 5's window too; a window whose records fall short of
+   the calls, as the profiler can drop a record, is run again, at most
+   five in all);
 5. serve int8 - the same requests with int8 weights through the int8
    matmul kernel and int8 KV pages; both launch counters must move, and
    teacher-forced logits (prefill + 4 steps) must match the plain-path
    engine; the profile window prints the int8 matmul's device time per
-   forward and must show no split-K reduce kernel and one kernel launch
-   per ``int8_matmul`` call (exactly, unless the paged-attention kernel's
-   records show that the profiler dropped records);
+   forward and must show no split-K reduce kernel and exactly one kernel
+   launch per ``int8_matmul`` call (in a window with every record);
 6. flash kernels - forward (out, lse), dQ and dK/dV against their plain
    versions in bf16 and f32 at the training shape (B 8, L 2048, H 8, D 64,
    causal), a ragged causal shape with 37 padded keys, cross attention
@@ -108,15 +116,24 @@ def log(*parts) -> None:
 # must not spill
 WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel",
                  "flash_dkv_wgmma_kernel", "int8_mm_wgmma_kernel")
+# the Hopper kernels on the CUDA cores: their SASS must hold bulk copies
+# (UBLKCP) or TMA loads (UTMALDG) in every instantiation, and they must not
+# spill
+BULK_KERNELS = ("paged_attention_ring_kernel",)
+# the paged-attention kernel's name in profiler records, and its launches in
+# one GPT-2-small forward (one a layer); the int8 matmul kernel's name
+PA_KERNEL, PA_PER_FORWARD = "paged_attention_ring_kernel", 12
+MM_KERNEL = "int8_mm_wgmma_kernel"
 # launches of int8_matmul in one GPT-2-small forward: 6 projections in each
 # of 12 layers and the lm_head
 INT8_PER_FORWARD = 73
 
 
 def check_compiled(so_path: str, build_log: str) -> None:
-    """Phase 2's check of the compiled wgmma kernels: HGMMA and UTMALDG in
-    the SASS of every instantiation (``cuobjdump -sass`` on the built
-    library), registers and spills from ptxas -v, no "wgmma ...
+    """Phase 2's check of the compiled Hopper kernels: HGMMA and UTMALDG in
+    the SASS of every instantiation of the wgmma kernels, UBLKCP or UTMALDG
+    in every instantiation of the bulk-copy kernels (``cuobjdump -sass`` on
+    the built library), registers and spills from ptxas -v, no "wgmma ...
     serialized" warning. Raises on any miss."""
     import os
     import shutil
@@ -145,19 +162,26 @@ def check_compiled(so_path: str, build_log: str) -> None:
                 re.search(r"Used (\d+) registers", ln).group(1))
     serialized = [ln.strip() for ln in build_log.splitlines()
                   if "wgmma" in ln and "serializ" in ln]
-    for kname in WGMMA_KERNELS:
+    for kname in WGMMA_KERNELS + BULK_KERNELS:
         bodies = [f for f in funcs if kname in f.split("\n", 1)[0]]
         info = [p for n, p in props.items() if kname in n]
         hgmma = [f.count("HGMMA") for f in bodies]
         utma = [f.count("UTMALDG") for f in bodies]
+        ublk = [f.count("UBLKCP") for f in bodies]
         log(f"  {kname}: {len(bodies)} instantiations, HGMMA per "
-            f"instantiation {hgmma}, UTMALDG {utma}, registers "
-            f"{[p.get('registers') for p in info]}, spill bytes "
+            f"instantiation {hgmma}, UTMALDG {utma}, UBLKCP {ublk}, "
+            f"registers {[p.get('registers') for p in info]}, spill bytes "
             f"{[p.get('spill') for p in info]}")
-        if not bodies or min(hgmma) == 0:
-            raise AssertionError(f"{kname}: no HGMMA in its SASS")
-        if min(utma) == 0:
-            raise AssertionError(f"{kname}: no UTMALDG in its SASS")
+        if not bodies:
+            raise AssertionError(f"{kname}: not in the SASS")
+        if kname in WGMMA_KERNELS:
+            if min(hgmma) == 0:
+                raise AssertionError(f"{kname}: no HGMMA in its SASS")
+            if min(utma) == 0:
+                raise AssertionError(f"{kname}: no UTMALDG in its SASS")
+        elif min(t + u for t, u in zip(utma, ublk)) == 0:
+            raise AssertionError(f"{kname}: an instantiation without TMA "
+                                 f"or bulk copies")
         if len(info) != len(bodies) or any(p.get("spill", 1) for p in info):
             raise AssertionError(f"{kname}: spills (or no ptxas report)")
     log(f"  ptxas wgmma serialization warnings: {len(serialized)}")
@@ -202,7 +226,9 @@ class Timer:
 # --- phase 3: kernels against their plain versions ----------------------
 
 def paged_inputs(g, L, positions, kv_dtype):
-    """q, arenas (+ scales), a table of distinct pages per row."""
+    """q, arenas (+ scales), a table of distinct pages per row; one row per
+    position."""
+    B = len(positions)
     q_dtype = torch.float32 if kv_dtype == torch.int8 else kv_dtype
     q = torch.randn(B, L, H, D, generator=g).to(q_dtype).cuda()
     kf = torch.randn(N_PAGES, PAGE_TOKENS, H, D, generator=g)
@@ -245,22 +271,35 @@ def check_paged_attention(timer, g):
     from kubeml_tpu_torch.ops.paged_attention import (paged_attention,
                                                       paged_attention_ref)
 
-    cases = [(1, [0, 15, 16, 100, 333, 511, 777, 1023]),
-             (5, [0, 3, 60, 200, 500, 800, 1010, 1018]),
-             (128, [0, 16, 128, 256, 384, 512, 640, 896])]
+    # (tag, L, positions): the decode step at mixed depths, spec-verify,
+    # prefill; one row at the last position (the cluster's ranks split all
+    # 64 pages); L 16 and 17 (one warp's queries, then a second query
+    # group); L 3 at depths that end mid-page
+    cases = [("decode", 1, [0, 15, 16, 100, 333, 511, 777, 1023]),
+             ("verify", 5, [0, 3, 60, 200, 500, 800, 1010, 1018]),
+             ("prefill", 128, [0, 16, 128, 256, 384, 512, 640, 896]),
+             ("B1 pos 1023", 1, [1023]),
+             ("L16", 16, [0, 5, 31, 100, 250, 600, 900, 1000]),
+             ("L17", 17, [0, 6, 32, 99, 251, 601, 899, 1001]),
+             ("mid-page", 3, [4, 37, 70, 103, 136, 401, 700, 1009])]
     rows = []
     for kv_dtype in (torch.float32, torch.bfloat16, torch.int8):
-        for L, positions in cases:
+        for tag, L, positions in cases:
+            Bc = len(positions)
             q, kp, vp, pages, pos, scales = paged_inputs(g, L, positions,
                                                          kv_dtype)
             out = paged_attention(q, kp, vp, pages, pos, **scales)
+            again = paged_attention(q, kp, vp, pages, pos, **scales)
             ref = paged_attention_ref(q, kp, vp, pages, pos, **scales)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             if not err <= PA_TOL[kv_dtype]:
-                raise AssertionError(f"paged_attention {kv_dtype} L={L}: "
-                                     f"max abs err {err} > "
+                raise AssertionError(f"paged_attention {kv_dtype} {tag} "
+                                     f"L={L}: max abs err {err} > "
                                      f"{PA_TOL[kv_dtype]}")
+            if not torch.equal(out, again):
+                raise AssertionError(f"paged_attention {kv_dtype} {tag}: "
+                                     f"two launches differ")
             # yardstick: SDPA over the pre-gathered K/V (gather not timed)
             idx = pages.long()
             if scales:
@@ -270,31 +309,35 @@ def check_paged_attention(timer, g):
                         [:, :, None, :, None]).to(q.dtype)
             else:
                 kgat, vgat = kp[idx], vp[idx]
-            kgat = kgat.reshape(B, P * PAGE_TOKENS, H, D).transpose(1, 2) \
+            kgat = kgat.reshape(Bc, P * PAGE_TOKENS, H, D).transpose(1, 2) \
                 .contiguous()
-            vgat = vgat.reshape(B, P * PAGE_TOKENS, H, D).transpose(1, 2) \
+            vgat = vgat.reshape(Bc, P * PAGE_TOKENS, H, D).transpose(1, 2) \
                 .contiguous()
             qt = q.transpose(1, 2).contiguous()
             k_pos = torch.arange(P * PAGE_TOKENS, device="cuda")
             q_pos = pos.long()[:, None] + torch.arange(L, device="cuda")
             mask = (k_pos[None, None, None, :] <= q_pos[:, None, :, None])
+            call = lambda: paged_attention(q, kp, vp, pages, pos,  # noqa
+                                           **scales)
             row = dict(
-                kv=str(kv_dtype).split(".")[-1], L=L, max_abs_err=err,
-                ms=timer.ms(lambda: paged_attention(q, kp, vp, pages, pos,
-                                                    **scales)),
+                kv=str(kv_dtype).split(".")[-1], case=tag, B=Bc, L=L,
+                max_abs_err=err, ms=timer.ms(call),
                 plain_ms=timer.ms(lambda: paged_attention_ref(
                     q, kp, vp, pages, pos, **scales)),
                 library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
                     qt, kgat, vgat, attn_mask=mask)))
             row["bound_ms"], row["bound_by"] = paged_bound_ms(q, kp, pages,
                                                               pos, scales)
+            row["profiler_ms"] = profiler_ms(timer, call, PA_KERNEL)
+            if tag == "decode" and kv_dtype == torch.float32:
+                row["host_us"] = host_us(call)
             log("  paged_attention", json.dumps(row))
             rows.append(row)
     # poisoned arenas: every position no live row wrote (trash page 0,
     # unallocated pages, slots past each row's cursor) poisoned; the output
     # must be bit-identical
     for kv_dtype in (torch.float32, torch.int8):
-        L, positions = cases[0]
+        _, L, positions = cases[0]
         q, kp, vp, pages, pos, scales = paged_inputs(g, L, positions,
                                                      kv_dtype)
         written = torch.zeros(N_PAGES, PAGE_TOKENS, dtype=torch.bool)
@@ -325,6 +368,26 @@ def check_paged_attention(timer, g):
         log(f"  paged_attention poisoned {str(kv_dtype).split('.')[-1]} "
             f"arena: bit-identical")
     return rows
+
+
+def profiler_ms(timer, fn, kernel: str, iters: int = 10):
+    """Mean device time of ``fn``'s kernel (records whose name holds
+    ``kernel``) from the profiler, each launch after the Timer's L2 flush:
+    the kernel alone, without the launch gap and any host work that the
+    Timer's events can enclose. The mean is over the records the profiler
+    kept; None when it kept none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            timer.flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    recs = [e for e in prof.key_averages() if kernel in e.key]
+    n = sum(e.count for e in recs)
+    return sum(e.self_device_time_total for e in recs) / 1e3 / n if n else None
 
 
 def host_us(fn, calls: int = 200) -> float:
@@ -532,33 +595,61 @@ def profile_window(dec, reqs, also: str = ""):
     return device_profile(run, also)
 
 
-def int8_profile(busy_ms, kernels, launches, pa_launches) -> None:
-    """The int8 engine's profile window: the int8 matmul's device time per
-    forward, no split-K reduce kernel, and one kernel launch per
-    ``int8_matmul`` call (``launches`` calls and ``pa_launches``
-    paged-attention launches counted in the window). The profiler can drop
-    a few per cent of a long window's kernel records; the paged-attention
-    kernel's records against its counter tell whether it did. Where they
-    agree, the int8 kernel's records must equal its calls exactly; where
-    records were dropped, they must not exceed them."""
-    mm = [(ms, n) for ms, n, name in kernels if "int8_mm_wgmma_kernel" in name]
-    pa = sum(n for _, n, name in kernels if "paged_attention_kernel" in name)
+def int8_profile(busy_ms, kernels, launches) -> None:
+    """The int8 engine's profile window (one with every record, see
+    ``paged_window``): the int8 matmul's device time per forward, no split-K
+    reduce kernel, and exactly one kernel launch per ``int8_matmul`` call
+    (``launches`` calls counted in the window)."""
+    mm = [(ms, n) for ms, n, name in kernels if MM_KERNEL in name]
     split = [name for _, _, name in kernels if "splitk_reduce_kernel" in name]
     mm_ms, mm_count = sum(m for m, _ in mm), sum(n for _, n in mm)
-    complete = pa == pa_launches
-    log(f"  int8 window: device busy {busy_ms:.2f} ms; int8_mm_wgmma_kernel "
+    log(f"  int8 window: device busy {busy_ms:.2f} ms; {MM_KERNEL} "
         f"{mm_ms:.2f} ms over {mm_count} recorded launches for {launches} "
-        f"int8_matmul calls ({launches / INT8_PER_FORWARD:.1f} forwards; "
-        f"paged_attention_kernel {pa} recorded for {pa_launches} launches: "
-        f"records {'complete' if complete else 'dropped'}): "
+        f"int8_matmul calls ({launches / INT8_PER_FORWARD:.1f} forwards): "
         f"{mm_ms / max(mm_count, 1) * INT8_PER_FORWARD:.4f} ms per forward; "
         f"split-K reduce kernels: {len(split)}")
     if busy_ms <= 0:
         return
-    if split or (mm_count != launches if complete else mm_count > launches):
+    if split or mm_count != launches:
         raise AssertionError(f"int8 window: {mm_count} kernel launches for "
-                             f"{launches} calls ({'complete' if complete else 'dropped'} "
-                             f"records), reduce kernels {split}")
+                             f"{launches} calls, reduce kernels {split}")
+
+
+def paged_window(dec, reqs, tag, also=""):
+    """A serving window (``profile_window``) in which the profiler kept a
+    record of every kernel the gates count: one paged-attention kernel
+    record per ``paged_attention`` call and one int8 matmul record per
+    ``int8_matmul`` call, and no combine kernel. The profiler can drop a
+    few records of a long window (a drop in one kernel says nothing of the
+    other's), so a window whose records fall short of the calls is run
+    again, at most five windows in all; more records than calls, or a
+    combine kernel, fails at once. Returns the window's busy ms, kernels
+    and (paged_attention, int8_matmul) calls."""
+    from kubeml_tpu_torch.ops.int8_matmul import int8_matmul
+    from kubeml_tpu_torch.ops.paged_attention import paged_attention
+
+    for attempt in range(5):
+        paged_attention.launches = int8_matmul.launches = 0
+        busy_ms, kernels = profile_window(dec, reqs, also)
+        calls = (paged_attention.launches, int8_matmul.launches)
+        pa = sum(n for _, n, name in kernels if PA_KERNEL in name)
+        mm = sum(n for _, n, name in kernels if MM_KERNEL in name)
+        pa_ms = sum(ms for ms, _, name in kernels if PA_KERNEL in name)
+        combine = [name for _, _, name in kernels if "combine" in name]
+        log(f"  {tag} window {attempt + 1}: {PA_KERNEL} {pa} records for "
+            f"{calls[0]} paged_attention calls, {pa_ms:.3f} ms, "
+            f"{pa_ms / max(pa, 1) * PA_PER_FORWARD:.4f} ms per forward "
+            f"({100 * pa_ms / max(busy_ms, 1e-9):.1f} % of busy); "
+            f"{MM_KERNEL} {mm} records for {calls[1]} int8_matmul calls; "
+            f"combine kernels {len(combine)}")
+        if combine or pa > calls[0] or mm > calls[1]:
+            raise AssertionError(f"{tag} window: {pa} paged-attention and "
+                                 f"{mm} int8 kernel records for {calls} "
+                                 f"calls, combine kernels {combine}")
+        if busy_ms <= 0 or (pa, mm) == calls:
+            return busy_ms, kernels, calls
+    raise AssertionError(f"{tag} window: kernel records fell short of the "
+                         f"calls in five windows")
 
 
 def gpt2_small():
@@ -935,7 +1026,7 @@ def main() -> int:
                 [kernels._nvcc(), *kernels.NVCC_FLAGS, "-c",
                  str(kernels.CSRC / src), "-o", f"{tmp}/{src}.o"],
                 capture_output=True, text=True, check=True).stdout
-                for src in ("flash_attention.cu", "int8_matmul.cu"))
+                for src in kernels.SOURCES)
     check_compiled(kernels.library()._name, build_log)
 
     # 3. kernels against their plain versions
@@ -959,7 +1050,7 @@ def main() -> int:
     run = serve(dec, reqs)
     f32_launches = paged_attention.launches
     report_serve("kernel engine", run)
-    profile_window(dec, reqs)
+    paged_window(dec, reqs, "f32", also="paged")
     dec.close()
     steps = run["tele"]["prefill_waves"] + run["tele"]["decode_steps"]
     if f32_launches < model.depth * steps:
@@ -996,10 +1087,9 @@ def main() -> int:
     qrun = serve(qdec, reqs)
     q_launches = (paged_attention.launches, int8_matmul.launches)
     report_serve("kernel engine", qrun)
-    paged_attention.launches = int8_matmul.launches = 0
-    qbusy, qkernels = profile_window(qdec, reqs, also="int8")
-    int8_profile(qbusy, qkernels, int8_matmul.launches,
-                 paged_attention.launches)
+    qbusy, qkernels, (_, mm_calls) = paged_window(qdec, reqs, "int8",
+                                                  also="int8")
+    int8_profile(qbusy, qkernels, mm_calls)
     if min(q_launches) <= 0:
         raise AssertionError(f"int8 serving launches {q_launches}")
     log(f"  launches: paged_attention {q_launches[0]}, int8_matmul "

@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (flash_attention.cu, int8_matmul.cu): mbarriers, warpgroup wgmma
+// Hopper (sm_90a) building blocks shared by the port's kernels
+// (flash_attention.cu, int8_matmul.cu, paged_attention.cu): mbarriers, warpgroup wgmma
 // synchronisation, the shared-memory descriptor of a 128-byte-swizzled
 // tile, and the driver's tensor-map encoder fetched at run time.
 

@@ -1,338 +1,768 @@
 // Paged attention for Hopper (sm_90a): attend straight through per-row page
-// tables, no contiguous K/V copy.
+// tables, pages streamed by TMA into a shared-memory ring, split page walks
+// merged inside a thread-block cluster, one launch a call.
 //
 // Replaces the Pallas TPU kernel kubeml_tpu/ops/paged_attention.py::_pa_kernel
-// (wrapper `paged_attention`). One kernel serves L == 1 decode steps and
-// L > 1 suffix prefill: query l of row b sits at logical position
-// positions[b] + l and attends every key at or before it.
+// (line 113; wrapper `paged_attention`). q [B, L, H, D] f32 or bf16; arenas
+// [N, pt, H, D] f32, bf16 or int8 (int8 with [N, H] f32 scales); pages [B, P]
+// and positions [B] int32. Query l of row b sits at positions[b] + l and
+// attends every key at or before it; a row reads its pages up to
+// live = clamp(ceil((pos + L) / pt), 1, P) and never past them.
 //
-// What bounds it on an H100: memory traffic. A decode step reads each row's
-// live K and V pages once (B x live_tokens x H x D x 2 values) and does only
-// 4 x D flops per key and query, far below the card's ~20 flop/byte f32
-// ridge. The design therefore reads every live page exactly once per
-// (row, head, query tile) and never materialises the gathered [B, P*pt, H, D]
-// block the plain path builds:
-//   * grid (B, H, ceil(L / qtile)); each block loads its row's page-table
-//     entries itself and walks pages 0 .. min(live, pages its last query
-//     needs) - 1, so reads stop at the row's live depth;
-//   * per page, the [pt, D] K and V slices of head h (strided by H*D in the
-//     arena) are staged into shared memory, converted to f32 on load
-//     (bf16 or int8 storage), and reused by every query of the tile;
-//   * online softmax in f32 (running max m, sum l, accumulator in
-//     registers); int8 pages fold their per-page-per-head scale s/127 into
-//     the scores after QK^T and into PV after the product, like the TPU
-//     kernel.
-// Masked keys contribute exactly 0: scores take -1e30 (not -inf, so exp()
-// of a fully masked row stays finite), p is forced to 0 for them, and the
-// final division uses max(l, 1e-9). Pages past `live` are never read, so a
-// poisoned arena outside the written positions cannot change the output.
-// Queries are tiled (qtile <= 16) because prefill L reaches hundreds of
-// tokens, where the TPU kernel held all of L in one block.
-// Decode has few (row, head) pairs - 96 at 8 rows x 12 heads, fewer than
-// the card's 132 SMs - and each would walk up to 64 pages one after
-// another, so the wrapper splits the page walk across blocks when the grid
-// is small (flash-decoding): block z covers pages [split * pps, +pps) and
-// writes its unnormalised (m, l, acc) to a workspace; a second kernel
-// merges the splits in index order, so results do not depend on timing.
-// This first version uses plain FMA loops, not wgmma/TMA.
+// What bounds it on an H100: bytes at decode. A decode step reads each row's
+// live K and V pages once and does 4 x D operations per key: under one
+// operation per byte, far below the f32 ridge, so tensor cores would sit idle
+// and the gain is in bytes in flight. Prefill tiles (L in the hundreds) are
+// bound by f32 operations on the CUDA cores. The design:
+//   * a block owns (row, group of hg heads, query tile, cluster rank); a
+//     page's slice for the group is pt token rows of hg * D contiguous values
+//     in the arena. hg is 4 unless the grid cannot fill the card (then 2 or
+//     1), the stages a mapping needs (3 tile, 6 decode) would not fit the
+//     shared-memory budget, or (decode) the queries would not fit one block;
+//   * one producer warp streams pages into a ring of `stages` stages: per
+//     page one TMA box [pt, hg, D] of K and one of V from 3-D tensor maps
+//     over the arenas (heads past H arrive as zeros), completing on the
+//     stage's full mbarrier; int8 scales come by 4-byte cp.async beside
+//     them: two copy instructions a page. The host keeps each arena's
+//     maps, so a call looks them up and encodes nothing. The block reads
+//     positions[b] and its row of the page table itself, the table's first
+//     128 entries loaded beside positions[b];
+//   * consumer warps on the CUDA cores, in f32. Decode mapping (L <= 32, in
+//     tiles of up to 7 queries): one warp per (head, query); lanes over
+//     keys x D slices (D / 32 lanes a key, 32 values each, 16-byte loads
+//     starting at a chunk rotated by the key,
+//     so that dense rows give no bank conflicts), dot products finished by
+//     shuffles, the online softmax in registers (two pages a pass; the max
+//     moves only when a score passes it by 8), P.V with lanes over D. Tile
+//     mapping (L > 32): lanes over queries x D slices (two queries and the
+//     same 32 values a lane, so 64 / S queries a warp), every key of the page
+//     walked by every lane (16-byte loads shared by the lanes of one slice),
+//     dots finished by shuffles, the online softmax per group of 4 keys,
+//     causal key groups past the warp's last query skipped. bf16 and int8
+//     become f32 in registers after the shared load; int8 scales s/127 fold
+//     in after the products, as in the TPU kernel;
+//   * where the (row, head group, query tile) blocks cannot fill 132 SMs, a
+//     cluster of up to 8 blocks splits the pages the tile needs evenly
+//     between its ranks (decided on the card from the row's live depth, so
+//     ragged rows balance). Ranks 1.. leave (m, l, acc) in their drained
+//     rings; rank 0 merges them over distributed shared memory in rank order
+//     between two cluster barriers and stores. One launch, no workspace, no
+//     combine kernel; repeats are bit-identical.
+// Masked keys contribute exactly 0: scores take -1e30 (not -inf), p is 0 for
+// them (arenas start as zeros and hold finite values, so 0 x v is 0, as in
+// the TPU kernel), rows read past a page's end are zeroed before use, and
+// the final division uses max(l, 1e-9). Pages past `live` are never read,
+// so a poisoned arena outside the written positions cannot change the
+// output.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <string.h>
+
+#include <atomic>
+#include <mutex>
+#include <type_traits>
+#include <utility>
+
+#include "hopper.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr float kNeg = -1e30f;
-constexpr int kThreads = 128;
-constexpr int kMaxQTile = 16;
-constexpr int kMaxD = 128;
-constexpr int kMaxAcc = kMaxQTile * kMaxD / kThreads;
+// consumer warps; one producer warp beside them. 8 warps in all let ptxas
+// give the tile mapping 255 registers a thread (288 threads get 168, and
+// spill); min blocks 1 keeps it from spilling scalars at 64 registers
+constexpr int kMaxWarps = 7;
+constexpr int kMaxThreads = 32 * (kMaxWarps + 1);
+constexpr int kMaxCluster = 8;
+constexpr int kMaxSmem = 232448;  // 227 KB, the most a block can use
+constexpr int kKeyGroup = 4;      // tile mapping: keys between softmax updates (8 spill)
 
 enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
+struct Args {
+  const void* q;
+  const float* ks;
+  const float* vs;
+  const int* pages;
+  const int* positions;
+  void* out;
+  int B, L, H, pt, P;
+  int hg;           // heads a block owns
+  int qtile;        // queries a block owns
+  int n_qt;         // query tiles a row
+  int warps;        // consumer warps
+  int stages;       // ring stages
+  int box_bytes;    // a staged page's K (or V): [pt][hg][D], 128-byte aligned
+  int stage_bytes;  // K box, V box, then int8 scales
+  int area_bytes;   // the ring (or the merge buffer, if larger)
+  float sm_scale;
+};
+
+// The block's shared-memory layout; the wrapper's plan repeats it (ops/
+// paged_attention.py::_layout) to keep the ring within the card's limit.
+struct Layout {
+  int warps, box_bytes, stage_bytes, area_bytes, smem;
+};
+
+Layout layout(int D, int es, bool quant, bool tile, int hg, int qtile, int pt,
+              int stages) {
+  Layout o;
+  o.box_bytes = (pt * hg * D * es + 127) / 128 * 128;
+  o.stage_bytes = 2 * o.box_bytes + (quant ? 128 : 0);
+  o.warps = hg * (tile ? qtile / (2048 / D) : qtile);
+  // merge buffer: a lane's m, l and values per query (tile: 2 x 32)
+  const int merge = o.warps * 32 * (tile ? 2 * 34 : D / 32 + 2) * 4;
+  o.area_bytes = stages * o.stage_bytes > merge ? stages * o.stage_bytes : merge;
+  o.smem = o.area_bytes + 16 * stages + 128;
+  return o;
+}
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+// one box of a 3-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
 }
 
-template <typename TQ, typename TKV, bool kQuant>
-__global__ void __launch_bounds__(kThreads) paged_attention_kernel(
-    const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
-    const TKV* __restrict__ v_pages, const float* __restrict__ k_scale,
-    const float* __restrict__ v_scale, const int* __restrict__ pages,
-    const int* __restrict__ positions, TQ* __restrict__ out,
-    float* __restrict__ part_m, float* __restrict__ part_l,
-    float* __restrict__ part_acc, int B, int L, int H, int D, int pt, int P,
-    int qtile, int splits, int pages_per_split, float sm_scale) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const int split = blockIdx.z % splits;
-  const int q0 = (blockIdx.z / splits) * qtile;
-  const int nq = min(qtile, L - q0);
-  const int dp = D + 1;  // padded row: conflict-free column reads
-  float* sq = smem;                // [qtile][dp] queries, f32
-  float* sk = sq + qtile * dp;     // [pt][dp]    K page, f32
-  float* sv = sk + pt * dp;        // [pt][D]     V page, f32
-  float* sp = sv + pt * D;         // [qtile][pt] scores, then p
-  float* sm = sp + qtile * pt;     // [qtile] running max
-  float* sl = sm + qtile;          // [qtile] running sum
-  float* sa = sl + qtile;          // [qtile] rescale factor of this page
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+__device__ __forceinline__ void copy4_async(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst), "l"(src) : "memory");
+}
 
-  const int pos = positions[b];
-  // pages the row occupies after this call's writes (at least one, at most
-  // the table width: bucket-padding rows may sit past the table)
-  const int live = max(1, min((pos + L + pt - 1) / pt, P));
-  // pages the tile's last query can see
-  const int need = (pos + q0 + nq - 1) / pt + 1;
-  const int npg = max(1, min(live, need));
-  const int pg_begin = split * pages_per_split;
-  const int pg_end = min(npg, pg_begin + pages_per_split);
-
-  for (int idx = tid; idx < nq * D; idx += kThreads) {
-    const int i = idx / D;
-    const int d = idx - i * D;
-    sq[i * dp + d] = to_f32(q[((size_t)(b * L + q0 + i) * H + h) * D + d]);
-  }
-  for (int i = tid; i < nq; i += kThreads) {
-    sm[i] = kNeg;
-    sl[i] = 0.f;
-  }
-  float acc[kMaxAcc];
+// 16 staged bytes as f32 values: 4 f32, 8 bf16 or 16 int8 (exact: the int8
+// byte, offset by 128, becomes the low bits of the float 2^23)
+template <typename T>
+__device__ __forceinline__ void unpack16(const unsigned char* p, float (&f)[16 / sizeof(T)]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-  for (int r = 0; r < kMaxAcc; ++r) acc[r] = 0.f;
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (std::is_same<T, float>::value) {
+      f[i] = __uint_as_float(w[i]);
+    } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+    } else {
+      const uint32_t x = w[i] ^ 0x80808080u;
+      f[4 * i + 0] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7540)) - 8388736.f;
+      f[4 * i + 1] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7541)) - 8388736.f;
+      f[4 * i + 2] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7542)) - 8388736.f;
+      f[4 * i + 3] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7543)) - 8388736.f;
+    }
+  }
+}
+
+// N consecutive staged values (N * sizeof(T) is 2, 4, 8 or 16 bytes) as f32
+template <typename T, int N>
+__device__ __forceinline__ void load_vals(const unsigned char* p, float (&f)[N]) {
+  constexpr int bytes = N * (int)sizeof(T);
+  uint32_t w[4] = {0, 0, 0, 0};
+  if constexpr (bytes == 16) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    w[0] = u.x, w[1] = u.y, w[2] = u.z, w[3] = u.w;
+  } else if constexpr (bytes == 8) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    w[0] = u.x, w[1] = u.y;
+  } else if constexpr (bytes == 4) {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  } else {
+    static_assert(bytes == 2, "2 to 16 bytes");
+    w[0] = *reinterpret_cast<const uint16_t*>(p);
+  }
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    if constexpr (std::is_same<T, float>::value)
+      f[e] = __uint_as_float(w[e]);
+    else if constexpr (std::is_same<T, __nv_bfloat16>::value)
+      f[e] = __uint_as_float((w[e / 2] >> (16 * (e % 2))) << 16);
+    else
+      f[e] = (float)(int8_t)(w[e / 4] >> (8 * (e % 4)));
+  }
+}
+
+// out[0 .. N) = v * inv, stored as T (16-byte stores where N fills them)
+template <typename T, int N>
+__device__ __forceinline__ void store_vals(T* out, const float (&v)[N], float inv) {
+  if constexpr (std::is_same<T, float>::value && N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4)
+      *reinterpret_cast<float4*>(out + i) =
+          make_float4(v[i] * inv, v[i + 1] * inv, v[i + 2] * inv, v[i + 3] * inv);
+  } else if constexpr (std::is_same<T, float>::value && N == 2) {
+    *reinterpret_cast<float2*>(out) = make_float2(v[0] * inv, v[1] * inv);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if constexpr (std::is_same<T, float>::value)
+        out[i] = v[i] * inv;
+      else
+        out[i] = __float2bfloat16(v[i] * inv);
+    }
+  }
+}
+
+// grid (cluster rank, head group, row x query tile), the cluster along x;
+// warps 0 .. a.warps - 1 consume, warp a.warps produces. Both mappings give
+// a lane the 16-byte chunks s, s + S, s + 2S, ... (S = D / 32 slices, 32
+// values) of a head's K and V rows: the decode mapping for one key of one
+// query, the tile mapping for every key of two queries.
+template <typename TQ, typename TKV, int D, bool kTile>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    paged_attention_ring_kernel(const Args a, const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv) {
+  constexpr int es = sizeof(TKV);
+  constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
+  constexpr int S = D / 32, NCH = 2 * es, E = 16 / es;
+  constexpr int NQ = kTile ? 2 : 1;         // queries a lane owns
+  constexpr int DQ = kTile ? 32 : D / 32;   // output values a lane owns a query
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 127) & ~127u;
+  unsigned char* sm = smem_raw + (base - raw);
+  const uint32_t full = base + a.area_bytes, empty = full + 8 * a.stages;
+
+  const int rank = blockIdx.x, C = gridDim.x;
+  const int h0 = blockIdx.y * a.hg, nh = min(a.hg, a.H - h0);
+  const int b = blockIdx.z / a.n_qt;
+  const int q0 = (blockIdx.z % a.n_qt) * a.qtile, nq = min(a.qtile, a.L - q0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the producer's copy of the row's first 128 table entries, loaded beside
+  // positions[b] (the ranks' split needs that first)
+  const int* row = a.pages + (size_t)b * a.P;
+  int tab[4] = {0, 0, 0, 0};
+  if (warp == a.warps) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (lane + 32 * k < a.P) tab[k] = row[lane + 32 * k];
+  }
+  const int pos = a.positions[b];
+  // pages the row occupies after this call's writes (at least one, at most
+  // the table: bucket-padding rows may sit past it), then those the tile's
+  // last query can see, split evenly between the cluster's ranks
+  const int live = max(1, min((pos + a.L + a.pt - 1) / a.pt, a.P));
+  const int npg = max(1, min(live, (pos + q0 + nq - 1) / a.pt + 1));
+  const int per = (npg + C - 1) / C;
+  const int pg_beg = min(npg, rank * per);
+  const int count = min(npg, pg_beg + per) - pg_beg;
+
+  if (tid == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      // the producer lane 0's expect_tx and 32 asynchronous arrivals
+      mbar_init(full + 8 * s, 33);
+      mbar_init(empty + 8 * s, a.warps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   __syncthreads();
 
-  for (int pg = pg_begin; pg < pg_end; ++pg) {
-    const int phys = pages[(size_t)b * P + pg];
-    const size_t page_base = (size_t)phys * pt * H * D + (size_t)h * D;
-    for (int idx = tid; idx < pt * D; idx += kThreads) {
-      const int t = idx / D;
-      const int d = idx - t * D;
-      const size_t off = page_base + (size_t)t * H * D + d;
-      sk[t * dp + d] = to_f32(k_pages[off]);
-      sv[t * D + d] = to_f32(v_pages[off]);
-    }
-    float ksf = 1.f;
-    float vsf = 1.f;
-    if (kQuant) {
-      ksf = k_scale[(size_t)phys * H + h] / 127.f;
-      vsf = v_scale[(size_t)phys * H + h] / 127.f;
-    }
-    __syncthreads();
-
-    const int kpos0 = pg * pt;
-    for (int idx = tid; idx < nq * pt; idx += kThreads) {
-      const int i = idx / pt;
-      const int j = idx - i * pt;
-      const float* qi = sq + i * dp;
-      const float* kj = sk + j * dp;
-      float s = 0.f;
-      for (int d = 0; d < D; ++d) s = fmaf(qi[d], kj[d], s);
-      s *= sm_scale;
-      if (kQuant) s *= ksf;
-      sp[idx] = (kpos0 + j <= pos + q0 + i) ? s : kNeg;
-    }
-    __syncthreads();
-
-    for (int i = warp; i < nq; i += kThreads / 32) {
-      float* row = sp + i * pt;
-      float mx = kNeg;
-      for (int j = lane; j < pt; j += 32) mx = fmaxf(mx, row[j]);
+  float m[NQ], l[NQ], acc[NQ][DQ];
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_prev = sm[i];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int j = lane; j < pt; j += 32) {
-        const float s = row[j];
-        const float p = (s <= 0.5f * kNeg) ? 0.f : expf(s - m_new);
-        row[j] = p;
-        sum += p;
-      }
+  for (int t = 0; t < NQ; ++t) {
+    m[t] = kNeg;
+    l[t] = 0.f;
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        sa[i] = alpha;
-        sl[i] = sl[i] * alpha + sum;
-        sm[i] = m_new;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int r = 0; r < kMaxAcc; ++r) {
-      const int idx = tid + r * kThreads;
-      if (idx < nq * D) {
-        const int i = idx / D;
-        const int d = idx - i * D;
-        const float* prow = sp + i * pt;
-        float pv = 0.f;
-        for (int j = 0; j < pt; ++j) pv = fmaf(prow[j], sv[j * D + d], pv);
-        if (kQuant) pv *= vsf;
-        acc[r] = acc[r] * sa[i] + pv;
-      }
-    }
-    __syncthreads();  // the next page overwrites sk/sv/sp
+    for (int d = 0; d < DQ; ++d) acc[t][d] = 0.f;
   }
+  const int hl = warp % a.hg, s = lane % S, grp = lane / S;
+  // decode: the warp's query; tile: the lane's first query (then + 1)
+  const int lq = kTile ? (warp / a.hg) * (2 * 32 / S) + 2 * grp : warp / a.hg;
+  // the warp's last query (tile: of its 64 / S)
+  const int lq_last = kTile ? min(nq, (warp / a.hg + 1) * (2 * 32 / S)) - 1 : lq;
+  const bool ok = warp < a.warps && hl < nh && lq_last >= 0 &&
+                  (kTile ? (warp / a.hg) * (2 * 32 / S) < nq : lq < nq);
+  const int qmax = pos + q0 + lq_last;
 
-  // row (b, q0 + i, h) of split `split` in the [splits, B, L, H] partials
-  const size_t prow = ((size_t)split * B + b) * L + q0;
-  if (splits > 1) {
-    for (int i = tid; i < nq; i += kThreads) {
-      part_m[(prow + i) * H + h] = sm[i];
-      part_l[(prow + i) * H + h] = sl[i];
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kMaxAcc; ++r) {
-    const int idx = tid + r * kThreads;
-    if (idx < nq * D) {
-      const int i = idx / D;
-      const int d = idx - i * D;
-      if (splits > 1) {
-        part_acc[((prow + i) * H + h) * D + d] = acc[r];
+  if (warp == a.warps) {  // the producer warp
+    int far = 0;  // table entries past the first 128, 32 at a time
+    for (int i = 0; i < count; ++i) {
+      const int st = i % a.stages;
+      const int pg = pg_beg + i;
+      int phys;
+      if (pg < 128) {
+        const int w = pg >> 5;
+        phys = __shfl_sync(0xffffffffu, w == 0 ? tab[0] : w == 1 ? tab[1] : w == 2 ? tab[2] : tab[3],
+                           pg & 31);
       } else {
-        out[((size_t)(b * L + q0 + i) * H + h) * D + d] =
-            from_f32<TQ>(acc[r] / fmaxf(sl[i], 1e-9f));
+        if (i == 0 || (pg & 31) == 0) far = (pg & ~31) + lane < a.P ? row[(pg & ~31) + lane] : 0;
+        phys = __shfl_sync(0xffffffffu, far, pg & 31);
+      }
+      mbar_wait(empty + 8 * st, ((i / a.stages) & 1) ^ 1);
+      const uint32_t dst = base + st * a.stage_bytes, bar = full + 8 * st;
+      if (lane == 0) {
+        // whole boxes count, heads past H included (they arrive as zeros)
+        mbar_expect_tx(bar, 2 * a.pt * a.hg * D * es);
+        tma_load_3d(dst, &tk, bar, 0, h0, phys * a.pt);
+        tma_load_3d(dst + a.box_bytes, &tv, bar, 0, h0, phys * a.pt);
+      }
+      if constexpr (kQuant) {
+        const uint32_t sdst = dst + 2 * a.box_bytes;
+        const size_t s0 = (size_t)phys * a.H + h0;
+        if (lane < nh)
+          copy4_async(sdst + 4 * lane, a.ks + s0 + lane);
+        else if (lane >= 16 && lane - 16 < nh)
+          copy4_async(sdst + 4 * (a.hg + lane - 16), a.vs + s0 + lane - 16);
+      }
+      // each lane arrives once its own scale copies have landed
+      asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(bar) : "memory");
+    }
+  } else {
+    // a staged token row: hg * D values, dense. The lane's k-th chunk of its
+    // slice; the decode mapping starts each key's lanes at another chunk
+    // (rotated by the key), so that the 8 lanes of a 16-byte load phase hit
+    // distinct banks
+    const int rs = a.hg * D * es;
+    const int rot = kTile ? 0 : grp;
+    auto chunk = [&](int k) { return s + S * ((k + rot) & (NCH - 1)); };
+    // the lane's q values, chunk by chunk, query lq + t
+    float qv[NQ][32];
+#pragma unroll
+    for (int t = 0; t < NQ; ++t) {
+      const bool in = ok && lq + t < nq;
+      const TQ* qr = static_cast<const TQ*>(a.q) +
+                     (((size_t)b * a.L + q0 + (in ? lq + t : 0)) * a.H + h0 + hl) * D;
+#pragma unroll
+      for (int k = 0; k < NCH; ++k)
+#pragma unroll
+        for (int e = 0; e < E; ++e) qv[t][k * E + e] = in ? to_f32(qr[chunk(k) * E + e]) : 0.f;
+    }
+    // stage i's K rows, V rows and int8 scale factors for head hl, once its
+    // bytes have landed
+    struct Page {
+      const unsigned char* k;
+      const unsigned char* v;
+      float ksf, vsf;
+      int kpos0;
+    };
+    auto wait_page = [&](int i) {
+      const int st = i % a.stages;
+      mbar_wait(full + 8 * st, (i / a.stages) & 1);
+      Page pg;
+      const unsigned char* stage = sm + st * a.stage_bytes;
+      pg.k = stage + hl * D * es;
+      pg.v = pg.k + a.box_bytes;
+      pg.ksf = pg.vsf = 1.f;
+      if constexpr (kQuant) {
+        const float* sc = reinterpret_cast<const float*>(stage + 2 * a.box_bytes);
+        pg.ksf = sc[hl] / 127.f;
+        pg.vsf = sc[a.hg + hl] / 127.f;
+      }
+      pg.kpos0 = (pg_beg + i) * a.pt;
+      return pg;
+    };
+    auto release = [&](int i) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * (i % a.stages));
+    };
+    if constexpr (!kTile) {
+      // decode: lane (key grp, slice s) of each pass of 32 / S keys over NP
+      // pages at once (two while two remain; four measured no faster): one
+      // softmax update per pass;
+      // dot products finished by shuffles, P.V with lanes over D
+      constexpr int KC = 32 / S;
+      const int qp = pos + q0 + lq;
+      auto step = [&](int i, auto np) {
+        constexpr int NP = decltype(np)::value;
+        Page pg[NP];
+#pragma unroll
+        for (int n = 0; n < NP; ++n) pg[n] = wait_page(i + n);
+        if (ok && pg[0].kpos0 <= qp) {
+          for (int kc = 0; kc < a.pt && pg[0].kpos0 + kc <= qp; kc += KC) {
+            const int j = kc + grp;
+            float sc[NP], mx = kNeg;
+#pragma unroll
+            for (int n = 0; n < NP; ++n) {
+              const bool key = j < a.pt && pg[n].kpos0 + j <= qp;
+              float dot = 0.f;
+              if (key) {
+                float half[2] = {0.f, 0.f};  // two chains of FMAs
+#pragma unroll
+                for (int k = 0; k < NCH; ++k) {
+                  float f[E];
+                  unpack16<TKV>(pg[n].k + j * rs + chunk(k) * 16, f);
+#pragma unroll
+                  for (int e = 0; e < E; ++e)
+                    half[e & 1] = fmaf(qv[0][k * E + e], f[e], half[e & 1]);
+                }
+                dot = half[0] + half[1];
+              }
+#pragma unroll
+              for (int o = 1; o < S; o <<= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+              float x = dot * a.sm_scale;
+              if constexpr (kQuant) x *= pg[n].ksf;
+              sc[n] = key ? x : kNeg;
+              mx = fmaxf(mx, sc[n]);
+            }
+            // the running max moves only when a score passes it by more
+            // than 8 (p then stays below e^8): most passes skip the
+            // reduction and the rescale
+            float m_new = m[0], alpha = 1.f;
+            if (__any_sync(0xffffffffu, mx > m[0] + 8.f)) {
+#pragma unroll
+              for (int o = S; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+              m_new = fmaxf(m[0], mx);
+              alpha = expf(m[0] - m_new);
+            }
+            // p is 0 for every dead key (masked, or past the page)
+            float p[NP], psum = 0.f;
+#pragma unroll
+            for (int n = 0; n < NP; ++n) {
+              p[n] = sc[n] <= 0.5f * kNeg ? 0.f : expf(sc[n] - m_new);
+              psum += p[n];
+            }
+            // the row sum stays a sum per key lane (slice 0) until the end
+            l[0] = l[0] * alpha + (s == 0 ? psum : 0.f);
+            m[0] = m_new;
+            // P.V over the pass's keys, lanes over D, without branches: rows
+            // past the last live key are read (clamped to the page) but
+            // never multiplied in
+            float pv[DQ];
+#pragma unroll
+            for (int d = 0; d < DQ; ++d) pv[d] = 0.f;
+#pragma unroll
+            for (int n = 0; n < NP; ++n) {
+              const int nk = min(min(KC, a.pt - kc), qp - pg[n].kpos0 - kc + 1);
+              const unsigned char* vcol = pg[n].v + lane * DQ * es;
+              const float w = kQuant ? pg[n].vsf : 1.f;
+#pragma unroll
+              for (int jj = 0; jj < KC; ++jj) {
+                const float pj = __shfl_sync(0xffffffffu, p[n], jj * S) * w;
+                float f[DQ];
+                load_vals<TKV, DQ>(vcol + min(kc + jj, a.pt - 1) * rs, f);
+#pragma unroll
+                for (int d = 0; d < DQ; ++d) pv[d] = fmaf(pj, jj < nk ? f[d] : 0.f, pv[d]);
+              }
+            }
+#pragma unroll
+            for (int d = 0; d < DQ; ++d) acc[0][d] = fmaf(acc[0][d], alpha, pv[d]);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < NP; ++n) release(i + n);
+      };
+      int i = 0;
+      for (; i + 2 <= count; i += 2) step(i, std::integral_constant<int, 2>{});
+      if (i < count) step(i, std::integral_constant<int, 1>{});
+    } else {
+      for (int i = 0; i < count; ++i) {
+        const Page pg = wait_page(i);
+        const int kpos0 = pg.kpos0;
+        if (ok && kpos0 <= qmax) {
+          // tile: every lane walks every key of the group, its two queries
+          // against its 32 values; dots finished by shuffles over the S
+          // slices; the online softmax per group of 4 keys. No branch per
+          // key, so the group's loads and products interleave: rows past
+          // the page are read clamped to it, and keys past a query or the
+          // page score -1e30 and are never multiplied in
+          for (int j0 = 0; j0 < a.pt && kpos0 + j0 <= qmax; j0 += kKeyGroup) {
+            float sc[NQ][kKeyGroup];
+#pragma unroll
+            for (int jj = 0; jj < kKeyGroup; ++jj) {
+              const int j = min(j0 + jj, a.pt - 1);
+              float dot[NQ] = {};
+#pragma unroll
+              for (int k = 0; k < NCH; ++k) {
+                float f[E];
+                unpack16<TKV>(pg.k + j * rs + chunk(k) * 16, f);
+#pragma unroll
+                for (int e = 0; e < E; ++e)
+#pragma unroll
+                  for (int t = 0; t < NQ; ++t) dot[t] = fmaf(qv[t][k * E + e], f[e], dot[t]);
+              }
+#pragma unroll
+              for (int t = 0; t < NQ; ++t) {
+#pragma unroll
+                for (int o = 1; o < S; o <<= 1) dot[t] += __shfl_xor_sync(0xffffffffu, dot[t], o);
+                float x = dot[t] * a.sm_scale;
+                if constexpr (kQuant) x *= pg.ksf;
+                sc[t][jj] = j0 + jj < a.pt && kpos0 + j0 + jj <= pos + q0 + lq + t ? x : kNeg;
+              }
+            }
+#pragma unroll
+            for (int t = 0; t < NQ; ++t) {
+              float gm = kNeg;
+#pragma unroll
+              for (int jj = 0; jj < kKeyGroup; ++jj) gm = fmaxf(gm, sc[t][jj]);
+              const float m_new = fmaxf(m[t], gm);
+              const float alpha = expf(m[t] - m_new);
+              m[t] = m_new;
+              l[t] *= alpha;
+#pragma unroll
+              for (int d = 0; d < DQ; ++d) acc[t][d] *= alpha;
+#pragma unroll
+              for (int jj = 0; jj < kKeyGroup; ++jj) {
+                const float p = sc[t][jj] <= 0.5f * kNeg ? 0.f : expf(sc[t][jj] - m_new);
+                l[t] += p;
+                sc[t][jj] = kQuant ? p * pg.vsf : p;
+              }
+            }
+#pragma unroll
+            for (int jj = 0; jj < kKeyGroup; ++jj) {
+              const int j = min(j0 + jj, a.pt - 1);
+              const bool live = j0 + jj < a.pt;
+#pragma unroll
+              for (int k = 0; k < NCH; ++k) {
+                float f[E];
+                unpack16<TKV>(pg.v + j * rs + chunk(k) * 16, f);
+#pragma unroll
+                for (int e = 0; e < E; ++e) {
+                  const float v = live ? f[e] : 0.f;
+#pragma unroll
+                  for (int t = 0; t < NQ; ++t)
+                    acc[t][k * E + e] = fmaf(sc[t][jj], v, acc[t][k * E + e]);
+                }
+              }
+            }
+          }
+        }
+        release(i);
+      }
+    }
+  }
+
+  if constexpr (!kTile) {  // the decode row sum: one reduction over the key lanes
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) l[0] += __shfl_xor_sync(0xffffffffu, l[0], o);
+  }
+  if (C > 1) {  // split pages: rank 0 merges the ranks' (m, l, acc) in order
+    cg::cluster_group cl = cg::this_cluster();
+    constexpr int F = NQ * (DQ + 2);  // floats a lane leaves: per query m, l, acc
+    float* mg = reinterpret_cast<float*>(sm);  // [warps][F][32], in the drained ring
+    if (warp < a.warps) {
+      // every consumer is done with the ring before any overwrites it
+      asm volatile("bar.sync 1, %0;" ::"r"(32 * a.warps) : "memory");
+      if (rank > 0) {
+        float* mine = mg + warp * F * 32 + lane;
+#pragma unroll
+        for (int t = 0; t < NQ; ++t) {
+          mine[32 * t * (DQ + 2)] = m[t];
+          mine[32 * (t * (DQ + 2) + 1)] = l[t];
+#pragma unroll
+          for (int d = 0; d < DQ; ++d) mine[32 * (t * (DQ + 2) + 2 + d)] = acc[t][d];
+        }
+      }
+    }
+    cl.sync();
+    if (rank == 0 && warp < a.warps) {
+      const int at = warp * F * 32 + lane;
+#pragma unroll
+      for (int t = 0; t < NQ; ++t) {
+        const int f0 = at + 32 * t * (DQ + 2);
+        // every rank's max first, the loads all in flight together
+        float mr[kMaxCluster];
+#pragma unroll
+        for (int r = 1; r < kMaxCluster; ++r)
+          mr[r] = r < C ? cl.map_shared_rank(mg, r)[f0] : kNeg;
+        float mt = m[t];
+#pragma unroll
+        for (int r = 1; r < kMaxCluster; ++r) mt = fmaxf(mt, mr[r]);
+        const float w0 = expf(m[t] - mt);
+        l[t] *= w0;
+#pragma unroll
+        for (int d = 0; d < DQ; ++d) acc[t][d] *= w0;
+        // then each rank's (l, acc), weighted, in rank order
+#pragma unroll
+        for (int r = 1; r < kMaxCluster; ++r) {
+          if (r < C) {
+            const float* other = cl.map_shared_rank(mg, r) + f0;
+            const float wr = expf(mr[r] - mt);
+            l[t] = fmaf(other[32], wr, l[t]);
+#pragma unroll
+            for (int d = 0; d < DQ; ++d) acc[t][d] = fmaf(other[32 * (2 + d)], wr, acc[t][d]);
+          }
+        }
+      }
+    }
+    cl.sync();  // no rank leaves while rank 0 reads its shared memory
+    if (rank > 0) return;
+  }
+  if (!ok) return;
+#pragma unroll
+  for (int t = 0; t < NQ; ++t) {
+    if (lq + t >= nq) continue;
+    TQ* o = static_cast<TQ*>(a.out) + (((size_t)b * a.L + q0 + lq + t) * a.H + h0 + hl) * D;
+    const float inv = 1.f / fmaxf(l[t], 1e-9f);
+    if constexpr (!kTile) {
+      store_vals<TQ, DQ>(o + lane * DQ, acc[t], inv);
+    } else {
+#pragma unroll
+      for (int k = 0; k < NCH; ++k) {
+        float v[E];
+#pragma unroll
+        for (int e = 0; e < E; ++e) v[e] = acc[t][k * E + e];
+        store_vals<TQ, E>(o + (s + S * k) * E, v, inv);
       }
     }
   }
 }
 
-// Merge the page splits of one (row, query, head): rescale each split's
-// (l, acc) from its own running max to the overall one, sum in split order,
-// divide once. A split that saw only masked keys has m = -1e30, l = 0,
-// acc = 0 and adds nothing. One block per (b, l, h), one thread per d.
-template <typename TQ>
-__global__ void paged_attention_combine(const float* __restrict__ part_m,
-                                        const float* __restrict__ part_l,
-                                        const float* __restrict__ part_acc,
-                                        TQ* __restrict__ out, int rows, int D,
-                                        int splits) {
-  const int row = blockIdx.x;  // (b * L + l) * H + h
-  const int d = threadIdx.x;
-  float m = kNeg;
-  for (int s = 0; s < splits; ++s) m = fmaxf(m, part_m[(size_t)s * rows + row]);
-  float l = 0.f;
-  float o = 0.f;
-  for (int s = 0; s < splits; ++s) {
-    const float w = expf(part_m[(size_t)s * rows + row] - m);
-    l += part_l[(size_t)s * rows + row] * w;
-    o += part_acc[((size_t)s * rows + row) * D + d] * w;
-  }
-  out[(size_t)row * D + d] = from_f32<TQ>(o / fmaxf(l, 1e-9f));
-}
-
-template <typename TQ, typename TKV, bool kQuant>
-int launch(const void* q, const void* k_pages, const void* v_pages,
-           const void* k_scale, const void* v_scale, const void* pages,
-           const void* positions, void* out, float* workspace, int B, int L,
-           int H, int D, int pt, int P, int splits, int pages_per_split,
+template <typename TQ, typename TKV, int D, bool kTile>
+int launch(const Args& a, const CUtensorMap& tk, const CUtensorMap& tv, int cluster, int smem,
            cudaStream_t stream) {
-  const int qtile = L < kMaxQTile ? L : kMaxQTile;
-  const size_t smem =
-      sizeof(float) * ((size_t)qtile * (D + 1) + (size_t)pt * (D + 1) +
-                       (size_t)pt * D + (size_t)qtile * pt + 3 * (size_t)qtile);
-  auto kern = paged_attention_kernel<TQ, TKV, kQuant>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const auto kern = paged_attention_ring_kernel<TQ, TKV, D, kTile>;
+  // the shared-memory limit is raised once per device for this
+  // instantiation, not on every call
+  static std::atomic<uint64_t> raised{0};  // a bit per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const uint64_t bit = uint64_t(1) << (dev & 63);
+  if (!(raised.load(std::memory_order_relaxed) & bit)) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (e != cudaSuccess) return (int)e;
+    raised.fetch_or(bit);
   }
-  const int rows = B * L * H;
-  float* part_m = splits > 1 ? workspace : nullptr;
-  float* part_l = splits > 1 ? workspace + (size_t)splits * rows : nullptr;
-  float* part_acc =
-      splits > 1 ? workspace + 2 * (size_t)splits * rows : nullptr;
-  const dim3 grid(B, H, ((L + qtile - 1) / qtile) * splits);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(k_pages),
-      static_cast<const TKV*>(v_pages), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), static_cast<const int*>(pages),
-      static_cast<const int*>(positions), static_cast<TQ*>(out), part_m,
-      part_l, part_acc, B, L, H, D, pt, P, qtile, splits, pages_per_split,
-      1.f / sqrtf((float)D));
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || splits == 1) return (int)e;
-  paged_attention_combine<TQ><<<rows, D, 0, stream>>>(
-      part_m, part_l, part_acc, static_cast<TQ*>(out), rows, D, splits);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, (a.H + a.hg - 1) / a.hg, a.B * a.n_qt);
+  cfg.blockDim = dim3(32 * (a.warps + 1));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, a, tk, tv);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
+template <typename TQ, typename TKV>
+int dispatch_shape(int D, bool tile, const Args& a, const CUtensorMap& tk, const CUtensorMap& tv,
+                   int cluster, int smem, cudaStream_t st) {
+  if (D == 64)
+    return tile ? launch<TQ, TKV, 64, true>(a, tk, tv, cluster, smem, st)
+                : launch<TQ, TKV, 64, false>(a, tk, tv, cluster, smem, st);
+  if (D == 128)
+    return tile ? launch<TQ, TKV, 128, true>(a, tk, tv, cluster, smem, st)
+                : launch<TQ, TKV, 128, false>(a, tk, tv, cluster, smem, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename TQ>
-int dispatch_kv(int kv_dtype, const void* q, const void* k_pages,
-                const void* v_pages, const void* k_scale, const void* v_scale,
-                const void* pages, const void* positions, void* out,
-                float* ws, int B, int L, int H, int D, int pt, int P,
-                int splits, int pps, cudaStream_t stream) {
+int dispatch_kv(int kv_dtype, int D, bool tile, const Args& a, const CUtensorMap& tk,
+                const CUtensorMap& tv, int cluster, int smem, cudaStream_t st) {
   switch (kv_dtype) {
-    case kF32:
-      return launch<TQ, float, false>(q, k_pages, v_pages, k_scale, v_scale,
-                                      pages, positions, out, ws, B, L, H, D, pt,
-                                      P, splits, pps, stream);
-    case kBF16:
-      return launch<TQ, __nv_bfloat16, false>(q, k_pages, v_pages, k_scale,
-                                              v_scale, pages, positions, out,
-                                              ws, B, L, H, D, pt, P, splits,
-                                              pps, stream);
-    case kI8:
-      return launch<TQ, int8_t, true>(q, k_pages, v_pages, k_scale, v_scale,
-                                      pages, positions, out, ws, B, L, H, D, pt,
-                                      P, splits, pps, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case kF32: return dispatch_shape<TQ, float>(D, tile, a, tk, tv, cluster, smem, st);
+    case kBF16: return dispatch_shape<TQ, __nv_bfloat16>(D, tile, a, tk, tv, cluster, smem, st);
+    case kI8: return dispatch_shape<TQ, int8_t>(D, tile, a, tk, tv, cluster, smem, st);
+    default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The tensor map of an arena [N, pt, H, D] as the 3-D tensor (D, H, N * pt)
+// with boxes of (D, hg, pt): one page's token rows for a head group, heads
+// past H filled with zeros. An arena lives as long as its decoder, so maps
+// are kept by everything they encode (address, shape, dtype, box) and not
+// encoded again on every call; a new arena at a freed one's address with
+// the same shape gets the same map.
+struct MapKey {
+  const void* p;
+  int n, pt, h, d, dtype, hg;
+  bool operator==(const MapKey& o) const {
+    return p == o.p && n == o.n && pt == o.pt && h == o.h && d == o.d && dtype == o.dtype &&
+           hg == o.hg;
+  }
+};
+
+int arena_map(CUtensorMap* map, const MapKey& k) {
+  constexpr int kSlots = 64;
+  static std::mutex mu;
+  static MapKey keys[kSlots];
+  static CUtensorMap maps[kSlots];
+  static int used = 0, next = 0;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i)
+    if (keys[i] == k) {
+      *map = maps[i];
+      return 0;
+    }
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return (int)cudaErrorSymbolNotFound;
+  const int es = k.dtype == kF32 ? 4 : k.dtype == kBF16 ? 2 : 1;
+  const CUtensorMapDataType type = k.dtype == kF32    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : k.dtype == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                      : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  const cuuint64_t dims[3] = {(cuuint64_t)k.d, (cuuint64_t)k.h, (cuuint64_t)k.n * k.pt};
+  const cuuint64_t strides[2] = {(cuuint64_t)k.d * es, (cuuint64_t)k.h * k.d * es};
+  const cuuint32_t box[3] = {(cuuint32_t)k.d, (cuuint32_t)k.hg, (cuuint32_t)k.pt};
+  const cuuint32_t step[3] = {1, 1, 1};
+  CUtensorMap m;
+  memset(&m, 0, sizeof(m));
+  if (enc(&m, type, 3, const_cast<void*>(k.p), dims, strides, box, step,
+          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  const int slot = used < kSlots ? used++ : next++ % kSlots;
+  keys[slot] = k;
+  maps[slot] = m;
+  *map = m;
+  return 0;
 }
 
 }  // namespace
 
-// q, out [B, L, H, D] (q_dtype); k_pages, v_pages [N, pt, H, D] (kv_dtype);
-// k_scale, v_scale [N, H] f32 (int8 arenas only, else null); pages [B, P]
-// and positions [B] int32. All contiguous. With splits > 1 each block walks
-// pages_per_split pages and workspace holds splits * B * L * H * (D + 2)
-// floats of partials. Returns cudaGetLastError().
-extern "C" int kubeml_paged_attention(const void* q, const void* k_pages,
-                                      const void* v_pages, const void* k_scale,
-                                      const void* v_scale, const void* pages,
-                                      const void* positions, void* out,
-                                      void* workspace, int B, int L, int H,
-                                      int D, int pt, int P, int splits,
-                                      int pages_per_split, int q_dtype,
-                                      int kv_dtype, void* stream) {
-  if (B < 1 || L < 1 || H < 1 || D < 1 || D > kMaxD || pt < 1 || P < 1 ||
-      splits < 1 || pages_per_split < 1 ||
-      (splits > 1 && workspace == nullptr))
+// q, out [B, L, H, D] (q_dtype); k_pages, v_pages [N, pt, H, D] (kv_dtype),
+// 16-byte aligned, N pages; k_scale, v_scale [N, H] f32 (int8 arenas only, else
+// null); pages [B, P] and positions [B] int32. All contiguous, D 64 or 128.
+// The launch plan: hg heads a block, qtile queries a block (tile = 0: one
+// warp per (head, query), hg * qtile <= 7 warps; tile = 1: 2048 / D
+// queries a warp, qtile a multiple of that), `stages` ring stages, and a
+// cluster of 1-8 blocks splitting each tile's pages. Returns
+// cudaGetLastError() after the one launch.
+extern "C" int kubeml_paged_attention(const void* q, const void* k_pages, const void* v_pages,
+                                      const void* k_scale, const void* v_scale, const void* pages,
+                                      const void* positions, void* out, int B, int L, int H,
+                                      int D, int N, int pt, int P, int hg, int qtile, int tile,
+                                      int stages, int cluster, int q_dtype, int kv_dtype,
+                                      void* stream) {
+  const int es = kv_dtype == kF32 ? 4 : kv_dtype == kBF16 ? 2 : 1;
+  const bool quant = kv_dtype == kI8;
+  if (B < 1 || L < 1 || H < 1 || (D != 64 && D != 128) || N < 1 || pt < 1 || pt > 256 ||
+      P < 1 || hg < 1 || hg > H || hg > 8 || qtile < 1 || stages < 2 || cluster < 1 ||
+      cluster > kMaxCluster || (tile && qtile % (2048 / D) != 0) ||
+      reinterpret_cast<uintptr_t>(k_pages) % 16 || reinterpret_cast<uintptr_t>(v_pages) % 16 ||
+      (quant && (k_scale == nullptr || v_scale == nullptr)) || kv_dtype < kF32 || kv_dtype > kI8)
     return (int)cudaErrorInvalidValue;
-  if (kv_dtype == kI8 && (k_scale == nullptr || v_scale == nullptr))
+  const Layout lay = layout(D, es, quant, tile != 0, hg, qtile, pt, stages);
+  const int n_qt = (L + qtile - 1) / qtile;
+  if (lay.warps < 1 || lay.warps > kMaxWarps || lay.smem > kMaxSmem ||
+      (long long)B * n_qt > 65535 || 2LL * pt * hg * D * es >= (1 << 20) ||
+      (long long)N * pt > INT32_MAX)
     return (int)cudaErrorInvalidValue;
-  float* ws = static_cast<float*>(workspace);
+  CUtensorMap tk, tv;
+  int e;
+  if ((e = arena_map(&tk, MapKey{k_pages, N, pt, H, D, kv_dtype, hg})) ||
+      (e = arena_map(&tv, MapKey{v_pages, N, pt, H, D, kv_dtype, hg})))
+    return e;
+  Args a{};
+  a.q = q;
+  a.ks = static_cast<const float*>(k_scale);
+  a.vs = static_cast<const float*>(v_scale);
+  a.pages = static_cast<const int*>(pages);
+  a.positions = static_cast<const int*>(positions);
+  a.out = out;
+  a.B = B, a.L = L, a.H = H, a.pt = pt, a.P = P;
+  a.hg = hg, a.qtile = qtile, a.n_qt = n_qt, a.warps = lay.warps, a.stages = stages;
+  a.box_bytes = lay.box_bytes, a.stage_bytes = lay.stage_bytes, a.area_bytes = lay.area_bytes;
+  a.sm_scale = 1.f / sqrtf((float)D);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (q_dtype) {
-    case kF32:
-      return dispatch_kv<float>(kv_dtype, q, k_pages, v_pages, k_scale,
-                                v_scale, pages, positions, out, ws, B, L, H, D,
-                                pt, P, splits, pages_per_split, s);
+    case kF32: return dispatch_kv<float>(kv_dtype, D, tile != 0, a, tk, tv, cluster, lay.smem, s);
     case kBF16:
-      return dispatch_kv<__nv_bfloat16>(kv_dtype, q, k_pages, v_pages, k_scale,
-                                        v_scale, pages, positions, out, ws, B,
-                                        L, H, D, pt, P, splits,
-                                        pages_per_split, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+      return dispatch_kv<__nv_bfloat16>(kv_dtype, D, tile != 0, a, tk, tv, cluster, lay.smem, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -40,10 +40,10 @@ DTYPE_CODES = {"float32": 0, "bfloat16": 1, "int8": 2}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # q, k_pages, v_pages, k_scale, v_scale, pages, positions, out,
-    # workspace, B, L, H, D, pt, P, splits, pages_per_split, q_dtype,
-    # kv_dtype, stream
-    "kubeml_paged_attention": [_P] * 9 + [_I] * 10 + [_P],
+    # q, k_pages, v_pages, k_scale, v_scale, pages, positions, out, B, L,
+    # H, D, N, pt, P, hg, qtile, tile, stages, cluster, q_dtype, kv_dtype,
+    # stream
+    "kubeml_paged_attention": [_P] * 8 + [_I] * 14 + [_P],
     # x, q, s, y, M, K, N, m_tile, cluster, k_per_rank, x_dtype, y_dtype,
     # stream
     "kubeml_int8_matmul": [_P] * 4 + [_I] * 8 + [_P],

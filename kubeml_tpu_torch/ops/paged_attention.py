@@ -9,10 +9,13 @@ at or before it (a purely positional mask).
 Two versions of one function:
 
 * :func:`paged_attention` - the wrapper of the hand-written CUDA kernel
-  (``csrc/paged_attention.cu``, the port of the Pallas ``_pa_kernel``). It
-  walks each row's pages up to the row's live depth and never builds a
-  contiguous copy of the table. It launches the kernel for CUDA tensors
-  and takes the plain version for CPU tensors; there is no other fallback.
+  (``csrc/paged_attention.cu``, the port of the Pallas ``_pa_kernel``): one
+  launch a call, pages streamed by TMA into a shared-memory ring,
+  a row's page walk split over a thread-block cluster and merged inside
+  it. It walks each row's pages up to the row's live depth and never
+  builds a contiguous copy of the table. It launches the kernel for CUDA
+  tensors and takes the plain version for CPU tensors; there is no other
+  fallback. :func:`_plan` sizes the launch.
 * :func:`paged_attention_ref` - the plain PyTorch version: the gather-then-
   attend read of the paged decode branch (``kubeml_tpu/models/gpt.py``
   :246-264). It gathers each row's whole table into ``[B, P*pt, H, D]``,
@@ -27,7 +30,8 @@ legacy ``pallas``) the kernel, ``gather`` the plain version.
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -43,8 +47,16 @@ VALID_KV_QUANT = ("off", "int8", "auto")
 # per-head running absmax
 _KV_QMAX = 127.0
 
-# query tile of csrc/paged_attention.cu (queries per block)
-_QTILE = 16
+# launch limits of csrc/paged_attention.cu: consumer warps a block, blocks a
+# cluster, shared memory a block (227 KB); L up to _DECODE_MAX_L takes the
+# decode mapping (a warp per (head, query), in tiles of at most 7 queries),
+# longer L the tile mapping (lanes over queries); a ring of at most
+# _MAX_STAGES stages within _SMEM_BUDGET, so that two blocks share an SM.
+# The mapping threshold and the cluster targets in _plan come from sweeps of
+# the plan on the H100 at GPT-2-small width (L 1-128, f32 and int8 arenas).
+_MAX_WARPS, _MAX_CLUSTER, _MAX_SMEM = 7, 8, 232448
+_DECODE_MAX_L, _MAX_STAGES, _SMEM_BUDGET = 32, 8, 112 * 1024
+_HEAD_DIMS = (64, 128)
 
 
 def resolve_kv_quant(value: Optional[str]) -> str:
@@ -108,8 +120,9 @@ def _check_cuda_args(q, k_pages, v_pages, pages, positions, k_scale,
         raise ValueError("int8 arenas need k_scale/v_scale, and only they do")
     if k_pages.dtype not in (torch.float32, torch.bfloat16, torch.int8):
         raise TypeError(f"unsupported arena dtype {k_pages.dtype}")
-    if D > 128:
-        raise ValueError(f"head dim {D} > 128 is not supported by the kernel")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"head dim {D} is not supported by the kernel "
+                         f"(64 or 128)")
     if pages.dtype != torch.int32 or pages.dim() != 2 or pages.shape[0] != B:
         raise ValueError(f"pages must be int32 [{B}, P], got {pages.dtype} "
                          f"{tuple(pages.shape)}")
@@ -127,15 +140,89 @@ def _check_cuda_args(q, k_pages, v_pages, pages, positions, k_scale,
             raise ValueError(f"all tensors must be on {dev}, got {t.device}")
         if not t.is_contiguous():
             raise ValueError("paged_attention needs contiguous tensors")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("the arenas must be 16-byte aligned")
 
 
-def _split_pages(blocks: int, P: int, sm_count: int):
-    """(splits, pages per split) for a grid of ``blocks`` (row, head, query
-    tile) blocks over P-page tables: split the page walk until about eight
-    blocks sit on every SM, keeping at least two pages per split."""
-    splits = max(1, min(-(-P // 2), -(-8 * sm_count // blocks)))
-    per = -(-P // splits)
-    return -(-P // per), per
+class Plan(NamedTuple):
+    """One launch of the kernel: ``hg`` heads and ``qtile`` queries a block,
+    the ``tile`` mapping or the decode one, ``stages`` ring stages,
+    ``cluster`` blocks splitting a tile's pages (at most
+    ``pages_per_rank`` each), and the block's shared memory in bytes."""
+    hg: int
+    qtile: int
+    tile: bool
+    stages: int
+    cluster: int
+    pages_per_rank: int
+    smem: int
+
+
+def _layout(D, es, quant, tile, hg, qtile, pt, stages):
+    """(consumer warps, stage bytes, shared-memory bytes) of a block, as
+    ``layout`` in csrc/paged_attention.cu computes them: a stage holds one
+    page's K box and V box (``[pt, hg, D]``, each rounded up to 128 bytes)
+    and, for int8 arenas, 128 bytes of scales; the merge buffer of split
+    walks shares the ring's space; mbarriers and 128 bytes of alignment
+    after."""
+    box = -(-pt * hg * D * es // 128) * 128
+    stage = 2 * box + (128 if quant else 0)
+    warps = hg * (qtile // (2048 // D) if tile else qtile)
+    # the merge buffer: a lane's m, l and values per query (tile: 2 x 32)
+    area = max(stages * stage, warps * 32 * (68 if tile else D // 32 + 2) * 4)
+    return warps, stage, area + 16 * stages + 128
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(B: int, L: int, H: int, D: int, pt: int, P: int, es: int,
+          quant: bool, sm_count: int) -> Plan:
+    """The launch for q ``[B, L, H, D]`` over ``[N, pt, H, D]`` arenas of
+    ``es``-byte values and ``[B, P]`` tables. Head groups of 4, halved
+    while (decode mapping) more than one query tile's warps would not fit a
+    block, while the grid (with 8-rank clusters) cannot fill the card, or
+    while the stages the mapping needs (3 tile, 6 decode) overflow the
+    budget; then clusters of ranks to about four blocks an SM for the
+    decode mapping, two for the tile mapping."""
+    tile = L > _DECODE_MAX_L
+    lpw = 2048 // D  # tile mapping: queries a warp
+
+    def qtile_of(hg):
+        if tile:
+            return lpw * max(1, min(_MAX_WARPS // hg, -(-L // lpw)))
+        return min(L, _MAX_WARPS // hg)
+
+    hg = 4 if H >= 4 else 2 if H >= 2 else 1
+    if not tile:
+        while hg > 1 and hg * L > _MAX_WARPS:
+            hg //= 2
+    while hg > 1 and (B * -(-H // hg) * -(-L // qtile_of(hg)) * _MAX_CLUSTER
+                      < sm_count):
+        hg //= 2
+    # stages the ring needs: the decode mapping holds two pages a pass and
+    # is bound by pages in flight
+    need = 3 if tile else 6
+    while hg > 1 and need * _layout(D, es, quant, tile, hg, qtile_of(hg), pt,
+                                    1)[1] > _SMEM_BUDGET:
+        hg //= 2
+    qtile = qtile_of(hg)
+    stage = _layout(D, es, quant, tile, hg, qtile, pt, 1)[1]
+    blocks = B * -(-H // hg) * -(-L // qtile)
+    target = (2 if tile else 4) * sm_count
+    cluster = max(1, min(_MAX_CLUSTER, P, -(-target // blocks)))
+    per = -(-P // cluster)
+    cluster = -(-P // per)  # no rank without pages on a full table
+    stages = max(2, min(_MAX_STAGES, _SMEM_BUDGET // stage, per))
+    smem = _layout(D, es, quant, tile, hg, qtile, pt, stages)[2]
+    return Plan(hg, qtile, tile, stages, cluster, per, smem)
+
+
+def _rank_pages(npg: int, cluster: int, rank: int):
+    """Pages [begin, end) that cluster rank ``rank`` walks when a tile needs
+    ``npg`` pages: the split the kernel makes on the card from the row's
+    live depth."""
+    per = -(-npg // cluster)
+    begin = min(npg, rank * per)
+    return begin, min(npg, begin + per)
 
 
 def paged_attention(q, k_pages, v_pages, pages, positions,
@@ -156,17 +243,19 @@ def paged_attention(q, k_pages, v_pages, pages, positions,
     B, L, H, D = q.shape
     P = int(pages.shape[1])
     out = torch.empty_like(q)
-    splits, per = _split_pages(B * H * -(-L // _QTILE), P,
-                               kernels.sm_count(q.device.index))
-    ws = (torch.empty(splits * B * L * H * (D + 2), dtype=torch.float32,
-                      device=q.device) if splits > 1 else None)
-    lib = kernels.library()
+    pt = int(k_pages.shape[1])
+    plan = _plan(B, L, H, D, pt, P, k_pages.element_size(),
+                 k_scale is not None, kernels.sm_count(q.device.index))
+    if plan.smem > _MAX_SMEM:
+        raise ValueError(f"pages of {pt} tokens need {plan.smem} bytes of "
+                         f"shared memory a block (at most {_MAX_SMEM})")
     codes = kernels.DTYPE_CODES
-    ptr = lambda t: t.data_ptr() if t is not None else None
-    err = lib.kubeml_paged_attention(
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    err = kernels.library().kubeml_paged_attention(
         ptr(q), ptr(k_pages), ptr(v_pages), ptr(k_scale), ptr(v_scale),
-        ptr(pages), ptr(positions), ptr(out), ptr(ws), B, L, H, D,
-        int(k_pages.shape[1]), P, splits, per,
+        ptr(pages), ptr(positions), ptr(out), B, L, H, D,
+        int(k_pages.shape[0]), pt, P, plan.hg,
+        plan.qtile, int(plan.tile), plan.stages, plan.cluster,
         codes[str(q.dtype).split(".")[-1]],
         codes[str(k_pages.dtype).split(".")[-1]],
         torch.cuda.current_stream(q.device).cuda_stream)

@@ -185,14 +185,52 @@ def test_wrapper_rejects_unpaired_scales():
                         k_scale=torch.ones(4, 2))
 
 
-@pytest.mark.parametrize("blocks,P", [(96, 64), (96, 8), (768, 64), (12, 64),
-                                      (96, 1), (3072, 32), (24, 40)])
-def test_page_split_plan_covers_the_table(blocks, P):
-    """The kernel's split of the page walk across blocks (computed in
-    Python, used only on the card): every split non-empty, the whole table
-    covered, at least two pages per split unless the table has one."""
-    from kubeml_tpu_torch.ops.paged_attention import _split_pages
+@pytest.mark.parametrize("H,D,pt,es", [
+    (12, 64, 16, 4),    # GPT-2 small, f32 arena
+    (12, 64, 16, 2),    # GPT-2 small, bf16 arena
+    (12, 64, 16, 1),    # GPT-2 small, int8 arena
+    (16, 128, 16, 4),   # H 16 / D 128
+    (16, 128, 32, 4),   # the largest pages: head groups shrink to fit
+    (16, 128, 8, 1),
+    (12, 64, 8, 2),
+    (12, 64, 32, 1),
+    (3, 64, 16, 4),     # a ragged head group
+])
+def test_launch_plan_covers_the_table(H, D, pt, es):
+    """The kernel's launch plan (computed in Python, used only on the card)
+    over B 1-64, P 1-64 and decode, spec-verify and prefill L: the cluster's
+    ranks walk every page a tile needs exactly once for every live depth,
+    the cluster has at most 8 blocks, the ring has at least two stages in
+    at most 227 KB, the head groups cover every head and the query tiles
+    cover L."""
+    from kubeml_tpu_torch.ops.paged_attention import _plan, _rank_pages
 
-    splits, per = _split_pages(blocks, P, sm_count=132)
-    assert (splits - 1) * per < P <= splits * per
-    assert per >= min(2, P)
+    quant = es == 1
+    for B in (1, 3, 8, 64):
+        for P in (1, 2, 7, 64):
+            for L in (1, 2, 5, 7, 8, 16, 17, 32, 33, 128, 300):
+                plan = _plan(B, L, H, D, pt, P, es, quant, 132)
+                assert 1 <= plan.cluster <= 8
+                assert 2 <= plan.stages and plan.smem <= 232448
+                assert (plan.cluster - 1) * plan.pages_per_rank < P \
+                    <= plan.cluster * plan.pages_per_rank
+                groups = -(-H // plan.hg)
+                assert plan.hg <= H and (groups - 1) * plan.hg < H
+                tiles = -(-L // plan.qtile)
+                assert (tiles - 1) * plan.qtile < L <= tiles * plan.qtile
+                assert plan.tile == (L > 32)
+                lpw = 32 // (D // 64)
+                from kubeml_tpu_torch.ops.paged_attention import _layout
+                warps = _layout(D, es, quant, plan.tile, plan.hg, plan.qtile,
+                                pt, plan.stages)[0]
+                assert plan.hg * (plan.qtile // lpw if plan.tile
+                                  else plan.qtile) <= warps <= 7
+                if plan.tile:
+                    assert plan.qtile % lpw == 0
+                for npg in range(1, P + 1):
+                    walked = []
+                    for r in range(plan.cluster):
+                        b, e = _rank_pages(npg, plan.cluster, r)
+                        assert e - b <= plan.pages_per_rank
+                        walked += range(b, e)
+                    assert walked == list(range(npg))
