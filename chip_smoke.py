@@ -19,20 +19,24 @@ Phases, each reported on its own lines:
    path's shapes (GPT-2-small width: H 12, D 64, page_tokens 16, 64-page
    tables, 8 rows; paged attention also at one row at position 1023, L 16
    and 17, and depths ending mid-page; two launches bit-identical; the host
-   time of a decode call), with max abs error, kernel / plain / library
-   times on the card and the bound from bytes and operations; the int8
-   matmul at
-   M 1, 8, 256 and 2048 over the four GPT-2-small (K, N) in f32 and bf16,
-   with its kernel / library ratio and the host time of one call;
-4. serve f32 - 16 requests from threads through ``PagedBatchingDecoder`` at
-   GPT-2-small width (seeded random weights), greedy tokens held identical
+   time of a decode call; and, error only, at other models' head dims
+   (16-128) and pages of 128 and 256 tokens), with max abs error, kernel /
+   plain / library times on the card and the bound from bytes and
+   operations; the int8 matmul at M 1, 8, 256 and 2048 over the four
+   GPT-2-small (K, N) in f32 and bf16, with its kernel / library ratio and
+   the host time of one call;
+4. serve f32 - GPTTiny (head dim 16) through the kernel and the gather
+   path, greedy tokens identical; then 16 requests from threads through
+   ``PagedBatchingDecoder`` at GPT-2-small width (seeded random weights),
+   greedy tokens held identical
    to the same engine reading the arena through the plain gather path, the
    paged-attention launch counter held to the engine's forward count,
    three shared-prefix requests held to 64 cached tokens, and a profile
    window with one paged-attention kernel record per call and no combine
    kernel (in phase 5's window too; a window whose records fall short of
    the calls, as the profiler can drop a record, is run again, at most
-   five in all);
+   five in all); the tensor maps encoded in the run and in the window, and
+   a table that never fills (in phase 5 too);
 5. serve int8 - the same requests with int8 weights through the int8
    matmul kernel and int8 KV pages; both launch counters must move, and
    teacher-forced logits (prefill + 4 steps) must match the plain-path
@@ -225,16 +229,44 @@ class Timer:
 
 # --- phase 3: kernels against their plain versions ----------------------
 
-def paged_inputs(g, L, positions, kv_dtype):
+# paged attention at the main path's shapes (tag, L, positions): the decode
+# step at mixed depths, spec-verify, prefill; one row at the last position
+# (the cluster's ranks split all 64 pages); L 16 and 17 (the decode
+# mapping's 7-query tiles, then one query more); L 3 at depths that end
+# mid-page
+PA_CASES = [("decode", 1, [0, 15, 16, 100, 333, 511, 777, 1023]),
+            ("verify", 5, [0, 3, 60, 200, 500, 800, 1010, 1018]),
+            ("prefill", 128, [0, 16, 128, 256, 384, 512, 640, 896]),
+            ("B1 pos 1023", 1, [1023]),
+            ("L16", 16, [0, 5, 31, 100, 250, 600, 900, 1000]),
+            ("L17", 17, [0, 6, 32, 99, 251, 601, 899, 1001]),
+            ("mid-page", 3, [4, 37, 70, 103, 136, 401, 700, 1009])]
+# paged attention at the head dims and page sizes of other models (D, page
+# tokens, arena dtype): GPTTiny's D 16 (padded to 64), D 32, 80 and 96
+# (padded to 128), D 20 (40- and 20-byte rows, which TMA cannot address,
+# copied value by value), pages of 128 and 256 tokens (slabs of a page)
+PA_SHAPES = [(16, 16, torch.float32), (16, 16, torch.int8),
+             (32, 16, torch.bfloat16), (80, 32, torch.bfloat16),
+             (96, 16, torch.float32), (20, 16, torch.bfloat16),
+             (20, 16, torch.int8), (128, 128, torch.float32),
+             (128, 256, torch.float32)]
+# int8 matmul (M, K, N): decode M 1 and 8, prefill 256 and 2048, over the
+# four GPT-2-small projections (K, N)
+MM_SHAPES = [(M, K, N) for M in (1, 8, 256, 2048)
+             for K, N in ((768, 768), (768, 3072), (3072, 768), (768, VOCAB))]
+
+
+def paged_inputs(g, L, positions, kv_dtype, heads=H, dim=D, pt=PAGE_TOKENS,
+                 table=P, n_pages=N_PAGES):
     """q, arenas (+ scales), a table of distinct pages per row; one row per
-    position."""
+    position. GPT-2-small's serving shapes unless given."""
     B = len(positions)
     q_dtype = torch.float32 if kv_dtype == torch.int8 else kv_dtype
-    q = torch.randn(B, L, H, D, generator=g).to(q_dtype).cuda()
-    kf = torch.randn(N_PAGES, PAGE_TOKENS, H, D, generator=g)
-    vf = torch.randn(N_PAGES, PAGE_TOKENS, H, D, generator=g)
-    pages = (torch.randperm(N_PAGES - 1, generator=g)[:B * P] + 1
-             ).reshape(B, P).to(torch.int32).cuda()
+    q = torch.randn(B, L, heads, dim, generator=g).to(q_dtype).cuda()
+    kf = torch.randn(n_pages, pt, heads, dim, generator=g)
+    vf = torch.randn(n_pages, pt, heads, dim, generator=g)
+    pages = (torch.randperm(n_pages - 1, generator=g)[:B * table] + 1
+             ).reshape(B, table).to(torch.int32).cuda()
     pos = torch.tensor(positions, dtype=torch.int32).cuda()
     scales = {}
     if kv_dtype == torch.int8:
@@ -271,20 +303,9 @@ def check_paged_attention(timer, g):
     from kubeml_tpu_torch.ops.paged_attention import (paged_attention,
                                                       paged_attention_ref)
 
-    # (tag, L, positions): the decode step at mixed depths, spec-verify,
-    # prefill; one row at the last position (the cluster's ranks split all
-    # 64 pages); L 16 and 17 (one warp's queries, then a second query
-    # group); L 3 at depths that end mid-page
-    cases = [("decode", 1, [0, 15, 16, 100, 333, 511, 777, 1023]),
-             ("verify", 5, [0, 3, 60, 200, 500, 800, 1010, 1018]),
-             ("prefill", 128, [0, 16, 128, 256, 384, 512, 640, 896]),
-             ("B1 pos 1023", 1, [1023]),
-             ("L16", 16, [0, 5, 31, 100, 250, 600, 900, 1000]),
-             ("L17", 17, [0, 6, 32, 99, 251, 601, 899, 1001]),
-             ("mid-page", 3, [4, 37, 70, 103, 136, 401, 700, 1009])]
     rows = []
     for kv_dtype in (torch.float32, torch.bfloat16, torch.int8):
-        for tag, L, positions in cases:
+        for tag, L, positions in PA_CASES:
             Bc = len(positions)
             q, kp, vp, pages, pos, scales = paged_inputs(g, L, positions,
                                                          kv_dtype)
@@ -337,7 +358,7 @@ def check_paged_attention(timer, g):
     # unallocated pages, slots past each row's cursor) poisoned; the output
     # must be bit-identical
     for kv_dtype in (torch.float32, torch.int8):
-        _, L, positions = cases[0]
+        _, L, positions = PA_CASES[0]
         q, kp, vp, pages, pos, scales = paged_inputs(g, L, positions,
                                                      kv_dtype)
         written = torch.zeros(N_PAGES, PAGE_TOKENS, dtype=torch.bool)
@@ -367,6 +388,26 @@ def check_paged_attention(timer, g):
                                  f"arena changed the output")
         log(f"  paged_attention poisoned {str(kv_dtype).split('.')[-1]} "
             f"arena: bit-identical")
+    # other head dims and page sizes: 3 rows (one past its table), 4 heads,
+    # 384 positions a row, decode and tile-mapping L
+    for dim, pt, kv_dtype in PA_SHAPES:
+        table = 384 // pt
+        errs = []
+        for L in (1, 40):
+            positions = [0, 384 - L - 5, 384 + 3]
+            q, kp, vp, pages, pos, scales = paged_inputs(
+                g, L, positions, kv_dtype, heads=4, dim=dim, pt=pt,
+                table=table, n_pages=3 * table + 1)
+            out = paged_attention(q, kp, vp, pages, pos, **scales)
+            ref = paged_attention_ref(q, kp, vp, pages, pos, **scales)
+            torch.cuda.synchronize()
+            errs.append((out.float() - ref.float()).abs().max().item())
+        log(f"  paged_attention D {dim}, {pt}-token pages, "
+            f"{str(kv_dtype).split('.')[-1]}: max abs err L 1 / 40 "
+            f"{errs[0]:.2e} / {errs[1]:.2e}")
+        if not max(errs) <= PA_TOL[kv_dtype]:
+            raise AssertionError(f"paged_attention D {dim} pt {pt} "
+                                 f"{kv_dtype}: max abs err {max(errs)}")
     return rows
 
 
@@ -403,6 +444,12 @@ def host_us(fn, calls: int = 200) -> float:
     return 1e6 * (t1 - t0) / calls
 
 
+def mm_weights(g, K, N):
+    """int8 weights [K, N] and f32 column scales [1, N]."""
+    q = torch.randint(-127, 128, (K, N), generator=g, dtype=torch.int8).cuda()
+    return q, (torch.rand(1, N, generator=g) * 0.02).cuda()
+
+
 def check_int8_matmul(timer, g):
     """The int8 matmul at the serving path's shapes: M 1 and 8 (decode),
     256 and 2048 (prefill) over the four GPT-2-small (K, N), f32 and bf16
@@ -410,48 +457,45 @@ def check_int8_matmul(timer, g):
     from kubeml_tpu_torch.ops.int8_matmul import int8_dot, int8_matmul
 
     rows = []
-    for M in (1, 8, 256, 2048):
-        for K, N in ((768, 768), (768, 3072), (3072, 768), (768, VOCAB)):
-            q = torch.randint(-127, 128, (K, N), generator=g,
-                              dtype=torch.int8).cuda()
-            s = (torch.rand(1, N, generator=g) * 0.02).cuda()
-            for xd in (torch.float32, torch.bfloat16):
-                x = torch.randn(M, K, generator=g).to(xd).cuda()
-                y = int8_matmul(x, q, s)
-                again = int8_matmul(x, q, s)
-                ref = int8_dot(x, q, s)
-                torch.cuda.synchronize()
-                err = (y.float() - ref.float()).abs().max().item()
-                scale = ref.float().abs().max().item()
-                if not err <= MM_RTOL[xd] * scale:
-                    raise AssertionError(
-                        f"int8_matmul M={M} K={K} N={N} {xd}: max abs err "
-                        f"{err} > {MM_RTOL[xd]} x {scale}")
-                if not torch.equal(y, again):
-                    raise AssertionError(f"int8_matmul M={M} K={K} N={N} "
-                                         f"{xd}: two calls differ")
-                del y, again, ref
-                nbytes = (x.numel() * x.element_size() + q.numel()
-                          + s.numel() * 4 + M * N * x.element_size())
-                t_bytes = nbytes / HBM_BYTES_PER_S
-                # the kernel's route: products on the bf16 tensor cores,
-                # f32 x as three bf16 terms
-                terms = 3 if xd == torch.float32 else 1
-                t_ops = terms * 2 * M * N * K / PEAK_OPS[torch.bfloat16]
-                row = dict(
-                    M=M, K=K, N=N, x=str(xd).split(".")[-1],
-                    max_abs_err=err,
-                    ms=timer.ms(lambda: int8_matmul(x, q, s)),
-                    plain_ms=timer.ms(lambda: int8_dot(x, q, s)),
-                    library_ms=timer.ms(
-                        lambda: torch.matmul(x, q.to(x.dtype)) * s),
-                    bound_ms=1e3 * max(t_bytes, t_ops),
-                    bound_by="bytes" if t_bytes >= t_ops else "operations")
-                row["over_library"] = row["ms"] / row["library_ms"]
-                if M == 8 and N == VOCAB:
-                    row["host_us"] = host_us(lambda: int8_matmul(x, q, s))
-                log("  int8_matmul", json.dumps(row))
-                rows.append(row)
+    for M, K, N in MM_SHAPES:
+        q, s = mm_weights(g, K, N)
+        for xd in (torch.float32, torch.bfloat16):
+            x = torch.randn(M, K, generator=g).to(xd).cuda()
+            y = int8_matmul(x, q, s)
+            again = int8_matmul(x, q, s)
+            ref = int8_dot(x, q, s)
+            torch.cuda.synchronize()
+            err = (y.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            if not err <= MM_RTOL[xd] * scale:
+                raise AssertionError(
+                    f"int8_matmul M={M} K={K} N={N} {xd}: max abs err "
+                    f"{err} > {MM_RTOL[xd]} x {scale}")
+            if not torch.equal(y, again):
+                raise AssertionError(f"int8_matmul M={M} K={K} N={N} "
+                                     f"{xd}: two calls differ")
+            del y, again, ref
+            nbytes = (x.numel() * x.element_size() + q.numel()
+                      + s.numel() * 4 + M * N * x.element_size())
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            # the kernel's route: products on the bf16 tensor cores,
+            # f32 x as three bf16 terms
+            terms = 3 if xd == torch.float32 else 1
+            t_ops = terms * 2 * M * N * K / PEAK_OPS[torch.bfloat16]
+            row = dict(
+                M=M, K=K, N=N, x=str(xd).split(".")[-1],
+                max_abs_err=err,
+                ms=timer.ms(lambda: int8_matmul(x, q, s)),
+                plain_ms=timer.ms(lambda: int8_dot(x, q, s)),
+                library_ms=timer.ms(
+                    lambda: torch.matmul(x, q.to(x.dtype)) * s),
+                bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+            row["over_library"] = row["ms"] / row["library_ms"]
+            if M == 8 and N == VOCAB:
+                row["host_us"] = host_us(lambda: int8_matmul(x, q, s))
+            log("  int8_matmul", json.dumps(row))
+            rows.append(row)
     return rows
 
 
@@ -650,6 +694,46 @@ def paged_window(dec, reqs, tag, also=""):
             return busy_ms, kernels, calls
     raise AssertionError(f"{tag} window: kernel records fell short of the "
                          f"calls in five windows")
+
+
+def serve_tiny() -> None:
+    """GPTTiny (embed 64, 4 heads: D 16, which the kernel pads to 64)
+    through the kernel engine and the gather engine: greedy tokens
+    identical."""
+    from kubeml_tpu_torch.api import GenerateRequest
+    from kubeml_tpu_torch.models import GPTTiny
+    from kubeml_tpu_torch.serving import PagedBatchingDecoder
+
+    model = GPTTiny(vocab_size=1000, max_len=128, seed=SEED, device="cuda")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(1, 1000, size=n).tolist() for n in (3, 17, 40, 9)]
+    runs = {}
+    for impl in ("cuda", "gather"):
+        dec = PagedBatchingDecoder(model, slots=4, chunk_steps=4,
+                                   page_tokens=PAGE_TOKENS, paged_attn=impl,
+                                   device="cuda")
+        entries = [dec.submit(GenerateRequest(prompts=[p], max_new_tokens=12))
+                   for p in prompts]
+        runs[impl] = [dec.wait(e, timeout=300)["tokens"][0][:12]
+                      for e in entries]
+        dec.close()
+    if runs["cuda"] != runs["gather"]:
+        raise AssertionError(f"GPTTiny greedy tokens differ from the plain "
+                             f"path: {runs}")
+    log(f"  GPTTiny (D 16): greedy tokens identical to the plain path "
+        f"({4 * 12} tokens)")
+
+
+def map_report(tag, before, after, window) -> None:
+    """The kernel's tensor-map table over a serving phase (``map_stats``
+    before the run, after it, after the profile window): no call may find
+    the table full (a churning table encodes on the host-bound step)."""
+    log(f"  {tag} tensor maps: {after['encoded'] - before['encoded']} "
+        f"encoded in the run, {window['encoded'] - after['encoded']} in the "
+        f"profile window; {window['held']} held; table emptied "
+        f"{window['cleared'] - before['cleared']} times")
+    if window["cleared"] != before["cleared"]:
+        raise AssertionError(f"{tag}: the tensor-map table filled up")
 
 
 def gpt2_small():
@@ -992,7 +1076,8 @@ def main() -> int:
 
     from kubeml_tpu_torch.ops import kernels
     from kubeml_tpu_torch.ops.int8_matmul import int8_matmul
-    from kubeml_tpu_torch.ops.paged_attention import paged_attention
+    from kubeml_tpu_torch.ops.paged_attention import (map_stats,
+                                                      paged_attention)
     from kubeml_tpu_torch.serving import PagedBatchingDecoder
 
     # 1. device
@@ -1039,6 +1124,7 @@ def main() -> int:
 
     # 4. serve f32: kernel engine, then the plain (gather) twin
     log("[4/9 serve f32]")
+    serve_tiny()
     reqs = workload(np.random.default_rng(SEED))
     model = gpt2_small()
     common = dict(slots=SLOTS, page_tokens=PAGE_TOKENS, chunk_steps=CHUNK,
@@ -1046,11 +1132,14 @@ def main() -> int:
     dec = PagedBatchingDecoder(model, **common)
     if dec.telemetry()["paged_attn_kernel"] != 1.0:
         raise AssertionError("the f32 engine does not read through the kernel")
+    maps0 = map_stats()
     paged_attention.launches = int8_matmul.launches = 0
     run = serve(dec, reqs)
     f32_launches = paged_attention.launches
     report_serve("kernel engine", run)
+    maps1 = map_stats()
     paged_window(dec, reqs, "f32", also="paged")
+    map_report("f32", maps0, maps1, map_stats())
     dec.close()
     steps = run["tele"]["prefill_waves"] + run["tele"]["decode_steps"]
     if f32_launches < model.depth * steps:
@@ -1083,12 +1172,15 @@ def main() -> int:
     tele = qdec.telemetry()
     if tele["int8_matmul_kernel"] != 1.0 or tele["paged_attn_kernel"] != 1.0:
         raise AssertionError("the int8 engine does not run both kernels")
+    maps0 = map_stats()
     paged_attention.launches = int8_matmul.launches = 0
     qrun = serve(qdec, reqs)
     q_launches = (paged_attention.launches, int8_matmul.launches)
     report_serve("kernel engine", qrun)
+    maps1 = map_stats()
     qbusy, qkernels, (_, mm_calls) = paged_window(qdec, reqs, "int8",
                                                   also="int8")
+    map_report("int8", maps0, maps1, map_stats())
     int8_profile(qbusy, qkernels, mm_calls)
     if min(q_launches) <= 0:
         raise AssertionError(f"int8 serving launches {q_launches}")

@@ -3,46 +3,53 @@
 // merged inside a thread-block cluster, one launch a call.
 //
 // Replaces the Pallas TPU kernel kubeml_tpu/ops/paged_attention.py::_pa_kernel
-// (line 113; wrapper `paged_attention`). q [B, L, H, D] f32 or bf16; arenas
-// [N, pt, H, D] f32, bf16 or int8 (int8 with [N, H] f32 scales); pages [B, P]
-// and positions [B] int32. Query l of row b sits at positions[b] + l and
-// attends every key at or before it; a row reads its pages up to
-// live = clamp(ceil((pos + L) / pt), 1, P) and never past them.
+// (line 113; wrapper `paged_attention`). q [B, L, H, D] f32 or bf16, any
+// D up to 128; arenas [N, pt, H, D] f32, bf16 or int8 (int8 with [N, H] f32
+// scales), any page size; pages [B, P] and positions [B] int32. Query l of
+// row b sits at positions[b] + l and attends every key at or before it; a
+// row reads its pages up to live = clamp(ceil((pos + L) / pt), 1, P) and
+// never past them.
 //
 // What bounds it on an H100: bytes at decode. A decode step reads each row's
 // live K and V pages once and does 4 x D operations per key: under one
 // operation per byte, far below the f32 ridge, so tensor cores would sit idle
 // and the gain is in bytes in flight. Prefill tiles (L in the hundreds) are
 // bound by f32 operations on the CUDA cores. The design:
-//   * a block owns (row, group of hg heads, query tile, cluster rank); a
-//     page's slice for the group is pt token rows of hg * D contiguous values
-//     in the arena. hg is 4 unless the grid cannot fill the card (then 2 or
-//     1), the stages a mapping needs (3 tile, 6 decode) would not fit the
-//     shared-memory budget, or (decode) the queries would not fit one block;
-//   * one producer warp streams pages into a ring of `stages` stages: per
-//     page one TMA box [pt, hg, D] of K and one of V from 3-D tensor maps
-//     over the arenas (heads past H arrive as zeros), completing on the
-//     stage's full mbarrier; int8 scales come by 4-byte cp.async beside
-//     them: two copy instructions a page. The host keeps each arena's
-//     maps, so a call looks them up and encodes nothing. The block reads
-//     positions[b] and its row of the page table itself, the table's first
-//     128 entries loaded beside positions[b];
-//   * consumer warps on the CUDA cores, in f32. Decode mapping (L <= 32, in
+//   * the kernel is built for a padded head dim DP (64 for D <= 64, else
+//     128): staged rows, q and the accumulators hold DP values, those past
+//     D zero; q and out are read and written at the true D;
+//   * a block owns (row, group of hg heads, query tile, cluster rank) and
+//     walks slabs of ct tokens (ct divides the page: a whole page unless the
+//     ring would not fit); a slab's rows for the group are ct x hg x D
+//     contiguous values in the arena. The wrapper's plan (ops/
+//     paged_attention.py::_plan) picks hg, ct, the stages, the query tile
+//     and the cluster, and lays out shared memory; kubeml_paged_attention
+//     checks the plan and launches it;
+//   * one producer warp streams slabs into a ring of `stages` stages: per
+//     slab one TMA box [ct, hg, DP] of K and one of V from 3-D tensor maps
+//     over the arenas (values past D and heads past H arrive as zeros),
+//     completing on the stage's full mbarrier; int8 scales come by 4-byte
+//     cp.async beside them. Arenas whose rows TMA cannot address (D x bytes
+//     not a multiple of 16) are copied value by value by the same warp. The
+//     host keeps each arena's maps in a table, so a call looks them up. The
+//     block reads positions[b] and its row of the page table itself, the
+//     table's first 128 entries loaded beside positions[b];
+//   * consumer warps on the CUDA cores, in f32. Decode mapping (short L, in
 //     tiles of up to 7 queries): one warp per (head, query); lanes over
-//     keys x D slices (D / 32 lanes a key, 32 values each, 16-byte loads
-//     starting at a chunk rotated by the key,
-//     so that dense rows give no bank conflicts), dot products finished by
-//     shuffles, the online softmax in registers (two pages a pass; the max
-//     moves only when a score passes it by 8), P.V with lanes over D. Tile
-//     mapping (L > 32): lanes over queries x D slices (two queries and the
-//     same 32 values a lane, so 64 / S queries a warp), every key of the page
-//     walked by every lane (16-byte loads shared by the lanes of one slice),
-//     dots finished by shuffles, the online softmax per group of 4 keys,
-//     causal key groups past the warp's last query skipped. bf16 and int8
-//     become f32 in registers after the shared load; int8 scales s/127 fold
-//     in after the products, as in the TPU kernel;
+//     keys x D slices (DP / 32 lanes a key, 32 values each, 16-byte loads
+//     starting at a chunk rotated by the key, so that dense rows give no
+//     bank conflicts), dot products finished by shuffles, the online softmax
+//     in registers (two slabs a pass; the max moves only when a score passes
+//     it by 8), P.V with lanes over D. Tile mapping (longer L): lanes over
+//     queries x D slices (two queries and the same 32 values a lane, so
+//     64 / S queries a warp), every key of the slab walked by every lane
+//     (16-byte loads shared by the lanes of one slice), dots finished by
+//     shuffles, the online softmax per group of 4 keys, causal key groups
+//     past the warp's last query skipped. bf16 and int8 become f32 in
+//     registers after the shared load; int8 scales s/127 fold in after the
+//     products, as in the TPU kernel;
 //   * where the (row, head group, query tile) blocks cannot fill 132 SMs, a
-//     cluster of up to 8 blocks splits the pages the tile needs evenly
+//     cluster of up to 8 blocks splits the slabs the tile needs evenly
 //     between its ranks (decided on the card from the row's live depth, so
 //     ragged rows balance). Ranks 1.. leave (m, l, acc) in their drained
 //     rings; rank 0 merges them over distributed shared memory in rank order
@@ -50,7 +57,7 @@
 //     combine kernel; repeats are bit-identical.
 // Masked keys contribute exactly 0: scores take -1e30 (not -inf), p is 0 for
 // them (arenas start as zeros and hold finite values, so 0 x v is 0, as in
-// the TPU kernel), rows read past a page's end are zeroed before use, and
+// the TPU kernel), rows read past a slab's end are zeroed before use, and
 // the final division uses max(l, 1e-9). Pages past `live` are never read,
 // so a poisoned arena outside the written positions cannot change the
 // output.
@@ -63,6 +70,7 @@
 #include <string.h>
 
 #include <atomic>
+#include <initializer_list>
 #include <mutex>
 #include <type_traits>
 #include <utility>
@@ -85,43 +93,38 @@ constexpr int kKeyGroup = 4;      // tile mapping: keys between softmax updates 
 
 enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
+// The launch plan and the block's shared-memory layout, as the wrapper
+// computes them (ops/paged_attention.py::_plan); kubeml_paged_attention
+// checks that they fit the kernel and the card.
+struct Plan {
+  int hg;           // heads a block owns
+  int qtile;        // queries a block owns
+  int tile;         // the tile mapping (else the decode mapping)
+  int stages;       // ring stages
+  int cluster;      // blocks splitting a tile's slabs
+  int ct;           // tokens a stage (a slab; divides the page)
+  int warps;        // consumer warps
+  int box_bytes;    // a staged slab's K (or V): [ct][hg][DP], 128-byte aligned
+  int stage_bytes;  // K box, V box, then int8 scales
+  int area_bytes;   // the ring (or the merge buffer, if larger)
+  int smem;         // the block's dynamic shared memory
+  int tma;          // slabs by TMA (else value by value)
+};
+
 struct Args {
   const void* q;
+  const void* kp;  // the arenas, read value by value where no tensor map
+  const void* vp;  // can address them
   const float* ks;
   const float* vs;
   const int* pages;
   const int* positions;
   void* out;
-  int B, L, H, pt, P;
-  int hg;           // heads a block owns
-  int qtile;        // queries a block owns
-  int n_qt;         // query tiles a row
-  int warps;        // consumer warps
-  int stages;       // ring stages
-  int box_bytes;    // a staged page's K (or V): [pt][hg][D], 128-byte aligned
-  int stage_bytes;  // K box, V box, then int8 scales
-  int area_bytes;   // the ring (or the merge buffer, if larger)
+  int B, L, H, D, pt, P;
+  int hg, qtile, n_qt, warps, stages, ct, box_bytes, stage_bytes, area_bytes, tma;
+  int nsub;  // slabs a page
   float sm_scale;
 };
-
-// The block's shared-memory layout; the wrapper's plan repeats it (ops/
-// paged_attention.py::_layout) to keep the ring within the card's limit.
-struct Layout {
-  int warps, box_bytes, stage_bytes, area_bytes, smem;
-};
-
-Layout layout(int D, int es, bool quant, bool tile, int hg, int qtile, int pt,
-              int stages) {
-  Layout o;
-  o.box_bytes = (pt * hg * D * es + 127) / 128 * 128;
-  o.stage_bytes = 2 * o.box_bytes + (quant ? 128 : 0);
-  o.warps = hg * (tile ? qtile / (2048 / D) : qtile);
-  // merge buffer: a lane's m, l and values per query (tile: 2 x 32)
-  const int merge = o.warps * 32 * (tile ? 2 * 34 : D / 32 + 2) * 4;
-  o.area_bytes = stages * o.stage_bytes > merge ? stages * o.stage_bytes : merge;
-  o.smem = o.area_bytes + 16 * stages + 128;
-  return o;
-}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -138,6 +141,24 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
 
 __device__ __forceinline__ void copy4_async(uint32_t dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst), "l"(src) : "memory");
+}
+
+// A slab's [ct][hg][DP] values copied value by value, for arenas whose
+// rows TMA cannot address (D x bytes not a multiple of 16); values past D
+// and heads past H as zeros
+template <typename TKV, int DP>
+__device__ __forceinline__ void copy_slab(unsigned char* dst, const void* src, const Args& a,
+                                          int tok0, int h0, int nh, int lane) {
+  using U = typename std::conditional<
+      sizeof(TKV) == 4, uint32_t,
+      typename std::conditional<sizeof(TKV) == 2, uint16_t, uint8_t>::type>::type;
+  const U* in = static_cast<const U*>(src);
+  U* out = reinterpret_cast<U*>(dst);
+  const int n = a.ct * a.hg * DP;
+  for (int x = lane; x < n; x += 32) {
+    const int d = x % DP, h = (x / DP) % a.hg, j = x / (DP * a.hg);
+    out[x] = d < a.D && h < nh ? in[((size_t)(tok0 + j) * a.H + h0 + h) * a.D + d] : U(0);
+  }
 }
 
 // 16 staged bytes as f32 values: 4 f32, 8 bf16 or 16 int8 (exact: the int8
@@ -191,10 +212,21 @@ __device__ __forceinline__ void load_vals(const unsigned char* p, float (&f)[N])
   }
 }
 
-// out[0 .. N) = v * inv, stored as T (16-byte stores where N fills them)
+// row[off .. off + N) = v * inv where below D, stored as T (vector stores
+// where the N values are whole and aligned)
 template <typename T, int N>
-__device__ __forceinline__ void store_vals(T* out, const float (&v)[N], float inv) {
-  if constexpr (std::is_same<T, float>::value && N % 4 == 0) {
+__device__ __forceinline__ void store_vals(T* row, int off, int D, const float (&v)[N], float inv) {
+  T* out = row + off;
+  if (off + N > D || D % N != 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (off + i >= D) break;
+      if constexpr (std::is_same<T, float>::value)
+        out[i] = v[i] * inv;
+      else
+        out[i] = __float2bfloat16(v[i] * inv);
+    }
+  } else if constexpr (std::is_same<T, float>::value && N % 4 == 0) {
 #pragma unroll
     for (int i = 0; i < N; i += 4)
       *reinterpret_cast<float4*>(out + i) =
@@ -214,18 +246,18 @@ __device__ __forceinline__ void store_vals(T* out, const float (&v)[N], float in
 
 // grid (cluster rank, head group, row x query tile), the cluster along x;
 // warps 0 .. a.warps - 1 consume, warp a.warps produces. Both mappings give
-// a lane the 16-byte chunks s, s + S, s + 2S, ... (S = D / 32 slices, 32
+// a lane the 16-byte chunks s, s + S, s + 2S, ... (S = DP / 32 slices, 32
 // values) of a head's K and V rows: the decode mapping for one key of one
 // query, the tile mapping for every key of two queries.
-template <typename TQ, typename TKV, int D, bool kTile>
+template <typename TQ, typename TKV, int DP, bool kTile>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     paged_attention_ring_kernel(const Args a, const __grid_constant__ CUtensorMap tk,
                                 const __grid_constant__ CUtensorMap tv) {
   constexpr int es = sizeof(TKV);
   constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
-  constexpr int S = D / 32, NCH = 2 * es, E = 16 / es;
+  constexpr int S = DP / 32, NCH = 2 * es, E = 16 / es;
   constexpr int NQ = kTile ? 2 : 1;         // queries a lane owns
-  constexpr int DQ = kTile ? 32 : D / 32;   // output values a lane owns a query
+  constexpr int DQ = kTile ? 32 : DP / 32;   // output values a lane owns a query
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 127) & ~127u;
@@ -248,17 +280,19 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   }
   const int pos = a.positions[b];
   // pages the row occupies after this call's writes (at least one, at most
-  // the table: bucket-padding rows may sit past it), then those the tile's
-  // last query can see, split evenly between the cluster's ranks
+  // the table: bucket-padding rows may sit past it), then the slabs of them
+  // that the tile's last query can see, split evenly between the cluster's
+  // ranks
   const int live = max(1, min((pos + a.L + a.pt - 1) / a.pt, a.P));
-  const int npg = max(1, min(live, (pos + q0 + nq - 1) / a.pt + 1));
-  const int per = (npg + C - 1) / C;
-  const int pg_beg = min(npg, rank * per);
-  const int count = min(npg, pg_beg + per) - pg_beg;
+  const int nsl = max(1, min(live * a.nsub, (pos + q0 + nq - 1) / a.ct + 1));
+  const int per = (nsl + C - 1) / C;
+  const int sl_beg = min(nsl, rank * per);
+  const int count = min(nsl, sl_beg + per) - sl_beg;
 
   if (tid == 0) {
     for (int s = 0; s < a.stages; ++s) {
-      // the producer lane 0's expect_tx and 32 asynchronous arrivals
+      // the producer lane 0's expect_tx (without TMA: its arrival after
+      // the copies) and 32 asynchronous arrivals
       mbar_init(full + 8 * s, 33);
       mbar_init(empty + 8 * s, a.warps);
     }
@@ -284,26 +318,37 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   const int qmax = pos + q0 + lq_last;
 
   if (warp == a.warps) {  // the producer warp
-    int far = 0;  // table entries past the first 128, 32 at a time
+    int far = 0, far_at = -1;  // table entries past the first 128, 32 at a time
     for (int i = 0; i < count; ++i) {
       const int st = i % a.stages;
-      const int pg = pg_beg + i;
+      const int sl = sl_beg + i, pg = sl / a.nsub;
       int phys;
       if (pg < 128) {
         const int w = pg >> 5;
         phys = __shfl_sync(0xffffffffu, w == 0 ? tab[0] : w == 1 ? tab[1] : w == 2 ? tab[2] : tab[3],
                            pg & 31);
       } else {
-        if (i == 0 || (pg & 31) == 0) far = (pg & ~31) + lane < a.P ? row[(pg & ~31) + lane] : 0;
+        if ((pg & ~31) != far_at) {
+          far_at = pg & ~31;
+          far = far_at + lane < a.P ? row[far_at + lane] : 0;
+        }
         phys = __shfl_sync(0xffffffffu, far, pg & 31);
       }
+      const int tok0 = phys * a.pt + (sl - pg * a.nsub) * a.ct;  // the slab's first arena row
       mbar_wait(empty + 8 * st, ((i / a.stages) & 1) ^ 1);
       const uint32_t dst = base + st * a.stage_bytes, bar = full + 8 * st;
-      if (lane == 0) {
-        // whole boxes count, heads past H included (they arrive as zeros)
-        mbar_expect_tx(bar, 2 * a.pt * a.hg * D * es);
-        tma_load_3d(dst, &tk, bar, 0, h0, phys * a.pt);
-        tma_load_3d(dst + a.box_bytes, &tv, bar, 0, h0, phys * a.pt);
+      if (a.tma) {
+        if (lane == 0) {
+          // whole boxes count, values past D and heads past H included
+          // (they arrive as zeros)
+          mbar_expect_tx(bar, 2 * a.ct * a.hg * DP * es);
+          tma_load_3d(dst, &tk, bar, 0, h0, tok0);
+          tma_load_3d(dst + a.box_bytes, &tv, bar, 0, h0, tok0);
+        }
+      } else {
+        unsigned char* stage = sm + st * a.stage_bytes;
+        copy_slab<TKV, DP>(stage, a.kp, a, tok0, h0, nh, lane);
+        copy_slab<TKV, DP>(stage + a.box_bytes, a.vp, a, tok0, h0, nh, lane);
       }
       if constexpr (kQuant) {
         const uint32_t sdst = dst + 2 * a.box_bytes;
@@ -313,43 +358,51 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
         else if (lane >= 16 && lane - 16 < nh)
           copy4_async(sdst + 4 * (a.hg + lane - 16), a.vs + s0 + lane - 16);
       }
-      // each lane arrives once its own scale copies have landed
+      // each lane arrives once its own scale copies have landed; without
+      // TMA, lane 0 arrives last, after every lane's stores
       asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(bar) : "memory");
+      if (!a.tma) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar);
+      }
     }
   } else {
-    // a staged token row: hg * D values, dense. The lane's k-th chunk of its
+    // a staged token row: hg * DP values, dense. The lane's k-th chunk of its
     // slice; the decode mapping starts each key's lanes at another chunk
     // (rotated by the key), so that the 8 lanes of a 16-byte load phase hit
     // distinct banks
-    const int rs = a.hg * D * es;
+    const int rs = a.hg * DP * es;
     const int rot = kTile ? 0 : grp;
     auto chunk = [&](int k) { return s + S * ((k + rot) & (NCH - 1)); };
-    // the lane's q values, chunk by chunk, query lq + t
+    // the lane's q values, chunk by chunk, query lq + t (zeros past D)
     float qv[NQ][32];
 #pragma unroll
     for (int t = 0; t < NQ; ++t) {
       const bool in = ok && lq + t < nq;
       const TQ* qr = static_cast<const TQ*>(a.q) +
-                     (((size_t)b * a.L + q0 + (in ? lq + t : 0)) * a.H + h0 + hl) * D;
+                     (((size_t)b * a.L + q0 + (in ? lq + t : 0)) * a.H + h0 + hl) * a.D;
 #pragma unroll
       for (int k = 0; k < NCH; ++k)
 #pragma unroll
-        for (int e = 0; e < E; ++e) qv[t][k * E + e] = in ? to_f32(qr[chunk(k) * E + e]) : 0.f;
+        for (int e = 0; e < E; ++e) {
+          const int d = chunk(k) * E + e;
+          qv[t][k * E + e] = in && d < a.D ? to_f32(qr[d]) : 0.f;
+        }
     }
     // stage i's K rows, V rows and int8 scale factors for head hl, once its
     // bytes have landed
-    struct Page {
+    struct Slab {
       const unsigned char* k;
       const unsigned char* v;
       float ksf, vsf;
       int kpos0;
     };
-    auto wait_page = [&](int i) {
+    auto wait_slab = [&](int i) {
       const int st = i % a.stages;
       mbar_wait(full + 8 * st, (i / a.stages) & 1);
-      Page pg;
+      Slab pg;
       const unsigned char* stage = sm + st * a.stage_bytes;
-      pg.k = stage + hl * D * es;
+      pg.k = stage + hl * DP * es;
       pg.v = pg.k + a.box_bytes;
       pg.ksf = pg.vsf = 1.f;
       if constexpr (kQuant) {
@@ -357,7 +410,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
         pg.ksf = sc[hl] / 127.f;
         pg.vsf = sc[a.hg + hl] / 127.f;
       }
-      pg.kpos0 = (pg_beg + i) * a.pt;
+      pg.kpos0 = (sl_beg + i) * a.ct;
       return pg;
     };
     auto release = [&](int i) {
@@ -366,23 +419,23 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     };
     if constexpr (!kTile) {
       // decode: lane (key grp, slice s) of each pass of 32 / S keys over NP
-      // pages at once (two while two remain; four measured no faster): one
+      // slabs at once (two while two remain; four measured no faster): one
       // softmax update per pass;
       // dot products finished by shuffles, P.V with lanes over D
       constexpr int KC = 32 / S;
       const int qp = pos + q0 + lq;
       auto step = [&](int i, auto np) {
         constexpr int NP = decltype(np)::value;
-        Page pg[NP];
+        Slab pg[NP];
 #pragma unroll
-        for (int n = 0; n < NP; ++n) pg[n] = wait_page(i + n);
+        for (int n = 0; n < NP; ++n) pg[n] = wait_slab(i + n);
         if (ok && pg[0].kpos0 <= qp) {
-          for (int kc = 0; kc < a.pt && pg[0].kpos0 + kc <= qp; kc += KC) {
+          for (int kc = 0; kc < a.ct && pg[0].kpos0 + kc <= qp; kc += KC) {
             const int j = kc + grp;
             float sc[NP], mx = kNeg;
 #pragma unroll
             for (int n = 0; n < NP; ++n) {
-              const bool key = j < a.pt && pg[n].kpos0 + j <= qp;
+              const bool key = j < a.ct && pg[n].kpos0 + j <= qp;
               float dot = 0.f;
               if (key) {
                 float half[2] = {0.f, 0.f};  // two chains of FMAs
@@ -413,7 +466,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
               m_new = fmaxf(m[0], mx);
               alpha = expf(m[0] - m_new);
             }
-            // p is 0 for every dead key (masked, or past the page)
+            // p is 0 for every dead key (masked, or past the slab)
             float p[NP], psum = 0.f;
 #pragma unroll
             for (int n = 0; n < NP; ++n) {
@@ -424,21 +477,21 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
             l[0] = l[0] * alpha + (s == 0 ? psum : 0.f);
             m[0] = m_new;
             // P.V over the pass's keys, lanes over D, without branches: rows
-            // past the last live key are read (clamped to the page) but
+            // past the last live key are read (clamped to the slab) but
             // never multiplied in
             float pv[DQ];
 #pragma unroll
             for (int d = 0; d < DQ; ++d) pv[d] = 0.f;
 #pragma unroll
             for (int n = 0; n < NP; ++n) {
-              const int nk = min(min(KC, a.pt - kc), qp - pg[n].kpos0 - kc + 1);
+              const int nk = min(min(KC, a.ct - kc), qp - pg[n].kpos0 - kc + 1);
               const unsigned char* vcol = pg[n].v + lane * DQ * es;
               const float w = kQuant ? pg[n].vsf : 1.f;
 #pragma unroll
               for (int jj = 0; jj < KC; ++jj) {
                 const float pj = __shfl_sync(0xffffffffu, p[n], jj * S) * w;
                 float f[DQ];
-                load_vals<TKV, DQ>(vcol + min(kc + jj, a.pt - 1) * rs, f);
+                load_vals<TKV, DQ>(vcol + min(kc + jj, a.ct - 1) * rs, f);
 #pragma unroll
                 for (int d = 0; d < DQ; ++d) pv[d] = fmaf(pj, jj < nk ? f[d] : 0.f, pv[d]);
               }
@@ -455,20 +508,20 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       if (i < count) step(i, std::integral_constant<int, 1>{});
     } else {
       for (int i = 0; i < count; ++i) {
-        const Page pg = wait_page(i);
+        const Slab pg = wait_slab(i);
         const int kpos0 = pg.kpos0;
         if (ok && kpos0 <= qmax) {
           // tile: every lane walks every key of the group, its two queries
           // against its 32 values; dots finished by shuffles over the S
           // slices; the online softmax per group of 4 keys. No branch per
           // key, so the group's loads and products interleave: rows past
-          // the page are read clamped to it, and keys past a query or the
-          // page score -1e30 and are never multiplied in
-          for (int j0 = 0; j0 < a.pt && kpos0 + j0 <= qmax; j0 += kKeyGroup) {
+          // the slab are read clamped to it, and keys past a query or the
+          // slab score -1e30 and are never multiplied in
+          for (int j0 = 0; j0 < a.ct && kpos0 + j0 <= qmax; j0 += kKeyGroup) {
             float sc[NQ][kKeyGroup];
 #pragma unroll
             for (int jj = 0; jj < kKeyGroup; ++jj) {
-              const int j = min(j0 + jj, a.pt - 1);
+              const int j = min(j0 + jj, a.ct - 1);
               float dot[NQ] = {};
 #pragma unroll
               for (int k = 0; k < NCH; ++k) {
@@ -485,7 +538,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
                 for (int o = 1; o < S; o <<= 1) dot[t] += __shfl_xor_sync(0xffffffffu, dot[t], o);
                 float x = dot[t] * a.sm_scale;
                 if constexpr (kQuant) x *= pg.ksf;
-                sc[t][jj] = j0 + jj < a.pt && kpos0 + j0 + jj <= pos + q0 + lq + t ? x : kNeg;
+                sc[t][jj] = j0 + jj < a.ct && kpos0 + j0 + jj <= pos + q0 + lq + t ? x : kNeg;
               }
             }
 #pragma unroll
@@ -508,8 +561,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
             }
 #pragma unroll
             for (int jj = 0; jj < kKeyGroup; ++jj) {
-              const int j = min(j0 + jj, a.pt - 1);
-              const bool live = j0 + jj < a.pt;
+              const int j = min(j0 + jj, a.ct - 1);
+              const bool live = j0 + jj < a.ct;
 #pragma unroll
               for (int k = 0; k < NCH; ++k) {
                 float f[E];
@@ -534,7 +587,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) l[0] += __shfl_xor_sync(0xffffffffu, l[0], o);
   }
-  if (C > 1) {  // split pages: rank 0 merges the ranks' (m, l, acc) in order
+  if (C > 1) {  // split walks: rank 0 merges the ranks' (m, l, acc) in order
     cg::cluster_group cl = cg::this_cluster();
     constexpr int F = NQ * (DQ + 2);  // floats a lane leaves: per query m, l, acc
     float* mg = reinterpret_cast<float*>(sm);  // [warps][F][32], in the drained ring
@@ -590,26 +643,26 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 #pragma unroll
   for (int t = 0; t < NQ; ++t) {
     if (lq + t >= nq) continue;
-    TQ* o = static_cast<TQ*>(a.out) + (((size_t)b * a.L + q0 + lq + t) * a.H + h0 + hl) * D;
+    TQ* o = static_cast<TQ*>(a.out) + (((size_t)b * a.L + q0 + lq + t) * a.H + h0 + hl) * a.D;
     const float inv = 1.f / fmaxf(l[t], 1e-9f);
     if constexpr (!kTile) {
-      store_vals<TQ, DQ>(o + lane * DQ, acc[t], inv);
+      store_vals<TQ, DQ>(o, lane * DQ, a.D, acc[t], inv);
     } else {
 #pragma unroll
       for (int k = 0; k < NCH; ++k) {
         float v[E];
 #pragma unroll
         for (int e = 0; e < E; ++e) v[e] = acc[t][k * E + e];
-        store_vals<TQ, E>(o + (s + S * k) * E, v, inv);
+        store_vals<TQ, E>(o, (s + S * k) * E, a.D, v, inv);
       }
     }
   }
 }
 
-template <typename TQ, typename TKV, int D, bool kTile>
+template <typename TQ, typename TKV, int DP, bool kTile>
 int launch(const Args& a, const CUtensorMap& tk, const CUtensorMap& tv, int cluster, int smem,
            cudaStream_t stream) {
-  const auto kern = paged_attention_ring_kernel<TQ, TKV, D, kTile>;
+  const auto kern = paged_attention_ring_kernel<TQ, TKV, DP, kTile>;
   // the shared-memory limit is raised once per device for this
   // instantiation, not on every call
   static std::atomic<uint64_t> raised{0};  // a bit per device
@@ -640,53 +693,76 @@ int launch(const Args& a, const CUtensorMap& tk, const CUtensorMap& tv, int clus
 }
 
 template <typename TQ, typename TKV>
-int dispatch_shape(int D, bool tile, const Args& a, const CUtensorMap& tk, const CUtensorMap& tv,
+int dispatch_shape(int dp, bool tile, const Args& a, const CUtensorMap& tk, const CUtensorMap& tv,
                    int cluster, int smem, cudaStream_t st) {
-  if (D == 64)
+  if (dp == 64)
     return tile ? launch<TQ, TKV, 64, true>(a, tk, tv, cluster, smem, st)
                 : launch<TQ, TKV, 64, false>(a, tk, tv, cluster, smem, st);
-  if (D == 128)
-    return tile ? launch<TQ, TKV, 128, true>(a, tk, tv, cluster, smem, st)
-                : launch<TQ, TKV, 128, false>(a, tk, tv, cluster, smem, st);
-  return (int)cudaErrorInvalidValue;
+  return tile ? launch<TQ, TKV, 128, true>(a, tk, tv, cluster, smem, st)
+              : launch<TQ, TKV, 128, false>(a, tk, tv, cluster, smem, st);
 }
 
 template <typename TQ>
-int dispatch_kv(int kv_dtype, int D, bool tile, const Args& a, const CUtensorMap& tk,
+int dispatch_kv(int kv_dtype, int dp, bool tile, const Args& a, const CUtensorMap& tk,
                 const CUtensorMap& tv, int cluster, int smem, cudaStream_t st) {
   switch (kv_dtype) {
-    case kF32: return dispatch_shape<TQ, float>(D, tile, a, tk, tv, cluster, smem, st);
-    case kBF16: return dispatch_shape<TQ, __nv_bfloat16>(D, tile, a, tk, tv, cluster, smem, st);
-    case kI8: return dispatch_shape<TQ, int8_t>(D, tile, a, tk, tv, cluster, smem, st);
+    case kF32: return dispatch_shape<TQ, float>(dp, tile, a, tk, tv, cluster, smem, st);
+    case kBF16: return dispatch_shape<TQ, __nv_bfloat16>(dp, tile, a, tk, tv, cluster, smem, st);
+    case kI8: return dispatch_shape<TQ, int8_t>(dp, tile, a, tk, tv, cluster, smem, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // The tensor map of an arena [N, pt, H, D] as the 3-D tensor (D, H, N * pt)
-// with boxes of (D, hg, pt): one page's token rows for a head group, heads
-// past H filled with zeros. An arena lives as long as its decoder, so maps
-// are kept by everything they encode (address, shape, dtype, box) and not
-// encoded again on every call; a new arena at a freed one's address with
-// the same shape gets the same map.
+// with boxes of (DP, hg, ct): one slab's token rows for a head group,
+// values past D and heads past H filled with zeros. An arena lives as long
+// as its decoder, so maps are kept by everything they encode (address,
+// shape, dtype, box) and not encoded again on every call; a new arena at a
+// freed one's address with the same shape gets the same map. One model
+// needs a map a layer, arena and box (head groups and slabs change with
+// the batch and L), so the table holds 1024 and is emptied, not churned,
+// when three quarters are used.
 struct MapKey {
   const void* p;
-  int n, pt, h, d, dtype, hg;
+  int n, pt, h, d, dtype, hg, ct;
   bool operator==(const MapKey& o) const {
     return p == o.p && n == o.n && pt == o.pt && h == o.h && d == o.d && dtype == o.dtype &&
-           hg == o.hg;
+           hg == o.hg && ct == o.ct;
   }
 };
 
+constexpr int kMapSlots = 1024;  // a power of two
+
+struct MapCache {
+  std::mutex mu;
+  MapKey keys[kMapSlots];
+  CUtensorMap maps[kMapSlots];
+  bool used[kMapSlots];
+  int filled;
+  long long encodes, clears;
+};
+
+MapCache& map_cache() {
+  static MapCache c;  // zero-initialized: static storage
+  return c;
+}
+
+int map_slot(const MapKey& k) {
+  uint64_t h = reinterpret_cast<uintptr_t>(k.p);
+  for (const int f : {k.n, k.pt, k.h, k.d, k.dtype, k.hg, k.ct})
+    h = (h ^ (uint32_t)f) * 0x100000001B3ull;
+  h ^= h >> 29;
+  h *= 0xBF58476D1CE4E5B9ull;
+  return (int)(h >> 40) & (kMapSlots - 1);
+}
+
 int arena_map(CUtensorMap* map, const MapKey& k) {
-  constexpr int kSlots = 64;
-  static std::mutex mu;
-  static MapKey keys[kSlots];
-  static CUtensorMap maps[kSlots];
-  static int used = 0, next = 0;
-  std::lock_guard<std::mutex> lock(mu);
-  for (int i = 0; i < used; ++i)
-    if (keys[i] == k) {
-      *map = maps[i];
+  MapCache& c = map_cache();
+  std::lock_guard<std::mutex> lock(c.mu);
+  int i = map_slot(k);
+  for (; c.used[i]; i = (i + 1) & (kMapSlots - 1))
+    if (c.keys[i] == k) {
+      *map = c.maps[i];
       return 0;
     }
   const EncodeTiled enc = encoder();
@@ -697,7 +773,7 @@ int arena_map(CUtensorMap* map, const MapKey& k) {
                                                       : CU_TENSOR_MAP_DATA_TYPE_UINT8;
   const cuuint64_t dims[3] = {(cuuint64_t)k.d, (cuuint64_t)k.h, (cuuint64_t)k.n * k.pt};
   const cuuint64_t strides[2] = {(cuuint64_t)k.d * es, (cuuint64_t)k.h * k.d * es};
-  const cuuint32_t box[3] = {(cuuint32_t)k.d, (cuuint32_t)k.hg, (cuuint32_t)k.pt};
+  const cuuint32_t box[3] = {k.d <= 64 ? 64u : 128u, (cuuint32_t)k.hg, (cuuint32_t)k.ct};
   const cuuint32_t step[3] = {1, 1, 1};
   CUtensorMap m;
   memset(&m, 0, sizeof(m));
@@ -705,9 +781,17 @@ int arena_map(CUtensorMap* map, const MapKey& k) {
           CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
           CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return (int)cudaErrorInvalidValue;
-  const int slot = used < kSlots ? used++ : next++ % kSlots;
-  keys[slot] = k;
-  maps[slot] = m;
+  if (4 * (c.filled + 1) > 3 * kMapSlots) {
+    memset(c.used, 0, sizeof(c.used));
+    c.filled = 0;
+    ++c.clears;
+    i = map_slot(k);
+  }
+  c.used[i] = true;
+  c.keys[i] = k;
+  c.maps[i] = m;
+  ++c.filled;
+  ++c.encodes;
   *map = m;
   return 0;
 }
@@ -716,53 +800,78 @@ int arena_map(CUtensorMap* map, const MapKey& k) {
 
 // q, out [B, L, H, D] (q_dtype); k_pages, v_pages [N, pt, H, D] (kv_dtype),
 // 16-byte aligned, N pages; k_scale, v_scale [N, H] f32 (int8 arenas only, else
-// null); pages [B, P] and positions [B] int32. All contiguous, D 64 or 128.
-// The launch plan: hg heads a block, qtile queries a block (tile = 0: one
-// warp per (head, query), hg * qtile <= 7 warps; tile = 1: 2048 / D
-// queries a warp, qtile a multiple of that), `stages` ring stages, and a
-// cluster of 1-8 blocks splitting each tile's pages. Returns
-// cudaGetLastError() after the one launch.
+// null); pages [B, P] and positions [B] int32. All contiguous, D 1-128 (the
+// kernel pads it to DP, 64 or 128). `plan` is the launch (see Plan): hg
+// heads and qtile queries a block (decode mapping: one warp per (head,
+// query); tile mapping: 2048 / DP queries a warp), `stages` ring stages of
+// ct-token slabs, a cluster of 1-8 blocks splitting each tile's slabs.
+// Returns cudaGetLastError() after the one launch.
 extern "C" int kubeml_paged_attention(const void* q, const void* k_pages, const void* v_pages,
                                       const void* k_scale, const void* v_scale, const void* pages,
                                       const void* positions, void* out, int B, int L, int H,
-                                      int D, int N, int pt, int P, int hg, int qtile, int tile,
-                                      int stages, int cluster, int q_dtype, int kv_dtype,
-                                      void* stream) {
+                                      int D, int N, int pt, int P, const void* plan, int q_dtype,
+                                      int kv_dtype, void* stream) {
+  if (plan == nullptr || kv_dtype < kF32 || kv_dtype > kI8) return (int)cudaErrorInvalidValue;
+  const Plan& p = *static_cast<const Plan*>(plan);
   const int es = kv_dtype == kF32 ? 4 : kv_dtype == kBF16 ? 2 : 1;
-  const bool quant = kv_dtype == kI8;
-  if (B < 1 || L < 1 || H < 1 || (D != 64 && D != 128) || N < 1 || pt < 1 || pt > 256 ||
-      P < 1 || hg < 1 || hg > H || hg > 8 || qtile < 1 || stages < 2 || cluster < 1 ||
-      cluster > kMaxCluster || (tile && qtile % (2048 / D) != 0) ||
+  const bool quant = kv_dtype == kI8, tile = p.tile != 0;
+  const int dp = D <= 64 ? 64 : 128, lpw = 2048 / dp;
+  if (B < 1 || L < 1 || H < 1 || D < 1 || D > 128 || N < 1 || pt < 1 || P < 1 ||
       reinterpret_cast<uintptr_t>(k_pages) % 16 || reinterpret_cast<uintptr_t>(v_pages) % 16 ||
-      (quant && (k_scale == nullptr || v_scale == nullptr)) || kv_dtype < kF32 || kv_dtype > kI8)
+      (quant && (k_scale == nullptr || v_scale == nullptr)) || (long long)N * pt > INT32_MAX)
     return (int)cudaErrorInvalidValue;
-  const Layout lay = layout(D, es, quant, tile != 0, hg, qtile, pt, stages);
-  const int n_qt = (L + qtile - 1) / qtile;
-  if (lay.warps < 1 || lay.warps > kMaxWarps || lay.smem > kMaxSmem ||
-      (long long)B * n_qt > 65535 || 2LL * pt * hg * D * es >= (1 << 20) ||
-      (long long)N * pt > INT32_MAX)
+  // the plan: a geometry the kernel serves, and a layout that holds the
+  // boxes, the scales, the ring and the merge buffer within the card's limit
+  const long long merge = 4LL * p.warps * 32 * (tile ? 2 * 34 : dp / 32 + 2);
+  if (p.hg < 1 || p.hg > H || p.hg > 8 || p.qtile < 1 || p.stages < 2 || p.cluster < 1 ||
+      p.cluster > kMaxCluster || p.ct < 1 || p.ct > 256 || pt % p.ct != 0 ||
+      (tile && p.qtile % lpw != 0) || p.warps < 1 || p.warps > kMaxWarps ||
+      p.warps != p.hg * (tile ? p.qtile / lpw : p.qtile) || p.box_bytes % 128 != 0 ||
+      p.box_bytes < (long long)p.ct * p.hg * dp * es || p.stage_bytes % 128 != 0 ||
+      p.stage_bytes < 2LL * p.box_bytes + (quant ? 8 * p.hg : 0) ||
+      p.area_bytes < (long long)p.stages * p.stage_bytes || p.area_bytes < merge ||
+      p.smem < p.area_bytes + 16LL * p.stages + 128 || p.smem > kMaxSmem ||
+      (p.tma && (D * es) % 16 != 0))
     return (int)cudaErrorInvalidValue;
+  const int n_qt = (L + p.qtile - 1) / p.qtile;
+  if ((long long)B * n_qt > 65535) return (int)cudaErrorInvalidValue;
   CUtensorMap tk, tv;
+  memset(&tk, 0, sizeof(tk));
+  memset(&tv, 0, sizeof(tv));
   int e;
-  if ((e = arena_map(&tk, MapKey{k_pages, N, pt, H, D, kv_dtype, hg})) ||
-      (e = arena_map(&tv, MapKey{v_pages, N, pt, H, D, kv_dtype, hg})))
+  if (p.tma && ((e = arena_map(&tk, MapKey{k_pages, N, pt, H, D, kv_dtype, p.hg, p.ct})) ||
+                (e = arena_map(&tv, MapKey{v_pages, N, pt, H, D, kv_dtype, p.hg, p.ct}))))
     return e;
   Args a{};
   a.q = q;
+  a.kp = k_pages;
+  a.vp = v_pages;
   a.ks = static_cast<const float*>(k_scale);
   a.vs = static_cast<const float*>(v_scale);
   a.pages = static_cast<const int*>(pages);
   a.positions = static_cast<const int*>(positions);
   a.out = out;
-  a.B = B, a.L = L, a.H = H, a.pt = pt, a.P = P;
-  a.hg = hg, a.qtile = qtile, a.n_qt = n_qt, a.warps = lay.warps, a.stages = stages;
-  a.box_bytes = lay.box_bytes, a.stage_bytes = lay.stage_bytes, a.area_bytes = lay.area_bytes;
+  a.B = B, a.L = L, a.H = H, a.D = D, a.pt = pt, a.P = P;
+  a.hg = p.hg, a.qtile = p.qtile, a.n_qt = n_qt, a.warps = p.warps, a.stages = p.stages;
+  a.ct = p.ct, a.box_bytes = p.box_bytes, a.stage_bytes = p.stage_bytes;
+  a.area_bytes = p.area_bytes, a.tma = p.tma, a.nsub = pt / p.ct;
   a.sm_scale = 1.f / sqrtf((float)D);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (q_dtype) {
-    case kF32: return dispatch_kv<float>(kv_dtype, D, tile != 0, a, tk, tv, cluster, lay.smem, s);
+    case kF32: return dispatch_kv<float>(kv_dtype, dp, tile, a, tk, tv, p.cluster, p.smem, s);
     case kBF16:
-      return dispatch_kv<__nv_bfloat16>(kv_dtype, D, tile != 0, a, tk, tv, cluster, lay.smem, s);
+      return dispatch_kv<__nv_bfloat16>(kv_dtype, dp, tile, a, tk, tv, p.cluster, p.smem, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The tensor-map table's counts since the process started: out[0] maps
+// encoded, out[1] times the table was emptied, out[2] maps held.
+extern "C" int kubeml_paged_attention_map_stats(long long* out) {
+  MapCache& c = map_cache();
+  std::lock_guard<std::mutex> lock(c.mu);
+  out[0] = c.encodes;
+  out[1] = c.clears;
+  out[2] = c.filled;
+  return 0;
 }

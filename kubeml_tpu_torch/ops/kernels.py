@@ -41,9 +41,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # q, k_pages, v_pages, k_scale, v_scale, pages, positions, out, B, L,
-    # H, D, N, pt, P, hg, qtile, tile, stages, cluster, q_dtype, kv_dtype,
-    # stream
-    "kubeml_paged_attention": [_P] * 8 + [_I] * 14 + [_P],
+    # H, D, N, pt, P, plan, q_dtype, kv_dtype, stream
+    "kubeml_paged_attention": [_P] * 8 + [_I] * 7 + [_P] + [_I] * 2 + [_P],
+    # out: maps encoded, table cleared, maps held
+    "kubeml_paged_attention_map_stats": [_P],
     # x, q, s, y, M, K, N, m_tile, cluster, k_per_rank, x_dtype, y_dtype,
     # stream
     "kubeml_int8_matmul": [_P] * 4 + [_I] * 8 + [_P],

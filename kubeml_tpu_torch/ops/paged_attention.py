@@ -30,6 +30,7 @@ legacy ``pallas``) the kernel, ``gather`` the plain version.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple, Optional
 
@@ -48,15 +49,18 @@ VALID_KV_QUANT = ("off", "int8", "auto")
 _KV_QMAX = 127.0
 
 # launch limits of csrc/paged_attention.cu: consumer warps a block, blocks a
-# cluster, shared memory a block (227 KB); L up to _DECODE_MAX_L takes the
-# decode mapping (a warp per (head, query), in tiles of at most 7 queries),
-# longer L the tile mapping (lanes over queries); a ring of at most
-# _MAX_STAGES stages within _SMEM_BUDGET, so that two blocks share an SM.
-# The mapping threshold and the cluster targets in _plan come from sweeps of
-# the plan on the H100 at GPT-2-small width (L 1-128, f32 and int8 arenas).
-_MAX_WARPS, _MAX_CLUSTER, _MAX_SMEM = 7, 8, 232448
-_DECODE_MAX_L, _MAX_STAGES, _SMEM_BUDGET = 32, 8, 112 * 1024
-_HEAD_DIMS = (64, 128)
+# cluster, tokens a TMA box, head dim; a ring of at most _MAX_STAGES stages
+# within _SMEM_BUDGET, so that two blocks share an SM (the kernel takes up
+# to 227 KB). L up to _DECODE_MAX_L[bytes a K/V value] takes the decode
+# mapping (a warp per (head, query), in tiles of at most 7 queries), longer
+# L the tile mapping (lanes over queries). The mapping thresholds and the
+# cluster targets in _plan come from sweeps on the H100 at GPT-2-small
+# width (``scripts/kernel_timing.py paged-mapping``; PERF.md): the decode
+# mapping is the faster one up to L 64 over f32 and bf16 arenas, up to 12
+# over int8 ones.
+_MAX_WARPS, _MAX_CLUSTER, _MAX_BOX, _MAX_D = 7, 8, 256, 128
+_MAX_STAGES, _SMEM_BUDGET = 8, 112 * 1024
+_DECODE_MAX_L = {4: 64, 2: 64, 1: 12}
 
 
 def resolve_kv_quant(value: Optional[str]) -> str:
@@ -120,9 +124,9 @@ def _check_cuda_args(q, k_pages, v_pages, pages, positions, k_scale,
         raise ValueError("int8 arenas need k_scale/v_scale, and only they do")
     if k_pages.dtype not in (torch.float32, torch.bfloat16, torch.int8):
         raise TypeError(f"unsupported arena dtype {k_pages.dtype}")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"head dim {D} is not supported by the kernel "
-                         f"(64 or 128)")
+    if D > _MAX_D:
+        raise ValueError(f"head dim {D} > {_MAX_D} is not supported by the "
+                         f"kernel")
     if pages.dtype != torch.int32 or pages.dim() != 2 or pages.shape[0] != B:
         raise ValueError(f"pages must be int32 [{B}, P], got {pages.dtype} "
                          f"{tuple(pages.shape)}")
@@ -145,32 +149,33 @@ def _check_cuda_args(q, k_pages, v_pages, pages, positions, k_scale,
 
 
 class Plan(NamedTuple):
-    """One launch of the kernel: ``hg`` heads and ``qtile`` queries a block,
-    the ``tile`` mapping or the decode one, ``stages`` ring stages,
-    ``cluster`` blocks splitting a tile's pages (at most
-    ``pages_per_rank`` each), and the block's shared memory in bytes."""
+    """One launch of the kernel and its block's shared-memory layout (the
+    ``Plan`` struct of csrc/paged_attention.cu, field for field): ``hg``
+    heads and ``qtile`` queries a block, the ``tile`` mapping or the decode
+    one, a ring of ``stages`` stages of ``ct``-token slabs (``ct`` divides
+    the page), ``cluster`` blocks splitting a tile's slabs, ``warps``
+    consumer warps; a stage holds a K box and a V box of ``box_bytes``
+    (``[ct, hg, DP]``, DP the head dim padded to 64 or 128) and the int8
+    scales; ``area_bytes`` holds the ring and the merge buffer, ``smem``
+    that and the mbarriers; ``tma`` streams slabs by TMA (else the
+    producer copies them value by value: rows of D values whose bytes are
+    not a multiple of 16)."""
     hg: int
     qtile: int
     tile: bool
     stages: int
     cluster: int
-    pages_per_rank: int
+    ct: int
+    warps: int
+    box_bytes: int
+    stage_bytes: int
+    area_bytes: int
     smem: int
+    tma: bool
 
 
-def _layout(D, es, quant, tile, hg, qtile, pt, stages):
-    """(consumer warps, stage bytes, shared-memory bytes) of a block, as
-    ``layout`` in csrc/paged_attention.cu computes them: a stage holds one
-    page's K box and V box (``[pt, hg, D]``, each rounded up to 128 bytes)
-    and, for int8 arenas, 128 bytes of scales; the merge buffer of split
-    walks shares the ring's space; mbarriers and 128 bytes of alignment
-    after."""
-    box = -(-pt * hg * D * es // 128) * 128
-    stage = 2 * box + (128 if quant else 0)
-    warps = hg * (qtile // (2048 // D) if tile else qtile)
-    # the merge buffer: a lane's m, l and values per query (tile: 2 x 32)
-    area = max(stages * stage, warps * 32 * (68 if tile else D // 32 + 2) * 4)
-    return warps, stage, area + 16 * stages + 128
+class _CPlan(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_int) for name in Plan._fields]
 
 
 @functools.lru_cache(maxsize=4096)
@@ -179,17 +184,35 @@ def _plan(B: int, L: int, H: int, D: int, pt: int, P: int, es: int,
     """The launch for q ``[B, L, H, D]`` over ``[N, pt, H, D]`` arenas of
     ``es``-byte values and ``[B, P]`` tables. Head groups of 4, halved
     while (decode mapping) more than one query tile's warps would not fit a
-    block, while the grid (with 8-rank clusters) cannot fill the card, or
-    while the stages the mapping needs (3 tile, 6 decode) overflow the
+    block, or while the grid (with 8-rank clusters) cannot fill the card;
+    then the head group and after it the slab shrink until the stages the
+    mapping needs (3 tile, 6 decode: it holds two slabs a pass) fit the
     budget; then clusters of ranks to about four blocks an SM for the
     decode mapping, two for the tile mapping."""
-    tile = L > _DECODE_MAX_L
-    lpw = 2048 // D  # tile mapping: queries a warp
+    dp = 64 if D <= 64 else 128
+    tile = L > _DECODE_MAX_L[es]
+    lpw = 2048 // dp  # tile mapping: queries a warp
 
     def qtile_of(hg):
         if tile:
             return lpw * max(1, min(_MAX_WARPS // hg, -(-L // lpw)))
         return min(L, _MAX_WARPS // hg)
+
+    def layout(hg, ct, stages):
+        """(warps, box, stage, area, smem) bytes of a block: a stage holds
+        the slab's K box and V box, each rounded up to 128 bytes, then 128
+        bytes of int8 scales; the merge buffer of split walks (a lane's m,
+        l and values per query; tile: 2 x 32) shares the ring's space;
+        mbarriers and 128 bytes of alignment after."""
+        warps = hg * (qtile_of(hg) // lpw if tile else qtile_of(hg))
+        box = -(-ct * hg * dp * es // 128) * 128
+        stage = 2 * box + (128 if quant else 0)
+        area = max(stages * stage,
+                   warps * 32 * (68 if tile else dp // 32 + 2) * 4)
+        return warps, box, stage, area, area + 16 * stages + 128
+
+    def divisor_below(n):  # the largest divisor of pt below n
+        return max(d for d in range(1, n) if pt % d == 0)
 
     hg = 4 if H >= 4 else 2 if H >= 2 else 1
     if not tile:
@@ -198,31 +221,39 @@ def _plan(B: int, L: int, H: int, D: int, pt: int, P: int, es: int,
     while hg > 1 and (B * -(-H // hg) * -(-L // qtile_of(hg)) * _MAX_CLUSTER
                       < sm_count):
         hg //= 2
-    # stages the ring needs: the decode mapping holds two pages a pass and
-    # is bound by pages in flight
     need = 3 if tile else 6
-    while hg > 1 and need * _layout(D, es, quant, tile, hg, qtile_of(hg), pt,
-                                    1)[1] > _SMEM_BUDGET:
+    ct = pt if pt <= _MAX_BOX else divisor_below(_MAX_BOX + 1)
+    while hg > 1 and need * layout(hg, ct, 1)[2] > _SMEM_BUDGET:
         hg //= 2
+    while ct > 1 and need * layout(hg, ct, 1)[2] > _SMEM_BUDGET:
+        ct = divisor_below(ct)
     qtile = qtile_of(hg)
-    stage = _layout(D, es, quant, tile, hg, qtile, pt, 1)[1]
+    stage = layout(hg, ct, 1)[2]
+    slabs = P * (pt // ct)
     blocks = B * -(-H // hg) * -(-L // qtile)
     target = (2 if tile else 4) * sm_count
-    cluster = max(1, min(_MAX_CLUSTER, P, -(-target // blocks)))
-    per = -(-P // cluster)
-    cluster = -(-P // per)  # no rank without pages on a full table
+    cluster = max(1, min(_MAX_CLUSTER, slabs, -(-target // blocks)))
+    per = -(-slabs // cluster)
+    cluster = -(-slabs // per)  # no rank without slabs on a full table
     stages = max(2, min(_MAX_STAGES, _SMEM_BUDGET // stage, per))
-    smem = _layout(D, es, quant, tile, hg, qtile, pt, stages)[2]
-    return Plan(hg, qtile, tile, stages, cluster, per, smem)
+    warps, box, stage, area, smem = layout(hg, ct, stages)
+    return Plan(hg, qtile, tile, stages, cluster, ct, warps, box, stage, area,
+                smem, (D * es) % 16 == 0)
 
 
-def _rank_pages(npg: int, cluster: int, rank: int):
-    """Pages [begin, end) that cluster rank ``rank`` walks when a tile needs
-    ``npg`` pages: the split the kernel makes on the card from the row's
-    live depth."""
-    per = -(-npg // cluster)
-    begin = min(npg, rank * per)
-    return begin, min(npg, begin + per)
+@functools.lru_cache(maxsize=4096)
+def _plan_struct(plan: Plan) -> _CPlan:
+    """The plan as the C struct the entry point reads (kept alive here)."""
+    return _CPlan(*plan)
+
+
+def map_stats() -> dict:
+    """The kernel library's table of arena tensor maps since the process
+    started: maps ``encoded``, times the table was ``cleared`` (full), maps
+    ``held``. Serving runs read it to see that calls find their maps."""
+    out = (ctypes.c_longlong * 3)()
+    kernels.library().kubeml_paged_attention_map_stats(out)
+    return dict(encoded=out[0], cleared=out[1], held=out[2])
 
 
 def paged_attention(q, k_pages, v_pages, pages, positions,
@@ -246,16 +277,12 @@ def paged_attention(q, k_pages, v_pages, pages, positions,
     pt = int(k_pages.shape[1])
     plan = _plan(B, L, H, D, pt, P, k_pages.element_size(),
                  k_scale is not None, kernels.sm_count(q.device.index))
-    if plan.smem > _MAX_SMEM:
-        raise ValueError(f"pages of {pt} tokens need {plan.smem} bytes of "
-                         f"shared memory a block (at most {_MAX_SMEM})")
     codes = kernels.DTYPE_CODES
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     err = kernels.library().kubeml_paged_attention(
         ptr(q), ptr(k_pages), ptr(v_pages), ptr(k_scale), ptr(v_scale),
         ptr(pages), ptr(positions), ptr(out), B, L, H, D,
-        int(k_pages.shape[0]), pt, P, plan.hg,
-        plan.qtile, int(plan.tile), plan.stages, plan.cluster,
+        int(k_pages.shape[0]), pt, P, ctypes.byref(_plan_struct(plan)),
         codes[str(q.dtype).split(".")[-1]],
         codes[str(k_pages.dtype).split(".")[-1]],
         torch.cuda.current_stream(q.device).cuda_stream)

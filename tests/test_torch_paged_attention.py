@@ -190,47 +190,59 @@ def test_wrapper_rejects_unpaired_scales():
     (12, 64, 16, 2),    # GPT-2 small, bf16 arena
     (12, 64, 16, 1),    # GPT-2 small, int8 arena
     (16, 128, 16, 4),   # H 16 / D 128
-    (16, 128, 32, 4),   # the largest pages: head groups shrink to fit
+    (16, 128, 32, 4),   # head groups shrink to fit
     (16, 128, 8, 1),
     (12, 64, 8, 2),
     (12, 64, 32, 1),
     (3, 64, 16, 4),     # a ragged head group
+    (4, 16, 16, 4),     # GPTTiny (D 16, padded to 64)
+    (8, 96, 16, 2),     # D 96, padded to 128
+    (4, 20, 16, 1),     # rows TMA cannot address: copied value by value
+    (16, 128, 128, 4),  # large pages: slabs of part of a page
+    (16, 128, 256, 4),
+    (12, 80, 100, 4),   # a page size that is no power of two
 ])
 def test_launch_plan_covers_the_table(H, D, pt, es):
-    """The kernel's launch plan (computed in Python, used only on the card)
-    over B 1-64, P 1-64 and decode, spec-verify and prefill L: the cluster's
-    ranks walk every page a tile needs exactly once for every live depth,
-    the cluster has at most 8 blocks, the ring has at least two stages in
-    at most 227 KB, the head groups cover every head and the query tiles
-    cover L."""
-    from kubeml_tpu_torch.ops.paged_attention import _plan, _rank_pages
+    """The kernel's launch plan (computed in Python, checked and used on
+    the card) over B 1-64, P 1-64 and decode, spec-verify and prefill L:
+    the slabs tile every page exactly once (ct divides pt, at most 256
+    tokens, a TMA box's limit) and every rank of a full table gets slabs,
+    the cluster has at most 8 blocks, the ring has at least two stages and
+    the block at most 227 KB (boxes, scales, ring and merge buffer as the
+    kernel lays them out), the head groups cover every head and the query
+    tiles cover L."""
+    from kubeml_tpu_torch.ops.paged_attention import _DECODE_MAX_L, _plan
 
     quant = es == 1
+    dp = 64 if D <= 64 else 128
+    lpw = 2048 // dp
     for B in (1, 3, 8, 64):
         for P in (1, 2, 7, 64):
             for L in (1, 2, 5, 7, 8, 16, 17, 32, 33, 128, 300):
                 plan = _plan(B, L, H, D, pt, P, es, quant, 132)
-                assert 1 <= plan.cluster <= 8
+                assert 1 <= plan.ct <= 256 and pt % plan.ct == 0
+                slabs = P * pt // plan.ct
+                assert 1 <= plan.cluster <= min(8, slabs)
+                per = -(-slabs // plan.cluster)
+                assert (plan.cluster - 1) * per < slabs
                 assert 2 <= plan.stages and plan.smem <= 232448
-                assert (plan.cluster - 1) * plan.pages_per_rank < P \
-                    <= plan.cluster * plan.pages_per_rank
+                assert plan.box_bytes % 128 == 0
+                assert plan.box_bytes >= plan.ct * plan.hg * dp * es
+                assert plan.stage_bytes >= (2 * plan.box_bytes
+                                            + (8 * plan.hg if quant else 0))
+                assert plan.area_bytes >= plan.stages * plan.stage_bytes
+                merge = plan.warps * 32 * (68 if plan.tile
+                                           else dp // 32 + 2) * 4
+                assert plan.area_bytes >= merge
+                assert plan.smem >= plan.area_bytes + 16 * plan.stages + 128
                 groups = -(-H // plan.hg)
                 assert plan.hg <= H and (groups - 1) * plan.hg < H
                 tiles = -(-L // plan.qtile)
                 assert (tiles - 1) * plan.qtile < L <= tiles * plan.qtile
-                assert plan.tile == (L > 32)
-                lpw = 32 // (D // 64)
-                from kubeml_tpu_torch.ops.paged_attention import _layout
-                warps = _layout(D, es, quant, plan.tile, plan.hg, plan.qtile,
-                                pt, plan.stages)[0]
-                assert plan.hg * (plan.qtile // lpw if plan.tile
-                                  else plan.qtile) <= warps <= 7
+                assert plan.tile == (L > _DECODE_MAX_L[es])
+                assert plan.warps == plan.hg * (plan.qtile // lpw
+                                                if plan.tile else plan.qtile)
+                assert 1 <= plan.warps <= 7
                 if plan.tile:
                     assert plan.qtile % lpw == 0
-                for npg in range(1, P + 1):
-                    walked = []
-                    for r in range(plan.cluster):
-                        b, e = _rank_pages(npg, plan.cluster, r)
-                        assert e - b <= plan.pages_per_rank
-                        walked += range(b, e)
-                    assert walked == list(range(npg))
+                assert plan.tma == ((D * es) % 16 == 0)

@@ -65,14 +65,14 @@ def edge_positions(B, pt, P, L, seed):
 @pytest.mark.parametrize("pt", [8, 16, 32])
 @pytest.mark.parametrize("D", [64, 128])
 def test_kernel_matches_plain(card, D, pt, kv_dtype):
-    """B 1, 3 and 8 over L 1 (decode), 2, 5, 7 (one query tile), 8, 16, 17
-    and 32 (the decode mapping in tiles of up to 7 queries), 33 and 128
-    (the tile mapping),
-    at positions on page edges and past the table; two launches
-    bit-identical."""
+    """B 1, 3 and 8 over L 1 (decode), 2, 5, 7 (one query tile), 8 up to
+    the arena dtype's threshold (12 int8, 64 f32 and bf16: the decode
+    mapping in tiles of up to 7 queries), L past it (13, 16, 17, 32, 33
+    int8; 65 and 128 all: the tile mapping), at positions on page edges
+    and past the table; two launches bit-identical."""
     H, P = (16 if D == 128 else 12), 12
     for B in (1, 3, 8):
-        for L in (1, 2, 5, 7, 8, 16, 17, 32, 33, 128):
+        for L in (1, 2, 5, 7, 8, 12, 13, 16, 17, 32, 33, 64, 65, 128):
             pos = edge_positions(B, pt, P, L, seed=B + L)
             q, kp, vp, pages, positions, sc = inputs(card, pos, L, H, D, pt,
                                                      P, kv_dtype)
@@ -159,8 +159,74 @@ def test_poisoned_arena_cannot_leak(card, kv_dtype):
     assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("D,pt,kv_dtype", [
+    (16, 16, torch.float32),     # GPTTiny's head dim, padded to 64
+    (16, 16, torch.int8),
+    (32, 16, torch.float32),
+    (32, 8, torch.bfloat16),
+    (96, 16, torch.float32),     # padded to 128
+    (96, 16, torch.int8),
+    (80, 32, torch.bfloat16),
+    (20, 16, torch.float32),     # 80-byte rows: TMA
+    (20, 16, torch.bfloat16),    # 40- and 20-byte rows, which TMA cannot
+    (20, 16, torch.int8),        # address: copied value by value
+    (128, 128, torch.float32),   # large pages: slabs of part of a page
+    (128, 256, torch.float32),
+    (64, 64, torch.int8),
+])
+def test_head_dims_and_page_sizes(card, D, pt, kv_dtype):
+    """Head dims other than 64 and 128 and pages of up to 256 tokens, as
+    the kernel of the first port served them: B 1, 3 and 8 over decode,
+    spec-verify and tile-mapping L at page edges; two launches
+    bit-identical."""
+    H, P = 4, max(2, 192 // pt)
+    for B in (1, 3, 8):
+        for L in (1, 5, 40):
+            pos = edge_positions(B, pt, P, L, seed=B + L)
+            q, kp, vp, pages, positions, sc = inputs(card, pos, L, H, D, pt,
+                                                     P, kv_dtype)
+            out = paged_attention(q, kp, vp, pages, positions, **sc)
+            again = paged_attention(q, kp, vp, pages, positions, **sc)
+            ref = paged_attention_ref(q, kp, vp, pages, positions, **sc)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            assert err <= PA_TOL[kv_dtype], (B, L, pos, err)
+            assert torch.equal(out, again), (B, L)
+
+
+def test_gpt_tiny_serves_through_the_kernel(card):
+    """GPTTiny (embed 64, 4 heads: D 16) served through the kernel gives the
+    greedy tokens of the same engine reading through the plain gather
+    path."""
+    from kubeml_tpu_torch.api import GenerateRequest
+    from kubeml_tpu_torch.models import GPTTiny
+    from kubeml_tpu_torch.serving import PagedBatchingDecoder
+
+    model = GPTTiny(vocab_size=1000, max_len=128, seed=0, device="cuda")
+    gen = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(1, 1000, (n,), generator=gen).tolist()
+               for n in (3, 17, 40, 9)]
+    runs = {}
+    for impl in ("cuda", "gather"):
+        dec = PagedBatchingDecoder(model, slots=4, chunk_steps=4,
+                                   page_tokens=16, paged_attn=impl,
+                                   device="cuda")
+        try:
+            before = paged_attention.launches
+            entries = [dec.submit(GenerateRequest(prompts=[p],
+                                                  max_new_tokens=12))
+                       for p in prompts]
+            runs[impl] = [dec.wait(e, timeout=300)["tokens"][0][:12]
+                          for e in entries]
+            launched = paged_attention.launches - before
+        finally:
+            dec.close()
+        assert (launched > 0) == (impl == "cuda"), (impl, launched)
+    assert runs["cuda"] == runs["gather"]
+
+
 def test_bad_arguments_raise(card):
-    q, kp, vp, pages, positions, _ = inputs(card, [3], 1, 2, 32, 16, 4,
+    q, kp, vp, pages, positions, _ = inputs(card, [3], 1, 2, 160, 16, 4,
                                             torch.float32)
     with pytest.raises(ValueError, match="head dim"):
         paged_attention(q, kp, vp, pages, positions)
