@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (one NVIDIA H100): the paged
-serving path and the GPT training path. Run from the repo root::
+serving path, the GPT training path and K-AVG training. Run from the repo
+root::
 
     python3 chip_smoke.py
 
@@ -61,7 +62,23 @@ Phases, each reported on its own lines:
    a profiler window over 3 steps, then the same run on the plain path;
 8. train f32 - one step through the kernels against the plain path from
    the same weights and batch: loss and every parameter's gradient;
-9. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+9. K-AVG - (a) the flagship at ``bench.py``'s configuration (ResNet-18,
+   CIFAR-10 shapes, bf16, uint8 inputs, B 128, K 8, lr 0.1, SGD momentum
+   0.9) through ``benchmarks.harness.FlagshipBench`` at N 1 and N 4 packed
+   on the card: round ms, device samples/s (slabs resident, best of 3 x 20
+   rounds at N 1, 1 x 20 at N 4), end-to-end samples/s (staged through
+   ``RoundPrefetcher``),
+   peak memory, a profiler window of 2 rounds (idle share, top kernels),
+   FLOPs a sample against the bf16 peak, and a plain PyTorch loop of the
+   same 160 SGD steps as the yardstick; (b) f32 with TF32 off and
+   deterministic cuDNN, N 4, K 2: the merged weights equal the mean of four
+   one-worker rounds, a worker mask averages the other three, and the
+   card's round matches the CPU's; (c) ``TrainJob`` on a banded
+   CIFAR-shaped set in a temporary ``ShardStore``, 3 epochs, parallelism
+   4 -> 2 by ``on_epoch_end``: trace [4, 2, 2], falling loss, validation
+   accuracy at least ``KAVG_JOB_MIN_ACC``; none of the five hand-written
+   kernels may launch in this phase;
+10. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Any failure raises and the script exits non-zero; without a CUDA device it
 exits non-zero before printing any result.
@@ -1066,6 +1083,258 @@ def check_f32_step() -> None:
                              f"{worst[0]} of its scale")
 
 
+# --- phase 9: K-AVG -------------------------------------------------------
+
+# bench.py's flagship configuration (kubeml_tpu/benchmarks/harness.py
+# flagship, bench.py main): ResNet-18 for CIFAR-10, bf16, uint8 inputs,
+# B 128, K 8, lr 0.1, SGD with momentum 0.9; 20 rounds x 3 reps
+# (the learning rate is benchmarks.harness.LR)
+KAVG_B, KAVG_K, KAVG_ROUNDS, KAVG_REPS = 128, 8, 20, 3
+# 9b: four workers in one round against four one-worker rounds on the same
+# slabs (the same code under deterministic cuDNN, so each worker's weights
+# are the same bits; the mean of each set is then formed in the same
+# order): 1e-6 absolute. The card's f32 round against the CPU's: the loss
+# within 1e-3 relative (observed 7.5e-6), and the weights' difference (L2
+# over the whole tree) within 5e-2 of the round's change of the weights
+# (L2). The round is ill-conditioned in its BatchNorm biases (a bias
+# followed by another BatchNorm gets a gradient that nearly cancels): the
+# CPU alone, one thread against eight, moves it by 1.8e-2 of its change
+# and one bias by 13 % of its value; the card against the CPU, 1.1e-2 (H100
+# 80GB HBM3 at 700 W and its host's CPU)
+KAVG_MERGE_ATOL, KAVG_CPU_LOSS_RTOL, KAVG_CPU_W_RTOL = 1e-6, 1e-3, 5e-2
+# 9c: validation accuracy after 3 epochs on the banded set, in % (chance
+# is 10 %)
+KAVG_JOB_MIN_ACC = 50.0
+BAND_COLOURS = ((255, 0, 0), (0, 255, 0), (0, 0, 255), (255, 255, 0),
+                (255, 0, 255), (0, 255, 255), (255, 128, 0), (128, 0, 255),
+                (255, 255, 255), (0, 0, 0))
+
+
+def kernel_counts():
+    from kubeml_tpu_torch.ops.int8_matmul import int8_matmul
+    from kubeml_tpu_torch.ops.paged_attention import paged_attention
+
+    return (paged_attention.launches, int8_matmul.launches) + flash_counts()
+
+
+def reset_kernel_counts() -> None:
+    from kubeml_tpu_torch.ops.int8_matmul import int8_matmul
+    from kubeml_tpu_torch.ops.paged_attention import paged_attention
+
+    paged_attention.launches = int8_matmul.launches = 0
+    reset_flash_counts()
+
+
+def kavg_flagship(n_workers: int, smi: str, plain_sps=None,
+                  reps: int = KAVG_REPS):
+    """9a: the flagship at bench.py's configuration with ``n_workers``
+    packed on the card (best of ``reps`` runs of 20 rounds, device and
+    end to end): round ms, device and end-to-end samples/s, peak
+    memory, a profiler window of 2 rounds, the FLOPs per sample against the
+    bf16 peak; the plain loop's samples/s (measured at N 1, passed in
+    after). Returns the row and the plain loop's samples/s."""
+    from kubeml_tpu_torch.benchmarks.harness import FlagshipBench
+
+    bench = FlagshipBench(n_workers, KAVG_B, KAVG_K, device="cuda")
+    row = bench.measure(KAVG_ROUNDS, reps)
+    steps = KAVG_ROUNDS * KAVG_K
+    if plain_sps is None:
+        plain_sps = bench.plain_loop(steps)
+    tag = f"N {n_workers}"
+    log(f"  {tag}: round {row['round_ms']:.3f} ms ({n_workers} x {KAVG_K} "
+        f"steps of B {KAVG_B}); device {row['value']:.1f} samples/s (slabs "
+        f"resident, best of {reps} x {KAVG_ROUNDS} rounds); end-to-end "
+        f"{row['end_to_end']:.1f} samples/s (staged through "
+        f"RoundPrefetcher); max memory allocated "
+        f"{row['max_memory_allocated'] / 2**30:.3f} GiB; loss "
+        f"{row['first_loss']:.4f} -> {row['loss']:.4f} [{smi}]")
+    log(f"  {tag}: plain PyTorch loop of {steps} SGD steps of one model "
+        f"(no averaging): {plain_sps:.1f} samples/s; K-AVG device / plain "
+        f"{row['value'] / plain_sps:.3f} [{smi}]")
+    flops = row["train_flops_per_sample"]
+    achieved = flops * row["value"]
+    log(f"  {tag}: {flops / 1e9:.4f} GFLOP a training sample (convs and "
+        f"dense layers, from their shapes; forward x 3): "
+        f"{achieved / 1e12:.2f} TFLOP/s = "
+        f"{achieved / PEAK_OPS[torch.bfloat16]:.4f} of the bf16 dense peak "
+        f"(989 TFLOP/s) [{smi}]")
+    busy = device_profile(lambda: [bench.round() for _ in range(2)])[0]
+    if busy > 0:
+        log(f"  {tag}: device busy {busy / 2:.3f} ms a round, unprofiled "
+            f"round {row['round_ms']:.3f} ms: idle share "
+            f"{1 - busy / (2 * row['round_ms']):.3f} of the unprofiled round")
+    if not (np.isfinite(row["first_loss"]) and np.isfinite(row["loss"])):
+        raise AssertionError(f"{tag}: flagship losses {row['first_loss']} "
+                             f"-> {row['loss']}")
+    del bench
+    torch.cuda.empty_cache()
+    return row, plain_sps
+
+
+def _flat(tree):
+    return {f"{c}/{k}": a for c, d in tree.items() for k, a in d.items()}
+
+
+def _mean_of(flat):
+    """The leafwise mean of flat numpy trees, summed in list order."""
+    out = {}
+    for name in flat[0]:
+        acc = flat[0][name].astype(np.float32)
+        for f in flat[1:]:
+            acc = acc + f[name]
+        out[name] = acc / np.float32(len(flat))
+    return out
+
+
+def _worst_abs(a, b):
+    return max((float(np.abs(a[k] - b[k]).max()), k) for k in b)
+
+
+def _l2(a, b=None):
+    return float(np.sqrt(sum(float(np.sum(np.square(
+        a[k].astype(np.float64) - (0.0 if b is None else b[k]))))
+        for k in a)))
+
+
+def kavg_correctness(device: str = "cuda", batch: int = 16, n: int = 4,
+                     k: int = 2) -> None:
+    """9b: ResNet-18 in f32 (TF32 off, deterministic cuDNN), N 4, K 2: the
+    merged weights against the mean of four one-worker rounds on the same
+    slabs, a worker mask dropping one worker against the mean of the other
+    three, and the card's round against the CPU's."""
+    from kubeml_tpu_torch.benchmarks.harness import LR, make_synthetic_model
+    from kubeml_tpu_torch.engine.kavg import KAvgTrainer
+    from kubeml_tpu_torch.models.resnet import ResNet18
+
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        r = np.random.default_rng(1)
+        x = r.normal(size=(n, k, batch, 32, 32, 3)).astype(np.float32)
+        y = r.integers(0, 10, size=(n, k, batch)).astype(np.int64)
+        m = np.ones((n, k, batch), np.float32)
+
+        def trainer(dev):
+            return KAvgTrainer(make_synthetic_model(ResNet18(num_classes=10)),
+                               precision="f32", device=dev)
+
+        t = trainer(device)
+        ref = t.reference_variables(t.init_variables(0, x[0, 0], 1))
+
+        def run(tr, rows, worker_mask=None):
+            v = tr.place_reference(ref, len(rows))
+            v, loss = tr.sync_round(v, x[rows], y[rows], m[rows], lr=LR,
+                                    worker_mask=worker_mask)
+            return _flat(tr.reference_variables(v)), float(loss)
+
+        merged, loss4 = run(t, list(range(n)))
+        solos = [run(t, [w])[0] for w in range(n)]
+        err = _worst_abs(merged, _mean_of(solos))
+        dropped, _ = run(t, list(range(n)),
+                         np.array([1, 1, 0, 1], np.float32))
+        err_drop = _worst_abs(dropped, _mean_of([solos[0], solos[1],
+                                                 solos[3]]))
+        cpu, loss_cpu = run(trainer("cpu"), list(range(n)))
+        w_rel = _l2(merged, cpu) / _l2(cpu, _flat(ref))
+        loss_rel = abs(loss4 - loss_cpu) / abs(loss_cpu)
+        leaf = max((float(np.abs(merged[k_] - cpu[k_]).max())
+                    / max(float(np.abs(cpu[k_]).max()), 1e-30), k_)
+                   for k_ in cpu)
+        log(f"  f32 N {n} K {k} B {batch}: merged vs mean of {n} one-worker "
+            f"rounds: max abs {err[0]:.2e} ({err[1]}; tolerance "
+            f"{KAVG_MERGE_ATOL}); worker 2 masked vs mean of workers 0, 1, "
+            f"3: {err_drop[0]:.2e} ({err_drop[1]})")
+        log(f"  f32 round, {device} vs cpu: |weights difference| / |round's "
+            f"change| {w_rel:.2e}, loss {loss4:.6f} vs {loss_cpu:.6f} (rel "
+            f"{loss_rel:.2e}; tolerances {KAVG_CPU_W_RTOL}, "
+            f"{KAVG_CPU_LOSS_RTOL}); worst leaf "
+            f"by its own scale: {leaf[1]} at {leaf[0]:.2e} of its largest "
+            f"entry")
+        if not err[0] <= KAVG_MERGE_ATOL:
+            raise AssertionError(f"merged weights differ from the mean of "
+                                 f"the workers by {err}")
+        if not err_drop[0] <= KAVG_MERGE_ATOL:
+            raise AssertionError(f"the worker mask's average differs by "
+                                 f"{err_drop}")
+        if not (w_rel <= KAVG_CPU_W_RTOL and loss_rel <= KAVG_CPU_LOSS_RTOL):
+            raise AssertionError(f"card vs cpu round: weights {w_rel}, loss "
+                                 f"{loss_rel}")
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+
+
+def banded_images(n: int, seed: int):
+    """A learnable CIFAR-shaped set: uint8 noise in [0, 128) with a band of
+    three rows in the class's colour at the class's place."""
+    r = np.random.default_rng(seed)
+    y = r.integers(0, 10, size=n).astype(np.int64)
+    x = r.integers(0, 128, size=(n, 32, 32, 3)).astype(np.uint8)
+    for c, colour in enumerate(BAND_COLOURS):
+        x[y == c, 3 * c:3 * c + 3] = colour
+    return x, y
+
+
+def kavg_job(device: str = "cuda", num_filters: int = 64,
+             n_train: int = 4096, n_test: int = 1024, epochs: int = 3):
+    """9c: ``TrainJob`` end to end: ResNet-18 (bf16, uint8 inputs) on the
+    banded set from a temporary ``ShardStore``, 3 epochs at
+    ``default_parallelism`` 4, an ``on_epoch_end`` policy moving it to 2.
+    Returns the history."""
+    import tempfile
+    from pathlib import Path
+
+    from kubeml_tpu_torch.api.types import TrainOptions, TrainRequest
+    from kubeml_tpu_torch.data.dataset import KubeDataset
+    from kubeml_tpu_torch.engine.job import TrainJob
+    from kubeml_tpu_torch.models.resnet import BasicBlock, ResNet
+    from kubeml_tpu_torch.runtime.model import KubeModel
+    from kubeml_tpu_torch.storage import HistoryStore, ShardStore
+
+    class Bands(KubeModel):
+        def __init__(self):
+            super().__init__(KubeDataset("bands"))
+
+        def build(self):
+            return ResNet([2, 2, 2, 2], BasicBlock, num_classes=10,
+                          num_filters=num_filters, dtype=torch.bfloat16)
+
+        def configure_optimizers(self, params):
+            return torch.optim.SGD(params, lr=self.lr, momentum=0.9)
+
+        def preprocess(self, x):
+            return x.to(torch.bfloat16) / 127.5 - 1.0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store = ShardStore(root=Path(tmp) / "datasets")
+        store.create("bands", *banded_images(n_train, 2),
+                     *banded_images(n_test, 3))
+        req = TrainRequest(
+            model_type="resnet18", batch_size=64, epochs=epochs,
+            dataset="bands", lr=0.05, function_name="resnet18",
+            # the set is easy: no goal-accuracy stop before the 3 epochs
+            options=TrainOptions(default_parallelism=4, k=4,
+                                 precision="bf16", goal_accuracy=101.0))
+        job = TrainJob("kavg-smoke", req, Bands(), store=store,
+                       history_store=HistoryStore(root=Path(tmp) / "history"),
+                       on_epoch_end=lambda s: 2 if s.parallelism == 4
+                       else s.parallelism, device=device)
+        hist = job.train()
+    log(f"  TrainJob: parallelism {hist.parallelism}, train loss "
+        f"{[round(v, 4) for v in hist.train_loss]}, validation accuracy "
+        f"{[round(v, 2) for v in hist.accuracy]} %, epoch s "
+        f"{[round(v, 3) for v in hist.epoch_duration]}")
+    if hist.parallelism != [4, 2, 2][:epochs]:
+        raise AssertionError(f"parallelism trace {hist.parallelism}")
+    if not hist.train_loss[-1] < hist.train_loss[0]:
+        raise AssertionError(f"train loss did not fall: {hist.train_loss}")
+    if not hist.accuracy[-1] >= KAVG_JOB_MIN_ACC:
+        raise AssertionError(f"validation accuracy {hist.accuracy[-1]} % < "
+                             f"{KAVG_JOB_MIN_ACC} %")
+    return hist
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one NVIDIA card",
@@ -1082,7 +1351,7 @@ def main() -> int:
 
     # 1. device
     smi = nvidia_smi()
-    log("[1/9 device]")
+    log("[1/10 device]")
     log(smi)
     log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} devices "
@@ -1097,7 +1366,7 @@ def main() -> int:
     spills = [f"{lines[i - 1].split('for ')[-1][:70]}: {ln.strip()}"
               for i, ln in enumerate(lines)
               if re.search(r"[1-9]\d* bytes (stack frame|spill)", ln)]
-    log(f"[2/9 build] {time.monotonic() - t0:.2f} s (nvcc "
+    log(f"[2/10 build] {time.monotonic() - t0:.2f} s (nvcc "
         f"{kernels.build_seconds:.2f} s), kernels with a stack frame or "
         f"spills: {len(spills)}")
     for ln in spills:
@@ -1115,7 +1384,7 @@ def main() -> int:
     check_compiled(kernels.library()._name, build_log)
 
     # 3. kernels against their plain versions
-    log("[3/9 kernels]")
+    log("[3/10 kernels]")
     timer = Timer()
     g = torch.Generator().manual_seed(SEED)
     pa_rows = check_paged_attention(timer, g)
@@ -1123,7 +1392,7 @@ def main() -> int:
     del timer
 
     # 4. serve f32: kernel engine, then the plain (gather) twin
-    log("[4/9 serve f32]")
+    log("[4/10 serve f32]")
     serve_tiny()
     reqs = workload(np.random.default_rng(SEED))
     model = gpt2_small()
@@ -1166,7 +1435,7 @@ def main() -> int:
     del model
 
     # 5. serve int8: int8 weights through the kernel, int8 KV pages
-    log("[5/9 serve int8]")
+    log("[5/10 serve int8]")
     q_kw = dict(quantize="int8", int8_matmul=True, kv_quant="int8", **common)
     qdec = PagedBatchingDecoder(gpt2_small(), **q_kw)
     tele = qdec.telemetry()
@@ -1215,13 +1484,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 6. flash kernels against their plain versions, and the L sweep
-    log("[6/9 flash kernels]")
+    log("[6/10 flash kernels]")
     timer = Timer()
     flash_errs, sweep = check_flash(timer, g)
     del timer
 
     # 7. train: the kernel path, its profile, then the plain path
-    log("[7/9 train bf16]")
+    log("[7/10 train bf16]")
     krow, kcounts = train_run("kernel path", flash=True)
     want = (2 * DEPTH * krow["steps_run"], DEPTH * krow["steps_run"],
             DEPTH * krow["steps_run"])
@@ -1244,11 +1513,31 @@ def main() -> int:
                              f"{pcounts}")
 
     # 8. f32: one step through the kernels against the plain path
-    log("[8/9 train f32 parity]")
+    log("[8/10 train f32 parity]")
     check_f32_step()
 
-    # 9. results
-    log("[9/9 results]")
+    # 9. K-AVG: the flagship at bench.py's configuration, the merge's
+    # correctness, and TrainJob end to end; none of the five hand-written
+    # kernels is on this path (convs, BatchNorm and dense layers run in
+    # cuDNN and cuBLAS, as the JAX path runs them in XLA)
+    log("[9/10 k-avg]")
+    reset_kernel_counts()
+    log("  9a flagship: ResNet-18, CIFAR-10 shapes, bf16, uint8 inputs, "
+        f"B {KAVG_B}, K {KAVG_K}, lr 0.1, SGD momentum 0.9")
+    row1, plain_sps = kavg_flagship(1, smi)
+    kavg_flagship(4, smi, plain_sps, reps=1)
+    log("  9b correctness")
+    kavg_correctness()
+    log("  9c TrainJob")
+    kavg_job()
+    counts = kernel_counts()
+    log(f"  hand-written kernel launches in phase 9 (paged_attention, "
+        f"int8_matmul, flash fwd/dq/dkv): {counts}")
+    if any(counts):
+        raise AssertionError(f"the K-AVG path launched {counts}")
+
+    # 10. results
+    log("[10/10 results]")
     pa = pa_rows[0]   # the decode step: L = 1, f32 arena
     mm = next(r for r in mm_rows if r["M"] == 8 and r["N"] == VOCAB
               and r["x"] == "float32")  # the lm_head at decode

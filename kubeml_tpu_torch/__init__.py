@@ -1,5 +1,6 @@
 """kubeml_tpu_torch - the PyTorch + CUDA port of ``kubeml_tpu``'s paged
-serving path and GPT training path, for NVIDIA Hopper (H100).
+serving path, GPT training path and K-AVG training path, for NVIDIA
+Hopper (H100).
 
 Each module sits at the same sub-path as its JAX twin in ``kubeml_tpu`` and
 keeps that package's public tensor layouts (q ``[B, L, H, D]``, KV arenas
@@ -10,16 +11,26 @@ inputs. The port imports nothing of ``kubeml_tpu`` or JAX.
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with no
 device on a host without CUDA they raise (:func:`resolve_device`).
 
-* ``api`` - errors and ``GenerateRequest``;
-* ``interop.from_flax`` - a Flax ``CausalTransformer`` variables tree to the
-  port's weights;
+* ``api`` - errors, the training wire types (``TrainRequest``,
+  ``History``, ...), ``GenerateRequest`` and a small ``Config``;
+* ``interop.from_flax`` - a Flax ``CausalTransformer``'s, ResNet's or
+  LeNet's variables tree to the port's weights;
 * ``ops`` - attention, RoPE, and the hand-written CUDA kernels
   (``paged_attention``, ``int8_matmul``, ``flash_attention``'s forward, dQ
   and dK/dV) beside their plain versions;
 * ``models`` - the causal transformer with its paged decode branch and
-  rematerialised training forward;
+  rematerialised training forward; ResNet-18/34/50 and LeNet with Flax's
+  numerics (SAME padding, BatchNorm statistics, initialisers);
+* ``runtime`` - ``KubeModel``, the user-facing model API;
+* ``storage`` - the dataset ``ShardStore`` and the ``HistoryStore``, in the
+  JAX package's on-disk formats;
+* ``data`` - ``KubeDataset``, shard and round planning, the round loader;
+* ``engine`` - K-AVG: ``KAvgTrainer`` (local SGD on N workers, then the
+  mask-weighted average; on one card the workers run in a Python loop),
+  ``TrainJob`` (the elastic epoch loop) and failure injection;
 * ``parallel`` - ``SPMDTrainer`` on one card with the LM losses;
-* ``benchmarks`` - the long-context training benchmark;
+* ``benchmarks`` - the long-context training benchmark and the K-AVG
+  flagship's (``harness``);
 * ``serving`` - int8 weight quantization, the page pool, and the paged
   continuous-batching engine ``PagedBatchingDecoder``.
 """

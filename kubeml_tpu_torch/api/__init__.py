@@ -1,7 +1,14 @@
-"""Wire-level types of the port: errors and ``GenerateRequest``."""
+"""Wire-level types of the port: errors, the training types and
+``GenerateRequest``."""
 
-from .errors import EngineFaultError, KubeMLError, OverloadedError
-from .types import GenerateRequest
+from .errors import (DataError, DatasetExistsError, DatasetNotFoundError,
+                     EngineFaultError, JobNotFoundError, KubeMLError,
+                     MergeError, OverloadedError, StorageError)
+from .types import (DatasetSummary, GenerateRequest, History, JobState,
+                    MetricUpdate, TrainOptions, TrainRequest)
 
 __all__ = ["KubeMLError", "OverloadedError", "EngineFaultError",
-           "GenerateRequest"]
+           "MergeError", "DataError", "StorageError", "DatasetNotFoundError",
+           "DatasetExistsError", "JobNotFoundError", "GenerateRequest",
+           "TrainOptions", "TrainRequest", "JobState", "MetricUpdate",
+           "History", "DatasetSummary"]

@@ -1,9 +1,10 @@
-"""Status-carrying errors of the serving engine.
+"""Status-carrying errors of the serving engine and the K-AVG trainer.
 
 The port's own copy of the classes of ``kubeml_tpu/api/errors.py`` that the
-paged engine raises: every error carries the HTTP status the wire layer
-answers with (400 for a request the arena can never hold, 429 at the queue
-limit, 503 once the engine is closed or faulted) and serialises to the
+port raises: every error carries the HTTP status the wire layer answers
+with (400 for a request the arena can never hold or a bad dataset, 404 for
+a missing dataset or job, 429 at the queue limit, 500 for a failed merge,
+503 once the engine is closed or faulted) and serialises to the
 ``{"error": <message>, "code": <status>}`` envelope.
 """
 
@@ -62,3 +63,45 @@ class EngineFaultError(KubeMLError):
         d["retryable"] = True
         d["partial_tokens"] = self.partial_tokens
         return d
+
+
+class MergeError(KubeMLError):
+    """Weight averaging failed: no worker took part in a sync round."""
+
+    status_code = 500
+
+
+class DataError(KubeMLError):
+    """Dataset contents could not be loaded."""
+
+    status_code = 400
+
+
+class StorageError(KubeMLError):
+    """Shard store failure."""
+
+    status_code = 500
+
+
+class DatasetNotFoundError(KubeMLError):
+    status_code = 404
+
+    def __init__(self, name: str = ""):
+        super().__init__(f"dataset {name!r} not found" if name
+                         else "dataset not found")
+
+
+class DatasetExistsError(KubeMLError):
+    status_code = 400
+
+    def __init__(self, name: str = ""):
+        super().__init__(f"dataset {name!r} already exists" if name
+                         else "dataset exists")
+
+
+class JobNotFoundError(KubeMLError):
+    status_code = 404
+
+    def __init__(self, job_id: str = ""):
+        super().__init__(f"job {job_id!r} not found" if job_id
+                         else "job not found")

@@ -1,11 +1,31 @@
-"""``GenerateRequest``, the port's copy of ``kubeml_tpu/api/types.py``'s
-request type for autoregressive sampling, with its validation and caps."""
+"""Wire types of the port: the port's copy of ``kubeml_tpu/api/types.py``'s
+training types (``TrainOptions``, ``TrainRequest``, ``JobState``,
+``MetricUpdate``, ``History``, ``DatasetSummary``) and ``GenerateRequest``.
+
+They read and write the same JSON as the JAX package's types, with the same
+validation. A request may name options whose modules the port does not
+have yet; :meth:`TrainOptions.check_ported` raises for those, and the
+port's ``TrainJob`` calls it before it starts.
+"""
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import math
 import os
-from dataclasses import dataclass
-from typing import Any, Optional
+import re
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
+
+from .errors import KubeMLError
+
+# the JAX package's default data-parallel worker count
+DEFAULT_PARALLELISM = 4
+
+# dataset shard granularity: 64-sample logical docs drive the K-interval
+# and shard-range math (data/sharding.py)
+STORAGE_SUBSET_SIZE = 64
 
 # Serving-side caps on /generate requests, overridable per deployment
 GENERATE_MAX_NEW_TOKENS_CAP = int(os.environ.get("KUBEML_GENERATE_MAX_NEW_TOKENS", "2048"))
@@ -13,6 +33,244 @@ GENERATE_MAX_BATCH = int(os.environ.get("KUBEML_GENERATE_MAX_BATCH", "64"))
 GENERATE_MAX_PROMPT_LEN = int(os.environ.get("KUBEML_GENERATE_MAX_PROMPT_LEN", "8192"))
 # mirrors the engine's top-k width (serving.batcher.TOP_K_MAX)
 GENERATE_MAX_TOP_K = int(os.environ.get("KUBEML_GENERATE_MAX_TOP_K", "128"))
+
+
+class _JsonMixin:
+    """JSON (de)serialization shared by the wire types."""
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict())
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]):
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
+
+    @classmethod
+    def parse_request(cls, d: Dict[str, Any]):
+        """``from_dict`` for wire handlers: validation failures surface as
+        a 400 ``KubeMLError``."""
+        try:
+            return cls.from_dict(d)
+        except (ValueError, TypeError) as e:
+            raise KubeMLError(f"invalid {cls.__name__}: {e}", 400)
+
+    @classmethod
+    def from_json(cls, s: str):
+        return cls.from_dict(json.loads(s))
+
+
+@dataclass
+class TrainOptions(_JsonMixin):
+    """Tunables of a training job.
+
+    ``k`` is the K-AVG sync period in local steps: workers run K optimizer
+    steps on their shard, then their weights are averaged. ``k == -1`` means
+    one sync per epoch."""
+
+    default_parallelism: int = DEFAULT_PARALLELISM
+    static_parallelism: bool = False
+    validate_every: int = 1
+    k: int = 16
+    goal_accuracy: float = 100.0
+    # "kavg" = elastic local SGD; "spmd" = synchronous mesh training (not
+    # ported to this package yet: check_ported raises)
+    engine: str = "kavg"
+    goal_loss: float = 0.0
+    precision: str = "bf16"  # compute dtype of the inputs ("bf16" | "f32")
+    # {"worker": d} caps the devices the workers span; other axes belong to
+    # the SPMD engine
+    mesh_shape: Optional[Dict[str, int]] = None
+    donate: bool = True  # read by the JAX engine; the port updates in place
+    checkpoint_every: int = 0
+    checkpoint_keep: int = 0
+    resume: bool = False
+    sharded_checkpoints: bool = False
+    # export the final model at job end; the port keeps it in memory
+    # (TrainJob.final_variables) until checkpoints are ported
+    save_model: bool = True
+    chaos_prob: float = 0.0  # per-worker per-round failure probability
+    priority: int = 0
+    tenant: str = ""
+
+    def __post_init__(self):
+        if self.goal_loss < 0.0:
+            raise ValueError(f"goal_loss must be >= 0 (0 = off), got {self.goal_loss}")
+        if self.engine not in ("kavg", "spmd"):
+            raise ValueError(f"engine must be 'kavg' or 'spmd', got {self.engine!r}")
+        if self.validate_every < 0:
+            raise ValueError("validate_every must be >= 0")
+        if self.checkpoint_every < 0:
+            raise ValueError("checkpoint_every must be >= 0")
+        if self.checkpoint_keep < 0:
+            raise ValueError("checkpoint_keep must be >= 0")
+        if not (0.0 <= self.chaos_prob <= 1.0):
+            raise ValueError("chaos_prob must be in [0, 1]")
+        if self.k == 0 or self.k < -1:
+            raise ValueError("k must be -1 (sparse) or a positive step count")
+        if (isinstance(self.priority, bool) or not isinstance(self.priority, int)
+                or not (0 <= self.priority <= 1000)):
+            raise ValueError("priority must be an integer in [0, 1000]")
+        if self.tenant and not re.fullmatch(r"[A-Za-z0-9._-]{1,64}", self.tenant):
+            raise ValueError("tenant must be 1-64 chars of [A-Za-z0-9._-]")
+        if self.mesh_shape is not None:
+            for axis, size in self.mesh_shape.items():
+                if not isinstance(size, int) or size < 1:
+                    raise ValueError(
+                        f"mesh_shape[{axis!r}] must be a positive int, got {size!r}"
+                    )
+
+    def check_ported(self) -> None:
+        """Raise ``KubeMLError`` (400) for an option that needs a module
+        this package does not have yet: the SPMD engine, checkpoints and
+        resume, and mesh axes other than ``worker``."""
+        unported = []
+        if self.engine == "spmd":
+            unported.append("engine='spmd'")
+        if self.checkpoint_every > 0:
+            unported.append("checkpoint_every > 0")
+        if self.resume:
+            unported.append("resume")
+        if self.sharded_checkpoints:
+            unported.append("sharded_checkpoints")
+        if self.mesh_shape is not None and set(self.mesh_shape) != {"worker"}:
+            unported.append(f"mesh_shape {self.mesh_shape}")
+        if unported:
+            raise KubeMLError(f"not ported to kubeml_tpu_torch yet: "
+                              f"{', '.join(unported)}", 400)
+
+
+@dataclass
+class TrainRequest(_JsonMixin):
+    """A user request to train a model."""
+
+    model_type: str = ""
+    batch_size: int = 64
+    epochs: int = 1
+    dataset: str = ""
+    lr: float = 0.01
+    function_name: str = ""
+    options: TrainOptions = field(default_factory=TrainOptions)
+    job_id: str = ""
+
+    def __post_init__(self):
+        if isinstance(self.options, dict):
+            self.options = TrainOptions.from_dict(self.options)
+
+    def validate(self) -> None:
+        if not self.function_name:
+            raise ValueError("function_name is required")
+        if self.job_id and not re.fullmatch(r"[A-Za-z0-9_-]{1,64}", self.job_id):
+            raise ValueError("job_id must be 1-64 chars of [A-Za-z0-9_-]")
+        if not self.dataset:
+            raise ValueError("dataset is required")
+        if self.epochs < 1:
+            raise ValueError("epochs must be >= 1")
+        if not (0 < self.batch_size <= 1024):
+            raise ValueError("batch_size must be in (0, 1024]")
+
+
+@dataclass
+class JobState(_JsonMixin):
+    """Per-epoch state a job reports to the scheduler's parallelism
+    policy."""
+
+    parallelism: int = 0
+    elapsed_time: float = -1.0  # seconds of the last epoch; -1 on first call
+
+
+@dataclass
+class MetricUpdate(_JsonMixin):
+    """Metrics a job pushes each epoch (the JAX package's fields; those the
+    port's K-AVG engine does not measure keep their "not measured"
+    defaults)."""
+
+    job_id: str = ""
+    validation_loss: float = 0.0
+    accuracy: float = 0.0
+    train_loss: float = 0.0
+    parallelism: int = 0
+    epoch_duration: float = 0.0
+    epoch: int = -1  # 1-based count of epochs completed; -1 = not reported
+    moe_overflow: float = -1.0
+    round_seconds: List[float] = field(default_factory=list)
+    merge_seconds: float = -1.0
+    round_divergence: List[float] = field(default_factory=list)
+    round_loss_spread: List[float] = field(default_factory=list)
+    round_skew_ratio: float = -1.0
+    dataplane: List[Dict[str, Any]] = field(default_factory=list)
+
+
+@dataclass
+class History(_JsonMixin):
+    """A job's training history, persisted at job end. The signal lists
+    (divergence, loss spread, round skew) are NaN in memory for an epoch
+    that measured nothing and cross the wire as JSON null."""
+
+    id: str = ""
+    task: Optional[Dict[str, Any]] = None
+    validation_loss: List[float] = field(default_factory=list)
+    accuracy: List[float] = field(default_factory=list)
+    train_loss: List[float] = field(default_factory=list)
+    parallelism: List[int] = field(default_factory=list)
+    epoch_duration: List[float] = field(default_factory=list)
+    worker_divergence: List[float] = field(default_factory=list)
+    loss_spread: List[float] = field(default_factory=list)
+    round_skew: List[float] = field(default_factory=list)
+    notes: List[str] = field(default_factory=list)
+
+    _SIGNAL_LISTS = ("worker_divergence", "loss_spread", "round_skew")
+
+    def __post_init__(self):
+        for name in self._SIGNAL_LISTS:
+            vals = getattr(self, name)
+            if any(v is None for v in vals):
+                setattr(self, name,
+                        [math.nan if v is None else float(v) for v in vals])
+
+    def to_dict(self) -> Dict[str, Any]:
+        d = super().to_dict()
+        for name in self._SIGNAL_LISTS:
+            d[name] = [None if isinstance(v, float) and math.isnan(v) else v
+                       for v in d[name]]
+        return d
+
+    def append_epoch(
+        self,
+        train_loss: float,
+        parallelism: int,
+        duration: float,
+        validation_loss: Optional[float] = None,
+        accuracy: Optional[float] = None,
+        worker_divergence: Optional[float] = None,
+        loss_spread: Optional[float] = None,
+        round_skew: Optional[float] = None,
+    ) -> None:
+        self.train_loss.append(float(train_loss))
+        self.parallelism.append(int(parallelism))
+        self.epoch_duration.append(float(duration))
+        if validation_loss is not None:
+            self.validation_loss.append(float(validation_loss))
+        if accuracy is not None:
+            self.accuracy.append(float(accuracy))
+        if worker_divergence is not None:
+            self.worker_divergence.append(float(worker_divergence))
+        if loss_spread is not None:
+            self.loss_spread.append(float(loss_spread))
+        if round_skew is not None:
+            self.round_skew.append(float(round_skew))
+
+
+@dataclass
+class DatasetSummary(_JsonMixin):
+    """Dataset listing entry: sample counts of the two splits."""
+
+    name: str = ""
+    train_set_size: int = 0
+    test_set_size: int = 0
 
 
 @dataclass

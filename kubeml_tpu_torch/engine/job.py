@@ -1,0 +1,364 @@
+"""TrainJob, the per-job K-AVG training engine: the port of
+``kubeml_tpu/engine/job.py``.
+
+Drives the epoch loop: init, per-epoch sync rounds fed by the round loader
+through :class:`RoundPrefetcher`, health-based and elastic parallelism
+changes between epochs, periodic validation, the goal-accuracy early stop,
+metrics pushes and the persisted history. Two callbacks decouple it from
+a control plane:
+
+* ``on_epoch_end(JobState) -> new_parallelism``: the scheduler hook;
+* ``on_metrics(MetricUpdate)``: the metrics push.
+
+Not ported yet (``ROADMAP.md``): multi-host ``dist``, checkpoints, resume,
+preemption and the final model export (``final_variables`` keeps the
+trained model in memory), the background compile of the next parallelism
+level (eager PyTorch compiles nothing), ``generate``, tracer spans, and
+the retry of a round on a transient accelerator error (a CUDA fault
+poisons the context, so a retry in the same process cannot recover).
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+import zlib
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..api.errors import KubeMLError, MergeError
+from ..api.types import History, JobState, MetricUpdate, TrainRequest
+from ..data.dataset import KubeDataset
+from ..data.loader import RoundLoader, validation_loader
+from ..data.sharding import plan_epoch
+from ..runtime.model import KubeModel
+from ..storage.history import HistoryStore
+from ..storage.store import ShardStore
+from .failures import FailureInjector, WorkerHealth
+from .kavg import KAvgTrainer, RoundPrefetcher
+
+log = logging.getLogger("kubeml.job")
+
+
+class TrainJob:
+    def __init__(
+        self,
+        job_id: str,
+        request: TrainRequest,
+        model: KubeModel,
+        store: Optional[ShardStore] = None,
+        history_store: Optional[HistoryStore] = None,
+        on_epoch_end: Optional[Callable[[JobState], int]] = None,
+        on_metrics: Optional[Callable[[MetricUpdate], None]] = None,
+        device=None,
+        seed: int = 0,
+        chaos: Optional[FailureInjector] = None,
+        health_threshold: int = 3,
+    ):
+        request.options.check_ported()
+        self.job_id = job_id
+        self.request = request
+        self.model = model
+        self.store = store or ShardStore()
+        self.history_store = history_store or HistoryStore()
+        self.on_epoch_end = on_epoch_end
+        self.on_metrics = on_metrics
+        self.seed = seed
+        self.parallelism = request.options.default_parallelism
+        # {"worker": d} caps the devices the workers span: on one card
+        # there is nothing to cap
+        self.trainer = KAvgTrainer(model, precision=request.options.precision,
+                                   device=device)
+        # the option-derived injector is seeded from the job id, as the JAX
+        # package's, so the same job draws the same masks in either package
+        if chaos is None and request.options.chaos_prob > 0.0:
+            chaos = FailureInjector(prob=request.options.chaos_prob,
+                                    seed=zlib.crc32(job_id.encode()) & 0x7FFFFFFF)
+        self.chaos = chaos
+        self.health = WorkerHealth(threshold=health_threshold)
+        # per-epoch feeds of the metrics push, reset in _train_epoch
+        self._last_round_times: list = []
+        self._last_merge_s = -1.0
+        self._epoch_round_stats: list = []
+        self._last_divergence: list = []
+        self._last_spread: list = []
+        self._last_round_skew = -1.0
+        self.history = History(id=job_id, task={"request": request.to_dict()})
+        self.stop_event = threading.Event()
+        self.exit_error: Optional[str] = None
+        self._stacked_vars = None
+        self._final_variables = None
+
+    def stop(self) -> None:
+        self.stop_event.set()
+
+    @property
+    def state(self) -> JobState:
+        return JobState(parallelism=self.parallelism)
+
+    # --- main loop ---
+
+    def train(self) -> History:
+        req = self.request
+        opts = req.options
+        try:
+            dataset: KubeDataset = self.model.dataset
+            dataset._attach(self.store)
+            handle = dataset.handle
+
+            dataset.set_mode(True)
+            sample_x, _ = handle.load_subset_range("train", 0, 1)
+            sample_x, _ = dataset.transform(np.asarray(sample_x), None)
+            self._stacked_vars = self.trainer.init_variables(
+                torch.Generator().manual_seed(self.seed),
+                sample_x[: req.batch_size], self.parallelism)
+
+            val_acc = 0.0
+            acc_pct = None
+            epochs_run = 0
+            for epoch in range(req.epochs):
+                if self.stop_event.is_set():
+                    log.info("%s: stop requested, exiting at epoch %d",
+                             self.job_id, epoch)
+                    break
+                t0 = time.time()
+                used_parallelism = self.parallelism
+                train_loss = self._train_epoch(epoch, handle, dataset)
+                elapsed = time.time() - t0
+                if self.stop_event.is_set() and np.isnan(train_loss):
+                    break  # stopped mid-epoch before any round completed
+
+                # health-based resize: persistently dead workers shrink the
+                # worker axis at the epoch boundary
+                if not opts.static_parallelism:
+                    healthy_p = self.health.suggest_parallelism(self.parallelism)
+                    if healthy_p < self.parallelism:
+                        log.warning(
+                            "%s: %d persistently failed worker(s); resizing "
+                            "%d -> %d", self.job_id,
+                            self.parallelism - healthy_p, self.parallelism,
+                            healthy_p)
+                        self._resize(healthy_p)
+
+                # elastic re-evaluation: the scheduler answers with this
+                # epoch's elapsed time unless parallelism is static
+                if not opts.static_parallelism and self.on_epoch_end is not None:
+                    new_p = self.on_epoch_end(JobState(
+                        parallelism=self.parallelism, elapsed_time=elapsed))
+                    if new_p and new_p != self.parallelism:
+                        log.info("%s: parallelism %d -> %d", self.job_id,
+                                 self.parallelism, new_p)
+                        self._resize(new_p)
+
+                val_loss = None
+                acc_pct = None
+                if (opts.validate_every > 0
+                        and (epoch + 1) % opts.validate_every == 0):
+                    val_acc, val_loss = self._validate(dataset, handle)
+                    acc_pct = val_acc * 100.0
+
+                epochs_run += 1
+                self.history.append_epoch(
+                    train_loss=train_loss,
+                    parallelism=used_parallelism,
+                    duration=elapsed,
+                    validation_loss=val_loss,
+                    accuracy=acc_pct,
+                    # with round stats on, every epoch appends a value (NaN
+                    # when it measured nothing), so the lists stay aligned
+                    # with train_loss; with them off the lists stay empty
+                    worker_divergence=self._epoch_signal(self._last_divergence),
+                    loss_spread=self._epoch_signal(self._last_spread),
+                    round_skew=(self._last_round_skew
+                                if self._last_round_skew >= 0
+                                else self._epoch_signal(())),
+                )
+                self._push_metrics(train_loss, val_loss, acc_pct, elapsed,
+                                   used_parallelism, epoch + 1)
+                log.info(
+                    "%s: epoch %d/%d loss=%.4f acc=%s parallelism=%d %.2fs",
+                    self.job_id, epoch + 1, req.epochs, train_loss,
+                    f"{acc_pct:.2f}%" if acc_pct is not None else "-",
+                    used_parallelism, elapsed,
+                )
+                if acc_pct is not None and acc_pct >= opts.goal_accuracy:
+                    log.info("%s: goal accuracy %.2f%% reached (%.2f%%)",
+                             self.job_id, opts.goal_accuracy, acc_pct)
+                    break
+
+            # final validation if the last epoch did not run one;
+            # validate_every == 0 opts out of validation entirely
+            if (opts.validate_every > 0 and acc_pct is None and epochs_run > 0
+                    and not self.stop_event.is_set()):
+                val_acc, val_loss = self._validate(dataset, handle)
+                self.history.validation_loss.append(float(val_loss))
+                self.history.accuracy.append(float(val_acc * 100.0))
+
+            self._final_variables = self.trainer.reference_variables(
+                self._stacked_vars)
+        except KubeMLError as e:
+            self.exit_error = e.message
+            raise
+        except Exception as e:
+            self.exit_error = str(e)
+            raise KubeMLError(f"job {self.job_id} failed: {e}") from e
+        finally:
+            # a failed job records its error, so pollers see the outcome
+            if self.exit_error is not None and isinstance(self.history.task, dict):
+                self.history.task["error"] = self.exit_error
+            self.history_store.save(self.history)
+        return self.history
+
+    # --- internals ---
+
+    def _resize(self, new_p: int) -> None:
+        self._stacked_vars = self.trainer.resize(self._stacked_vars,
+                                                 self.parallelism, new_p)
+        self.parallelism = new_p
+        # worker indices renumber: stale failure counts must not transfer
+        self.health.reset()
+
+    def _train_epoch(self, epoch: int, handle, dataset: KubeDataset) -> float:
+        req = self.request
+        dataset.set_mode(True)
+        plan = plan_epoch(
+            num_docs=handle.num_subsets("train"),
+            n_workers=self.parallelism,
+            batch_size=req.batch_size,
+            k=req.options.k,
+            subset_size=handle.subset_size,
+            num_samples=handle.num_samples("train"),
+        )
+        loader = RoundLoader(handle, "train", plan, transform=dataset.transform)
+        losses = []
+        skipped = 0
+        self._last_round_times = []
+        self._last_merge_s = -1.0
+        self._epoch_round_stats = []
+        self._last_divergence = []
+        self._last_spread = []
+        self._last_round_skew = -1.0
+        for rb, staged in RoundPrefetcher(self.trainer, loader,
+                                          self.parallelism):
+            if self.stop_event.is_set():
+                break
+            worker_mask = None
+            if self.chaos is not None:
+                worker_mask = self.chaos.mask(self.parallelism)
+                for w in self.health.update(worker_mask):
+                    log.warning("%s: worker %d persistently failed",
+                                self.job_id, w)
+                if worker_mask.min() == 0.0:
+                    log.info("%s: round %d injected failures on workers %s",
+                             self.job_id, rb.round_index,
+                             np.flatnonzero(worker_mask == 0.0).tolist())
+                # no healthy data-bearing worker: skip the round here (the
+                # weights keep their pre-round value), so a NaN loss from
+                # the trainer always means real divergence
+                data_bearing = plan.data_bearing(rb.round_index)
+                if float((worker_mask * data_bearing).sum()) == 0.0:
+                    skipped += 1
+                    log.warning("%s: round %d skipped: no healthy "
+                                "data-bearing worker", self.job_id,
+                                rb.round_index)
+                    continue
+            t_round = time.time()
+            self._stacked_vars, loss = self.trainer.sync_round(
+                self._stacked_vars, *staged, lr=req.lr, epoch=epoch,
+                worker_mask=worker_mask)
+            # host wall time of the round's dispatch (the card runs behind)
+            self._last_round_times.append(time.time() - t_round)
+            if self.trainer.last_round_stats is not None:
+                self._epoch_round_stats.append(self.trainer.last_round_stats)
+            losses.append(loss)
+        if not losses:
+            if self.stop_event.is_set():
+                return float("nan")
+            if skipped:
+                raise MergeError(
+                    f"job {self.job_id}: all {skipped} rounds this epoch had "
+                    f"no healthy data-bearing worker")
+            raise KubeMLError(f"job {self.job_id}: epoch produced no rounds")
+        if skipped:
+            log.warning("%s: %d round(s) skipped this epoch (no effective "
+                        "participants)", self.job_id, skipped)
+        # one blocking read per epoch: the host waits here for the rounds
+        # (their merges included) to finish on the card
+        t_merge = time.time()
+        mean_loss = float(torch.stack(losses).mean())
+        self._last_merge_s = time.time() - t_merge
+        self._finalize_round_stats()
+        return mean_loss
+
+    def _epoch_signal(self, values):
+        """The epoch's mean of a per-round signal: NaN when round stats are
+        on but nothing was measured, None (no append) when they are off."""
+        if values:
+            return float(np.mean(values))
+        return float("nan") if self.trainer.round_stats else None
+
+    def _finalize_round_stats(self) -> None:
+        """Read the epoch's round stats off the card and derive the epoch's
+        signals: the finite per-round divergence and spread, and the
+        round-time skew max/median (-1 with fewer than 2 rounds)."""
+        self._last_divergence = []
+        self._last_spread = []
+        for s in self._epoch_round_stats:
+            spread, div = (float(v) for v in s.cpu())
+            if np.isfinite(spread):
+                self._last_spread.append(spread)
+            if np.isfinite(div):
+                self._last_divergence.append(div)
+        self._epoch_round_stats = []
+        self._last_round_skew = -1.0
+        if self.trainer.round_stats and len(self._last_round_times) >= 2:
+            med = float(np.median(self._last_round_times))
+            if med > 0:
+                self._last_round_skew = float(
+                    max(self._last_round_times) / med)
+
+    def _validate(self, dataset: KubeDataset, handle):
+        dataset.set_mode(False)
+        loader = validation_loader(handle, self.parallelism,
+                                   self.request.batch_size,
+                                   transform=dataset.transform)
+        acc, loss = self.trainer.evaluate_rounds(self._stacked_vars, loader)
+        dataset.set_mode(True)
+        return acc, loss
+
+    def _push_metrics(self, train_loss, val_loss, acc_pct, elapsed,
+                      parallelism, epochs_done: int) -> None:
+        if self.on_metrics is None:
+            return
+        try:
+            self.on_metrics(MetricUpdate(
+                job_id=self.job_id,
+                train_loss=float(train_loss),
+                validation_loss=float(val_loss) if val_loss is not None else 0.0,
+                accuracy=float(acc_pct) if acc_pct is not None else 0.0,
+                parallelism=parallelism,
+                epoch=int(epochs_done),
+                epoch_duration=float(elapsed),
+                round_seconds=[float(t) for t in self._last_round_times],
+                merge_seconds=float(self._last_merge_s),
+                round_divergence=[float(v) for v in self._last_divergence],
+                round_loss_spread=[float(v) for v in self._last_spread],
+                round_skew_ratio=float(self._last_round_skew),
+            ))
+        except Exception:
+            log.exception("%s: metrics push failed (non-fatal)", self.job_id)
+
+    # --- results ---
+
+    @property
+    def final_variables(self):
+        """The trained reference model (numpy), once ``train`` finished."""
+        return self._final_variables
+
+    def infer(self, x: np.ndarray):
+        if self._stacked_vars is None:
+            raise KubeMLError(f"job {self.job_id} has no model yet", 400)
+        return self.trainer.infer(self._stacked_vars, x)

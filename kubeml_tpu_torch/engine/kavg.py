@@ -1,0 +1,397 @@
+"""K-AVG (local SGD with periodic weight averaging) on one card: the port of
+``kubeml_tpu/engine/kavg.py``.
+
+The semantics are the JAX engine's:
+
+* N workers each run K local optimizer steps on their own slab
+  (``[N, K, B, ...]``), then the weights of the workers that took part are
+  averaged, mask-weighted in f32 and cast back (integer leaves rounded);
+* optimizer state is re-initialised at every sync round: momentum does not
+  survive an averaging barrier;
+* a step whose mask sums to 0 changes neither weights nor optimizer state;
+  the step loss is ``sum(pl * m) / max(sum(m), 1)``, a worker's loss the
+  mean over its valid steps, the round's loss the mean over the workers
+  that are healthy (``worker_mask``) and hold data, NaN when there are
+  none, and then the weights keep their pre-round value;
+* no healthy worker at all is a :class:`MergeError`.
+
+Replicas are a leading ``[N, ...]`` axis on every leaf of the variables
+tree. The JAX engine runs the N workers as one batched program (``vmap``
+under ``lax.scan``); on one card the port loops over them in Python: a
+worker's replica is bound into the model's module (its parameters and
+BatchNorm buffers become views of row w of the stacked tensors, so the
+optimizer updates the replica in place), and the average is a few fused
+multi-tensor reductions over all leaves on the device. The mask decisions
+(which steps and workers have data) are made on the host from the host
+copy of the mask, so a round never waits on the card. Workers that do not
+take part are not run: they add nothing to the average or the loss.
+
+``sync_round`` updates the stacked variables in place (the JAX engine
+donates them) and returns them with the round's loss as a 0-d tensor on
+the device; reading it waits for the round.
+"""
+
+from __future__ import annotations
+
+import math
+from collections import deque
+from types import SimpleNamespace
+from typing import Callable, Iterable, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..api.config import get_config
+from ..api.errors import MergeError
+from ..runtime.model import KubeModel, Variables, bind
+from ..utils.device import resolve_device
+
+# samples per forward in evaluation (BatchNorm runs on its statistics there,
+# so splitting a validation round changes nothing but peak memory)
+EVAL_CHUNK = 4096
+
+
+def _tree_map(fn: Callable, tree: Variables) -> Variables:
+    return {c: {k: fn(v) for k, v in leaves.items()}
+            for c, leaves in tree.items()}
+
+
+def _leaves(tree: Variables) -> List[torch.Tensor]:
+    return [v for leaves in tree.values() for v in leaves.values()]
+
+
+def _mean_over_workers(tree: Variables, weights: np.ndarray) -> Variables:
+    """Mask-weighted mean over the leading worker axis of every leaf:
+    ``sum_w weights[w] * leaf[w] / max(sum(weights), 1)`` in f32, cast back
+    to the leaf's dtype; integer leaves are rounded. ``weights`` is the
+    host's ``[N]`` float array. Float leaves are reduced together with
+    multi-tensor (``_foreach``) kernels, one pass per contributing
+    worker."""
+    weights = np.asarray(weights, np.float32)
+    denom = max(float(weights.sum()), 1.0)
+    rows = [(int(w), float(weights[w])) for w in np.flatnonzero(weights)]
+    floats = [v for v in _leaves(tree) if v.is_floating_point()]
+    means = {}
+    if floats:
+        if rows:
+            w0, a0 = rows[0]
+            acc = torch._foreach_mul([v[w0].float() for v in floats], a0)
+            for w, a in rows[1:]:
+                torch._foreach_add_(acc, [v[w].float() for v in floats],
+                                    alpha=a)
+            torch._foreach_div_(acc, denom)
+        else:
+            acc = [torch.zeros(v.shape[1:], device=v.device) for v in floats]
+        means = {id(v): m.to(v.dtype) for v, m in zip(floats, acc)}
+
+    def avg(leaf: torch.Tensor) -> torch.Tensor:
+        if leaf.is_floating_point():
+            return means[id(leaf)]
+        w = torch.from_numpy(weights).to(leaf.device, non_blocking=True)
+        w = w.reshape((-1,) + (1,) * (leaf.ndim - 1))
+        return ((leaf.float() * w).sum(0) / denom).round().to(leaf.dtype)
+
+    return _tree_map(avg, tree)
+
+
+def _broadcast_to_workers(tree: Variables, n: int) -> Variables:
+    """``n`` copies of one replica along a new leading axis, in new
+    storage (detached from any autograd graph)."""
+    return _tree_map(lambda v: v.detach().unsqueeze(0).expand(n, *v.shape)
+                     .clone(memory_format=torch.contiguous_format), tree)
+
+
+def _assign_workers(stacked: Variables, one: Variables) -> None:
+    """Write the replica ``one`` into every row of ``stacked`` in place."""
+    dst, src = _leaves(stacked), _leaves(one)
+    for w in range(dst[0].shape[0]):
+        torch._foreach_copy_([v[w] for v in dst], src)
+
+
+def _as_tensor(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a
+    # from_numpy shares memory; copy only a read-only or strided array
+    return torch.from_numpy(np.require(a, requirements=["C", "W"]))
+
+
+class RoundPrefetcher:
+    """Stage round slabs one round ahead of the round computing.
+
+    Iterates ``(round_batch, staged_slabs)`` over a RoundLoader-style
+    iterable, keeping the next round's slabs in flight via
+    ``trainer.stage_round``, which never waits on the card: on a CUDA
+    trainer round i+1 crosses from pinned host memory on a side stream
+    while round i computes (double buffering, the JAX engine's default
+    depth). Parallelism must stay fixed while iterating (it does within an
+    epoch)."""
+
+    def __init__(self, trainer: "KAvgTrainer", rounds: Iterable,
+                 n_workers: int):
+        self.trainer = trainer
+        self.rounds = rounds
+        self.n_workers = n_workers
+
+    def __iter__(self):
+        buf: deque = deque()
+        for rb in self.rounds:
+            buf.append((rb, self.trainer.stage_round(rb.x, rb.y, rb.mask,
+                                                     self.n_workers)))
+            if len(buf) == 2:
+                yield buf.popleft()
+        while buf:
+            yield buf.popleft()
+
+
+class KAvgTrainer:
+    """K-AVG sync rounds of one model on one device.
+
+    ``device`` defaults to the current CUDA card and raises without one
+    (``resolve_device``); the CPU runs only when asked for. ``precision``
+    "bf16" casts float inputs to bf16 before ``model.preprocess`` (uint8
+    stays uint8); the model's own ``dtype`` sets its compute precision."""
+
+    def __init__(self, model: KubeModel, precision: str = "bf16",
+                 device: Union[str, torch.device, None] = None):
+        self.model = model
+        self.precision = precision
+        self.device = resolve_device(device)
+        # per-round [worker-loss spread, pre-merge weight divergence]
+        # (KUBEML_ROUND_STATS), a device tensor read at the epoch's end
+        self.round_stats = get_config().round_stats
+        self.last_round_stats: Optional[torch.Tensor] = None
+        self._module = None
+        self._copy_stream = None
+        # slabs staged on the side stream: (x, y, mask, ready event)
+        self._in_flight: deque = deque(maxlen=16)
+
+    @property
+    def module(self) -> torch.nn.Module:
+        """The model's module on the trainer's device."""
+        if self._module is None:
+            self._module = self.model.module.to(self.device)
+        return self._module
+
+    # --- staging ---
+
+    def _cast_input(self, x: torch.Tensor) -> torch.Tensor:
+        if self.precision == "bf16" and x.is_floating_point():
+            return x.to(torch.bfloat16)
+        return x
+
+    def stage_round(self, batch_x, batch_y, mask, n_workers: int):
+        """Start one round's slabs toward the device without waiting.
+
+        Casts f32 samples to bf16 on the host when ``precision="bf16"``
+        (halving the bytes that cross), copies x, y and the mask into
+        pinned memory and from there to the card with ``non_blocking``
+        copies on a side stream, and records an event that
+        :meth:`sync_round` orders the round's compute after. Returns
+        ``(x, y, mask)`` for ``sync_round``: x and y on the device, the
+        mask on the host (the round's step and worker decisions are made
+        from it there). On the CPU a plain pass-through."""
+        x = self._cast_input(_as_tensor(batch_x))
+        y = _as_tensor(batch_y)
+        m = _as_tensor(mask).float()
+        if self.device.type != "cuda":
+            return x.to(self.device), y.to(self.device), m
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        pinned = [t.pin_memory() for t in (x, y, m)]
+        with torch.cuda.stream(self._copy_stream):
+            xd, yd, md = (t.to(self.device, non_blocking=True)
+                          for t in pinned)
+        ready = torch.cuda.Event()
+        ready.record(self._copy_stream)
+        self._in_flight.append((xd, yd, md, ready))
+        return xd, yd, m
+
+    def _on_device(self, batch_x, batch_y, mask):
+        """(x, y, mask) on the device, ordered on the current stream, and
+        the mask as a host numpy array."""
+        m_host = (mask.detach().cpu() if isinstance(mask, torch.Tensor)
+                  else torch.from_numpy(np.asarray(mask, np.float32))).float()
+        for i, (sx, sy, sm, ready) in enumerate(self._in_flight):
+            if sx is batch_x:
+                del self._in_flight[i]
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(ready)
+                for t in (sx, sy, sm):
+                    t.record_stream(stream)
+                return sx, sy, sm, m_host.numpy()
+        x = self._cast_input(_as_tensor(batch_x)).to(self.device)
+        y = _as_tensor(batch_y).to(self.device)
+        # a host->device copy from pageable memory: the CUDA runtime stages it,
+        # no wait on the card's queue
+        m = m_host.to(self.device, non_blocking=True)
+        return x, y, m, m_host.numpy()
+
+    # --- lifecycle ---
+
+    def place_reference(self, variables, n_workers: int) -> Variables:
+        """Broadcast one replica (tensors or numpy arrays, e.g. from
+        ``interop.from_flax.from_flax_variables``) across ``n_workers``
+        rows on the device: the inverse of :meth:`reference_variables`."""
+        one = _tree_map(lambda v: torch.as_tensor(v).to(self.device),
+                        variables)
+        return _broadcast_to_workers(one, n_workers)
+
+    def init_variables(self, generator: Union[torch.Generator, int],
+                       sample_x, n_workers: int) -> Variables:
+        """Initialise one replica from ``generator`` (or an integer seed)
+        on the CPU, so the weights do not depend on the device, and
+        broadcast it across the worker axis on the device."""
+        if not isinstance(generator, torch.Generator):
+            generator = torch.Generator().manual_seed(int(generator))
+        return self.place_reference(self.model.init(generator, sample_x),
+                                    n_workers)
+
+    def resize(self, stacked_vars: Variables, old_n: int, new_n: int
+               ) -> Variables:
+        """Elastic resize between epochs: replicas are identical after a
+        sync, so replica 0 is broadcast to ``new_n`` rows."""
+        if old_n == new_n:
+            return stacked_vars
+        return _broadcast_to_workers(self._replica0(stacked_vars), new_n)
+
+    def reference_variables(self, stacked_vars: Variables):
+        """Replica 0 of the (post-sync) variables as numpy arrays: the
+        reference model."""
+        return _tree_map(lambda v: v[0].detach().cpu().numpy(), stacked_vars)
+
+    @staticmethod
+    def _replica0(stacked_vars: Variables) -> Variables:
+        return _tree_map(lambda v: v[0], stacked_vars)
+
+    # --- the sync round ---
+
+    def sync_round(self, stacked_vars: Variables, batch_x, batch_y, mask,
+                   lr: float, epoch: int = 0,
+                   worker_mask: Optional[np.ndarray] = None
+                   ) -> Tuple[Variables, torch.Tensor]:
+        """Run one K-step-and-average round. Returns (stacked variables,
+        updated in place; mean loss as a 0-d device tensor).
+
+        ``worker_mask`` (float [N], 1.0 = healthy) leaves failed workers
+        out of the average and the loss; with no healthy worker the round
+        raises :class:`MergeError`."""
+        n, steps = batch_x.shape[0], batch_x.shape[1]
+        wm = (np.ones(n, np.float32) if worker_mask is None
+              else np.asarray(worker_mask, np.float32))
+        if float(wm.sum()) == 0.0:
+            raise MergeError("no healthy workers responded in this sync round")
+        x, y, m, m_host = self._on_device(batch_x, batch_y, mask)
+        valid = m_host.reshape(n, steps, -1).sum(-1) > 0  # [N, steps]
+        weights = wm * valid.any(axis=1)  # healthy AND holding data
+        self.model.lr, self.model.epoch = lr, epoch
+        if float(weights.sum()) == 0.0:
+            # no effective participant: the pre-round weights (replica 0)
+            # stay, and the NaN loss marks the skipped round
+            _assign_workers(stacked_vars, self._replica0(stacked_vars))
+            nan = torch.full((), math.nan, device=self.device)
+            self.last_round_stats = (torch.stack([nan, nan])
+                                     if self.round_stats else None)
+            return stacked_vars, nan
+        x = self.model.preprocess(self._cast_input(x))
+        module = self.module
+        workers = [int(w) for w in np.flatnonzero(weights)]
+        losses = []
+        for w in workers:
+            bind(module, _tree_map(lambda v: v[w], stacked_vars))
+            opt = self.model.configure_optimizers(list(module.parameters()))
+            valid_steps = np.flatnonzero(valid[w])
+            total = torch.zeros((), device=self.device)
+            for s in valid_steps.tolist():
+                logits = module(x[w, s], train=True)
+                pl = self.model.per_sample_loss(logits, y[w, s])
+                mb = m[w, s]
+                loss = (pl * mb).sum() / mb.sum().clamp_min(1.0)
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+                opt.step()
+                total = total + loss.detach()
+            losses.append(total / len(valid_steps))
+        worker_losses = torch.stack(losses)
+        # weights are host numbers: no host-to-device copy, which would
+        # wait for the round to finish on the card
+        mean_loss = torch.stack([l * float(weights[w]) for l, w in
+                                 zip(losses, workers)]).sum() / max(
+                                     float(weights.sum()), 1.0)
+        mean = _mean_over_workers(stacked_vars, weights)
+        self.last_round_stats = (
+            self._round_stats(stacked_vars, mean, weights, workers,
+                              worker_losses) if self.round_stats else None)
+        _assign_workers(stacked_vars, mean)
+        return stacked_vars, mean_loss
+
+    @staticmethod
+    def _round_stats(stacked: Variables, mean: Variables, weights: np.ndarray,
+                     workers: List[int], worker_losses: torch.Tensor
+                     ) -> torch.Tensor:
+        """[worker-loss spread, pre-merge weight divergence] over the
+        round's participants: max - min of their losses, and the
+        participant-weighted Frobenius norm of (replica - mean) over the
+        float leaves, relative to the mean's norm."""
+        spread = worker_losses.max() - worker_losses.min()
+        pairs = [(v, mv.float()) for v, mv in zip(_leaves(stacked),
+                                                  _leaves(mean))
+                 if v.is_floating_point()]
+        means = [mv for _, mv in pairs]
+        num = torch.zeros((), device=spread.device)
+        for w in workers:
+            d = torch._foreach_sub([v[w].float() for v, _ in pairs], means)
+            num = num + float(weights[w]) * torch.stack(
+                torch._foreach_norm(d)).pow(2).sum()
+        den = torch.stack(torch._foreach_norm(means)).pow(2).sum()
+        divergence = ((num / max(float(weights.sum()), 1.0)).sqrt()
+                      / den.sqrt().clamp_min(1e-12))
+        return torch.stack([spread, divergence])
+
+    # --- validation / inference ---
+
+    @torch.no_grad()
+    def _eval_sums(self, variables: Variables, batch_x, batch_y, mask):
+        x, y, m, _ = self._on_device(batch_x, batch_y, mask)
+        x = self.model.preprocess(self._cast_input(x))
+        x = x.reshape((-1,) + tuple(x.shape[3:]))
+        y = y.reshape((-1,) + tuple(y.shape[3:]))
+        m = m.reshape(-1)
+        correct = loss = torch.zeros((), device=self.device)
+        for i in range(0, x.shape[0], EVAL_CHUNK):
+            xc, yc, mc = (t[i:i + EVAL_CHUNK] for t in (x, y, m))
+            logits, _ = self.model.forward(variables, xc, train=False)
+            # masked SUMS: streamed rounds accumulate sample-weighted
+            correct = correct + (self.model.per_sample_correct(logits, yc)
+                                 * mc).sum()
+            loss = loss + (self.model.per_sample_loss(logits, yc) * mc).sum()
+        return correct, loss, m.sum()
+
+    def evaluate(self, stacked_vars: Variables, batch_x, batch_y, mask
+                 ) -> Tuple[float, float]:
+        """Masked (accuracy, loss) of replica 0 over one ``[N, steps, B,
+        ...]`` validation slab, sample-weighted."""
+        return self.evaluate_rounds(
+            stacked_vars, [SimpleNamespace(x=batch_x, y=batch_y, mask=mask)])
+
+    def evaluate_rounds(self, stacked_vars: Variables, rounds
+                        ) -> Tuple[float, float]:
+        """Streamed evaluation: masked sums accumulated over an iterable
+        of RoundBatches (peak memory is one round)."""
+        variables = self._replica0(stacked_vars)
+        csum = lsum = msum = 0.0
+        for rb in rounds:
+            c, l, m = self._eval_sums(variables, rb.x, rb.y, rb.mask)
+            csum += float(c)
+            lsum += float(l)
+            msum += float(m)
+        denom = max(msum, 1.0)
+        return csum / denom, lsum / denom
+
+    @torch.no_grad()
+    def infer(self, stacked_vars: Variables, x) -> np.ndarray:
+        """``model.infer`` on replica 0 for a host batch ``x``."""
+        xd = self._cast_input(_as_tensor(x)).to(self.device)
+        out = self.model.infer(self._replica0(stacked_vars),
+                               self.model.preprocess(xd))
+        return out.cpu().numpy()
+

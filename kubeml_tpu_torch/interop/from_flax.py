@@ -1,4 +1,8 @@
-"""Flax ``CausalTransformer`` variables -> the port's weights.
+"""Flax variables -> the port's weights.
+
+:func:`from_flax` carries a Flax ``CausalTransformer``'s parameters;
+:func:`from_flax_variables` a conv model's whole variables tree (ResNet,
+LeNet: ``params`` and ``batch_stats``).
 
 The port's modules carry Flax's parameter names and layouts (dense kernels
 ``[in, out]``, LayerNorm ``scale``/``bias``, ``token_embed.embedding``,
@@ -49,4 +53,31 @@ def from_flax(variables: Mapping[str, Any]) -> Dict[str, object]:
             out[prefix] = _tensor(node)
 
     walk(tree, "")
+    return out
+
+
+def from_flax_variables(variables: Mapping[str, Any]
+                        ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A Flax conv model's variables (``{"params": ..., "batch_stats":
+    ...}``, numpy leaves) -> the port's ``{"params": {dotted name: tensor},
+    "batch_stats": {dotted name: tensor}}``, the variables format of
+    ``runtime.model.KubeModel``. Conv kernels go from Flax's HWIO to
+    PyTorch's OIHW; dense kernels (``[in, out]``), BatchNorm ``scale``/
+    ``bias`` and the ``mean``/``var`` statistics keep their layout."""
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for collection, tree in variables.items():
+        flat: Dict[str, torch.Tensor] = {}
+
+        def walk(node, prefix: str) -> None:
+            if isinstance(node, Mapping):
+                for key, child in node.items():
+                    walk(child, f"{prefix}.{key}" if prefix else str(key))
+            else:
+                t = _tensor(node)
+                if t.ndim == 4:  # conv kernel [kh, kw, in, out]
+                    t = t.permute(3, 2, 0, 1).contiguous()
+                flat[prefix] = t
+
+        walk(tree, "")
+        out[collection] = flat
     return out

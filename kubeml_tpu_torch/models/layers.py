@@ -1,5 +1,18 @@
 """Building blocks shared by the port's models.
 
+:class:`Conv` and :class:`BatchNorm` are Flax's ``nn.Conv`` and
+``nn.BatchNorm`` in PyTorch, for the conv models (``models/resnet.py``,
+``models/lenet.py``): the same parameter names (``kernel``, ``bias``;
+``scale``, ``bias``, and the ``mean``/``var`` statistics as buffers, with
+no ``num_batches_tracked``), so a Flax variables tree maps onto them name
+for name (``interop.from_flax.from_flax_variables``), and Flax's numerics:
+``padding="SAME"`` pads as XLA does (a stride-2 3x3 conv on an even input
+pads (0, 1), not PyTorch's (1, 1)), BatchNorm keeps the *biased* batch
+variance in its running statistics with Flax's momentum (0.9 keeps 0.9 of
+the old value; PyTorch's 0.1 means the same). :func:`flax_init_` gives a
+module Flax's initialisers (``lecun_normal`` kernels, zero biases, unit
+BatchNorm scales) from a ``torch.Generator``.
+
 :class:`QuantizableDense` is the port of ``kubeml_tpu/models/layers.py``:
 a dense layer in Flax's layout (``kernel [in, out]``, ``bias [out]``, the
 same parameter names, so a Flax tree maps onto it name for name) whose
@@ -15,9 +28,11 @@ quantized kernels where the tree holds them.
 
 from __future__ import annotations
 
-from typing import Mapping
+import math
+from typing import Mapping, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -104,4 +119,120 @@ def load_tree(module: nn.Module, tree: Mapping[str, object],
     missing = sorted(set(params) - covered)
     if missing:
         raise KeyError(f"tree lacks parameters: {', '.join(missing)}")
+    return module
+
+
+def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """XLA's ``padding="SAME"``: (low, high) padding of one spatial dim so
+    the output has ``ceil(size / stride)`` positions; the odd pixel goes
+    high."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv(nn.Module):
+    """Flax ``nn.Conv`` on NCHW activations: kernel ``[out, in, kh, kw]``
+    (Flax's ``[kh, kw, in, out]`` transposed), optional bias, computed in
+    ``dtype`` with channels-last weights."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: Sequence[int], strides: int = 1,
+                 padding: str = "SAME", use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+        self.kernel_size = tuple(kernel_size)
+        self.strides = int(strides)
+        self.padding = padding
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.empty(features, in_features,
+                                               *self.kernel_size))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        pad: Union[int, Tuple[int, int]] = 0
+        if self.padding == "SAME":
+            (ht, hb), (wl, wr) = (
+                same_pads(x.shape[2], self.kernel_size[0], self.strides),
+                same_pads(x.shape[3], self.kernel_size[1], self.strides))
+            if ht == hb and wl == wr:
+                pad = (ht, wl)
+            else:
+                x = F.pad(x, (wl, wr, ht, hb))
+        w = self.kernel.to(self.dtype, memory_format=torch.channels_last)
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.conv2d(x, w, b, self.strides, pad)
+
+
+class BatchNorm(nn.Module):
+    """Flax ``nn.BatchNorm`` over the channels of NCHW activations, in f32
+    (the output is f32 whatever the input). ``train=True`` normalises with
+    the batch statistics and moves the running ``mean``/``var`` buffers
+    toward them in place, ``momentum`` keeping that much of the old value,
+    with the biased batch variance; ``train=False`` uses the buffers."""
+
+    def __init__(self, features: int, momentum: float = 0.9,
+                 epsilon: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = x.float()
+        if not train:
+            return F.batch_norm(x, self.mean, self.var, self.scale, self.bias,
+                                False, 0.0, self.epsilon)
+        # the batch mean and 1/sqrt(biased var + eps) come with the output
+        y, mean, invstd = torch.native_batch_norm(
+            x, self.scale, self.bias, None, None, True, 0.0, self.epsilon)
+        with torch.no_grad():
+            var = invstd.pow(-2) - self.epsilon
+            self.mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
+            self.var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
+        return y
+
+
+def max_pool_same(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """Flax ``nn.max_pool(padding="SAME")``: pads with -inf as XLA does."""
+    (ht, hb), (wl, wr) = (same_pads(x.shape[2], window, stride),
+                          same_pads(x.shape[3], window, stride))
+    x = F.pad(x, (wl, wr, ht, hb), value=-math.inf)
+    return F.max_pool2d(x, window, stride)
+
+
+def lecun_normal_(t: torch.Tensor, fan_in: int,
+                  generator: Optional[torch.Generator] = None) -> None:
+    """Flax's ``lecun_normal``: a normal truncated at two standard
+    deviations, scaled so the variance is ``1 / fan_in``."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
+@torch.no_grad()
+def flax_init_(module: nn.Module,
+               generator: Optional[torch.Generator] = None) -> nn.Module:
+    """Initialise ``module``'s :class:`Conv`, :class:`QuantizableDense`
+    and :class:`BatchNorm` layers in place as Flax would (kernels
+    ``lecun_normal`` in registration order from ``generator``, zero
+    biases, unit scales and variances, zero means). Returns the module."""
+    for m in module.modules():
+        if isinstance(m, Conv):
+            lecun_normal_(m.kernel, m.kernel[0].numel(), generator)
+        elif isinstance(m, QuantizableDense) and not m.quantized:
+            lecun_normal_(m.kernel, m.kernel.shape[0], generator)
+        elif isinstance(m, BatchNorm):
+            m.scale.fill_(1.0)
+            m.mean.zero_()
+            m.var.fill_(1.0)
+        else:
+            continue
+        if m.bias is not None:
+            m.bias.zero_()
     return module
