@@ -18,14 +18,15 @@ Phases, each reported on its own lines:
    every instantiation and must not spill;
 3. serving kernels against their plain PyTorch versions at the serving
    path's shapes (GPT-2-small width: H 12, D 64, page_tokens 16, 64-page
-   tables, 8 rows; paged attention also at one row at position 1023, L 16
-   and 17, and depths ending mid-page; two launches bit-identical; the host
-   time of a decode call; and, error only, at other models' head dims
-   (16-128) and pages of 128 and 256 tokens), with max abs error, kernel /
-   plain / library times on the card and the bound from bytes and
-   operations; the int8 matmul at M 1, 8, 256 and 2048 over the four
-   GPT-2-small (K, N) in f32 and bf16, with its kernel / library ratio and
-   the host time of one call;
+   tables, 8 rows; paged attention also at the spec verify's L 2 and 5,
+   L 256 at whole-page cursors 256-768 (a prefill chunk), one row at
+   position 1023, L 16 and 17, and depths ending mid-page; two launches
+   bit-identical; the host time of a decode call; and, error only, at
+   other models' head dims (16-128) and pages of 128 and 256 tokens), with
+   max abs error, kernel / plain / library times on the card and the bound
+   from bytes and operations; the int8 matmul at M 1, 8, 16, 24, 40, 256
+   and 2048 over the four GPT-2-small (K, N) in f32 and bf16, with its
+   kernel / library ratio and the host time of one call;
 4. serve f32 - GPTTiny (head dim 16) through the kernel and the gather
    path, greedy tokens identical; then 16 requests from threads through
    ``PagedBatchingDecoder`` at GPT-2-small width (seeded random weights),
@@ -44,7 +45,27 @@ Phases, each reported on its own lines:
    engine; the profile window prints the int8 matmul's device time per
    forward and must show no split-K reduce kernel and exactly one kernel
    launch per ``int8_matmul`` call (in a window with every record);
-6. flash kernels - forward (out, lse), dQ and dK/dV against their plain
+6. spec + chunked - the same mix on a coherent-tail GPT-2-small target
+   (``benchmarks.spec_decode.coherent_tail``, exit layer 6) through the
+   kernel engine: (a) ``spec="self"``, k 4; (b) the same with int8 weights
+   through the int8 matmul and int8 KV pages; (c) ``spec="draft"`` with a
+   random drafter (E 256, depth 2, 4 heads), adaptive k; (d)
+   ``prefill_chunk_tokens=128``, alone and with (a); (e) sampled (a) and
+   (d), each run twice. Greedy tokens of a, c and d must equal the spec-off
+   monolithic engine's, except where the spec-off path's two largest
+   logits at the first differing position lie within ``NEAR_TIE``; (a)
+   must emit more than one token a row-step; (c) must floor k at 1 or trip
+   ``spec_disabled``; (d) must prefill in chunks; the repeats of (e) must
+   be identical; (b)'s teacher-forced spec path (drafter + verify windows)
+   must match the int8 spec-off path within ``TF_ATOL``, and a profiled
+   window of int8 spec steps must hold one kernel record per call and the
+   calls the path implies (12 and 73 a prefill forward, k x 6 + 12 and
+   k x 37 + 73 a spec step). Each mode prints tokens/s, TTFT p50, device
+   step ms, tokens a row-step, acceptance, prefill chunks and launches;
+   then a 896-token prompt arrives while 4 rows decode one token a step,
+   monolithic and in 128-token chunks: the rows' longest inter-token gap
+   (reported, not gated);
+7. flash kernels - forward (out, lse), dQ and dK/dV against their plain
    versions in bf16 and f32 at the training shape (B 8, L 2048, H 8, D 64,
    causal), a ragged causal shape with 37 padded keys, cross attention
    (Lq 300, Lk 1000), D 128, D 128 cross attention with padded keys
@@ -55,14 +76,14 @@ Phases, each reported on its own lines:
    relative error (``FLASH_TILE_RTOL``); repeated backwards bit-identical,
    padded keys' dK/dV exactly 0; then kernel / plain / SDPA / bound times
    over L 128-4096 at 16,384 tokens, with kernel / SDPA ratios;
-7. train bf16 - ``benchmarks.longcontext.run_point`` at the long-context
+8. train bf16 - ``benchmarks.longcontext.run_point`` at the long-context
    flagship's full width (E 512, depth 8, vocab 32000, remat, AdamW),
    L 2048: one warm-up and 10 timed steps through the kernels (launches
    per step held to fwd 2 x depth, dq and dkv depth; the loss must fall),
    a profiler window over 3 steps, then the same run on the plain path;
-8. train f32 - one step through the kernels against the plain path from
+9. train f32 - one step through the kernels against the plain path from
    the same weights and batch: loss and every parameter's gradient;
-9. K-AVG - (a) the flagship at ``bench.py``'s configuration (ResNet-18,
+10. K-AVG - (a) the flagship at ``bench.py``'s configuration (ResNet-18,
    CIFAR-10 shapes, bf16, uint8 inputs, B 128, K 8, lr 0.1, SGD momentum
    0.9) through ``benchmarks.harness.FlagshipBench`` at N 1 and N 4 packed
    on the card: round ms, device samples/s (slabs resident, best of 3 x 20
@@ -78,7 +99,7 @@ Phases, each reported on its own lines:
    4 -> 2 by ``on_epoch_end``: trace [4, 2, 2], falling loss, validation
    accuracy at least ``KAVG_JOB_MIN_ACC``; none of the five hand-written
    kernels may launch in this phase;
-10. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+11. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Any failure raises and the script exits non-zero; without a CUDA device it
 exits non-zero before printing any result.
@@ -86,6 +107,7 @@ exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import copy
 import json
 import re
 import subprocess
@@ -247,12 +269,15 @@ class Timer:
 # --- phase 3: kernels against their plain versions ----------------------
 
 # paged attention at the main path's shapes (tag, L, positions): the decode
-# step at mixed depths, spec-verify, prefill; one row at the last position
+# step at mixed depths, spec-verify at k 4 and k 1 (L 5 and 2), prefill, a
+# 256-token prefill chunk at whole-page cursors; one row at the last position
 # (the cluster's ranks split all 64 pages); L 16 and 17 (the decode
 # mapping's 7-query tiles, then one query more); L 3 at depths that end
 # mid-page
 PA_CASES = [("decode", 1, [0, 15, 16, 100, 333, 511, 777, 1023]),
             ("verify", 5, [0, 3, 60, 200, 500, 800, 1010, 1018]),
+            ("verify k1", 2, [0, 14, 15, 130, 407, 640, 999, 1021]),
+            ("chunk", 256, [256, 512, 768]),
             ("prefill", 128, [0, 16, 128, 256, 384, 512, 640, 896]),
             ("B1 pos 1023", 1, [1023]),
             ("L16", 16, [0, 5, 31, 100, 250, 600, 900, 1000]),
@@ -267,9 +292,10 @@ PA_SHAPES = [(16, 16, torch.float32), (16, 16, torch.int8),
              (96, 16, torch.float32), (20, 16, torch.bfloat16),
              (20, 16, torch.int8), (128, 128, torch.float32),
              (128, 256, torch.float32)]
-# int8 matmul (M, K, N): decode M 1 and 8, prefill 256 and 2048, over the
-# four GPT-2-small projections (K, N)
-MM_SHAPES = [(M, K, N) for M in (1, 8, 256, 2048)
+# int8 matmul (M, K, N): decode M 1 and 8, the spec verify of 8 rows at
+# k 1, 2 and 4 (M 16, 24, 40), prefill 256 and 2048, over the four
+# GPT-2-small projections (K, N)
+MM_SHAPES = [(M, K, N) for M in (1, 8, 16, 24, 40, 256, 2048)
              for K, N in ((768, 768), (768, 3072), (3072, 768), (768, VOCAB))]
 
 
@@ -534,17 +560,22 @@ def workload(rng):
     return reqs
 
 
-def serve(dec, reqs):
+def serve(dec, reqs, sample: bool = False):
     """Drive ``dec`` through the workload. First a calibration request (the
-    eos request's prompt, 16 greedy tokens) picks the eos id as its 10th
-    token; then every request is submitted from its own thread, except that
+    eos request's prompt, 16 tokens) picks the eos id as its 10th token;
+    then every request is submitted from its own thread, except that
     sharers 2-4 wait for sharer 1's first token (its prefill registers the
-    shared pages). Returns per-request results and timings."""
+    shared pages). Greedy, or ``sample``d with ``SAMPLE``'s knobs and
+    request i seeded 1000 + i (the calibration 1016). Returns per-request
+    results and timings."""
     from kubeml_tpu_torch.api import GenerateRequest
 
+    def knobs(i):
+        return dict(SAMPLE, seed=1000 + i) if sample else {}
+
     calib = dec.wait(dec.submit(GenerateRequest(
-        prompts=[reqs[5]["prompt"].tolist()], max_new_tokens=16)),
-        timeout=600)
+        prompts=[reqs[5]["prompt"].tolist()], max_new_tokens=16,
+        **knobs(16))), timeout=600)
     eos = calib["tokens"][0][9]
     results, entries, errors = [None] * 16, [None] * 16, []
     first_sharer = threading.Event()
@@ -556,7 +587,7 @@ def serve(dec, reqs):
             r = reqs[i]
             entries[i] = dec.submit(GenerateRequest(
                 prompts=[r["prompt"].tolist()], max_new_tokens=r["max_new"],
-                eos_id=eos if i == 5 else None))
+                eos_id=eos if i == 5 else None, **knobs(i)))
             if i == 0:
                 while entries[0].first_token_at == 0.0:
                     time.sleep(0.001)
@@ -684,15 +715,19 @@ def paged_window(dec, reqs, tag, also=""):
     few records of a long window (a drop in one kernel says nothing of the
     other's), so a window whose records fall short of the calls is run
     again, at most five windows in all; more records than calls, or a
-    combine kernel, fails at once. Returns the window's busy ms, kernels
-    and (paged_attention, int8_matmul) calls."""
+    combine kernel, fails at once. Returns the window's busy ms, kernels,
+    (paged_attention, int8_matmul) calls and the window's change of the
+    engine's step counters (prefill waves, decode and spec steps, prefill
+    chunks)."""
     from kubeml_tpu_torch.ops.int8_matmul import int8_matmul
     from kubeml_tpu_torch.ops.paged_attention import paged_attention
 
     for attempt in range(5):
+        before = dec.telemetry()
         paged_attention.launches = int8_matmul.launches = 0
         busy_ms, kernels = profile_window(dec, reqs, also)
         calls = (paged_attention.launches, int8_matmul.launches)
+        after = dec.telemetry()
         pa = sum(n for _, n, name in kernels if PA_KERNEL in name)
         mm = sum(n for _, n, name in kernels if MM_KERNEL in name)
         pa_ms = sum(ms for ms, _, name in kernels if PA_KERNEL in name)
@@ -708,7 +743,10 @@ def paged_window(dec, reqs, tag, also=""):
                                  f"{mm} int8 kernel records for {calls} "
                                  f"calls, combine kernels {combine}")
         if busy_ms <= 0 or (pa, mm) == calls:
-            return busy_ms, kernels, calls
+            delta = {k: after.get(k, 0.0) - before.get(k, 0.0)
+                     for k in ("prefill_waves", "decode_steps",
+                               "spec_steps", "prefill_chunks")}
+            return busy_ms, kernels, calls, delta
     raise AssertionError(f"{tag} window: kernel records fell short of the "
                          f"calls in five windows")
 
@@ -788,7 +826,298 @@ def teacher_forced_logits(dec, prompt, forced):
     return torch.stack(out)
 
 
-# --- phase 6: flash kernels against their plain versions -----------------
+# --- phase 6: speculative decoding and chunked prefill -------------------
+
+# self-drafting at GPT-2-small width: k 4 drafts a step from the first 6 of
+# the 12 blocks, against a coherent-tail target (benchmarks.spec_decode:
+# the blocks past the exit scaled toward identity, so the drafter agrees
+# with the target as a trained model's would); the draft backend's random
+# drafter (E 256, depth 2, 4 heads: D 64) on the same vocabulary; prefill
+# chunks of 128 tokens (8 pages)
+SPEC_K, EXIT_LAYER, PREFILL_CHUNK = 4, 6, 128
+DRAFT = dict(embed_dim=256, depth=2, num_heads=4)
+# the sampled modes: temperature 0.8, top-k 50 (request i seeded 1000 + i)
+SAMPLE = dict(temperature=0.8, top_k=50)
+# greedy tokens of a spec or chunked engine against the spec-off monolithic
+# engine: a divergence passes only where the spec-off path's two largest
+# logits at the first differing position lie within NEAR_TIE (the verify
+# scores k+1 positions in one forward and a chunk attends in query tiles:
+# the same f32 sums in other orders, ~1e-6 apart)
+NEAR_TIE = 1e-5
+# the long-prompt probe: 4 rows of 32-token prompts decode one token a step
+# while a 896-token prompt prefills, monolithic or in chunks
+ITL_SHORT, ITL_LONG, ITL_NEW = 32, 896, 160
+
+
+def spec_step_launches(k: int):
+    """(paged_attention, int8_matmul) launches of one self-drafting spec
+    step at k drafts: k drafter forwards through EXIT_LAYER blocks (6
+    projections a block and the lm_head), then the verify forward."""
+    return (k * EXIT_LAYER + PA_PER_FORWARD,
+            k * (6 * EXIT_LAYER + 1) + INT8_PER_FORWARD)
+
+
+def tokens_a_row_step(run) -> float:
+    """Decode tokens a row emitted per device step (each of the 17 rows
+    emits its first token at prefill; a spec step emits 1 to k+1)."""
+    t = run["tele"]
+    rows = len(run["results"]) + 1
+    return (t["tokens_emitted"] - rows) / max(t["decode_row_steps"], 1.0)
+
+
+def report_mode(tag, run, smi, launches) -> None:
+    t = run["tele"]
+    log(f"  {tag} [{smi}]: {run['tokens']} tokens, "
+        f"{run['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+        f"{run['ttft_p50_ms']:.1f} ms, device step "
+        f"{run['decode_step_ms']:.3f} ms ({int(t['decode_steps'])} steps), "
+        f"{tokens_a_row_step(run):.3f} tokens a row-step, acceptance "
+        f"{t.get('spec_accept_rate', 'n/a')}, spec_k {t.get('spec_k', '-')}"
+        f", spec_disabled {t.get('spec_disabled', '-')}, prefill chunks "
+        f"{int(t['prefill_chunks'])}; launches paged_attention "
+        f"{launches[0]}, int8_matmul {launches[1]}")
+
+
+def check_tokens(tag, run, ref, ref_dec, reqs) -> None:
+    """Greedy tokens of ``run`` against the spec-off monolithic ``ref``:
+    identical, but for a divergence where ``ref_dec``'s path, teacher-forced
+    to the first differing position, has its two largest logits within
+    NEAR_TIE (logged with its request and position)."""
+    got, want = token_lists(run), token_lists(ref)
+    prompts = [reqs[5]["prompt"]] + [r["prompt"] for r in reqs]
+    ties = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        j = next((n for n, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if j is None:
+            raise AssertionError(f"{tag}: request {i - 1} emitted {len(g)} "
+                                 f"tokens, the spec-off engine {len(w)}")
+        top = teacher_forced_logits(ref_dec, prompts[i].tolist(),
+                                    w[:j])[-1].topk(2).values
+        gap = (top[0] - top[1]).item()
+        log(f"  {tag}: request {i - 1} differs at token {j} ({g[j]} vs "
+            f"{w[j]}); spec-off top-two logit gap {gap:.3e}")
+        if not gap <= NEAR_TIE:
+            raise AssertionError(f"{tag}: greedy tokens differ from the "
+                                 f"spec-off engine (request {i - 1}, token "
+                                 f"{j}, logit gap {gap:.3e} > {NEAR_TIE})")
+        ties.append((i - 1, j))
+    log(f"  {tag}: greedy tokens identical to the spec-off monolithic "
+        f"engine ({sum(map(len, want))} tokens; near ties {ties or 'none'})")
+
+
+def teacher_forced_spec_logits(dec, prompt, forced):
+    """The spec path teacher-forced on ``dec``'s module, arena storage and
+    read path: prefill ``prompt``, then windows of SPEC_K + 1 forced tokens
+    - the self-drafter feeds the window's first SPEC_K tokens one at a time
+    (writing layers < EXIT_LAYER), then the verify scores all SPEC_K + 1 in
+    one forward. Logits [1 + windows x (SPEC_K + 1), vocab], the rows of
+    ``teacher_forced_logits`` they stand for."""
+    from kubeml_tpu_torch.models.generation import init_paged_cache
+
+    dev = dec.device
+    n = -(-(len(prompt) + len(forced)) // PAGE_TOKENS)
+    cache = init_paged_cache(dec.module, n + 1, PAGE_TOKENS, dec.kv_quant,
+                             dec.paged_attn)
+    table = torch.arange(1, n + 1, dtype=torch.int32, device=dev)[None]
+
+    def at(p):
+        return torch.tensor([p], dtype=torch.int32, device=dev)
+
+    with torch.inference_mode():
+        out = [dec.module(torch.tensor(prompt, device=dev)[None],
+                          decode=True, positions=at(0), pages=table,
+                          cache=cache)[0, -1]]
+        p = 0
+        while p + SPEC_K + 1 <= len(forced):
+            win = forced[p:p + SPEC_K + 1]
+            base = len(prompt) + p
+            for i in range(SPEC_K):
+                dec.module(torch.tensor([[win[i]]], device=dev), decode=True,
+                           positions=at(base + i), pages=table, cache=cache,
+                           exit_layer=EXIT_LAYER)
+            out.extend(dec.module(torch.tensor([win], device=dev),
+                                  decode=True, positions=at(base),
+                                  pages=table, cache=cache)[0])
+            p += SPEC_K + 1
+    return torch.stack(out)
+
+
+def itl_probe(model, chunk: int):
+    """Four rows decode one token a step (chunk_steps 1, streamed) while a
+    896-token prompt arrives: the longest gap between two tokens of those
+    rows while it prefills (from its submit to its first token) against
+    their median gap before it; the head-of-line stall the engine charged
+    them; the prefill chunks."""
+    from kubeml_tpu_torch.api import GenerateRequest
+    from kubeml_tpu_torch.serving import PagedBatchingDecoder
+
+    dec = PagedBatchingDecoder(model, slots=SLOTS, page_tokens=PAGE_TOKENS,
+                               chunk_steps=1, prefill_chunk_tokens=chunk,
+                               device="cuda")
+    rng = np.random.default_rng(SEED + 7)
+    entries = [dec.submit(GenerateRequest(
+        prompts=[rng.integers(1, VOCAB, size=ITL_SHORT).tolist()],
+        max_new_tokens=ITL_NEW, stream=True)) for _ in range(4)]
+    stamps = [[] for _ in entries]
+
+    def reader(i):
+        for item in dec.stream(entries[i]):
+            if "tokens" in item:
+                stamps[i].append(time.monotonic())
+
+    threads = [threading.Thread(target=reader, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    while any(e.first_token_at == 0.0 for e in entries):
+        time.sleep(0.001)
+    time.sleep(0.1)
+    t0 = time.monotonic()
+    long_e = dec.submit(GenerateRequest(
+        prompts=[rng.integers(1, VOCAB, size=ITL_LONG).tolist()],
+        max_new_tokens=4))
+    dec.wait(long_e, timeout=600)
+    t1 = long_e.first_token_at
+    for t in threads:
+        t.join(600)
+    tele = dec.telemetry()
+    dec.close()
+    gaps = [(a, b - a) for st in stamps for a, b in zip(st, st[1:])]
+    during = [g for a, g in gaps if a + g >= t0 and a <= t1]
+    before = sorted(g for a, g in gaps if a + g < t0)
+    return (1e3 * max(during), 1e3 * before[len(before) // 2],
+            tele["hol_stall_seconds"], int(tele["prefill_chunks"]))
+
+
+def spec_phase(smi):
+    """Phase 6: the 16-request mix at GPT-2-small width through the kernel
+    engine with speculative decoding and chunked prefill (modes a-e, see
+    the module docstring). Returns the (paged_attention, int8_matmul)
+    launches of its serving runs."""
+    from kubeml_tpu_torch.benchmarks.spec_decode import coherent_tail
+    from kubeml_tpu_torch.models import CausalTransformer
+    from kubeml_tpu_torch.ops.int8_matmul import int8_matmul
+    from kubeml_tpu_torch.ops.paged_attention import paged_attention
+    from kubeml_tpu_torch.serving import PagedBatchingDecoder
+
+    reqs = workload(np.random.default_rng(SEED))
+    target = coherent_tail(gpt2_small(), EXIT_LAYER)
+    common = dict(slots=SLOTS, page_tokens=PAGE_TOKENS, chunk_steps=CHUNK,
+                  device="cuda")
+    selfspec = dict(spec="self", spec_k=SPEC_K, spec_exit_layer=EXIT_LAYER,
+                    spec_adaptive=False)
+    total = [0, 0]
+
+    def mode(tag, model, sample=False, **kw):
+        dec = PagedBatchingDecoder(model, **common, **kw)
+        if dec.telemetry()["paged_attn_kernel"] != 1.0:
+            raise AssertionError(f"{tag}: the engine does not read through "
+                                 f"the kernel")
+        paged_attention.launches = int8_matmul.launches = 0
+        run = serve(dec, reqs, sample)
+        launches = (paged_attention.launches, int8_matmul.launches)
+        dec.close()
+        total[0] += launches[0]
+        total[1] += launches[1]
+        report_mode(tag, run, smi, launches)
+        if launches[0] <= 0:
+            raise AssertionError(f"{tag}: paged attention never launched")
+        return run, dec
+
+    log(f"  coherent-tail GPT-2-small target (blocks {EXIT_LAYER}-11 "
+        f"scaled by 0.02), k {SPEC_K}, exit layer {EXIT_LAYER}, prefill "
+        f"chunk {PREFILL_CHUNK}")
+    ref, ref_dec = mode("spec off, monolithic", target)
+    a, _ = mode("a spec=self", target, **selfspec)
+    check_tokens("a", a, ref, ref_dec, reqs)
+    if not tokens_a_row_step(a) > 1.0:
+        raise AssertionError(f"a: {tokens_a_row_step(a):.3f} tokens a "
+                             f"row-step, not above 1.0")
+    drafter = CausalTransformer(vocab_size=VOCAB, max_len=MAX_LEN,
+                                attn_bias=True, ln_eps=1e-5, seed=SEED + 1,
+                                device="cuda", **DRAFT)
+    c, _ = mode("c spec=draft", target, spec="draft", spec_k=SPEC_K,
+                draft_module=drafter)
+    check_tokens("c", c, ref, ref_dec, reqs)
+    ct = c["tele"]
+    if not (ct.get("spec_k") == 1.0 or ct.get("spec_disabled") == 1.0):
+        raise AssertionError(f"c: the random drafter neither floored k at 1 "
+                             f"nor tripped spec_disabled: {ct.get('spec_k')}"
+                             f", {ct.get('spec_disabled')}")
+    d1, _ = mode("d chunked", target, prefill_chunk_tokens=PREFILL_CHUNK)
+    check_tokens("d chunked", d1, ref, ref_dec, reqs)
+    d2, _ = mode("d chunked + spec=self", target,
+                 prefill_chunk_tokens=PREFILL_CHUNK, **selfspec)
+    check_tokens("d chunked + spec=self", d2, ref, ref_dec, reqs)
+    for tag, run in (("d chunked", d1), ("d chunked + spec=self", d2)):
+        if run["tele"]["prefill_chunks"] <= 0:
+            raise AssertionError(f"{tag}: no prompt prefilled in chunks")
+    for tag, kw in (("a", selfspec),
+                    ("d", dict(prefill_chunk_tokens=PREFILL_CHUNK))):
+        e1, _ = mode(f"e sampled {tag}", target, sample=True, **kw)
+        e2, _ = mode(f"e sampled {tag}, again", target, sample=True, **kw)
+        if token_lists(e1) != token_lists(e2):
+            raise AssertionError(f"e: sampled {tag} did not reproduce")
+        log(f"  e sampled {tag}: the repeat is token-identical "
+            f"({e1['tokens']} tokens)")
+
+    # b: int8 weights through the int8 matmul and int8 KV pages, the
+    # spec-off engine first (it quantizes the copy; the spec engine reuses
+    # its int8 weights)
+    q_kw = dict(quantize="int8", int8_matmul=True, kv_quant="int8")
+    qmodel = copy.deepcopy(target)
+    qref, qref_dec = mode("b int8, spec off", qmodel, **q_kw)
+    b, b_dec = mode("b int8 spec=self", qmodel, **q_kw, **selfspec)
+    if min(b["tele"]["spec_steps"], int8_matmul.launches) <= 0:
+        raise AssertionError("b: no spec step or no int8 matmul launch")
+    got, want = token_lists(b), token_lists(qref)
+    same = sum(x == y for g, w in zip(got, want) for x, y in zip(g, w))
+    log(f"  b: greedy token agreement with the int8 spec-off engine "
+        f"{same}/{sum(map(len, want))}")
+    prompt = reqs[1]["prompt"].tolist()
+    forced = b["results"][1]["tokens"][0][:2 * (SPEC_K + 1)]
+    sl = teacher_forced_spec_logits(b_dec, prompt, forced)
+    pl = teacher_forced_logits(qref_dec, prompt, forced)[:len(sl)]
+    err = (sl - pl).abs().max().item()
+    log(f"  b: teacher-forced logits, spec path (drafter + verify windows) "
+        f"vs the int8 spec-off path: max abs diff {err:.3e} over "
+        f"{len(sl)} positions (tolerance {TF_ATOL})")
+    if not err <= TF_ATOL:
+        raise AssertionError(f"b: teacher-forced logits differ by {err}")
+    # one kernel record per call in a profiled window of spec steps, and
+    # the calls the path implies: 12 and 73 a prefill forward, §3's count
+    # a spec step
+    qdec = PagedBatchingDecoder(qmodel, **common, **q_kw, **selfspec)
+    _, kernels, calls, delta = paged_window(qdec, reqs, "int8 spec",
+                                            also="int8")
+    qdec.close()
+    per_step = spec_step_launches(SPEC_K)
+    want_calls = tuple(int(f * delta["prefill_waves"]
+                           + s * delta["spec_steps"])
+                       for f, s in zip((PA_PER_FORWARD, INT8_PER_FORWARD),
+                                       per_step))
+    log(f"  int8 spec window: {int(delta['spec_steps'])} spec steps, "
+        f"{int(delta['prefill_waves'])} prefill forwards; calls {calls}, "
+        f"by the path's count {want_calls} ({per_step} a spec step)")
+    if delta["decode_steps"] != delta["spec_steps"] or calls != want_calls:
+        raise AssertionError(f"int8 spec window: calls {calls} != "
+                             f"{want_calls}")
+    del qmodel, b_dec, qref_dec
+    torch.cuda.empty_cache()
+
+    mono = itl_probe(target, 0)
+    chunked = itl_probe(target, PREFILL_CHUNK)
+    for tag, (gap, base, hol, chunks) in (("monolithic", mono),
+                                          ("chunked", chunked)):
+        log(f"  long prompt ({ITL_LONG} tokens) while 4 rows decode, {tag} "
+            f"[{smi}]: longest inter-token gap {gap:.2f} ms (median before "
+            f"it {base:.2f} ms), head-of-line stall charged "
+            f"{hol:.4f} row-s, prefill chunks {chunks}")
+    return tuple(total)
+
+
+# --- phase 7: flash kernels against their plain versions -----------------
 
 
 # kernel vs plain version, flash kernels: the relative Frobenius error
@@ -979,7 +1308,7 @@ def check_flash(timer, g):
     return errs, sweep
 
 
-# --- phases 7-8: training -------------------------------------------------
+# --- phases 8-9: training -------------------------------------------------
 
 def flash_counts():
     from kubeml_tpu_torch.ops.flash_attention import flash_attention as f
@@ -1083,14 +1412,14 @@ def check_f32_step() -> None:
                              f"{worst[0]} of its scale")
 
 
-# --- phase 9: K-AVG -------------------------------------------------------
+# --- phase 10: K-AVG -------------------------------------------------------
 
 # bench.py's flagship configuration (kubeml_tpu/benchmarks/harness.py
 # flagship, bench.py main): ResNet-18 for CIFAR-10, bf16, uint8 inputs,
 # B 128, K 8, lr 0.1, SGD with momentum 0.9; 20 rounds x 3 reps
 # (the learning rate is benchmarks.harness.LR)
 KAVG_B, KAVG_K, KAVG_ROUNDS, KAVG_REPS = 128, 8, 20, 3
-# 9b: four workers in one round against four one-worker rounds on the same
+# 10b: four workers in one round against four one-worker rounds on the same
 # slabs (the same code under deterministic cuDNN, so each worker's weights
 # are the same bits; the mean of each set is then formed in the same
 # order): 1e-6 absolute. The card's f32 round against the CPU's: the loss
@@ -1102,7 +1431,7 @@ KAVG_B, KAVG_K, KAVG_ROUNDS, KAVG_REPS = 128, 8, 20, 3
 # and one bias by 13 % of its value; the card against the CPU, 1.1e-2 (H100
 # 80GB HBM3 at 700 W and its host's CPU)
 KAVG_MERGE_ATOL, KAVG_CPU_LOSS_RTOL, KAVG_CPU_W_RTOL = 1e-6, 1e-3, 5e-2
-# 9c: validation accuracy after 3 epochs on the banded set, in % (chance
+# 10c: validation accuracy after 3 epochs on the banded set, in % (chance
 # is 10 %)
 KAVG_JOB_MIN_ACC = 50.0
 BAND_COLOURS = ((255, 0, 0), (0, 255, 0), (0, 0, 255), (255, 255, 0),
@@ -1127,7 +1456,7 @@ def reset_kernel_counts() -> None:
 
 def kavg_flagship(n_workers: int, smi: str, plain_sps=None,
                   reps: int = KAVG_REPS):
-    """9a: the flagship at bench.py's configuration with ``n_workers``
+    """10a: the flagship at bench.py's configuration with ``n_workers``
     packed on the card (best of ``reps`` runs of 20 rounds, device and
     end to end): round ms, device and end-to-end samples/s, peak
     memory, a profiler window of 2 rounds, the FLOPs per sample against the
@@ -1198,7 +1527,7 @@ def _l2(a, b=None):
 
 def kavg_correctness(device: str = "cuda", batch: int = 16, n: int = 4,
                      k: int = 2) -> None:
-    """9b: ResNet-18 in f32 (TF32 off, deterministic cuDNN), N 4, K 2: the
+    """10b: ResNet-18 in f32 (TF32 off, deterministic cuDNN), N 4, K 2: the
     merged weights against the mean of four one-worker rounds on the same
     slabs, a worker mask dropping one worker against the mean of the other
     three, and the card's round against the CPU's."""
@@ -1278,7 +1607,7 @@ def banded_images(n: int, seed: int):
 
 def kavg_job(device: str = "cuda", num_filters: int = 64,
              n_train: int = 4096, n_test: int = 1024, epochs: int = 3):
-    """9c: ``TrainJob`` end to end: ResNet-18 (bf16, uint8 inputs) on the
+    """10c: ``TrainJob`` end to end: ResNet-18 (bf16, uint8 inputs) on the
     banded set from a temporary ``ShardStore``, 3 epochs at
     ``default_parallelism`` 4, an ``on_epoch_end`` policy moving it to 2.
     Returns the history."""
@@ -1351,7 +1680,7 @@ def main() -> int:
 
     # 1. device
     smi = nvidia_smi()
-    log("[1/10 device]")
+    log("[1/11 device]")
     log(smi)
     log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} devices "
@@ -1366,7 +1695,7 @@ def main() -> int:
     spills = [f"{lines[i - 1].split('for ')[-1][:70]}: {ln.strip()}"
               for i, ln in enumerate(lines)
               if re.search(r"[1-9]\d* bytes (stack frame|spill)", ln)]
-    log(f"[2/10 build] {time.monotonic() - t0:.2f} s (nvcc "
+    log(f"[2/11 build] {time.monotonic() - t0:.2f} s (nvcc "
         f"{kernels.build_seconds:.2f} s), kernels with a stack frame or "
         f"spills: {len(spills)}")
     for ln in spills:
@@ -1384,7 +1713,7 @@ def main() -> int:
     check_compiled(kernels.library()._name, build_log)
 
     # 3. kernels against their plain versions
-    log("[3/10 kernels]")
+    log("[3/11 kernels]")
     timer = Timer()
     g = torch.Generator().manual_seed(SEED)
     pa_rows = check_paged_attention(timer, g)
@@ -1392,7 +1721,7 @@ def main() -> int:
     del timer
 
     # 4. serve f32: kernel engine, then the plain (gather) twin
-    log("[4/10 serve f32]")
+    log("[4/11 serve f32]")
     serve_tiny()
     reqs = workload(np.random.default_rng(SEED))
     model = gpt2_small()
@@ -1435,7 +1764,7 @@ def main() -> int:
     del model
 
     # 5. serve int8: int8 weights through the kernel, int8 KV pages
-    log("[5/10 serve int8]")
+    log("[5/11 serve int8]")
     q_kw = dict(quantize="int8", int8_matmul=True, kv_quant="int8", **common)
     qdec = PagedBatchingDecoder(gpt2_small(), **q_kw)
     tele = qdec.telemetry()
@@ -1447,8 +1776,8 @@ def main() -> int:
     q_launches = (paged_attention.launches, int8_matmul.launches)
     report_serve("kernel engine", qrun)
     maps1 = map_stats()
-    qbusy, qkernels, (_, mm_calls) = paged_window(qdec, reqs, "int8",
-                                                  also="int8")
+    qbusy, qkernels, (_, mm_calls), _ = paged_window(qdec, reqs, "int8",
+                                                     also="int8")
     map_report("int8", maps0, maps1, map_stats())
     int8_profile(qbusy, qkernels, mm_calls)
     if min(q_launches) <= 0:
@@ -1483,14 +1812,21 @@ def main() -> int:
     del qdec, qplain
     torch.cuda.empty_cache()
 
-    # 6. flash kernels against their plain versions, and the L sweep
-    log("[6/10 flash kernels]")
+    # 6. speculative decoding and chunked prefill through both kernels
+    log("[6/11 spec + chunked]")
+    t0 = time.monotonic()
+    spec_launches = spec_phase(smi)
+    log(f"  phase 6: {time.monotonic() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 7. flash kernels against their plain versions, and the L sweep
+    log("[7/11 flash kernels]")
     timer = Timer()
     flash_errs, sweep = check_flash(timer, g)
     del timer
 
-    # 7. train: the kernel path, its profile, then the plain path
-    log("[7/10 train bf16]")
+    # 8. train: the kernel path, its profile, then the plain path
+    log("[8/11 train bf16]")
     krow, kcounts = train_run("kernel path", flash=True)
     want = (2 * DEPTH * krow["steps_run"], DEPTH * krow["steps_run"],
             DEPTH * krow["steps_run"])
@@ -1512,32 +1848,32 @@ def main() -> int:
         raise AssertionError(f"the plain path launched flash kernels "
                              f"{pcounts}")
 
-    # 8. f32: one step through the kernels against the plain path
-    log("[8/10 train f32 parity]")
+    # 9. f32: one step through the kernels against the plain path
+    log("[9/11 train f32 parity]")
     check_f32_step()
 
-    # 9. K-AVG: the flagship at bench.py's configuration, the merge's
+    # 10. K-AVG: the flagship at bench.py's configuration, the merge's
     # correctness, and TrainJob end to end; none of the five hand-written
     # kernels is on this path (convs, BatchNorm and dense layers run in
     # cuDNN and cuBLAS, as the JAX path runs them in XLA)
-    log("[9/10 k-avg]")
+    log("[10/11 k-avg]")
     reset_kernel_counts()
-    log("  9a flagship: ResNet-18, CIFAR-10 shapes, bf16, uint8 inputs, "
+    log("  10a flagship: ResNet-18, CIFAR-10 shapes, bf16, uint8 inputs, "
         f"B {KAVG_B}, K {KAVG_K}, lr 0.1, SGD momentum 0.9")
     row1, plain_sps = kavg_flagship(1, smi)
     kavg_flagship(4, smi, plain_sps, reps=1)
-    log("  9b correctness")
+    log("  10b correctness")
     kavg_correctness()
-    log("  9c TrainJob")
+    log("  10c TrainJob")
     kavg_job()
     counts = kernel_counts()
-    log(f"  hand-written kernel launches in phase 9 (paged_attention, "
+    log(f"  hand-written kernel launches in phase 10 (paged_attention, "
         f"int8_matmul, flash fwd/dq/dkv): {counts}")
     if any(counts):
         raise AssertionError(f"the K-AVG path launched {counts}")
 
-    # 10. results
-    log("[10/10 results]")
+    # 11. results
+    log("[11/11 results]")
     pa = pa_rows[0]   # the decode step: L = 1, f32 arena
     mm = next(r for r in mm_rows if r["M"] == 8 and r["N"] == VOCAB
               and r["x"] == "float32")  # the lm_head at decode
@@ -1545,14 +1881,14 @@ def main() -> int:
         {"name": "paged_attention", "route": "cuda",
          "source": "kubeml_tpu_torch/csrc/paged_attention.cu",
          "replaces": "kubeml_tpu/ops/paged_attention.py:113",
-         "launches": f32_launches + q_launches[0],
+         "launches": f32_launches + q_launches[0] + spec_launches[0],
          "max_abs_err": pa["max_abs_err"], "ms": pa["ms"],
          "plain_ms": pa["plain_ms"], "bound_ms": pa["bound_ms"],
          "bound_by": pa["bound_by"], "library_ms": pa["library_ms"]},
         {"name": "int8_matmul", "route": "cuda",
          "source": "kubeml_tpu_torch/csrc/int8_matmul.cu",
          "replaces": "kubeml_tpu/ops/int8_matmul.py:55",
-         "launches": q_launches[1],
+         "launches": q_launches[1] + spec_launches[1],
          "max_abs_err": mm["max_abs_err"], "ms": mm["ms"],
          "plain_ms": mm["plain_ms"], "bound_ms": mm["bound_ms"],
          "bound_by": mm["bound_by"], "library_ms": mm["library_ms"]},

@@ -287,12 +287,24 @@ class CausalTransformer(nn.Module):
 
     def forward(self, token_ids, train: bool = False, decode: bool = False,
                 return_hidden: bool = False, positions=None, pages=None,
-                seq_lens=None, cache=None):
+                seq_lens=None, cache=None, exit_layer=None):
         """Logits ``[B, L, vocab]`` (f32), or the final hidden states
         ``[B, L, E]`` with ``return_hidden``. ``decode=True`` runs the paged
         decode branch against ``cache`` (see the module docstring).
         ``train`` steers dropout in the JAX module; with dropout 0.0 (the
-        only value ported) it changes nothing."""
+        only value ported) it changes nothing.
+
+        ``exit_layer`` (an int in [1, depth]) runs only the first
+        ``exit_layer`` blocks, then ``ln_f`` and ``lm_head``: the early-exit
+        head of self-drafting speculative decoding. The arenas of the
+        layers it skips stay as they are, so a truncated drafter forward
+        and the full verify forward share one paged cache: the drafter
+        writes layers < ``exit_layer``, the verify rewrites them and fills
+        the rest."""
+        if exit_layer is not None and not 1 <= int(exit_layer) <= self.depth:
+            raise ValueError(f"exit_layer must be in [1, depth={self.depth}]"
+                             f", got {exit_layer}")
+        run_depth = self.depth if exit_layer is None else int(exit_layer)
         ids = token_ids.long()
         B, L = ids.shape
         dev = ids.device
@@ -314,7 +326,7 @@ class CausalTransformer(nn.Module):
         else:
             x = (x + self.pos_embed[:, :L]).to(self.dtype)
         remat = self.remat and not decode and torch.is_grad_enabled()
-        for i, block in enumerate(self.blocks()):
+        for i, block in enumerate(self.blocks()[:run_depth]):
             if remat:
                 x = checkpoint(block, x, valid, use_reentrant=False)
             else:

@@ -13,18 +13,38 @@ Live rows then advance together in decode chunks whose length walks down
 a power-of-two ladder to end exactly at the earliest completion, so a
 finished row's slot and pages free at the next chunk edge.
 
+Speculative decoding (``spec="self"|"draft"``): each step a drafter
+proposes k tokens per live row - the model's own first
+``spec_exit_layer`` blocks writing the shared arena, or a separate small
+``draft_module`` with its own arena over the same page ids - and one
+(k+1)-wide verify forward through the paged path scores them all;
+``models.generation.spec_accept`` keeps the leading run the target agrees
+with plus one correction token. Rollback is positional: a rejected
+draft's K/V lies past the row's cursor and the next step overwrites it.
+Pages cover the k-position lookahead from admission on
+(``KVPool.admit(lookahead=)``), and :class:`~.spec.AdaptiveK` walks k with
+the measured acceptance.
+
+Chunked prefill (``prefill_chunk_tokens``): a row whose unshared suffix is
+longer than the chunk cap (a power of two of at least one page, so chunk
+edges are page edges) takes its slot and pages at admission, then
+prefills one chunk per engine-loop turn between decode chunks (Sarathi's
+interleaving); its last chunk is a normal admission that samples the
+first token.
+
 Sampling is per row with runtime knobs (temperature, top-k, eos): greedy
 rows take the argmax; sampled rows draw from their own
-``torch.Generator``, seeded from the request's ``seed`` and the row index,
-so a request's stream does not depend on what it was batched with.
+``torch.Generator``, created when the row samples its first token and
+seeded from the request's ``seed`` and the row index, so a request's
+stream does not depend on what it was batched with, nor on chunking.
 
 Differences from the JAX engine, by design of eager PyTorch: there are no
 compiled shape buckets, so rows are not padded to ``slots`` and each chunk
-runs only the resident rows; one chunk is in flight at a time (the engine
-reads a chunk's tokens back with one copy at its end), so no fetch pool or
-pre-freeing is needed. Left for later (ROADMAP): the dense
-``BatchingDecoder``, speculative decoding, chunked prefill, KMS1
-snapshots, drain and fault replay, the pool audit, and meshes.
+or spec step runs only the resident rows; one chunk is in flight at a time
+(the engine reads a chunk's tokens back with one copy at its end), so no
+fetch pool or pre-freeing is needed. Left for later (ROADMAP): the dense
+``BatchingDecoder``, KMS1 snapshots, drain and fault replay, the pool
+audit, the PS route with ``serving/stats.py``, and meshes.
 """
 
 from __future__ import annotations
@@ -44,14 +64,15 @@ import torch
 
 from ..api.errors import EngineFaultError, KubeMLError, OverloadedError
 from ..models.generation import (GenerationInputError, PAD_ID,
-                                 _masked_scaled, init_paged_cache,
-                                 supports_paged_decode)
+                                 draft_sample, init_paged_cache, spec_accept,
+                                 spec_mask_emissions, supports_paged_decode)
 from ..models.layers import QuantizableDense, load_tree
 from ..ops.int8_matmul import resolve_int8_matmul
 from ..ops.paged_attention import resolve_kv_quant, resolve_paged_attn
 from ..utils.device import resolve_device
 from .kvpool import KVPool
 from .quant import dequantize_tree, quantize_tree
+from .spec import AdaptiveK
 
 log = logging.getLogger("kubeml.serving")
 
@@ -90,26 +111,29 @@ def _kv_page_bytes(module, page_tokens: int, kv_quant: str) -> int:
     return depth * 2 * page_tokens * embed * itemsize
 
 
+def _is_quantized(module) -> bool:
+    return any(isinstance(m, QuantizableDense) and m.quantized
+               for m in module.modules())
+
+
 def _seed_for(seed: int, index: int) -> int:
     """A distinct generator seed per (request seed, row index)."""
     return (int(seed) * 1_000_003 + index) % (2 ** 63)
 
 
-def _sample_rows(logits, temp, topk, gens, hot):
-    """One next-token draw per row with per-row knobs. logits ``[S, V]`` f32,
-    temp ``[S]`` f32, topk ``[S]`` int (0 = off); ``hot`` lists the rows
-    that sample (temperature > 0), each drawing from its own generator in
-    ``gens``; every other row takes the argmax."""
-    out = torch.argmax(logits, dim=-1)
-    if hot:
-        idx = torch.tensor(hot, device=logits.device)
-        probs = torch.softmax(
-            _masked_scaled(logits[idx], temp[idx], topk[idx], TOP_K_MAX),
-            dim=-1)
-        drawn = [torch.multinomial(probs[i], 1, generator=gens[r])
-                 for i, r in enumerate(hot)]
-        out[idx] = torch.cat(drawn)
-    return out
+def _chunk_cap(tokens: int, page_tokens: int) -> int:
+    """The prefill-chunk cap of ``prefill_chunk_tokens``: the largest power
+    of two at most ``tokens``, floored at one page. A power of two of at
+    least ``page_tokens`` (itself one) is a whole number of pages, so
+    every chunk edge is a page edge - which keeps each int8 page's scale
+    derived from one forward's tokens, as in monolithic prefill. 0 (no
+    chunking) for a knob of 0 or anything below one page."""
+    if tokens < page_tokens:
+        return 0
+    cap = page_tokens
+    while cap * 2 <= tokens:
+        cap *= 2
+    return cap
 
 
 @dataclass
@@ -123,13 +147,18 @@ class _Row:
     temp: float
     topk: int   # 0 = off
     eos: int    # -1 = off
-    gen: Optional[torch.Generator] = None  # sampled rows only
+    seed: int = 0
+    gen: Optional[torch.Generator] = None  # sampled rows, from admission
     out: List[int] = field(default_factory=list)
     done: bool = False
     canceled: bool = False
     lease: Optional[object] = None  # kvpool.PageLease while pages are held
     prefix_cached: int = 0          # prompt tokens served from the trie
     slot: int = -1
+    prefilling: bool = False        # mid chunked prefill: no decode work
+    prefill_chunks: int = 0         # prefill forwards past a monolithic one
+    spec_proposed: int = 0          # candidates verified (drafts + bonus)
+    spec_accepted: int = 0          # drafts the acceptance rule kept
 
 
 @dataclass
@@ -156,7 +185,15 @@ class _Entry:
                 "request_id": self.request_id,
                 # prompt tokens whose K/V came from the shared-prefix cache
                 "prefix_cached_tokens": sum(r.prefix_cached
-                                            for r in self.rows)}
+                                            for r in self.rows),
+                # speculative decoding (0 with spec off): candidates
+                # verified for the rows, and drafts the rule kept
+                "spec_proposed_tokens": sum(r.spec_proposed
+                                            for r in self.rows),
+                "spec_accepted_tokens": sum(r.spec_accepted
+                                            for r in self.rows),
+                # prefill forwards of the rows' prompts (0: monolithic)
+                "prefill_chunks": sum(r.prefill_chunks for r in self.rows)}
 
 
 class PagedBatchingDecoder:
@@ -174,6 +211,16 @@ class PagedBatchingDecoder:
     read (``auto``: the CUDA kernel on CUDA, ``gather``: the plain
     version), ``kv_quant="int8"`` stores pages int8, re-deriving the page
     count from the unquantized arena's byte budget.
+
+    ``spec`` (``""``/``"off"``, ``"self"``, ``"draft"``) turns on
+    speculative decoding with at most ``spec_k`` drafts a step:
+    ``"self"`` drafts with the first ``spec_exit_layer`` blocks (0:
+    depth // 2), ``"draft"`` with ``draft_module`` (same vocabulary,
+    ``max_len`` at least the target's, on the same device; quantized like
+    the target). ``spec_adaptive`` lets k follow the acceptance;
+    ``spec_min_accept`` is the draft backend's acceptance floor (0: off).
+    ``prefill_chunk_tokens`` > 0 prefills long suffixes in chunks of
+    ``_chunk_cap`` tokens interleaved with decode (0: monolithic).
     """
 
     def __init__(self, module, *, slots: int = DEFAULT_SLOTS,
@@ -182,6 +229,10 @@ class PagedBatchingDecoder:
                  paged_attn: str = "auto", kv_quant: str = "off",
                  quantize: str = "", int8_matmul: bool = False,
                  int8_matmul_impl: str = "auto", queue_limit: int = 256,
+                 spec: str = "", spec_k: int = 4, spec_adaptive: bool = True,
+                 draft_module=None, spec_exit_layer: int = 0,
+                 spec_min_accept: float = 0.10,
+                 prefill_chunk_tokens: int = 0,
                  name: str = "decoder", device=None):
         self.device = resolve_device(device)
         if not supports_paged_decode(module):
@@ -198,8 +249,7 @@ class PagedBatchingDecoder:
         if quantize not in ("", "int8"):
             raise ValueError(f"unknown quantize mode {quantize!r} "
                              f"(valid: '', 'int8')")
-        pre_quantized = any(isinstance(m, QuantizableDense) and m.quantized
-                            for m in module.modules())
+        pre_quantized = _is_quantized(module)
         if pre_quantized and quantize != "int8":
             raise ValueError("module carries int8 kernels but quantize is "
                              "not 'int8'")
@@ -209,22 +259,18 @@ class PagedBatchingDecoder:
         self.chunk_steps = int(chunk_steps)
         self.queue_limit = int(queue_limit)
         self.name = name
+        self._init_spec(spec, spec_k, spec_adaptive, draft_module,
+                        spec_exit_layer, spec_min_accept, quantize)
         # a module that already holds int8 kernels runs them natively
+        self.quantize = quantize
         self.int8_matmul = quantize == "int8" and (bool(int8_matmul)
                                                    or pre_quantized)
         self.int8_matmul_impl = resolve_int8_matmul(int8_matmul_impl,
                                                     self.device)
-        if quantize == "int8" and not pre_quantized:
-            tree = quantize_tree(module.state_dict())
-            if self.int8_matmul:
-                load_tree(module, tree, int8_impl=self.int8_matmul_impl)
-            else:
-                # the dequantize path: dense weights holding q * s
-                load_tree(module, dequantize_tree(tree, torch.float32))
-        elif pre_quantized:
-            for m in module.modules():
-                if isinstance(m, QuantizableDense):
-                    m.int8_impl = self.int8_matmul_impl
+        self._load_int8(module)
+        if self.draft_module is not None:
+            # the drafter rides the target's int8 path
+            self._load_int8(self.draft_module)
 
         pt = int(page_tokens)
         self.page_tokens = pt
@@ -242,6 +288,12 @@ class PagedBatchingDecoder:
         self.paged_attn = resolve_paged_attn(paged_attn, self.device)
         self.cache = init_paged_cache(module, npages, pt, self.kv_quant,
                                       self.paged_attn)
+        # the drafter's own arena: the same page ids (so shared-prefix pages
+        # hold valid draft K/V too), its own depth and heads, the same read
+        # path and storage
+        self.draft_cache = (init_paged_cache(self.draft_module, npages, pt,
+                                             self.kv_quant, self.paged_attn)
+                            if self.draft_module is not None else None)
         # chunk ladder: every power of two below chunk_steps, and
         # chunk_steps itself, so a chunk can end at any completion
         ladder = {self.chunk_steps}
@@ -250,6 +302,9 @@ class PagedBatchingDecoder:
             ladder.add(t)
             t *= 2
         self._chunk_sizes = sorted(ladder)
+        self.prefill_chunk = _chunk_cap(int(prefill_chunk_tokens), pt)
+        # rows mid chunked prefill, in admission order
+        self._prefill_pending: List[_Row] = []
 
         self._pending: deque = deque()
         self._slot_rows: List[Optional[_Row]] = [None] * self.slots
@@ -265,7 +320,83 @@ class PagedBatchingDecoder:
              "tokens_emitted", "prefill_waves", "prefill_tokens",
              "prefill_seconds", "decode_chunks", "decode_steps",
              "decode_row_steps", "decode_seconds", "prefix_hits",
-             "prefix_tokens_saved"), 0.0)
+             "prefix_tokens_saved", "prefill_chunks", "prefill_chunk_tokens",
+             "hol_stall_seconds", "spec_steps", "spec_drafted_tokens",
+             "spec_proposed_tokens", "spec_accepted_tokens"), 0.0)
+
+    def _init_spec(self, spec, spec_k, spec_adaptive, draft_module,
+                   spec_exit_layer, spec_min_accept, quantize) -> None:
+        """Validate the speculative-decoding configuration (the JAX
+        engine's rules; nothing is quantized or allocated before it
+        passes) and build the adaptive-k controller."""
+        if spec in ("off", None):
+            spec = ""
+        if spec not in ("", "draft", "self"):
+            raise ValueError(f"unknown spec mode {spec!r} "
+                             f"(valid: 'off', 'draft', 'self')")
+        self.spec = spec
+        self.spec_exit_layer = 0
+        self.draft_module = None
+        if spec == "draft":
+            if draft_module is None:
+                raise GenerationInputError("spec='draft' needs a draft module")
+            if not supports_paged_decode(draft_module):
+                raise GenerationInputError(
+                    "draft module has no paged decode path")
+            if (getattr(draft_module, "vocab_size", None)
+                    != getattr(self.module, "vocab_size", None)):
+                raise GenerationInputError(
+                    "draft and target models must share one vocabulary")
+            if int(getattr(draft_module, "max_len", 0)) < self.max_len:
+                raise GenerationInputError(
+                    f"draft model max_len "
+                    f"({getattr(draft_module, 'max_len', None)}) must cover "
+                    f"the target's ({self.max_len})")
+            if draft_module.device != self.device:
+                raise ValueError(f"draft module lives on "
+                                 f"{draft_module.device}, the decoder on "
+                                 f"{self.device}; move it first")
+            if _is_quantized(draft_module) and quantize != "int8":
+                raise ValueError("draft module carries int8 kernels but "
+                                 "quantize is not 'int8'")
+            self.draft_module = draft_module.eval()
+        elif spec == "self":
+            depth = self.module.depth
+            e = int(spec_exit_layer or max(1, depth // 2))
+            if not 1 <= e <= depth:
+                raise GenerationInputError(
+                    f"spec_exit_layer must be in [1, depth={depth}], got {e}")
+            self.spec_exit_layer = e
+        # the draft backend never suspends (its arena is coherent only
+        # while the drafter sees every token) and retreats through the
+        # min_accept floor instead; self-drafting suspends and re-probes
+        self._spec_ctl = (AdaptiveK(
+            int(spec_k), adaptive=bool(spec_adaptive),
+            allow_off=spec == "self",
+            min_accept=float(spec_min_accept) if spec == "draft" else 0.0)
+            if spec else None)
+        self._spec_disabled_logged = False
+        # a verify writes up to k positions past a row's final token before
+        # the host learns they were rejected: admission reserves them
+        self._spec_lookahead = int(spec_k) if spec else 0
+
+    def _load_int8(self, module) -> None:
+        """Install the int8 weights of ``quantize="int8"`` into ``module``
+        in place: int8 kernels for the int8 matmul, else their dequantized
+        values; a module that already holds int8 kernels keeps them."""
+        if self.quantize != "int8":
+            return
+        if _is_quantized(module):
+            for m in module.modules():
+                if isinstance(m, QuantizableDense):
+                    m.int8_impl = self.int8_matmul_impl
+            return
+        tree = quantize_tree(module.state_dict())
+        if self.int8_matmul:
+            load_tree(module, tree, int8_impl=self.int8_matmul_impl)
+        else:
+            # the dequantize path: dense weights holding q * s
+            load_tree(module, dequantize_tree(tree, torch.float32))
 
     # --- public API ---
 
@@ -300,17 +431,13 @@ class PagedBatchingDecoder:
                        submitted_at=time.monotonic(),
                        request_id=f"{self._req_prefix}-r{next(self._req_seq)}")
         for i in range(B):
-            gen = None
-            if req.temperature > 0:
-                gen = torch.Generator(device=self.device)
-                gen.manual_seed(_seed_for(req.seed, i))
             entry.rows.append(_Row(
                 entry=entry, index=i,
                 prompt=prompts[i, :lens[i]].astype(np.int32),
                 max_new=req.max_new_tokens, temp=float(req.temperature),
                 topk=int(req.top_k or 0),
                 eos=int(req.eos_id) if req.eos_id is not None else -1,
-                gen=gen))
+                seed=int(req.seed or 0)))
         with self._cond:
             if self._closed:
                 raise DecoderClosed()
@@ -335,9 +462,10 @@ class PagedBatchingDecoder:
     def _check_capacity(self, plen: int, max_new: int) -> None:
         """400 for a row no amount of queueing could ever admit."""
         if not self._pool.can_admit(plen, max_new,
+                                    lookahead=self._spec_lookahead,
                                     max_positions=self.max_len):
             need = self._pool.pages_for(self._pool.total_positions(
-                plen, max_new, self.max_len))
+                plen, max_new, self._spec_lookahead, self.max_len))
             raise KubeMLError(
                 f"request needs {need} KV pages but the arena holds "
                 f"{self._pool.capacity}", 400)
@@ -407,6 +535,23 @@ class PagedBatchingDecoder:
             1.0 if self.int8_matmul and self.int8_matmul_impl == "cuda"
             else 0.0)
         snap["kv_quant"] = 1.0 if self.kv_quant == "int8" else 0.0
+        # rows holding a slot and pages mid chunked prefill
+        snap["prefills_in_progress"] = float(len(self._prefill_pending))
+        # the speculative-decoding series exist once a spec step ran
+        if not snap["spec_steps"]:
+            for key in ("spec_steps", "spec_drafted_tokens",
+                        "spec_proposed_tokens", "spec_accepted_tokens"):
+                del snap[key]
+        else:
+            snap["spec_accept_rate"] = (snap["spec_accepted_tokens"]
+                                        / snap["spec_drafted_tokens"])
+        if self._spec_ctl is not None:
+            # the adaptive k (0: speculation suspended or disabled), its
+            # EWMA acceptance once sampled, and the draft floor's trip
+            snap["spec_k"] = float(self._spec_ctl.current())
+            if self._spec_ctl.ratio >= 0:
+                snap["spec_accept_ewma"] = float(self._spec_ctl.ratio)
+            snap["spec_disabled"] = 1.0 if self._spec_ctl.disabled else 0.0
         return snap
 
     # --- engine loop (one thread owns the device state) ---
@@ -429,13 +574,31 @@ class PagedBatchingDecoder:
                 admits = self._take_admissions_locked()
             try:
                 with torch.inference_mode():
-                    for group in self._group_admits(admits):
+                    whole = []
+                    for row in admits:
+                        if (self.prefill_chunk and len(row.prompt)
+                                - row.lease.prefill_pos > self.prefill_chunk):
+                            # a long cold suffix prefills in page-aligned
+                            # chunks interleaved with decode
+                            row.prefilling = True
+                            self._prefill_pending.append(row)
+                        else:
+                            whole.append(row)
+                    for group in self._group_admits(whole):
                         self._prefill(group)
                     self._evict_canceled()
+                    advanced = self._advance_prefills()
                     size = self._chunk_size()
                     if size:
-                        self._decode_chunk(size)
-                if not admits and not size:
+                        k = (self._spec_ctl.current()
+                             if self._spec_ctl is not None else 0)
+                        if k:
+                            self._spec_step(k)
+                        else:
+                            self._decode_chunk(size)
+                            if self._spec_ctl is not None:
+                                self._spec_ctl.on_plain_chunk()
+                if not admits and not advanced and not size:
                     # only the queue head is waiting (for pages): yield
                     with self._cond:
                         self._cond.wait(0.01)
@@ -446,12 +609,14 @@ class PagedBatchingDecoder:
                 self._pool = KVPool(self._pool.num_pages, self.page_tokens,
                                     prefix_cache=self._pool.trie is not None)
                 self.cache.zero_()
+                if self.draft_cache is not None:
+                    self.draft_cache.zero_()
 
     def _take_admissions_locked(self) -> List[_Row]:
         """Admit queued rows FIFO while a slot is free AND the page budget
-        covers them (worst case: prompt + max_new - 1 positions, minus what
-        the prefix trie already holds). The head of the line blocks the
-        tail."""
+        covers them (worst case: prompt + max_new - 1 positions and the
+        speculative lookahead, minus what the prefix trie already holds).
+        The head of the line blocks the tail."""
         admits = []
         while self._pending and self._free:
             row = self._pending[0]
@@ -459,6 +624,7 @@ class PagedBatchingDecoder:
                 self._pending.popleft()
                 continue
             lease = self._pool.admit(row.prompt, row.max_new,
+                                     lookahead=self._spec_lookahead,
                                      max_positions=self.max_len)
             if lease is None:
                 break
@@ -474,60 +640,99 @@ class PagedBatchingDecoder:
         return admits
 
     def _group_admits(self, admits: List[_Row]) -> List[List[_Row]]:
-        """Group by unshared-suffix length bucket: one prefill forward per
-        bucket."""
+        """Group by the length bucket of the suffix still to prefill (past
+        the shared prefix, or past a chunked row's earlier chunks): one
+        prefill forward per bucket."""
         groups: Dict[int, List[_Row]] = {}
         for row in admits:
-            sfx = max(len(row.prompt) - row.lease.prefix_tokens, 1)
+            sfx = max(len(row.prompt) - row.lease.prefill_pos, 1)
             groups.setdefault(_pow2_bucket(sfx, _BUCKET_MIN, self.max_len),
                               []).append(row)
         return list(groups.values())
 
     def _knobs(self, rows: List[_Row]):
+        """Per-row temperature and top-k tensors, and each row's generator
+        (None for greedy rows)."""
         dev = self.device
         temp = torch.tensor([r.temp for r in rows], dtype=torch.float32,
                             device=dev)
         topk = torch.tensor([r.topk for r in rows], dtype=torch.int64,
                             device=dev)
-        hot = [i for i, r in enumerate(rows) if r.temp > 0]
-        return temp, topk, [r.gen for r in rows], hot
+        return temp, topk, [r.gen for r in rows]
+
+    def _stalled_rows(self) -> List[_Row]:
+        """The rows a prefill forward delays: resident rows that decode and
+        have tokens left to emit. Rows mid chunked prefill are not decoding
+        yet (their own wait is their time to first token)."""
+        return [r for r in self._slot_rows
+                if r is not None and not r.done and not r.canceled
+                and not r.prefilling and r.out
+                and r.max_new - len(r.out) > 0]
+
+    def _prefill_forward(self, rows, tokens, base, seq_lens, width):
+        """One suffix-prefill forward of ``rows`` straight into the arena
+        (and the drafter's, in draft mode): ``tokens [n, L]`` from logical
+        positions ``base``, through tables ``width`` pages wide. Returns
+        the target's final hidden states."""
+        dev = self.device
+        table = np.zeros((len(rows), width), np.int32)
+        for i, r in enumerate(rows):
+            pgs = r.lease.pages[:width]
+            table[i, :len(pgs)] = pgs
+        kw = dict(decode=True, return_hidden=True,
+                  positions=torch.tensor(base, dtype=torch.int32, device=dev),
+                  pages=torch.from_numpy(table).to(dev),
+                  seq_lens=(torch.tensor(seq_lens, dtype=torch.int64,
+                                         device=dev)
+                            if seq_lens is not None else None))
+        ids = torch.from_numpy(tokens).to(dev)
+        hidden = self.module(ids, cache=self.cache, **kw)
+        if self.draft_module is not None:
+            self.draft_module(ids, cache=self.draft_cache, **kw)
+        return hidden
+
+    def _charge_stall(self, stalled: List[_Row], seconds: float) -> None:
+        with self._cond:
+            self._stats["prefill_seconds"] += seconds
+            self._stats["hol_stall_seconds"] += seconds * len(stalled)
 
     def _prefill(self, group: List[_Row]) -> None:
-        """Prefill the group's unshared suffixes in one forward straight
+        """Prefill the group's remaining suffixes in one forward straight
         into the arena, sample each row's first token, and register the
         full prompt blocks in the prefix trie for later sharers."""
         t0 = time.monotonic()
+        stalled = self._stalled_rows()
         pt = self.page_tokens
         k = len(group)
-        suffixes = [r.prompt[r.lease.prefix_tokens:] for r in group]
+        suffixes = [r.prompt[r.lease.prefill_pos:] for r in group]
         width = max(len(s) for s in suffixes)
         tw = min(self.table_pages,
                  max(-(-len(r.prompt) // pt) for r in group))
         tokens = np.zeros((k, width), np.int64)
-        table = np.zeros((k, tw), np.int32)
-        for i, (r, sfx) in enumerate(zip(group, suffixes)):
+        for i, sfx in enumerate(suffixes):
             tokens[i, :len(sfx)] = sfx
-            pgs = r.lease.pages[:tw]
-            table[i, :len(pgs)] = pgs
-        dev = self.device
-        base = torch.tensor([r.lease.prefix_tokens for r in group],
-                            dtype=torch.int32, device=dev)
-        slens = torch.tensor([len(s) for s in suffixes], dtype=torch.int64,
-                             device=dev)
-        hidden = self.module(torch.from_numpy(tokens).to(dev), decode=True,
-                             return_hidden=True, positions=base,
-                             pages=torch.from_numpy(table).to(dev),
-                             seq_lens=slens, cache=self.cache)
+        slens = [len(s) for s in suffixes]
+        hidden = self._prefill_forward(
+            group, tokens, [r.lease.prefill_pos for r in group], slens, tw)
         # logits only at each row's last real prompt token
-        last = hidden[torch.arange(k, device=dev), slens - 1]
+        dev = self.device
+        last = hidden[torch.arange(k, device=dev),
+                      torch.tensor(slens, device=dev) - 1]
         logits = self.module.lm_head(last).float()
-        firsts = _sample_rows(logits, *self._knobs(group)).tolist()
+        for r in group:
+            # the generator starts at the first sample, as the JAX key
+            # does, so chunking leaves the sampled stream as it was
+            if r.temp > 0 and r.gen is None:
+                r.gen = torch.Generator(device=dev)
+                r.gen.manual_seed(_seed_for(r.seed, r.index))
+        firsts = draft_sample(logits, *self._knobs(group), TOP_K_MAX,
+                              with_probs=False)[0].tolist()
         for r in group:
             self._pool.register_prefix(r.prompt, r.lease)
+        self._charge_stall(stalled, time.monotonic() - t0)
         with self._cond:
             self._stats["prefill_waves"] += 1
-            self._stats["prefill_tokens"] += float(sum(map(len, suffixes)))
-            self._stats["prefill_seconds"] += time.monotonic() - t0
+            self._stats["prefill_tokens"] += float(sum(slens))
         for r, tok in zip(group, firsts):
             if r.canceled:
                 continue
@@ -536,66 +741,214 @@ class PagedBatchingDecoder:
             if (r.eos >= 0 and tok == r.eos) or r.max_new <= 1:
                 self._complete_row(r)
 
+    def _advance_prefills(self) -> bool:
+        """One engine-loop turn of chunked prefill: every pending row
+        advances at most one chunk. Rows whose remaining suffix fits a
+        chunk run a real admission (first token, generator, prefix
+        registration - what a monolithic admission at that cursor does);
+        the rest advance one intermediate chunk together. Returns whether
+        anything ran."""
+        if not self._prefill_pending:
+            return False
+        cap = self.prefill_chunk
+        finals, chunkable = [], []
+        for row in self._prefill_pending:
+            if row.done or row.canceled:
+                continue  # _evict_canceled released its slot and pages
+            (finals if len(row.prompt) - row.lease.prefill_pos <= cap
+             else chunkable).append(row)
+        self._prefill_pending = chunkable
+        for group in self._group_admits(finals):
+            n_tok = sum(len(r.prompt) - r.lease.prefill_pos for r in group)
+            # the rows stay ``prefilling`` through their own forward, so
+            # they are not counted among the rows it stalls
+            self._prefill(group)
+            for r in group:
+                r.prefilling = False
+                r.prefill_chunks += 1
+            with self._cond:
+                self._stats["prefill_chunks"] += len(group)
+                self._stats["prefill_chunk_tokens"] += n_tok
+        if chunkable:
+            self._prefill_chunk(chunkable)
+        return bool(finals or chunkable)
+
+    def _prefill_chunk(self, rows: List[_Row]) -> None:
+        """One page-aligned intermediate chunk of ``prefill_chunk`` tokens
+        for every row mid prefill, in one forward: K/V into the rows' own
+        pages, nothing sampled. Each chunk is whole pages, so each arena
+        page - and each int8 page's scatter-max scale - comes from one
+        forward's tokens, chunked or monolithic."""
+        t0 = time.monotonic()
+        stalled = self._stalled_rows()
+        cap = self.prefill_chunk
+        pt = self.page_tokens
+        tokens = np.stack([r.prompt[r.lease.prefill_pos:
+                                    r.lease.prefill_pos + cap]
+                           for r in rows]).astype(np.int64)
+        tw = min(self.table_pages,
+                 max(-(-(r.lease.prefill_pos + cap) // pt) for r in rows))
+        self._prefill_forward(rows, tokens,
+                              [r.lease.prefill_pos for r in rows], None, tw)
+        if self.device.type == "cuda":
+            # the chunk's device time is the stall it charges
+            torch.cuda.synchronize(self.device)
+        for r in rows:
+            r.lease.prefill_pos += cap
+            r.prefill_chunks += 1
+        self._charge_stall(stalled, time.monotonic() - t0)
+        with self._cond:
+            self._stats["prefill_chunks"] += len(rows)
+            self._stats["prefill_chunk_tokens"] += cap * len(rows)
+            self._stats["prefill_tokens"] += cap * len(rows)
+
+    def _decode_rows(self) -> List[_Row]:
+        """The resident rows with decode work (not finished, canceled, or
+        mid chunked prefill)."""
+        return [r for r in self._slot_rows
+                if r is not None and not r.done and not r.canceled
+                and not r.prefilling]
+
     def _chunk_size(self) -> int:
         """The largest ladder chunk that ends at or before the earliest
-        completion of a resident row (0 = no row needs a step)."""
-        rem = [r.max_new - len(r.out) for r in self._slot_rows
-               if r is not None and not r.done and not r.canceled]
+        completion of a decoding row (0 = no row needs a step)."""
+        rem = [r.max_new - len(r.out) for r in self._decode_rows()]
         rem = [n for n in rem if n > 0]
         if not rem:
             return 0
         soonest = min(rem)
         return max(t for t in self._chunk_sizes if t <= soonest)
 
-    def _decode_chunk(self, size: int) -> None:
-        """Advance every resident row ``size`` tokens; rows that hit their
-        eos mid-chunk freeze (feed their last token at their last position,
-        rewriting identical K/V) and emit nothing more."""
-        t0 = time.monotonic()
-        rows = [r for r in self._slot_rows
-                if r is not None and not r.done and not r.canceled]
+    def _step_inputs(self, rows: List[_Row], ahead: int):
+        """Page tables and cursors of a decode chunk or spec step that
+        writes ``ahead`` positions per row: the table covers them, capped
+        at each row's lease (positions past it were trash-bound anyway).
+        Returns (table, tok, pos, remaining, eos)."""
         pt = self.page_tokens
         dev = self.device
         pos0 = [len(r.prompt) + len(r.out) - 1 for r in rows]
-        # the table covers every position the chunk writes, capped at each
-        # row's lease (positions past it were trash-bound anyway)
-        tw = max(min(-(-(p + size) // pt), len(r.lease.pages))
+        tw = max(min(-(-(p + ahead) // pt), len(r.lease.pages))
                  for p, r in zip(pos0, rows))
         table = np.zeros((len(rows), tw), np.int32)
         for i, r in enumerate(rows):
             pgs = r.lease.pages[:tw]
             table[i, :len(pgs)] = pgs
-        table = torch.from_numpy(table).to(dev)
-        tok = torch.tensor([r.out[-1] for r in rows], dtype=torch.int64,
-                           device=dev)
-        pos = torch.tensor(pos0, dtype=torch.int32, device=dev)
-        remaining = torch.tensor([r.max_new - len(r.out) for r in rows],
-                                 dtype=torch.int32, device=dev)
-        eos = torch.tensor([r.eos for r in rows], dtype=torch.int64,
-                           device=dev)
+        return (torch.from_numpy(table).to(dev),
+                torch.tensor([r.out[-1] for r in rows], dtype=torch.int64,
+                             device=dev),
+                torch.tensor(pos0, dtype=torch.int32, device=dev),
+                torch.tensor([r.max_new - len(r.out) for r in rows],
+                             dtype=torch.int32, device=dev),
+                torch.tensor([r.eos for r in rows], dtype=torch.int64,
+                             device=dev))
+
+    def _decode_chunk(self, size: int) -> None:
+        """Advance every decoding row ``size`` tokens; rows that hit their
+        eos mid-chunk freeze (feed their last token at their last position,
+        rewriting identical K/V) and emit nothing more."""
+        t0 = time.monotonic()
+        rows = self._decode_rows()
+        dev = self.device
+        table, tok, pos, remaining, eos = self._step_inputs(rows, size)
         live = torch.ones(len(rows), dtype=torch.bool, device=dev)
         knobs = self._knobs(rows)
         out = torch.empty((size, len(rows)), dtype=torch.int64, device=dev)
         for t in range(size):
             logits = self.module(tok[:, None], decode=True, positions=pos,
                                  pages=table, cache=self.cache)[:, -1]
-            nxt = _sample_rows(logits, *knobs)
+            nxt = draft_sample(logits, *knobs, TOP_K_MAX,
+                               with_probs=False)[0]
             was_live = live
             remaining = remaining - was_live.int()
             live = was_live & ~((eos >= 0) & (nxt == eos)) & (remaining > 0)
             out[t] = torch.where(was_live, nxt, torch.full_like(nxt, -1))
             tok = torch.where(live, nxt, tok)
             pos = torch.where(live, pos + 1, pos)
-        packed = out.cpu().numpy()  # the chunk's one device->host copy
+        packed = out.T.cpu().numpy()  # the chunk's one device->host copy
         with self._cond:
             self._stats["decode_chunks"] += 1
             self._stats["decode_steps"] += size
             self._stats["decode_row_steps"] += size * len(rows)
             self._stats["decode_seconds"] += time.monotonic() - t0
-        for i, r in enumerate(rows):
+        self._route(rows, packed)
+
+    def _spec_step(self, k: int) -> None:
+        """One speculative step over every decoding row: the drafter
+        proposes k tokens a row (k forwards of L 1; the draft backend runs
+        one more, write-only, so the last draft's K/V lands in its arena
+        too), the target scores all k+1 positions in one verify forward,
+        ``spec_accept`` emits the accepted run plus one correction, and
+        ``spec_mask_emissions`` clips it at eos and ``max_new``. Rollback
+        is positional: the next step starts at each row's emitted length
+        and overwrites the rejected positions. Tokens and accepted counts
+        come back in one copy."""
+        t0 = time.monotonic()
+        rows = self._decode_rows()
+        S = len(rows)
+        dev = self.device
+        table, tok, pos, remaining, eos = self._step_inputs(rows, k + 1)
+        temp, topk, gens = self._knobs(rows)
+        sampled = any(g is not None for g in gens)
+        if self.spec == "self":
+            dmod, dcache = self.module, self.cache
+            dkw = {"exit_layer": self.spec_exit_layer}
+        else:
+            dmod, dcache, dkw = self.draft_module, self.draft_cache, {}
+        drafts = torch.empty((S, k), dtype=torch.int64, device=dev)
+        # the drafter's q, read by the acceptance test of sampled rows
+        q = (torch.empty((S, k, self.module.vocab_size), device=dev)
+             if sampled else None)
+        d_tok, d_pos = tok, pos
+        for i in range(k):
+            lg = dmod(d_tok[:, None], decode=True, positions=d_pos,
+                      pages=table, cache=dcache, **dkw)[:, -1]
+            d_tok, probs = draft_sample(lg, temp, topk, gens, TOP_K_MAX,
+                                        with_probs=sampled)
+            if q is not None:
+                q[:, i] = probs
+            drafts[:, i] = d_tok
+            d_pos = d_pos + 1
+        if self.spec == "draft":
+            dmod(d_tok[:, None], decode=True, return_hidden=True,
+                 positions=d_pos, pages=table, cache=dcache)
+        logits = self.module(torch.cat([tok[:, None], drafts], dim=1),
+                             decode=True, positions=pos, pages=table,
+                             cache=self.cache)
+        emit, n_acc = spec_accept(logits, drafts, q, temp, topk, gens,
+                                  TOP_K_MAX)
+        out, _, _, _, _ = spec_mask_emissions(
+            emit, n_acc, torch.ones(S, dtype=torch.bool, device=dev),
+            remaining, eos, tok)
+        packed = torch.cat([out, n_acc[:, None]], dim=1).cpu().numpy()
+        accepted = int(packed[:, -1].sum())
+        with self._cond:
+            self._stats["decode_chunks"] += 1
+            self._stats["decode_steps"] += 1  # one device step
+            self._stats["decode_row_steps"] += S
+            self._stats["decode_seconds"] += time.monotonic() - t0
+            self._stats["spec_steps"] += 1
+            self._stats["spec_drafted_tokens"] += k * S
+            self._stats["spec_proposed_tokens"] += (k + 1) * S
+            self._stats["spec_accepted_tokens"] += accepted
+        ctl = self._spec_ctl
+        ctl.on_step(k * S, accepted)
+        if ctl.disabled and not self._spec_disabled_logged:
+            self._spec_disabled_logged = True
+            log.warning("%s: draft speculation disabled - sustained "
+                        "acceptance %.3f below spec_min_accept=%.3f; "
+                        "decoding continues plain", self.name, ctl.ratio,
+                        ctl.min_accept)
+        for r, n in zip(rows, packed[:, -1]):
+            r.spec_proposed += k + 1
+            r.spec_accepted += int(n)
+        self._route(rows, packed[:, :-1])
+
+    def _route(self, rows: List[_Row], packed: np.ndarray) -> None:
+        """Append each row's emitted tokens (``packed [rows, T]``, -1 past
+        them), stream them, and complete the rows that finished."""
+        for r, toks in zip(rows, packed):
             fresh = []
-            for t in range(size):
-                tok_i = int(packed[t, i])
+            for tok_i in toks.tolist():
                 if tok_i < 0:
                     break
                 fresh.append(tok_i)
@@ -609,10 +962,15 @@ class PagedBatchingDecoder:
                 self._complete_row(r)
 
     def _evict_canceled(self) -> None:
+        """Free the slot and pages of every canceled resident row, mid
+        chunked prefill too (its lease returns exactly once; the prefill
+        ledger drops it)."""
         for r in self._slot_rows:
             if r is not None and r.canceled and not r.done:
                 r.done = True
                 self._release_row(r)
+        self._prefill_pending = [r for r in self._prefill_pending
+                                 if not r.done]
 
     def _release_row(self, r: _Row) -> None:
         self._pool.release(r.lease)
@@ -657,6 +1015,7 @@ class PagedBatchingDecoder:
             self._pending.clear()
             self._slot_rows = [None] * self.slots
             self._free = list(range(self.slots))
+            self._prefill_pending = []
         for r in rows:
             if r.lease is not None:
                 self._pool.release(r.lease)

@@ -55,6 +55,11 @@ class PageLease:
     shared: int = 0          # leading pages refcount-shared via the trie
     prefix_tokens: int = 0   # prompt tokens those shared pages cover
     released: bool = False
+    # chunked-prefill cursor: prompt tokens whose K/V is already in the
+    # arena - prefix_tokens at admission, advanced one page-aligned chunk
+    # per engine-loop turn until the final chunk samples the first token.
+    # Monolithic prefill never moves it.
+    prefill_pos: int = 0
 
 
 class _TrieNode:
@@ -157,6 +162,11 @@ class PrefixTrie:
                     return freed
         return freed
 
+    def flush(self) -> int:
+        """Release every trie-held page whose refcount allows it (all of
+        them once no lease is outstanding). Returns pages freed."""
+        return self.evict(self.nodes)
+
     def pages(self) -> List[int]:
         out, stack = [], [self._root]
         while stack:
@@ -201,6 +211,9 @@ class KVPool:
         """Allocatable pages (excludes the trash page)."""
         return self.num_pages - 1
 
+    def free_pages(self) -> int:
+        return len(self._free)
+
     def pages_for(self, total_tokens: int) -> int:
         """Pages a row writing ``total_tokens`` positions needs."""
         return -(-int(total_tokens) // self.page_tokens)
@@ -239,32 +252,40 @@ class KVPool:
     # --- the admission interface (engine thread) ---
 
     def total_positions(self, prompt_len: int, max_new: int,
+                        lookahead: int = 0,
                         max_positions: Optional[int] = None) -> int:
         """Worst-case cache positions one row can WRITE: prompt +
         ``max_new - 1`` decode writes (the last emitted token is returned,
-        never written). ``max_positions`` (the model's ``max_len``) clamps
-        the sum: the device trash-redirects writes past the addressable
-        range, so no page backs them."""
-        total = int(prompt_len) + int(max_new) - 1
+        never written) + ``lookahead`` speculative positions (a verify at
+        depth k writes up to k positions past the row's final token before
+        the host learns they were rejected). ``max_positions`` (the
+        model's ``max_len``) clamps the sum: the device trash-redirects
+        writes past the addressable range, so no page backs them."""
+        total = int(prompt_len) + int(max_new) - 1 + int(lookahead)
         if max_positions is not None:
             total = min(total, int(max_positions))
         return total
 
-    def can_admit(self, prompt_len: int, max_new: int,
+    def can_admit(self, prompt_len: int, max_new: int, lookahead: int = 0,
                   max_positions: Optional[int] = None) -> bool:
         """Whether a row could EVER be admitted (fits the arena outright,
-        ignoring current occupancy) — the submit-time 400 guard."""
+        ignoring current occupancy) — the submit-time 400 guard. Clamped
+        at ``max_positions``, the lookahead never refuses a request the
+        plain engine accepts."""
         return self.pages_for(self.total_positions(
-            prompt_len, max_new, max_positions)) <= self.capacity
+            prompt_len, max_new, lookahead, max_positions)) <= self.capacity
 
     def admit(self, prompt: Sequence[int], max_new: int,
+              lookahead: int = 0,
               max_positions: Optional[int] = None) -> Optional[PageLease]:
         """Reserve one row's full worst-case page table: shared prefix
-        pages (refcount bumped) + fresh pages for the unshared suffix and
-        every decode position. None (nothing changed) when the pool can't
-        cover it — the row stays queued for the next chunk edge."""
+        pages (refcount bumped) + fresh pages for the unshared suffix,
+        every decode position and the speculative ``lookahead`` window
+        (held for the row's whole life, so a rollback can never run out of
+        pages). None (nothing changed) when the pool can't cover it — the
+        row stays queued for the next chunk edge."""
         plen = len(prompt)
-        total = self.total_positions(plen, max_new, max_positions)
+        total = self.total_positions(plen, max_new, lookahead, max_positions)
         need = self.pages_for(total)
         shared: List[int] = []
         if self.trie is not None and plen > 1:
@@ -278,7 +299,7 @@ class KVPool:
             return None
         pre = len(shared) * self.page_tokens
         return PageLease(pages=shared + fresh, shared=len(shared),
-                         prefix_tokens=pre)
+                         prefix_tokens=pre, prefill_pos=pre)
 
     def register_prefix(self, prompt: Sequence[int], lease: PageLease) -> None:
         """Cache a just-dispatched prefill's full prompt blocks for future

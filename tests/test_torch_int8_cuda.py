@@ -37,13 +37,14 @@ def weights(g, K, N):
 @pytest.mark.parametrize("K", [100, 101, 768, 3072, 3100])
 @pytest.mark.parametrize("N", [257, 768, 50257])
 def test_kernel_matches_int8_dot(card, K, N):
-    """M 1, 3, 8 (one 8-row tile), 9, 17 and 200 (32-row tiles, ragged);
+    """M 1, 3, 8 (one 8-row tile), 9, 16, 17, 24, 40 (16, 24 and 40: the
+    spec verify of 8 rows at k 1, 2 and 4) and 200 (32-row tiles, ragged);
     ragged K and N (257 and 50257 are not multiples of 16, so Q arrives by
     16-byte copies of each row, not TMA boxes; K 101 leaves x's rows 4-byte
     aligned in f32 and 2-byte aligned in bf16, copied value by value); f32
     and bf16 in and out; repeated calls bit-identical."""
     q, s = weights(card, K, N)
-    for M in (1, 3, 8, 9, 17, 200):
+    for M in (1, 3, 8, 9, 16, 17, 24, 40, 200):
         for xd in (torch.float32, torch.bfloat16):
             x = torch.randn(M, K, generator=card).to(xd).cuda()
             for yd in (torch.float32, torch.bfloat16):

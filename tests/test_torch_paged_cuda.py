@@ -89,6 +89,29 @@ def test_kernel_matches_plain(card, D, pt, kv_dtype):
             assert torch.equal(out, again), (B, L, plan)
 
 
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16,
+                                      torch.int8])
+def test_spec_verify_and_prefill_chunk_shapes(card, kv_dtype):
+    """GPT-2-small geometry (H 12, D 64, 16-token pages, 64-page tables):
+    the spec verify at L 2, 3 and 5 over 8 rows at any cursor (mid-page,
+    page edges, the table's last positions), and a 256-token prefill chunk
+    at the whole-page cursors 256, 512 and 768; two launches
+    bit-identical."""
+    cases = [(L, [0, 15, 16, 31, 200, 511, 1018, 1024 - L])
+             for L in (2, 3, 5)]
+    cases.append((256, [256, 512, 768]))
+    for L, pos in cases:
+        q, kp, vp, pages, positions, sc = inputs(card, pos, L, 12, 64, 16,
+                                                 64, kv_dtype)
+        out = paged_attention(q, kp, vp, pages, positions, **sc)
+        again = paged_attention(q, kp, vp, pages, positions, **sc)
+        ref = paged_attention_ref(q, kp, vp, pages, positions, **sc)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= PA_TOL[kv_dtype], (L, pos, err)
+        assert torch.equal(out, again), (L, pos)
+
+
 @pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.int8])
 def test_bf16_queries(card, kv_dtype):
     """bf16 queries over bf16 and int8 arenas (the bf16 tolerance)."""

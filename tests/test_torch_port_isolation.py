@@ -53,7 +53,8 @@ def test_importing_the_port_loads_no_jax_module():
         "kubeml_tpu_torch.engine.job, kubeml_tpu_torch.data, "
         "kubeml_tpu_torch.storage, kubeml_tpu_torch.runtime, "
         "kubeml_tpu_torch.models.resnet, kubeml_tpu_torch.models.lenet, "
-        "kubeml_tpu_torch.api.config\n"
+        "kubeml_tpu_torch.api.config, kubeml_tpu_torch.serving.spec, "
+        "kubeml_tpu_torch.benchmarks.spec_decode\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
@@ -78,6 +79,9 @@ def test_entry_points_raise_without_device_on_a_cpu_only_host(monkeypatch):
                           num_heads=2, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PagedBatchingDecoder(m, page_tokens=4)
+    from kubeml_tpu_torch.benchmarks.spec_decode import run_rows
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_rows(0, 1, 2, 2, 2, 4, 1)
     # asked for explicitly, the CPU runs
     assert resolve_device("cpu") == torch.device("cpu")
     PagedBatchingDecoder(m, page_tokens=4, device="cpu").close()
