@@ -99,7 +99,23 @@ Phases, each reported on its own lines:
    4 -> 2 by ``on_epoch_end``: trace [4, 2, 2], falling loss, validation
    accuracy at least ``KAVG_JOB_MIN_ACC``; none of the five hand-written
    kernels may launch in this phase;
-11. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+11. resilience - the phase-6 coherent-tail target, 8 slots, 16-token
+   pages, the 16-request mix (``benchmarks.recovery``): (a) int8 weights
+   through the int8 matmul, int8 KV pages, ``spec="self"`` (k 4, exit 6),
+   every fourth request sampled, a 50 ms pool audit: one fault injected at
+   a step's entry once the first token lands; every stream must equal a
+   fault-free run of the same configuration, the pool must check clean and
+   hold no page after a trie flush, snapshots saved, restored and replayed
+   (none failed), no audit failure, and both kernels must launch; (b) f32,
+   spec off: drain with grace 0 once a row has 8 tokens, restore every
+   KMS1 frame into a fresh decoder: the greedy streams must equal the
+   uninterrupted run (``NEAR_TIE`` as in phase 6), paged attention must
+   launch; the frame bytes a row, and gather / scatter ms a row of both
+   arena storages (CUDA events); (c) a forced pool-audit failure must
+   rebuild (one failure, rows replayed) and every stream complete; the
+   audit's host time a tick; the wall from the fault to the first
+   post-fault emission in (a);
+12. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Any failure raises and the script exits non-zero; without a CUDA device it
 exits non-zero before printing any result.
@@ -597,6 +613,7 @@ def serve(dec, reqs, sample: bool = False):
             errors.append(e)
             first_sharer.set()
 
+    steps = time_steps(dec)
     t0 = time.monotonic()
     threads = [threading.Thread(target=client, args=(i,)) for i in range(16)]
     for t in threads:
@@ -604,6 +621,7 @@ def serve(dec, reqs, sample: bool = False):
     for t in threads:
         t.join(900)
     wall = time.monotonic() - t0
+    del dec._decode_chunk, dec._spec_step
     if errors:
         raise errors[0]
     if any(t.is_alive() for t in threads):
@@ -614,9 +632,32 @@ def serve(dec, reqs, sample: bool = False):
     return dict(calib=calib["tokens"][0], eos=eos, results=results,
                 tokens=tokens, wall=wall, tokens_per_s=tokens / wall,
                 ttft_p50_ms=1e3 * ttft[len(ttft) // 2],
-                decode_step_ms=1e3 * tele["decode_seconds"]
-                / max(tele["decode_steps"], 1),
-                tele=tele)
+                decode_step_ms=1e3 * steps["seconds"]
+                / max(steps["steps"], 1),
+                steps=steps, tele=tele)
+
+
+def time_steps(dec):
+    """Time ``dec``'s decode chunks and spec steps from here on: the wall
+    of each call (it ends in the tokens' copy to the host), the device
+    steps (a chunk's size, one a spec step) and the row-steps (steps x
+    decoding rows). Returns the dict the wrappers fill; ``del
+    dec._decode_chunk, dec._spec_step`` removes them."""
+    acc = {"seconds": 0.0, "steps": 0, "row_steps": 0}
+
+    def timed(fn, steps_of):
+        def call(arg):
+            rows = len(dec._decode_rows())
+            t0 = time.monotonic()
+            fn(arg)
+            acc["seconds"] += time.monotonic() - t0
+            acc["steps"] += steps_of(arg)
+            acc["row_steps"] += steps_of(arg) * rows
+        return call
+
+    dec._decode_chunk = timed(dec._decode_chunk, lambda size: size)
+    dec._spec_step = timed(dec._spec_step, lambda k: 1)
+    return acc
 
 
 def token_lists(run):
@@ -629,8 +670,8 @@ def report_serve(tag, run) -> None:
     log(f"  {tag}: {run['tokens']} tokens in {run['wall']:.3f} s = "
         f"{run['tokens_per_s']:.1f} tokens/s, TTFT p50 "
         f"{run['ttft_p50_ms']:.1f} ms, decode step "
-        f"{run['decode_step_ms']:.3f} ms ({int(t['decode_steps'])} steps, "
-        f"{int(t['prefill_waves'])} prefill waves)")
+        f"{run['decode_step_ms']:.3f} ms ({run['steps']['steps']} steps, "
+        f"{int(t['admission_waves'])} prefill waves)")
 
 
 def device_profile(run, also: str = ""):
@@ -744,7 +785,7 @@ def paged_window(dec, reqs, tag, also=""):
                                  f"calls, combine kernels {combine}")
         if busy_ms <= 0 or (pa, mm) == calls:
             delta = {k: after.get(k, 0.0) - before.get(k, 0.0)
-                     for k in ("prefill_waves", "decode_steps",
+                     for k in ("admission_waves", "device_steps",
                                "spec_steps", "prefill_chunks")}
             return busy_ms, kernels, calls, delta
     raise AssertionError(f"{tag} window: kernel records fell short of the "
@@ -862,7 +903,7 @@ def tokens_a_row_step(run) -> float:
     emits its first token at prefill; a spec step emits 1 to k+1)."""
     t = run["tele"]
     rows = len(run["results"]) + 1
-    return (t["tokens_emitted"] - rows) / max(t["decode_row_steps"], 1.0)
+    return (t["tokens_emitted"] - rows) / max(run["steps"]["row_steps"], 1)
 
 
 def report_mode(tag, run, smi, launches) -> None:
@@ -870,7 +911,7 @@ def report_mode(tag, run, smi, launches) -> None:
     log(f"  {tag} [{smi}]: {run['tokens']} tokens, "
         f"{run['tokens_per_s']:.1f} tokens/s, TTFT p50 "
         f"{run['ttft_p50_ms']:.1f} ms, device step "
-        f"{run['decode_step_ms']:.3f} ms ({int(t['decode_steps'])} steps), "
+        f"{run['decode_step_ms']:.3f} ms ({run['steps']['steps']} steps), "
         f"{tokens_a_row_step(run):.3f} tokens a row-step, acceptance "
         f"{t.get('spec_accept_rate', 'n/a')}, spec_k {t.get('spec_k', '-')}"
         f", spec_disabled {t.get('spec_disabled', '-')}, prefill chunks "
@@ -883,28 +924,39 @@ def check_tokens(tag, run, ref, ref_dec, reqs) -> None:
     identical, but for a divergence where ``ref_dec``'s path, teacher-forced
     to the first differing position, has its two largest logits within
     NEAR_TIE (logged with its request and position)."""
-    got, want = token_lists(run), token_lists(ref)
-    prompts = [reqs[5]["prompt"]] + [r["prompt"] for r in reqs]
+    want = token_lists(ref)
+    ties = check_greedy(tag, token_lists(run), want,
+                        [reqs[5]["prompt"]] + [r["prompt"] for r in reqs],
+                        ref_dec, first=-1)
+    log(f"  {tag}: greedy tokens identical to the spec-off monolithic "
+        f"engine ({sum(map(len, want))} tokens; near ties {ties or 'none'})")
+
+
+def check_greedy(tag, got, want, prompts, ref_dec, first=0,
+                 against="the spec-off engine"):
+    """Greedy token lists ``got`` against ``want``, request by request
+    (numbered from ``first``): identical, or diverging only where
+    ``ref_dec``'s path teacher-forced to the first differing position has
+    its two largest logits within NEAR_TIE. Returns the near ties."""
     ties = []
     for i, (g, w) in enumerate(zip(got, want)):
         if g == w:
             continue
         j = next((n for n, (a, b) in enumerate(zip(g, w)) if a != b), None)
         if j is None:
-            raise AssertionError(f"{tag}: request {i - 1} emitted {len(g)} "
-                                 f"tokens, the spec-off engine {len(w)}")
+            raise AssertionError(f"{tag}: request {i + first} emitted "
+                                 f"{len(g)} tokens, {against} {len(w)}")
         top = teacher_forced_logits(ref_dec, prompts[i].tolist(),
                                     w[:j])[-1].topk(2).values
         gap = (top[0] - top[1]).item()
-        log(f"  {tag}: request {i - 1} differs at token {j} ({g[j]} vs "
-            f"{w[j]}); spec-off top-two logit gap {gap:.3e}")
+        log(f"  {tag}: request {i + first} differs at token {j} ({g[j]} vs "
+            f"{w[j]}); reference top-two logit gap {gap:.3e}")
         if not gap <= NEAR_TIE:
-            raise AssertionError(f"{tag}: greedy tokens differ from the "
-                                 f"spec-off engine (request {i - 1}, token "
+            raise AssertionError(f"{tag}: greedy tokens differ from "
+                                 f"{against} (request {i + first}, token "
                                  f"{j}, logit gap {gap:.3e} > {NEAR_TIE})")
-        ties.append((i - 1, j))
-    log(f"  {tag}: greedy tokens identical to the spec-off monolithic "
-        f"engine ({sum(map(len, want))} tokens; near ties {ties or 'none'})")
+        ties.append((i + first, j))
+    return ties
 
 
 def teacher_forced_spec_logits(dec, prompt, forced):
@@ -1093,14 +1145,14 @@ def spec_phase(smi):
                                             also="int8")
     qdec.close()
     per_step = spec_step_launches(SPEC_K)
-    want_calls = tuple(int(f * delta["prefill_waves"]
+    want_calls = tuple(int(f * delta["admission_waves"]
                            + s * delta["spec_steps"])
                        for f, s in zip((PA_PER_FORWARD, INT8_PER_FORWARD),
                                        per_step))
     log(f"  int8 spec window: {int(delta['spec_steps'])} spec steps, "
-        f"{int(delta['prefill_waves'])} prefill forwards; calls {calls}, "
+        f"{int(delta['admission_waves'])} prefill forwards; calls {calls}, "
         f"by the path's count {want_calls} ({per_step} a spec step)")
-    if delta["decode_steps"] != delta["spec_steps"] or calls != want_calls:
+    if delta["device_steps"] != delta["spec_steps"] or calls != want_calls:
         raise AssertionError(f"int8 spec window: calls {calls} != "
                              f"{want_calls}")
     del qmodel, b_dec, qref_dec
@@ -1664,6 +1716,241 @@ def kavg_job(device: str = "cuda", num_filters: int = 64,
     return hist
 
 
+# --- phase 11: serving resilience ------------------------------------------
+
+# fault recovery runs every fourth request sampled (SAMPLE's knobs, request
+# i seeded 1000 + i); drain snapshots once a row has emitted DRAIN_AFTER
+# tokens; the forced audit failure serves the first AUDIT_REQUESTS requests
+# with the audit every AUDIT_INTERVAL seconds
+DRAIN_AFTER, AUDIT_REQUESTS, AUDIT_INTERVAL = 8, 8, 0.01
+
+
+def storm_specs(reqs, sampled: bool):
+    """The 16-request mix as ``benchmarks.recovery`` storm specs (no eos)."""
+    return [{"prompt": r["prompt"], "max_new": r["max_new"],
+             "temp": (SAMPLE["temperature"] if sampled and i % 4 == 2
+                      else 0.0),
+             "top_k": SAMPLE["top_k"], "seed": 1000 + i}
+            for i, r in enumerate(reqs)]
+
+
+def wait_for_tokens(dec, n: int) -> None:
+    """Block until a resident row of ``dec`` has emitted ``n`` tokens."""
+    deadline = time.monotonic() + 600
+    while time.monotonic() < deadline:
+        if any(r is not None and len(r.out) >= n for r in dec._slot_rows):
+            return
+        time.sleep(0.002)
+    raise AssertionError(f"no row emitted {n} tokens within 600 s")
+
+
+def snapshot_copy_ms(module, kv_quant: str, npages: int):
+    """CUDA-event ms of gathering one row's ``npages`` pages of every layer
+    to the host and of scattering them back (``kvsnap``), in an arena of
+    ``module``'s geometry stored at ``kv_quant``; median of 10, after a
+    warm-up; and the row's payload bytes."""
+    from kubeml_tpu_torch.models.generation import init_paged_cache
+    from kubeml_tpu_torch.serving import kvsnap
+
+    cache = init_paged_cache(module, npages + 1, PAGE_TOKENS, kv_quant,
+                             "cuda")
+    pages = list(range(1, npages + 1))
+    times = {"gather": [], "scatter": []}
+    layers = kvsnap.gather_pages(cache, pages)
+    for rep in range(11):
+        for name, fn in (("gather", lambda: kvsnap.gather_pages(cache,
+                                                                 pages)),
+                         ("scatter", lambda: kvsnap.scatter_pages(
+                             cache, pages, layers))):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            if rep:
+                times[name].append(start.elapsed_time(end))
+    return (float(np.median(times["gather"])),
+            float(np.median(times["scatter"])),
+            kvsnap.snapshot_nbytes(kvsnap.RequestSnapshot(
+                model="", request_id="", page_tokens=PAGE_TOKENS,
+                kv_quant=kv_quant, spec="off", prompt=[], out=[], max_new=1,
+                temp=0.0, topk=0, eos=-1, key=(0, 0), layers=layers)))
+
+
+def resilience_phase(smi):
+    """Phase 11 (see the module docstring): (a) fault recovery, (b) drain
+    and restore into a fresh decoder, (c) a forced pool-audit failure.
+    Returns the (paged_attention, int8_matmul) launches of its runs."""
+    from kubeml_tpu_torch.api import EngineFaultError, GenerateRequest
+    from kubeml_tpu_torch.benchmarks.recovery import (decoder_kwargs,
+                                                      run_chaos, serve_storm)
+    from kubeml_tpu_torch.benchmarks.spec_decode import coherent_tail
+    from kubeml_tpu_torch.ops.int8_matmul import int8_matmul
+    from kubeml_tpu_torch.ops.paged_attention import paged_attention
+    from kubeml_tpu_torch.serving import PagedBatchingDecoder, kvsnap
+    from kubeml_tpu_torch.serving.kvpool import PageAllocError
+
+    reqs = workload(np.random.default_rng(SEED))
+    target = coherent_tail(gpt2_small(), EXIT_LAYER)
+    common = dict(slots=SLOTS, page_tokens=PAGE_TOKENS, chunk_steps=CHUNK,
+                  device="cuda")
+    log(f"  [{smi}]")
+
+    # (a) a fault at a step's entry once the first token lands; the host
+    # wall of recovery's parts: the snapshots, the rebuild, the restores
+    qmodel = copy.deepcopy(target)  # the int8 decoders quantize it in place
+    spans = {"_recover_rows": 0.0, "_reset_engine_state": 0.0,
+             "_restore": 0.0}
+    methods = {n: getattr(PagedBatchingDecoder, n) for n in spans}
+
+    def timed(name, fn):
+        def call(self, *a, **kw):
+            t0 = time.monotonic()
+            try:
+                return fn(self, *a, **kw)
+            finally:
+                spans[name] += time.monotonic() - t0
+        return call
+
+    for name, fn in methods.items():
+        setattr(PagedBatchingDecoder, name, timed(name, fn))
+    paged_attention.launches = int8_matmul.launches = 0
+    try:
+        row = run_chaos(qmodel, storm_specs(reqs, sampled=True),
+                        device="cuda", **decoder_kwargs(
+                            PAGE_TOKENS, SLOTS, CHUNK, SPEC_K, EXIT_LAYER))
+    finally:
+        for name, fn in methods.items():
+            setattr(PagedBatchingDecoder, name, fn)
+    a_launches = (paged_attention.launches, int8_matmul.launches)
+    log(f"  a fault recovery (int8 weights + KV, spec=self k {SPEC_K}): "
+        f"{row['streams']} streams ({row['sampled_streams']} sampled), "
+        f"{row['tokens']} tokens equal to the fault-free run; snapshots "
+        f"saved {int(row['snapshot_saved'])}, restored "
+        f"{int(row['snapshot_restored'])}, replayed "
+        f"{int(row['snapshot_replayed'])}, failed "
+        f"{int(row['snapshot_failed'])}; pool audits "
+        f"{int(row['pool_audit_runs'])}, failures "
+        f"{int(row['pool_audit_failures'])}; pages held after the trie "
+        f"flush {row['held_after_flush']}; fault to the first post-fault "
+        f"emission {row['fault_to_first_emit_ms']:.2f} ms (host ms: "
+        f"snapshots {1e3 * spans['_recover_rows']:.2f}, rebuild "
+        f"{1e3 * spans['_reset_engine_state']:.2f}, restores "
+        f"{1e3 * spans['_restore']:.2f}); launches paged_attention "
+        f"{a_launches[0]}, int8_matmul {a_launches[1]}")
+    if min(a_launches) <= 0:
+        raise AssertionError(f"a: kernel launches {a_launches}")
+    del qmodel
+
+    # (b) drain mid-decode, restore every frame into a fresh decoder
+    specs = storm_specs(reqs, sampled=False)
+    ref_dec = PagedBatchingDecoder(target, **common)
+    want, _ = serve_storm(ref_dec, specs)
+    ref_dec.close()
+    dec = PagedBatchingDecoder(target, **common)
+    with dec._cond:
+        entries = [dec.submit(GenerateRequest(
+            prompts=[s["prompt"].tolist()], max_new_tokens=s["max_new"]))
+            for s in specs]
+    wait_for_tokens(dec, DRAIN_AFTER)
+    frames = dec.drain(grace=0.0)
+    got, drained = [None] * len(specs), 0
+    for i, e in enumerate(entries):
+        try:
+            out = dec.wait(e, timeout=600)
+            got[i] = out["tokens"][0][:out["lengths"][0]]
+        except EngineFaultError as err:
+            drained += 1
+            if want[i][:len(err.partial_tokens[0])] != err.partial_tokens[0]:
+                raise AssertionError(f"b: request {i}'s partial tokens are "
+                                     f"not a prefix of its stream")
+    chk = dec._pool.check()
+    dec.close()
+    if len(frames) != drained or chk["held"] != chk["trie_pages"]:
+        raise AssertionError(f"b: {len(frames)} frames for {drained} drained "
+                             f"requests, pool {chk}")
+    index = {e.request_id: i for i, e in enumerate(entries)}
+    headers = [kvsnap.peek_header(f) for f in frames]
+    mid = [len(f) for f, h in zip(frames, headers) if h["out_len"]]
+    dec = PagedBatchingDecoder(target, **common)
+    paged_attention.launches = int8_matmul.launches = 0
+    with dec._cond:
+        restored = [dec.submit_snapshot(f) for f in frames]
+    for e in restored:
+        out = dec.wait(e, timeout=600)
+        got[index[out["request_id"]]] = out["tokens"][0][:out["lengths"][0]]
+    b_launches = (paged_attention.launches, int8_matmul.launches)
+    tele = dec.telemetry()
+    chk = dec._pool.check()
+    dec.close()
+    ties = check_greedy("b", got, want, [s["prompt"] for s in specs], ref_dec,
+                        against="the uninterrupted run")
+    log(f"  b drain (f32, spec off) after {DRAIN_AFTER} tokens: "
+        f"{drained} requests drained into {len(frames)} frames ({len(mid)} "
+        f"mid-stream, {len(frames) - len(mid)} without pages), restored in "
+        f"a fresh decoder: {sum(map(len, got))} tokens equal to the "
+        f"uninterrupted run (near ties {ties or 'none'}); frame bytes a "
+        f"mid-stream row: mean {np.mean(mid):.0f}, min {min(mid)}, max "
+        f"{max(mid)}; restore launches paged_attention {b_launches[0]}")
+    if (tele["snapshot_restored"] != len(mid) or b_launches[0] <= 0
+            or chk["held"] != chk["trie_pages"]):
+        raise AssertionError(f"b: restored {tele['snapshot_restored']} of "
+                             f"{len(mid)}, launches {b_launches}, pool {chk}")
+    npages = int(np.median([h["npages"] for h in headers if h["out_len"]]))
+    for kvq in ("off", "int8"):
+        g_ms, s_ms, nbytes = snapshot_copy_ms(target, kvq, npages)
+        log(f"  snapshot copies, {'int8' if kvq == 'int8' else 'f32'} "
+            f"arena, {npages} pages a row ({nbytes} bytes) [{smi}]: gather "
+            f"{g_ms:.4f} ms, scatter {s_ms:.4f} ms a row (CUDA events, "
+            f"median of 10)")
+
+    # (c) a forced pool-audit failure rebuilds, and the streams complete
+    dec = PagedBatchingDecoder(target, pool_audit_interval=AUDIT_INTERVAL,
+                               **common)
+    ticks = []
+    audit = dec._audit_pool
+
+    def timed_audit():
+        t0 = time.perf_counter()
+        try:
+            audit()
+        finally:
+            ticks.append(time.perf_counter() - t0)
+
+    dec._audit_pool = timed_audit
+    with dec._cond:
+        entries = [dec.submit(GenerateRequest(
+            prompts=[s["prompt"].tolist()], max_new_tokens=s["max_new"]))
+            for s in specs[:AUDIT_REQUESTS]]
+    wait_for_tokens(dec, DRAIN_AFTER)
+
+    def tripped():
+        raise PageAllocError("forced invariant break")
+
+    with dec._cond:
+        dec._pool.check = tripped
+    outs = [dec.wait(e, timeout=600) for e in entries]
+    tele = {k: dec.telemetry().get(k, 0.0) for k in (
+        "pool_audit_runs", "pool_audit_failures", "snapshot_replayed")}
+    dec.close()
+    same = sum(o["tokens"][0][:o["lengths"][0]] == w
+               for o, w in zip(outs, want))
+    log(f"  c forced audit failure: audits {int(tele['pool_audit_runs'])}, "
+        f"failures {int(tele['pool_audit_failures'])}, rows replayed "
+        f"{int(tele['snapshot_replayed'])}; {len(outs)} streams complete "
+        f"({same} token-identical to b's uninterrupted run); audit host "
+        f"time {1e6 * float(np.median(ticks)):.1f} us a tick (median of "
+        f"{len(ticks)})")
+    if (tele["pool_audit_failures"] != 1 or tele["snapshot_replayed"] < 1
+            or any(o["lengths"][0] != s["max_new"]
+                   for o, s in zip(outs, specs))):
+        raise AssertionError(f"c: audit failures "
+                             f"{tele['pool_audit_failures']}, replayed "
+                             f"{tele['snapshot_replayed']}")
+    return (a_launches[0] + b_launches[0], a_launches[1] + b_launches[1])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one NVIDIA card",
@@ -1680,7 +1967,7 @@ def main() -> int:
 
     # 1. device
     smi = nvidia_smi()
-    log("[1/11 device]")
+    log("[1/12 device]")
     log(smi)
     log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} devices "
@@ -1695,7 +1982,7 @@ def main() -> int:
     spills = [f"{lines[i - 1].split('for ')[-1][:70]}: {ln.strip()}"
               for i, ln in enumerate(lines)
               if re.search(r"[1-9]\d* bytes (stack frame|spill)", ln)]
-    log(f"[2/11 build] {time.monotonic() - t0:.2f} s (nvcc "
+    log(f"[2/12 build] {time.monotonic() - t0:.2f} s (nvcc "
         f"{kernels.build_seconds:.2f} s), kernels with a stack frame or "
         f"spills: {len(spills)}")
     for ln in spills:
@@ -1713,7 +2000,7 @@ def main() -> int:
     check_compiled(kernels.library()._name, build_log)
 
     # 3. kernels against their plain versions
-    log("[3/11 kernels]")
+    log("[3/12 kernels]")
     timer = Timer()
     g = torch.Generator().manual_seed(SEED)
     pa_rows = check_paged_attention(timer, g)
@@ -1721,7 +2008,7 @@ def main() -> int:
     del timer
 
     # 4. serve f32: kernel engine, then the plain (gather) twin
-    log("[4/11 serve f32]")
+    log("[4/12 serve f32]")
     serve_tiny()
     reqs = workload(np.random.default_rng(SEED))
     model = gpt2_small()
@@ -1739,7 +2026,7 @@ def main() -> int:
     paged_window(dec, reqs, "f32", also="paged")
     map_report("f32", maps0, maps1, map_stats())
     dec.close()
-    steps = run["tele"]["prefill_waves"] + run["tele"]["decode_steps"]
+    steps = run["tele"]["admission_waves"] + run["tele"]["device_steps"]
     if f32_launches < model.depth * steps:
         raise AssertionError(f"paged_attention launched {f32_launches} times "
                              f"< depth {model.depth} x {int(steps)} steps")
@@ -1764,11 +2051,11 @@ def main() -> int:
     del model
 
     # 5. serve int8: int8 weights through the kernel, int8 KV pages
-    log("[5/11 serve int8]")
+    log("[5/12 serve int8]")
     q_kw = dict(quantize="int8", int8_matmul=True, kv_quant="int8", **common)
     qdec = PagedBatchingDecoder(gpt2_small(), **q_kw)
-    tele = qdec.telemetry()
-    if tele["int8_matmul_kernel"] != 1.0 or tele["paged_attn_kernel"] != 1.0:
+    if (not qdec.int8_matmul or qdec.int8_matmul_impl != "cuda"
+            or qdec.telemetry()["paged_attn_kernel"] != 1.0):
         raise AssertionError("the int8 engine does not run both kernels")
     maps0 = map_stats()
     paged_attention.launches = int8_matmul.launches = 0
@@ -1813,20 +2100,20 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 6. speculative decoding and chunked prefill through both kernels
-    log("[6/11 spec + chunked]")
+    log("[6/12 spec + chunked]")
     t0 = time.monotonic()
     spec_launches = spec_phase(smi)
     log(f"  phase 6: {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     # 7. flash kernels against their plain versions, and the L sweep
-    log("[7/11 flash kernels]")
+    log("[7/12 flash kernels]")
     timer = Timer()
     flash_errs, sweep = check_flash(timer, g)
     del timer
 
     # 8. train: the kernel path, its profile, then the plain path
-    log("[8/11 train bf16]")
+    log("[8/12 train bf16]")
     krow, kcounts = train_run("kernel path", flash=True)
     want = (2 * DEPTH * krow["steps_run"], DEPTH * krow["steps_run"],
             DEPTH * krow["steps_run"])
@@ -1849,14 +2136,14 @@ def main() -> int:
                              f"{pcounts}")
 
     # 9. f32: one step through the kernels against the plain path
-    log("[9/11 train f32 parity]")
+    log("[9/12 train f32 parity]")
     check_f32_step()
 
     # 10. K-AVG: the flagship at bench.py's configuration, the merge's
     # correctness, and TrainJob end to end; none of the five hand-written
     # kernels is on this path (convs, BatchNorm and dense layers run in
     # cuDNN and cuBLAS, as the JAX path runs them in XLA)
-    log("[10/11 k-avg]")
+    log("[10/12 k-avg]")
     reset_kernel_counts()
     log("  10a flagship: ResNet-18, CIFAR-10 shapes, bf16, uint8 inputs, "
         f"B {KAVG_B}, K {KAVG_K}, lr 0.1, SGD momentum 0.9")
@@ -1872,8 +2159,14 @@ def main() -> int:
     if any(counts):
         raise AssertionError(f"the K-AVG path launched {counts}")
 
-    # 11. results
-    log("[11/11 results]")
+    # 11. serving resilience through both serving kernels
+    log("[11/12 resilience]")
+    t0 = time.monotonic()
+    res_launches = resilience_phase(smi)
+    log(f"  phase 11: {time.monotonic() - t0:.1f} s")
+
+    # 12. results
+    log("[12/12 results]")
     pa = pa_rows[0]   # the decode step: L = 1, f32 arena
     mm = next(r for r in mm_rows if r["M"] == 8 and r["N"] == VOCAB
               and r["x"] == "float32")  # the lm_head at decode
@@ -1881,14 +2174,15 @@ def main() -> int:
         {"name": "paged_attention", "route": "cuda",
          "source": "kubeml_tpu_torch/csrc/paged_attention.cu",
          "replaces": "kubeml_tpu/ops/paged_attention.py:113",
-         "launches": f32_launches + q_launches[0] + spec_launches[0],
+         "launches": (f32_launches + q_launches[0] + spec_launches[0]
+                      + res_launches[0]),
          "max_abs_err": pa["max_abs_err"], "ms": pa["ms"],
          "plain_ms": pa["plain_ms"], "bound_ms": pa["bound_ms"],
          "bound_by": pa["bound_by"], "library_ms": pa["library_ms"]},
         {"name": "int8_matmul", "route": "cuda",
          "source": "kubeml_tpu_torch/csrc/int8_matmul.cu",
          "replaces": "kubeml_tpu/ops/int8_matmul.py:55",
-         "launches": q_launches[1] + spec_launches[1],
+         "launches": q_launches[1] + spec_launches[1] + res_launches[1],
          "max_abs_err": mm["max_abs_err"], "ms": mm["ms"],
          "plain_ms": mm["plain_ms"], "bound_ms": mm["bound_ms"],
          "bound_by": mm["bound_by"], "library_ms": mm["library_ms"]},

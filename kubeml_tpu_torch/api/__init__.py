@@ -3,7 +3,8 @@
 
 from .errors import (DataError, DatasetExistsError, DatasetNotFoundError,
                      EngineFaultError, JobNotFoundError, KubeMLError,
-                     MergeError, OverloadedError, StorageError)
+                     MergeError, OverloadedError, StorageError,
+                     error_from_envelope)
 from .types import (DatasetSummary, GenerateRequest, History, JobState,
                     MetricUpdate, TrainOptions, TrainRequest)
 
@@ -11,4 +12,4 @@ __all__ = ["KubeMLError", "OverloadedError", "EngineFaultError",
            "MergeError", "DataError", "StorageError", "DatasetNotFoundError",
            "DatasetExistsError", "JobNotFoundError", "GenerateRequest",
            "TrainOptions", "TrainRequest", "JobState", "MetricUpdate",
-           "History", "DatasetSummary"]
+           "History", "DatasetSummary", "error_from_envelope"]

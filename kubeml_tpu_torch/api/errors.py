@@ -5,11 +5,13 @@ port raises: every error carries the HTTP status the wire layer answers
 with (400 for a request the arena can never hold or a bad dataset, 404 for
 a missing dataset or job, 429 at the queue limit, 500 for a failed merge,
 503 once the engine is closed or faulted) and serialises to the
-``{"error": <message>, "code": <status>}`` envelope.
+``{"error": <message>, "code": <status>}`` envelope, which
+:func:`error_from_envelope` turns back into a typed error.
 """
 
 from __future__ import annotations
 
+import json
 from typing import Any, Dict, Optional
 
 
@@ -26,6 +28,9 @@ class KubeMLError(Exception):
 
     def to_dict(self) -> Dict[str, Any]:
         return {"error": self.message, "code": self.status_code}
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict())
 
 
 class OverloadedError(KubeMLError):
@@ -105,3 +110,37 @@ class JobNotFoundError(KubeMLError):
     def __init__(self, job_id: str = ""):
         super().__init__(f"job {job_id!r} not found" if job_id
                          else "job not found")
+
+
+def error_from_envelope(body, default_code: int = 500) -> KubeMLError:
+    """The typed error of a ``{"error", "code"}`` envelope: a 429 rebuilds
+    as :class:`OverloadedError` with its ``retry_after``, a ``retryable``
+    envelope as :class:`EngineFaultError` with its ``partial_tokens``, so
+    both survive every hop of a proxy chain. A body that is not an
+    envelope becomes its own text under ``default_code``."""
+    retry_after = None
+    retryable = False
+    partial_tokens = None
+    try:
+        d = json.loads(body)
+        msg = d.get("error", "unknown error")
+        code = int(d.get("code", default_code))
+        retry_after = d.get("retry_after")
+        retryable = bool(d.get("retryable"))
+        partial_tokens = d.get("partial_tokens")
+    except (ValueError, TypeError, AttributeError):
+        msg = (body.decode(errors="replace") if isinstance(body, bytes)
+               else str(body))
+        code = default_code
+    if code == 429:
+        try:
+            return OverloadedError(msg, retry_after=float(retry_after or 1.0))
+        except (TypeError, ValueError):
+            return OverloadedError(msg)
+    if retryable:
+        try:
+            return EngineFaultError(msg, partial_tokens=partial_tokens,
+                                    status_code=code)
+        except (TypeError, ValueError):
+            return EngineFaultError(msg, status_code=code)
+    return KubeMLError(msg, code)

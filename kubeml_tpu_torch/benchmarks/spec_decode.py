@@ -197,8 +197,8 @@ def _row(res, mode, batch, sampled, spec_k, specs, max_new, model, device,
         "spec_k": spec_k if mode != "off" else 0, "model": model,
         "requests": len(specs), "max_new": max_new,
         "value": t["tokens_emitted"] / res["wall"], "unit": "tokens/sec",
-        "spec_tokens_per_step": (t["tokens_emitted"] / t["decode_steps"]
-                                 if t["decode_steps"] else None),
+        "spec_tokens_per_step": (t["tokens_emitted"] / t["device_steps"]
+                                 if t["device_steps"] else None),
         "spec_accept_ratio": t.get("spec_accept_rate"),
         "adaptive_k": t.get("spec_k"),
         "spec_disabled": t.get("spec_disabled"),

@@ -42,9 +42,24 @@ Differences from the JAX engine, by design of eager PyTorch: there are no
 compiled shape buckets, so rows are not padded to ``slots`` and each chunk
 or spec step runs only the resident rows; one chunk is in flight at a time
 (the engine reads a chunk's tokens back with one copy at its end), so no
-fetch pool or pre-freeing is needed. Left for later (ROADMAP): the dense
-``BatchingDecoder``, KMS1 snapshots, drain and fault replay, the pool
-audit, the PS route with ``serving/stats.py``, and meshes.
+fetch pool or pre-freeing is needed.
+
+Resilience, as in the JAX engine: counters live in one
+:class:`~.stats.DecoderStats` under the JAX names; admission refuses with
+429 past the queue limit (or sheds the oldest queued request,
+``shed_policy="oldest"``) and while draining, with a Retry-After from the
+load; a queued request past its deadline fails with 504. A fault in the
+engine loop snapshots every resident row into a KMS1 frame
+(``kvsnap``) before the arena is zeroed and the pool rebuilt, then replays
+the rows through admission, so their streams go on unchanged; a row that
+cannot be snapshotted (the draft backend's, or one whose pages cannot be
+read) fails with a retryable 503 carrying its tokens. ``drain()`` stops
+admission, waits out a grace period and returns the stragglers as KMS1
+frames, which ``submit_snapshot`` (here or in the JAX engine) admits
+again; a periodic ``KVPool.check()`` audit turns broken page accounting
+into that same rebuild. A fault is injected, and holds this guarantee,
+at a step's entry. Left for later (ROADMAP): the dense
+``BatchingDecoder``, the PS route, and meshes.
 """
 
 from __future__ import annotations
@@ -62,6 +77,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..api.config import get_config
 from ..api.errors import EngineFaultError, KubeMLError, OverloadedError
 from ..models.generation import (GenerationInputError, PAD_ID,
                                  draft_sample, init_paged_cache, spec_accept,
@@ -70,9 +86,12 @@ from ..models.layers import QuantizableDense, load_tree
 from ..ops.int8_matmul import resolve_int8_matmul
 from ..ops.paged_attention import resolve_kv_quant, resolve_paged_attn
 from ..utils.device import resolve_device
+from ..utils.resilience import current_deadline
+from . import kvsnap
 from .kvpool import KVPool
-from .quant import dequantize_tree, quantize_tree
+from .quant import dequantize_tree, quantize_tree, quantized_bytes
 from .spec import AdaptiveK
+from .stats import DecoderStats
 
 log = logging.getLogger("kubeml.serving")
 
@@ -111,6 +130,17 @@ def _kv_page_bytes(module, page_tokens: int, kv_quant: str) -> int:
     return depth * 2 * page_tokens * embed * itemsize
 
 
+def _kv_token_bytes(module, kv_quant: str,
+                    layers: Optional[int] = None) -> int:
+    """Bytes one forward reads a cached token: ``layers`` (all) layers' K
+    and V rows in storage dtype (int8 arenas one byte an element; their
+    scale rows are left out, as in the JAX model)."""
+    itemsize = (1 if kv_quant == "int8"
+                else torch.empty((), dtype=module.dtype).element_size())
+    depth = module.depth if layers is None else layers
+    return depth * 2 * module.embed_dim * itemsize
+
+
 def _is_quantized(module) -> bool:
     return any(isinstance(m, QuantizableDense) and m.quantized
                for m in module.modules())
@@ -147,8 +177,11 @@ class _Row:
     temp: float
     topk: int   # 0 = off
     eos: int    # -1 = off
-    seed: int = 0
+    gen_seed: int = 0  # the generator's seed (``_seed_for``)
     gen: Optional[torch.Generator] = None  # sampled rows, from admission
+    # the generator's state after the row's last consumed step: what a
+    # KMS1 frame carries, so a restore draws on exactly where it stopped
+    gen_state: Optional[torch.Tensor] = None
     out: List[int] = field(default_factory=list)
     done: bool = False
     canceled: bool = False
@@ -159,6 +192,22 @@ class _Row:
     prefill_chunks: int = 0         # prefill forwards past a monolithic one
     spec_proposed: int = 0          # candidates verified (drafts + bonus)
     spec_accepted: int = 0          # drafts the acceptance rule kept
+    # lifecycle (monotonic; 0 = not reached): slot assignment, first and
+    # last emission on the host
+    slot_at: float = 0.0
+    first_emit_at: float = 0.0
+    last_emit_at: float = 0.0
+    # host-visible gaps between the row's emissions (one a delta after the
+    # first), and the wall seconds it stalled behind prefill forwards
+    itl: List[float] = field(default_factory=list)
+    hol_stall: float = 0.0
+    # a kvsnap.RequestSnapshot whose pages scatter into fresh pages before
+    # the row decodes (KMS1 admission or fault replay); ``out`` already
+    # holds its emissions
+    snapshot: Optional[object] = None
+    # replayed after a fault rebuild: the pages are this arena's own
+    # history, so its prompt blocks go back into the prefix trie
+    replayed: bool = False
 
 
 @dataclass
@@ -173,6 +222,9 @@ class _Entry:
     submitted_at: float = 0.0    # monotonic
     first_token_at: float = 0.0  # 0 until the first token lands
     aborted: bool = False        # timeout/cancel already counted
+    # absolute deadline (unix seconds, ``utils.resilience``): a request
+    # still queued past it fails with 504
+    deadline: Optional[float] = None
     request_id: str = ""
 
     def finished(self) -> bool:
@@ -192,8 +244,32 @@ class _Entry:
                                             for r in self.rows),
                 "spec_accepted_tokens": sum(r.spec_accepted
                                             for r in self.rows),
+                # quantiles of the rows' host-visible inter-emission gaps
+                # (0.0 with none), and the seconds the rows stalled behind
+                # prefill forwards
+                "itl_p99": _itl_quantile(self.rows, 0.99),
+                "itl_max": _itl_quantile(self.rows, 1.0),
+                "hol_stall_seconds": sum(r.hol_stall for r in self.rows),
                 # prefill forwards of the rows' prompts (0: monolithic)
                 "prefill_chunks": sum(r.prefill_chunks for r in self.rows)}
+
+
+def _itl_quantile(rows: List[_Row], q: float) -> float:
+    """Nearest-rank quantile over every inter-emission gap of a request's
+    rows; 0.0 with no gaps."""
+    gaps = sorted(g for r in rows for g in r.itl)
+    if not gaps:
+        return 0.0
+    return gaps[min(len(gaps) - 1, max(0, int(round(q * (len(gaps) - 1)))))]
+
+
+class _DrainReq:
+    """Rendezvous of ``drain()`` and the engine loop: the loop snapshots the
+    stragglers and posts their KMS1 frames back before setting ``evt``."""
+
+    def __init__(self):
+        self.evt = threading.Event()
+        self.frames: List[bytes] = []
 
 
 class PagedBatchingDecoder:
@@ -221,18 +297,30 @@ class PagedBatchingDecoder:
     ``spec_min_accept`` is the draft backend's acceptance floor (0: off).
     ``prefill_chunk_tokens`` > 0 prefills long suffixes in chunks of
     ``_chunk_cap`` tokens interleaved with decode (0: monolithic).
+
+    ``queue_limit`` (0: unbounded), ``shed_policy`` (``"reject"`` or
+    ``"oldest"``) and ``pool_audit_interval`` (seconds, 0: off) default
+    to ``api.config``'s ``KUBEML_SERVING_QUEUE_LIMIT``,
+    ``KUBEML_SERVING_SHED`` and ``KUBEML_POOL_AUDIT_INTERVAL``.
     """
+
+    # the first forwards on a card build the CUDA kernels (tens of
+    # seconds): until one has run, waits and deadlines get this allowance
+    COLD_COMPILE_ALLOWANCE = 900.0
 
     def __init__(self, module, *, slots: int = DEFAULT_SLOTS,
                  chunk_steps: int = 16, page_tokens: int = 16,
                  pages: int = 0, prefix_cache: bool = True,
                  paged_attn: str = "auto", kv_quant: str = "off",
                  quantize: str = "", int8_matmul: bool = False,
-                 int8_matmul_impl: str = "auto", queue_limit: int = 256,
+                 int8_matmul_impl: str = "auto",
+                 queue_limit: Optional[int] = None,
+                 shed_policy: Optional[str] = None,
                  spec: str = "", spec_k: int = 4, spec_adaptive: bool = True,
                  draft_module=None, spec_exit_layer: int = 0,
                  spec_min_accept: float = 0.10,
                  prefill_chunk_tokens: int = 0,
+                 pool_audit_interval: Optional[float] = None,
                  name: str = "decoder", device=None):
         self.device = resolve_device(device)
         if not supports_paged_decode(module):
@@ -253,12 +341,20 @@ class PagedBatchingDecoder:
         if pre_quantized and quantize != "int8":
             raise ValueError("module carries int8 kernels but quantize is "
                              "not 'int8'")
+        cfg = get_config()
         self.module = module.eval()
         self.max_len = int(module.max_len)
         self.slots = int(slots)
         self.chunk_steps = int(chunk_steps)
-        self.queue_limit = int(queue_limit)
+        self.queue_limit = int(queue_limit if queue_limit is not None
+                               else cfg.serving_queue_limit)
+        self.shed_policy = str(shed_policy if shed_policy is not None
+                               else cfg.serving_shed_policy)
+        self.pool_audit_interval = float(
+            pool_audit_interval if pool_audit_interval is not None
+            else cfg.pool_audit_interval)
         self.name = name
+        self.stats = DecoderStats(self.slots)
         self._init_spec(spec, spec_k, spec_adaptive, draft_module,
                         spec_exit_layer, spec_min_accept, quantize)
         # a module that already holds int8 kernels runs them natively
@@ -286,6 +382,14 @@ class PagedBatchingDecoder:
                          budget // _kv_page_bytes(module, pt, "int8") + 1)
         self._pool = KVPool(npages, pt, prefix_cache=bool(prefix_cache))
         self.paged_attn = resolve_paged_attn(paged_attn, self.device)
+        # the KV-read model's unit: bytes one forward reads a cached token
+        self._kv_token_bytes = _kv_token_bytes(module, self.kv_quant)
+        self._kv_draft_token_bytes = (
+            _kv_token_bytes(module, self.kv_quant, self.spec_exit_layer)
+            if self.spec == "self" else
+            _kv_token_bytes(self.draft_module, self.kv_quant)
+            if self.draft_module is not None else 0)
+        self.weight_bytes = quantized_bytes(module)
         self.cache = init_paged_cache(module, npages, pt, self.kv_quant,
                                       self.paged_attn)
         # the drafter's own arena: the same page ids (so shared-prefix pages
@@ -311,18 +415,17 @@ class PagedBatchingDecoder:
         self._free = list(range(self.slots))
         self._cond = threading.Condition()
         self._closed = False
+        self._retired = False
+        # drain: while True, submit answers 429 but live rows decode on;
+        # drain() posts a _DrainReq once its grace window closes
+        self._drain_mode = False
+        self._drain_deadline = 0.0
+        self._drain_req: Optional[_DrainReq] = None
+        self._warmed = False  # flips once a forward's tokens came back
+        self._next_audit = 0.0
         self._thread: Optional[threading.Thread] = None
         self._req_prefix = f"{name}-{uuid.uuid4().hex[:6]}"
         self._req_seq = itertools.count(1)
-        self._stats: Dict[str, float] = dict.fromkeys(
-            ("requests_submitted", "requests_completed", "requests_failed",
-             "requests_canceled", "requests_overloaded", "requests_rejected",
-             "tokens_emitted", "prefill_waves", "prefill_tokens",
-             "prefill_seconds", "decode_chunks", "decode_steps",
-             "decode_row_steps", "decode_seconds", "prefix_hits",
-             "prefix_tokens_saved", "prefill_chunks", "prefill_chunk_tokens",
-             "hol_stall_seconds", "spec_steps", "spec_drafted_tokens",
-             "spec_proposed_tokens", "spec_accepted_tokens"), 0.0)
 
     def _init_spec(self, spec, spec_k, spec_adaptive, draft_module,
                    spec_exit_layer, spec_min_accept, quantize) -> None:
@@ -406,7 +509,7 @@ class PagedBatchingDecoder:
             return self._submit(req)
         except KubeMLError as e:
             if e.status_code == 400:
-                self._count("requests_rejected")
+                self.stats.rejected()
             raise
 
     def _submit(self, req) -> _Entry:
@@ -429,7 +532,8 @@ class PagedBatchingDecoder:
         entry = _Entry(rows=[], max_new=req.max_new_tokens,
                        stream_q=queue.Queue() if req.stream else None,
                        submitted_at=time.monotonic(),
-                       request_id=f"{self._req_prefix}-r{next(self._req_seq)}")
+                       deadline=current_deadline(),
+                       request_id=self._next_request_id())
         for i in range(B):
             entry.rows.append(_Row(
                 entry=entry, index=i,
@@ -437,27 +541,44 @@ class PagedBatchingDecoder:
                 max_new=req.max_new_tokens, temp=float(req.temperature),
                 topk=int(req.top_k or 0),
                 eos=int(req.eos_id) if req.eos_id is not None else -1,
-                seed=int(req.seed or 0)))
+                gen_seed=_seed_for(req.seed or 0, i)))
         with self._cond:
-            if self._closed:
+            if self._closed or self._retired:
                 raise DecoderClosed()
+            if self._drain_mode:
+                self.stats.overloaded()
+                hint = max(1.0, self._drain_deadline - time.monotonic())
+                raise OverloadedError(
+                    "decoder is draining for shutdown; resubmit to another "
+                    "replica or after restart", retry_after=min(hint, 30.0))
             # the limit gates on QUEUE pressure: a batch wider than the
             # limit still admits into an empty queue
             if (self.queue_limit > 0 and self._pending
                     and len(self._pending) + B > self.queue_limit):
-                self._stats["requests_overloaded"] += 1
-                raise OverloadedError(
-                    f"decode queue at its admission limit "
-                    f"({len(self._pending)}/{self.queue_limit} rows queued)")
-            self._pending.extend(entry.rows)
-            self._stats["requests_submitted"] += 1
-            if self._thread is None:
-                self._thread = threading.Thread(
-                    target=self._loop, name=f"decode-{self.name}",
-                    daemon=True)
-                self._thread.start()
-            self._cond.notify_all()
+                if self.shed_policy == "oldest":
+                    self._shed_oldest_locked(
+                        len(self._pending) + B - self.queue_limit)
+                if (self._pending
+                        and len(self._pending) + B > self.queue_limit):
+                    self.stats.overloaded()
+                    raise OverloadedError(
+                        f"decode queue at its admission limit "
+                        f"({len(self._pending)}/{self.queue_limit} rows "
+                        f"queued)", retry_after=self._retry_after_hint())
+            self._enqueue_locked(entry.rows)
         return entry
+
+    def _enqueue_locked(self, rows: List[_Row]) -> None:
+        self._pending.extend(rows)
+        self.stats.submitted(1)
+        if self._thread is None:
+            self._thread = threading.Thread(
+                target=self._loop, name=f"decode-{self.name}", daemon=True)
+            self._thread.start()
+        self._cond.notify_all()
+
+    def _next_request_id(self) -> str:
+        return f"{self._req_prefix}-r{next(self._req_seq)}"
 
     def _check_capacity(self, plen: int, max_new: int) -> None:
         """400 for a row no amount of queueing could ever admit."""
@@ -471,7 +592,12 @@ class PagedBatchingDecoder:
                 f"{self._pool.capacity}", 400)
 
     def wait(self, entry: _Entry, timeout: Optional[float] = None) -> dict:
+        if timeout is not None and not self._warmed:
+            timeout += self.COLD_COMPILE_ALLOWANCE
         if not entry.done_evt.wait(timeout):
+            # nobody reads the result: free the rows' slots and pages
+            if self._claim_outcome(entry):
+                self.stats.timed_out()
             self.cancel(entry)
             raise KubeMLError("generation timed out", 504)
         if entry.error is not None:
@@ -482,7 +608,7 @@ class PagedBatchingDecoder:
         """Abandon a request: queued rows leave the queue now, admitted rows
         free their slot and pages at the next chunk edge."""
         if self._claim_outcome(entry):
-            self._count("requests_canceled")
+            self.stats.canceled()
         with self._cond:
             for row in entry.rows:
                 row.canceled = True
@@ -515,36 +641,38 @@ class PagedBatchingDecoder:
             thread.join(timeout=60)
         self._fail_all(DecoderClosed())
 
+    def retire(self) -> None:
+        """Graceful shutdown: new submissions are refused, requests in
+        flight finish, then the engine thread exits and frees the arena."""
+        with self._cond:
+            self._retired = True
+            self._cond.notify_all()
+
     @property
     def closed(self) -> bool:
         return self._closed
 
     def telemetry(self) -> dict:
-        """Counters plus live gauges: queue depth, slot and page occupancy,
-        and which read and matmul paths this engine runs (1 = the CUDA
-        kernel, 0 = the plain version)."""
+        """``DecoderStats.snapshot()`` plus the live gauges of the JAX
+        engine: queue depth, slot and page occupancy, the limits, the drain
+        flag, which arena read this engine runs (1 = the CUDA kernel, 0 =
+        the plain version), the arena storage, and the speculative
+        controller's state."""
+        snap = self.stats.snapshot()
         with self._cond:
-            snap = dict(self._stats)
             snap["queue_depth"] = float(len(self._pending))
             busy = sum(1 for r in self._slot_rows if r is not None)
         snap["slots_busy"] = float(busy)
         snap["slots_total"] = float(self.slots)
+        snap["slot_occupancy"] = busy / max(self.slots, 1)
+        snap["weight_bytes"] = float(self.weight_bytes)
+        snap["queue_limit"] = float(self.queue_limit)
+        snap["draining"] = 1.0 if self._drain_mode else 0.0
         snap.update(self._pool.telemetry())
         snap["paged_attn_kernel"] = 1.0 if self.paged_attn == "cuda" else 0.0
-        snap["int8_matmul_kernel"] = (
-            1.0 if self.int8_matmul and self.int8_matmul_impl == "cuda"
-            else 0.0)
         snap["kv_quant"] = 1.0 if self.kv_quant == "int8" else 0.0
         # rows holding a slot and pages mid chunked prefill
         snap["prefills_in_progress"] = float(len(self._prefill_pending))
-        # the speculative-decoding series exist once a spec step ran
-        if not snap["spec_steps"]:
-            for key in ("spec_steps", "spec_drafted_tokens",
-                        "spec_proposed_tokens", "spec_accepted_tokens"):
-                del snap[key]
-        else:
-            snap["spec_accept_rate"] = (snap["spec_accepted_tokens"]
-                                        / snap["spec_drafted_tokens"])
         if self._spec_ctl is not None:
             # the adaptive k (0: speculation suspended or disabled), its
             # EWMA acceptance once sampled, and the draft floor's trip
@@ -554,78 +682,564 @@ class PagedBatchingDecoder:
             snap["spec_disabled"] = 1.0 if self._spec_ctl.disabled else 0.0
         return snap
 
-    # --- engine loop (one thread owns the device state) ---
+    # --- overload: shedding, Retry-After, deadlines ---
 
-    def _count(self, key: str, n: float = 1.0) -> None:
+    def _fail_entry(self, entry: _Entry, error: Exception, counter) -> None:
+        """Fail one entry's waiters: rows done, the error set, the single
+        outcome claimed through ``counter``, waiter and stream released."""
+        for row in entry.rows:
+            row.done = True
+        if entry.error is None:
+            entry.error = error
+        if self._claim_outcome(entry):
+            counter()
+        entry.done_evt.set()
+        if entry.stream_q is not None:
+            entry.stream_q.put(None)
+
+    def _shed_oldest_locked(self, need: int) -> int:
+        """Shed the longest-queued entries until ``need`` queued rows are
+        free (caller holds ``_cond``). Only an entry whose rows are all
+        still queued is shed. Returns the rows freed."""
+        by_entry: Dict[int, List[_Row]] = {}
+        order: List[_Entry] = []
+        for r in self._pending:
+            if id(r.entry) not in by_entry:
+                order.append(r.entry)
+            by_entry.setdefault(id(r.entry), []).append(r)
+        doomed: List[_Entry] = []
+        freed = 0
+        for entry in order:
+            if freed >= need:
+                break
+            queued = by_entry[id(entry)]
+            if len(queued) != len(entry.rows):
+                continue
+            doomed.append(entry)
+            freed += len(queued)
+        if not doomed:
+            return 0
+        doomed_ids = {id(e) for e in doomed}
+        self._pending = deque(r for r in self._pending
+                              if id(r.entry) not in doomed_ids)
+        hint = self._retry_after_hint()
+        for entry in doomed:
+            self._fail_entry(entry, OverloadedError(
+                "request shed from the decode queue under sustained "
+                "overload (oldest-first)", retry_after=hint),
+                self.stats.shed)
+        return freed
+
+    def _retry_after_hint(self) -> float:
+        """Retry-After seconds of a 429: about how long the queue takes to
+        drain (depth / slots turns at the recent p50 request latency),
+        clamped to [1, 30]."""
         with self._cond:
-            self._stats[key] += n
+            depth = len(self._pending)
+        p50 = self.stats.snapshot().get("latency_p50_seconds", 1.0)
+        turns = depth / max(self.slots, 1)
+        return float(min(max(1.0, turns * max(p50, 0.1)), 30.0))
+
+    def _sweep_expired(self) -> None:
+        """Fail (504) every fully queued entry whose deadline has passed,
+        instead of letting it take a slot for tokens nobody will read."""
+        now = time.time()
+        doomed: List[_Entry] = []
+        with self._cond:
+            if not self._pending:
+                return
+            allowance = 0.0 if self._warmed else self.COLD_COMPILE_ALLOWANCE
+            by_entry: Dict[int, List[_Row]] = {}
+            for r in self._pending:
+                by_entry.setdefault(id(r.entry), []).append(r)
+            seen = set()
+            for r in list(self._pending):
+                e = r.entry
+                if id(e) in seen:
+                    continue
+                seen.add(id(e))
+                if (e.deadline is not None
+                        and now > e.deadline + allowance
+                        and len(by_entry[id(e)]) == len(e.rows)):
+                    doomed.append(e)
+            if doomed:
+                doomed_ids = {id(e) for e in doomed}
+                self._pending = deque(r for r in self._pending
+                                      if id(r.entry) not in doomed_ids)
+            for entry in doomed:
+                self._fail_entry(entry, KubeMLError(
+                    "request deadline expired while queued for a decode "
+                    "slot", 504), self.stats.deadline_expired)
+
+    # --- KMS1 snapshots: restore, capture, recovery, drain ---
+
+    def submit_snapshot(self, frame, stream: bool = False) -> _Entry:
+        """Admit a KMS1 frame (bytes or a ``kvsnap.RequestSnapshot``) as a
+        request: the row queues with its emitted tokens and, once the page
+        budget covers it, its pages scatter into fresh pages and it decodes
+        on from its saved position. A frame with no emissions prefills from
+        its prompt; a finished one resolves at once. A geometry, storage
+        or sampler mismatch is a 409, a frame no arena this size could
+        hold a 400."""
+        snap = (frame if isinstance(frame, kvsnap.RequestSnapshot)
+                else kvsnap.decode_snapshot(frame))
+        if snap.model and snap.model != self.name:
+            raise KubeMLError(
+                f"snapshot was taken from model {snap.model!r}, this "
+                f"decoder serves {self.name!r}", 409)
+        if not snap.prompt:
+            raise KubeMLError("snapshot carries an empty prompt", 400)
+        plen = len(snap.prompt)
+        if plen + snap.max_new - 1 > self.max_len:
+            raise KubeMLError(
+                f"snapshot prompt ({plen}) + max_new ({snap.max_new}) - 1 "
+                f"exceeds the model's max_len ({self.max_len})", 400)
+        self._check_capacity(plen, snap.max_new)
+        done = bool(snap.out) and (
+            len(snap.out) >= snap.max_new
+            or (snap.eos >= 0 and snap.out[-1] == snap.eos))
+        sampler = snap.sampler if snap.temp > 0 else None
+        if snap.temp > 0 and not done and sampler is None:
+            raise KubeMLError(
+                "sampled snapshot carries no torch_sampler state (the JAX "
+                "engine's key chain cannot be rebuilt here); resubmit the "
+                "prompt", 409)
+        if snap.out and not done:
+            self._check_restorable(snap)
+        rows: List[_Row] = []
+        entry = _Entry(rows=rows, max_new=int(snap.max_new),
+                       stream_q=queue.Queue() if stream else None,
+                       submitted_at=time.monotonic(),
+                       deadline=current_deadline(),
+                       request_id=snap.request_id or self._next_request_id())
+        rows.append(_Row(entry=entry, index=0,
+                         prompt=np.asarray(snap.prompt, np.int32),
+                         max_new=int(snap.max_new), temp=float(snap.temp),
+                         topk=int(snap.topk), eos=int(snap.eos),
+                         gen_seed=int(sampler.get("seed", 0)) if sampler else 0,
+                         out=list(snap.out),
+                         snapshot=snap if snap.out and not done else None))
+        with self._cond:
+            if self._closed or self._retired:
+                raise DecoderClosed()
+            if self._drain_mode and not done:
+                self.stats.overloaded()
+                raise OverloadedError(
+                    "decoder is draining for shutdown; replay the snapshot "
+                    "elsewhere", retry_after=max(
+                        1.0, self._drain_deadline - time.monotonic()))
+            if done:
+                self.stats.submitted(1)
+                rows[0].done = True
+            else:
+                # restores bypass the queue limit: they replay work a
+                # server already accepted once
+                self._enqueue_locked(rows)
+        if stream and snap.out:
+            # the pre-snapshot emissions as one delta, so the stream
+            # concatenates to the uninterrupted one
+            entry.stream_q.put({"row": 0, "tokens": list(snap.out)})
+        if done:
+            if self._claim_outcome(entry):
+                self.stats.completed(0.0)
+            entry.done_evt.set()
+            if entry.stream_q is not None:
+                entry.stream_q.put(None)
+        return entry
+
+    def _check_restorable(self, snap) -> None:
+        """409 unless a mid-stream frame fits this arena byte for byte and
+        its sampler can be rebuilt on this device."""
+        if int(snap.page_tokens) != self.page_tokens:
+            raise KubeMLError(
+                f"snapshot page_tokens ({snap.page_tokens}) != engine "
+                f"page_tokens ({self.page_tokens})", 409)
+        mine = "int8" if self.kv_quant == "int8" else "none"
+        theirs = "int8" if snap.kv_quant == "int8" else "none"
+        if mine != theirs:
+            raise KubeMLError(
+                f"snapshot arena storage is {theirs!r}, engine stores "
+                f"{mine!r} (KUBEML_KV_QUANT mismatch)", 409)
+        if self.spec == "draft":
+            raise KubeMLError(
+                "mid-stream restore is unsupported under spec='draft' (the "
+                "drafter's separate arena is not captured); resubmit the "
+                "prompt", 409)
+        if len(snap.layers) != self.module.depth:
+            raise KubeMLError(f"snapshot has {len(snap.layers)} layers, "
+                              f"model has {self.module.depth}", 409)
+        heads = self.module.num_heads
+        want = (self.page_tokens, heads, self.module.embed_dim // heads)
+        for layer in snap.layers:
+            got = tuple(int(x) for x in layer.k.shape[1:])
+            if got != want:
+                raise KubeMLError(
+                    f"snapshot layer {layer.name!r} page shape {got} != "
+                    f"engine page shape {want}", 409)
+        if snap.temp > 0 and (snap.sampler.get("state") is None
+                              or snap.sampler.get("device")
+                              != self.device.type):
+            raise KubeMLError(
+                f"snapshot sampler state is for "
+                f"{snap.sampler.get('device')!r}, this engine samples on "
+                f"{self.device.type!r}", 409)
+
+    def _sampler_field(self, row: _Row) -> Optional[dict]:
+        """A sampled row's ``torch_sampler`` frame field: the generator's
+        seed, and its state after the last consumed step (None before the
+        first token: the restore seeds a fresh generator)."""
+        if row.temp <= 0:
+            return None
+        return {"device": self.device.type, "seed": int(row.gen_seed),
+                "state": (kvsnap.sampler_state(row.gen_state)
+                          if row.gen_state is not None else None)}
+
+    def _frame_of(self, row: _Row, layers) -> "kvsnap.RequestSnapshot":
+        return kvsnap.RequestSnapshot(
+            model=self.name, request_id=row.entry.request_id,
+            page_tokens=self.page_tokens,
+            kv_quant="int8" if self.kv_quant == "int8" else "none",
+            spec=self.spec or "off",
+            prompt=[int(t) for t in row.prompt], out=list(row.out),
+            max_new=row.max_new, temp=row.temp, topk=row.topk, eos=row.eos,
+            key=(0, 0), layers=layers, sampler=self._sampler_field(row))
+
+    def _snapshot_row(self, row: _Row, ahead: int = 0
+                      ) -> Optional["kvsnap.RequestSnapshot"]:
+        """One resident row's portable state: tokens, knobs, sampler and
+        the written pages gathered through its page table, plus the pages
+        of the next ``ahead`` positions (an in-process replay takes the
+        speculative lookahead too: a rejected draft there raised an int8
+        page's scale, which the uninterrupted run keeps). None, after
+        counting a failure, when it cannot be captured: the draft
+        backend's rows (its arena is not covered) and rows whose pages
+        cannot be read."""
+        if self.spec == "draft":
+            self.stats.snapshot_fail()
+            return None
+        t0 = time.monotonic()
+        try:
+            npg = kvsnap.snapshot_pages_needed(len(row.prompt), len(row.out),
+                                               self.page_tokens)
+            if row.lease is None or len(row.lease.pages) < npg:
+                raise kvsnap.SnapshotError("row holds no page lease")
+            if ahead:
+                npg = min(len(row.lease.pages), self._pool.pages_for(
+                    len(row.prompt) + len(row.out) - 1 + ahead))
+            snap = self._frame_of(row, kvsnap.gather_pages(
+                self.cache, list(row.lease.pages[:npg])))
+            self.stats.snapshot_save(kvsnap.snapshot_nbytes(snap),
+                                     time.monotonic() - t0)
+            return snap
+        except Exception:
+            log.exception("%s: row snapshot failed (request %s)", self.name,
+                          row.entry.request_id)
+            self.stats.snapshot_fail()
+            return None
+
+    def _restore(self, row: _Row) -> None:
+        """Scatter a snapshot row's pages into its fresh lease and rebuild
+        its sampler: the state its prefill and ``len(out) - 1`` steps had
+        left. Its cursor is ``prompt_len + len(out) - 1`` from ``out``."""
+        snap = row.snapshot
+        t0 = time.monotonic()
+        try:
+            npg = len(snap.layers[0].k) if snap.layers else 0
+            if len(row.lease.pages) < npg:
+                raise kvsnap.SnapshotError(
+                    f"lease holds {len(row.lease.pages)} pages, snapshot "
+                    f"needs {npg}")
+            kvsnap.scatter_pages(self.cache, list(row.lease.pages[:npg]),
+                                 snap.layers)
+            if row.temp > 0:
+                row.gen = kvsnap.sampler_generator(snap.sampler, self.device)
+                row.gen_state = row.gen.get_state()
+        except Exception as e:
+            log.exception("%s: snapshot restore failed (slot %d)", self.name,
+                          row.slot)
+            self.stats.snapshot_fail()
+            self._release_row(row)
+            row.snapshot = None
+            self._fail_entry(row.entry, EngineFaultError(
+                f"snapshot restore failed: {e}",
+                partial_tokens=[list(row.out)]), self.stats.failed)
+            return
+        if row.replayed:
+            # this arena's own bytes: later sharers may reuse them
+            self._pool.register_prefix(row.prompt, row.lease)
+        row.snapshot = None
+        row.replayed = False
+        now = time.monotonic()
+        if not row.slot_at:
+            row.slot_at = now
+            self.stats.phase("queue_wait", now - row.entry.submitted_at)
+        self.stats.snapshot_restore(kvsnap.snapshot_nbytes(snap), now - t0)
+
+    def _recover_rows(self, error: Exception) -> List[_Row]:
+        """Fault recovery's salvage half, run before the arena is zeroed:
+        resident rows with emissions snapshot, rows with none prefill
+        again; an entry with a row that cannot be snapshotted fails now,
+        retryably, with its partial tokens. Queued rows of healthy entries
+        stay queued. Returns the salvaged rows in slot order."""
+        with self._cond:
+            resident = [r for r in self._slot_rows if r is not None]
+        doomed: Dict[int, _Entry] = {}
+        salvaged: List[_Row] = []
+        for row in resident:
+            if row.done or row.canceled:
+                continue
+            snap = None
+            if row.out:
+                snap = self._snapshot_row(row, ahead=self._spec_lookahead)
+                if snap is None:
+                    doomed.setdefault(id(row.entry), row.entry)
+                    continue
+            row.snapshot = snap
+            row.replayed = snap is not None
+            row.lease = None  # the pool is rebuilt; old leases are void
+            row.slot = -1
+            row.prefilling = False
+            row.prefix_cached = 0
+            salvaged.append(row)
+        salvaged = [r for r in salvaged if id(r.entry) not in doomed]
+        if doomed:
+            with self._cond:
+                self._pending = deque(r for r in self._pending
+                                      if id(r.entry) not in doomed)
+            for entry in doomed.values():
+                self._fail_entry(entry, EngineFaultError(
+                    f"decode engine fault: {error}; request state could "
+                    "not be snapshotted across the rebuild - retry",
+                    partial_tokens=[list(r.out) for r in entry.rows]),
+                    self.stats.failed)
+        return salvaged
+
+    def _reset_engine_state(self) -> None:
+        """A fresh pool and zeroed arenas: every cached page is void."""
+        self._pool = KVPool(self._pool.num_pages, self.page_tokens,
+                            prefix_cache=self._pool.trie is not None)
+        self.cache.zero_()
+        if self.draft_cache is not None:
+            self.draft_cache.zero_()
+
+    def _audit_pool(self) -> None:
+        """One KVPool invariant audit: a broken invariant raises into the
+        loop's fault recovery (snapshot, rebuild, replay) instead of
+        decoding through aliased pages."""
+        try:
+            with self._cond:
+                self._pool.check()
+        except Exception as e:
+            self.stats.pool_audit(False)
+            log.error("%s: KVPool invariant audit FAILED: %s", self.name, e)
+            raise
+        self.stats.pool_audit(True)
+
+    def drain(self, grace: Optional[float] = None) -> List[bytes]:
+        """Graceful shutdown: stop admitting (submit answers 429 with
+        Retry-After), give live rows ``grace`` seconds
+        (``KUBEML_DRAIN_GRACE``) to finish, then snapshot every straggler
+        into a KMS1 frame (its waiter gets a retryable 503 with its partial
+        tokens) and return the frames; [] when all finished in time."""
+        if grace is None:
+            grace = float(get_config().drain_grace)
+        deadline = time.monotonic() + max(0.0, grace)
+        with self._cond:
+            self._drain_mode = True
+            self._drain_deadline = deadline
+            active = self._thread is not None and not self._closed
+            self._cond.notify_all()
+        if not active:
+            return []
+        while time.monotonic() < deadline:
+            with self._cond:
+                if not self._pending and not self._busy():
+                    return []
+            time.sleep(0.05)
+        req = _DrainReq()
+        with self._cond:
+            if self._closed:
+                return []
+            self._drain_req = req
+            self._cond.notify_all()
+        if not req.evt.wait(timeout=max(30.0, grace) + 120.0):
+            log.warning("%s: drain quiesce timed out", self.name)
+            return []
+        return list(req.frames)
+
+    def _drain_quiesce(self, req: _DrainReq) -> None:
+        """The engine-thread half of :meth:`drain`: one KMS1 frame per
+        single-row straggler (a row with no emission yet gets a frame
+        without pages, which prefills on replay), the drained waiters
+        failed retryably, every lease released, the frames handed back."""
+        with self._cond:
+            resident = [r for r in self._slot_rows if r is not None]
+            queued = list(self._pending)
+            self._pending.clear()
+        entries: Dict[int, _Entry] = {}
+        for r in resident + queued:
+            if not r.done and not r.canceled:
+                entries.setdefault(id(r.entry), r.entry)
+        frames: List[bytes] = []
+        for entry in entries.values():
+            snap = None
+            if len(entry.rows) == 1:
+                r = entry.rows[0]
+                if r.out:
+                    snap = self._snapshot_row(r)
+                else:
+                    t0 = time.monotonic()
+                    snap = self._frame_of(r, [])
+                    self.stats.snapshot_save(kvsnap.snapshot_nbytes(snap),
+                                             time.monotonic() - t0)
+            if snap is not None:
+                try:
+                    frames.append(kvsnap.encode_snapshot(snap))
+                except Exception:
+                    log.exception("%s: drain frame encode failed (%s)",
+                                  self.name, entry.request_id)
+                    self.stats.snapshot_fail()
+            self._fail_entry(entry, EngineFaultError(
+                "decoder drained for shutdown"
+                + ("; request snapshotted for replay" if snap is not None
+                   else ""),
+                partial_tokens=[list(r.out) for r in entry.rows]),
+                self.stats.failed)
+        with self._cond:
+            for r in resident:
+                if r.lease is not None:
+                    self._pool.release(r.lease)
+                    r.lease = None
+            self._slot_rows = [None] * self.slots
+            self._free = list(range(self.slots))
+            self._prefill_pending = []
+            self._drain_req = None
+            self._cond.notify_all()
+        req.frames = frames
+        req.evt.set()
+
+    # --- engine loop (one thread owns the device state) ---
 
     def _busy(self) -> bool:
         return any(r is not None for r in self._slot_rows)
 
     def _loop(self) -> None:
         while True:
+            self._sweep_expired()
             with self._cond:
                 while (not self._closed and not self._pending
-                       and not self._busy()):
+                       and not self._busy() and self._drain_req is None):
+                    if self._retired:
+                        self.cache = self.draft_cache = None  # free the arena
+                        return
                     self._cond.wait()
                 if self._closed:
                     return
-                admits = self._take_admissions_locked()
+                admits = (self._take_admissions_locked()
+                          if self._drain_req is None else [])
             try:
+                req = self._drain_req
+                if req is not None and not admits:
+                    self._drain_quiesce(req)
+                    continue
+                if (self.pool_audit_interval > 0
+                        and time.monotonic() >= self._next_audit):
+                    self._next_audit = (time.monotonic()
+                                        + self.pool_audit_interval)
+                    self._audit_pool()
                 with torch.inference_mode():
-                    whole = []
-                    for row in admits:
-                        if (self.prefill_chunk and len(row.prompt)
-                                - row.lease.prefill_pos > self.prefill_chunk):
-                            # a long cold suffix prefills in page-aligned
-                            # chunks interleaved with decode
-                            row.prefilling = True
-                            self._prefill_pending.append(row)
-                        else:
-                            whole.append(row)
-                    for group in self._group_admits(whole):
-                        self._prefill(group)
-                    self._evict_canceled()
-                    advanced = self._advance_prefills()
-                    size = self._chunk_size()
-                    if size:
-                        k = (self._spec_ctl.current()
-                             if self._spec_ctl is not None else 0)
-                        if k:
-                            self._spec_step(k)
-                        else:
-                            self._decode_chunk(size)
-                            if self._spec_ctl is not None:
-                                self._spec_ctl.on_plain_chunk()
+                    advanced, size = self._turn(admits)
                 if not admits and not advanced and not size:
                     # only the queue head is waiting (for pages): yield
                     with self._cond:
                         self._cond.wait(0.01)
             except Exception as e:
                 log.exception("%s: paged decode loop failed", self.name)
-                self._fail_all(e, wrap=True)
-                # a fresh, zeroed arena: every cached page is invalid now
-                self._pool = KVPool(self._pool.num_pages, self.page_tokens,
-                                    prefix_cache=self._pool.trie is not None)
-                self.cache.zero_()
-                if self.draft_cache is not None:
-                    self.draft_cache.zero_()
+                # snapshot what can be saved BEFORE the arena is zeroed
+                salvaged = self._recover_rows(e)
+                with self._cond:
+                    if self._closed:
+                        return
+                    self._slot_rows = [None] * self.slots
+                    self._free = list(range(self.slots))
+                    self._prefill_pending = []
+                try:
+                    self._reset_engine_state()
+                except Exception:
+                    # the engine is down for good: the salvaged rows live
+                    # nowhere _fail_all can see, so fail them here first
+                    with self._cond:
+                        self._closed = True
+                    for entry in {id(r.entry): r.entry
+                                  for r in salvaged}.values():
+                        self._fail_entry(entry, EngineFaultError(
+                            f"decode engine fault: {e}; rebuild failed",
+                            partial_tokens=[list(r.out)
+                                            for r in entry.rows]),
+                            self.stats.failed)
+                    self._fail_all(e, wrap=True)
+                    return
+                if salvaged:
+                    # replay: the rows were admitted before anything queued
+                    with self._cond:
+                        for row in reversed(salvaged):
+                            self._pending.appendleft(row)
+                        self._cond.notify_all()
+                    self.stats.snapshot_replay(len(salvaged))
+
+    def _turn(self, admits: List[_Row]):
+        """One engine-loop turn: restore, prefill or start chunking the
+        admitted rows, advance chunked prefills, then one decode chunk or
+        spec step. Returns (prefill advanced, chunk size run)."""
+        whole = []
+        for row in admits:
+            if row.snapshot is not None:
+                self._restore(row)
+            elif (self.prefill_chunk and len(row.prompt)
+                    - row.lease.prefill_pos > self.prefill_chunk):
+                # a long cold suffix prefills in page-aligned chunks
+                # interleaved with decode
+                row.prefilling = True
+                self._mark_slotted(row)
+                self._prefill_pending.append(row)
+            else:
+                whole.append(row)
+        for group in self._group_admits(whole):
+            self._prefill(group)
+        self._evict_canceled()
+        advanced = self._advance_prefills()
+        size = self._chunk_size()
+        if size:
+            k = (self._spec_ctl.current()
+                 if self._spec_ctl is not None else 0)
+            if k:
+                self._spec_step(k)
+            else:
+                self._decode_chunk(size)
+                if self._spec_ctl is not None:
+                    self._spec_ctl.on_plain_chunk()
+        return advanced, size
 
     def _take_admissions_locked(self) -> List[_Row]:
         """Admit queued rows FIFO while a slot is free AND the page budget
         covers them (worst case: prompt + max_new - 1 positions and the
-        speculative lookahead, minus what the prefix trie already holds).
-        The head of the line blocks the tail."""
+        speculative lookahead, minus what the prefix trie already holds;
+        a snapshot row reserves private pages). The head of the line
+        blocks the tail."""
         admits = []
         while self._pending and self._free:
             row = self._pending[0]
             if row.canceled:
                 self._pending.popleft()
                 continue
-            lease = self._pool.admit(row.prompt, row.max_new,
-                                     lookahead=self._spec_lookahead,
-                                     max_positions=self.max_len)
+            if row.snapshot is not None:
+                lease = self._pool.reserve(self._pool.total_positions(
+                    len(row.prompt), row.max_new, self._spec_lookahead,
+                    self.max_len))
+            else:
+                lease = self._pool.admit(row.prompt, row.max_new,
+                                         lookahead=self._spec_lookahead,
+                                         max_positions=self.max_len)
             if lease is None:
                 break
             self._pending.popleft()
@@ -633,11 +1247,17 @@ class PagedBatchingDecoder:
             row.lease = lease
             row.prefix_cached = lease.prefix_tokens
             if lease.shared:
-                self._stats["prefix_hits"] += 1
-                self._stats["prefix_tokens_saved"] += lease.prefix_tokens
+                self.stats.prefix_hit(lease.prefix_tokens)
             self._slot_rows[row.slot] = row
             admits.append(row)
         return admits
+
+    def _mark_slotted(self, row: _Row) -> None:
+        """Lifecycle: queued -> holding a slot (once a row)."""
+        if not row.slot_at:
+            row.slot_at = time.monotonic()
+            self.stats.phase("queue_wait",
+                             row.slot_at - row.entry.submitted_at)
 
     def _group_admits(self, admits: List[_Row]) -> List[List[_Row]]:
         """Group by the length bucket of the suffix still to prefill (past
@@ -669,6 +1289,15 @@ class PagedBatchingDecoder:
                 and not r.prefilling and r.out
                 and r.max_new - len(r.out) > 0]
 
+    def _kv_tokens(self, depths: List[int], width: int) -> int:
+        """Cached tokens one forward reads through ``width``-page tables
+        at these query depths: the kernel stops at each row's live pages,
+        the gather path reads every row's whole table."""
+        pt = self.page_tokens
+        if self.paged_attn == "cuda":
+            return sum(min(-(-d // pt), width) * pt for d in depths)
+        return len(depths) * width * pt
+
     def _prefill_forward(self, rows, tokens, base, seq_lens, width):
         """One suffix-prefill forward of ``rows`` straight into the arena
         (and the drafter's, in draft mode): ``tokens [n, L]`` from logical
@@ -689,12 +1318,20 @@ class PagedBatchingDecoder:
         hidden = self.module(ids, cache=self.cache, **kw)
         if self.draft_module is not None:
             self.draft_module(ids, cache=self.draft_cache, **kw)
+        depths = [b + n for b, n in zip(
+            base, seq_lens or [tokens.shape[1]] * len(base))]
+        self.stats.kv_read(self._kv_tokens(depths, width)
+                           * (self._kv_token_bytes
+                              + (self._kv_draft_token_bytes
+                                 if self.draft_module is not None else 0)))
         return hidden
 
     def _charge_stall(self, stalled: List[_Row], seconds: float) -> None:
-        with self._cond:
-            self._stats["prefill_seconds"] += seconds
-            self._stats["hol_stall_seconds"] += seconds * len(stalled)
+        """A prefill forward's wall, charged to each row it delayed and to
+        the engine counter (seconds x rows)."""
+        self.stats.hol_stall(seconds, len(stalled))
+        for r in stalled:
+            r.hol_stall += seconds
 
     def _prefill(self, group: List[_Row]) -> None:
         """Prefill the group's remaining suffixes in one forward straight
@@ -702,6 +1339,8 @@ class PagedBatchingDecoder:
         full prompt blocks in the prefix trie for later sharers."""
         t0 = time.monotonic()
         stalled = self._stalled_rows()
+        for r in group:
+            self._mark_slotted(r)
         pt = self.page_tokens
         k = len(group)
         suffixes = [r.prompt[r.lease.prefill_pos:] for r in group]
@@ -724,19 +1363,22 @@ class PagedBatchingDecoder:
             # does, so chunking leaves the sampled stream as it was
             if r.temp > 0 and r.gen is None:
                 r.gen = torch.Generator(device=dev)
-                r.gen.manual_seed(_seed_for(r.seed, r.index))
+                r.gen.manual_seed(r.gen_seed)
         firsts = draft_sample(logits, *self._knobs(group), TOP_K_MAX,
                               with_probs=False)[0].tolist()
         for r in group:
             self._pool.register_prefix(r.prompt, r.lease)
         self._charge_stall(stalled, time.monotonic() - t0)
-        with self._cond:
-            self._stats["prefill_waves"] += 1
-            self._stats["prefill_tokens"] += float(sum(slens))
+        self._warmed = True
+        self.stats.admitted_wave()
+        self.stats.admit_tokens(sum(slens), k * width - sum(slens))
+        now = time.monotonic()
         for r, tok in zip(group, firsts):
             if r.canceled:
                 continue
+            self.stats.phase("prefill", now - r.slot_at)
             r.out.append(int(tok))
+            self._consumed(r)
             self._emit_delta(r, [int(tok)])
             if (r.eos >= 0 and tok == r.eos) or r.max_new <= 1:
                 self._complete_row(r)
@@ -766,9 +1408,7 @@ class PagedBatchingDecoder:
             for r in group:
                 r.prefilling = False
                 r.prefill_chunks += 1
-            with self._cond:
-                self._stats["prefill_chunks"] += len(group)
-                self._stats["prefill_chunk_tokens"] += n_tok
+            self.stats.prefill_chunk(len(group), n_tok)
         if chunkable:
             self._prefill_chunk(chunkable)
         return bool(finals or chunkable)
@@ -797,10 +1437,8 @@ class PagedBatchingDecoder:
             r.lease.prefill_pos += cap
             r.prefill_chunks += 1
         self._charge_stall(stalled, time.monotonic() - t0)
-        with self._cond:
-            self._stats["prefill_chunks"] += len(rows)
-            self._stats["prefill_chunk_tokens"] += cap * len(rows)
-            self._stats["prefill_tokens"] += cap * len(rows)
+        self.stats.admit_tokens(cap * len(rows), 0)
+        self.stats.prefill_chunk(len(rows), cap * len(rows))
 
     def _decode_rows(self) -> List[_Row]:
         """The resident rows with decode work (not finished, canceled, or
@@ -842,6 +1480,18 @@ class PagedBatchingDecoder:
                 torch.tensor([r.eos for r in rows], dtype=torch.int64,
                              device=dev))
 
+    def _occupancy(self, steps: int, width: int, emitted: int) -> None:
+        """Slot accounting of one chunk or spec step (``width`` token slots
+        a row each step): live = tokens emitted, dead = the rest of the
+        resident rows' slots (rows mid chunked prefill included), idle =
+        the slots no row holds."""
+        resident = sum(1 for r in self._slot_rows if r is not None)
+        dead = steps * width * resident - emitted
+        self.stats.chunk_occupancy(
+            steps, emitted, dead,
+            steps * width * self.slots - emitted - dead,
+            capacity=width * self.slots)
+
     def _decode_chunk(self, size: int) -> None:
         """Advance every decoding row ``size`` tokens; rows that hit their
         eos mid-chunk freeze (feed their last token at their last position,
@@ -850,6 +1500,7 @@ class PagedBatchingDecoder:
         rows = self._decode_rows()
         dev = self.device
         table, tok, pos, remaining, eos = self._step_inputs(rows, size)
+        pos0 = pos.tolist()
         live = torch.ones(len(rows), dtype=torch.bool, device=dev)
         knobs = self._knobs(rows)
         out = torch.empty((size, len(rows)), dtype=torch.int64, device=dev)
@@ -865,11 +1516,15 @@ class PagedBatchingDecoder:
             tok = torch.where(live, nxt, tok)
             pos = torch.where(live, pos + 1, pos)
         packed = out.T.cpu().numpy()  # the chunk's one device->host copy
-        with self._cond:
-            self._stats["decode_chunks"] += 1
-            self._stats["decode_steps"] += size
-            self._stats["decode_row_steps"] += size * len(rows)
-            self._stats["decode_seconds"] += time.monotonic() - t0
+        wall = time.monotonic() - t0
+        self._warmed = True
+        self.stats.chunk()
+        self.stats.chunk_fetched(wall, size)
+        self.stats.kv_read(sum(self._kv_tokens([p + s for p in pos0],
+                                               table.shape[1])
+                               for s in range(1, size + 1))
+                           * self._kv_token_bytes, wall)
+        self._occupancy(size, 1, int((packed >= 0).sum()))
         self._route(rows, packed)
 
     def _spec_step(self, k: int) -> None:
@@ -887,6 +1542,7 @@ class PagedBatchingDecoder:
         S = len(rows)
         dev = self.device
         table, tok, pos, remaining, eos = self._step_inputs(rows, k + 1)
+        pos0 = pos.tolist()
         temp, topk, gens = self._knobs(rows)
         sampled = any(g is not None for g in gens)
         if self.spec == "self":
@@ -921,15 +1577,18 @@ class PagedBatchingDecoder:
             remaining, eos, tok)
         packed = torch.cat([out, n_acc[:, None]], dim=1).cpu().numpy()
         accepted = int(packed[:, -1].sum())
-        with self._cond:
-            self._stats["decode_chunks"] += 1
-            self._stats["decode_steps"] += 1  # one device step
-            self._stats["decode_row_steps"] += S
-            self._stats["decode_seconds"] += time.monotonic() - t0
-            self._stats["spec_steps"] += 1
-            self._stats["spec_drafted_tokens"] += k * S
-            self._stats["spec_proposed_tokens"] += (k + 1) * S
-            self._stats["spec_accepted_tokens"] += accepted
+        self._warmed = True
+        self.stats.chunk()
+        tw = table.shape[1]
+        iters = k + 1 if self.spec == "draft" else k
+        self.stats.kv_read(
+            self._kv_tokens([p + k + 1 for p in pos0], tw)
+            * self._kv_token_bytes
+            + sum(self._kv_tokens([p + i for p in pos0], tw)
+                  for i in range(1, iters + 1)) * self._kv_draft_token_bytes,
+            time.monotonic() - t0)
+        self._occupancy(1, k + 1, int((packed[:, :-1] >= 0).sum()))
+        self.stats.spec_step(k * S, accepted, (k + 1) * S)
         ctl = self._spec_ctl
         ctl.on_step(k * S, accepted)
         if ctl.disabled and not self._spec_disabled_logged:
@@ -955,11 +1614,18 @@ class PagedBatchingDecoder:
                 r.out.append(tok_i)
                 if (r.eos >= 0 and tok_i == r.eos) or len(r.out) >= r.max_new:
                     break
-            if fresh and not r.canceled:
+            self._consumed(r)
+            if fresh:
                 self._emit_delta(r, fresh)
             if ((r.eos >= 0 and r.out[-1] == r.eos)
                     or len(r.out) >= r.max_new):
                 self._complete_row(r)
+
+    @staticmethod
+    def _consumed(r: _Row) -> None:
+        """Record a sampled row's generator state after a consumed step."""
+        if r.gen is not None:
+            r.gen_state = r.gen.get_state()
 
     def _evict_canceled(self) -> None:
         """Free the slot and pages of every canceled resident row, mid
@@ -980,18 +1646,24 @@ class PagedBatchingDecoder:
 
     def _complete_row(self, r: _Row) -> None:
         r.done = True
+        if r.first_emit_at:
+            self.stats.phase("decode_active",
+                             r.last_emit_at - r.first_emit_at)
+        self.stats.phase("slot_idle", time.monotonic() - r.last_emit_at
+                         if r.last_emit_at else 0.0)
         self._release_row(r)
         entry = r.entry
         if entry.finished():
             if self._claim_outcome(entry):
-                self._count("requests_completed")
+                self.stats.completed(time.monotonic() - entry.submitted_at)
             entry.done_evt.set()
             if entry.stream_q is not None:
                 entry.stream_q.put(None)
 
     def _claim_outcome(self, entry: _Entry) -> bool:
-        """Each request counts exactly one outcome (completed, canceled or
-        failed), whichever side claims it first."""
+        """Each request counts exactly one outcome (completed, timed out,
+        canceled, shed, expired or failed), whichever side claims it
+        first."""
         with self._cond:
             if entry.aborted:
                 return False
@@ -1000,16 +1672,27 @@ class PagedBatchingDecoder:
 
     def _emit_delta(self, r: _Row, tokens: List[int]) -> None:
         entry = r.entry
+        now = time.monotonic()
         if entry.first_token_at == 0.0:
-            entry.first_token_at = time.monotonic()
-        self._count("tokens_emitted", len(tokens))
+            entry.first_token_at = now
+            self.stats.first_token(now - entry.submitted_at)
+        if r.first_emit_at == 0.0:
+            r.first_emit_at = now
+        else:
+            # one gap an arrival: a multi-token delta is one arrival
+            gap = now - r.last_emit_at
+            r.itl.append(gap)
+            self.stats.inter_token(gap)
+        r.last_emit_at = now
+        # tokens routed to a waiter that already gave up are waste
+        self.stats.emitted(len(tokens), wasted=entry.aborted)
         if entry.stream_q is not None:
             entry.stream_q.put({"row": r.index, "tokens": tokens})
 
     def _fail_all(self, error: Exception, wrap: bool = False) -> None:
-        """Fail every queued and resident row. A loop fault (``wrap``)
-        reaches waiters as a retryable 503 carrying the tokens emitted so
-        far; close() passes its own error through."""
+        """Fail every queued and resident row. ``wrap`` reaches waiters as
+        a retryable 503 carrying the tokens emitted so far; close() passes
+        its own error through."""
         with self._cond:
             rows = list(self._pending) + [r for r in self._slot_rows if r]
             self._pending.clear()
@@ -1021,17 +1704,9 @@ class PagedBatchingDecoder:
                 self._pool.release(r.lease)
         entries = {id(r.entry): r.entry for r in rows}
         for entry in entries.values():
-            for r in entry.rows:
-                r.done = True
-            if entry.error is None:
-                entry.error = (error if not wrap
-                               or isinstance(error, KubeMLError)
-                               else EngineFaultError(
-                                   f"decode engine fault: {error}",
-                                   partial_tokens=[list(r.out)
-                                                   for r in entry.rows]))
-            if self._claim_outcome(entry):
-                self._count("requests_failed")
-            entry.done_evt.set()
-            if entry.stream_q is not None:
-                entry.stream_q.put(None)
+            self._fail_entry(entry, (
+                error if not wrap or isinstance(error, KubeMLError)
+                else EngineFaultError(
+                    f"decode engine fault: {error}",
+                    partial_tokens=[list(r.out) for r in entry.rows])),
+                self.stats.failed)

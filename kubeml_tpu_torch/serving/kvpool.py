@@ -301,6 +301,18 @@ class KVPool:
         return PageLease(pages=shared + fresh, shared=len(shared),
                          prefix_tokens=pre, prefill_pos=pre)
 
+    def reserve(self, total_tokens: int) -> Optional[PageLease]:
+        """Reserve fresh PRIVATE pages for ``total_tokens`` positions, with
+        no prefix-trie participation: the snapshot-restore admission. A
+        restored row's page bytes came from another arena's write history
+        (int8 scales and all), so sharing them through this pool's trie,
+        or matching its cached blocks in their place, would mix arenas.
+        None when the pool can't cover it (the row stays queued)."""
+        fresh = self._alloc(self.pages_for(total_tokens))
+        if fresh is None:
+            return None
+        return PageLease(pages=fresh)
+
     def register_prefix(self, prompt: Sequence[int], lease: PageLease) -> None:
         """Cache a just-dispatched prefill's full prompt blocks for future
         sharers (no-op with the prefix cache off)."""
@@ -350,7 +362,6 @@ class KVPool:
     def telemetry(self) -> dict:
         used = self.capacity - len(self._free)
         return {
-            "page_evictions": float(self.evictions),
             "pages_total": float(self.capacity),
             "pages_free": float(len(self._free)),
             "page_occupancy": used / self.capacity if self.capacity else 0.0,

@@ -74,6 +74,17 @@ def dequantize_tree(tree: Mapping[str, object],
             for name, leaf in tree.items()}
 
 
+def quantized_bytes(module: torch.nn.Module) -> int:
+    """Weight bytes a decode step streams with ``module`` as loaded: every
+    parameter and buffer (int8 values and their scales where quantized)
+    but the gathered embedding tables."""
+    sizes = {t.data_ptr(): t.numel() * t.element_size()
+             for name, t in [*module.named_parameters(),
+                             *module.named_buffers()]
+             if not _gather_accessed(name)}
+    return sum(sizes.values())
+
+
 def quantized_dot(x: torch.Tensor, qt: QuantizedTensor, *, dtype=None,
                   impl: str = "auto") -> torch.Tensor:
     """``x @ dequant(qt)`` without materializing the dense weight: the

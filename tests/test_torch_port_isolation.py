@@ -23,21 +23,38 @@ def _forbidden(name: str) -> bool:
     return name.split(".")[0] in FORBIDDEN
 
 
+def _offenders(path):
+    """The forbidden absolute imports of one source file."""
+    out = []
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        out += [f"{path.relative_to(REPO)}: {n}" for n in names
+                if _forbidden(n)]
+    return out
+
+
 def test_port_sources_import_nothing_of_jax_or_the_jax_package():
-    offenders = []
-    for path in _port_sources():
-        tree = ast.parse(path.read_text(), filename=str(path))
-        for node in ast.walk(tree):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                names = [node.module or ""]
-            else:
-                continue
-            offenders += [f"{path.relative_to(REPO)}: {n}" for n in names
-                          if _forbidden(n)]
+    offenders = [o for path in _port_sources() for o in _offenders(path)]
     assert len(_port_sources()) > 10
     assert not offenders, offenders
+
+
+@pytest.mark.parametrize("module", ["serving/stats.py", "serving/kvsnap.py",
+                                    "benchmarks/recovery.py",
+                                    "utils/resilience.py"])
+def test_resilience_modules_keep_their_own_copies(module):
+    """The serving-resilience modules copy what they need of the JAX
+    package's JAX-free modules (``ps/metrics``, ``utils/timeseries``,
+    ``engine/dataplane``, ``utils/resilience``) instead of importing it."""
+    path = REPO / "kubeml_tpu_torch" / module
+    assert path.is_file()
+    assert not _offenders(path)
 
 
 def test_importing_the_port_loads_no_jax_module():
@@ -54,7 +71,10 @@ def test_importing_the_port_loads_no_jax_module():
         "kubeml_tpu_torch.storage, kubeml_tpu_torch.runtime, "
         "kubeml_tpu_torch.models.resnet, kubeml_tpu_torch.models.lenet, "
         "kubeml_tpu_torch.api.config, kubeml_tpu_torch.serving.spec, "
-        "kubeml_tpu_torch.benchmarks.spec_decode\n"
+        "kubeml_tpu_torch.benchmarks.spec_decode, "
+        "kubeml_tpu_torch.serving.stats, kubeml_tpu_torch.serving.kvsnap, "
+        "kubeml_tpu_torch.benchmarks.recovery, "
+        "kubeml_tpu_torch.utils.resilience\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
@@ -82,6 +102,9 @@ def test_entry_points_raise_without_device_on_a_cpu_only_host(monkeypatch):
     from kubeml_tpu_torch.benchmarks.spec_decode import run_rows
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_rows(0, 1, 2, 2, 2, 4, 1)
+    from kubeml_tpu_torch.benchmarks.recovery import main as recovery
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        recovery([])
     # asked for explicitly, the CPU runs
     assert resolve_device("cpu") == torch.device("cpu")
     PagedBatchingDecoder(m, page_tokens=4, device="cpu").close()

@@ -203,7 +203,7 @@ def test_queue_limit_is_a_429_and_cancel_frees_the_slot():
         dec.cancel(a)
         assert dec.wait(b, timeout=60)["lengths"] == [2]
         tele = dec.telemetry()
-        assert tele["requests_overloaded"] == 1
+        assert tele["requests_overload"] == 1
         assert tele["requests_canceled"] == 1
         assert len(a.rows[0].out) < 40
         chk = dec._pool.check()
