@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (one NVIDIA H100): the paged
-serving path, the GPT training path and K-AVG training. Run from the repo
-root::
+serving path, the GPT training path, K-AVG training, and checkpoints
+served through the parameter server. Run from the repo root::
 
     python3 chip_smoke.py
 
@@ -94,11 +94,13 @@ Phases, each reported on its own lines:
    same 160 SGD steps as the yardstick; (b) f32 with TF32 off and
    deterministic cuDNN, N 4, K 2: the merged weights equal the mean of four
    one-worker rounds, a worker mask averages the other three, and the
-   card's round matches the CPU's; (c) ``TrainJob`` on a banded
-   CIFAR-shaped set in a temporary ``ShardStore``, 3 epochs, parallelism
-   4 -> 2 by ``on_epoch_end``: trace [4, 2, 2], falling loss, validation
-   accuracy at least ``KAVG_JOB_MIN_ACC``; none of the five hand-written
-   kernels may launch in this phase;
+   card's round matches the CPU's; (c) ``TrainJob`` (the model a
+   registered function) on a banded CIFAR-shaped set in a temporary data
+   root, 3 epochs, parallelism 4 -> 2 by ``on_epoch_end``, a checkpoint
+   every epoch and the final export: trace [4, 2, 2], falling loss,
+   validation accuracy at least ``KAVG_JOB_MIN_ACC``, checkpoints
+   ep00000-ep00002 and final; none of the five hand-written kernels may
+   launch in this phase;
 11. resilience - the phase-6 coherent-tail target, 8 slots, 16-token
    pages, the 16-request mix (``benchmarks.recovery``): (a) int8 weights
    through the int8 matmul, int8 KV pages, ``spec="self"`` (k 4, exit 6),
@@ -115,7 +117,29 @@ Phases, each reported on its own lines:
    rebuild (one failure, rows replayed) and every stream complete; the
    audit's host time a tick; the wall from the fault to the first
    post-fault emission in (a);
-12. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+12. checkpoint serving - phase 4's GPT-2-small weights saved as a
+   ``final`` checkpoint (Flax layout) in a temporary data root with a
+   registered function, then quantized offline into ``final-int8``
+   (``quantize_final_checkpoint``); printed: the files' bytes and save
+   ms; (a) the 16-request mix from threads through
+   ``ParameterServer.generate`` on the card: greedy tokens identical to
+   phase 4's hand-built engine (near ties as in phase 6), paged attention
+   launches, the request-0 prompt again takes at least its 64-token
+   shared prefix from the trie; (c, on a's server) the mix again, drained
+   with grace 0 once a row has 8 tokens into the snapshot directory, the
+   frames restored by a fresh server (``restore_serving``): every stream
+   equals a's (near ties as above); (b) a server with
+   ``serving_quantize=int8``, ``kv_quant=int8`` serves ``final-int8``
+   through both kernels: its module bit-identical to a hand-built
+   ``quantize="int8"`` engine's (q, s and every other tensor, and
+   teacher-forced logits on fresh arenas), greedy tokens identical to
+   phase 5's hand-built int8 engine but for near ties within
+   ``INT8_NEAR_TIE`` (int8 KV page scales follow the page allocation
+   history, which the threads' timing decides); (d) 10c's final export through ``ParameterServer.infer``
+   equals the job's in-memory ``infer``. Each server prints its cold
+   ``_load_serving`` and decoder-build ms, the TTFT of the first request
+   on the cold decoder and of a warm one, and the phase's launches;
+13. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Any failure raises and the script exits non-zero; without a CUDA device it
 exits non-zero before printing any result.
@@ -126,10 +150,13 @@ from __future__ import annotations
 import copy
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -933,11 +960,11 @@ def check_tokens(tag, run, ref, ref_dec, reqs) -> None:
 
 
 def check_greedy(tag, got, want, prompts, ref_dec, first=0,
-                 against="the spec-off engine"):
+                 against="the spec-off engine", tie=NEAR_TIE):
     """Greedy token lists ``got`` against ``want``, request by request
     (numbered from ``first``): identical, or diverging only where
     ``ref_dec``'s path teacher-forced to the first differing position has
-    its two largest logits within NEAR_TIE. Returns the near ties."""
+    its two largest logits within ``tie``. Returns the near ties."""
     ties = []
     for i, (g, w) in enumerate(zip(got, want)):
         if g == w:
@@ -951,10 +978,10 @@ def check_greedy(tag, got, want, prompts, ref_dec, first=0,
         gap = (top[0] - top[1]).item()
         log(f"  {tag}: request {i + first} differs at token {j} ({g[j]} vs "
             f"{w[j]}); reference top-two logit gap {gap:.3e}")
-        if not gap <= NEAR_TIE:
+        if not gap <= tie:
             raise AssertionError(f"{tag}: greedy tokens differ from "
                                  f"{against} (request {i + first}, token "
-                                 f"{j}, logit gap {gap:.3e} > {NEAR_TIE})")
+                                 f"{j}, logit gap {gap:.3e} > {tie})")
         ties.append((i + first, j))
     return ties
 
@@ -1657,55 +1684,72 @@ def banded_images(n: int, seed: int):
     return x, y
 
 
-def kavg_job(device: str = "cuda", num_filters: int = 64,
+# 10c's model as a registered function (phase 12d serves its final export
+# through the parameter server, which loads the model by name)
+BANDS_FN = """
+import torch
+from kubeml_tpu_torch.data.dataset import KubeDataset
+from kubeml_tpu_torch.models.resnet import BasicBlock, ResNet
+from kubeml_tpu_torch.runtime.model import KubeModel
+
+
+class Bands(KubeModel):
+    def __init__(self):
+        super().__init__(KubeDataset("bands"))
+
+    def build(self):
+        return ResNet([2, 2, 2, 2], BasicBlock, num_classes=10,
+                      num_filters=%d, dtype=torch.bfloat16)
+
+    def configure_optimizers(self, params):
+        return torch.optim.SGD(params, lr=self.lr, momentum=0.9)
+
+    def preprocess(self, x):
+        return x.to(torch.bfloat16) / 127.5 - 1.0
+"""
+KAVG_JOB = "kavg-smoke"
+
+
+def kavg_job(root, device: str = "cuda", num_filters: int = 64,
              n_train: int = 4096, n_test: int = 1024, epochs: int = 3):
-    """10c: ``TrainJob`` end to end: ResNet-18 (bf16, uint8 inputs) on the
-    banded set from a temporary ``ShardStore``, 3 epochs at
-    ``default_parallelism`` 4, an ``on_epoch_end`` policy moving it to 2.
-    Returns the history."""
-    import tempfile
-    from pathlib import Path
-
+    """10c: ``TrainJob`` end to end: ResNet-18 (bf16, uint8 inputs; the
+    registered function ``bands``) on the banded set from a ``ShardStore``
+    under the data root ``root``, 3 epochs at ``default_parallelism`` 4, an
+    ``on_epoch_end`` policy moving it to 2, a checkpoint every epoch and the
+    final export. Returns the history and the job."""
+    from kubeml_tpu_torch.api.config import Config
     from kubeml_tpu_torch.api.types import TrainOptions, TrainRequest
-    from kubeml_tpu_torch.data.dataset import KubeDataset
     from kubeml_tpu_torch.engine.job import TrainJob
-    from kubeml_tpu_torch.models.resnet import BasicBlock, ResNet
-    from kubeml_tpu_torch.runtime.model import KubeModel
-    from kubeml_tpu_torch.storage import HistoryStore, ShardStore
+    from kubeml_tpu_torch.functions.registry import FunctionRegistry
+    from kubeml_tpu_torch.storage import (CheckpointStore, HistoryStore,
+                                          ShardStore)
 
-    class Bands(KubeModel):
-        def __init__(self):
-            super().__init__(KubeDataset("bands"))
-
-        def build(self):
-            return ResNet([2, 2, 2, 2], BasicBlock, num_classes=10,
-                          num_filters=num_filters, dtype=torch.bfloat16)
-
-        def configure_optimizers(self, params):
-            return torch.optim.SGD(params, lr=self.lr, momentum=0.9)
-
-        def preprocess(self, x):
-            return x.to(torch.bfloat16) / 127.5 - 1.0
-
-    with tempfile.TemporaryDirectory() as tmp:
-        store = ShardStore(root=Path(tmp) / "datasets")
-        store.create("bands", *banded_images(n_train, 2),
-                     *banded_images(n_test, 3))
-        req = TrainRequest(
-            model_type="resnet18", batch_size=64, epochs=epochs,
-            dataset="bands", lr=0.05, function_name="resnet18",
-            # the set is easy: no goal-accuracy stop before the 3 epochs
-            options=TrainOptions(default_parallelism=4, k=4,
-                                 precision="bf16", goal_accuracy=101.0))
-        job = TrainJob("kavg-smoke", req, Bands(), store=store,
-                       history_store=HistoryStore(root=Path(tmp) / "history"),
-                       on_epoch_end=lambda s: 2 if s.parallelism == 4
-                       else s.parallelism, device=device)
-        hist = job.train()
+    cfg = Config(data_root=root)
+    cfg.ensure_dirs()
+    registry = FunctionRegistry(config=cfg)
+    registry.create("bands", BANDS_FN % num_filters)
+    store = ShardStore(root=cfg.datasets_dir)
+    store.create("bands", *banded_images(n_train, 2),
+                 *banded_images(n_test, 3))
+    req = TrainRequest(
+        model_type="resnet18", batch_size=64, epochs=epochs,
+        dataset="bands", lr=0.05, function_name="bands",
+        # the set is easy: no goal-accuracy stop before the 3 epochs
+        options=TrainOptions(default_parallelism=4, k=4, precision="bf16",
+                             goal_accuracy=101.0, checkpoint_every=1,
+                             save_model=True))
+    ckpts = CheckpointStore(config=cfg)
+    job = TrainJob(KAVG_JOB, req, registry.load("bands"), store=store,
+                   history_store=HistoryStore(root=cfg.history_path),
+                   checkpoint_store=ckpts,
+                   on_epoch_end=lambda s: 2 if s.parallelism == 4
+                   else s.parallelism, device=device)
+    hist = job.train()
     log(f"  TrainJob: parallelism {hist.parallelism}, train loss "
         f"{[round(v, 4) for v in hist.train_loss]}, validation accuracy "
         f"{[round(v, 2) for v in hist.accuracy]} %, epoch s "
-        f"{[round(v, 3) for v in hist.epoch_duration]}")
+        f"{[round(v, 3) for v in hist.epoch_duration]}; checkpoints "
+        f"{ckpts.tags(KAVG_JOB)}")
     if hist.parallelism != [4, 2, 2][:epochs]:
         raise AssertionError(f"parallelism trace {hist.parallelism}")
     if not hist.train_loss[-1] < hist.train_loss[0]:
@@ -1713,7 +1757,10 @@ def kavg_job(device: str = "cuda", num_filters: int = 64,
     if not hist.accuracy[-1] >= KAVG_JOB_MIN_ACC:
         raise AssertionError(f"validation accuracy {hist.accuracy[-1]} % < "
                              f"{KAVG_JOB_MIN_ACC} %")
-    return hist
+    if ckpts.tags(KAVG_JOB) != [f"ep{e:05d}" for e in range(epochs)] + [
+            "final"]:
+        raise AssertionError(f"checkpoints {ckpts.tags(KAVG_JOB)}")
+    return hist, job
 
 
 # --- phase 11: serving resilience ------------------------------------------
@@ -1951,11 +1998,368 @@ def resilience_phase(smi):
     return (a_launches[0] + b_launches[0], a_launches[1] + b_launches[1])
 
 
+# --- phase 12: checkpoint serving ------------------------------------------
+
+# phase 4's GPT-2-small as a registered function: the parameter server
+# builds the module from it and loads the checkpoint into it
+GPT2_FN = """
+from kubeml_tpu_torch.data.dataset import KubeDataset
+from kubeml_tpu_torch.models import GPTSmall
+from kubeml_tpu_torch.runtime.model import KubeModel
+
+
+class GPT2(KubeModel):
+    def __init__(self):
+        super().__init__(KubeDataset("tokens"))
+
+    def build(self):
+        return GPTSmall(vocab_size=%d, max_len=%d, attn_bias=True,
+                        ln_eps=1e-5, seed=%d, device="cpu")
+"""
+GPT2_JOB = "gpt2-small"
+# int8 KV pages: a released page keeps its scale rows as its next owner's
+# floor (ROADMAP Queue 3, in both engines), and which pages a request gets
+# follows the threads' timing, so two int8-KV runs of the mix may round a
+# row's K/V apart. 12b holds the weights bit for bit (q, s and every other
+# tensor, and teacher-forced logits on fresh arenas) and the mix's greedy
+# tokens with near ties at the int8 path's teacher-forced tolerance
+INT8_NEAR_TIE = TF_ATOL
+
+
+def streamed(ps, job, req):
+    """One streamed request through ``ps``: its result in ``wait``'s shape
+    and the seconds from the call to the first token."""
+    t0 = time.monotonic()
+    toks, first = [], None
+    for part in ps.generate(job, req):
+        if "tokens" in part:
+            first = first if first is not None else time.monotonic() - t0
+            toks += part["tokens"]
+    return {"tokens": [toks], "lengths": [len(toks)]}, first
+
+
+def serve_ps(ps, job, reqs, eos):
+    """``serve``'s workload through ``ps.generate`` from threads, with the
+    hand-built engine's eos id: the calibration request, streamed (its
+    first token is the fresh decoder's first), then the 16 requests,
+    request 0 streamed so that sharers 2-4 start once its first token
+    landed. Returns ``serve``'s dict (timings from the decoder's
+    telemetry) with the calibration's TTFT."""
+    from kubeml_tpu_torch.api import GenerateRequest
+
+    calib, calib_ttft = streamed(ps, job, GenerateRequest(
+        prompts=[reqs[5]["prompt"].tolist()], max_new_tokens=16,
+        stream=True))
+    results, errors = [None] * 16, []
+    first_sharer = threading.Event()
+
+    def client(i):
+        try:
+            if i in (4, 8, 12):
+                first_sharer.wait(600)
+            r = reqs[i]
+            req = GenerateRequest(prompts=[r["prompt"].tolist()],
+                                  max_new_tokens=r["max_new"],
+                                  eos_id=eos if i == 5 else None,
+                                  stream=i == 0)
+            if i == 0:
+                toks = []
+                for part in ps.generate(job, req):
+                    toks += part.get("tokens", [])
+                    first_sharer.set()
+                results[0] = {"tokens": [toks], "lengths": [len(toks)],
+                              "prefix_cached_tokens": 0}
+            else:
+                results[i] = ps.generate(job, req)
+        except Exception as e:  # surfaced below, after the join
+            errors.append(e)
+            first_sharer.set()
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(16)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    wall = time.monotonic() - t0
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("serving clients did not finish")
+    tokens = sum(r["lengths"][0] for r in results)
+    tele = ps._decoders[job][0].telemetry()
+    return dict(calib=calib["tokens"][0], calib_ttft=calib_ttft,
+                results=results, tokens=tokens, wall=wall,
+                tokens_per_s=tokens / wall, tele=tele)
+
+
+def cold_serving(ps, job):
+    """Milliseconds of a cold ``_load_serving`` (the file read, the
+    function's load) and of the decoder's build (the module built, loaded,
+    moved to the card; the arena allocated)."""
+    t0 = time.monotonic()
+    model, tree, mtime = ps._load_serving(job)
+    t1 = time.monotonic()
+    dec = ps._get_decoder(job, model, tree, mtime)
+    torch.cuda.synchronize()
+    t2 = time.monotonic()
+    return dec, 1e3 * (t1 - t0), 1e3 * (t2 - t1)
+
+
+def report_ps(tag, run, load_ms, build_ms, warm_ttft, launches, smi):
+    t = run["tele"]
+    log(f"  {tag} [{smi}]: {run['tokens']} tokens in {run['wall']:.3f} s = "
+        f"{run['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+        f"{1e3 * t['first_token_p50_seconds']:.1f} ms; cold _load_serving "
+        f"{load_ms:.1f} ms + decoder build {build_ms:.1f} ms; TTFT of the "
+        f"first request on the cold decoder {1e3 * run['calib_ttft']:.1f} "
+        f"ms, of a warm one {1e3 * warm_ttft:.1f} ms; launches "
+        f"paged_attention {launches[0]}, int8_matmul {launches[1]}")
+
+
+def warm_request(ps, job, reqs):
+    """TTFT of a warm request: the calibration prompt's length, new
+    tokens (no shared prefix), streamed."""
+    from kubeml_tpu_torch.api import GenerateRequest
+
+    prompt = np.random.default_rng(SEED + 1).integers(
+        1, VOCAB, size=len(reqs[5]["prompt"]))
+    return streamed(ps, job, GenerateRequest(
+        prompts=[prompt.tolist()], max_new_tokens=16, stream=True))[1]
+
+
+def checkpoint_phase(smi, root, run, qrun, kavg):
+    """Phase 12 (see the module docstring): (a) a dense GPT-2-small final
+    served by ``ParameterServer.generate``, (b) its ``final-int8``, (c)
+    drain and restore across two servers, (d) the K-AVG job's final
+    through ``ParameterServer.infer``. ``run``/``qrun`` are phases 4-5's
+    hand-built f32 and int8 engines' runs, ``kavg`` phase 10c's (history,
+    job). Returns the (paged_attention, int8_matmul) launches of its
+    serving runs."""
+    from kubeml_tpu_torch.api import EngineFaultError, GenerateRequest
+    from kubeml_tpu_torch.api.config import Config
+    from kubeml_tpu_torch.functions.registry import FunctionRegistry
+    from kubeml_tpu_torch.interop.from_flax import to_flax
+    from kubeml_tpu_torch.ops.int8_matmul import int8_matmul
+    from kubeml_tpu_torch.ops.paged_attention import paged_attention
+    from kubeml_tpu_torch.ps import ParameterServer
+    from kubeml_tpu_torch.serving import PagedBatchingDecoder, kvsnap
+    from kubeml_tpu_torch.serving.quant import (INT8_TAG,
+                                                quantize_final_checkpoint)
+    from kubeml_tpu_torch.storage import FINAL_TAG, CheckpointStore
+
+    reqs = workload(np.random.default_rng(SEED))
+    prompts = [reqs[5]["prompt"]] + [r["prompt"] for r in reqs]
+    snaps = str(Path(root) / "snaps")
+    serve_kw = dict(data_root=Path(root), serving_slots=SLOTS,
+                    serving_chunk_steps=CHUNK,
+                    serving_page_tokens=PAGE_TOKENS, snap_dir=snaps)
+    cfg = Config(**serve_kw)
+    cfg.ensure_dirs()
+    FunctionRegistry(config=cfg).create("gpt2", GPT2_FN % (VOCAB, MAX_LEN,
+                                                            SEED))
+    store = CheckpointStore(config=cfg)
+    model = gpt2_small()
+    t0 = time.monotonic()
+    path = store.save(GPT2_JOB, to_flax(model.state_dict()), epoch=1,
+                      tag=FINAL_TAG, meta={"request": {
+                          "function_name": "gpt2"}})
+    save_ms = 1e3 * (time.monotonic() - t0)
+    del model
+    t0 = time.monotonic()
+    quantize_final_checkpoint(GPT2_JOB, store)
+    q_ms = 1e3 * (time.monotonic() - t0)
+    qpath = store.export_path(GPT2_JOB, tag=INT8_TAG)
+    log(f"  checkpoints [{smi}]: final {path.stat().st_size} bytes, "
+        f"to_flax + save {save_ms:.1f} ms; final-int8 "
+        f"{qpath.stat().st_size} bytes, quantize_final_checkpoint (read, "
+        f"quantize on the host, save) {q_ms:.1f} ms")
+    launches = [0, 0]
+
+    # (a) the dense final through generate
+    ps = ParameterServer(config=cfg)
+    dec, load_ms, build_ms = cold_serving(ps, GPT2_JOB)
+    if dec.paged_attn != "cuda" or dec.quantize:
+        raise AssertionError("a: the served engine is not the f32 kernel "
+                             "engine")
+    paged_attention.launches = int8_matmul.launches = 0
+    prun = serve_ps(ps, GPT2_JOB, reqs, run["eos"])
+    again = ps.generate(GPT2_JOB, GenerateRequest(
+        prompts=[reqs[0]["prompt"].tolist()], max_new_tokens=4))
+    warm_ttft = warm_request(ps, GPT2_JOB, reqs)
+    a_launches = (paged_attention.launches, int8_matmul.launches)
+    report_ps("a dense final", prun, load_ms, build_ms, warm_ttft,
+              a_launches, smi)
+    ties = check_greedy("a", token_lists(prun), token_lists(run), prompts,
+                        dec, first=-1, against="the hand-built engine")
+    log(f"  a: greedy tokens identical to phase 4's hand-built engine "
+        f"({prun['tokens']} tokens; near ties {ties or 'none'}); the "
+        f"request-0 prompt again: {again['prefix_cached_tokens']} tokens "
+        f"from the prefix trie")
+    if a_launches[0] <= 0 or again["prefix_cached_tokens"] < 64:
+        raise AssertionError(f"a: launches {a_launches}, prefix cached "
+                             f"{again['prefix_cached_tokens']}")
+    launches[0] += a_launches[0]
+
+    # (c) drain mid-stream into snap_dir, restore in a fresh server
+    want = token_lists(prun)[1:]
+    got, partial, errors = [None] * 16, {}, []
+
+    def client(i):
+        r = reqs[i]
+        try:
+            out = ps.generate(GPT2_JOB, GenerateRequest(
+                prompts=[r["prompt"].tolist()], max_new_tokens=r["max_new"],
+                eos_id=run["eos"] if i == 5 else None))
+            got[i] = out["tokens"][0][:out["lengths"][0]]
+        except EngineFaultError as e:
+            partial[i] = e.partial_tokens[0]
+        except Exception as e:  # surfaced below, after the join
+            errors.append(e)
+
+    paged_attention.launches = int8_matmul.launches = 0
+    base = dec.telemetry()["requests_submitted"]
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(16)]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + 600
+    while dec.telemetry()["requests_submitted"] < base + 16:
+        if time.monotonic() > deadline:
+            raise AssertionError("c: the requests were not all submitted")
+        time.sleep(0.001)
+    wait_for_tokens(dec, DRAIN_AFTER)
+    drained = ps.drain_serving(grace=0.0)
+    for t in threads:
+        t.join(600)
+    ps.close()
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"c: clients failed or hung: {errors}")
+    if (len(drained["written"]) != len(partial)
+            or any(want[i][:len(p)] != p for i, p in partial.items())):
+        raise AssertionError(f"c: {len(drained['written'])} frames for "
+                             f"{len(partial)} drained requests, or a partial "
+                             f"stream is not a prefix of its run")
+    index = {}
+    for f in drained["written"]:
+        with open(f, "rb") as fh:
+            snap = kvsnap.decode_snapshot(fh.read())
+        index[snap.request_id] = next(
+            i for i, r in enumerate(reqs)
+            if r["prompt"].tolist() == list(snap.prompt))
+    fresh = ParameterServer(config=Config(**serve_kw))
+    t0 = time.monotonic()
+    out = fresh.restore_serving()
+    if out["failed"] or len(out["restored"]) != len(partial):
+        raise AssertionError(f"c: restore {out}")
+    deadline = time.monotonic() + 600
+    rows = fresh.restored_snapshot()
+    while not all(r["done"] or r["error"] for r in rows):
+        if time.monotonic() > deadline:
+            raise AssertionError("c: restored requests did not finish")
+        time.sleep(0.01)
+        rows = fresh.restored_snapshot()
+    restore_s = time.monotonic() - t0
+    for r in rows:
+        if r["error"]:
+            raise AssertionError(f"c: restored request failed: {r['error']}")
+        got[index[r["request_id"]]] = r["tokens"][0]
+    c_launches = (paged_attention.launches, int8_matmul.launches)
+    rdec = fresh._decoders[GPT2_JOB][0]
+    restored = rdec.telemetry()["snapshot_restored"]
+    ties = check_greedy("c", got, want, prompts[1:], rdec,
+                        against="the uninterrupted run")
+    fresh.close()
+    log(f"  c drain after {DRAIN_AFTER} tokens: {len(partial)} requests "
+        f"drained into {snaps} ({int(restored)} mid-stream frames), "
+        f"restored by a fresh ParameterServer in {restore_s:.3f} s (load, "
+        f"decoder build, replay to the end): {sum(map(len, got))} tokens "
+        f"equal to the uninterrupted run (near ties {ties or 'none'}); "
+        f"launches paged_attention {c_launches[0]}")
+    if c_launches[0] <= 0 or not partial:
+        raise AssertionError(f"c: launches {c_launches}, drained "
+                             f"{len(partial)}")
+    launches[0] += c_launches[0]
+
+    # (b) the final-int8 export: int8 weights through the int8 matmul,
+    # int8 KV pages
+    qps = ParameterServer(config=Config(serving_quantize="int8",
+                                        kv_quant="int8", int8_matmul=True,
+                                        **serve_kw))
+    if qps._final_source(GPT2_JOB)[0] != INT8_TAG:
+        raise AssertionError("b: the server does not pick final-int8")
+    qdec, load_ms, build_ms = cold_serving(qps, GPT2_JOB)
+    if (not qdec.int8_matmul or qdec.int8_matmul_impl != "cuda"
+            or qdec.kv_quant != "int8" or qdec.paged_attn != "cuda"):
+        raise AssertionError("b: the int8 engine does not run both kernels")
+    paged_attention.launches = int8_matmul.launches = 0
+    qprun = serve_ps(qps, GPT2_JOB, reqs, qrun["eos"])
+    warm_ttft = warm_request(qps, GPT2_JOB, reqs)
+    b_launches = (paged_attention.launches, int8_matmul.launches)
+    report_ps("b final-int8", qprun, load_ms, build_ms, warm_ttft,
+              b_launches, smi)
+    hand = PagedBatchingDecoder(gpt2_small(), quantize="int8",
+                                int8_matmul=True, kv_quant="int8",
+                                slots=SLOTS, page_tokens=PAGE_TOKENS,
+                                chunk_steps=CHUNK, device="cuda")
+    mine, theirs = qdec.module.state_dict(), hand.module.state_dict()
+    same = mine.keys() == theirs.keys() and all(
+        torch.equal(mine[k], theirs[k]) for k in mine)
+    nq = sum(k.endswith("kernel_q") for k in mine)
+    prompt = reqs[1]["prompt"].tolist()
+    forced = qprun["results"][1]["tokens"][0][:4]
+    tf_same = torch.equal(teacher_forced_logits(qdec, prompt, forced),
+                          teacher_forced_logits(hand, prompt, forced))
+    hand.close()
+    log(f"  b: the served module against a hand-built quantize='int8' "
+        f"engine's: every tensor bit-identical: {same} ({nq} int8 "
+        f"kernels); teacher-forced logits (prefill + 4 steps) "
+        f"bit-identical: {tf_same}")
+    if not (same and nq == INT8_PER_FORWARD and tf_same):
+        raise AssertionError("b: the final-int8 weights differ from the "
+                             "hand-built int8 engine's")
+    ties = check_greedy("b", token_lists(qprun), token_lists(qrun), prompts,
+                        qdec, first=-1, against="the hand-built int8 engine",
+                        tie=INT8_NEAR_TIE)
+    qps.close()
+    log(f"  b: greedy tokens identical to phase 5's hand-built "
+        f"quantize='int8' engine ({qprun['tokens']} tokens; near ties "
+        f"within {INT8_NEAR_TIE} {ties or 'none'})")
+    if min(b_launches) <= 0:
+        raise AssertionError(f"b: launches {b_launches}")
+    launches[0] += b_launches[0]
+    launches[1] += b_launches[1]
+
+    # (d) the K-AVG job's final export through infer
+    hist, job = kavg
+    kps = ParameterServer(config=Config(data_root=Path(root) / "kavg"))
+    x = banded_images(256, 4)[0]
+    t0 = time.monotonic()
+    served = kps.infer(KAVG_JOB, x)
+    infer_ms = 1e3 * (time.monotonic() - t0)
+    own = job.infer(x).tolist()
+    log(f"  d K-AVG final through infer: {len(served)} predictions equal "
+        f"to the job's own: {served == own} (cold infer {infer_ms:.1f} ms, "
+        f"the final's epoch {len(hist.train_loss)})")
+    if served != own:
+        raise AssertionError("d: infer from the final export differs from "
+                             "the job's in-memory infer")
+    return tuple(launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one NVIDIA card",
               file=sys.stderr)
         return 1
+    # the data root of phases 10c and 12 (datasets, functions, checkpoints)
+    root = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return phases(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phases(root: str) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1967,7 +2371,7 @@ def main() -> int:
 
     # 1. device
     smi = nvidia_smi()
-    log("[1/12 device]")
+    log("[1/13 device]")
     log(smi)
     log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} devices "
@@ -1982,15 +2386,13 @@ def main() -> int:
     spills = [f"{lines[i - 1].split('for ')[-1][:70]}: {ln.strip()}"
               for i, ln in enumerate(lines)
               if re.search(r"[1-9]\d* bytes (stack frame|spill)", ln)]
-    log(f"[2/12 build] {time.monotonic() - t0:.2f} s (nvcc "
+    log(f"[2/13 build] {time.monotonic() - t0:.2f} s (nvcc "
         f"{kernels.build_seconds:.2f} s), kernels with a stack frame or "
         f"spills: {len(spills)}")
     for ln in spills:
         log(f"  {ln}")
     build_log = kernels.build_log
     if not build_log:  # the library came from an earlier run's build
-        import tempfile
-
         with tempfile.TemporaryDirectory() as tmp:
             build_log = "".join(subprocess.run(
                 [kernels._nvcc(), *kernels.NVCC_FLAGS, "-c",
@@ -2000,7 +2402,7 @@ def main() -> int:
     check_compiled(kernels.library()._name, build_log)
 
     # 3. kernels against their plain versions
-    log("[3/12 kernels]")
+    log("[3/13 kernels]")
     timer = Timer()
     g = torch.Generator().manual_seed(SEED)
     pa_rows = check_paged_attention(timer, g)
@@ -2008,7 +2410,7 @@ def main() -> int:
     del timer
 
     # 4. serve f32: kernel engine, then the plain (gather) twin
-    log("[4/12 serve f32]")
+    log("[4/13 serve f32]")
     serve_tiny()
     reqs = workload(np.random.default_rng(SEED))
     model = gpt2_small()
@@ -2051,7 +2453,7 @@ def main() -> int:
     del model
 
     # 5. serve int8: int8 weights through the kernel, int8 KV pages
-    log("[5/12 serve int8]")
+    log("[5/13 serve int8]")
     q_kw = dict(quantize="int8", int8_matmul=True, kv_quant="int8", **common)
     qdec = PagedBatchingDecoder(gpt2_small(), **q_kw)
     if (not qdec.int8_matmul or qdec.int8_matmul_impl != "cuda"
@@ -2100,20 +2502,20 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 6. speculative decoding and chunked prefill through both kernels
-    log("[6/12 spec + chunked]")
+    log("[6/13 spec + chunked]")
     t0 = time.monotonic()
     spec_launches = spec_phase(smi)
     log(f"  phase 6: {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     # 7. flash kernels against their plain versions, and the L sweep
-    log("[7/12 flash kernels]")
+    log("[7/13 flash kernels]")
     timer = Timer()
     flash_errs, sweep = check_flash(timer, g)
     del timer
 
     # 8. train: the kernel path, its profile, then the plain path
-    log("[8/12 train bf16]")
+    log("[8/13 train bf16]")
     krow, kcounts = train_run("kernel path", flash=True)
     want = (2 * DEPTH * krow["steps_run"], DEPTH * krow["steps_run"],
             DEPTH * krow["steps_run"])
@@ -2136,14 +2538,14 @@ def main() -> int:
                              f"{pcounts}")
 
     # 9. f32: one step through the kernels against the plain path
-    log("[9/12 train f32 parity]")
+    log("[9/13 train f32 parity]")
     check_f32_step()
 
     # 10. K-AVG: the flagship at bench.py's configuration, the merge's
     # correctness, and TrainJob end to end; none of the five hand-written
     # kernels is on this path (convs, BatchNorm and dense layers run in
     # cuDNN and cuBLAS, as the JAX path runs them in XLA)
-    log("[10/12 k-avg]")
+    log("[10/13 k-avg]")
     reset_kernel_counts()
     log("  10a flagship: ResNet-18, CIFAR-10 shapes, bf16, uint8 inputs, "
         f"B {KAVG_B}, K {KAVG_K}, lr 0.1, SGD momentum 0.9")
@@ -2152,7 +2554,7 @@ def main() -> int:
     log("  10b correctness")
     kavg_correctness()
     log("  10c TrainJob")
-    kavg_job()
+    kavg = kavg_job(Path(root) / "kavg")
     counts = kernel_counts()
     log(f"  hand-written kernel launches in phase 10 (paged_attention, "
         f"int8_matmul, flash fwd/dq/dkv): {counts}")
@@ -2160,13 +2562,19 @@ def main() -> int:
         raise AssertionError(f"the K-AVG path launched {counts}")
 
     # 11. serving resilience through both serving kernels
-    log("[11/12 resilience]")
+    log("[11/13 resilience]")
     t0 = time.monotonic()
     res_launches = resilience_phase(smi)
     log(f"  phase 11: {time.monotonic() - t0:.1f} s")
 
-    # 12. results
-    log("[12/12 results]")
+    # 12. checkpoints served through the parameter server
+    log("[12/13 checkpoint serving]")
+    t0 = time.monotonic()
+    ckpt_launches = checkpoint_phase(smi, root, run, qrun, kavg)
+    log(f"  phase 12: {time.monotonic() - t0:.1f} s")
+
+    # 13. results
+    log("[13/13 results]")
     pa = pa_rows[0]   # the decode step: L = 1, f32 arena
     mm = next(r for r in mm_rows if r["M"] == 8 and r["N"] == VOCAB
               and r["x"] == "float32")  # the lm_head at decode
@@ -2175,14 +2583,15 @@ def main() -> int:
          "source": "kubeml_tpu_torch/csrc/paged_attention.cu",
          "replaces": "kubeml_tpu/ops/paged_attention.py:113",
          "launches": (f32_launches + q_launches[0] + spec_launches[0]
-                      + res_launches[0]),
+                      + res_launches[0] + ckpt_launches[0]),
          "max_abs_err": pa["max_abs_err"], "ms": pa["ms"],
          "plain_ms": pa["plain_ms"], "bound_ms": pa["bound_ms"],
          "bound_by": pa["bound_by"], "library_ms": pa["library_ms"]},
         {"name": "int8_matmul", "route": "cuda",
          "source": "kubeml_tpu_torch/csrc/int8_matmul.cu",
          "replaces": "kubeml_tpu/ops/int8_matmul.py:55",
-         "launches": q_launches[1] + spec_launches[1] + res_launches[1],
+         "launches": (q_launches[1] + spec_launches[1] + res_launches[1]
+                      + ckpt_launches[1]),
          "max_abs_err": mm["max_abs_err"], "ms": mm["ms"],
          "plain_ms": mm["plain_ms"], "bound_ms": mm["bound_ms"],
          "bound_by": mm["bound_by"], "library_ms": mm["library_ms"]},

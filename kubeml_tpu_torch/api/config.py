@@ -2,11 +2,17 @@
 
 A small own copy of ``kubeml_tpu/api/config.py``'s ``Config``, read from
 the same environment variables with the same defaults: the data root
-(``KUBEML_DATA_ROOT``, default ``~/.kubeml``) with the dataset and history
-directories under it, whether the K-AVG round also returns its
-statistical-efficiency signals (``KUBEML_ROUND_STATS``, default on), and
-the paged engine's admission limit, shed policy, drain grace, snapshot
-directory and pool-audit interval.
+(``KUBEML_DATA_ROOT``, default ``~/.kubeml``) with the dataset, function,
+history and checkpoint directories under it, the function-load guardrails
+(``KUBEML_FUNCTION_TIMEOUT``, ``KUBEML_FUNCTION_CONCURRENCY``), whether the
+K-AVG round also returns its statistical-efficiency signals
+(``KUBEML_ROUND_STATS``, default on), and the serving settings the
+parameter server builds its paged engines from: slots, chunk, int8
+weights and their matmul, pages, prefix cache, chunked prefill, the arena
+read and storage, speculative decoding, the admission limit, shed policy,
+drain grace, snapshot directory and pool-audit interval.
+``serving_mesh`` is read so that a set value can be refused: the port
+serves on one card.
 """
 
 from __future__ import annotations
@@ -24,6 +30,11 @@ def _env_bool(name: str, default: bool) -> bool:
     return v.lower() not in ("0", "false", "no", "")
 
 
+def _env_int(name: str, default: int) -> int:
+    v = os.environ.get(name)
+    return int(v) if v else default
+
+
 @dataclass
 class Config:
     data_root: Path = field(default_factory=lambda: Path(
@@ -31,6 +42,70 @@ class Config:
     # per-round [worker-loss spread, pre-merge weight divergence]
     round_stats: bool = field(
         default_factory=lambda: _env_bool("KUBEML_ROUND_STATS", True))
+    # seconds a function load may run before it is abandoned (<= 0: no
+    # limit), and the loads that may run at once
+    function_timeout: float = field(default_factory=lambda: float(
+        os.environ.get("KUBEML_FUNCTION_TIMEOUT", "1000")))
+    function_concurrency: int = field(
+        default_factory=lambda: _env_int("KUBEML_FUNCTION_CONCURRENCY", 50))
+
+    # --- serving: the parameter server's paged engines ---
+    # batch concurrent generate requests through a resident engine (the
+    # port has no other serving path: False is refused with a 400)
+    serving_batcher: bool = field(
+        default_factory=lambda: _env_bool("KUBEML_SERVING_BATCHER", True))
+    serving_slots: int = field(
+        default_factory=lambda: _env_int("KUBEML_SERVING_SLOTS", 8))
+    serving_chunk_steps: int = field(
+        default_factory=lambda: _env_int("KUBEML_SERVING_CHUNK", 16))
+    # "int8": int8 weights (a final-int8 checkpoint when it is at least as
+    # fresh as the final, else the final quantized at load); "" = off
+    serving_quantize: str = field(default_factory=lambda: os.environ.get(
+        "KUBEML_SERVING_QUANTIZE", ""))
+    # int8 projections through the int8 matmul (else dequantized weights)
+    int8_matmul: bool = field(
+        default_factory=lambda: _env_bool("KUBEML_INT8_MATMUL", False))
+    # "auto" (the CUDA kernel on CUDA tensors), "cuda"/"pallas", "dot"
+    int8_matmul_impl: str = field(default_factory=lambda: os.environ.get(
+        "KUBEML_INT8_MATMUL_IMPL", "auto"))
+    # an axis spec such as "tp=2"; the port serves on one card and refuses
+    # a set value
+    serving_mesh: str = field(default_factory=lambda: os.environ.get(
+        "KUBEML_SERVING_MESH", ""))
+    # the paged engine (the only engine of the port: False is refused)
+    serving_paged: bool = field(
+        default_factory=lambda: _env_bool("KUBEML_SERVING_PAGED", True))
+    serving_page_tokens: int = field(
+        default_factory=lambda: _env_int("KUBEML_SERVING_PAGE_TOKENS", 16))
+    # arena pages including the trash page (0 = slots x table pages + 1)
+    serving_pages: int = field(
+        default_factory=lambda: _env_int("KUBEML_SERVING_PAGES", 0))
+    serving_prefix_cache: bool = field(
+        default_factory=lambda: _env_bool("KUBEML_SERVING_PREFIX_CACHE",
+                                          True))
+    # prefill suffixes longer than this in page-aligned chunks (0 = off)
+    prefill_chunk_tokens: int = field(
+        default_factory=lambda: _env_int("KUBEML_PREFILL_CHUNK_TOKENS", 0))
+    # the arena read: "auto" (the CUDA kernel on CUDA), "cuda"/"pallas",
+    # "gather"; and its storage: "off", "int8", "auto"
+    paged_attn: str = field(default_factory=lambda: os.environ.get(
+        "KUBEML_PAGED_ATTN", "auto"))
+    kv_quant: str = field(default_factory=lambda: os.environ.get(
+        "KUBEML_KV_QUANT", "off"))
+    # speculative decoding: "off", "self" (early exit at spec_exit_layer,
+    # 0 = depth // 2) or "draft" (spec_draft_model, a finished job id)
+    serving_spec: str = field(default_factory=lambda: os.environ.get(
+        "KUBEML_SERVING_SPEC", "off"))
+    spec_k: int = field(default_factory=lambda: _env_int("KUBEML_SPEC_K", 4))
+    spec_adaptive: bool = field(
+        default_factory=lambda: _env_bool("KUBEML_SPEC_ADAPTIVE", True))
+    spec_draft_model: str = field(default_factory=lambda: os.environ.get(
+        "KUBEML_SPEC_DRAFT_MODEL", ""))
+    spec_exit_layer: int = field(
+        default_factory=lambda: _env_int("KUBEML_SPEC_EXIT_LAYER", 0))
+    # the draft backend's acceptance floor (0 = off)
+    spec_min_accept: float = field(default_factory=lambda: float(
+        os.environ.get("KUBEML_SPEC_MIN_ACCEPT", "0.10")))
     # queued rows past this limit are refused with 429 (0 = unbounded)
     serving_queue_limit: int = field(default_factory=lambda: int(
         os.environ.get("KUBEML_SERVING_QUEUE_LIMIT") or 256))
@@ -53,8 +128,21 @@ class Config:
         return self.data_root / "datasets"
 
     @property
+    def functions_dir(self) -> Path:
+        return self.data_root / "functions"
+
+    @property
     def history_path(self) -> Path:
         return self.data_root / "history"
+
+    @property
+    def checkpoints_dir(self) -> Path:
+        return self.data_root / "checkpoints"
+
+    def ensure_dirs(self) -> None:
+        for d in (self.datasets_dir, self.functions_dir, self.history_path,
+                  self.checkpoints_dir):
+            d.mkdir(parents=True, exist_ok=True)
 
 
 _default_config: Optional[Config] = None

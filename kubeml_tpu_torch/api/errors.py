@@ -3,9 +3,9 @@
 The port's own copy of the classes of ``kubeml_tpu/api/errors.py`` that the
 port raises: every error carries the HTTP status the wire layer answers
 with (400 for a request the arena can never hold or a bad dataset, 404 for
-a missing dataset or job, 429 at the queue limit, 500 for a failed merge,
-503 once the engine is closed or faulted) and serialises to the
-``{"error": <message>, "code": <status>}`` envelope, which
+a missing dataset, job, checkpoint or function, 429 at the queue limit,
+500 for a failed merge, 503 once the engine is closed or faulted) and
+serialises to the ``{"error": <message>, "code": <status>}`` envelope, which
 :func:`error_from_envelope` turns back into a typed error.
 """
 
@@ -102,6 +102,28 @@ class DatasetExistsError(KubeMLError):
     def __init__(self, name: str = ""):
         super().__init__(f"dataset {name!r} already exists" if name
                          else "dataset exists")
+
+
+class CheckpointNotFoundError(KubeMLError):
+    status_code = 404
+
+    def __init__(self, ref: str = ""):
+        super().__init__(f"checkpoint {ref!r} not found" if ref
+                         else "checkpoint not found")
+
+
+class InvalidArgsError(KubeMLError):
+    """Bad invocation arguments."""
+
+    status_code = 500
+
+
+class FunctionNotFoundError(KubeMLError):
+    status_code = 404
+
+    def __init__(self, name: str = ""):
+        super().__init__(f"function {name!r} not found" if name
+                         else "function not found")
 
 
 class JobNotFoundError(KubeMLError):

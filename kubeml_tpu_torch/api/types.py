@@ -5,7 +5,8 @@ training types (``TrainOptions``, ``TrainRequest``, ``JobState``,
 They read and write the same JSON as the JAX package's types, with the same
 validation. A request may name options whose modules the port does not
 have yet; :meth:`TrainOptions.check_ported` raises for those, and the
-port's ``TrainJob`` calls it before it starts.
+port's ``TrainJob`` calls it before it starts. :func:`generate_timeout` is
+the budget a caller waits on one generate request.
 """
 
 from __future__ import annotations
@@ -85,12 +86,14 @@ class TrainOptions(_JsonMixin):
     # the SPMD engine
     mesh_shape: Optional[Dict[str, int]] = None
     donate: bool = True  # read by the JAX engine; the port updates in place
+    # a checkpoint every this many epochs (0 = off), keeping the newest
+    # checkpoint_keep of them (0 = all)
     checkpoint_every: int = 0
     checkpoint_keep: int = 0
+    # restart from the job's newest checkpoint
     resume: bool = False
     sharded_checkpoints: bool = False
-    # export the final model at job end; the port keeps it in memory
-    # (TrainJob.final_variables) until checkpoints are ported
+    # export the final model at job end (the "final" checkpoint)
     save_model: bool = True
     chaos_prob: float = 0.0  # per-worker per-round failure probability
     priority: int = 0
@@ -125,15 +128,11 @@ class TrainOptions(_JsonMixin):
 
     def check_ported(self) -> None:
         """Raise ``KubeMLError`` (400) for an option that needs a module
-        this package does not have yet: the SPMD engine, checkpoints and
-        resume, and mesh axes other than ``worker``."""
+        this package does not have yet: the SPMD engine, sharded
+        checkpoints, and mesh axes other than ``worker``."""
         unported = []
         if self.engine == "spmd":
             unported.append("engine='spmd'")
-        if self.checkpoint_every > 0:
-            unported.append("checkpoint_every > 0")
-        if self.resume:
-            unported.append("resume")
         if self.sharded_checkpoints:
             unported.append("sharded_checkpoints")
         if self.mesh_shape is not None and set(self.mesh_shape) != {"worker"}:
@@ -274,7 +273,7 @@ class DatasetSummary(_JsonMixin):
 
 
 @dataclass
-class GenerateRequest:
+class GenerateRequest(_JsonMixin):
     """Autoregressive sampling against a causal LM.
 
     ``prompts`` rows are DENSE token ids: decode treats every token as real.
@@ -344,3 +343,15 @@ class GenerateRequest:
                 if any(v < 1 or v > longest for v in pl):
                     raise ValueError(
                         "prompt_lengths entries must be in [1, prompt width]")
+
+
+def generate_timeout(req: "GenerateRequest", floor: float = 120.0) -> float:
+    """Seconds to wait on one generate request: the first call on a card
+    builds the kernels, and decode time grows with tokens x batch, so the
+    budget scales with the request instead of a flat constant."""
+    batch = 1
+    try:
+        batch = max(1, len(req.prompts))
+    except TypeError:
+        pass
+    return max(floor, 60.0 + 0.05 * req.max_new_tokens * batch)

@@ -10,12 +10,29 @@ a control plane:
 * ``on_epoch_end(JobState) -> new_parallelism``: the scheduler hook;
 * ``on_metrics(MetricUpdate)``: the metrics push.
 
-Not ported yet (``ROADMAP.md``): multi-host ``dist``, checkpoints, resume,
-preemption and the final model export (``final_variables`` keeps the
-trained model in memory), the background compile of the next parallelism
-level (eager PyTorch compiles nothing), ``generate``, tracer spans, and
-the retry of a round on a transient accelerator error (a CUDA fault
-poisons the context, so a retry in the same process cannot recover).
+Checkpoints (``storage.checkpoint``, the JAX on-disk format, weights in the
+Flax layout through ``interop.from_flax.to_flax_variables``):
+
+* every ``checkpoint_every`` epochs the reference replica is copied to the
+  host (training updates the replicas in place, so the writer must not
+  hold a live tensor) and written by a background thread, at most one
+  write in flight, keeping the newest ``checkpoint_keep``;
+* ``resume`` restores the newest of the epoch checkpoints and the final
+  export (``engine.resume``) with its recorded history and continues at
+  the next epoch; nothing in an epoch draws from a stream earlier epochs
+  advanced (the data order is fixed and the round has no random draws),
+  so a resumed run equals an uninterrupted one, except under chaos, whose
+  job-wide mask stream starts over, as in the JAX engine;
+* ``preempt()`` ends the job at the next round edge and writes a yield
+  checkpoint (the current weights under the last completed epoch's tag)
+  instead of the final export, which ``save_model`` writes at the end of
+  a finished job.
+
+Not ported yet (``ROADMAP.md``): multi-host ``dist``, the background
+compile of the next parallelism level (eager PyTorch compiles nothing),
+``generate``, tracer spans, and the retry of a round on a transient
+accelerator error (a CUDA fault poisons the context, so a retry in the
+same process cannot recover).
 """
 
 from __future__ import annotations
@@ -34,7 +51,9 @@ from ..api.types import History, JobState, MetricUpdate, TrainRequest
 from ..data.dataset import KubeDataset
 from ..data.loader import RoundLoader, validation_loader
 from ..data.sharding import plan_epoch
+from ..interop.from_flax import from_flax_variables, to_flax_variables
 from ..runtime.model import KubeModel
+from ..storage.checkpoint import FINAL_TAG, CheckpointStore
 from ..storage.history import HistoryStore
 from ..storage.store import ShardStore
 from .failures import FailureInjector, WorkerHealth
@@ -51,6 +70,7 @@ class TrainJob:
         model: KubeModel,
         store: Optional[ShardStore] = None,
         history_store: Optional[HistoryStore] = None,
+        checkpoint_store: Optional[CheckpointStore] = None,
         on_epoch_end: Optional[Callable[[JobState], int]] = None,
         on_metrics: Optional[Callable[[MetricUpdate], None]] = None,
         device=None,
@@ -64,6 +84,7 @@ class TrainJob:
         self.model = model
         self.store = store or ShardStore()
         self.history_store = history_store or HistoryStore()
+        self._checkpoint_store = checkpoint_store
         self.on_epoch_end = on_epoch_end
         self.on_metrics = on_metrics
         self.seed = seed
@@ -88,12 +109,33 @@ class TrainJob:
         self._last_round_skew = -1.0
         self.history = History(id=job_id, task={"request": request.to_dict()})
         self.stop_event = threading.Event()
+        # checkpoint-and-yield: preempt() rides the stop machinery, but the
+        # job then writes a resume checkpoint instead of the final export
+        self.preempt_event = threading.Event()
         self.exit_error: Optional[str] = None
         self._stacked_vars = None
         self._final_variables = None
+        # the async periodic checkpoint write in flight (at most one)
+        self._ckpt_thread: Optional[threading.Thread] = None
 
     def stop(self) -> None:
         self.stop_event.set()
+
+    def preempt(self) -> None:
+        """Checkpoint-and-yield: leave at the next round edge and write a
+        resume checkpoint. Idempotent."""
+        self.preempt_event.set()
+        self.stop_event.set()
+
+    @property
+    def preempted(self) -> bool:
+        return self.preempt_event.is_set()
+
+    @property
+    def checkpoint_store(self) -> CheckpointStore:
+        if self._checkpoint_store is None:
+            self._checkpoint_store = CheckpointStore()
+        return self._checkpoint_store
 
     @property
     def state(self) -> JobState:
@@ -116,10 +158,12 @@ class TrainJob:
                 torch.Generator().manual_seed(self.seed),
                 sample_x[: req.batch_size], self.parallelism)
 
+            start_epoch = self._restore_latest() if opts.resume else 0
+
             val_acc = 0.0
             acc_pct = None
             epochs_run = 0
-            for epoch in range(req.epochs):
+            for epoch in range(start_epoch, req.epochs):
                 if self.stop_event.is_set():
                     log.info("%s: stop requested, exiting at epoch %d",
                              self.job_id, epoch)
@@ -130,6 +174,9 @@ class TrainJob:
                 elapsed = time.time() - t0
                 if self.stop_event.is_set() and np.isnan(train_loss):
                     break  # stopped mid-epoch before any round completed
+                # a preempted job skips the resize, the scheduler's answer,
+                # validation and the periodic checkpoint: it yields
+                yielding = self.preempt_event.is_set()
 
                 # health-based resize: persistently dead workers shrink the
                 # worker axis at the epoch boundary
@@ -145,7 +192,8 @@ class TrainJob:
 
                 # elastic re-evaluation: the scheduler answers with this
                 # epoch's elapsed time unless parallelism is static
-                if not opts.static_parallelism and self.on_epoch_end is not None:
+                if (not opts.static_parallelism and not yielding
+                        and self.on_epoch_end is not None):
                     new_p = self.on_epoch_end(JobState(
                         parallelism=self.parallelism, elapsed_time=elapsed))
                     if new_p and new_p != self.parallelism:
@@ -155,7 +203,7 @@ class TrainJob:
 
                 val_loss = None
                 acc_pct = None
-                if (opts.validate_every > 0
+                if (opts.validate_every > 0 and not yielding
                         and (epoch + 1) % opts.validate_every == 0):
                     val_acc, val_loss = self._validate(dataset, handle)
                     acc_pct = val_acc * 100.0
@@ -178,6 +226,9 @@ class TrainJob:
                 )
                 self._push_metrics(train_loss, val_loss, acc_pct, elapsed,
                                    used_parallelism, epoch + 1)
+                if (opts.checkpoint_every > 0 and not yielding
+                        and (epoch + 1) % opts.checkpoint_every == 0):
+                    self._save_checkpoint(epoch)
                 log.info(
                     "%s: epoch %d/%d loss=%.4f acc=%s parallelism=%d %.2fs",
                     self.job_id, epoch + 1, req.epochs, train_loss,
@@ -190,15 +241,29 @@ class TrainJob:
                     break
 
             # final validation if the last epoch did not run one;
-            # validate_every == 0 opts out of validation entirely
+            # validate_every == 0 opts out of validation entirely, and a
+            # resume with nothing left to train keeps the restored history
             if (opts.validate_every > 0 and acc_pct is None and epochs_run > 0
                     and not self.stop_event.is_set()):
                 val_acc, val_loss = self._validate(dataset, handle)
                 self.history.validation_loss.append(float(val_loss))
                 self.history.accuracy.append(float(val_acc * 100.0))
 
+            self._join_checkpoint()  # epoch writes land before the export
             self._final_variables = self.trainer.reference_variables(
                 self._stacked_vars)
+            # the final export; a no-op resume rewrites it only when it is
+            # missing. A preempted job is parked, not done: it writes a
+            # resume checkpoint instead
+            if self.preempt_event.is_set():
+                self._save_yield_checkpoint()
+            elif opts.save_model and (
+                    epochs_run > 0
+                    or FINAL_TAG not in self.checkpoint_store.tags(self.job_id)):
+                self.checkpoint_store.save(
+                    self.job_id, to_flax_variables(self._final_variables),
+                    epoch=len(self.history.train_loss), tag=FINAL_TAG,
+                    meta=self._checkpoint_meta())
         except KubeMLError as e:
             self.exit_error = e.message
             raise
@@ -206,6 +271,7 @@ class TrainJob:
             self.exit_error = str(e)
             raise KubeMLError(f"job {self.job_id} failed: {e}") from e
         finally:
+            self._join_checkpoint()  # no writer outlives the job
             # a failed job records its error, so pollers see the outcome
             if self.exit_error is not None and isinstance(self.history.task, dict):
                 self.history.task["error"] = self.exit_error
@@ -329,6 +395,82 @@ class TrainJob:
         dataset.set_mode(True)
         return acc, loss
 
+    # --- checkpoints ---
+
+    def _checkpoint_meta(self) -> dict:
+        h = self.history
+        return {"request": self.request.to_dict(), "history": {
+            key: list(getattr(h, key)) for key in (
+                "train_loss", "validation_loss", "accuracy", "parallelism",
+                "epoch_duration", "worker_divergence", "loss_spread",
+                "round_skew", "notes")}}
+
+    def _join_checkpoint(self) -> None:
+        if self._ckpt_thread is not None:
+            self._ckpt_thread.join()
+            self._ckpt_thread = None
+
+    def _save_checkpoint(self, epoch: int) -> None:
+        """The periodic checkpoint: the host copy of this epoch's weights
+        is taken here (training goes on updating the replicas in place);
+        the write and the retention prune run on a background thread, at
+        most one in flight. A failure is logged, not raised."""
+        try:
+            self._join_checkpoint()
+            variables = to_flax_variables(
+                self.trainer.reference_variables(self._stacked_vars))
+            meta = self._checkpoint_meta()
+
+            def write():
+                try:
+                    self.checkpoint_store.save(self.job_id, variables,
+                                               epoch=epoch, meta=meta)
+                    self.checkpoint_store.prune_epochs(
+                        self.job_id, self.request.options.checkpoint_keep)
+                except Exception:
+                    log.exception("%s: checkpoint write failed (non-fatal)",
+                                  self.job_id)
+
+            self._ckpt_thread = threading.Thread(
+                target=write, name=f"ckpt-{self.job_id}", daemon=True)
+            self._ckpt_thread.start()
+        except Exception:
+            log.exception("%s: checkpoint save failed (non-fatal)",
+                          self.job_id)
+
+    def _save_yield_checkpoint(self) -> None:
+        """A preempted job's resume checkpoint: the current weights under
+        the last completed epoch's tag, written before the job returns
+        (the atomic publish leaves the old or the new file, never a torn
+        one). Nothing completed: nothing to write."""
+        completed = len(self.history.train_loss)
+        if completed <= 0:
+            return
+        try:
+            self.checkpoint_store.save(
+                self.job_id, to_flax_variables(self._final_variables),
+                epoch=completed - 1, meta=self._checkpoint_meta())
+        except Exception:
+            log.exception("%s: yield checkpoint failed (resume falls back "
+                          "to the previous checkpoint)", self.job_id)
+
+    def _restore_latest(self) -> int:
+        """Restore the newest checkpoint onto every worker with its
+        history; returns the epoch to go on from (0: nothing to
+        restore)."""
+        from .resume import extend_history, select_resume_checkpoint
+
+        best = select_resume_checkpoint(self.checkpoint_store, self.job_id)
+        if best is None:
+            return 0
+        start_epoch, ck = best
+        self._stacked_vars = self.trainer.place_reference(
+            from_flax_variables(ck.variables), self.parallelism)
+        extend_history(self.history, ck)
+        log.info("%s: resumed from checkpoint %s (epoch %d)", self.job_id,
+                 ck.tag, start_epoch)
+        return start_epoch
+
     def _push_metrics(self, train_loss, val_loss, acc_pct, elapsed,
                       parallelism, epochs_done: int) -> None:
         if self.on_metrics is None:
@@ -355,7 +497,8 @@ class TrainJob:
 
     @property
     def final_variables(self):
-        """The trained reference model (numpy), once ``train`` finished."""
+        """The trained reference model (numpy, in the port's layout), once
+        ``train`` finished."""
         return self._final_variables
 
     def infer(self, x: np.ndarray):

@@ -256,8 +256,11 @@ class KAvgTrainer:
 
     def reference_variables(self, stacked_vars: Variables):
         """Replica 0 of the (post-sync) variables as numpy arrays: the
-        reference model."""
-        return _tree_map(lambda v: v[0].detach().cpu().numpy(), stacked_vars)
+        reference model. Always a copy: training updates the replicas in
+        place, and on the CPU ``Tensor.numpy()`` would share their
+        storage."""
+        return _tree_map(lambda v: v[0].detach().to("cpu", copy=True)
+                         .numpy(), stacked_vars)
 
     @staticmethod
     def _replica0(stacked_vars: Variables) -> Variables:

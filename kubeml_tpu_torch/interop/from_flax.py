@@ -1,8 +1,11 @@
-"""Flax variables -> the port's weights.
+"""Flax variables <-> the port's weights.
 
 :func:`from_flax` carries a Flax ``CausalTransformer``'s parameters;
 :func:`from_flax_variables` a conv model's whole variables tree (ResNet,
-LeNet: ``params`` and ``batch_stats``).
+LeNet: ``params`` and ``batch_stats``). :func:`to_flax` and
+:func:`to_flax_variables` are their inverses: the port writes checkpoints
+in the Flax layout through them, so a checkpoint file never says which
+package wrote it.
 
 The port's modules carry Flax's parameter names and layouts (dense kernels
 ``[in, out]``, LayerNorm ``scale``/``bias``, ``token_embed.embedding``,
@@ -20,6 +23,10 @@ arrays (callers unbox ``nn.Partitioned`` leaves and ``np.asarray`` them on
 the JAX side). An int8 pair - any node with fields ``q`` and ``s``, such as
 ``kubeml_tpu.serving.quant.QuantizedTensor`` - becomes the port's
 :class:`~kubeml_tpu_torch.serving.quant.QuantizedTensor`.
+
+The inverses split dotted names back into nested dicts, turn conv kernels
+from OIHW back to HWIO, and return numpy leaves (bfloat16 tensors stay
+CPU tensors: numpy cannot hold them).
 """
 
 from __future__ import annotations
@@ -33,6 +40,8 @@ from ..serving.quant import QuantizedTensor
 
 
 def _tensor(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):  # a restored bfloat16 leaf
+        return x.detach().clone()
     return torch.from_numpy(np.array(x, copy=True))
 
 
@@ -81,3 +90,45 @@ def from_flax_variables(variables: Mapping[str, Any]
         walk(tree, "")
         out[collection] = flat
     return out
+
+
+def _host(t):
+    """A tensor's host copy: numpy, or a CPU tensor for bfloat16."""
+    if not isinstance(t, torch.Tensor):
+        return np.array(t, copy=True)
+    t = t.detach().cpu()
+    return t.clone() if t.dtype == torch.bfloat16 else t.numpy().copy()
+
+
+def _nest(flat: Mapping[str, Any], leaf) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for name, value in flat.items():
+        *parents, last = name.split(".")
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = leaf(value)
+    return out
+
+
+def to_flax(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """``{dotted name: tensor}`` (a dense ``state_dict``) -> ``{"params":
+    nested tree}``, the inverse of :func:`from_flax`."""
+    return {"params": _nest(flat, _host)}
+
+
+def to_flax_variables(variables: Mapping[str, Mapping[str, Any]]
+                      ) -> Dict[str, Any]:
+    """The port's ``{"params": {dotted: tensor}, "batch_stats": {...}}``
+    (tensors or numpy arrays) -> Flax's nested variables, conv kernels
+    back from OIHW to HWIO: the inverse of :func:`from_flax_variables`."""
+
+    def leaf(v):
+        v = _host(v)
+        if v.ndim == 4:  # conv kernel [out, in, kh, kw]
+            v = (v.permute(2, 3, 1, 0).contiguous()
+                 if isinstance(v, torch.Tensor)
+                 else np.ascontiguousarray(v.transpose(2, 3, 1, 0)))
+        return v
+
+    return {c: _nest(tree, leaf) for c, tree in variables.items()}

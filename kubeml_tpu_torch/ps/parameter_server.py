@@ -1,0 +1,465 @@
+"""The parameter server's serving half: the port of the finished-job
+serving paths of ``kubeml_tpu/ps/parameter_server.py``.
+
+A finished job is served from its exported checkpoint:
+
+* :meth:`ParameterServer.generate` (JAX ``:1213``) loads the ``final``
+  export (or, under ``serving_quantize="int8"``, a ``final-int8`` export
+  at least as fresh) through the job's registered function into a
+  4-entry host cache keyed by the file's mtime, and serves it through a
+  resident :class:`~kubeml_tpu_torch.serving.PagedBatchingDecoder` from a
+  2-entry cache keyed the same way; a re-saved checkpoint builds a new
+  decoder and retires the one it displaces, and a closed decoder is
+  rebuilt. The cache holds the host tree: each decoder gets a module of
+  its own built from it (the engine quantizes its module in place), moved
+  to the server's device;
+* :meth:`ParameterServer.infer` (JAX ``:1906``) runs a finished model's
+  ``infer`` (a K-AVG job such as LeNet or ResNet) on the server's device;
+* :meth:`drain_serving`, :meth:`restore_serving` and
+  :meth:`restored_snapshot` (JAX ``:1609-1721``) move live requests
+  across a restart as KMS1 frames (``<model>-<request>.kms`` in
+  ``snap_dir``);
+* the resident decoders' ``telemetry()`` feeds ``metrics.render()``.
+
+Speculative decoding follows ``serving_spec``; a spec configuration the
+engine rejects (a ``ValueError`` or ``KubeMLError`` from the spec
+arguments, or a draft model that does not load) degrades to plain decode
+with a warning. Anything else raised while building a decoder propagates.
+
+Not ported yet, each refused with a 400 that names it: the dense engine
+(``serving_batcher=False``, ``serving_paged=False``, or a model with no
+paged decode path), meshes (``serving_mesh``), sharded finals and
+functions with a ``serving_remap``, and live jobs (a job with epoch
+checkpoints but no final export yet), which need the job lifecycle. An
+unknown id is a 404. The server runs on the card unless given
+``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import threading
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..api.config import Config, get_config
+from ..api.errors import (CheckpointNotFoundError, JobNotFoundError,
+                          KubeMLError, StorageError)
+from ..api.types import GenerateRequest, generate_timeout
+from ..functions.registry import FunctionRegistry
+from ..interop.from_flax import from_flax, from_flax_variables
+from ..models.generation import supports_paged_decode
+from ..models.layers import load_tree
+from ..serving import PagedBatchingDecoder, kvsnap
+from ..serving.quant import (INT8_TAG, QuantizedTensor, from_storage_tree,
+                             is_quantized_storage, is_quantized_tree)
+from ..storage.checkpoint import FINAL_TAG, CheckpointStore
+from ..utils.device import resolve_device
+from .metrics import MetricsRegistry
+
+log = logging.getLogger("kubeml.ps")
+
+# finished-job serving cache: whole weight trees, keep only a few
+SERVING_CACHE_SIZE = 4
+# resident decoders: each holds a KV arena on the card
+DECODER_CACHE_SIZE = 2
+
+
+def _not_ported(what: str) -> KubeMLError:
+    return KubeMLError(f"{what} is not ported to kubeml_tpu_torch yet", 400)
+
+
+class ParameterServer:
+    def __init__(self, registry: Optional[FunctionRegistry] = None,
+                 config: Optional[Config] = None,
+                 metrics: Optional[MetricsRegistry] = None, device=None):
+        self.cfg = config or get_config()
+        self.registry = registry or FunctionRegistry(config=self.cfg)
+        self.metrics = metrics or MetricsRegistry()
+        self.metrics.set_serving_source(self._serving_telemetry)
+        self.device = resolve_device(device)
+        self._ckpt_store = CheckpointStore(config=self.cfg)
+        self._serving_cache: Dict[str, tuple] = {}  # (model, tree, mtime)
+        self._decoders: Dict[str, tuple] = {}  # (decoder, mtime)
+        # requests replayed from snap_dir: {"model", "request_id", "file",
+        # "entry", "decoder"}
+        self._restored: List[dict] = []
+        self._lock = threading.RLock()
+
+    # --- /infer and /generate ---
+
+    def infer(self, model_id: str, data) -> list:
+        """A finished job's ``model.infer`` on ``data`` from its final
+        checkpoint, with the model's own device-side ``preprocess``."""
+        model, tree, _ = self._load_serving(model_id)
+        variables = {c: {k: v.to(self.device) for k, v in leaves.items()}
+                     for c, leaves in from_flax_variables(
+                         self._densified(tree)).items()}
+        model.module.to(self.device)  # as the trainer's, on the device
+        self.metrics.task_started("inference")
+        try:
+            with torch.no_grad():
+                x = torch.as_tensor(np.asarray(data)).to(self.device)
+                out = model.infer(variables, model.preprocess(x))
+            return out.cpu().numpy().tolist()
+        finally:
+            self.metrics.task_finished("inference")
+
+    def generate(self, model_id: str, req):
+        """Sampling from a finished causal-LM job through its resident
+        paged decoder. Returns the result dict, or with ``req.stream`` a
+        generator of ``{"row", "tokens"}`` deltas and a final ``{"done",
+        "lengths"}`` record."""
+        if not isinstance(req, GenerateRequest):
+            req = GenerateRequest.parse_request({**req, "model_id": model_id})
+        model, tree, mtime = self._load_serving(model_id)
+        decoder = self._get_decoder(model_id, model, tree, mtime)
+        entry = decoder.submit(req)
+        if req.stream:
+            return self._metered_stream(decoder.stream(entry))
+        self.metrics.task_started("inference")
+        try:
+            return decoder.wait(entry, timeout=generate_timeout(req))
+        finally:
+            self.metrics.task_finished("inference")
+
+    def _metered_stream(self, gen):
+        self.metrics.task_started("inference")
+
+        def wrapped():
+            try:
+                yield from gen
+            finally:
+                self.metrics.task_finished("inference")
+
+        return wrapped()
+
+    # --- decoders ---
+
+    def _serving_module(self, model, tree):
+        """A module of its own for one decoder: built by the function,
+        loaded from the host tree, on the server's device."""
+        module = model.build()
+        if not supports_paged_decode(module) or getattr(
+                module, "max_len", None) is None:
+            raise _not_ported(
+                "serving a model with no paged decode path (the dense "
+                "BatchingDecoder)")
+        load_tree(module, from_flax(tree))
+        return module.to(self.device)
+
+    def _get_decoder(self, model_id: str, model, tree, mtime):
+        """The resident paged decoder of a finished checkpoint, rebuilt
+        when the checkpoint's mtime moved or the decoder closed."""
+        if not self.cfg.serving_batcher:
+            raise _not_ported("serving without the batching engine "
+                              "(serving_batcher=False)")
+        if not self.cfg.serving_paged:
+            raise _not_ported("the dense BatchingDecoder "
+                              "(serving_paged=False)")
+        if self.cfg.serving_mesh:
+            raise _not_ported(f"meshed serving (serving_mesh="
+                              f"{self.cfg.serving_mesh!r})")
+        with self._lock:
+            cached = self._decoders.get(model_id)
+            if (cached is not None and cached[1] == mtime
+                    and not cached[0].closed):
+                return cached[0]
+        quantize = self.cfg.serving_quantize
+        if quantize not in ("", "int8"):
+            log.warning("KUBEML_SERVING_QUANTIZE=%r not recognized (valid: "
+                        "int8); serving unquantized", quantize)
+            quantize = ""
+        module = self._serving_module(model, tree)
+        common = dict(
+            slots=self.cfg.serving_slots,
+            chunk_steps=self.cfg.serving_chunk_steps, name=model_id,
+            quantize=quantize, int8_matmul=self.cfg.int8_matmul,
+            int8_matmul_impl=self.cfg.int8_matmul_impl,
+            queue_limit=self.cfg.serving_queue_limit,
+            shed_policy=self.cfg.serving_shed_policy,
+            page_tokens=self.cfg.serving_page_tokens,
+            pages=self.cfg.serving_pages,
+            prefix_cache=self.cfg.serving_prefix_cache,
+            paged_attn=self.cfg.paged_attn, kv_quant=self.cfg.kv_quant,
+            spec_min_accept=self.cfg.spec_min_accept,
+            prefill_chunk_tokens=self.cfg.prefill_chunk_tokens,
+            pool_audit_interval=self.cfg.pool_audit_interval,
+            device=self.device)
+        spec_kw = self._spec_decoder_args()
+        try:
+            decoder = PagedBatchingDecoder(module, **common, **spec_kw)
+        except (ValueError, KubeMLError) as e:
+            # a spec configuration the engine rejects (exit layer out of
+            # range, a draft that does not fit, a bad k) serves without
+            # speculation; the spec check runs before anything is
+            # quantized or allocated, and any other error raises again
+            if not spec_kw:
+                raise
+            log.warning("speculative-decoding config rejected (%s); "
+                        "serving %s without speculation", e, model_id)
+            decoder = PagedBatchingDecoder(module, **common)
+        stale = []
+        with self._lock:
+            # a racing thread may have built one meanwhile: theirs may
+            # carry traffic already, ours has none
+            current = self._decoders.get(model_id)
+            if (current is not None and current[1] == mtime
+                    and not current[0].closed):
+                stale.append(decoder)
+                decoder = current[0]
+            else:
+                if current is not None:
+                    stale.append(current[0])
+                self._decoders[model_id] = (decoder, mtime)
+                while len(self._decoders) > DECODER_CACHE_SIZE:
+                    oldest = next(iter(self._decoders))
+                    stale.append(self._decoders.pop(oldest)[0])
+        for d in stale:
+            # in-flight requests on a displaced decoder finish; only new
+            # submissions are refused
+            d.retire()
+        return decoder
+
+    def _spec_decoder_args(self) -> dict:
+        """Speculative-decoding arguments from ``serving_spec`` (off, self,
+        draft). An unknown mode, a missing draft id or a draft model that
+        does not load serves without speculation, with a warning."""
+        spec = (self.cfg.serving_spec or "off").lower()
+        if spec in ("", "off"):
+            return {}
+        if spec not in ("draft", "self"):
+            log.warning("KUBEML_SERVING_SPEC=%r not recognized (valid: off, "
+                        "draft, self); serving without speculation", spec)
+            return {}
+        out = dict(spec=spec, spec_k=self.cfg.spec_k,
+                   spec_adaptive=self.cfg.spec_adaptive)
+        if spec == "self":
+            out["spec_exit_layer"] = self.cfg.spec_exit_layer
+            return out
+        draft_id = self.cfg.spec_draft_model
+        if not draft_id:
+            log.warning("KUBEML_SERVING_SPEC=draft needs "
+                        "KUBEML_SPEC_DRAFT_MODEL (a finished job id); "
+                        "serving without speculation")
+            return {}
+        try:
+            # the drafter rides the target's loader: final-int8 preferred
+            # under int8 serving
+            dmodel, dtree, _ = self._load_serving(draft_id)
+            out["draft_module"] = self._serving_module(dmodel, dtree)
+            return out
+        except (KubeMLError, ValueError, KeyError, OSError) as e:
+            log.warning("loading the draft model %r failed (%s); serving "
+                        "without speculation", draft_id, e)
+            return {}
+
+    @staticmethod
+    def _densified(tree):
+        """A dense f32 copy of a host tree that carries int8 leaves (for
+        ``infer``, which consumes a plain tree)."""
+        if not is_quantized_tree(tree):
+            return tree
+
+        def one(node):
+            if isinstance(node, QuantizedTensor):
+                return np.asarray(node.q, np.float32) * np.asarray(node.s)
+            if isinstance(node, dict):
+                return {k: one(v) for k, v in node.items()}
+            return node
+
+        return one(tree)
+
+    def _serving_telemetry(self) -> dict:
+        """{model_id: telemetry} of the resident decoders (the serving
+        source of ``metrics.render()``)."""
+        with self._lock:
+            decoders = {mid: d for mid, (d, _) in self._decoders.items()}
+        out = {}
+        for mid, d in decoders.items():
+            try:
+                out[mid] = d.telemetry()
+            except Exception:
+                log.debug("telemetry for %s failed", mid, exc_info=True)
+        return out
+
+    def close(self) -> None:
+        """Close every resident decoder (requests in flight fail)."""
+        with self._lock:
+            decoders = [d for d, _ in self._decoders.values()]
+            self._decoders.clear()
+        for d in decoders:
+            d.close()
+
+    # --- drain and restore across a restart ---
+
+    def drain_serving(self, grace: Optional[float] = None) -> dict:
+        """Drain every resident decoder: admissions answer 429, live rows
+        get ``grace`` seconds (``drain_grace``), and the stragglers become
+        KMS1 frames, written to ``snap_dir`` (one ``<model>-<request>.kms``
+        each) when it is set, for the next server's
+        :meth:`restore_serving`; the waiters get a retryable 503 with
+        their partial tokens either way."""
+        with self._lock:
+            decoders = {mid: d for mid, (d, _) in self._decoders.items()}
+        snap_dir = self.cfg.snap_dir
+        out = {"models": [], "snapshots": 0, "written": []}
+        for mid, d in decoders.items():
+            try:
+                frames = d.drain(grace)
+            except Exception:
+                log.exception("draining decoder %s failed", mid)
+                continue
+            out["models"].append(mid)
+            out["snapshots"] += len(frames)
+            if not (snap_dir and frames):
+                continue
+            os.makedirs(snap_dir, exist_ok=True)
+            for frame in frames:
+                try:
+                    rid = (kvsnap.peek_header(frame).get("request_id")
+                           or f"r{len(out['written'])}")
+                    safe = "".join(c if c.isalnum() or c in "-_" else "_"
+                                   for c in f"{mid}-{rid}")
+                    path = os.path.join(snap_dir, safe + kvsnap.SNAP_SUFFIX)
+                    with open(path, "wb") as f:
+                        f.write(frame)
+                    out["written"].append(path)
+                except Exception:
+                    log.exception("writing a snapshot of %s failed", mid)
+        return out
+
+    def restore_serving(self) -> dict:
+        """Replay the ``.kms`` frames in ``snap_dir``: each goes to its
+        model's decoder (by the frame's header) through
+        ``submit_snapshot`` and decodes on from where it stopped; the file
+        is deleted once admitted. A frame that fails stays on disk and is
+        reported, not raised."""
+        snap_dir = self.cfg.snap_dir
+        out = {"restored": [], "failed": []}
+        if not snap_dir or not os.path.isdir(snap_dir):
+            return out
+        for fname in sorted(os.listdir(snap_dir)):
+            if not fname.endswith(kvsnap.SNAP_SUFFIX):
+                continue
+            path = os.path.join(snap_dir, fname)
+            try:
+                with open(path, "rb") as f:
+                    frame = f.read()
+                mid = str(kvsnap.peek_header(frame).get("model") or "")
+                model, tree, mtime = self._load_serving(mid)
+                decoder = self._get_decoder(mid, model, tree, mtime)
+                entry = decoder.submit_snapshot(frame)
+                with self._lock:
+                    self._restored.append({
+                        "model": mid, "request_id": entry.request_id,
+                        "file": fname, "entry": entry, "decoder": decoder})
+                out["restored"].append({"model": mid,
+                                        "request_id": entry.request_id})
+                os.unlink(path)
+            except Exception as e:
+                log.warning("snapshot replay failed for %s: %s", fname, e)
+                out["failed"].append({"file": fname, "error": str(e)})
+        return out
+
+    def restored_snapshot(self) -> list:
+        """The replayed requests and their state: done flag, tokens
+        emitted so far, and the whole streams once done."""
+        with self._lock:
+            recs = list(self._restored)
+        out = []
+        for rec in recs:
+            entry = rec["entry"]
+            done = entry.done_evt.is_set() and entry.error is None
+            row = {"model": rec["model"], "request_id": rec["request_id"],
+                   "file": rec["file"], "done": done,
+                   "error": str(entry.error) if entry.error else None,
+                   "lengths": [len(r.out) for r in entry.rows]}
+            if done:
+                res = entry.result()
+                row["tokens"] = [t[:n] for t, n in zip(res["tokens"],
+                                                       res["lengths"])]
+            out.append(row)
+        return out
+
+    # --- the served checkpoint ---
+
+    def _final_source(self, model_id: str):
+        """(tag, mtime_ns) of the export to serve, or (None, None): the
+        flat ``final``, or under ``serving_quantize="int8"`` a
+        ``final-int8`` at least as fresh. A malformed id finds nothing
+        (a 404, never a 500); a sharded export newer than the flat one is
+        a 400."""
+
+        def resolve(tag):
+            try:
+                flat = self._ckpt_store.export_path(
+                    model_id, tag=tag).stat().st_mtime_ns
+            except (CheckpointNotFoundError, StorageError, OSError):
+                flat = None
+            sharded = self._ckpt_store.sharded_mtime(model_id, tag)
+            if sharded is not None and (flat is None or sharded > flat):
+                raise _not_ported(f"serving the sharded checkpoint "
+                                  f"{model_id}/{tag}")
+            return flat
+
+        dense = resolve(FINAL_TAG)
+        if self.cfg.serving_quantize == "int8":
+            int8 = resolve(INT8_TAG)
+            # a retrain under the same id must not be shadowed by a stale
+            # final-int8
+            if int8 is not None and (dense is None or int8 >= dense):
+                return INT8_TAG, int8
+        if dense is None:
+            return None, None
+        return FINAL_TAG, dense
+
+    def _build_serving(self, model_id: str, tag: str, mtime) -> tuple:
+        """(model, host tree, mtime) from a flat export: the function the
+        checkpoint's request names, and its variables (int8 storage
+        markers back to QuantizedTensor pairs)."""
+        try:
+            ck = self._ckpt_store.restore(model_id, tag=tag)
+        except CheckpointNotFoundError:
+            raise JobNotFoundError(model_id)
+        fn_name = ck.meta.get("request", {}).get("function_name", "")
+        model = self.registry.load(fn_name)
+        remap = getattr(model, "serving_remap", None)
+        if (ck.meta.get("layout") != "serving" and callable(remap)
+                and remap() is not None):
+            raise _not_ported(f"serving function {fn_name!r}'s "
+                              f"serving_remap")
+        tree = ck.variables
+        if is_quantized_storage(tree):
+            tree = from_storage_tree(tree)
+        return (model, tree, mtime)
+
+    def _load_serving(self, model_id: str):
+        """(model, host tree, mtime) of a finished job through the
+        mtime-checked serving cache."""
+        tag, mtime = self._final_source(model_id)
+        with self._lock:
+            cached = self._serving_cache.get(model_id)
+            if cached is not None and cached[2] != mtime:
+                cached = None  # deleted or replaced since it was cached
+                self._serving_cache.pop(model_id, None)
+        if mtime is None:
+            try:
+                live = bool(self._ckpt_store.epochs(model_id))
+            except StorageError:
+                live = False
+            if live:
+                raise _not_ported(
+                    f"serving job {model_id!r} before its final export "
+                    f"(live jobs)")
+            raise JobNotFoundError(model_id)
+        if cached is None:
+            cached = self._build_serving(model_id, tag, mtime)
+            with self._lock:
+                self._serving_cache[model_id] = cached
+                while len(self._serving_cache) > SERVING_CACHE_SIZE:
+                    self._serving_cache.pop(next(iter(self._serving_cache)))
+        return cached

@@ -57,6 +57,10 @@ import torch
 MAGIC = b"KMS1"
 VERSION = 1
 
+# the extension of the frames a parameter server drains into its snapshot
+# directory
+SNAP_SUFFIX = ".kms"
+
 # bfloat16 pages travel as their raw 16-bit patterns (numpy has no
 # bfloat16); the wire dtype name stays "bfloat16", as the JAX frame's
 _BF16 = "bfloat16"

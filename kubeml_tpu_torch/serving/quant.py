@@ -14,14 +14,24 @@ Trees here are flat ``{name: tensor}`` mappings (a module's
 gathers one row per token, so quantizing them saves no per-step bytes).
 :func:`quantized_dot` contracts activations against the int8 values and
 applies the scale after the contraction, so no dense ``W~`` is built.
+
+Checkpoint storage (JAX ``:161-291``): :func:`quantize_final_checkpoint`
+reads a job's flat ``final`` export, quantizes its weights by the same
+rule (so ``q`` and ``s`` are bit for bit the JAX package's) and writes
+them under the ``final-int8`` tag, each quantized leaf as a ``{Q8_Q: q,
+Q8_S: s}`` dict (:func:`to_storage_tree`), which either package's
+checkpoint store persists as it is. Sharded finals and functions with a
+``serving_remap`` are not ported (400).
 """
 
 from __future__ import annotations
 
-from typing import Mapping, NamedTuple
+from typing import Any, Callable, Mapping, NamedTuple
 
+import numpy as np
 import torch
 
+from ..api.errors import CheckpointNotFoundError, KubeMLError
 from ..ops.int8_matmul import int8_dot, int8_matmul, resolve_int8_matmul
 
 # don't quantize small leaves: no bandwidth to win, outsized quality cost
@@ -41,7 +51,10 @@ class QuantizedTensor(NamedTuple):
 
 def _quantize_leaf(w: torch.Tensor) -> QuantizedTensor:
     absmax = w.abs().amax(dim=tuple(range(w.dim() - 1)), keepdim=True)
-    scale = absmax.clamp_min(1e-8) / 127.0
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, an ulp off the JAX rule's quotient on
+    # ~5 % of the channels
+    scale = absmax.clamp_min(1e-8) / torch.full_like(absmax, 127.0)
     q = torch.round(w / scale).clamp(-127, 127).to(torch.int8)
     return QuantizedTensor(q=q, s=scale.float())
 
@@ -104,3 +117,118 @@ def quantized_dot(x: torch.Tensor, qt: QuantizedTensor, *, dtype=None,
     if resolve_int8_matmul(impl, x.device) == "cuda":
         return int8_matmul(x, qt.q, qt.s, out_dtype=out)
     return int8_dot(x, qt.q, qt.s, out_dtype=out)
+
+
+# --- checkpoint storage (the final-int8 export) ---
+
+INT8_TAG = "final-int8"
+Q8_Q = "__q8_q__"
+Q8_S = "__q8_s__"
+
+
+def _is_storage_q(node) -> bool:
+    return isinstance(node, dict) and set(node) == {Q8_Q, Q8_S}
+
+
+def _map_nodes(fn: Callable[[Any], Any], tree, is_node) -> Any:
+    """``fn`` on every node ``is_node`` accepts and every leaf of a
+    nested-dict tree; dicts are rebuilt around them."""
+    if is_node(tree):
+        return fn(tree)
+    if isinstance(tree, Mapping):
+        return {k: _map_nodes(fn, v, is_node) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _nodes(tree, is_node):
+    if is_node(tree):
+        yield tree
+    elif isinstance(tree, Mapping):
+        for v in tree.values():
+            yield from _nodes(v, is_node)
+    else:
+        yield tree
+
+
+def _is_q(node) -> bool:
+    return isinstance(node, QuantizedTensor)
+
+
+def to_storage_tree(tree) -> dict:
+    """QuantizedTensor nodes -> ``{Q8_Q: q, Q8_S: s}`` dicts."""
+    return _map_nodes(lambda n: {Q8_Q: n.q, Q8_S: n.s} if _is_q(n) else n,
+                      tree, _is_q)
+
+
+def from_storage_tree(tree) -> dict:
+    """Inverse of :func:`to_storage_tree`."""
+    return _map_nodes(lambda n: (QuantizedTensor(q=n[Q8_Q], s=n[Q8_S])
+                                 if _is_storage_q(n) else n),
+                      tree, _is_storage_q)
+
+
+def is_quantized_tree(tree) -> bool:
+    """True when the tree carries QuantizedTensor leaves."""
+    return any(_is_q(n) for n in _nodes(tree, _is_q))
+
+
+def is_quantized_storage(tree) -> bool:
+    """True when a restored tree carries int8 storage markers."""
+    return any(_is_storage_q(n) for n in _nodes(tree, _is_storage_q))
+
+
+def _quantize_nested(tree, path=()) -> Any:
+    """:func:`quantize_tree`'s rule over a nested host tree (numpy leaves,
+    or CPU bfloat16 tensors): eligible leaves become QuantizedTensor pairs
+    of numpy arrays."""
+    if isinstance(tree, Mapping):
+        return {k: _quantize_nested(v, path + (str(k),))
+                for k, v in tree.items()}
+    leaf = tree if isinstance(tree, torch.Tensor) else torch.from_numpy(
+        np.asarray(tree))
+    if _gather_accessed(".".join(path)) or not _wants_quant(leaf):
+        return tree
+    qt = _quantize_leaf(leaf)
+    return QuantizedTensor(q=qt.q.numpy(), s=qt.s.numpy())
+
+
+def quantize_final_checkpoint(job_id: str, store, registry=None) -> str:
+    """Quantize a job's ``final`` export offline and write it under
+    ``INT8_TAG`` in the same store; returns the form written (``"flat"``).
+    Serving with ``serving_quantize="int8"`` then prefers it while it is
+    at least as fresh as ``final``. ``registry`` loads the job's function
+    first: one that cannot load is a 400, as is one with a
+    ``serving_remap`` (not ported), and so is a sharded final newer than
+    the flat one."""
+    from ..storage.checkpoint import FINAL_TAG
+
+    flat = None
+    try:
+        flat = store.export_path(job_id, tag=FINAL_TAG).stat().st_mtime_ns
+    except (KubeMLError, OSError):
+        pass
+    sharded = store.sharded_mtime(job_id, FINAL_TAG)
+    if sharded is not None and (flat is None or sharded > flat):
+        raise KubeMLError(f"job {job_id}'s final is sharded: quantizing a "
+                          f"sharded checkpoint is not ported yet", 400)
+    if flat is None:
+        raise CheckpointNotFoundError(job_id)
+    ck = store.restore(job_id, tag=FINAL_TAG)
+    if registry is not None:
+        fn_name = ck.meta.get("request", {}).get("function_name", "")
+        try:
+            model = registry.load(fn_name)
+        except Exception as e:
+            raise KubeMLError(
+                f"quantize needs job {job_id}'s function {fn_name!r} to "
+                f"determine the serving layout, but loading it failed: {e}",
+                400)
+        remap = getattr(model, "serving_remap", None)
+        if callable(remap) and remap() is not None:
+            raise KubeMLError(f"function {fn_name!r} re-lays its checkpoint "
+                              f"out for serving (serving_remap): not ported "
+                              f"yet", 400)
+    storage = to_storage_tree(_quantize_nested(ck.variables))
+    meta = {**ck.meta, "quantized": "int8", "layout": "serving"}
+    store.save(job_id, storage, epoch=ck.epoch, tag=INT8_TAG, meta=meta)
+    return "flat"

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from kubeml_tpu_torch.ops.int8_matmul import _plan, int8_dot, int8_matmul
+from kubeml_tpu_torch.serving.quant import quantize_tree
 
 pytestmark = pytest.mark.cuda
 
@@ -112,3 +113,17 @@ def test_bad_arguments_raise(card):
         int8_matmul(x.half(), q, s)
     with pytest.raises(ValueError, match="features"):
         int8_matmul(x[:, :32], q, s)
+
+
+def test_quantize_on_the_card_matches_the_cpu_rule(card):
+    """Weights quantized on the card get the q and s of the CPU (and the
+    JAX package's) rule bit for bit: ``scale = absmax / 127`` divides, it
+    does not multiply by the reciprocal, which CUDA division by a Python
+    scalar does."""
+    tree = {"a.kernel": torch.randn(768, 3072, generator=card),
+            "b.kernel": torch.randn(3072, 768, generator=card) * 0.02}
+    cpu = quantize_tree(tree)
+    gpu = quantize_tree({k: v.cuda() for k, v in tree.items()})
+    for k in tree:
+        assert torch.equal(gpu[k].q.cpu(), cpu[k].q), k
+        assert torch.equal(gpu[k].s.cpu(), cpu[k].s), k

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: ``kubeml_tpu_torch`` and ``chip_smoke.py``
-import neither JAX (nor Flax/optax) nor anything of ``kubeml_tpu``, and an
-entry point never carries on on the CPU unless asked to."""
+import neither JAX (nor Flax/optax/ml_dtypes) nor anything of
+``kubeml_tpu``, and an entry point never carries on on the CPU unless
+asked to."""
 
 import ast
 import subprocess
@@ -11,7 +12,7 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "kubeml_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "kubeml_tpu")
 
 
 def _port_sources():
@@ -57,6 +58,19 @@ def test_resilience_modules_keep_their_own_copies(module):
     assert not _offenders(path)
 
 
+@pytest.mark.parametrize("module", [
+    "storage/checkpoint.py", "functions/registry.py", "ps/metrics.py",
+    "ps/parameter_server.py", "engine/resume.py", "utils/watchdog.py",
+    "serving/quant.py", "interop/from_flax.py"])
+def test_checkpoint_and_serving_modules_keep_their_own_copies(module):
+    """The checkpoint and parameter-server modules copy what they need of
+    the JAX package's (the store's format, the registry's rules, the
+    metric names) and do not import it, nor ``ml_dtypes`` for bfloat16."""
+    path = REPO / "kubeml_tpu_torch" / module
+    assert path.is_file()
+    assert not _offenders(path)
+
+
 def test_importing_the_port_loads_no_jax_module():
     code = (
         "import sys\n"
@@ -74,7 +88,10 @@ def test_importing_the_port_loads_no_jax_module():
         "kubeml_tpu_torch.benchmarks.spec_decode, "
         "kubeml_tpu_torch.serving.stats, kubeml_tpu_torch.serving.kvsnap, "
         "kubeml_tpu_torch.benchmarks.recovery, "
-        "kubeml_tpu_torch.utils.resilience\n"
+        "kubeml_tpu_torch.utils.resilience, "
+        "kubeml_tpu_torch.storage.checkpoint, kubeml_tpu_torch.functions, "
+        "kubeml_tpu_torch.ps, kubeml_tpu_torch.engine.resume, "
+        "kubeml_tpu_torch.utils.watchdog\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
@@ -83,8 +100,10 @@ def test_importing_the_port_loads_no_jax_module():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-def test_entry_points_raise_without_device_on_a_cpu_only_host(monkeypatch):
+def test_entry_points_raise_without_device_on_a_cpu_only_host(monkeypatch,
+                                                             tmp_path):
     from kubeml_tpu_torch import resolve_device
+    from kubeml_tpu_torch.api.config import Config
     from kubeml_tpu_torch.models import CausalTransformer, GPTSmall
     from kubeml_tpu_torch.serving import PagedBatchingDecoder
 
@@ -105,6 +124,9 @@ def test_entry_points_raise_without_device_on_a_cpu_only_host(monkeypatch):
     from kubeml_tpu_torch.benchmarks.recovery import main as recovery
     with pytest.raises(RuntimeError, match="no CUDA device"):
         recovery([])
+    from kubeml_tpu_torch.ps import ParameterServer
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ParameterServer(config=Config(data_root=tmp_path))
     # asked for explicitly, the CPU runs
     assert resolve_device("cpu") == torch.device("cpu")
     PagedBatchingDecoder(m, page_tokens=4, device="cpu").close()

@@ -31,7 +31,8 @@ from kubeml_tpu_torch.engine.job import TrainJob
 from kubeml_tpu_torch.interop.from_flax import from_flax_variables
 from kubeml_tpu_torch.models.lenet import LeNet
 from kubeml_tpu_torch.runtime.model import KubeModel
-from kubeml_tpu_torch.storage import HistoryStore, ShardStore
+from kubeml_tpu_torch.storage import (CheckpointStore, HistoryStore,
+                                      ShardStore)
 from test_job import MnistDataset, synthetic_mnist
 
 LOSS_RTOL = 1e-4
@@ -115,6 +116,8 @@ def test_train_job_matches_jax(stores, tmp_config):
             job = TrainJob("job-parity", _request(ttypes, **opts),
                            TorchLeNet(), store=tstore,
                            history_store=HistoryStore(root=thist),
+                           checkpoint_store=CheckpointStore(
+                               root=thist.parent / "torch-checkpoints"),
                            on_epoch_end=policy, on_metrics=updates.append,
                            device="cpu")
         runs[tag] = (job.train(), calls, updates, job)
@@ -150,12 +153,23 @@ def test_train_job_matches_jax(stores, tmp_config):
     {"sharded_checkpoints": True}, {"mesh_shape": {"dp": 2}}],
     ids=["spmd", "checkpoint_every", "resume", "sharded", "mesh"])
 def test_unported_options_raise(opts, tmp_path):
+    """Options whose modules the port lacks raise 400; checkpoints and
+    resume are ported now and construct a job."""
     req = _request(ttypes, **opts)
+
+    def make():
+        return TrainJob("job-x", req, TorchLeNet(),
+                        store=ShardStore(root=tmp_path / "d"),
+                        history_store=HistoryStore(root=tmp_path / "h"),
+                        checkpoint_store=CheckpointStore(
+                            root=tmp_path / "c"), device="cpu")
+
+    if set(opts) & {"checkpoint_every", "resume"}:
+        req.options.check_ported()
+        assert make().request.options == req.options
+        return
     with pytest.raises(KubeMLError, match="not ported") as e:
-        TrainJob("job-x", req, TorchLeNet(),
-                 store=ShardStore(root=tmp_path / "d"),
-                 history_store=HistoryStore(root=tmp_path / "h"),
-                 device="cpu")
+        make()
     assert e.value.status_code == 400
     # the JAX package reads the same request
     assert jtypes.TrainRequest.from_json(req.to_json()).to_dict() == req.to_dict()
