@@ -139,7 +139,31 @@ Phases, each reported on its own lines:
    equals the job's in-memory ``infer``. Each server prints its cold
    ``_load_serving`` and decoder-build ms, the TTFT of the first request
    on the cold decoder and of a warm one, and the phase's launches;
-13. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+13. control plane - (a) ``LocalCluster`` on the card, HTTP on port 0,
+   driven through ``KubemlClient``: a CIFAR-10-shaped upload (seeded
+   random uint8, ``CP_TRAIN`` train and ``CP_TEST`` test samples), a
+   ResNet-18 function, and ``/train`` at the flagship's hyperparameters
+   (B 128, K 8, lr 0.1, SGD momentum 0.9, bf16), elastic from parallelism
+   4, 3 epochs; waits on the job's state (``ParameterServer.wait``), then
+   holds one finite train loss an epoch, a trace of legal levels that
+   ``/jobs/{id}/decisions`` agrees with, ``/infer`` on the running job
+   (paused mid-round, worker 0 already stepped) equal to the merged
+   weights of the last round and not to the live replica 0, ``/infer``
+   after the finish equal to the job's own ``infer``, and ``/metrics``
+   with ``kubeml_job_running_total`` and the training series; (b) phase
+   12's ``final`` and ``final-int8`` served through the controller's
+   ``/generate`` from threads (half streamed): f32 tokens equal to phase
+   12a's (near ties as there), int8 weights bit-identical to 12b's engine
+   and tokens equal to 12b's but for near ties within ``INT8_NEAR_TIE``,
+   both kernels launching; tokens/s and TTFT p50 over HTTP beside phase
+   12's in-process numbers, and the HTTP cost a request; (c) ``python -m
+   kubeml_tpu_torch.cli start`` in a subprocess, the mix streamed into
+   it, SIGTERM once a row has 8 tokens: exit 0 within the drain grace
+   with KMS1 frames left, which a second ``cli start`` restores at boot;
+   ``/serving/restored`` lists the rows, whose tokens equal phase 12a's
+   uninterrupted run; SIGTERM to exit, boot to the first restored
+   emission and a cold ``cli start`` boot;
+14. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Any failure raises and the script exits non-zero; without a CUDA device it
 exits non-zero before printing any result.
@@ -2328,6 +2352,7 @@ def checkpoint_phase(smi, root, run, qrun, kavg):
         raise AssertionError(f"b: launches {b_launches}")
     launches[0] += b_launches[0]
     launches[1] += b_launches[1]
+    int8_digest = state_digest(qdec.module)
 
     # (d) the K-AVG job's final export through infer
     hist, job = kavg
@@ -2343,7 +2368,546 @@ def checkpoint_phase(smi, root, run, qrun, kavg):
     if served != own:
         raise AssertionError("d: infer from the final export differs from "
                              "the job's in-memory infer")
+    return dict(launches=tuple(launches), prun=prun, qprun=qprun,
+                int8_digest=int8_digest, serve_kw=serve_kw)
+
+
+# --- phase 13: the control plane over HTTP ---------------------------------
+
+# 13a: the CIFAR-10-shaped upload (seeded random uint8), the flagship's
+# hyperparameters through /train, elastic from 4 workers
+CP_TRAIN, CP_TEST, CP_EPOCHS, CP_SEED = 16384, 2048, 3, 7
+CP_JOB_DEADLINE = 600.0
+# the pause of 13a's live /infer: the job thread blocks in its
+# per-sample loss at this call (round 2, worker 0, step 4 at 4 workers of
+# K 8: three local steps applied, the round not merged)
+CP_PAUSE_AT = 4 * KAVG_K + 4
+# 13c: the drain grace of the SIGTERM'd server (its stragglers become
+# frames at once), and the seconds its exit may take past the signal
+CP_DRAIN_GRACE, CP_EXIT_S = 0.0, 60.0
+LEGAL_LEVELS = (1, 2, 4, 8)
+
+FLAGSHIP_FN = """
+import torch
+from kubeml_tpu_torch.data.dataset import KubeDataset
+from kubeml_tpu_torch.models.resnet import ResNet18
+from kubeml_tpu_torch.runtime.model import KubeModel
+
+
+class Flagship(KubeModel):
+    def __init__(self):
+        super().__init__(KubeDataset("cifar10"))
+
+    def build(self):
+        return ResNet18(num_classes=10, dtype=torch.bfloat16)
+
+    def configure_optimizers(self, params):
+        return torch.optim.SGD(params, lr=self.lr, momentum=0.9)
+
+    def preprocess(self, x):
+        return x.to(torch.bfloat16) / 127.5 - 1.0
+"""
+
+
+def state_digest(module):
+    """{name: (dtype, shape, sha1 of the bytes)} of a module's tensors."""
+    import hashlib
+
+    return {k: (str(v.dtype), tuple(v.shape), hashlib.sha1(
+        v.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes()
+    ).hexdigest()) for k, v in module.state_dict().items()}
+
+
+def cp_config(root, **kw):
+    """A Config under ``root`` with every service on port 0."""
+    from kubeml_tpu_torch.api.config import Config
+
+    return Config(data_root=Path(root), controller_port=0, scheduler_port=0,
+                  ps_port=0, storage_port=0, **kw)
+
+
+def http_text(url: str) -> str:
+    from kubeml_tpu_torch.utils import http_client as http
+
+    r = http.get(url, timeout=(5.0, 60.0))
+    if r.status_code != 200:
+        raise AssertionError(f"{url}: {r.status_code} {r.text[:200]}")
+    return r.text
+
+
+def cp_wait_job(cluster, jid: str):
+    """Wait on the job's own state: its record in the PS, then its thread;
+    returns the history once the thread has ended."""
+    deadline = time.monotonic() + CP_JOB_DEADLINE
+    while time.monotonic() < deadline:
+        with cluster.ps._lock:
+            known = jid in cluster.ps._jobs
+        if known and cluster.ps.wait(jid, timeout=1.0):
+            break
+        if not known:
+            try:
+                return cluster.history_store.get(jid)
+            except Exception:
+                time.sleep(0.05)
+    else:
+        raise AssertionError(f"13a: job {jid} did not end within "
+                             f"{CP_JOB_DEADLINE} s")
+    return cluster.history_store.get(jid)
+
+
+def cp_train(smi, root):
+    """13a (see the module docstring). Returns the epoch seconds."""
+    from kubeml_tpu_torch.api.types import TrainOptions, TrainRequest
+    from kubeml_tpu_torch.cluster import LocalCluster
+    from kubeml_tpu_torch.controller import KubemlClient
+
+    cfg = cp_config(Path(root) / "cp-train")
+    r = np.random.default_rng(CP_SEED)
+    x = r.integers(0, 256, size=(CP_TRAIN + CP_TEST, 32, 32, 3),
+                   dtype=np.uint8)
+    y = r.integers(0, 10, size=CP_TRAIN + CP_TEST).astype(np.int64)
+    with LocalCluster(config=cfg) as cluster:
+        client = KubemlClient(cluster.controller_url, timeout=600)
+        t0 = time.monotonic()
+        client.datasets().create("cifar10", x[:CP_TRAIN], y[:CP_TRAIN],
+                                 x[CP_TRAIN:], y[CP_TRAIN:])
+        upload_s = time.monotonic() - t0
+        client.functions().create("flagship", FLAGSHIP_FN)
+        paused, release = threading.Event(), threading.Event()
+        t_train = time.monotonic()
+        jid = client.networks().train(TrainRequest(
+            model_type="resnet18", batch_size=KAVG_B, epochs=CP_EPOCHS,
+            dataset="cifar10", lr=0.1, function_name="flagship",
+            options=TrainOptions(default_parallelism=4,
+                                 static_parallelism=False, k=KAVG_K,
+                                 precision="bf16")))
+        # the job's model: pause its thread mid-round at CP_PAUSE_AT
+        deadline = time.monotonic() + 120
+        while True:
+            with cluster.ps._lock:
+                rec = cluster.ps._jobs.get(jid)
+            if rec is not None and rec.job is not None:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError("13a: the job did not start")
+            time.sleep(0.01)
+        job = rec.job
+        # the first epoch's end: the job's first metrics push
+        first_push = []
+        base_push = job.on_metrics
+
+        def on_metrics(update):
+            first_push.append(time.monotonic())
+            base_push(update)
+
+        job.on_metrics = on_metrics
+        calls = [0]
+        base_loss = job.model.per_sample_loss
+
+        pause_s = [0.0]
+
+        def pausing_loss(logits, labels):
+            calls[0] += 1
+            if calls[0] == CP_PAUSE_AT:
+                t_pause = time.monotonic()
+                paused.set()
+                release.wait(120)
+                pause_s[0] = time.monotonic() - t_pause
+            return base_loss(logits, labels)
+
+        job.model.per_sample_loss = pausing_loss
+        if not paused.wait(300):
+            raise AssertionError("13a: the job never reached the pause")
+        probe = x[CP_TRAIN:CP_TRAIN + 32]
+        try:
+            t_inf = time.monotonic()
+            live = client.networks().infer(jid, probe)
+            live_ms = 1e3 * (time.monotonic() - t_inf)
+            merged = job.trainer.infer_replica(job._published,
+                                               probe).tolist()
+            moving = job.trainer.infer(job._stacked_vars, probe).tolist()
+            running = http_text(f"{cluster.ps_api.url}/metrics")
+        finally:
+            job.model.per_sample_loss = base_loss
+            release.set()
+        log(f"  a: /infer on the running job (paused mid-round, worker 0 "
+            f"three steps in) in {live_ms:.1f} ms: equal to the last "
+            f"round's merged weights {live == merged}; to the live replica "
+            f"0 {live == moving}")
+        if live != merged:
+            raise AssertionError("13a: /infer on a live job did not answer "
+                                 "from the merged weights")
+        if 'kubeml_job_running_total{type="train"} 1' not in running:
+            raise AssertionError("13a: /metrics lacks the running job")
+        hist = cp_wait_job(cluster, jid)
+        wall = time.monotonic() - t_train - pause_s[0]
+        to_first = first_push[0] - t_train - pause_s[0]
+        # the pause fell inside the first epoch
+        epochs = [hist.epoch_duration[0] - pause_s[0]] + \
+            hist.epoch_duration[1:]
+        decisions = client.tasks().decisions(jid)["decisions"]
+        h = client.histories().get(jid)
+        trace = h.parallelism
+        steps = [d["to"] for d in decisions[:len(trace)]]
+        froms = [d["from"] for d in decisions[1:len(trace) + 1]]
+        log(f"  a [{smi}]: upload of {CP_TRAIN}+{CP_TEST} samples "
+            f"{upload_s:.2f} s; /train to the first epoch's end "
+            f"{to_first:.2f} s, to the job's end {wall:.2f} s (the "
+            f"{pause_s[0]:.2f} s pause taken out); parallelism "
+            f"{trace}; train loss {[round(v, 4) for v in h.train_loss]}; "
+            f"epoch s {[round(v, 3) for v in epochs]} (the first without "
+            f"the pause) = {[round(CP_TRAIN / v) for v in epochs]} "
+            f"samples/s; "
+            f"decisions {[(d['from'], d['to'], d['reason']) for d in decisions]}")
+        if (h.task or {}).get("error") or hist.to_dict() != h.to_dict():
+            raise AssertionError(f"13a: the job failed or its history "
+                                 f"differs over HTTP: {(h.task or {})}")
+        if (len(h.train_loss) != CP_EPOCHS
+                or not all(np.isfinite(h.train_loss))):
+            raise AssertionError(f"13a: train loss {h.train_loss}")
+        if (any(p not in LEGAL_LEVELS for p in trace) or trace != steps
+                or trace != froms or decisions[0]["reason"] != "new-task"):
+            raise AssertionError(f"13a: trace {trace} against decisions "
+                                 f"{decisions}")
+        after = client.networks().infer(jid, probe)
+        own = job.infer(probe).tolist()
+        log(f"  a: /infer after the finish (the final export) equal to the "
+            f"job's own infer: {after == own}")
+        if after != own:
+            raise AssertionError("13a: /infer of the final export differs "
+                                 "from the job's")
+        text = http_text(f"{cluster.ps_api.url}/metrics")
+        want = [f'kubeml_job_epoch_seconds_count{{jobid="{jid}"}} '
+                f'{CP_EPOCHS}', 'kubeml_job_running_total{type="train"} 0',
+                f'kubeml_job_round_seconds_bucket{{jobid="{jid}"',
+                'kubeml_scale_decisions_total{direction="new",'
+                'reason="new-task"} 1']
+        missing = [w for w in want if w not in text]
+        if missing:
+            raise AssertionError(f"13a: /metrics lacks {missing}")
+    return epochs
+
+
+def cp_generate(client, reqs, eos, job=None):
+    """The 16 requests through ``client``'s ``/generate`` from threads:
+    odd requests streamed, even ones one-shot; request 0 streamed first
+    and the sharers 4, 8, 12 sent once its first token landed. Returns
+    token lists, the wall, the tokens and the streamed requests' TTFTs."""
+    job = job or GPT2_JOB
+    results, ttfts, errors = [None] * 16, {}, []
+    first_sharer = threading.Event()
+
+    def client_thread(i):
+        try:
+            if i in (4, 8, 12):
+                first_sharer.wait(600)
+            r = reqs[i]
+            kw = dict(max_new_tokens=r["max_new"],
+                      eos_id=eos if i == 5 else None)
+            prompt = [r["prompt"].tolist()]
+            if i % 2 == 1 or i == 0:
+                t0 = time.monotonic()
+                toks = []
+                for part in client.networks().generate(job, prompt,
+                                                       stream=True, **kw):
+                    if "error" in part:
+                        raise AssertionError(f"request {i}: {part}")
+                    if part.get("tokens"):
+                        ttfts.setdefault(i, time.monotonic() - t0)
+                        toks += part["tokens"]
+                        first_sharer.set()
+                results[i] = toks
+            else:
+                out = client.networks().generate(job, prompt, **kw)
+                results[i] = out["tokens"][0][:out["lengths"][0]]
+        except Exception as e:  # surfaced below, after the join
+            errors.append(e)
+            first_sharer.set()
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=client_thread, args=(i,))
+               for i in range(16)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    wall = time.monotonic() - t0
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("HTTP clients did not finish")
+    return results, wall, sum(map(len, results)), ttfts
+
+
+def http_overhead_ms(cluster, client, reqs, n: int = 10):
+    """Median ms of a one-token one-shot request through the controller's
+    /generate minus the same request through ``ParameterServer.generate``
+    in process, alternating, on the warm decoder."""
+    from kubeml_tpu_torch.api import GenerateRequest
+
+    prompt = reqs[1]["prompt"].tolist()
+    inproc, wire = [], []
+    for _ in range(n):
+        t0 = time.monotonic()
+        cluster.ps.generate(GPT2_JOB, GenerateRequest(prompts=[prompt],
+                                                      max_new_tokens=1))
+        inproc.append(time.monotonic() - t0)
+        t0 = time.monotonic()
+        client.networks().generate(GPT2_JOB, [prompt], max_new_tokens=1)
+        wire.append(time.monotonic() - t0)
+    return (1e3 * float(np.median(wire)), 1e3 * float(np.median(inproc)))
+
+
+def cp_serve(smi, root, ckpt, eos, qeos):
+    """13b (see the module docstring). Returns the (paged_attention,
+    int8_matmul) launches."""
+    from kubeml_tpu_torch.cluster import LocalCluster
+    from kubeml_tpu_torch.controller import KubemlClient
+    from kubeml_tpu_torch.ops.int8_matmul import int8_matmul
+    from kubeml_tpu_torch.ops.paged_attention import paged_attention
+
+    reqs = workload(np.random.default_rng(SEED))
+    prompts = [r["prompt"] for r in reqs]
+    serve_kw = {k: v for k, v in ckpt["serve_kw"].items()
+                if k not in ("data_root", "snap_dir")}
+    launches = [0, 0]
+    for tag, kw, ref, tie in (
+            ("f32", {}, ckpt["prun"], NEAR_TIE),
+            ("int8", dict(serving_quantize="int8", kv_quant="int8",
+                          int8_matmul=True), ckpt["qprun"], INT8_NEAR_TIE)):
+        cfg = cp_config(root, **serve_kw, **kw)
+        with LocalCluster(config=cfg) as cluster:
+            client = KubemlClient(cluster.controller_url, timeout=600)
+            # the decoder built before the timed mix, as phase 12's
+            warm = client.networks().generate(
+                GPT2_JOB, [reqs[5]["prompt"].tolist()], max_new_tokens=16)
+            dec = cluster.ps._decoders[GPT2_JOB][0]
+            paged_attention.launches = int8_matmul.launches = 0
+            got, wall, tokens, ttfts = cp_generate(
+                client, reqs, eos if tag == "f32" else qeos)
+            got_launches = (paged_attention.launches, int8_matmul.launches)
+            tele = dec.telemetry()
+            wire_ms, inproc_ms = http_overhead_ms(cluster, client, reqs)
+            ties = check_greedy(f"13b {tag}", got, token_lists(ref)[1:],
+                                prompts, dec, against="phase 12's server",
+                                tie=tie)
+            same_calib = warm["tokens"][0][:warm["lengths"][0]] == \
+                token_lists(ref)[0]
+            digest_same = None
+            if tag == "int8":
+                digest_same = state_digest(dec.module) == ckpt["int8_digest"]
+            p12 = ref["tele"]
+            log(f"  b {tag} [{smi}]: {tokens} tokens over HTTP in "
+                f"{wall:.3f} s = {tokens / wall:.1f} tokens/s, TTFT p50 "
+                f"{1e3 * tele['first_token_p50_seconds']:.1f} ms (engine), "
+                f"{1e3 * float(np.median(list(ttfts.values()))):.1f} ms "
+                f"(streamed clients); phase 12 in process "
+                f"{ref['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+                f"{1e3 * p12['first_token_p50_seconds']:.1f} ms; a one-token "
+                f"request {wire_ms:.2f} ms over HTTP against {inproc_ms:.2f} "
+                f"in process (HTTP cost {wire_ms - inproc_ms:.2f} ms); "
+                f"tokens equal to phase 12's (near ties {ties or 'none'}); "
+                f"calibration request equal {same_calib}; launches "
+                f"paged_attention {got_launches[0]}, int8_matmul "
+                f"{got_launches[1]}"
+                + ("" if digest_same is None else
+                   f"; weights bit-identical to 12b's engine {digest_same}"))
+            if got_launches[0] <= 0 or (tag == "int8"
+                                        and got_launches[1] <= 0):
+                raise AssertionError(f"13b {tag}: launches {got_launches}")
+            if digest_same is False:
+                raise AssertionError("13b: the served int8 weights differ "
+                                     "from phase 12b's")
+            launches[0] += got_launches[0]
+            launches[1] += got_launches[1]
     return tuple(launches)
+
+
+def cp_start(root, snaps, log_path):
+    """``python -m kubeml_tpu_torch.cli start`` on the card in a child
+    process (spawned: a fresh interpreter), its services on port 0; returns
+    (process, controller URL, PS URL, seconds to the URLs)."""
+    import os
+
+    env = dict(os.environ, KUBEML_DATA_ROOT=str(root),
+               KUBEML_CONTROLLER_PORT="0", KUBEML_SCHEDULER_PORT="0",
+               KUBEML_PS_PORT="0", KUBEML_STORAGE_PORT="0",
+               KUBEML_SNAP_DIR=str(snaps),
+               KUBEML_DRAIN_GRACE=str(CP_DRAIN_GRACE),
+               KUBEML_SERVING_SLOTS=str(SLOTS),
+               KUBEML_SERVING_CHUNK=str(CHUNK),
+               KUBEML_SERVING_PAGE_TOKENS=str(PAGE_TOKENS),
+               PYTHONPATH=os.pathsep.join(filter(None, (
+                   str(Path(__file__).resolve().parent),
+                   os.environ.get("PYTHONPATH")))))
+    t0 = time.monotonic()
+    errf = open(log_path, "ab")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kubeml_tpu_torch.cli", "start"],
+        cwd=str(Path(__file__).resolve().parent), env=env,
+        stdout=subprocess.PIPE, stderr=errf, text=True)
+    errf.close()
+    line = proc.stdout.readline()
+    m = re.search(r"controller at (\S+); ps at (\S+)", line)
+    if not m:
+        proc.kill()
+        proc.wait(30)
+        raise AssertionError(f"13c: cli start printed {line!r} (log "
+                             f"{Path(log_path).read_text()[-2000:]})")
+    return proc, m.group(1), m.group(2), time.monotonic() - t0
+
+
+def cp_sigterm(smi, root, ckpt, eos):
+    """13c (see the module docstring)."""
+    import signal
+
+    from kubeml_tpu_torch.api.config import Config
+    from kubeml_tpu_torch.controller import KubemlClient
+    from kubeml_tpu_torch.ps import ParameterServer
+    from kubeml_tpu_torch.serving import kvsnap
+    from kubeml_tpu_torch.utils import http_client as http
+
+    reqs = workload(np.random.default_rng(SEED))
+    want = token_lists(ckpt["prun"])[1:]
+    snaps = Path(root) / "snaps13"
+    log_path = Path(root) / "cli-start.log"
+    proc, url, ps_url, boot_s = cp_start(root, snaps, log_path)
+    procs = [proc]
+    try:
+        client = KubemlClient(url, timeout=600)
+        client.networks().generate(GPT2_JOB, [reqs[5]["prompt"].tolist()],
+                                   max_new_tokens=4)  # the decoder built
+        partial, done, cut = {}, {}, []
+        eight = threading.Event()
+
+        def stream(i):
+            r = reqs[i]
+            try:
+                toks = []
+                for part in client.networks().generate(
+                        GPT2_JOB, [r["prompt"].tolist()],
+                        max_new_tokens=r["max_new"],
+                        eos_id=eos if i == 5 else None, stream=True):
+                    if "error" in part:
+                        partial[i] = part.get("partial_tokens", [[]])[0]
+                        return
+                    toks += part.get("tokens", [])
+                    if len(toks) >= DRAIN_AFTER:
+                        eight.set()
+                done[i] = toks
+            except http.TransportError:
+                cut.append(i)  # the server went before the stream's end
+
+        threads = [threading.Thread(target=stream, args=(i,))
+                   for i in range(16)]
+        for t in threads:
+            t.start()
+        if not eight.wait(600):
+            raise AssertionError("13c: no row reached 8 tokens")
+        t_term = time.monotonic()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(CP_EXIT_S)
+        exit_s = time.monotonic() - t_term
+        for t in threads:
+            t.join(120)
+        frames = sorted(snaps.glob("*" + kvsnap.SNAP_SUFFIX))
+        log(f"  c [{smi}]: cli start cold boot {boot_s:.2f} s; SIGTERM once "
+            f"a row had {DRAIN_AFTER} tokens: exit code {rc} after "
+            f"{exit_s:.2f} s (drain grace {CP_DRAIN_GRACE} s), {len(frames)} "
+            f"KMS1 frames of {sum(f.stat().st_size for f in frames)} bytes "
+            f"written; streams: {len(done)} done, {len(partial)} cut "
+            f"by the drain's 503, {len(cut)} by the connection")
+        if rc != 0 or not frames:
+            raise AssertionError(f"13c: exit {rc}, frames {len(frames)}; "
+                                 f"log {log_path.read_text()[-3000:]}")
+        index = {}
+        for f in frames:
+            snap = kvsnap.decode_snapshot(f.read_bytes())
+            index[snap.request_id] = next(
+                i for i, r in enumerate(reqs)
+                if r["prompt"].tolist() == list(snap.prompt))
+        proc2, url2, ps_url2, boot2_s = cp_start(root, snaps, log_path)
+        procs.append(proc2)
+        t_boot = time.monotonic() - boot2_s
+        first_emit = None
+        deadline = time.monotonic() + 600
+        base = None
+        while True:
+            rows = http.check(http.get(f"{ps_url2}/serving/restored",
+                                       timeout=(5.0, 60.0)))
+            lengths = sum(sum(r["lengths"]) for r in rows)
+            if base is None:
+                base = lengths
+            if first_emit is None and (lengths > base or any(
+                    r["done"] for r in rows)):
+                first_emit = time.monotonic() - t_boot
+            if rows and all(r["done"] or r["error"] for r in rows):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError("13c: restored rows did not finish")
+            time.sleep(0.005)
+        got = dict(done)
+        for r in rows:
+            if r["error"]:
+                raise AssertionError(f"13c: restored row failed: {r}")
+            got[index[r["request_id"]]] = r["tokens"][0]
+        if sorted(got) != list(range(16)):
+            raise AssertionError(f"13c: rows {sorted(got)} of 16 accounted")
+        tie_ps = []
+
+        def tie_dec():
+            ps = ParameterServer(config=Config(data_root=Path(root),
+                                               **{k: v for k, v in
+                                                  ckpt["serve_kw"].items()
+                                                  if k != "data_root"}))
+            tie_ps.append(ps)
+            model, tree, mtime = ps._load_serving(GPT2_JOB)
+            return ps._get_decoder(GPT2_JOB, model, tree, mtime)
+
+        mismatched = [i for i in range(16) if got[i] != want[i]]
+        ties = []
+        if mismatched:
+            ties = check_greedy("13c", [got[i] for i in range(16)], want,
+                                [r["prompt"] for r in reqs], tie_dec(),
+                                against="the uninterrupted run")
+        for ps in tie_ps:
+            ps.close()
+        proc2.send_signal(signal.SIGTERM)
+        rc2 = proc2.wait(CP_EXIT_S)
+        log(f"  c [{smi}]: a second cli start restored {len(rows)} rows at "
+            f"boot ({boot2_s:.2f} s to its URLs; boot to the first restored "
+            f"emission {first_emit:.2f} s); every stream equal to phase "
+            f"12a's uninterrupted run (near ties {ties or 'none'}); its exit "
+            f"code {rc2}")
+        if rc2 != 0 or len(rows) != len(frames):
+            raise AssertionError(f"13c: second server exit {rc2}, rows "
+                                 f"{len(rows)} of {len(frames)} frames")
+        return boot_s, exit_s, first_emit
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+
+
+def control_plane_phase(smi, root, run, qrun, ckpt, kavg):
+    """Phase 13 (see the module docstring): 13a, 13b, 13c. Returns the
+    (paged_attention, int8_matmul) launches of 13b."""
+    t0 = time.monotonic()
+    epochs = cp_train(smi, root)
+    hist, _ = kavg
+    log(f"  a: epoch s through the control plane "
+        f"{[round(v, 3) for v in epochs]} ({CP_TRAIN} samples, B {KAVG_B}, "
+        f"K {KAVG_K}) beside phase 10c's TrainJob "
+        f"{[round(v, 3) for v in hist.epoch_duration]} (4096 samples, B 64, "
+        f"K 4); 13a {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    launches = cp_serve(smi, root, ckpt, run["eos"], qrun["eos"])
+    log(f"  13b {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    cp_sigterm(smi, root, ckpt, run["eos"])
+    log(f"  13c {time.monotonic() - t0:.1f} s")
+    return launches
 
 
 def main() -> int:
@@ -2371,7 +2935,7 @@ def phases(root: str) -> int:
 
     # 1. device
     smi = nvidia_smi()
-    log("[1/13 device]")
+    log("[1/14 device]")
     log(smi)
     log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} devices "
@@ -2386,7 +2950,7 @@ def phases(root: str) -> int:
     spills = [f"{lines[i - 1].split('for ')[-1][:70]}: {ln.strip()}"
               for i, ln in enumerate(lines)
               if re.search(r"[1-9]\d* bytes (stack frame|spill)", ln)]
-    log(f"[2/13 build] {time.monotonic() - t0:.2f} s (nvcc "
+    log(f"[2/14 build] {time.monotonic() - t0:.2f} s (nvcc "
         f"{kernels.build_seconds:.2f} s), kernels with a stack frame or "
         f"spills: {len(spills)}")
     for ln in spills:
@@ -2402,7 +2966,7 @@ def phases(root: str) -> int:
     check_compiled(kernels.library()._name, build_log)
 
     # 3. kernels against their plain versions
-    log("[3/13 kernels]")
+    log("[3/14 kernels]")
     timer = Timer()
     g = torch.Generator().manual_seed(SEED)
     pa_rows = check_paged_attention(timer, g)
@@ -2410,7 +2974,7 @@ def phases(root: str) -> int:
     del timer
 
     # 4. serve f32: kernel engine, then the plain (gather) twin
-    log("[4/13 serve f32]")
+    log("[4/14 serve f32]")
     serve_tiny()
     reqs = workload(np.random.default_rng(SEED))
     model = gpt2_small()
@@ -2453,7 +3017,7 @@ def phases(root: str) -> int:
     del model
 
     # 5. serve int8: int8 weights through the kernel, int8 KV pages
-    log("[5/13 serve int8]")
+    log("[5/14 serve int8]")
     q_kw = dict(quantize="int8", int8_matmul=True, kv_quant="int8", **common)
     qdec = PagedBatchingDecoder(gpt2_small(), **q_kw)
     if (not qdec.int8_matmul or qdec.int8_matmul_impl != "cuda"
@@ -2502,20 +3066,20 @@ def phases(root: str) -> int:
     torch.cuda.empty_cache()
 
     # 6. speculative decoding and chunked prefill through both kernels
-    log("[6/13 spec + chunked]")
+    log("[6/14 spec + chunked]")
     t0 = time.monotonic()
     spec_launches = spec_phase(smi)
     log(f"  phase 6: {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     # 7. flash kernels against their plain versions, and the L sweep
-    log("[7/13 flash kernels]")
+    log("[7/14 flash kernels]")
     timer = Timer()
     flash_errs, sweep = check_flash(timer, g)
     del timer
 
     # 8. train: the kernel path, its profile, then the plain path
-    log("[8/13 train bf16]")
+    log("[8/14 train bf16]")
     krow, kcounts = train_run("kernel path", flash=True)
     want = (2 * DEPTH * krow["steps_run"], DEPTH * krow["steps_run"],
             DEPTH * krow["steps_run"])
@@ -2538,14 +3102,14 @@ def phases(root: str) -> int:
                              f"{pcounts}")
 
     # 9. f32: one step through the kernels against the plain path
-    log("[9/13 train f32 parity]")
+    log("[9/14 train f32 parity]")
     check_f32_step()
 
     # 10. K-AVG: the flagship at bench.py's configuration, the merge's
     # correctness, and TrainJob end to end; none of the five hand-written
     # kernels is on this path (convs, BatchNorm and dense layers run in
     # cuDNN and cuBLAS, as the JAX path runs them in XLA)
-    log("[10/13 k-avg]")
+    log("[10/14 k-avg]")
     reset_kernel_counts()
     log("  10a flagship: ResNet-18, CIFAR-10 shapes, bf16, uint8 inputs, "
         f"B {KAVG_B}, K {KAVG_K}, lr 0.1, SGD momentum 0.9")
@@ -2562,19 +3126,26 @@ def phases(root: str) -> int:
         raise AssertionError(f"the K-AVG path launched {counts}")
 
     # 11. serving resilience through both serving kernels
-    log("[11/13 resilience]")
+    log("[11/14 resilience]")
     t0 = time.monotonic()
     res_launches = resilience_phase(smi)
     log(f"  phase 11: {time.monotonic() - t0:.1f} s")
 
     # 12. checkpoints served through the parameter server
-    log("[12/13 checkpoint serving]")
+    log("[12/14 checkpoint serving]")
     t0 = time.monotonic()
-    ckpt_launches = checkpoint_phase(smi, root, run, qrun, kavg)
+    ckpt = checkpoint_phase(smi, root, run, qrun, kavg)
+    ckpt_launches = ckpt["launches"]
     log(f"  phase 12: {time.monotonic() - t0:.1f} s")
 
+    # 13. the control plane over HTTP: training, serving, SIGTERM
+    log("[13/14 control plane]")
+    t0 = time.monotonic()
+    cp_launches = control_plane_phase(smi, root, run, qrun, ckpt, kavg)
+    log(f"  phase 13: {time.monotonic() - t0:.1f} s")
+
     # 13. results
-    log("[13/13 results]")
+    log("[14/14 results]")
     pa = pa_rows[0]   # the decode step: L = 1, f32 arena
     mm = next(r for r in mm_rows if r["M"] == 8 and r["N"] == VOCAB
               and r["x"] == "float32")  # the lm_head at decode
@@ -2583,7 +3154,8 @@ def phases(root: str) -> int:
          "source": "kubeml_tpu_torch/csrc/paged_attention.cu",
          "replaces": "kubeml_tpu/ops/paged_attention.py:113",
          "launches": (f32_launches + q_launches[0] + spec_launches[0]
-                      + res_launches[0] + ckpt_launches[0]),
+                      + res_launches[0] + ckpt_launches[0]
+                      + cp_launches[0]),
          "max_abs_err": pa["max_abs_err"], "ms": pa["ms"],
          "plain_ms": pa["plain_ms"], "bound_ms": pa["bound_ms"],
          "bound_by": pa["bound_by"], "library_ms": pa["library_ms"]},
@@ -2591,7 +3163,7 @@ def phases(root: str) -> int:
          "source": "kubeml_tpu_torch/csrc/int8_matmul.cu",
          "replaces": "kubeml_tpu/ops/int8_matmul.py:55",
          "launches": (q_launches[1] + spec_launches[1] + res_launches[1]
-                      + ckpt_launches[1]),
+                      + ckpt_launches[1] + cp_launches[1]),
          "max_abs_err": mm["max_abs_err"], "ms": mm["ms"],
          "plain_ms": mm["plain_ms"], "bound_ms": mm["bound_ms"],
          "bound_by": mm["bound_by"], "library_ms": mm["library_ms"]},

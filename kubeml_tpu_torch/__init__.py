@@ -1,6 +1,6 @@
 """kubeml_tpu_torch - the PyTorch + CUDA port of ``kubeml_tpu``'s paged
-serving path, GPT training path and K-AVG training path, for NVIDIA
-Hopper (H100).
+serving path, GPT training path, K-AVG training path and control plane,
+for NVIDIA Hopper (H100).
 
 Each module sits at the same sub-path as its JAX twin in ``kubeml_tpu`` and
 keeps that package's public tensor layouts (q ``[B, L, H, D]``, KV arenas
@@ -32,7 +32,13 @@ device on a host without CUDA they raise (:func:`resolve_device`).
 * ``benchmarks`` - the long-context training benchmark and the K-AVG
   flagship's (``harness``);
 * ``serving`` - int8 weight quantization, the page pool, and the paged
-  continuous-batching engine ``PagedBatchingDecoder``.
+  continuous-batching engine ``PagedBatchingDecoder``;
+* ``ps``, ``scheduler``, ``controller``, ``storage.service``, ``cluster``
+  and ``cli`` - the control plane over HTTP (``utils.httpd``, the standard
+  library's server; ``utils.http_client``, its client): the parameter
+  server's job lifecycle and serving routes, the elastic scheduler, the
+  REST gateway with ``KubemlClient``, ``LocalCluster`` and
+  ``python -m kubeml_tpu_torch.cli``.
 """
 
 from .utils.device import resolve_device

@@ -13,6 +13,15 @@ read and storage, speculative decoding, the admission limit, shed policy,
 drain grace, snapshot directory and pool-audit interval.
 ``serving_mesh`` is read so that a set value can be refused: the port
 serves on one card.
+
+The control plane's settings come from the same variables too: the bind
+address (``KUBEML_HOST``) and the four service ports with their URLs,
+the elastic policy's cap and freeze (``KUBEML_MAX_PARALLELISM``,
+``LIMIT_PARALLELISM``), the seconds a job waits for the scheduler's
+answer at an epoch's end (``KUBEML_UPDATE_TIMEOUT``), the preempt grace,
+the scale-decision log's sizes and the job journal under the data root.
+``standalone_jobs`` and ``preempt_monitor`` are read so that a set value
+can be refused with a 400 that names it (not ported).
 """
 
 from __future__ import annotations
@@ -35,10 +44,58 @@ def _env_int(name: str, default: int) -> int:
     return int(v) if v else default
 
 
+def _env_float(name: str, default: float) -> float:
+    v = os.environ.get(name)
+    return float(v) if v else default
+
+
 @dataclass
 class Config:
     data_root: Path = field(default_factory=lambda: Path(
         os.environ.get("KUBEML_DATA_ROOT", "~/.kubeml")).expanduser())
+
+    # --- control plane: bind address and service ports (0 = any free
+    # port, read back from the bound socket) ---
+    host: str = field(default_factory=lambda: os.environ.get(
+        "KUBEML_HOST", "127.0.0.1"))
+    controller_port: int = field(
+        default_factory=lambda: _env_int("KUBEML_CONTROLLER_PORT", 9090))
+    scheduler_port: int = field(
+        default_factory=lambda: _env_int("KUBEML_SCHEDULER_PORT", 9091))
+    ps_port: int = field(
+        default_factory=lambda: _env_int("KUBEML_PS_PORT", 9092))
+    storage_port: int = field(
+        default_factory=lambda: _env_int("KUBEML_STORAGE_PORT", 9093))
+    debug: bool = field(
+        default_factory=lambda: _env_bool("KUBEML_DEBUG", False))
+    # freeze scale-up in the elastic policy
+    limit_parallelism: bool = field(
+        default_factory=lambda: _env_bool("LIMIT_PARALLELISM", False))
+    # standalone job runners: not ported (a set value is refused)
+    standalone_jobs: bool = field(
+        default_factory=lambda: _env_bool("STANDALONE_JOBS", False))
+    # the policy's cap (None: max(8, the visible cards))
+    max_parallelism: Optional[int] = field(default_factory=lambda: (
+        int(os.environ["KUBEML_MAX_PARALLELISM"])
+        if os.environ.get("KUBEML_MAX_PARALLELISM") else None))
+    # seconds the job thread waits for the scheduler's epoch-end answer
+    # before it keeps its parallelism
+    update_timeout: float = field(
+        default_factory=lambda: _env_float("KUBEML_UPDATE_TIMEOUT", 30.0))
+    # connect timeout of the port's HTTP client
+    http_connect_timeout: float = field(
+        default_factory=lambda: _env_float("KUBEML_CONNECT_TIMEOUT", 3.05))
+    # seconds a preempted job has to yield before it is abandoned
+    preempt_grace: float = field(
+        default_factory=lambda: _env_float("KUBEML_PREEMPT_GRACE", 60.0))
+    # the preemption monitor: not ported (a set value is refused)
+    preempt_monitor: bool = field(
+        default_factory=lambda: _env_bool("KUBEML_PREEMPT_MONITOR", False))
+    # scale-decision audit: newest decisions a job, jobs kept
+    decision_log_size: int = field(
+        default_factory=lambda: _env_int("KUBEML_DECISION_LOG_SIZE", 64))
+    decision_log_jobs: int = field(
+        default_factory=lambda: _env_int("KUBEML_DECISION_LOG_JOBS", 256))
     # per-round [worker-loss spread, pre-merge weight divergence]
     round_stats: bool = field(
         default_factory=lambda: _env_bool("KUBEML_ROUND_STATS", True))
@@ -138,6 +195,31 @@ class Config:
     @property
     def checkpoints_dir(self) -> Path:
         return self.data_root / "checkpoints"
+
+    @property
+    def journal_dir(self) -> Path:
+        return self.data_root / "journal"
+
+    @property
+    def advertise_host(self) -> str:
+        """The address clients dial: a wildcard bind is not dialable."""
+        return "127.0.0.1" if self.host in ("0.0.0.0", "::") else self.host
+
+    @property
+    def controller_url(self) -> str:
+        return f"http://{self.advertise_host}:{self.controller_port}"
+
+    @property
+    def scheduler_url(self) -> str:
+        return f"http://{self.advertise_host}:{self.scheduler_port}"
+
+    @property
+    def ps_url(self) -> str:
+        return f"http://{self.advertise_host}:{self.ps_port}"
+
+    @property
+    def storage_url(self) -> str:
+        return f"http://{self.advertise_host}:{self.storage_port}"
 
     def ensure_dirs(self) -> None:
         for d in (self.datasets_dir, self.functions_dir, self.history_path,

@@ -82,6 +82,12 @@ class DataError(KubeMLError):
     status_code = 400
 
 
+class InvalidFormatError(KubeMLError):
+    """An uploaded dataset file is not a .npy array, or is malformed."""
+
+    status_code = 400
+
+
 class StorageError(KubeMLError):
     """Shard store failure."""
 

@@ -1,6 +1,8 @@
 """Wire types of the port: the port's copy of ``kubeml_tpu/api/types.py``'s
 training types (``TrainOptions``, ``TrainRequest``, ``JobState``,
-``MetricUpdate``, ``History``, ``DatasetSummary``) and ``GenerateRequest``.
+``TrainTask``, ``MetricUpdate``, ``History``, ``DatasetSummary``,
+``JobInfo``), the lifecycle enums (``JobTaskType``, ``JobStateEnum``),
+``InferRequest``, ``GenerateRequest`` and ``parse_grace_seconds``.
 
 They read and write the same JSON as the JAX package's types, with the same
 validation. A request may name options whose modules the port does not
@@ -16,6 +18,7 @@ import json
 import math
 import os
 import re
+import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -34,6 +37,29 @@ GENERATE_MAX_BATCH = int(os.environ.get("KUBEML_GENERATE_MAX_BATCH", "64"))
 GENERATE_MAX_PROMPT_LEN = int(os.environ.get("KUBEML_GENERATE_MAX_PROMPT_LEN", "8192"))
 # mirrors the engine's top-k width (serving.batcher.TOP_K_MAX)
 GENERATE_MAX_TOP_K = int(os.environ.get("KUBEML_GENERATE_MAX_TOP_K", "128"))
+
+
+class JobTaskType:
+    """Dispatch values of a function invocation."""
+
+    INIT = "init"
+    TRAIN = "train"
+    VALIDATE = "val"
+    INFER = "infer"
+
+
+class JobStateEnum:
+    """Lifecycle states of a train task. ``PREEMPTED``: the job wrote a
+    resume checkpoint and gave its device back; it is requeued with
+    ``resume=True``."""
+
+    QUEUED = "queued"
+    STARTING = "starting"
+    RUNNING = "running"
+    FINISHED = "finished"
+    FAILED = "failed"
+    STOPPED = "stopped"
+    PREEMPTED = "preempted"
 
 
 class _JsonMixin:
@@ -173,12 +199,54 @@ class TrainRequest(_JsonMixin):
 
 
 @dataclass
+class InferRequest(_JsonMixin):
+    """Inference against a trained job's model."""
+
+    model_id: str = ""
+    data: Any = None
+
+
+def parse_grace_seconds(grace) -> Optional[float]:
+    """The optional ``grace`` of a preempt or drain body: None passes
+    through (the server's default), anything else must be a number >= 0
+    (a 400 otherwise)."""
+    if grace is None:
+        return None
+    if isinstance(grace, bool) or not isinstance(grace, (int, float)):
+        raise KubeMLError("grace must be a number of seconds", 400)
+    grace = float(grace)
+    if not (grace >= 0.0):  # rejects negatives and NaN
+        raise KubeMLError("grace must be >= 0 seconds", 400)
+    return grace
+
+
+@dataclass
 class JobState(_JsonMixin):
     """Per-epoch state a job reports to the scheduler's parallelism
     policy."""
 
     parallelism: int = 0
     elapsed_time: float = -1.0  # seconds of the last epoch; -1 on first call
+
+
+@dataclass
+class TrainTask(_JsonMixin):
+    """A scheduled training task: controller -> scheduler -> PS -> job.
+    ``trace_parent`` is carried for the JAX package's wire format; the
+    port records no traces."""
+
+    job_id: str = ""
+    parameters: TrainRequest = field(default_factory=TrainRequest)
+    state: JobState = field(default_factory=JobState)
+    status: str = JobStateEnum.QUEUED
+    started_at: float = field(default_factory=time.time)
+    trace_parent: str = ""
+
+    def __post_init__(self):
+        if isinstance(self.parameters, dict):
+            self.parameters = TrainRequest.from_dict(self.parameters)
+        if isinstance(self.state, dict):
+            self.state = JobState.from_dict(self.state)
 
 
 @dataclass
@@ -270,6 +338,17 @@ class DatasetSummary(_JsonMixin):
     name: str = ""
     train_set_size: int = 0
     test_set_size: int = 0
+
+
+@dataclass
+class JobInfo(_JsonMixin):
+    """The PS's record of a live job."""
+
+    job_id: str = ""
+    status: str = JobStateEnum.STARTING
+    parallelism: int = 0
+    function_name: str = ""
+    dataset: str = ""
 
 
 @dataclass

@@ -28,6 +28,11 @@ Flax layout through ``interop.from_flax.to_flax_variables``):
   instead of the final export, which ``save_model`` writes at the end of
   a finished job.
 
+``infer`` may be called from another thread while the job trains (the
+parameter server's ``/infer`` on a live job): it answers from a copy of
+replica 0 taken at the last round's edge, through a module of its own,
+as the JAX engine answers from the variables it rebinds at a round's end.
+
 Not ported yet (``ROADMAP.md``): multi-host ``dist``, the background
 compile of the next parallelism level (eager PyTorch compiles nothing),
 ``generate``, tracer spans, and the retry of a round on a transient
@@ -114,6 +119,8 @@ class TrainJob:
         self.preempt_event = threading.Event()
         self.exit_error: Optional[str] = None
         self._stacked_vars = None
+        # replica 0 at the last round's edge, for infer from other threads
+        self._published = None
         self._final_variables = None
         # the async periodic checkpoint write in flight (at most one)
         self._ckpt_thread: Optional[threading.Thread] = None
@@ -159,6 +166,7 @@ class TrainJob:
                 sample_x[: req.batch_size], self.parallelism)
 
             start_epoch = self._restore_latest() if opts.resume else 0
+            self._publish()
 
             val_acc = 0.0
             acc_pct = None
@@ -335,6 +343,7 @@ class TrainJob:
             self._stacked_vars, loss = self.trainer.sync_round(
                 self._stacked_vars, *staged, lr=req.lr, epoch=epoch,
                 worker_mask=worker_mask)
+            self._publish()
             # host wall time of the round's dispatch (the card runs behind)
             self._last_round_times.append(time.time() - t_round)
             if self.trainer.last_round_stats is not None:
@@ -502,6 +511,15 @@ class TrainJob:
         return self._final_variables
 
     def infer(self, x: np.ndarray):
-        if self._stacked_vars is None:
+        """The model's ``infer`` on the merged weights of the last
+        completed round (of the init or restore before the first): the
+        replicas change in place inside a round, so a call from another
+        thread reads the copy published at the round's edge."""
+        published = self._published
+        if published is None:
             raise KubeMLError(f"job {self.job_id} has no model yet", 400)
-        return self.trainer.infer(self._stacked_vars, x)
+        return self.trainer.infer_replica(published, x)
+
+    def _publish(self) -> None:
+        """Publish replica 0 of the (merged) replicas for ``infer``."""
+        self._published = self.trainer.snapshot(self._stacked_vars)

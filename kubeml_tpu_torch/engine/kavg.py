@@ -33,7 +33,9 @@ the device; reading it waits for the round.
 
 from __future__ import annotations
 
+import copy
 import math
+import threading
 from collections import deque
 from types import SimpleNamespace
 from typing import Callable, Iterable, List, Optional, Tuple, Union
@@ -161,6 +163,9 @@ class KAvgTrainer:
         self.round_stats = get_config().round_stats
         self.last_round_stats: Optional[torch.Tensor] = None
         self._module = None
+        # inference's own module (built at its first call) and its lock
+        self._infer_model: Optional[KubeModel] = None
+        self._infer_lock = threading.Lock()
         self._copy_stream = None
         # slabs staged on the side stream: (x, y, mask, ready event)
         self._in_flight: deque = deque(maxlen=16)
@@ -390,11 +395,29 @@ class KAvgTrainer:
         denom = max(msum, 1.0)
         return csum / denom, lsum / denom
 
-    @torch.no_grad()
+    def snapshot(self, stacked_vars: Variables) -> Variables:
+        """A device copy of replica 0: after a sync every replica holds
+        the merged weights, and the copy keeps them while the next round
+        updates the replicas in place."""
+        return _tree_map(lambda v: v[0].detach().clone(), stacked_vars)
+
     def infer(self, stacked_vars: Variables, x) -> np.ndarray:
         """``model.infer`` on replica 0 for a host batch ``x``."""
-        xd = self._cast_input(_as_tensor(x)).to(self.device)
-        out = self.model.infer(self._replica0(stacked_vars),
-                               self.model.preprocess(xd))
-        return out.cpu().numpy()
+        return self.infer_replica(self._replica0(stacked_vars), x)
+
+    @torch.no_grad()
+    def infer_replica(self, variables: Variables, x) -> np.ndarray:
+        """``model.infer`` on one replica's ``variables`` for a host batch
+        ``x``, through a module of its own: training binds the worker
+        replicas into the trainer's module, and a request thread must not
+        swap that module's tensors while a round runs on it."""
+        with self._infer_lock:
+            if self._infer_model is None:
+                model = copy.copy(self.model)
+                model._module = self.model.build().to(self.device)
+                self._infer_model = model
+            model = self._infer_model
+            xd = self._cast_input(_as_tensor(x)).to(self.device)
+            out = model.infer(variables, model.preprocess(xd))
+            return out.cpu().numpy()
 

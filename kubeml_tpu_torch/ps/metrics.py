@@ -1,23 +1,83 @@
-"""Prometheus exposition of the serving series: the part of
-``kubeml_tpu/ps/metrics.py``'s ``MetricsRegistry`` that the port's
-parameter server needs.
+"""Prometheus exposition of the parameter server: the port of
+``kubeml_tpu/ps/metrics.py``'s ``MetricsRegistry``.
 
-The running-task gauge ``kubeml_job_running_total{type}`` (fed by
-:meth:`MetricsRegistry.task_started`/``task_finished``) and the per-model
-serving counters, gauges and histograms, rendered from the resident
-decoders' ``telemetry()`` snapshots (``serving.stats.DecoderStats``)
-under the JAX package's metric names and ``model`` label. HELP/TYPE
-headers render even with no decoder, so the exported metric set does not
-depend on traffic. The training gauges and histograms are not ported yet
-(``ROADMAP.md``).
+* the training series: per-job gauges labeled ``jobid`` (losses,
+  accuracy, parallelism, epoch, epoch seconds), updated by each epoch's
+  :class:`~kubeml_tpu_torch.api.types.MetricUpdate` and cleared when the
+  job finishes, and per-job histograms (epoch, round and merge seconds,
+  worker divergence, loss spread, round skew), which outlive the job up
+  to ``MAX_HISTOGRAM_JOBS`` jobs a metric;
+* the running-task gauge ``kubeml_job_running_total{type}``, the
+  preemption counter and yield-latency histogram, the scheduler's queue
+  depth per priority and its scale-decision counters (read from sources
+  the scheduler binds);
+* the per-model serving counters, gauges and histograms, rendered from
+  the resident decoders' ``telemetry()`` snapshots
+  (``serving.stats.DecoderStats``).
+
+Every series goes by the JAX package's name and labels. HELP/TYPE
+headers render even with no series, so the exported metric set does not
+depend on traffic. Not ported: the SLO series, the resilience and
+data-plane counters (their modules wait for ``ROADMAP.md`` Queue 1
+item 7).
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Callable, Dict, List, Optional
+from bisect import bisect_left
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+from ..api.types import MetricUpdate
+
+GAUGES = {
+    "kubeml_job_validation_loss": "Validation loss of a train job",
+    "kubeml_job_validation_accuracy": "Validation accuracy of a train job",
+    "kubeml_job_train_loss": "Train loss of a train job",
+    "kubeml_job_parallelism": "Parallelism of a train job",
+    "kubeml_job_epoch_duration_seconds": "Duration of the last epoch",
+    "kubeml_job_epoch": "Epochs reported by a train job since it started",
+    "kubeml_job_moe_overflow": "MoE expert-capacity overflow rate",
+}
 RUNNING = "kubeml_job_running_total"
+SCALE_DECISIONS = "kubeml_scale_decisions_total"
+PREEMPTIONS = "kubeml_preemptions_total"
+YIELD_SECONDS = "kubeml_preempt_yield_seconds"
+QUEUE_DEPTH = "kubeml_scheduler_queue_depth"
+# distinct preemption reasons kept (more fold into "other")
+MAX_PREEMPT_REASONS = 16
+
+# bucket edges in seconds; +Inf is implicit
+LATENCY_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+                   1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0, 300.0)
+RATIO_BUCKETS = (1e-5, 2.5e-5, 5e-5, 1e-4, 2.5e-4, 5e-4, 0.001, 0.0025,
+                 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5)
+SKEW_BUCKETS = (1.0, 1.1, 1.25, 1.5, 2.0, 3.0, 5.0, 10.0, 25.0, 100.0)
+
+# per-job histograms, fed from MetricUpdate
+HISTOGRAMS = {
+    "kubeml_job_epoch_seconds": "Epoch wall-time distribution of a train job",
+    "kubeml_job_round_seconds": (
+        "Per-sync-round wall time (the function/update latency)"),
+    "kubeml_job_merge_seconds": (
+        "Epoch-end merge/loss sync wall time (the on-chip K-AVG merge is "
+        "awaited here)"),
+    "kubeml_job_worker_divergence": (
+        "Pre-merge worker weight divergence per K-AVG round (norm of the "
+        "stacked worker vars minus their mean, over the mean's norm)"),
+    "kubeml_job_loss_spread": (
+        "Worker-loss spread per K-AVG round (max - min over effective "
+        "participants)"),
+    "kubeml_job_round_skew_ratio": (
+        "Per-epoch round-time skew (max/median over the epoch's rounds — "
+        "the straggler signal)"),
+}
+HISTOGRAM_BUCKETS = {
+    "kubeml_job_worker_divergence": RATIO_BUCKETS,
+    "kubeml_job_loss_spread": RATIO_BUCKETS,
+    "kubeml_job_round_skew_ratio": SKEW_BUCKETS,
+}
+MAX_HISTOGRAM_JOBS = 32
 
 # metric -> (telemetry key, help); counters end in _total
 SERVING_COUNTERS = {
@@ -244,33 +304,203 @@ def escape_help(v) -> str:
     return str(v).replace("\\", "\\\\").replace("\n", "\\n")
 
 
-def render_histogram(name: str, snap: dict, label: str, value: str,
+def render_histogram(name: str, snap: dict, label: str = "",
+                     value: str = "",
                      extra: Optional[Dict[str, str]] = None) -> List[str]:
-    """Exposition lines of one labeled histogram from its snapshot
-    (``{"buckets": [[le, cumulative]], "sum", "count"}``)."""
-    sel = f'{label}="{escape_label_value(value)}",'
+    """Exposition lines of one histogram from its snapshot
+    (``{"buckets": [[le, cumulative]], "sum", "count"}``), labeled
+    ``label="value"`` (none when ``label`` is empty) and ``extra``."""
+    sel = f'{label}="{escape_label_value(value)}",' if label else ""
     for k, v in (extra or {}).items():
         sel += f'{k}="{escape_label_value(v)}",'
+    bare = f"{{{sel[:-1]}}}" if sel else ""
     lines = [f'{name}_bucket{{{sel}le="{float(edge):g}"}} {int(c)}'
              for edge, c in snap.get("buckets", ())]
     count = int(snap.get("count", 0))
     lines.append(f'{name}_bucket{{{sel}le="+Inf"}} {count}')
-    lines.append(f'{name}_sum{{{sel[:-1]}}} {snap.get("sum", 0.0)}')
-    lines.append(f'{name}_count{{{sel[:-1]}}} {count}')
+    lines.append(f'{name}_sum{bare} {snap.get("sum", 0.0)}')
+    lines.append(f'{name}_count{bare} {count}')
     return lines
 
 
+class Histogram:
+    """A Prometheus histogram with fixed bucket edges; the caller holds
+    the lock."""
+
+    __slots__ = ("buckets", "counts", "sum", "count")
+
+    def __init__(self, buckets: Sequence[float] = LATENCY_BUCKETS):
+        self.buckets = tuple(float(b) for b in buckets)
+        self.counts = [0] * len(self.buckets)  # per edge, not cumulative
+        self.sum = 0.0
+        self.count = 0
+
+    def observe(self, value: float) -> None:
+        v = float(value)
+        self.sum += v
+        self.count += 1
+        idx = bisect_left(self.buckets, v)
+        if idx < len(self.counts):
+            self.counts[idx] += 1
+
+    def snapshot(self) -> dict:
+        out, total = [], 0
+        for edge, c in zip(self.buckets, self.counts):
+            total += c
+            out.append([edge, total])
+        return {"buckets": out, "sum": self.sum, "count": self.count}
+
+    def render(self, name: str, label: str = "", value: str = ""
+               ) -> List[str]:
+        return render_histogram(name, self.snapshot(), label, value)
+
+
 class MetricsRegistry:
-    """Running-task counts and the serving exposition."""
+    """Per-job training series, running-task counts, preemptions, the
+    scheduler's sources and the serving exposition."""
 
     def __init__(self):
         self._lock = threading.Lock()
+        # {(metric, jobid): value}
+        self._values: Dict[Tuple[str, str], float] = {}
+        # {(metric, jobid): Histogram}, insertion-ordered for eviction
+        self._hists: Dict[Tuple[str, str], Histogram] = {}
         self._running: Dict[str, int] = {"train": 0, "inference": 0}
-        # () -> {model_id: telemetry dict}, read at render time
+        self._preemptions: Dict[str, int] = {}
+        self._yield_hist = Histogram()
+        # sources read at render time, outside the registry's lock:
+        # () -> {priority: queued}, () -> {(direction, reason): n},
+        # () -> {model_id: telemetry dict}
+        self._queue_source: Optional[Callable[[], dict]] = None
+        self._decision_source: Optional[Callable[[], dict]] = None
         self._serving_source: Optional[Callable[[], dict]] = None
 
     def set_serving_source(self, source: Callable[[], dict]) -> None:
         self._serving_source = source
+
+    def set_queue_source(self, source: Callable[[], dict]) -> None:
+        self._queue_source = source
+
+    def set_decision_source(self, source: Callable[[], dict]) -> None:
+        self._decision_source = source
+
+    @staticmethod
+    def _read(source) -> dict:
+        if source is None:
+            return {}
+        try:
+            return dict(source() or {})
+        except Exception:
+            return {}
+
+    def decisions_snapshot(self) -> Dict[tuple, int]:
+        """{(direction, reason): cumulative count} of the decision source."""
+        return self._read(self._decision_source)
+
+    def queue_depths(self) -> Dict[object, int]:
+        """{priority: queued count} of the queue source."""
+        return self._read(self._queue_source)
+
+    def job_gauges_snapshot(self) -> Dict[Tuple[str, str], float]:
+        """{(metric, jobid): latest value} of every per-job scalar."""
+        with self._lock:
+            return dict(self._values)
+
+    def preemption(self, reason: str) -> None:
+        """Count one preemption (``kubeml_preemptions_total{reason}``)."""
+        with self._lock:
+            if reason not in self._preemptions:
+                limit = (MAX_PREEMPT_REASONS if "other" in self._preemptions
+                         else MAX_PREEMPT_REASONS - 1)
+                if len(self._preemptions) >= limit:
+                    reason = "other"
+            self._preemptions[reason] = self._preemptions.get(reason, 0) + 1
+
+    def preemptions_snapshot(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._preemptions)
+
+    def observe_yield(self, seconds: float) -> None:
+        """Yield latency: the preempt request until the job's slot freed."""
+        with self._lock:
+            self._yield_hist.observe(seconds)
+
+    def update(self, u: MetricUpdate) -> None:
+        """A job's per-epoch push."""
+        with self._lock:
+            jid = u.job_id
+            self._values[("kubeml_job_validation_loss", jid)] = \
+                u.validation_loss
+            self._values[("kubeml_job_validation_accuracy", jid)] = u.accuracy
+            self._values[("kubeml_job_train_loss", jid)] = u.train_loss
+            self._values[("kubeml_job_parallelism", jid)] = float(
+                u.parallelism)
+            self._values[("kubeml_job_epoch_duration_seconds", jid)] = \
+                u.epoch_duration
+            # the job's own (resume-correct) epoch count; without it, count
+            # the pushes (one an epoch)
+            if u.epoch >= 0:
+                self._values[("kubeml_job_epoch", jid)] = float(u.epoch)
+            else:
+                self._values[("kubeml_job_epoch", jid)] = (
+                    self._values.get(("kubeml_job_epoch", jid), 0.0) + 1.0)
+            if u.moe_overflow >= 0.0:
+                self._values[("kubeml_job_moe_overflow", jid)] = \
+                    u.moe_overflow
+            self._observe("kubeml_job_epoch_seconds", jid,
+                          (u.epoch_duration,))
+            self._observe("kubeml_job_round_seconds", jid,
+                          u.round_seconds or ())
+            if u.merge_seconds >= 0.0:
+                self._observe("kubeml_job_merge_seconds", jid,
+                              (u.merge_seconds,))
+            # per-round signals into the histograms; the epoch means kept
+            # under the same names for the per-job snapshot
+            if u.round_divergence:
+                self._observe("kubeml_job_worker_divergence", jid,
+                              u.round_divergence)
+                self._values[("kubeml_job_worker_divergence", jid)] = (
+                    sum(u.round_divergence) / len(u.round_divergence))
+            if u.round_loss_spread:
+                self._observe("kubeml_job_loss_spread", jid,
+                              u.round_loss_spread)
+                self._values[("kubeml_job_loss_spread", jid)] = (
+                    sum(u.round_loss_spread) / len(u.round_loss_spread))
+            if u.round_skew_ratio >= 0.0:
+                self._observe("kubeml_job_round_skew_ratio", jid,
+                              (u.round_skew_ratio,))
+                self._values[("kubeml_job_round_skew_ratio", jid)] = (
+                    u.round_skew_ratio)
+
+    def _observe(self, metric: str, job_id: str, values) -> None:
+        """Observe into the (metric, jobid) histogram; the caller holds the
+        lock. Past ``MAX_HISTOGRAM_JOBS`` jobs a metric, the oldest job's
+        series goes."""
+        if not values:
+            return
+        h = self._hists.get((metric, job_id))
+        if h is None:
+            h = self._hists[(metric, job_id)] = Histogram(
+                HISTOGRAM_BUCKETS.get(metric, LATENCY_BUCKETS))
+            jobs = [j for m, j in self._hists if m == metric]
+            while len(jobs) > MAX_HISTOGRAM_JOBS:
+                self._hists.pop((metric, jobs.pop(0)), None)
+        for v in values:
+            h.observe(v)
+
+    def observe(self, metric: str, job_id: str, value: float) -> None:
+        with self._lock:
+            self._observe(metric, job_id, (value,))
+
+    def clear(self, job_id: str) -> None:
+        """Drop a finished job's gauges (its histograms stay)."""
+        with self._lock:
+            for key in [k for k in self._values if k[1] == job_id]:
+                del self._values[key]
+
+    def get(self, metric: str, job_id: str) -> float:
+        with self._lock:
+            return self._values[(metric, job_id)]
 
     def task_started(self, kind: str = "train") -> None:
         with self._lock:
@@ -286,12 +516,47 @@ class MetricsRegistry:
 
     def render(self) -> str:
         """The Prometheus text exposition format."""
-        lines = [f"# HELP {RUNNING} Number of running tasks",
-                 f"# TYPE {RUNNING} gauge"]
-        for kind, n in sorted(self.running_snapshot().items()):
-            lines.append(f'{RUNNING}{{type="{escape_label_value(kind)}"}} {n}')
-        # the source snapshots each decoder under its own lock: read it
-        # outside ours
+        with self._lock:
+            lines = []
+            for metric, help_text in GAUGES.items():
+                lines += [f"# HELP {metric} {escape_help(help_text)}",
+                          f"# TYPE {metric} gauge"]
+                series = sorted((jid, v) for (m, jid), v
+                                in self._values.items() if m == metric)
+                lines += [f'{metric}{{jobid="{escape_label_value(jid)}"}} {v}'
+                          for jid, v in series]
+            for metric, help_text in HISTOGRAMS.items():
+                lines += [f"# HELP {metric} {escape_help(help_text)}",
+                          f"# TYPE {metric} histogram"]
+                for (m, jid), h in sorted(self._hists.items(),
+                                          key=lambda kv: kv[0]):
+                    if m == metric:
+                        lines += h.render(metric, "jobid", jid)
+            lines += [f"# HELP {RUNNING} Number of running tasks",
+                      f"# TYPE {RUNNING} gauge"]
+            lines += [f'{RUNNING}{{type="{escape_label_value(k)}"}} {n}'
+                      for k, n in sorted(self._running.items())]
+            lines += [f"# HELP {PREEMPTIONS} Training jobs preempted "
+                      f"(checkpoint-and-yield), by reason",
+                      f"# TYPE {PREEMPTIONS} counter"]
+            lines += [f'{PREEMPTIONS}{{reason="{escape_label_value(r)}"}} {n}'
+                      for r, n in sorted(self._preemptions.items())]
+            lines += [f"# HELP {YIELD_SECONDS} Preemption yield latency "
+                      f"(preempt request until the job's slot freed)",
+                      f"# TYPE {YIELD_SECONDS} histogram"]
+            lines += self._yield_hist.render(YIELD_SECONDS)
+        # the sources take their own locks: read them outside ours
+        lines += [f"# HELP {QUEUE_DEPTH} Queued train tasks per priority "
+                  f"class", f"# TYPE {QUEUE_DEPTH} gauge"]
+        lines += [f'{QUEUE_DEPTH}{{priority="{escape_label_value(p)}"}} {n}'
+                  for p, n in sorted(self.queue_depths().items())]
+        lines += [f"# HELP {SCALE_DECISIONS} Elastic scale decisions by "
+                  f"transition direction and enumerated reason",
+                  f"# TYPE {SCALE_DECISIONS} counter"]
+        lines += [f'{SCALE_DECISIONS}{{direction='
+                  f'"{escape_label_value(d)}",reason='
+                  f'"{escape_label_value(r)}"}} {int(n)}'
+                  for (d, r), n in sorted(self.decisions_snapshot().items())]
         per_model = {}
         if self._serving_source is not None:
             try:

@@ -1,7 +1,27 @@
-"""The parameter server's serving half: the port of the finished-job
-serving paths of ``kubeml_tpu/ps/parameter_server.py``.
+"""The parameter server: the port of ``kubeml_tpu/ps/parameter_server.py``
+(threaded jobs on one card).
 
-A finished job is served from its exported checkpoint:
+The training lifecycle:
+
+* :meth:`ParameterServer.start_task` (``/start``) reserves the job's slot
+  (a duplicate id is a 400), journals the request, loads the function and
+  runs a :class:`~kubeml_tpu_torch.engine.job.TrainJob` on a thread of its
+  own; a start that fails leaves a failed history;
+* at each epoch's end the job thread asks the scheduler for its next
+  parallelism and waits for :meth:`update_task` (``/update/{jobId}``), at
+  most ``update_timeout`` seconds, then keeps what it has;
+* :meth:`stop_task` stops a job at its next round edge;
+  :meth:`preempt_task` makes it write a resume checkpoint and leave with
+  the ``preempted`` status, after which the scheduler requeues it with
+  ``resume=True``; a job that has not yielded within the grace is
+  abandoned (its journal entry kept);
+* :meth:`list_tasks`, :meth:`jobs_snapshot` (with the journaled jobs that
+  are not live), :meth:`get_task`, :meth:`wait`, :meth:`prune_tasks`,
+  :meth:`stop_running_jobs` (shutdown: journals kept for the next boot);
+* :meth:`infer` on a live job answers from the job's merged weights of
+  its last completed round (``TrainJob.infer``).
+
+The serving half serves a finished job from its exported checkpoint:
 
 * :meth:`ParameterServer.generate` (JAX ``:1213``) loads the ``final``
   export (or, under ``serving_quantize="int8"``, a ``final-int8`` export
@@ -26,13 +46,15 @@ engine rejects (a ``ValueError`` or ``KubeMLError`` from the spec
 arguments, or a draft model that does not load) degrades to plain decode
 with a warning. Anything else raised while building a decoder propagates.
 
-Not ported yet, each refused with a 400 that names it: the dense engine
+Not ported yet, each refused with a 400 that names it: standalone job
+runners (``standalone_jobs``), ``generate`` on a live job (the JAX
+package's dense ``generate_from_request``), the dense engine
 (``serving_batcher=False``, ``serving_paged=False``, or a model with no
 paged decode path), meshes (``serving_mesh``), sharded finals and
-functions with a ``serving_remap``, and live jobs (a job with epoch
-checkpoints but no final export yet), which need the job lifecycle. An
-unknown id is a 404. The server runs on the card unless given
-``device="cpu"``.
+functions with a ``serving_remap``, and serving a job's epoch checkpoints
+before its final export. Multi-host jobs, the heartbeat monitor of hung
+jobs, traces and the time-series store are not ported either. An unknown
+id is a 404. The server runs on the card unless given ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -40,6 +62,8 @@ from __future__ import annotations
 import logging
 import os
 import threading
+import time
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -48,7 +72,9 @@ import torch
 from ..api.config import Config, get_config
 from ..api.errors import (CheckpointNotFoundError, JobNotFoundError,
                           KubeMLError, StorageError)
-from ..api.types import GenerateRequest, generate_timeout
+from ..api.types import (GenerateRequest, History, JobState, JobStateEnum,
+                         TrainTask, generate_timeout)
+from ..engine.job import TrainJob
 from ..functions.registry import FunctionRegistry
 from ..interop.from_flax import from_flax, from_flax_variables
 from ..models.generation import supports_paged_decode
@@ -57,7 +83,10 @@ from ..serving import PagedBatchingDecoder, kvsnap
 from ..serving.quant import (INT8_TAG, QuantizedTensor, from_storage_tree,
                              is_quantized_storage, is_quantized_tree)
 from ..storage.checkpoint import FINAL_TAG, CheckpointStore
+from ..storage.history import HistoryStore
+from ..storage.store import ShardStore
 from ..utils.device import resolve_device
+from .journal import JobJournal
 from .metrics import MetricsRegistry
 
 log = logging.getLogger("kubeml.ps")
@@ -72,16 +101,45 @@ def _not_ported(what: str) -> KubeMLError:
     return KubeMLError(f"{what} is not ported to kubeml_tpu_torch yet", 400)
 
 
+@dataclass
+class _UpdateBox:
+    """One pending epoch-end answer of the scheduler."""
+
+    event: threading.Event = field(default_factory=threading.Event)
+    parallelism: int = 0
+
+
+@dataclass
+class _JobRecord:
+    task: TrainTask
+    job: Optional[TrainJob]  # None while starting
+    thread: Optional[threading.Thread]
+    update_box: Optional[_UpdateBox] = None
+    # keep the journal entry at the finish (shutdown, preemption): the
+    # next boot resubmits the job with resume=True
+    keep_journal: bool = False
+    # wall time of the first preempt request (None: never preempted)
+    preempt_t0: Optional[float] = None
+
+
 class ParameterServer:
     def __init__(self, registry: Optional[FunctionRegistry] = None,
                  config: Optional[Config] = None,
-                 metrics: Optional[MetricsRegistry] = None, device=None):
+                 metrics: Optional[MetricsRegistry] = None, device=None,
+                 store: Optional[ShardStore] = None,
+                 history_store: Optional[HistoryStore] = None):
         self.cfg = config or get_config()
         self.registry = registry or FunctionRegistry(config=self.cfg)
+        self.store = store or ShardStore(config=self.cfg)
+        self.history_store = history_store or HistoryStore(config=self.cfg)
         self.metrics = metrics or MetricsRegistry()
         self.metrics.set_serving_source(self._serving_telemetry)
         self.device = resolve_device(device)
+        self.scheduler = None  # bound after construction
+        self._jobs: Dict[str, _JobRecord] = {}
         self._ckpt_store = CheckpointStore(config=self.cfg)
+        # accepted jobs persist until they finish: a restart resubmits them
+        self._journal = JobJournal(config=self.cfg)
         self._serving_cache: Dict[str, tuple] = {}  # (model, tree, mtime)
         self._decoders: Dict[str, tuple] = {}  # (decoder, mtime)
         # requests replayed from snap_dir: {"model", "request_id", "file",
@@ -89,9 +147,396 @@ class ParameterServer:
         self._restored: List[dict] = []
         self._lock = threading.RLock()
 
+    def bind_scheduler(self, scheduler) -> None:
+        self.scheduler = scheduler
+
+    # --- the training lifecycle ---
+
+    def start_task(self, task: TrainTask) -> None:
+        """``/start``: reserve the slot, load the function, start the job
+        on a thread of its own. A failed start leaves a failed history."""
+        if self.cfg.standalone_jobs:
+            raise _not_ported("standalone job runners (STANDALONE_JOBS)")
+        req = task.parameters
+        placeholder = self._reserve_slot(task)
+        try:
+            model = self.registry.load(req.function_name)
+            model._set_params(lr=req.lr, batch_size=req.batch_size, epoch=0,
+                              k=req.options.k, task="train")
+            req.options.default_parallelism = (
+                task.state.parallelism or req.options.default_parallelism)
+            job = TrainJob(
+                task.job_id, req, model, store=self.store,
+                history_store=self.history_store,
+                checkpoint_store=self._ckpt_store,
+                on_epoch_end=lambda state, jid=task.job_id:
+                    self._epoch_end(jid, state),
+                on_metrics=self.metrics.update, device=self.device)
+        except Exception as e:
+            self._fail_start(task, e)
+            raise
+        thread = threading.Thread(target=self._run_job,
+                                  args=(task, job, placeholder),
+                                  name=f"job-{task.job_id}", daemon=True)
+        placeholder.job = job
+        placeholder.thread = thread
+        task.status = JobStateEnum.RUNNING
+        self.metrics.task_started("train")
+        thread.start()
+
+    def _reserve_slot(self, task: TrainTask) -> _JobRecord:
+        """Take the job's index slot (a duplicate id is a 400), drop a
+        cached finished model of a reused id, journal the request."""
+        placeholder = _JobRecord(task=task, job=None, thread=None)
+        with self._lock:
+            if task.job_id in self._jobs:
+                raise KubeMLError(f"job {task.job_id} already exists", 400)
+            self._jobs[task.job_id] = placeholder
+            self._serving_cache.pop(task.job_id, None)
+        try:
+            self._journal.record(task.job_id, task.parameters)
+        except Exception:
+            log.exception("journaling job %s failed (non-fatal)", task.job_id)
+        return placeholder
+
+    def _ensure_failure_history(self, job_id: str, request,
+                                error: str) -> None:
+        """A dead job's history exists afterwards (pollers key off it);
+        one the job saved itself is kept."""
+        try:
+            self.history_store.get(job_id)
+        except Exception:
+            self.history_store.save(History(
+                id=job_id, task={"request": request.to_dict(),
+                                 "error": error}))
+
+    def _fail_start(self, task: TrainTask, error: Exception) -> None:
+        """A failed start: FAILED, slot freed, journal cleared, and a
+        failed history saved (over any earlier run's under the same id)."""
+        task.status = JobStateEnum.FAILED
+        with self._lock:
+            self._jobs.pop(task.job_id, None)
+        try:
+            self._journal.clear(task.job_id)
+        except Exception:
+            pass
+        self.history_store.save(History(
+            id=task.job_id,
+            task={"request": task.parameters.to_dict(), "error": str(error)}))
+
+    def _run_job(self, task: TrainTask, job: TrainJob,
+                 record: Optional[_JobRecord] = None) -> None:
+        try:
+            job.train()
+            if job.preempted:
+                # parked with a resume checkpoint: the journal entry stays
+                task.status = JobStateEnum.PREEMPTED
+                if record is not None:
+                    record.keep_journal = True
+            else:
+                task.status = (JobStateEnum.STOPPED
+                               if job.stop_event.is_set()
+                               else JobStateEnum.FINISHED)
+            if record is not None and task.status == JobStateEnum.FINISHED:
+                # finished during a shutdown: not resubmitted at the boot
+                record.keep_journal = False
+        except Exception as e:
+            task.status = JobStateEnum.FAILED
+            log.error("job %s failed: %s", task.job_id, e)
+        finally:
+            # expect: a thread abandoned by the preempt grace must not tear
+            # down a resubmitted job that reused the id
+            self._finish(task.job_id, expect=record)
+
+    def _finish(self, job_id: str,
+                expect: Optional[_JobRecord] = None) -> bool:
+        """A job's teardown: its gauges cleared, the scheduler told (and
+        a preempted job handed back for its requeue), the slot freed."""
+        with self._lock:
+            record = self._jobs.get(job_id)
+            if record is None or (expect is not None
+                                  and record is not expect):
+                return False
+            self._jobs.pop(job_id, None)
+        if not record.keep_journal:
+            try:
+                self._journal.clear(job_id)
+            except Exception:
+                log.exception("clearing journal for %s failed (non-fatal)",
+                              job_id)
+        self.metrics.clear(job_id)
+        self.metrics.task_finished("train")
+        if record.preempt_t0 is not None:
+            self.metrics.observe_yield(time.time() - record.preempt_t0)
+        if self.scheduler is not None:
+            try:
+                self.scheduler.finish_job(job_id)
+            except Exception:
+                log.exception("notifying scheduler of %s finish failed",
+                              job_id)
+            if record.task.status == JobStateEnum.PREEMPTED:
+                try:
+                    self.scheduler.job_preempted(record.task)
+                except Exception:
+                    log.exception("requeue of preempted job %s failed "
+                                  "(the journal keeps it for the next "
+                                  "boot)", job_id)
+        if record.update_box is not None:
+            # a job thread waiting for the scheduler's answer goes on
+            record.update_box.event.set()
+        return True
+
+    # --- the elastic round trip ---
+
+    def _epoch_end(self, job_id: str, state: JobState) -> int:
+        """On the job thread: ask the scheduler, wait for its answer."""
+        if self.scheduler is None:
+            return state.parallelism
+        with self._lock:
+            record = self._jobs.get(job_id)
+            if record is None or (record.job is not None
+                                  and record.job.stop_event.is_set()):
+                # a stopping job asks nobody (the scheduler may be gone)
+                return state.parallelism
+            box = _UpdateBox(parallelism=state.parallelism)
+            record.update_box = box
+            task = record.task
+        task.state = state
+        self.scheduler.update_job(task)
+        timeout = self.cfg.update_timeout
+        if not box.event.wait(timeout):
+            log.warning("job %s: the scheduler answered no parallelism "
+                        "update within %.0fs (KUBEML_UPDATE_TIMEOUT); keeping "
+                        "parallelism %d", job_id, timeout, state.parallelism)
+            return state.parallelism
+        return box.parallelism
+
+    def update_task(self, job_id: str, parallelism: int) -> None:
+        """``/update/{jobId}``: the scheduler's answer, to the waiting job
+        thread."""
+        with self._lock:
+            record = self._jobs.get(job_id)
+        if record is None:
+            raise JobNotFoundError(job_id)
+        box = record.update_box
+        if box is None:
+            log.warning("job %s: update with no pending epoch-end request",
+                        job_id)
+            return
+        box.parallelism = parallelism
+        box.event.set()
+
+    # --- queries and control ---
+
+    def list_tasks(self) -> List[TrainTask]:
+        """``/tasks``."""
+        with self._lock:
+            return [r.task for r in self._jobs.values()]
+
+    def _resume_epoch(self, job_id: str) -> int:
+        """The epoch a resumed job would restart at, from the checkpoints'
+        metadata only."""
+        try:
+            tags = self._ckpt_store.tags(job_id)
+            last = self._ckpt_store.latest_epoch(job_id)
+            start = 0 if last is None else last + 1
+            if FINAL_TAG in tags:
+                start = max(start, int(self._ckpt_store.read_meta(
+                    job_id, FINAL_TAG).get("epoch", 0)))
+            return start
+        except Exception:
+            return 0
+
+    def jobs_snapshot(self, include_journal: bool = True) -> List[dict]:
+        """The PS half of ``kubeml jobs``: the live records, then the
+        journaled jobs that are not live (preempted or interrupted), with
+        the epoch a resume restarts at."""
+        out = []
+        with self._lock:
+            records = list(self._jobs.items())
+        live = set()
+        for jid, r in records:
+            live.add(jid)
+            opts = r.task.parameters.options
+            out.append({
+                "job_id": jid, "status": r.task.status,
+                "priority": int(getattr(opts, "priority", 0)),
+                "tenant": str(getattr(opts, "tenant", "")),
+                "function": r.task.parameters.function_name,
+                "parallelism": r.task.state.parallelism,
+                "preempting": r.preempt_t0 is not None})
+        if not include_journal:
+            return out
+        try:
+            pending = self._journal.pending(quarantine=False)
+        except Exception:
+            pending = []
+        for entry in pending:
+            jid = entry.get("job_id", "")
+            if not jid or jid in live:
+                continue
+            req = entry.get("request", {}) or {}
+            opts = req.get("options", {}) or {}
+            out.append({
+                "job_id": jid, "status": JobStateEnum.PREEMPTED,
+                "priority": int(opts.get("priority", 0) or 0),
+                "tenant": str(opts.get("tenant", "") or ""),
+                "function": req.get("function_name", ""),
+                "resume_epoch": self._resume_epoch(jid)})
+        return out
+
+    def get_task(self, job_id: str) -> TrainTask:
+        with self._lock:
+            record = self._jobs.get(job_id)
+        if record is None:
+            raise JobNotFoundError(job_id)
+        return record.task
+
+    def preempt_task(self, job_id: str, reason: str = "operator",
+                     grace: Optional[float] = None) -> None:
+        """``/preempt/{jobId}``: the job leaves at its next round edge
+        with a resume checkpoint and the ``preempted`` status; its journal
+        entry is kept however the yield ends. A job still running after
+        ``grace`` seconds (``preempt_grace``) is abandoned."""
+        with self._lock:
+            record = self._jobs.get(job_id)
+        if record is None:
+            raise JobNotFoundError(job_id)
+        if grace is None:
+            grace = self.cfg.preempt_grace
+        first = record.preempt_t0 is None
+        if first:
+            record.preempt_t0 = time.time()
+        record.keep_journal = True
+        if record.job is None:
+            if first:
+                record.preempt_t0 = None
+            raise KubeMLError(f"job {job_id} is still starting", 409)
+        record.job.preempt()
+        if record.update_box is not None:
+            # the yield must not wait out the scheduler's answer
+            record.update_box.event.set()
+        if first:
+            self.metrics.preemption(reason)
+            log.info("preempting job %s (%s; grace %.0fs)", job_id, reason,
+                     grace)
+            threading.Thread(target=self._preempt_grace_watch,
+                             args=(job_id, record, grace),
+                             name=f"preempt-grace-{job_id}",
+                             daemon=True).start()
+
+    def _preempt_grace_watch(self, job_id: str, record: _JobRecord,
+                             grace: float) -> None:
+        """A preempted job that has not freed its slot within ``grace`` is
+        abandoned with the ``preempted`` status (its thread stopped
+        cooperatively): the journal entry and its newest checkpoint keep
+        it resumable."""
+        deadline = record.preempt_t0 + max(0.0, grace)
+        while time.time() < deadline:
+            with self._lock:
+                if self._jobs.get(job_id) is not record:
+                    return  # yielded in time
+            time.sleep(min(0.2, max(0.01, deadline - time.time())))
+        with self._lock:
+            if self._jobs.get(job_id) is not record:
+                return
+        log.warning("job %s did not yield within the %.0fs preempt grace; "
+                    "abandoning it (it resumes from its newest "
+                    "checkpoint)", job_id, grace)
+        self.metrics.preemption("hard-kill")
+        record.task.status = JobStateEnum.PREEMPTED
+        try:
+            record.job.stop()
+        except Exception:
+            pass
+        self._finish(job_id, expect=record)
+
+    def stop_task(self, job_id: str) -> None:
+        """``/stop/{jobId}``: the job stops at its next round edge."""
+        with self._lock:
+            record = self._jobs.get(job_id)
+        if record is None:
+            raise JobNotFoundError(job_id)
+        if record.job is None:
+            raise KubeMLError(f"job {job_id} is still starting", 409)
+        record.job.stop()
+
+    def wait(self, job_id: str, timeout: Optional[float] = None) -> bool:
+        """Join a job's thread; True once it has ended (or no such job)."""
+        with self._lock:
+            record = self._jobs.get(job_id)
+        if record is None:
+            return True
+        if record.thread is None:
+            return False  # still starting
+        try:
+            record.thread.join(timeout)
+        except RuntimeError:
+            return False  # created but not started yet
+        return not record.thread.is_alive()
+
+    def prune_tasks(self) -> int:
+        """``kubeml task prune``: tear down records whose job thread died
+        without finishing; returns the count."""
+        with self._lock:
+            candidates = list(self._jobs.items())
+        pruned = 0
+        for job_id, record in candidates:
+            if (record.thread is not None and record.thread.ident is not None
+                    and not record.thread.is_alive()):
+                with self._lock:
+                    if self._jobs.get(job_id) is not record:
+                        continue
+                if record.preempt_t0 is not None:
+                    record.task.status = JobStateEnum.PREEMPTED
+                else:
+                    record.task.status = JobStateEnum.FAILED
+                    self._ensure_failure_history(
+                        job_id, record.task.parameters,
+                        "job thread died without finishing")
+                if self._finish(job_id, expect=record):
+                    pruned += 1
+        return pruned
+
+    def stop_running_jobs(self) -> None:
+        """Shutdown: stop every job at its next round edge, keeping its
+        journal entry so the next boot resubmits it with resume=True."""
+        with self._lock:
+            records = [r for r in self._jobs.values() if r.job is not None]
+        for record in records:
+            record.keep_journal = True
+            try:
+                record.job.stop()
+            except Exception:
+                log.exception("stopping job failed")
+            if record.update_box is not None:
+                record.update_box.event.set()
+
+    def finish_standalone(self, job_id: str, status: str = "",
+                          error: Optional[str] = None) -> None:
+        """``/finish/{jobId}``, a standalone runner's callback: the port
+        runs threaded jobs only, so no record has a runner (a 404, as the
+        JAX server answers for a threaded job)."""
+        raise JobNotFoundError(job_id)
+
     # --- /infer and /generate ---
 
     def infer(self, model_id: str, data) -> list:
+        """``/infer``: a live job's model on its merged weights of the last
+        completed round, or a finished job's final export."""
+        with self._lock:
+            record = self._jobs.get(model_id)
+        if record is None:
+            return self._infer_from_checkpoint(model_id, data)
+        if record.job is None:
+            raise KubeMLError(f"job {model_id} is still starting", 503)
+        self.metrics.task_started("inference")
+        try:
+            return np.asarray(record.job.infer(np.asarray(data))).tolist()
+        finally:
+            self.metrics.task_finished("inference")
+
+    def _infer_from_checkpoint(self, model_id: str, data) -> list:
         """A finished job's ``model.infer`` on ``data`` from its final
         checkpoint, with the model's own device-side ``preprocess``."""
         model, tree, _ = self._load_serving(model_id)
@@ -112,9 +557,14 @@ class ParameterServer:
         """Sampling from a finished causal-LM job through its resident
         paged decoder. Returns the result dict, or with ``req.stream`` a
         generator of ``{"row", "tokens"}`` deltas and a final ``{"done",
-        "lengths"}`` record."""
+        "lengths"}`` record. A live job is refused with a 400."""
         if not isinstance(req, GenerateRequest):
             req = GenerateRequest.parse_request({**req, "model_id": model_id})
+        with self._lock:
+            live = model_id in self._jobs
+        if live:
+            raise _not_ported(f"generate on the live job {model_id!r} (the "
+                              f"dense generate_from_request)")
         model, tree, mtime = self._load_serving(model_id)
         decoder = self._get_decoder(model_id, model, tree, mtime)
         entry = decoder.submit(req)

@@ -1,0 +1,220 @@
+"""Outbound HTTP of the port's clients, on the standard library only: the
+counterpart of ``kubeml_tpu/utils/traced_http.py`` without tracing,
+retries or circuit breakers.
+
+:func:`request` sends one call through ``http.client``:
+
+* a JSON body (``json=``), raw bytes (``data=``) or a multipart upload
+  (``files={field: (filename, bytes)}``), and query ``params``;
+* the ``x-kubeml-deadline`` header: the deadline bound to the calling
+  thread (``utils.resilience.bind_deadline``: a server thread forwards the
+  one its request arrived with), else now + the read timeout;
+* ``idempotency_key`` (``True`` mints one) as ``x-kubeml-idempotency-key``,
+  so the server answers a retried POST from its record;
+* ``timeout``: seconds, or ``(connect, read)``.
+
+The answer is a :class:`HTTPResponse`; ``stream=True`` leaves the body
+unread for :meth:`HTTPResponse.iter_lines`. :func:`check` turns a 4xx/5xx
+into the typed ``KubeMLError`` of its envelope
+(``api.errors.error_from_envelope``), and :func:`ndjson` reads a streamed
+answer line by line. A peer that cannot be reached raises
+:class:`TransportError` (a 503).
+"""
+
+from __future__ import annotations
+
+import http.client
+import json as _json
+import socket
+import time
+import uuid
+from typing import Any, Dict, Iterator, Optional, Tuple
+from urllib.parse import urlencode, urlsplit
+
+from ..api.errors import KubeMLError, error_from_envelope
+from . import resilience
+
+DEFAULT_CONNECT_TIMEOUT = 3.05
+
+
+class TransportError(KubeMLError):
+    """The peer could not be reached, or the connection broke."""
+
+    status_code = 503
+
+
+class HTTPResponse:
+    """One answer: ``status_code``, ``headers``, and the body as
+    ``content``/``text``/``json()``, or line by line with ``stream``."""
+
+    def __init__(self, conn: http.client.HTTPConnection,
+                 resp: http.client.HTTPResponse, stream: bool):
+        self._conn = conn
+        self._resp = resp
+        self.status_code = resp.status
+        self.headers = {k.lower(): v for k, v in resp.getheaders()}
+        self._content: Optional[bytes] = None
+        if not stream:
+            self._read_all()
+
+    def _read_all(self) -> None:
+        try:
+            self._content = self._resp.read()
+        except (OSError, http.client.HTTPException) as e:
+            raise TransportError(f"reading the answer failed: {e}")
+        finally:
+            self.close()
+
+    @property
+    def content(self) -> bytes:
+        if self._content is None:
+            self._read_all()
+        return self._content
+
+    @property
+    def text(self) -> str:
+        return self.content.decode(errors="replace")
+
+    def json(self) -> Any:
+        return _json.loads(self.content)
+
+    def iter_lines(self) -> Iterator[bytes]:
+        """The body's lines as they arrive (chunked transfer decoded)."""
+        try:
+            while True:
+                line = self._resp.readline()
+                if not line:
+                    return
+                line = line.rstrip(b"\r\n")
+                if line:
+                    yield line
+        except (OSError, http.client.HTTPException) as e:
+            raise TransportError(f"the stream broke: {e}")
+        finally:
+            self.close()
+
+    def close(self) -> None:
+        self._conn.close()
+
+
+def timeouts(read: float, connect: Optional[float] = None
+             ) -> Tuple[float, float]:
+    """A ``(connect, read)`` pair; the connect default comes from
+    ``KUBEML_CONNECT_TIMEOUT``."""
+    if connect is None:
+        from ..api.config import get_config
+
+        connect = get_config().http_connect_timeout
+    return (connect, read)
+
+
+def _split_timeout(timeout) -> Tuple[Optional[float], Optional[float]]:
+    if timeout is None:
+        return DEFAULT_CONNECT_TIMEOUT, None
+    if isinstance(timeout, (tuple, list)):
+        return float(timeout[0]), (None if timeout[1] is None
+                                   else float(timeout[1]))
+    return float(timeout), float(timeout)
+
+
+def _multipart(files: Dict[str, tuple]) -> Tuple[bytes, str]:
+    """A multipart/form-data body of ``{field: (filename or None,
+    bytes or str)}``."""
+    boundary = uuid.uuid4().hex
+    parts = []
+    for name, (filename, payload) in files.items():
+        if isinstance(payload, str):
+            payload = payload.encode()
+        disp = f'form-data; name="{name}"'
+        if filename:
+            disp += f'; filename="{filename}"'
+        parts.append(f"--{boundary}\r\nContent-Disposition: {disp}\r\n"
+                     f"Content-Type: application/octet-stream\r\n\r\n"
+                     .encode() + payload + b"\r\n")
+    body = b"".join(parts) + f"--{boundary}--\r\n".encode()
+    return body, f"multipart/form-data; boundary={boundary}"
+
+
+def request(method: str, url: str, *, json: Any = None,
+            data: Optional[bytes] = None,
+            files: Optional[Dict[str, tuple]] = None,
+            params: Optional[Dict[str, str]] = None,
+            headers: Optional[Dict[str, str]] = None, timeout=None,
+            stream: bool = False, idempotency_key=None) -> HTTPResponse:
+    parts = urlsplit(url)
+    path = parts.path or "/"
+    query = parts.query
+    if params:
+        query = "&".join(q for q in (query, urlencode(params)) if q)
+    if query:
+        path += "?" + query
+    hdrs = dict(headers or {})
+    body = data
+    if json is not None:
+        body = _json.dumps(json).encode()
+        hdrs.setdefault("Content-Type", "application/json")
+    elif files is not None:
+        body, ctype = _multipart(files)
+        hdrs["Content-Type"] = ctype
+    if idempotency_key is True:
+        idempotency_key = uuid.uuid4().hex
+    if idempotency_key:
+        hdrs.setdefault(resilience.IDEMPOTENCY_HEADER, idempotency_key)
+    connect, read = _split_timeout(timeout)
+    deadline = resilience.current_deadline()
+    if deadline is None and read is not None:
+        deadline = time.time() + read
+    if deadline is not None:
+        hdrs.setdefault(resilience.DEADLINE_HEADER,
+                        resilience.format_deadline(deadline))
+        remaining = max(deadline - time.time(), 0.001)
+        read = remaining if read is None else min(read, remaining)
+    conn = http.client.HTTPConnection(parts.hostname, parts.port or 80,
+                                      timeout=connect)
+    try:
+        conn.connect()
+        conn.sock.settimeout(read)
+        conn.request(method, path, body=body, headers=hdrs)
+        resp = conn.getresponse()
+    except (OSError, http.client.HTTPException) as e:
+        conn.close()
+        if isinstance(e, socket.timeout):
+            raise TransportError(f"{method} {url} timed out: {e}", 504)
+        raise TransportError(f"cannot reach {parts.netloc} ({method} "
+                             f"{url}): {e}")
+    return HTTPResponse(conn, resp, stream)
+
+
+def check(resp: HTTPResponse) -> Any:
+    """The answer's JSON, or the typed error of its envelope."""
+    if resp.status_code >= 400:
+        raise error_from_envelope(resp.content, resp.status_code)
+    return resp.json()
+
+
+def ndjson(resp: HTTPResponse) -> Iterator[dict]:
+    """A streamed answer's records, one JSON line each; an error status
+    raises before the first record."""
+    if resp.status_code >= 400:
+        raise error_from_envelope(resp.content, resp.status_code)
+
+    def lines():
+        try:
+            for line in resp.iter_lines():
+                yield _json.loads(line)
+        finally:
+            resp.close()
+
+    return lines()
+
+
+def get(url: str, **kw) -> HTTPResponse:
+    return request("GET", url, **kw)
+
+
+def post(url: str, **kw) -> HTTPResponse:
+    return request("POST", url, **kw)
+
+
+def delete(url: str, **kw) -> HTTPResponse:
+    return request("DELETE", url, **kw)

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: ``kubeml_tpu_torch`` and ``chip_smoke.py``
 import neither JAX (nor Flax/optax/ml_dtypes) nor anything of
-``kubeml_tpu``, and an entry point never carries on on the CPU unless
-asked to."""
+``kubeml_tpu``, nor ``requests`` or ``flask`` (the machine with the card
+has neither: the port's HTTP is the standard library's), and an entry
+point never carries on on the CPU unless asked to."""
 
 import ast
 import subprocess
@@ -12,7 +13,8 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "kubeml_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "kubeml_tpu",
+             "requests", "flask")
 
 
 def _port_sources():
@@ -71,6 +73,22 @@ def test_checkpoint_and_serving_modules_keep_their_own_copies(module):
     assert not _offenders(path)
 
 
+@pytest.mark.parametrize("module", [
+    "utils/httpd.py", "utils/http_client.py", "utils/resilience.py",
+    "scheduler/__init__.py", "scheduler/decisions.py", "scheduler/policy.py",
+    "scheduler/queue.py", "scheduler/scheduler.py", "scheduler/transport.py",
+    "ps/journal.py", "ps/transport.py", "storage/service.py",
+    "controller/controller.py", "controller/client.py", "cluster.py",
+    "cli.py"])
+def test_control_plane_modules_keep_their_own_copies(module):
+    """The control-plane modules copy what they need of the JAX package's
+    JAX-free modules (``utils/httpd``, ``scheduler/*``, ``ps/journal``,
+    ``storage/service``) and speak HTTP through the standard library."""
+    path = REPO / "kubeml_tpu_torch" / module
+    assert path.is_file()
+    assert not _offenders(path)
+
+
 def test_importing_the_port_loads_no_jax_module():
     code = (
         "import sys\n"
@@ -91,7 +109,10 @@ def test_importing_the_port_loads_no_jax_module():
         "kubeml_tpu_torch.utils.resilience, "
         "kubeml_tpu_torch.storage.checkpoint, kubeml_tpu_torch.functions, "
         "kubeml_tpu_torch.ps, kubeml_tpu_torch.engine.resume, "
-        "kubeml_tpu_torch.utils.watchdog\n"
+        "kubeml_tpu_torch.utils.watchdog, kubeml_tpu_torch.cluster, "
+        "kubeml_tpu_torch.cli, kubeml_tpu_torch.controller, "
+        "kubeml_tpu_torch.scheduler.transport, "
+        "kubeml_tpu_torch.ps.transport, kubeml_tpu_torch.storage.service\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
@@ -127,6 +148,9 @@ def test_entry_points_raise_without_device_on_a_cpu_only_host(monkeypatch,
     from kubeml_tpu_torch.ps import ParameterServer
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ParameterServer(config=Config(data_root=tmp_path))
+    from kubeml_tpu_torch.cluster import LocalCluster
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LocalCluster(config=Config(data_root=tmp_path))
     # asked for explicitly, the CPU runs
     assert resolve_device("cpu") == torch.device("cpu")
     PagedBatchingDecoder(m, page_tokens=4, device="cpu").close()
