@@ -85,24 +85,40 @@ def make_synthetic_model(module: nn.Module, dataset_name: str = "synthetic",
     return _SyntheticModel()
 
 
-def train_flops_per_sample(module: nn.Module, sample_shape) -> float:
+def train_flops_per_sample(module: nn.Module, sample_shape,
+                           sample_dtype: torch.dtype = torch.float32
+                           ) -> float:
     """Operations of one training sample counted from the layers' shapes:
-    2 x in x out per output position of every conv and dense layer for the
-    forward, three times that for forward plus backward (BatchNorm and
-    elementwise work not counted)."""
-    from ..models.layers import Conv, QuantizableDense
+    2 x in x out per output position of every conv, dense
+    (``QuantizableDense``) and ``DenseGeneral`` layer (in = the product of
+    its contracted axes), plus attention's two products (Q.K^T and P.V) in
+    each ViT or BERT attention layer, 4 x L^2 x D x H (padded keys
+    included), for the forward; three times that for forward plus backward
+    (BatchNorm, LayerNorm, softmax and elementwise work not counted). The
+    probe is one sample of zeros of ``sample_dtype`` (token ids for BERT);
+    on a CUDA module it runs the forward there, launching its kernels."""
+    from ..models.bert import BertSelfAttention
+    from ..models.layers import Conv, DenseGeneral, QuantizableDense
+    from ..models.vit import MHSA
 
     total = [0.0]
 
-    def hook(m, inp, out):
+    def dense(m, inp, out):
         fan_in = (m.kernel[0].numel() if isinstance(m, Conv)
+                  else math.prod(m.in_shape) if isinstance(m, DenseGeneral)
                   else m.kernel.shape[0])
         total[0] += 2.0 * fan_in * out.numel()  # batch 1: one sample
 
-    hooks = [m.register_forward_hook(hook) for m in module.modules()
-             if isinstance(m, (Conv, QuantizableDense))]
+    def attention(m, inp, out):
+        L, E = out.shape[1], out.shape[2]  # [1, L, E], E = H x D
+        total[0] += 4.0 * L * L * E
+
+    hooks = [m.register_forward_hook(dense) for m in module.modules()
+             if isinstance(m, (Conv, QuantizableDense, DenseGeneral))]
+    hooks += [m.register_forward_hook(attention) for m in module.modules()
+              if isinstance(m, (MHSA, BertSelfAttention))]
     try:
-        probe = torch.zeros((1, *sample_shape),
+        probe = torch.zeros((1, *sample_shape), dtype=sample_dtype,
                             device=next(module.parameters()).device)
         with torch.no_grad():
             module(probe, train=False)

@@ -20,9 +20,11 @@ Flax layout through ``interop.from_flax.to_flax_variables``):
 * ``resume`` restores the newest of the epoch checkpoints and the final
   export (``engine.resume``) with its recorded history and continues at
   the next epoch; nothing in an epoch draws from a stream earlier epochs
-  advanced (the data order is fixed and the round has no random draws),
-  so a resumed run equals an uninterrupted one, except under chaos, whose
-  job-wide mask stream starts over, as in the JAX engine;
+  advanced (the data order is fixed, and a round's dropout seed is
+  ``fold_in(fold_in(seed, epoch + 1), round_index)``, JAX's derivation
+  with ``models.layers.fold_in``), so a resumed run equals an
+  uninterrupted one, except under chaos, whose job-wide mask stream
+  starts over, as in the JAX engine;
 * ``preempt()`` ends the job at the next round edge and writes a yield
   checkpoint (the current weights under the last completed epoch's tag)
   instead of the final export, which ``save_model`` writes at the end of
@@ -57,6 +59,7 @@ from ..data.dataset import KubeDataset
 from ..data.loader import RoundLoader, validation_loader
 from ..data.sharding import plan_epoch
 from ..interop.from_flax import from_flax_variables, to_flax_variables
+from ..models.layers import fold_in
 from ..runtime.model import KubeModel
 from ..storage.checkpoint import FINAL_TAG, CheckpointStore
 from ..storage.history import HistoryStore
@@ -269,7 +272,8 @@ class TrainJob:
                     epochs_run > 0
                     or FINAL_TAG not in self.checkpoint_store.tags(self.job_id)):
                 self.checkpoint_store.save(
-                    self.job_id, to_flax_variables(self._final_variables),
+                    self.job_id, to_flax_variables(self._final_variables,
+                                                   self.model.module),
                     epoch=len(self.history.train_loss), tag=FINAL_TAG,
                     meta=self._checkpoint_meta())
         except KubeMLError as e:
@@ -307,6 +311,7 @@ class TrainJob:
             num_samples=handle.num_samples("train"),
         )
         loader = RoundLoader(handle, "train", plan, transform=dataset.transform)
+        epoch_seed = fold_in(self.seed, epoch + 1)
         losses = []
         skipped = 0
         self._last_round_times = []
@@ -342,7 +347,8 @@ class TrainJob:
             t_round = time.time()
             self._stacked_vars, loss = self.trainer.sync_round(
                 self._stacked_vars, *staged, lr=req.lr, epoch=epoch,
-                worker_mask=worker_mask)
+                worker_mask=worker_mask,
+                rng=fold_in(epoch_seed, rb.round_index))
             self._publish()
             # host wall time of the round's dispatch (the card runs behind)
             self._last_round_times.append(time.time() - t_round)
@@ -427,7 +433,8 @@ class TrainJob:
         try:
             self._join_checkpoint()
             variables = to_flax_variables(
-                self.trainer.reference_variables(self._stacked_vars))
+                self.trainer.reference_variables(self._stacked_vars),
+                self.model.module)
             meta = self._checkpoint_meta()
 
             def write():
@@ -457,7 +464,8 @@ class TrainJob:
             return
         try:
             self.checkpoint_store.save(
-                self.job_id, to_flax_variables(self._final_variables),
+                self.job_id, to_flax_variables(self._final_variables,
+                                               self.model.module),
                 epoch=completed - 1, meta=self._checkpoint_meta())
         except Exception:
             log.exception("%s: yield checkpoint failed (resume falls back "
@@ -474,7 +482,8 @@ class TrainJob:
             return 0
         start_epoch, ck = best
         self._stacked_vars = self.trainer.place_reference(
-            from_flax_variables(ck.variables), self.parallelism)
+            from_flax_variables(ck.variables, self.model.module),
+            self.parallelism)
         extend_history(self.history, ck)
         log.info("%s: resumed from checkpoint %s (epoch %d)", self.job_id,
                  ck.tag, start_epoch)

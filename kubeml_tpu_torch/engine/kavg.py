@@ -45,6 +45,7 @@ import torch
 
 from ..api.config import get_config
 from ..api.errors import MergeError
+from ..models.layers import fold_in, seed_of, takes_rng
 from ..runtime.model import KubeModel, Variables, bind
 from ..utils.device import resolve_device
 
@@ -163,12 +164,21 @@ class KAvgTrainer:
         self.round_stats = get_config().round_stats
         self.last_round_stats: Optional[torch.Tensor] = None
         self._module = None
+        self._dropout_gen: Optional[torch.Generator] = None
         # inference's own module (built at its first call) and its lock
         self._infer_model: Optional[KubeModel] = None
         self._infer_lock = threading.Lock()
         self._copy_stream = None
         # slabs staged on the side stream: (x, y, mask, ready event)
         self._in_flight: deque = deque(maxlen=16)
+
+    @property
+    def _generator(self) -> torch.Generator:
+        """The dropout generator on the trainer's device, reseeded for
+        every step that draws."""
+        if self._dropout_gen is None:
+            self._dropout_gen = torch.Generator(device=self.device)
+        return self._dropout_gen
 
     @property
     def module(self) -> torch.nn.Module:
@@ -275,14 +285,25 @@ class KAvgTrainer:
 
     def sync_round(self, stacked_vars: Variables, batch_x, batch_y, mask,
                    lr: float, epoch: int = 0,
-                   worker_mask: Optional[np.ndarray] = None
+                   worker_mask: Optional[np.ndarray] = None,
+                   rng: Union[int, torch.Generator, None] = None
                    ) -> Tuple[Variables, torch.Tensor]:
         """Run one K-step-and-average round. Returns (stacked variables,
         updated in place; mean loss as a 0-d device tensor).
 
         ``worker_mask`` (float [N], 1.0 = healthy) leaves failed workers
         out of the average and the loss; with no healthy worker the round
-        raises :class:`MergeError`."""
+        raises :class:`MergeError`.
+
+        ``rng`` (an int seed or a ``torch.Generator``; the JAX round's
+        dropout key) seeds the dropout of a module whose forward takes a
+        generator: worker w's step s draws from one generator on the
+        trainer's device seeded with ``fold_in(fold_in(seed_of(rng), w),
+        s)`` (``models.layers.fold_in``), the counterpart of JAX's
+        ``fold_in(split(rng, N)[w], s)``. The masks are not JAX's, but the
+        same seed draws the same masks, workers and steps draw different
+        ones, and a worker that does not take part draws nothing. Without
+        ``rng`` no generator is passed."""
         n, steps = batch_x.shape[0], batch_x.shape[1]
         wm = (np.ones(n, np.float32) if worker_mask is None
               else np.asarray(worker_mask, np.float32))
@@ -302,6 +323,8 @@ class KAvgTrainer:
             return stacked_vars, nan
         x = self.model.preprocess(self._cast_input(x))
         module = self.module
+        round_seed = (seed_of(rng) if rng is not None and takes_rng(module)
+                      else None)
         workers = [int(w) for w in np.flatnonzero(weights)]
         losses = []
         for w in workers:
@@ -310,7 +333,11 @@ class KAvgTrainer:
             valid_steps = np.flatnonzero(valid[w])
             total = torch.zeros((), device=self.device)
             for s in valid_steps.tolist():
-                logits = module(x[w, s], train=True)
+                kw = {}
+                if round_seed is not None:
+                    kw["rng"] = self._generator.manual_seed(
+                        fold_in(fold_in(round_seed, w), s))
+                logits = module(x[w, s], train=True, **kw)
                 pl = self.model.per_sample_loss(logits, y[w, s])
                 mb = m[w, s]
                 loss = (pl * mb).sum() / mb.sum().clamp_min(1.0)

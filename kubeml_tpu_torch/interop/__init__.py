@@ -1,1 +1,2 @@
-"""Weight converters into the port (``from_flax``)."""
+"""Weight converters into the port: Flax variables (``from_flax``) and
+HuggingFace state_dicts (``torch_import``)."""

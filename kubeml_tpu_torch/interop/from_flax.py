@@ -1,8 +1,8 @@
 """Flax variables <-> the port's weights.
 
 :func:`from_flax` carries a Flax ``CausalTransformer``'s parameters;
-:func:`from_flax_variables` a conv model's whole variables tree (ResNet,
-LeNet: ``params`` and ``batch_stats``). :func:`to_flax` and
+:func:`from_flax_variables` a K-AVG model's whole variables tree (ResNet,
+LeNet, VGG, ViT, BERT: ``params`` and ``batch_stats``). :func:`to_flax` and
 :func:`to_flax_variables` are their inverses: the port writes checkpoints
 in the Flax layout through them, so a checkpoint file never says which
 package wrote it.
@@ -31,10 +31,11 @@ CPU tensors: numpy cannot hold them).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional, Set
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..serving.quant import QuantizedTensor
 
@@ -65,14 +66,35 @@ def from_flax(variables: Mapping[str, Any]) -> Dict[str, object]:
     return out
 
 
-def from_flax_variables(variables: Mapping[str, Any]
+def conv_kernels(module: Optional[nn.Module]) -> Optional[Set[str]]:
+    """The dotted names of ``module``'s conv kernels (the ``kernel`` of
+    each ``models.layers.Conv``), or None without a module."""
+    if module is None:
+        return None
+    from ..models.layers import Conv
+
+    return {f"{name}.kernel" if name else "kernel"
+            for name, m in module.named_modules() if isinstance(m, Conv)}
+
+
+def _is_conv(name: str, t, convs: Optional[Set[str]]) -> bool:
+    return t.ndim == 4 if convs is None else name in convs
+
+
+def from_flax_variables(variables: Mapping[str, Any],
+                        module: Optional[nn.Module] = None
                         ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """A Flax conv model's variables (``{"params": ..., "batch_stats":
-    ...}``, numpy leaves) -> the port's ``{"params": {dotted name: tensor},
+    """A Flax model's variables (``{"params": ..., "batch_stats": ...}``,
+    numpy leaves) -> the port's ``{"params": {dotted name: tensor},
     "batch_stats": {dotted name: tensor}}``, the variables format of
     ``runtime.model.KubeModel``. Conv kernels go from Flax's HWIO to
-    PyTorch's OIHW; dense kernels (``[in, out]``), BatchNorm ``scale``/
-    ``bias`` and the ``mean``/``var`` statistics keep their layout."""
+    PyTorch's OIHW; dense kernels (``[in, out]``, and ``DenseGeneral``'s
+    ``[*in, *out]``), BatchNorm ``scale``/``bias`` and the ``mean``/``var``
+    statistics keep their layout. Without ``module`` every 4-D leaf is
+    taken for a conv kernel, which holds for the conv models; a model with
+    4-D dense kernels (ViT's ``qkv [E, 3, H, D]``) passes its module, whose
+    :func:`conv_kernels` then name the conv kernels."""
+    convs = conv_kernels(module)
     out: Dict[str, Dict[str, torch.Tensor]] = {}
     for collection, tree in variables.items():
         flat: Dict[str, torch.Tensor] = {}
@@ -83,7 +105,7 @@ def from_flax_variables(variables: Mapping[str, Any]
                     walk(child, f"{prefix}.{key}" if prefix else str(key))
             else:
                 t = _tensor(node)
-                if t.ndim == 4:  # conv kernel [kh, kw, in, out]
+                if _is_conv(prefix, t, convs):  # [kh, kw, in, out]
                     t = t.permute(3, 2, 0, 1).contiguous()
                 flat[prefix] = t
 
@@ -117,18 +139,23 @@ def to_flax(flat: Mapping[str, Any]) -> Dict[str, Any]:
     return {"params": _nest(flat, _host)}
 
 
-def to_flax_variables(variables: Mapping[str, Mapping[str, Any]]
-                      ) -> Dict[str, Any]:
+def to_flax_variables(variables: Mapping[str, Mapping[str, Any]],
+                      module: Optional[nn.Module] = None) -> Dict[str, Any]:
     """The port's ``{"params": {dotted: tensor}, "batch_stats": {...}}``
     (tensors or numpy arrays) -> Flax's nested variables, conv kernels
-    back from OIHW to HWIO: the inverse of :func:`from_flax_variables`."""
+    back from OIHW to HWIO: the inverse of :func:`from_flax_variables`
+    (``module`` as there)."""
+    convs = conv_kernels(module)
 
-    def leaf(v):
-        v = _host(v)
-        if v.ndim == 4:  # conv kernel [out, in, kh, kw]
-            v = (v.permute(2, 3, 1, 0).contiguous()
-                 if isinstance(v, torch.Tensor)
-                 else np.ascontiguousarray(v.transpose(2, 3, 1, 0)))
-        return v
+    def convert(tree):
+        out = {}
+        for name, v in tree.items():
+            v = _host(v)
+            if _is_conv(name, v, convs):  # [out, in, kh, kw]
+                v = (v.permute(2, 3, 1, 0).contiguous()
+                     if isinstance(v, torch.Tensor)
+                     else np.ascontiguousarray(v.transpose(2, 3, 1, 0)))
+            out[name] = v
+        return _nest(out, lambda v: v)
 
-    return {c: _nest(tree, leaf) for c, tree in variables.items()}
+    return {c: convert(tree) for c, tree in variables.items()}

@@ -1,10 +1,10 @@
 """Causal transformer LM, the port of ``kubeml_tpu/models/gpt.py``.
 
 Ported: the non-cache forward (causal attention over the whole sequence,
-learned or rotary positions) with its training options, and the PAGED
-decode branch (:121-265) the serving engine drives. The dense per-row
-cache decode, MoE interleaving, sequence parallelism (a mesh) and dropout
-other than 0.0 are still to be ported (ROADMAP) and raise.
+learned or rotary positions) with its training options, dropout included,
+and the PAGED decode branch (:121-265) the serving engine drives. The
+dense per-row cache decode, MoE interleaving and sequence parallelism (a
+mesh) are still to be ported (ROADMAP) and raise.
 
 Training (:558-582): ``remat=True`` recomputes each block's forward in the
 backward (``torch.utils.checkpoint``, non-reentrant) on the non-decode
@@ -52,39 +52,14 @@ from ..ops.attention import dot_product_attention
 from ..ops.paged_attention import paged_attention, paged_attention_ref
 from ..ops.rotary import apply_rope
 from ..utils.device import resolve_device
-from .layers import QuantizableDense
+from .layers import (Dropout, Embed, LayerNorm, QuantizableDense,
+                     fold_in, make_generator, seed_of)
 
 PAD_ID = 0
 
 # Flax lecun_normal: truncated normal on [-2, 2] std, rescaled so the
 # truncated distribution keeps variance 1/fan_in
 _TRUNC_STD = 0.87962566103423978
-
-
-class LayerNorm(nn.Module):
-    """Flax ``nn.LayerNorm(dtype=float32)``: params ``scale``/``bias``,
-    statistics and output in f32."""
-
-    def __init__(self, features: int, eps: float = 1e-6):
-        super().__init__()
-        self.eps = eps
-        self.scale = nn.Parameter(torch.ones(features))
-        self.bias = nn.Parameter(torch.zeros(features))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), (x.shape[-1],), self.scale, self.bias,
-                            self.eps)
-
-
-class Embed(nn.Module):
-    """Flax ``nn.Embed``: param ``embedding [vocab, features]``."""
-
-    def __init__(self, num: int, features: int):
-        super().__init__()
-        self.embedding = nn.Parameter(torch.empty(num, features))
-
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.embedding[ids]
 
 
 class CausalSelfAttention(nn.Module):
@@ -189,9 +164,10 @@ class GPTBlock(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int, mlp_ratio: int = 4,
                  dtype: torch.dtype = torch.float32, ln_eps: float = 1e-6,
                  attn_bias: bool = False, rope: bool = False,
-                 rope_theta: float = 10000.0):
+                 rope_theta: float = 10000.0, dropout: float = 0.0):
         super().__init__()
         self.dtype = dtype
+        self.drop = Dropout(dropout)
         self.ln1 = LayerNorm(embed_dim, ln_eps)
         self.attn = CausalSelfAttention(embed_dim, num_heads,
                                         use_bias=attn_bias, dtype=dtype,
@@ -203,15 +179,21 @@ class GPTBlock(nn.Module):
                                         dtype=dtype)
 
     def forward(self, x, valid, decode: bool = False, positions=None,
-                pages=None, seq_lens=None, cache=None, layer: int = 0):
+                pages=None, seq_lens=None, cache=None, layer: int = 0,
+                train: bool = False, dropout_seed=None):
+        # the masks come from a generator made here from the block's own
+        # seed, so a checkpointed block's recompute draws the same masks
+        # (torch.utils.checkpoint replays the global RNG, not a generator)
+        g = (make_generator(dropout_seed, x.device)
+             if train and dropout_seed is not None else None)
         y = self.ln1(x).to(self.dtype)
         y = self.attn(y, valid, decode=decode, positions=positions,
                       pages=pages, seq_lens=seq_lens, cache=cache,
                       layer=layer)
-        x = x + y
+        x = x + self.drop(y, train, g)
         y = self.ln2(x).to(self.dtype)
         y = F.gelu(self.mlp_in(y), approximate="tanh")  # Flax nn.gelu
-        return x + self.mlp_out(y)
+        return x + self.drop(self.mlp_out(y), train, g)
 
 
 class CausalTransformer(nn.Module):
@@ -232,11 +214,6 @@ class CausalTransformer(nn.Module):
         super().__init__()
         if pos not in ("learned", "rope"):
             raise ValueError(f"unknown pos {pos!r} (valid: 'learned', 'rope')")
-        if dropout != 0.0:
-            raise NotImplementedError(
-                "dropout > 0 is not ported yet (every JAX trainer of this "
-                "path uses 0.0; dropout with an explicit generator is a "
-                "ROADMAP item)")
         if moe_every > 0:
             raise NotImplementedError("MoE interleaving is not ported yet")
         if mesh is not None:
@@ -250,6 +227,8 @@ class CausalTransformer(nn.Module):
         self.depth = depth
         self.num_heads = num_heads
         self.dtype = dtype
+        self.ln_eps = ln_eps
+        self.attn_bias = attn_bias
         self.pos = pos
         self.remat = remat
         self.dropout = dropout
@@ -260,7 +239,7 @@ class CausalTransformer(nn.Module):
             self.add_module(f"block_{i}", GPTBlock(
                 embed_dim, num_heads, mlp_ratio, dtype=dtype, ln_eps=ln_eps,
                 attn_bias=attn_bias, rope=pos == "rope",
-                rope_theta=rope_theta))
+                rope_theta=rope_theta, dropout=dropout))
         self.ln_f = LayerNorm(embed_dim, ln_eps)
         self.lm_head = QuantizableDense(embed_dim, vocab_size, use_bias=False,
                                         dtype=dtype)
@@ -287,12 +266,16 @@ class CausalTransformer(nn.Module):
 
     def forward(self, token_ids, train: bool = False, decode: bool = False,
                 return_hidden: bool = False, positions=None, pages=None,
-                seq_lens=None, cache=None, exit_layer=None):
+                seq_lens=None, cache=None, exit_layer=None, rng=None):
         """Logits ``[B, L, vocab]`` (f32), or the final hidden states
         ``[B, L, E]`` with ``return_hidden``. ``decode=True`` runs the paged
         decode branch against ``cache`` (see the module docstring).
-        ``train`` steers dropout in the JAX module; with dropout 0.0 (the
-        only value ported) it changes nothing.
+
+        ``train=True`` with ``dropout > 0`` drops the attention and MLP
+        outputs of every block (where the JAX module does); ``rng`` (an
+        int seed or a ``torch.Generator``, required then) gives block i
+        the seed ``fold_in(seed_of(rng), i)``, from which the block draws
+        its masks.
 
         ``exit_layer`` (an int in [1, depth]) runs only the first
         ``exit_layer`` blocks, then ``ln_f`` and ``lm_head``: the early-exit
@@ -325,14 +308,22 @@ class CausalTransformer(nn.Module):
             x = (x + self.pos_embed[0][pos_full]).to(self.dtype)
         else:
             x = (x + self.pos_embed[:, :L]).to(self.dtype)
+        seed = None
+        if train and self.dropout > 0.0:
+            if rng is None:
+                raise ValueError(f"dropout {self.dropout} in training needs "
+                                 f"rng (an int seed or a torch.Generator)")
+            seed = seed_of(rng)
         remat = self.remat and not decode and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks()[:run_depth]):
+            drop = dict(train=train, dropout_seed=(
+                None if seed is None else fold_in(seed, i)))
             if remat:
-                x = checkpoint(block, x, valid, use_reentrant=False)
+                x = checkpoint(block, x, valid, use_reentrant=False, **drop)
             else:
                 x = block(x, valid, decode=decode, positions=positions,
                           pages=pages, seq_lens=seq_lens, cache=cache,
-                          layer=i)
+                          layer=i, **drop)
         x = self.ln_f(x).to(self.dtype)
         if return_hidden:
             return x

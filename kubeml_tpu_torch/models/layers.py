@@ -21,6 +21,20 @@ QuantizedTensor`. Dense kernels take ``nn.Dense``'s math in the layer's
 compute dtype; quantized kernels go through ``serving.quant.quantized_dot``
 (the int8-matmul kernel or its plain version).
 
+:class:`DenseGeneral`, :class:`Embed` and :class:`LayerNorm` are the
+encoders' blocks in Flax's layout and numerics (``DenseGeneral`` keeps
+Flax's multi-axis kernels, e.g. ``[E, H, D]`` or ``[H, D, E]``;
+``LayerNorm`` Flax's epsilon 1e-6 with f32 statistics).
+
+Dropout draws its masks from an explicit ``torch.Generator``, never from
+the global RNG: :class:`Dropout` takes the generator in its forward.
+Seeds are plain integers mixed by :func:`fold_in` (a SplitMix64 hash of
+the seed and a datum), the counterpart of ``jax.random.fold_in``: JAX's
+threefry bits cannot be reproduced, so the masks differ from JAX's, but
+the same seed always draws the same masks and different data different
+ones. :func:`seed_of` turns a caller's ``rng`` (an int seed or a
+generator) into such an integer.
+
 :func:`load_tree` copies a flat tree (``from_flax`` output, or a
 ``state_dict`` passed through ``quantize_tree``) into a module, installing
 quantized kernels where the tree holds them.
@@ -28,6 +42,7 @@ quantized kernels where the tree holds them.
 
 from __future__ import annotations
 
+import inspect
 import math
 from typing import Mapping, Optional, Sequence, Tuple, Union
 
@@ -215,22 +230,161 @@ def lecun_normal_(t: torch.Tensor, fan_in: int,
     nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
 
 
+# --- the encoders' blocks ------------------------------------------------
+
+
+class DenseGeneral(nn.Module):
+    """Flax ``nn.DenseGeneral`` contracting the input's last ``len(in_shape)``
+    axes: kernel ``[*in_shape, *features]``, bias ``[*features]``, the
+    product in the layer's compute ``dtype``."""
+
+    def __init__(self, in_shape: Sequence[int], features: Sequence[int],
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.in_shape = tuple(int(d) for d in in_shape)
+        self.features = tuple(int(d) for d in features)
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.empty(*self.in_shape,
+                                               *self.features))
+        self.bias = (nn.Parameter(torch.zeros(*self.features)) if use_bias
+                     else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.dtype
+        y = torch.tensordot(x.to(d), self.kernel.to(d),
+                            dims=len(self.in_shape))
+        if self.bias is not None:
+            y = y + self.bias.to(d)
+        return y
+
+
+class Embed(nn.Module):
+    """Flax ``nn.Embed``: param ``embedding [vocab, features]``; rows come
+    out in f32."""
+
+    def __init__(self, num: int, features: int):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.empty(num, features))
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.embedding[ids]
+
+
+class LayerNorm(nn.Module):
+    """Flax ``nn.LayerNorm(dtype=float32)``: params ``scale``/``bias``,
+    statistics and output in f32, epsilon 1e-6 (Flax's default; PyTorch's
+    is 1e-5)."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), (x.shape[-1],), self.scale, self.bias,
+                            self.eps)
+
+
+# --- dropout on explicit generators ---------------------------------------
+
+_MASK64 = (1 << 64) - 1
+
+
+def _mix64(z: int) -> int:
+    """SplitMix64's finaliser."""
+    z = (z + 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A new 63-bit seed from ``seed`` and ``data`` (the counterpart of
+    ``jax.random.fold_in``): ``mix(mix(seed) ^ data)`` with SplitMix64's
+    finaliser, so nearby seeds and data give unrelated results."""
+    return _mix64(_mix64(int(seed) & _MASK64) ^ (int(data) & _MASK64)) >> 1
+
+
+def seed_of(rng: Union[int, torch.Generator]) -> int:
+    """An integer seed from a caller's ``rng``: an int is its own seed; a
+    generator gives one 62-bit draw (on its device: a CUDA generator waits
+    for the draw)."""
+    if isinstance(rng, torch.Generator):
+        return int(torch.randint(0, 1 << 62, (1,), generator=rng,
+                                 device=rng.device).item())
+    return int(rng)
+
+
+def make_generator(seed: int,
+                   device: Union[str, torch.device]) -> torch.Generator:
+    """A fresh generator on ``device`` seeded with ``seed``."""
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+class Dropout(nn.Module):
+    """Flax ``nn.Dropout``: at ``train=True`` each element is kept with
+    probability ``1 - rate`` and scaled by ``1 / (1 - rate)``, its mask
+    drawn from ``rng`` (a ``torch.Generator`` on the input's device); the
+    identity at ``train=False`` or rate 0, zeros at rate 1."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not train or self.rate == 0.0:
+            return x
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        if rng is None:
+            raise ValueError(f"dropout at rate {self.rate} in training needs "
+                             f"a generator (pass rng)")
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def takes_rng(module: nn.Module) -> bool:
+    """Whether ``module``'s forward takes a dropout generator (``rng``)."""
+    return "rng" in inspect.signature(module.forward).parameters
+
+
 @torch.no_grad()
 def flax_init_(module: nn.Module,
                generator: Optional[torch.Generator] = None) -> nn.Module:
-    """Initialise ``module``'s :class:`Conv`, :class:`QuantizableDense`
-    and :class:`BatchNorm` layers in place as Flax would (kernels
-    ``lecun_normal`` in registration order from ``generator``, zero
-    biases, unit scales and variances, zero means). Returns the module."""
+    """Initialise ``module``'s layers in place as Flax would, in
+    registration order from ``generator``: :class:`Conv`,
+    :class:`QuantizableDense` and :class:`DenseGeneral` kernels
+    ``lecun_normal`` (the fan-in is the product of the contracted axes),
+    :class:`Embed` tables Flax's default embedding initialiser (a normal,
+    not truncated, of variance ``1 / width``), zero biases, unit
+    BatchNorm and LayerNorm scales and variances, zero means; a module's
+    own ``pos_embed`` normal(0.02) and ``cls`` zeros. Returns the
+    module."""
     for m in module.modules():
+        own = m._parameters
+        if isinstance(own.get("pos_embed"), nn.Parameter):
+            m.pos_embed.normal_(0.0, 0.02, generator=generator)
+        if isinstance(own.get("cls"), nn.Parameter):
+            m.cls.zero_()
         if isinstance(m, Conv):
             lecun_normal_(m.kernel, m.kernel[0].numel(), generator)
         elif isinstance(m, QuantizableDense) and not m.quantized:
             lecun_normal_(m.kernel, m.kernel.shape[0], generator)
+        elif isinstance(m, DenseGeneral):
+            lecun_normal_(m.kernel, math.prod(m.in_shape), generator)
+        elif isinstance(m, Embed):
+            m.embedding.normal_(0.0, m.embedding.shape[1] ** -0.5,
+                                generator=generator)
+            continue
         elif isinstance(m, BatchNorm):
             m.scale.fill_(1.0)
             m.mean.zero_()
             m.var.fill_(1.0)
+        elif isinstance(m, LayerNorm):
+            m.scale.fill_(1.0)
         else:
             continue
         if m.bias is not None:

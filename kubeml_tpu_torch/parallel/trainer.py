@@ -137,25 +137,29 @@ class SPMDTrainer:
             x = self.input_transform(x)
         return tokens, x
 
-    def _loss(self, tokens, x, train: bool) -> torch.Tensor:
+    def _loss(self, tokens, x, train: bool, rng=None) -> torch.Tensor:
+        kw = {} if rng is None else {"rng": rng}
         if self.logits_chunk is not None:
-            hidden = self.module(x, train=train, return_hidden=True)
+            hidden = self.module(x, train=train, return_hidden=True, **kw)
             kernel = self.module.lm_head.kernel.to(hidden.dtype)
             return chunked_lm_loss(hidden, kernel, tokens,
                                    chunk=self.logits_chunk)
-        return self.loss_fn(self.module(x, train=train).float(), tokens)
+        return self.loss_fn(self.module(x, train=train, **kw).float(),
+                            tokens)
 
     def train_step(self, batch, rng=None) -> torch.Tensor:
         """One optimizer step on a batch; returns the loss (a detached
-        device scalar, computed before the update). ``rng`` is accepted
-        for the JAX signature: with dropout 0.0 no randomness is drawn.
-        Each parameter's ``grad`` holds this step's gradient afterwards."""
+        device scalar, computed before the update). ``rng`` (an int seed
+        or a ``torch.Generator``, as the JAX step's dropout key) goes to
+        the module, whose dropout draws from it; a module with dropout 0.0
+        draws nothing. Each parameter's ``grad`` holds this step's
+        gradient afterwards."""
         if self.opt is None:
             raise RuntimeError("call init() before train_step()")
         self.module.train()
         tokens, x = self._inputs(batch)
         self.opt.zero_grad(set_to_none=True)
-        loss = self._loss(tokens, x, train=True)
+        loss = self._loss(tokens, x, train=True, rng=rng)
         loss.backward()
         self.opt.step()
         return loss.detach()

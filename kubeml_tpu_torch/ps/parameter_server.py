@@ -542,7 +542,7 @@ class ParameterServer:
         model, tree, _ = self._load_serving(model_id)
         variables = {c: {k: v.to(self.device) for k, v in leaves.items()}
                      for c, leaves in from_flax_variables(
-                         self._densified(tree)).items()}
+                         self._densified(tree), model.module).items()}
         model.module.to(self.device)  # as the trainer's, on the device
         self.metrics.task_started("inference")
         try:

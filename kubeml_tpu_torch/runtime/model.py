@@ -4,7 +4,8 @@
 The user writes a model and never touches devices or distribution:
 
 * ``build()`` returns an ``nn.Module`` (required) whose ``forward(x,
-  train)`` gives logits;
+  train)`` gives logits (a module with dropout also takes ``rng``, the
+  ``torch.Generator`` its masks are drawn from);
 * ``per_sample_loss``/``per_sample_correct`` act on logits and return
   per-sample vectors: the engine applies validity masks and reductions, so
   padded batches and failed workers stay out of user code;
@@ -33,7 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..data.dataset import KubeDataset
-from ..models.layers import flax_init_
+from ..models.layers import flax_init_, takes_rng
 
 Variables = Dict[str, Dict[str, torch.Tensor]]
 
@@ -112,17 +113,22 @@ class KubeModel(ABC):
         ``build``."""
         return module_variables(flax_init_(self.build(), generator))
 
-    def forward(self, variables: Variables, x: torch.Tensor, train: bool
+    def forward(self, variables: Variables, x: torch.Tensor, train: bool,
+                rng: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, Variables]:
         """Run the module on ``variables``; returns (logits, updated mutable
         state). The state (BatchNorm statistics) is updated, in a copy, only
-        when training."""
+        when training. ``rng``, a generator on ``x``'s device, goes to a
+        module whose forward takes one (its dropout draws from it), and
+        only when training, as the JAX package passes its dropout key."""
         stats = variables.get("batch_stats", {})
         if train:
             stats = {k: v.clone() for k, v in stats.items()}
+        kw = {"train": train}
+        if train and rng is not None and takes_rng(self.module):
+            kw["rng"] = rng
         logits = torch.func.functional_call(
-            self.module, {**variables["params"], **stats}, (x,),
-            {"train": train})
+            self.module, {**variables["params"], **stats}, (x,), kw)
         return logits, ({"batch_stats": stats} if train and stats else {})
 
     def preprocess(self, x: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,10 @@ fault confined to late tiles is held to those tiles' own values. f32 1e-5
 (both sum in f32, the kernel with an online softmax over 64-key tiles);
 bf16 2^-7, one bf16 ulp of each value (the tensor-core products sum in
 another order, so a value can round to the neighbouring bf16). lse is f32
-in both dtypes: 1e-5, over the rows that attend at least one key.
+in both dtypes: 1e-5, over the rows that attend at least one key. dQ and
+dK tiles that are 0 but for rounding (a query attending one key has no
+softmax gradient) are held to a bound of that rounding instead
+(``cancellation_floors``).
 """
 
 import pytest
@@ -34,18 +37,48 @@ def card():
 TILE_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 
 
-def assert_tiles_close(a, b, dtype):
+def tile_sq(t):
+    """Squared Frobenius norms of the 64-row tiles of each (batch, head):
+    ``[B, L, H, D]`` tiles along L, lse ``[B, H, L]`` along its last
+    dim."""
+    t = t.float().square()
+    if t.dim() == 4:
+        t = t.sum(-1).transpose(1, 2)
+    return F.pad(t, (0, -t.shape[-1] % 64)).unflatten(-1, (-1, 64)).sum(-1)
+
+
+def assert_tiles_close(a, b, dtype, floor=None):
     """Every 64-row tile of each (batch, head) within ``TILE_RTOL[dtype]``
-    relative Frobenius error: ``[B, L, H, D]`` tiles along L, lse
-    ``[B, H, L]`` along its last dim."""
-    e, r = (a.float() - b.float()).square(), b.float().square()
-    if a.dim() == 4:
-        e, r = (t.sum(-1).transpose(1, 2) for t in (e, r))
-    pad = -e.shape[-1] % 64
-    e, r = (F.pad(t, (0, pad)).unflatten(-1, (-1, 64)).sum(-1)
-            for t in (e, r))
-    err = (e / r.clamp_min(1e-30)).sqrt().max().item()
+    relative Frobenius error; with ``floor`` (a rounding bound, see
+    ``cancellation_floors``), a tile whose reference and kernel values
+    both lie within it is 0 but for rounding and passes."""
+    e, r = tile_sq(a - b.float()), tile_sq(b)
+    rel = (e / r.clamp_min(1e-30)).sqrt()
+    if floor is not None:
+        f = tile_sq(floor)
+        rel = rel.where(~((r <= f) & (tile_sq(a) <= f)),
+                        torch.zeros_like(rel))
+    err = rel.max().item()
     assert err <= TILE_RTOL[dtype], f"tile relative error {err}"
+
+
+def cancellation_floors(q, k, v, do, out, lse, valid, causal):
+    """Rounding bounds of dQ and dK where dS = P (dP - dsum) scale cancels
+    (0 in exact arithmetic for a query attending one key): dP and dsum are
+    D-term f32 sums of exact bf16 products, each within gamma_D = D u /
+    (1 - D u) of the sum of |terms| (u = 2^-23, a margin over f32's
+    2^-24), so dQ's floor is 2 gamma_D scale sum_k P |dO|.(|V_k| + |O|)
+    |K_k| and dK's the same with |Q_q| (``chip_smoke.py``'s)."""
+    D = q.shape[-1]
+    u = 2.0 ** -23
+    gamma = 2 * D * u / (1 - D * u)
+    p = fa._probs(fa._masked_scores(q, k, valid, causal), lse[..., None])
+    ado, av, aq, ak = (t.float().abs() for t in (do, v, q, k))
+    terms = (torch.einsum("bqhd,bkhd->bhqk", ado, av)
+             + (ado * out.float().abs()).sum(-1).transpose(1, 2)[..., None])
+    ds = gamma * fa._scale(D) * p * terms
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, ak),
+            torch.einsum("bhqk,bqhd->bkhd", ds, aq))
 
 
 def run(g, B, Lq, Lk, H, D, dtype, causal, valid=None, strided=False):
@@ -70,9 +103,10 @@ def run(g, B, Lq, Lk, H, D, dtype, causal, valid=None, strided=False):
     assert_tiles_close(lse.where(live, 0.0), rl.where(live, 0.0),
                        torch.float32)
     assert (lse[~live] < -1e29).all()
-    for a, b, c in zip(grads, again, refs):
+    floors = cancellation_floors(q, k, v, do, ro, rl, valid, causal)
+    for a, b, c, f in zip(grads, again, refs, floors + (None,)):
         assert torch.equal(a, b)  # no atomics: bit-identical on repeat
-        assert_tiles_close(a, c, dtype)
+        assert_tiles_close(a, c, dtype, f)
     return (out, lse, *grads)
 
 
@@ -124,6 +158,32 @@ def test_fully_masked_rows(card, dtype):
     for t in (dq[0], dk[0], dv[0]):
         assert t.abs().max() == 0
     assert all(torch.isfinite(t).all() for t in (out, dq, dk, dv))
+
+
+def encoder_valid(B, L):
+    """BERT's trailing padding: 0-120 PAD keys a row (seeded), row 1
+    keeping only [CLS]."""
+    g = torch.Generator().manual_seed(1)
+    pads = torch.randint(0, 121, (B,), generator=g)
+    pads[0], pads[1] = 0, L - 1
+    return (torch.arange(L)[None, :] < (L - pads)[:, None]).float()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ["vit 65x65", "bert 128 padded"])
+def test_encoder_shapes(card, dtype, shape):
+    """The encoders' non-causal self-attention: ViT-Tiny (B 256, L 65,
+    H 3: one 64-key tile and a tail of one key; the second query
+    warpgroup of a 128-query block holds one real row) and BERT-base
+    (B 32, L 128, H 12, trailing padding): padded keys' dK/dV exactly 0."""
+    if shape.startswith("vit"):
+        run(card, 256, 65, 65, 3, 64, dtype, False)
+        return
+    valid = encoder_valid(32, 128)
+    out, lse, dq, dk, dv = run(card, 32, 128, 128, 12, 64, dtype, False,
+                               valid)
+    dead = valid == 0
+    assert dk[dead].abs().max() == 0 and dv[dead].abs().max() == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

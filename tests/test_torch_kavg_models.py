@@ -218,3 +218,85 @@ def test_flax_init_statistics():
     assert torch.all(a.BatchNorm_0.scale == 1)
     assert torch.all(a.BasicBlock_0.BatchNorm_0.var == 1)
     assert not any("num_batches" in n for n, _ in a.named_buffers())
+
+
+# --- K-AVG rounds of the encoders against the JAX KAvgTrainer ---------------
+# One round of N 2 workers, K 2 steps of SGD with momentum 0.9, dropout 0
+# (the masks of JAX's threefry bits cannot be reproduced; the dropout rules
+# are held in tests/test_torch_dropout.py), f32: the merged weights within
+# 1e-4 absolute and the loss within 1e-5 relative, the tolerances of
+# tests/test_torch_kavg.py (~1e-7 observed: the frameworks sum in other
+# orders).
+ROUND_W_ATOL, ROUND_LOSS_RTOL = 1e-4, 1e-5
+
+
+def _encoder_pair(kind):
+    from kubeml_tpu.models import bert as jbert, vit as jvit
+    from kubeml_tpu_torch.models import bert as tbert, vit as tvit
+
+    r = np.random.default_rng({"vit": 10, "bert": 11}[kind])
+    if kind == "vit":
+        kw = dict(num_classes=4, patch_size=4, embed_dim=32, depth=2,
+                  num_heads=2)
+        pair = jvit.ViT(**kw), tvit.ViT(**kw, in_shape=(16, 16, 3))
+        x = r.normal(size=(2, 2, 4, 16, 16, 3)).astype(np.float32)
+    else:
+        kw = dict(num_classes=4, vocab_size=100, max_len=16, embed_dim=32,
+                  depth=2, num_heads=2, mlp_dim=64, dropout=0.0)
+        pair = jbert.BertClassifier(**kw), tbert.BertClassifier(**kw)
+        x = r.integers(1, 100, size=(2, 2, 4, 16)).astype(np.int32)
+        x[:, :, 1, 9:] = 0  # trailing padding
+    y = r.integers(0, 4, size=(2, 2, 4)).astype(np.int64)
+    return pair, x, y, np.ones((2, 2, 4), np.float32)
+
+
+@pytest.mark.parametrize("kind", ["vit", "bert"])
+def test_encoder_sync_round_matches_jax(kind):
+    import optax
+
+    from kubeml_tpu.engine.kavg import KAvgTrainer as JTrainer
+    from kubeml_tpu.runtime.model import KubeModel as JKubeModel
+    from kubeml_tpu_torch.data.dataset import KubeDataset
+    from kubeml_tpu_torch.engine.kavg import KAvgTrainer
+    from kubeml_tpu_torch.runtime.model import KubeModel
+
+    (jmod, tmod), x, y, m = _encoder_pair(kind)
+
+    class _Data:
+        dataset = "synthetic"
+
+    class JNet(JKubeModel):
+        def __init__(self):
+            super().__init__(_Data())
+
+        def build(self):
+            return jmod
+
+        def configure_optimizers(self):
+            return optax.sgd(self.lr, momentum=0.9)
+
+    class TNet(KubeModel):
+        def __init__(self):
+            super().__init__(KubeDataset("synthetic"))
+
+        def build(self):
+            return tmod
+
+        def configure_optimizers(self, params):
+            return torch.optim.SGD(params, lr=self.lr, momentum=0.9)
+
+    j = JTrainer(JNet(), precision="f32", devices=jax.devices()[:1],
+                 donate=False)
+    t = KAvgTrainer(TNet(), precision="f32", device="cpu")
+    jv = j.init_variables(jax.random.PRNGKey(0), x[0, 0], 2)
+    tv = t.place_reference(from_flax_variables(j.reference_variables(jv),
+                                               tmod), 2)
+    jv, jl = j.sync_round(jv, x, y, m, jax.random.PRNGKey(1), lr=0.05)
+    tv, tl = t.sync_round(tv, x, y, m, lr=0.05, rng=1)
+    assert abs(float(tl) - float(jl)) <= ROUND_LOSS_RTOL * abs(float(jl))
+    want = from_flax_variables(j.reference_variables(jv), tmod)["params"]
+    got = t.reference_variables(tv)["params"]
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k], w.numpy(), atol=ROUND_W_ATOL,
+                                   rtol=0, err_msg=k)

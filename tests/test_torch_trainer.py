@@ -259,8 +259,19 @@ def test_twin_carries_dtype_remat_dropout():
     jm = jax_tiny(max_len=16, dtype=jnp.bfloat16, remat=True)
     tm = torch_twin(jm, jax_init(jm))
     assert (tm.dtype, tm.remat, tm.dropout) == (torch.bfloat16, True, 0.0)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        torch_twin(jax_tiny(max_len=16, dropout=0.1), jax_init(jm))
+    # dropout > 0 is ported: the twin carries it, and at eval (no masks)
+    # its forward is JAX's
+    jd = jax_tiny(max_len=16, dropout=0.1)
+    variables = jax_init(jd)
+    td = torch_twin(jd, variables)
+    assert td.dropout == 0.1
+    ids = batches(seed=3, n=1)[0]
+    with torch.no_grad():
+        np.testing.assert_allclose(td(torch.from_numpy(ids)).numpy(),
+                                   np.asarray(jd.apply(variables, ids)),
+                                   **TOL)
+    with pytest.raises(ValueError, match="needs rng"):
+        td(torch.from_numpy(ids), train=True)
 
 
 def test_unported_options_raise():
