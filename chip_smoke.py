@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (one NVIDIA H100): the paged
 serving path, the GPT training path, K-AVG training, checkpoints served
-through the parameter server, the control plane, and the encoders. Run
+through the parameter server, the control plane, the encoders, and MoE
+with the dense slot engine. Run
 from the repo root::
 
     python3 chip_smoke.py
@@ -186,7 +187,35 @@ Phases, each reported on its own lines:
    ``data.transforms``' CIFAR recipes, on a seeded CIFAR-100-shaped set
    (8192 + 1024), 2 epochs at parallelism 2, a checkpoint every epoch:
    the loss falls, the checkpoints exist, the flash kernels launch;
-15. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+15. MoE and the dense slot engine - (a) the flash kernels at
+   ``bench_moe``'s shape (B 16, L 512, 12 heads of 64, causal) held as in
+   phase 7 in bf16 and f32, with kernel / plain / SDPA / bound ms; then
+   ``bench_moe``'s configuration (the GPT-2-small skeleton, vocab 32000,
+   8 experts, top-2, an MoE block every other block, bf16, AdamW 3e-4)
+   trained by ``SPMDTrainer`` over a one-device mesh at B 16 x L 512
+   (``benchmarks.transformers.MoEBench``): each flash kernel launches
+   exactly 12 times a step (12 blocks, no remat), the loss falls, the
+   overflow lies in [0, 1]; tokens/s and step ms (best of 3 x 8 steps),
+   peak memory, analytic FLOPs a step against the bf16 peak beside the
+   useful expert FFNs and the dispatch/combine share, a profiled window
+   of 2 steps (idle share, top kernels); (b) those weights' f32 copy
+   saved as ``final`` and quantized into ``final-int8``, each served by
+   ``ParameterServer.generate`` through the dense ``BatchingDecoder`` (8
+   slots; 16 requests from threads, prompts 16-400 tokens, 32-96 new):
+   greedy tokens equal to the one-shot dense ``generate`` per request
+   but where its two largest logits at the first difference lie within
+   ``NEAR_TIE``, and none of the five kernels launches (MoE decode
+   attends over a dense cache on the plain path, int8 dequantized in each
+   step); (c) phase 4's GPT-2-small weights served with
+   ``serving_paged=False`` (the dense engine) through the parameter
+   server: f32 greedy tokens equal to phase 4's paged engine and int8
+   (``serving_quantize=int8``, the int8 matmul) tokens equal to a paged
+   engine with the same int8 weights and f32 pages, near ties as in
+   phase 6; under int8, ``int8_matmul`` launches 73 times a forward and
+   paged attention never; seeded sampling (``SAMPLE``) gives the same
+   tokens dense and paged; tokens/s, TTFT p50 and decode-step ms of each
+   engine in ``benchmarks/paged_serving.py``'s row form;
+16. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Any failure raises and the script exits non-zero; without a CUDA device it
 exits non-zero before printing any result.
@@ -719,6 +748,8 @@ def time_steps(dec):
     decoding rows). Returns the dict the wrappers fill; ``del
     dec._decode_chunk, dec._spec_step`` removes them."""
     acc = {"seconds": 0.0, "steps": 0, "row_steps": 0}
+    if not hasattr(dec, "_spec_step"):  # the dense engine
+        dec._spec_step = None
 
     def timed(fn, steps_of):
         def call(arg):
@@ -731,7 +762,8 @@ def time_steps(dec):
         return call
 
     dec._decode_chunk = timed(dec._decode_chunk, lambda size: size)
-    dec._spec_step = timed(dec._spec_step, lambda k: 1)
+    if dec._spec_step is not None:
+        dec._spec_step = timed(dec._spec_step, lambda k: 1)
     return acc
 
 
@@ -3379,6 +3411,430 @@ def encoder_phase(smi, root):
     return rows, tuple(int(c) for c in total), bert_row, vit_row
 
 
+# --- phase 15: MoE and the dense slot engine -------------------------------
+
+# bench_moe (kubeml_tpu/benchmarks/transformers.py:107-158) at full width:
+# the GPT-2-small skeleton, vocab 32000, L 512, 12 heads of 64, 12 blocks
+# (an MoE block every other one: 8 experts, top-2), B 16, bf16; no remat
+MOE_B, MOE_L, MOE_H, MOE_DEPTH, MOE_VOCAB = 16, 512, 12, 12, 32000
+MOE_STEPS = 8
+MOE_JOB, DENSE_JOB = "gpt-moe", "gpt2-dense"
+# bench_moe's model in f32 as a registered function: the parameter server
+# builds it and loads the trained weights' f32 copy into it
+MOE_FN = """
+from kubeml_tpu_torch.data.dataset import KubeDataset
+from kubeml_tpu_torch.models.gpt import CausalTransformer
+from kubeml_tpu_torch.runtime.model import KubeModel
+
+
+class MoE(KubeModel):
+    def __init__(self):
+        super().__init__(KubeDataset("tokens"))
+
+    def build(self):
+        return CausalTransformer(vocab_size=%d, max_len=%d, embed_dim=768,
+                                 depth=%d, num_heads=12, moe_every=2,
+                                 num_experts=8, top_k=2, seed=%d,
+                                 device="cpu")
+"""
+
+
+def moe_f32():
+    """bench_moe's model in f32 on the card (MOE_FN's module)."""
+    from kubeml_tpu_torch.models.gpt import CausalTransformer
+
+    return CausalTransformer(vocab_size=MOE_VOCAB, max_len=MOE_L,
+                             embed_dim=768, depth=MOE_DEPTH, num_heads=12,
+                             moe_every=2, num_experts=8, top_k=2, seed=SEED,
+                             device="cuda").eval()
+
+
+def moe_workload(rng):
+    """16 requests: prompts of 16-400 tokens, 32-96 new tokens."""
+    return [dict(prompt=rng.integers(1, MOE_VOCAB,
+                                     size=int(rng.integers(16, 401))
+                                     ).astype(np.int32),
+                 max_new=int(rng.integers(32, 97))) for _ in range(16)]
+
+
+def serve_mix_ps(ps, job, reqs, sample: bool = False):
+    """The requests from threads through ``ps.generate`` (sampled with
+    ``SAMPLE``'s knobs, request i seeded 1000 + i, when ``sample``).
+    Returns the token lists, tokens/s and the decoder's telemetry."""
+    from kubeml_tpu_torch.api import GenerateRequest
+
+    results, errors = [None] * len(reqs), []
+
+    def client(i):
+        r = reqs[i]
+        knobs = dict(SAMPLE, seed=1000 + i) if sample else {}
+        try:
+            results[i] = ps.generate(job, GenerateRequest(
+                prompts=[r["prompt"].tolist()], max_new_tokens=r["max_new"],
+                **knobs))
+        except Exception as e:  # surfaced below, after the join
+            errors.append(e)
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    wall = time.monotonic() - t0
+    if errors:
+        raise errors[0]
+    toks = [r["tokens"][0][:r["lengths"][0]] for r in results]
+    n = sum(map(len, toks))
+    return dict(tokens=toks, n=n, wall=wall, tokens_per_s=n / wall,
+                tele=ps._decoders[job][0].telemetry())
+
+
+def report_dense(tag, run, smi, launches) -> None:
+    from kubeml_tpu_torch.benchmarks.paged_serving import telemetry_row
+
+    r = telemetry_row(run["tele"], run["tokens_per_s"])
+    log(f"  {tag} [{smi}]: {run['n']} tokens in {run['wall']:.3f} s = "
+        f"{run['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+        f"{1e3 * r['ttft_p50_seconds']:.1f} ms, decode step "
+        f"{r['decode_step_ms']:.3f} ms ({int(run['tele']['device_steps'])} "
+        f"steps, {int(run['tele']['admission_waves'])} prefill waves, "
+        f"occupancy {r['batch_occupancy_ratio']:.3f}); launches "
+        f"paged_attention {launches[0]}, int8_matmul {launches[1]}, flash "
+        f"{sum(launches[2:])}")
+
+
+def dense_logits(module, prompt, forced):
+    """The next-token logits after ``prompt + forced`` through ``module``'s
+    dense decode path (one prefill: the decode path is causally
+    consistent, MoE routing uncapped)."""
+    from kubeml_tpu_torch.models.generation import init_cache
+
+    ids = torch.tensor([list(prompt) + list(forced)], device="cuda")
+    with torch.inference_mode():
+        return module(ids, decode=True,
+                      cache=init_cache(module, 1))[0, -1].float()
+
+
+def check_one_shot(tag, got, module, reqs, tie=NEAR_TIE):
+    """Greedy serving tokens against the one-shot dense ``generate`` per
+    request on ``module``: identical, or diverging only where the one-shot
+    path's two largest logits at the first differing position lie within
+    ``tie`` (logged). Returns (the one-shot token lists, the near ties)."""
+    from kubeml_tpu_torch.models.generation import generate
+
+    want, ties = [], []
+    for i, r in enumerate(reqs):
+        out = generate(module, r["prompt"][None], max_new_tokens=r["max_new"])
+        w = out.tokens[0, :int(out.lengths[0])].tolist()
+        want.append(w)
+        if got[i] == w:
+            continue
+        j = next((n for n, (a, b) in enumerate(zip(got[i], w)) if a != b),
+                 None)
+        if j is None:
+            raise AssertionError(f"{tag}: request {i} emitted "
+                                 f"{len(got[i])} tokens, one-shot {len(w)}")
+        top = dense_logits(module, r["prompt"], w[:j]).topk(2).values
+        gap = (top[0] - top[1]).item()
+        log(f"  {tag}: request {i} differs at token {j} ({got[i][j]} vs "
+            f"{w[j]}); one-shot top-two logit gap {gap:.3e}")
+        if not gap <= tie:
+            raise AssertionError(f"{tag}: greedy tokens differ from the "
+                                 f"one-shot generate (request {i}, token "
+                                 f"{j}, gap {gap:.3e} > {tie})")
+        ties.append((i, j))
+    return want, ties
+
+
+def moe_train(smi):
+    """15a: the flash kernels at bench_moe's shape against their plain
+    versions (bf16 and f32) with kernel / plain / SDPA / bound ms, then
+    bench_moe's configuration trained by SPMDTrainer (the flash counts
+    zeroed before and read after): one warm-up and 3 x MOE_STEPS timed
+    steps, each flash kernel 12 launches a step, the loss falling, the
+    overflow in [0, 1]; a profiler window of 2 steps. Returns the bench,
+    its row, the bf16 errors, the times and the launches."""
+    from kubeml_tpu_torch.benchmarks.transformers import MoEBench
+
+    timer = Timer()
+    g = torch.Generator().manual_seed(SEED + 15)
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do, valid = flash_inputs(g, MOE_B, MOE_L, MOE_L, 64, dtype,
+                                          heads=MOE_H)
+        errs[dtype] = check_flash_case("k moe 512 causal", q, k, v, do,
+                                       valid, True)
+        if dtype == torch.bfloat16:
+            times = flash_times(timer, q, k, v, do, valid, True)
+        del q, k, v, do, valid
+    log(f"  flash k moe 512 causal bf16 times [{smi}]: " + json.dumps(times))
+    del timer
+    torch.cuda.empty_cache()
+
+    bench = MoEBench(MOE_B, MOE_L, device="cuda")
+    reset_flash_counts()
+    row = bench.measure(MOE_STEPS, reps=3)
+    busy = device_profile(lambda: [bench.step() for _ in range(2)])[0]
+    counts = flash_counts()
+    n = bench.steps_run
+    per_step = tuple(row["flash_launches_per_step"].values())
+    if counts != (MOE_DEPTH * n,) * 3 or per_step != (MOE_DEPTH,) * 3:
+        raise AssertionError(f"15a: flash launches {counts} over {n} steps "
+                             f"(one step {per_step}), want {MOE_DEPTH} each "
+                             f"a step")
+    losses = row["losses"]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"15a: loss {losses[0]} -> {losses[-1]}")
+    if not 0.0 <= row["moe_overflow"] <= 1.0:
+        raise AssertionError(f"15a: overflow {row['moe_overflow']}")
+    terms = row["flops_forward_terms"]
+    log(f"  15a gpt-moe [{smi}]: {row['value']:.1f} tokens/s, "
+        f"{row['steps_per_sec']:.3f} steps/s, step {row['step_ms']:.3f} ms "
+        f"(B {MOE_B}, L {MOE_L}; best of 3 x {MOE_STEPS} steps), max memory "
+        f"allocated {row['max_memory_allocated'] / 2**30:.3f} GiB "
+        f"({row['memory_allocated_at_start'] / 2**30:.3f} at the start, "
+        f"earlier phases' tensors included); moe_overflow "
+        f"{row['moe_overflow']:.4f} (capacity {row['capacity']}); loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} over {len(losses)} steps; "
+        f"flash launches a step {row['flash_launches_per_step']}")
+    log(f"  15a FLOPs a step (analytic, 3 x forward): "
+        f"{row['flops_per_step'] / 1e12:.3f} TFLOP = {row['mfu']:.4f} of the "
+        f"bf16 dense peak; useful expert FFNs (top-2, kept) "
+        f"{row['useful_expert_ffn_flops_per_step'] / 1e12:.3f} TFLOP = "
+        f"{row['useful_expert_ffn_peak_fraction']:.4f}; forward terms "
+        + ", ".join(f"{k} {v / 1e9:.1f} GF" for k, v in terms.items())
+        + f"; the one-hot dispatch and combine cost "
+        f"{row['dispatch_combine_over_expert_ffn']:.2f} x the expert FFNs "
+        f"at capacity")
+    if busy > 0:
+        log(f"  15a: device busy {busy / 2:.3f} ms a step, unprofiled step "
+            f"{row['step_ms']:.3f} ms: idle share "
+            f"{1 - busy / (2 * row['step_ms']):.3f}")
+    return bench, row, errs[torch.bfloat16], times, counts
+
+
+def moe_serve(smi, root, bench):
+    """15b: 15a's weights (an f32 copy) saved as ``final`` and quantized
+    into ``final-int8``, each served from threads through
+    ``ParameterServer.generate`` by the dense engine (8 slots): greedy
+    tokens equal to the one-shot dense ``generate`` per request but for
+    near ties; no hand-written kernel launches (MoE decode attends over a
+    dense cache on the plain path and dequantizes int8 in each step)."""
+    from kubeml_tpu_torch.api.config import Config
+    from kubeml_tpu_torch.functions.registry import FunctionRegistry
+    from kubeml_tpu_torch.interop.from_flax import from_flax, to_flax
+    from kubeml_tpu_torch.models.layers import load_tree
+    from kubeml_tpu_torch.ps import ParameterServer
+    from kubeml_tpu_torch.serving import BatchingDecoder
+    from kubeml_tpu_torch.serving.quant import (INT8_TAG, dequantize_tree,
+                                                from_storage_tree,
+                                                quantize_final_checkpoint)
+    from kubeml_tpu_torch.storage import FINAL_TAG, CheckpointStore
+
+    kw = dict(data_root=Path(root), serving_slots=SLOTS,
+              serving_chunk_steps=CHUNK)
+    cfg = Config(**kw)
+    cfg.ensure_dirs()
+    FunctionRegistry(config=cfg).create("moe", MOE_FN % (
+        MOE_VOCAB, MOE_L, MOE_DEPTH, SEED))
+    store = CheckpointStore(config=cfg)
+    tree = to_flax({k: v.float() for k, v in
+                    bench.module.state_dict().items()})
+    store.save(MOE_JOB, tree, epoch=1, tag=FINAL_TAG,
+               meta={"request": {"function_name": "moe"}})
+    quantize_final_checkpoint(MOE_JOB, store)
+    reqs = moe_workload(np.random.default_rng(SEED + 15))
+    ref = moe_f32()
+    out = {}
+    for tag, extra in (("f32", {}),
+                       ("int8", dict(serving_quantize="int8",
+                                     int8_matmul=True))):
+        ps = ParameterServer(config=Config(**kw, **extra))
+        reset_kernel_counts()
+        dec, load_ms, build_ms = cold_serving(ps, MOE_JOB)
+        run = serve_mix_ps(ps, MOE_JOB, reqs)
+        launches = kernel_counts()
+        log(f"  15b {tag}: cold _load_serving {load_ms:.1f} ms, decoder "
+            f"build {build_ms:.1f} ms")
+        if not isinstance(dec, BatchingDecoder) or (
+                tag == "int8" and (dec.quantize != "int8"
+                                   or dec.int8_matmul)):
+            raise AssertionError(f"15b {tag}: served by {type(dec).__name__}"
+                                 f" (quantize {dec.quantize!r}, int8_matmul "
+                                 f"{dec.int8_matmul})")
+        report_dense(f"15b MoE {tag} (dense engine, PS)", run, smi, launches)
+        if any(launches):
+            raise AssertionError(f"15b {tag}: kernels launched {launches}")
+        # the one-shot reference: the same weights, dense (int8: the
+        # final-int8 tree dequantized, the values each step computes)
+        src = (from_storage_tree(store.restore(MOE_JOB, tag=INT8_TAG)
+                                 .variables) if tag == "int8" else tree)
+        load_tree(ref, dequantize_tree(from_flax(src), torch.float32))
+        want, ties = check_one_shot(f"15b {tag}", run["tokens"], ref, reqs)
+        log(f"  15b {tag}: greedy tokens equal to the one-shot dense "
+            f"generate ({run['n']} tokens; near ties {ties or 'none'})")
+        out[tag] = run
+        ps.close()
+        del ps, dec
+        torch.cuda.empty_cache()
+    return out
+
+
+def ab_row(engine, weights, tele, tokens_per_s):
+    """One engine's row in ``benchmarks/paged_serving.py``'s form."""
+    from kubeml_tpu_torch.benchmarks.paged_serving import telemetry_row
+
+    return {"metric": "paged-serving-demo", "engine": engine,
+            "weights": weights, **telemetry_row(tele, tokens_per_s)}
+
+
+def dense_serve(smi, root, run):
+    """15c: phase 4's GPT-2-small weights saved as ``final`` (and
+    ``final-int8``) and served through ``ParameterServer.generate`` with
+    ``serving_paged=False`` (the dense engine): (f32) greedy tokens equal
+    to phase 4's paged engine (``run``) but for near ties; (int8) with
+    ``serving_quantize=int8`` and the int8 matmul: 73 ``int8_matmul``
+    launches a forward, no paged attention, greedy tokens equal to a
+    paged engine with the same int8 weights and f32 pages but for near
+    ties; (sampled) a hand-built dense and paged engine, seeded: the same
+    tokens. Returns the (paged_attention, int8_matmul) launches."""
+    from kubeml_tpu_torch.api.config import Config
+    from kubeml_tpu_torch.functions.registry import FunctionRegistry
+    from kubeml_tpu_torch.interop.from_flax import to_flax
+    from kubeml_tpu_torch.ps import ParameterServer
+    from kubeml_tpu_torch.serving import (BatchingDecoder,
+                                          PagedBatchingDecoder)
+    from kubeml_tpu_torch.serving.quant import quantize_final_checkpoint
+    from kubeml_tpu_torch.storage import FINAL_TAG, CheckpointStore
+
+    kw = dict(data_root=Path(root), serving_slots=SLOTS,
+              serving_chunk_steps=CHUNK, serving_paged=False)
+    cfg = Config(**kw)
+    cfg.ensure_dirs()
+    FunctionRegistry(config=cfg).create("gpt2", GPT2_FN % (VOCAB, MAX_LEN,
+                                                            SEED))
+    store = CheckpointStore(config=cfg)
+    model = gpt2_small()
+    store.save(DENSE_JOB, to_flax(model.state_dict()), epoch=1,
+               tag=FINAL_TAG, meta={"request": {"function_name": "gpt2"}})
+    quantize_final_checkpoint(DENSE_JOB, store)
+    reqs = workload(np.random.default_rng(SEED))
+    prompts = [reqs[5]["prompt"]] + [r["prompt"] for r in reqs]
+    common = dict(slots=SLOTS, page_tokens=PAGE_TOKENS, chunk_steps=CHUNK,
+                  device="cuda")
+    rows, launches = [ab_row("paged", "f32", run["tele"],
+                             run["tokens_per_s"])], [0, 0]
+
+    # f32 through the parameter server
+    ps = ParameterServer(config=cfg)
+    reset_kernel_counts()
+    cold_serving(ps, DENSE_JOB)
+    drun = serve_ps(ps, DENSE_JOB, reqs, run["eos"])
+    f_launches = kernel_counts()
+    if not isinstance(ps._decoders[DENSE_JOB][0], BatchingDecoder):
+        raise AssertionError("15c f32: not served by the dense engine")
+    ps.close()
+    drun["n"] = drun["tokens"]
+    report_dense("15c GPT-2-small f32 (dense engine, PS)", drun, smi,
+                 f_launches)
+    ref_dec = PagedBatchingDecoder(model, **common)
+    ties = check_greedy("15c f32", token_lists(drun), token_lists(run),
+                        prompts, ref_dec, first=-1,
+                        against="phase 4's paged engine")
+    log(f"  15c f32: greedy tokens equal to phase 4's paged engine "
+        f"({drun['tokens']} tokens; near ties {ties or 'none'})")
+    if any(f_launches):
+        raise AssertionError(f"15c f32: kernels launched {f_launches}")
+    rows.append(ab_row("slot", "f32", drun["tele"], drun["tokens_per_s"]))
+    ref_dec.close()
+    del ref_dec, model
+
+    # int8 weights: the paged engine with f32 pages, then the dense one
+    qref = PagedBatchingDecoder(gpt2_small(), quantize="int8",
+                                int8_matmul=True, **common)
+    reset_kernel_counts()
+    qprun = serve(qref, reqs)
+    report_serve("15c paged int8 weights, f32 pages", qprun)
+    rows.append(ab_row("paged", "int8", qprun["tele"],
+                       qprun["tokens_per_s"]))
+    ps = ParameterServer(config=Config(**kw, serving_quantize="int8",
+                                       int8_matmul=True))
+    reset_kernel_counts()
+    cold_serving(ps, DENSE_JOB)
+    qrun = serve_ps(ps, DENSE_JOB, reqs, qprun["eos"])
+    q_launches = kernel_counts()
+    qdec = ps._decoders[DENSE_JOB][0]
+    forwards = int(qrun["tele"]["admission_waves"]
+                   + qrun["tele"]["device_steps"])
+    ps.close()
+    qrun["n"] = qrun["tokens"]
+    report_dense("15c GPT-2-small int8 (dense engine, PS)", qrun, smi,
+                 q_launches)
+    if (not isinstance(qdec, BatchingDecoder) or not qdec.int8_matmul
+            or qdec.int8_matmul_impl != "cuda"):
+        raise AssertionError("15c int8: not the dense engine on the int8 "
+                             "matmul kernel")
+    if q_launches != (0, INT8_PER_FORWARD * forwards, 0, 0, 0):
+        raise AssertionError(f"15c int8: launches {q_launches}, want (0, "
+                             f"{INT8_PER_FORWARD} x {forwards} forwards, 0)")
+    log(f"  15c int8: int8_matmul {q_launches[1]} launches = "
+        f"{INT8_PER_FORWARD} x {forwards} forwards, paged_attention 0")
+    ties = check_greedy("15c int8", token_lists(qrun), token_lists(qprun),
+                        prompts, qref, first=-1,
+                        against="the paged int8 engine")
+    log(f"  15c int8: greedy tokens equal to the paged engine with the same"
+        f" int8 weights ({qrun['tokens']} tokens; near ties "
+        f"{ties or 'none'})")
+    rows.append(ab_row("slot", "int8", qrun["tele"], qrun["tokens_per_s"]))
+    qref.close()
+    launches[1] += q_launches[1]
+    del qref
+
+    # seeded sampling, slot against paged
+    sampled = {}
+    for name, build in (("slot", lambda: BatchingDecoder(
+            gpt2_small(), slots=SLOTS, chunk_steps=CHUNK, device="cuda")),
+            ("paged", lambda: PagedBatchingDecoder(gpt2_small(),
+                                                   **common))):
+        dec = build()
+        sampled[name] = serve(dec, reqs, sample=True)
+        dec.close()
+    a, b = token_lists(sampled["slot"]), token_lists(sampled["paged"])
+    if a != b:
+        bad = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        raise AssertionError(f"15c: seeded sampling differs slot vs paged "
+                             f"(request {bad - 1}): {a[bad][:12]} vs "
+                             f"{b[bad][:12]}")
+    log(f"  15c sampled ({SAMPLE}, seeds 1000 + i): the same "
+        f"{sum(map(len, a))} tokens slot and paged")
+    for r in rows:
+        log("  " + json.dumps({**r, "card": smi}))
+    torch.cuda.empty_cache()
+    return tuple(launches)
+
+
+def moe_phase(smi, root, run):
+    """Phase 15 (see the module docstring). Returns 15a's row, its flash
+    errors, times and launches, and 15c's (paged_attention, int8_matmul)
+    launches."""
+    t0 = time.monotonic()
+    log(f"  15a gpt-moe training: B {MOE_B}, L {MOE_L}, E 768, depth "
+        f"{MOE_DEPTH}, 8 experts, top-2, bf16, AdamW 3e-4, SPMDTrainer")
+    bench, row, errs, times, counts = moe_train(smi)
+    log(f"  15a {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    moe_serve(smi, Path(root) / "moe", bench)
+    del bench
+    torch.cuda.empty_cache()
+    log(f"  15b {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    launches = dense_serve(smi, Path(root) / "dense", run)
+    log(f"  15c {time.monotonic() - t0:.1f} s")
+    return row, errs, times, counts, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one NVIDIA card",
@@ -3404,7 +3860,7 @@ def phases(root: str) -> int:
 
     # 1. device
     smi = nvidia_smi()
-    log("[1/15 device]")
+    log("[1/16 device]")
     log(smi)
     log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} devices "
@@ -3419,7 +3875,7 @@ def phases(root: str) -> int:
     spills = [f"{lines[i - 1].split('for ')[-1][:70]}: {ln.strip()}"
               for i, ln in enumerate(lines)
               if re.search(r"[1-9]\d* bytes (stack frame|spill)", ln)]
-    log(f"[2/15 build] {time.monotonic() - t0:.2f} s (nvcc "
+    log(f"[2/16 build] {time.monotonic() - t0:.2f} s (nvcc "
         f"{kernels.build_seconds:.2f} s), kernels with a stack frame or "
         f"spills: {len(spills)}")
     for ln in spills:
@@ -3435,7 +3891,7 @@ def phases(root: str) -> int:
     check_compiled(kernels.library()._name, build_log)
 
     # 3. kernels against their plain versions
-    log("[3/15 kernels]")
+    log("[3/16 kernels]")
     timer = Timer()
     g = torch.Generator().manual_seed(SEED)
     pa_rows = check_paged_attention(timer, g)
@@ -3443,7 +3899,7 @@ def phases(root: str) -> int:
     del timer
 
     # 4. serve f32: kernel engine, then the plain (gather) twin
-    log("[4/15 serve f32]")
+    log("[4/16 serve f32]")
     serve_tiny()
     reqs = workload(np.random.default_rng(SEED))
     model = gpt2_small()
@@ -3486,7 +3942,7 @@ def phases(root: str) -> int:
     del model
 
     # 5. serve int8: int8 weights through the kernel, int8 KV pages
-    log("[5/15 serve int8]")
+    log("[5/16 serve int8]")
     q_kw = dict(quantize="int8", int8_matmul=True, kv_quant="int8", **common)
     qdec = PagedBatchingDecoder(gpt2_small(), **q_kw)
     if (not qdec.int8_matmul or qdec.int8_matmul_impl != "cuda"
@@ -3535,20 +3991,20 @@ def phases(root: str) -> int:
     torch.cuda.empty_cache()
 
     # 6. speculative decoding and chunked prefill through both kernels
-    log("[6/15 spec + chunked]")
+    log("[6/16 spec + chunked]")
     t0 = time.monotonic()
     spec_launches = spec_phase(smi)
     log(f"  phase 6: {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     # 7. flash kernels against their plain versions, and the L sweep
-    log("[7/15 flash kernels]")
+    log("[7/16 flash kernels]")
     timer = Timer()
     flash_errs, sweep = check_flash(timer, g)
     del timer
 
     # 8. train: the kernel path, its profile, then the plain path
-    log("[8/15 train bf16]")
+    log("[8/16 train bf16]")
     krow, kcounts = train_run("kernel path", flash=True)
     want = (2 * DEPTH * krow["steps_run"], DEPTH * krow["steps_run"],
             DEPTH * krow["steps_run"])
@@ -3571,14 +4027,14 @@ def phases(root: str) -> int:
                              f"{pcounts}")
 
     # 9. f32: one step through the kernels against the plain path
-    log("[9/15 train f32 parity]")
+    log("[9/16 train f32 parity]")
     check_f32_step()
 
     # 10. K-AVG: the flagship at bench.py's configuration, the merge's
     # correctness, and TrainJob end to end; none of the five hand-written
     # kernels is on this path (convs, BatchNorm and dense layers run in
     # cuDNN and cuBLAS, as the JAX path runs them in XLA)
-    log("[10/15 k-avg]")
+    log("[10/16 k-avg]")
     reset_kernel_counts()
     log("  10a flagship: ResNet-18, CIFAR-10 shapes, bf16, uint8 inputs, "
         f"B {KAVG_B}, K {KAVG_K}, lr 0.1, SGD momentum 0.9")
@@ -3595,33 +4051,41 @@ def phases(root: str) -> int:
         raise AssertionError(f"the K-AVG path launched {counts}")
 
     # 11. serving resilience through both serving kernels
-    log("[11/15 resilience]")
+    log("[11/16 resilience]")
     t0 = time.monotonic()
     res_launches = resilience_phase(smi)
     log(f"  phase 11: {time.monotonic() - t0:.1f} s")
 
     # 12. checkpoints served through the parameter server
-    log("[12/15 checkpoint serving]")
+    log("[12/16 checkpoint serving]")
     t0 = time.monotonic()
     ckpt = checkpoint_phase(smi, root, run, qrun, kavg)
     ckpt_launches = ckpt["launches"]
     log(f"  phase 12: {time.monotonic() - t0:.1f} s")
 
     # 13. the control plane over HTTP: training, serving, SIGTERM
-    log("[13/15 control plane]")
+    log("[13/16 control plane]")
     t0 = time.monotonic()
     cp_launches = control_plane_phase(smi, root, run, qrun, ckpt, kavg)
     log(f"  phase 13: {time.monotonic() - t0:.1f} s")
 
     # 14. the encoders: the flash kernels at their shapes, BERT-base and
     # ViT-Tiny trained by K-AVG, VGG-11, a ViT TrainJob with transforms
-    log("[14/15 encoders]")
+    log("[14/16 encoders]")
     t0 = time.monotonic()
     enc_rows, enc_launches, bert_row, vit_row = encoder_phase(smi, root)
     log(f"  phase 14: {time.monotonic() - t0:.1f} s")
 
-    # 15. results
-    log("[15/15 results]")
+    # 15. MoE trained at bench_moe's width through the flash kernels and
+    # served by the dense slot engine; GPT-2-small through the dense engine
+    log("[15/16 moe + dense engine]")
+    t0 = time.monotonic()
+    moe_row, moe_errs, moe_times, moe_counts, dense_launches = moe_phase(
+        smi, root, run)
+    log(f"  phase 15: {time.monotonic() - t0:.1f} s")
+
+    # 16. results
+    log("[16/16 results]")
     pa = pa_rows[0]   # the decode step: L = 1, f32 arena
     mm = next(r for r in mm_rows if r["M"] == 8 and r["N"] == VOCAB
               and r["x"] == "float32")  # the lm_head at decode
@@ -3639,7 +4103,8 @@ def phases(root: str) -> int:
          "source": "kubeml_tpu_torch/csrc/int8_matmul.cu",
          "replaces": "kubeml_tpu/ops/int8_matmul.py:55",
          "launches": (q_launches[1] + spec_launches[1] + res_launches[1]
-                      + ckpt_launches[1] + cp_launches[1]),
+                      + ckpt_launches[1] + cp_launches[1]
+                      + dense_launches[1]),
          "max_abs_err": mm["max_abs_err"], "ms": mm["ms"],
          "plain_ms": mm["plain_ms"], "bound_ms": mm["bound_ms"],
          "bound_by": mm["bound_by"], "library_ms": mm["library_ms"]},
@@ -3647,8 +4112,10 @@ def phases(root: str) -> int:
     # the flash kernels at the training shape (B 8, L 2048, bf16, causal)
     tr = sweep[2048]
     err_a = flash_errs[("a train", torch.bfloat16)]
-    # launches: the training path of phase 8 and the encoders' of phase 14
-    fwd_n, dq_n, dkv_n = (a + b for a, b in zip(kcounts, enc_launches))
+    # launches: the training path of phase 8, the encoders' of phase 14
+    # and the MoE LM's of phase 15
+    fwd_n, dq_n, dkv_n = (a + b + c for a, b, c in zip(
+        kcounts, enc_launches, moe_counts))
     for name, line_no, count, err, ms, plain, lib in (
             ("flash_fwd", 120, fwd_n, err_a["out"], tr["fwd_ms"],
              tr["fwd_plain_ms"], tr["fwd_library_ms"]),
@@ -3666,7 +4133,20 @@ def phases(root: str) -> int:
              "bound_by": tr[f"{short}_bound_by"], "library_ms": lib})
     log(f"  train bf16 tokens/s: kernel {krow['value']:.1f}, plain "
         f"{prow['value']:.1f}")
-    log(f"  flash launches: phase 8 {kcounts}, phase 14 {enc_launches}")
+    log(f"  flash launches: phase 8 {kcounts}, phase 14 {enc_launches}, "
+        f"phase 15 {moe_counts}")
+    t = moe_times
+    log(f"  flash at the MoE shape B {MOE_B} L {MOE_L} H {MOE_H} causal "
+        f"(bf16): fwd {t['fwd_ms']:.4f} ms (plain {t['fwd_plain_ms']:.4f}, "
+        f"SDPA {t['fwd_library_ms']:.4f}, bound {t['fwd_bound_ms']:.4f} by "
+        f"{t['fwd_bound_by']}), dq {t['dq_ms']:.4f} (bound "
+        f"{t['dq_bound_ms']:.4f}), dkv {t['dkv_ms']:.4f} (bound "
+        f"{t['dkv_bound_ms']:.4f}), plain bwd {t['bwd_plain_ms']:.4f}, SDPA "
+        f"bwd {t['bwd_library_ms']:.4f}; max abs err "
+        + " ".join(f"{n} {e:.2e}" for n, e in moe_errs.items()))
+    log(f"  gpt-moe: {moe_row['value']:.1f} tokens/s, step "
+        f"{moe_row['step_ms']:.3f} ms, {moe_row['mfu']:.4f} of the bf16 "
+        f"peak; int8_matmul launches of phase 15 {dense_launches[1]}")
     for tag, (err, t) in enc_rows.items():
         log(f"  flash at {tag} (bf16): fwd {t['fwd_ms']:.4f} ms (plain "
             f"{t['fwd_plain_ms']:.4f}, SDPA {t['fwd_library_ms']:.4f}, "

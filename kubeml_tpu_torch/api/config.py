@@ -106,9 +106,9 @@ class Config:
     function_concurrency: int = field(
         default_factory=lambda: _env_int("KUBEML_FUNCTION_CONCURRENCY", 50))
 
-    # --- serving: the parameter server's paged engines ---
-    # batch concurrent generate requests through a resident engine (the
-    # port has no other serving path: False is refused with a 400)
+    # --- serving: the parameter server's engines ---
+    # batch concurrent generate requests through a resident engine (False:
+    # each request runs the one-shot generate_from_request)
     serving_batcher: bool = field(
         default_factory=lambda: _env_bool("KUBEML_SERVING_BATCHER", True))
     serving_slots: int = field(

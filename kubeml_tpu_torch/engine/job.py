@@ -529,6 +529,15 @@ class TrainJob:
             raise KubeMLError(f"job {self.job_id} has no model yet", 400)
         return self.trainer.infer_replica(published, x)
 
+    def generate(self, req) -> dict:
+        """Serve a ``GenerateRequest`` from the live model (JAX :909-930):
+        the one-shot dense ``generate_from_request`` on the same published
+        replica-0 weights :meth:`infer` reads."""
+        published = self._published
+        if published is None:
+            raise KubeMLError(f"job {self.job_id} has no model yet", 400)
+        return self.trainer.generate_replica(published, req)
+
     def _publish(self) -> None:
         """Publish replica 0 of the (merged) replicas for ``infer``."""
         self._published = self.trainer.snapshot(self._stacked_vars)

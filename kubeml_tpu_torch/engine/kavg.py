@@ -439,12 +439,30 @@ class KAvgTrainer:
         replicas into the trainer's module, and a request thread must not
         swap that module's tensors while a round runs on it."""
         with self._infer_lock:
-            if self._infer_model is None:
-                model = copy.copy(self.model)
-                model._module = self.model.build().to(self.device)
-                self._infer_model = model
-            model = self._infer_model
+            model = self._serving_model()
             xd = self._cast_input(_as_tensor(x)).to(self.device)
             out = model.infer(variables, model.preprocess(xd))
             return out.cpu().numpy()
+
+    @torch.no_grad()
+    def generate_replica(self, variables: Variables, req) -> dict:
+        """``models.generation.generate_from_request`` on one replica's
+        ``variables`` (a causal LM's ``GenerateRequest``), through the same
+        module of its own as :meth:`infer_replica`, bound to them for the
+        call."""
+        from ..models.generation import generate_from_request
+
+        with self._infer_lock:
+            module = self._serving_model().module
+            bind(module, variables)
+            return generate_from_request(module, req)
+
+    def _serving_model(self) -> KubeModel:
+        """The request threads' copy of the model (caller holds
+        ``_infer_lock``)."""
+        if self._infer_model is None:
+            model = copy.copy(self.model)
+            model._module = self.model.build().to(self.device)
+            self._infer_model = model
+        return self._infer_model
 

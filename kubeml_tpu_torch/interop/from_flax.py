@@ -16,9 +16,13 @@ names join with ``.``. The Flax tree names are
     block_{i}/{ln1,ln2}/{scale,bias},
     block_{i}/attn/{query,key,value,proj}/{kernel,bias?},
     block_{i}/{mlp_in,mlp_out}/{kernel,bias},
+    block_{i}/moe/{router [D, E], w_in [E, D, H], w_out [E, H, D]},
     ln_f/{scale,bias}, lm_head/kernel
 
-and become ``block_0.attn.query.kernel`` and so on. Leaves must be numpy
+and become ``block_0.attn.query.kernel`` and so on (an MoE block has
+``moe`` in place of ``mlp_in``/``mlp_out``; its leaves are raw params in
+Flax's layout, carried unpermuted by every converter here, their 3-D
+shape never taken for a conv kernel's). Leaves must be numpy
 arrays (callers unbox ``nn.Partitioned`` leaves and ``np.asarray`` them on
 the JAX side). An int8 pair - any node with fields ``q`` and ``s``, such as
 ``kubeml_tpu.serving.quant.QuantizedTensor`` - becomes the port's

@@ -1,8 +1,15 @@
 """Decode-side helpers of the port, from ``kubeml_tpu/models/generation.py``:
-the paged KV cache, the paged-decode capability probe, the per-row
+the dense and the paged KV caches, the paged-decode capability probe, the
+one-shot ``generate`` (prefill then per-token steps through the dense
+cache) with its wire entry ``generate_from_request``, the per-row
 knob-adjusted logits the samplers draw from, and the acceptance math of
 speculative decoding (``draft_sample``, ``spec_accept``,
 ``spec_mask_emissions``), which the serving engine's spec mode runs.
+
+``generate`` is eager: there is no compiled program per knob combination
+to cache, so the JAX LRU of programs has no counterpart; the one-shot
+speculative path (``make_speculative_generate_fn``) is not ported yet
+(ROADMAP).
 
 Randomness: the JAX functions take a PRNG key per row; here a row that
 samples (temperature > 0) carries its own ``torch.Generator`` and a greedy
@@ -15,14 +22,18 @@ the JAX functions do, but not the JAX key chain's values."""
 from __future__ import annotations
 
 import inspect
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from ..ops.paged_attention import resolve_kv_quant, resolve_paged_attn
 from .gpt import PAD_ID
+from .layers import fold_in, make_generator, seed_of
 
-__all__ = ["PAD_ID", "GenerationInputError", "PagedCache", "init_paged_cache",
+__all__ = ["PAD_ID", "GenerationInputError", "GenerateResult", "DenseCache",
+           "init_cache", "generate", "make_generate_fn",
+           "generate_from_request", "PagedCache", "init_paged_cache",
            "supports_paged_decode", "draft_sample", "spec_accept",
            "spec_mask_emissions"]
 
@@ -34,6 +45,199 @@ SPEC_TOP_K_CAP = 128
 class GenerationInputError(ValueError):
     """A USER-input problem in a generation request (bad shapes, a model
     that cannot serve): the wire layer maps exactly this type to 400."""
+
+
+class GenerateResult(NamedTuple):
+    tokens: torch.Tensor   # [B, max_new_tokens] int64; PAD_ID after EOS
+    lengths: torch.Tensor  # [B] int64: tokens generated incl. EOS (or cap)
+
+
+class DenseCache:
+    """The dense KV cache of ``CausalTransformer``'s decode (JAX ``cache``
+    collection without pages): ``layers[i]`` holds ``k``/``v`` ``[B, Lc,
+    H, D]`` in the compute dtype and ``valid [B, Lc]`` bool; ``index`` is
+    the shared cursor of the scalar-cursor path (the next write
+    position). The forward updates it in place."""
+
+    def __init__(self, layers: List[Dict[str, torch.Tensor]],
+                 index: int = 0):
+        self.layers = layers
+        self.index = index
+
+
+def init_cache(module, batch: int,
+               cache_len: Optional[int] = None) -> DenseCache:
+    """A zeroed dense cache for ``batch`` rows of ``cache_len`` positions
+    (default ``module.max_len``), cursor 0, on the module's device."""
+    Lc = int(cache_len if cache_len is not None else module.max_len)
+    H = module.num_heads
+    D = module.embed_dim // H
+    dev = module.device
+    layers = [{"k": torch.zeros((batch, Lc, H, D), dtype=module.dtype,
+                                device=dev),
+               "v": torch.zeros((batch, Lc, H, D), dtype=module.dtype,
+                                device=dev),
+               "valid": torch.zeros((batch, Lc), dtype=torch.bool,
+                                    device=dev)}
+              for _ in range(module.depth)]
+    return DenseCache(layers)
+
+
+def _sample(logits: torch.Tensor, gen: Optional[torch.Generator],
+            temperature: float, top_k: Optional[int]) -> torch.Tensor:
+    """One next-token draw per row from ``[B, V]`` f32 logits: the argmax
+    when greedy, else a draw from ``gen`` over the temperature-scaled,
+    top-k-truncated softmax."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    logits = logits / float(temperature)
+    if top_k is not None:
+        kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]
+        logits = torch.where(logits < kth, float("-inf"), logits)
+    return torch.multinomial(torch.softmax(logits, dim=-1), 1,
+                             generator=gen)[:, 0]
+
+
+def make_generate_fn(module, *, max_new_tokens: int,
+                     temperature: float = 0.0, top_k: Optional[int] = None,
+                     eos_id: Optional[int] = None):
+    """The ``(prompt_ids, gen) -> GenerateResult`` callable behind
+    :func:`generate` (JAX :311): prefill the whole prompt in one dense
+    decode call (cursor 0 -> Lp), sample, then one call a token. Rows that
+    emitted ``eos_id`` keep feeding their last token (the cache stays
+    well formed) and output ``PAD_ID``; ``lengths`` counts the live
+    emissions (a live row may emit id 0, a vocab token)."""
+
+    @torch.inference_mode()
+    def run(prompt_ids: torch.Tensor,
+            gen: Optional[torch.Generator]) -> GenerateResult:
+        B, Lp = prompt_ids.shape
+        cap = getattr(module, "max_len", None)
+        if cap is None:
+            raise GenerationInputError(
+                "model exposes no max_len attribute; generation requires a "
+                "declared KV-cache capacity (CausalTransformer sets it)")
+        # the last sampled token is returned but never written back
+        if Lp + max_new_tokens - 1 > cap:
+            raise GenerationInputError(
+                f"prompt ({Lp}) + max_new_tokens ({max_new_tokens}) - 1 "
+                f"exceeds the model's max_len ({cap})")
+        cache = init_cache(module, B)
+        logits = module(prompt_ids, decode=True, cache=cache)
+        tok = _sample(logits[:, -1].float(), gen, temperature, top_k)
+        done = (torch.zeros_like(tok, dtype=torch.bool) if eos_id is None
+                else tok == eos_id)
+        outs, lives = [tok], []
+        for _ in range(max_new_tokens - 1):
+            logits = module(tok[:, None], decode=True, cache=cache)
+            nxt = _sample(logits[:, -1].float(), gen, temperature, top_k)
+            was_live = ~done
+            if eos_id is not None:
+                done = done | (was_live & (nxt == eos_id))
+            outs.append(torch.where(was_live, nxt,
+                                    torch.full_like(nxt, PAD_ID)))
+            lives.append(was_live)
+            tok = torch.where(was_live, nxt, tok)
+        tokens = torch.stack(outs, dim=1)
+        lengths = 1 + (torch.stack(lives, dim=1).sum(dim=1) if lives
+                       else torch.zeros(B, dtype=torch.int64,
+                                        device=tokens.device))
+        return GenerateResult(tokens, lengths)
+
+    return run
+
+
+def generate(module, prompt_ids, *, max_new_tokens: int,
+             temperature: float = 0.0, top_k: Optional[int] = None,
+             eos_id: Optional[int] = None,
+             rng: Union[None, int, torch.Generator] = None) -> GenerateResult:
+    """Sample ``max_new_tokens`` continuations of dense ``prompt_ids``
+    ``[B, Lp]`` (JAX :629, without ``spec``). Greedy when ``temperature ==
+    0``; ``temperature > 0`` requires ``rng`` (an int seed or a
+    ``torch.Generator``): a silent default would return the same draw on
+    every call. ``top_k`` truncates before the draw. ``prompt_len +
+    max_new_tokens - 1`` must fit ``module.max_len``."""
+    if temperature > 0.0 and rng is None:
+        raise GenerationInputError(
+            "temperature > 0 requires an explicit rng (an int seed or a "
+            "torch.Generator) - otherwise every call returns the same draw")
+    if temperature <= 0.0:
+        top_k = None  # greedy ignores top_k
+    dev = module.device
+    prompt = torch.as_tensor(np.asarray(prompt_ids), dtype=torch.int64,
+                             device=dev)
+    gen = None
+    if temperature > 0.0:
+        gen = (rng if isinstance(rng, torch.Generator)
+               else make_generator(seed_of(rng), dev))
+    return make_generate_fn(module, max_new_tokens=max_new_tokens,
+                            temperature=temperature, top_k=top_k,
+                            eos_id=eos_id)(prompt, gen)
+
+
+def _takes_decode(module) -> bool:
+    try:
+        return "decode" in inspect.signature(module.forward).parameters
+    except (TypeError, ValueError):
+        return False
+
+
+def generate_from_request(module, req) -> dict:
+    """Serve an ``api.types.GenerateRequest`` in one shot (JAX :714): the
+    wire entry of a live job's ``/generate`` and of serving without the
+    batching engine. Returns ``{"tokens": [[...]], "lengths": [...]}``;
+    user-shape problems (no decode path, bad prompt shapes, capacity
+    overflow) are KubeMLError 400. A ragged batch (``prompt_lengths``)
+    decodes each row at its true length, grouped by length."""
+    from ..api.errors import KubeMLError
+
+    prompts = np.asarray(req.prompts)
+    if prompts.ndim != 2 or not np.issubdtype(prompts.dtype, np.integer):
+        raise KubeMLError(
+            "prompts must be a [batch, prompt_len] integer token array", 400)
+    if not _takes_decode(module):
+        raise KubeMLError(
+            "model does not support KV-cache decode (generation needs a "
+            "causal LM like CausalTransformer)", 400)
+    lengths = req.prompt_lengths
+    if lengths is not None and any(int(v) != prompts.shape[1]
+                                   for v in lengths):
+        return _generate_ragged(module, prompts, req)
+    try:
+        out = generate(module, prompts, max_new_tokens=req.max_new_tokens,
+                       temperature=req.temperature, top_k=req.top_k,
+                       eos_id=req.eos_id, rng=req.seed)
+    except GenerationInputError as e:
+        raise KubeMLError(str(e), 400)
+    return {"tokens": out.tokens.tolist(), "lengths": out.lengths.tolist()}
+
+
+def _generate_ragged(module, prompts: np.ndarray, req) -> dict:
+    """One-shot serving of a ragged batch: rows grouped by true length, one
+    ``generate`` a group (its seed ``fold_in(seed, plen)``), results put
+    back in row order."""
+    from ..api.errors import KubeMLError
+
+    B = prompts.shape[0]
+    by_len: Dict[int, List[int]] = {}
+    for i, plen in enumerate(int(v) for v in req.prompt_lengths):
+        by_len.setdefault(plen, []).append(i)
+    tokens: list = [None] * B
+    lengths: list = [None] * B
+    try:
+        for plen, rows in sorted(by_len.items()):
+            rng = (fold_in(req.seed, plen) if req.seed is not None
+                   else None)
+            out = generate(module, prompts[rows, :plen],
+                           max_new_tokens=req.max_new_tokens,
+                           temperature=req.temperature, top_k=req.top_k,
+                           eos_id=req.eos_id, rng=rng)
+            for j, row in enumerate(rows):
+                tokens[row] = out.tokens[j].tolist()
+                lengths[row] = int(out.lengths[j])
+    except GenerationInputError as e:
+        raise KubeMLError(str(e), 400)
+    return {"tokens": tokens, "lengths": lengths}
 
 
 class PagedCache:

@@ -1,10 +1,14 @@
 """Causal transformer LM, the port of ``kubeml_tpu/models/gpt.py``.
 
 Ported: the non-cache forward (causal attention over the whole sequence,
-learned or rotary positions) with its training options, dropout included,
-and the PAGED decode branch (:121-265) the serving engine drives. The
-dense per-row cache decode, MoE interleaving and sequence parallelism (a
-mesh) are still to be ported (ROADMAP) and raise.
+learned or rotary positions) with its training options, dropout included;
+the PAGED decode branch (:121-265) the paged serving engine drives; the
+DENSE KV-cache decode branches (:266-323, :499-525) of ``generate`` and
+the dense slot engine; and MoE interleaving (``moe_every``: block ``i`` is
+a ``parallel.moe.MoEBlock`` when ``(i + 1) % moe_every == 0``, never
+rematerialised, and without a paged or early-exit path, as in JAX).
+Sequence parallelism (a mesh of several devices) is the next slice
+(ROADMAP) and raises; a mesh whose axes are all 1 is accepted.
 
 Training (:558-582): ``remat=True`` recomputes each block's forward in the
 backward (``torch.utils.checkpoint``, non-reentrant) on the non-decode
@@ -37,6 +41,16 @@ table - go to physical page 0, the pool's reserved trash page, so a stale
 row can never corrupt a reallocated page. Reads go through
 ``ops.paged_attention``: the CUDA kernel or the gather-then-attend plain
 version, as the cache's ``paged_attn`` says.
+
+Dense decode (``decode=True`` without ``pages``, ``cache`` a
+``models.generation.DenseCache``): per layer ``k``/``v`` ``[B, Lc, H, D]``
+in the compute dtype and ``valid [B, Lc]``, and one cursor ``index``.
+Without ``positions`` the call writes its L tokens at the cursor and
+advances it (prefill, and the one-shot generate's steps); with per-row
+``positions [B]`` (L == 1, the slot engine) each row writes at its own
+position. Attention runs over the whole cache under a dense mask (written
+and valid slots at or before the query's position), so it takes the plain
+path, as JAX's XLA path does. The cache is updated in place.
 """
 
 from __future__ import annotations
@@ -51,6 +65,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.attention import dot_product_attention
 from ..ops.paged_attention import paged_attention, paged_attention_ref
 from ..ops.rotary import apply_rope
+from ..parallel.mesh import check_mesh
 from ..utils.device import resolve_device
 from .layers import (Dropout, Embed, LayerNorm, QuantizableDense,
                      fold_in, make_generator, seed_of)
@@ -85,9 +100,11 @@ class CausalSelfAttention(nn.Module):
         q = self.query(x).reshape(B, L, H, D)
         k = self.key(x).reshape(B, L, H, D)
         v = self.value(x).reshape(B, L, H, D)
-        if decode:
+        if decode and pages is not None:
             out = self._paged(q, k, v, valid, positions, pages, seq_lens,
                               cache, layer)
+        elif decode:
+            out = self._dense(q, k, v, valid, positions, cache, layer)
         else:
             if self.rope:
                 pos = torch.arange(L, device=x.device)
@@ -96,12 +113,56 @@ class CausalSelfAttention(nn.Module):
             out = dot_product_attention(q, k, v, causal=True, kv_valid=valid)
         return self.proj(out.reshape(B, L, H * D))
 
+    def _dense(self, q, k, v, valid, positions, cache, layer):
+        """Dense KV-cache decode (JAX :266-323): write this call's K/V into
+        the layer's stripes, attend over the whole cache."""
+        if cache is None or not hasattr(cache, "index"):
+            raise ValueError("dense decode needs a DenseCache "
+                             "(models.generation.init_cache)")
+        B, L, H, D = q.shape
+        dev = q.device
+        arena = cache.layers[layer]
+        ck, cv, cvalid = arena["k"], arena["v"], arena["valid"]
+        Lc = ck.shape[1]
+        k_pos = torch.arange(Lc, device=dev)[None, None, None, :]
+        if positions is not None:
+            # per-row cursors (the slot engine): one token a row, written
+            # at (row, positions[row])
+            if L != 1:
+                raise ValueError("per-row positions decode is one token "
+                                 "per step (L == 1); prefill uses the "
+                                 "scalar-cursor path")
+            pos = positions.long()
+            if self.rope:
+                q = apply_rope(q, pos[:, None], self.rope_theta)
+                k = apply_rope(k, pos[:, None], self.rope_theta)
+            rows = torch.arange(B, device=dev)
+            ck[rows, pos] = k[:, 0].to(ck.dtype)
+            cv[rows, pos] = v[:, 0].to(cv.dtype)
+            cvalid[rows, pos] = valid[:, 0].bool()
+            mask = cvalid[:, None, None, :] & (
+                k_pos <= pos[:, None, None, None])
+            return dot_product_attention(q, ck, cv, mask=mask)
+        i0 = int(cache.index)
+        if self.rope:
+            # keys are cached already rotated by their absolute position
+            pos = i0 + torch.arange(L, device=dev)
+            q = apply_rope(q, pos, self.rope_theta)
+            k = apply_rope(k, pos, self.rope_theta)
+        # dynamic_update_slice clamps the start so the update fits
+        w0 = max(0, min(i0, Lc - L))
+        ck[:, w0:w0 + L] = k.to(ck.dtype)
+        cv[:, w0:w0 + L] = v.to(cv.dtype)
+        cvalid[:, w0:w0 + L] = valid.bool()
+        q_pos = (i0 + torch.arange(L, device=dev))[None, None, :, None]
+        mask = cvalid[:, None, None, :] & (k_pos <= q_pos)
+        return dot_product_attention(q, ck, cv, mask=mask)
+
     def _paged(self, q, k, v, valid, positions, pages, seq_lens, cache,
                layer):
-        if pages is None or positions is None or cache is None:
-            raise ValueError("decode needs pages, positions and a paged cache "
-                             "(models.generation.init_paged_cache); the dense "
-                             "cache decode is not ported yet")
+        if positions is None or cache is None:
+            raise ValueError("paged decode needs positions and a paged "
+                             "cache (models.generation.init_paged_cache)")
         B, L, H, D = q.shape
         dev = q.device
         pt = cache.page_tokens
@@ -210,17 +271,16 @@ class CausalTransformer(nn.Module):
                  ln_eps: float = 1e-6, attn_bias: bool = False,
                  pos: str = "learned", rope_theta: float = 10000.0,
                  remat: bool = False, dropout: float = 0.0,
-                 moe_every: int = 0, mesh=None, seed: int = 0, device=None):
+                 moe_every: int = 0, num_experts: int = 8, top_k: int = 2,
+                 moe_capacity: float = 1.25, mesh=None, seed: int = 0,
+                 device=None):
         super().__init__()
         if pos not in ("learned", "rope"):
             raise ValueError(f"unknown pos {pos!r} (valid: 'learned', 'rope')")
-        if moe_every > 0:
-            raise NotImplementedError("MoE interleaving is not ported yet")
-        if mesh is not None:
-            raise NotImplementedError("the port runs on one card; a mesh "
-                                      "(sharding over torch.distributed) is "
-                                      "not ported yet")
-        dev = resolve_device(device)
+        # a mesh whose axes are all 1 is one device; any other raises
+        mesh_dev = check_mesh(mesh)
+        dev = resolve_device(device if device is not None or mesh_dev is None
+                             else mesh_dev)
         self.vocab_size = vocab_size
         self.max_len = max_len
         self.embed_dim = embed_dim
@@ -232,14 +292,27 @@ class CausalTransformer(nn.Module):
         self.pos = pos
         self.remat = remat
         self.dropout = dropout
+        self.moe_every = moe_every
+        self.num_experts = num_experts
+        self.top_k = top_k
+        self.moe_capacity = moe_capacity
         self.token_embed = Embed(vocab_size, embed_dim)
         if pos == "learned":
             self.pos_embed = nn.Parameter(torch.empty(1, max_len, embed_dim))
         for i in range(depth):
-            self.add_module(f"block_{i}", GPTBlock(
-                embed_dim, num_heads, mlp_ratio, dtype=dtype, ln_eps=ln_eps,
-                attn_bias=attn_bias, rope=pos == "rope",
-                rope_theta=rope_theta, dropout=dropout))
+            if moe_every > 0 and (i + 1) % moe_every == 0:
+                from ..parallel.moe import MoEBlock  # imports this module
+
+                block = MoEBlock(embed_dim, num_heads, num_experts,
+                                 mlp_ratio, top_k, moe_capacity, dropout,
+                                 dtype=dtype, rope=pos == "rope",
+                                 rope_theta=rope_theta)
+            else:
+                block = GPTBlock(
+                    embed_dim, num_heads, mlp_ratio, dtype=dtype,
+                    ln_eps=ln_eps, attn_bias=attn_bias, rope=pos == "rope",
+                    rope_theta=rope_theta, dropout=dropout)
+            self.add_module(f"block_{i}", block)
         self.ln_f = LayerNorm(embed_dim, ln_eps)
         self.lm_head = QuantizableDense(embed_dim, vocab_size, use_bias=False,
                                         dtype=dtype)
@@ -256,6 +329,13 @@ class CausalTransformer(nn.Module):
                     std = math.sqrt(1.0 / p.shape[0]) / _TRUNC_STD
                     nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
                                           generator=g)
+                elif name.endswith((".router", ".w_in", ".w_out")):
+                    # MoE weights: lecun_normal with every axis but the
+                    # last as fan-in, as Flax does for an n-d kernel
+                    std = (math.sqrt(p.shape[-1] / p.numel())
+                           / _TRUNC_STD)
+                    nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
+                                          generator=g)
 
     @property
     def device(self) -> torch.device:
@@ -269,7 +349,8 @@ class CausalTransformer(nn.Module):
                 seq_lens=None, cache=None, exit_layer=None, rng=None):
         """Logits ``[B, L, vocab]`` (f32), or the final hidden states
         ``[B, L, E]`` with ``return_hidden``. ``decode=True`` runs the paged
-        decode branch against ``cache`` (see the module docstring).
+        decode branch against ``cache`` when given ``pages``, else the
+        dense one (see the module docstring).
 
         ``train=True`` with ``dropout > 0`` drops the attention and MLP
         outputs of every block (where the JAX module does); ``rng`` (an
@@ -287,10 +368,20 @@ class CausalTransformer(nn.Module):
         if exit_layer is not None and not 1 <= int(exit_layer) <= self.depth:
             raise ValueError(f"exit_layer must be in [1, depth={self.depth}]"
                              f", got {exit_layer}")
+        if exit_layer is not None and self.moe_every > 0:
+            raise ValueError("early-exit drafting does not cover "
+                             "MoE-interleaved models")
+        if pages is not None and self.moe_every > 0:
+            raise ValueError("paged decode does not cover MoE-interleaved "
+                             "models; serve them through the dense cache")
         run_depth = self.depth if exit_layer is None else int(exit_layer)
         ids = token_ids.long()
         B, L = ids.shape
         dev = ids.device
+        # the dense cache's shared cursor: this call writes at i0 and
+        # advances it after the last block
+        cursor = (int(cache.index) if decode and pages is None
+                  and positions is None else None)
         # decode trusts every input token as real (a sampled id 0 is a live
         # vocab token); the plain forward treats id 0 as padding
         valid = (torch.ones((B, L), dtype=torch.bool, device=dev) if decode
@@ -298,6 +389,10 @@ class CausalTransformer(nn.Module):
         x = self.token_embed(ids)
         if self.pos == "rope":
             x = x.to(self.dtype)
+        elif cursor is not None:
+            # the scalar cursor: dynamic_slice clamps the start in bounds
+            s0 = max(0, min(cursor, self.max_len - L))
+            x = (x + self.pos_embed[:, s0:s0 + L]).to(self.dtype)
         elif decode:
             # per-row positions; the clip keeps bucket-padding rows whose
             # nominal positions run past the table in bounds (their output
@@ -314,16 +409,22 @@ class CausalTransformer(nn.Module):
                 raise ValueError(f"dropout {self.dropout} in training needs "
                                  f"rng (an int seed or a torch.Generator)")
             seed = seed_of(rng)
+        elif train and rng is not None and self.moe_every > 0:
+            seed = seed_of(rng)  # the MoE router noise draws from it
         remat = self.remat and not decode and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks()[:run_depth]):
+            moe = not isinstance(block, GPTBlock)
             drop = dict(train=train, dropout_seed=(
-                None if seed is None else fold_in(seed, i)))
-            if remat:
+                None if seed is None or not (moe or self.dropout > 0.0)
+                else fold_in(seed, i)))
+            if remat and not moe:  # MoE blocks are never rematerialised
                 x = checkpoint(block, x, valid, use_reentrant=False, **drop)
             else:
                 x = block(x, valid, decode=decode, positions=positions,
                           pages=pages, seq_lens=seq_lens, cache=cache,
                           layer=i, **drop)
+        if cursor is not None:
+            cache.index = cursor + L
         x = self.ln_f(x).to(self.dtype)
         if return_hidden:
             return x

@@ -64,7 +64,9 @@ class QuantizableDense(nn.Module):
                      else None)
         self.register_buffer("kernel_q", None)  # int8 [in, out] when set
         self.register_buffer("kernel_s", None)  # f32 [1, out] when set
-        # quantized_dot implementation (ops.int8_matmul.resolve_int8_matmul)
+        # quantized_dot implementation (ops.int8_matmul.resolve_int8_matmul),
+        # or "dequant": densify the int8 kernel in each forward (the dense
+        # engine's int8 path for MoE models)
         self.int8_impl = "auto"
 
     @property
@@ -86,7 +88,13 @@ class QuantizableDense(nn.Module):
         self.int8_impl = impl
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.quantized:
+        if self.quantized and self.int8_impl == "dequant":
+            # in-step dequantize: the same f32 weight values as
+            # serving.quant.dequantize_tree(tree, torch.float32)
+            d = self.dtype
+            y = x.to(d) @ (self.kernel_q.to(torch.float32)
+                           * self.kernel_s).to(d)
+        elif self.quantized:
             # imported here: serving imports the models package
             from ..serving.quant import QuantizedTensor, quantized_dot
 
@@ -107,7 +115,9 @@ def load_tree(module: nn.Module, tree: Mapping[str, object],
     """Copy a flat ``{name: tensor | QuantizedTensor}`` tree into ``module``
     in place. Every parameter must be covered and every name must exist;
     a :class:`QuantizedTensor` under ``<layer>.kernel`` turns that
-    :class:`QuantizableDense` int8 (quantized_dot through ``int8_impl``).
+    :class:`QuantizableDense` int8 (quantized_dot through ``int8_impl``),
+    one under a MoE weight (``<block>.moe.w_in``, ...) makes that weight
+    int8, dequantized in each forward (``parallel.moe.MoEMlp``).
     Returns the module."""
     from ..serving.quant import QuantizedTensor
 
@@ -118,10 +128,15 @@ def load_tree(module: nn.Module, tree: Mapping[str, object],
             if isinstance(value, QuantizedTensor):
                 owner_name, _, leaf = name.rpartition(".")
                 owner = module.get_submodule(owner_name)
-                if leaf != "kernel" or not isinstance(owner, QuantizableDense):
+                if leaf in getattr(owner, "QUANT_LEAVES", ()):
+                    # a MoE expert stack or router (parallel.moe.MoEMlp)
+                    owner.set_quantized(leaf, value)
+                elif leaf == "kernel" and isinstance(owner, QuantizableDense):
+                    owner.set_quantized(value, impl=int8_impl)
+                else:
                     raise ValueError(f"{name}: only QuantizableDense kernels "
-                                     f"take a quantized tensor")
-                owner.set_quantized(value, impl=int8_impl)
+                                     f"and MoE weights take a quantized "
+                                     f"tensor")
             elif name in params:
                 p = params[name]
                 if tuple(p.shape) != tuple(value.shape):

@@ -1,5 +1,6 @@
 """Training engines of the port: ``SPMDTrainer`` on one card with its LM
-losses. Sharding over ``torch.distributed`` is not ported yet."""
+losses; ``mesh`` (one-device meshes) and ``moe`` (the MoE blocks) beside
+it. Sharding over ``torch.distributed`` is not ported yet."""
 
 from .trainer import SPMDTrainer, adamw, chunked_lm_loss, lm_loss
 

@@ -1,11 +1,19 @@
 """SPMDTrainer on one card: forward, loss, gradients, optimizer update.
 
 Port of ``kubeml_tpu/parallel/trainer.py``. The JAX trainer owns sharded
-parameters and one compiled step over a mesh; on one card the mesh, the
-batch ``PartitionSpec`` and buffer donation do not exist, so the port owns
-the module's parameters (already initialised from the module's seed), an
-optimizer built from them, and one eager step. Sharding over
-``torch.distributed`` is a later slice (ROADMAP).
+parameters and one compiled step over a mesh; on one card the batch
+``PartitionSpec`` and buffer donation do not exist, so the port owns the
+module's parameters (already initialised from the module's seed), an
+optimizer built from them, and one eager step. A ``mesh`` of one device
+(``parallel.mesh.make_mesh(devices=[dev])``) and a ``batch_spec`` are
+accepted as the JAX trainer takes them and change nothing; a mesh of
+several devices raises (sharding over ``torch.distributed`` is the next
+slice, ROADMAP).
+
+MoE (JAX :187-216): every ``parallel.moe.MoEMlp`` of the module leaves
+its weighted load-balancing loss in ``last_aux``; the step adds them all
+to the loss, and ``last_moe_overflow`` becomes the mean of the layers'
+capacity-overflow shares (-1.0 for a model with no MoE layer).
 
 The loss functions keep the JAX definitions: :func:`lm_loss` is the masked
 next-token cross-entropy, :func:`chunked_lm_loss` the same loss streamed
@@ -22,6 +30,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from .mesh import check_mesh
+from .moe import moe_layers
 
 
 def lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
@@ -93,6 +104,7 @@ class SPMDTrainer:
     def __init__(
         self,
         module: nn.Module,
+        mesh=None,
         optimizer: Optional[Callable[[Iterable[nn.Parameter]],
                                      torch.optim.Optimizer]] = None,
         loss_fn: Callable[[torch.Tensor, torch.Tensor],
@@ -101,11 +113,15 @@ class SPMDTrainer:
         input_transform: Optional[Callable[[torch.Tensor],
                                            torch.Tensor]] = None,
         logits_chunk: Optional[int] = None,
+        batch_spec=None,
     ):
+        check_mesh(mesh)
         if logits_chunk is not None and loss_fn is not lm_loss:
             raise ValueError("logits_chunk streams the default lm_loss; "
                              "custom loss_fn needs the full logits")
         self.module = module
+        self.mesh = mesh
+        self.batch_spec = batch_spec
         self.make_optimizer = optimizer or adamw()
         self.loss_fn = loss_fn
         self.precision = precision
@@ -147,19 +163,37 @@ class SPMDTrainer:
         return self.loss_fn(self.module(x, train=train, **kw).float(),
                             tokens)
 
+    def _moe_terms(self, loss: torch.Tensor) -> torch.Tensor:
+        """Add every MoE layer's aux loss of the forward just run to
+        ``loss``, set ``last_moe_overflow`` (the layers' mean, -1.0 with
+        none), and clear what the layers left."""
+        layers = moe_layers(self.module)
+        aux = [m.last_aux for m in layers if m.last_aux is not None]
+        over = [m.last_overflow for m in layers
+                if m.last_overflow is not None]
+        for a in aux:
+            loss = loss + a
+        self.last_moe_overflow = (torch.stack(over).mean() if over
+                                  else -1.0)
+        for m in layers:
+            m.last_aux = m.last_overflow = None
+        return loss
+
     def train_step(self, batch, rng=None) -> torch.Tensor:
         """One optimizer step on a batch; returns the loss (a detached
-        device scalar, computed before the update). ``rng`` (an int seed
-        or a ``torch.Generator``, as the JAX step's dropout key) goes to
-        the module, whose dropout draws from it; a module with dropout 0.0
-        draws nothing. Each parameter's ``grad`` holds this step's
-        gradient afterwards."""
+        device scalar, computed before the update, MoE aux losses
+        included). ``rng`` (an int seed or a ``torch.Generator``, as the
+        JAX step's dropout key) goes to the module, whose dropout and MoE
+        router noise draw from it; a module with dropout 0.0 and no MoE
+        layer draws nothing. Each parameter's ``grad`` holds this step's
+        gradient afterwards; ``last_moe_overflow`` the step's overflow
+        share (a device scalar; -1.0 without MoE layers)."""
         if self.opt is None:
             raise RuntimeError("call init() before train_step()")
         self.module.train()
         tokens, x = self._inputs(batch)
         self.opt.zero_grad(set_to_none=True)
-        loss = self._loss(tokens, x, train=True, rng=rng)
+        loss = self._moe_terms(self._loss(tokens, x, train=True, rng=rng))
         loss.backward()
         self.opt.step()
         return loss.detach()

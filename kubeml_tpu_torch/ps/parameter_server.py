@@ -27,12 +27,17 @@ The serving half serves a finished job from its exported checkpoint:
   export (or, under ``serving_quantize="int8"``, a ``final-int8`` export
   at least as fresh) through the job's registered function into a
   4-entry host cache keyed by the file's mtime, and serves it through a
-  resident :class:`~kubeml_tpu_torch.serving.PagedBatchingDecoder` from a
-  2-entry cache keyed the same way; a re-saved checkpoint builds a new
+  resident decoder from a 2-entry cache keyed the same way: the
+  :class:`~kubeml_tpu_torch.serving.PagedBatchingDecoder`, or the dense
+  :class:`~kubeml_tpu_torch.serving.BatchingDecoder` for a model with no
+  paged decode path (MoE) and under ``serving_paged=False`` (JAX
+  ``:1349-1383``); with ``serving_batcher=False`` each request runs the
+  one-shot ``generate_from_request``. A re-saved checkpoint builds a new
   decoder and retires the one it displaces, and a closed decoder is
   rebuilt. The cache holds the host tree: each decoder gets a module of
   its own built from it (the engine quantizes its module in place), moved
-  to the server's device;
+  to the server's device. ``generate`` on a live job is the job's
+  ``TrainJob.generate`` (the one-shot path on its published weights);
 * :meth:`ParameterServer.infer` (JAX ``:1906``) runs a finished model's
   ``infer`` (a K-AVG job such as LeNet or ResNet) on the server's device;
 * :meth:`drain_serving`, :meth:`restore_serving` and
@@ -47,18 +52,17 @@ arguments, or a draft model that does not load) degrades to plain decode
 with a warning. Anything else raised while building a decoder propagates.
 
 Not ported yet, each refused with a 400 that names it: standalone job
-runners (``standalone_jobs``), ``generate`` on a live job (the JAX
-package's dense ``generate_from_request``), the dense engine
-(``serving_batcher=False``, ``serving_paged=False``, or a model with no
-paged decode path), meshes (``serving_mesh``), sharded finals and
-functions with a ``serving_remap``, and serving a job's epoch checkpoints
-before its final export. Multi-host jobs, the heartbeat monitor of hung
-jobs, traces and the time-series store are not ported either. An unknown
-id is a 404. The server runs on the card unless given ``device="cpu"``.
+runners (``standalone_jobs``), meshes (``serving_mesh``, the multi-card
+slice), sharded finals and functions with a ``serving_remap``, and
+serving a job's epoch checkpoints before its final export. Multi-host
+jobs, the heartbeat monitor of hung jobs, traces and the time-series
+store are not ported either. An unknown id is a 404. The server runs on
+the card unless given ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import inspect
 import logging
 import os
 import threading
@@ -77,9 +81,10 @@ from ..api.types import (GenerateRequest, History, JobState, JobStateEnum,
 from ..engine.job import TrainJob
 from ..functions.registry import FunctionRegistry
 from ..interop.from_flax import from_flax, from_flax_variables
-from ..models.generation import supports_paged_decode
+from ..models.generation import (generate_from_request,
+                                 supports_paged_decode)
 from ..models.layers import load_tree
-from ..serving import PagedBatchingDecoder, kvsnap
+from ..serving import BatchingDecoder, PagedBatchingDecoder, kvsnap
 from ..serving.quant import (INT8_TAG, QuantizedTensor, from_storage_tree,
                              is_quantized_storage, is_quantized_tree)
 from ..storage.checkpoint import FINAL_TAG, CheckpointStore
@@ -554,27 +559,61 @@ class ParameterServer:
             self.metrics.task_finished("inference")
 
     def generate(self, model_id: str, req):
-        """Sampling from a finished causal-LM job through its resident
-        paged decoder. Returns the result dict, or with ``req.stream`` a
-        generator of ``{"row", "tokens"}`` deltas and a final ``{"done",
-        "lengths"}`` record. A live job is refused with a 400."""
+        """Sampling from a causal-LM job: a live job through
+        ``TrainJob.generate``, a finished one through its resident decoder
+        (or the one-shot path without the batching engine). Returns the
+        result dict, or with ``req.stream`` a generator of ``{"row",
+        "tokens"}`` deltas and a final ``{"done", "lengths"}`` record."""
         if not isinstance(req, GenerateRequest):
             req = GenerateRequest.parse_request({**req, "model_id": model_id})
         with self._lock:
-            live = model_id in self._jobs
-        if live:
-            raise _not_ported(f"generate on the live job {model_id!r} (the "
-                              f"dense generate_from_request)")
+            record = self._jobs.get(model_id)
+        if record is not None:
+            if record.job is None:
+                raise KubeMLError(f"job {model_id} is still starting", 503)
+            if not hasattr(record.job, "generate"):
+                raise KubeMLError(
+                    f"job {model_id}'s engine does not serve generation", 400)
+            self.metrics.task_started("inference")
+            try:
+                return self._maybe_stream(record.job.generate(req), req)
+            finally:
+                self.metrics.task_finished("inference")
         model, tree, mtime = self._load_serving(model_id)
         decoder = self._get_decoder(model_id, model, tree, mtime)
-        entry = decoder.submit(req)
-        if req.stream:
-            return self._metered_stream(decoder.stream(entry))
+        if decoder is not None:
+            entry = decoder.submit(req)
+            if req.stream:
+                return self._metered_stream(decoder.stream(entry))
+            self.metrics.task_started("inference")
+            try:
+                return decoder.wait(entry, timeout=generate_timeout(req))
+            finally:
+                self.metrics.task_finished("inference")
         self.metrics.task_started("inference")
         try:
-            return decoder.wait(entry, timeout=generate_timeout(req))
+            module = model.build()
+            if self._slab_decodable(module):
+                module = self._load_module(module, self._densified(tree))
+            # a module with no decode path is generate_from_request's 400
+            return self._maybe_stream(generate_from_request(module, req),
+                                      req)
         finally:
             self.metrics.task_finished("inference")
+
+    @staticmethod
+    def _maybe_stream(result: dict, req):
+        """A one-shot result in the streaming wire shape when the client
+        asked to stream."""
+        if not req.stream:
+            return result
+
+        def lines():
+            for i, toks in enumerate(result["tokens"]):
+                yield {"row": i, "tokens": toks[: result["lengths"][i]]}
+            yield {"done": True, "lengths": result["lengths"]}
+
+        return lines()
 
     def _metered_stream(self, gen):
         self.metrics.task_started("inference")
@@ -592,27 +631,37 @@ class ParameterServer:
     def _serving_module(self, model, tree):
         """A module of its own for one decoder: built by the function,
         loaded from the host tree, on the server's device."""
-        module = model.build()
-        if not supports_paged_decode(module) or getattr(
-                module, "max_len", None) is None:
-            raise _not_ported(
-                "serving a model with no paged decode path (the dense "
-                "BatchingDecoder)")
+        return self._load_module(model.build(), tree)
+
+    def _load_module(self, module, tree):
         load_tree(module, from_flax(tree))
         return module.to(self.device)
 
+    @staticmethod
+    def _slab_decodable(module) -> bool:
+        """Whether ``module`` can decode through a batching engine: a
+        declared ``max_len`` and a forward that takes ``decode`` and
+        per-row ``positions`` (JAX ``_get_decoder``'s probe)."""
+        if getattr(module, "max_len", None) is None:
+            return False
+        try:
+            params = inspect.signature(module.forward).parameters
+        except (TypeError, ValueError):
+            return False
+        return "decode" in params and "positions" in params
+
     def _get_decoder(self, model_id: str, model, tree, mtime):
-        """The resident paged decoder of a finished checkpoint, rebuilt
-        when the checkpoint's mtime moved or the decoder closed."""
-        if not self.cfg.serving_batcher:
-            raise _not_ported("serving without the batching engine "
-                              "(serving_batcher=False)")
-        if not self.cfg.serving_paged:
-            raise _not_ported("the dense BatchingDecoder "
-                              "(serving_paged=False)")
+        """The resident decoder of a finished checkpoint, rebuilt when the
+        checkpoint's mtime moved or the decoder closed; None without the
+        batching engine or for a model it cannot decode (the caller then
+        runs the one-shot path). The paged engine serves what it can, the
+        dense one the rest."""
         if self.cfg.serving_mesh:
             raise _not_ported(f"meshed serving (serving_mesh="
-                              f"{self.cfg.serving_mesh!r})")
+                              f"{self.cfg.serving_mesh!r}, the multi-card "
+                              f"slice)")
+        if not self.cfg.serving_batcher:
+            return None
         with self._lock:
             cached = self._decoders.get(model_id)
             if (cached is not None and cached[1] == mtime
@@ -623,22 +672,33 @@ class ParameterServer:
             log.warning("KUBEML_SERVING_QUANTIZE=%r not recognized (valid: "
                         "int8); serving unquantized", quantize)
             quantize = ""
-        module = self._serving_module(model, tree)
+        module = model.build()
+        if not self._slab_decodable(module):
+            return None
+        module = self._load_module(module, tree)
         common = dict(
             slots=self.cfg.serving_slots,
             chunk_steps=self.cfg.serving_chunk_steps, name=model_id,
             quantize=quantize, int8_matmul=self.cfg.int8_matmul,
             int8_matmul_impl=self.cfg.int8_matmul_impl,
             queue_limit=self.cfg.serving_queue_limit,
-            shed_policy=self.cfg.serving_shed_policy,
+            shed_policy=self.cfg.serving_shed_policy, device=self.device)
+        if self.cfg.serving_paged and supports_paged_decode(module):
+            decoder = self._paged_decoder(model_id, module, common)
+        else:
+            decoder = BatchingDecoder(module, **common)
+        return self._install_decoder(model_id, decoder, mtime)
+
+    def _paged_decoder(self, model_id: str, module, common: dict):
+        common = dict(
+            common,
             page_tokens=self.cfg.serving_page_tokens,
             pages=self.cfg.serving_pages,
             prefix_cache=self.cfg.serving_prefix_cache,
             paged_attn=self.cfg.paged_attn, kv_quant=self.cfg.kv_quant,
             spec_min_accept=self.cfg.spec_min_accept,
             prefill_chunk_tokens=self.cfg.prefill_chunk_tokens,
-            pool_audit_interval=self.cfg.pool_audit_interval,
-            device=self.device)
+            pool_audit_interval=self.cfg.pool_audit_interval)
         spec_kw = self._spec_decoder_args()
         try:
             decoder = PagedBatchingDecoder(module, **common, **spec_kw)
@@ -652,6 +712,9 @@ class ParameterServer:
             log.warning("speculative-decoding config rejected (%s); "
                         "serving %s without speculation", e, model_id)
             decoder = PagedBatchingDecoder(module, **common)
+        return decoder
+
+    def _install_decoder(self, model_id: str, decoder, mtime):
         stale = []
         with self._lock:
             # a racing thread may have built one meanwhile: theirs may
@@ -748,8 +811,9 @@ class ParameterServer:
 
     def drain_serving(self, grace: Optional[float] = None) -> dict:
         """Drain every resident decoder: admissions answer 429, live rows
-        get ``grace`` seconds (``drain_grace``), and the stragglers become
-        KMS1 frames, written to ``snap_dir`` (one ``<model>-<request>.kms``
+        get ``grace`` seconds (``drain_grace``; a dense decoder retires
+        instead: it has no snapshots), and the stragglers become KMS1
+        frames, written to ``snap_dir`` (one ``<model>-<request>.kms``
         each) when it is set, for the next server's
         :meth:`restore_serving`; the waiters get a retryable 503 with
         their partial tokens either way."""
@@ -759,7 +823,11 @@ class ParameterServer:
         out = {"models": [], "snapshots": 0, "written": []}
         for mid, d in decoders.items():
             try:
-                frames = d.drain(grace)
+                if hasattr(d, "drain"):
+                    frames = d.drain(grace)
+                else:  # the dense engine has no snapshot seam
+                    d.retire()
+                    frames = []
             except Exception:
                 log.exception("draining decoder %s failed", mid)
                 continue
@@ -802,6 +870,11 @@ class ParameterServer:
                 mid = str(kvsnap.peek_header(frame).get("model") or "")
                 model, tree, mtime = self._load_serving(mid)
                 decoder = self._get_decoder(mid, model, tree, mtime)
+                if decoder is None or not hasattr(decoder,
+                                                  "submit_snapshot"):
+                    raise KubeMLError(
+                        f"model {mid!r} has no snapshot-capable decoder",
+                        409)
                 entry = decoder.submit_snapshot(frame)
                 with self._lock:
                     self._restored.append({

@@ -1,10 +1,11 @@
 """The port's serving path: int8 weight quantization (``quant``), the page
-pool (``kvpool``) and the paged continuous-batching engine (``batcher``)."""
+pool (``kvpool``) and the continuous-batching engines (``batcher``): the
+paged one and the dense slot engine."""
 
-from .batcher import DecoderClosed, PagedBatchingDecoder
+from .batcher import BatchingDecoder, DecoderClosed, PagedBatchingDecoder
 from .kvpool import KVPool, PageAllocError, PageLease, PrefixTrie
 from .quant import QuantizedTensor, dequantize_tree, quantize_tree
 
-__all__ = ["PagedBatchingDecoder", "DecoderClosed", "KVPool", "PageLease",
+__all__ = ["BatchingDecoder", "PagedBatchingDecoder", "DecoderClosed", "KVPool", "PageLease",
            "PrefixTrie", "PageAllocError", "QuantizedTensor", "quantize_tree",
            "dequantize_tree"]

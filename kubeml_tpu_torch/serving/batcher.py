@@ -1,5 +1,10 @@
-"""The paged continuous-batching serving engine, port of
-``kubeml_tpu/serving/batcher.py::PagedBatchingDecoder``.
+"""The continuous-batching serving engines, port of
+``kubeml_tpu/serving/batcher.py``: ``PagedBatchingDecoder`` (below) and
+the dense slot engine ``BatchingDecoder`` (per-row ``[max_len]`` cache
+stripes; see its docstring), which serves MoE models and
+``serving_paged=False``. ``_SlotEngine`` holds what the two share: the
+queue, its overload policy, the request API and the host side of a row's
+life.
 
 One engine thread owns the device state: per-layer K/V page arenas
 (``models.generation.PagedCache``) shared by up to ``slots`` decode rows,
@@ -58,8 +63,7 @@ admission, waits out a grace period and returns the stragglers as KMS1
 frames, which ``submit_snapshot`` (here or in the JAX engine) admits
 again; a periodic ``KVPool.check()`` audit turns broken page accounting
 into that same rebuild. A fault is injected, and holds this guarantee,
-at a step's entry. Left for later (ROADMAP): the dense
-``BatchingDecoder``, the PS route, and meshes.
+at a step's entry. Left for later (ROADMAP): meshes.
 """
 
 from __future__ import annotations
@@ -80,8 +84,9 @@ import torch
 from ..api.config import get_config
 from ..api.errors import EngineFaultError, KubeMLError, OverloadedError
 from ..models.generation import (GenerationInputError, PAD_ID,
-                                 draft_sample, init_paged_cache, spec_accept,
-                                 spec_mask_emissions, supports_paged_decode)
+                                 draft_sample, init_cache, init_paged_cache,
+                                 spec_accept, spec_mask_emissions,
+                                 supports_paged_decode)
 from ..models.layers import QuantizableDense, load_tree
 from ..ops.int8_matmul import resolve_int8_matmul
 from ..ops.paged_attention import resolve_kv_quant, resolve_paged_attn
@@ -142,8 +147,9 @@ def _kv_token_bytes(module, kv_quant: str,
 
 
 def _is_quantized(module) -> bool:
-    return any(isinstance(m, QuantizableDense) and m.quantized
-               for m in module.modules())
+    """Whether a projection (``QuantizableDense``) or a MoE weight of
+    ``module`` holds int8 values."""
+    return any(getattr(m, "quantized", False) for m in module.modules())
 
 
 def _seed_for(seed: int, index: int) -> int:
@@ -272,7 +278,452 @@ class _DrainReq:
         self.frames: List[bytes] = []
 
 
-class PagedBatchingDecoder:
+class _SlotEngine:
+    """What both continuous-batching engines share: the request queue and
+    its overload policy (queue limit, shedding, Retry-After, deadlines),
+    ``submit``/``wait``/``stream``/``cancel``, ``close``/``retire``, the
+    telemetry gauges, and the host side of a decode row's life (slot
+    bookkeeping, emission routing, completion, the single outcome each
+    request counts). A subclass owns the device state and the loop."""
+
+    # the first forwards on a card build the CUDA kernels (tens of
+    # seconds): until one has run, waits and deadlines get this allowance
+    COLD_COMPILE_ALLOWANCE = 900.0
+
+    def _init_queue_state(self, name: str) -> None:
+        """The queue, the slot table and the engine flags, all empty."""
+        self.name = name
+        self._pending: deque = deque()
+        self._slot_rows: List[Optional[_Row]] = [None] * self.slots
+        self._free = list(range(self.slots))
+        # rows mid chunked prefill, in admission order (paged engine)
+        self._prefill_pending: List[_Row] = []
+        self._cond = threading.Condition()
+        self._closed = False
+        self._retired = False
+        # drain: while True, submit answers 429 but live rows decode on;
+        # the paged engine's drain() posts a _DrainReq once its grace
+        # window closes
+        self._drain_mode = False
+        self._drain_deadline = 0.0
+        self._drain_req: Optional[_DrainReq] = None
+        self._warmed = False  # flips once a forward's tokens came back
+        self._thread: Optional[threading.Thread] = None
+        self._req_prefix = f"{name}-{uuid.uuid4().hex[:6]}"
+        self._req_seq = itertools.count(1)
+
+    def _check_capacity(self, plen: int, max_new: int) -> None:
+        """400 for a row no amount of queueing could ever admit (the paged
+        engine's page budget; the slot engine has only ``max_len``)."""
+
+    def submit(self, req) -> _Entry:
+        """Validate and enqueue a GenerateRequest; returns its entry."""
+        try:
+            return self._submit(req)
+        except KubeMLError as e:
+            if e.status_code == 400:
+                self.stats.rejected()
+            raise
+
+    def _submit(self, req) -> _Entry:
+        prompts = np.asarray(req.prompts)
+        if prompts.ndim != 2 or not np.issubdtype(prompts.dtype, np.integer):
+            raise KubeMLError(
+                "prompts must be a [batch, prompt_len] integer token array", 400)
+        B, width = prompts.shape
+        lens = ([int(v) for v in req.prompt_lengths]
+                if req.prompt_lengths is not None else [width] * B)
+        if req.top_k is not None and req.top_k > TOP_K_MAX:
+            raise KubeMLError(
+                f"top_k exceeds the serving bound ({TOP_K_MAX})", 400)
+        for plen in lens:
+            if plen + req.max_new_tokens - 1 > self.max_len:
+                raise KubeMLError(
+                    f"prompt ({plen}) + max_new_tokens ({req.max_new_tokens})"
+                    f" - 1 exceeds the model's max_len ({self.max_len})", 400)
+            self._check_capacity(plen, req.max_new_tokens)
+        entry = _Entry(rows=[], max_new=req.max_new_tokens,
+                       stream_q=queue.Queue() if req.stream else None,
+                       submitted_at=time.monotonic(),
+                       deadline=current_deadline(),
+                       request_id=self._next_request_id())
+        for i in range(B):
+            entry.rows.append(_Row(
+                entry=entry, index=i,
+                prompt=prompts[i, :lens[i]].astype(np.int32),
+                max_new=req.max_new_tokens, temp=float(req.temperature),
+                topk=int(req.top_k or 0),
+                eos=int(req.eos_id) if req.eos_id is not None else -1,
+                gen_seed=_seed_for(req.seed or 0, i)))
+        with self._cond:
+            if self._closed or self._retired:
+                raise DecoderClosed()
+            if self._drain_mode:
+                self.stats.overloaded()
+                hint = max(1.0, self._drain_deadline - time.monotonic())
+                raise OverloadedError(
+                    "decoder is draining for shutdown; resubmit to another "
+                    "replica or after restart", retry_after=min(hint, 30.0))
+            # the limit gates on QUEUE pressure: a batch wider than the
+            # limit still admits into an empty queue
+            if (self.queue_limit > 0 and self._pending
+                    and len(self._pending) + B > self.queue_limit):
+                if self.shed_policy == "oldest":
+                    self._shed_oldest_locked(
+                        len(self._pending) + B - self.queue_limit)
+                if (self._pending
+                        and len(self._pending) + B > self.queue_limit):
+                    self.stats.overloaded()
+                    raise OverloadedError(
+                        f"decode queue at its admission limit "
+                        f"({len(self._pending)}/{self.queue_limit} rows "
+                        f"queued)", retry_after=self._retry_after_hint())
+            self._enqueue_locked(entry.rows)
+        return entry
+
+    def _enqueue_locked(self, rows: List[_Row]) -> None:
+        self._pending.extend(rows)
+        self.stats.submitted(1)
+        if self._thread is None:
+            self._thread = threading.Thread(
+                target=self._loop, name=f"decode-{self.name}", daemon=True)
+            self._thread.start()
+        self._cond.notify_all()
+
+    def _next_request_id(self) -> str:
+        return f"{self._req_prefix}-r{next(self._req_seq)}"
+
+    def wait(self, entry: _Entry, timeout: Optional[float] = None) -> dict:
+        if timeout is not None and not self._warmed:
+            timeout += self.COLD_COMPILE_ALLOWANCE
+        if not entry.done_evt.wait(timeout):
+            # nobody reads the result: free the rows' slots and pages
+            if self._claim_outcome(entry):
+                self.stats.timed_out()
+            self.cancel(entry)
+            raise KubeMLError("generation timed out", 504)
+        if entry.error is not None:
+            raise entry.error
+        return entry.result()
+
+    def cancel(self, entry: _Entry) -> None:
+        """Abandon a request: queued rows leave the queue now, admitted rows
+        free their slot and pages at the next chunk edge."""
+        if self._claim_outcome(entry):
+            self.stats.canceled()
+        with self._cond:
+            for row in entry.rows:
+                row.canceled = True
+            self._pending = deque(r for r in self._pending if not r.canceled)
+            self._cond.notify_all()
+
+    def stream(self, entry: _Entry):
+        """Yield ``{"row": i, "tokens": [...]}`` deltas, then a final
+        ``{"done": true, "lengths": [...]}``; raises the entry's error.
+        Needs a request submitted with ``stream=True``."""
+        while True:
+            item = entry.stream_q.get()
+            if item is None:
+                if entry.error is not None:
+                    raise entry.error
+                yield {"done": True,
+                       "lengths": [len(r.out) for r in entry.rows],
+                       "request_id": entry.request_id}
+                return
+            yield item
+
+    def close(self) -> None:
+        """Hard shutdown: fails everything queued or in flight and stops the
+        engine thread."""
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+            thread = self._thread
+        if thread is not None and thread is not threading.current_thread():
+            thread.join(timeout=60)
+        self._fail_all(DecoderClosed())
+
+    def retire(self) -> None:
+        """Graceful shutdown: new submissions are refused, requests in
+        flight finish, then the engine thread exits and frees the arena."""
+        with self._cond:
+            self._retired = True
+            self._cond.notify_all()
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    def telemetry(self) -> dict:
+        """``DecoderStats.snapshot()`` plus the live gauges of the JAX
+        engines: queue depth, slot occupancy, the weight bytes, the queue
+        limit and the drain flag."""
+        snap = self.stats.snapshot()
+        with self._cond:
+            snap["queue_depth"] = float(len(self._pending))
+            busy = sum(1 for r in self._slot_rows if r is not None)
+        snap["slots_busy"] = float(busy)
+        snap["slots_total"] = float(self.slots)
+        snap["slot_occupancy"] = busy / max(self.slots, 1)
+        snap["weight_bytes"] = float(self.weight_bytes)
+        snap["queue_limit"] = float(self.queue_limit)
+        snap["draining"] = 1.0 if self._drain_mode else 0.0
+        return snap
+
+    def _fail_entry(self, entry: _Entry, error: Exception, counter) -> None:
+        """Fail one entry's waiters: rows done, the error set, the single
+        outcome claimed through ``counter``, waiter and stream released."""
+        for row in entry.rows:
+            row.done = True
+        if entry.error is None:
+            entry.error = error
+        if self._claim_outcome(entry):
+            counter()
+        entry.done_evt.set()
+        if entry.stream_q is not None:
+            entry.stream_q.put(None)
+
+    def _shed_oldest_locked(self, need: int) -> int:
+        """Shed the longest-queued entries until ``need`` queued rows are
+        free (caller holds ``_cond``). Only an entry whose rows are all
+        still queued is shed. Returns the rows freed."""
+        by_entry: Dict[int, List[_Row]] = {}
+        order: List[_Entry] = []
+        for r in self._pending:
+            if id(r.entry) not in by_entry:
+                order.append(r.entry)
+            by_entry.setdefault(id(r.entry), []).append(r)
+        doomed: List[_Entry] = []
+        freed = 0
+        for entry in order:
+            if freed >= need:
+                break
+            queued = by_entry[id(entry)]
+            if len(queued) != len(entry.rows):
+                continue
+            doomed.append(entry)
+            freed += len(queued)
+        if not doomed:
+            return 0
+        doomed_ids = {id(e) for e in doomed}
+        self._pending = deque(r for r in self._pending
+                              if id(r.entry) not in doomed_ids)
+        hint = self._retry_after_hint()
+        for entry in doomed:
+            self._fail_entry(entry, OverloadedError(
+                "request shed from the decode queue under sustained "
+                "overload (oldest-first)", retry_after=hint),
+                self.stats.shed)
+        return freed
+
+    def _retry_after_hint(self) -> float:
+        """Retry-After seconds of a 429: about how long the queue takes to
+        drain (depth / slots turns at the recent p50 request latency),
+        clamped to [1, 30]."""
+        with self._cond:
+            depth = len(self._pending)
+        p50 = self.stats.snapshot().get("latency_p50_seconds", 1.0)
+        turns = depth / max(self.slots, 1)
+        return float(min(max(1.0, turns * max(p50, 0.1)), 30.0))
+
+    def _sweep_expired(self) -> None:
+        """Fail (504) every fully queued entry whose deadline has passed,
+        instead of letting it take a slot for tokens nobody will read."""
+        now = time.time()
+        doomed: List[_Entry] = []
+        with self._cond:
+            if not self._pending:
+                return
+            allowance = 0.0 if self._warmed else self.COLD_COMPILE_ALLOWANCE
+            by_entry: Dict[int, List[_Row]] = {}
+            for r in self._pending:
+                by_entry.setdefault(id(r.entry), []).append(r)
+            seen = set()
+            for r in list(self._pending):
+                e = r.entry
+                if id(e) in seen:
+                    continue
+                seen.add(id(e))
+                if (e.deadline is not None
+                        and now > e.deadline + allowance
+                        and len(by_entry[id(e)]) == len(e.rows)):
+                    doomed.append(e)
+            if doomed:
+                doomed_ids = {id(e) for e in doomed}
+                self._pending = deque(r for r in self._pending
+                                      if id(r.entry) not in doomed_ids)
+            for entry in doomed:
+                self._fail_entry(entry, KubeMLError(
+                    "request deadline expired while queued for a decode "
+                    "slot", 504), self.stats.deadline_expired)
+
+    def _busy(self) -> bool:
+        return any(r is not None for r in self._slot_rows)
+
+    def _mark_slotted(self, row: _Row) -> None:
+        """Lifecycle: queued -> holding a slot (once a row)."""
+        if not row.slot_at:
+            row.slot_at = time.monotonic()
+            self.stats.phase("queue_wait",
+                             row.slot_at - row.entry.submitted_at)
+
+    def _knobs(self, rows: List[_Row]):
+        """Per-row temperature and top-k tensors, and each row's generator
+        (None for greedy rows)."""
+        dev = self.device
+        temp = torch.tensor([r.temp for r in rows], dtype=torch.float32,
+                            device=dev)
+        topk = torch.tensor([r.topk for r in rows], dtype=torch.int64,
+                            device=dev)
+        return temp, topk, [r.gen for r in rows]
+
+    def _stalled_rows(self) -> List[_Row]:
+        """The rows a prefill forward delays: resident rows that decode and
+        have tokens left to emit. Rows mid chunked prefill are not decoding
+        yet (their own wait is their time to first token)."""
+        return [r for r in self._slot_rows
+                if r is not None and not r.done and not r.canceled
+                and not r.prefilling and r.out
+                and r.max_new - len(r.out) > 0]
+
+    def _charge_stall(self, stalled: List[_Row], seconds: float) -> None:
+        """A prefill forward's wall, charged to each row it delayed and to
+        the engine counter (seconds x rows)."""
+        self.stats.hol_stall(seconds, len(stalled))
+        for r in stalled:
+            r.hol_stall += seconds
+
+    def _decode_rows(self) -> List[_Row]:
+        """The resident rows with decode work (not finished, canceled, or
+        mid chunked prefill)."""
+        return [r for r in self._slot_rows
+                if r is not None and not r.done and not r.canceled
+                and not r.prefilling]
+
+    def _occupancy(self, steps: int, width: int, emitted: int) -> None:
+        """Slot accounting of one chunk or spec step (``width`` token slots
+        a row each step): live = tokens emitted, dead = the rest of the
+        resident rows' slots (rows mid chunked prefill included), idle =
+        the slots no row holds."""
+        resident = sum(1 for r in self._slot_rows if r is not None)
+        dead = steps * width * resident - emitted
+        self.stats.chunk_occupancy(
+            steps, emitted, dead,
+            steps * width * self.slots - emitted - dead,
+            capacity=width * self.slots)
+
+    def _route(self, rows: List[_Row], packed: np.ndarray) -> None:
+        """Append each row's emitted tokens (``packed [rows, T]``, -1 past
+        them), stream them, and complete the rows that finished."""
+        for r, toks in zip(rows, packed):
+            fresh = []
+            for tok_i in toks.tolist():
+                if tok_i < 0:
+                    break
+                fresh.append(tok_i)
+                r.out.append(tok_i)
+                if (r.eos >= 0 and tok_i == r.eos) or len(r.out) >= r.max_new:
+                    break
+            self._consumed(r)
+            if fresh:
+                self._emit_delta(r, fresh)
+            if ((r.eos >= 0 and r.out[-1] == r.eos)
+                    or len(r.out) >= r.max_new):
+                self._complete_row(r)
+
+    @staticmethod
+    def _consumed(r: _Row) -> None:
+        """Record a sampled row's generator state after a consumed step."""
+        if r.gen is not None:
+            r.gen_state = r.gen.get_state()
+
+    def _evict_canceled(self) -> None:
+        """Free the slot and pages of every canceled resident row, mid
+        chunked prefill too (its lease returns exactly once; the prefill
+        ledger drops it)."""
+        for r in self._slot_rows:
+            if r is not None and r.canceled and not r.done:
+                r.done = True
+                self._release_row(r)
+        self._prefill_pending = [r for r in self._prefill_pending
+                                 if not r.done]
+
+    def _release_row(self, r: _Row) -> None:
+        if r.lease is not None:
+            self._pool.release(r.lease)
+        with self._cond:
+            self._slot_rows[r.slot] = None
+            self._free.append(r.slot)
+
+    def _complete_row(self, r: _Row) -> None:
+        r.done = True
+        if r.first_emit_at:
+            self.stats.phase("decode_active",
+                             r.last_emit_at - r.first_emit_at)
+        self.stats.phase("slot_idle", time.monotonic() - r.last_emit_at
+                         if r.last_emit_at else 0.0)
+        self._release_row(r)
+        entry = r.entry
+        if entry.finished():
+            if self._claim_outcome(entry):
+                self.stats.completed(time.monotonic() - entry.submitted_at)
+            entry.done_evt.set()
+            if entry.stream_q is not None:
+                entry.stream_q.put(None)
+
+    def _claim_outcome(self, entry: _Entry) -> bool:
+        """Each request counts exactly one outcome (completed, timed out,
+        canceled, shed, expired or failed), whichever side claims it
+        first."""
+        with self._cond:
+            if entry.aborted:
+                return False
+            entry.aborted = True
+            return True
+
+    def _emit_delta(self, r: _Row, tokens: List[int]) -> None:
+        entry = r.entry
+        now = time.monotonic()
+        if entry.first_token_at == 0.0:
+            entry.first_token_at = now
+            self.stats.first_token(now - entry.submitted_at)
+        if r.first_emit_at == 0.0:
+            r.first_emit_at = now
+        else:
+            # one gap an arrival: a multi-token delta is one arrival
+            gap = now - r.last_emit_at
+            r.itl.append(gap)
+            self.stats.inter_token(gap)
+        r.last_emit_at = now
+        # tokens routed to a waiter that already gave up are waste
+        self.stats.emitted(len(tokens), wasted=entry.aborted)
+        if entry.stream_q is not None:
+            entry.stream_q.put({"row": r.index, "tokens": tokens})
+
+    def _fail_all(self, error: Exception, wrap: bool = False) -> None:
+        """Fail every queued and resident row. ``wrap`` reaches waiters as
+        a retryable 503 carrying the tokens emitted so far; close() passes
+        its own error through."""
+        with self._cond:
+            rows = list(self._pending) + [r for r in self._slot_rows if r]
+            self._pending.clear()
+            self._slot_rows = [None] * self.slots
+            self._free = list(range(self.slots))
+            self._prefill_pending = []
+        for r in rows:
+            if r.lease is not None:
+                self._pool.release(r.lease)
+        entries = {id(r.entry): r.entry for r in rows}
+        for entry in entries.values():
+            self._fail_entry(entry, (
+                error if not wrap or isinstance(error, KubeMLError)
+                else EngineFaultError(
+                    f"decode engine fault: {error}",
+                    partial_tokens=[list(r.out) for r in entry.rows])),
+                self.stats.failed)
+
+
+class PagedBatchingDecoder(_SlotEngine):
     """Paged continuous batching over one causal-LM module.
 
     ``submit`` is thread-safe and returns immediately; ``wait`` blocks for
@@ -303,10 +754,6 @@ class PagedBatchingDecoder:
     to ``api.config``'s ``KUBEML_SERVING_QUEUE_LIMIT``,
     ``KUBEML_SERVING_SHED`` and ``KUBEML_POOL_AUDIT_INTERVAL``.
     """
-
-    # the first forwards on a card build the CUDA kernels (tens of
-    # seconds): until one has run, waits and deadlines get this allowance
-    COLD_COMPILE_ALLOWANCE = 900.0
 
     def __init__(self, module, *, slots: int = DEFAULT_SLOTS,
                  chunk_steps: int = 16, page_tokens: int = 16,
@@ -407,25 +854,8 @@ class PagedBatchingDecoder:
             t *= 2
         self._chunk_sizes = sorted(ladder)
         self.prefill_chunk = _chunk_cap(int(prefill_chunk_tokens), pt)
-        # rows mid chunked prefill, in admission order
-        self._prefill_pending: List[_Row] = []
-
-        self._pending: deque = deque()
-        self._slot_rows: List[Optional[_Row]] = [None] * self.slots
-        self._free = list(range(self.slots))
-        self._cond = threading.Condition()
-        self._closed = False
-        self._retired = False
-        # drain: while True, submit answers 429 but live rows decode on;
-        # drain() posts a _DrainReq once its grace window closes
-        self._drain_mode = False
-        self._drain_deadline = 0.0
-        self._drain_req: Optional[_DrainReq] = None
-        self._warmed = False  # flips once a forward's tokens came back
+        self._init_queue_state(name)
         self._next_audit = 0.0
-        self._thread: Optional[threading.Thread] = None
-        self._req_prefix = f"{name}-{uuid.uuid4().hex[:6]}"
-        self._req_seq = itertools.count(1)
 
     def _init_spec(self, spec, spec_k, spec_adaptive, draft_module,
                    spec_exit_layer, spec_min_accept, quantize) -> None:
@@ -503,171 +933,11 @@ class PagedBatchingDecoder:
 
     # --- public API ---
 
-    def submit(self, req) -> _Entry:
-        """Validate and enqueue a GenerateRequest; returns its entry."""
-        try:
-            return self._submit(req)
-        except KubeMLError as e:
-            if e.status_code == 400:
-                self.stats.rejected()
-            raise
-
-    def _submit(self, req) -> _Entry:
-        prompts = np.asarray(req.prompts)
-        if prompts.ndim != 2 or not np.issubdtype(prompts.dtype, np.integer):
-            raise KubeMLError(
-                "prompts must be a [batch, prompt_len] integer token array", 400)
-        B, width = prompts.shape
-        lens = ([int(v) for v in req.prompt_lengths]
-                if req.prompt_lengths is not None else [width] * B)
-        if req.top_k is not None and req.top_k > TOP_K_MAX:
-            raise KubeMLError(
-                f"top_k exceeds the serving bound ({TOP_K_MAX})", 400)
-        for plen in lens:
-            if plen + req.max_new_tokens - 1 > self.max_len:
-                raise KubeMLError(
-                    f"prompt ({plen}) + max_new_tokens ({req.max_new_tokens})"
-                    f" - 1 exceeds the model's max_len ({self.max_len})", 400)
-            self._check_capacity(plen, req.max_new_tokens)
-        entry = _Entry(rows=[], max_new=req.max_new_tokens,
-                       stream_q=queue.Queue() if req.stream else None,
-                       submitted_at=time.monotonic(),
-                       deadline=current_deadline(),
-                       request_id=self._next_request_id())
-        for i in range(B):
-            entry.rows.append(_Row(
-                entry=entry, index=i,
-                prompt=prompts[i, :lens[i]].astype(np.int32),
-                max_new=req.max_new_tokens, temp=float(req.temperature),
-                topk=int(req.top_k or 0),
-                eos=int(req.eos_id) if req.eos_id is not None else -1,
-                gen_seed=_seed_for(req.seed or 0, i)))
-        with self._cond:
-            if self._closed or self._retired:
-                raise DecoderClosed()
-            if self._drain_mode:
-                self.stats.overloaded()
-                hint = max(1.0, self._drain_deadline - time.monotonic())
-                raise OverloadedError(
-                    "decoder is draining for shutdown; resubmit to another "
-                    "replica or after restart", retry_after=min(hint, 30.0))
-            # the limit gates on QUEUE pressure: a batch wider than the
-            # limit still admits into an empty queue
-            if (self.queue_limit > 0 and self._pending
-                    and len(self._pending) + B > self.queue_limit):
-                if self.shed_policy == "oldest":
-                    self._shed_oldest_locked(
-                        len(self._pending) + B - self.queue_limit)
-                if (self._pending
-                        and len(self._pending) + B > self.queue_limit):
-                    self.stats.overloaded()
-                    raise OverloadedError(
-                        f"decode queue at its admission limit "
-                        f"({len(self._pending)}/{self.queue_limit} rows "
-                        f"queued)", retry_after=self._retry_after_hint())
-            self._enqueue_locked(entry.rows)
-        return entry
-
-    def _enqueue_locked(self, rows: List[_Row]) -> None:
-        self._pending.extend(rows)
-        self.stats.submitted(1)
-        if self._thread is None:
-            self._thread = threading.Thread(
-                target=self._loop, name=f"decode-{self.name}", daemon=True)
-            self._thread.start()
-        self._cond.notify_all()
-
-    def _next_request_id(self) -> str:
-        return f"{self._req_prefix}-r{next(self._req_seq)}"
-
-    def _check_capacity(self, plen: int, max_new: int) -> None:
-        """400 for a row no amount of queueing could ever admit."""
-        if not self._pool.can_admit(plen, max_new,
-                                    lookahead=self._spec_lookahead,
-                                    max_positions=self.max_len):
-            need = self._pool.pages_for(self._pool.total_positions(
-                plen, max_new, self._spec_lookahead, self.max_len))
-            raise KubeMLError(
-                f"request needs {need} KV pages but the arena holds "
-                f"{self._pool.capacity}", 400)
-
-    def wait(self, entry: _Entry, timeout: Optional[float] = None) -> dict:
-        if timeout is not None and not self._warmed:
-            timeout += self.COLD_COMPILE_ALLOWANCE
-        if not entry.done_evt.wait(timeout):
-            # nobody reads the result: free the rows' slots and pages
-            if self._claim_outcome(entry):
-                self.stats.timed_out()
-            self.cancel(entry)
-            raise KubeMLError("generation timed out", 504)
-        if entry.error is not None:
-            raise entry.error
-        return entry.result()
-
-    def cancel(self, entry: _Entry) -> None:
-        """Abandon a request: queued rows leave the queue now, admitted rows
-        free their slot and pages at the next chunk edge."""
-        if self._claim_outcome(entry):
-            self.stats.canceled()
-        with self._cond:
-            for row in entry.rows:
-                row.canceled = True
-            self._pending = deque(r for r in self._pending if not r.canceled)
-            self._cond.notify_all()
-
-    def stream(self, entry: _Entry):
-        """Yield ``{"row": i, "tokens": [...]}`` deltas, then a final
-        ``{"done": true, "lengths": [...]}``; raises the entry's error.
-        Needs a request submitted with ``stream=True``."""
-        while True:
-            item = entry.stream_q.get()
-            if item is None:
-                if entry.error is not None:
-                    raise entry.error
-                yield {"done": True,
-                       "lengths": [len(r.out) for r in entry.rows],
-                       "request_id": entry.request_id}
-                return
-            yield item
-
-    def close(self) -> None:
-        """Hard shutdown: fails everything queued or in flight and stops the
-        engine thread."""
-        with self._cond:
-            self._closed = True
-            self._cond.notify_all()
-            thread = self._thread
-        if thread is not None and thread is not threading.current_thread():
-            thread.join(timeout=60)
-        self._fail_all(DecoderClosed())
-
-    def retire(self) -> None:
-        """Graceful shutdown: new submissions are refused, requests in
-        flight finish, then the engine thread exits and frees the arena."""
-        with self._cond:
-            self._retired = True
-            self._cond.notify_all()
-
-    @property
-    def closed(self) -> bool:
-        return self._closed
-
     def telemetry(self) -> dict:
-        """``DecoderStats.snapshot()`` plus the live gauges of the JAX
-        engine: queue depth, slot and page occupancy, the limits, the drain
-        flag, which arena read this engine runs (1 = the CUDA kernel, 0 =
-        the plain version), the arena storage, and the speculative
-        controller's state."""
-        snap = self.stats.snapshot()
-        with self._cond:
-            snap["queue_depth"] = float(len(self._pending))
-            busy = sum(1 for r in self._slot_rows if r is not None)
-        snap["slots_busy"] = float(busy)
-        snap["slots_total"] = float(self.slots)
-        snap["slot_occupancy"] = busy / max(self.slots, 1)
-        snap["weight_bytes"] = float(self.weight_bytes)
-        snap["queue_limit"] = float(self.queue_limit)
-        snap["draining"] = 1.0 if self._drain_mode else 0.0
+        """The shared gauges plus page occupancy, which arena read this
+        engine runs (1 = the CUDA kernel, 0 = the plain version), the
+        arena storage, and the speculative controller's state."""
+        snap = super().telemetry()
         snap.update(self._pool.telemetry())
         snap["paged_attn_kernel"] = 1.0 if self.paged_attn == "cuda" else 0.0
         snap["kv_quant"] = 1.0 if self.kv_quant == "int8" else 0.0
@@ -682,94 +952,18 @@ class PagedBatchingDecoder:
             snap["spec_disabled"] = 1.0 if self._spec_ctl.disabled else 0.0
         return snap
 
+    def _check_capacity(self, plen: int, max_new: int) -> None:
+        """400 for a row no amount of queueing could ever admit."""
+        if not self._pool.can_admit(plen, max_new,
+                                    lookahead=self._spec_lookahead,
+                                    max_positions=self.max_len):
+            need = self._pool.pages_for(self._pool.total_positions(
+                plen, max_new, self._spec_lookahead, self.max_len))
+            raise KubeMLError(
+                f"request needs {need} KV pages but the arena holds "
+                f"{self._pool.capacity}", 400)
+
     # --- overload: shedding, Retry-After, deadlines ---
-
-    def _fail_entry(self, entry: _Entry, error: Exception, counter) -> None:
-        """Fail one entry's waiters: rows done, the error set, the single
-        outcome claimed through ``counter``, waiter and stream released."""
-        for row in entry.rows:
-            row.done = True
-        if entry.error is None:
-            entry.error = error
-        if self._claim_outcome(entry):
-            counter()
-        entry.done_evt.set()
-        if entry.stream_q is not None:
-            entry.stream_q.put(None)
-
-    def _shed_oldest_locked(self, need: int) -> int:
-        """Shed the longest-queued entries until ``need`` queued rows are
-        free (caller holds ``_cond``). Only an entry whose rows are all
-        still queued is shed. Returns the rows freed."""
-        by_entry: Dict[int, List[_Row]] = {}
-        order: List[_Entry] = []
-        for r in self._pending:
-            if id(r.entry) not in by_entry:
-                order.append(r.entry)
-            by_entry.setdefault(id(r.entry), []).append(r)
-        doomed: List[_Entry] = []
-        freed = 0
-        for entry in order:
-            if freed >= need:
-                break
-            queued = by_entry[id(entry)]
-            if len(queued) != len(entry.rows):
-                continue
-            doomed.append(entry)
-            freed += len(queued)
-        if not doomed:
-            return 0
-        doomed_ids = {id(e) for e in doomed}
-        self._pending = deque(r for r in self._pending
-                              if id(r.entry) not in doomed_ids)
-        hint = self._retry_after_hint()
-        for entry in doomed:
-            self._fail_entry(entry, OverloadedError(
-                "request shed from the decode queue under sustained "
-                "overload (oldest-first)", retry_after=hint),
-                self.stats.shed)
-        return freed
-
-    def _retry_after_hint(self) -> float:
-        """Retry-After seconds of a 429: about how long the queue takes to
-        drain (depth / slots turns at the recent p50 request latency),
-        clamped to [1, 30]."""
-        with self._cond:
-            depth = len(self._pending)
-        p50 = self.stats.snapshot().get("latency_p50_seconds", 1.0)
-        turns = depth / max(self.slots, 1)
-        return float(min(max(1.0, turns * max(p50, 0.1)), 30.0))
-
-    def _sweep_expired(self) -> None:
-        """Fail (504) every fully queued entry whose deadline has passed,
-        instead of letting it take a slot for tokens nobody will read."""
-        now = time.time()
-        doomed: List[_Entry] = []
-        with self._cond:
-            if not self._pending:
-                return
-            allowance = 0.0 if self._warmed else self.COLD_COMPILE_ALLOWANCE
-            by_entry: Dict[int, List[_Row]] = {}
-            for r in self._pending:
-                by_entry.setdefault(id(r.entry), []).append(r)
-            seen = set()
-            for r in list(self._pending):
-                e = r.entry
-                if id(e) in seen:
-                    continue
-                seen.add(id(e))
-                if (e.deadline is not None
-                        and now > e.deadline + allowance
-                        and len(by_entry[id(e)]) == len(e.rows)):
-                    doomed.append(e)
-            if doomed:
-                doomed_ids = {id(e) for e in doomed}
-                self._pending = deque(r for r in self._pending
-                                      if id(r.entry) not in doomed_ids)
-            for entry in doomed:
-                self._fail_entry(entry, KubeMLError(
-                    "request deadline expired while queued for a decode "
-                    "slot", 504), self.stats.deadline_expired)
 
     # --- KMS1 snapshots: restore, capture, recovery, drain ---
 
@@ -1120,9 +1314,6 @@ class PagedBatchingDecoder:
 
     # --- engine loop (one thread owns the device state) ---
 
-    def _busy(self) -> bool:
-        return any(r is not None for r in self._slot_rows)
-
     def _loop(self) -> None:
         while True:
             self._sweep_expired()
@@ -1252,13 +1443,6 @@ class PagedBatchingDecoder:
             admits.append(row)
         return admits
 
-    def _mark_slotted(self, row: _Row) -> None:
-        """Lifecycle: queued -> holding a slot (once a row)."""
-        if not row.slot_at:
-            row.slot_at = time.monotonic()
-            self.stats.phase("queue_wait",
-                             row.slot_at - row.entry.submitted_at)
-
     def _group_admits(self, admits: List[_Row]) -> List[List[_Row]]:
         """Group by the length bucket of the suffix still to prefill (past
         the shared prefix, or past a chunked row's earlier chunks): one
@@ -1269,25 +1453,6 @@ class PagedBatchingDecoder:
             groups.setdefault(_pow2_bucket(sfx, _BUCKET_MIN, self.max_len),
                               []).append(row)
         return list(groups.values())
-
-    def _knobs(self, rows: List[_Row]):
-        """Per-row temperature and top-k tensors, and each row's generator
-        (None for greedy rows)."""
-        dev = self.device
-        temp = torch.tensor([r.temp for r in rows], dtype=torch.float32,
-                            device=dev)
-        topk = torch.tensor([r.topk for r in rows], dtype=torch.int64,
-                            device=dev)
-        return temp, topk, [r.gen for r in rows]
-
-    def _stalled_rows(self) -> List[_Row]:
-        """The rows a prefill forward delays: resident rows that decode and
-        have tokens left to emit. Rows mid chunked prefill are not decoding
-        yet (their own wait is their time to first token)."""
-        return [r for r in self._slot_rows
-                if r is not None and not r.done and not r.canceled
-                and not r.prefilling and r.out
-                and r.max_new - len(r.out) > 0]
 
     def _kv_tokens(self, depths: List[int], width: int) -> int:
         """Cached tokens one forward reads through ``width``-page tables
@@ -1325,13 +1490,6 @@ class PagedBatchingDecoder:
                               + (self._kv_draft_token_bytes
                                  if self.draft_module is not None else 0)))
         return hidden
-
-    def _charge_stall(self, stalled: List[_Row], seconds: float) -> None:
-        """A prefill forward's wall, charged to each row it delayed and to
-        the engine counter (seconds x rows)."""
-        self.stats.hol_stall(seconds, len(stalled))
-        for r in stalled:
-            r.hol_stall += seconds
 
     def _prefill(self, group: List[_Row]) -> None:
         """Prefill the group's remaining suffixes in one forward straight
@@ -1440,13 +1598,6 @@ class PagedBatchingDecoder:
         self.stats.admit_tokens(cap * len(rows), 0)
         self.stats.prefill_chunk(len(rows), cap * len(rows))
 
-    def _decode_rows(self) -> List[_Row]:
-        """The resident rows with decode work (not finished, canceled, or
-        mid chunked prefill)."""
-        return [r for r in self._slot_rows
-                if r is not None and not r.done and not r.canceled
-                and not r.prefilling]
-
     def _chunk_size(self) -> int:
         """The largest ladder chunk that ends at or before the earliest
         completion of a decoding row (0 = no row needs a step)."""
@@ -1479,18 +1630,6 @@ class PagedBatchingDecoder:
                              dtype=torch.int32, device=dev),
                 torch.tensor([r.eos for r in rows], dtype=torch.int64,
                              device=dev))
-
-    def _occupancy(self, steps: int, width: int, emitted: int) -> None:
-        """Slot accounting of one chunk or spec step (``width`` token slots
-        a row each step): live = tokens emitted, dead = the rest of the
-        resident rows' slots (rows mid chunked prefill included), idle =
-        the slots no row holds."""
-        resident = sum(1 for r in self._slot_rows if r is not None)
-        dead = steps * width * resident - emitted
-        self.stats.chunk_occupancy(
-            steps, emitted, dead,
-            steps * width * self.slots - emitted - dead,
-            capacity=width * self.slots)
 
     def _decode_chunk(self, size: int) -> None:
         """Advance every decoding row ``size`` tokens; rows that hit their
@@ -1602,111 +1741,283 @@ class PagedBatchingDecoder:
             r.spec_accepted += int(n)
         self._route(rows, packed[:, :-1])
 
-    def _route(self, rows: List[_Row], packed: np.ndarray) -> None:
-        """Append each row's emitted tokens (``packed [rows, T]``, -1 past
-        them), stream them, and complete the rows that finished."""
-        for r, toks in zip(rows, packed):
-            fresh = []
-            for tok_i in toks.tolist():
-                if tok_i < 0:
-                    break
-                fresh.append(tok_i)
-                r.out.append(tok_i)
-                if (r.eos >= 0 and tok_i == r.eos) or len(r.out) >= r.max_new:
-                    break
+
+class BatchingDecoder(_SlotEngine):
+    """Dense slot engine: continuous batching over per-row cache stripes
+    (JAX ``BatchingDecoder``, :479-1795).
+
+    Each of ``slots`` slots owns a ``[max_len]`` stripe of every layer's
+    dense K/V cache (``models.generation.DenseCache``). Rows are admitted
+    FIFO into free slots; an admission wave prefills in one forward per
+    prompt-length bucket (a power of two from 16) into a
+    scratch cache, whose stripes are copied into the rows' slots with
+    ``valid`` trimmed to each prompt's length. All slots then advance
+    together through decode chunks of ``chunk_steps`` or the shorter
+    ``tail`` steps (the JAX ladder), each step one forward of every slot at
+    its own position; the per-slot slab - token, position, liveness,
+    remaining budget, temperature, top-k and eos - is built from the rows
+    at each chunk's start, and rows that finish inside a chunk freeze
+    (they feed their last token at their last position and emit nothing).
+    A chunk is sized to the longest row's remaining work, or, with rows
+    queued, to the earliest completion (the JAX engine's default
+    pressure sizing).
+
+    This engine serves what the paged engine cannot: MoE-interleaved
+    models (no paged decode path) and ``serving_paged=False``. Attention
+    runs over the whole stripe under a dense mask, so it takes the plain
+    path, as the JAX engine's XLA path does.
+
+    ``quantize="int8"`` holds int8 weights: with ``int8_matmul`` every
+    quantized projection runs through ``int8_matmul_impl`` (``auto``: the
+    CUDA kernel on CUDA); without it - and always for MoE models, whose
+    expert stacks the int8 matmul does not cover (JAX :590-596) - the int8
+    values stay on the device and each forward dequantizes them.
+
+    Sampled rows draw from a generator seeded as the paged engine's
+    (``_seed_for``), first at the prefill, then once a decode step, so at
+    a fixed seed the two engines draw the same tokens. Counters live in a
+    ``DecoderStats`` under the JAX names; the queue limit, shed policy
+    and deadlines are the shared ones. A fault in the loop fails the
+    resident and queued requests with a retryable 503 carrying their
+    tokens and rebuilds the cache, as the JAX engine does; there is no
+    snapshot recovery or drain (a paged-engine feature)."""
+
+    def __init__(self, module, *, slots: int = DEFAULT_SLOTS,
+                 chunk_steps: int = 8, quantize: str = "",
+                 int8_matmul: bool = False, int8_matmul_impl: str = "auto",
+                 queue_limit: Optional[int] = None,
+                 shed_policy: Optional[str] = None,
+                 name: str = "decoder", device=None):
+        self.device = resolve_device(device)
+        if getattr(module, "max_len", None) is None:
+            raise GenerationInputError(
+                "model exposes no max_len attribute; batched decode requires "
+                "a declared KV-cache capacity")
+        if module.device != self.device:
+            raise ValueError(f"module lives on {module.device}, the decoder "
+                             f"on {self.device}; move it first")
+        if quantize not in ("", "int8"):
+            raise ValueError(f"unknown quantize mode {quantize!r} "
+                             f"(valid: '', 'int8')")
+        pre_quantized = _is_quantized(module)
+        if pre_quantized and quantize != "int8":
+            raise ValueError("module carries int8 weights but quantize is "
+                             "not 'int8'")
+        cfg = get_config()
+        self.module = module.eval()
+        self.max_len = int(module.max_len)
+        self.slots = int(slots)
+        self.chunk_steps = int(chunk_steps)
+        self.queue_limit = int(queue_limit if queue_limit is not None
+                               else cfg.serving_queue_limit)
+        self.shed_policy = str(shed_policy if shed_policy is not None
+                               else cfg.serving_shed_policy)
+        self.stats = DecoderStats(self.slots)
+        self.quantize = quantize
+        self.int8_matmul = quantize == "int8" and (bool(int8_matmul)
+                                                   or pre_quantized)
+        if self.int8_matmul and getattr(module, "moe_every", 0):
+            log.warning("%s: the int8 matmul does not cover MoE expert "
+                        "weights; falling back to in-step dequantize", name)
+            self.int8_matmul = False
+        self.int8_matmul_impl = resolve_int8_matmul(int8_matmul_impl,
+                                                    self.device)
+        self._load_int8(module)
+        self.weight_bytes = quantized_bytes(module)
+        # the full stripes are read every forward (the JAX accounting)
+        self._kv_token_bytes = _kv_token_bytes(module, "off")
+        # two chunk lengths: the big one amortizes a chunk's overhead, the
+        # small one finishes request tails
+        tail = min(self.chunk_steps,
+                   max(8, (self.chunk_steps // 3 + 7) // 8 * 8))
+        self._chunk_sizes = sorted({self.chunk_steps, tail})
+        self.cache = init_cache(module, self.slots)
+        self._init_queue_state(name)
+
+    def _load_int8(self, module) -> None:
+        """Install ``quantize="int8"`` weights in place: int8 kernels for
+        the int8 matmul, else int8 values that each forward dequantizes
+        (projections with ``int8_impl="dequant"``, MoE weights through
+        ``MoEMlp``)."""
+        if self.quantize != "int8":
+            return
+        impl = self.int8_matmul_impl if self.int8_matmul else "dequant"
+        if not _is_quantized(module):
+            load_tree(module, quantize_tree(module.state_dict()),
+                      int8_impl=impl)
+        for m in module.modules():
+            if isinstance(m, QuantizableDense):
+                m.int8_impl = impl
+
+    # --- engine loop ---
+
+    def _loop(self) -> None:
+        while True:
+            self._sweep_expired()
+            with self._cond:
+                while (not self._closed and not self._pending
+                       and not self._busy()):
+                    if self._retired:
+                        self.cache = None  # free the stripes
+                        return
+                    self._cond.wait()
+                if self._closed:
+                    return
+                admits = []
+                while self._free and self._pending:
+                    row = self._pending.popleft()
+                    if row.canceled:
+                        continue
+                    row.slot = self._free.pop(0)
+                    self._slot_rows[row.slot] = row
+                    admits.append(row)
+            try:
+                with torch.inference_mode():
+                    for group in self._group_admits(admits):
+                        self._prefill(group)
+                    self._evict_canceled()
+                    size = self._chunk_size()
+                    if size:
+                        self._decode_chunk(size)
+            except Exception as e:
+                log.exception("%s: decode loop failed", self.name)
+                self._fail_all(e, wrap=True)
+                with self._cond:
+                    if self._closed:
+                        return
+                try:
+                    self.cache = init_cache(self.module, self.slots)
+                except Exception:
+                    with self._cond:
+                        self._closed = True
+                    return
+
+    def _group_admits(self, admits: List[_Row]) -> List[List[_Row]]:
+        """One prefill forward per prompt-length bucket."""
+        groups: Dict[int, List[_Row]] = {}
+        for row in admits:
+            groups.setdefault(_pow2_bucket(max(len(row.prompt), 1),
+                                           _BUCKET_MIN, self.max_len),
+                              []).append(row)
+        return list(groups.values())
+
+    def _prefill(self, group: List[_Row]) -> None:
+        """Prefill the group's prompts in one forward over a scratch cache
+        of the bucket's length, copy its stripes into the rows' slots
+        (``valid`` trimmed to each prompt), sample each first token."""
+        t0 = time.monotonic()
+        stalled = self._stalled_rows()
+        for r in group:
+            self._mark_slotted(r)
+        dev = self.device
+        k = len(group)
+        plens = [len(r.prompt) for r in group]
+        bucket = _pow2_bucket(max(plens), _BUCKET_MIN, self.max_len)
+        tokens = np.zeros((k, bucket), np.int64)
+        for i, r in enumerate(group):
+            tokens[i, :plens[i]] = r.prompt
+        scratch = init_cache(self.module, k, cache_len=bucket)
+        hidden = self.module(torch.from_numpy(tokens).to(dev), decode=True,
+                             cache=scratch, return_hidden=True)
+        # next-token logits at each row's last real prompt token
+        last = hidden[torch.arange(k, device=dev),
+                      torch.tensor(plens, device=dev) - 1]
+        logits = self.module.lm_head(last).float()
+        slots = torch.tensor([r.slot for r in group], device=dev)
+        trim = (torch.arange(self.max_len, device=dev)[None, :]
+                < torch.tensor(plens, device=dev)[:, None])
+        for stripe, rows in zip(self.cache.layers, scratch.layers):
+            stripe["k"][slots, :bucket] = rows["k"]
+            stripe["v"][slots, :bucket] = rows["v"]
+            stripe["valid"][slots] = trim
+        for r in group:
+            if r.temp > 0 and r.gen is None:
+                r.gen = torch.Generator(device=dev)
+                r.gen.manual_seed(r.gen_seed)
+        firsts = draft_sample(logits, *self._knobs(group), TOP_K_MAX,
+                              with_probs=False)[0].tolist()
+        self._charge_stall(stalled, time.monotonic() - t0)
+        self._warmed = True
+        self.stats.admitted_wave()
+        self.stats.admit_tokens(sum(plens), k * bucket - sum(plens))
+        self.stats.kv_read(k * bucket * self._kv_token_bytes)
+        now = time.monotonic()
+        for r, tok in zip(group, firsts):
+            if r.canceled:
+                continue
+            self.stats.phase("prefill", now - r.slot_at)
+            r.out.append(int(tok))
             self._consumed(r)
-            if fresh:
-                self._emit_delta(r, fresh)
-            if ((r.eos >= 0 and r.out[-1] == r.eos)
-                    or len(r.out) >= r.max_new):
+            self._emit_delta(r, [int(tok)])
+            if (r.eos >= 0 and tok == r.eos) or r.max_new <= 1:
                 self._complete_row(r)
 
-    @staticmethod
-    def _consumed(r: _Row) -> None:
-        """Record a sampled row's generator state after a consumed step."""
-        if r.gen is not None:
-            r.gen_state = r.gen.get_state()
-
-    def _evict_canceled(self) -> None:
-        """Free the slot and pages of every canceled resident row, mid
-        chunked prefill too (its lease returns exactly once; the prefill
-        ledger drops it)."""
-        for r in self._slot_rows:
-            if r is not None and r.canceled and not r.done:
-                r.done = True
-                self._release_row(r)
-        self._prefill_pending = [r for r in self._prefill_pending
-                                 if not r.done]
-
-    def _release_row(self, r: _Row) -> None:
-        self._pool.release(r.lease)
+    def _chunk_size(self) -> int:
+        """The longest chunk that the longest row's remaining work fills
+        (else the shortest); under queue pressure the shortest chunk that
+        covers the earliest completion, so its slot frees at the next
+        chunk edge (JAX ``_dispatch_chunk``). 0 = no row needs a step."""
+        rem = [r.max_new - len(r.out) for r in self._decode_rows()]
+        rem = [n for n in rem if n > 0]
+        if not rem:
+            return 0
+        size = self._chunk_sizes[0]
+        for t in self._chunk_sizes:
+            if t <= max(rem):
+                size = t
         with self._cond:
-            self._slot_rows[r.slot] = None
-            self._free.append(r.slot)
+            pressure = bool(self._pending)
+        if pressure and len(self._chunk_sizes) > 1:
+            soonest = min(rem)
+            size = min([size] + [t for t in self._chunk_sizes
+                                 if t >= soonest][:1])
+        return size
 
-    def _complete_row(self, r: _Row) -> None:
-        r.done = True
-        if r.first_emit_at:
-            self.stats.phase("decode_active",
-                             r.last_emit_at - r.first_emit_at)
-        self.stats.phase("slot_idle", time.monotonic() - r.last_emit_at
-                         if r.last_emit_at else 0.0)
-        self._release_row(r)
-        entry = r.entry
-        if entry.finished():
-            if self._claim_outcome(entry):
-                self.stats.completed(time.monotonic() - entry.submitted_at)
-            entry.done_evt.set()
-            if entry.stream_q is not None:
-                entry.stream_q.put(None)
+    def _slab(self):
+        """The per-slot decode state at a chunk's start: (rows by slot,
+        tok, pos, live, remaining, eos, temp, topk, generators). Empty
+        slots are dead and greedy."""
+        dev = self.device
+        rows = [r if r is not None and not r.done and not r.canceled
+                else None for r in self._slot_rows]
+        tok = [r.out[-1] if r else 0 for r in rows]
+        pos = [len(r.prompt) + len(r.out) - 1 if r else 0 for r in rows]
+        rem = [r.max_new - len(r.out) if r else 0 for r in rows]
+        as_t = lambda v, dt: torch.tensor(v, dtype=dt, device=dev)
+        return (rows, as_t(tok, torch.int64), as_t(pos, torch.int64),
+                as_t([n > 0 for n in rem], torch.bool),
+                as_t(rem, torch.int32),
+                as_t([r.eos if r else -1 for r in rows], torch.int64),
+                as_t([r.temp if r else 0.0 for r in rows], torch.float32),
+                as_t([r.topk if r else 0 for r in rows], torch.int64),
+                [r.gen if r else None for r in rows])
 
-    def _claim_outcome(self, entry: _Entry) -> bool:
-        """Each request counts exactly one outcome (completed, timed out,
-        canceled, shed, expired or failed), whichever side claims it
-        first."""
-        with self._cond:
-            if entry.aborted:
-                return False
-            entry.aborted = True
-            return True
-
-    def _emit_delta(self, r: _Row, tokens: List[int]) -> None:
-        entry = r.entry
-        now = time.monotonic()
-        if entry.first_token_at == 0.0:
-            entry.first_token_at = now
-            self.stats.first_token(now - entry.submitted_at)
-        if r.first_emit_at == 0.0:
-            r.first_emit_at = now
-        else:
-            # one gap an arrival: a multi-token delta is one arrival
-            gap = now - r.last_emit_at
-            r.itl.append(gap)
-            self.stats.inter_token(gap)
-        r.last_emit_at = now
-        # tokens routed to a waiter that already gave up are waste
-        self.stats.emitted(len(tokens), wasted=entry.aborted)
-        if entry.stream_q is not None:
-            entry.stream_q.put({"row": r.index, "tokens": tokens})
-
-    def _fail_all(self, error: Exception, wrap: bool = False) -> None:
-        """Fail every queued and resident row. ``wrap`` reaches waiters as
-        a retryable 503 carrying the tokens emitted so far; close() passes
-        its own error through."""
-        with self._cond:
-            rows = list(self._pending) + [r for r in self._slot_rows if r]
-            self._pending.clear()
-            self._slot_rows = [None] * self.slots
-            self._free = list(range(self.slots))
-            self._prefill_pending = []
-        for r in rows:
-            if r.lease is not None:
-                self._pool.release(r.lease)
-        entries = {id(r.entry): r.entry for r in rows}
-        for entry in entries.values():
-            self._fail_entry(entry, (
-                error if not wrap or isinstance(error, KubeMLError)
-                else EngineFaultError(
-                    f"decode engine fault: {error}",
-                    partial_tokens=[list(r.out) for r in entry.rows])),
-                self.stats.failed)
+    def _decode_chunk(self, size: int) -> None:
+        """Advance every slot ``size`` tokens at its own position; rows
+        that hit eos or their budget freeze and emit nothing more."""
+        t0 = time.monotonic()
+        rows, tok, pos, live, remaining, eos, temp, topk, gens = self._slab()
+        out = torch.empty((size, self.slots), dtype=torch.int64,
+                          device=self.device)
+        for t in range(size):
+            logits = self.module(tok[:, None], decode=True, positions=pos,
+                                 cache=self.cache)[:, -1]
+            nxt = draft_sample(logits, temp, topk, gens, TOP_K_MAX,
+                               with_probs=False)[0]
+            was_live = live
+            remaining = remaining - was_live.int()
+            live = was_live & ~((eos >= 0) & (nxt == eos)) & (remaining > 0)
+            out[t] = torch.where(was_live, nxt, torch.full_like(nxt, -1))
+            tok = torch.where(live, nxt, tok)
+            pos = torch.where(live, pos + 1, pos)
+        packed = out.T.cpu().numpy()  # the chunk's one device->host copy
+        wall = time.monotonic() - t0
+        self._warmed = True
+        self.stats.chunk()
+        self.stats.chunk_fetched(wall, size)
+        self.stats.kv_read(size * self.slots * self.max_len
+                           * self._kv_token_bytes, wall)
+        self._occupancy(size, 1, int((packed >= 0).sum()))
+        resident = [(r, p) for r, p in zip(rows, packed) if r is not None]
+        self._route([r for r, _ in resident],
+                    np.stack([p for _, p in resident]))

@@ -219,3 +219,10 @@ def test_automatic_choice_raises_where_the_kernels_do_not_apply(card, D,
         attention.dot_product_attention(q, q, q, causal=True)
     out = attention.dot_product_attention(q, q, q, causal=True, impl="plain")
     assert out.shape == q.shape
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_training_shape(card, dtype):
+    """``bench_moe``'s attention: B 16, L 512, 12 heads of 64, causal, no
+    padding (the GPT-2-small MoE skeleton's training step)."""
+    run(card, 16, 512, 512, 12, 64, dtype, True)

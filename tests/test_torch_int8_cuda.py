@@ -127,3 +127,51 @@ def test_quantize_on_the_card_matches_the_cpu_rule(card):
     for k in tree:
         assert torch.equal(gpu[k].q.cpu(), cpu[k].q), k
         assert torch.equal(gpu[k].s.cpu(), cpu[k].s), k
+
+
+@pytest.mark.parametrize("K,N", [(768, 768), (768, 3072), (3072, 768),
+                                 (768, 50257)])
+def test_dense_engine_decode_shapes(card, K, N):
+    """The dense slot engine's int8 products at GPT-2-small width: a
+    decode step runs every slot (M 8), a prefill wave the bucketed
+    prompts (M 8 x 512); f32 x and out, within ``MM_RTOL``."""
+    q, s = weights(card, K, N)
+    for M in (8, 4096):
+        x = torch.randn(M, K, generator=card).cuda()
+        y = int8_matmul(x, q, s)
+        ref = int8_dot(x, q, s, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        err = (y - ref).abs().max().item()
+        assert err <= MM_RTOL[torch.float32] * ref.abs().max().item()
+
+
+def test_dense_engine_launches_the_kernel_per_projection(card):
+    """``BatchingDecoder(quantize="int8", int8_matmul=True)`` on the card:
+    every projection and the lm_head of every forward (prefill waves and
+    decode steps) is one kernel launch - 13 a forward at depth 2 - and the
+    greedy tokens equal an engine on the plain version (``dot``)."""
+    from kubeml_tpu_torch.api.types import GenerateRequest
+    from kubeml_tpu_torch.models.gpt import CausalTransformer
+    from kubeml_tpu_torch.serving import BatchingDecoder
+
+    outs = []
+    for impl in ("cuda", "dot"):
+        m = CausalTransformer(vocab_size=4096, max_len=64, embed_dim=128,
+                              depth=2, num_heads=2, seed=1, device="cuda")
+        dec = BatchingDecoder(m, slots=4, chunk_steps=4, quantize="int8",
+                              int8_matmul=True, int8_matmul_impl=impl,
+                              device="cuda")
+        before = int8_matmul.launches
+        try:
+            entries = [dec.submit(GenerateRequest(
+                prompts=[list(range(1 + i, 9 + 2 * i))], max_new_tokens=7))
+                for i in range(5)]
+            outs.append([dec.wait(e, timeout=300)["tokens"]
+                         for e in entries])
+            t = dec.telemetry()
+        finally:
+            dec.close()
+        launched = int8_matmul.launches - before
+        forwards = int(t["admission_waves"] + t["device_steps"])
+        assert launched == (13 * forwards if impl == "cuda" else 0)
+    assert outs[0] == outs[1]

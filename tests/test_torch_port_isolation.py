@@ -154,3 +154,38 @@ def test_entry_points_raise_without_device_on_a_cpu_only_host(monkeypatch,
     # asked for explicitly, the CPU runs
     assert resolve_device("cpu") == torch.device("cpu")
     PagedBatchingDecoder(m, page_tokens=4, device="cpu").close()
+
+
+@pytest.mark.parametrize("module", [
+    "parallel/mesh.py", "parallel/moe.py", "parallel/trainer.py",
+    "models/generation.py", "serving/batcher.py",
+    "benchmarks/paged_serving.py", "benchmarks/transformers.py"])
+def test_moe_and_dense_engine_modules_keep_their_own_copies(module):
+    """The MoE layer, the mesh helpers, the dense cache and slot engine
+    and their benchmarks copy what they need of the JAX package's."""
+    path = REPO / "kubeml_tpu_torch" / module
+    assert path.is_file()
+    assert not _offenders(path)
+
+
+def test_moe_and_dense_entry_points_raise_without_device(monkeypatch):
+    """``make_mesh``, the MoE LM, ``BatchingDecoder``, ``bench_moe`` and
+    the slot-against-paged A/B run on the card unless asked for the CPU."""
+    from kubeml_tpu_torch.benchmarks.paged_serving import run_demo
+    from kubeml_tpu_torch.benchmarks.transformers import MoEBench
+    from kubeml_tpu_torch.models import CausalTransformer
+    from kubeml_tpu_torch.parallel.mesh import make_mesh
+    from kubeml_tpu_torch.parallel.moe import MoETiny
+    from kubeml_tpu_torch.serving import BatchingDecoder
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (make_mesh, MoETiny, lambda: MoEBench(2, 8),
+                 lambda: run_demo(n_requests=1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    m = CausalTransformer(vocab_size=11, max_len=8, embed_dim=8, depth=1,
+                          num_heads=2, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchingDecoder(m)
+    assert make_mesh(devices=["cpu"]).devices == [torch.device("cpu")]
+    BatchingDecoder(m, device="cpu").close()

@@ -422,8 +422,9 @@ def test_drain_and_restore_in_a_fresh_server(tmp_path, weights, drainer):
 
 def test_not_found_and_not_ported(tmp_path, weights):
     """404 for an unknown or malformed id; 400 naming what is missing for
-    the dense engine, a mesh, a live job, a model with no paged decode
-    path and a sharded final."""
+    a mesh, a job's epoch checkpoints before its final and a sharded
+    final; a model with no decode path is the one-shot path's 400, as in
+    the JAX server."""
     _, proot = roots(tmp_path, weights)
     ps = port_ps(proot)
     req = {"prompts": [[1, 2]], "max_new_tokens": 2}
@@ -433,12 +434,9 @@ def test_not_found_and_not_ported(tmp_path, weights):
             with pytest.raises(KubeMLError) as e:
                 call()
             assert e.value.status_code == 404
-    for kw, what in ((dict(serving_paged=False), "serving_paged"),
-                     (dict(serving_batcher=False), "serving_batcher"),
-                     (dict(serving_mesh="tp=2"), "serving_mesh")):
-        with pytest.raises(KubeMLError, match=what) as e:
-            port_ps(proot, **kw).generate(JOB, req)
-        assert e.value.status_code == 400
+    with pytest.raises(KubeMLError, match="serving_mesh") as e:
+        port_ps(proot, serving_mesh="tp=2").generate(JOB, req)
+    assert e.value.status_code == 400
     store = CheckpointStore(root=proot / "checkpoints")
     store.save("livejob", {"params": {"w": np.zeros(2, np.float32)}},
                epoch=0)
@@ -448,7 +446,7 @@ def test_not_found_and_not_ported(tmp_path, weights):
     ps.registry.create("lenetfn", LENET_FN)
     store.save("lenetjob", {"params": {"w": np.zeros(2, np.float32)}},
                tag=FINAL_TAG, meta={"request": {"function_name": "lenetfn"}})
-    with pytest.raises(KubeMLError, match="paged decode") as e:
+    with pytest.raises(KubeMLError, match="KV-cache decode") as e:
         ps.generate("lenetjob", req)
     assert e.value.status_code == 400
     shards = proot / "checkpoints" / "shardjob" / "final.shards"
@@ -460,3 +458,161 @@ def test_not_found_and_not_ported(tmp_path, weights):
     with pytest.raises(KubeMLError, match="sharded"):
         quantize_final_checkpoint("shardjob", store)
     assert ps._decoders == {}
+
+
+# --- the dense engine, the one-shot path, MoE finals, live jobs ---------
+
+MOE_MODEL = dict(MODEL, num_experts=4, moe_every=2)
+
+PORT_MOE_FN = PORT_FN.replace("depth=2, num_heads=4, device=\"cpu\")",
+                              "depth=2, num_heads=4, moe_every=2, "
+                              "num_experts=4, device=\"cpu\")")
+JAX_MOE_FN = JAX_FN.replace("depth=2, num_heads=4)",
+                            "depth=2, num_heads=4, moe_every=2, "
+                            "num_experts=4)")
+
+
+@pytest.fixture(scope="module")
+def moe_weights():
+    module = JaxTransformer(**MOE_MODEL)
+    v = module.init(jax.random.PRNGKey(1), np.zeros((1, 4), np.int32))
+    return numpy_tree(v)
+
+
+def moe_pair(tmp_path, moe_weights, **kw):
+    """A JAX and a port server over one MoE final (the functions of the
+    same name build each package's MoE model)."""
+    assert PORT_MOE_FN != PORT_FN and JAX_MOE_FN != JAX_FN
+    jroot, proot = roots(tmp_path, moe_weights)
+    jps, tps = jax_ps(jroot, **kw), port_ps(proot, **kw)
+    jps.registry.delete("lmfn")
+    jps.registry.create("lmfn", JAX_MOE_FN)
+    tps.registry.delete("lmfn")
+    tps.registry.create("lmfn", PORT_MOE_FN)
+    return jroot, proot, jps, tps
+
+
+@pytest.mark.parametrize("mode", ["f32", "int8"])
+def test_moe_final_is_served_by_the_dense_engine(tmp_path, moe_weights,
+                                                 mode):
+    """An MoE final has no paged decode path: both servers serve it
+    through their dense ``BatchingDecoder`` (int8: the ``final-int8``
+    export, the int8 matmul turned off for MoE and the weights
+    dequantized in each step), with equal greedy tokens and counters."""
+    from kubeml_tpu_torch.serving import BatchingDecoder
+
+    kw = dict(serving_quantize="int8", int8_matmul=True) if mode == "int8" \
+        else {}
+    jroot, proot, jps, tps = moe_pair(tmp_path, moe_weights, **kw)
+    if mode == "int8":
+        jax_quantize(JOB, JStore(root=jroot / "checkpoints"),
+                     ShardedCheckpointStore(root=jroot / "checkpoints"),
+                     registry=jps.registry)
+        quantize_final_checkpoint(
+            JOB, CheckpointStore(root=proot / "checkpoints"),
+            registry=tps.registry)
+    want, jt = serve(jps)
+    got, tt = serve(tps)
+    assert [g[0] for g in got] == [w[0] for w in want]
+    dec = tps._decoders[JOB][0]
+    assert isinstance(dec, BatchingDecoder)
+    assert type(jps._decoders[JOB][0]).__name__ == "BatchingDecoder"
+    if mode == "int8":
+        assert dec.quantize == "int8" and not dec.int8_matmul
+        assert dec.module.block_1.moe.quantized
+    for key in ("requests_submitted", "requests_completed",
+                "tokens_emitted", "admission_waves", "prefill_tokens",
+                "goodput_tokens", "wasted_tokens"):
+        assert tt[key] == jt[key], key
+
+
+def test_moe_final_int8_is_bit_identical_to_jax(tmp_path, moe_weights):
+    """``final-int8`` of an MoE final: every leaf, the 3-D expert stacks'
+    per-last-axis scales over all experts included, bit for bit the JAX
+    package's."""
+    jroot, proot, jps, tps = moe_pair(tmp_path, moe_weights)
+    jstore = JStore(root=jroot / "checkpoints")
+    pstore = CheckpointStore(root=proot / "checkpoints")
+    jax_quantize(JOB, jstore, ShardedCheckpointStore(root=jstore.root))
+    quantize_final_checkpoint(JOB, pstore)
+    mine, theirs = (st.read_meta(JOB, INT8_TAG) for st in (pstore, jstore))
+    assert mine["dtypes"] == theirs["dtypes"]
+    assert "params/block_1/moe/w_in/" + Q8_Q in mine["dtypes"]
+    assert "params/block_1/moe/w_out/" + Q8_S in mine["dtypes"]
+    with np.load(pstore.export_path(JOB, tag=INT8_TAG)) as a, \
+            np.load(jstore.export_path(JOB, tag=INT8_TAG)) as b:
+        for p in mine["dtypes"]:
+            assert a[p].tobytes() == b[p].tobytes(), p
+        assert a["params/block_1/moe/w_in/" + Q8_S].shape == (1, 1, 256)
+
+
+@pytest.mark.parametrize("kw", [dict(serving_paged=False),
+                                dict(serving_batcher=False)])
+def test_dense_model_without_the_paged_engine(tmp_path, weights, kw):
+    """``serving_paged=False`` serves through the dense engine,
+    ``serving_batcher=False`` through the one-shot
+    ``generate_from_request`` (no decoder): the JAX server's tokens."""
+    from kubeml_tpu_torch.serving import BatchingDecoder
+
+    jroot, proot = roots(tmp_path, weights)
+    jps, tps = jax_ps(jroot, **kw), port_ps(proot, **kw)
+    if kw.get("serving_batcher") is False:
+        for prompt, n in WORKLOAD:
+            body = {"prompts": [prompt], "max_new_tokens": n}
+            assert tps.generate(JOB, body) == jps.generate(JOB, body)
+        assert tps._decoders == {}
+        return
+    want, _ = serve(jps)
+    got, tt = serve(tps)
+    assert [g[0] for g in got] == [w[0] for w in want]
+    assert isinstance(tps._decoders[JOB][0], BatchingDecoder)
+    assert tt["prefix_hits"] == 0.0
+
+
+def test_live_job_generate_serves_its_published_weights(tmp_path, weights):
+    """``generate`` on a live job goes through ``TrainJob.generate``: the
+    one-shot path on the replica-0 weights published at the last round's
+    edge (the ones ``infer`` reads), with the JAX one-shot's tokens on
+    those weights; a job still starting answers 503, as in JAX."""
+    from kubeml_tpu.models.generation import \
+        generate_from_request as jax_from_request
+    from kubeml_tpu.api.types import GenerateRequest as JaxRequest
+    from kubeml_tpu_torch.api.types import (TrainOptions, TrainRequest,
+                                            TrainTask)
+    from kubeml_tpu_torch.engine.job import TrainJob
+    from kubeml_tpu_torch.interop.from_flax import to_flax
+    from kubeml_tpu_torch.ps.parameter_server import _JobRecord
+    from kubeml_tpu_torch.storage.history import HistoryStore
+    from kubeml_tpu_torch.storage.store import ShardStore
+
+    _, proot = roots(tmp_path, weights)
+    ps = port_ps(proot)
+    model = ps.registry.load("lmfn")
+    req = TrainRequest(function_name="lmfn", dataset="tokens", epochs=1,
+                       batch_size=2, lr=0.01,
+                       options=TrainOptions(default_parallelism=1,
+                                            precision="f32"))
+    job = TrainJob("live", req, model, store=ShardStore(root=tmp_path / "d"),
+                   history_store=HistoryStore(root=tmp_path / "h"),
+                   device="cpu")
+    with ps._lock:
+        ps._jobs["live"] = _JobRecord(task=TrainTask(job_id="live"),
+                                      job=None, thread=None)
+    body = {"prompts": [[1, 2, 3, 4], [5, 6, 7, 0]], "max_new_tokens": 5,
+            "prompt_lengths": [4, 3]}
+    with pytest.raises(KubeMLError) as e:
+        ps.generate("live", body)
+    assert e.value.status_code == 503
+    ps._jobs["live"].job = job
+    with pytest.raises(KubeMLError, match="no model yet"):
+        ps.generate("live", body)
+    job._stacked_vars = job.trainer.init_variables(
+        torch.Generator().manual_seed(3), np.zeros((1, 4), np.int64), 1)
+    job._publish()
+    got = ps.generate("live", body)
+    flat = {k: v for k, v in job._published["params"].items()}
+    jm = JaxTransformer(**MODEL)
+    want = jax_from_request(jm, to_flax(flat), JaxRequest(**body))
+    assert got == {"tokens": want["tokens"], "lengths": want["lengths"]}
+    streamed = list(ps.generate("live", {**body, "stream": True}))
+    assert streamed[-1] == {"done": True, "lengths": got["lengths"]}

@@ -275,12 +275,20 @@ def test_twin_carries_dtype_remat_dropout():
 
 
 def test_unported_options_raise():
-    kw = dict(vocab_size=11, max_len=8, embed_dim=8, depth=1, num_heads=2,
+    """MoE interleaving and a one-device mesh are ported; a mesh of
+    several devices (sharding over torch.distributed) still raises."""
+    from kubeml_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    kw = dict(vocab_size=11, max_len=8, embed_dim=8, depth=2, num_heads=2,
               device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        CausalTransformer(moe_every=2, **kw)
+    moe = CausalTransformer(moe_every=2, num_experts=2, **kw)
+    assert type(moe.block_1).__name__ == "MoEBlock"
+    CausalTransformer(mesh=make_mesh(devices=["cpu"]), **kw)
     with pytest.raises(NotImplementedError, match="mesh"):
         CausalTransformer(mesh=object(), **kw)
+    two = Mesh({"dp": 1, "tp": 2}, [torch.device("cpu")] * 2)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        CausalTransformer(mesh=two, **kw)
 
 
 def test_longcontext_run_point_tiny_on_cpu(monkeypatch):
