@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (one NVIDIA H100): the paged
 serving path, the GPT training path, K-AVG training, checkpoints served
-through the parameter server, the control plane, the encoders, and MoE
-with the dense slot engine. Run
+through the parameter server, the control plane, the encoders, MoE
+with the dense slot engine, the one-shot speculative ``generate`` and the
+SPMD job with sharded checkpoints. Run
 from the repo root::
 
     python3 chip_smoke.py
@@ -215,7 +216,32 @@ Phases, each reported on its own lines:
    paged attention never; seeded sampling (``SAMPLE``) gives the same
    tokens dense and paged; tokens/s, TTFT p50 and decode-step ms of each
    engine in ``benchmarks/paged_serving.py``'s row form;
-16. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+16. the one-shot speculative ``generate`` and the SPMD job - (a)
+   ``make_speculative_generate_fn`` on phase 6's coherent-tail
+   GPT-2-small target, ``spec="self"`` at exit 6 and ``spec="draft"``
+   with phase 6's drafter, k 4, at B 1 and B 8 (prompts of 64, 64 new
+   tokens) with f32 and with int8 weights (the int8 matmul): greedy tokens
+   equal to the spec-off ``generate`` but for near ties (``NEAR_TIE``,
+   logged with their margin), the acceptance accounting and tokens/s
+   against spec-off; paged attention launches exactly depth a prefill
+   plus, a step, k drafter forwards at L 1 (``EXIT_LAYER`` blocks, or the
+   drafter's depth k + 1 times) and one L 5 verify of depth launches, and
+   under int8 the int8 matmul 73 a target forward and 37 a self-drafting
+   forward; (b) the long-context flagship (E 512, depth 8, 8 heads, vocab
+   32000, L 2048, remat, bf16 compute, AdamW 3e-4) trained through
+   ``LocalCluster``'s ``/train`` with ``engine="spmd"``,
+   ``sharded_checkpoints`` and ``checkpoint_every=1`` on an uploaded
+   seeded ``[40, 2048]`` token set: 2 epochs of 4 steps at B 8, the loss
+   falling, each flash kernel as many launches a step as phase 8 (the
+   validation forwards counted apart), the step ms beside phase 8's;
+   resumed from its sharded checkpoint for a third epoch; its sharded
+   final served by ``/generate`` in f32 and, quantized from it into a
+   sharded ``final-int8``, in int8, each with greedy tokens equal to an
+   in-process ``generate`` on the restored weights (its int8 projections
+   through the plain ``int8_dot``) but for near ties, and both serving
+   kernels launched; the int8 matmul held against ``int8_dot`` at every
+   (K, N) of the flagship's int8 projections and the served M;
+17. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Any failure raises and the script exits non-zero; without a CUDA device it
 exits non-zero before printing any result.
@@ -2430,7 +2456,7 @@ def checkpoint_phase(smi, root, run, qrun, kavg):
     qps = ParameterServer(config=Config(serving_quantize="int8",
                                         kv_quant="int8", int8_matmul=True,
                                         **serve_kw))
-    if qps._final_source(GPT2_JOB)[0] != INT8_TAG:
+    if qps._serving_source(GPT2_JOB)[1] != INT8_TAG:
         raise AssertionError("b: the server does not pick final-int8")
     qdec, load_ms, build_ms = cold_serving(qps, GPT2_JOB)
     if (not qdec.int8_matmul or qdec.int8_matmul_impl != "cuda"
@@ -3835,6 +3861,367 @@ def moe_phase(smi, root, run):
     return row, errs, times, counts, launches
 
 
+# --- phase 16: the one-shot speculative generate and the SPMD job -------
+
+# 16a: prompts of ONESHOT_LP tokens, ONESHOT_NEW new tokens, at B 1 and 8
+ONESHOT_LP, ONESHOT_NEW, ONESHOT_BATCHES = 64, 64, (1, 8)
+# int8 matmul launches of one self-drafting forward (EXIT_LAYER blocks of
+# 6 projections and the lm_head)
+INT8_PER_DRAFT = 6 * EXIT_LAYER + 1
+# 16b: the long-context flagship's SPMD job: B 8 x L 2048, 4 steps an
+# epoch (32 training rows), one validation batch (8 rows)
+LC_JOB, LC_L, LC_B, LC_TRAIN, LC_TEST = "lc-spmd", 2048, 8, 32, 8
+LC_VOCAB, LC_EPOCHS, LC_SEED = 32000, 2, 16
+LC_MODEL = dict(vocab_size=LC_VOCAB, max_len=LC_L, embed_dim=512,
+                depth=DEPTH, num_heads=8, remat=True)
+LC_FN = """
+import torch
+from kubeml_tpu_torch.data.dataset import KubeDataset
+from kubeml_tpu_torch.models.gpt import CausalTransformer
+from kubeml_tpu_torch.parallel.trainer import adamw
+from kubeml_tpu_torch.runtime.model import KubeModel
+
+
+class LongContext(KubeModel):
+    def __init__(self):
+        super().__init__(KubeDataset("lc-tokens"))
+
+    def build(self):
+        # bf16 compute to train, f32 to serve
+        dtype = torch.bfloat16 if self.task == "train" else torch.float32
+        return CausalTransformer(vocab_size=32000, max_len=2048,
+                                 embed_dim=512, depth=8, num_heads=8,
+                                 remat=True, dtype=dtype, mesh=self.mesh)
+
+    def configure_optimizers(self, params):
+        return adamw(self.lr)(params)
+"""
+# 16b's served requests: (rows, prompt tokens, new tokens)
+LC_SERVE = ((4, 48, 32), (1, 200, 48))
+# the M of the served int8 projections: decode at 1 and 4 rows, the
+# prefills of a 48-token prompt (alone and 4 rows) and a 200-token one
+LC_MM_M = (1, 4, 48, 192, 200)
+
+
+def oneshot_expected(spec, model_depth, draft_depth, quantized, steps):
+    """(paged_attention, int8_matmul) launches of one one-shot spec call:
+    the target's prefill (depth launches, L 64), then a step's k drafter
+    forwards at L 1 (EXIT_LAYER blocks; the draft backend's drafter k + 1
+    times over its own depth, the last write-only, after its own prefill)
+    and one L k+1 verify over the target's depth. int8 weights: 73 a
+    target forward, INT8_PER_DRAFT a self-drafting one (the drafter of the
+    draft backend stays f32)."""
+    if spec == "self":
+        pa = model_depth + steps * (SPEC_K * EXIT_LAYER + model_depth)
+        mm = INT8_PER_FORWARD * (1 + steps) + steps * SPEC_K * INT8_PER_DRAFT
+    else:
+        pa = (model_depth + draft_depth
+              + steps * ((SPEC_K + 1) * draft_depth + model_depth))
+        mm = INT8_PER_FORWARD * (1 + steps)
+    return pa, (mm if quantized else 0)
+
+
+def check_rows(tag, got, want, module, prompts):
+    """Greedy token rows against reference rows: identical, or diverging
+    only where ``module``'s dense path at the first difference has its
+    two largest logits within NEAR_TIE (logged with the margin). Returns
+    the near ties."""
+    ties = []
+    for b, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        j = next((n for n, (x, y) in enumerate(zip(g, w)) if x != y), None)
+        if j is None:
+            raise AssertionError(f"{tag}: row {b} emitted {len(g)} tokens, "
+                                 f"the reference {len(w)}")
+        top = dense_logits(module, list(prompts[b]), w[:j]).topk(2).values
+        gap = (top[0] - top[1]).item()
+        log(f"  {tag}: row {b} differs at token {j} ({g[j]} vs {w[j]}); "
+            f"reference top-two logit gap {gap:.3e}")
+        if not gap <= NEAR_TIE:
+            raise AssertionError(f"{tag}: greedy tokens differ (row {b}, "
+                                 f"token {j}, gap {gap:.3e} > {NEAR_TIE})")
+        ties.append((b, j))
+    return ties
+
+
+def rows_of(out):
+    return [out.tokens[b, :int(out.lengths[b])].tolist()
+            for b in range(out.tokens.shape[0])]
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.monotonic() - t0
+
+
+def oneshot_spec(smi):
+    """16a (see the module docstring). Returns its (paged_attention,
+    int8_matmul) launches."""
+    from kubeml_tpu_torch.benchmarks.spec_decode import coherent_tail
+    from kubeml_tpu_torch.models import CausalTransformer
+    from kubeml_tpu_torch.models.generation import (
+        generate, make_speculative_generate_fn)
+    from kubeml_tpu_torch.models.layers import load_tree
+    from kubeml_tpu_torch.ops.int8_matmul import int8_matmul
+    from kubeml_tpu_torch.ops.paged_attention import paged_attention
+    from kubeml_tpu_torch.serving.quant import quantize_tree
+
+    target = coherent_tail(gpt2_small(), EXIT_LAYER)
+    qtarget = copy.deepcopy(target)
+    load_tree(qtarget, quantize_tree(qtarget.state_dict()))
+    drafter = CausalTransformer(vocab_size=VOCAB, max_len=MAX_LEN,
+                                attn_bias=True, ln_eps=1e-5, seed=SEED + 1,
+                                device="cuda", **DRAFT)
+    rng = np.random.default_rng(SEED + 16)
+    total = [0, 0]
+    for weights, model in (("f32", target), ("int8", qtarget)):
+        for B in ONESHOT_BATCHES:
+            prompt = rng.integers(1, VOCAB, size=(B, ONESHOT_LP))
+            ref, off_s = timed(lambda: generate(
+                model, prompt, max_new_tokens=ONESHOT_NEW))
+            want = rows_of(ref)
+            for spec in ("self", "draft"):
+                fn = make_speculative_generate_fn(
+                    model, max_new_tokens=ONESHOT_NEW, spec=spec,
+                    spec_k=SPEC_K, exit_layer=EXIT_LAYER,
+                    draft_module=drafter if spec == "draft" else None)
+                paged_attention.launches = int8_matmul.launches = 0
+                out, spec_s = timed(lambda: fn(prompt))
+                launches = (paged_attention.launches, int8_matmul.launches)
+                tag = f"16a {weights} B {B} spec={spec}"
+                ties = check_rows(tag, rows_of(out), want, model, prompt)
+                expect = oneshot_expected(spec, model.depth, DRAFT["depth"],
+                                          weights == "int8", out.steps)
+                n = int(out.lengths.sum())
+                log(f"  {tag} [{smi}]: proposed/accepted/drafted/steps "
+                    f"{out.proposed}/{out.accepted}/{out.drafted}/"
+                    f"{out.steps}, {n / spec_s:.1f} tokens/s against "
+                    f"spec-off {int(ref.lengths.sum()) / off_s:.1f} "
+                    f"({off_s / spec_s:.3f}x); launches paged_attention "
+                    f"{launches[0]} ({out.steps * model.depth} at L "
+                    f"{SPEC_K + 1}), int8_matmul {launches[1]}; greedy "
+                    f"tokens equal to spec-off but near ties "
+                    f"{ties or 'none'}")
+                if launches != expect or min(launches[0], out.steps) <= 0:
+                    raise AssertionError(f"{tag}: launches {launches}, the "
+                                         f"path's count {expect}")
+                if weights == "int8" and launches[1] <= 0:
+                    raise AssertionError(f"{tag}: no int8 matmul launch")
+                total[0] += launches[0]
+                total[1] += launches[1]
+    del target, qtarget, drafter
+    torch.cuda.empty_cache()
+    return tuple(total)
+
+
+def lc_module(tree):
+    """The flagship's f32 module on the card holding a restored tree; int8
+    projections take the plain ``int8_dot``, so the served tokens are held
+    against a path without the int8 kernel."""
+    from kubeml_tpu_torch.interop.from_flax import from_flax
+    from kubeml_tpu_torch.models import CausalTransformer
+    from kubeml_tpu_torch.models.layers import load_tree
+    from kubeml_tpu_torch.serving.quant import (from_storage_tree,
+                                                is_quantized_storage)
+
+    if is_quantized_storage(tree):
+        tree = from_storage_tree(tree)
+    module = CausalTransformer(**LC_MODEL, device="cuda")
+    return load_tree(module, from_flax(tree), int8_impl="dot").eval()
+
+
+def lc_int8_check(smi, module):
+    """The int8 matmul on the flagship's int8 projections (every distinct
+    (K, N), the restored weights) at LC_MM_M, f32 x, against int8_dot
+    within MM_RTOL."""
+    from kubeml_tpu_torch.models.layers import QuantizableDense
+    from kubeml_tpu_torch.ops.int8_matmul import int8_dot, int8_matmul
+
+    g = torch.Generator().manual_seed(LC_SEED)
+    layers = {}
+    for m in module.modules():
+        if isinstance(m, QuantizableDense) and m.quantized:
+            layers.setdefault(tuple(m.kernel_q.shape), m)
+    worst = 0.0
+    for (K, N), m in sorted(layers.items()):
+        for M in LC_MM_M:
+            x = torch.randn(M, K, generator=g).cuda()
+            y = int8_matmul(x, m.kernel_q, m.kernel_s)
+            ref = int8_dot(x, m.kernel_q, m.kernel_s)
+            err = (y - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            if not err <= MM_RTOL[torch.float32] * scale:
+                raise AssertionError(
+                    f"16b int8_matmul M={M} K={K} N={N}: max abs err "
+                    f"{err} > {MM_RTOL[torch.float32]} x {scale}")
+            worst = max(worst, err / scale)
+    log(f"  16b int8_matmul against int8_dot [{smi}]: (K, N) "
+        f"{sorted(layers)} x M {LC_MM_M}, f32, worst max abs err / "
+        f"max |ref| {worst:.3g} (limit {MM_RTOL[torch.float32]})")
+
+
+def lc_serve(smi, tag, client, tree, rng):
+    """LC_SERVE through ``/generate``, then the in-process ``generate`` on
+    the restored weights; returns the served (paged_attention,
+    int8_matmul) launches."""
+    from kubeml_tpu_torch.models.generation import generate
+    from kubeml_tpu_torch.ops.int8_matmul import int8_matmul
+    from kubeml_tpu_torch.ops.paged_attention import paged_attention
+
+    module = lc_module(tree)
+    total, served = [0, 0], []
+    for rows, plen, new in LC_SERVE:
+        prompt = rng.integers(1, LC_VOCAB, size=(rows, plen))
+        paged_attention.launches = int8_matmul.launches = 0
+        out, wall = timed(lambda: client.networks().generate(
+            LC_JOB, prompt, max_new_tokens=new))
+        total[0] += paged_attention.launches
+        total[1] += int8_matmul.launches
+        got = [t[:n] for t, n in zip(out["tokens"], out["lengths"])]
+        served.append((prompt, got, wall))
+    log(f"  16b {tag} served [{smi}]: "
+        + ", ".join(f"{len(g)} x {p.shape[1]}-token prompts, "
+                    f"{sum(map(len, g))} tokens in {w * 1e3:.1f} ms"
+                    for p, g, w in served)
+        + f"; launches paged_attention {total[0]}, int8_matmul {total[1]}")
+    for prompt, got, _ in served:
+        ref = generate(module, prompt, max_new_tokens=len(got[0]))
+        ties = check_rows(f"16b {tag}", got, rows_of(ref), module, prompt)
+        log(f"  16b {tag}: tokens equal to the in-process generate on the "
+            f"restored weights (int8 through int8_dot), near ties "
+            f"{ties or 'none'}")
+    if total[1]:
+        lc_int8_check(smi, module)
+    del module
+    torch.cuda.empty_cache()
+    return tuple(total)
+
+
+def spmd_job(smi, root, bare_step_ms):
+    """16b (see the module docstring). Returns the flash counts of the
+    job's training steps and the served (paged_attention, int8_matmul)
+    launches."""
+    from kubeml_tpu_torch.api.types import TrainOptions, TrainRequest
+    from kubeml_tpu_torch.cluster import LocalCluster
+    from kubeml_tpu_torch.controller import KubemlClient
+    from kubeml_tpu_torch.storage.sharded_checkpoint import \
+        ShardedCheckpointStore
+
+    cfg = cp_config(Path(root) / "spmd")
+    rng = np.random.default_rng(LC_SEED)
+    x = rng.integers(1, LC_VOCAB, size=(LC_TRAIN + LC_TEST, LC_L)
+                     ).astype(np.int32)
+    y = np.zeros(len(x), np.int64)
+
+    def train(client, epochs, **opts):
+        return client.networks().train(TrainRequest(
+            model_type="gpt", batch_size=LC_B, epochs=epochs,
+            dataset="lc-tokens", lr=3e-4, function_name="longctx",
+            job_id=LC_JOB, options=TrainOptions(
+                engine="spmd", precision="bf16", sharded_checkpoints=True,
+                checkpoint_every=1, static_parallelism=True, **opts)))
+
+    steps = LC_EPOCHS * (LC_TRAIN // LC_B)
+    with LocalCluster(config=cfg) as cluster:
+        client = KubemlClient(cluster.controller_url, timeout=600)
+        client.datasets().create("lc-tokens", x[:LC_TRAIN], y[:LC_TRAIN],
+                                 x[LC_TRAIN:], y[LC_TRAIN:])
+        client.functions().create("longctx", LC_FN)
+        reset_flash_counts()
+        t0 = time.monotonic()
+        train(client, LC_EPOCHS)
+        hist = cp_wait_job(cluster, LC_JOB)
+        wall = time.monotonic() - t0
+        counts = flash_counts()
+        if hist.task.get("error") or len(hist.train_loss) != LC_EPOCHS:
+            raise AssertionError(f"16b: the job ended with {hist.train_loss}"
+                                 f", error {hist.task.get('error')}")
+        # validation forwards: one batch an epoch, depth forward launches
+        evals = LC_EPOCHS * (LC_TEST // LC_B)
+        per_step = ((counts[0] - DEPTH * evals) / steps, counts[1] / steps,
+                    counts[2] / steps)
+        step_ms = 1e3 * hist.epoch_duration[-1] / (LC_TRAIN // LC_B)
+        log(f"  16b {LC_JOB} [{smi}]: /train engine=spmd, sharded "
+            f"checkpoints, {LC_EPOCHS} epochs x {LC_TRAIN // LC_B} steps of "
+            f"B {LC_B} x L {LC_L}: train loss {hist.train_loss}, eval loss "
+            f"{hist.validation_loss}, next-token accuracy {hist.accuracy} "
+            f"%, {wall:.1f} s from /train to the history; epoch 2 step "
+            f"{step_ms:.2f} ms (the epoch's host wall over its steps, its "
+            f"checkpoint write excluded) against phase 8's bare "
+            f"SPMDTrainer step {bare_step_ms:.2f} ms; flash launches "
+            f"fwd/dq/dkv {counts}, a step {per_step} (phase 8: "
+            f"{2 * DEPTH}/{DEPTH}/{DEPTH}, remat; {evals} validation "
+            f"forwards of {DEPTH} fwd apart)")
+        if not hist.train_loss[-1] < hist.train_loss[0]:
+            raise AssertionError(f"16b: the loss did not fall: "
+                                 f"{hist.train_loss}")
+        if per_step != (2 * DEPTH, DEPTH, DEPTH):
+            raise AssertionError(f"16b: flash launches a step {per_step}")
+        shards = ShardedCheckpointStore(root=cfg.checkpoints_dir)
+        tags = client.checkpoints().list(LC_JOB)
+        if tags != ["ep00000", "ep00001", "final"] or shards.tags(
+                LC_JOB) != tags:
+            raise AssertionError(f"16b: checkpoints {tags}")
+        man = shards.read_manifest(LC_JOB, "final")
+        size = sum(p.stat().st_size for p in
+                   (cfg.checkpoints_dir / LC_JOB / "final.shards").iterdir())
+        log(f"  16b sharded final: {len(man['leaves'])} leaves, {size} "
+            f"bytes, epoch {man['epoch']}")
+        # without the final, the resume reads the newest epoch checkpoint
+        client.checkpoints().delete(LC_JOB, tag="final")
+        t0 = time.monotonic()
+        train(client, LC_EPOCHS + 1, resume=True)
+        again = cp_wait_job(cluster, LC_JOB)
+        if (again.task.get("error")
+                or again.train_loss[:LC_EPOCHS] != hist.train_loss
+                or len(again.train_loss) != LC_EPOCHS + 1):
+            raise AssertionError(f"16b resume: {again.train_loss}, error "
+                                 f"{again.task.get('error')}")
+        log(f"  16b resumed from the sharded checkpoint ep"
+            f"{LC_EPOCHS - 1:05d} at epoch {LC_EPOCHS}: train loss "
+            f"{again.train_loss[-1]:.4f} ({time.monotonic() - t0:.1f} s)")
+        if cluster.ps._serving_source(LC_JOB)[0] != "sharded":
+            raise AssertionError("16b: the served final is not the sharded "
+                                 "export")
+        serve_rng = np.random.default_rng(LC_SEED + 1)
+        f32_launches = lc_serve(
+            smi, "f32", client,
+            shards.restore(LC_JOB, "final").variables, serve_rng)
+        client.checkpoints().quantize(LC_JOB)
+    if f32_launches[0] <= 0:
+        raise AssertionError(f"16b f32: paged attention launches "
+                             f"{f32_launches}")
+    from kubeml_tpu_torch.serving.quant import INT8_TAG
+
+    qcfg = cp_config(Path(root) / "spmd", serving_quantize="int8",
+                     int8_matmul=True)
+    with LocalCluster(config=qcfg) as cluster:
+        client = KubemlClient(cluster.controller_url, timeout=600)
+        if cluster.ps._serving_source(LC_JOB)[:2] != ("sharded", INT8_TAG):
+            raise AssertionError("16b: final-int8 is not the sharded export")
+        q_launches = lc_serve(
+            smi, "int8", client,
+            shards.restore(LC_JOB, INT8_TAG).variables, serve_rng)
+    if min(q_launches) <= 0:
+        raise AssertionError(f"16b int8: launches {q_launches}")
+    return counts, tuple(a + b for a, b in zip(f32_launches, q_launches))
+
+
+def spec_spmd_phase(smi, root, bare_step_ms):
+    """Phase 16 (see the module docstring)."""
+    t0 = time.monotonic()
+    oneshot = oneshot_spec(smi)
+    log(f"  16a {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    counts, served = spmd_job(smi, root, bare_step_ms)
+    log(f"  16b {time.monotonic() - t0:.1f} s")
+    return oneshot, counts, served
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one NVIDIA card",
@@ -3860,7 +4247,7 @@ def phases(root: str) -> int:
 
     # 1. device
     smi = nvidia_smi()
-    log("[1/16 device]")
+    log("[1/17 device]")
     log(smi)
     log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} devices "
@@ -3875,7 +4262,7 @@ def phases(root: str) -> int:
     spills = [f"{lines[i - 1].split('for ')[-1][:70]}: {ln.strip()}"
               for i, ln in enumerate(lines)
               if re.search(r"[1-9]\d* bytes (stack frame|spill)", ln)]
-    log(f"[2/16 build] {time.monotonic() - t0:.2f} s (nvcc "
+    log(f"[2/17 build] {time.monotonic() - t0:.2f} s (nvcc "
         f"{kernels.build_seconds:.2f} s), kernels with a stack frame or "
         f"spills: {len(spills)}")
     for ln in spills:
@@ -3891,7 +4278,7 @@ def phases(root: str) -> int:
     check_compiled(kernels.library()._name, build_log)
 
     # 3. kernels against their plain versions
-    log("[3/16 kernels]")
+    log("[3/17 kernels]")
     timer = Timer()
     g = torch.Generator().manual_seed(SEED)
     pa_rows = check_paged_attention(timer, g)
@@ -3899,7 +4286,7 @@ def phases(root: str) -> int:
     del timer
 
     # 4. serve f32: kernel engine, then the plain (gather) twin
-    log("[4/16 serve f32]")
+    log("[4/17 serve f32]")
     serve_tiny()
     reqs = workload(np.random.default_rng(SEED))
     model = gpt2_small()
@@ -3942,7 +4329,7 @@ def phases(root: str) -> int:
     del model
 
     # 5. serve int8: int8 weights through the kernel, int8 KV pages
-    log("[5/16 serve int8]")
+    log("[5/17 serve int8]")
     q_kw = dict(quantize="int8", int8_matmul=True, kv_quant="int8", **common)
     qdec = PagedBatchingDecoder(gpt2_small(), **q_kw)
     if (not qdec.int8_matmul or qdec.int8_matmul_impl != "cuda"
@@ -3991,20 +4378,20 @@ def phases(root: str) -> int:
     torch.cuda.empty_cache()
 
     # 6. speculative decoding and chunked prefill through both kernels
-    log("[6/16 spec + chunked]")
+    log("[6/17 spec + chunked]")
     t0 = time.monotonic()
     spec_launches = spec_phase(smi)
     log(f"  phase 6: {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     # 7. flash kernels against their plain versions, and the L sweep
-    log("[7/16 flash kernels]")
+    log("[7/17 flash kernels]")
     timer = Timer()
     flash_errs, sweep = check_flash(timer, g)
     del timer
 
     # 8. train: the kernel path, its profile, then the plain path
-    log("[8/16 train bf16]")
+    log("[8/17 train bf16]")
     krow, kcounts = train_run("kernel path", flash=True)
     want = (2 * DEPTH * krow["steps_run"], DEPTH * krow["steps_run"],
             DEPTH * krow["steps_run"])
@@ -4027,14 +4414,14 @@ def phases(root: str) -> int:
                              f"{pcounts}")
 
     # 9. f32: one step through the kernels against the plain path
-    log("[9/16 train f32 parity]")
+    log("[9/17 train f32 parity]")
     check_f32_step()
 
     # 10. K-AVG: the flagship at bench.py's configuration, the merge's
     # correctness, and TrainJob end to end; none of the five hand-written
     # kernels is on this path (convs, BatchNorm and dense layers run in
     # cuDNN and cuBLAS, as the JAX path runs them in XLA)
-    log("[10/16 k-avg]")
+    log("[10/17 k-avg]")
     reset_kernel_counts()
     log("  10a flagship: ResNet-18, CIFAR-10 shapes, bf16, uint8 inputs, "
         f"B {KAVG_B}, K {KAVG_K}, lr 0.1, SGD momentum 0.9")
@@ -4051,41 +4438,48 @@ def phases(root: str) -> int:
         raise AssertionError(f"the K-AVG path launched {counts}")
 
     # 11. serving resilience through both serving kernels
-    log("[11/16 resilience]")
+    log("[11/17 resilience]")
     t0 = time.monotonic()
     res_launches = resilience_phase(smi)
     log(f"  phase 11: {time.monotonic() - t0:.1f} s")
 
     # 12. checkpoints served through the parameter server
-    log("[12/16 checkpoint serving]")
+    log("[12/17 checkpoint serving]")
     t0 = time.monotonic()
     ckpt = checkpoint_phase(smi, root, run, qrun, kavg)
     ckpt_launches = ckpt["launches"]
     log(f"  phase 12: {time.monotonic() - t0:.1f} s")
 
     # 13. the control plane over HTTP: training, serving, SIGTERM
-    log("[13/16 control plane]")
+    log("[13/17 control plane]")
     t0 = time.monotonic()
     cp_launches = control_plane_phase(smi, root, run, qrun, ckpt, kavg)
     log(f"  phase 13: {time.monotonic() - t0:.1f} s")
 
     # 14. the encoders: the flash kernels at their shapes, BERT-base and
     # ViT-Tiny trained by K-AVG, VGG-11, a ViT TrainJob with transforms
-    log("[14/16 encoders]")
+    log("[14/17 encoders]")
     t0 = time.monotonic()
     enc_rows, enc_launches, bert_row, vit_row = encoder_phase(smi, root)
     log(f"  phase 14: {time.monotonic() - t0:.1f} s")
 
     # 15. MoE trained at bench_moe's width through the flash kernels and
     # served by the dense slot engine; GPT-2-small through the dense engine
-    log("[15/16 moe + dense engine]")
+    log("[15/17 moe + dense engine]")
     t0 = time.monotonic()
     moe_row, moe_errs, moe_times, moe_counts, dense_launches = moe_phase(
         smi, root, run)
     log(f"  phase 15: {time.monotonic() - t0:.1f} s")
 
-    # 16. results
-    log("[16/16 results]")
+    # 16. the one-shot speculative generate through paged attention, and
+    # the long-context flagship's SPMD job with sharded checkpoints
+    log("[16/17 one-shot spec + spmd job]")
+    t0 = time.monotonic()
+    spec16, flash16, served16 = spec_spmd_phase(smi, root, krow["step_ms"])
+    log(f"  phase 16: {time.monotonic() - t0:.1f} s")
+
+    # 17. results
+    log("[17/17 results]")
     pa = pa_rows[0]   # the decode step: L = 1, f32 arena
     mm = next(r for r in mm_rows if r["M"] == 8 and r["N"] == VOCAB
               and r["x"] == "float32")  # the lm_head at decode
@@ -4095,7 +4489,7 @@ def phases(root: str) -> int:
          "replaces": "kubeml_tpu/ops/paged_attention.py:113",
          "launches": (f32_launches + q_launches[0] + spec_launches[0]
                       + res_launches[0] + ckpt_launches[0]
-                      + cp_launches[0]),
+                      + cp_launches[0] + spec16[0] + served16[0]),
          "max_abs_err": pa["max_abs_err"], "ms": pa["ms"],
          "plain_ms": pa["plain_ms"], "bound_ms": pa["bound_ms"],
          "bound_by": pa["bound_by"], "library_ms": pa["library_ms"]},
@@ -4104,7 +4498,7 @@ def phases(root: str) -> int:
          "replaces": "kubeml_tpu/ops/int8_matmul.py:55",
          "launches": (q_launches[1] + spec_launches[1] + res_launches[1]
                       + ckpt_launches[1] + cp_launches[1]
-                      + dense_launches[1]),
+                      + dense_launches[1] + spec16[1] + served16[1]),
          "max_abs_err": mm["max_abs_err"], "ms": mm["ms"],
          "plain_ms": mm["plain_ms"], "bound_ms": mm["bound_ms"],
          "bound_by": mm["bound_by"], "library_ms": mm["library_ms"]},
@@ -4112,10 +4506,10 @@ def phases(root: str) -> int:
     # the flash kernels at the training shape (B 8, L 2048, bf16, causal)
     tr = sweep[2048]
     err_a = flash_errs[("a train", torch.bfloat16)]
-    # launches: the training path of phase 8, the encoders' of phase 14
-    # and the MoE LM's of phase 15
-    fwd_n, dq_n, dkv_n = (a + b + c for a, b, c in zip(
-        kcounts, enc_launches, moe_counts))
+    # launches: the training path of phase 8, the encoders' of phase 14,
+    # the MoE LM's of phase 15 and the SPMD job's of phase 16
+    fwd_n, dq_n, dkv_n = (sum(c) for c in zip(
+        kcounts, enc_launches, moe_counts, flash16))
     for name, line_no, count, err, ms, plain, lib in (
             ("flash_fwd", 120, fwd_n, err_a["out"], tr["fwd_ms"],
              tr["fwd_plain_ms"], tr["fwd_library_ms"]),
@@ -4134,7 +4528,9 @@ def phases(root: str) -> int:
     log(f"  train bf16 tokens/s: kernel {krow['value']:.1f}, plain "
         f"{prow['value']:.1f}")
     log(f"  flash launches: phase 8 {kcounts}, phase 14 {enc_launches}, "
-        f"phase 15 {moe_counts}")
+        f"phase 15 {moe_counts}, phase 16 {flash16}; serving launches "
+        f"(paged_attention, int8_matmul) of phase 16: one-shot spec {spec16}"
+        f", the SPMD final served {served16}")
     t = moe_times
     log(f"  flash at the MoE shape B {MOE_B} L {MOE_L} H {MOE_H} causal "
         f"(bf16): fwd {t['fwd_ms']:.4f} ms (plain {t['fwd_plain_ms']:.4f}, "

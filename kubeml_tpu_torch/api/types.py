@@ -6,9 +6,10 @@ training types (``TrainOptions``, ``TrainRequest``, ``JobState``,
 
 They read and write the same JSON as the JAX package's types, with the same
 validation. A request may name options whose modules the port does not
-have yet; :meth:`TrainOptions.check_ported` raises for those, and the
-port's ``TrainJob`` calls it before it starts. :func:`generate_timeout` is
-the budget a caller waits on one generate request.
+have yet (a mesh over several cards); :meth:`TrainOptions.check_ported`
+raises for those, and the port's jobs and scheduler call it before a job
+starts. :func:`generate_timeout` is the budget a caller waits on one
+generate request.
 """
 
 from __future__ import annotations
@@ -103,8 +104,8 @@ class TrainOptions(_JsonMixin):
     validate_every: int = 1
     k: int = 16
     goal_accuracy: float = 100.0
-    # "kavg" = elastic local SGD; "spmd" = synchronous mesh training (not
-    # ported to this package yet: check_ported raises)
+    # "kavg" = elastic local SGD; "spmd" = synchronous mesh training (one
+    # card in this package: check_ported refuses larger meshes)
     engine: str = "kavg"
     goal_loss: float = 0.0
     precision: str = "bf16"  # compute dtype of the inputs ("bf16" | "f32")
@@ -154,18 +155,16 @@ class TrainOptions(_JsonMixin):
 
     def check_ported(self) -> None:
         """Raise ``KubeMLError`` (400) for an option that needs a module
-        this package does not have yet: the SPMD engine, sharded
-        checkpoints, and mesh axes other than ``worker``."""
-        unported = []
-        if self.engine == "spmd":
-            unported.append("engine='spmd'")
-        if self.sharded_checkpoints:
-            unported.append("sharded_checkpoints")
-        if self.mesh_shape is not None and set(self.mesh_shape) != {"worker"}:
-            unported.append(f"mesh_shape {self.mesh_shape}")
-        if unported:
-            raise KubeMLError(f"not ported to kubeml_tpu_torch yet: "
-                              f"{', '.join(unported)}", 400)
+        this package does not have yet: a mesh axis other than ``worker``
+        of more than one device (multi-card SPMD, JAX
+        ``parallel/distributed.py``)."""
+        if self.mesh_shape is not None and any(
+                int(n) > 1 for ax, n in self.mesh_shape.items()
+                if ax != "worker"):
+            raise KubeMLError(
+                f"not ported to kubeml_tpu_torch yet: mesh_shape "
+                f"{self.mesh_shape} spans several cards (multi-card SPMD, "
+                f"parallel/distributed.py)", 400)
 
 
 @dataclass

@@ -3,7 +3,7 @@
 
 One mixed-length, chat-shaped workload (short and long prompts and
 generations, a shared system prompt on a third of the requests, a quarter
-of the requests sampled at a fixed seed, a few waiters that give up
+of the requests sampled at a fixed seed, a few requests abandoned
 mid-decode) is driven the same way through:
 
 * ``slot`` - the dense :class:`~kubeml_tpu_torch.serving.BatchingDecoder`
@@ -45,6 +45,9 @@ import numpy as np
 
 VOCAB = 101
 SYS_PROMPT_LEN = 16
+# an abandoned request's waiter gives up once it holds this many of its 40
+# tokens: halfway through its decode
+ABANDON_AFTER = 20
 
 
 def _model(device=None):
@@ -57,7 +60,7 @@ def _model(device=None):
 def _workload(seed: int, n: int, vocab: int = VOCAB) -> List[dict]:
     """Mixed-length request specs: about a third share a 16-token system
     prompt, a quarter sample (temperature 0.7, seed 1000 + i), and five
-    long greedy requests are abandoned by their waiters mid-decode."""
+    long greedy requests are abandoned mid-decode."""
     rng = np.random.default_rng(seed)
     sysp = rng.integers(1, vocab, size=SYS_PROMPT_LEN).astype(np.int32)
     specs = []
@@ -88,11 +91,16 @@ def _idle(decoder) -> bool:
         return not decoder._pending and not decoder._busy()
 
 
-def drive(decoder, specs: List[dict], stagger: float = 0.004) -> dict:
+def drive(decoder, specs: List[dict], stagger: float = 0.004,
+          abandon_after: int = ABANDON_AFTER) -> dict:
     """Submit the workload FIFO (``stagger`` seconds apart), wait for every
-    result (cancelling the abandoned ones after their first token), let
-    the engine settle, and return ``{"row": telemetry row, "outs": [result
-    or None]}``."""
+    result, let the engine settle, and return ``{"row": telemetry row,
+    "outs": [result or None]}``. An abandoned request's waiter gives up
+    once it holds ``abandon_after`` tokens: the engine cancels the request
+    itself at that point (the entry's ``cancel_after``, set under the
+    decoder's lock before the engine can admit the row), so no host
+    scheduling sits between the token and the cancel, and the tokens it
+    computed for the row past that point count as wasted."""
     from ..api.types import GenerateRequest
 
     entries = []
@@ -102,20 +110,15 @@ def drive(decoder, specs: List[dict], stagger: float = 0.004) -> dict:
             prompts=[s["prompt"].tolist()], max_new_tokens=s["max_new"],
             temperature=s["temp"],
             seed=s["seed"] if s["temp"] > 0 else None)
-        entries.append(decoder.submit(req))
+        with decoder._cond:
+            entry = decoder.submit(req)
+            if s["abandon"]:
+                entry.cancel_after = abandon_after
+        entries.append(entry)
         time.sleep(stagger)
-    outs: List[Optional[dict]] = []
-    for s, e in zip(specs, entries):
-        if s["abandon"]:
-            # give up mid-decode: the engine's work for the row in flight
-            # is the wasted-token signal
-            deadline = time.time() + 600
-            while e.first_token_at == 0.0 and time.time() < deadline:
-                time.sleep(0.002)
-            decoder.cancel(e)
-            outs.append(None)
-            continue
-        outs.append(decoder.wait(e, timeout=600))
+    outs: List[Optional[dict]] = [
+        None if s["abandon"] else decoder.wait(e, timeout=600)
+        for s, e in zip(specs, entries)]
     deadline = time.time() + 60
     while time.time() < deadline and not _idle(decoder):
         time.sleep(0.02)

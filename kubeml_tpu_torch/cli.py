@@ -66,6 +66,14 @@ def cmd_train(args) -> int:
         print("error: --resume requires --id (the job id whose checkpoints "
               "to continue)", file=sys.stderr)
         return 1
+    if args.goal_loss < 0:
+        print("error: --goal-loss must be >= 0 (0 = off)", file=sys.stderr)
+        return 1
+    if args.goal_loss and args.engine != "spmd":
+        print("error: --goal-loss is an SPMD-engine goal (eval loss); "
+              "use --goal-accuracy for K-AVG jobs or add --engine spmd",
+              file=sys.stderr)
+        return 1
     mesh_shape = None
     if args.mesh:
         try:
@@ -82,7 +90,7 @@ def cmd_train(args) -> int:
             static_parallelism=args.static,
             k=-1 if args.sparse_avg else args.k,
             validate_every=args.validate_every,
-            goal_accuracy=args.goal_accuracy,
+            goal_accuracy=args.goal_accuracy, goal_loss=args.goal_loss,
             checkpoint_every=args.checkpoint_every, resume=args.resume,
             save_model=not args.no_save_model, chaos_prob=args.chaos_prob,
             engine=args.engine, mesh_shape=mesh_shape,
@@ -324,6 +332,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="one sync per epoch (K=-1)")
     t.add_argument("--validate-every", type=int, default=1)
     t.add_argument("--goal-accuracy", type=float, default=100.0)
+    t.add_argument("--goal-loss", type=float, default=0.0,
+                   help="SPMD: early-stop when eval loss <= this "
+                        "(perplexity target P -> ln P); 0 = off")
     t.add_argument("--checkpoint-every", type=int, default=0,
                    help="save a checkpoint every N epochs (0 = off)")
     t.add_argument("--id", default=None,
@@ -335,13 +346,15 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--chaos-prob", type=float, default=0.0,
                    help="per-worker per-round failure probability")
     t.add_argument("--engine", choices=["kavg", "spmd"], default="kavg",
-                   help="kavg = elastic local SGD (spmd is not ported)")
+                   help="kavg = elastic local SGD; spmd = mesh training "
+                        "(LLMs; one card)")
     t.add_argument("--priority", type=int, default=0,
                    help="priority class 0-1000 (higher pops first)")
     t.add_argument("--tenant", default="",
                    help="fair-share tenant")
     t.add_argument("--mesh", default=None,
-                   help="worker axis, e.g. worker=2")
+                   help="kavg: the worker axis, e.g. worker=2; spmd: mesh "
+                        "axes of size 1 (several cards are not ported)")
     t.set_defaults(fn=cmd_train)
 
     i = sub.add_parser("infer", help="run inference against a trained job")

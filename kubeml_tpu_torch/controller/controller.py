@@ -8,11 +8,14 @@ ndjson stream), ``/dataset[/{name}[/tokenizer]]``, ``/tasks[/{id}]``,
 ``/function[/{name}]`` and ``/health``. ``/train`` checks that the
 dataset and the function exist (404 otherwise) before it queues.
 ``/checkpoint/{id}/quantize`` writes the ``final-int8`` export
-(``serving.quant.quantize_final_checkpoint``).
+(``serving.quant.quantize_final_checkpoint``). The checkpoint routes
+list, export and delete the sharded checkpoints of the SPMD engine
+(``storage.sharded_checkpoint``) beside the flat ones; exporting a
+sharded one writes it through the flat store once, assembled on the
+host.
 
 ``/tasks/{id}/trace``, ``/slo`` and ``/metrics/history`` answer a 400
-that names their module (``ROADMAP.md`` Queue 1 item 7), as do sharded
-checkpoints.
+that names their module (``ROADMAP.md`` Queue 1).
 """
 
 from __future__ import annotations
@@ -25,8 +28,9 @@ from ..api.types import (GenerateRequest, InferRequest, TrainRequest,
                          parse_grace_seconds)
 from ..functions.registry import FunctionRegistry
 from ..ps.transport import unported_route
-from ..storage.checkpoint import CheckpointStore
+from ..storage.checkpoint import FINAL_TAG, CheckpointStore
 from ..storage.history import HistoryStore
+from ..storage.sharded_checkpoint import ShardedCheckpointStore
 from ..storage.service import create_dataset_from_upload, parse_multipart
 from ..storage.store import ShardStore
 from ..utils.httpd import Request, Response, Router, Service, StreamResponse
@@ -180,13 +184,25 @@ class Controller:
 
     # --- checkpoints ---
 
+    @property
+    def _sharded_checkpoints(self) -> ShardedCheckpointStore:
+        return ShardedCheckpointStore(root=self.checkpoints.root)
+
     def _ckpt_list_all(self, req: Request):
-        return {j: self.checkpoints.tags(j)
-                for j in self.checkpoints.list_jobs()}
+        out = {j: self.checkpoints.tags(j)
+               for j in self.checkpoints.list_jobs()}
+        sharded = self._sharded_checkpoints
+        for j in sharded.list_jobs():
+            tags = out.setdefault(j, [])
+            tags.extend(t for t in sharded.tags(j) if t not in tags)
+        return out
 
     def _ckpt_list(self, req: Request):
         job = req.params["id"]
-        return {"job": job, "checkpoints": self.checkpoints.tags(job)}
+        tags = self.checkpoints.tags(job)
+        tags.extend(t for t in self._sharded_checkpoints.tags(job)
+                    if t not in tags)
+        return {"job": job, "checkpoints": tags}
 
     def _ckpt_export(self, req: Request):
         epoch_s = req.arg("epoch")
@@ -200,34 +216,57 @@ class Controller:
         try:
             path = self.checkpoints.export_path(job, epoch=epoch, tag=tag)
         except CheckpointNotFoundError:
-            sharded = self.checkpoints.sharded_mtime(
-                job, tag or (f"ep{epoch:05d}" if epoch is not None
-                             else "final"))
-            if sharded is not None:
-                raise KubeMLError("exporting a sharded checkpoint "
-                                  "(storage/sharded_checkpoint.py) is not "
-                                  "ported to kubeml_tpu_torch yet", 400)
-            raise
+            path = self._materialize_sharded_export(job, epoch, tag)
         return Response(path.read_bytes(),
                         content_type="application/octet-stream")
+
+    def _materialize_sharded_export(self, job: str, epoch, tag):
+        """The flat file of a sharded checkpoint (JAX :255): the tree
+        assembled on the host and written through the flat store once, so
+        the download route serves jobs that only wrote sharded ones."""
+        store = self._sharded_checkpoints
+        if tag is None:
+            if epoch is not None:
+                tag = f"ep{epoch:05d}"
+            else:
+                tags = store.tags(job)
+                tag = (FINAL_TAG if FINAL_TAG in tags
+                       else (tags[-1] if tags else None))
+        if tag is None or not store.exists(job, tag):
+            raise CheckpointNotFoundError(job)
+        ck = store.restore(job, tag)
+        self.checkpoints.save(job, ck.variables, epoch=ck.epoch, tag=ck.tag,
+                              meta=ck.meta)
+        return self.checkpoints.export_path(job, tag=ck.tag)
 
     def _ckpt_quantize(self, req: Request):
         from ..serving.quant import INT8_TAG, quantize_final_checkpoint
 
         job = req.params["id"]
         try:
-            form = quantize_final_checkpoint(job, self.checkpoints,
-                                             registry=self.registry)
+            form = quantize_final_checkpoint(
+                job, self.checkpoints, registry=self.registry,
+                sharded_store=self._sharded_checkpoints)
         except CheckpointNotFoundError:
             raise KubeMLError(f"job {job!r} has no final checkpoint", 404)
         return {"job": job, "tag": INT8_TAG, "form": form}
 
     def _ckpt_delete(self, req: Request):
+        job, tag = req.params["id"], req.arg("tag")
+        deleted = False
         try:
-            self.checkpoints.delete(req.params["id"], tag=req.arg("tag"))
+            self.checkpoints.delete(job, tag=tag)
+            deleted = True
         except CheckpointNotFoundError:
-            raise CheckpointNotFoundError(req.params["id"])
-        return {"deleted": req.params["id"]}
+            pass
+        sharded = self._sharded_checkpoints
+        for t in ([tag] if tag is not None else sharded.tags(job)):
+            if sharded.exists(job, t):
+                sharded.delete(job, t)
+                deleted = True
+        if not deleted:
+            raise CheckpointNotFoundError(job)
+        return {"deleted": job}
 
     # --- functions ---
 

@@ -37,7 +37,7 @@ as the JAX engine answers from the variables it rebinds at a round's end.
 
 Not ported yet (``ROADMAP.md``): multi-host ``dist``, the background
 compile of the next parallelism level (eager PyTorch compiles nothing),
-``generate``, tracer spans, and the retry of a round on a transient
+tracer spans, and the retry of a round on a transient
 accelerator error (a CUDA fault poisons the context, so a retry in the
 same process cannot recover).
 """

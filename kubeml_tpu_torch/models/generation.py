@@ -1,15 +1,15 @@
 """Decode-side helpers of the port, from ``kubeml_tpu/models/generation.py``:
 the dense and the paged KV caches, the paged-decode capability probe, the
 one-shot ``generate`` (prefill then per-token steps through the dense
-cache) with its wire entry ``generate_from_request``, the per-row
+cache) with its wire entry ``generate_from_request``, the one-shot
+speculative path (``make_speculative_generate_fn``, ``generate(spec=...)``:
+prefill, drafts and verifies through a paged cache of its own), the per-row
 knob-adjusted logits the samplers draw from, and the acceptance math of
 speculative decoding (``draft_sample``, ``spec_accept``,
-``spec_mask_emissions``), which the serving engine's spec mode runs.
+``spec_mask_emissions``), which the serving engine's spec mode runs too.
 
 ``generate`` is eager: there is no compiled program per knob combination
-to cache, so the JAX LRU of programs has no counterpart; the one-shot
-speculative path (``make_speculative_generate_fn``) is not ported yet
-(ROADMAP).
+to cache, so the JAX LRU of programs has no counterpart.
 
 Randomness: the JAX functions take a PRNG key per row; here a row that
 samples (temperature > 0) carries its own ``torch.Generator`` and a greedy
@@ -31,8 +31,9 @@ from ..ops.paged_attention import resolve_kv_quant, resolve_paged_attn
 from .gpt import PAD_ID
 from .layers import fold_in, make_generator, seed_of
 
-__all__ = ["PAD_ID", "GenerationInputError", "GenerateResult", "DenseCache",
-           "init_cache", "generate", "make_generate_fn",
+__all__ = ["PAD_ID", "GenerationInputError", "GenerateResult",
+           "SpecGenerateResult", "DenseCache", "init_cache", "generate",
+           "make_generate_fn", "make_speculative_generate_fn",
            "generate_from_request", "PagedCache", "init_paged_cache",
            "supports_paged_decode", "draft_sample", "spec_accept",
            "spec_mask_emissions"]
@@ -50,6 +51,17 @@ class GenerationInputError(ValueError):
 class GenerateResult(NamedTuple):
     tokens: torch.Tensor   # [B, max_new_tokens] int64; PAD_ID after EOS
     lengths: torch.Tensor  # [B] int64: tokens generated incl. EOS (or cap)
+
+
+class SpecGenerateResult(NamedTuple):
+    """A speculative run's result and its acceptance accounting."""
+
+    tokens: torch.Tensor   # [B, max_new_tokens] int64; PAD_ID padded
+    lengths: torch.Tensor  # [B] int64
+    proposed: int          # candidates verified (k + 1 a live row a step)
+    accepted: int          # drafted tokens that passed acceptance
+    drafted: int           # tokens the drafter sampled (k a live row a step)
+    steps: int             # verify steps run
 
 
 class DenseCache:
@@ -147,22 +159,222 @@ def make_generate_fn(module, *, max_new_tokens: int,
     return run
 
 
+def make_speculative_generate_fn(module, *, max_new_tokens: int,
+                                 spec: str = "self", spec_k: int = 4,
+                                 draft_module=None,
+                                 exit_layer: Optional[int] = None,
+                                 temperature: float = 0.0,
+                                 top_k: Optional[int] = None,
+                                 eos_id: Optional[int] = None,
+                                 page_tokens: int = 16,
+                                 kv_quant: str = "off",
+                                 paged_attn: str = "auto"):
+    """Speculative decoding for the one-shot path (JAX :381): a
+    ``(prompt_ids, rng=None) -> SpecGenerateResult`` callable.
+
+    ``spec="draft"`` drafts with ``draft_module`` (a small causal LM with
+    its own weights) through a paged cache of its own; ``spec="self"``
+    drafts with the target's first ``exit_layer`` blocks (default half
+    the depth), which share the target's arena: the drafter writes layers
+    < ``exit_layer``, the verify rewrites those positions with the same
+    bytes and fills the rest.
+
+    Each call builds the JAX geometry for its ``(B, Lp)``: ``total =
+    min(Lp + max_new_tokens - 1 + k, max_len)`` positions a row, one
+    private table of ``ceil(total / page_tokens)`` pages a row, page 0
+    the trash page that dead rows and positions past the table write to.
+    A step drafts k tokens a live row (L 1 forwards; the draft backend
+    runs one more, write-only, so the k-th draft's K/V lands in its
+    arena), verifies all k+1 positions in one L k+1 forward,
+    ``spec_accept`` keeps the leading run of accepted drafts and one
+    correction, and ``spec_mask_emissions`` clips at eos and the budget.
+    Rollback is positional: the next step's window overwrites a rejected
+    suffix. Greedy tokens are the plain argmax chain; sampled rows keep
+    the target distribution, each row drawing from its own generator
+    (``fold_in(seed, row)``). ``kv_quant`` and ``paged_attn`` are the
+    arena's storage and read path (``init_paged_cache``); the JAX module
+    carries them as fields."""
+    if spec not in ("self", "draft"):
+        raise ValueError(f"unknown spec backend {spec!r} "
+                         f"(valid: 'self', 'draft')")
+    if spec_k < 1:
+        raise ValueError("spec_k must be >= 1")
+    if not supports_paged_decode(module):
+        raise GenerationInputError(
+            "speculative decoding runs on the paged decode path; the module "
+            "has none (positions/pages/seq_lens/cache forward arguments)")
+    if spec == "draft":
+        if draft_module is None:
+            raise ValueError("spec='draft' needs a draft_module")
+        if not supports_paged_decode(draft_module):
+            raise GenerationInputError("draft module has no paged decode path")
+        if getattr(draft_module, "vocab_size", None) != \
+                getattr(module, "vocab_size", None):
+            raise GenerationInputError(
+                "draft and target models must share one vocabulary")
+    depth = getattr(module, "depth", None)
+    if spec == "self":
+        exit_layer = (int(exit_layer) if exit_layer
+                      else max(1, (depth or 2) // 2))
+        if depth is not None and not 1 <= exit_layer <= depth:
+            raise ValueError(
+                f"exit_layer must be in [1, depth={depth}], got {exit_layer}")
+    cap = getattr(module, "max_len", None)
+    if cap is None:
+        raise GenerationInputError(
+            "model exposes no max_len attribute; generation requires a "
+            "declared KV-cache capacity")
+    pt = int(page_tokens)
+    k = int(spec_k)
+    if temperature <= 0.0:
+        top_k = None  # greedy ignores top_k
+    if spec == "self":
+        dmod, dkw = module, {"exit_layer": exit_layer}
+    else:
+        dmod, dkw = draft_module, {}
+
+    @torch.inference_mode()
+    def run(prompt_ids, rng: Union[None, int, torch.Generator] = None
+            ) -> SpecGenerateResult:
+        if temperature > 0.0 and rng is None:
+            raise GenerationInputError(
+                "temperature > 0 requires an explicit rng (an int seed or a "
+                "torch.Generator)")
+        dev = module.device
+        prompt = torch.as_tensor(prompt_ids, dtype=torch.int64, device=dev)
+        B, Lp = prompt.shape
+        if Lp + max_new_tokens - 1 > cap:
+            raise GenerationInputError(
+                f"prompt ({Lp}) + max_new_tokens ({max_new_tokens}) - 1 "
+                f"exceeds the model's max_len ({cap})")
+        dcap = (getattr(draft_module, "max_len", None)
+                if spec == "draft" else cap)
+        if dcap is not None and Lp + max_new_tokens - 1 > dcap:
+            raise GenerationInputError(
+                f"draft model's max_len ({dcap}) cannot cover the request")
+        total = min(Lp + max_new_tokens - 1 + k, int(cap))
+        tp = -(-total // pt)
+        npages = B * tp + 1  # page 0 is the trash page
+        table = (1 + torch.arange(B, device=dev)[:, None] * tp
+                 + torch.arange(tp, device=dev)[None, :]).to(torch.int32)
+        cache = init_paged_cache(module, npages, pt, kv_quant, paged_attn)
+        dcache = (init_paged_cache(draft_module, npages, pt, kv_quant,
+                                   paged_attn)
+                  if spec == "draft" else cache)
+        zeros = torch.zeros(B, dtype=torch.int32, device=dev)
+        plens = torch.full((B,), Lp, dtype=torch.int32, device=dev)
+        logits = module(prompt, decode=True, positions=zeros, pages=table,
+                        seq_lens=plens, cache=cache)[:, -1]
+        if spec == "draft":
+            draft_module(prompt, decode=True, return_hidden=True,
+                         positions=zeros, pages=table, seq_lens=plens,
+                         cache=dcache)
+        temps = torch.full((B,), float(temperature), device=dev)
+        topks = torch.full((B,), int(top_k or 0), dtype=torch.int64,
+                           device=dev)
+        eoss = torch.full((B,), -1 if eos_id is None else int(eos_id),
+                          dtype=torch.int64, device=dev)
+        topk_cap = max(SPEC_TOP_K_CAP, int(top_k or 0))
+        gens: List[Optional[torch.Generator]] = [None] * B
+        if temperature > 0.0:
+            seed = seed_of(rng)
+            gens = [make_generator(fold_in(seed, b), dev) for b in range(B)]
+        sampled = temperature > 0.0
+        tok = draft_sample(logits, temps, topks, gens, topk_cap,
+                           with_probs=False)[0]
+        live = torch.full((B,), max_new_tokens > 1, device=dev)
+        if eos_id is not None:
+            live = live & (tok != eos_id)
+        rem = torch.full((B,), max_new_tokens - 1, dtype=torch.int64,
+                         device=dev)
+        pos = plens.long()
+        outs = [[t] for t in tok.tolist()]
+        proposed = accepted = drafted = steps = 0
+        n_live = int(live.sum())
+        while n_live and steps < max_new_tokens:
+            drafts = torch.empty((B, k), dtype=torch.int64, device=dev)
+            q = (torch.empty((B, k, module.vocab_size), device=dev)
+                 if sampled else None)
+            d_tok, d_pos = tok, pos
+            for i in range(k):
+                lg = dmod(d_tok[:, None], decode=True,
+                          positions=d_pos.to(torch.int32), pages=table,
+                          seq_lens=live.int(), cache=dcache, **dkw)[:, -1]
+                d_tok, probs = draft_sample(lg, temps, topks, gens, topk_cap,
+                                            with_probs=sampled)
+                if q is not None:
+                    q[:, i] = probs
+                drafts[:, i] = d_tok
+                d_pos = d_pos + 1
+            if spec == "draft":
+                # write-only: the k-th draft's K/V, or a fully accepted
+                # step leaves a gap in the drafter's arena
+                dmod(d_tok[:, None], decode=True, return_hidden=True,
+                     positions=d_pos.to(torch.int32), pages=table,
+                     seq_lens=live.int(), cache=dcache)
+            vlg = module(torch.cat([tok[:, None], drafts], dim=1),
+                         decode=True, positions=pos.to(torch.int32),
+                         pages=table, seq_lens=live.int() * (k + 1),
+                         cache=cache)
+            emit, n_acc = spec_accept(vlg, drafts, q, temps, topks, gens,
+                                      topk_cap)
+            out, n_take, live2, rem, tok = spec_mask_emissions(
+                emit, n_acc, live, rem, eoss, tok)
+            pos = torch.where(live, pos + n_take, pos)
+            # the step's one device->host copy
+            packed = torch.cat([out, torch.where(live, n_acc, 0)[:, None],
+                                live2[:, None].long()], dim=1).cpu()
+            for b in range(B):
+                outs[b].extend(t for t in packed[b, :k + 1].tolist()
+                               if t >= 0)
+            drafted += k * n_live
+            accepted += int(packed[:, k + 1].sum())
+            proposed += (k + 1) * n_live
+            steps += 1
+            live = live2
+            n_live = int(packed[:, k + 2].sum())
+        lengths = torch.tensor([len(o) for o in outs], dtype=torch.int64,
+                               device=dev)
+        tokens = torch.tensor(
+            [o + [PAD_ID] * (max_new_tokens - len(o)) for o in outs],
+            dtype=torch.int64, device=dev)
+        return SpecGenerateResult(tokens, lengths, proposed, accepted,
+                                  drafted, steps)
+
+    return run
+
+
 def generate(module, prompt_ids, *, max_new_tokens: int,
              temperature: float = 0.0, top_k: Optional[int] = None,
              eos_id: Optional[int] = None,
-             rng: Union[None, int, torch.Generator] = None) -> GenerateResult:
+             rng: Union[None, int, torch.Generator] = None,
+             spec: str = "", spec_k: int = 4, draft_module=None,
+             spec_exit_layer: Optional[int] = None) -> GenerateResult:
     """Sample ``max_new_tokens`` continuations of dense ``prompt_ids``
-    ``[B, Lp]`` (JAX :629, without ``spec``). Greedy when ``temperature ==
-    0``; ``temperature > 0`` requires ``rng`` (an int seed or a
+    ``[B, Lp]`` (JAX :629). Greedy when ``temperature == 0``;
+    ``temperature > 0`` requires ``rng`` (an int seed or a
     ``torch.Generator``): a silent default would return the same draw on
     every call. ``top_k`` truncates before the draw. ``prompt_len +
-    max_new_tokens - 1`` must fit ``module.max_len``."""
+    max_new_tokens - 1`` must fit ``module.max_len``.
+
+    ``spec`` ("self" | "draft") routes through
+    :func:`make_speculative_generate_fn` with ``spec_k``,
+    ``spec_exit_layer`` and ``draft_module`` (which carries its own
+    weights, so there is no ``draft_variables``); greedy tokens equal the
+    spec-off path's."""
     if temperature > 0.0 and rng is None:
         raise GenerationInputError(
             "temperature > 0 requires an explicit rng (an int seed or a "
             "torch.Generator) - otherwise every call returns the same draw")
     if temperature <= 0.0:
         top_k = None  # greedy ignores top_k
+    if spec:
+        out = make_speculative_generate_fn(
+            module, max_new_tokens=max_new_tokens, spec=spec, spec_k=spec_k,
+            draft_module=draft_module, exit_layer=spec_exit_layer,
+            temperature=temperature, top_k=top_k,
+            eos_id=eos_id)(prompt_ids, rng)
+        return GenerateResult(out.tokens, out.lengths)
     dev = module.device
     prompt = torch.as_tensor(np.asarray(prompt_ids), dtype=torch.int64,
                              device=dev)

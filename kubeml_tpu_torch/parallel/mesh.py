@@ -7,9 +7,9 @@ JAX functions unchanged. :func:`make_mesh` builds a :class:`Mesh` over
 the device grid, flattened in axis order. The port trains and serves on
 one card, so a mesh whose axes multiply past 1 raises: sharding over
 ``torch.distributed`` (the mesh over several cards, ring and Ulysses
-attention, the pipeline, sharded checkpoints) is the next slice of the
-port (ROADMAP Queue 1). A one-device mesh is what ``bench_moe`` and
-``SPMDTrainer`` build (``make_mesh(devices=[dev])``).
+attention, the pipeline) is the next slice of the port (ROADMAP Queue
+1). A one-device mesh is what ``bench_moe``, ``SPMDTrainer`` and
+``engine.spmd_job.SPMDJob`` build (``make_mesh(devices=[dev])``).
 """
 
 from __future__ import annotations

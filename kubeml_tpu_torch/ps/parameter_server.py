@@ -5,7 +5,9 @@ The training lifecycle:
 
 * :meth:`ParameterServer.start_task` (``/start``) reserves the job's slot
   (a duplicate id is a 400), journals the request, loads the function and
-  runs a :class:`~kubeml_tpu_torch.engine.job.TrainJob` on a thread of its
+  runs the job class of the request's engine (``engine.job_class_for``: a
+  K-AVG :class:`~kubeml_tpu_torch.engine.job.TrainJob` or an
+  :class:`~kubeml_tpu_torch.engine.spmd_job.SPMDJob`) on a thread of its
   own; a start that fails leaves a failed history;
 * at each epoch's end the job thread asks the scheduler for its next
   parallelism and waits for :meth:`update_task` (``/update/{jobId}``), at
@@ -19,13 +21,17 @@ The training lifecycle:
   are not live), :meth:`get_task`, :meth:`wait`, :meth:`prune_tasks`,
   :meth:`stop_running_jobs` (shutdown: journals kept for the next boot);
 * :meth:`infer` on a live job answers from the job's merged weights of
-  its last completed round (``TrainJob.infer``).
+  its last completed round (``TrainJob.infer``; an SPMD job answers
+  between its steps).
 
 The serving half serves a finished job from its exported checkpoint:
 
 * :meth:`ParameterServer.generate` (JAX ``:1213``) loads the ``final``
   export (or, under ``serving_quantize="int8"``, a ``final-int8`` export
-  at least as fresh) through the job's registered function into a
+  at least as fresh), flat or sharded, whichever of the two is newer
+  (a sharded one assembled on the host, ``storage.sharded_checkpoint``),
+  re-laid out by the function's ``serving_remap`` when it has one
+  (``apply_remap_host``), through the job's registered function into a
   4-entry host cache keyed by the file's mtime, and serves it through a
   resident decoder from a 2-entry cache keyed the same way: the
   :class:`~kubeml_tpu_torch.serving.PagedBatchingDecoder`, or the dense
@@ -53,11 +59,10 @@ with a warning. Anything else raised while building a decoder propagates.
 
 Not ported yet, each refused with a 400 that names it: standalone job
 runners (``standalone_jobs``), meshes (``serving_mesh``, the multi-card
-slice), sharded finals and functions with a ``serving_remap``, and
-serving a job's epoch checkpoints before its final export. Multi-host
-jobs, the heartbeat monitor of hung jobs, traces and the time-series
-store are not ported either. An unknown id is a 404. The server runs on
-the card unless given ``device="cpu"``.
+slice), and serving a job's epoch checkpoints before its final export.
+Multi-host jobs, the heartbeat monitor of hung jobs, traces and the
+time-series store are not ported either. An unknown id is a 404. The
+server runs on the card unless given ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -78,6 +83,7 @@ from ..api.errors import (CheckpointNotFoundError, JobNotFoundError,
                           KubeMLError, StorageError)
 from ..api.types import (GenerateRequest, History, JobState, JobStateEnum,
                          TrainTask, generate_timeout)
+from ..engine import job_class_for
 from ..engine.job import TrainJob
 from ..functions.registry import FunctionRegistry
 from ..interop.from_flax import from_flax, from_flax_variables
@@ -88,6 +94,8 @@ from ..serving import BatchingDecoder, PagedBatchingDecoder, kvsnap
 from ..serving.quant import (INT8_TAG, QuantizedTensor, from_storage_tree,
                              is_quantized_storage, is_quantized_tree)
 from ..storage.checkpoint import FINAL_TAG, CheckpointStore
+from ..storage.sharded_checkpoint import (ShardedCheckpointStore,
+                                          apply_remap_host)
 from ..storage.history import HistoryStore
 from ..storage.store import ShardStore
 from ..utils.device import resolve_device
@@ -117,7 +125,7 @@ class _UpdateBox:
 @dataclass
 class _JobRecord:
     task: TrainTask
-    job: Optional[TrainJob]  # None while starting
+    job: Optional[TrainJob]  # a TrainJob or an SPMDJob; None while starting
     thread: Optional[threading.Thread]
     update_box: Optional[_UpdateBox] = None
     # keep the journal entry at the finish (shutdown, preemption): the
@@ -170,7 +178,7 @@ class ParameterServer:
                               k=req.options.k, task="train")
             req.options.default_parallelism = (
                 task.state.parallelism or req.options.default_parallelism)
-            job = TrainJob(
+            job = job_class_for(req.options)(
                 task.job_id, req, model, store=self.store,
                 history_store=self.history_store,
                 checkpoint_store=self._ckpt_store,
@@ -910,60 +918,59 @@ class ParameterServer:
 
     # --- the served checkpoint ---
 
-    def _final_source(self, model_id: str):
-        """(tag, mtime_ns) of the export to serve, or (None, None): the
-        flat ``final``, or under ``serving_quantize="int8"`` a
-        ``final-int8`` at least as fresh. A malformed id finds nothing
-        (a 404, never a 500); a sharded export newer than the flat one is
-        a 400."""
+    def _sharded_store(self) -> ShardedCheckpointStore:
+        return ShardedCheckpointStore(root=self._ckpt_store.root)
+
+    def _serving_source(self, model_id: str):
+        """(kind, tag, mtime_ns) of the export to serve, or (None, None,
+        None): the ``final`` export, ``"flat"`` or ``"sharded"`` (the SPMD
+        engine's ``sharded_checkpoints``), whichever is newer, or under
+        ``serving_quantize="int8"`` a ``final-int8`` at least as fresh. A
+        malformed id finds nothing (a 404, never a 500)."""
 
         def resolve(tag):
-            try:
-                flat = self._ckpt_store.export_path(
-                    model_id, tag=tag).stat().st_mtime_ns
-            except (CheckpointNotFoundError, StorageError, OSError):
-                flat = None
-            sharded = self._ckpt_store.sharded_mtime(model_id, tag)
-            if sharded is not None and (flat is None or sharded > flat):
-                raise _not_ported(f"serving the sharded checkpoint "
-                                  f"{model_id}/{tag}")
-            return flat
+            form, mtime = self._ckpt_store.final_form(model_id, tag)
+            return None if form is None else (form, tag, mtime)
 
         dense = resolve(FINAL_TAG)
         if self.cfg.serving_quantize == "int8":
             int8 = resolve(INT8_TAG)
             # a retrain under the same id must not be shadowed by a stale
             # final-int8
-            if int8 is not None and (dense is None or int8 >= dense):
-                return INT8_TAG, int8
+            if int8 is not None and (dense is None or int8[2] >= dense[2]):
+                return int8
         if dense is None:
-            return None, None
-        return FINAL_TAG, dense
+            return None, None, None
+        return dense
 
-    def _build_serving(self, model_id: str, tag: str, mtime) -> tuple:
-        """(model, host tree, mtime) from a flat export: the function the
-        checkpoint's request names, and its variables (int8 storage
-        markers back to QuantizedTensor pairs)."""
+    def _build_serving(self, model_id: str, kind: str, tag: str,
+                       mtime) -> tuple:
+        """(model, host tree, mtime) from the export: the function the
+        checkpoint's request names, and its variables, a sharded export
+        assembled on the host (JAX :1815-1860, without a serving mesh),
+        re-laid out by the function's ``serving_remap`` unless the export
+        is already in the serving layout (``final-int8``), int8 storage
+        markers back to QuantizedTensor pairs."""
         try:
-            ck = self._ckpt_store.restore(model_id, tag=tag)
+            ck = (self._ckpt_store.restore(model_id, tag=tag)
+                  if kind == "flat"
+                  else self._sharded_store().restore(model_id, tag))
         except CheckpointNotFoundError:
             raise JobNotFoundError(model_id)
         fn_name = ck.meta.get("request", {}).get("function_name", "")
         model = self.registry.load(fn_name)
-        remap = getattr(model, "serving_remap", None)
-        if (ck.meta.get("layout") != "serving" and callable(remap)
-                and remap() is not None):
-            raise _not_ported(f"serving function {fn_name!r}'s "
-                              f"serving_remap")
         tree = ck.variables
         if is_quantized_storage(tree):
             tree = from_storage_tree(tree)
+        remap = model.serving_remap()
+        if remap is not None and ck.meta.get("layout") != "serving":
+            tree = apply_remap_host(tree, remap)
         return (model, tree, mtime)
 
     def _load_serving(self, model_id: str):
         """(model, host tree, mtime) of a finished job through the
         mtime-checked serving cache."""
-        tag, mtime = self._final_source(model_id)
+        kind, tag, mtime = self._serving_source(model_id)
         with self._lock:
             cached = self._serving_cache.get(model_id)
             if cached is not None and cached[2] != mtime:
@@ -980,7 +987,7 @@ class ParameterServer:
                     f"(live jobs)")
             raise JobNotFoundError(model_id)
         if cached is None:
-            cached = self._build_serving(model_id, tag, mtime)
+            cached = self._build_serving(model_id, kind, tag, mtime)
             with self._lock:
                 self._serving_cache[model_id] = cached
                 while len(self._serving_cache) > SERVING_CACHE_SIZE:

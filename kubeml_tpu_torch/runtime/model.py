@@ -13,7 +13,9 @@ The user writes a model and never touches devices or distribution:
   optimizer at ``self.lr`` (``self.epoch`` is set too, for schedules); the
   engine calls it once per worker per sync round, so optimizer state never
   survives an averaging barrier;
-* ``preprocess`` runs on the device, e.g. to scale staged uint8 images.
+* ``preprocess`` runs on the device, e.g. to scale staged uint8 images;
+* ``serving_remap`` re-lays a training-shaped checkpoint out for serving
+  (default None); the SPMD engine sets ``self.mesh`` before ``build()``.
 
 Variables are ``{"params": {name: tensor}, "batch_stats": {name:
 tensor}}`` (``batch_stats`` only for modules with BatchNorm), the
@@ -82,6 +84,9 @@ class KubeModel(ABC):
         self.epoch: int = 0
         self.k: int = -1
         self.task: str = ""
+        # the SPMD engine's mesh (parallel.mesh.Mesh), set by the job
+        # before build(); None under K-AVG
+        self.mesh = None
 
     @property
     def dataset(self) -> KubeDataset:
@@ -155,6 +160,13 @@ class KubeModel(ABC):
         """A fresh optimizer over ``params``; default plain SGD at the
         job's lr."""
         return torch.optim.SGD(params, lr=self.lr)
+
+    def serving_remap(self):
+        """A restore-time re-layout of this model's checkpoints into the
+        serving module's layout (``storage.sharded_checkpoint.
+        apply_remap_host``: ``stored_path -> None | [(target_path,
+        index_prefix)]``), or None (default) when they already match."""
+        return None
 
     def infer(self, variables: Variables, x: torch.Tensor) -> torch.Tensor:
         """Prediction for raw inference payloads; default class ids."""

@@ -6,8 +6,8 @@ policy for its parallelism and starts it on the parameter server. A
 running job queues an epoch-end re-evaluation and blocks until the loop's
 answer reaches it through the PS (``ParameterServer.update_task``).
 
-A request with options whose modules the port lacks (the SPMD engine,
-sharded checkpoints, mesh axes other than ``worker``) is refused with a
+A request with options whose modules the port lacks (a mesh axis other
+than ``worker`` over several cards: multi-card SPMD) is refused with a
 400 at submission. A preempted job is requeued at once with
 ``resume=True`` (the preemption monitor, which would park it until
 serving pressure clears, is not ported).

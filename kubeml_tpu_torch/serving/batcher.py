@@ -232,6 +232,11 @@ class _Entry:
     # still queued past it fails with 504
     deadline: Optional[float] = None
     request_id: str = ""
+    # a waiter that gives up once a row holds this many tokens (0 = never),
+    # set by a benchmark on the entry under the decoder's lock before the
+    # row is admitted: the engine cancels the request itself at that
+    # point, and the tokens of the same delta past it are waste
+    cancel_after: int = 0
 
     def finished(self) -> bool:
         return all(r.done for r in self.rows)
@@ -695,10 +700,18 @@ class _SlotEngine:
             r.itl.append(gap)
             self.stats.inter_token(gap)
         r.last_emit_at = now
-        # tokens routed to a waiter that already gave up are waste
-        self.stats.emitted(len(tokens), wasted=entry.aborted)
+        # tokens routed to a waiter that already gave up are waste, and so
+        # are the tokens of this delta past a ``cancel_after`` point
+        past = (len(r.out) - entry.cancel_after
+                if entry.cancel_after and not entry.aborted else -1)
+        over = max(past, 0)
+        self.stats.emitted(len(tokens) - over, wasted=entry.aborted)
+        if over:
+            self.stats.emitted(over, wasted=True)
         if entry.stream_q is not None:
             entry.stream_q.put({"row": r.index, "tokens": tokens})
+        if past >= 0:
+            self.cancel(entry)
 
     def _fail_all(self, error: Exception, wrap: bool = False) -> None:
         """Fail every queued and resident row. ``wrap`` reaches waiters as

@@ -16,12 +16,12 @@ gathers one row per token, so quantizing them saves no per-step bytes).
 applies the scale after the contraction, so no dense ``W~`` is built.
 
 Checkpoint storage (JAX ``:161-291``): :func:`quantize_final_checkpoint`
-reads a job's flat ``final`` export, quantizes its weights by the same
-rule (so ``q`` and ``s`` are bit for bit the JAX package's) and writes
-them under the ``final-int8`` tag, each quantized leaf as a ``{Q8_Q: q,
-Q8_S: s}`` dict (:func:`to_storage_tree`), which either package's
-checkpoint store persists as it is. Sharded finals and functions with a
-``serving_remap`` are not ported (400).
+reads a job's ``final`` export (flat or sharded, whichever is newer),
+re-lays it out by its function's ``serving_remap``, quantizes its weights
+by the same rule (so ``q`` and ``s`` are bit for bit the JAX package's)
+and writes them under the ``final-int8`` tag in the same form, each
+quantized leaf as a ``{Q8_Q: q, Q8_S: s}`` dict (:func:`to_storage_tree`),
+which either package's checkpoint stores persist as it is.
 """
 
 from __future__ import annotations
@@ -192,28 +192,29 @@ def _quantize_nested(tree, path=()) -> Any:
     return QuantizedTensor(q=qt.q.numpy(), s=qt.s.numpy())
 
 
-def quantize_final_checkpoint(job_id: str, store, registry=None) -> str:
+def quantize_final_checkpoint(job_id: str, store, registry=None,
+                              sharded_store=None) -> str:
     """Quantize a job's ``final`` export offline and write it under
-    ``INT8_TAG`` in the same store; returns the form written (``"flat"``).
-    Serving with ``serving_quantize="int8"`` then prefers it while it is
+    ``INT8_TAG`` in the same form; returns the form written (``"flat"``
+    or ``"sharded"``). The newer of the flat and the sharded final is
+    read (``sharded_store`` defaults to the sharded store under
+    ``store``'s root): a retrain never quantizes a stale form. Serving
+    with ``serving_quantize="int8"`` then prefers the result while it is
     at least as fresh as ``final``. ``registry`` loads the job's function
-    first: one that cannot load is a 400, as is one with a
-    ``serving_remap`` (not ported), and so is a sharded final newer than
-    the flat one."""
+    first, whose ``serving_remap`` re-lays the tree out before it is
+    quantized; a function that cannot load is a 400."""
     from ..storage.checkpoint import FINAL_TAG
+    from ..storage.sharded_checkpoint import (ShardedCheckpointStore,
+                                              apply_remap_host)
 
-    flat = None
-    try:
-        flat = store.export_path(job_id, tag=FINAL_TAG).stat().st_mtime_ns
-    except (KubeMLError, OSError):
-        pass
-    sharded = store.sharded_mtime(job_id, FINAL_TAG)
-    if sharded is not None and (flat is None or sharded > flat):
-        raise KubeMLError(f"job {job_id}'s final is sharded: quantizing a "
-                          f"sharded checkpoint is not ported yet", 400)
-    if flat is None:
+    if sharded_store is None:
+        sharded_store = ShardedCheckpointStore(root=store.root)
+    form, _ = store.final_form(job_id, FINAL_TAG)
+    if form is None:
         raise CheckpointNotFoundError(job_id)
-    ck = store.restore(job_id, tag=FINAL_TAG)
+    ck = (store.restore(job_id, tag=FINAL_TAG) if form == "flat"
+          else sharded_store.restore(job_id, FINAL_TAG))
+    variables = ck.variables
     if registry is not None:
         fn_name = ck.meta.get("request", {}).get("function_name", "")
         try:
@@ -223,12 +224,11 @@ def quantize_final_checkpoint(job_id: str, store, registry=None) -> str:
                 f"quantize needs job {job_id}'s function {fn_name!r} to "
                 f"determine the serving layout, but loading it failed: {e}",
                 400)
-        remap = getattr(model, "serving_remap", None)
-        if callable(remap) and remap() is not None:
-            raise KubeMLError(f"function {fn_name!r} re-lays its checkpoint "
-                              f"out for serving (serving_remap): not ported "
-                              f"yet", 400)
-    storage = to_storage_tree(_quantize_nested(ck.variables))
+        remap = model.serving_remap()
+        if remap is not None:
+            variables = apply_remap_host(variables, remap)
+    storage = to_storage_tree(_quantize_nested(variables))
     meta = {**ck.meta, "quantized": "int8", "layout": "serving"}
-    store.save(job_id, storage, epoch=ck.epoch, tag=INT8_TAG, meta=meta)
-    return "flat"
+    target = store if form == "flat" else sharded_store
+    target.save(job_id, storage, epoch=ck.epoch, tag=INT8_TAG, meta=meta)
+    return form

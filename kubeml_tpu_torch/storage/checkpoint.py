@@ -256,14 +256,29 @@ class CheckpointStore:
         shutil.rmtree(d)
 
     def sharded_mtime(self, job_id: str, tag: str) -> Optional[int]:
-        """The mtime (ns) of a sharded export under this root (the JAX SPMD
-        engine's ``<job_id>/<tag>.shards/manifest.json``), None without
-        one. The port reads no sharded export; its callers refuse one."""
+        """The mtime (ns) of the sharded checkpoint of the same tag under
+        this root (``storage.sharded_checkpoint``: the manifest of
+        ``<job_id>/<tag>.shards``), None without one: the serving path,
+        the quantizer and the controller serve whichever of the flat and
+        the sharded form is newer."""
         try:
             path = self._job_dir(job_id) / f"{tag}.shards" / "manifest.json"
             return path.stat().st_mtime_ns
         except (StorageError, OSError):
             return None
+
+    def final_form(self, job_id: str, tag: str):
+        """(form, mtime_ns) of the newer of the flat and the sharded
+        checkpoint of ``tag`` (``"flat"`` on a tie), or (None, None)
+        without either; a malformed id finds nothing."""
+        try:
+            flat = self.export_path(job_id, tag=tag).stat().st_mtime_ns
+        except (CheckpointNotFoundError, StorageError, OSError):
+            flat = None
+        sharded = self.sharded_mtime(job_id, tag)
+        if sharded is None or (flat is not None and flat >= sharded):
+            return ("flat" if flat is not None else None), flat
+        return "sharded", sharded
 
     # --- single-file export (the stored file is the portable format) ---
 

@@ -6,7 +6,7 @@ and to the port's one-shot ``generate``; eos, ragged rows, streams,
 threads, timeouts, retire and close; counters under the JAX names;
 seeded sampling equal slot against paged; int8 weights (the int8 matmul's
 plain version, and MoE's in-step dequantize); the queue limit, shedding
-and deadlines; a fault.
+and deadlines; a fault; the A/B harness's in-engine cancel.
 
 Greedy tokens must be equal (f32 throughout; near ties would be logged by
 ``test_torch_dense_decode``'s check, and none occurs at these seeds).
@@ -500,3 +500,36 @@ def test_paged_serving_ab_holds_its_gate_on_the_cpu():
     parity = rows[-1]
     assert parity["match"] and parity["compared_requests"] == 19
     assert gate(rows), rows
+
+
+@pytest.mark.parametrize("engine", ["slot", "paged"])
+def test_cancel_after_wastes_the_rest_of_its_delta(engine):
+    """An entry's ``cancel_after`` (the A/B harness's abandonment): the
+    engine cancels the request itself once the row holds that many
+    tokens, counts the tokens of that delta past it as wasted, and emits
+    nothing after it. A row alone has a fixed chunk schedule (the
+    prefill's token, then chunks of 16: tokens 2-17 and 18-33), so a
+    cancel at token 20 wastes 13."""
+    module = CausalTransformer(device="cpu", seed=0, **CFG)
+    dec = (BatchingDecoder(module, slots=2, chunk_steps=16, device="cpu")
+           if engine == "slot" else
+           PagedBatchingDecoder(module, slots=2, chunk_steps=16,
+                                page_tokens=8, device="cpu"))
+    try:
+        with dec._cond:
+            entry = dec.submit(GenerateRequest(prompts=[[5, 6, 7, 8]],
+                                               max_new_tokens=40))
+            entry.cancel_after = 20
+        deadline = time.time() + 120
+        while time.time() < deadline:
+            with dec._cond:
+                if entry.aborted and not dec._pending and not dec._busy():
+                    break
+            time.sleep(0.01)
+        t = dec.telemetry()
+        assert len(entry.rows[0].out) == 33
+        assert (t["goodput_tokens"], t["wasted_tokens"]) == (20.0, 13.0)
+        assert t["tokens_emitted"] == 33.0
+        assert t["requests_canceled"] == 1.0
+    finally:
+        dec.close()

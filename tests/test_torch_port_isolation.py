@@ -112,7 +112,9 @@ def test_importing_the_port_loads_no_jax_module():
         "kubeml_tpu_torch.utils.watchdog, kubeml_tpu_torch.cluster, "
         "kubeml_tpu_torch.cli, kubeml_tpu_torch.controller, "
         "kubeml_tpu_torch.scheduler.transport, "
-        "kubeml_tpu_torch.ps.transport, kubeml_tpu_torch.storage.service\n"
+        "kubeml_tpu_torch.ps.transport, kubeml_tpu_torch.storage.service, "
+        "kubeml_tpu_torch.storage.sharded_checkpoint, "
+        "kubeml_tpu_torch.engine.spmd_job\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
@@ -189,3 +191,48 @@ def test_moe_and_dense_entry_points_raise_without_device(monkeypatch):
         BatchingDecoder(m)
     assert make_mesh(devices=["cpu"]).devices == [torch.device("cpu")]
     BatchingDecoder(m, device="cpu").close()
+
+
+@pytest.mark.parametrize("module", [
+    "storage/sharded_checkpoint.py", "engine/spmd_job.py",
+    "engine/__init__.py", "models/generation.py", "runtime/model.py",
+    "api/types.py"])
+def test_spmd_and_spec_oneshot_modules_keep_their_own_copies(module):
+    """The sharded store (its format, bf16 without ``ml_dtypes``), the SPMD
+    job, the engine dispatch and the one-shot speculative path copy what
+    they need of the JAX package's and do not import it."""
+    path = REPO / "kubeml_tpu_torch" / module
+    assert path.is_file()
+    assert not _offenders(path)
+
+
+def test_spmd_job_runs_on_the_card_unless_asked(monkeypatch, tmp_path):
+    """``SPMDJob`` without ``device`` on a host without CUDA raises; with
+    ``device="cpu"`` it builds its one-device mesh on the CPU."""
+    from kubeml_tpu_torch.api.types import TrainOptions, TrainRequest
+    from kubeml_tpu_torch.data.dataset import KubeDataset
+    from kubeml_tpu_torch.engine.spmd_job import SPMDJob
+    from kubeml_tpu_torch.models import CausalTransformer
+    from kubeml_tpu_torch.runtime.model import KubeModel
+    from kubeml_tpu_torch.storage import (CheckpointStore, HistoryStore,
+                                          ShardStore)
+
+    class LM(KubeModel):
+        def __init__(self):
+            super().__init__(KubeDataset("tokens"))
+
+        def build(self):
+            return CausalTransformer(vocab_size=11, max_len=8, embed_dim=8,
+                                     depth=1, num_heads=2, mesh=self.mesh)
+
+    req = TrainRequest(function_name="f", dataset="tokens",
+                       options=TrainOptions(engine="spmd"))
+    kw = dict(store=ShardStore(root=tmp_path / "d"),
+              history_store=HistoryStore(root=tmp_path / "h"),
+              checkpoint_store=CheckpointStore(root=tmp_path / "c"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SPMDJob("j", req, LM(), **kw)
+    job = SPMDJob("j", req, LM(), device="cpu", **kw)
+    assert job.mesh.devices == [torch.device("cpu")]
+    assert job.model.module.device == torch.device("cpu")

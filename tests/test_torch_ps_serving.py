@@ -193,7 +193,7 @@ def test_generate_matches_the_jax_ps(tmp_path, weights, mode):
         assert quantize_final_checkpoint(
             JOB, CheckpointStore(root=proot / "checkpoints"),
             registry=tps.registry) == "flat"
-        assert tps._final_source(JOB)[0] == INT8_TAG
+        assert tps._serving_source(JOB)[1] == INT8_TAG
     want, jt = serve(jps)
     got, tt = serve(tps)
     assert got == want
@@ -249,12 +249,12 @@ def test_final_int8_is_served_only_while_fresh(tmp_path, weights):
     ps = port_ps(proot, serving_quantize="int8")
     store = CheckpointStore(root=proot / "checkpoints")
     quantize_final_checkpoint(JOB, store)
-    assert ps._final_source(JOB)[0] == INT8_TAG
+    assert ps._serving_source(JOB)[1] == INT8_TAG
     final = store.export_path(JOB, tag=FINAL_TAG)
     later = store.export_path(JOB, tag=INT8_TAG).stat().st_mtime_ns + 10**9
     os.utime(final, ns=(later, later))
-    assert ps._final_source(JOB) == (FINAL_TAG, later)
-    assert port_ps(proot)._final_source(JOB)[0] == FINAL_TAG
+    assert ps._serving_source(JOB)[1:] == (FINAL_TAG, later)
+    assert port_ps(proot)._serving_source(JOB)[1] == FINAL_TAG
 
 
 def test_stream_and_metrics(tmp_path, weights):
@@ -422,9 +422,10 @@ def test_drain_and_restore_in_a_fresh_server(tmp_path, weights, drainer):
 
 def test_not_found_and_not_ported(tmp_path, weights):
     """404 for an unknown or malformed id; 400 naming what is missing for
-    a mesh, a job's epoch checkpoints before its final and a sharded
-    final; a model with no decode path is the one-shot path's 400, as in
-    the JAX server."""
+    a mesh and a job's epoch checkpoints before its final; a model with no
+    decode path is the one-shot path's 400, as in the JAX server. A
+    sharded final (ported now) serves the tokens of the same weights'
+    flat final and quantizes into a sharded ``final-int8``."""
     _, proot = roots(tmp_path, weights)
     ps = port_ps(proot)
     req = {"prompts": [[1, 2]], "max_new_tokens": 2}
@@ -449,15 +450,22 @@ def test_not_found_and_not_ported(tmp_path, weights):
     with pytest.raises(KubeMLError, match="KV-cache decode") as e:
         ps.generate("lenetjob", req)
     assert e.value.status_code == 400
-    shards = proot / "checkpoints" / "shardjob" / "final.shards"
-    shards.mkdir(parents=True)
-    (shards / "manifest.json").write_text("{}")
-    with pytest.raises(KubeMLError, match="sharded") as e:
-        ps.generate("shardjob", req)
-    assert e.value.status_code == 400
-    with pytest.raises(KubeMLError, match="sharded"):
-        quantize_final_checkpoint("shardjob", store)
     assert ps._decoders == {}
+    from kubeml_tpu_torch.storage.sharded_checkpoint import \
+        ShardedCheckpointStore as PortShardedStore
+
+    PortShardedStore(root=proot / "checkpoints").save(
+        "shardjob", weights, epoch=1, tag=FINAL_TAG,
+        meta={"request": {"function_name": "lmfn"}})
+    try:
+        assert ps._serving_source("shardjob")[0] == "sharded"
+        req = {"prompts": [[1, 2, 3, 4]], "max_new_tokens": 6}
+        assert (ps.generate("shardjob", req)["tokens"]
+                == ps.generate(JOB, req)["tokens"])
+    finally:
+        close(ps)
+    assert quantize_final_checkpoint("shardjob", store) == "sharded"
+    assert INT8_TAG in PortShardedStore(root=store.root).tags("shardjob")
 
 
 # --- the dense engine, the one-shot path, MoE finals, live jobs ---------

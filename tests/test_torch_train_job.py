@@ -153,8 +153,9 @@ def test_train_job_matches_jax(stores, tmp_config):
     {"sharded_checkpoints": True}, {"mesh_shape": {"dp": 2}}],
     ids=["spmd", "checkpoint_every", "resume", "sharded", "mesh"])
 def test_unported_options_raise(opts, tmp_path):
-    """Options whose modules the port lacks raise 400; checkpoints and
-    resume are ported now and construct a job."""
+    """Options whose modules the port lacks raise 400 (a mesh of several
+    cards); checkpoints, resume, the SPMD engine and sharded checkpoints
+    are ported now and construct a job."""
     req = _request(ttypes, **opts)
 
     def make():
@@ -164,7 +165,8 @@ def test_unported_options_raise(opts, tmp_path):
                         checkpoint_store=CheckpointStore(
                             root=tmp_path / "c"), device="cpu")
 
-    if set(opts) & {"checkpoint_every", "resume"}:
+    if set(opts) & {"checkpoint_every", "resume", "engine",
+                    "sharded_checkpoints"}:
         req.options.check_ported()
         assert make().request.options == req.options
         return
