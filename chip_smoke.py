@@ -3,8 +3,8 @@
 serving path, the GPT training path, K-AVG training, checkpoints served
 through the parameter server, the control plane, the encoders, MoE
 with the dense slot engine, the one-shot speculative ``generate`` and the
-SPMD job with sharded checkpoints. Run
-from the repo root::
+SPMD job with sharded checkpoints, and multi-rank SPMD (two ranks on
+the card over gloo). Run from the repo root::
 
     python3 chip_smoke.py
 
@@ -171,8 +171,9 @@ Phases, each reported on its own lines:
    trailing padded keys a row, one row all padding but [CLS]), held as in
    phase 7 in bf16 and f32, with kernel / plain / SDPA / bound ms; (b)
    BERT-base at ``benchmarks.transformers.bench_bert``'s configuration
-   (bf16, K 4, dropout 0.1) through ``KAvgTrainer``: each flash kernel
-   launches depth x K = 48 times a round, the loss falls over the ~20
+   but 6 layers deep (``ENC_DEPTH``; bf16, K 4, dropout 0.1) through
+   ``KAvgTrainer``: each flash kernel launches depth x K = 24 times a
+   round, the loss falls over the ~20
    rounds, samples/s, round ms, peak memory, the idle share of a
    profiled window of 2 rounds, FLOPs a sample against the bf16 peak, and
    the round through the plain path (``FLASH_MIN_KV_LEN = None``) beside
@@ -181,7 +182,8 @@ Phases, each reported on its own lines:
    the kernels invariant to the pad length (f32, ``ENC_PAD_ATOL``); one
    f32 round (dropout off) through the kernels against the plain path
    (``ENC_F32_W_RTOL``); (c) ViT-Tiny at ``bench_vit``'s configuration
-   (B 256, K 8): 96 launches a kernel a round, the loss falls, the same
+   but 6 layers deep (B 256, K 8): 48 launches a kernel a round, the loss
+   falls, the same
    report; (d) VGG-11, CIFAR-100 shapes, bf16, B 128, K 8, dropout 0.5:
    the loss falls, none of the five kernels launches; (e) ``TrainJob``
    with a registered ViT-Tiny function whose dataset applies
@@ -191,11 +193,12 @@ Phases, each reported on its own lines:
 15. MoE and the dense slot engine - (a) the flash kernels at
    ``bench_moe``'s shape (B 16, L 512, 12 heads of 64, causal) held as in
    phase 7 in bf16 and f32, with kernel / plain / SDPA / bound ms; then
-   ``bench_moe``'s configuration (the GPT-2-small skeleton, vocab 32000,
-   8 experts, top-2, an MoE block every other block, bf16, AdamW 3e-4)
-   trained by ``SPMDTrainer`` over a one-device mesh at B 16 x L 512
-   (``benchmarks.transformers.MoEBench``): each flash kernel launches
-   exactly 12 times a step (12 blocks, no remat), the loss falls, the
+   ``bench_moe``'s configuration cut to 6 blocks (``MOE_DEPTH``; the
+   GPT-2-small width, vocab 32000, 8 experts, top-2, an MoE block every
+   other block, bf16, AdamW 3e-4) trained by ``SPMDTrainer`` over a
+   one-device mesh at B 16 x L 512 (``benchmarks.transformers.
+   MoEBench``): each flash kernel launches exactly 6 times a step (6
+   blocks, no remat), the loss falls, the
    overflow lies in [0, 1]; tokens/s and step ms (best of 3 x 8 steps),
    peak memory, analytic FLOPs a step against the bf16 peak beside the
    useful expert FFNs and the dispatch/combine share, a profiled window
@@ -241,7 +244,29 @@ Phases, each reported on its own lines:
    through the plain ``int8_dot``) but for near ties, and both serving
    kernels launched; the int8 matmul held against ``int8_dot`` at every
    (K, N) of the flagship's int8 projections and the served M;
-17. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+17. multi-rank SPMD - two ranks on the one card over gloo (passed
+   explicitly; NCCL refuses two ranks on one device), started by
+   ``parallel.distributed.spawn`` after the parent built the kernels (the
+   ranks load the library and never build it); a failed rank fails the
+   script. (a) the flagship's attention (B 8, L 2048, H 8, D 64, causal,
+   the last row's last 300 keys padded) in bf16 and f32 through Ulysses
+   and the ring over ``sp=2``: the output and dQ/dK/dV gathered over the
+   ranks against the one-rank path (the flash kernels; Ulysses equal to it
+   within ``MR_SAME_TOL``) and the plain version on the card
+   (``MR_ATTN_TOL``), each flash kernel launching once a rank a call
+   under Ulysses and never under the ring; (b) the
+   long-context flagship (phase 8's configuration at full width, B 8 x L
+   2048, bf16, remat, AdamW 3e-4) trained 3 steps over ``sp=2`` (Ulysses),
+   ``sp=2`` (ring), ``tp=2`` and ``dp=2`` from the weights (seed 0) and
+   batch of a one-rank ``SPMDTrainer``: every step's loss within
+   ``MR_LOSS_ATOL`` of the one-rank trainer's and equal on both ranks, the
+   first step's gradient norm of every parameter within ``MR_GRAD_RTOL``
+   of the one-rank trainer's, the parameters each rank holds whole
+   bit-equal on both ranks after the last step, flash launches a rank a
+   step as in phase 8 (16/8/8) but none under the ring, the step's host ms on each rank and the collectives' share of a
+   profiled step (``kubeml::`` spans; gloo over host memory, not NVLink).
+   No card run covers NCCL, a world above 2 or several cards;
+18. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Any failure raises and the script exits non-zero; without a CUDA device it
 exits non-zero before printing any result.
@@ -250,6 +275,7 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import copy
+import hashlib
 import json
 import math
 import re
@@ -3063,8 +3089,10 @@ def control_plane_phase(smi, root, run, qrun, ckpt, kavg):
 # (L 128, 12 heads, trailing padding); both D 64, non-causal
 ENC_VIT = dict(B=256, L=65, H=3)
 ENC_BERT = dict(B=32, L=128, H=12)
-# bench_bert / bench_vit rounds: 12 layers x K steps, one worker
-BERT_K, VIT_K, ENC_DEPTH = 4, 8, 12
+# bench_bert / bench_vit rounds: ENC_DEPTH layers x K steps, one worker.
+# Depth cut from 12 to 6 (width, heads, B, L and K as bench_bert and
+# bench_vit) to keep the script within its time with phase 17
+BERT_K, VIT_K, ENC_DEPTH = 4, 8, 6
 # 14b: the f32 round through the kernels against the plain path, from the
 # same weights and batch (dropout off, TF32 off): the merged weights' change
 # (L2 over the tree) within 1e-3 of the round's change, the loss within
@@ -3252,7 +3280,7 @@ def enc_bert_gates(bench):
         raise AssertionError("bert rounds are not repeatable or ignore rng")
 
     # padding invariance through the kernels, f32 eval
-    model = BertBase(num_classes=2).cuda().eval()
+    model = BertBase(num_classes=2, depth=ENC_DEPTH).cuda().eval()
     model.load_state_dict({k.split("/", 1)[1]: torch.from_numpy(v)
                            for k, v in a.items()})
     ids, _ = bert_tokens(4, 128)
@@ -3278,7 +3306,8 @@ def enc_bert_gates(bench):
         attention.FLASH_MIN_KV_LEN = 0 if flash else None
         try:
             t = KAvgTrainer(make_synthetic_model(
-                BertBase(num_classes=2, dropout=0.0)), precision="f32",
+                BertBase(num_classes=2, dropout=0.0, depth=ENC_DEPTH)),
+                precision="f32",
                 device="cuda")
             v = t.place_reference(start, 1)
             sx, sy, sm = bench.staged
@@ -3375,7 +3404,9 @@ def encoder_phase(smi, root):
     from kubeml_tpu_torch.benchmarks.transformers import (EncoderBench,
                                                           bert_bench,
                                                           vit_bench)
+    from kubeml_tpu_torch.models.bert import BertBase
     from kubeml_tpu_torch.models.vgg import VGG11
+    from kubeml_tpu_torch.models.vit import ViT
 
     t0 = time.monotonic()
     log("  14a kernels at the encoder shapes")
@@ -3384,9 +3415,11 @@ def encoder_phase(smi, root):
     total = np.zeros(3, np.int64)
 
     t0 = time.monotonic()
-    log(f"  14b BERT-base: B {ENC_BERT['B']}, L {ENC_BERT['L']}, K {BERT_K},"
-        f" bf16, dropout 0.1, trailing padding, N 1")
-    bench = bert_bench(device="cuda")
+    log(f"  14b BERT-base at depth {ENC_DEPTH}: B {ENC_BERT['B']}, L "
+        f"{ENC_BERT['L']}, K {BERT_K}, bf16, dropout 0.1, trailing padding, "
+        f"N 1")
+    bench = bert_bench(device="cuda", module=BertBase(
+        num_classes=2, dtype=torch.bfloat16, depth=ENC_DEPTH))
     bert_row, counts = enc_train("bert-base", bench, smi, rounds=6,
                                  per_round=ENC_DEPTH * BERT_K)
     total += counts
@@ -3396,9 +3429,11 @@ def encoder_phase(smi, root):
     log(f"  14b {time.monotonic() - t0:.1f} s")
 
     t0 = time.monotonic()
-    log(f"  14c ViT-Tiny: B {ENC_VIT['B']}, L {ENC_VIT['L']}, K {VIT_K}, "
-        f"bf16, N 1")
-    bench = vit_bench(device="cuda")
+    log(f"  14c ViT-Tiny at depth {ENC_DEPTH}: B {ENC_VIT['B']}, L "
+        f"{ENC_VIT['L']}, K {VIT_K}, bf16, N 1")
+    bench = vit_bench(device="cuda", module=ViT(
+        num_classes=100, patch_size=4, embed_dim=192, depth=ENC_DEPTH,
+        num_heads=3, dtype=torch.bfloat16))
     vit_row, counts = enc_train("vit-tiny", bench, smi, rounds=6,
                                 per_round=ENC_DEPTH * VIT_K)
     total += counts
@@ -3441,8 +3476,10 @@ def encoder_phase(smi, root):
 
 # bench_moe (kubeml_tpu/benchmarks/transformers.py:107-158) at full width:
 # the GPT-2-small skeleton, vocab 32000, L 512, 12 heads of 64, 12 blocks
-# (an MoE block every other one: 8 experts, top-2), B 16, bf16; no remat
-MOE_B, MOE_L, MOE_H, MOE_DEPTH, MOE_VOCAB = 16, 512, 12, 12, 32000
+# (an MoE block every other one: 8 experts, top-2), B 16, bf16; no remat;
+# depth cut from 12 to 6 blocks (3 of them MoE; width, experts, routing,
+# B and L as bench_moe) to keep the script within its time with phase 17
+MOE_B, MOE_L, MOE_H, MOE_DEPTH, MOE_VOCAB = 16, 512, 12, 6, 32000
 MOE_STEPS = 8
 MOE_JOB, DENSE_JOB = "gpt-moe", "gpt2-dense"
 # bench_moe's model in f32 as a registered function: the parameter server
@@ -3579,7 +3616,7 @@ def moe_train(smi):
     versions (bf16 and f32) with kernel / plain / SDPA / bound ms, then
     bench_moe's configuration trained by SPMDTrainer (the flash counts
     zeroed before and read after): one warm-up and 3 x MOE_STEPS timed
-    steps, each flash kernel 12 launches a step, the loss falling, the
+    steps, each flash kernel MOE_DEPTH launches a step, the loss falling, the
     overflow in [0, 1]; a profiler window of 2 steps. Returns the bench,
     its row, the bf16 errors, the times and the launches."""
     from kubeml_tpu_torch.benchmarks.transformers import MoEBench
@@ -3599,7 +3636,7 @@ def moe_train(smi):
     del timer
     torch.cuda.empty_cache()
 
-    bench = MoEBench(MOE_B, MOE_L, device="cuda")
+    bench = MoEBench(MOE_B, MOE_L, device="cuda", depth=MOE_DEPTH)
     reset_flash_counts()
     row = bench.measure(MOE_STEPS, reps=3)
     busy = device_profile(lambda: [bench.step() for _ in range(2)])[0]
@@ -4222,6 +4259,321 @@ def spec_spmd_phase(smi, root, bare_step_ms):
     return oneshot, counts, served
 
 
+# --- phase 17: multi-rank SPMD ---------------------------------------------
+
+# The ranks: two processes share the one H100 over gloo, passed explicitly
+# (NCCL refuses two ranks on one device); every collective goes through
+# host memory (parallel/collectives.py). Nothing here runs NCCL, a world
+# above 2 or several cards.
+MR = dict(
+    world=2, timeout_s=600.0,
+    # (a) the flagship's attention: B 8, L 2048, H 8, D 64, causal, the
+    # last row's last `pad` keys padded; bf16 and f32
+    attn=dict(B=8, L=2048, H=FLASH_H, D=FLASH_D, pad=300,
+              dtypes=(torch.bfloat16, torch.float32)),
+    # (b) the long-context flagship at full width (phase 8's trainer:
+    # benchmarks.longcontext.make_trainer), MR_STEPS steps on each mesh,
+    # the last under a profiler window
+    model=dict(vocab_size=32000, max_len=2048, embed_dim=512, depth=DEPTH,
+               num_heads=FLASH_H, remat=True, dtype=torch.bfloat16),
+    tokens=TRAIN_TOKENS, L=2048,
+    meshes=(("sp=2 ulysses", dict(sp=2), "ulysses"),
+            ("sp=2 ring", dict(sp=2), "ring"),
+            ("tp=2", dict(tp=2), "ring"),
+            ("dp=2", dict(dp=2), "ring")))
+MR_STEPS = 3
+# (a) over ranks against the plain version on the card, and the ring
+# against the one-rank path (the flash kernels), for out, dQ, dK and dV:
+# the largest abs error over max(1, the largest |reference|); bf16
+# PA_TOL's 0.05 (the plain path rounds scores and p to bf16), f32 1e-5
+# (both f32, summed in other orders; phase 7's f32 bound)
+MR_ATTN_TOL = {torch.bfloat16: PA_TOL[torch.bfloat16],
+               torch.float32: 1e-5}
+# Ulysses against the one-rank path: the same kernels on the same (row,
+# head) tiles, equal in both dtypes (0 in every card run); 1e-6 of max(1,
+# max |ref|) lies below one bf16 rounding of any output
+MR_SAME_TOL = 1e-6
+# (b) each step's loss over ranks against the one-rank trainer's from the
+# same weights and batch: 2e-2 absolute. Forward and gradients run in
+# bf16: tp sums its partial products in bf16 across ranks, the ring
+# attends in f32 where the kernels round p to bf16, and cuBLAS picks other
+# kernels at other shapes; the loss (~10.4, a mean over 16,380 targets)
+# moves by ~1e-4 from such roundings (1.23e-4 the most on the card)
+MR_LOSS_ATOL = 2e-2
+# (b) the first step's gradient norm of every parameter (a tp-sharded
+# leaf's whole norm) against the one-rank trainer's, relative. AdamW's
+# first steps barely see a gradient's scale, so the losses hide a
+# gradient summed twice over tp (x2: 1.0 on every tp-replicated leaf),
+# and they are summed over dp x sp, so a missing dp/sp all-reduce (each
+# rank's half of the batch) shows in them only as drift; this shows both
+# (tests/test_torch_spmd_mesh.py plants them at a tiny width), and the
+# ranks' whole parameters after the last step must be bit-equal. Sound
+# readings on the H100: 3.94e-3 at most (tp=2)
+MR_GRAD_RTOL = 2e-2
+
+
+def mr_attention(rank, cfg):
+    """17a on one rank: Ulysses and the ring over ``sp=2``, outputs and
+    dQ/dK/dV gathered over the ranks; rank 0 holds them against the
+    one-rank path and the plain version. Returns each case's flash
+    launches of the call over ranks, its host ms, and (rank 0) errors."""
+    from kubeml_tpu_torch.ops.attention import dot_product_attention
+    from kubeml_tpu_torch.parallel.collectives import all_gather
+    from kubeml_tpu_torch.parallel.mesh import local_block, make_mesh
+    from kubeml_tpu_torch.parallel.ring import ring_attention
+    from kubeml_tpu_torch.parallel.ulysses import ulysses_attention
+
+    a = cfg["attn"]
+    mesh = make_mesh(sp=cfg["world"])
+    out = {}
+    for dtype in a["dtypes"]:
+        g = torch.Generator().manual_seed(SEED)
+        mk = lambda: torch.randn(a["B"], a["L"], a["H"], a["D"],
+                                 generator=g).to(dtype).to("cuda")
+        q, k, v, do = mk(), mk(), mk(), mk()
+        valid = torch.ones(a["B"], a["L"], device="cuda")
+        valid[-1, a["L"] - a["pad"]:] = 0
+        refs = None
+        for impl, fn in (("ulysses", ulysses_attention),
+                         ("ring", ring_attention)):
+            ql, kl, vl = (local_block(mesh, t).clone().requires_grad_()
+                          for t in (q, k, v))
+            reset_flash_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o = fn(ql, kl, vl, mesh, "sp", causal=True,
+                   kv_valid=local_block(mesh, valid))
+            o.backward(local_block(mesh, do))
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            counts = flash_counts()
+            got = [all_gather(t.detach(), mesh, "sp", 1)
+                   for t in (o, ql.grad, kl.grad, vl.grad)]
+            row = dict(launches=counts, ms=ms)
+            if rank == 0:
+                if refs is None:
+                    refs = {}
+                    for path in ("cuda", "plain"):
+                        qr, kr, vr = (t.clone().requires_grad_()
+                                      for t in (q, k, v))
+                        r = dot_product_attention(qr, kr, vr, causal=True,
+                                                  kv_valid=valid, impl=path)
+                        r.backward(do)
+                        refs[path] = [x.detach() for x in
+                                      (r, qr.grad, kr.grad, vr.grad)]
+                for path, want in refs.items():
+                    row[path] = max(
+                        ((x.float() - w.float()).abs().max().item()
+                         / max(1.0, w.float().abs().max().item()))
+                        for x, w in zip(got, want))
+            out[(impl, str(dtype).split(".")[-1])] = row
+        del q, k, v, do, refs
+        torch.cuda.empty_cache()
+    return out
+
+
+def grad_norms(trainer):
+    """``{parameter name: its gradient's norm}`` after a step, over the
+    whole leaf: a tp-sharded leaf's squares are summed over tp."""
+    from kubeml_tpu_torch.parallel.collectives import all_reduce_
+
+    specs = trainer.module.partition_specs()
+    names, params = zip(*trainer.module.named_parameters())
+    sq = torch.stack([p.grad.double().square().sum() for p in params])
+    if trainer.ranks is not None:
+        tp = torch.tensor(["tp" in specs[n] for n in names],
+                          device=sq.device)
+        sq = torch.where(tp, all_reduce_(sq * tp, trainer.ranks, "tp"), sq)
+    return dict(zip(names, sq.sqrt().tolist()))
+
+
+def grad_errors(norms, ref):
+    """``{parameter name: |norm - ref| / ref}``: each leaf's gradient
+    norm against the one-rank trainer's (``grad_norms`` of each)."""
+    return {n: abs(g - ref[n]) / max(ref[n], 1e-30) for n, g in norms.items()}
+
+
+def whole_digest(trainer):
+    """(sha256 over the bytes of the parameters this rank holds whole, in
+    name order; their count)."""
+    tp = trainer.ranks.shape["tp"]
+    specs = trainer.module.partition_specs()
+    h, n = hashlib.sha256(), 0
+    for name, p in trainer.module.named_parameters():
+        if tp == 1 or "tp" not in specs[name]:
+            h.update(p.detach().reshape(-1).view(torch.uint8).cpu()
+                     .numpy().tobytes())
+            n += 1
+    return h.hexdigest(), n
+
+
+def mr_train(rank, cfg):
+    """17b on one rank: the flagship trained over each mesh from the
+    one-rank trainer's weights (seed 0) and batch; returns per mesh the
+    losses, the first step's gradient norms, the digest of the whole
+    parameters after the last step, the flash launches, the host ms of
+    each step and the collectives' share of the profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeml_tpu_torch.models.gpt import CausalTransformer
+    from kubeml_tpu_torch.parallel.mesh import make_mesh
+    from kubeml_tpu_torch.parallel.trainer import SPMDTrainer
+
+    tokens = np.random.default_rng(0).integers(
+        1, cfg["model"]["vocab_size"],
+        size=(cfg["tokens"] // cfg["L"], cfg["L"])).astype(np.int32)
+    out = {}
+    for tag, axes, impl in cfg["meshes"]:
+        mesh = make_mesh(**axes)
+        trainer = SPMDTrainer(CausalTransformer(mesh=mesh, sp_impl=impl,
+                                                seed=0, **cfg["model"]),
+                              mesh, precision="bf16")
+        trainer.init(tokens)
+        reset_flash_counts()
+        losses, ms = [], []
+        for step in range(MR_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if step < MR_STEPS - 1:
+                losses.append(float(trainer.train_step(tokens)))
+            else:  # the profiler window: the last step
+                with profile(activities=[ProfilerActivity.CPU]) as prof:
+                    losses.append(float(trainer.train_step(tokens)))
+            ms.append(1e3 * (time.perf_counter() - t0))
+            if step == 0:
+                norms = grad_norms(trainer)
+        comm = {e.key: e.cpu_time_total / 1e3 for e in prof.key_averages()
+                if e.key.startswith("kubeml::")}
+        out[tag] = dict(losses=losses, launches=flash_counts(), ms=ms,
+                        grad_norms=norms, digest=whole_digest(trainer),
+                        comm_ms=comm, comm_share=sum(comm.values()) / ms[-1],
+                        shard=tuple(trainer.module.block_0.mlp_in.kernel
+                                    .shape))
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def mr_rank(rank, out_dir, cfg):
+    """One rank of phase 17 (started by ``parallel.distributed.spawn``):
+    joins the process group over gloo, loads the kernels the parent built,
+    runs 17a and 17b and writes what it measured for the parent."""
+    from kubeml_tpu_torch.parallel.distributed import init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(backend="gloo", device="cuda")
+    from kubeml_tpu_torch.ops import kernels
+
+    kernels.library(build=False)
+    res = dict(attn=mr_attention(rank, cfg), train=mr_train(rank, cfg))
+    torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+
+
+def multirank_phase(smi, cfg=MR):
+    """Phase 17 (see the module docstring). Returns the flash launches
+    (fwd, dq, dkv) of the phase's runs over ranks, summed over the
+    ranks."""
+    from kubeml_tpu_torch.benchmarks.longcontext import make_trainer
+    from kubeml_tpu_torch.parallel.distributed import spawn
+
+    t0 = time.monotonic()
+    trainer, tokens = make_trainer(cfg["L"], cfg["tokens"], "bf16",
+                                   depth=cfg["model"]["depth"],
+                                   embed_dim=cfg["model"]["embed_dim"],
+                                   num_heads=cfg["model"]["num_heads"],
+                                   vocab=cfg["model"]["vocab_size"],
+                                   device="cuda")
+    ref = [float(trainer.train_step(tokens))]
+    ref_norms = grad_norms(trainer)
+    ref += [float(trainer.train_step(tokens)) for _ in range(MR_STEPS - 1)]
+    del trainer
+    torch.cuda.empty_cache()
+    log(f"  one-rank SPMDTrainer, B {tokens.shape[0]} x L {cfg['L']}: "
+        f"losses {ref} ({time.monotonic() - t0:.1f} s)")
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
+        spawn(mr_rank, cfg["world"], args=(tmp, cfg),
+              timeout_s=cfg["timeout_s"])
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                 for r in range(cfg["world"])]
+    log(f"  {cfg['world']} ranks over gloo on {smi}: "
+        f"{time.monotonic() - t0:.1f} s, spawn included")
+    total = [0, 0, 0]
+    bad = []  # every failure is logged first, then the phase raises
+    a = cfg["attn"]
+    for key, row in ranks[0]["attn"].items():
+        impl, dt = key
+        tol = MR_ATTN_TOL[getattr(torch, dt)]
+        same = MR_SAME_TOL if impl == "ulysses" else tol
+        launches = [r["attn"][key]["launches"] for r in ranks]
+        want = (1, 1, 1) if impl == "ulysses" else (0, 0, 0)
+        log(f"  17a {impl} sp={cfg['world']} B {a['B']} L {a['L']} H "
+            f"{a['H']} D {a['D']} causal, {a['pad']} padded keys, {dt}: "
+            f"out/dQ/dK/dV gathered vs the one-rank kernels "
+            f"{row['cuda']:.2e} (tolerance {same}), vs the plain version "
+            f"{row['plain']:.2e} (tolerance {tol}) of max(1, max |ref|); "
+            f"flash launches a rank {launches}; fwd+bwd host ms a rank "
+            f"{[round(r['attn'][key]['ms'], 2) for r in ranks]} (gloo over "
+            f"host memory, not NVLink)")
+        if not (row["cuda"] <= same and row["plain"] <= tol):
+            bad.append(f"17a {key}: error {row}")
+        if any(c != want for c in launches):
+            bad.append(f"17a {key}: flash launches {launches}, want {want} "
+                       f"a rank")
+        for c in launches:
+            total = [t + n for t, n in zip(total, c)]
+    per_step = (2 * cfg["model"]["depth"], cfg["model"]["depth"],
+                cfg["model"]["depth"])
+    for tag, row in ranks[0]["train"].items():
+        ring = tag.endswith("ring")
+        losses = [r["train"][tag]["losses"] for r in ranks]
+        err = max(abs(x - y) for x, y in zip(losses[0], ref))
+        grad = grad_errors(row["grad_norms"], ref_norms)
+        worst = sorted(grad, key=grad.get, reverse=True)[:3]
+        digests = [r["train"][tag]["digest"] for r in ranks]
+        launches = [r["train"][tag]["launches"] for r in ranks]
+        want = (0, 0, 0) if ring else tuple(MR_STEPS * n for n in per_step)
+        log(f"  17b {tag}: losses {losses[0]} (one rank {ref}; largest "
+            f"difference {err:.2e}, tolerance {MR_LOSS_ATOL}); first "
+            f"step's gradient norms by leaf against one rank's, relative: "
+            f"largest {', '.join(f'{n} {grad[n]:.2e}' for n in worst)} "
+            f"(tolerance {MR_GRAD_RTOL}, {len(grad)} leaves); whole "
+            f"parameters after step {MR_STEPS}: {digests[0][1]} leaves, "
+            f"{'bit-equal' if len(set(digests)) == 1 else 'DIFFERENT'} on "
+            f"the ranks; mlp_in shard {row['shard']}; flash launches a "
+            f"rank {launches} over {MR_STEPS} steps; step host ms a rank "
+            + "; ".join(f"rank {i}: " + ", ".join(f"{m:.1f}" for m in
+                                                  r["train"][tag]["ms"])
+                        for i, r in enumerate(ranks))
+            + " (the last profiled); collectives' share of the profiled "
+            f"step {[round(r['train'][tag]['comm_share'], 3) for r in ranks]}"
+            f" (ms by op, rank 0: "
+            f"{ {k: round(v, 1) for k, v in row['comm_ms'].items()} }; gloo "
+            f"over host memory, not NVLink)")
+        if any(x != losses[0] for x in losses[1:]):
+            bad.append(f"17b {tag}: the ranks report other losses {losses}")
+        if not (all(np.isfinite(losses[0])) and err <= MR_LOSS_ATOL):
+            bad.append(f"17b {tag}: losses {losses[0]} against the "
+                       f"one-rank {ref}")
+        if set(grad) != set(ref_norms) or not all(
+                e <= MR_GRAD_RTOL for e in grad.values()):
+            bad.append(f"17b {tag}: gradient norms off one rank's: "
+                       f"{ {n: grad[n] for n in worst} }")
+        if len(set(digests)) != 1:
+            bad.append(f"17b {tag}: the ranks' whole parameters differ "
+                       f"after {MR_STEPS} steps")
+        if any(c != want for c in launches):
+            bad.append(f"17b {tag}: flash launches {launches}, want {want} "
+                       f"a rank")
+        for c in launches:
+            total = [t + n for t, n in zip(total, c)]
+    if bad:
+        raise AssertionError("phase 17: " + "; ".join(bad))
+    return tuple(total)
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one NVIDIA card",
@@ -4247,7 +4599,7 @@ def phases(root: str) -> int:
 
     # 1. device
     smi = nvidia_smi()
-    log("[1/17 device]")
+    log("[1/18 device]")
     log(smi)
     log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} devices "
@@ -4262,7 +4614,7 @@ def phases(root: str) -> int:
     spills = [f"{lines[i - 1].split('for ')[-1][:70]}: {ln.strip()}"
               for i, ln in enumerate(lines)
               if re.search(r"[1-9]\d* bytes (stack frame|spill)", ln)]
-    log(f"[2/17 build] {time.monotonic() - t0:.2f} s (nvcc "
+    log(f"[2/18 build] {time.monotonic() - t0:.2f} s (nvcc "
         f"{kernels.build_seconds:.2f} s), kernels with a stack frame or "
         f"spills: {len(spills)}")
     for ln in spills:
@@ -4278,7 +4630,7 @@ def phases(root: str) -> int:
     check_compiled(kernels.library()._name, build_log)
 
     # 3. kernels against their plain versions
-    log("[3/17 kernels]")
+    log("[3/18 kernels]")
     timer = Timer()
     g = torch.Generator().manual_seed(SEED)
     pa_rows = check_paged_attention(timer, g)
@@ -4286,7 +4638,7 @@ def phases(root: str) -> int:
     del timer
 
     # 4. serve f32: kernel engine, then the plain (gather) twin
-    log("[4/17 serve f32]")
+    log("[4/18 serve f32]")
     serve_tiny()
     reqs = workload(np.random.default_rng(SEED))
     model = gpt2_small()
@@ -4329,7 +4681,7 @@ def phases(root: str) -> int:
     del model
 
     # 5. serve int8: int8 weights through the kernel, int8 KV pages
-    log("[5/17 serve int8]")
+    log("[5/18 serve int8]")
     q_kw = dict(quantize="int8", int8_matmul=True, kv_quant="int8", **common)
     qdec = PagedBatchingDecoder(gpt2_small(), **q_kw)
     if (not qdec.int8_matmul or qdec.int8_matmul_impl != "cuda"
@@ -4378,20 +4730,20 @@ def phases(root: str) -> int:
     torch.cuda.empty_cache()
 
     # 6. speculative decoding and chunked prefill through both kernels
-    log("[6/17 spec + chunked]")
+    log("[6/18 spec + chunked]")
     t0 = time.monotonic()
     spec_launches = spec_phase(smi)
     log(f"  phase 6: {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     # 7. flash kernels against their plain versions, and the L sweep
-    log("[7/17 flash kernels]")
+    log("[7/18 flash kernels]")
     timer = Timer()
     flash_errs, sweep = check_flash(timer, g)
     del timer
 
     # 8. train: the kernel path, its profile, then the plain path
-    log("[8/17 train bf16]")
+    log("[8/18 train bf16]")
     krow, kcounts = train_run("kernel path", flash=True)
     want = (2 * DEPTH * krow["steps_run"], DEPTH * krow["steps_run"],
             DEPTH * krow["steps_run"])
@@ -4414,14 +4766,14 @@ def phases(root: str) -> int:
                              f"{pcounts}")
 
     # 9. f32: one step through the kernels against the plain path
-    log("[9/17 train f32 parity]")
+    log("[9/18 train f32 parity]")
     check_f32_step()
 
     # 10. K-AVG: the flagship at bench.py's configuration, the merge's
     # correctness, and TrainJob end to end; none of the five hand-written
     # kernels is on this path (convs, BatchNorm and dense layers run in
     # cuDNN and cuBLAS, as the JAX path runs them in XLA)
-    log("[10/17 k-avg]")
+    log("[10/18 k-avg]")
     reset_kernel_counts()
     log("  10a flagship: ResNet-18, CIFAR-10 shapes, bf16, uint8 inputs, "
         f"B {KAVG_B}, K {KAVG_K}, lr 0.1, SGD momentum 0.9")
@@ -4438,34 +4790,34 @@ def phases(root: str) -> int:
         raise AssertionError(f"the K-AVG path launched {counts}")
 
     # 11. serving resilience through both serving kernels
-    log("[11/17 resilience]")
+    log("[11/18 resilience]")
     t0 = time.monotonic()
     res_launches = resilience_phase(smi)
     log(f"  phase 11: {time.monotonic() - t0:.1f} s")
 
     # 12. checkpoints served through the parameter server
-    log("[12/17 checkpoint serving]")
+    log("[12/18 checkpoint serving]")
     t0 = time.monotonic()
     ckpt = checkpoint_phase(smi, root, run, qrun, kavg)
     ckpt_launches = ckpt["launches"]
     log(f"  phase 12: {time.monotonic() - t0:.1f} s")
 
     # 13. the control plane over HTTP: training, serving, SIGTERM
-    log("[13/17 control plane]")
+    log("[13/18 control plane]")
     t0 = time.monotonic()
     cp_launches = control_plane_phase(smi, root, run, qrun, ckpt, kavg)
     log(f"  phase 13: {time.monotonic() - t0:.1f} s")
 
     # 14. the encoders: the flash kernels at their shapes, BERT-base and
     # ViT-Tiny trained by K-AVG, VGG-11, a ViT TrainJob with transforms
-    log("[14/17 encoders]")
+    log("[14/18 encoders]")
     t0 = time.monotonic()
     enc_rows, enc_launches, bert_row, vit_row = encoder_phase(smi, root)
     log(f"  phase 14: {time.monotonic() - t0:.1f} s")
 
     # 15. MoE trained at bench_moe's width through the flash kernels and
     # served by the dense slot engine; GPT-2-small through the dense engine
-    log("[15/17 moe + dense engine]")
+    log("[15/18 moe + dense engine]")
     t0 = time.monotonic()
     moe_row, moe_errs, moe_times, moe_counts, dense_launches = moe_phase(
         smi, root, run)
@@ -4473,13 +4825,20 @@ def phases(root: str) -> int:
 
     # 16. the one-shot speculative generate through paged attention, and
     # the long-context flagship's SPMD job with sharded checkpoints
-    log("[16/17 one-shot spec + spmd job]")
+    log("[16/18 one-shot spec + spmd job]")
     t0 = time.monotonic()
     spec16, flash16, served16 = spec_spmd_phase(smi, root, krow["step_ms"])
     log(f"  phase 16: {time.monotonic() - t0:.1f} s")
 
-    # 17. results
-    log("[17/17 results]")
+    # 17. multi-rank SPMD: two gloo ranks on the card, attention and the
+    # flagship's training over sp (Ulysses, ring), tp and dp
+    log("[17/18 multi-rank spmd]")
+    t0 = time.monotonic()
+    flash17 = multirank_phase(smi)
+    log(f"  phase 17: {time.monotonic() - t0:.1f} s")
+
+    # 18. results
+    log("[18/18 results]")
     pa = pa_rows[0]   # the decode step: L = 1, f32 arena
     mm = next(r for r in mm_rows if r["M"] == 8 and r["N"] == VOCAB
               and r["x"] == "float32")  # the lm_head at decode
@@ -4507,9 +4866,10 @@ def phases(root: str) -> int:
     tr = sweep[2048]
     err_a = flash_errs[("a train", torch.bfloat16)]
     # launches: the training path of phase 8, the encoders' of phase 14,
-    # the MoE LM's of phase 15 and the SPMD job's of phase 16
+    # the MoE LM's of phase 15, the SPMD job's of phase 16 and the ranks'
+    # of phase 17
     fwd_n, dq_n, dkv_n = (sum(c) for c in zip(
-        kcounts, enc_launches, moe_counts, flash16))
+        kcounts, enc_launches, moe_counts, flash16, flash17))
     for name, line_no, count, err, ms, plain, lib in (
             ("flash_fwd", 120, fwd_n, err_a["out"], tr["fwd_ms"],
              tr["fwd_plain_ms"], tr["fwd_library_ms"]),
@@ -4528,7 +4888,8 @@ def phases(root: str) -> int:
     log(f"  train bf16 tokens/s: kernel {krow['value']:.1f}, plain "
         f"{prow['value']:.1f}")
     log(f"  flash launches: phase 8 {kcounts}, phase 14 {enc_launches}, "
-        f"phase 15 {moe_counts}, phase 16 {flash16}; serving launches "
+        f"phase 15 {moe_counts}, phase 16 {flash16}, phase 17 {flash17}; "
+        f"serving launches "
         f"(paged_attention, int8_matmul) of phase 16: one-shot spec {spec16}"
         f", the SPMD final served {served16}")
     t = moe_times

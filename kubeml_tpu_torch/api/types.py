@@ -6,7 +6,7 @@ training types (``TrainOptions``, ``TrainRequest``, ``JobState``,
 
 They read and write the same JSON as the JAX package's types, with the same
 validation. A request may name options whose modules the port does not
-have yet (a mesh over several cards); :meth:`TrainOptions.check_ported`
+have yet (a job over several ranks); :meth:`TrainOptions.check_ported`
 raises for those, and the port's jobs and scheduler call it before a job
 starts. :func:`generate_timeout` is the budget a caller waits on one
 generate request.
@@ -105,7 +105,7 @@ class TrainOptions(_JsonMixin):
     k: int = 16
     goal_accuracy: float = 100.0
     # "kavg" = elastic local SGD; "spmd" = synchronous mesh training (one
-    # card in this package: check_ported refuses larger meshes)
+    # card for a job in this package: check_ported refuses larger meshes)
     engine: str = "kavg"
     goal_loss: float = 0.0
     precision: str = "bf16"  # compute dtype of the inputs ("bf16" | "f32")
@@ -156,15 +156,19 @@ class TrainOptions(_JsonMixin):
     def check_ported(self) -> None:
         """Raise ``KubeMLError`` (400) for an option that needs a module
         this package does not have yet: a mesh axis other than ``worker``
-        of more than one device (multi-card SPMD, JAX
-        ``parallel/distributed.py``)."""
+        of more than one device. ``SPMDTrainer`` trains over the ranks of
+        such a mesh (``parallel.distributed``), but a job over several
+        ranks needs the SPMD job over ranks with followers and remesh
+        (JAX ``engine/spmd_job.py``, ``engine/follower.py``), the next
+        item of multi-card SPMD (ROADMAP Queue 1 item 1)."""
         if self.mesh_shape is not None and any(
                 int(n) > 1 for ax, n in self.mesh_shape.items()
                 if ax != "worker"):
             raise KubeMLError(
                 f"not ported to kubeml_tpu_torch yet: mesh_shape "
-                f"{self.mesh_shape} spans several cards (multi-card SPMD, "
-                f"parallel/distributed.py)", 400)
+                f"{self.mesh_shape} spans several ranks, which needs the "
+                f"SPMD job over ranks with followers and remesh (multi-card "
+                f"SPMD, ROADMAP Queue 1 item 1)", 400)
 
 
 @dataclass

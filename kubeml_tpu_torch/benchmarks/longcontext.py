@@ -3,15 +3,20 @@
 Port of ``kubeml_tpu/benchmarks/longcontext.py`` with the same config and
 defaults: the causal transformer (E 512, depth 8, 8 heads, vocab 32000)
 with rematerialised blocks under ``SPMDTrainer`` (AdamW 3e-4), bf16
-compute, a fixed budget of 16,384 tokens per step so throughput compares
-across lengths. Attention takes the flash kernels on the card
-(``ops.attention.FLASH_MIN_KV_LEN``).
+compute, a fixed budget of 16,384 tokens per step and rank so throughput
+compares across lengths. Attention takes the flash kernels on the card
+(``ops.attention.FLASH_MIN_KV_LEN``). As in JAX (:37-56) the trainer runs
+over ``make_mesh(dp=world)``: alone, one card; started as ranks
+(``KUBEML_COORDINATOR``, ``KUBEML_NUM_PROCESSES``, ``KUBEML_PROCESS_ID``;
+``parallel.distributed.init_distributed``), the global batch is
+``batch x dp`` and each rank trains its rows.
 
     python -m kubeml_tpu_torch.benchmarks.longcontext             # 1k..16k
     python -m kubeml_tpu_torch.benchmarks.longcontext --seq-lens 4096 --steps 10
 
-Prints one JSON line per sequence length: tokens/s plus the config and
-the card's name. Runs on one CUDA card unless given ``--device cpu``.
+Prints one JSON line per sequence length (rank 0 only): tokens/s of the
+global batch plus the config and the card's name. Runs on CUDA unless
+given ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -31,24 +36,31 @@ def make_trainer(seq_len: int, tokens_per_step: int = 16384,
                  num_heads: int = 8, vocab: int = 32000,
                  logits_chunk: Optional[int] = None,
                  device=None) -> Tuple[object, np.ndarray]:
-    """The benchmark's trainer (initialised, weights from seed 0) and its
-    one batch of ``tokens_per_step // seq_len`` random sequences (seed 0)."""
+    """The benchmark's trainer over ``make_mesh(dp=world)`` (initialised,
+    weights from seed 0) and its one global batch of ``tokens_per_step //
+    seq_len`` random sequences a rank (seed 0)."""
     from ..models.gpt import CausalTransformer
+    from ..parallel.distributed import process_count
+    from ..parallel.mesh import make_mesh
     from ..parallel.trainer import SPMDTrainer
 
     batch = max(1, tokens_per_step // seq_len)
+    world = process_count()
+    mesh = make_mesh(dp=world, devices=None if world > 1 else [device])
     module = CausalTransformer(
         vocab_size=vocab, max_len=seq_len, embed_dim=embed_dim, depth=depth,
         num_heads=num_heads, remat=True,
         dtype=torch.bfloat16 if dtype == "bf16" else torch.float32,
-        seed=0, device=device)
+        mesh=mesh, seed=0)
     if logits_chunk is None and seq_len > 32768:
         # past 32k the [B, L, vocab] logits dominate memory; stream the
         # lm_head + loss instead (parallel.trainer.chunked_lm_loss)
         logits_chunk = 8192
-    trainer = SPMDTrainer(module, precision="bf16", logits_chunk=logits_chunk)
+    trainer = SPMDTrainer(module, mesh, precision="bf16",
+                          logits_chunk=logits_chunk)
     r = np.random.default_rng(0)
-    tokens = r.integers(1, vocab, size=(batch, seq_len)).astype(np.int32)
+    tokens = r.integers(1, vocab, size=(batch * mesh.shape["dp"],
+                                        seq_len)).astype(np.int32)
     trainer.init(tokens)
     return trainer, tokens
 
@@ -119,14 +131,23 @@ def main(argv=None) -> int:
     p.add_argument("--depth", type=int, default=8)
     p.add_argument("--embed-dim", type=int, default=512)
     p.add_argument("--device", default=None,
-                   help="default: the current CUDA card")
+                   help="default: the current CUDA card ('cpu' for CPU "
+                   "ranks over gloo)")
     args = p.parse_args(argv)
 
-    for L in args.seq_lens:
-        res = run_point(L, args.tokens_per_step, args.steps, args.dtype,
-                        depth=args.depth, embed_dim=args.embed_dim,
-                        device=args.device)
-        print(json.dumps(res), flush=True)
+    from ..parallel.distributed import (init_distributed, process_index,
+                                        shutdown)
+
+    init_distributed(device=args.device)
+    try:
+        for L in args.seq_lens:
+            res = run_point(L, args.tokens_per_step, args.steps, args.dtype,
+                            depth=args.depth, embed_dim=args.embed_dim,
+                            device=args.device)
+            if process_index() == 0:
+                print(json.dumps(res), flush=True)
+    finally:
+        shutdown()
     return 0
 
 

@@ -354,7 +354,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fair-share tenant")
     t.add_argument("--mesh", default=None,
                    help="kavg: the worker axis, e.g. worker=2; spmd: mesh "
-                        "axes of size 1 (several cards are not ported)")
+                        "axes of size 1 (a job over several ranks is not "
+                        "ported)")
     t.set_defaults(fn=cmd_train)
 
     i = sub.add_parser("infer", help="run inference against a trained job")

@@ -31,8 +31,11 @@ next-token top-1 accuracy.
 * ``infer`` and ``generate`` serve the live model between steps (under
   the step lock).
 
-Not ported (ROADMAP): meshes of several devices and their elastic remesh,
-multi-host ``dist``, and tracer spans.
+Not ported (ROADMAP Queue 1 item 1): a job over several ranks (the SPMD
+job over ranks with followers, ``engine/follower.py``, its elastic remesh
+and sharded saves from several processes; ``check_ported`` refuses its
+mesh with a 400), multi-host ``dist``, and tracer spans. The trainer
+itself runs over ranks (``parallel.trainer``).
 """
 
 from __future__ import annotations

@@ -5,7 +5,11 @@
 LeNet, VGG, ViT, BERT: ``params`` and ``batch_stats``). :func:`to_flax` and
 :func:`to_flax_variables` are their inverses: the port writes checkpoints
 in the Flax layout through them, so a checkpoint file never says which
-package wrote it.
+package wrote it. :func:`shard_tree` cuts a full flat tree into one
+rank's tensor-parallel shards by the port's partition table
+(``models.gpt.partition_spec``, JAX's ``_part`` specs); :func:`gather_tree`
+gathers a rank's shards back into whole leaves (collectively, on every
+rank), for the tests and for a save.
 
 The port's modules carry Flax's parameter names and layouts (dense kernels
 ``[in, out]``, LayerNorm ``scale``/``bias``, ``token_embed.embedding``,
@@ -163,3 +167,44 @@ def to_flax_variables(variables: Mapping[str, Mapping[str, Any]],
         return _nest(out, lambda v: v)
 
     return {c: convert(tree) for c, tree in variables.items()}
+
+
+def shard_tree(flat: Mapping[str, Any], mesh,
+               spec_of=None) -> Dict[str, torch.Tensor]:
+    """Cut a full flat tree (``from_flax`` output, or numpy leaves) into this
+    rank's shards on ``mesh`` by the port's partition table
+    (``models.gpt.partition_spec``): a leaf split over ``tp`` keeps part
+    ``mesh.coord["tp"]`` of its split dim, every other leaf stays whole.
+    The result loads into a model built with the same mesh
+    (``models.layers.load_tree``)."""
+    if spec_of is None:
+        from ..models.gpt import partition_spec as spec_of
+    tp = 1 if mesh is None else mesh.shape.get("tp", 1)
+    out: Dict[str, torch.Tensor] = {}
+    for name, value in flat.items():
+        t = _tensor(value)
+        spec = spec_of(name, t.dim())
+        if tp > 1 and "tp" in spec:
+            d = spec.index("tp")
+            n = t.shape[d] // tp
+            t = t.narrow(d, mesh.coord["tp"] * n, n).clone()
+        out[name] = t
+    return out
+
+
+def gather_tree(flat: Mapping[str, torch.Tensor], mesh,
+                spec_of=None) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`shard_tree`: every leaf whole again, its
+    ``tp`` shards gathered from the ranks (collective: every rank of the
+    mesh calls it). Leaves come back on their device."""
+    if spec_of is None:
+        from ..models.gpt import partition_spec as spec_of
+    from ..parallel.collectives import all_gather
+
+    out: Dict[str, torch.Tensor] = {}
+    with torch.no_grad():
+        for name, t in flat.items():
+            spec = spec_of(name, t.dim())
+            out[name] = (all_gather(t.detach(), mesh, "tp", spec.index("tp"))
+                         if "tp" in spec else t.detach())
+    return out

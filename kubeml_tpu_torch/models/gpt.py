@@ -7,8 +7,28 @@ DENSE KV-cache decode branches (:266-323, :499-525) of ``generate`` and
 the dense slot engine; and MoE interleaving (``moe_every``: block ``i`` is
 a ``parallel.moe.MoEBlock`` when ``(i + 1) % moe_every == 0``, never
 rematerialised, and without a paged or early-exit path, as in JAX).
-Sequence parallelism (a mesh of several devices) is the next slice
-(ROADMAP) and raises; a mesh whose axes are all 1 is accepted.
+
+Tensor and sequence parallelism (JAX :38-356, :395-408, :491-595): built
+with a ``mesh`` of several ranks (``parallel.mesh.make_mesh`` over the
+process group), the model holds this rank's shards, cut from the full
+weights its ``seed`` draws, by :func:`partition_spec` (JAX's ``_part``
+specs): the query/key/value kernels' columns (= heads), ``proj``'s rows,
+``mlp_in``'s columns and bias, ``mlp_out``'s rows, the embeddings' width
+E and ``lm_head``'s vocabulary over ``tp``; LayerNorms and the biases of
+row-parallel layers stay whole. Its forward takes this rank's
+``[B/dp, L/sp]`` block of token ids and equals the unsharded model: the
+local E columns of the embeddings are gathered over ``tp``, a
+column-parallel input enters through ``collectives.copy_to`` (Megatron's
+f), row-parallel partial outputs are summed by ``collectives.psum``
+before their replicated bias, and the vocabulary-sharded logits are
+gathered (``[B/dp, L/sp, vocab]``). Under ``sp`` the rank's positions are
+``[coord_sp * L/sp, (coord_sp + 1) * L/sp)``, which ``pos_embed`` and
+RoPE use, and attention is ``parallel.ring`` or ``parallel.ulysses``
+(``sp_impl``); with ``sp == 1`` it is ``dot_product_attention`` over the
+rank's heads (the flash kernels on the card). Decode, the paged path and
+MoE under a mesh of several ranks raise (meshed serving and MoE ``ep``
+are later items, ROADMAP Queue 1 item 1). A mesh of one device only
+places the model.
 
 Training (:558-582): ``remat=True`` recomputes each block's forward in the
 backward (``torch.utils.checkpoint``, non-reentrant) on the non-decode
@@ -65,6 +85,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.attention import dot_product_attention
 from ..ops.paged_attention import paged_attention, paged_attention_ref
 from ..ops.rotary import apply_rope
+from ..parallel.collectives import all_gather, copy_to, psum
 from ..parallel.mesh import check_mesh
 from ..utils.device import resolve_device
 from .layers import (Dropout, Embed, LayerNorm, QuantizableDense,
@@ -77,14 +98,75 @@ PAD_ID = 0
 _TRUNC_STD = 0.87962566103423978
 
 
+def _tp(mesh) -> int:
+    return 1 if mesh is None else mesh.shape.get("tp", 1)
+
+
+def _seq_offset(mesh, L: int) -> int:
+    """The global position of this rank's first token under ``sp``."""
+    return 0 if mesh is None else mesh.coord.get("sp", 0) * L
+
+
+def _col_bias(dense, x, mesh):
+    """A column-parallel layer whose bias is whole on every rank (the
+    attention's query/key/value: JAX leaves their bias unpartitioned):
+    this rank's slice of the bias, entering through ``copy_to`` so its
+    gradient is the sum of every rank's slice."""
+    if dense.bias is None or _tp(mesh) == 1:
+        return dense(x)
+    d = dense.dtype
+    y = x.to(d) @ dense.kernel.to(d)
+    n = y.shape[-1]
+    b = copy_to(dense.bias, mesh, "tp").narrow(0, mesh.coord["tp"] * n, n)
+    return y + b.to(y.dtype)
+
+
+def _row(dense, x, mesh):
+    """A row-parallel layer: the partial products summed over ``tp``, then
+    the whole bias."""
+    if _tp(mesh) == 1:
+        return dense(x)
+    d = dense.dtype
+    y = psum(x.to(d) @ dense.kernel.to(d), mesh, "tp")
+    return y if dense.bias is None else y + dense.bias.to(y.dtype)
+
+
+# JAX's ``_part`` specs (kubeml_tpu/models/gpt.py :99, :402-407, :491-494,
+# :595) by parameter name; every other parameter is whole
+_TP_SPECS = (
+    (".attn.query.kernel", (None, "tp")),
+    (".attn.key.kernel", (None, "tp")),
+    (".attn.value.kernel", (None, "tp")),
+    (".attn.proj.kernel", ("tp", None)),
+    (".mlp_in.kernel", (None, "tp")),
+    (".mlp_in.bias", ("tp",)),
+    (".mlp_out.kernel", ("tp", None)),
+    ("token_embed.embedding", (None, "tp")),
+    ("pos_embed", (None, None, "tp")),
+    ("lm_head.kernel", (None, "tp")),
+)
+
+
+def partition_spec(name: str, ndim: int) -> tuple:
+    """The mesh axis of each dim of the parameter ``name`` (None: whole),
+    as ``flax.linen.get_partition_spec`` gives it for the JAX module."""
+    for suffix, spec in _TP_SPECS:
+        if name == suffix or name.endswith(suffix):
+            return spec
+    return (None,) * ndim
+
+
 class CausalSelfAttention(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int, use_bias: bool = False,
                  dtype: torch.dtype = torch.float32, rope: bool = False,
-                 rope_theta: float = 10000.0):
+                 rope_theta: float = 10000.0, mesh=None,
+                 sp_impl: str = "ring"):
         super().__init__()
         self.num_heads = num_heads
         self.rope = rope
         self.rope_theta = rope_theta
+        self.mesh = mesh  # a mesh of several ranks, or None
+        self.sp_impl = sp_impl
         dense = lambda n: QuantizableDense(embed_dim, n, use_bias=use_bias,
                                            dtype=dtype)
         self.query = dense(embed_dim)
@@ -95,11 +177,13 @@ class CausalSelfAttention(nn.Module):
     def forward(self, x, valid, decode: bool = False, positions=None,
                 pages=None, seq_lens=None, cache=None, layer: int = 0):
         B, L, E = x.shape
-        H = self.num_heads
-        D = E // H
-        q = self.query(x).reshape(B, L, H, D)
-        k = self.key(x).reshape(B, L, H, D)
-        v = self.value(x).reshape(B, L, H, D)
+        mesh = self.mesh
+        D = E // self.num_heads
+        H = self.num_heads // _tp(mesh)  # this rank's heads
+        x = copy_to(x, mesh, "tp")
+        q = _col_bias(self.query, x, mesh).reshape(B, L, H, D)
+        k = _col_bias(self.key, x, mesh).reshape(B, L, H, D)
+        v = _col_bias(self.value, x, mesh).reshape(B, L, H, D)
         if decode and pages is not None:
             out = self._paged(q, k, v, valid, positions, pages, seq_lens,
                               cache, layer)
@@ -107,11 +191,19 @@ class CausalSelfAttention(nn.Module):
             out = self._dense(q, k, v, valid, positions, cache, layer)
         else:
             if self.rope:
-                pos = torch.arange(L, device=x.device)
+                pos = _seq_offset(mesh, L) + torch.arange(L, device=x.device)
                 q = apply_rope(q, pos, self.rope_theta)
                 k = apply_rope(k, pos, self.rope_theta)
-            out = dot_product_attention(q, k, v, causal=True, kv_valid=valid)
-        return self.proj(out.reshape(B, L, H * D))
+            if mesh is not None and mesh.shape.get("sp", 1) > 1:
+                if self.sp_impl == "ulysses":
+                    from ..parallel.ulysses import ulysses_attention as sp_fn
+                else:
+                    from ..parallel.ring import ring_attention as sp_fn
+                out = sp_fn(q, k, v, mesh, "sp", causal=True, kv_valid=valid)
+            else:
+                out = dot_product_attention(q, k, v, causal=True,
+                                            kv_valid=valid)
+        return _row(self.proj, out.reshape(B, L, H * D), mesh)
 
     def _dense(self, q, k, v, valid, positions, cache, layer):
         """Dense KV-cache decode (JAX :266-323): write this call's K/V into
@@ -225,14 +317,17 @@ class GPTBlock(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int, mlp_ratio: int = 4,
                  dtype: torch.dtype = torch.float32, ln_eps: float = 1e-6,
                  attn_bias: bool = False, rope: bool = False,
-                 rope_theta: float = 10000.0, dropout: float = 0.0):
+                 rope_theta: float = 10000.0, dropout: float = 0.0,
+                 mesh=None, sp_impl: str = "ring"):
         super().__init__()
         self.dtype = dtype
+        self.mesh = mesh  # a mesh of several ranks, or None
         self.drop = Dropout(dropout)
         self.ln1 = LayerNorm(embed_dim, ln_eps)
         self.attn = CausalSelfAttention(embed_dim, num_heads,
                                         use_bias=attn_bias, dtype=dtype,
-                                        rope=rope, rope_theta=rope_theta)
+                                        rope=rope, rope_theta=rope_theta,
+                                        mesh=mesh, sp_impl=sp_impl)
         self.ln2 = LayerNorm(embed_dim, ln_eps)
         self.mlp_in = QuantizableDense(embed_dim, embed_dim * mlp_ratio,
                                        dtype=dtype)
@@ -253,8 +348,9 @@ class GPTBlock(nn.Module):
                       layer=layer)
         x = x + self.drop(y, train, g)
         y = self.ln2(x).to(self.dtype)
+        y = copy_to(y, self.mesh, "tp")
         y = F.gelu(self.mlp_in(y), approximate="tanh")  # Flax nn.gelu
-        return x + self.drop(self.mlp_out(y), train, g)
+        return x + self.drop(_row(self.mlp_out, y, self.mesh), train, g)
 
 
 class CausalTransformer(nn.Module):
@@ -272,15 +368,34 @@ class CausalTransformer(nn.Module):
                  pos: str = "learned", rope_theta: float = 10000.0,
                  remat: bool = False, dropout: float = 0.0,
                  moe_every: int = 0, num_experts: int = 8, top_k: int = 2,
-                 moe_capacity: float = 1.25, mesh=None, seed: int = 0,
-                 device=None):
+                 moe_capacity: float = 1.25, mesh=None,
+                 sp_impl: str = "ring", seed: int = 0, device=None):
         super().__init__()
         if pos not in ("learned", "rope"):
             raise ValueError(f"unknown pos {pos!r} (valid: 'learned', 'rope')")
-        # a mesh whose axes are all 1 is one device; any other raises
+        if sp_impl not in ("ring", "ulysses"):
+            raise ValueError(f"unknown sp_impl {sp_impl!r} (valid: 'ring', "
+                             f"'ulysses')")
+        # the device of this rank on the mesh; a mesh of one device only
+        # places the model, one of several ranks shards it
         mesh_dev = check_mesh(mesh)
         dev = resolve_device(device if device is not None or mesh_dev is None
                              else mesh_dev)
+        self.mesh = mesh if mesh is not None and mesh.distributed else None
+        tp = _tp(self.mesh)
+        if self.mesh is not None:
+            if moe_every > 0:
+                raise NotImplementedError(
+                    "MoE over a mesh of several ranks is MoE expert sharding "
+                    "over ep, a later item of the port (ROADMAP Queue 1 "
+                    "item 1)")
+            for what, n in (("num_heads", num_heads),
+                            ("embed_dim", embed_dim),
+                            ("vocab_size", vocab_size)):
+                if n % tp:
+                    raise ValueError(f"{what} {n} does not divide over "
+                                     f"tp={tp}")
+        self.sp_impl = sp_impl
         self.vocab_size = vocab_size
         self.max_len = max_len
         self.embed_dim = embed_dim
@@ -311,12 +426,15 @@ class CausalTransformer(nn.Module):
                 block = GPTBlock(
                     embed_dim, num_heads, mlp_ratio, dtype=dtype,
                     ln_eps=ln_eps, attn_bias=attn_bias, rope=pos == "rope",
-                    rope_theta=rope_theta, dropout=dropout)
+                    rope_theta=rope_theta, dropout=dropout, mesh=self.mesh,
+                    sp_impl=sp_impl)
             self.add_module(f"block_{i}", block)
         self.ln_f = LayerNorm(embed_dim, ln_eps)
         self.lm_head = QuantizableDense(embed_dim, vocab_size, use_bias=False,
                                         dtype=dtype)
         self._init_weights(seed)
+        if tp > 1:
+            self._shard(tp, self.mesh.coord["tp"])
         self.to(dev)
 
     def _init_weights(self, seed: int) -> None:
@@ -336,6 +454,21 @@ class CausalTransformer(nn.Module):
                            / _TRUNC_STD)
                     nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
                                           generator=g)
+
+    def _shard(self, tp: int, index: int) -> None:
+        """Keep this rank's part of every parameter split over ``tp``."""
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                spec = partition_spec(name, p.dim())
+                if "tp" in spec:
+                    d = spec.index("tp")
+                    n = p.shape[d] // tp
+                    p.data = p.data.narrow(d, index * n, n).clone()
+
+    def partition_specs(self):
+        """``{parameter name: partition_spec}`` over every parameter."""
+        return {name: partition_spec(name, p.dim())
+                for name, p in self.named_parameters()}
 
     @property
     def device(self) -> torch.device:
@@ -374,6 +507,15 @@ class CausalTransformer(nn.Module):
         if pages is not None and self.moe_every > 0:
             raise ValueError("paged decode does not cover MoE-interleaved "
                              "models; serve them through the dense cache")
+        mesh = self.mesh
+        if mesh is not None and (decode or pages is not None):
+            if mesh.shape.get("sp", 1) > 1:
+                raise ValueError("decode does not run under sequence "
+                                 "parallelism; use an sp=1 mesh for serving")
+            raise NotImplementedError(
+                f"decode over a mesh of several ranks ({mesh.shape}) is "
+                f"meshed serving (serving_mesh), a later item of the port "
+                f"(ROADMAP Queue 1 item 1)")
         run_depth = self.depth if exit_layer is None else int(exit_layer)
         ids = token_ids.long()
         B, L = ids.shape
@@ -386,23 +528,25 @@ class CausalTransformer(nn.Module):
         # vocab token); the plain forward treats id 0 as padding
         valid = (torch.ones((B, L), dtype=torch.bool, device=dev) if decode
                  else ids != PAD_ID)
-        x = self.token_embed(ids)
-        if self.pos == "rope":
-            x = x.to(self.dtype)
-        elif cursor is not None:
-            # the scalar cursor: dynamic_slice clamps the start in bounds
-            s0 = max(0, min(cursor, self.max_len - L))
-            x = (x + self.pos_embed[:, s0:s0 + L]).to(self.dtype)
-        elif decode:
-            # per-row positions; the clip keeps bucket-padding rows whose
-            # nominal positions run past the table in bounds (their output
-            # is discarded)
-            pos_full = (positions.long()[:, None]
-                        + torch.arange(L, device=dev)).clamp(0,
-                                                             self.max_len - 1)
-            x = (x + self.pos_embed[0][pos_full]).to(self.dtype)
-        else:
-            x = (x + self.pos_embed[:, :L]).to(self.dtype)
+        x = self.token_embed(ids)  # this rank's E columns under tp
+        if self.pos != "rope":  # rope: positions enter inside attention
+            if cursor is not None:
+                # the scalar cursor: dynamic_slice clamps the start in
+                # bounds
+                s0 = max(0, min(cursor, self.max_len - L))
+                x = x + self.pos_embed[:, s0:s0 + L]
+            elif decode:
+                # per-row positions; the clip keeps bucket-padding rows
+                # whose nominal positions run past the table in bounds
+                # (their output is discarded)
+                pos_full = (positions.long()[:, None]
+                            + torch.arange(L, device=dev)).clamp(
+                                0, self.max_len - 1)
+                x = x + self.pos_embed[0][pos_full]
+            else:  # this rank's positions under sp
+                off = _seq_offset(mesh, L)
+                x = x + self.pos_embed[:, off:off + L]
+        x = all_gather(x, mesh, "tp", dim=-1).to(self.dtype)
         seed = None
         if train and self.dropout > 0.0:
             if rng is None:
@@ -411,6 +555,10 @@ class CausalTransformer(nn.Module):
             seed = seed_of(rng)
         elif train and rng is not None and self.moe_every > 0:
             seed = seed_of(rng)  # the MoE router noise draws from it
+        if seed is not None and mesh is not None:
+            # each dp x sp block draws its own masks; tp ranks the same
+            seed = fold_in(seed, mesh.coord.get("dp", 0)
+                           * mesh.shape.get("sp", 1) + mesh.coord.get("sp", 0))
         remat = self.remat and not decode and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks()[:run_depth]):
             moe = not isinstance(block, GPTBlock)
@@ -428,16 +576,17 @@ class CausalTransformer(nn.Module):
         x = self.ln_f(x).to(self.dtype)
         if return_hidden:
             return x
-        return self.lm_head(x).float()
+        logits = self.lm_head(copy_to(x, mesh, "tp"))
+        return all_gather(logits, mesh, "tp", dim=-1).float()
 
 
 def GPTTiny(vocab_size: int = 1000, max_len: int = 128,
             dtype: torch.dtype = torch.float32, seed: int = 0,
-            device=None) -> CausalTransformer:
+            device=None, mesh=None) -> CausalTransformer:
     """Test-sized config."""
     return CausalTransformer(vocab_size=vocab_size, max_len=max_len,
                              embed_dim=64, depth=2, num_heads=4, dtype=dtype,
-                             seed=seed, device=device)
+                             mesh=mesh, seed=seed, device=device)
 
 
 def GPTSmall(vocab_size: int = 32000, max_len: int = 2048,

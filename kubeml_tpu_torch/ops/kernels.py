@@ -119,13 +119,20 @@ def _build(out_dir: Path) -> Path:
     return so
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+def library(build: bool = True) -> ctypes.CDLL:
+    """The loaded kernel library, built on first call. ``build=False``
+    loads a library another process built and raises if there is none:
+    ranks started after one build load it, so no two ``nvcc`` runs race
+    on the build directory."""
     global _lib
     with _lock:
         if _lib is None:
             so = BUILD_ROOT / _digest() / "libkubeml_kernels.so"
             if not so.exists():
+                if not build:
+                    raise RuntimeError(f"no built kernel library at {so}: "
+                                       f"build it once (library()) before "
+                                       f"starting the ranks")
                 so = _build(so.parent)
             lib = ctypes.CDLL(str(so))
             for name, argtypes in _SIGNATURES.items():

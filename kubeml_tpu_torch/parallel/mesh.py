@@ -2,22 +2,37 @@
 ``kubeml_tpu/parallel/mesh.py``.
 
 ``AXIS_ORDER``, :func:`parse_mesh_spec` and :func:`mesh_shape_for` are the
-JAX functions unchanged. :func:`make_mesh` builds a :class:`Mesh` over
-``torch.device``\\ s: its ``shape`` is the JAX axis dict and ``devices``
-the device grid, flattened in axis order. The port trains and serves on
-one card, so a mesh whose axes multiply past 1 raises: sharding over
-``torch.distributed`` (the mesh over several cards, ring and Ulysses
-attention, the pipeline) is the next slice of the port (ROADMAP Queue
-1). A one-device mesh is what ``bench_moe``, ``SPMDTrainer`` and
-``engine.spmd_job.SPMDJob`` build (``make_mesh(devices=[dev])``).
+JAX functions unchanged. :func:`make_mesh` builds a :class:`Mesh`:
+
+* over one device (``make_mesh(devices=[dev])``, what ``bench_moe``,
+  ``SPMDTrainer`` and ``engine.spmd_job.SPMDJob`` build), or
+* over the ranks of the process group (``parallel.distributed.
+  init_distributed``): one process per device, the world equal to the
+  product of the axes. Rank ``r`` takes the coordinate
+  ``np.unravel_index(r, dims)`` in ``AXIS_ORDER``, exactly where JAX's
+  ``np.array(devices).reshape(dims)`` puts device ``r``.
+  ``Mesh.coord[axis]`` is this rank's coordinate and ``Mesh.group(axis)``
+  the process group of the ranks that differ from it only along
+  ``axis``.
+
+``dist.new_group`` is collective: every rank creates every group, in the
+same order, or the ranks deadlock. :func:`make_mesh` creates the group of
+each axis of size above 1 (all ranks call it together); a group over
+several axes (``mesh.group("dp", "sp")``) is made at its first use, which
+every rank must reach at the same point of its program.
+
+A ``pp`` axis (the pipeline) and an ``ep`` axis (MoE expert sharding)
+above 1 are later items of the port (ROADMAP Queue 1 item 1) and raise.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..utils.device import resolve_device
 
@@ -25,6 +40,12 @@ from ..utils.device import resolve_device
 # sp, tp innermost (tp wants the fastest links: its collectives are in
 # every matmul).
 AXIS_ORDER = ("dp", "pp", "ep", "sp", "tp")
+
+# the ROADMAP items of the axes the port does not shard yet
+_LATER_AXES = {
+    "pp": "the pipeline (parallel/pipeline.py, models/gpt_pipeline.py)",
+    "ep": "MoE expert sharding over ep",
+}
 
 
 def parse_mesh_spec(spec: str) -> Dict[str, int]:
@@ -63,52 +84,165 @@ def mesh_shape_for(n_devices: int, **requested: int) -> Dict[str, int]:
 
 
 class Mesh:
-    """A named device grid: ``shape`` maps axis names (in ``axis_names``
-    order) to sizes, ``devices`` lists the grid's devices row-major."""
+    """A named grid of ranks: ``shape`` maps axis names (in
+    ``axis_names`` order) to sizes, ``grid`` holds the rank at each
+    coordinate (default: rank ``r`` at ``np.unravel_index(r, dims)``),
+    ``rank`` is this process's rank and ``devices`` its device (one
+    entry; a rank sees no other rank's device). A mesh of several ranks
+    is usable once :func:`make_mesh` has given it its process groups."""
 
-    def __init__(self, shape: Dict[str, int], devices: List[torch.device]):
-        self.shape = dict(shape)
-        self.axis_names = tuple(shape)
+    def __init__(self, shape: Dict[str, int], devices: Sequence,
+                 grid: Optional[np.ndarray] = None, rank: int = 0):
+        self.shape = {ax: int(n) for ax, n in shape.items()}
+        self.axis_names = tuple(self.shape)
         self.devices = list(devices)
+        dims = tuple(self.shape.values())
+        self.grid = (np.arange(math.prod(dims)).reshape(dims) if grid is None
+                     else np.asarray(grid).reshape(dims))
+        self.rank = int(rank)
+        at = np.argwhere(self.grid == self.rank)
+        if len(at) != 1:
+            raise ValueError(f"rank {rank} appears {len(at)} times in the "
+                             f"mesh grid")
+        self.coord = {ax: int(c) for ax, c in zip(self.axis_names, at[0])}
+        self._groups: Optional[Dict[Tuple[str, ...], object]] = None
+
+    @property
+    def size(self) -> int:
+        """The number of ranks (devices) the mesh spans."""
+        return int(self.grid.size)
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices[0]
+
+    @property
+    def distributed(self) -> bool:
+        return self.size > 1
+
+    def group(self, *axes: str):
+        """The process group of the ranks that differ from this one only
+        along ``axes``, ordered by their coordinates along them; None when
+        the axes span one rank. A group not made by :func:`make_mesh` is
+        created here, collectively (see the module docstring)."""
+        axes = tuple(ax for ax in AXIS_ORDER if ax in axes
+                     and self.shape.get(ax, 1) > 1)
+        if not axes:
+            return None
+        self._check_groups()
+        if axes not in self._groups:
+            self._groups[axes] = self._new_groups(axes)
+        return self._groups[axes]
+
+    def _check_groups(self) -> None:
+        if self._groups is None:
+            raise RuntimeError(f"mesh {self.shape} has no process groups: "
+                               f"build a mesh of several ranks with "
+                               f"make_mesh after init_distributed")
+
+    def _new_groups(self, axes: Tuple[str, ...]):
+        """Create every group along ``axes`` (each rank the same calls, in
+        the same order) and return this rank's."""
+        inner = [self.axis_names.index(ax) for ax in axes]
+        outer = [i for i in range(len(self.axis_names)) if i not in inner]
+        lines = np.transpose(self.grid, outer + inner).reshape(
+            -1, math.prod(self.grid.shape[i] for i in inner))
+        mine = None
+        for line in lines:
+            ranks = [int(r) for r in line]
+            # new_group orders a group by rank: a line must ascend so that
+            # its group rank is the coordinate along the axes
+            if ranks != sorted(ranks):
+                raise ValueError(f"mesh grid line {ranks} along {axes} does "
+                                 f"not ascend")
+            g = dist.new_group(ranks)
+            if self.rank in ranks:
+                mine = g
+        return mine
 
 
-def _multi_card(shape) -> NotImplementedError:
-    return NotImplementedError(
-        f"mesh {shape} spans several devices: sharding over "
-        f"torch.distributed is the next slice of the port (ROADMAP Queue 1, "
-        f"multi-card SPMD); pass one device")
+def _later_axes(shape) -> None:
+    for ax, item in _LATER_AXES.items():
+        if int(shape.get(ax, 1)) > 1:
+            raise NotImplementedError(
+                f"mesh {shape}: a {ax} axis above 1 is {item}, a later item "
+                f"of the port (ROADMAP Queue 1 item 1)")
 
 
 def make_mesh(shape: Optional[Dict[str, int]] = None,
-              devices: Optional[Sequence] = None, **axes: int) -> Mesh:
-    """Build a :class:`Mesh` from an axis-shape dict (or kwargs) over
-    ``devices`` (default: the current CUDA device). Axes of size 1 stay in
-    the mesh so code can always name them. An explicit shape must account
-    for every device given; a shape of more than one device raises (see
-    the module docstring)."""
-    devices = ([resolve_device(None)] if devices is None
-               else [resolve_device(d) for d in devices])
+              devices: Optional[Sequence] = None,
+              grid: Optional[np.ndarray] = None, **axes: int) -> Mesh:
+    """Build a :class:`Mesh` from an axis-shape dict (or kwargs).
+
+    Over one device: ``devices`` (default: this rank's device, or the
+    current CUDA device). Over several ranks: the process group's world
+    must equal the product of the axes; ``devices``, if given, lists every
+    rank's device by rank. ``grid`` places ranks elsewhere than the
+    default row-major order (``distributed.global_mesh``). Axes of size 1
+    stay in the mesh so code can always name them."""
+    from . import distributed
+
+    world = distributed.process_count()
     if shape is None:
-        shape = mesh_shape_for(len(devices), **axes)
-    total = math.prod(int(v) for v in shape.values())
-    if total != len(devices):
-        raise ValueError(
-            f"mesh shape {shape} uses {total} devices but {len(devices)} were "
-            f"given; slice the device list explicitly to use a subset")
-    if total > 1:
-        raise _multi_card(shape)
+        shape = mesh_shape_for(world if devices is None else len(devices),
+                               **axes)
     names = tuple(ax for ax in AXIS_ORDER if ax in shape)
     names += tuple(ax for ax in shape if ax not in AXIS_ORDER)
-    return Mesh({ax: int(shape[ax]) for ax in names}, devices)
+    shape = {ax: int(shape[ax]) for ax in names}
+    total = math.prod(shape.values())
+    if total == 1:
+        dev = (distributed.local_device() if devices is None else devices[0])
+        return Mesh(shape, [resolve_device(dev)])
+    _later_axes(shape)
+    if world == 1:
+        raise RuntimeError(
+            f"mesh {shape} spans {total} ranks but this process is alone: "
+            f"start one process per device and call "
+            f"parallel.distributed.init_distributed() first")
+    if total != world:
+        raise ValueError(f"mesh shape {shape} uses {total} ranks but the "
+                         f"process group holds {world}")
+    if devices is not None and len(devices) != world:
+        raise ValueError(f"{len(devices)} devices given for {world} ranks")
+    rank = distributed.process_index()
+    dev = (distributed.local_device() if devices is None
+           else resolve_device(devices[rank]))
+    mesh = Mesh(shape, [dev], grid=grid, rank=rank)
+    mesh._groups = {}
+    for ax in names:
+        mesh.group(ax)
+    return mesh
 
 
 def check_mesh(mesh) -> Optional[torch.device]:
-    """The device of a one-device ``mesh`` (None for no mesh); raises for a
-    mesh of several devices or an object that is no mesh."""
+    """This rank's device on ``mesh`` (None for no mesh); raises for an
+    object that is no :class:`Mesh`, a mesh of several ranks without its
+    process groups, or an axis the port does not shard yet."""
     if mesh is None:
         return None
-    shape = getattr(mesh, "shape", None)
-    if not (isinstance(shape, dict)
-            and all(int(n) == 1 for n in shape.values())):
-        raise _multi_card(shape if shape is not None else mesh)
-    return mesh.devices[0]
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"{type(mesh).__name__} is no kubeml_tpu_torch "
+                        f"mesh: build one with parallel.mesh.make_mesh")
+    if mesh.distributed:
+        _later_axes(mesh.shape)
+        mesh._check_groups()
+    return mesh.device
+
+
+def local_block(mesh: Optional[Mesh], x: torch.Tensor,
+                axes: Tuple[str, ...] = ("dp", "sp")) -> torch.Tensor:
+    """This rank's block of a global array sharded as ``P(*axes)``: dim
+    ``i`` cut into ``mesh.shape[axes[i]]`` equal parts, part
+    ``mesh.coord[axes[i]]`` kept (the whole array without a mesh)."""
+    if mesh is None:
+        return x
+    for dim, ax in enumerate(axes):
+        n = mesh.shape.get(ax, 1)
+        if n == 1:
+            continue
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide "
+                             f"over {ax}={n}")
+        part = x.shape[dim] // n
+        x = x.narrow(dim, mesh.coord[ax] * part, part)
+    return x

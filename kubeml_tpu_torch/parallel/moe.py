@@ -2,9 +2,10 @@
 
 Switch/GShard dense dispatch: tokens route top-k over the experts with a
 per-expert capacity; dispatch and combine are products against one-hot
-masks, and the expert weights carry a leading ``[E, ...]`` axis. On one
-card there is no ``ep`` axis to shard them over (the mesh over several
-cards is the next slice, ROADMAP Queue 1), so every product here is a plain
+masks, and the expert weights carry a leading ``[E, ...]`` axis. The
+port does not shard them over an ``ep`` axis yet (MoE ``ep``, ROADMAP
+Queue 1 item 1; a MoE model over a mesh of several ranks raises), so
+every product here is a plain
 ``torch.einsum`` / ``matmul``, as the JAX module's are outside any Pallas
 kernel.
 

@@ -58,8 +58,8 @@ arguments, or a draft model that does not load) degrades to plain decode
 with a warning. Anything else raised while building a decoder propagates.
 
 Not ported yet, each refused with a 400 that names it: standalone job
-runners (``standalone_jobs``), meshes (``serving_mesh``, the multi-card
-slice), and serving a job's epoch checkpoints before its final export.
+runners (``standalone_jobs``), meshes (``serving_mesh``: meshed serving,
+ROADMAP Queue 1 item 1), and serving a job's epoch checkpoints before its final export.
 Multi-host jobs, the heartbeat monitor of hung jobs, traces and the
 time-series store are not ported either. An unknown id is a 404. The
 server runs on the card unless given ``device="cpu"``.
@@ -666,8 +666,8 @@ class ParameterServer:
         dense one the rest."""
         if self.cfg.serving_mesh:
             raise _not_ported(f"meshed serving (serving_mesh="
-                              f"{self.cfg.serving_mesh!r}, the multi-card "
-                              f"slice)")
+                              f"{self.cfg.serving_mesh!r}, meshed serving: "
+                              f"ROADMAP Queue 1 item 1)")
         if not self.cfg.serving_batcher:
             return None
         with self._lock:

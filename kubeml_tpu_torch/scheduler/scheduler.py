@@ -7,8 +7,8 @@ running job queues an epoch-end re-evaluation and blocks until the loop's
 answer reaches it through the PS (``ParameterServer.update_task``).
 
 A request with options whose modules the port lacks (a mesh axis other
-than ``worker`` over several cards: multi-card SPMD) is refused with a
-400 at submission. A preempted job is requeued at once with
+than ``worker`` over several ranks: the SPMD job over ranks) is refused
+with a 400 at submission. A preempted job is requeued at once with
 ``resume=True`` (the preemption monitor, which would park it until
 serving pressure clears, is not ported).
 """

@@ -341,9 +341,13 @@ def test_mesh_helpers_match_jax():
     jm = jax_make_mesh(devices=jax.devices()[:1])
     assert m.shape == dict(jm.shape)
     assert m.devices == [torch.device("cpu")]
-    with pytest.raises(NotImplementedError, match="next slice"):
+    # a mesh of several ranks needs the process group, and an ep axis
+    # (MoE expert sharding) is a later item of the port
+    with pytest.raises(RuntimeError, match="init_distributed"):
         make_mesh({"dp": 2}, devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(NotImplementedError, match="MoE expert sharding"):
+        make_mesh({"ep": 2}, devices=["cpu", "cpu"])
+    with pytest.raises(RuntimeError, match="process groups"):
         SPMDTrainer(MoETiny(vocab_size=VOCAB, device="cpu"),
                     Mesh({"tp": 2}, [torch.device("cpu")] * 2))
 

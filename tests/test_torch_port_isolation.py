@@ -236,3 +236,32 @@ def test_spmd_job_runs_on_the_card_unless_asked(monkeypatch, tmp_path):
     job = SPMDJob("j", req, LM(), device="cpu", **kw)
     assert job.mesh.devices == [torch.device("cpu")]
     assert job.model.module.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("module", [
+    "parallel/distributed.py", "parallel/collectives.py", "parallel/ring.py",
+    "parallel/ulysses.py", "parallel/mesh.py", "parallel/trainer.py",
+    "models/gpt.py", "interop/from_flax.py"])
+def test_multi_rank_modules_keep_their_own_copies(module):
+    """The process group, the mesh over ranks, the collectives, ring and
+    Ulysses attention and the sharded model and trainer copy what they
+    need of the JAX package's (its layout functions, its partition specs)
+    and do not import it."""
+    path = REPO / "kubeml_tpu_torch" / module
+    assert path.is_file()
+    assert not _offenders(path)
+
+
+def test_multi_rank_entry_points_run_on_the_card_unless_asked(monkeypatch):
+    """Ranks are CUDA ranks unless asked for the CPU: without a card the
+    process group refuses to start before its rendezvous, and the
+    long-context benchmark over ``make_mesh(dp=world)`` raises alone."""
+    from kubeml_tpu_torch.benchmarks.longcontext import make_trainer
+    from kubeml_tpu_torch.parallel.distributed import init_distributed
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_distributed("localhost:1", 2, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_trainer(16, 32, depth=1, embed_dim=8, num_heads=1, vocab=11)

@@ -275,8 +275,9 @@ def test_twin_carries_dtype_remat_dropout():
 
 
 def test_unported_options_raise():
-    """MoE interleaving and a one-device mesh are ported; a mesh of
-    several devices (sharding over torch.distributed) still raises."""
+    """MoE interleaving and a one-device mesh are ported; an object that
+    is no mesh, and a mesh of several ranks without its process groups
+    (``make_mesh`` after ``init_distributed`` gives them), raise."""
     from kubeml_tpu_torch.parallel.mesh import Mesh, make_mesh
 
     kw = dict(vocab_size=11, max_len=8, embed_dim=8, depth=2, num_heads=2,
@@ -284,10 +285,10 @@ def test_unported_options_raise():
     moe = CausalTransformer(moe_every=2, num_experts=2, **kw)
     assert type(moe.block_1).__name__ == "MoEBlock"
     CausalTransformer(mesh=make_mesh(devices=["cpu"]), **kw)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         CausalTransformer(mesh=object(), **kw)
     two = Mesh({"dp": 1, "tp": 2}, [torch.device("cpu")] * 2)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(RuntimeError, match="mesh"):
         CausalTransformer(mesh=two, **kw)
 
 
