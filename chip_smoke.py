@@ -3,8 +3,9 @@
 serving path, the GPT training path, K-AVG training, checkpoints served
 through the parameter server, the control plane, the encoders, MoE
 with the dense slot engine, the one-shot speculative ``generate`` and the
-SPMD job with sharded checkpoints, and multi-rank SPMD (two ranks on
-the card over gloo). Run from the repo root::
+SPMD job with sharded checkpoints, multi-rank SPMD (two ranks on the
+card over gloo), and the SPMD job over ranks through the control plane.
+Run from the repo root::
 
     python3 chip_smoke.py
 
@@ -171,8 +172,8 @@ Phases, each reported on its own lines:
    trailing padded keys a row, one row all padding but [CLS]), held as in
    phase 7 in bf16 and f32, with kernel / plain / SDPA / bound ms; (b)
    BERT-base at ``benchmarks.transformers.bench_bert``'s configuration
-   but 6 layers deep (``ENC_DEPTH``; bf16, K 4, dropout 0.1) through
-   ``KAvgTrainer``: each flash kernel launches depth x K = 24 times a
+   but 4 layers deep (``ENC_DEPTH``; bf16, K 4, dropout 0.1) through
+   ``KAvgTrainer``: each flash kernel launches depth x K = 16 times a
    round, the loss falls over the ~20
    rounds, samples/s, round ms, peak memory, the idle share of a
    profiled window of 2 rounds, FLOPs a sample against the bf16 peak, and
@@ -182,7 +183,7 @@ Phases, each reported on its own lines:
    the kernels invariant to the pad length (f32, ``ENC_PAD_ATOL``); one
    f32 round (dropout off) through the kernels against the plain path
    (``ENC_F32_W_RTOL``); (c) ViT-Tiny at ``bench_vit``'s configuration
-   but 6 layers deep (B 256, K 8): 48 launches a kernel a round, the loss
+   but 4 layers deep (B 256, K 8): 32 launches a kernel a round, the loss
    falls, the same
    report; (d) VGG-11, CIFAR-100 shapes, bf16, B 128, K 8, dropout 0.5:
    the loss falls, none of the five kernels launches; (e) ``TrainJob``
@@ -193,11 +194,11 @@ Phases, each reported on its own lines:
 15. MoE and the dense slot engine - (a) the flash kernels at
    ``bench_moe``'s shape (B 16, L 512, 12 heads of 64, causal) held as in
    phase 7 in bf16 and f32, with kernel / plain / SDPA / bound ms; then
-   ``bench_moe``'s configuration cut to 6 blocks (``MOE_DEPTH``; the
+   ``bench_moe``'s configuration cut to 4 blocks (``MOE_DEPTH``; the
    GPT-2-small width, vocab 32000, 8 experts, top-2, an MoE block every
    other block, bf16, AdamW 3e-4) trained by ``SPMDTrainer`` over a
    one-device mesh at B 16 x L 512 (``benchmarks.transformers.
-   MoEBench``): each flash kernel launches exactly 6 times a step (6
+   MoEBench``): each flash kernel launches exactly 4 times a step (4
    blocks, no remat), the loss falls, the
    overflow lies in [0, 1]; tokens/s and step ms (best of 3 x 8 steps),
    peak memory, analytic FLOPs a step against the bf16 peak beside the
@@ -266,7 +267,35 @@ Phases, each reported on its own lines:
    step as in phase 8 (16/8/8) but none under the ring, the step's host ms on each rank and the collectives' share of a
    profiled step (``kubeml::`` spans; gloo over host memory, not NVLink).
    No card run covers NCCL, a world above 2 or several cards;
-18. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+18. the SPMD job over ranks - two ranks share the card over gloo and
+   start as ``kubeml start`` starts them: rank 0 runs ``LocalCluster``
+   (HTTP on port 0), rank 1 ``engine.follower.run_follower``; the parent
+   first runs the one-rank ``SPMDJob`` references from the same seed and
+   batches. The model is 16b's flagship at full width and ``DEPTH`` blocks
+   (Ulysses under sp) on 16b's token set (B 8, 4 steps an epoch, one eval
+   batch). (a) ``/train`` with ``engine="spmd"``, ``tp=2``, 2 epochs,
+   ``sharded_checkpoints``, ``checkpoint_every=1``: each epoch's train and
+   eval loss within ``MR_LOSS_ATOL`` of the one-rank job's, flash
+   launches a rank a step as phase 8's (16/8/8) with one eval forward an
+   epoch, the sharded final a file a rank (each tp-split leaf a half on
+   each rank, every other leaf whole on rank 0, each slice in its owner's
+   file only) under a manifest of ``processes`` 2, and the save's bytes
+   and ms a rank; (b) the same job id resumed under ``sp=2`` for a third
+   epoch: the history spliced exactly, the third loss held against the
+   one-rank continuation, the bytes each rank's restore read against the
+   checkpoint's size; (c) a ``dp=2`` job whose ``on_epoch_end`` answers
+   1, then 2: parallelism ``[2, 1, 2]``, rank 1 launching no flash
+   kernel in the ``dp=1`` epoch, the ranks' parameters bit-equal after the
+   return, the losses held against a one-rank job whose optimizer restarts
+   at the same epochs, each remesh's seconds; (d) rank 0's parameter
+   server serves (a)'s 2-shard final through ``/generate`` in f32 and, as
+   a sharded ``final-int8``, in int8 (paged attention and the int8
+   matmul), with tokens equal to an in-process ``generate`` on the
+   assembled weights, as 16b; (e) a live ``/infer`` during (a) answers
+   409, a job whose function rank 1 cannot load fails with "could not
+   start" without a hang, and the shutdown releases the follower, whose
+   process exits 0;
+19. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Any failure raises and the script exits non-zero; without a CUDA device it
 exits non-zero before printing any result.
@@ -2950,17 +2979,22 @@ def cp_sigterm(smi, root, ckpt, eos):
         client = KubemlClient(url, timeout=600)
         client.networks().generate(GPT2_JOB, [reqs[5]["prompt"].tolist()],
                                    max_new_tokens=4)  # the decoder built
-        partial, done, cut = {}, {}, []
-        eight = threading.Event()
+        partial, done, cut, admitted = {}, {}, [], []
+        eight, all_in = threading.Event(), threading.Event()
 
         def stream(i):
             r = reqs[i]
             try:
                 toks = []
-                for part in client.networks().generate(
-                        GPT2_JOB, [r["prompt"].tolist()],
-                        max_new_tokens=r["max_new"],
-                        eos_id=eos if i == 5 else None, stream=True):
+                # the stream opens once the server has admitted the request
+                parts = client.networks().generate(
+                    GPT2_JOB, [r["prompt"].tolist()],
+                    max_new_tokens=r["max_new"],
+                    eos_id=eos if i == 5 else None, stream=True)
+                admitted.append(i)
+                if len(admitted) == 16:
+                    all_in.set()
+                for part in parts:
                     if "error" in part:
                         partial[i] = part.get("partial_tokens", [[]])[0]
                         return
@@ -2975,8 +3009,13 @@ def cp_sigterm(smi, root, ckpt, eos):
                    for i in range(16)]
         for t in threads:
             t.start()
-        if not eight.wait(600):
-            raise AssertionError("13c: no row reached 8 tokens")
+        # SIGTERM once every request is in and a row has 8 tokens: a
+        # request submitted after the drain began is refused (429), and
+        # its row would be neither finished nor snapshotted
+        if not (eight.wait(600) and all_in.wait(600)):
+            raise AssertionError(f"13c: {len(admitted)} of 16 requests "
+                                 f"admitted; a row at 8 tokens: "
+                                 f"{eight.is_set()}")
         t_term = time.monotonic()
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(CP_EXIT_S)
@@ -3091,15 +3130,16 @@ ENC_VIT = dict(B=256, L=65, H=3)
 ENC_BERT = dict(B=32, L=128, H=12)
 # bench_bert / bench_vit rounds: ENC_DEPTH layers x K steps, one worker.
 # Depth cut from 12 to 6 (width, heads, B, L and K as bench_bert and
-# bench_vit) to keep the script within its time with phase 17
-BERT_K, VIT_K, ENC_DEPTH = 4, 8, 6
+# bench_vit) to keep the script within its time with phase 17, and to 4
+# with phase 18
+BERT_K, VIT_K, ENC_DEPTH = 4, 8, 4
 # 14b: the f32 round through the kernels against the plain path, from the
 # same weights and batch (dropout off, TF32 off): the merged weights' change
 # (L2 over the tree) within 1e-3 of the round's change, the loss within
 # 1e-5 relative. Both paths sum in f32; the kernels' online softmax and
 # tile order round differently (~1e-7 relative an attention output, phase
-# 7), and those differences pass through 12 layers and 4 SGD steps with
-# momentum; phase 9 holds one GPT step's gradients to 1e-3 of each
+# 7), and those differences pass through ENC_DEPTH layers and 4 SGD steps
+# with momentum; phase 9 holds one GPT step's gradients to 1e-3 of each
 # tensor's largest entry for the same reason. lr 0.01, so that the
 # change, not one f32 ulp of the weights, sets the ratio's scale
 ENC_F32_W_RTOL, ENC_F32_LOSS_RTOL, ENC_F32_LR = 1e-3, 1e-5, 0.01
@@ -3477,9 +3517,10 @@ def encoder_phase(smi, root):
 # bench_moe (kubeml_tpu/benchmarks/transformers.py:107-158) at full width:
 # the GPT-2-small skeleton, vocab 32000, L 512, 12 heads of 64, 12 blocks
 # (an MoE block every other one: 8 experts, top-2), B 16, bf16; no remat;
-# depth cut from 12 to 6 blocks (3 of them MoE; width, experts, routing,
-# B and L as bench_moe) to keep the script within its time with phase 17
-MOE_B, MOE_L, MOE_H, MOE_DEPTH, MOE_VOCAB = 16, 512, 12, 6, 32000
+# depth cut from 12 to 6 blocks to keep the script within its time with
+# phase 17, and to 4 (2 of them MoE; width, experts, routing, B and L as
+# bench_moe) with phase 18
+MOE_B, MOE_L, MOE_H, MOE_DEPTH, MOE_VOCAB = 16, 512, 12, 4, 32000
 MOE_STEPS = 8
 MOE_JOB, DENSE_JOB = "gpt-moe", "gpt2-dense"
 # bench_moe's model in f32 as a registered function: the parameter server
@@ -4071,7 +4112,7 @@ def lc_module(tree):
     return load_tree(module, from_flax(tree), int8_impl="dot").eval()
 
 
-def lc_int8_check(smi, module):
+def lc_int8_check(smi, module, phase="16b"):
     """The int8 matmul on the flagship's int8 projections (every distinct
     (K, N), the restored weights) at LC_MM_M, f32 x, against int8_dot
     within MM_RTOL."""
@@ -4093,18 +4134,18 @@ def lc_int8_check(smi, module):
             scale = ref.abs().max().item()
             if not err <= MM_RTOL[torch.float32] * scale:
                 raise AssertionError(
-                    f"16b int8_matmul M={M} K={K} N={N}: max abs err "
+                    f"{phase} int8_matmul M={M} K={K} N={N}: max abs err "
                     f"{err} > {MM_RTOL[torch.float32]} x {scale}")
             worst = max(worst, err / scale)
-    log(f"  16b int8_matmul against int8_dot [{smi}]: (K, N) "
+    log(f"  {phase} int8_matmul against int8_dot [{smi}]: (K, N) "
         f"{sorted(layers)} x M {LC_MM_M}, f32, worst max abs err / "
         f"max |ref| {worst:.3g} (limit {MM_RTOL[torch.float32]})")
 
 
-def lc_serve(smi, tag, client, tree, rng):
-    """LC_SERVE through ``/generate``, then the in-process ``generate`` on
-    the restored weights; returns the served (paged_attention,
-    int8_matmul) launches."""
+def lc_serve(smi, tag, client, tree, rng, job=LC_JOB, phase="16b"):
+    """LC_SERVE through ``/generate`` from ``job``'s export, then the
+    in-process ``generate`` on the restored weights; returns the served
+    (paged_attention, int8_matmul) launches."""
     from kubeml_tpu_torch.models.generation import generate
     from kubeml_tpu_torch.ops.int8_matmul import int8_matmul
     from kubeml_tpu_torch.ops.paged_attention import paged_attention
@@ -4115,24 +4156,25 @@ def lc_serve(smi, tag, client, tree, rng):
         prompt = rng.integers(1, LC_VOCAB, size=(rows, plen))
         paged_attention.launches = int8_matmul.launches = 0
         out, wall = timed(lambda: client.networks().generate(
-            LC_JOB, prompt, max_new_tokens=new))
+            job, prompt, max_new_tokens=new))
         total[0] += paged_attention.launches
         total[1] += int8_matmul.launches
         got = [t[:n] for t, n in zip(out["tokens"], out["lengths"])]
         served.append((prompt, got, wall))
-    log(f"  16b {tag} served [{smi}]: "
+    log(f"  {phase} {tag} served [{smi}]: "
         + ", ".join(f"{len(g)} x {p.shape[1]}-token prompts, "
                     f"{sum(map(len, g))} tokens in {w * 1e3:.1f} ms"
                     for p, g, w in served)
         + f"; launches paged_attention {total[0]}, int8_matmul {total[1]}")
     for prompt, got, _ in served:
         ref = generate(module, prompt, max_new_tokens=len(got[0]))
-        ties = check_rows(f"16b {tag}", got, rows_of(ref), module, prompt)
-        log(f"  16b {tag}: tokens equal to the in-process generate on the "
-            f"restored weights (int8 through int8_dot), near ties "
+        ties = check_rows(f"{phase} {tag}", got, rows_of(ref), module,
+                          prompt)
+        log(f"  {phase} {tag}: tokens equal to the in-process generate on "
+            f"the restored weights (int8 through int8_dot), near ties "
             f"{ties or 'none'}")
     if total[1]:
-        lc_int8_check(smi, module)
+        lc_int8_check(smi, module, phase)
     del module
     torch.cuda.empty_cache()
     return tuple(total)
@@ -4573,6 +4615,438 @@ def multirank_phase(smi, cfg=MR):
     return tuple(total)
 
 
+# --- phase 18: the SPMD job over ranks ----------------------------------------
+
+# Two ranks share the H100 over gloo, as in phase 17, and start as ``kubeml
+# start`` starts them: rank 0 runs LocalCluster (HTTP on port 0), rank 1
+# the follower loop (engine.follower.run_follower). The model is phase 16b's
+# flagship at full width and DEPTH blocks, its sequence parallelism by
+# Ulysses, on 16b's token set (LC_TRAIN rows to train, 4 steps an epoch at
+# B 8, LC_TEST to validate, one eval batch an epoch).
+JR_JOB, JR_ELASTIC, JR_BROKEN = "lc-ranks", "lc-elastic", "lc-nofn"
+JR_WORLD, JR_TIMEOUT_S, JR_SEED = 2, 900.0, 18
+JR_FN = LC_FN.replace("remat=True, dtype=dtype, mesh=self.mesh)",
+                      "remat=True, dtype=dtype, mesh=self.mesh,\n"
+                      "                                 sp_impl=\"ulysses\")")
+assert "ulysses" in JR_FN
+# 18e: a function rank 1 cannot load, as if its data root lacked it
+JR_BROKEN_FN = ("import os\n"
+                "if os.environ.get('KUBEML_PROCESS_ID', '0') != '0':\n"
+                "    raise ImportError('this function is not installed on "
+                "this rank')\n" + JR_FN)
+# 18c: the scheduler's answers after each epoch (the last changes nothing)
+JR_LEVELS = (1, 2, 2)
+# Each epoch's mean train loss (4 steps) and eval loss over ranks against
+# the one-rank job's from the same seed and batches: phase 17's
+# MR_LOSS_ATOL, whose bf16 reasons hold here over 8-12 steps.
+
+
+def jr_request(job, epochs, fn="lcranks", **opts):
+    from kubeml_tpu_torch.api.types import TrainOptions, TrainRequest
+
+    opts.setdefault("static_parallelism", True)
+    return TrainRequest(
+        model_type="gpt", batch_size=LC_B, epochs=epochs,
+        dataset="lc-tokens", lr=3e-4, function_name=fn, job_id=job,
+        options=TrainOptions(engine="spmd", precision="bf16",
+                             validate_every=1, **opts))
+
+
+def jr_tokens():
+    rng = np.random.default_rng(JR_SEED)
+    x = rng.integers(1, LC_VOCAB, size=(LC_TRAIN + LC_TEST, LC_L)
+                     ).astype(np.int32)
+    return x, np.zeros(len(x), np.int64)
+
+
+def jr_reference(root):
+    """The one-rank SPMDJob's histories from the same seed and batches on
+    the card: 2 epochs with sharded checkpoints, resumed for a third (its
+    optimizer restarts, as 18b's), and 3 epochs whose optimizer restarts
+    after epochs 1 and 2 (18c's remeshes)."""
+    from kubeml_tpu_torch.engine.spmd_job import SPMDJob
+    from kubeml_tpu_torch.functions.registry import FunctionRegistry
+    from kubeml_tpu_torch.storage import (CheckpointStore, HistoryStore,
+                                          ShardStore)
+
+    cfg = cp_config(root)
+    cfg.ensure_dirs()
+    x, y = jr_tokens()
+    ShardStore(config=cfg).create("lc-tokens", x[:LC_TRAIN], y[:LC_TRAIN],
+                                  x[LC_TRAIN:], y[LC_TRAIN:])
+    FunctionRegistry(config=cfg).create("lcranks", JR_FN)
+
+    def job(req, **kw):
+        model = FunctionRegistry(config=cfg).load("lcranks")
+        model._set_params(lr=req.lr, batch_size=req.batch_size, epoch=0,
+                          k=1, task="train")
+        return SPMDJob(req.job_id, req, model, store=ShardStore(config=cfg),
+                       history_store=HistoryStore(config=cfg),
+                       checkpoint_store=CheckpointStore(config=cfg),
+                       device="cuda", **kw)
+
+    sharded = dict(sharded_checkpoints=True, checkpoint_every=1,
+                   save_model=False)
+    out = {}
+    for key, epochs, opts in (("a", 2, {}), ("b", 3, dict(resume=True))):
+        h = job(jr_request("ref", epochs, **sharded, **opts)).train()
+        out[key] = (list(h.train_loss), list(h.validation_loss))
+    ref = job(jr_request("ref-elastic", 3, static_parallelism=False,
+                         save_model=False),
+              on_epoch_end=lambda state: ref.trainer.init())
+    h = ref.train()
+    out["c"] = (list(h.train_loss), list(h.validation_loss))
+    del ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def jr_instrument(records):
+    """Count each SPMD job's flash launches on this rank (the counters set
+    to 0 at the job's start, read at its end) and keep what the job
+    measured: its last sharded save, the bytes its sharded restore read,
+    its remeshes' seconds, and the digest of the parameters it holds
+    whole."""
+    from kubeml_tpu_torch.engine.spmd_job import SPMDJob
+
+    train = SPMDJob.train
+
+    def counted(job):
+        reset_flash_counts()
+        try:
+            return train(job)
+        finally:
+            t = job.trainer
+            records.append(dict(
+                job=job.job_id, flash=flash_counts(), save=job.last_save,
+                restore_bytes=job.last_restore_bytes,
+                remesh_s=list(job.remesh_seconds),
+                digest=(whole_digest(t) if t is not None
+                        and t.ranks is not None else None)))
+
+    SPMDJob.train = counted
+
+
+def jr_wait_started(cluster, jid):
+    """Wait until the parameter server holds the job's object."""
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline:
+        with cluster.ps._lock:
+            rec = cluster.ps._jobs.get(jid)
+        if rec is not None and rec.job is not None:
+            return
+        time.sleep(0.01)
+    raise AssertionError(f"18: job {jid} did not start")
+
+
+def jr_leader(root, smi):
+    """Rank 0: the control plane and every job of 18a-e through HTTP."""
+    from kubeml_tpu_torch.api.errors import KubeMLError
+    from kubeml_tpu_torch.cluster import LocalCluster
+    from kubeml_tpu_torch.controller import KubemlClient
+    from kubeml_tpu_torch.ops.int8_matmul import int8_matmul
+    from kubeml_tpu_torch.ops.paged_attention import paged_attention
+    from kubeml_tpu_torch.serving.quant import INT8_TAG
+    from kubeml_tpu_torch.storage.sharded_checkpoint import \
+        ShardedCheckpointStore
+
+    out = {"wall": {}}
+    cfg = cp_config(root)
+    x, y = jr_tokens()
+    sharded = dict(sharded_checkpoints=True, checkpoint_every=1)
+    with LocalCluster(config=cfg) as cluster:
+        client = KubemlClient(cluster.controller_url, timeout=600)
+        client.datasets().create("lc-tokens", x[:LC_TRAIN], y[:LC_TRAIN],
+                                 x[LC_TRAIN:], y[LC_TRAIN:])
+        client.functions().create("lcranks", JR_FN)
+        client.functions().create("lcbroken", JR_BROKEN_FN)
+        # 18a, and 18e's live inference while it trains over ranks
+        t0 = time.monotonic()
+        client.networks().train(jr_request(
+            JR_JOB, 2, mesh_shape={"tp": 2}, **sharded))
+        jr_wait_started(cluster, JR_JOB)
+        try:
+            client.networks().infer(JR_JOB, x[:1, :16])
+            out["live_infer"] = None
+        except KubeMLError as e:
+            out["live_infer"] = (e.status_code, e.message)
+        h = cp_wait_job(cluster, JR_JOB)
+        out["wall"]["a"] = time.monotonic() - t0
+        out["a"] = dict(train=list(h.train_loss), val=list(h.validation_loss),
+                        par=list(h.parallelism), error=h.task.get("error"))
+        shards = ShardedCheckpointStore(root=cfg.checkpoints_dir)
+        d = cfg.checkpoints_dir / JR_JOB / "final.shards"
+        man = shards.read_manifest(JR_JOB, "final")
+        files = {}
+        for p in sorted(d.glob("shard-*.npz")):
+            with np.load(p) as z:
+                files[p.name] = {k: z[k].shape for k in z.files}
+        out["a"].update(manifest=dict(processes=man["processes"],
+                                      leaves=man["leaves"]), files=files,
+                        size=sum(p.stat().st_size for p in d.iterdir()))
+        # 18b: resumed under sp=2 (Ulysses) from 18a's checkpoint; the
+        # final export stays 18a's, written over tp=2, for 18d
+        t0 = time.monotonic()
+        client.networks().train(jr_request(
+            JR_JOB, 3, mesh_shape={"sp": 2}, resume=True, save_model=False,
+            **sharded))
+        h = cp_wait_job(cluster, JR_JOB)
+        out["wall"]["b"] = time.monotonic() - t0
+        out["b"] = dict(train=list(h.train_loss), val=list(h.validation_loss),
+                        par=list(h.parallelism), error=h.task.get("error"))
+        # the bytes of the resumed checkpoint's slices
+        leaves = shards.read_manifest(JR_JOB, "final")["leaves"].values()
+        out["b"]["size"] = int(sum(
+            np.prod(leaf["shape"]) * (2 if leaf["dtype"] == "bfloat16"
+                                      else np.dtype(leaf["dtype"]).itemsize)
+            for leaf in leaves))
+        # 18c: dp=2, the scheduler's answers 1, then 2
+        levels, asked = list(JR_LEVELS), []
+
+        def answer(job_id, state):
+            asked.append(state.parallelism)
+            return levels.pop(0)
+
+        cluster.ps._epoch_end = answer
+        t0 = time.monotonic()
+        client.networks().train(jr_request(
+            JR_ELASTIC, 3, static_parallelism=False, save_model=False))
+        h = cp_wait_job(cluster, JR_ELASTIC)
+        out["wall"]["c"] = time.monotonic() - t0
+        out["c"] = dict(train=list(h.train_loss), val=list(h.validation_loss),
+                        par=list(h.parallelism), asked=asked,
+                        error=h.task.get("error"))
+        # 18e: a follower that cannot load the function
+        t0 = time.monotonic()
+        client.networks().train(jr_request(JR_BROKEN, 1, fn="lcbroken",
+                                           mesh_shape={"tp": 2}))
+        h = cp_wait_job(cluster, JR_BROKEN)
+        out["e"] = dict(error=h.task.get("error"), train=list(h.train_loss),
+                        seconds=time.monotonic() - t0)
+        # 18d: the sharded final 18a's two ranks wrote, served in f32 and
+        # quantized into a sharded final-int8
+        if cluster.ps._serving_source(JR_JOB)[0] != "sharded":
+            raise AssertionError("18d: the served final is not the sharded "
+                                 "export")
+        serve_rng = np.random.default_rng(JR_SEED + 1)
+        t0 = time.monotonic()
+        f32 = lc_serve(smi, "f32", client,
+                       shards.restore(JR_JOB, "final").variables, serve_rng,
+                       job=JR_JOB, phase="18d")
+        client.checkpoints().quantize(JR_JOB)
+    qcfg = cp_config(root, serving_quantize="int8", int8_matmul=True)
+    with LocalCluster(config=qcfg) as cluster:
+        client = KubemlClient(cluster.controller_url, timeout=600)
+        if cluster.ps._serving_source(JR_JOB)[:2] != ("sharded", INT8_TAG):
+            raise AssertionError("18d: final-int8 is not the sharded export")
+        q = lc_serve(smi, "int8", client,
+                     shards.restore(JR_JOB, INT8_TAG).variables, serve_rng,
+                     job=JR_JOB, phase="18d")
+    out["wall"]["d"] = time.monotonic() - t0
+    out["d"] = dict(f32=f32, int8=q)
+    return out
+
+
+def jr_rank(rank, out_dir, root, smi):
+    """One rank of phase 18 (started by ``parallel.distributed.spawn``),
+    as ``kubeml start`` starts a rank: the process group over gloo, the
+    kernels the parent built, then the control plane on rank 0 and the
+    follower loop on rank 1 (once a cluster: 18d's int8 serving boots a
+    second one)."""
+    from kubeml_tpu_torch.engine.follower import run_follower
+    from kubeml_tpu_torch.parallel.distributed import init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(backend="gloo", device="cuda")
+    from kubeml_tpu_torch.ops import kernels
+
+    kernels.library(build=False)
+    records = []
+    jr_instrument(records)
+    if rank == 0:
+        res = jr_leader(root, smi)
+    else:
+        res = dict(followed=[run_follower(config=cp_config(root))
+                             for _ in range(2)])
+    res["jobs"] = records
+    torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+
+
+def jr_check_shards(a):
+    """18a's final export: a file a rank, the manifest's processes the
+    world, every tp-split leaf a half on each rank and every other leaf
+    whole on rank 0, each slice in its owner's file only."""
+    from kubeml_tpu_torch.interop.from_flax import leaf_block
+    from kubeml_tpu_torch.models.gpt import partition_spec
+
+    man, files = a["manifest"], a["files"]
+    bad = []
+    if sorted(files) != [f"shard-{r}.npz" for r in range(JR_WORLD)]:
+        bad.append(f"shard files {sorted(files)}")
+    if man["processes"] != JR_WORLD:
+        bad.append(f"manifest processes {man['processes']}")
+    split = 0
+    for path, leaf in man["leaves"].items():
+        name = ".".join(path.split("/")[1:])
+        tp = "tp" in partition_spec(name, len(leaf["shape"]))
+        split += tp
+        want = [(list(leaf_block(name, leaf["shape"], None)[0]), 0)]
+        if tp:
+            mesh = type("Tp2", (), dict(shape={"tp": 2}))
+            want = [(list(leaf_block(name, leaf["shape"], mesh,
+                                     coord={"tp": r})[0]), r)
+                    for r in range(JR_WORLD)]
+        got = [(sl["start"], sl["shard"]) for sl in leaf["slices"]]
+        if got != want:
+            bad.append(f"{path}: slices {got}, want {want}")
+        for sl in leaf["slices"]:
+            key = f"{path}@{','.join(map(str, sl['start']))}"
+            holders = [f for f, keys in files.items() if key in keys]
+            if holders != [f"shard-{sl['shard']}.npz"] or tuple(
+                    files[holders[0]][key]) != tuple(sl["shape"]):
+                bad.append(f"{key} in {holders}")
+    return split, bad
+
+
+def ranks_phase(smi, root):
+    """Phase 18 (see the module docstring). Returns the flash launches
+    (fwd, dq, dkv) of its jobs over ranks, summed over the ranks, and the
+    served (paged_attention, int8_matmul) launches."""
+    from kubeml_tpu_torch.parallel.distributed import spawn
+
+    t0 = time.monotonic()
+    ref = jr_reference(Path(root) / "ranks-ref")
+    log(f"  18 one-rank SPMDJob [{smi}] ({time.monotonic() - t0:.1f} s): "
+        f"train/eval losses 18a {ref['a']}, resumed 18b {ref['b']}, "
+        f"optimizer restarted after epochs 1 and 2 (18c) {ref['c']}")
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_jr_") as tmp:
+        spawn(jr_rank, JR_WORLD, args=(tmp, str(Path(root) / "ranks"), smi),
+              timeout_s=JR_TIMEOUT_S)
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                 for r in range(JR_WORLD)]
+    lead = ranks[0]
+    log(f"  18 {JR_WORLD} ranks over gloo on {smi}: "
+        f"{time.monotonic() - t0:.1f} s, spawn included; walls (s) "
+        f"{ {k: round(v, 1) for k, v in lead['wall'].items()} }")
+    bad = []
+    steps = LC_TRAIN // LC_B
+    per_step = (2 * DEPTH, DEPTH, DEPTH)
+
+    def job_counts(jid):
+        """Per rank, the records of ``jid``'s runs, in order."""
+        return [[j for j in r["jobs"] if j["job"] == jid] for r in ranks]
+
+    def want_flash(epochs):
+        # each step's forward twice (remat), dQ and dK/dV once a block; one
+        # validation forward an epoch
+        return (epochs * (steps * per_step[0] + DEPTH),
+                epochs * steps * DEPTH, epochs * steps * DEPTH)
+
+    def held(tag, got, want):
+        err = max(abs(a - b) for a, b in zip(got, want))
+        if len(got) != len(want) or not (all(np.isfinite(got))
+                                         and err <= MR_LOSS_ATOL):
+            bad.append(f"{tag}: {got} against the one rank's {want}")
+        return err
+
+    total = [0, 0, 0]
+    runs = job_counts(JR_JOB)
+    # 18a
+    a = lead["a"]
+    ea = held("18a train", a["train"], ref["a"][0])
+    ev = held("18a eval", a["val"], ref["a"][1])
+    flash = [r[0]["flash"] for r in runs]
+    saves = [r[0]["save"] for r in runs]
+    split, shard_bad = jr_check_shards(a)
+    bad += [f"18a {b}" for b in shard_bad]
+    log(f"  18a {JR_JOB} tp=2 [{smi}]: /train engine=spmd, 2 epochs x "
+        f"{steps} steps of B {LC_B} x L {LC_L} over {JR_WORLD} ranks: train "
+        f"loss {a['train']} (one rank {ref['a'][0]}; largest difference "
+        f"{ea:.2e}), eval loss {a['val']} (difference {ev:.2e}; tolerance "
+        f"{MR_LOSS_ATOL}), parallelism {a['par']}; flash launches a rank "
+        f"{flash} (a step {per_step}, one eval forward an epoch of {DEPTH} "
+        f"fwd); sharded final: {sorted(a['files'])}, processes "
+        f"{a['manifest']['processes']}, {split} tp-split leaves a half on "
+        f"each rank, {a['size']} bytes; its save a rank "
+        + "; ".join(f"rank {i}: {s['bytes']} bytes in "
+                    f"{1e3 * s['seconds']:.1f} ms" for i, s in enumerate(saves))
+        + f" ({lead['wall']['a']:.1f} s from /train to the history)")
+    if a["error"] or a["par"] != [JR_WORLD] * 2:
+        bad.append(f"18a: error {a['error']}, parallelism {a['par']}")
+    if any(f != want_flash(2) for f in flash):
+        bad.append(f"18a: flash launches {flash}, want {want_flash(2)} a rank")
+    # 18e: live inference while 18a trained over ranks
+    if not (lead["live_infer"] and lead["live_infer"][0] == 409):
+        bad.append(f"18e: live /infer over ranks {lead['live_infer']}")
+    # 18b
+    b = lead["b"]
+    flash_b = [r[1]["flash"] for r in runs]
+    read = [r[1]["restore_bytes"] for r in runs]
+    eb = held("18b train", b["train"][2:], ref["b"][0][2:])
+    log(f"  18b {JR_JOB} resumed under sp=2 (Ulysses) [{smi}]: train loss "
+        f"{b['train']}, epoch 3 {b['train'][2]:.4f} against the one-rank "
+        f"continuation {ref['b'][0][2]:.4f} (difference {eb:.2e}); history "
+        f"spliced {'exactly' if b['train'][:2] == a['train'] else 'NOT'}; "
+        f"sharded restore read a rank {read} bytes of the checkpoint's "
+        f"{b['size']} bytes of slices (sp replicates every leaf: each rank "
+        f"reads it whole); "
+        f"flash launches a rank {flash_b} ({lead['wall']['b']:.1f} s)")
+    if b["error"] or b["train"][:2] != a["train"] or len(b["train"]) != 3:
+        bad.append(f"18b: {b}")
+    if any(f != want_flash(1) for f in flash_b):
+        bad.append(f"18b: flash launches {flash_b}, want {want_flash(1)}")
+    if any(not n or n > b["size"] for n in read):
+        bad.append(f"18b: restore bytes {read}")
+    # 18c
+    c = lead["c"]
+    ec = held("18c train", c["train"], ref["c"][0])
+    el = job_counts(JR_ELASTIC)
+    flash_c = [r[0]["flash"] for r in el]
+    digests = [r[0]["digest"] for r in el]
+    remesh = el[0][0]["remesh_s"]
+    want_c = [want_flash(3), want_flash(2)]
+    log(f"  18c {JR_ELASTIC} dp=2, on_epoch_end answers {list(JR_LEVELS)} "
+        f"[{smi}]: parallelism {c['par']} (asked at {c['asked']}), train "
+        f"loss {c['train']} against the one rank's with its optimizer "
+        f"restarted at the same epochs {ref['c'][0]} (largest difference "
+        f"{ec:.2e}); flash launches a rank {flash_c} (rank 1 none in the "
+        f"dp=1 epoch: {want_c}); remesh s on rank 0 "
+        f"{[round(s, 3) for s in remesh]}; whole parameters after the "
+        f"return to dp=2: {digests[0][1]} leaves, "
+        f"{'bit-equal' if len(set(digests)) == 1 else 'DIFFERENT'} on the "
+        f"ranks ({lead['wall']['c']:.1f} s)")
+    if c["error"] or c["par"] != [2, 1, 2]:
+        bad.append(f"18c: error {c['error']}, parallelism {c['par']}")
+    if flash_c != want_c:
+        bad.append(f"18c: flash launches {flash_c}, want {want_c}")
+    if len(set(digests)) != 1 or digests[0] is None:
+        bad.append(f"18c: the ranks' parameters differ after the remesh")
+    # 18e: the follower that could not load the function
+    e = lead["e"]
+    log(f"  18e {JR_BROKEN}: the job failed in {e['seconds']:.1f} s with "
+        f"{e['error']!r}; live /infer while 18a trained: "
+        f"{lead['live_infer']}; the follower ran "
+        f"{ranks[1]['followed']} jobs over the two clusters and exited 0")
+    if not e["error"] or "could not start" not in e["error"] or e["train"]:
+        bad.append(f"18e: {e}")
+    if ranks[1]["followed"] != [3, 0]:
+        bad.append(f"18e: the follower ran {ranks[1]['followed']} jobs")
+    # 18d
+    d = lead["d"]
+    log(f"  18d the 2-shard final served from rank 0's PS: launches "
+        f"(paged_attention, int8_matmul) f32 {d['f32']}, int8 {d['int8']} "
+        f"({lead['wall']['d']:.1f} s)")
+    if d["f32"][0] <= 0 or min(d["int8"]) <= 0:
+        bad.append(f"18d: launches {d}")
+    for c_ in flash + flash_b + flash_c:
+        total = [t + n for t, n in zip(total, c_)]
+    if bad:
+        raise AssertionError("phase 18: " + "; ".join(bad))
+    served = tuple(x + y for x, y in zip(d["f32"], d["int8"]))
+    return tuple(total), served
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4599,7 +5073,7 @@ def phases(root: str) -> int:
 
     # 1. device
     smi = nvidia_smi()
-    log("[1/18 device]")
+    log("[1/19 device]")
     log(smi)
     log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} devices "
@@ -4614,7 +5088,7 @@ def phases(root: str) -> int:
     spills = [f"{lines[i - 1].split('for ')[-1][:70]}: {ln.strip()}"
               for i, ln in enumerate(lines)
               if re.search(r"[1-9]\d* bytes (stack frame|spill)", ln)]
-    log(f"[2/18 build] {time.monotonic() - t0:.2f} s (nvcc "
+    log(f"[2/19 build] {time.monotonic() - t0:.2f} s (nvcc "
         f"{kernels.build_seconds:.2f} s), kernels with a stack frame or "
         f"spills: {len(spills)}")
     for ln in spills:
@@ -4630,7 +5104,7 @@ def phases(root: str) -> int:
     check_compiled(kernels.library()._name, build_log)
 
     # 3. kernels against their plain versions
-    log("[3/18 kernels]")
+    log("[3/19 kernels]")
     timer = Timer()
     g = torch.Generator().manual_seed(SEED)
     pa_rows = check_paged_attention(timer, g)
@@ -4638,7 +5112,7 @@ def phases(root: str) -> int:
     del timer
 
     # 4. serve f32: kernel engine, then the plain (gather) twin
-    log("[4/18 serve f32]")
+    log("[4/19 serve f32]")
     serve_tiny()
     reqs = workload(np.random.default_rng(SEED))
     model = gpt2_small()
@@ -4681,7 +5155,7 @@ def phases(root: str) -> int:
     del model
 
     # 5. serve int8: int8 weights through the kernel, int8 KV pages
-    log("[5/18 serve int8]")
+    log("[5/19 serve int8]")
     q_kw = dict(quantize="int8", int8_matmul=True, kv_quant="int8", **common)
     qdec = PagedBatchingDecoder(gpt2_small(), **q_kw)
     if (not qdec.int8_matmul or qdec.int8_matmul_impl != "cuda"
@@ -4730,20 +5204,20 @@ def phases(root: str) -> int:
     torch.cuda.empty_cache()
 
     # 6. speculative decoding and chunked prefill through both kernels
-    log("[6/18 spec + chunked]")
+    log("[6/19 spec + chunked]")
     t0 = time.monotonic()
     spec_launches = spec_phase(smi)
     log(f"  phase 6: {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     # 7. flash kernels against their plain versions, and the L sweep
-    log("[7/18 flash kernels]")
+    log("[7/19 flash kernels]")
     timer = Timer()
     flash_errs, sweep = check_flash(timer, g)
     del timer
 
     # 8. train: the kernel path, its profile, then the plain path
-    log("[8/18 train bf16]")
+    log("[8/19 train bf16]")
     krow, kcounts = train_run("kernel path", flash=True)
     want = (2 * DEPTH * krow["steps_run"], DEPTH * krow["steps_run"],
             DEPTH * krow["steps_run"])
@@ -4766,14 +5240,14 @@ def phases(root: str) -> int:
                              f"{pcounts}")
 
     # 9. f32: one step through the kernels against the plain path
-    log("[9/18 train f32 parity]")
+    log("[9/19 train f32 parity]")
     check_f32_step()
 
     # 10. K-AVG: the flagship at bench.py's configuration, the merge's
     # correctness, and TrainJob end to end; none of the five hand-written
     # kernels is on this path (convs, BatchNorm and dense layers run in
     # cuDNN and cuBLAS, as the JAX path runs them in XLA)
-    log("[10/18 k-avg]")
+    log("[10/19 k-avg]")
     reset_kernel_counts()
     log("  10a flagship: ResNet-18, CIFAR-10 shapes, bf16, uint8 inputs, "
         f"B {KAVG_B}, K {KAVG_K}, lr 0.1, SGD momentum 0.9")
@@ -4790,34 +5264,34 @@ def phases(root: str) -> int:
         raise AssertionError(f"the K-AVG path launched {counts}")
 
     # 11. serving resilience through both serving kernels
-    log("[11/18 resilience]")
+    log("[11/19 resilience]")
     t0 = time.monotonic()
     res_launches = resilience_phase(smi)
     log(f"  phase 11: {time.monotonic() - t0:.1f} s")
 
     # 12. checkpoints served through the parameter server
-    log("[12/18 checkpoint serving]")
+    log("[12/19 checkpoint serving]")
     t0 = time.monotonic()
     ckpt = checkpoint_phase(smi, root, run, qrun, kavg)
     ckpt_launches = ckpt["launches"]
     log(f"  phase 12: {time.monotonic() - t0:.1f} s")
 
     # 13. the control plane over HTTP: training, serving, SIGTERM
-    log("[13/18 control plane]")
+    log("[13/19 control plane]")
     t0 = time.monotonic()
     cp_launches = control_plane_phase(smi, root, run, qrun, ckpt, kavg)
     log(f"  phase 13: {time.monotonic() - t0:.1f} s")
 
     # 14. the encoders: the flash kernels at their shapes, BERT-base and
     # ViT-Tiny trained by K-AVG, VGG-11, a ViT TrainJob with transforms
-    log("[14/18 encoders]")
+    log("[14/19 encoders]")
     t0 = time.monotonic()
     enc_rows, enc_launches, bert_row, vit_row = encoder_phase(smi, root)
     log(f"  phase 14: {time.monotonic() - t0:.1f} s")
 
     # 15. MoE trained at bench_moe's width through the flash kernels and
     # served by the dense slot engine; GPT-2-small through the dense engine
-    log("[15/18 moe + dense engine]")
+    log("[15/19 moe + dense engine]")
     t0 = time.monotonic()
     moe_row, moe_errs, moe_times, moe_counts, dense_launches = moe_phase(
         smi, root, run)
@@ -4825,20 +5299,28 @@ def phases(root: str) -> int:
 
     # 16. the one-shot speculative generate through paged attention, and
     # the long-context flagship's SPMD job with sharded checkpoints
-    log("[16/18 one-shot spec + spmd job]")
+    log("[16/19 one-shot spec + spmd job]")
     t0 = time.monotonic()
     spec16, flash16, served16 = spec_spmd_phase(smi, root, krow["step_ms"])
     log(f"  phase 16: {time.monotonic() - t0:.1f} s")
 
     # 17. multi-rank SPMD: two gloo ranks on the card, attention and the
     # flagship's training over sp (Ulysses, ring), tp and dp
-    log("[17/18 multi-rank spmd]")
+    log("[17/19 multi-rank spmd]")
     t0 = time.monotonic()
     flash17 = multirank_phase(smi)
     log(f"  phase 17: {time.monotonic() - t0:.1f} s")
 
-    # 18. results
-    log("[18/18 results]")
+    # 18. the SPMD job over ranks: two gloo ranks on the card, the
+    # flagship trained through /train over tp=2, resumed over sp=2,
+    # remeshed dp 2 -> 1 -> 2, its 2-shard final served
+    log("[18/19 spmd job over ranks]")
+    t0 = time.monotonic()
+    flash18, served18 = ranks_phase(smi, root)
+    log(f"  phase 18: {time.monotonic() - t0:.1f} s")
+
+    # 19. results
+    log("[19/19 results]")
     pa = pa_rows[0]   # the decode step: L = 1, f32 arena
     mm = next(r for r in mm_rows if r["M"] == 8 and r["N"] == VOCAB
               and r["x"] == "float32")  # the lm_head at decode
@@ -4848,7 +5330,8 @@ def phases(root: str) -> int:
          "replaces": "kubeml_tpu/ops/paged_attention.py:113",
          "launches": (f32_launches + q_launches[0] + spec_launches[0]
                       + res_launches[0] + ckpt_launches[0]
-                      + cp_launches[0] + spec16[0] + served16[0]),
+                      + cp_launches[0] + spec16[0] + served16[0]
+                      + served18[0]),
          "max_abs_err": pa["max_abs_err"], "ms": pa["ms"],
          "plain_ms": pa["plain_ms"], "bound_ms": pa["bound_ms"],
          "bound_by": pa["bound_by"], "library_ms": pa["library_ms"]},
@@ -4857,7 +5340,8 @@ def phases(root: str) -> int:
          "replaces": "kubeml_tpu/ops/int8_matmul.py:55",
          "launches": (q_launches[1] + spec_launches[1] + res_launches[1]
                       + ckpt_launches[1] + cp_launches[1]
-                      + dense_launches[1] + spec16[1] + served16[1]),
+                      + dense_launches[1] + spec16[1] + served16[1]
+                      + served18[1]),
          "max_abs_err": mm["max_abs_err"], "ms": mm["ms"],
          "plain_ms": mm["plain_ms"], "bound_ms": mm["bound_ms"],
          "bound_by": mm["bound_by"], "library_ms": mm["library_ms"]},
@@ -4867,9 +5351,9 @@ def phases(root: str) -> int:
     err_a = flash_errs[("a train", torch.bfloat16)]
     # launches: the training path of phase 8, the encoders' of phase 14,
     # the MoE LM's of phase 15, the SPMD job's of phase 16 and the ranks'
-    # of phase 17
+    # of phases 17 and 18
     fwd_n, dq_n, dkv_n = (sum(c) for c in zip(
-        kcounts, enc_launches, moe_counts, flash16, flash17))
+        kcounts, enc_launches, moe_counts, flash16, flash17, flash18))
     for name, line_no, count, err, ms, plain, lib in (
             ("flash_fwd", 120, fwd_n, err_a["out"], tr["fwd_ms"],
              tr["fwd_plain_ms"], tr["fwd_library_ms"]),
@@ -4888,10 +5372,10 @@ def phases(root: str) -> int:
     log(f"  train bf16 tokens/s: kernel {krow['value']:.1f}, plain "
         f"{prow['value']:.1f}")
     log(f"  flash launches: phase 8 {kcounts}, phase 14 {enc_launches}, "
-        f"phase 15 {moe_counts}, phase 16 {flash16}, phase 17 {flash17}; "
-        f"serving launches "
+        f"phase 15 {moe_counts}, phase 16 {flash16}, phase 17 {flash17}, "
+        f"phase 18 {flash18}; serving launches "
         f"(paged_attention, int8_matmul) of phase 16: one-shot spec {spec16}"
-        f", the SPMD final served {served16}")
+        f", the SPMD final served {served16}; of phase 18 {served18}")
     t = moe_times
     log(f"  flash at the MoE shape B {MOE_B} L {MOE_L} H {MOE_H} causal "
         f"(bf16): fwd {t['fwd_ms']:.4f} ms (plain {t['fwd_plain_ms']:.4f}, "

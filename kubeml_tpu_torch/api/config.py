@@ -18,7 +18,9 @@ The control plane's settings come from the same variables too: the bind
 address (``KUBEML_HOST``) and the four service ports with their URLs,
 the elastic policy's cap and freeze (``KUBEML_MAX_PARALLELISM``,
 ``LIMIT_PARALLELISM``), the seconds a job waits for the scheduler's
-answer at an epoch's end (``KUBEML_UPDATE_TIMEOUT``), the preempt grace,
+answer at an epoch's end (``KUBEML_UPDATE_TIMEOUT``), the seconds the
+leader waits for a follower's start acknowledgement of a job over ranks
+(``KUBEML_DIST_ACK_TIMEOUT``), the preempt grace,
 the scale-decision log's sizes and the job journal under the data root.
 ``standalone_jobs`` and ``preempt_monitor`` are read so that a set value
 can be refused with a 400 that names it (not ported).
@@ -78,6 +80,12 @@ class Config:
     max_parallelism: Optional[int] = field(default_factory=lambda: (
         int(os.environ["KUBEML_MAX_PARALLELISM"])
         if os.environ.get("KUBEML_MAX_PARALLELISM") else None))
+    # seconds the leader waits for each follower's acknowledgement that it
+    # built a job over ranks before it fails the job (a follower missing
+    # the function or the dataset must fail the start, not hang the first
+    # collective)
+    dist_ack_timeout: float = field(
+        default_factory=lambda: _env_float("KUBEML_DIST_ACK_TIMEOUT", 120.0))
     # seconds the job thread waits for the scheduler's epoch-end answer
     # before it keeps its parallelism
     update_timeout: float = field(

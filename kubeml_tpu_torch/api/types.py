@@ -6,10 +6,11 @@ training types (``TrainOptions``, ``TrainRequest``, ``JobState``,
 
 They read and write the same JSON as the JAX package's types, with the same
 validation. A request may name options whose modules the port does not
-have yet (a job over several ranks); :meth:`TrainOptions.check_ported`
-raises for those, and the port's jobs and scheduler call it before a job
-starts. :func:`generate_timeout` is the budget a caller waits on one
-generate request.
+have yet, or that the cluster's ranks cannot hold;
+:meth:`TrainOptions.check_ported` raises for those (a 400 naming the
+item that lifts it), and the port's jobs and scheduler call it with the
+cluster's world before a job starts. :func:`generate_timeout` is the
+budget a caller waits on one generate request.
 """
 
 from __future__ import annotations
@@ -104,8 +105,8 @@ class TrainOptions(_JsonMixin):
     validate_every: int = 1
     k: int = 16
     goal_accuracy: float = 100.0
-    # "kavg" = elastic local SGD; "spmd" = synchronous mesh training (one
-    # card for a job in this package: check_ported refuses larger meshes)
+    # "kavg" = elastic local SGD; "spmd" = synchronous mesh training (over
+    # the cluster's ranks: check_ported refuses a mesh that does not fit)
     engine: str = "kavg"
     goal_loss: float = 0.0
     precision: str = "bf16"  # compute dtype of the inputs ("bf16" | "f32")
@@ -153,22 +154,47 @@ class TrainOptions(_JsonMixin):
                         f"mesh_shape[{axis!r}] must be a positive int, got {size!r}"
                     )
 
-    def check_ported(self) -> None:
-        """Raise ``KubeMLError`` (400) for an option that needs a module
-        this package does not have yet: a mesh axis other than ``worker``
-        of more than one device. ``SPMDTrainer`` trains over the ranks of
-        such a mesh (``parallel.distributed``), but a job over several
-        ranks needs the SPMD job over ranks with followers and remesh
-        (JAX ``engine/spmd_job.py``, ``engine/follower.py``), the next
-        item of multi-card SPMD (ROADMAP Queue 1 item 1)."""
-        if self.mesh_shape is not None and any(
-                int(n) > 1 for ax, n in self.mesh_shape.items()
-                if ax != "worker"):
+    def check_ported(self, world: int = 1) -> None:
+        """Raise ``KubeMLError`` (400) for an option a job of this package
+        cannot run on a cluster of ``world`` ranks, each refusal naming
+        the item of the port (ROADMAP Queue 1) that lifts it: an SPMD
+        mesh that does not divide the world (``mesh_shape_for`` with
+        ``dp`` filling the rest), a ``pp`` axis above 1 (the pipeline,
+        item 1.2) or an ``ep`` axis above 1 (MoE expert sharding, item
+        1.3), and a K-AVG job over several ranks or with a mesh axis
+        other than ``worker`` above 1 (multi-card K-AVG, item 1.5)."""
+        shape = dict(self.mesh_shape or {})
+        if self.engine != "spmd":
+            if world > 1:
+                raise KubeMLError(
+                    f"not ported to kubeml_tpu_torch yet: a K-AVG job on a "
+                    f"cluster of {world} ranks (multi-card K-AVG, ROADMAP "
+                    f"Queue 1 item 1.5); run it on one rank, or as an "
+                    f"--engine spmd job", 400)
+            if any(int(n) > 1 for ax, n in shape.items() if ax != "worker"):
+                raise KubeMLError(
+                    f"not ported to kubeml_tpu_torch yet: mesh_shape "
+                    f"{shape} on a K-AVG job spans several devices "
+                    f"(multi-card K-AVG, ROADMAP Queue 1 item 1.5)", 400)
+            return
+        for ax, item in (("pp", "the pipeline, ROADMAP Queue 1 item 1.2"),
+                         ("ep", "MoE expert sharding over ep, ROADMAP "
+                                "Queue 1 item 1.3")):
+            if int(shape.get(ax, 1)) > 1:
+                raise KubeMLError(
+                    f"not ported to kubeml_tpu_torch yet: mesh_shape {shape}"
+                    f" with {ax} > 1 ({item})", 400)
+        from ..parallel.mesh import mesh_shape_for
+
+        try:
+            mesh_shape_for(world, **{ax: int(n) for ax, n in shape.items()})
+        except ValueError as e:
             raise KubeMLError(
-                f"not ported to kubeml_tpu_torch yet: mesh_shape "
-                f"{self.mesh_shape} spans several ranks, which needs the "
-                f"SPMD job over ranks with followers and remesh (multi-card "
-                f"SPMD, ROADMAP Queue 1 item 1)", 400)
+                f"mesh_shape {shape} does not fit a cluster of {world} "
+                f"rank(s) ({e}); a multi-card SPMD job runs on a cluster "
+                f"over as many ranks (kubeml start on every rank, with "
+                f"KUBEML_COORDINATOR, KUBEML_NUM_PROCESSES and "
+                f"KUBEML_PROCESS_ID set)", 400)
 
 
 @dataclass

@@ -1,10 +1,15 @@
 """The ``kubeml`` command line of the port: the port of
 ``kubeml_tpu/cli.py``. Run as ``python -m kubeml_tpu_torch.cli <command>``.
 
-* ``start [--device cpu]`` boots the all-in-one cluster
-  (``cluster.LocalCluster``) on the card unless ``--device cpu``; SIGTERM
-  drains the serving decoders (frames to ``KUBEML_SNAP_DIR``) and shuts
-  the cluster down with exit code 0;
+* ``start [--device cpu] [--backend gloo|nccl]`` boots the all-in-one
+  cluster (``cluster.LocalCluster``) on the card unless ``--device cpu``;
+  SIGTERM drains the serving decoders (frames to ``KUBEML_SNAP_DIR``) and
+  shuts the cluster down with exit code 0. With ``KUBEML_COORDINATOR``,
+  ``KUBEML_NUM_PROCESSES`` and ``KUBEML_PROCESS_ID`` set on every rank it
+  joins the process group first (``parallel.distributed.
+  init_distributed``): rank 0 boots the cluster, every other rank prints
+  ``kubeml-tpu-torch follower r/N`` and runs ``engine.follower.
+  run_follower`` until the leader shuts down;
 * ``train``, ``infer``, ``generate`` (token arrays, ``--stream`` prints the
   deltas as they arrive);
 * ``dataset create|delete|list``, ``function create|delete|get|list``;
@@ -289,12 +294,24 @@ def cmd_start(args) -> int:
     import threading
 
     from .cluster import LocalCluster
+    from .parallel.distributed import (init_distributed, process_count,
+                                       process_index)
 
     cfg = get_config()
     cfg.ensure_dirs()
     logging.basicConfig(
         level=logging.DEBUG if cfg.debug else logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    # a cluster over ranks: rank 0 boots the control plane, every other
+    # rank follows its job announcements (JAX cli.py:805-825)
+    if init_distributed(backend=args.backend, device=args.device) and \
+            process_index() > 0:
+        from .engine.follower import run_follower
+
+        print(f"kubeml-tpu-torch follower {process_index()}/"
+              f"{process_count()}", flush=True)
+        run_follower(config=cfg)
+        return 0
     stop = threading.Event()
     # SIGTERM: the PS drains its decoders first (PSAPI.start chains to
     # this handler), then the cluster shuts down and the process exits 0
@@ -474,6 +491,10 @@ def build_parser() -> argparse.ArgumentParser:
     s = sub.add_parser("start", help="boot the all-in-one local cluster")
     s.add_argument("--device", default=None,
                    help="cpu to run on the CPU (default: the card)")
+    s.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                   help="the process group's backend over ranks (default: "
+                        "nccl for CUDA ranks, gloo for CPU ranks; gloo lets "
+                        "ranks share a card)")
     s.set_defaults(fn=cmd_start)
     return p
 

@@ -1,5 +1,5 @@
 """The whole control plane in one process: the port of
-``kubeml_tpu/cluster.py``'s ``LocalCluster`` on one card.
+``kubeml_tpu/cluster.py``'s ``LocalCluster``.
 
 Storage, PS, scheduler and controller share their stores and call each
 other in process; with ``serve_http`` every service also listens on its
@@ -9,7 +9,14 @@ resubmits the jobs a previous process journaled (``resume=True``).
 
 ``device=None`` runs the jobs and the serving engines on the card (and
 raises without one); ``device="cpu"`` runs them on the CPU, as the tests
-do. Not ported: multi-host runs, the preemption monitor (a set
+do.
+
+In a process group of several ranks (``parallel.distributed.
+init_distributed`` first) the cluster runs on rank 0 only, the leader,
+and refuses to start on another rank, which runs ``engine.follower.
+run_follower`` instead (JAX :42-55); its parameter server announces each
+job to the followers, and ``stop`` stops the running jobs before it
+releases the followers. Not ported: the preemption monitor (a set
 ``preempt_monitor`` is refused with a 400), standalone runners and the
 telemetry sampler.
 """
@@ -44,6 +51,15 @@ class LocalCluster:
             raise KubeMLError("the preemption monitor (KUBEML_PREEMPT_MONITOR,"
                               " scheduler/preemption.py) is not ported to "
                               "kubeml_tpu_torch yet", 400)
+        from .parallel.distributed import get_dist_context, process_count
+
+        self.dist = None
+        if process_count() > 1:
+            self.dist = get_dist_context()
+            if not self.dist.is_leader:
+                raise RuntimeError(
+                    "LocalCluster runs on rank 0; the other ranks run "
+                    "kubeml_tpu_torch.engine.follower.run_follower")
         self.cfg.ensure_dirs()
         self.serve_http = serve_http
         self.store = ShardStore(config=self.cfg)
@@ -51,7 +67,8 @@ class LocalCluster:
         self.registry = FunctionRegistry(config=self.cfg)
         self.ps = ParameterServer(
             registry=self.registry, store=self.store,
-            history_store=self.history_store, config=self.cfg, device=device)
+            history_store=self.history_store, config=self.cfg, device=device,
+            dist=self.dist)
         self.scheduler = Scheduler(self.ps, config=self.cfg)
         self.ps.bind_scheduler(self.scheduler)
         self.controller = Controller(
@@ -89,10 +106,13 @@ class LocalCluster:
         return self
 
     def stop(self) -> None:
-        # jobs first (they keep their journal entries), then the scheduler:
-        # a job thread waiting for an epoch-end answer gives up after
-        # update_timeout at the latest, and a stopped job answers nobody
+        # jobs first (they keep their journal entries), then the followers
+        # (a job over ranks holds the dist lock until its epoch ends), then
+        # the scheduler: a job thread waiting for an epoch-end answer gives
+        # up after update_timeout at the latest, and a stopped job answers
+        # nobody
         self.ps.stop_running_jobs()
+        self.ps.announce_shutdown()
         self.scheduler.stop()
         if self.serve_http:
             for svc in (self.controller, self.storage_service,

@@ -9,6 +9,11 @@
 * :class:`WorkerHealth` - consecutive-failure tracking; a worker dead for
   ``threshold`` straight rounds is reported persistent, and the job
   shrinks its parallelism at the epoch boundary.
+* :func:`is_one_sided_fault` - whether a job's failure may have struck
+  one rank alone (the card ran out of memory or raised a CUDA error), the
+  port's counterpart of JAX's transient accelerator errors: a follower
+  ends its process on one, since the other ranks wait for it inside a
+  collective.
 """
 
 from __future__ import annotations
@@ -97,3 +102,13 @@ class WorkerHealth:
         resize worker indices are renumbered, so bookkeeping resets."""
         dead = len([w for w in self._persistent if w < current])
         return max(1, current - dead)
+
+
+def is_one_sided_fault(exc: BaseException) -> bool:
+    """True when ``exc`` (or the fault it was raised from) is the card's:
+    out of memory or a CUDA error, which one rank may hit alone."""
+    import torch
+
+    cause = exc.__cause__ or exc
+    return (isinstance(cause, torch.OutOfMemoryError)
+            or "CUDA error" in str(cause))

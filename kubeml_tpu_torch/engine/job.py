@@ -35,7 +35,10 @@ parameter server's ``/infer`` on a live job): it answers from a copy of
 replica 0 taken at the last round's edge, through a module of its own,
 as the JAX engine answers from the variables it rebinds at a round's end.
 
-Not ported yet (``ROADMAP.md``): multi-host ``dist``, the background
+Not ported yet (``ROADMAP.md``): a K-AVG job over several ranks (a
+``dist`` of more than one rank, or any rank of a process group, is
+refused with a 400 by ``check_ported``: multi-card K-AVG, item 1.5), the
+background
 compile of the next parallelism level (eager PyTorch compiles nothing),
 tracer spans, and the retry of a round on a transient
 accelerator error (a CUDA fault poisons the context, so a retry in the
@@ -85,8 +88,12 @@ class TrainJob:
         seed: int = 0,
         chaos: Optional[FailureInjector] = None,
         health_threshold: int = 3,
+        dist=None,
     ):
-        request.options.check_ported()
+        from ..parallel.distributed import process_count
+
+        request.options.check_ported(
+            dist.size if dist is not None else process_count())
         self.job_id = job_id
         self.request = request
         self.model = model

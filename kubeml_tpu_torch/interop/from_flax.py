@@ -9,7 +9,9 @@ package wrote it. :func:`shard_tree` cuts a full flat tree into one
 rank's tensor-parallel shards by the port's partition table
 (``models.gpt.partition_spec``, JAX's ``_part`` specs); :func:`gather_tree`
 gathers a rank's shards back into whole leaves (collectively, on every
-rank), for the tests and for a save.
+rank), for the tests and for a save; :func:`leaf_block` is the global
+slice (start, shape) of a leaf that a rank's shard covers, from the same
+table, which the sharded checkpoints write and read by.
 
 The port's modules carry Flax's parameter names and layouts (dense kernels
 ``[in, out]``, LayerNorm ``scale``/``bias``, ``token_embed.embedding``,
@@ -39,7 +41,7 @@ CPU tensors: numpy cannot hold them).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Set
+from typing import Any, Dict, Mapping, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -169,25 +171,52 @@ def to_flax_variables(variables: Mapping[str, Mapping[str, Any]],
     return {c: convert(tree) for c, tree in variables.items()}
 
 
+def leaf_block(name: str, shape: Sequence[int], mesh,
+               coord: Optional[Mapping[str, int]] = None,
+               spec_of=None) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """(start, shape) of the part of the leaf ``name`` of global ``shape``
+    that the rank at ``coord`` on ``mesh`` (default: this rank's) holds,
+    by the port's partition table: a leaf split over ``tp`` covers part
+    ``coord["tp"]`` of its split dim, every other leaf all of it."""
+    if spec_of is None:
+        from ..models.gpt import partition_spec as spec_of
+    start, size = [0] * len(shape), [int(n) for n in shape]
+    tp = 1 if mesh is None else mesh.shape.get("tp", 1)
+    spec = spec_of(name, len(shape))
+    if tp > 1 and "tp" in spec:
+        d = spec.index("tp")
+        size[d] //= tp
+        start[d] = (mesh.coord if coord is None else coord)["tp"] * size[d]
+    return tuple(start), tuple(size)
+
+
+def global_shape(name: str, shape: Sequence[int], mesh,
+                 spec_of=None) -> Tuple[int, ...]:
+    """The global shape of the leaf ``name`` whose rank shard on ``mesh``
+    has ``shape``: the inverse of :func:`leaf_block`'s shape."""
+    if spec_of is None:
+        from ..models.gpt import partition_spec as spec_of
+    out = [int(n) for n in shape]
+    tp = 1 if mesh is None else mesh.shape.get("tp", 1)
+    spec = spec_of(name, len(shape))
+    if tp > 1 and "tp" in spec:
+        out[spec.index("tp")] *= tp
+    return tuple(out)
+
+
 def shard_tree(flat: Mapping[str, Any], mesh,
                spec_of=None) -> Dict[str, torch.Tensor]:
     """Cut a full flat tree (``from_flax`` output, or numpy leaves) into this
-    rank's shards on ``mesh`` by the port's partition table
-    (``models.gpt.partition_spec``): a leaf split over ``tp`` keeps part
-    ``mesh.coord["tp"]`` of its split dim, every other leaf stays whole.
-    The result loads into a model built with the same mesh
+    rank's shards on ``mesh`` (each leaf's :func:`leaf_block`). The result
+    loads into a model built with the same mesh
     (``models.layers.load_tree``)."""
-    if spec_of is None:
-        from ..models.gpt import partition_spec as spec_of
-    tp = 1 if mesh is None else mesh.shape.get("tp", 1)
     out: Dict[str, torch.Tensor] = {}
     for name, value in flat.items():
         t = _tensor(value)
-        spec = spec_of(name, t.dim())
-        if tp > 1 and "tp" in spec:
-            d = spec.index("tp")
-            n = t.shape[d] // tp
-            t = t.narrow(d, mesh.coord["tp"] * n, n).clone()
+        start, size = leaf_block(name, t.shape, mesh, spec_of=spec_of)
+        for d, (a, n) in enumerate(zip(start, size)):
+            if n != t.shape[d]:
+                t = t.narrow(d, a, n).clone()
         out[name] = t
     return out
 

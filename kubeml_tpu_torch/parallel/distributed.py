@@ -22,7 +22,14 @@ wired by ``torch.distributed``:
   feeds.
 * :class:`DistContext` - leader/follower decisions (stop, elastic level,
   acknowledgements) broadcast over the store, a host channel that never
-  races device collectives, as in JAX.
+  races device collectives, as in JAX. A follower waits for the leader's
+  next broadcast without a deadline, but a ``TCPStore`` whose server (the
+  leader's process) died makes the wait raise, so a follower ends instead
+  of hanging (JAX gets this from its coordination service); a ``file://``
+  store gives no such signal.
+* :func:`subgroup` - the process group of a subset of the ranks, cached
+  by its rank set (the elastic remesh builds meshes over the first ``k``
+  ranks); :func:`rank_hosts` - each rank's host, by rank.
 * :func:`hybrid_mesh_shapes`, :func:`worker_device_count`,
   :func:`pick_worker_devices`, :func:`local_worker_rows` - the JAX
   package's pure layout math, unchanged.
@@ -179,6 +186,7 @@ def shutdown() -> None:
         dist.destroy_process_group()
     _state = None
     _dist_context = None
+    _subgroups.clear()
 
 
 def process_index() -> int:
@@ -198,6 +206,29 @@ def num_slices() -> int:
     """Distinct hosts in the process group (1 when not distributed): the
     port's counterpart of the TPU's ICI-connected slices."""
     return 1 if _state is None else len(set(_state.hosts))
+
+
+def rank_hosts() -> List[str]:
+    """Each rank's host name, by rank (one entry when not distributed)."""
+    return [socket.gethostname()] if _state is None else list(_state.hosts)
+
+
+_subgroups: Dict[Tuple[int, ...], Any] = {}
+
+
+def subgroup(ranks: Sequence[int]):
+    """The process group of ``ranks`` (ascending), created at its first
+    request and cached by its rank set. ``dist.new_group`` is collective
+    over the whole world: every rank, the ranks outside ``ranks`` too,
+    must request every group in the same order, so the caches of all
+    ranks hold the same groups."""
+    key = tuple(int(r) for r in ranks)
+    if list(key) != sorted(set(key)):
+        raise ValueError(f"a group's ranks must ascend, got {list(key)}")
+    group = _subgroups.get(key)
+    if group is None:
+        group = _subgroups[key] = dist.new_group(list(key))
+    return group
 
 
 def hybrid_mesh_shapes(
@@ -372,15 +403,24 @@ class DistContext:
         return f"kubeml/bcast/{seq}", seq
 
     def _wait(self, key: str, timeout_s: Optional[float]) -> bool:
-        """Poll the store for ``key``; False once ``timeout_s`` passed."""
+        """Poll the store for ``key``; False once ``timeout_s`` passed.
+        Raises ``ConnectionError`` when the store is gone (a ``TCPStore``
+        whose server, the leader's process, died)."""
         deadline = None if timeout_s is None else time.monotonic() + timeout_s
         pause = 0.001
-        while not self._store.check([key]):
+        while True:
+            try:
+                if self._store.check([key]):
+                    return True
+            except (dist.DistNetworkError, RuntimeError) as e:
+                raise ConnectionError(
+                    f"rank {self.rank}: the process group's store is gone "
+                    f"while waiting for {key!r} (the leader died?): "
+                    f"{str(e).splitlines()[0]}") from e
             if deadline is not None and time.monotonic() >= deadline:
                 return False
             time.sleep(pause)
             pause = min(pause * 2, 0.05)
-        return True
 
     def broadcast_obj(self, obj=None):
         """Broadcast a JSON-serializable object from the leader; followers

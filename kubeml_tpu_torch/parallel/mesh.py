@@ -13,13 +13,22 @@ JAX functions unchanged. :func:`make_mesh` builds a :class:`Mesh`:
   ``np.array(devices).reshape(dims)`` puts device ``r``.
   ``Mesh.coord[axis]`` is this rank's coordinate and ``Mesh.group(axis)``
   the process group of the ranks that differ from it only along
-  ``axis``.
+  ``axis``;
 
-``dist.new_group`` is collective: every rank creates every group, in the
-same order, or the ranks deadlock. :func:`make_mesh` creates the group of
-each axis of size above 1 (all ranks call it together); a group over
-several axes (``mesh.group("dp", "sp")``) is made at its first use, which
-every rank must reach at the same point of its program.
+* or over the first ``k`` ranks of a larger world (``make_mesh(shape,
+  ranks=range(k))``, the SPMD job's elastic remesh): every rank of the
+  world calls it, and a rank outside the mesh gets a :class:`Mesh` whose
+  ``member`` is False. It holds no coordinate, takes part in no step and
+  in no group of the mesh.
+
+``dist.new_group`` is collective over the whole world: every rank creates
+every group, in the same order, or the ranks deadlock. :func:`make_mesh`
+creates the group of each axis of size above 1 and the ``dp`` x ``sp``
+group over which the trainer sums (all ranks of the world call it
+together, members or not); any other group over several axes is made at
+its first use, which every rank of the world must reach at the same point
+of its program. Groups come from ``distributed.subgroup``, cached by their
+rank sets, so a mesh built again over the same ranks reuses its groups.
 
 A ``pp`` axis (the pipeline) and an ``ep`` axis (MoE expert sharding)
 above 1 are later items of the port (ROADMAP Queue 1 item 1) and raise.
@@ -32,7 +41,6 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from ..utils.device import resolve_device
 
@@ -89,7 +97,9 @@ class Mesh:
     coordinate (default: rank ``r`` at ``np.unravel_index(r, dims)``),
     ``rank`` is this process's rank and ``devices`` its device (one
     entry; a rank sees no other rank's device). A mesh of several ranks
-    is usable once :func:`make_mesh` has given it its process groups."""
+    is usable once :func:`make_mesh` has given it its process groups.
+    ``member`` is False on a rank the grid does not hold (``coord`` is
+    then empty)."""
 
     def __init__(self, shape: Dict[str, int], devices: Sequence,
                  grid: Optional[np.ndarray] = None, rank: int = 0):
@@ -101,11 +111,18 @@ class Mesh:
                      else np.asarray(grid).reshape(dims))
         self.rank = int(rank)
         at = np.argwhere(self.grid == self.rank)
-        if len(at) != 1:
+        if len(at) > 1:
             raise ValueError(f"rank {rank} appears {len(at)} times in the "
                              f"mesh grid")
-        self.coord = {ax: int(c) for ax, c in zip(self.axis_names, at[0])}
+        self.member = len(at) == 1
+        self.coord = ({ax: int(c) for ax, c in zip(self.axis_names, at[0])}
+                      if self.member else {})
         self._groups: Optional[Dict[Tuple[str, ...], object]] = None
+
+    @property
+    def ranks(self) -> list:
+        """The ranks the mesh spans, ascending."""
+        return sorted(int(r) for r in self.grid.reshape(-1))
 
     @property
     def size(self) -> int:
@@ -142,7 +159,9 @@ class Mesh:
 
     def _new_groups(self, axes: Tuple[str, ...]):
         """Create every group along ``axes`` (each rank the same calls, in
-        the same order) and return this rank's."""
+        the same order) and return this rank's (None off the mesh)."""
+        from .distributed import subgroup
+
         inner = [self.axis_names.index(ax) for ax in axes]
         outer = [i for i in range(len(self.axis_names)) if i not in inner]
         lines = np.transpose(self.grid, outer + inner).reshape(
@@ -155,7 +174,7 @@ class Mesh:
             if ranks != sorted(ranks):
                 raise ValueError(f"mesh grid line {ranks} along {axes} does "
                                  f"not ascend")
-            g = dist.new_group(ranks)
+            g = subgroup(ranks)
             if self.rank in ranks:
                 mine = g
         return mine
@@ -171,46 +190,62 @@ def _later_axes(shape) -> None:
 
 def make_mesh(shape: Optional[Dict[str, int]] = None,
               devices: Optional[Sequence] = None,
-              grid: Optional[np.ndarray] = None, **axes: int) -> Mesh:
+              grid: Optional[np.ndarray] = None,
+              ranks: Optional[Sequence[int]] = None, **axes: int) -> Mesh:
     """Build a :class:`Mesh` from an axis-shape dict (or kwargs).
 
     Over one device: ``devices`` (default: this rank's device, or the
     current CUDA device). Over several ranks: the process group's world
     must equal the product of the axes; ``devices``, if given, lists every
     rank's device by rank. ``grid`` places ranks elsewhere than the
-    default row-major order (``distributed.global_mesh``). Axes of size 1
-    stay in the mesh so code can always name them."""
+    default row-major order (``distributed.global_mesh``). ``ranks``
+    builds the mesh over those ranks of the world only (ascending, as many
+    as the axes' product; rank ``ranks[i]`` at ``np.unravel_index(i,
+    dims)``): every rank of the world calls it, and the others get a mesh
+    whose ``member`` is False. Axes of size 1 stay in the mesh so code can
+    always name them."""
     from . import distributed
 
     world = distributed.process_count()
     if shape is None:
-        shape = mesh_shape_for(world if devices is None else len(devices),
-                               **axes)
+        n = (len(ranks) if ranks is not None
+             else world if devices is None else len(devices))
+        shape = mesh_shape_for(n, **axes)
     names = tuple(ax for ax in AXIS_ORDER if ax in shape)
     names += tuple(ax for ax in shape if ax not in AXIS_ORDER)
     shape = {ax: int(shape[ax]) for ax in names}
     total = math.prod(shape.values())
+    rank = distributed.process_index()
+    if ranks is not None:
+        ranks = [int(r) for r in ranks]
+        if len(ranks) != total or ranks != sorted(set(ranks)) or not all(
+                0 <= r < world for r in ranks):
+            raise ValueError(f"mesh shape {shape} needs {total} ascending "
+                             f"ranks of the {world}, got {ranks}")
+        grid = np.array(ranks).reshape(tuple(shape.values()))
     if total == 1:
-        dev = (distributed.local_device() if devices is None else devices[0])
-        return Mesh(shape, [resolve_device(dev)])
+        if ranks is None:
+            dev = distributed.local_device() if devices is None else devices[0]
+            return Mesh(shape, [resolve_device(dev)])
+        dev = distributed.local_device() if devices is None else devices[rank]
+        return Mesh(shape, [resolve_device(dev)], grid=grid, rank=rank)
     _later_axes(shape)
     if world == 1:
         raise RuntimeError(
             f"mesh {shape} spans {total} ranks but this process is alone: "
             f"start one process per device and call "
             f"parallel.distributed.init_distributed() first")
-    if total != world:
+    if total != world and ranks is None:
         raise ValueError(f"mesh shape {shape} uses {total} ranks but the "
                          f"process group holds {world}")
     if devices is not None and len(devices) != world:
         raise ValueError(f"{len(devices)} devices given for {world} ranks")
-    rank = distributed.process_index()
-    dev = (distributed.local_device() if devices is None
-           else resolve_device(devices[rank]))
-    mesh = Mesh(shape, [dev], grid=grid, rank=rank)
+    dev = distributed.local_device() if devices is None else devices[rank]
+    mesh = Mesh(shape, [resolve_device(dev)], grid=grid, rank=rank)
     mesh._groups = {}
     for ax in names:
         mesh.group(ax)
+    mesh.group("dp", "sp")  # the trainer's replica group, on every rank
     return mesh
 
 

@@ -1,5 +1,5 @@
 """The parameter server: the port of ``kubeml_tpu/ps/parameter_server.py``
-(threaded jobs on one card).
+(threaded jobs, on one card or over the ranks of a process group).
 
 The training lifecycle:
 
@@ -22,7 +22,20 @@ The training lifecycle:
   :meth:`stop_running_jobs` (shutdown: journals kept for the next boot);
 * :meth:`infer` on a live job answers from the job's merged weights of
   its last completed round (``TrainJob.infer``; an SPMD job answers
-  between its steps).
+  between its steps, and with 409 while it trains over ranks).
+
+Over ranks (``dist``, a ``DistContext`` of several ranks; JAX :173-230,
+583-667) the server runs on rank 0 and every other rank runs
+``engine.follower.run_follower``. A job thread takes ``_dist_lock`` (the
+ranks must issue their collectives in one order, so jobs over ranks run
+one at a time), announces the task (``{"cmd": "train"}`` on the store),
+waits at most ``dist_ack_timeout`` seconds for each follower's
+acknowledgement that it built the job, broadcasts ``go`` (or, when one
+could not, fails the job with a history naming "could not start"), arms
+the stall watchdog (``utils.watchdog.arm_stall_watchdog``) and runs the
+job. :meth:`announce_shutdown` releases the followers after
+:meth:`stop_running_jobs`. The port has no heartbeat monitor of hung
+threaded jobs; a job over ranks has the watchdog on every rank instead.
 
 The serving half serves a finished job from its exported checkpoint:
 
@@ -58,11 +71,12 @@ arguments, or a draft model that does not load) degrades to plain decode
 with a warning. Anything else raised while building a decoder propagates.
 
 Not ported yet, each refused with a 400 that names it: standalone job
-runners (``standalone_jobs``), meshes (``serving_mesh``: meshed serving,
-ROADMAP Queue 1 item 1), and serving a job's epoch checkpoints before its final export.
-Multi-host jobs, the heartbeat monitor of hung jobs, traces and the
-time-series store are not ported either. An unknown id is a 404. The
-server runs on the card unless given ``device="cpu"``.
+runners (``standalone_jobs``; over ranks JAX's own refusal), meshes
+(``serving_mesh``: meshed serving, ROADMAP Queue 1 item 1.4), and serving
+a job's epoch checkpoints before its final export. The heartbeat monitor
+of hung threaded jobs, traces and the time-series store are not ported
+either. An unknown id is a 404. The server runs on the card unless given
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -140,7 +154,7 @@ class ParameterServer:
                  config: Optional[Config] = None,
                  metrics: Optional[MetricsRegistry] = None, device=None,
                  store: Optional[ShardStore] = None,
-                 history_store: Optional[HistoryStore] = None):
+                 history_store: Optional[HistoryStore] = None, dist=None):
         self.cfg = config or get_config()
         self.registry = registry or FunctionRegistry(config=self.cfg)
         self.store = store or ShardStore(config=self.cfg)
@@ -159,6 +173,16 @@ class ParameterServer:
         # "entry", "decoder"}
         self._restored: List[dict] = []
         self._lock = threading.RLock()
+        # over ranks: this server runs on rank 0 and announces each job to
+        # the followers; jobs over ranks run one at a time (_dist_lock)
+        self.dist = dist if dist is not None and dist.size > 1 else None
+        self._dist_lock = threading.Lock()
+        self._dist_run = 0  # per-announcement nonce of the ack keys
+
+    @property
+    def world(self) -> int:
+        """The ranks a job of this server runs over."""
+        return 1 if self.dist is None else self.dist.size
 
     def bind_scheduler(self, scheduler) -> None:
         self.scheduler = scheduler
@@ -169,6 +193,11 @@ class ParameterServer:
         """``/start``: reserve the slot, load the function, start the job
         on a thread of its own. A failed start leaves a failed history."""
         if self.cfg.standalone_jobs:
+            if self.dist is not None:
+                raise KubeMLError(
+                    "standalone job runners are a single-host deployment "
+                    "mode; training over ranks runs jobs threaded on every "
+                    "rank", 400)
             raise _not_ported("standalone job runners (STANDALONE_JOBS)")
         req = task.parameters
         placeholder = self._reserve_slot(task)
@@ -184,11 +213,13 @@ class ParameterServer:
                 checkpoint_store=self._ckpt_store,
                 on_epoch_end=lambda state, jid=task.job_id:
                     self._epoch_end(jid, state),
-                on_metrics=self.metrics.update, device=self.device)
+                on_metrics=self.metrics.update, device=self.device,
+                dist=self.dist)
         except Exception as e:
             self._fail_start(task, e)
             raise
-        thread = threading.Thread(target=self._run_job,
+        runner = self._run_job if self.dist is None else self._run_job_dist
+        thread = threading.Thread(target=runner,
                                   args=(task, job, placeholder),
                                   name=f"job-{task.job_id}", daemon=True)
         placeholder.job = job
@@ -260,6 +291,59 @@ class ParameterServer:
             # expect: a thread abandoned by the preempt grace must not tear
             # down a resubmitted job that reused the id
             self._finish(task.job_id, expect=record)
+
+    def _run_job_dist(self, task: TrainTask, job,
+                      record: Optional[_JobRecord] = None) -> None:
+        """The job thread over ranks (JAX :583-637): serialized on the
+        dist lock, the task announced to the followers, each follower's
+        acknowledgement that it built the job awaited before anyone
+        enters a collective (a follower without the function or the
+        dataset fails the job here, instead of leaving the leader in a
+        collective it joined alone), then the job under the stall
+        watchdog."""
+        from ..utils.watchdog import arm_stall_watchdog
+
+        with self._dist_lock:
+            run = self._dist_run
+            self._dist_run += 1
+            self.dist.broadcast_obj({"cmd": "train", "task": task.to_dict(),
+                                     "run": run})
+            errs = []
+            for rank in range(1, self.dist.size):
+                ack = self.dist.get(f"kubeml/ack/{run}/{rank}",
+                                    timeout_s=self.cfg.dist_ack_timeout)
+                if ack is None:
+                    errs.append(f"rank {rank}: no job-start ack (timeout)")
+                elif ack != "ok":
+                    errs.append(f"rank {rank}: {ack}")
+            self.dist.broadcast_obj({"go": not errs})
+            if errs:
+                err = ("follower(s) could not start the job: "
+                       + "; ".join(errs))
+                log.error("job %s aborted before start: %s", task.job_id,
+                          err)
+                task.status = JobStateEnum.FAILED
+                self._ensure_failure_history(task.job_id, task.parameters,
+                                             err)
+                self._finish(task.job_id, expect=record)
+                return
+
+            def on_stall(reason: str) -> None:
+                if record is not None:
+                    record.keep_journal = True
+                self._ensure_failure_history(task.job_id, task.parameters,
+                                             reason)
+
+            # stamped now: the thread may have queued on the dist lock
+            # behind a long job
+            job.heartbeat = time.time()
+            guard = arm_stall_watchdog(job, self.cfg.function_timeout,
+                                       f"dist job {task.job_id} (leader)",
+                                       on_stall=on_stall)
+            try:
+                self._run_job(task, job, record)
+            finally:
+                guard.set()
 
     def _finish(self, job_id: str,
                 expect: Optional[_JobRecord] = None) -> bool:
@@ -524,6 +608,14 @@ class ParameterServer:
                 log.exception("stopping job failed")
             if record.update_box is not None:
                 record.update_box.event.set()
+
+    def announce_shutdown(self) -> None:
+        """Release the followers at shutdown (after
+        :meth:`stop_running_jobs`: a running job over ranks holds the dist
+        lock until its epoch ends)."""
+        if self.dist is not None:
+            with self._dist_lock:
+                self.dist.broadcast_obj({"cmd": "shutdown"})
 
     def finish_standalone(self, job_id: str, status: str = "",
                           error: Optional[str] = None) -> None:

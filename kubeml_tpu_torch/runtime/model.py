@@ -99,6 +99,13 @@ class KubeModel(ABC):
             self._module = self.build()
         return self._module
 
+    def rebind_mesh(self, mesh) -> None:
+        """Point the model at a new mesh and drop the built module, so the
+        next ``module`` access builds it again over the new mesh (the SPMD
+        job's elastic remesh; JAX :84)."""
+        self.mesh = mesh
+        self._module = None
+
     def _set_params(self, *, lr: float, batch_size: int, epoch: int, k: int,
                     task: str) -> None:
         self.lr = lr

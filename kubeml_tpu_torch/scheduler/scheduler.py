@@ -80,7 +80,7 @@ class Scheduler:
             request.validate()
         except ValueError as e:
             raise KubeMLError(str(e), 400)
-        request.options.check_ported()
+        request.options.check_ported(getattr(self.ps, "world", 1))
         with self._active_lock:
             if request.job_id and (
                     request.job_id in self._active_ids

@@ -15,14 +15,27 @@ its presence marks the checkpoint complete, so an interrupted save is
 invisible. bfloat16 leaves are stored as their 16-bit patterns (uint16)
 under the dtype string ``"bfloat16"``, as in the flat store.
 
-The port runs one process on one card: :meth:`ShardedCheckpointStore.save`
-writes ``shard-0.npz`` with every leaf whole (one slice at the origin),
-and :meth:`~ShardedCheckpointStore.restore` assembles every leaf on the
-host from whichever stored slices cover it, so a checkpoint the JAX
-package wrote from any mesh (many slices a leaf, one or many shard files)
-restores here, and one written here restores in JAX onto any mesh. Leaves
-come back as numpy arrays, bfloat16 ones as CPU ``torch.bfloat16``
-tensors; the caller moves them to its device.
+:meth:`ShardedCheckpointStore.save` over the ranks of a ``mesh`` (JAX
+:90-183) is collective: each rank passes its own shards (the Flax tree of
+a module built with the mesh) and writes ``shard-<rank>.npz`` with the
+slices it owns, possibly none. A leaf's slices are the distinct
+``interop.from_flax.leaf_block`` of the mesh's ranks; a slice several
+ranks hold (``dp`` and ``sp`` replicas, every leaf under ``sp``) is
+owned by the lowest of them, JAX's ``replica_id == 0``, so each is written
+once. Three ``barrier`` calls order the save (``ckpt-staged/``,
+``ckpt-clear/``, ``ckpt/``), and rank 0 publishes the manifest with
+``"processes"`` the world. Without a mesh one process writes
+``shard-0.npz`` with every leaf whole (one slice at the origin).
+
+:meth:`~ShardedCheckpointStore.restore` onto a ``mesh`` reads, on each
+rank, only the stored slices that overlap that rank's block of each leaf
+(npz members are read lazily, one member a slice), whatever mesh wrote
+them, and returns the rank's blocks; without a mesh it assembles every
+leaf whole on the host, as the serving path needs. So a checkpoint the
+JAX package wrote from any mesh (many slices a leaf, one or many shard
+files) restores here onto any mesh, and one written here restores in JAX
+onto any mesh. Leaves come back as numpy arrays, bfloat16 ones as CPU
+``torch.bfloat16`` tensors; the caller moves them to its device.
 """
 
 from __future__ import annotations
@@ -51,15 +64,31 @@ def _slice_key(path: str, start: Tuple[int, ...]) -> str:
     return f"{path}@{','.join(map(str, start))}"
 
 
+def _dotted(path: str) -> str:
+    """A stored leaf path's parameter name in the partition table
+    (``params/block_0/attn/query/kernel`` -> ``block_0.attn.query.kernel``)."""
+    parts = path.split("/")
+    return ".".join(parts[1:] if parts[0] == "params" else parts)
+
+
+def _mesh_coords(mesh) -> Dict[int, Dict[str, int]]:
+    """{rank: its coordinates} over the ranks of ``mesh``, ascending."""
+    coords = {int(r): dict(zip(mesh.axis_names, map(int, at)))
+              for at, r in np.ndenumerate(mesh.grid)}
+    return dict(sorted(coords.items()))
+
+
 @dataclass
 class ShardedCheckpoint:
-    """A restored sharded checkpoint (host leaves)."""
+    """A restored sharded checkpoint (host leaves); ``bytes_read`` counts
+    the stored slice bytes the restore read."""
 
     job_id: str
     tag: str
     variables: Dict[str, Any]
     epoch: int = 0
     meta: Dict[str, Any] = field(default_factory=dict)
+    bytes_read: int = 0
 
 
 class ShardedCheckpointStore:
@@ -71,6 +100,9 @@ class ShardedCheckpointStore:
         cfg = config or get_config()
         self.root = Path(root) if root is not None else cfg.checkpoints_dir
         self.root.mkdir(parents=True, exist_ok=True)
+        # this rank's last save: {"bytes": its slices' bytes, "seconds":
+        # the save's wall, barriers included}
+        self.last_save: Optional[Dict[str, float]] = None
 
     def _dir(self, job_id: str, tag: str) -> Path:
         if not job_id or "/" in job_id or job_id.startswith("."):
@@ -83,42 +115,73 @@ class ShardedCheckpointStore:
 
     def save(self, job_id: str, variables: Dict[str, Any], *,
              epoch: int = 0, tag: str,
-             meta: Optional[Dict[str, Any]] = None) -> Path:
-        """Write a nested-dict tree (numpy or torch leaves) as process 0's
-        shard, every leaf one whole slice, then publish the manifest.
+             meta: Optional[Dict[str, Any]] = None, mesh=None,
+             barrier: Optional[Callable[[str], None]] = None) -> Path:
+        """Write a nested-dict tree (numpy or torch leaves): without a
+        ``mesh``, every leaf whole as process 0's shard; over a mesh of
+        ranks, this rank's shards, of which it writes the slices it owns
+        (collective: every rank of the world calls it, ``barrier`` a
+        world barrier such as ``DistContext.barrier``). Rank 0 publishes
+        the manifest after the last barrier.
 
         A resave over an existing tag never tears the previous checkpoint
-        (JAX :146-183): the new shard is staged under a temporary name (a
-        failure there leaves the old checkpoint restorable), the old
-        manifest is unpublished, the staged shard renamed into place, and
-        the new manifest published. A crash in between reads as "no
-        checkpoint", never as a mix of old and new slices."""
+        (JAX :146-183): each rank stages its shard under a temporary name
+        (a failure there leaves the old checkpoint restorable), rank 0
+        unpublishes the old manifest, every rank renames its staged shard
+        into place, and rank 0 publishes the new manifest. A crash in
+        between reads as "no checkpoint", never as a mix of old and new
+        slices."""
+        from ..interop.from_flax import global_shape, leaf_block
+        from ..parallel import distributed
+
+        t0 = time.perf_counter()
+        rank = distributed.process_index() if mesh is not None else 0
+        coords = _mesh_coords(mesh) if mesh is not None else {0: {}}
         d = self._dir(job_id, tag)
         d.mkdir(parents=True, exist_ok=True)
         blobs: Dict[str, np.ndarray] = {}
         leaves: Dict[str, Dict[str, Any]] = {}
         for path, leaf in _flatten(variables):
             arr, dt = _host_leaf(leaf)
-            start = (0,) * arr.ndim
-            leaves[path] = {"shape": list(arr.shape), "dtype": dt,
-                            "slices": [{"start": list(start),
-                                        "shape": list(arr.shape),
-                                        "shard": 0}]}
-            blobs[_slice_key(path, start)] = arr
-        tmp = d / f".shard-0.{uuid.uuid4().hex}.npz"
+            name = _dotted(path)
+            shape = global_shape(name, arr.shape, mesh)
+            slices: Dict[Tuple[int, ...], Dict[str, Any]] = {}
+            for r, coord in coords.items():  # ascending: the lowest owns
+                start, size = leaf_block(name, shape, mesh, coord=coord)
+                slices.setdefault(start, {"start": list(start),
+                                          "shape": list(size), "shard": r})
+            leaves[path] = {"shape": list(shape), "dtype": dt,
+                            "slices": list(slices.values())}
+            if mesh is None or mesh.member:
+                mine, _ = leaf_block(name, shape, mesh)
+                if slices[mine]["shard"] == rank:
+                    blobs[_slice_key(path, mine)] = arr
+        tmp = d / f".shard-{rank}.{uuid.uuid4().hex}.npz"
         try:
             np.savez(tmp, **blobs)
-            (d / MANIFEST).unlink(missing_ok=True)
-            os.replace(tmp, d / "shard-0.npz")
+            if barrier is not None:  # every rank has staged its bytes
+                barrier(f"ckpt-staged/{job_id}/{tag}")
+            if rank == 0:
+                (d / MANIFEST).unlink(missing_ok=True)
+            if barrier is not None:  # no shard lands under a live manifest
+                barrier(f"ckpt-clear/{job_id}/{tag}")
+            os.replace(tmp, d / f"shard-{rank}.npz")
         except Exception:
             tmp.unlink(missing_ok=True)
             raise
-        manifest = {"job_id": job_id, "tag": tag, "epoch": int(epoch),
-                    "saved_at": time.time(), "processes": 1,
-                    "meta": meta or {}, "leaves": leaves}
-        tmpm = d / f".manifest.{uuid.uuid4().hex}"
-        tmpm.write_text(json.dumps(manifest))
-        os.replace(tmpm, d / MANIFEST)
+        if barrier is not None:
+            barrier(f"ckpt/{job_id}/{tag}")
+        if rank == 0:
+            manifest = {"job_id": job_id, "tag": tag, "epoch": int(epoch),
+                        "saved_at": time.time(),
+                        "processes": (1 if mesh is None
+                                      else distributed.process_count()),
+                        "meta": meta or {}, "leaves": leaves}
+            tmpm = d / f".manifest.{uuid.uuid4().hex}"
+            tmpm.write_text(json.dumps(manifest))
+            os.replace(tmpm, d / MANIFEST)
+        self.last_save = {"bytes": sum(b.nbytes for b in blobs.values()),
+                          "seconds": time.perf_counter() - t0}
         return d
 
     # --- read ---
@@ -153,8 +216,13 @@ class ShardedCheckpointStore:
         return json.loads(p.read_text())
 
     def restore(self, job_id: str, tag: str,
-                remap: Optional[Callable] = None) -> ShardedCheckpoint:
-        """Assemble the tree on the host.
+                remap: Optional[Callable] = None,
+                mesh=None) -> ShardedCheckpoint:
+        """Assemble the tree on the host: every leaf whole, or with a
+        ``mesh`` this rank's block of each leaf (its
+        ``interop.from_flax.leaf_block``), read from the stored slices that
+        overlap it only (JAX's restore with ``shardings``); the tree then
+        loads into a module built with the mesh.
 
         ``remap`` re-lays the tree out as it is read (JAX :235): a callable
         ``stored_path -> None | [(target_path, index_prefix)]``; None keeps
@@ -167,6 +235,9 @@ class ShardedCheckpointStore:
         before it renames anything, so an unchanged manifest proves the
         handles belong to it. A resave that got in between raises
         ``StorageError``."""
+        if mesh is not None and (remap is not None or not mesh.member):
+            raise ValueError("a restore onto a mesh takes no remap and "
+                             "needs a rank of the mesh")
         d = self._dir(job_id, tag)
         mpath = d / MANIFEST
         try:
@@ -201,6 +272,13 @@ class ShardedCheckpointStore:
             for tgt, (src, pre) in plan.items():
                 spec = specs[src]
                 index = None
+                if mesh is not None:
+                    from ..interop.from_flax import leaf_block
+
+                    start, size = leaf_block(_dotted(src), spec["shape"],
+                                             mesh)
+                    index = tuple(slice(a, a + n)
+                                  for a, n in zip(start, size))
                 if pre:
                     index = (tuple(slice(i, i + 1) for i in pre)
                              + tuple(slice(0, s)
@@ -216,7 +294,7 @@ class ShardedCheckpointStore:
             tag=manifest.get("tag", tag),
             variables=_unflatten(pairs),
             epoch=int(manifest.get("epoch", 0)),
-            meta=manifest.get("meta", {}))
+            meta=manifest.get("meta", {}), bytes_read=readers.bytes_read)
 
     def delete(self, job_id: str, tag: str) -> None:
         d = self._dir(job_id, tag)
@@ -280,6 +358,13 @@ class _ShardReaders:
     def __init__(self, d: Path):
         self.dir = d
         self._handles: Dict[int, Any] = {}
+        self.bytes_read = 0
+
+    def read(self, shard: int, key: str) -> np.ndarray:
+        """One stored slice (the npz member is read whole, on request)."""
+        arr = self.get(shard)[key]
+        self.bytes_read += arr.nbytes
+        return arr
 
     def get(self, shard: int):
         h = self._handles.get(shard)
@@ -317,7 +402,7 @@ def _assemble(readers: _ShardReaders, path: str, spec: Dict[str, Any],
         hi = tuple(min(a, b) for a, b in zip(req_stop, s_stop))
         if any(l >= h for l, h in zip(lo, hi)):
             continue  # no overlap
-        data = readers.get(sl["shard"])[_slice_key(path, s_start)]
+        data = readers.read(sl["shard"], _slice_key(path, s_start))
         src = tuple(slice(l - a, h - a) for l, h, a in zip(lo, hi, s_start))
         dst = tuple(slice(l - a, h - a) for l, h, a in zip(lo, hi, req_start))
         out[dst] = data[src]

@@ -114,7 +114,8 @@ def test_importing_the_port_loads_no_jax_module():
         "kubeml_tpu_torch.scheduler.transport, "
         "kubeml_tpu_torch.ps.transport, kubeml_tpu_torch.storage.service, "
         "kubeml_tpu_torch.storage.sharded_checkpoint, "
-        "kubeml_tpu_torch.engine.spmd_job\n"
+        "kubeml_tpu_torch.engine.spmd_job, kubeml_tpu_torch.engine.follower, "
+        "kubeml_tpu_torch.engine.failures\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
@@ -265,3 +266,38 @@ def test_multi_rank_entry_points_run_on_the_card_unless_asked(monkeypatch):
         init_distributed("localhost:1", 2, 0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_trainer(16, 32, depth=1, embed_dim=8, num_heads=1, vocab=11)
+
+
+@pytest.mark.parametrize("module", [
+    "engine/follower.py", "engine/spmd_job.py", "engine/failures.py",
+    "engine/job.py", "storage/sharded_checkpoint.py", "utils/watchdog.py",
+    "ps/parameter_server.py", "cluster.py", "cli.py", "api/types.py",
+    "api/config.py", "parallel/distributed.py", "parallel/mesh.py",
+    "interop/from_flax.py", "runtime/model.py", "scheduler/scheduler.py"])
+def test_spmd_job_over_ranks_modules_keep_their_own_copies(module):
+    """The follower loop, the SPMD job over ranks, the stall watchdog, the
+    sharded store written by every rank and the control plane over ranks
+    copy what they need of the JAX package's and do not import it."""
+    path = REPO / "kubeml_tpu_torch" / module
+    assert path.is_file()
+    assert not _offenders(path)
+
+
+def test_follower_entry_point_runs_on_the_card_unless_asked(monkeypatch):
+    """``python -m kubeml_tpu_torch.engine.follower`` needs the launch
+    variables, and its ranks are CUDA ranks unless asked for the CPU:
+    without a card it refuses before the rendezvous."""
+    from kubeml_tpu_torch.engine.follower import main
+
+    for var in ("KUBEML_COORDINATOR", "KUBEML_NUM_PROCESSES",
+                "KUBEML_PROCESS_ID"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(SystemExit, match="KUBEML_COORDINATOR"):
+        main([])
+    monkeypatch.setenv("KUBEML_COORDINATOR", "localhost:1")
+    monkeypatch.setenv("KUBEML_NUM_PROCESSES", "2")
+    monkeypatch.setenv("KUBEML_PROCESS_ID", "1")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main([])

@@ -21,7 +21,7 @@ weights (``interop.from_flax.shard_tree``):
   the JAX module;
 - decode, decode under sp and MoE over a mesh of several ranks raise,
   each naming its later ROADMAP item or JAX's message, and a training job
-  over several ranks is a 400 naming the SPMD job over ranks;
+  whose mesh does not fit the cluster's ranks is a 400;
 - ``chip_smoke.py``'s check of 17b (gradient norms by leaf against one
   rank's within ``MR_GRAD_RTOL``, the ranks' whole parameters bit-equal)
   passes sound world-2 meshes in bf16 and fails planted faults: a gradient
@@ -215,9 +215,15 @@ def test_mesh_refusals_name_their_later_items(ranks):
         assert r["decode"].startswith("NotImplementedError")
         assert "meshed serving" in r["decode"] and "ROADMAP" in r["decode"]
         assert "MoE expert sharding over ep" in r["moe"]
-    with pytest.raises(KubeMLError, match="SPMD job over ranks with "
-                       "followers and remesh") as e:
+    # a job over ranks runs now (the SPMD job over ranks): an sp=2 mesh is
+    # refused on one rank and accepted on a cluster of two, pp still
+    # refused with its item
+    with pytest.raises(KubeMLError, match="does not fit a cluster of 1") as e:
         TrainOptions(engine="spmd", mesh_shape={"sp": 2}).check_ported()
+    assert e.value.status_code == 400
+    TrainOptions(engine="spmd", mesh_shape={"sp": 2}).check_ported(2)
+    with pytest.raises(KubeMLError, match="the pipeline") as e:
+        TrainOptions(engine="spmd", mesh_shape={"pp": 2}).check_ported(2)
     assert e.value.status_code == 400
     TrainOptions(engine="spmd", mesh_shape={"sp": 1, "tp": 1}).check_ported()
 
