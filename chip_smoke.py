@@ -4,7 +4,8 @@ serving path, the GPT training path, K-AVG training, checkpoints served
 through the parameter server, the control plane, the encoders, MoE
 with the dense slot engine, the one-shot speculative ``generate`` and the
 SPMD job with sharded checkpoints, multi-rank SPMD (two ranks on the
-card over gloo), and the SPMD job over ranks through the control plane.
+card over gloo), the SPMD job over ranks through the control plane, and
+the pipeline over ``pp`` ranks.
 Run from the repo root::
 
     python3 chip_smoke.py
@@ -256,28 +257,30 @@ Phases, each reported on its own lines:
    within ``MR_SAME_TOL``) and the plain version on the card
    (``MR_ATTN_TOL``), each flash kernel launching once a rank a call
    under Ulysses and never under the ring; (b) the
-   long-context flagship (phase 8's configuration at full width, B 8 x L
-   2048, bf16, remat, AdamW 3e-4) trained 3 steps over ``sp=2`` (Ulysses),
+   long-context flagship (phase 8's configuration at full width cut to 4
+   blocks, B 8 x L 2048, bf16, remat, AdamW 3e-4) trained 3 steps over
+   ``sp=2`` (Ulysses),
    ``sp=2`` (ring), ``tp=2`` and ``dp=2`` from the weights (seed 0) and
    batch of a one-rank ``SPMDTrainer``: every step's loss within
    ``MR_LOSS_ATOL`` of the one-rank trainer's and equal on both ranks, the
    first step's gradient norm of every parameter within ``MR_GRAD_RTOL``
    of the one-rank trainer's, the parameters each rank holds whole
    bit-equal on both ranks after the last step, flash launches a rank a
-   step as in phase 8 (16/8/8) but none under the ring, the step's host ms on each rank and the collectives' share of a
+   step of 2 x depth, depth and depth (8/4/4) but none under the ring,
+   the step's host ms on each rank and the collectives' share of a
    profiled step (``kubeml::`` spans; gloo over host memory, not NVLink).
    No card run covers NCCL, a world above 2 or several cards;
 18. the SPMD job over ranks - two ranks share the card over gloo and
    start as ``kubeml start`` starts them: rank 0 runs ``LocalCluster``
    (HTTP on port 0), rank 1 ``engine.follower.run_follower``; the parent
    first runs the one-rank ``SPMDJob`` references from the same seed and
-   batches. The model is 16b's flagship at full width and ``DEPTH`` blocks
-   (Ulysses under sp) on 16b's token set (B 8, 4 steps an epoch, one eval
-   batch). (a) ``/train`` with ``engine="spmd"``, ``tp=2``, 2 epochs,
-   ``sharded_checkpoints``, ``checkpoint_every=1``: each epoch's train and
-   eval loss within ``MR_LOSS_ATOL`` of the one-rank job's, flash
-   launches a rank a step as phase 8's (16/8/8) with one eval forward an
-   epoch, the sharded final a file a rank (each tp-split leaf a half on
+   batches. The model is 16b's flagship at full width cut to
+   ``JR_DEPTH`` (4) blocks (Ulysses under sp) on 16b's token set (B 8, 4
+   steps an epoch, one eval batch). (a) ``/train`` with
+   ``engine="spmd"``, ``tp=2``, 2 epochs, ``sharded_checkpoints``,
+   ``checkpoint_every=1``: each epoch's train and eval loss within
+   ``MR_LOSS_ATOL`` of the one-rank job's, flash launches a rank a step
+   of 2 x depth, depth and depth (8/4/4) with one eval forward an epoch, the sharded final a file a rank (each tp-split leaf a half on
    each rank, every other leaf whole on rank 0, each slice in its owner's
    file only) under a manifest of ``processes`` 2, and the save's bytes
    and ms a rank; (b) the same job id resumed under ``sp=2`` for a third
@@ -295,7 +298,35 @@ Phases, each reported on its own lines:
    409, a job whose function rank 1 cannot load fails with "could not
    start" without a hang, and the shutdown releases the follower, whose
    process exits 0;
-19. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+19. the pipeline over ranks - two ranks share the card over gloo, rank 0
+   the control plane and rank 1 a follower, as in phase 18; the parent
+   first checks the kernels and runs the one-rank reference. (a) the
+   three flash kernels on one microbatch of the flagship's attention
+   (B 2, L 2048, H 8, D 64, causal) with no valid key, the pipeline's
+   fill bubbles, in bf16 and f32: out, dQ, dK and dV exactly 0 like their
+   plain versions, lse at most -1e29, no NaN; then ``PipelinedLM`` over
+   ``pp=2`` at the flagship's width (E 512, depth 8, vocab 32000, B 8 x L
+   2048, 4 microbatches, f32) against its ``reference_apply`` on one
+   rank (``PP_LM_TOL``), T x depth / 2 forward launches a rank; (b) the
+   flagship (E 512, depth 8, 8 heads, vocab 32000, L 2048, B 8, bf16,
+   remat, AdamW 3e-4) as ``PipelinedCausalLM(stages=2, microbatches=4)``
+   trained through ``/train`` with ``engine="spmd"``, ``mesh_shape={"pp":
+   2}``, ``sharded_checkpoints``, ``checkpoint_every=1`` on 16b's token
+   set for 2 epochs: each epoch's train and eval loss within
+   ``MR_LOSS_ATOL`` of the one-rank job's (every stage on the card, the
+   same seeded weights), the first step's gradient norm of every leaf
+   within ``MR_GRAD_RTOL`` of the one-rank job's, flash launches a rank
+   exactly as the schedule gives them (T = 5 ticks: 40/20/20 a step
+   under remat, 20 an eval batch), the step's host ms a rank and the
+   collectives' share of a profiled step; (c) resumed from ``ep00001``
+   for a third epoch (held against the one-rank continuation, the
+   history spliced exactly), the leaves every rank holds bit-equal on
+   both ranks, its 2-file stage-sharded final (each stage's slice in its
+   own rank's file) restored through ``flat_serving_remap(2, 4)`` into
+   the flat model and served through ``/generate`` in f32 and as a
+   sharded ``final-int8``, with tokens equal to an in-process
+   ``generate`` on the remapped weights, both serving kernels launched;
+20. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Any failure raises and the script exits non-zero; without a CUDA device it
 exits non-zero before printing any result.
@@ -4097,9 +4128,9 @@ def oneshot_spec(smi):
 
 
 def lc_module(tree):
-    """The flagship's f32 module on the card holding a restored tree; int8
-    projections take the plain ``int8_dot``, so the served tokens are held
-    against a path without the int8 kernel."""
+    """The flagship's f32 module on the card holding a restored tree (its
+    depth the tree's); int8 projections take the plain ``int8_dot``, so
+    the served tokens are held against a path without the int8 kernel."""
     from kubeml_tpu_torch.interop.from_flax import from_flax
     from kubeml_tpu_torch.models import CausalTransformer
     from kubeml_tpu_torch.models.layers import load_tree
@@ -4108,8 +4139,10 @@ def lc_module(tree):
 
     if is_quantized_storage(tree):
         tree = from_storage_tree(tree)
-    module = CausalTransformer(**LC_MODEL, device="cuda")
-    return load_tree(module, from_flax(tree), int8_impl="dot").eval()
+    flat = from_flax(tree)
+    depth = sum(name.endswith(".ln1.scale") for name in flat)
+    module = CausalTransformer(**dict(LC_MODEL, depth=depth), device="cuda")
+    return load_tree(module, flat, int8_impl="dot").eval()
 
 
 def lc_int8_check(smi, module, phase="16b"):
@@ -4315,8 +4348,10 @@ MR = dict(
               dtypes=(torch.bfloat16, torch.float32)),
     # (b) the long-context flagship at full width (phase 8's trainer:
     # benchmarks.longcontext.make_trainer), MR_STEPS steps on each mesh,
-    # the last under a profiler window
-    model=dict(vocab_size=32000, max_len=2048, embed_dim=512, depth=DEPTH,
+    # the last under a profiler window; depth cut from 8 to 4 blocks
+    # (width, heads, B and L kept) to keep the script within its time with
+    # phase 19
+    model=dict(vocab_size=32000, max_len=2048, embed_dim=512, depth=4,
                num_heads=FLASH_H, remat=True, dtype=torch.bfloat16),
     tokens=TRAIN_TOKENS, L=2048,
     meshes=(("sp=2 ulysses", dict(sp=2), "ulysses"),
@@ -4416,16 +4451,19 @@ def mr_attention(rank, cfg):
 
 def grad_norms(trainer):
     """``{parameter name: its gradient's norm}`` after a step, over the
-    whole leaf: a tp-sharded leaf's squares are summed over tp."""
+    whole leaf: a leaf sharded over tp (or a stage stack over pp) has its
+    squares summed over that axis."""
     from kubeml_tpu_torch.parallel.collectives import all_reduce_
 
     specs = trainer.module.partition_specs()
     names, params = zip(*trainer.module.named_parameters())
     sq = torch.stack([p.grad.double().square().sum() for p in params])
     if trainer.ranks is not None:
-        tp = torch.tensor(["tp" in specs[n] for n in names],
-                          device=sq.device)
-        sq = torch.where(tp, all_reduce_(sq * tp, trainer.ranks, "tp"), sq)
+        for ax in ("tp", "pp"):
+            split = torch.tensor([ax in specs[n] for n in names],
+                                 device=sq.device)
+            sq = torch.where(split, all_reduce_(sq * split, trainer.ranks,
+                                                ax), sq)
     return dict(zip(names, sq.sqrt().tolist()))
 
 
@@ -4437,12 +4475,13 @@ def grad_errors(norms, ref):
 
 def whole_digest(trainer):
     """(sha256 over the bytes of the parameters this rank holds whole, in
-    name order; their count)."""
-    tp = trainer.ranks.shape["tp"]
+    name order; their count): the leaves no mesh axis of size above 1
+    splits (under pp, the leaves every stage's rank holds)."""
+    shape = trainer.ranks.shape
     specs = trainer.module.partition_specs()
     h, n = hashlib.sha256(), 0
     for name, p in trainer.module.named_parameters():
-        if tp == 1 or "tp" not in specs[name]:
+        if not any(shape.get(ax, 1) > 1 for ax in specs[name] if ax):
             h.update(p.detach().reshape(-1).view(torch.uint8).cpu()
                      .numpy().tobytes())
             n += 1
@@ -4620,15 +4659,18 @@ def multirank_phase(smi, cfg=MR):
 # Two ranks share the H100 over gloo, as in phase 17, and start as ``kubeml
 # start`` starts them: rank 0 runs LocalCluster (HTTP on port 0), rank 1
 # the follower loop (engine.follower.run_follower). The model is phase 16b's
-# flagship at full width and DEPTH blocks, its sequence parallelism by
-# Ulysses, on 16b's token set (LC_TRAIN rows to train, 4 steps an epoch at
-# B 8, LC_TEST to validate, one eval batch an epoch).
+# flagship at full width, its sequence parallelism by Ulysses, cut from 8
+# to JR_DEPTH blocks (width, heads, B and L kept) to keep the script
+# within its time with phase 19, on 16b's token set (LC_TRAIN rows to
+# train, 4 steps an epoch at B 8, LC_TEST to validate, one eval batch an
+# epoch).
 JR_JOB, JR_ELASTIC, JR_BROKEN = "lc-ranks", "lc-elastic", "lc-nofn"
-JR_WORLD, JR_TIMEOUT_S, JR_SEED = 2, 900.0, 18
+JR_WORLD, JR_TIMEOUT_S, JR_SEED, JR_DEPTH = 2, 900.0, 18, 4
 JR_FN = LC_FN.replace("remat=True, dtype=dtype, mesh=self.mesh)",
                       "remat=True, dtype=dtype, mesh=self.mesh,\n"
-                      "                                 sp_impl=\"ulysses\")")
-assert "ulysses" in JR_FN
+                      "                                 sp_impl=\"ulysses\")"
+                      ).replace("depth=8,", f"depth={JR_DEPTH},")
+assert "ulysses" in JR_FN and f"depth={JR_DEPTH}," in JR_FN
 # 18e: a function rank 1 cannot load, as if its data root lacked it
 JR_BROKEN_FN = ("import os\n"
                 "if os.environ.get('KUBEML_PROCESS_ID', '0') != '0':\n"
@@ -4701,17 +4743,30 @@ def jr_reference(root):
     return out
 
 
-def jr_instrument(records):
-    """Count each SPMD job's flash launches on this rank (the counters set
-    to 0 at the job's start, read at its end) and keep what the job
-    measured: its last sharded save, the bytes its sharded restore read,
-    its remeshes' seconds, and the digest of the parameters it holds
-    whole."""
-    from kubeml_tpu_torch.engine.spmd_job import SPMDJob
+# the step job_instrument profiles (a job's second)
+PROFILED_STEP = 1
 
-    train = SPMDJob.train
+
+def job_instrument(records, profiled: bool = False):
+    """Record each SPMD job this rank runs: its flash launches (the
+    counters set to 0 at the job's start, read at its end), its last
+    sharded save and restore, its remeshes' seconds, the digest of the
+    leaves every rank holds whole, the first step's gradient norms by
+    leaf, each step's host ms and, with ``profiled``, the collectives' ms
+    in the first job's PROFILED_STEP (``kubeml::`` spans of a CPU
+    profiler window). Returns a function that undoes the
+    instrumentation."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeml_tpu_torch.engine.spmd_job import SPMDJob
+    from kubeml_tpu_torch.parallel.trainer import SPMDTrainer
+
+    train, step = SPMDJob.train, SPMDTrainer.train_step
+    state = {}
 
     def counted(job):
+        state.clear()
+        state.update(n=0, ms=[], profile=profiled and not records)
         reset_flash_counts()
         try:
             return train(job)
@@ -4722,9 +4777,33 @@ def jr_instrument(records):
                 restore_bytes=job.last_restore_bytes,
                 remesh_s=list(job.remesh_seconds),
                 digest=(whole_digest(t) if t is not None
-                        and t.ranks is not None else None)))
+                        and t.ranks is not None else None),
+                norms=state.get("norms"), ms=list(state["ms"]),
+                comm=state.get("comm")))
 
-    SPMDJob.train = counted
+    def stepped(trainer, batch, rng=None):
+        i = state.get("n", 0)
+        state["n"] = i + 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == PROFILED_STEP and state.get("profile"):
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                loss = step(trainer, batch, rng)
+                torch.cuda.synchronize()
+            state["comm"] = {e.key: e.cpu_time_total / 1e3
+                             for e in prof.key_averages()
+                             if e.key.startswith("kubeml::")}
+        else:
+            loss = step(trainer, batch, rng)
+            torch.cuda.synchronize()
+        state.setdefault("ms", []).append(1e3 * (time.perf_counter() - t0))
+        if i == 0:
+            state["norms"] = grad_norms(trainer)
+        return loss
+
+    SPMDJob.train, SPMDTrainer.train_step = counted, stepped
+    return lambda: (setattr(SPMDJob, "train", train),
+                    setattr(SPMDTrainer, "train_step", step))
 
 
 def jr_wait_started(cluster, jid):
@@ -4863,7 +4942,7 @@ def jr_rank(rank, out_dir, root, smi):
 
     kernels.library(build=False)
     records = []
-    jr_instrument(records)
+    job_instrument(records)
     if rank == 0:
         res = jr_leader(root, smi)
     else:
@@ -4873,30 +4952,33 @@ def jr_rank(rank, out_dir, root, smi):
     torch.save(res, Path(out_dir) / f"rank{rank}.pt")
 
 
-def jr_check_shards(a):
-    """18a's final export: a file a rank, the manifest's processes the
-    world, every tp-split leaf a half on each rank and every other leaf
-    whole on rank 0, each slice in its owner's file only."""
+def check_shards(final, shape):
+    """A final export written over the mesh ``shape`` (one rank a mesh
+    slot): a file a rank, the manifest's processes the world, each leaf's
+    slices the distinct ``leaf_block`` s of the ranks, each owned by the
+    lowest rank holding it and in its owner's file only. Returns (the
+    leaves split over an axis, the faults)."""
     from kubeml_tpu_torch.interop.from_flax import leaf_block
-    from kubeml_tpu_torch.models.gpt import partition_spec
 
-    man, files = a["manifest"], a["files"]
+    man, files = final["manifest"], final["files"]
+    world = math.prod(shape.values())
+    mesh = type("Slots", (), dict(shape=shape))
+    coords = [dict(zip(shape, map(int, np.unravel_index(
+        r, tuple(shape.values()))))) for r in range(world)]
     bad = []
-    if sorted(files) != [f"shard-{r}.npz" for r in range(JR_WORLD)]:
+    if sorted(files) != [f"shard-{r}.npz" for r in range(world)]:
         bad.append(f"shard files {sorted(files)}")
-    if man["processes"] != JR_WORLD:
+    if man["processes"] != world:
         bad.append(f"manifest processes {man['processes']}")
     split = 0
     for path, leaf in man["leaves"].items():
         name = ".".join(path.split("/")[1:])
-        tp = "tp" in partition_spec(name, len(leaf["shape"]))
-        split += tp
-        want = [(list(leaf_block(name, leaf["shape"], None)[0]), 0)]
-        if tp:
-            mesh = type("Tp2", (), dict(shape={"tp": 2}))
-            want = [(list(leaf_block(name, leaf["shape"], mesh,
-                                     coord={"tp": r})[0]), r)
-                    for r in range(JR_WORLD)]
+        owners = {}
+        for r, coord in enumerate(coords):  # ascending: the lowest owns
+            start = leaf_block(name, leaf["shape"], mesh, coord=coord)[0]
+            owners.setdefault(tuple(start), r)
+        want = [(list(start), r) for start, r in owners.items()]
+        split += len(want) > 1
         got = [(sl["start"], sl["shard"]) for sl in leaf["slices"]]
         if got != want:
             bad.append(f"{path}: slices {got}, want {want}")
@@ -4932,7 +5014,7 @@ def ranks_phase(smi, root):
         f"{ {k: round(v, 1) for k, v in lead['wall'].items()} }")
     bad = []
     steps = LC_TRAIN // LC_B
-    per_step = (2 * DEPTH, DEPTH, DEPTH)
+    per_step = (2 * JR_DEPTH, JR_DEPTH, JR_DEPTH)
 
     def job_counts(jid):
         """Per rank, the records of ``jid``'s runs, in order."""
@@ -4941,8 +5023,8 @@ def ranks_phase(smi, root):
     def want_flash(epochs):
         # each step's forward twice (remat), dQ and dK/dV once a block; one
         # validation forward an epoch
-        return (epochs * (steps * per_step[0] + DEPTH),
-                epochs * steps * DEPTH, epochs * steps * DEPTH)
+        return (epochs * (steps * per_step[0] + JR_DEPTH),
+                epochs * steps * JR_DEPTH, epochs * steps * JR_DEPTH)
 
     def held(tag, got, want):
         err = max(abs(a - b) for a, b in zip(got, want))
@@ -4959,14 +5041,14 @@ def ranks_phase(smi, root):
     ev = held("18a eval", a["val"], ref["a"][1])
     flash = [r[0]["flash"] for r in runs]
     saves = [r[0]["save"] for r in runs]
-    split, shard_bad = jr_check_shards(a)
+    split, shard_bad = check_shards(a, {"tp": JR_WORLD})
     bad += [f"18a {b}" for b in shard_bad]
     log(f"  18a {JR_JOB} tp=2 [{smi}]: /train engine=spmd, 2 epochs x "
         f"{steps} steps of B {LC_B} x L {LC_L} over {JR_WORLD} ranks: train "
         f"loss {a['train']} (one rank {ref['a'][0]}; largest difference "
         f"{ea:.2e}), eval loss {a['val']} (difference {ev:.2e}; tolerance "
         f"{MR_LOSS_ATOL}), parallelism {a['par']}; flash launches a rank "
-        f"{flash} (a step {per_step}, one eval forward an epoch of {DEPTH} "
+        f"{flash} (a step {per_step}, one eval forward an epoch of {JR_DEPTH} "
         f"fwd); sharded final: {sorted(a['files'])}, processes "
         f"{a['manifest']['processes']}, {split} tp-split leaves a half on "
         f"each rank, {a['size']} bytes; its save a rank "
@@ -5048,6 +5130,456 @@ def ranks_phase(smi, root):
     return tuple(total), served
 
 
+# --- phase 19: the pipeline over ranks ----------------------------------------
+
+# Two ranks share the H100 over gloo, as in phases 17-18: rank 0 runs
+# LocalCluster (HTTP on port 0), rank 1 the follower loop. The model is
+# phase 16b's flagship at full width as PipelinedCausalLM in PP_STAGES
+# stages of DEPTH / PP_STAGES blocks and PP_MICRO microbatches, trained on
+# 16b's token set (B 8, 4 steps an epoch, one eval batch); served flat.
+PP_JOB, PP_WORLD, PP_TIMEOUT_S, PP_SEED = "lc-pipe", 2, 900.0, 19
+PP_STAGES, PP_MICRO = 2, 4
+PP_TICKS = PP_MICRO + PP_STAGES - 1  # T = M + S - 1
+PP_FN = """
+import torch
+from kubeml_tpu_torch.data.dataset import KubeDataset
+from kubeml_tpu_torch.models.gpt import CausalTransformer
+from kubeml_tpu_torch.models.gpt_pipeline import (PipelinedCausalLM,
+                                                  flat_serving_remap)
+from kubeml_tpu_torch.parallel.trainer import adamw
+from kubeml_tpu_torch.runtime.model import KubeModel
+
+DIMS = dict(vocab_size=32000, max_len=2048, embed_dim=512, depth=8,
+            num_heads=8, remat=True)
+
+
+class LongContextPipe(KubeModel):
+    def __init__(self):
+        super().__init__(KubeDataset("lc-tokens"))
+
+    def build(self):
+        # trained in 2 stages with bf16 compute, served flat in f32
+        if self.task == "train":
+            return PipelinedCausalLM(**DIMS, stages=2, microbatches=4,
+                                     dtype=torch.bfloat16, mesh=self.mesh)
+        return CausalTransformer(**DIMS, mesh=self.mesh)
+
+    def serving_remap(self):
+        return flat_serving_remap(2, 4)
+
+    def configure_optimizers(self, params):
+        return adamw(self.lr)(params)
+"""
+# 19a: one microbatch of the flagship's attention with no valid key (the
+# fill's bubbles): B 2, L 2048, H 8, D 64, causal, bf16 and f32
+PP_MASKED = dict(B=LC_B // PP_MICRO, L=LC_L, H=FLASH_H, D=FLASH_D)
+# 19a: PipelinedLM at the flagship's width, f32, B 8 x L 2048, its logits
+# and final hidden states over pp=2 against its reference_apply on one
+# rank: both through the f32 flash kernels, the matmuls at other shapes
+# (microbatches of 2 rows against 8), so f32 sums in other orders: 1e-4 of
+# max(1, max |reference|)
+PP_LM = dict(vocab_size=LC_VOCAB, max_len=LC_L, embed_dim=512, depth=DEPTH,
+             num_heads=FLASH_H, microbatches=PP_MICRO)
+PP_LM_TOL = 1e-4
+
+
+def pp_masked_check(smi):
+    """19a: the three flash kernels on a batch whose keys are all padding,
+    against their plain versions: out, dQ, dK and dV exactly 0, lse at
+    most -1e29, nothing NaN. Returns the largest |kernel - plain|."""
+    from kubeml_tpu_torch.ops import flash_attention as fa
+
+    a = PP_MASKED
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator().manual_seed(PP_SEED)
+        mk = lambda: torch.randn(a["B"], a["L"], a["H"], a["D"],
+                                 generator=g).to(dtype).cuda()
+        q, k, v, do = mk(), mk(), mk(), mk()
+        valid = torch.zeros(a["B"], a["L"], device="cuda")
+        out, lse = fa._flash_fwd_cuda(q, k, v, valid, True)
+        ro, rl = fa.flash_attention_fwd_ref(q, k, v, valid, True)
+        dsum = fa._dsum(do, ro)
+        dq = fa._flash_dq_cuda(q, k, v, valid, rl, do, dsum, True)
+        dk, dv = fa._flash_dkv_cuda(q, k, v, valid, rl, do, dsum, True)
+        refs = fa.flash_attention_bwd_ref(q, k, v, valid, ro, rl, do, True)
+        torch.cuda.synchronize()
+        got = (out, dq, dk, dv)
+        err = max((x.float() - r.float()).abs().max().item()
+                  for x, r in zip(got, (ro,) + refs))
+        zero = all(torch.equal(x, torch.zeros_like(x))
+                   for x in got + (ro,) + refs)
+        finite = all(bool(torch.isfinite(x).all()) for x in got + (lse,))
+        low = bool((lse <= -1e29).all() and (rl <= -1e29).all())
+        log(f"  19a flash kernels on a batch with no valid key, B {a['B']} "
+            f"L {a['L']} H {a['H']} D {a['D']} causal, "
+            f"{str(dtype).split('.')[-1]} [{smi}]: out, dQ, dK, dV "
+            f"{'exactly 0' if zero else 'NOT 0'} (kernel and plain), lse "
+            f"max {lse.max().item():.3g} (plain {rl.max().item():.3g}), "
+            f"{'no NaN' if finite else 'NaN'}; max |kernel - plain| {err}")
+        if not (zero and finite and low and err == 0.0):
+            raise AssertionError(f"19a: fully masked rows through the "
+                                 f"{dtype} kernels: zero {zero}, finite "
+                                 f"{finite}, lse <= -1e29 {low}, error {err}")
+        worst = max(worst, err)
+        del q, k, v, do, out, lse, ro, rl, dq, dk, dv, refs
+    torch.cuda.empty_cache()
+    return worst
+
+
+def restack(tree, stages: int, layers: int):
+    """A one-stage ``PipelinedLM`` tree (``stages.layer_{i}.* [1, ...]``,
+    ``stages * layers`` blocks) as a ``stages``-stage model's
+    (``stages.layer_{j}.* [stages, ...]``: stage s holds blocks ``s *
+    layers`` to ``(s + 1) * layers - 1``)."""
+    out = {k: v for k, v in tree.items() if not k.startswith("stages.")}
+    for j in range(layers):
+        for name in [k for k in tree if k.startswith(f"stages.layer_{j}.")]:
+            leaf = name.split(".", 2)[2]
+            out[name] = torch.cat([tree[f"stages.layer_{s * layers + j}."
+                                        f"{leaf}"] for s in range(stages)])
+    return out
+
+
+def pp_lm_check(rank):
+    """19a on one rank: ``PipelinedLM`` over pp=2 from the weights of a
+    one-stage model drawn from PP_SEED (each rank draws them on the CPU
+    and keeps its stage), against that model's ``reference_apply`` on
+    this rank; the logits' largest error relative to max(1, max
+    |reference|), and the pipelined forward's flash launches."""
+    from kubeml_tpu_torch.interop.from_flax import shard_tree
+    from kubeml_tpu_torch.models.layers import load_tree
+    from kubeml_tpu_torch.parallel import pipeline as P
+    from kubeml_tpu_torch.parallel.mesh import make_mesh
+
+    one = P.PipelinedLM(None, seed=PP_SEED, device="cpu", **PP_LM)
+    tree = restack({n: p.detach() for n, p in one.named_parameters()},
+                   PP_STAGES, DEPTH // PP_STAGES)
+    mesh = make_mesh(pp=PP_STAGES)
+    m = P.PipelinedLM(mesh, device="cuda", **PP_LM)
+    load_tree(m, shard_tree(tree, mesh, spec_of=P.partition_spec))
+    ids = torch.from_numpy(np.random.default_rng(PP_SEED).integers(
+        1, LC_VOCAB, size=(LC_B, LC_L))).cuda()
+    ids[-1, -100:] = 0  # a padded tail
+    reset_flash_counts()
+    with torch.no_grad():
+        hidden = m(ids, return_hidden=True)
+        logits = m.lm_head(hidden)
+        torch.cuda.synchronize()
+        launches = flash_counts()
+        want = one.cuda().reference_apply(None, ids)
+    err = ((logits - want).abs().max() / want.abs().max().clamp_min(1.0)
+           ).item()
+    del one, m, want, logits, hidden
+    torch.cuda.empty_cache()
+    return dict(err=err, launches=launches)
+
+
+def pp_tokens():
+    """Phase 16b's token set."""
+    rng = np.random.default_rng(LC_SEED)
+    x = rng.integers(1, LC_VOCAB, size=(LC_TRAIN + LC_TEST, LC_L)
+                     ).astype(np.int32)
+    return x, np.zeros(len(x), np.int64)
+
+
+PP_OPTS = dict(sharded_checkpoints=True, checkpoint_every=1,
+               mesh_shape={"pp": PP_STAGES})
+
+
+def pp_reference(root):
+    """The one-rank SPMDJob of PP_FN (every stage on the card, the same
+    seeded weights and batches): 2 epochs with sharded checkpoints, then
+    resumed from ep00001 for a third; the first step's gradient norms by
+    leaf and each job's flash launches."""
+    from kubeml_tpu_torch.engine.spmd_job import SPMDJob
+    from kubeml_tpu_torch.functions.registry import FunctionRegistry
+    from kubeml_tpu_torch.storage import (CheckpointStore, HistoryStore,
+                                          ShardStore)
+
+    cfg = cp_config(root)
+    cfg.ensure_dirs()
+    x, y = pp_tokens()
+    ShardStore(config=cfg).create("lc-tokens", x[:LC_TRAIN], y[:LC_TRAIN],
+                                  x[LC_TRAIN:], y[LC_TRAIN:])
+    FunctionRegistry(config=cfg).create("lcpipe", PP_FN)
+    records = []
+    undo = job_instrument(records)
+    out = {}
+    try:
+        opts = dict(PP_OPTS, mesh_shape=None)
+        for key, epochs, more in (("a", 2, dict(save_model=False)),
+                                  ("c", 3, dict(resume=True,
+                                                save_model=False))):
+            req = jr_request("ref", epochs, fn="lcpipe", **opts, **more)
+            model = FunctionRegistry(config=cfg).load("lcpipe")
+            model._set_params(lr=req.lr, batch_size=req.batch_size, epoch=0,
+                              k=1, task="train")
+            h = SPMDJob("ref", req, model, store=ShardStore(config=cfg),
+                        history_store=HistoryStore(config=cfg),
+                        checkpoint_store=CheckpointStore(config=cfg),
+                        device="cuda").train()
+            out[key] = (list(h.train_loss), list(h.validation_loss))
+            del model
+            torch.cuda.empty_cache()
+    finally:
+        undo()
+    out["norms"] = records[0]["norms"]
+    out["flash"] = [r["flash"] for r in records]
+    out["ms"] = [r["ms"] for r in records]
+    return out
+
+
+def pp_leader(root, smi):
+    """Rank 0: the control plane; 19b's job and 19c's resume and serving
+    through HTTP."""
+    from kubeml_tpu_torch.cluster import LocalCluster
+    from kubeml_tpu_torch.controller import KubemlClient
+    from kubeml_tpu_torch.models.gpt_pipeline import flat_serving_remap
+    from kubeml_tpu_torch.serving.quant import INT8_TAG
+    from kubeml_tpu_torch.storage.sharded_checkpoint import (
+        ShardedCheckpointStore, apply_remap_host)
+
+    out = {"wall": {}}
+    cfg = cp_config(root)
+    x, y = pp_tokens()
+    remap = flat_serving_remap(PP_STAGES, DEPTH // PP_STAGES)
+    with LocalCluster(config=cfg) as cluster:
+        client = KubemlClient(cluster.controller_url, timeout=600)
+        client.datasets().create("lc-tokens", x[:LC_TRAIN], y[:LC_TRAIN],
+                                 x[LC_TRAIN:], y[LC_TRAIN:])
+        client.functions().create("lcpipe", PP_FN)
+        shards = ShardedCheckpointStore(root=cfg.checkpoints_dir)
+        for key, epochs, more in (("b", 2, dict(save_model=False)),
+                                  ("c", 3, dict(resume=True))):
+            t0 = time.monotonic()
+            client.networks().train(jr_request(PP_JOB, epochs, fn="lcpipe",
+                                               **PP_OPTS, **more))
+            h = cp_wait_job(cluster, PP_JOB)
+            out["wall"][key] = time.monotonic() - t0
+            out[key] = dict(train=list(h.train_loss),
+                            val=list(h.validation_loss),
+                            par=list(h.parallelism),
+                            epoch_s=list(h.epoch_duration),
+                            error=h.task.get("error"),
+                            tags=shards.tags(PP_JOB))
+        d = cfg.checkpoints_dir / PP_JOB / "final.shards"
+        man = shards.read_manifest(PP_JOB, "final")
+        files = {}
+        for p in sorted(d.glob("shard-*.npz")):
+            with np.load(p) as z:
+                files[p.name] = {k: z[k].shape for k in z.files}
+        out["c"].update(manifest=dict(processes=man["processes"],
+                                      leaves=man["leaves"]), files=files,
+                        size=sum(p.stat().st_size for p in d.iterdir()))
+        if cluster.ps._serving_source(PP_JOB)[0] != "sharded":
+            raise AssertionError("19c: the served final is not the sharded "
+                                 "export")
+        serve_rng = np.random.default_rng(PP_SEED + 1)
+        t0 = time.monotonic()
+        f32 = lc_serve(smi, "f32", client, apply_remap_host(
+            shards.restore(PP_JOB, "final").variables, remap), serve_rng,
+            job=PP_JOB, phase="19c")
+        client.checkpoints().quantize(PP_JOB)
+    qcfg = cp_config(root, serving_quantize="int8", int8_matmul=True)
+    with LocalCluster(config=qcfg) as cluster:
+        client = KubemlClient(cluster.controller_url, timeout=600)
+        if cluster.ps._serving_source(PP_JOB)[:2] != ("sharded", INT8_TAG):
+            raise AssertionError("19c: final-int8 is not the sharded export")
+        q = lc_serve(smi, "int8", client,
+                     shards.restore(PP_JOB, INT8_TAG).variables, serve_rng,
+                     job=PP_JOB, phase="19c")
+    out["wall"]["serve"] = time.monotonic() - t0
+    out["served"] = dict(f32=f32, int8=q)
+    return out
+
+
+def pp_rank(rank, out_dir, root, smi):
+    """One rank of phase 19 (started by ``parallel.distributed.spawn``),
+    as ``kubeml start`` starts a rank: the process group over gloo, the
+    kernels the parent built, 19a's PipelinedLM check, then the control
+    plane on rank 0 and the follower loop on rank 1 (two clusters: the
+    int8 serving boots a second one)."""
+    from kubeml_tpu_torch.engine.follower import run_follower
+    from kubeml_tpu_torch.parallel.distributed import init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(backend="gloo", device="cuda")
+    from kubeml_tpu_torch.ops import kernels
+
+    kernels.library(build=False)
+    res = dict(lm=pp_lm_check(rank))
+    records = []
+    job_instrument(records, profiled=True)
+    if rank == 0:
+        res.update(pp_leader(root, smi))
+    else:
+        res["followed"] = [run_follower(config=cp_config(root))
+                           for _ in range(2)]
+    res["jobs"] = records
+    torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+
+
+def pipeline_phase(smi, root):
+    """Phase 19 (see the module docstring). Returns the flash launches
+    (fwd, dq, dkv) of its path over ranks, summed over the ranks, and the
+    served (paged_attention, int8_matmul) launches."""
+    from kubeml_tpu_torch.parallel.distributed import spawn
+
+    t0 = time.monotonic()
+    masked_err = pp_masked_check(smi)
+    log(f"  19a {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    ref = pp_reference(Path(root) / "pipe-ref")
+    log(f"  19 one-rank SPMDJob of PipelinedCausalLM(stages={PP_STAGES}, "
+        f"microbatches={PP_MICRO}) [{smi}] ({time.monotonic() - t0:.1f} "
+        f"s): train/eval losses {ref['a']}, resumed {ref['c']}; flash "
+        f"launches {ref['flash']}; step ms "
+        f"{[[round(m, 1) for m in ms] for ms in ref['ms']]}")
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pp_") as tmp:
+        spawn(pp_rank, PP_WORLD, args=(tmp, str(Path(root) / "pipe"), smi),
+              timeout_s=PP_TIMEOUT_S)
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                 for r in range(PP_WORLD)]
+    lead = ranks[0]
+    log(f"  19 {PP_WORLD} ranks over gloo on {smi}: "
+        f"{time.monotonic() - t0:.1f} s, spawn included; walls (s) "
+        f"{ {k: round(v, 1) for k, v in lead['wall'].items()} }")
+    bad = []
+    local = DEPTH // PP_STAGES
+    steps = LC_TRAIN // LC_B
+    # a step: every tick's forward twice (remat), dQ and dK/dV once, on
+    # this rank's blocks; an eval batch: every tick's forward once
+    per_step = (2 * PP_TICKS * local, PP_TICKS * local, PP_TICKS * local)
+
+    def want_flash(epochs):
+        return (epochs * (steps * per_step[0] + PP_TICKS * local),
+                epochs * steps * per_step[1], epochs * steps * per_step[2])
+
+    # 19a: PipelinedLM over pp=2
+    lm = [r["lm"] for r in ranks]
+    errs = ", ".join("%.2e" % x["err"] for x in lm)
+    log(f"  19a PipelinedLM over pp={PP_STAGES} at the flagship's width "
+        f"(E {PP_LM['embed_dim']}, depth {DEPTH}, vocab {LC_VOCAB}, B "
+        f"{LC_B} x L {LC_L}, "
+        f"{PP_MICRO} microbatches, f32) against its reference_apply: logits "
+        f"error a rank {errs} of max(1, max |ref|) (tolerance "
+        f"{PP_LM_TOL}); flash launches a rank "
+        f"{[x['launches'] for x in lm]} (T {PP_TICKS} ticks x {local} "
+        f"blocks)")
+    for x in lm:
+        if not x["err"] <= PP_LM_TOL:
+            bad.append(f"19a PipelinedLM: error {x['err']}")
+        if x["launches"] != (PP_TICKS * local, 0, 0):
+            bad.append(f"19a PipelinedLM: flash launches {x['launches']}")
+    # 19b
+    runs = [[j for j in r["jobs"] if j["job"] == PP_JOB] for r in ranks]
+    b = lead["b"]
+    err_b = max(abs(p - q) for p, q in zip(b["train"] + b["val"],
+                                           ref["a"][0] + ref["a"][1]))
+    grads = [grad_errors(r[0]["norms"], ref["norms"]) for r in runs]
+    worst = sorted(grads[0], key=grads[0].get, reverse=True)[:3]
+    flash_b = [r[0]["flash"] for r in runs]
+    digests = [r[1]["digest"] for r in runs]
+    ms = [r[0]["ms"] for r in runs]
+    comm = [r[0]["comm"] or {} for r in runs]
+    plain = [[round(x, 1) for i, x in enumerate(m) if i != PROFILED_STEP]
+             for m in ms]
+    # the spans' ms over the median unprofiled step's (the profiler
+    # lengthens the step it watches on the host)
+    med = [float(np.median(p[1:])) for p in plain]
+    share = [sum(c.values()) / m for c, m in zip(comm, med)]
+    pshare = [c.get("kubeml::ppermute", 0.0) / m for c, m in zip(comm, med)]
+    log(f"  19b {PP_JOB} pp={PP_STAGES} [{smi}]: /train engine=spmd, 2 "
+        f"epochs x {steps} steps of B {LC_B} x L {LC_L} over {PP_WORLD} "
+        f"ranks, {PP_MICRO} microbatches (T {PP_TICKS}, bubble share "
+        f"{(PP_STAGES - 1) / PP_TICKS:.2f}): train loss {b['train']} (one "
+        f"rank {ref['a'][0]}), eval loss {b['val']} (one rank "
+        f"{ref['a'][1]}); largest difference {err_b:.2e} (tolerance "
+        f"{MR_LOSS_ATOL}); parallelism {b['par']}; first step's gradient "
+        f"norms by leaf against one rank's, relative, largest "
+        f"{', '.join(f'{n} {grads[0][n]:.2e}' for n in worst)} (tolerance "
+        f"{MR_GRAD_RTOL}, {len(grads[0])} leaves); flash launches a rank "
+        f"{flash_b} (a step {per_step}, an eval batch "
+        f"{(PP_TICKS * local, 0, 0)}); step host ms a rank {plain} "
+        f"(unprofiled; median past the first {med}), epoch s "
+        f"{b['epoch_s']}; the collectives of the profiled step "
+        f"{[round(x, 3) for x in share]} of a median step, ppermute "
+        f"{[round(x, 3) for x in pshare]} (ms by op, rank 0: "
+        f"{ {k: round(v, 1) for k, v in comm[0].items()} }; gloo over host "
+        f"memory, the card's queue drained before each span); checkpoints "
+        f"{b['tags']}")
+    if b["error"] or b["par"] != [PP_WORLD] * 2 or b["tags"] != [
+            "ep00000", "ep00001"]:
+        bad.append(f"19b: error {b['error']}, parallelism {b['par']}, "
+                   f"checkpoints {b['tags']}")
+    if not (all(np.isfinite(b["train"] + b["val"]))
+            and err_b <= MR_LOSS_ATOL):
+        bad.append(f"19b: losses {b['train']} {b['val']} against the one "
+                   f"rank's {ref['a']}")
+    for g in grads:
+        if set(g) != set(ref["norms"]) or not all(
+                e <= MR_GRAD_RTOL for e in g.values()):
+            bad.append(f"19b: gradient norms off one rank's: "
+                       f"{ {n: g[n] for n in worst} }")
+    if any(f != want_flash(2) for f in flash_b):
+        bad.append(f"19b: flash launches {flash_b}, want {want_flash(2)} "
+                   f"a rank")
+    # 19c
+    c = lead["c"]
+    flash_c = [r[1]["flash"] for r in runs]
+    read = [r[1]["restore_bytes"] for r in runs]
+    saves = [r[1]["save"] for r in runs]
+    err_c = abs(c["train"][2] - ref["c"][0][2])
+    staged, shard_bad = check_shards(c, {"pp": PP_STAGES})
+    bad += [f"19c {x}" for x in shard_bad]
+    log(f"  19c {PP_JOB} resumed from ep00001 [{smi}]: train loss "
+        f"{c['train']}, epoch 3 {c['train'][2]:.4f} against the one-rank "
+        f"continuation {ref['c'][0][2]:.4f} (difference {err_c:.2e}); "
+        f"history spliced "
+        f"{'exactly' if c['train'][:2] == b['train'] else 'NOT'}; each rank's restore read {read} bytes; flash launches a rank "
+        f"{flash_c}; the leaves every rank holds after it "
+        f"{'bit-equal' if len(set(digests)) == 1 else 'DIFFERENT'} on the "
+        f"ranks ({digests[0][1] if digests[0] else 0} leaves); sharded "
+        f"final {sorted(c['files'])}, processes "
+        f"{c['manifest']['processes']}, {staged} stage-stacked leaves a "
+        f"stage on each rank, {c['size']} bytes; its save a rank "
+        + "; ".join(f"rank {i}: {s['bytes']} bytes in "
+                    f"{1e3 * s['seconds']:.1f} ms" for i, s in enumerate(saves)
+                    if s))
+    if c["error"] or c["train"][:2] != b["train"] or len(c["train"]) != 3:
+        bad.append(f"19c: {c['error']}, {c['train']}")
+    if not err_c <= MR_LOSS_ATOL:
+        bad.append(f"19c: epoch 3 loss {c['train'][2]} against "
+                   f"{ref['c'][0][2]}")
+    if any(f != want_flash(1) for f in flash_c):
+        bad.append(f"19c: flash launches {flash_c}, want {want_flash(1)}")
+    if len(set(digests)) != 1 or digests[0] is None:
+        bad.append("19c: the ranks' replicated leaves differ")
+    if any(not n for n in read):
+        bad.append(f"19c: restore bytes {read}")
+    served = lead["served"]
+    log(f"  19c the 2-shard final through flat_serving_remap("
+        f"{PP_STAGES}, {local}), served from rank 0's PS: launches "
+        f"(paged_attention, int8_matmul) f32 {served['f32']}, int8 "
+        f"{served['int8']}; the follower ran {ranks[1]['followed']} jobs")
+    if served["f32"][0] <= 0 or min(served["int8"]) <= 0:
+        bad.append(f"19c: served launches {served}")
+    if ranks[1]["followed"] != [2, 0]:
+        bad.append(f"19: the follower ran {ranks[1]['followed']} jobs")
+    if bad:
+        raise AssertionError("phase 19: " + "; ".join(bad))
+    total = [0, 0, 0]
+    for cnt in flash_b + flash_c + [x["launches"] for x in lm]:
+        total = [t + n for t, n in zip(total, cnt)]
+    log(f"  19a kernels on fully masked rows: max |kernel - plain| "
+        f"{masked_err}")
+    return tuple(total), tuple(x + y for x, y in zip(served["f32"],
+                                                     served["int8"]))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one NVIDIA card",
@@ -5073,7 +5605,7 @@ def phases(root: str) -> int:
 
     # 1. device
     smi = nvidia_smi()
-    log("[1/19 device]")
+    log("[1/20 device]")
     log(smi)
     log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} devices "
@@ -5088,7 +5620,7 @@ def phases(root: str) -> int:
     spills = [f"{lines[i - 1].split('for ')[-1][:70]}: {ln.strip()}"
               for i, ln in enumerate(lines)
               if re.search(r"[1-9]\d* bytes (stack frame|spill)", ln)]
-    log(f"[2/19 build] {time.monotonic() - t0:.2f} s (nvcc "
+    log(f"[2/20 build] {time.monotonic() - t0:.2f} s (nvcc "
         f"{kernels.build_seconds:.2f} s), kernels with a stack frame or "
         f"spills: {len(spills)}")
     for ln in spills:
@@ -5104,7 +5636,7 @@ def phases(root: str) -> int:
     check_compiled(kernels.library()._name, build_log)
 
     # 3. kernels against their plain versions
-    log("[3/19 kernels]")
+    log("[3/20 kernels]")
     timer = Timer()
     g = torch.Generator().manual_seed(SEED)
     pa_rows = check_paged_attention(timer, g)
@@ -5112,7 +5644,7 @@ def phases(root: str) -> int:
     del timer
 
     # 4. serve f32: kernel engine, then the plain (gather) twin
-    log("[4/19 serve f32]")
+    log("[4/20 serve f32]")
     serve_tiny()
     reqs = workload(np.random.default_rng(SEED))
     model = gpt2_small()
@@ -5155,7 +5687,7 @@ def phases(root: str) -> int:
     del model
 
     # 5. serve int8: int8 weights through the kernel, int8 KV pages
-    log("[5/19 serve int8]")
+    log("[5/20 serve int8]")
     q_kw = dict(quantize="int8", int8_matmul=True, kv_quant="int8", **common)
     qdec = PagedBatchingDecoder(gpt2_small(), **q_kw)
     if (not qdec.int8_matmul or qdec.int8_matmul_impl != "cuda"
@@ -5204,20 +5736,20 @@ def phases(root: str) -> int:
     torch.cuda.empty_cache()
 
     # 6. speculative decoding and chunked prefill through both kernels
-    log("[6/19 spec + chunked]")
+    log("[6/20 spec + chunked]")
     t0 = time.monotonic()
     spec_launches = spec_phase(smi)
     log(f"  phase 6: {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     # 7. flash kernels against their plain versions, and the L sweep
-    log("[7/19 flash kernels]")
+    log("[7/20 flash kernels]")
     timer = Timer()
     flash_errs, sweep = check_flash(timer, g)
     del timer
 
     # 8. train: the kernel path, its profile, then the plain path
-    log("[8/19 train bf16]")
+    log("[8/20 train bf16]")
     krow, kcounts = train_run("kernel path", flash=True)
     want = (2 * DEPTH * krow["steps_run"], DEPTH * krow["steps_run"],
             DEPTH * krow["steps_run"])
@@ -5240,14 +5772,14 @@ def phases(root: str) -> int:
                              f"{pcounts}")
 
     # 9. f32: one step through the kernels against the plain path
-    log("[9/19 train f32 parity]")
+    log("[9/20 train f32 parity]")
     check_f32_step()
 
     # 10. K-AVG: the flagship at bench.py's configuration, the merge's
     # correctness, and TrainJob end to end; none of the five hand-written
     # kernels is on this path (convs, BatchNorm and dense layers run in
     # cuDNN and cuBLAS, as the JAX path runs them in XLA)
-    log("[10/19 k-avg]")
+    log("[10/20 k-avg]")
     reset_kernel_counts()
     log("  10a flagship: ResNet-18, CIFAR-10 shapes, bf16, uint8 inputs, "
         f"B {KAVG_B}, K {KAVG_K}, lr 0.1, SGD momentum 0.9")
@@ -5264,34 +5796,34 @@ def phases(root: str) -> int:
         raise AssertionError(f"the K-AVG path launched {counts}")
 
     # 11. serving resilience through both serving kernels
-    log("[11/19 resilience]")
+    log("[11/20 resilience]")
     t0 = time.monotonic()
     res_launches = resilience_phase(smi)
     log(f"  phase 11: {time.monotonic() - t0:.1f} s")
 
     # 12. checkpoints served through the parameter server
-    log("[12/19 checkpoint serving]")
+    log("[12/20 checkpoint serving]")
     t0 = time.monotonic()
     ckpt = checkpoint_phase(smi, root, run, qrun, kavg)
     ckpt_launches = ckpt["launches"]
     log(f"  phase 12: {time.monotonic() - t0:.1f} s")
 
     # 13. the control plane over HTTP: training, serving, SIGTERM
-    log("[13/19 control plane]")
+    log("[13/20 control plane]")
     t0 = time.monotonic()
     cp_launches = control_plane_phase(smi, root, run, qrun, ckpt, kavg)
     log(f"  phase 13: {time.monotonic() - t0:.1f} s")
 
     # 14. the encoders: the flash kernels at their shapes, BERT-base and
     # ViT-Tiny trained by K-AVG, VGG-11, a ViT TrainJob with transforms
-    log("[14/19 encoders]")
+    log("[14/20 encoders]")
     t0 = time.monotonic()
     enc_rows, enc_launches, bert_row, vit_row = encoder_phase(smi, root)
     log(f"  phase 14: {time.monotonic() - t0:.1f} s")
 
     # 15. MoE trained at bench_moe's width through the flash kernels and
     # served by the dense slot engine; GPT-2-small through the dense engine
-    log("[15/19 moe + dense engine]")
+    log("[15/20 moe + dense engine]")
     t0 = time.monotonic()
     moe_row, moe_errs, moe_times, moe_counts, dense_launches = moe_phase(
         smi, root, run)
@@ -5299,14 +5831,14 @@ def phases(root: str) -> int:
 
     # 16. the one-shot speculative generate through paged attention, and
     # the long-context flagship's SPMD job with sharded checkpoints
-    log("[16/19 one-shot spec + spmd job]")
+    log("[16/20 one-shot spec + spmd job]")
     t0 = time.monotonic()
     spec16, flash16, served16 = spec_spmd_phase(smi, root, krow["step_ms"])
     log(f"  phase 16: {time.monotonic() - t0:.1f} s")
 
     # 17. multi-rank SPMD: two gloo ranks on the card, attention and the
     # flagship's training over sp (Ulysses, ring), tp and dp
-    log("[17/19 multi-rank spmd]")
+    log("[17/20 multi-rank spmd]")
     t0 = time.monotonic()
     flash17 = multirank_phase(smi)
     log(f"  phase 17: {time.monotonic() - t0:.1f} s")
@@ -5314,13 +5846,23 @@ def phases(root: str) -> int:
     # 18. the SPMD job over ranks: two gloo ranks on the card, the
     # flagship trained through /train over tp=2, resumed over sp=2,
     # remeshed dp 2 -> 1 -> 2, its 2-shard final served
-    log("[18/19 spmd job over ranks]")
+    log("[18/20 spmd job over ranks]")
     t0 = time.monotonic()
     flash18, served18 = ranks_phase(smi, root)
     log(f"  phase 18: {time.monotonic() - t0:.1f} s")
 
     # 19. results
-    log("[19/19 results]")
+    # 19. the pipeline over ranks: two gloo ranks on the card, the fully
+    # masked flash check, PipelinedLM over pp=2, the flagship as
+    # PipelinedCausalLM trained through /train over pp=2, resumed, its
+    # stage-sharded final served flat
+    log("[19/20 pipeline over ranks]")
+    t0 = time.monotonic()
+    flash19, served19 = pipeline_phase(smi, root)
+    log(f"  phase 19: {time.monotonic() - t0:.1f} s")
+
+    # 20. results
+    log("[20/20 results]")
     pa = pa_rows[0]   # the decode step: L = 1, f32 arena
     mm = next(r for r in mm_rows if r["M"] == 8 and r["N"] == VOCAB
               and r["x"] == "float32")  # the lm_head at decode
@@ -5331,7 +5873,7 @@ def phases(root: str) -> int:
          "launches": (f32_launches + q_launches[0] + spec_launches[0]
                       + res_launches[0] + ckpt_launches[0]
                       + cp_launches[0] + spec16[0] + served16[0]
-                      + served18[0]),
+                      + served18[0] + served19[0]),
          "max_abs_err": pa["max_abs_err"], "ms": pa["ms"],
          "plain_ms": pa["plain_ms"], "bound_ms": pa["bound_ms"],
          "bound_by": pa["bound_by"], "library_ms": pa["library_ms"]},
@@ -5341,7 +5883,7 @@ def phases(root: str) -> int:
          "launches": (q_launches[1] + spec_launches[1] + res_launches[1]
                       + ckpt_launches[1] + cp_launches[1]
                       + dense_launches[1] + spec16[1] + served16[1]
-                      + served18[1]),
+                      + served18[1] + served19[1]),
          "max_abs_err": mm["max_abs_err"], "ms": mm["ms"],
          "plain_ms": mm["plain_ms"], "bound_ms": mm["bound_ms"],
          "bound_by": mm["bound_by"], "library_ms": mm["library_ms"]},
@@ -5351,9 +5893,10 @@ def phases(root: str) -> int:
     err_a = flash_errs[("a train", torch.bfloat16)]
     # launches: the training path of phase 8, the encoders' of phase 14,
     # the MoE LM's of phase 15, the SPMD job's of phase 16 and the ranks'
-    # of phases 17 and 18
+    # of phases 17, 18 and 19
     fwd_n, dq_n, dkv_n = (sum(c) for c in zip(
-        kcounts, enc_launches, moe_counts, flash16, flash17, flash18))
+        kcounts, enc_launches, moe_counts, flash16, flash17, flash18,
+        flash19))
     for name, line_no, count, err, ms, plain, lib in (
             ("flash_fwd", 120, fwd_n, err_a["out"], tr["fwd_ms"],
              tr["fwd_plain_ms"], tr["fwd_library_ms"]),
@@ -5373,9 +5916,10 @@ def phases(root: str) -> int:
         f"{prow['value']:.1f}")
     log(f"  flash launches: phase 8 {kcounts}, phase 14 {enc_launches}, "
         f"phase 15 {moe_counts}, phase 16 {flash16}, phase 17 {flash17}, "
-        f"phase 18 {flash18}; serving launches "
+        f"phase 18 {flash18}, phase 19 {flash19}; serving launches "
         f"(paged_attention, int8_matmul) of phase 16: one-shot spec {spec16}"
-        f", the SPMD final served {served16}; of phase 18 {served18}")
+        f", the SPMD final served {served16}; of phase 18 {served18}; of "
+        f"phase 19 {served19}")
     t = moe_times
     log(f"  flash at the MoE shape B {MOE_B} L {MOE_L} H {MOE_H} causal "
         f"(bf16): fwd {t['fwd_ms']:.4f} ms (plain {t['fwd_plain_ms']:.4f}, "

@@ -364,15 +364,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-worker per-round failure probability")
     t.add_argument("--engine", choices=["kavg", "spmd"], default="kavg",
                    help="kavg = elastic local SGD; spmd = mesh training "
-                        "(LLMs; one card)")
+                        "(LLMs; one card or the cluster's ranks)")
     t.add_argument("--priority", type=int, default=0,
                    help="priority class 0-1000 (higher pops first)")
     t.add_argument("--tenant", default="",
                    help="fair-share tenant")
     t.add_argument("--mesh", default=None,
                    help="kavg: the worker axis, e.g. worker=2; spmd: mesh "
-                        "axes of size 1 (a job over several ranks is not "
-                        "ported)")
+                        "axes over the cluster's ranks, e.g. tp=2 or "
+                        "pp=2,dp=2 (dp fills the rest; ep is not ported)")
     t.set_defaults(fn=cmd_train)
 
     i = sub.add_parser("infer", help="run inference against a trained job")

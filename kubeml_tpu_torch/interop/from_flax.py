@@ -5,13 +5,15 @@
 LeNet, VGG, ViT, BERT: ``params`` and ``batch_stats``). :func:`to_flax` and
 :func:`to_flax_variables` are their inverses: the port writes checkpoints
 in the Flax layout through them, so a checkpoint file never says which
-package wrote it. :func:`shard_tree` cuts a full flat tree into one
-rank's tensor-parallel shards by the port's partition table
-(``models.gpt.partition_spec``, JAX's ``_part`` specs); :func:`gather_tree`
-gathers a rank's shards back into whole leaves (collectively, on every
-rank), for the tests and for a save; :func:`leaf_block` is the global
-slice (start, shape) of a leaf that a rank's shard covers, from the same
-table, which the sharded checkpoints write and read by.
+package wrote it. :func:`shard_tree` (and :func:`shard_module`, on a
+module built whole) cuts a full flat tree into one rank's shards by the
+port's partition table (``models.gpt.partition_spec``, JAX's ``_part``
+specs: tensor-parallel columns or rows over ``tp``, a pipelined model's
+stage stack over ``pp``); :func:`gather_tree` gathers a rank's shards
+back into whole leaves (collectively, on every rank), for the tests and
+for a save; :func:`leaf_block` is the global slice (start, shape) of a
+leaf that a rank's shard covers, from the same table, which the sharded
+checkpoints write and read by.
 
 The port's modules carry Flax's parameter names and layouts (dense kernels
 ``[in, out]``, LayerNorm ``scale``/``bias``, ``token_embed.embedding``,
@@ -88,7 +90,12 @@ def conv_kernels(module: Optional[nn.Module]) -> Optional[Set[str]]:
 
 
 def _is_conv(name: str, t, convs: Optional[Set[str]]) -> bool:
-    return t.ndim == 4 if convs is None else name in convs
+    """Whether the leaf ``name`` is a conv kernel: a module's named conv
+    kernel, or without a module a 4-D leaf that is no pipelined stage
+    stack (``stages.*`` stacks dense leaves on a leading stage axis)."""
+    if convs is not None:
+        return name in convs
+    return t.ndim == 4 and not name.startswith("stages.")
 
 
 def from_flax_variables(variables: Mapping[str, Any],
@@ -171,22 +178,29 @@ def to_flax_variables(variables: Mapping[str, Mapping[str, Any]],
     return {c: convert(tree) for c, tree in variables.items()}
 
 
+def _split(spec, mesh):
+    """(dim, axis, axis size) of each dim of a leaf that ``spec`` splits
+    over a mesh axis of size above 1."""
+    if mesh is None:
+        return []
+    return [(d, ax, mesh.shape.get(ax, 1)) for d, ax in enumerate(spec)
+            if ax is not None and mesh.shape.get(ax, 1) > 1]
+
+
 def leaf_block(name: str, shape: Sequence[int], mesh,
                coord: Optional[Mapping[str, int]] = None,
                spec_of=None) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
     """(start, shape) of the part of the leaf ``name`` of global ``shape``
     that the rank at ``coord`` on ``mesh`` (default: this rank's) holds,
-    by the port's partition table: a leaf split over ``tp`` covers part
-    ``coord["tp"]`` of its split dim, every other leaf all of it."""
+    by the port's partition table: a dim split over ``tp`` (or a stage
+    axis over ``pp``) covers part ``coord[axis]`` of it, every other dim
+    all of it."""
     if spec_of is None:
         from ..models.gpt import partition_spec as spec_of
     start, size = [0] * len(shape), [int(n) for n in shape]
-    tp = 1 if mesh is None else mesh.shape.get("tp", 1)
-    spec = spec_of(name, len(shape))
-    if tp > 1 and "tp" in spec:
-        d = spec.index("tp")
-        size[d] //= tp
-        start[d] = (mesh.coord if coord is None else coord)["tp"] * size[d]
+    for d, ax, n in _split(spec_of(name, len(shape)), mesh):
+        size[d] //= n
+        start[d] = (mesh.coord if coord is None else coord)[ax] * size[d]
     return tuple(start), tuple(size)
 
 
@@ -197,11 +211,19 @@ def global_shape(name: str, shape: Sequence[int], mesh,
     if spec_of is None:
         from ..models.gpt import partition_spec as spec_of
     out = [int(n) for n in shape]
-    tp = 1 if mesh is None else mesh.shape.get("tp", 1)
-    spec = spec_of(name, len(shape))
-    if tp > 1 and "tp" in spec:
-        out[spec.index("tp")] *= tp
+    for d, _, n in _split(spec_of(name, len(shape)), mesh):
+        out[d] *= n
     return tuple(out)
+
+
+def _block(name: str, t: torch.Tensor, mesh, spec_of) -> torch.Tensor:
+    """This rank's block of the whole leaf ``t`` (a copy where it is cut,
+    ``t`` itself where it is whole)."""
+    start, size = leaf_block(name, t.shape, mesh, spec_of=spec_of)
+    for d, (a, n) in enumerate(zip(start, size)):
+        if n != t.shape[d]:
+            t = t.narrow(d, a, n).clone()
+    return t
 
 
 def shard_tree(flat: Mapping[str, Any], mesh,
@@ -210,22 +232,25 @@ def shard_tree(flat: Mapping[str, Any], mesh,
     rank's shards on ``mesh`` (each leaf's :func:`leaf_block`). The result
     loads into a model built with the same mesh
     (``models.layers.load_tree``)."""
-    out: Dict[str, torch.Tensor] = {}
-    for name, value in flat.items():
-        t = _tensor(value)
-        start, size = leaf_block(name, t.shape, mesh, spec_of=spec_of)
-        for d, (a, n) in enumerate(zip(start, size)):
-            if n != t.shape[d]:
-                t = t.narrow(d, a, n).clone()
-        out[name] = t
-    return out
+    return {name: _block(name, _tensor(value), mesh, spec_of)
+            for name, value in flat.items()}
+
+
+def shard_module(module: nn.Module, mesh, spec_of=None) -> nn.Module:
+    """Keep, in place, this rank's block of every parameter of a module
+    built whole (how the models built over a mesh cut themselves)."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            p.data = _block(name, p.data, mesh, spec_of)
+    return module
 
 
 def gather_tree(flat: Mapping[str, torch.Tensor], mesh,
                 spec_of=None) -> Dict[str, torch.Tensor]:
     """The inverse of :func:`shard_tree`: every leaf whole again, its
-    ``tp`` shards gathered from the ranks (collective: every rank of the
-    mesh calls it). Leaves come back on their device."""
+    ``tp`` (and ``pp``) shards gathered from the ranks (collective: every
+    rank of the mesh calls it, leaf by leaf in the same order). Leaves
+    come back on their device."""
     if spec_of is None:
         from ..models.gpt import partition_spec as spec_of
     from ..parallel.collectives import all_gather
@@ -233,7 +258,8 @@ def gather_tree(flat: Mapping[str, torch.Tensor], mesh,
     out: Dict[str, torch.Tensor] = {}
     with torch.no_grad():
         for name, t in flat.items():
-            spec = spec_of(name, t.dim())
-            out[name] = (all_gather(t.detach(), mesh, "tp", spec.index("tp"))
-                         if "tp" in spec else t.detach())
+            t = t.detach()
+            for d, ax, _ in _split(spec_of(name, t.dim()), mesh):
+                t = all_gather(t, mesh, ax, d)
+            out[name] = t
     return out

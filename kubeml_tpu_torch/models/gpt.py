@@ -75,8 +75,6 @@ path, as JAX's XLA path does. The cache is updated in place.
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -89,13 +87,10 @@ from ..parallel.collectives import all_gather, copy_to, psum
 from ..parallel.mesh import check_mesh
 from ..utils.device import resolve_device
 from .layers import (Dropout, Embed, LayerNorm, QuantizableDense,
-                     fold_in, make_generator, seed_of)
+                     fold_in, lecun_normal_, make_generator, seed_of)
 
 PAD_ID = 0
 
-# Flax lecun_normal: truncated normal on [-2, 2] std, rescaled so the
-# truncated distribution keeps variance 1/fan_in
-_TRUNC_STD = 0.87962566103423978
 
 
 def _tp(mesh) -> int:
@@ -149,11 +144,35 @@ _TP_SPECS = (
 
 def partition_spec(name: str, ndim: int) -> tuple:
     """The mesh axis of each dim of the parameter ``name`` (None: whole),
-    as ``flax.linen.get_partition_spec`` gives it for the JAX module."""
+    as ``flax.linen.get_partition_spec`` gives it for the JAX module. A
+    pipelined model's stacked stage leaf (``stages.layer_{j}.<leaf>``,
+    ``models.gpt_pipeline``) has ``pp`` on its leading stage axis, then
+    its block leaf's spec (JAX's ``nn.vmap`` with ``metadata_params``)."""
+    if name.startswith("stages."):
+        return ("pp",) + partition_spec(name[len("stages."):], ndim - 1)
     for suffix, spec in _TP_SPECS:
         if name == suffix or name.endswith(suffix):
             return spec
     return (None,) * ndim
+
+
+def init_weights_(module: nn.Module, seed: int) -> None:
+    """Initialise ``module``'s parameters as the Flax module does, in
+    their order, from a ``torch.Generator`` seeded with ``seed``:
+    normal(0.02) embeddings and ``pos_embed``, lecun-normal kernels (the
+    fan-in their second-to-last dim, so a stage-stacked ``[S, in, out]``
+    kernel is drawn as ``S`` kernels), MoE weights lecun-normal with every
+    axis but the last as fan-in (Flax's rule for an n-d kernel); every
+    other leaf keeps its value (unit scales, zero biases)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.endswith(("embedding", "pos_embed")):
+                p.normal_(0.0, 0.02, generator=g)
+            elif name.endswith("kernel"):
+                lecun_normal_(p, p.shape[-2], g)
+            elif name.endswith((".router", ".w_in", ".w_out")):
+                lecun_normal_(p, p.numel() // p.shape[-1], g)
 
 
 class CausalSelfAttention(nn.Module):
@@ -432,38 +451,12 @@ class CausalTransformer(nn.Module):
         self.ln_f = LayerNorm(embed_dim, ln_eps)
         self.lm_head = QuantizableDense(embed_dim, vocab_size, use_bias=False,
                                         dtype=dtype)
-        self._init_weights(seed)
-        if tp > 1:
-            self._shard(tp, self.mesh.coord["tp"])
+        init_weights_(self, seed)
+        if self.mesh is not None:
+            from ..interop.from_flax import shard_module  # imports serving
+
+            shard_module(self, self.mesh)
         self.to(dev)
-
-    def _init_weights(self, seed: int) -> None:
-        g = torch.Generator().manual_seed(seed)
-        with torch.no_grad():
-            for name, p in self.named_parameters():
-                if name.endswith("embedding") or name == "pos_embed":
-                    p.normal_(0.0, 0.02, generator=g)
-                elif name.endswith("kernel"):
-                    std = math.sqrt(1.0 / p.shape[0]) / _TRUNC_STD
-                    nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
-                                          generator=g)
-                elif name.endswith((".router", ".w_in", ".w_out")):
-                    # MoE weights: lecun_normal with every axis but the
-                    # last as fan-in, as Flax does for an n-d kernel
-                    std = (math.sqrt(p.shape[-1] / p.numel())
-                           / _TRUNC_STD)
-                    nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
-                                          generator=g)
-
-    def _shard(self, tp: int, index: int) -> None:
-        """Keep this rank's part of every parameter split over ``tp``."""
-        with torch.no_grad():
-            for name, p in self.named_parameters():
-                spec = partition_spec(name, p.dim())
-                if "tp" in spec:
-                    d = spec.index("tp")
-                    n = p.shape[d] // tp
-                    p.data = p.data.narrow(d, index * n, n).clone()
 
     def partition_specs(self):
         """``{parameter name: partition_spec}`` over every parameter."""

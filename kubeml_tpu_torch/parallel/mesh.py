@@ -30,8 +30,11 @@ its first use, which every rank of the world must reach at the same point
 of its program. Groups come from ``distributed.subgroup``, cached by their
 rank sets, so a mesh built again over the same ranks reuses its groups.
 
-A ``pp`` axis (the pipeline) and an ``ep`` axis (MoE expert sharding)
-above 1 are later items of the port (ROADMAP Queue 1 item 1) and raise.
+A ``pp`` axis holds the stages of a pipelined model
+(``parallel.pipeline``, ``models.gpt_pipeline``): its group carries the
+schedule's ``ppermute`` and the broadcast of the last stage's outputs.
+An ``ep`` axis (MoE expert sharding) above 1 is a later item of the port
+(ROADMAP Queue 1 item 1.3) and raises.
 """
 
 from __future__ import annotations
@@ -50,10 +53,7 @@ from ..utils.device import resolve_device
 AXIS_ORDER = ("dp", "pp", "ep", "sp", "tp")
 
 # the ROADMAP items of the axes the port does not shard yet
-_LATER_AXES = {
-    "pp": "the pipeline (parallel/pipeline.py, models/gpt_pipeline.py)",
-    "ep": "MoE expert sharding over ep",
-}
+_LATER_AXES = {"ep": "MoE expert sharding over ep"}
 
 
 def parse_mesh_spec(spec: str) -> Dict[str, int]:
@@ -185,7 +185,7 @@ def _later_axes(shape) -> None:
         if int(shape.get(ax, 1)) > 1:
             raise NotImplementedError(
                 f"mesh {shape}: a {ax} axis above 1 is {item}, a later item "
-                f"of the port (ROADMAP Queue 1 item 1)")
+                f"of the port (ROADMAP Queue 1 item 1.3)")
 
 
 def make_mesh(shape: Optional[Dict[str, int]] = None,
@@ -252,7 +252,7 @@ def make_mesh(shape: Optional[Dict[str, int]] = None,
 def check_mesh(mesh) -> Optional[torch.device]:
     """This rank's device on ``mesh`` (None for no mesh); raises for an
     object that is no :class:`Mesh`, a mesh of several ranks without its
-    process groups, or an axis the port does not shard yet."""
+    process groups, or an axis the port does not shard yet (``ep``)."""
     if mesh is None:
         return None
     if not isinstance(mesh, Mesh):

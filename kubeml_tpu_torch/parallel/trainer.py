@@ -27,8 +27,14 @@ parameters are replicated; the parameters replicated over ``tp`` already
 hold their whole gradient from the model's f/g pair
 (``collectives.copy_to``/``psum``), so ``tp`` gets no second reduction.
 AdamW then runs on the local shards: its update is elementwise, so it
-equals the unsharded update. Under ``remat`` the recomputed forward re-runs
-its collectives in the backward, in the same order on every rank. Over
+equals the unsharded update. A pipelined model (``models.gpt_pipeline``)
+over a ``pp`` axis needs no other rule: its stage stack is sharded over
+``pp`` and each rank computes the same loss from the outputs the model
+broadcasts over ``pp``, its replicated leaves holding their whole
+gradient through the model's own f/g pair (``parallel.pipeline``), so
+``pp`` gets no reduction either. Under ``remat`` the recomputed forward
+re-runs its collectives in the backward, in the same order on every
+rank. Over
 ranks the loss is ``lm_loss`` (a custom ``loss_fn`` sees one rank's
 logits only and raises) and MoE layers are not sharded (the model raises).
 

@@ -172,7 +172,16 @@ class KubeModel(ABC):
         """A restore-time re-layout of this model's checkpoints into the
         serving module's layout (``storage.sharded_checkpoint.
         apply_remap_host``: ``stored_path -> None | [(target_path,
-        index_prefix)]``), or None (default) when they already match."""
+        index_prefix)]``), or None (default) when they already match.
+
+        Override it where ``build()`` trains another module than it
+        serves: a function that trains ``models.gpt_pipeline.
+        PipelinedCausalLM`` (stage-stacked leaves) and serves the flat
+        ``CausalTransformer`` (``build()`` reads ``self.task``) returns
+        ``models.gpt_pipeline.flat_serving_remap(stages,
+        layers_per_stage)``. The parameter server applies it when it
+        loads a finished checkpoint for ``/infer`` and ``/generate``, and
+        the int8 quantizer before it quantizes."""
         return None
 
     def infer(self, variables: Variables, x: torch.Tensor) -> torch.Tensor:

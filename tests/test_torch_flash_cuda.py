@@ -160,6 +160,21 @@ def test_fully_masked_rows(card, dtype):
     assert all(torch.isfinite(t).all() for t in (out, dq, dk, dv))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [2048, 300])
+def test_batch_with_no_valid_key(card, dtype, L):
+    """A pipeline bubble: every key of every row padded (the rolled
+    validity buffer of ``models.gpt_pipeline`` on the fill's ticks), at
+    the flagship's microbatch (B 2, L 2048, 8 heads of 64, causal) and at
+    a ragged L: the forward, dQ and dK/dV kernels give exact zeros like
+    their plain versions, lse at most -1e29, and no NaN."""
+    out, lse, dq, dk, dv = run(card, 2, L, L, 8, 64, dtype, True,
+                               torch.zeros(2, L))
+    for t in (out, dq, dk, dv):
+        assert torch.equal(t, torch.zeros_like(t))
+    assert (lse <= -1e29).all() and torch.isfinite(lse).all()
+
+
 def encoder_valid(B, L):
     """BERT's trailing padding: 0-120 PAD keys a row (seeded), row 1
     keeping only [CLS]."""

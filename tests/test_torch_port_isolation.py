@@ -301,3 +301,41 @@ def test_follower_entry_point_runs_on_the_card_unless_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main([])
+
+
+@pytest.mark.parametrize("module", [
+    "parallel/pipeline.py", "models/gpt_pipeline.py", "parallel/__init__.py",
+    "models/gpt.py", "interop/from_flax.py", "parallel/mesh.py"])
+def test_pipeline_modules_keep_their_own_copies(module):
+    """The GPipe schedule, ``PipelinedLM``, ``PipelineTrainer`` and the
+    pipelined causal LM (with ``flat_serving_remap``) are among the
+    scanned sources and import nothing of JAX or the JAX package."""
+    path = REPO / "kubeml_tpu_torch" / module
+    assert path.is_file() and path in _port_sources()
+    assert not _offenders(path)
+
+
+def test_pipeline_entry_points_run_on_the_card_unless_asked(monkeypatch):
+    """``PipelinedLM`` and ``PipelinedCausalLM`` are built on the card
+    unless asked for the CPU; importing them loads no JAX module."""
+    from kubeml_tpu_torch.models.gpt_pipeline import PipelinedCausalLM
+    from kubeml_tpu_torch.parallel.pipeline import PipelinedLM
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: PipelinedLM(None, vocab_size=11, max_len=8,
+                                     embed_dim=8, depth=1, num_heads=2),
+                 lambda: PipelinedCausalLM(vocab_size=11, max_len=8,
+                                           embed_dim=8, depth=2,
+                                           num_heads=2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    PipelinedCausalLM(vocab_size=11, max_len=8, embed_dim=8, depth=2,
+                      num_heads=2, device="cpu")
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys\n"
+         "import kubeml_tpu_torch.models.gpt_pipeline, "
+         "kubeml_tpu_torch.parallel.pipeline\n"
+         f"sys.exit(any(m.split('.')[0] in {FORBIDDEN!r} "
+         "for m in sys.modules))\n"], cwd=REPO, capture_output=True,
+        text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -216,15 +216,14 @@ def test_mesh_refusals_name_their_later_items(ranks):
         assert "meshed serving" in r["decode"] and "ROADMAP" in r["decode"]
         assert "MoE expert sharding over ep" in r["moe"]
     # a job over ranks runs now (the SPMD job over ranks): an sp=2 mesh is
-    # refused on one rank and accepted on a cluster of two, pp still
-    # refused with its item
-    with pytest.raises(KubeMLError, match="does not fit a cluster of 1") as e:
-        TrainOptions(engine="spmd", mesh_shape={"sp": 2}).check_ported()
-    assert e.value.status_code == 400
-    TrainOptions(engine="spmd", mesh_shape={"sp": 2}).check_ported(2)
-    with pytest.raises(KubeMLError, match="the pipeline") as e:
-        TrainOptions(engine="spmd", mesh_shape={"pp": 2}).check_ported(2)
-    assert e.value.status_code == 400
+    # refused on one rank and accepted on a cluster of two, and so is a pp
+    # axis (the pipeline)
+    for axes in ({"sp": 2}, {"pp": 2}):
+        with pytest.raises(KubeMLError,
+                           match="does not fit a cluster of 1") as e:
+            TrainOptions(engine="spmd", mesh_shape=axes).check_ported()
+        assert e.value.status_code == 400
+        TrainOptions(engine="spmd", mesh_shape=axes).check_ported(2)
     TrainOptions(engine="spmd", mesh_shape={"sp": 1, "tp": 1}).check_ported()
 
 
