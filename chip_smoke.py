@@ -4,8 +4,8 @@ serving path, the GPT training path, K-AVG training, checkpoints served
 through the parameter server, the control plane, the encoders, MoE
 with the dense slot engine, the one-shot speculative ``generate`` and the
 SPMD job with sharded checkpoints, multi-rank SPMD (two ranks on the
-card over gloo), the SPMD job over ranks through the control plane, and
-the pipeline over ``pp`` ranks.
+card over gloo), the SPMD job over ranks through the control plane, the
+pipeline over ``pp`` ranks, and MoE expert parallelism over ``ep`` ranks.
 Run from the repo root::
 
     python3 chip_smoke.py
@@ -326,7 +326,43 @@ Phases, each reported on its own lines:
    the flat model and served through ``/generate`` in f32 and as a
    sharded ``final-int8``, with tokens equal to an in-process
    ``generate`` on the remapped weights, both serving kernels launched;
-20. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+20. MoE over ranks - two ranks share the card over gloo, as in phases
+   17-19; the parent first checks the kernels and runs the one-rank
+   references. (a) the three flash kernels at this phase's attention shape
+   (B 16, L 512, 6 heads of 64, causal: a tp=2 rank's heads, and a
+   Ulysses rank's) held as in phase 7 in bf16 and f32, with kernel /
+   plain / SDPA / bound ms; then ``bench_moe`` at full width and depth
+   (E 768, 12 blocks, 12 heads, vocab 32000, 8 experts, top-2, capacity
+   1.25, an MoE block every other block, B 16 x L 512, bf16, AdamW 3e-4)
+   trained 3 steps by ``SPMDTrainer`` over ``ep=2`` (each rank 4 experts),
+   and at ``MOE_DEPTH`` over ``dp=2``, ``tp=2`` and ``sp=2`` (Ulysses),
+   from the weights, batch and step seeds of a one-rank trainer
+   (``MoEBench``): every loss within ``MR_LOSS_ATOL`` of the one-rank
+   trainer's and equal on both ranks, the overflow equal on both ranks
+   and reported beside the one-rank trainer's, over dp (the card's check
+   that capacity and queues read the global batch) the first step's
+   within ``MOE_EP_OVER_ATOL0`` of it and every step's within
+   ``MOE_EP_OVER_ATOL``, the first step's gradient norm
+   of every leaf within ``MR_GRAD_RTOL``, the leaves each rank holds whole
+   bit-equal on both ranks after the last step, flash launches exactly
+   depth/depth/depth a rank a step (12/12/12 over ep), the step's host ms
+   a rank and the collectives' share of a profiled step (``kubeml::``
+   spans); (b) ``MOE_EP_FN``'s model (``bench_moe`` at ``MOE_DEPTH``)
+   through ``/train`` with ``engine="spmd"``, ``mesh_shape={"ep": 2}``,
+   ``sharded_checkpoints``, ``checkpoint_every=1`` on a seeded uploaded
+   token set at L 512, 2 epochs of 4 steps at B 16 (rank 0 the control
+   plane, rank 1 a follower): each epoch's train and eval loss within
+   ``MR_LOSS_ATOL`` of the one-rank job's, the ``moe_overflow`` rank 0
+   pushes each epoch (reported beside the one-rank job's) on
+   ``/metrics``, flash launches a rank as the steps and eval batches
+   give them, the 2-file final with each expert stack a half (4 of the 8
+   experts) in its owner's file and every other leaf whole in rank 0's,
+   the save's bytes and ms a rank; resumed under ``dp=2`` for a third
+   epoch, held against the one-rank continuation; the ep-sharded final
+   assembled by rank 0's parameter server and served through
+   ``/generate`` by the dense engine in f32, with tokens equal to an
+   in-process ``generate`` on the assembled weights but for near ties;
+21. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Any failure raises and the script exits non-zero; without a CUDA device it
 exits non-zero before printing any result.
@@ -4451,15 +4487,15 @@ def mr_attention(rank, cfg):
 
 def grad_norms(trainer):
     """``{parameter name: its gradient's norm}`` after a step, over the
-    whole leaf: a leaf sharded over tp (or a stage stack over pp) has its
-    squares summed over that axis."""
+    whole leaf: a leaf sharded over tp (a stage stack over pp, an expert
+    stack over ep) has its squares summed over that axis."""
     from kubeml_tpu_torch.parallel.collectives import all_reduce_
 
     specs = trainer.module.partition_specs()
     names, params = zip(*trainer.module.named_parameters())
     sq = torch.stack([p.grad.double().square().sum() for p in params])
     if trainer.ranks is not None:
-        for ax in ("tp", "pp"):
+        for ax in ("tp", "pp", "ep"):
             split = torch.tensor([ax in specs[n] for n in names],
                                  device=sq.device)
             sq = torch.where(split, all_reduce_(sq * split, trainer.ranks,
@@ -5580,6 +5616,534 @@ def pipeline_phase(smi, root):
                                                      served["int8"]))
 
 
+# --- phase 20: MoE over ranks ------------------------------------------------
+
+# Two ranks share the H100 over gloo, as in phases 17-19; the parent checks
+# the kernels and runs the one-rank references first. (a) bench_moe
+# (kubeml_tpu/benchmarks/transformers.py:107-125: the GPT-2-small skeleton,
+# vocab 32000, L 512, 12 heads of 64, 8 experts, top-2, capacity 1.25, an
+# MoE block every other block, B 16, bf16, AdamW 3e-4) at full width and
+# depth (12 blocks, not cut) trained over ep=2, then at MOE_DEPTH over
+# dp=2, tp=2 and sp=2 (Ulysses), each from the weights (seed 0), batch and
+# step seeds of a one-rank trainer (benchmarks.transformers.MoEBench);
+# (b) MOE_FN's model at MOE_DEPTH as an SPMD job through /train over ep=2
+# with ep-sharded checkpoints, resumed under dp=2, its final served.
+MOE_EP_WORLD, MOE_EP_TIMEOUT_S, MOE_EP_SEED = 2, 900.0, 20
+MOE_EP_DEPTH = 12
+MOE_EP_MESHES = (("ep=2", dict(ep=2), "ring", MOE_EP_DEPTH),
+                 ("dp=2", dict(dp=2), "ring", MOE_DEPTH),
+                 ("tp=2", dict(tp=2), "ring", MOE_DEPTH),
+                 ("sp=2 ulysses", dict(sp=2), "ulysses", MOE_DEPTH))
+# (a) the flash kernels at this phase's attention shape: a tp=2 rank's 6
+# heads, and a Ulysses rank's after the all-to-all (B 16, L 512, D 64)
+MOE_EP_HEADS = MOE_H // 2
+# (a) dp=2 is the card's check of the global capacity: each rank computes
+# its 8 rows as one rank computes them (the first step's losses were
+# bit-equal on the card), so the first step's overflow must equal the
+# one-rank trainer's (1e-4: below 2 of the 16,384 top-2 assignments of a
+# layer), and every step's within 2e-3 (33 assignments: after a step the
+# bf16 weights differ by roundings and argmax near ties may flip). A
+# rank-local capacity routes each half against 640 slots of its own
+# instead of the global queue. Over ep, tp and sp the overflow is
+# reported beside the one-rank trainer's: their bf16 sums over ranks flip
+# near ties from the first step on.
+MOE_EP_OVER_ATOL0, MOE_EP_OVER_ATOL = 1e-4, 2e-3
+# (b) the job: 4 steps an epoch at B MOE_B, one eval batch, L MOE_L
+MOE_EP_JOB, MOE_EP_TRAIN, MOE_EP_TEST, MOE_EP_EPOCHS = "moe-ep", 64, 16, 2
+MOE_EP_FN = """
+import torch
+from kubeml_tpu_torch.data.dataset import KubeDataset
+from kubeml_tpu_torch.models.gpt import CausalTransformer
+from kubeml_tpu_torch.parallel.trainer import adamw
+from kubeml_tpu_torch.runtime.model import KubeModel
+
+
+class MoEEp(KubeModel):
+    def __init__(self):
+        super().__init__(KubeDataset("moe-tokens"))
+
+    def build(self):
+        # bf16 compute to train, f32 to serve
+        dtype = torch.bfloat16 if self.task == "train" else torch.float32
+        return CausalTransformer(vocab_size=%d, max_len=%d, embed_dim=768,
+                                 depth=%d, num_heads=12, moe_every=2,
+                                 num_experts=8, top_k=2, dtype=dtype,
+                                 seed=%d, mesh=self.mesh)
+
+    def configure_optimizers(self, params):
+        return adamw(self.lr)(params)
+""" % (MOE_VOCAB, MOE_L, MOE_DEPTH, SEED)
+# (b) the served requests: (rows, prompt tokens, new tokens)
+MOE_EP_SERVE = ((2, 32, 24), (1, 100, 32))
+
+
+def moe_ep_module(depth, mesh=None, impl="ring"):
+    """bench_moe's model at ``depth`` (MoEBench's seed, bf16), over
+    ``mesh`` or on the card."""
+    from kubeml_tpu_torch.benchmarks.harness import SEED as BENCH_SEED
+    from kubeml_tpu_torch.benchmarks.transformers import (MOE_ROUTING,
+                                                          MOE_WIDTHS)
+    from kubeml_tpu_torch.models.gpt import CausalTransformer
+
+    return CausalTransformer(max_len=MOE_L, **dict(MOE_WIDTHS, depth=depth),
+                             **MOE_ROUTING, mesh=mesh, sp_impl=impl,
+                             dtype=torch.bfloat16, seed=BENCH_SEED,
+                             device=None if mesh is not None else "cuda")
+
+
+def moe_ep_tokens():
+    """MoEBench's batch: [MOE_B, MOE_L] in [1, vocab), numpy seed 0."""
+    return np.random.default_rng(0).integers(
+        1, MOE_VOCAB, size=(MOE_B, MOE_L)).astype(np.int32)
+
+
+def moe_ep_steps(trainer, tokens, profiled: bool = False):
+    """MR_STEPS steps of ``trainer`` on ``tokens``, step s's router noise
+    from MoEBench's ``fold_in(SEED, s)``: the losses, each step's overflow
+    and host ms, the first step's gradient norms by leaf and, with
+    ``profiled``, the collectives' ms of the last step (``kubeml::``
+    spans of a CPU profiler window)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeml_tpu_torch.benchmarks.harness import SEED as BENCH_SEED
+    from kubeml_tpu_torch.models.layers import fold_in
+
+    out = dict(losses=[], overflow=[], ms=[], comm={})
+    for step in range(MR_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rng = fold_in(BENCH_SEED, step)
+        if profiled and step == MR_STEPS - 1:
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                loss = float(trainer.train_step(tokens, rng=rng))
+            out["comm"] = {e.key: e.cpu_time_total / 1e3
+                           for e in prof.key_averages()
+                           if e.key.startswith("kubeml::")}
+        else:
+            loss = float(trainer.train_step(tokens, rng=rng))
+        out["ms"].append(1e3 * (time.perf_counter() - t0))
+        out["losses"].append(loss)
+        out["overflow"].append(float(trainer.last_moe_overflow))
+        if step == 0:
+            out["norms"] = grad_norms(trainer)
+    return out
+
+
+def moe_ep_kernels(smi):
+    """20a's kernels: the three flash kernels at [MOE_B, MOE_L,
+    MOE_EP_HEADS, 64] causal against their plain versions in bf16 and f32,
+    kernel / plain / SDPA / bound ms in bf16. Returns the bf16 errors and
+    times."""
+    timer = Timer()
+    g = torch.Generator().manual_seed(SEED + 20)
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do, valid = flash_inputs(g, MOE_B, MOE_L, MOE_L, 64, dtype,
+                                          heads=MOE_EP_HEADS)
+        errs[dtype] = check_flash_case(f"k moe-ep {MOE_EP_HEADS} heads", q,
+                                       k, v, do, valid, True)
+        if dtype == torch.bfloat16:
+            times = flash_times(timer, q, k, v, do, valid, True)
+        del q, k, v, do, valid
+    log(f"  20a flash [{MOE_B}, {MOE_L}, {MOE_EP_HEADS}, 64] causal bf16 "
+        f"times [{smi}]: " + json.dumps(times))
+    del timer
+    torch.cuda.empty_cache()
+    return errs[torch.bfloat16], times
+
+
+def moe_ep_reference():
+    """The one-rank trainer at each depth of MOE_EP_MESHES (MoEBench's
+    weights, batch and step seeds), as ``moe_ep_steps`` reports it."""
+    from kubeml_tpu_torch.parallel.trainer import SPMDTrainer
+
+    tokens = moe_ep_tokens()
+    out = {}
+    for depth in sorted({m[3] for m in MOE_EP_MESHES}, reverse=True):
+        trainer = SPMDTrainer(moe_ep_module(depth), precision="bf16")
+        trainer.init(tokens)
+        out[depth] = moe_ep_steps(trainer, tokens)
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_ep_train(rank):
+    """20a on one rank: each mesh of MOE_EP_MESHES trained from the
+    one-rank trainer's weights, batch and seeds; per mesh what
+    ``moe_ep_steps`` reports, the flash launches, the digest of the whole
+    parameters after the last step and this rank's expert stack."""
+    from kubeml_tpu_torch.parallel.mesh import make_mesh
+    from kubeml_tpu_torch.parallel.trainer import SPMDTrainer
+
+    tokens = moe_ep_tokens()
+    out = {}
+    for tag, axes, impl, depth in MOE_EP_MESHES:
+        mesh = make_mesh(**axes)
+        trainer = SPMDTrainer(moe_ep_module(depth, mesh, impl), mesh,
+                              precision="bf16")
+        trainer.init(tokens)
+        reset_flash_counts()
+        row = moe_ep_steps(trainer, tokens, profiled=True)
+        row.update(launches=flash_counts(), digest=whole_digest(trainer),
+                   experts=tuple(trainer.module.block_1.moe.w_in.shape))
+        out[tag] = row
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_ep_data():
+    rng = np.random.default_rng(MOE_EP_SEED)
+    x = rng.integers(1, MOE_VOCAB, size=(MOE_EP_TRAIN + MOE_EP_TEST, MOE_L)
+                     ).astype(np.int32)
+    return x, np.zeros(len(x), np.int64)
+
+
+def moe_ep_request(job, epochs, **opts):
+    from kubeml_tpu_torch.api.types import TrainOptions, TrainRequest
+
+    return TrainRequest(
+        model_type="gpt", batch_size=MOE_B, epochs=epochs,
+        dataset="moe-tokens", lr=3e-4, function_name="moeep", job_id=job,
+        options=TrainOptions(engine="spmd", precision="bf16",
+                             validate_every=1, static_parallelism=True,
+                             sharded_checkpoints=True, checkpoint_every=1,
+                             **opts))
+
+
+def moe_ep_job_reference(root):
+    """The one-rank SPMDJob of MOE_EP_FN on the card from the same seed
+    and batches: 2 epochs with sharded checkpoints, resumed for a third;
+    each epoch's (train, eval) loss and MetricUpdate overflow."""
+    from kubeml_tpu_torch.engine.spmd_job import SPMDJob
+    from kubeml_tpu_torch.functions.registry import FunctionRegistry
+    from kubeml_tpu_torch.storage import (CheckpointStore, HistoryStore,
+                                          ShardStore)
+
+    cfg = cp_config(root)
+    cfg.ensure_dirs()
+    x, y = moe_ep_data()
+    n = MOE_EP_TRAIN
+    ShardStore(config=cfg).create("moe-tokens", x[:n], y[:n], x[n:], y[n:])
+    FunctionRegistry(config=cfg).create("moeep", MOE_EP_FN)
+    out = {}
+    for key, epochs, opts in (("a", MOE_EP_EPOCHS, {}),
+                              ("b", MOE_EP_EPOCHS + 1,
+                               dict(resume=True, save_model=False))):
+        req = moe_ep_request("ref", epochs, **opts)
+        model = FunctionRegistry(config=cfg).load("moeep")
+        model._set_params(lr=req.lr, batch_size=req.batch_size, epoch=0,
+                          k=1, task="train")
+        updates = []
+        h = SPMDJob("ref", req, model, store=ShardStore(config=cfg),
+                    history_store=HistoryStore(config=cfg),
+                    checkpoint_store=CheckpointStore(config=cfg),
+                    device="cuda", on_metrics=updates.append).train()
+        out[key] = dict(train=list(h.train_loss),
+                        val=list(h.validation_loss),
+                        overflow=[u.moe_overflow for u in updates])
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_ep_leader(root, smi):
+    """Rank 0: the control plane; 20b's ep=2 job, its resume under dp=2
+    and its final served, through HTTP. Each epoch's MetricUpdate and the
+    ``kubeml_job_moe_overflow`` line ``/metrics`` shows right after it."""
+    from kubeml_tpu_torch.cluster import LocalCluster
+    from kubeml_tpu_torch.controller import KubemlClient
+    from kubeml_tpu_torch.interop.from_flax import from_flax
+    from kubeml_tpu_torch.models.generation import generate
+    from kubeml_tpu_torch.models.layers import load_tree
+    from kubeml_tpu_torch.storage.sharded_checkpoint import \
+        ShardedCheckpointStore
+
+    out = {"wall": {}}
+    cfg = cp_config(root)
+    x, y = moe_ep_data()
+    n = MOE_EP_TRAIN
+    with LocalCluster(config=cfg) as cluster:
+        client = KubemlClient(cluster.controller_url, timeout=600)
+        client.datasets().create("moe-tokens", x[:n], y[:n], x[n:], y[n:])
+        client.functions().create("moeep", MOE_EP_FN)
+        metrics = cluster.ps.metrics
+        take = type(metrics).update.__get__(metrics)
+        updates = []
+
+        def update(u):
+            take(u)
+            text = http_text(f"{cluster.ps_api.url}/metrics")
+            updates.append(dict(
+                epoch=u.epoch, overflow=u.moe_overflow,
+                gauge=[ln for ln in text.splitlines() if ln.startswith(
+                    f'kubeml_job_moe_overflow{{jobid="{MOE_EP_JOB}"}}')]))
+
+        metrics.update = update
+        shards = ShardedCheckpointStore(root=cfg.checkpoints_dir)
+        for key, epochs, opts in (
+                ("b", MOE_EP_EPOCHS, dict(mesh_shape={"ep": 2})),
+                ("c", MOE_EP_EPOCHS + 1, dict(mesh_shape={"dp": 2},
+                                              resume=True,
+                                              save_model=False))):
+            t0 = time.monotonic()
+            client.networks().train(moe_ep_request(MOE_EP_JOB, epochs,
+                                                   **opts))
+            h = cp_wait_job(cluster, MOE_EP_JOB)
+            out["wall"][key] = time.monotonic() - t0
+            out[key] = dict(train=list(h.train_loss),
+                            val=list(h.validation_loss),
+                            par=list(h.parallelism),
+                            error=h.task.get("error"),
+                            tags=shards.tags(MOE_EP_JOB),
+                            metrics=list(updates))
+            updates.clear()
+        del metrics.update
+        d = cfg.checkpoints_dir / MOE_EP_JOB / "final.shards"
+        man = shards.read_manifest(MOE_EP_JOB, "final")
+        files = {}
+        for p in sorted(d.glob("shard-*.npz")):
+            with np.load(p) as z:
+                files[p.name] = {k: z[k].shape for k in z.files}
+        out["b"].update(manifest=dict(processes=man["processes"],
+                                      leaves=man["leaves"]), files=files,
+                        size=sum(p.stat().st_size for p in d.iterdir()))
+        # the ep-sharded final, assembled on this rank, served by the
+        # dense engine in f32; held against an in-process generate
+        if cluster.ps._serving_source(MOE_EP_JOB)[0] != "sharded":
+            raise AssertionError("20b: the served final is not the sharded "
+                                 "export")
+        t0 = time.monotonic()
+        module = load_tree(moe_f32(), from_flax(shards.restore(
+            MOE_EP_JOB, "final").variables)).eval()
+        rng = np.random.default_rng(MOE_EP_SEED + 1)
+        served = []
+        for rows, plen, new in MOE_EP_SERVE:
+            prompt = rng.integers(1, MOE_VOCAB, size=(rows, plen))
+            reply, wall = timed(lambda: client.networks().generate(
+                MOE_EP_JOB, prompt, max_new_tokens=new))
+            got = [t[:m] for t, m in zip(reply["tokens"], reply["lengths"])]
+            want = rows_of(generate(module, prompt, max_new_tokens=new))
+            ties = check_rows("20b f32", got, want, module, prompt)
+            served.append(dict(rows=rows, plen=plen, tokens=sum(map(
+                len, got)), ms=1e3 * wall, ties=ties))
+        with cluster.ps._lock:
+            engine = type(cluster.ps._decoders[MOE_EP_JOB][0]).__name__
+        out["served"] = dict(rows=served, engine=engine,
+                             s=time.monotonic() - t0)
+        del module
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_ep_rank(rank, out_dir, root, smi):
+    """One rank of phase 20 (started by ``parallel.distributed.spawn``):
+    the process group over gloo, the kernels the parent built, 20a's
+    meshes, then 20b as ``kubeml start`` runs a rank: the control plane
+    on rank 0 and the follower loop on rank 1."""
+    from kubeml_tpu_torch.engine.follower import run_follower
+    from kubeml_tpu_torch.parallel.distributed import init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(backend="gloo", device="cuda")
+    from kubeml_tpu_torch.ops import kernels
+
+    kernels.library(build=False)
+    res = dict(train=moe_ep_train(rank))
+    records = []
+    job_instrument(records)
+    if rank == 0:
+        res.update(moe_ep_leader(root, smi))
+    else:
+        res["followed"] = run_follower(config=cp_config(root))
+    res["jobs"] = records
+    torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+
+
+def moe_ep_phase(smi, root):
+    """Phase 20 (see the module docstring). Returns the flash launches
+    (fwd, dq, dkv) of its runs over ranks, summed over the ranks."""
+    from kubeml_tpu_torch.parallel.distributed import spawn
+
+    t0 = time.monotonic()
+    kerr, ktimes = moe_ep_kernels(smi)
+    ref = moe_ep_reference()
+    for depth, r in ref.items():
+        log(f"  20a one-rank bench_moe at depth {depth} [{smi}]: losses "
+            f"{r['losses']}, overflow {[round(o, 5) for o in r['overflow']]}"
+            f", step ms {[round(m, 1) for m in r['ms']]}")
+    jref = moe_ep_job_reference(Path(root) / "moe-ep-ref")
+    log(f"  20b one-rank SPMDJob: train/eval {jref['a']['train']} "
+        f"{jref['a']['val']}, resumed {jref['b']['train']}; overflow "
+        f"{jref['a']['overflow']} ({time.monotonic() - t0:.1f} s with 20a's "
+        f"kernels and references)")
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_ep_") as tmp:
+        spawn(moe_ep_rank, MOE_EP_WORLD,
+              args=(tmp, str(Path(root) / "moe-ep"), smi),
+              timeout_s=MOE_EP_TIMEOUT_S)
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                 for r in range(MOE_EP_WORLD)]
+    lead = ranks[0]
+    log(f"  20 {MOE_EP_WORLD} ranks over gloo on {smi}: "
+        f"{time.monotonic() - t0:.1f} s, spawn included; walls (s) "
+        f"{ {k: round(v, 1) for k, v in lead['wall'].items()} }")
+    bad = []
+    total = [0, 0, 0]
+    # 20a
+    for tag, axes, impl, depth in MOE_EP_MESHES:
+        want = ref[depth]
+        rows = [r["train"][tag] for r in ranks]
+        losses = [r["losses"] for r in rows]
+        err = max(abs(a - b) for a, b in zip(losses[0], want["losses"]))
+        over = max(abs(a - b) for a, b in zip(rows[0]["overflow"],
+                                              want["overflow"]))
+        over0 = abs(rows[0]["overflow"][0] - want["overflow"][0])
+        grad = grad_errors(rows[0]["norms"], want["norms"])
+        worst = sorted(grad, key=grad.get, reverse=True)[:3]
+        digests = [r["digest"] for r in rows]
+        launches = [r["launches"] for r in rows]
+        per_step = (MR_STEPS * depth,) * 3
+        share = [sum(r["comm"].values()) / r["ms"][-1] for r in rows]
+        # the profiler lengthens the step it watches on the host: the
+        # spans' ms over the unprofiled second step's too
+        steady = [sum(r["comm"].values()) / r["ms"][1] for r in rows]
+        log(f"  20a bench_moe depth {depth} {tag} [{smi}]: losses "
+            f"{losses[0]} (one rank {want['losses']}; largest difference "
+            f"{err:.2e}, tolerance {MR_LOSS_ATOL}); overflow "
+            f"{[round(o, 5) for o in rows[0]['overflow']]} (one rank "
+            f"{[round(o, 5) for o in want['overflow']]}; difference at the "
+            f"first step {over0:.2e}, largest {over:.2e}"
+            + (f"; tolerances {MOE_EP_OVER_ATOL0}, {MOE_EP_OVER_ATOL}"
+               if tag == "dp=2" else "")
+            + f"); first step's "
+            f"gradient norms by leaf against one rank's, relative: largest "
+            f"{', '.join(f'{n} {grad[n]:.2e}' for n in worst)} (tolerance "
+            f"{MR_GRAD_RTOL}, {len(grad)} leaves); whole parameters after "
+            f"step {MR_STEPS}: {digests[0][1]} leaves, "
+            f"{'bit-equal' if len(set(digests)) == 1 else 'DIFFERENT'} on "
+            f"the ranks; block_1 experts {rows[0]['experts']}; flash "
+            f"launches a rank {launches} over {MR_STEPS} steps; step host ms "
+            f"a rank " + "; ".join(
+                f"rank {i}: " + ", ".join(f"{m:.1f}" for m in r["ms"])
+                for i, r in enumerate(rows))
+            + f" (the last profiled); collectives' share of the profiled "
+            f"step {[round(s, 3) for s in share]}, their ms over the "
+            f"unprofiled second step's {[round(s, 3) for s in steady]} (ms "
+            f"by op, rank 0: "
+            f"{ {k: round(v, 1) for k, v in rows[0]['comm'].items()} }; "
+            f"gloo over host memory, not NVLink)")
+        if any(x != losses[0] for x in losses[1:]):
+            bad.append(f"20a {tag}: the ranks report other losses {losses}")
+        if not (all(np.isfinite(losses[0])) and err <= MR_LOSS_ATOL):
+            bad.append(f"20a {tag}: losses {losses[0]} against the one-rank "
+                       f"{want['losses']}")
+        if any(r["overflow"] != rows[0]["overflow"] for r in rows[1:]) or (
+                tag == "dp=2" and not (over0 <= MOE_EP_OVER_ATOL0
+                                       and over <= MOE_EP_OVER_ATOL)):
+            bad.append(f"20a {tag}: overflow {[r['overflow'] for r in rows]}"
+                       f" against the one-rank {want['overflow']}")
+        if set(grad) != set(want["norms"]) or not all(
+                e <= MR_GRAD_RTOL for e in grad.values()):
+            bad.append(f"20a {tag}: gradient norms off one rank's: "
+                       f"{ {n: grad[n] for n in worst} }")
+        if len(set(digests)) != 1:
+            bad.append(f"20a {tag}: the ranks' whole parameters differ")
+        if any(c != per_step for c in launches):
+            bad.append(f"20a {tag}: flash launches {launches}, want "
+                       f"{per_step} a rank")
+        for c in launches:
+            total = [t + n for t, n in zip(total, c)]
+    # 20b
+    runs = [[j for j in r["jobs"] if j["job"] == MOE_EP_JOB] for r in ranks]
+    b, c = lead["b"], lead["c"]
+    err_b = max(abs(p - q) for p, q in zip(
+        b["train"] + b["val"], jref["a"]["train"] + jref["a"]["val"]))
+    over_b = [m["overflow"] for m in b["metrics"]]
+    gauges = [m["gauge"] for m in b["metrics"]]
+    steps = MOE_EP_TRAIN // MOE_B
+    # a step: fwd, dq and dkv once a block (no remat); an eval batch: fwd
+    want_b = ((steps + 1) * MOE_DEPTH * MOE_EP_EPOCHS,
+              steps * MOE_DEPTH * MOE_EP_EPOCHS,
+              steps * MOE_DEPTH * MOE_EP_EPOCHS)
+    want_c = tuple(n // MOE_EP_EPOCHS for n in want_b)
+    flash_b = [r[0]["flash"] for r in runs]
+    flash_c = [r[1]["flash"] for r in runs]
+    saves = [r[0]["save"] for r in runs]
+    experts, shard_bad = check_shards(b, {"ep": MOE_EP_WORLD})
+    log(f"  20b {MOE_EP_JOB} ep={MOE_EP_WORLD} [{smi}]: /train engine=spmd, "
+        f"{MOE_EP_EPOCHS} epochs x {steps} steps of B {MOE_B} x L {MOE_L} "
+        f"at depth {MOE_DEPTH}: train loss {b['train']} (one rank "
+        f"{jref['a']['train']}), eval loss {b['val']} (one rank "
+        f"{jref['a']['val']}); largest difference {err_b:.2e} (tolerance "
+        f"{MR_LOSS_ATOL}); parallelism {b['par']}; moe_overflow pushed by "
+        f"rank 0 {over_b} (one rank {jref['a']['overflow']}), /metrics "
+        f"{gauges}; flash launches a rank {flash_b}; sharded final "
+        f"{sorted(b['files'])}, processes {b['manifest']['processes']}, "
+        f"{experts} leaves split (the expert stacks, a half of the experts "
+        f"a rank), {b['size']} bytes; its save a rank " + "; ".join(
+            f"rank {i}: {s['bytes']} bytes in {1e3 * s['seconds']:.1f} ms"
+            for i, s in enumerate(saves) if s) + f"; checkpoints {b['tags']}")
+    bad += [f"20b {x}" for x in shard_bad]
+    if b["error"] or b["par"] != [MOE_EP_WORLD] * MOE_EP_EPOCHS:
+        bad.append(f"20b: error {b['error']}, parallelism {b['par']}")
+    if not (all(np.isfinite(b["train"] + b["val"]))
+            and err_b <= MR_LOSS_ATOL):
+        bad.append(f"20b: losses {b['train']} {b['val']} against the one "
+                   f"rank's {jref['a']}")
+    if len(over_b) != MOE_EP_EPOCHS or not all(
+            0.0 <= o <= 1.0 for o in over_b):
+        bad.append(f"20b: moe_overflow {over_b}, one rank "
+                   f"{jref['a']['overflow']}")
+    if any(g != [f'kubeml_job_moe_overflow{{jobid="{MOE_EP_JOB}"}} {o}']
+           for g, o in zip(gauges, over_b)):
+        bad.append(f"20b: /metrics overflow lines {gauges}")
+    if experts != 2 * (MOE_DEPTH // 2):
+        bad.append(f"20b: {experts} split leaves, want the {MOE_DEPTH // 2} "
+                   f"MoE blocks' w_in and w_out")
+    if any(f != want_b for f in flash_b):
+        bad.append(f"20b: flash launches {flash_b}, want {want_b} a rank")
+    err_c = abs(c["train"][-1] - jref["b"]["train"][-1])
+    read = [r[1]["restore_bytes"] for r in runs]
+    log(f"  20b resumed from its ep-sharded checkpoint under dp="
+        f"{MOE_EP_WORLD} [{smi}]: train loss {c['train']}, epoch "
+        f"{MOE_EP_EPOCHS + 1} {c['train'][-1]:.4f} against the one-rank "
+        f"continuation {jref['b']['train'][-1]:.4f} (difference "
+        f"{err_c:.2e}); history spliced "
+        f"{'exactly' if c['train'][:-1] == b['train'] else 'NOT'}; each "
+        f"rank's restore read {read} bytes; flash launches a rank {flash_c}")
+    if c["error"] or c["train"][:-1] != b["train"] or not (
+            err_c <= MR_LOSS_ATOL):
+        bad.append(f"20b resume: {c['error']}, {c['train']} against "
+                   f"{jref['b']['train']}")
+    if any(f != want_c for f in flash_c) or any(not n for n in read):
+        bad.append(f"20b resume: flash launches {flash_c} (want {want_c}), "
+                   f"restore bytes {read}")
+    served = lead["served"]
+    log(f"  20b the ep-sharded final served from rank 0's PS by "
+        f"{served['engine']} in f32: " + ", ".join(
+            f"{s['rows']} x {s['plen']}-token prompts, {s['tokens']} tokens "
+            f"in {s['ms']:.1f} ms (near ties {s['ties'] or 'none'})"
+            for s in served["rows"])
+        + f"; tokens equal to the in-process generate on the assembled "
+        f"weights; {served['s']:.1f} s; the follower ran "
+        f"{ranks[1]['followed']} jobs")
+    if served["engine"] != "BatchingDecoder":
+        bad.append(f"20b: served by {served['engine']}")
+    if ranks[1]["followed"] != 2:
+        bad.append(f"20b: the follower ran {ranks[1]['followed']} jobs")
+    for cnt in flash_b + flash_c:
+        total = [t + n for t, n in zip(total, cnt)]
+    log(f"  20a flash kernels at [{MOE_B}, {MOE_L}, {MOE_EP_HEADS}, 64] "
+        f"causal: max abs err (bf16) "
+        + " ".join(f"{n} {e:.2e}" for n, e in kerr.items()))
+    if bad:
+        raise AssertionError("phase 20: " + "; ".join(bad))
+    return tuple(total), ktimes
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one NVIDIA card",
@@ -5605,7 +6169,7 @@ def phases(root: str) -> int:
 
     # 1. device
     smi = nvidia_smi()
-    log("[1/20 device]")
+    log("[1/21 device]")
     log(smi)
     log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} devices "
@@ -5620,7 +6184,7 @@ def phases(root: str) -> int:
     spills = [f"{lines[i - 1].split('for ')[-1][:70]}: {ln.strip()}"
               for i, ln in enumerate(lines)
               if re.search(r"[1-9]\d* bytes (stack frame|spill)", ln)]
-    log(f"[2/20 build] {time.monotonic() - t0:.2f} s (nvcc "
+    log(f"[2/21 build] {time.monotonic() - t0:.2f} s (nvcc "
         f"{kernels.build_seconds:.2f} s), kernels with a stack frame or "
         f"spills: {len(spills)}")
     for ln in spills:
@@ -5636,7 +6200,7 @@ def phases(root: str) -> int:
     check_compiled(kernels.library()._name, build_log)
 
     # 3. kernels against their plain versions
-    log("[3/20 kernels]")
+    log("[3/21 kernels]")
     timer = Timer()
     g = torch.Generator().manual_seed(SEED)
     pa_rows = check_paged_attention(timer, g)
@@ -5644,7 +6208,7 @@ def phases(root: str) -> int:
     del timer
 
     # 4. serve f32: kernel engine, then the plain (gather) twin
-    log("[4/20 serve f32]")
+    log("[4/21 serve f32]")
     serve_tiny()
     reqs = workload(np.random.default_rng(SEED))
     model = gpt2_small()
@@ -5687,7 +6251,7 @@ def phases(root: str) -> int:
     del model
 
     # 5. serve int8: int8 weights through the kernel, int8 KV pages
-    log("[5/20 serve int8]")
+    log("[5/21 serve int8]")
     q_kw = dict(quantize="int8", int8_matmul=True, kv_quant="int8", **common)
     qdec = PagedBatchingDecoder(gpt2_small(), **q_kw)
     if (not qdec.int8_matmul or qdec.int8_matmul_impl != "cuda"
@@ -5736,20 +6300,20 @@ def phases(root: str) -> int:
     torch.cuda.empty_cache()
 
     # 6. speculative decoding and chunked prefill through both kernels
-    log("[6/20 spec + chunked]")
+    log("[6/21 spec + chunked]")
     t0 = time.monotonic()
     spec_launches = spec_phase(smi)
     log(f"  phase 6: {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     # 7. flash kernels against their plain versions, and the L sweep
-    log("[7/20 flash kernels]")
+    log("[7/21 flash kernels]")
     timer = Timer()
     flash_errs, sweep = check_flash(timer, g)
     del timer
 
     # 8. train: the kernel path, its profile, then the plain path
-    log("[8/20 train bf16]")
+    log("[8/21 train bf16]")
     krow, kcounts = train_run("kernel path", flash=True)
     want = (2 * DEPTH * krow["steps_run"], DEPTH * krow["steps_run"],
             DEPTH * krow["steps_run"])
@@ -5772,14 +6336,14 @@ def phases(root: str) -> int:
                              f"{pcounts}")
 
     # 9. f32: one step through the kernels against the plain path
-    log("[9/20 train f32 parity]")
+    log("[9/21 train f32 parity]")
     check_f32_step()
 
     # 10. K-AVG: the flagship at bench.py's configuration, the merge's
     # correctness, and TrainJob end to end; none of the five hand-written
     # kernels is on this path (convs, BatchNorm and dense layers run in
     # cuDNN and cuBLAS, as the JAX path runs them in XLA)
-    log("[10/20 k-avg]")
+    log("[10/21 k-avg]")
     reset_kernel_counts()
     log("  10a flagship: ResNet-18, CIFAR-10 shapes, bf16, uint8 inputs, "
         f"B {KAVG_B}, K {KAVG_K}, lr 0.1, SGD momentum 0.9")
@@ -5796,34 +6360,34 @@ def phases(root: str) -> int:
         raise AssertionError(f"the K-AVG path launched {counts}")
 
     # 11. serving resilience through both serving kernels
-    log("[11/20 resilience]")
+    log("[11/21 resilience]")
     t0 = time.monotonic()
     res_launches = resilience_phase(smi)
     log(f"  phase 11: {time.monotonic() - t0:.1f} s")
 
     # 12. checkpoints served through the parameter server
-    log("[12/20 checkpoint serving]")
+    log("[12/21 checkpoint serving]")
     t0 = time.monotonic()
     ckpt = checkpoint_phase(smi, root, run, qrun, kavg)
     ckpt_launches = ckpt["launches"]
     log(f"  phase 12: {time.monotonic() - t0:.1f} s")
 
     # 13. the control plane over HTTP: training, serving, SIGTERM
-    log("[13/20 control plane]")
+    log("[13/21 control plane]")
     t0 = time.monotonic()
     cp_launches = control_plane_phase(smi, root, run, qrun, ckpt, kavg)
     log(f"  phase 13: {time.monotonic() - t0:.1f} s")
 
     # 14. the encoders: the flash kernels at their shapes, BERT-base and
     # ViT-Tiny trained by K-AVG, VGG-11, a ViT TrainJob with transforms
-    log("[14/20 encoders]")
+    log("[14/21 encoders]")
     t0 = time.monotonic()
     enc_rows, enc_launches, bert_row, vit_row = encoder_phase(smi, root)
     log(f"  phase 14: {time.monotonic() - t0:.1f} s")
 
     # 15. MoE trained at bench_moe's width through the flash kernels and
     # served by the dense slot engine; GPT-2-small through the dense engine
-    log("[15/20 moe + dense engine]")
+    log("[15/21 moe + dense engine]")
     t0 = time.monotonic()
     moe_row, moe_errs, moe_times, moe_counts, dense_launches = moe_phase(
         smi, root, run)
@@ -5831,14 +6395,14 @@ def phases(root: str) -> int:
 
     # 16. the one-shot speculative generate through paged attention, and
     # the long-context flagship's SPMD job with sharded checkpoints
-    log("[16/20 one-shot spec + spmd job]")
+    log("[16/21 one-shot spec + spmd job]")
     t0 = time.monotonic()
     spec16, flash16, served16 = spec_spmd_phase(smi, root, krow["step_ms"])
     log(f"  phase 16: {time.monotonic() - t0:.1f} s")
 
     # 17. multi-rank SPMD: two gloo ranks on the card, attention and the
     # flagship's training over sp (Ulysses, ring), tp and dp
-    log("[17/20 multi-rank spmd]")
+    log("[17/21 multi-rank spmd]")
     t0 = time.monotonic()
     flash17 = multirank_phase(smi)
     log(f"  phase 17: {time.monotonic() - t0:.1f} s")
@@ -5846,23 +6410,30 @@ def phases(root: str) -> int:
     # 18. the SPMD job over ranks: two gloo ranks on the card, the
     # flagship trained through /train over tp=2, resumed over sp=2,
     # remeshed dp 2 -> 1 -> 2, its 2-shard final served
-    log("[18/20 spmd job over ranks]")
+    log("[18/21 spmd job over ranks]")
     t0 = time.monotonic()
     flash18, served18 = ranks_phase(smi, root)
     log(f"  phase 18: {time.monotonic() - t0:.1f} s")
 
-    # 19. results
     # 19. the pipeline over ranks: two gloo ranks on the card, the fully
     # masked flash check, PipelinedLM over pp=2, the flagship as
     # PipelinedCausalLM trained through /train over pp=2, resumed, its
     # stage-sharded final served flat
-    log("[19/20 pipeline over ranks]")
+    log("[19/21 pipeline over ranks]")
     t0 = time.monotonic()
     flash19, served19 = pipeline_phase(smi, root)
     log(f"  phase 19: {time.monotonic() - t0:.1f} s")
 
-    # 20. results
-    log("[20/20 results]")
+    # 20. MoE over ranks: two gloo ranks on the card, bench_moe at full
+    # depth over ep=2 and at MOE_DEPTH over dp, tp and sp; a MoE job
+    # through /train over ep=2, resumed under dp=2, its final served
+    log("[20/21 moe over ranks]")
+    t0 = time.monotonic()
+    flash20, moe_ep_times = moe_ep_phase(smi, root)
+    log(f"  phase 20: {time.monotonic() - t0:.1f} s")
+
+    # 21. results
+    log("[21/21 results]")
     pa = pa_rows[0]   # the decode step: L = 1, f32 arena
     mm = next(r for r in mm_rows if r["M"] == 8 and r["N"] == VOCAB
               and r["x"] == "float32")  # the lm_head at decode
@@ -5893,10 +6464,10 @@ def phases(root: str) -> int:
     err_a = flash_errs[("a train", torch.bfloat16)]
     # launches: the training path of phase 8, the encoders' of phase 14,
     # the MoE LM's of phase 15, the SPMD job's of phase 16 and the ranks'
-    # of phases 17, 18 and 19
+    # of phases 17, 18, 19 and 20
     fwd_n, dq_n, dkv_n = (sum(c) for c in zip(
         kcounts, enc_launches, moe_counts, flash16, flash17, flash18,
-        flash19))
+        flash19, flash20))
     for name, line_no, count, err, ms, plain, lib in (
             ("flash_fwd", 120, fwd_n, err_a["out"], tr["fwd_ms"],
              tr["fwd_plain_ms"], tr["fwd_library_ms"]),
@@ -5916,7 +6487,8 @@ def phases(root: str) -> int:
         f"{prow['value']:.1f}")
     log(f"  flash launches: phase 8 {kcounts}, phase 14 {enc_launches}, "
         f"phase 15 {moe_counts}, phase 16 {flash16}, phase 17 {flash17}, "
-        f"phase 18 {flash18}, phase 19 {flash19}; serving launches "
+        f"phase 18 {flash18}, phase 19 {flash19}, phase 20 {flash20}; "
+        f"serving launches "
         f"(paged_attention, int8_matmul) of phase 16: one-shot spec {spec16}"
         f", the SPMD final served {served16}; of phase 18 {served18}; of "
         f"phase 19 {served19}")
@@ -5929,6 +6501,14 @@ def phases(root: str) -> int:
         f"{t['dkv_bound_ms']:.4f}), plain bwd {t['bwd_plain_ms']:.4f}, SDPA "
         f"bwd {t['bwd_library_ms']:.4f}; max abs err "
         + " ".join(f"{n} {e:.2e}" for n, e in moe_errs.items()))
+    t = moe_ep_times
+    log(f"  flash at the MoE-over-ranks shape B {MOE_B} L {MOE_L} H "
+        f"{MOE_EP_HEADS} causal (bf16): fwd {t['fwd_ms']:.4f} ms (plain "
+        f"{t['fwd_plain_ms']:.4f}, SDPA {t['fwd_library_ms']:.4f}, bound "
+        f"{t['fwd_bound_ms']:.4f} by {t['fwd_bound_by']}), dq "
+        f"{t['dq_ms']:.4f} (bound {t['dq_bound_ms']:.4f}), dkv "
+        f"{t['dkv_ms']:.4f} (bound {t['dkv_bound_ms']:.4f}), plain bwd "
+        f"{t['bwd_plain_ms']:.4f}, SDPA bwd {t['bwd_library_ms']:.4f}")
     log(f"  gpt-moe: {moe_row['value']:.1f} tokens/s, step "
         f"{moe_row['step_ms']:.3f} ms, {moe_row['mfu']:.4f} of the bf16 "
         f"peak; int8_matmul launches of phase 15 {dense_launches[1]}")

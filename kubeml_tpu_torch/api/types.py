@@ -160,9 +160,9 @@ class TrainOptions(_JsonMixin):
         the item of the port (ROADMAP Queue 1) that lifts it: an SPMD
         mesh that does not divide the world (``mesh_shape_for`` with
         ``dp`` filling the rest; a ``pp`` axis trains a pipelined model
-        over its ranks), an ``ep`` axis above 1 (MoE expert sharding,
-        item 1.3), and a K-AVG job over several ranks or with a mesh axis
-        other than ``worker`` above 1 (multi-card K-AVG, item 1.5)."""
+        over its ranks, an ``ep`` axis a MoE model's expert stacks), and a
+        K-AVG job over several ranks or with a mesh axis other than
+        ``worker`` above 1 (multi-card K-AVG, item 1.5)."""
         shape = dict(self.mesh_shape or {})
         if self.engine != "spmd":
             if world > 1:
@@ -177,11 +177,6 @@ class TrainOptions(_JsonMixin):
                     f"{shape} on a K-AVG job spans several devices "
                     f"(multi-card K-AVG, ROADMAP Queue 1 item 1.5)", 400)
             return
-        if int(shape.get("ep", 1)) > 1:
-            raise KubeMLError(
-                f"not ported to kubeml_tpu_torch yet: mesh_shape {shape} "
-                f"with ep > 1 (MoE expert sharding over ep, ROADMAP Queue 1 "
-                f"item 1.3)", 400)
         from ..parallel.mesh import mesh_shape_for
 
         try:

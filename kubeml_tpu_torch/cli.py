@@ -372,7 +372,7 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--mesh", default=None,
                    help="kavg: the worker axis, e.g. worker=2; spmd: mesh "
                         "axes over the cluster's ranks, e.g. tp=2 or "
-                        "pp=2,dp=2 (dp fills the rest; ep is not ported)")
+                        "ep=2,tp=2 (dp fills the rest)")
     t.set_defaults(fn=cmd_train)
 
     i = sub.add_parser("infer", help="run inference against a trained job")

@@ -41,14 +41,17 @@ store: stop at each epoch's top (no break mid-epoch, which would strand
 the others in a collective), the epoch's metrics (so every rank's history
 and goal checks agree), the elastic level, the preempt decision before
 the save branch, and the resume checkpoint. The leader alone pushes
-metrics, writes flat checkpoints (``_host_params`` gathers the ``tp``
-shards and a pipelined model's ``pp`` stages collectively first; only
+metrics (a MoE model's overflow among them, global on every rank),
+writes flat checkpoints (``_host_params`` gathers the ``tp`` shards, a
+pipelined model's ``pp`` stages and a MoE model's ``ep`` experts
+collectively first; only
 the disk write is non-fatal) and saves the history; a sharded save is
 written by every rank, each its own slices, behind three world
 barriers.
 
 The elastic remesh (JAX :422-494) resizes ``dp`` between epochs when the
-scheduler asks (``pp``, ``sp`` and ``tp`` stay as the request set them): :func:`spmd_elastic_device_count` with ``size`` the
+scheduler asks (``pp``, ``ep``, ``sp`` and ``tp``, the model axes, stay
+as the request set them): :func:`spmd_elastic_device_count` with ``size`` the
 number of hosts (every host contributes equally; on one host the first
 ``k`` ranks form the mesh, as JAX takes the first ``k`` devices of one
 process: with ``size`` the world the count could never fall below it).
@@ -445,7 +448,8 @@ class SPMDJob:
 
     def _host_params(self) -> Optional[dict]:
         """``{dotted name: CPU tensor}``, every leaf whole; collective over
-        the mesh's ranks (the ``tp`` shards and ``pp`` stages gathered).
+        the mesh's ranks (the ``tp`` shards, ``pp`` stages and ``ep`` expert
+        parts gathered).
         None off the mesh."""
         if not self.mesh.member:
             return None

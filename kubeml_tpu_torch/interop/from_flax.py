@@ -9,7 +9,8 @@ package wrote it. :func:`shard_tree` (and :func:`shard_module`, on a
 module built whole) cuts a full flat tree into one rank's shards by the
 port's partition table (``models.gpt.partition_spec``, JAX's ``_part``
 specs: tensor-parallel columns or rows over ``tp``, a pipelined model's
-stage stack over ``pp``); :func:`gather_tree` gathers a rank's shards
+stage stack over ``pp``, a MoE layer's expert stacks over ``ep`` and
+``tp``); :func:`gather_tree` gathers a rank's shards
 back into whole leaves (collectively, on every rank), for the tests and
 for a save; :func:`leaf_block` is the global slice (start, shape) of a
 leaf that a rank's shard covers, from the same table, which the sharded
@@ -192,9 +193,9 @@ def leaf_block(name: str, shape: Sequence[int], mesh,
                spec_of=None) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
     """(start, shape) of the part of the leaf ``name`` of global ``shape``
     that the rank at ``coord`` on ``mesh`` (default: this rank's) holds,
-    by the port's partition table: a dim split over ``tp`` (or a stage
-    axis over ``pp``) covers part ``coord[axis]`` of it, every other dim
-    all of it."""
+    by the port's partition table: a dim split over ``tp`` (a stage axis
+    over ``pp``, a MoE expert axis over ``ep``) covers part
+    ``coord[axis]`` of it, every other dim all of it."""
     if spec_of is None:
         from ..models.gpt import partition_spec as spec_of
     start, size = [0] * len(shape), [int(n) for n in shape]
@@ -248,7 +249,7 @@ def shard_module(module: nn.Module, mesh, spec_of=None) -> nn.Module:
 def gather_tree(flat: Mapping[str, torch.Tensor], mesh,
                 spec_of=None) -> Dict[str, torch.Tensor]:
     """The inverse of :func:`shard_tree`: every leaf whole again, its
-    ``tp`` (and ``pp``) shards gathered from the ranks (collective: every
+    ``tp`` (``pp``, ``ep``) shards gathered from the ranks (collective: every
     rank of the mesh calls it, leaf by leaf in the same order). Leaves
     come back on their device."""
     if spec_of is None:

@@ -25,10 +25,12 @@ gathered (``[B/dp, L/sp, vocab]``). Under ``sp`` the rank's positions are
 ``[coord_sp * L/sp, (coord_sp + 1) * L/sp)``, which ``pos_embed`` and
 RoPE use, and attention is ``parallel.ring`` or ``parallel.ulysses``
 (``sp_impl``); with ``sp == 1`` it is ``dot_product_attention`` over the
-rank's heads (the flash kernels on the card). Decode, the paged path and
-MoE under a mesh of several ranks raise (meshed serving and MoE ``ep``
-are later items, ROADMAP Queue 1 item 1). A mesh of one device only
-places the model.
+rank's heads (the flash kernels on the card). A MoE block's expert
+stacks are sharded over ``ep`` x ``tp`` (``parallel.moe``, JAX :415-556):
+its attention is the dense block's, its routing reads the global batch.
+Decode and the paged path under a mesh of several ranks raise (meshed
+serving, ROADMAP Queue 1 item 1.4). A mesh of one device only places the
+model.
 
 Training (:558-582): ``remat=True`` recomputes each block's forward in the
 backward (``torch.utils.checkpoint``, non-reentrant) on the non-decode
@@ -127,7 +129,8 @@ def _row(dense, x, mesh):
 
 
 # JAX's ``_part`` specs (kubeml_tpu/models/gpt.py :99, :402-407, :491-494,
-# :595) by parameter name; every other parameter is whole
+# :595; kubeml_tpu/parallel/moe.py :69-74 for the expert stacks) by
+# parameter name; every other parameter (the MoE router too) is whole
 _TP_SPECS = (
     (".attn.query.kernel", (None, "tp")),
     (".attn.key.kernel", (None, "tp")),
@@ -139,6 +142,8 @@ _TP_SPECS = (
     ("token_embed.embedding", (None, "tp")),
     ("pos_embed", (None, None, "tp")),
     ("lm_head.kernel", (None, "tp")),
+    (".moe.w_in", ("ep", None, "tp")),
+    (".moe.w_out", ("ep", "tp", None)),
 )
 
 
@@ -403,11 +408,6 @@ class CausalTransformer(nn.Module):
         self.mesh = mesh if mesh is not None and mesh.distributed else None
         tp = _tp(self.mesh)
         if self.mesh is not None:
-            if moe_every > 0:
-                raise NotImplementedError(
-                    "MoE over a mesh of several ranks is MoE expert sharding "
-                    "over ep, a later item of the port (ROADMAP Queue 1 "
-                    "item 1)")
             for what, n in (("num_heads", num_heads),
                             ("embed_dim", embed_dim),
                             ("vocab_size", vocab_size)):
@@ -440,7 +440,8 @@ class CausalTransformer(nn.Module):
                 block = MoEBlock(embed_dim, num_heads, num_experts,
                                  mlp_ratio, top_k, moe_capacity, dropout,
                                  dtype=dtype, rope=pos == "rope",
-                                 rope_theta=rope_theta)
+                                 rope_theta=rope_theta, mesh=self.mesh,
+                                 sp_impl=sp_impl)
             else:
                 block = GPTBlock(
                     embed_dim, num_heads, mlp_ratio, dtype=dtype,
@@ -508,7 +509,7 @@ class CausalTransformer(nn.Module):
             raise NotImplementedError(
                 f"decode over a mesh of several ranks ({mesh.shape}) is "
                 f"meshed serving (serving_mesh), a later item of the port "
-                f"(ROADMAP Queue 1 item 1)")
+                f"(ROADMAP Queue 1 item 1.4)")
         run_depth = self.depth if exit_layer is None else int(exit_layer)
         ids = token_ids.long()
         B, L = ids.shape
@@ -548,6 +549,9 @@ class CausalTransformer(nn.Module):
             seed = seed_of(rng)
         elif train and rng is not None and self.moe_every > 0:
             seed = seed_of(rng)  # the MoE router noise draws from it
+        # the router noise is drawn for the global batch, from the seed
+        # itself on every rank
+        noise = seed
         if seed is not None and mesh is not None:
             # each dp x sp block draws its own masks; tp ranks the same
             seed = fold_in(seed, mesh.coord.get("dp", 0)
@@ -556,8 +560,12 @@ class CausalTransformer(nn.Module):
         for i, block in enumerate(self.blocks()[:run_depth]):
             moe = not isinstance(block, GPTBlock)
             drop = dict(train=train, dropout_seed=(
-                None if seed is None or not (moe or self.dropout > 0.0)
+                None if seed is None or self.dropout == 0.0
                 else fold_in(seed, i)))
+            if moe and noise is not None:
+                from ..parallel.moe import _NOISE_FOLD
+
+                drop["noise_seed"] = fold_in(fold_in(noise, i), _NOISE_FOLD)
             if remat and not moe:  # MoE blocks are never rematerialised
                 x = checkpoint(block, x, valid, use_reentrant=False, **drop)
             else:

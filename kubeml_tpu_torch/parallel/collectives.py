@@ -234,9 +234,11 @@ def copy_to(x: torch.Tensor, mesh, axis: Axes) -> torch.Tensor:
     return x if n == 1 else _CopyTo.apply(x, group)
 
 
-def all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
-    """Concatenate every rank's ``x`` along ``dim`` in coordinate order
-    (``jax.lax.all_gather(..., tiled=True)``)."""
+def all_gather(x: torch.Tensor, mesh, axis: Axes, dim: int
+               ) -> torch.Tensor:
+    """Concatenate every rank's ``x`` along ``dim`` in coordinate order,
+    the first of several axes major (``jax.lax.all_gather(...,
+    tiled=True)``)."""
     group, n, me = _ctx(mesh, axis)
     return x if n == 1 else _AllGather.apply(x, group, n, me, dim % x.dim())
 

@@ -23,9 +23,10 @@ JAX functions unchanged. :func:`make_mesh` builds a :class:`Mesh`:
 
 ``dist.new_group`` is collective over the whole world: every rank creates
 every group, in the same order, or the ranks deadlock. :func:`make_mesh`
-creates the group of each axis of size above 1 and the ``dp`` x ``sp``
-group over which the trainer sums (all ranks of the world call it
-together, members or not); any other group over several axes is made at
+creates the group of each axis of size above 1, the ``dp`` x ``sp``
+group over which the trainer sums and the ``ep`` x ``tp`` group over
+which a MoE layer sums (all ranks of the world call it together, members
+or not); any other group over several axes is made at
 its first use, which every rank of the world must reach at the same point
 of its program. Groups come from ``distributed.subgroup``, cached by their
 rank sets, so a mesh built again over the same ranks reuses its groups.
@@ -33,8 +34,10 @@ rank sets, so a mesh built again over the same ranks reuses its groups.
 A ``pp`` axis holds the stages of a pipelined model
 (``parallel.pipeline``, ``models.gpt_pipeline``): its group carries the
 schedule's ``ppermute`` and the broadcast of the last stage's outputs.
-An ``ep`` axis (MoE expert sharding) above 1 is a later item of the port
-(ROADMAP Queue 1 item 1.3) and raises.
+An ``ep`` axis holds the expert stacks of a MoE model
+(``parallel.moe``): each rank keeps ``E / ep`` experts, and the MoE
+layer sums its partial outputs over ``ep`` x ``tp`` (a group
+:func:`make_mesh` makes).
 """
 
 from __future__ import annotations
@@ -51,9 +54,6 @@ from ..utils.device import resolve_device
 # sp, tp innermost (tp wants the fastest links: its collectives are in
 # every matmul).
 AXIS_ORDER = ("dp", "pp", "ep", "sp", "tp")
-
-# the ROADMAP items of the axes the port does not shard yet
-_LATER_AXES = {"ep": "MoE expert sharding over ep"}
 
 
 def parse_mesh_spec(spec: str) -> Dict[str, int]:
@@ -180,14 +180,6 @@ class Mesh:
         return mine
 
 
-def _later_axes(shape) -> None:
-    for ax, item in _LATER_AXES.items():
-        if int(shape.get(ax, 1)) > 1:
-            raise NotImplementedError(
-                f"mesh {shape}: a {ax} axis above 1 is {item}, a later item "
-                f"of the port (ROADMAP Queue 1 item 1.3)")
-
-
 def make_mesh(shape: Optional[Dict[str, int]] = None,
               devices: Optional[Sequence] = None,
               grid: Optional[np.ndarray] = None,
@@ -229,7 +221,6 @@ def make_mesh(shape: Optional[Dict[str, int]] = None,
             return Mesh(shape, [resolve_device(dev)])
         dev = distributed.local_device() if devices is None else devices[rank]
         return Mesh(shape, [resolve_device(dev)], grid=grid, rank=rank)
-    _later_axes(shape)
     if world == 1:
         raise RuntimeError(
             f"mesh {shape} spans {total} ranks but this process is alone: "
@@ -246,20 +237,20 @@ def make_mesh(shape: Optional[Dict[str, int]] = None,
     for ax in names:
         mesh.group(ax)
     mesh.group("dp", "sp")  # the trainer's replica group, on every rank
+    mesh.group("ep", "tp")  # the MoE layer's partial-output group
     return mesh
 
 
 def check_mesh(mesh) -> Optional[torch.device]:
     """This rank's device on ``mesh`` (None for no mesh); raises for an
-    object that is no :class:`Mesh`, a mesh of several ranks without its
-    process groups, or an axis the port does not shard yet (``ep``)."""
+    object that is no :class:`Mesh` or a mesh of several ranks without its
+    process groups."""
     if mesh is None:
         return None
     if not isinstance(mesh, Mesh):
         raise TypeError(f"{type(mesh).__name__} is no kubeml_tpu_torch "
                         f"mesh: build one with parallel.mesh.make_mesh")
     if mesh.distributed:
-        _later_axes(mesh.shape)
         mesh._check_groups()
     return mesh.device
 

@@ -36,12 +36,20 @@ gradient through the model's own f/g pair (``parallel.pipeline``), so
 re-runs its collectives in the backward, in the same order on every
 rank. Over
 ranks the loss is ``lm_loss`` (a custom ``loss_fn`` sees one rank's
-logits only and raises) and MoE layers are not sharded (the model raises).
+logits only and raises).
 
 MoE (JAX :187-216): every ``parallel.moe.MoEMlp`` of the module leaves
 its weighted load-balancing loss in ``last_aux``; the step adds them all
 to the loss, and ``last_moe_overflow`` becomes the mean of the layers'
-capacity-overflow shares (-1.0 for a model with no MoE layer).
+capacity-overflow shares (-1.0 for a model with no MoE layer). Over
+ranks each layer computes both over the global batch (its sums taken
+over ``dp`` x ``sp``), so they are the same on every rank and the loss
+stays the global one. The gradient rule over ``ep`` is the ``tp`` rule:
+the layer's f/g pair over ``ep`` x ``tp`` (``parallel.moe``) leaves every
+leaf replicated over ``ep`` (the router, the attention, the dense blocks,
+the embeddings) its whole gradient on every ``ep`` rank and each expert
+stack its slice's, so ``ep`` gets no reduction here; the expert stacks
+are summed over ``dp`` x ``sp`` like every other leaf.
 
 The loss functions keep the JAX definitions: :func:`lm_loss` is the masked
 next-token cross-entropy, :func:`chunked_lm_loss` the same loss streamed

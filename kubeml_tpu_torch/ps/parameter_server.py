@@ -42,7 +42,8 @@ The serving half serves a finished job from its exported checkpoint:
 * :meth:`ParameterServer.generate` (JAX ``:1213``) loads the ``final``
   export (or, under ``serving_quantize="int8"``, a ``final-int8`` export
   at least as fresh), flat or sharded, whichever of the two is newer
-  (a sharded one assembled on the host, ``storage.sharded_checkpoint``),
+  (a sharded one assembled on the host, ``storage.sharded_checkpoint``,
+  whatever mesh wrote it: tp and ep parts, pp stages),
   re-laid out by the function's ``serving_remap`` when it has one
   (``apply_remap_host``), through the job's registered function into a
   4-entry host cache keyed by the file's mtime, and serves it through a
@@ -759,7 +760,7 @@ class ParameterServer:
         if self.cfg.serving_mesh:
             raise _not_ported(f"meshed serving (serving_mesh="
                               f"{self.cfg.serving_mesh!r}, meshed serving: "
-                              f"ROADMAP Queue 1 item 1)")
+                              f"ROADMAP Queue 1 item 1.4)")
         if not self.cfg.serving_batcher:
             return None
         with self._lock:

@@ -20,7 +20,7 @@ under the dtype string ``"bfloat16"``, as in the flat store.
 a module built with the mesh) and writes ``shard-<rank>.npz`` with the
 slices it owns, possibly none. A leaf's slices are the distinct
 ``interop.from_flax.leaf_block`` of the mesh's ranks (a ``tp`` part, a
-pipelined model's stage along ``pp``); a slice several ranks hold
+pipelined model's stage along ``pp``, a MoE expert stack's ``ep`` part); a slice several ranks hold
 (``dp`` and ``sp`` replicas, every leaf under ``sp``, the embeddings and
 head on every ``pp`` rank) is owned by the lowest of them, JAX's
 ``replica_id == 0``, so each is written once. Three ``barrier`` calls order the save (``ckpt-staged/``,

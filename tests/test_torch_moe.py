@@ -341,12 +341,13 @@ def test_mesh_helpers_match_jax():
     jm = jax_make_mesh(devices=jax.devices()[:1])
     assert m.shape == dict(jm.shape)
     assert m.devices == [torch.device("cpu")]
-    # a mesh of several ranks needs the process group, and an ep axis
-    # (MoE expert sharding) is a later item of the port
-    with pytest.raises(RuntimeError, match="init_distributed"):
-        make_mesh({"dp": 2}, devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="MoE expert sharding"):
-        make_mesh({"ep": 2}, devices=["cpu", "cpu"])
+    # a mesh of several ranks needs the process group, whatever its axes:
+    # an ep axis (MoE expert sharding) is a mesh axis like dp
+    for axes in ({"dp": 2}, {"ep": 2}, {"ep": 2, "tp": 2}):
+        with pytest.raises(RuntimeError, match="init_distributed"):
+            make_mesh(axes, devices=["cpu"] * 2 ** len(axes))
+    assert mesh_shape_for(8, ep=2, tp=2) == jax_mesh_shape_for(8, ep=2,
+                                                               tp=2)
     with pytest.raises(RuntimeError, match="process groups"):
         SPMDTrainer(MoETiny(vocab_size=VOCAB, device="cpu"),
                     Mesh({"tp": 2}, [torch.device("cpu")] * 2))

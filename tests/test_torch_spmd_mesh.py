@@ -19,9 +19,9 @@ weights (``interop.from_flax.shard_tree``):
   one step on ``dp=8`` (its loss is the first step's);
 - the port's partition table equals ``flax.linen.get_partition_spec`` of
   the JAX module;
-- decode, decode under sp and MoE over a mesh of several ranks raise,
-  each naming its later ROADMAP item or JAX's message, and a training job
-  whose mesh does not fit the cluster's ranks is a 400;
+- decode, decode under sp and a MoE model's decode over a mesh of several
+  ranks raise, each naming its later ROADMAP item or JAX's message, and a
+  training job whose mesh does not fit the cluster's ranks is a 400;
 - ``chip_smoke.py``'s check of 17b (gradient norms by leaf against one
   rank's within ``MR_GRAD_RTOL``, the ranks' whole parameters bit-equal)
   passes sound world-2 meshes in bf16 and fails planted faults: a gradient
@@ -214,11 +214,15 @@ def test_mesh_refusals_name_their_later_items(ranks):
                                   "for serving")
         assert r["decode"].startswith("NotImplementedError")
         assert "meshed serving" in r["decode"] and "ROADMAP" in r["decode"]
-        assert "MoE expert sharding over ep" in r["moe"]
+        # a MoE model over ranks builds now (MoE expert sharding); its
+        # decode is meshed serving, item 1.4
+        assert r["moe_decode"].startswith("NotImplementedError")
+        assert "meshed serving" in r["moe_decode"]
+        assert "item 1.4" in r["moe_decode"]
     # a job over ranks runs now (the SPMD job over ranks): an sp=2 mesh is
-    # refused on one rank and accepted on a cluster of two, and so is a pp
-    # axis (the pipeline)
-    for axes in ({"sp": 2}, {"pp": 2}):
+    # refused on one rank and accepted on a cluster of two, and so are a pp
+    # axis (the pipeline) and an ep axis (MoE expert sharding)
+    for axes in ({"sp": 2}, {"pp": 2}, {"ep": 2}):
         with pytest.raises(KubeMLError,
                            match="does not fit a cluster of 1") as e:
             TrainOptions(engine="spmd", mesh_shape=axes).check_ported()

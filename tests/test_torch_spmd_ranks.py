@@ -366,20 +366,24 @@ def test_follower_ends_when_the_leader_dies(tmp_path):
 
 def test_check_ported_takes_the_cluster_world():
     """The boundary: a mesh that divides the world runs, a pp axis (the
-    pipeline) included; ep and a K-AVG job over ranks are refused, each
-    naming its item."""
+    pipeline) and an ep axis (MoE expert sharding) included; a mesh that
+    does not fit and a K-AVG job over ranks are refused, the K-AVG cases
+    naming their item."""
     TrainOptions(engine="spmd", mesh_shape={"tp": 2}).check_ported(2)
     TrainOptions(engine="spmd", mesh_shape={"sp": 2, "tp": 2}).check_ported(8)
     TrainOptions(engine="spmd", mesh_shape={"pp": 2}).check_ported(2)
     TrainOptions(engine="spmd", mesh_shape={"pp": 2, "tp": 2}).check_ported(8)
+    TrainOptions(engine="spmd", mesh_shape={"ep": 2}).check_ported(2)
+    TrainOptions(engine="spmd", mesh_shape={"dp": 2, "ep": 2,
+                                            "tp": 2}).check_ported(8)
     TrainOptions(engine="spmd").check_ported(4)
     TrainOptions(k=4).check_ported(1)
     cases = [(TrainOptions(engine="spmd", mesh_shape={"tp": 2}), 3,
               "does not fit a cluster of 3"),
              (TrainOptions(engine="spmd", mesh_shape={"pp": 2}), 3,
               "does not fit a cluster of 3"),
-             (TrainOptions(engine="spmd", mesh_shape={"ep": 2}), 2,
-              "item 1.3"),
+             (TrainOptions(engine="spmd", mesh_shape={"ep": 2}), 3,
+              "does not fit a cluster of 3"),
              (TrainOptions(k=4), 2, "item 1.5"),
              (TrainOptions(mesh_shape={"dp": 2}), 1, "item 1.5")]
     for opts, world, words in cases:

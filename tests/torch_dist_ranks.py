@@ -197,9 +197,9 @@ def gpt_rank(rank: int, out: str, spec) -> None:
     refusals = {}
     probes = {"decode_sp": lambda: tm(local_block(mesh, ids), decode=True),
               "decode": lambda: tm8(ids[:1], decode=True),
-              "moe": lambda: CausalTransformer(mesh=dp8, device="cpu",
-                                               moe_every=2, num_experts=2,
-                                               **spec["train_cfg"])}
+              "moe_decode": lambda: CausalTransformer(
+                  mesh=dp8, device="cpu", moe_every=2, num_experts=2,
+                  **spec["train_cfg"])(ids[:1], decode=True)}
     for tag, probe in probes.items():
         try:
             probe()

@@ -49,6 +49,12 @@ class Model(KubeModel):
         return adamw(self.lr)(params)
 """
 
+# LM_FN's model with a MoE block every other block (4 experts, top-2)
+MOE_FN = LM_FN.replace("num_heads=4, mesh=self.mesh,",
+                       "num_heads=4, moe_every=2, num_experts=4,\n"
+                       "                                 mesh=self.mesh,")
+assert "moe_every=2" in MOE_FN
+
 # a step that never ends: the module's forward sleeps
 HANG_FN = """
 import time
@@ -105,11 +111,23 @@ def run_job(cluster, spec: dict) -> dict:
     """One job through the leader's parameter server: ``spec`` holds the
     job id (and a ``key`` to file its result under when an id runs
     twice), epochs and options, and optionally ``levels`` (the answers of
-    a stubbed ``on_epoch_end``, in order) and ``probe`` (ask the live job
-    for inference and generation right after its start)."""
+    a stubbed ``on_epoch_end``, in order), ``probe`` (ask the live job
+    for inference and generation right after its start) and ``metrics``
+    (keep each epoch's ``MetricUpdate`` as the parameter server takes it,
+    with the ``/metrics`` line of its MoE overflow gauge right after)."""
     ps = cluster.ps
     levels = list(spec.get("levels", ()))
-    asked = []
+    asked, updates = [], []
+    if spec.get("metrics"):
+        take = type(ps.metrics).update.__get__(ps.metrics)
+
+        def update(u):
+            take(u)
+            gauge = [ln for ln in ps.metrics.render().splitlines()
+                     if ln.startswith("kubeml_job_moe_overflow{")]
+            updates.append(dict(epoch=u.epoch, moe_overflow=u.moe_overflow,
+                                gauge=gauge))
+        ps.metrics.update = update
     if levels:
         def answer(job_id, state):
             asked.append(state.parallelism)
@@ -139,7 +157,9 @@ def run_job(cluster, spec: dict) -> dict:
     assert ps.wait(spec["id"], timeout=240), f"job {spec['id']} hung"
     out.update(_history(cluster, spec["id"]), status=str(task.status),
                asked=asked, last_save=getattr(job, "last_save", None),
-               restore_bytes=getattr(job, "last_restore_bytes", None))
+               restore_bytes=getattr(job, "last_restore_bytes", None),
+               metrics=updates)
+    ps.metrics.__dict__.pop("update", None)
     return out
 
 
