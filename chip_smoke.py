@@ -5,7 +5,8 @@ through the parameter server, the control plane, the encoders, MoE
 with the dense slot engine, the one-shot speculative ``generate`` and the
 SPMD job with sharded checkpoints, multi-rank SPMD (two ranks on the
 card over gloo), the SPMD job over ranks through the control plane, the
-pipeline over ``pp`` ranks, and MoE expert parallelism over ``ep`` ranks.
+pipeline over ``pp`` ranks, MoE expert parallelism over ``ep`` ranks, and
+meshed serving over two ranks.
 Run from the repo root::
 
     python3 chip_smoke.py
@@ -362,7 +363,31 @@ Phases, each reported on its own lines:
    assembled by rank 0's parameter server and served through
    ``/generate`` by the dense engine in f32, with tokens equal to an
    in-process ``generate`` on the assembled weights but for near ties;
-21. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+21. meshed serving - (a) the int8 matmul at GPT-2-small's tp=2 shard
+   shapes (query/key/value (768, 384), proj (384, 768), mlp_in (768,
+   1536), mlp_out (1536, 768), the whole lm_head (768, 50257)) at M 1, 8
+   and 40 in f32 against ``int8_dot`` (``MM_RTOL``), with kernel (and
+   CUPTI) / plain / library / bound ms, measured in phase 3's window and
+   reported here; (b) two ranks share the card over gloo: rank 0
+   runs the dense ``BatchingDecoder`` over ``serving_mesh({"tp": 2})``
+   with GPT-2-small at full width and depth (seeded weights) and phase
+   3's 16-request mix (``SM_SAMPLED``'s requests of it sampled with
+   ``SAMPLE``, the others greedy), rank 1 follows it (``serve_follower``),
+   in f32 and in int8 through the int8 matmul: greedy tokens equal to one
+   rank's dense decoder but for near ties (``NEAR_TIE``), sampled tokens
+   equal,
+   each rank's launches
+   (paged_attention, int8_matmul, flash) exactly (0, 73 x forwards, 0)
+   under int8 and none in f32, tokens/s and decode ms a step beside one
+   rank's, the collectives' share of the f32 mix's decode steps (host
+   clock around the ``kubeml::`` spans); (c) rank 0
+   the control plane, rank 1 a follower: phase 18's tp-sharded flagship
+   final on ``serving_mesh="tp=2"``, phase 20's ep-sharded MoE final on
+   ``tp=2`` and ``ep=2`` through ``/generate``, each with one rank's
+   tokens (a parameter server without a mesh) but for near ties and the
+   decoder reporting its mesh; ``serving_mesh="tp=4"`` logs and serves on
+   one rank;
+22. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Any failure raises and the script exits non-zero; without a CUDA device it
 exits non-zero before printing any result.
@@ -761,16 +786,20 @@ def mm_weights(g, K, N):
     return q, (torch.rand(1, N, generator=g) * 0.02).cuda()
 
 
-def check_int8_matmul(timer, g):
-    """The int8 matmul at the serving path's shapes: M 1 and 8 (decode),
-    256 and 2048 (prefill) over the four GPT-2-small (K, N), f32 and bf16
-    x, against int8_dot within MM_RTOL, repeated calls bit-identical."""
+def check_int8_matmul(timer, g, shapes=MM_SHAPES,
+                      dtypes=(torch.float32, torch.bfloat16), tag="",
+                      profiled: bool = False):
+    """The int8 matmul at the serving path's shapes (default MM_SHAPES: M
+    1 and 8 (decode), 256 and 2048 (prefill) over the four GPT-2-small
+    (K, N)), f32 and bf16 x, against int8_dot within MM_RTOL, repeated
+    calls bit-identical; kernel, plain, library and bound ms a shape
+    (with ``profiled``, the kernel's CUPTI time too: ``profiler_ms``)."""
     from kubeml_tpu_torch.ops.int8_matmul import int8_dot, int8_matmul
 
     rows = []
-    for M, K, N in MM_SHAPES:
+    for M, K, N in shapes:
         q, s = mm_weights(g, K, N)
-        for xd in (torch.float32, torch.bfloat16):
+        for xd in dtypes:
             x = torch.randn(M, K, generator=g).to(xd).cuda()
             y = int8_matmul(x, q, s)
             again = int8_matmul(x, q, s)
@@ -803,9 +832,12 @@ def check_int8_matmul(timer, g):
                 bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
             row["over_library"] = row["ms"] / row["library_ms"]
+            if profiled:
+                row["profiler_ms"] = profiler_ms(
+                    timer, lambda: int8_matmul(x, q, s), MM_KERNEL)
             if M == 8 and N == VOCAB:
                 row["host_us"] = host_us(lambda: int8_matmul(x, q, s))
-            log("  int8_matmul", json.dumps(row))
+            log(f"  {tag}int8_matmul", json.dumps(row))
             rows.append(row)
     return rows
 
@@ -828,18 +860,21 @@ def workload(rng):
     return reqs
 
 
-def serve(dec, reqs, sample: bool = False):
+def serve(dec, reqs, sample=False):
     """Drive ``dec`` through the workload. First a calibration request (the
     eos request's prompt, 16 tokens) picks the eos id as its 10th token;
     then every request is submitted from its own thread, except that
     sharers 2-4 wait for sharer 1's first token (its prefill registers the
     shared pages). Greedy, or ``sample``d with ``SAMPLE``'s knobs and
-    request i seeded 1000 + i (the calibration 1016). Returns per-request
-    results and timings."""
+    request i seeded 1000 + i (the calibration 1016): every request, or
+    those whose index ``sample`` holds when it is a tuple. Returns
+    per-request results and timings."""
     from kubeml_tpu_torch.api import GenerateRequest
 
     def knobs(i):
-        return dict(SAMPLE, seed=1000 + i) if sample else {}
+        sampled = sample is True or (isinstance(sample, tuple)
+                                     and i in sample)
+        return dict(SAMPLE, seed=1000 + i) if sampled else {}
 
     calib = dec.wait(dec.submit(GenerateRequest(
         prompts=[reqs[5]["prompt"].tolist()], max_new_tokens=16,
@@ -6144,6 +6179,322 @@ def moe_ep_phase(smi, root):
     return tuple(total), ktimes
 
 
+# --- phase 21: meshed serving over two gloo ranks -----------------------
+
+SM_WORLD, SM_TIMEOUT_S, SM_SEED = 2, 600.0, 21
+# 21a: the int8 matmul at GPT-2-small's tp=2 shard shapes (K, N): query,
+# key and value (768, 384), proj (384, 768), mlp_in (768, 1536), mlp_out
+# (1536, 768), and the lm_head whole (50257 does not divide over tp=2:
+# the fit rule keeps it whole), at decode M 1 and 8 and the verify's M 40
+SM_MM_SHAPES = [(M, K, N) for M in (1, 8, 40)
+                for K, N in ((768, 384), (384, 768), (768, 1536),
+                             (1536, 768), (768, VOCAB))]
+# 21b's sampled requests of the mix (SAMPLE's knobs, request i seeded
+# 1000 + i): 3 in the first wave of 8 slots, 12 a sharer admitted after
+# request 0's first token, 9 and 15 queued until a slot frees mid-stream
+SM_SAMPLED = (3, 9, 12, 15)
+# 21c: the served requests a final, (rows, prompt tokens, new tokens), and
+# the serving meshes, each with the finals it serves (tp=4 needs more ranks
+# than the world holds: logged, served on one rank)
+SM_SERVE = ((2, 32, 16), (1, 100, 24))
+SM_MESHES = (("tp=2", (JR_JOB, MOE_EP_JOB)), ("ep=2", (MOE_EP_JOB,)),
+             ("tp=4", (JR_JOB,)))
+
+
+def sm_comm(shard, acc):
+    """Time ``shard``'s decode chunks while ``acc["on"]``: their ms and
+    steps, the ms inside the collectives' ``kubeml::`` spans (the host
+    copies and the gloo op) and the ms of the card drains that open each
+    span under gloo (``parallel.collectives._span``), on the host clock,
+    without a profiler's overhead."""
+    from kubeml_tpu_torch.parallel import collectives
+
+    real_span, decode = collectives._span, shard.decode
+
+    class Timed:
+        def __init__(self, cm):
+            self.cm = cm
+
+        def __enter__(self):
+            self.t0 = time.perf_counter()
+            return self.cm.__enter__()
+
+        def __exit__(self, *exc):
+            out = self.cm.__exit__(*exc)
+            acc["comm_ms"] += 1e3 * (time.perf_counter() - self.t0)
+            return out
+
+    def span(name, t):
+        t0 = time.perf_counter()
+        cm = real_span(name, t)
+        if not acc["on"]:
+            return cm
+        acc["drain_ms"] += 1e3 * (time.perf_counter() - t0)
+        return Timed(cm)
+
+    def timed(op):
+        if not acc["on"]:
+            return decode(op)
+        t0 = time.perf_counter()
+        out = decode(op)
+        acc["ms"] += 1e3 * (time.perf_counter() - t0)
+        acc["steps"] += int(op["size"])
+        return out
+
+    acc.update(on=False, ms=0.0, steps=0, comm_ms=0.0, drain_ms=0.0)
+    collectives._span, shard.decode = span, timed
+
+
+def sm_summary(run) -> dict:
+    t = run["tele"]
+    return dict(tokens=token_lists(run), n=run["tokens"], wall=run["wall"],
+                tokens_per_s=run["tokens_per_s"],
+                decode_step_ms=run["decode_step_ms"],
+                forwards=int(t["admission_waves"] + t["device_steps"]))
+
+
+def sm_requests(vocab):
+    rng = np.random.default_rng(SM_SEED)
+    return [(rng.integers(1, vocab, size=(rows, plen)), new)
+            for rows, plen, new in SM_SERVE]
+
+
+def sm_cluster(rank, root):
+    """21c on one rank: the control plane on rank 0 (each serving mesh of
+    SM_MESHES a cluster in turn; /generate over HTTP) and the follower
+    loop on rank 1. Rank 0 first serves each final on itself alone (a
+    parameter server without a mesh: the dense engine), and holds every
+    meshed reply to that one but for near ties."""
+    import logging
+
+    from kubeml_tpu_torch.api import GenerateRequest
+    from kubeml_tpu_torch.cluster import LocalCluster
+    from kubeml_tpu_torch.controller import KubemlClient
+    from kubeml_tpu_torch.engine.follower import run_follower
+    from kubeml_tpu_torch.ps import ParameterServer
+
+    if rank != 0:
+        return dict(followed=[run_follower(config=cp_config(root))
+                              for _ in SM_MESHES])
+    reqs = {JR_JOB: sm_requests(LC_VOCAB), MOE_EP_JOB: sm_requests(MOE_VOCAB)}
+    ref = ParameterServer(config=cp_config(root, serving_paged=False))
+    one = {}
+    for job, rs in reqs.items():
+        one[job] = []
+        for prompt, new in rs:
+            reply = ref.generate(job, GenerateRequest(
+                prompts=prompt.tolist(), max_new_tokens=new))
+            one[job].append([t[:m] for t, m in zip(reply["tokens"],
+                                                   reply["lengths"])])
+    warned = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: warned.append(rec.getMessage())
+    logging.getLogger("kubeml.ps").addHandler(handler)
+    out = dict(served=[])
+    try:
+        for spec, jobs in SM_MESHES:
+            with LocalCluster(config=cp_config(root, serving_mesh=spec)) \
+                    as cluster:
+                client = KubemlClient(cluster.controller_url, timeout=600)
+                for job in jobs:
+                    t0, ties, n = time.monotonic(), [], 0
+                    for i, (prompt, new) in enumerate(reqs[job]):
+                        reply = client.networks().generate(
+                            job, prompt, max_new_tokens=new)
+                        got = [t[:m] for t, m in zip(reply["tokens"],
+                                                     reply["lengths"])]
+                        n += sum(map(len, got))
+                        module = ref._decoders[job][0].module
+                        ties += check_rows(f"21c {job} {spec}", got,
+                                           one[job][i], module, prompt)
+                    with cluster.ps._lock:
+                        dec = cluster.ps._decoders[job][0]
+                    out["served"].append(dict(
+                        spec=spec, job=job, tokens=n, ties=ties,
+                        s=time.monotonic() - t0,
+                        mesh=None if getattr(dec, "mesh", None) is None
+                        else dict(dec.mesh.shape),
+                        engine=type(dec).__name__))
+    finally:
+        logging.getLogger("kubeml.ps").removeHandler(handler)
+        ref.close()
+    out["warned"] = [w for w in warned if "serving mesh" in w]
+    return out
+
+
+def sm_rank(rank, out_dir, root, smi):
+    """One rank of phase 21 (started by ``parallel.distributed.spawn``):
+    the process group over gloo, the kernels the parent built; 21b (rank 0
+    runs the meshed decoder and phase 3's mix, rank 1 follows it), then
+    21c."""
+    from kubeml_tpu_torch.parallel.distributed import init_distributed
+    from kubeml_tpu_torch.parallel.mesh import serving_mesh
+    from kubeml_tpu_torch.serving import BatchingDecoder
+    from kubeml_tpu_torch.serving.batcher import serve_follower
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(backend="gloo", device="cuda")
+    from kubeml_tpu_torch.ops import kernels
+
+    kernels.library(build=False)
+    mesh = serving_mesh({"tp": 2})
+    reqs = workload(np.random.default_rng(SEED))
+    res = {}
+    t0 = time.monotonic()
+    for tag, knobs in (("f32", {}),
+                       ("int8", dict(quantize="int8", int8_matmul=True))):
+        reset_kernel_counts()
+        if rank == 0:
+            dec = BatchingDecoder(gpt2_small(), mesh=mesh, slots=SLOTS,
+                                  chunk_steps=CHUNK, device="cuda", **knobs)
+            comm = {}
+            sm_comm(dec._shard, comm)
+            comm["on"] = tag == "f32"
+            run = sm_summary(serve(dec, reqs, sample=SM_SAMPLED))
+            comm["on"] = False
+            res[tag] = dict(run=run, comm=comm, mesh=dict(dec.mesh.shape),
+                            impl=dec.int8_matmul_impl if dec.int8_matmul
+                            else None)
+            dec.close()
+        else:
+            res[tag] = dict(ops=serve_follower(gpt2_small(), mesh))
+        res[tag]["launches"] = kernel_counts()
+        torch.cuda.empty_cache()
+    res["b_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    res["c"] = sm_cluster(rank, root)
+    res["c_s"] = time.monotonic() - t0
+    torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+
+
+def sm_root(root):
+    """21c's data root: phase 18's and phase 20's finals (their job
+    directories linked, not copied) and their functions."""
+    from kubeml_tpu_torch.functions.registry import FunctionRegistry
+
+    cfg = cp_config(Path(root) / "serving-mesh")
+    cfg.ensure_dirs()
+    for src, job in (("ranks", JR_JOB), ("moe-ep", MOE_EP_JOB)):
+        (cfg.checkpoints_dir / job).symlink_to(
+            Path(root) / src / "checkpoints" / job)
+    reg = FunctionRegistry(config=cfg)
+    reg.create("lcranks", JR_FN)
+    reg.create("moeep", MOE_EP_FN)
+    return cfg.data_root
+
+
+def serving_mesh_phase(smi, root, mm_rows):
+    """Phase 21 (see the module docstring; 21a's ``mm_rows`` come from
+    phase 3). Returns the int8 matmul's launches of 21b's int8 mix,
+    summed over the ranks."""
+    from kubeml_tpu_torch.parallel.distributed import spawn
+    from kubeml_tpu_torch.serving import BatchingDecoder
+
+    for r in mm_rows:
+        log(f"  21a int8_matmul at the tp=2 shard shape M {r['M']} K "
+            f"{r['K']} N {r['N']} (f32 x) [{smi}]: max abs err "
+            f"{r['max_abs_err']:.2e}, {r['ms']:.4f} ms (CUPTI "
+            f"{r['profiler_ms'] or float('nan'):.4f}; plain "
+            f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
+            f"{r['bound_ms']:.5f} by {r['bound_by']})")
+    # 21b's one-rank references: the dense engine alone on the card
+    t0 = time.monotonic()
+    reqs = workload(np.random.default_rng(SEED))
+    prompts = [reqs[5]["prompt"]] + [r["prompt"] for r in reqs]
+    one, modules = {}, {}
+    for tag, knobs in (("f32", {}),
+                       ("int8", dict(quantize="int8", int8_matmul=True))):
+        dec = BatchingDecoder(gpt2_small(), slots=SLOTS, chunk_steps=CHUNK,
+                              device="cuda", **knobs)
+        one[tag] = dict(run=sm_summary(serve(dec, reqs,
+                                             sample=SM_SAMPLED)))
+        modules[tag] = dec.module
+        dec.close()
+    log(f"  21b one-rank references {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    data_root = sm_root(root)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sm_") as tmp:
+        spawn(sm_rank, SM_WORLD, args=(tmp, str(data_root), smi),
+              timeout_s=SM_TIMEOUT_S)
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                 for r in range(SM_WORLD)]
+    lead, follow = ranks
+    log(f"  21 {SM_WORLD} ranks over gloo on {smi}: "
+        f"{time.monotonic() - t0:.1f} s, spawn included (21b "
+        f"{lead['b_s']:.1f} s, 21c {lead['c_s']:.1f} s)")
+    bad = []
+    for tag in ("f32", "int8"):
+        g, w = lead[tag]["run"], one[tag]["run"]
+        log(f"  21b {tag} [{smi}]: tp=2 {g['n']} tokens, "
+            f"{g['tokens_per_s']:.1f} tokens/s, decode step "
+            f"{g['decode_step_ms']:.3f} ms; one rank {w['n']} tokens, "
+            f"{w['tokens_per_s']:.1f} tokens/s, decode step "
+            f"{w['decode_step_ms']:.3f} ms")
+        # rows of token_lists: the calibration first, then request i at
+        # i + 1; the sampled rows are held exactly, the greedy ones by
+        # check_rows (the sampled ones given the reference's rows there)
+        rows = [i + 1 for i in SM_SAMPLED]
+        differ = [b - 1 for b in rows if g["tokens"][b] != w["tokens"][b]]
+        if differ:
+            bad.append(f"21b {tag}: sampled requests {differ} differ from "
+                       f"one rank's")
+        else:
+            log(f"  21b {tag} sampled ({SAMPLE}, requests {SM_SAMPLED} of "
+                f"the mix seeded 1000 + i): the same "
+                f"{sum(len(g['tokens'][b]) for b in rows)} tokens as one "
+                f"rank")
+        got = [w["tokens"][b] if b in rows else t
+               for b, t in enumerate(g["tokens"])]
+        ties = check_rows(f"21b {tag}", got, w["tokens"], modules[tag],
+                          prompts)
+        log(f"  21b {tag}: greedy tokens equal to one rank's dense "
+            f"decoder (near ties {ties or 'none'})")
+        forwards = g["forwards"]
+        per = INT8_PER_FORWARD * forwards if tag == "int8" else 0
+        for r, res in enumerate(ranks):
+            log(f"  21b {tag} rank {r} launches (paged_attention, "
+                f"int8_matmul, flash fwd/dq/dkv): {res[tag]['launches']}")
+            if res[tag]["launches"] != (0, per, 0, 0, 0):
+                bad.append(f"21b {tag} rank {r}: launches "
+                           f"{res[tag]['launches']}, want (0, {per}, 0, 0, "
+                           f"0): {INT8_PER_FORWARD} x {forwards} forwards")
+        if lead[tag]["mesh"] != {"tp": 2}:
+            bad.append(f"21b {tag}: decoder mesh {lead[tag]['mesh']}")
+    if lead["int8"]["impl"] != "cuda":
+        bad.append(f"21b int8: impl {lead['int8']['impl']}")
+    p = lead["f32"]["comm"]
+    if not p["steps"]:
+        bad.append("21b: no timed decode chunk")
+    else:
+        log(f"  21b f32 greedy decode chunks over tp=2 [{smi}]: "
+            f"{p['steps']} steps, {p['ms'] / p['steps']:.2f} ms a step, of "
+            f"which the collectives (kubeml:: spans: host copies and the "
+            f"gloo op) {p['comm_ms'] / p['steps']:.2f} ms = "
+            f"{p['comm_ms'] / p['ms']:.3f} and the card drains before them "
+            f"{p['drain_ms'] / p['steps']:.2f} ms = "
+            f"{p['drain_ms'] / p['ms']:.3f}")
+    c = lead["c"]
+    want_mesh = {"tp=2": {"tp": 2}, "ep=2": {"ep": 2}, "tp=4": None}
+    for row in c["served"]:
+        log(f"  21c {row['job']} on serving_mesh={row['spec']!r} [{smi}]: "
+            f"{row['tokens']} tokens in {row['s']:.2f} s through /generate, "
+            f"{row['engine']} on mesh {row['mesh']}, tokens equal to one "
+            f"rank's (near ties {row['ties'] or 'none'})")
+        if row["mesh"] != want_mesh[row["spec"]]:
+            bad.append(f"21c {row['job']} {row['spec']}: mesh {row['mesh']}")
+    if len(c["served"]) != sum(len(jobs) for _, jobs in SM_MESHES):
+        bad.append(f"21c served {len(c['served'])} finals")
+    if not any("tp=4" in w for w in c["warned"]):
+        bad.append(f"21c: no warning for tp=4: {c['warned']}")
+    log(f"  21c tp=4: {c['warned']}")
+    if follow["c"]["followed"] != [0] * len(SM_MESHES):
+        bad.append(f"21c follower ran jobs {follow['c']['followed']}")
+    if bad:
+        raise AssertionError("21: " + "; ".join(bad))
+    return sum(r["int8"]["launches"][1] for r in ranks)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one NVIDIA card",
@@ -6169,7 +6520,7 @@ def phases(root: str) -> int:
 
     # 1. device
     smi = nvidia_smi()
-    log("[1/21 device]")
+    log("[1/22 device]")
     log(smi)
     log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} devices "
@@ -6184,7 +6535,7 @@ def phases(root: str) -> int:
     spills = [f"{lines[i - 1].split('for ')[-1][:70]}: {ln.strip()}"
               for i, ln in enumerate(lines)
               if re.search(r"[1-9]\d* bytes (stack frame|spill)", ln)]
-    log(f"[2/21 build] {time.monotonic() - t0:.2f} s (nvcc "
+    log(f"[2/22 build] {time.monotonic() - t0:.2f} s (nvcc "
         f"{kernels.build_seconds:.2f} s), kernels with a stack frame or "
         f"spills: {len(spills)}")
     for ln in spills:
@@ -6200,15 +6551,20 @@ def phases(root: str) -> int:
     check_compiled(kernels.library()._name, build_log)
 
     # 3. kernels against their plain versions
-    log("[3/21 kernels]")
+    log("[3/22 kernels]")
     timer = Timer()
     g = torch.Generator().manual_seed(SEED)
     pa_rows = check_paged_attention(timer, g)
     mm_rows = check_int8_matmul(timer, g)
+    # 21a's rows: measured here, where the profiler still records kernels
+    # (in this process it records none after phases 17-20 spawn ranks)
+    sm_rows = check_int8_matmul(timer, torch.Generator().manual_seed(SM_SEED),
+                                SM_MM_SHAPES, (torch.float32,), tag="21a ",
+                                profiled=True)
     del timer
 
     # 4. serve f32: kernel engine, then the plain (gather) twin
-    log("[4/21 serve f32]")
+    log("[4/22 serve f32]")
     serve_tiny()
     reqs = workload(np.random.default_rng(SEED))
     model = gpt2_small()
@@ -6251,7 +6607,7 @@ def phases(root: str) -> int:
     del model
 
     # 5. serve int8: int8 weights through the kernel, int8 KV pages
-    log("[5/21 serve int8]")
+    log("[5/22 serve int8]")
     q_kw = dict(quantize="int8", int8_matmul=True, kv_quant="int8", **common)
     qdec = PagedBatchingDecoder(gpt2_small(), **q_kw)
     if (not qdec.int8_matmul or qdec.int8_matmul_impl != "cuda"
@@ -6300,20 +6656,20 @@ def phases(root: str) -> int:
     torch.cuda.empty_cache()
 
     # 6. speculative decoding and chunked prefill through both kernels
-    log("[6/21 spec + chunked]")
+    log("[6/22 spec + chunked]")
     t0 = time.monotonic()
     spec_launches = spec_phase(smi)
     log(f"  phase 6: {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     # 7. flash kernels against their plain versions, and the L sweep
-    log("[7/21 flash kernels]")
+    log("[7/22 flash kernels]")
     timer = Timer()
     flash_errs, sweep = check_flash(timer, g)
     del timer
 
     # 8. train: the kernel path, its profile, then the plain path
-    log("[8/21 train bf16]")
+    log("[8/22 train bf16]")
     krow, kcounts = train_run("kernel path", flash=True)
     want = (2 * DEPTH * krow["steps_run"], DEPTH * krow["steps_run"],
             DEPTH * krow["steps_run"])
@@ -6336,14 +6692,14 @@ def phases(root: str) -> int:
                              f"{pcounts}")
 
     # 9. f32: one step through the kernels against the plain path
-    log("[9/21 train f32 parity]")
+    log("[9/22 train f32 parity]")
     check_f32_step()
 
     # 10. K-AVG: the flagship at bench.py's configuration, the merge's
     # correctness, and TrainJob end to end; none of the five hand-written
     # kernels is on this path (convs, BatchNorm and dense layers run in
     # cuDNN and cuBLAS, as the JAX path runs them in XLA)
-    log("[10/21 k-avg]")
+    log("[10/22 k-avg]")
     reset_kernel_counts()
     log("  10a flagship: ResNet-18, CIFAR-10 shapes, bf16, uint8 inputs, "
         f"B {KAVG_B}, K {KAVG_K}, lr 0.1, SGD momentum 0.9")
@@ -6360,34 +6716,34 @@ def phases(root: str) -> int:
         raise AssertionError(f"the K-AVG path launched {counts}")
 
     # 11. serving resilience through both serving kernels
-    log("[11/21 resilience]")
+    log("[11/22 resilience]")
     t0 = time.monotonic()
     res_launches = resilience_phase(smi)
     log(f"  phase 11: {time.monotonic() - t0:.1f} s")
 
     # 12. checkpoints served through the parameter server
-    log("[12/21 checkpoint serving]")
+    log("[12/22 checkpoint serving]")
     t0 = time.monotonic()
     ckpt = checkpoint_phase(smi, root, run, qrun, kavg)
     ckpt_launches = ckpt["launches"]
     log(f"  phase 12: {time.monotonic() - t0:.1f} s")
 
     # 13. the control plane over HTTP: training, serving, SIGTERM
-    log("[13/21 control plane]")
+    log("[13/22 control plane]")
     t0 = time.monotonic()
     cp_launches = control_plane_phase(smi, root, run, qrun, ckpt, kavg)
     log(f"  phase 13: {time.monotonic() - t0:.1f} s")
 
     # 14. the encoders: the flash kernels at their shapes, BERT-base and
     # ViT-Tiny trained by K-AVG, VGG-11, a ViT TrainJob with transforms
-    log("[14/21 encoders]")
+    log("[14/22 encoders]")
     t0 = time.monotonic()
     enc_rows, enc_launches, bert_row, vit_row = encoder_phase(smi, root)
     log(f"  phase 14: {time.monotonic() - t0:.1f} s")
 
     # 15. MoE trained at bench_moe's width through the flash kernels and
     # served by the dense slot engine; GPT-2-small through the dense engine
-    log("[15/21 moe + dense engine]")
+    log("[15/22 moe + dense engine]")
     t0 = time.monotonic()
     moe_row, moe_errs, moe_times, moe_counts, dense_launches = moe_phase(
         smi, root, run)
@@ -6395,14 +6751,14 @@ def phases(root: str) -> int:
 
     # 16. the one-shot speculative generate through paged attention, and
     # the long-context flagship's SPMD job with sharded checkpoints
-    log("[16/21 one-shot spec + spmd job]")
+    log("[16/22 one-shot spec + spmd job]")
     t0 = time.monotonic()
     spec16, flash16, served16 = spec_spmd_phase(smi, root, krow["step_ms"])
     log(f"  phase 16: {time.monotonic() - t0:.1f} s")
 
     # 17. multi-rank SPMD: two gloo ranks on the card, attention and the
     # flagship's training over sp (Ulysses, ring), tp and dp
-    log("[17/21 multi-rank spmd]")
+    log("[17/22 multi-rank spmd]")
     t0 = time.monotonic()
     flash17 = multirank_phase(smi)
     log(f"  phase 17: {time.monotonic() - t0:.1f} s")
@@ -6410,7 +6766,7 @@ def phases(root: str) -> int:
     # 18. the SPMD job over ranks: two gloo ranks on the card, the
     # flagship trained through /train over tp=2, resumed over sp=2,
     # remeshed dp 2 -> 1 -> 2, its 2-shard final served
-    log("[18/21 spmd job over ranks]")
+    log("[18/22 spmd job over ranks]")
     t0 = time.monotonic()
     flash18, served18 = ranks_phase(smi, root)
     log(f"  phase 18: {time.monotonic() - t0:.1f} s")
@@ -6419,7 +6775,7 @@ def phases(root: str) -> int:
     # masked flash check, PipelinedLM over pp=2, the flagship as
     # PipelinedCausalLM trained through /train over pp=2, resumed, its
     # stage-sharded final served flat
-    log("[19/21 pipeline over ranks]")
+    log("[19/22 pipeline over ranks]")
     t0 = time.monotonic()
     flash19, served19 = pipeline_phase(smi, root)
     log(f"  phase 19: {time.monotonic() - t0:.1f} s")
@@ -6427,13 +6783,21 @@ def phases(root: str) -> int:
     # 20. MoE over ranks: two gloo ranks on the card, bench_moe at full
     # depth over ep=2 and at MOE_DEPTH over dp, tp and sp; a MoE job
     # through /train over ep=2, resumed under dp=2, its final served
-    log("[20/21 moe over ranks]")
+    log("[20/22 moe over ranks]")
     t0 = time.monotonic()
     flash20, moe_ep_times = moe_ep_phase(smi, root)
     log(f"  phase 20: {time.monotonic() - t0:.1f} s")
 
-    # 21. results
-    log("[21/21 results]")
+    # 21. meshed serving: two gloo ranks on the card, the int8 matmul at
+    # the tp=2 shard shapes, GPT-2-small served over tp=2 in f32 and int8,
+    # phases 18's and 20's sharded finals served on serving meshes
+    log("[21/22 meshed serving]")
+    t0 = time.monotonic()
+    served21 = serving_mesh_phase(smi, root, sm_rows)
+    log(f"  phase 21: {time.monotonic() - t0:.1f} s")
+
+    # 22. results
+    log("[22/22 results]")
     pa = pa_rows[0]   # the decode step: L = 1, f32 arena
     mm = next(r for r in mm_rows if r["M"] == 8 and r["N"] == VOCAB
               and r["x"] == "float32")  # the lm_head at decode
@@ -6454,7 +6818,7 @@ def phases(root: str) -> int:
          "launches": (q_launches[1] + spec_launches[1] + res_launches[1]
                       + ckpt_launches[1] + cp_launches[1]
                       + dense_launches[1] + spec16[1] + served16[1]
-                      + served18[1] + served19[1]),
+                      + served18[1] + served19[1] + served21),
          "max_abs_err": mm["max_abs_err"], "ms": mm["ms"],
          "plain_ms": mm["plain_ms"], "bound_ms": mm["bound_ms"],
          "bound_by": mm["bound_by"], "library_ms": mm["library_ms"]},
@@ -6491,7 +6855,8 @@ def phases(root: str) -> int:
         f"serving launches "
         f"(paged_attention, int8_matmul) of phase 16: one-shot spec {spec16}"
         f", the SPMD final served {served16}; of phase 18 {served18}; of "
-        f"phase 19 {served19}")
+        f"phase 19 {served19}; int8_matmul of phase 21 (both ranks) "
+        f"{served21}")
     t = moe_times
     log(f"  flash at the MoE shape B {MOE_B} L {MOE_L} H {MOE_H} causal "
         f"(bf16): fwd {t['fwd_ms']:.4f} ms (plain {t['fwd_plain_ms']:.4f}, "

@@ -10,9 +10,10 @@ K-AVG round also returns its statistical-efficiency signals
 parameter server builds its paged engines from: slots, chunk, int8
 weights and their matmul, pages, prefix cache, chunked prefill, the arena
 read and storage, speculative decoding, the admission limit, shed policy,
-drain grace, snapshot directory and pool-audit interval.
-``serving_mesh`` is read so that a set value can be refused: the port
-serves on one card.
+drain grace, snapshot directory and pool-audit interval, and the
+serving mesh (``KUBEML_SERVING_MESH``, an axis spec such as ``tp=2``:
+finished models are served over the first ranks of the process group,
+:meth:`Config.serving_mesh_axes`).
 
 The control plane's settings come from the same variables too: the bind
 address (``KUBEML_HOST``) and the four service ports with their URLs,
@@ -133,11 +134,13 @@ class Config:
     # "auto" (the CUDA kernel on CUDA tensors), "cuda"/"pallas", "dot"
     int8_matmul_impl: str = field(default_factory=lambda: os.environ.get(
         "KUBEML_INT8_MATMUL_IMPL", "auto"))
-    # an axis spec such as "tp=2"; the port serves on one card and refuses
-    # a set value
+    # an axis spec such as "tp=2": serve finished models over that many
+    # ranks of the process group ("" = one rank; an invalid or oversized
+    # spec logs and serves on one rank)
     serving_mesh: str = field(default_factory=lambda: os.environ.get(
         "KUBEML_SERVING_MESH", ""))
-    # the paged engine (the only engine of the port: False is refused)
+    # the paged engine for the models it decodes (False: the dense slot
+    # engine); a serving mesh always takes the dense engine
     serving_paged: bool = field(
         default_factory=lambda: _env_bool("KUBEML_SERVING_PAGED", True))
     serving_page_tokens: int = field(
@@ -187,6 +190,14 @@ class Config:
     # seconds between KVPool.check() audits of the engine loop (0 = off)
     pool_audit_interval: float = field(default_factory=lambda: float(
         os.environ.get("KUBEML_POOL_AUDIT_INTERVAL", "0")))
+
+    def serving_mesh_axes(self) -> dict:
+        """Parsed ``serving_mesh`` ({} when unset), in the ``ax=n[,ax=n]``
+        syntax of the CLI's ``--mesh`` (``parallel.mesh.parse_mesh_spec``);
+        a malformed spec raises ``ValueError``."""
+        from ..parallel.mesh import parse_mesh_spec
+
+        return parse_mesh_spec(self.serving_mesh)
 
     @property
     def datasets_dir(self) -> Path:

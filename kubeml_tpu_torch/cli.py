@@ -9,7 +9,9 @@
   joins the process group first (``parallel.distributed.
   init_distributed``): rank 0 boots the cluster, every other rank prints
   ``kubeml-tpu-torch follower r/N`` and runs ``engine.follower.
-  run_follower`` until the leader shuts down;
+  run_follower`` until the leader shuts down; with ``KUBEML_SERVING_MESH``
+  (e.g. ``tp=2``) set on every rank, ``/generate`` of a finished causal LM
+  runs over the first ranks of the group;
 * ``train``, ``infer``, ``generate`` (token arrays, ``--stream`` prints the
   deltas as they arrive);
 * ``dataset create|delete|list``, ``function create|delete|get|list``;

@@ -15,8 +15,10 @@ In a process group of several ranks (``parallel.distributed.
 init_distributed`` first) the cluster runs on rank 0 only, the leader,
 and refuses to start on another rank, which runs ``engine.follower.
 run_follower`` instead (JAX :42-55); its parameter server announces each
-job to the followers, and ``stop`` stops the running jobs before it
-releases the followers. Not ported: the preemption monitor (a set
+job to the followers (and, under ``serving_mesh``, each meshed decoder:
+``/generate`` over the first ranks of the group), and ``stop`` stops the
+running jobs and closes the meshed decoders before it releases the
+followers. Not ported: the preemption monitor (a set
 ``preempt_monitor`` is refused with a 400), standalone runners and the
 telemetry sampler.
 """

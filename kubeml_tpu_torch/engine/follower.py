@@ -14,6 +14,15 @@ the control plane (``cluster.LocalCluster``) and every other rank runs
   that stopped the build), wait for the leader's ``go`` and run the job:
   every collective the leader's job thread issues is issued here too, in
   the same order;
+* on ``serve`` (meshed serving, the parameter server's
+  ``_mesh_decoder``): build the serving mesh with the leader, and on a
+  rank of it this rank's block of the finished model
+  (``ps.parameter_server.load_mesh_module``), acknowledge as for a job,
+  and on the leader's ``go`` keep the module for the decoder's
+  ``serve_init``; then ``serve_init``, ``serve_op`` and ``serve_close``
+  run this rank's shard of the leader's ``BatchingDecoder(mesh=)``
+  (``serving.batcher.ServingFollower``): every forward and collective
+  the leader's engine runs, in the same order;
 * on ``shutdown``: return.
 
 The leader runs one job over ranks at a time (the parameter server's
@@ -26,6 +35,9 @@ command; any other fault, and one of the card's that may strike this
 rank alone (``engine.failures.is_one_sided_fault``), ends the process,
 so that the leader's collectives with it raise instead of hanging, and
 the job resumes after a restart. The stall watchdog ends a rank whose job stops making progress.
+Any fault while running a serving op ends the process too (the leader
+waits in the op's collectives): the leader's decoder then fails its
+requests with a retryable 503, and the next request builds it again.
 Run a follower alone with ``python -m kubeml_tpu_torch.engine.follower``
 (the three ``KUBEML_*`` launch variables set).
 """
@@ -47,6 +59,7 @@ def run_follower(config=None) -> int:
     from ..api.types import TrainTask
     from ..functions.registry import FunctionRegistry
     from ..parallel.distributed import get_dist_context
+    from ..serving.batcher import ServingFollower
     from ..storage.checkpoint import CheckpointStore
     from ..storage.history import HistoryStore
     from ..storage.store import ShardStore
@@ -62,6 +75,7 @@ def run_follower(config=None) -> int:
     store = ShardStore(config=cfg)
     history_store = HistoryStore(config=cfg)
     ckpt_store = CheckpointStore(config=cfg)
+    serving = ServingFollower()
     jobs = 0
     log.info("follower %d/%d ready (awaiting leader commands)", dist.rank,
              dist.size)
@@ -70,6 +84,12 @@ def run_follower(config=None) -> int:
         if not isinstance(cmd, dict) or cmd.get("cmd") == "shutdown":
             log.info("follower %d: shutdown", dist.rank)
             return jobs
+        if cmd.get("cmd") == "serve":
+            _serve(dist, cmd, registry, ckpt_store, serving)
+            continue
+        if cmd.get("cmd") in ("serve_init", "serve_op", "serve_close"):
+            serving.handle(cmd)
+            continue
         if cmd.get("cmd") != "train":
             log.warning("follower %d: unknown command %r", dist.rank, cmd)
             continue
@@ -119,6 +139,27 @@ def run_follower(config=None) -> int:
         finally:
             guard.set()
         jobs += 1
+
+
+def _serve(dist, cmd, registry, ckpt_store, serving) -> None:
+    """A ``serve`` announcement: the serving mesh (built with every
+    rank), this rank's block of the model on it, the acknowledgement,
+    the leader's go."""
+    from ..parallel.mesh import serving_mesh
+    from ..ps.parameter_server import load_mesh_module
+
+    mesh = serving_mesh(cmd["mesh"])
+    module, ack = None, "ok"
+    if mesh.member:
+        try:
+            module = load_mesh_module(registry, ckpt_store, cmd, mesh)
+        except Exception as e:
+            ack = f"err: {e}"
+            log.error("follower %d: serving %s failed: %s", dist.rank,
+                      cmd["model"], e)
+    dist.put(f"kubeml/ack/{cmd['run']}/{dist.rank}", ack)
+    go = bool(dist.broadcast_obj(None).get("go"))
+    serving.pending = (module, mesh) if go and module is not None else None
 
 
 def main(argv: Optional[list] = None) -> int:

@@ -14,7 +14,13 @@ stage stack over ``pp``, a MoE layer's expert stacks over ``ep`` and
 back into whole leaves (collectively, on every rank), for the tests and
 for a save; :func:`leaf_block` is the global slice (start, shape) of a
 leaf that a rank's shard covers, from the same table, which the sharded
-checkpoints write and read by.
+checkpoints write and read by. On a serving mesh (``parallel.mesh.
+serving_mesh``) the table's axes go through the fit rule
+(``parallel.mesh.fit_spec``): a dim that does not divide over its axis
+stays whole. An int8 leaf (a :class:`QuantizedTensor`, or the
+``__q8_q__``/``__q8_s__`` storage markers of a ``final-int8``
+checkpoint) is cut as its dense kernel: ``q`` by the kernel's spec, the
+per-channel scales ``s`` along their channel (last) axis only.
 
 The port's modules carry Flax's parameter names and layouts (dense kernels
 ``[in, out]``, LayerNorm ``scale``/``bias``, ``token_embed.embedding``,
@@ -188,6 +194,31 @@ def _split(spec, mesh):
             if ax is not None and mesh.shape.get(ax, 1) > 1]
 
 
+def leaf_spec(name: str, shape: Sequence[int], mesh, spec_of=None) -> tuple:
+    """The mesh axis of each dim of the leaf ``name`` of global
+    ``shape`` on ``mesh``: the partition table's (``spec_of``, default
+    ``models.gpt.partition_spec``), through the fit rule on a serving
+    mesh. A storage marker takes its kernel's spec: ``.__q8_q__`` as it
+    is, ``.__q8_s__`` (the scales) on its last axis only."""
+    if spec_of is None:
+        from ..models.gpt import partition_spec as spec_of
+    from ..serving.quant import Q8_Q, Q8_S
+
+    base, _, last = name.rpartition(".")
+    n = len(shape)
+    if last == Q8_Q:
+        spec = tuple(spec_of(base, n))
+    elif last == Q8_S:
+        spec = (None,) * (n - 1) + tuple(spec_of(base, n))[-1:]
+    else:
+        spec = tuple(spec_of(name, n))
+    if getattr(mesh, "serving", False):
+        from ..parallel.mesh import fit_spec
+
+        spec = fit_spec(spec, shape, mesh)
+    return spec
+
+
 def leaf_block(name: str, shape: Sequence[int], mesh,
                coord: Optional[Mapping[str, int]] = None,
                spec_of=None) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
@@ -199,7 +230,7 @@ def leaf_block(name: str, shape: Sequence[int], mesh,
     if spec_of is None:
         from ..models.gpt import partition_spec as spec_of
     start, size = [0] * len(shape), [int(n) for n in shape]
-    for d, ax, n in _split(spec_of(name, len(shape)), mesh):
+    for d, ax, n in _split(leaf_spec(name, shape, mesh, spec_of), mesh):
         size[d] //= n
         start[d] = (mesh.coord if coord is None else coord)[ax] * size[d]
     return tuple(start), tuple(size)
@@ -228,13 +259,23 @@ def _block(name: str, t: torch.Tensor, mesh, spec_of) -> torch.Tensor:
 
 
 def shard_tree(flat: Mapping[str, Any], mesh,
-               spec_of=None) -> Dict[str, torch.Tensor]:
+               spec_of=None) -> Dict[str, object]:
     """Cut a full flat tree (``from_flax`` output, or numpy leaves) into this
-    rank's shards on ``mesh`` (each leaf's :func:`leaf_block`). The result
-    loads into a model built with the same mesh
-    (``models.layers.load_tree``)."""
-    return {name: _block(name, _tensor(value), mesh, spec_of)
-            for name, value in flat.items()}
+    rank's shards on ``mesh`` (each leaf's :func:`leaf_block`; an int8
+    pair's ``q`` as its kernel, its scales along their channel axis).
+    The result loads into a model built with, or placed on, the same
+    mesh (``models.layers.load_tree``)."""
+    from ..serving.quant import Q8_Q, Q8_S
+
+    out: Dict[str, object] = {}
+    for name, value in flat.items():
+        if isinstance(value, QuantizedTensor):
+            out[name] = QuantizedTensor(
+                q=_block(f"{name}.{Q8_Q}", _tensor(value.q), mesh, spec_of),
+                s=_block(f"{name}.{Q8_S}", _tensor(value.s), mesh, spec_of))
+        else:
+            out[name] = _block(name, _tensor(value), mesh, spec_of)
+    return out
 
 
 def shard_module(module: nn.Module, mesh, spec_of=None) -> nn.Module:

@@ -80,10 +80,13 @@ class DenseCache:
 def init_cache(module, batch: int,
                cache_len: Optional[int] = None) -> DenseCache:
     """A zeroed dense cache for ``batch`` rows of ``cache_len`` positions
-    (default ``module.max_len``), cursor 0, on the module's device."""
+    (default ``module.max_len``), cursor 0, on the module's device. Over a
+    mesh it holds this rank's heads, ``num_heads / tp`` (JAX's slab
+    head-sharded over ``tp``)."""
     Lc = int(cache_len if cache_len is not None else module.max_len)
-    H = module.num_heads
-    D = module.embed_dim // H
+    mesh = getattr(module, "mesh", None)
+    D = module.embed_dim // module.num_heads
+    H = module.num_heads // (1 if mesh is None else mesh.shape.get("tp", 1))
     dev = module.device
     layers = [{"k": torch.zeros((batch, Lc, H, D), dtype=module.dtype,
                                 device=dev),

@@ -28,9 +28,19 @@ RoPE use, and attention is ``parallel.ring`` or ``parallel.ulysses``
 rank's heads (the flash kernels on the card). A MoE block's expert
 stacks are sharded over ``ep`` x ``tp`` (``parallel.moe``, JAX :415-556):
 its attention is the dense block's, its routing reads the global batch.
-Decode and the paged path under a mesh of several ranks raise (meshed
-serving, ROADMAP Queue 1 item 1.4). A mesh of one device only places the
-model.
+A mesh of one device only places the model.
+
+Meshed serving (JAX ``serving/batcher.py`` ``BatchingDecoder(mesh=)``):
+on a serving mesh (``parallel.mesh.serving_mesh``; a model built whole
+is put on it by :func:`place_on_mesh`) every leaf is cut by the fit rule,
+so a vocabulary that does not divide over ``tp`` keeps ``lm_head`` whole
+and its logits need no gather, and the dense decode runs over ``tp``
+with ``H / tp`` heads of KV cache a rank (``models.generation.
+init_cache``); ranks over ``dp`` (and ``ep`` for a dense model) compute
+the whole model each. A quantized projection's partial product takes
+its int8 route (the CUDA kernel on the card) before the ``psum``. Decode
+under ``sp`` raises, as in JAX, and the paged path under a mesh of
+several ranks raises too (JAX's paged engine refuses a mesh).
 
 Training (:558-582): ``remat=True`` recomputes each block's forward in the
 backward (``torch.utils.checkpoint``, non-reentrant) on the non-decode
@@ -108,23 +118,23 @@ def _col_bias(dense, x, mesh):
     """A column-parallel layer whose bias is whole on every rank (the
     attention's query/key/value: JAX leaves their bias unpartitioned):
     this rank's slice of the bias, entering through ``copy_to`` so its
-    gradient is the sum of every rank's slice."""
+    gradient is the sum of every rank's slice. The product takes the
+    layer's int8 route when it is quantized."""
     if dense.bias is None or _tp(mesh) == 1:
         return dense(x)
-    d = dense.dtype
-    y = x.to(d) @ dense.kernel.to(d)
+    y = dense.matmul(x)
     n = y.shape[-1]
     b = copy_to(dense.bias, mesh, "tp").narrow(0, mesh.coord["tp"] * n, n)
     return y + b.to(y.dtype)
 
 
 def _row(dense, x, mesh):
-    """A row-parallel layer: the partial products summed over ``tp``, then
-    the whole bias."""
+    """A row-parallel layer: the partial products (through the layer's
+    int8 route when it is quantized) summed over ``tp``, then the whole
+    bias."""
     if _tp(mesh) == 1:
         return dense(x)
-    d = dense.dtype
-    y = psum(x.to(d) @ dense.kernel.to(d), mesh, "tp")
+    y = psum(dense.matmul(x), mesh, "tp")
     return y if dense.bias is None else y + dense.bias.to(y.dtype)
 
 
@@ -406,14 +416,10 @@ class CausalTransformer(nn.Module):
         dev = resolve_device(device if device is not None or mesh_dev is None
                              else mesh_dev)
         self.mesh = mesh if mesh is not None and mesh.distributed else None
-        tp = _tp(self.mesh)
         if self.mesh is not None:
-            for what, n in (("num_heads", num_heads),
-                            ("embed_dim", embed_dim),
-                            ("vocab_size", vocab_size)):
-                if n % tp:
-                    raise ValueError(f"{what} {n} does not divide over "
-                                     f"tp={tp}")
+            # a serving mesh keeps a vocabulary that does not divide whole
+            _check_tp(self.mesh, num_heads, embed_dim,
+                      None if self.mesh.serving else vocab_size)
         self.sp_impl = sp_impl
         self.vocab_size = vocab_size
         self.max_len = max_len
@@ -453,10 +459,11 @@ class CausalTransformer(nn.Module):
         self.lm_head = QuantizableDense(embed_dim, vocab_size, use_bias=False,
                                         dtype=dtype)
         init_weights_(self, seed)
+        # each parameter's mesh axis a dim, on the whole shapes (the int8
+        # quantizer reads them: serving.quant.quantize_tree)
+        self.mesh_specs = None
         if self.mesh is not None:
-            from ..interop.from_flax import shard_module  # imports serving
-
-            shard_module(self, self.mesh)
+            _cut(self, self.mesh)
         self.to(dev)
 
     def partition_specs(self):
@@ -506,10 +513,10 @@ class CausalTransformer(nn.Module):
             if mesh.shape.get("sp", 1) > 1:
                 raise ValueError("decode does not run under sequence "
                                  "parallelism; use an sp=1 mesh for serving")
-            raise NotImplementedError(
-                f"decode over a mesh of several ranks ({mesh.shape}) is "
-                f"meshed serving (serving_mesh), a later item of the port "
-                f"(ROADMAP Queue 1 item 1.4)")
+            if pages is not None:
+                raise ValueError(f"paged decode does not run over a mesh "
+                                 f"({mesh.shape}); serve a mesh through the "
+                                 f"dense cache")
         run_depth = self.depth if exit_layer is None else int(exit_layer)
         ids = token_ids.long()
         B, L = ids.shape
@@ -577,8 +584,62 @@ class CausalTransformer(nn.Module):
         x = self.ln_f(x).to(self.dtype)
         if return_hidden:
             return x
-        logits = self.lm_head(copy_to(x, mesh, "tp"))
+        return self.logits(x)
+
+    def logits(self, hidden):
+        """f32 logits ``[..., vocab]`` of final hidden states: ``lm_head``
+        over this rank's vocabulary columns gathered over ``tp``, or
+        ``lm_head`` whole where the fit rule kept it whole."""
+        mesh = self.mesh
+        if self.lm_head.features == self.vocab_size:
+            return self.lm_head(hidden).float()
+        logits = self.lm_head(copy_to(hidden, mesh, "tp"))
         return all_gather(logits, mesh, "tp", dim=-1).float()
+
+
+def _check_tp(mesh, num_heads: int, embed_dim: int,
+              vocab_size=None) -> None:
+    """The dims tensor parallelism cuts always (heads, width), and the
+    vocabulary where given, must divide over ``tp``."""
+    tp = _tp(mesh)
+    for what, n in (("num_heads", num_heads), ("embed_dim", embed_dim),
+                    ("vocab_size", vocab_size)):
+        if n is not None and n % tp:
+            raise ValueError(f"{what} {n} does not divide over tp={tp}")
+
+
+def place_on_mesh(module: CausalTransformer, mesh) -> CausalTransformer:
+    """Put a model built whole onto a serving mesh, in place: each layer
+    computes over ``mesh`` and every parameter keeps this rank's block by
+    the fit rule (``interop.from_flax.leaf_block``), so loading a rank's
+    shard tree (``shard_tree``, or a sharded restore onto the mesh)
+    follows. The model must be dense (quantize after placing:
+    ``serving.quant.quantize_tree`` reduces the scales over the mesh)."""
+    if not isinstance(module, CausalTransformer):
+        raise TypeError(f"{type(module).__name__} does not serve over a "
+                        f"mesh (a CausalTransformer does)")
+    if not getattr(mesh, "serving", False) or not mesh.distributed:
+        raise ValueError("place_on_mesh takes a serving mesh of several "
+                         "ranks (parallel.mesh.serving_mesh)")
+    if module.mesh is not None:
+        raise ValueError(f"the model is on a mesh already ({module.mesh.shape})")
+    if any(getattr(m, "quantized", False) for m in module.modules()):
+        raise ValueError("place a dense model on the mesh, then quantize it")
+    _check_tp(mesh, module.num_heads, module.embed_dim)
+    for m in module.modules():
+        if hasattr(m, "mesh"):
+            m.mesh = mesh
+    return _cut(module, mesh)
+
+
+def _cut(module: CausalTransformer, mesh) -> CausalTransformer:
+    """Keep this rank's block of every parameter of a model built whole,
+    and record each parameter's mesh axes (``mesh_specs``)."""
+    from ..interop.from_flax import leaf_spec, shard_module  # imports serving
+
+    module.mesh_specs = {name: leaf_spec(name, p.shape, mesh)
+                         for name, p in module.named_parameters()}
+    return shard_module(module, mesh)
 
 
 def GPTTiny(vocab_size: int = 1000, max_len: int = 128,

@@ -87,27 +87,37 @@ class QuantizableDense(nn.Module):
                              .contiguous())
         self.int8_impl = impl
 
+    @property
+    def features(self) -> int:
+        """The output features this layer holds (a rank's columns of a
+        column-parallel layer)."""
+        return (self.kernel_q if self.quantized else self.kernel).shape[-1]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.matmul(x)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
+
+    def matmul(self, x: torch.Tensor) -> torch.Tensor:
+        """``x @ kernel`` without the bias, through the int8 route of a
+        quantized kernel (a tensor-parallel layer's partial product)."""
         if self.quantized and self.int8_impl == "dequant":
             # in-step dequantize: the same f32 weight values as
             # serving.quant.dequantize_tree(tree, torch.float32)
             d = self.dtype
-            y = x.to(d) @ (self.kernel_q.to(torch.float32)
-                           * self.kernel_s).to(d)
-        elif self.quantized:
+            return x.to(d) @ (self.kernel_q.to(torch.float32)
+                              * self.kernel_s).to(d)
+        if self.quantized:
             # imported here: serving imports the models package
             from ..serving.quant import QuantizedTensor, quantized_dot
 
             d = self.dtype or x.dtype
-            y = quantized_dot(x.to(d), QuantizedTensor(self.kernel_q,
-                                                       self.kernel_s),
-                              dtype=d, impl=self.int8_impl)
-        else:
-            d = self.dtype
-            y = x.to(d) @ self.kernel.to(d)
-        if self.bias is not None:
-            y = y + self.bias.to(y.dtype)
-        return y
+            return quantized_dot(x.to(d), QuantizedTensor(self.kernel_q,
+                                                          self.kernel_s),
+                                 dtype=d, impl=self.int8_impl)
+        d = self.dtype
+        return x.to(d) @ self.kernel.to(d)
 
 
 def load_tree(module: nn.Module, tree: Mapping[str, object],

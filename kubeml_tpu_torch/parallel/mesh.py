@@ -38,6 +38,15 @@ An ``ep`` axis holds the expert stacks of a MoE model
 (``parallel.moe``): each rank keeps ``E / ep`` experts, and the MoE
 layer sums its partial outputs over ``ep`` x ``tp`` (a group
 :func:`make_mesh` makes).
+
+:func:`serving_mesh` is the mesh a finished model is served on (JAX
+``Config.serving_mesh``, ``ps/parameter_server.py::_serving_mesh_for``):
+:func:`make_mesh` over the first ``n`` ranks of the world, marked
+``serving``. On a serving mesh a parameter is cut by the per-leaf fit
+rule (:func:`fit_spec`, JAX ``serving/batcher.py::_param_shardings``):
+a dim stays whole where the mesh lacks its axis or the dim does not
+divide over it (GPT-2's vocabulary of 50257 over ``tp=2``), so the model
+computes that leaf whole on every rank.
 """
 
 from __future__ import annotations
@@ -115,6 +124,8 @@ class Mesh:
             raise ValueError(f"rank {rank} appears {len(at)} times in the "
                              f"mesh grid")
         self.member = len(at) == 1
+        # a serving mesh cuts each leaf by the fit rule (fit_spec)
+        self.serving = False
         self.coord = ({ax: int(c) for ax, c in zip(self.axis_names, at[0])}
                       if self.member else {})
         self._groups: Optional[Dict[Tuple[str, ...], object]] = None
@@ -239,6 +250,50 @@ def make_mesh(shape: Optional[Dict[str, int]] = None,
     mesh.group("dp", "sp")  # the trainer's replica group, on every rank
     mesh.group("ep", "tp")  # the MoE layer's partial-output group
     return mesh
+
+
+def serving_ranks(axes: Dict[str, int], world: int) -> int:
+    """The ranks a serving mesh of ``axes`` spans; ``ValueError`` for an
+    unknown axis, an axis below 1, ``sp`` above 1 (decode does not run
+    under sequence parallelism) or more ranks than ``world``."""
+    for ax, n in axes.items():
+        if ax not in AXIS_ORDER:
+            raise ValueError(f"unknown mesh axis {ax!r} (valid: "
+                             f"{AXIS_ORDER})")
+        if int(n) < 1:
+            raise ValueError(f"mesh axis {ax}={n} is below 1")
+    if int(axes.get("sp", 1)) > 1:
+        raise ValueError("decode does not run under sequence parallelism; "
+                         "use an sp=1 mesh for serving")
+    n = math.prod(int(v) for v in axes.values())
+    if n > world:
+        raise ValueError(f"it needs {n} ranks, the process group holds "
+                         f"{world}")
+    return n
+
+
+def serving_mesh(axes: Dict[str, int]) -> Mesh:
+    """The serving mesh of ``axes`` (``Config.serving_mesh_axes()``) over
+    the first :func:`serving_ranks` ranks of the process group, marked
+    ``serving`` (:func:`fit_spec`). Every rank of the world calls it, as
+    :func:`make_mesh`."""
+    from . import distributed
+
+    n = serving_ranks(axes, distributed.process_count())
+    mesh = make_mesh(shape={ax: int(v) for ax, v in axes.items()},
+                     ranks=range(n))
+    mesh.serving = True
+    return mesh
+
+
+def fit_spec(spec: Tuple, shape: Sequence[int], mesh) -> tuple:
+    """``spec`` with each axis kept only where ``mesh`` has it above 1
+    and the dim divides over it (JAX's ``fit``); None elsewhere, the dim
+    whole on every rank."""
+    sizes = mesh.shape
+    return tuple(ax if ax is not None and sizes.get(ax, 1) > 1
+                 and int(shape[d]) % sizes[ax] == 0 else None
+                 for d, ax in enumerate(spec))
 
 
 def check_mesh(mesh) -> Optional[torch.device]:

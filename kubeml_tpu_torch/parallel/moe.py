@@ -72,8 +72,16 @@ Flax sows the aux loss and the capacity overflow into collections; here
 each :class:`MoEMlp` keeps the values of its last capped forward in
 ``last_aux`` (the weighted aux loss, a tensor that carries gradients) and
 ``last_overflow``, which ``SPMDTrainer`` collects (:func:`moe_layers`) and
-clears around each step. The decode path sets neither, and does not run
-over a mesh of several ranks (meshed serving, ROADMAP Queue 1 item 1.4).
+clears around each step. The decode path sets neither.
+
+Decode over a serving mesh (JAX's ``BatchingDecoder(mesh=)`` on a MoE
+model): the slab is whole on every rank, so every rank routes all its
+tokens with the same f32 router and keeps the same experts a token; it
+runs the experts it holds (``E / ep`` of them where the fit rule cut the
+stacks over ``ep``, ``H / tp`` of their width where it cut them over
+``tp``), and the partial outputs are summed over the axes that cut the
+stacks, no others. Decode is uncapped, so no count is gathered over
+``dp`` x ``sp``.
 """
 
 from __future__ import annotations
@@ -126,6 +134,7 @@ class MoEMlp(nn.Module):
                     raise ValueError(f"MoE {what} {n} does not divide over "
                                      f"{ax}={self.mesh.shape[ax]}")
         self.num_experts = E
+        self.hidden = H
         self.top_k = top_k
         self.capacity_factor = capacity_factor
         self.aux_loss_weight = aux_loss_weight
@@ -180,11 +189,6 @@ class MoEMlp(nn.Module):
         B, L, D = x.shape
         E = self.num_experts
         mesh = self.mesh
-        if decode and mesh is not None:
-            raise NotImplementedError(
-                f"MoE decode over a mesh of several ranks ({mesh.shape}) is "
-                f"meshed serving, a later item of the port (ROADMAP Queue 1 "
-                f"item 1.4)")
         tokens = x.reshape(B * L, D)
         # --- router (always f32: gate ordering must be stable) ---
         logits = tokens.float() @ self._weight("router").float()
@@ -215,16 +219,23 @@ class MoEMlp(nn.Module):
         """Serving: each token keeps the experts whose gate reaches its
         k-th largest, renormalised, and every expert runs on every token
         (the zeroed gates drop the rest), one expert after another - the
-        JAX ``scan`` - so incremental decode equals a full decode forward."""
+        JAX ``scan`` - so incremental decode equals a full decode forward.
+        Over a mesh: this rank's experts and hidden columns, the partial
+        outputs summed over the axes that cut them."""
         kth = torch.topk(gates, self.top_k, dim=-1).values[:, -1:]
         keep = (gates >= kth).float() * gates
         keep = keep / keep.sum(-1, keepdim=True).clamp_min(1e-9)
         keep = keep.to(tokens.dtype)
+        n, width = w_in.shape[0], w_in.shape[-1]  # what this rank holds
+        cut = [ax for ax, held, whole in (("ep", n, self.num_experts),
+                                          ("tp", width, self.hidden))
+               if held < whole]
+        e0 = self.mesh.coord["ep"] * n if "ep" in cut else 0
         out = torch.zeros_like(tokens)
-        for e in range(self.num_experts):
+        for e in range(n):
             h = F.gelu(tokens @ w_in[e], approximate="tanh")
-            out = out + keep[:, e:e + 1] * (h @ w_out[e])
-        return out
+            out = out + keep[:, e0 + e:e0 + e + 1] * (h @ w_out[e])
+        return psum(out, self.mesh, cut) if cut else out
 
     def _queue(self, onehot: torch.Tensor, B: int, L: int):
         """(each token's place in its chosen expert's global queue this

@@ -71,9 +71,36 @@ engine rejects (a ``ValueError`` or ``KubeMLError`` from the spec
 arguments, or a draft model that does not load) degrades to plain decode
 with a warning. Anything else raised while building a decoder propagates.
 
+Meshed serving (``serving_mesh``, e.g. ``"tp=2"``; JAX
+``_serving_mesh_for``, ``_build_serving`` and ``_get_decoder`` under a
+mesh, :1781-1884, :1351-1383): over ranks, ``/generate`` of a finished
+causal LM runs on a serving mesh over the first ranks of the process
+group (``parallel.mesh.serving_mesh``) through the dense
+``BatchingDecoder(mesh=)``, whose engine runs here and drives the other
+ranks' shards in lockstep. Building one (under ``_dist_lock``) announces
+``{"cmd": "serve"}`` to the followers, builds the mesh on every rank,
+and each rank of it builds the model whole, places it on the mesh
+(``models.gpt.place_on_mesh``) and loads its block
+(:func:`load_mesh_module`): a sharded final restored block by block onto
+the mesh (a ``final-int8`` as its int8 blocks, no dense leaf), a flat
+final or one that needs the function's ``serving_remap`` assembled on
+the host, remapped, quantized whole under int8, then cut
+(``interop.from_flax.shard_tree``); every follower acknowledges, then
+``go``. A spec that is invalid, has an axis below 1 or ``sp`` above 1, or
+needs more ranks than the world holds is logged once and serving stays on
+one rank (as JAX falls back to one device), and so does a model that
+cannot decode over a mesh: the leader builds the function's model before
+it takes the lock, and remembers the refusal per checkpoint mtime, so such
+a model never waits for the ranks. ``/infer`` stays on one rank. A job
+over the ranks holds ``_dist_lock`` for its whole run, so a meshed request
+waits for it (JAX's one process shares its devices); a meshed decoder
+closed meanwhile leaves its ``serve_close`` to the holder, which sends it
+before it lets go (``serving.batcher.send_pending_closes``).
+:meth:`announce_shutdown` closes the meshed decoders before it releases
+the followers.
+
 Not ported yet, each refused with a 400 that names it: standalone job
-runners (``standalone_jobs``; over ranks JAX's own refusal), meshes
-(``serving_mesh``: meshed serving, ROADMAP Queue 1 item 1.4), and serving
+runners (``standalone_jobs``; over ranks JAX's own refusal) and serving
 a job's epoch checkpoints before its final export. The heartbeat monitor
 of hung threaded jobs, traces and the time-series store are not ported
 either. An unknown id is a 404. The server runs on the card unless given
@@ -105,7 +132,10 @@ from ..interop.from_flax import from_flax, from_flax_variables
 from ..models.generation import (generate_from_request,
                                  supports_paged_decode)
 from ..models.layers import load_tree
+from ..parallel.distributed import get_dist_context
+from ..parallel.mesh import serving_mesh, serving_ranks
 from ..serving import BatchingDecoder, PagedBatchingDecoder, kvsnap
+from ..serving.batcher import send_pending_closes
 from ..serving.quant import (INT8_TAG, QuantizedTensor, from_storage_tree,
                              is_quantized_storage, is_quantized_tree)
 from ..storage.checkpoint import FINAL_TAG, CheckpointStore
@@ -170,15 +200,20 @@ class ParameterServer:
         self._journal = JobJournal(config=self.cfg)
         self._serving_cache: Dict[str, tuple] = {}  # (model, tree, mtime)
         self._decoders: Dict[str, tuple] = {}  # (decoder, mtime)
+        # finals that cannot decode over the serving mesh: model -> mtime
+        self._unmeshable: Dict[str, int] = {}
         # requests replayed from snap_dir: {"model", "request_id", "file",
         # "entry", "decoder"}
         self._restored: List[dict] = []
         self._lock = threading.RLock()
         # over ranks: this server runs on rank 0 and announces each job to
-        # the followers; jobs over ranks run one at a time (_dist_lock)
+        # the followers; jobs over ranks run one at a time (_dist_lock),
+        # and a meshed decoder's ops take it too (reentrant: building one
+        # holds it while the decoder announces itself)
         self.dist = dist if dist is not None and dist.size > 1 else None
-        self._dist_lock = threading.Lock()
+        self._dist_lock = threading.RLock()
         self._dist_run = 0  # per-announcement nonce of the ack keys
+        self._mesh_axes = None  # serving_mesh's axes once checked
 
     @property
     def world(self) -> int:
@@ -305,6 +340,7 @@ class ParameterServer:
         from ..utils.watchdog import arm_stall_watchdog
 
         with self._dist_lock:
+            send_pending_closes()
             run = self._dist_run
             self._dist_run += 1
             self.dist.broadcast_obj({"cmd": "train", "task": task.to_dict(),
@@ -345,6 +381,10 @@ class ParameterServer:
                 self._run_job(task, job, record)
             finally:
                 guard.set()
+            if task.status != JobStateEnum.FAILED:
+                # the decoders closed while the job held the ranks (after a
+                # failure the next holder sends them, if the ranks live)
+                send_pending_closes()
 
     def _finish(self, job_id: str,
                 expect: Optional[_JobRecord] = None) -> bool:
@@ -613,9 +653,16 @@ class ParameterServer:
     def announce_shutdown(self) -> None:
         """Release the followers at shutdown (after
         :meth:`stop_running_jobs`: a running job over ranks holds the dist
-        lock until its epoch ends)."""
+        lock until its epoch ends), the meshed decoders closed first."""
         if self.dist is not None:
+            with self._lock:
+                meshed = [mid for mid, (d, _) in self._decoders.items()
+                          if getattr(d, "mesh", None) is not None]
+                decoders = [self._decoders.pop(mid)[0] for mid in meshed]
+            for d in decoders:
+                d.close()
             with self._dist_lock:
+                send_pending_closes()
                 self.dist.broadcast_obj({"cmd": "shutdown"})
 
     def finish_standalone(self, job_id: str, status: str = "",
@@ -680,8 +727,10 @@ class ParameterServer:
                 return self._maybe_stream(record.job.generate(req), req)
             finally:
                 self.metrics.task_finished("inference")
-        model, tree, mtime = self._load_serving(model_id)
-        decoder = self._get_decoder(model_id, model, tree, mtime)
+        decoder = self._mesh_decoder(model_id)
+        if decoder is None:
+            model, tree, mtime = self._load_serving(model_id)
+            decoder = self._get_decoder(model_id, model, tree, mtime)
         if decoder is not None:
             entry = decoder.submit(req)
             if req.stream:
@@ -757,38 +806,138 @@ class ParameterServer:
         batching engine or for a model it cannot decode (the caller then
         runs the one-shot path). The paged engine serves what it can, the
         dense one the rest."""
-        if self.cfg.serving_mesh:
-            raise _not_ported(f"meshed serving (serving_mesh="
-                              f"{self.cfg.serving_mesh!r}, meshed serving: "
-                              f"ROADMAP Queue 1 item 1.4)")
         if not self.cfg.serving_batcher:
             return None
-        with self._lock:
-            cached = self._decoders.get(model_id)
-            if (cached is not None and cached[1] == mtime
-                    and not cached[0].closed):
-                return cached[0]
-        quantize = self.cfg.serving_quantize
-        if quantize not in ("", "int8"):
-            log.warning("KUBEML_SERVING_QUANTIZE=%r not recognized (valid: "
-                        "int8); serving unquantized", quantize)
-            quantize = ""
+        cached = self._cached_decoder(model_id, mtime)
+        if cached is not None:
+            return cached
         module = model.build()
         if not self._slab_decodable(module):
             return None
         module = self._load_module(module, tree)
-        common = dict(
-            slots=self.cfg.serving_slots,
-            chunk_steps=self.cfg.serving_chunk_steps, name=model_id,
-            quantize=quantize, int8_matmul=self.cfg.int8_matmul,
-            int8_matmul_impl=self.cfg.int8_matmul_impl,
-            queue_limit=self.cfg.serving_queue_limit,
-            shed_policy=self.cfg.serving_shed_policy, device=self.device)
+        common = self._decoder_args(model_id)
         if self.cfg.serving_paged and supports_paged_decode(module):
             decoder = self._paged_decoder(model_id, module, common)
         else:
             decoder = BatchingDecoder(module, **common)
         return self._install_decoder(model_id, decoder, mtime)
+
+    def _cached_decoder(self, model_id: str, mtime):
+        with self._lock:
+            cached = self._decoders.get(model_id)
+            if (cached is not None and cached[1] == mtime
+                    and not cached[0].closed):
+                return cached[0]
+        return None
+
+    def _quantize_mode(self) -> str:
+        quantize = self.cfg.serving_quantize
+        if quantize not in ("", "int8"):
+            log.warning("KUBEML_SERVING_QUANTIZE=%r not recognized (valid: "
+                        "int8); serving unquantized", quantize)
+            quantize = ""
+        return quantize
+
+    def _decoder_args(self, model_id: str) -> dict:
+        return dict(
+            slots=self.cfg.serving_slots,
+            chunk_steps=self.cfg.serving_chunk_steps, name=model_id,
+            quantize=self._quantize_mode(), int8_matmul=self.cfg.int8_matmul,
+            int8_matmul_impl=self.cfg.int8_matmul_impl,
+            queue_limit=self.cfg.serving_queue_limit,
+            shed_policy=self.cfg.serving_shed_policy, device=self.device)
+
+    # --- meshed serving ---
+
+    def _serving_mesh_axes(self) -> Optional[dict]:
+        """The axes of ``serving_mesh`` when they make a mesh of several
+        ranks this server can serve on, else None: an invalid spec, an
+        axis below 1 or ``sp`` above 1, or more ranks than the world holds
+        is logged (once) and serving stays on one rank (JAX
+        ``_serving_mesh_for``, :1781-1816)."""
+        if self._mesh_axes is None:
+            try:
+                axes = self.cfg.serving_mesh_axes()
+                n = serving_ranks(axes, self.world)
+            except ValueError as e:
+                log.warning("serving mesh %r refused (%s): serving on one "
+                            "rank", self.cfg.serving_mesh, e)
+                axes, n = {}, 1
+            self._mesh_axes = axes if n > 1 else {}
+        return self._mesh_axes or None
+
+    def _mesh_decoder(self, model_id: str):
+        """The resident meshed decoder of a finished checkpoint, built when
+        the serving mesh applies (see the module docstring); None
+        otherwise, and for a model that cannot decode over a mesh."""
+        if not self.cfg.serving_batcher:
+            return None
+        axes = self._serving_mesh_axes()
+        if axes is None:
+            return None
+        kind, tag, mtime = self._serving_source(model_id)
+        if mtime is None:
+            return None  # _load_serving answers the 404 or 400
+        cached = self._cached_decoder(model_id, mtime)
+        if cached is not None:
+            return cached
+        with self._lock:
+            if self._unmeshable.get(model_id) == mtime:
+                return None
+        assert self.dist is get_dist_context(), \
+            "meshed serving runs over the process-wide DistContext"
+        spec = {"model": model_id, "kind": kind, "tag": tag, "mesh": axes,
+                "quantize": self._quantize_mode()}
+        try:
+            # outside the lock: a model that cannot be meshed must not wait
+            # for a job over the ranks
+            source = mesh_source(self.registry, self._ckpt_store, spec)
+        except NotMeshable as e:
+            log.info("%s serves on one rank: %s", model_id, e)
+            with self._lock:
+                self._unmeshable[model_id] = mtime
+                while len(self._unmeshable) > SERVING_CACHE_SIZE:
+                    self._unmeshable.pop(next(iter(self._unmeshable)))
+            return None
+        # held through the decoder's construction (it announces itself to
+        # the followers, which take the module this announcement built)
+        with self._dist_lock:
+            send_pending_closes()
+            cached = self._cached_decoder(model_id, mtime)
+            if cached is not None:
+                return cached  # another request built it meanwhile
+            run = self._dist_run
+            self._dist_run += 1
+            self.dist.broadcast_obj({"cmd": "serve", "run": run, **spec})
+            mesh = serving_mesh(axes)
+            module, error = None, None
+            try:
+                module = load_mesh_module(self.registry, self._ckpt_store,
+                                          spec, mesh, source=source)
+            except Exception as e:
+                error = e
+            errs = []
+            for rank in range(1, self.dist.size):
+                ack = self.dist.get(f"kubeml/ack/{run}/{rank}",
+                                    timeout_s=self.cfg.dist_ack_timeout)
+                if ack is None:
+                    errs.append(f"rank {rank}: no serving ack (timeout)")
+                elif ack != "ok":
+                    errs.append(f"rank {rank}: {ack}")
+            self.dist.broadcast_obj({"go": error is None and not errs})
+            if error is not None:
+                raise error
+            if errs:
+                raise KubeMLError(f"meshed serving of {model_id} could not "
+                                  f"start: " + "; ".join(errs), 503)
+            decoder = BatchingDecoder(module, mesh=mesh,
+                                      dist_lock=self._dist_lock,
+                                      **self._decoder_args(model_id))
+            log.info("serving %s (%s final) on mesh %s", model_id, kind,
+                     mesh.shape)
+            # a load that outlasted CLOSE_WAIT_S may have queued closes
+            send_pending_closes()
+            return self._install_decoder(model_id, decoder, mtime)
 
     def _paged_decoder(self, model_id: str, module, common: dict):
         common = dict(
@@ -1040,7 +1189,7 @@ class ParameterServer:
                        mtime) -> tuple:
         """(model, host tree, mtime) from the export: the function the
         checkpoint's request names, and its variables, a sharded export
-        assembled on the host (JAX :1815-1860, without a serving mesh),
+        assembled on the host (JAX :1815-1860, one rank's serving),
         re-laid out by the function's ``serving_remap`` unless the export
         is already in the serving layout (``final-int8``), int8 storage
         markers back to QuantizedTensor pairs."""
@@ -1086,3 +1235,81 @@ class ParameterServer:
                 while len(self._serving_cache) > SERVING_CACHE_SIZE:
                     self._serving_cache.pop(next(iter(self._serving_cache)))
         return cached
+
+
+class NotMeshable(ValueError):
+    """A finished model that cannot decode over a serving mesh (no
+    ``CausalTransformer``): it serves on one rank."""
+
+
+def mesh_source(registry: FunctionRegistry, ckpt_store: CheckpointStore,
+                spec: dict) -> tuple:
+    """(the function's model, its module built whole, the export's meta,
+    the flat checkpoint or None for a sharded one) of the finished model
+    that ``spec`` names (the ``serve`` announcement's ``model``, ``kind``
+    and ``tag``). Raises :class:`NotMeshable` for a model that cannot
+    decode over a mesh."""
+    from ..models.gpt import CausalTransformer
+
+    model_id, kind, tag = spec["model"], spec["kind"], spec["tag"]
+    try:
+        if kind == "flat":
+            ck = ckpt_store.restore(model_id, tag=tag)
+            meta = ck.meta
+        else:
+            ck, meta = None, ShardedCheckpointStore(
+                root=ckpt_store.root).read_manifest(model_id, tag).get(
+                    "meta", {})
+    except CheckpointNotFoundError:
+        raise JobNotFoundError(model_id)
+    model = registry.load(meta.get("request", {}).get("function_name", ""))
+    module = model.build()
+    if not isinstance(module, CausalTransformer):
+        raise NotMeshable(f"{type(module).__name__} does not decode over a "
+                          f"serving mesh")
+    return model, module, meta, ck
+
+
+def load_mesh_module(registry: FunctionRegistry, ckpt_store: CheckpointStore,
+                     spec: dict, mesh, source: Optional[tuple] = None):
+    """This rank's block of a finished model on a serving ``mesh``, on the
+    rank's device, as every rank of the mesh builds it (``spec``: the
+    ``serve`` announcement's ``model``, ``kind``, ``tag`` and
+    ``quantize``; ``source``: :func:`mesh_source`'s answer, when the
+    caller has it already). The function's model is built whole and
+    placed on the mesh; a sharded export restores this rank's blocks only
+    (int8 storage markers as int8 blocks); a flat one, or one that needs
+    the function's ``serving_remap``, is assembled on the host, remapped,
+    quantized whole under ``quantize="int8"`` and cut (``shard_tree``). A
+    dense block tree is quantized later, in place (``BatchingDecoder``).
+    Raises :class:`NotMeshable` for a model that cannot decode over a
+    mesh."""
+    from ..interop.from_flax import shard_tree
+    from ..models.gpt import place_on_mesh
+    from ..serving.quant import quantize_tree
+
+    model, module, meta, ck = source or mesh_source(registry, ckpt_store,
+                                                    spec)
+    model_id, tag = spec["model"], spec["tag"]
+    sharded = ShardedCheckpointStore(root=ckpt_store.root)
+    place_on_mesh(module, mesh)
+    remap = None if meta.get("layout") == "serving" else \
+        model.serving_remap()
+    if ck is None and remap is None:
+        # this rank's blocks of each leaf, from the slices that overlap them
+        tree = from_flax(from_storage_tree(sharded.restore(
+            model_id, tag, mesh=mesh).variables))
+    else:
+        if ck is None:
+            ck = sharded.restore(model_id, tag)
+        host = ck.variables
+        if is_quantized_storage(host):
+            host = from_storage_tree(host)
+        if remap is not None:
+            host = apply_remap_host(host, remap)
+        tree = from_flax(host)
+        if spec.get("quantize") == "int8" and not is_quantized_tree(host):
+            tree = quantize_tree(tree)  # whole: the global scales
+        tree = shard_tree(tree, mesh)
+    load_tree(module, tree)
+    return module.to(mesh.device)

@@ -6,9 +6,11 @@ policy for its parallelism and starts it on the parameter server. A
 running job queues an epoch-end re-evaluation and blocks until the loop's
 answer reaches it through the PS (``ParameterServer.update_task``).
 
-A request with options whose modules the port lacks (a mesh axis other
-than ``worker`` over several ranks: the SPMD job over ranks) is refused
-with a 400 at submission. A preempted job is requeued at once with
+A request the cluster cannot run (``TrainOptions.check_ported`` over the
+parameter server's ranks: an SPMD mesh that does not divide them, a
+K-AVG job over several ranks, multi-card K-AVG being a later item of the
+port) is refused with a 400 at submission. A preempted job is requeued
+at once with
 ``resume=True`` (the preemption monitor, which would park it until
 serving pressure clears, is not ported).
 """

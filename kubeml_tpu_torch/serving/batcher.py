@@ -63,7 +63,13 @@ admission, waits out a grace period and returns the stragglers as KMS1
 frames, which ``submit_snapshot`` (here or in the JAX engine) admits
 again; a periodic ``KVPool.check()`` audit turns broken page accounting
 into that same rebuild. A fault is injected, and holds this guarantee,
-at a step's entry. Left for later (ROADMAP): meshes.
+at a step's entry.
+
+Meshed serving (JAX ``BatchingDecoder(mesh=)``) runs on the dense engine
+only: ``BatchingDecoder(mesh=)`` on rank 0 of a serving mesh, the other
+ranks following its ops in lockstep (:class:`DenseShard`,
+:func:`serve_follower`, :class:`ServingFollower`); the paged engine
+refuses a mesh, as JAX's does.
 """
 
 from __future__ import annotations
@@ -1755,6 +1761,188 @@ class PagedBatchingDecoder(_SlotEngine):
         self._route(rows, packed[:, :-1])
 
 
+class DenseShard:
+    """The device half of the dense slot engine on one rank: the module
+    (this rank's block of it over a serving mesh), its KV cache of
+    ``slots`` stripes, and the generators of the sampled slots, each with
+    its seed and the draws it made. :class:`BatchingDecoder` drives one
+    in its own process; over a mesh every other rank of the mesh drives
+    its own from the leader's ops (:meth:`run`, :func:`serve_follower`),
+    so every rank runs the same forwards, collectives and draws, and
+    samples the same tokens from the same whole logits.
+
+    An op is a JSON-ready dict: ``{"op": "prefill", "tokens" [k, bucket],
+    "plens", "slots", "temp", "topk", "seeds"}`` (a seed a sampled row,
+    None for a greedy one) or ``{"op": "decode", "size", "tok", "pos",
+    "rem", "eos", "temp", "topk", "gens"}`` (a value a slot; ``gens`` the
+    ``[seed, draws]`` of each generator the chunk draws from, which a
+    follower checks against its own).
+
+    ``quantize="int8"`` as :class:`BatchingDecoder` describes; a dense
+    module on a mesh quantizes its blocks with the whole leaves' scales
+    (``serving.quant.quantize_tree``, collective over the mesh)."""
+
+    def __init__(self, module, *, slots: int, quantize: str = "",
+                 int8_matmul: bool = False, int8_matmul_impl: str = "auto",
+                 mesh=None, name: str = "decoder", device=None):
+        from ..models.gpt import place_on_mesh
+
+        self.mesh = mesh if mesh is not None and mesh.distributed else None
+        self.device = resolve_device(
+            device if device is not None or self.mesh is None
+            else self.mesh.device)
+        if getattr(module, "max_len", None) is None:
+            raise GenerationInputError(
+                "model exposes no max_len attribute; batched decode requires "
+                "a declared KV-cache capacity")
+        if quantize not in ("", "int8"):
+            raise ValueError(f"unknown quantize mode {quantize!r} "
+                             f"(valid: '', 'int8')")
+        if self.mesh is not None and getattr(module, "mesh", None) is None:
+            place_on_mesh(module, self.mesh)
+        elif getattr(module, "mesh", None) is not self.mesh:
+            raise ValueError(f"the module lies on mesh "
+                             f"{getattr(module.mesh, 'shape', None)}, the "
+                             f"decoder serves on "
+                             f"{getattr(self.mesh, 'shape', None)}")
+        if module.device != self.device:
+            raise ValueError(f"module lives on {module.device}, the decoder "
+                             f"on {self.device}; move it first")
+        pre_quantized = _is_quantized(module)
+        if pre_quantized and quantize != "int8":
+            raise ValueError("module carries int8 weights but quantize is "
+                             "not 'int8'")
+        self.module = module.eval()
+        self.slots = int(slots)
+        self.quantize = quantize
+        self.int8_matmul = quantize == "int8" and (bool(int8_matmul)
+                                                   or pre_quantized)
+        if self.int8_matmul and getattr(module, "moe_every", 0):
+            log.warning("%s: the int8 matmul does not cover MoE expert "
+                        "weights; falling back to in-step dequantize", name)
+            self.int8_matmul = False
+        self.int8_matmul_impl = resolve_int8_matmul(int8_matmul_impl,
+                                                    self.device)
+        self._load_int8(module)
+        self.reset()
+
+    def _load_int8(self, module) -> None:
+        """Install ``quantize="int8"`` weights in place: int8 kernels for
+        the int8 matmul, else int8 values that each forward dequantizes
+        (projections with ``int8_impl="dequant"``, MoE weights through
+        ``MoEMlp``)."""
+        if self.quantize != "int8":
+            return
+        impl = self.int8_matmul_impl if self.int8_matmul else "dequant"
+        if not _is_quantized(module):
+            load_tree(module, quantize_tree(
+                module.state_dict(), self.mesh,
+                getattr(module, "mesh_specs", None)), int8_impl=impl)
+        for m in module.modules():
+            if isinstance(m, QuantizableDense):
+                m.int8_impl = impl
+
+    def reset(self) -> None:
+        """Zeroed stripes and no generators (a new engine, or after a
+        fault)."""
+        self.cache = init_cache(self.module, self.slots)
+        # per slot: [seed, draws, generator] of a sampled row, else None
+        self.gens: List[Optional[list]] = [None] * self.slots
+
+    def generator(self, slot: int) -> Optional[torch.Generator]:
+        g = self.gens[slot]
+        return None if g is None else g[2]
+
+    def gen_keys(self, slots: List[int]) -> List[Optional[list]]:
+        """``[seed, draws]`` of each slot's generator (None: none)."""
+        return [None if self.gens[s] is None else self.gens[s][:2]
+                for s in slots]
+
+    @torch.inference_mode()
+    def run(self, op: dict):
+        """Execute one op; the prefill's first tokens (a list) or the
+        decode chunk's ``[slots, size]`` tokens (-1 past a row's end)."""
+        if op["op"] == "prefill":
+            return self.prefill(op)
+        if op["op"] == "decode":
+            return self.decode(op)
+        raise ValueError(f"unknown serving op {op['op']!r}")
+
+    def _draw(self, logits, temp, topk, gens: List[Optional[list]]):
+        toks = draft_sample(
+            logits, torch.tensor(temp, dtype=torch.float32,
+                                 device=self.device),
+            torch.tensor(topk, dtype=torch.int64, device=self.device),
+            [None if g is None else g[2] for g in gens], TOP_K_MAX,
+            with_probs=False)[0]
+        for g in gens:
+            if g is not None:
+                g[1] += 1
+        return toks
+
+    def prefill(self, op: dict) -> List[int]:
+        """One forward over the group's padded prompts into a scratch cache
+        of the bucket's length, its stripes copied into the rows' slots
+        (``valid`` trimmed to each prompt), each row's first token
+        sampled (a sampled row's generator seeded here)."""
+        dev = self.device
+        tokens = torch.as_tensor(np.asarray(op["tokens"], np.int64),
+                                 device=dev)
+        k, bucket = tokens.shape
+        plens = torch.tensor(op["plens"], device=dev)
+        slots = list(op["slots"])
+        scratch = init_cache(self.module, k, cache_len=bucket)
+        hidden = self.module(tokens, decode=True, cache=scratch,
+                             return_hidden=True)
+        # next-token logits at each row's last real prompt token
+        logits = self.module.logits(hidden[torch.arange(k, device=dev),
+                                           plens - 1])
+        at = torch.tensor(slots, device=dev)
+        trim = (torch.arange(self.module.max_len, device=dev)[None, :]
+                < plens[:, None])
+        for stripe, rows in zip(self.cache.layers, scratch.layers):
+            stripe["k"][at, :bucket] = rows["k"]
+            stripe["v"][at, :bucket] = rows["v"]
+            stripe["valid"][at] = trim
+        for s, seed in zip(slots, op["seeds"]):
+            self.gens[s] = (None if seed is None else
+                            [int(seed), 0,
+                             torch.Generator(device=dev).manual_seed(
+                                 int(seed))])
+        return self._draw(logits, op["temp"], op["topk"],
+                          [self.gens[s] for s in slots]).tolist()
+
+    def decode(self, op: dict) -> np.ndarray:
+        """Advance every slot ``size`` tokens at its own position; rows
+        that hit eos or their budget freeze and emit nothing more."""
+        dev = self.device
+        as_t = lambda key, dt: torch.tensor(op[key], dtype=dt, device=dev)
+        tok, pos = as_t("tok", torch.int64), as_t("pos", torch.int64)
+        remaining, eos = as_t("rem", torch.int32), as_t("eos", torch.int64)
+        live = remaining > 0
+        size = int(op["size"])
+        for s, want in enumerate(op["gens"]):
+            if want is None:
+                self.gens[s] = None
+            elif self.gens[s] is None or self.gens[s][:2] != list(want):
+                raise RuntimeError(
+                    f"slot {s}: the leader's generator is {want}, this "
+                    f"rank's {self.gen_keys([s])[0]}: the ranks are out of "
+                    f"lockstep")
+        out = torch.empty((size, self.slots), dtype=torch.int64, device=dev)
+        for t in range(size):
+            logits = self.module(tok[:, None], decode=True, positions=pos,
+                                 cache=self.cache)[:, -1]
+            nxt = self._draw(logits, op["temp"], op["topk"], self.gens)
+            was_live = live
+            remaining = remaining - was_live.int()
+            live = was_live & ~((eos >= 0) & (nxt == eos)) & (remaining > 0)
+            out[t] = torch.where(was_live, nxt, torch.full_like(nxt, -1))
+            tok = torch.where(live, nxt, tok)
+            pos = torch.where(live, pos + 1, pos)
+        return out.T.cpu().numpy()  # the chunk's one device->host copy
+
+
 class BatchingDecoder(_SlotEngine):
     """Dense slot engine: continuous batching over per-row cache stripes
     (JAX ``BatchingDecoder``, :479-1795).
@@ -1773,18 +1961,40 @@ class BatchingDecoder(_SlotEngine):
     (they feed their last token at their last position and emit nothing).
     A chunk is sized to the longest row's remaining work, or, with rows
     queued, to the earliest completion (the JAX engine's default
-    pressure sizing).
+    pressure sizing). The device work runs in a :class:`DenseShard`.
 
     This engine serves what the paged engine cannot: MoE-interleaved
-    models (no paged decode path) and ``serving_paged=False``. Attention
-    runs over the whole stripe under a dense mask, so it takes the plain
-    path, as the JAX engine's XLA path does.
+    models (no paged decode path), ``serving_paged=False`` and a serving
+    mesh. Attention runs over the whole stripe under a dense mask, so it
+    takes the plain path, as the JAX engine's XLA path does.
 
     ``quantize="int8"`` holds int8 weights: with ``int8_matmul`` every
     quantized projection runs through ``int8_matmul_impl`` (``auto``: the
     CUDA kernel on CUDA); without it - and always for MoE models, whose
     expert stacks the int8 matmul does not cover (JAX :590-596) - the int8
     values stay on the device and each forward dequantizes them.
+
+    ``mesh`` (a serving mesh of several ranks, ``parallel.mesh.
+    serving_mesh``; JAX ``BatchingDecoder(mesh=)``, :490-690): the model
+    is placed on it (``models.gpt.place_on_mesh``, a model built whole;
+    or one already there, restored block by block) and the KV stripes
+    hold this rank's ``H / tp`` heads. JAX drives the mesh from one
+    process; here the ranks are processes, so the decoder runs on rank 0,
+    the leader, and every other rank follows (:func:`serve_follower`, or
+    ``engine.follower.run_follower``'s serving commands): the decoder
+    announces itself (``serve_init``, its knobs) and, before each prefill
+    group and each decode chunk, sends the followers the op its own shard
+    runs (``serve_op``) over the process-wide ``DistContext``, holding
+    ``dist_lock`` around the send and the forwards (the parameter
+    server's, so a job over the ranks and serving never interleave
+    collectives); it ends with ``serve_close``, sent later by the next
+    holder of the lock when a long holder keeps it
+    (:func:`send_pending_closes`).
+    Rank 0 alone decides admissions and chunk sizes. Every rank samples
+    the same whole logits from generators seeded alike, so no token
+    crosses ranks inside a chunk. A fault in the loop under a mesh fails
+    the rows with a retryable 503 and closes the decoder (a follower that
+    faulted has ended its process).
 
     Sampled rows draw from a generator seeded as the paged engine's
     (``_seed_for``), first at the prefill, then once a decode step, so at
@@ -1800,42 +2010,47 @@ class BatchingDecoder(_SlotEngine):
                  int8_matmul: bool = False, int8_matmul_impl: str = "auto",
                  queue_limit: Optional[int] = None,
                  shed_policy: Optional[str] = None,
-                 name: str = "decoder", device=None):
-        self.device = resolve_device(device)
-        if getattr(module, "max_len", None) is None:
-            raise GenerationInputError(
-                "model exposes no max_len attribute; batched decode requires "
-                "a declared KV-cache capacity")
-        if module.device != self.device:
-            raise ValueError(f"module lives on {module.device}, the decoder "
-                             f"on {self.device}; move it first")
-        if quantize not in ("", "int8"):
-            raise ValueError(f"unknown quantize mode {quantize!r} "
-                             f"(valid: '', 'int8')")
-        pre_quantized = _is_quantized(module)
-        if pre_quantized and quantize != "int8":
-            raise ValueError("module carries int8 weights but quantize is "
-                             "not 'int8'")
+                 name: str = "decoder", device=None, mesh=None,
+                 dist_lock=None):
         cfg = get_config()
-        self.module = module.eval()
+        self.mesh = mesh if mesh is not None and mesh.distributed else None
+        knobs = dict(slots=int(slots), quantize=quantize,
+                     int8_matmul=bool(int8_matmul),
+                     int8_matmul_impl=int8_matmul_impl)
+        if self.mesh is not None:
+            from ..parallel.distributed import get_dist_context
+
+            self._channel = get_dist_context()
+            if not self._channel.is_leader or self.mesh.rank != 0:
+                raise ValueError("a meshed decoder runs on rank 0; the other "
+                                 "ranks follow it (serve_follower)")
+            self._dist_lock = dist_lock or threading.Lock()
+            self._key = f"{name}-{uuid.uuid4().hex[:8]}"
+            with self._dist_lock:
+                send_pending_closes()
+                self._channel.broadcast_obj({"cmd": "serve_init",
+                                             "key": self._key,
+                                             "knobs": knobs})
+                self._shard = DenseShard(module, mesh=self.mesh, name=name,
+                                         device=device, **knobs)
+        else:
+            self._shard = DenseShard(module, name=name, device=device,
+                                     **knobs)
+        self._mesh_open = self.mesh is not None
+        shard = self._shard
+        self.device = shard.device
+        self.module = shard.module
         self.max_len = int(module.max_len)
-        self.slots = int(slots)
+        self.slots = shard.slots
         self.chunk_steps = int(chunk_steps)
         self.queue_limit = int(queue_limit if queue_limit is not None
                                else cfg.serving_queue_limit)
         self.shed_policy = str(shed_policy if shed_policy is not None
                                else cfg.serving_shed_policy)
         self.stats = DecoderStats(self.slots)
-        self.quantize = quantize
-        self.int8_matmul = quantize == "int8" and (bool(int8_matmul)
-                                                   or pre_quantized)
-        if self.int8_matmul and getattr(module, "moe_every", 0):
-            log.warning("%s: the int8 matmul does not cover MoE expert "
-                        "weights; falling back to in-step dequantize", name)
-            self.int8_matmul = False
-        self.int8_matmul_impl = resolve_int8_matmul(int8_matmul_impl,
-                                                    self.device)
-        self._load_int8(module)
+        self.quantize = shard.quantize
+        self.int8_matmul = shard.int8_matmul
+        self.int8_matmul_impl = shard.int8_matmul_impl
         self.weight_bytes = quantized_bytes(module)
         # the full stripes are read every forward (the JAX accounting)
         self._kv_token_bytes = _kv_token_bytes(module, "off")
@@ -1844,34 +2059,72 @@ class BatchingDecoder(_SlotEngine):
         tail = min(self.chunk_steps,
                    max(8, (self.chunk_steps // 3 + 7) // 8 * 8))
         self._chunk_sizes = sorted({self.chunk_steps, tail})
-        self.cache = init_cache(module, self.slots)
         self._init_queue_state(name)
 
-    def _load_int8(self, module) -> None:
-        """Install ``quantize="int8"`` weights in place: int8 kernels for
-        the int8 matmul, else int8 values that each forward dequantizes
-        (projections with ``int8_impl="dequant"``, MoE weights through
-        ``MoEMlp``)."""
-        if self.quantize != "int8":
+    @property
+    def cache(self):
+        return self._shard.cache
+
+    def _run(self, op: dict):
+        """Run one op on this rank's shard, sent to the followers first
+        under a mesh."""
+        if self.mesh is None:
+            return self._shard.run(op)
+        with self._dist_lock:
+            send_pending_closes()
+            self._channel.broadcast_obj({"cmd": "serve_op", "key": self._key,
+                                         "op": op})
+            return self._shard.run(op)
+
+    def _close_mesh(self) -> None:
+        """Release the followers' shards (once): the ``serve_close`` is
+        queued, then sent if the ranks' lock frees within
+        ``CLOSE_WAIT_S``. A longer holder (a job over the ranks, a model
+        loading onto the mesh) sends it before it lets the lock go."""
+        with self._cond:
+            if not self._mesh_open:
+                return
+            self._mesh_open = False
+        with _closes_lock:
+            _pending_closes.append(self._key)
+        if not self._dist_lock.acquire(timeout=CLOSE_WAIT_S):
+            log.info("%s: the ranks are busy; the followers release the "
+                     "shard when the ranks' lock is let go", self.name)
             return
-        impl = self.int8_matmul_impl if self.int8_matmul else "dequant"
-        if not _is_quantized(module):
-            load_tree(module, quantize_tree(module.state_dict()),
-                      int8_impl=impl)
-        for m in module.modules():
-            if isinstance(m, QuantizableDense):
-                m.int8_impl = impl
+        try:
+            send_pending_closes()
+        except Exception:
+            log.exception("%s: releasing the followers failed", self.name)
+        finally:
+            self._dist_lock.release()
+
+    def close(self) -> None:
+        super().close()
+        self._close_mesh()
+
+    def retire(self) -> None:
+        super().retire()
+        with self._cond:
+            idle = self._thread is None
+        if idle:  # no engine thread will exit to release the followers
+            self._close_mesh()
 
     # --- engine loop ---
 
     def _loop(self) -> None:
+        try:
+            self._serve()
+        finally:
+            self._close_mesh()
+
+    def _serve(self) -> None:
         while True:
             self._sweep_expired()
             with self._cond:
                 while (not self._closed and not self._pending
                        and not self._busy()):
                     if self._retired:
-                        self.cache = None  # free the stripes
+                        self._shard.cache = None  # free the stripes
                         return
                     self._cond.wait()
                 if self._closed:
@@ -1896,10 +2149,13 @@ class BatchingDecoder(_SlotEngine):
                 log.exception("%s: decode loop failed", self.name)
                 self._fail_all(e, wrap=True)
                 with self._cond:
-                    if self._closed:
+                    if self._closed or self.mesh is not None:
+                        # over a mesh the ranks may be out of step: close,
+                        # the parameter server builds a new decoder
+                        self._closed = True
                         return
                 try:
-                    self.cache = init_cache(self.module, self.slots)
+                    self._shard.reset()
                 except Exception:
                     with self._cond:
                         self._closed = True
@@ -1915,40 +2171,25 @@ class BatchingDecoder(_SlotEngine):
         return list(groups.values())
 
     def _prefill(self, group: List[_Row]) -> None:
-        """Prefill the group's prompts in one forward over a scratch cache
-        of the bucket's length, copy its stripes into the rows' slots
-        (``valid`` trimmed to each prompt), sample each first token."""
+        """Prefill the group's prompts in one forward (see
+        :meth:`DenseShard.prefill`), emit each row's first token."""
         t0 = time.monotonic()
         stalled = self._stalled_rows()
         for r in group:
             self._mark_slotted(r)
-        dev = self.device
         k = len(group)
         plens = [len(r.prompt) for r in group]
         bucket = _pow2_bucket(max(plens), _BUCKET_MIN, self.max_len)
         tokens = np.zeros((k, bucket), np.int64)
         for i, r in enumerate(group):
             tokens[i, :plens[i]] = r.prompt
-        scratch = init_cache(self.module, k, cache_len=bucket)
-        hidden = self.module(torch.from_numpy(tokens).to(dev), decode=True,
-                             cache=scratch, return_hidden=True)
-        # next-token logits at each row's last real prompt token
-        last = hidden[torch.arange(k, device=dev),
-                      torch.tensor(plens, device=dev) - 1]
-        logits = self.module.lm_head(last).float()
-        slots = torch.tensor([r.slot for r in group], device=dev)
-        trim = (torch.arange(self.max_len, device=dev)[None, :]
-                < torch.tensor(plens, device=dev)[:, None])
-        for stripe, rows in zip(self.cache.layers, scratch.layers):
-            stripe["k"][slots, :bucket] = rows["k"]
-            stripe["v"][slots, :bucket] = rows["v"]
-            stripe["valid"][slots] = trim
+        firsts = self._run(dict(
+            op="prefill", tokens=tokens.tolist(), plens=plens,
+            slots=[r.slot for r in group], temp=[r.temp for r in group],
+            topk=[r.topk for r in group],
+            seeds=[r.gen_seed if r.temp > 0 else None for r in group]))
         for r in group:
-            if r.temp > 0 and r.gen is None:
-                r.gen = torch.Generator(device=dev)
-                r.gen.manual_seed(r.gen_seed)
-        firsts = draft_sample(logits, *self._knobs(group), TOP_K_MAX,
-                              with_probs=False)[0].tolist()
+            r.gen = self._shard.generator(r.slot)
         self._charge_stall(stalled, time.monotonic() - t0)
         self._warmed = True
         self.stats.admitted_wave()
@@ -1986,44 +2227,23 @@ class BatchingDecoder(_SlotEngine):
                                  if t >= soonest][:1])
         return size
 
-    def _slab(self):
-        """The per-slot decode state at a chunk's start: (rows by slot,
-        tok, pos, live, remaining, eos, temp, topk, generators). Empty
-        slots are dead and greedy."""
-        dev = self.device
+    def _decode_chunk(self, size: int) -> None:
+        """Advance every slot ``size`` tokens (see
+        :meth:`DenseShard.decode`); the per-slot slab comes from the rows
+        at the chunk's start, empty slots dead and greedy."""
+        t0 = time.monotonic()
         rows = [r if r is not None and not r.done and not r.canceled
                 else None for r in self._slot_rows]
-        tok = [r.out[-1] if r else 0 for r in rows]
-        pos = [len(r.prompt) + len(r.out) - 1 if r else 0 for r in rows]
-        rem = [r.max_new - len(r.out) if r else 0 for r in rows]
-        as_t = lambda v, dt: torch.tensor(v, dtype=dt, device=dev)
-        return (rows, as_t(tok, torch.int64), as_t(pos, torch.int64),
-                as_t([n > 0 for n in rem], torch.bool),
-                as_t(rem, torch.int32),
-                as_t([r.eos if r else -1 for r in rows], torch.int64),
-                as_t([r.temp if r else 0.0 for r in rows], torch.float32),
-                as_t([r.topk if r else 0 for r in rows], torch.int64),
-                [r.gen if r else None for r in rows])
-
-    def _decode_chunk(self, size: int) -> None:
-        """Advance every slot ``size`` tokens at its own position; rows
-        that hit eos or their budget freeze and emit nothing more."""
-        t0 = time.monotonic()
-        rows, tok, pos, live, remaining, eos, temp, topk, gens = self._slab()
-        out = torch.empty((size, self.slots), dtype=torch.int64,
-                          device=self.device)
-        for t in range(size):
-            logits = self.module(tok[:, None], decode=True, positions=pos,
-                                 cache=self.cache)[:, -1]
-            nxt = draft_sample(logits, temp, topk, gens, TOP_K_MAX,
-                               with_probs=False)[0]
-            was_live = live
-            remaining = remaining - was_live.int()
-            live = was_live & ~((eos >= 0) & (nxt == eos)) & (remaining > 0)
-            out[t] = torch.where(was_live, nxt, torch.full_like(nxt, -1))
-            tok = torch.where(live, nxt, tok)
-            pos = torch.where(live, pos + 1, pos)
-        packed = out.T.cpu().numpy()  # the chunk's one device->host copy
+        keys = self._shard.gen_keys(list(range(self.slots)))
+        packed = self._run(dict(
+            op="decode", size=size,
+            tok=[r.out[-1] if r else 0 for r in rows],
+            pos=[len(r.prompt) + len(r.out) - 1 if r else 0 for r in rows],
+            rem=[r.max_new - len(r.out) if r else 0 for r in rows],
+            eos=[r.eos if r else -1 for r in rows],
+            temp=[r.temp if r else 0.0 for r in rows],
+            topk=[r.topk if r else 0 for r in rows],
+            gens=[key if r else None for r, key in zip(rows, keys)]))
         wall = time.monotonic() - t0
         self._warmed = True
         self.stats.chunk()
@@ -2034,3 +2254,88 @@ class BatchingDecoder(_SlotEngine):
         resident = [(r, p) for r, p in zip(rows, packed) if r is not None]
         self._route([r for r, _ in resident],
                     np.stack([p for _, p in resident]))
+
+
+# the serve_close keys of meshed decoders closed while the ranks' lock was
+# held (see BatchingDecoder._close_mesh), sent by the next holder
+_pending_closes: List[str] = []
+_closes_lock = threading.Lock()
+
+# how long a close waits for the ranks' lock before it leaves its
+# serve_close to the holder
+CLOSE_WAIT_S = 5.0
+
+
+def send_pending_closes() -> None:
+    """Send the followers the ``serve_close`` of every meshed decoder
+    whose close found the ranks' lock held. The caller holds that lock;
+    a holder that may keep it longer than ``CLOSE_WAIT_S`` calls this
+    before it lets go, so no close is lost."""
+    with _closes_lock:
+        keys = list(_pending_closes)
+        _pending_closes.clear()
+    if not keys:
+        return
+    from ..parallel.distributed import get_dist_context
+
+    channel = get_dist_context()
+    for key in keys:
+        channel.broadcast_obj({"cmd": "serve_close", "key": key})
+
+
+class ServingFollower:
+    """A follower rank's side of meshed serving: the module the leader
+    announced last (``pending``: a module and its mesh) and the shards of
+    the leader's decoders, keyed by decoder. :meth:`handle` runs the
+    leader's ``serve_init`` (a :class:`DenseShard` over the pending
+    module, with the decoder's knobs), ``serve_op`` and ``serve_close``;
+    a rank outside the mesh holds nothing and skips them. A fault while
+    handling an op is one-sided (the leader waits in a collective): the
+    caller ends the process."""
+
+    def __init__(self):
+        self.pending = None
+        self.shards: Dict[str, DenseShard] = {}
+
+    def handle(self, cmd: dict) -> None:
+        what, key = cmd.get("cmd"), cmd.get("key")
+        if what == "serve_init":
+            if self.pending is None:
+                return  # not a rank of the mesh
+            module, mesh = self.pending
+            self.pending = None
+            self.shards[key] = DenseShard(module, mesh=mesh,
+                                          **cmd["knobs"])
+        elif what == "serve_op":
+            shard = self.shards.get(key)
+            if shard is not None:
+                shard.run(cmd["op"])
+        elif what == "serve_close":
+            self.shards.pop(key, None)
+        else:
+            raise ValueError(f"not a serving command: {what!r}")
+
+
+def serve_follower(module, mesh) -> int:
+    """Follow rank 0's ``BatchingDecoder(module, mesh=mesh)`` on a rank of
+    the mesh: the same model (built whole, or placed on ``mesh``), its
+    ``serve_init``, then every op until its ``serve_close``. Returns the
+    ops run. Every rank of the process group calls it (a rank outside the
+    mesh reads the commands and runs none)."""
+    from ..parallel.distributed import get_dist_context
+
+    channel = get_dist_context()
+    follower = ServingFollower()
+    follower.pending = (module, mesh) if mesh.member else None
+    ops, key = 0, None
+    while True:
+        cmd = channel.broadcast_obj(None)
+        if key is None and cmd.get("cmd") == "serve_init":
+            key = cmd["key"]
+        follower.handle(cmd)
+        if cmd.get("key") != key:
+            continue
+        if cmd.get("cmd") == "serve_op":
+            ops += 1
+        elif cmd.get("cmd") == "serve_close":
+            return ops

@@ -26,7 +26,8 @@ which either package's checkpoint stores persist as it is.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Mapping, NamedTuple
+import math
+from typing import Any, Callable, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -49,8 +50,19 @@ class QuantizedTensor(NamedTuple):
         return self.q.shape
 
 
-def _quantize_leaf(w: torch.Tensor) -> QuantizedTensor:
+def _quantize_leaf(w: torch.Tensor, mesh=None,
+                   axes=()) -> QuantizedTensor:
+    """``w``'s int8 values and per-channel scales; ``axes`` (of
+    ``mesh``) are those that cut ``w`` on a dim other than the channel
+    axis, over which each channel's absmax is reduced (an all-reduce MAX)
+    so that a rank's block takes the scales of the whole leaf."""
     absmax = w.abs().amax(dim=tuple(range(w.dim() - 1)), keepdim=True)
+    if axes:
+        import torch.distributed as dist
+
+        from ..parallel.collectives import all_reduce_
+
+        all_reduce_(absmax, mesh, tuple(axes), op=dist.ReduceOp.MAX)
     # a tensor divisor: PyTorch's CUDA division by a Python scalar
     # multiplies by its reciprocal, an ulp off the JAX rule's quotient on
     # ~5 % of the channels
@@ -59,9 +71,12 @@ def _quantize_leaf(w: torch.Tensor) -> QuantizedTensor:
     return QuantizedTensor(q=q, s=scale.float())
 
 
-def _wants_quant(leaf) -> bool:
+def _wants_quant(leaf, numel=None) -> bool:
+    """Whether a leaf quantizes (``numel``: the whole leaf's, where
+    ``leaf`` is a rank's block of it)."""
     return (isinstance(leaf, torch.Tensor) and leaf.is_floating_point()
-            and leaf.dim() >= 2 and leaf.numel() >= MIN_QUANT_SIZE)
+            and leaf.dim() >= 2
+            and (leaf.numel() if numel is None else numel) >= MIN_QUANT_SIZE)
 
 
 def _gather_accessed(name: str) -> bool:
@@ -70,13 +85,32 @@ def _gather_accessed(name: str) -> bool:
     return any("embed" in part.lower() for part in name.split("."))
 
 
-def quantize_tree(tree: Mapping[str, torch.Tensor]) -> dict:
+def quantize_tree(tree: Mapping[str, torch.Tensor], mesh=None,
+                  specs: Optional[Mapping[str, tuple]] = None) -> dict:
     """Quantize every eligible weight of a flat tree; the same keys, with
-    :class:`QuantizedTensor` values where quantized."""
-    return {name: (_quantize_leaf(leaf)
-                   if not _gather_accessed(name) and _wants_quant(leaf)
-                   else leaf)
-            for name, leaf in tree.items()}
+    :class:`QuantizedTensor` values where quantized.
+
+    A rank's blocks on a ``mesh`` (``specs``: each leaf's mesh axis a dim,
+    ``models.gpt.place_on_mesh``'s ``mesh_specs``) quantize as the whole
+    leaves would and then be cut: eligibility reads the whole leaf's size,
+    and a leaf cut on a dim other than its channel axis (a row-parallel
+    ``proj`` or ``mlp_out``, a MoE ``w_out``, an expert stack over
+    ``ep``) reduces its absmax over those axes, so its scales are the
+    whole leaf's. Every rank of the mesh calls this on its blocks, in
+    the same order (the reductions are collective)."""
+    out = {}
+    for name, leaf in tree.items():
+        spec = tuple((specs or {}).get(name, ()))
+        cuts = [ax for ax in spec if ax is not None]
+        numel = None
+        if cuts and isinstance(leaf, torch.Tensor):
+            numel = leaf.numel() * math.prod(mesh.shape[ax] for ax in cuts)
+        if _gather_accessed(name) or not _wants_quant(leaf, numel):
+            out[name] = leaf
+            continue
+        axes = [ax for ax in spec[:-1] if ax is not None]
+        out[name] = _quantize_leaf(leaf, mesh, axes)
+    return out
 
 
 def dequantize_tree(tree: Mapping[str, object],

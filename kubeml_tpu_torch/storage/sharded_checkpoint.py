@@ -31,7 +31,9 @@ head on every ``pp`` rank) is owned by the lowest of them, JAX's
 :meth:`~ShardedCheckpointStore.restore` onto a ``mesh`` reads, on each
 rank, only the stored slices that overlap that rank's block of each leaf
 (npz members are read lazily, one member a slice), whatever mesh wrote
-them, and returns the rank's blocks; without a mesh it assembles every
+them, and returns the rank's blocks (on a serving mesh a leaf's block
+follows the fit rule, and a ``final-int8``'s storage markers are cut as
+their kernel: ``interop.from_flax.leaf_spec``); without a mesh it assembles every
 leaf whole on the host, as the serving path needs. So a checkpoint the
 JAX package wrote from any mesh (many slices a leaf, one or many shard
 files) restores here onto any mesh, and one written here restores in JAX

@@ -420,10 +420,12 @@ def test_drain_and_restore_in_a_fresh_server(tmp_path, weights, drainer):
         close(fresh)
 
 
-def test_not_found_and_not_ported(tmp_path, weights):
-    """404 for an unknown or malformed id; 400 naming what is missing for
-    a mesh and a job's epoch checkpoints before its final; a model with no
-    decode path is the one-shot path's 400, as in the JAX server. A
+def test_not_found_and_not_ported(tmp_path, weights, caplog):
+    """404 for an unknown or malformed id; a serving mesh on a server of
+    one rank logs and serves on that rank with the same tokens (JAX's
+    fallback); 400 naming what is missing for a job's epoch checkpoints
+    before its final; a model with no decode path is the one-shot path's
+    400, as in the JAX server. A
     sharded final (ported now) serves the tokens of the same weights'
     flat final and quantizes into a sharded ``final-int8``."""
     _, proot = roots(tmp_path, weights)
@@ -435,9 +437,14 @@ def test_not_found_and_not_ported(tmp_path, weights):
             with pytest.raises(KubeMLError) as e:
                 call()
             assert e.value.status_code == 404
-    with pytest.raises(KubeMLError, match="serving_mesh") as e:
-        port_ps(proot, serving_mesh="tp=2").generate(JOB, req)
-    assert e.value.status_code == 400
+    one, meshed = port_ps(proot), port_ps(proot, serving_mesh="tp=2")
+    want = one.generate(JOB, req)
+    with caplog.at_level("WARNING", logger="kubeml.ps"):
+        assert meshed.generate(JOB, req)["tokens"] == want["tokens"]
+    assert "serving mesh 'tp=2' refused" in caplog.text
+    assert getattr(meshed._decoders[JOB][0], "mesh", None) is None
+    close(one)
+    close(meshed)
     store = CheckpointStore(root=proot / "checkpoints")
     store.save("livejob", {"params": {"w": np.zeros(2, np.float32)}},
                epoch=0)

@@ -19,8 +19,8 @@ weights (``interop.from_flax.shard_tree``):
   one step on ``dp=8`` (its loss is the first step's);
 - the port's partition table equals ``flax.linen.get_partition_spec`` of
   the JAX module;
-- decode, decode under sp and a MoE model's decode over a mesh of several
-  ranks raise, each naming its later ROADMAP item or JAX's message, and a
+- decode under sp raises with JAX's message; decode over ``dp=8``, of a
+  dense and of a MoE model, gives one rank's logits (meshed serving); a
   training job whose mesh does not fit the cluster's ranks is a 400;
 - ``chip_smoke.py``'s check of 17b (gradient norms by leaf against one
   rank's within ``MR_GRAD_RTOL``, the ranks' whole parameters bit-equal)
@@ -212,13 +212,10 @@ def test_mesh_refusals_name_their_later_items(ranks):
         assert r["decode_sp"] == ("ValueError: decode does not run under "
                                   "sequence parallelism; use an sp=1 mesh "
                                   "for serving")
-        assert r["decode"].startswith("NotImplementedError")
-        assert "meshed serving" in r["decode"] and "ROADMAP" in r["decode"]
-        # a MoE model over ranks builds now (MoE expert sharding); its
-        # decode is meshed serving, item 1.4
-        assert r["moe_decode"].startswith("NotImplementedError")
-        assert "meshed serving" in r["moe_decode"]
-        assert "item 1.4" in r["moe_decode"]
+        # decode over ranks runs now (meshed serving): dp cuts nothing,
+        # so each rank's logits are one rank's
+        assert r["decode"] <= 1e-6, r["decode"]
+        assert r["moe_decode"] <= 1e-6, r["moe_decode"]
     # a job over ranks runs now (the SPMD job over ranks): an sp=2 mesh is
     # refused on one rank and accepted on a cluster of two, and so are a pp
     # axis (the pipeline) and an ep axis (MoE expert sharding)

@@ -193,19 +193,27 @@ def gpt_rank(rank: int, out: str, spec) -> None:
     tm8 = model(spec["train_cfg"], spec["train_weights"], dp8)
     res["dp8_loss"] = float(trainer(tm8).train_step(spec["batches"][0]))
 
-    # what a mesh of several ranks refuses, and the message of each
+    # decode under sp is refused (JAX's message); decode over dp runs,
+    # for a dense and a MoE model, with one rank's logits
+    from kubeml_tpu_torch.models.generation import init_cache
+
+    def decode(m):
+        with torch.no_grad():
+            return m(ids[:1], decode=True, cache=init_cache(m, 1))
+
     refusals = {}
-    probes = {"decode_sp": lambda: tm(local_block(mesh, ids), decode=True),
-              "decode": lambda: tm8(ids[:1], decode=True),
-              "moe_decode": lambda: CausalTransformer(
-                  mesh=dp8, device="cpu", moe_every=2, num_experts=2,
-                  **spec["train_cfg"])(ids[:1], decode=True)}
-    for tag, probe in probes.items():
-        try:
-            probe()
-            refusals[tag] = None
-        except (ValueError, NotImplementedError) as e:
-            refusals[tag] = f"{type(e).__name__}: {e}"
+    try:
+        tm(local_block(mesh, ids), decode=True)
+        refusals["decode_sp"] = None
+    except (ValueError, NotImplementedError) as e:
+        refusals["decode_sp"] = f"{type(e).__name__}: {e}"
+    moe = dict(spec["train_cfg"], moe_every=2, num_experts=2, device="cpu")
+    # tm8 took a step: its whole weights (dp cuts nothing) on one rank
+    whole = {n: p.detach() for n, p in tm8.named_parameters()}
+    refusals["decode"] = float((decode(tm8) - decode(model(
+        spec["train_cfg"], whole, None))).abs().max())
+    refusals["moe_decode"] = float((decode(CausalTransformer(
+        mesh=dp8, **moe)) - decode(CausalTransformer(**moe))).abs().max())
     res["refusals"] = refusals
     _save(out, rank, res)
 

@@ -85,8 +85,12 @@ def steps_rank(rank: int, out: str, spec) -> None:
     the MoE LM from ``spec["seed"]`` (router noise ``spec["noise"]``) trained
     ``len(spec["rngs"])`` f32 steps by ``SPMDTrainer`` on ``spec["batch"]``,
     step i's rng ``spec["rngs"][i]``: each step's loss and overflow, and
-    whether the MoE model over ranks still refuses decode."""
+    after the ep=2 steps the trained model's greedy decode over the ranks
+    beside one rank's decode of the same weights, gathered."""
+    from kubeml_tpu_torch.interop.from_flax import gather_tree
+    from kubeml_tpu_torch.models.generation import generate
     from kubeml_tpu_torch.models.gpt import CausalTransformer
+    from kubeml_tpu_torch.models.layers import load_tree
     from kubeml_tpu_torch.parallel.trainer import SPMDTrainer
 
     assert D.init_distributed(device="cpu")
@@ -104,9 +108,14 @@ def steps_rank(rank: int, out: str, spec) -> None:
             over.append(float(tr.last_moe_overflow))
         res[tag] = dict(losses=losses, overflow=over)
         if tag == "ep=2":
-            try:
-                model(torch.ones(1, 4, dtype=torch.long), decode=True)
-                res["decode"] = None
-            except (ValueError, NotImplementedError) as e:
-                res["decode"] = f"{type(e).__name__}: {e}"
+            prompt = torch.tensor([[1, 2, 3, 4]])
+            res["decode"] = generate(model, prompt, max_new_tokens=6
+                                     ).tokens.tolist()
+            whole = load_tree(
+                CausalTransformer(seed=spec["seed"], device="cpu",
+                                  **spec["cfg"]),
+                gather_tree(dict(model.named_parameters()), mesh))
+            res["decode_one_rank"] = generate(whole, prompt,
+                                              max_new_tokens=6
+                                              ).tokens.tolist()
     _save(out, rank, res)
