@@ -5,8 +5,8 @@ through the parameter server, the control plane, the encoders, MoE
 with the dense slot engine, the one-shot speculative ``generate`` and the
 SPMD job with sharded checkpoints, multi-rank SPMD (two ranks on the
 card over gloo), the SPMD job over ranks through the control plane, the
-pipeline over ``pp`` ranks, MoE expert parallelism over ``ep`` ranks, and
-meshed serving over two ranks.
+pipeline over ``pp`` ranks, MoE expert parallelism over ``ep`` ranks,
+meshed serving over two ranks, and K-AVG over two ranks.
 Run from the repo root::
 
     python3 chip_smoke.py
@@ -93,7 +93,7 @@ Phases, each reported on its own lines:
    CIFAR-10 shapes, bf16, uint8 inputs, B 128, K 8, lr 0.1, SGD momentum
    0.9) through ``benchmarks.harness.FlagshipBench`` at N 1 and N 4 packed
    on the card: round ms, device samples/s (slabs resident, best of 3 x 20
-   rounds at N 1, 1 x 20 at N 4), end-to-end samples/s (staged through
+   rounds at N 1, 1 x 10 at N 4), end-to-end samples/s (staged through
    ``RoundPrefetcher``),
    peak memory, a profiler window of 2 rounds (idle share, top kernels),
    FLOPs a sample against the bf16 peak, and a plain PyTorch loop of the
@@ -258,7 +258,7 @@ Phases, each reported on its own lines:
    within ``MR_SAME_TOL``) and the plain version on the card
    (``MR_ATTN_TOL``), each flash kernel launching once a rank a call
    under Ulysses and never under the ring; (b) the
-   long-context flagship (phase 8's configuration at full width cut to 4
+   long-context flagship (phase 8's configuration at full width cut to 2
    blocks, B 8 x L 2048, bf16, remat, AdamW 3e-4) trained 3 steps over
    ``sp=2`` (Ulysses),
    ``sp=2`` (ring), ``tp=2`` and ``dp=2`` from the weights (seed 0) and
@@ -267,7 +267,7 @@ Phases, each reported on its own lines:
    first step's gradient norm of every parameter within ``MR_GRAD_RTOL``
    of the one-rank trainer's, the parameters each rank holds whole
    bit-equal on both ranks after the last step, flash launches a rank a
-   step of 2 x depth, depth and depth (8/4/4) but none under the ring,
+   step of 2 x depth, depth and depth (4/2/2) but none under the ring,
    the step's host ms on each rank and the collectives' share of a
    profiled step (``kubeml::`` spans; gloo over host memory, not NVLink).
    No card run covers NCCL, a world above 2 or several cards;
@@ -276,12 +276,12 @@ Phases, each reported on its own lines:
    (HTTP on port 0), rank 1 ``engine.follower.run_follower``; the parent
    first runs the one-rank ``SPMDJob`` references from the same seed and
    batches. The model is 16b's flagship at full width cut to
-   ``JR_DEPTH`` (4) blocks (Ulysses under sp) on 16b's token set (B 8, 4
+   ``JR_DEPTH`` (2) blocks (Ulysses under sp) on 16b's token set (B 8, 4
    steps an epoch, one eval batch). (a) ``/train`` with
    ``engine="spmd"``, ``tp=2``, 2 epochs, ``sharded_checkpoints``,
    ``checkpoint_every=1``: each epoch's train and eval loss within
    ``MR_LOSS_ATOL`` of the one-rank job's, flash launches a rank a step
-   of 2 x depth, depth and depth (8/4/4) with one eval forward an epoch, the sharded final a file a rank (each tp-split leaf a half on
+   of 2 x depth, depth and depth (4/2/2) with one eval forward an epoch, the sharded final a file a rank (each tp-split leaf a half on
    each rank, every other leaf whole on rank 0, each slice in its owner's
    file only) under a manifest of ``processes`` 2, and the save's bytes
    and ms a rank; (b) the same job id resumed under ``sp=2`` for a third
@@ -332,10 +332,11 @@ Phases, each reported on its own lines:
    references. (a) the three flash kernels at this phase's attention shape
    (B 16, L 512, 6 heads of 64, causal: a tp=2 rank's heads, and a
    Ulysses rank's) held as in phase 7 in bf16 and f32, with kernel /
-   plain / SDPA / bound ms; then ``bench_moe`` at full width and depth
-   (E 768, 12 blocks, 12 heads, vocab 32000, 8 experts, top-2, capacity
-   1.25, an MoE block every other block, B 16 x L 512, bf16, AdamW 3e-4)
-   trained 3 steps by ``SPMDTrainer`` over ``ep=2`` (each rank 4 experts),
+   plain / SDPA / bound ms; then ``bench_moe`` at full width cut to
+   ``MOE_EP_DEPTH`` (4) blocks (E 768, 12 heads, vocab 32000, 8 experts,
+   top-2, capacity 1.25, an MoE block every other block, B 16 x L 512,
+   bf16, AdamW 3e-4) trained 3 steps by ``SPMDTrainer`` over ``ep=2``
+   (each rank 4 experts),
    and at ``MOE_DEPTH`` over ``dp=2``, ``tp=2`` and ``sp=2`` (Ulysses),
    from the weights, batch and step seeds of a one-rank trainer
    (``MoEBench``): every loss within ``MR_LOSS_ATOL`` of the one-rank
@@ -346,7 +347,7 @@ Phases, each reported on its own lines:
    ``MOE_EP_OVER_ATOL``, the first step's gradient norm
    of every leaf within ``MR_GRAD_RTOL``, the leaves each rank holds whole
    bit-equal on both ranks after the last step, flash launches exactly
-   depth/depth/depth a rank a step (12/12/12 over ep), the step's host ms
+   depth/depth/depth a rank a step (4/4/4), the step's host ms
    a rank and the collectives' share of a profiled step (``kubeml::``
    spans); (b) ``MOE_EP_FN``'s model (``bench_moe`` at ``MOE_DEPTH``)
    through ``/train`` with ``engine="spmd"``, ``mesh_shape={"ep": 2}``,
@@ -387,7 +388,35 @@ Phases, each reported on its own lines:
    tokens (a parameter server without a mesh) but for near ties and the
    decoder reporting its mesh; ``serving_mesh="tp=4"`` logs and serves on
    one rank;
-22. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+22. K-AVG over ranks - two ranks share the card over gloo, as in phases
+   17-21, each holding its block of the global worker axis
+   (``KAvgTrainer(dist=)``: every merge one all-reduce); the parent first
+   runs the one-rank references. (a) the flagship at ``bench.py``'s
+   configuration (ResNet-18, bf16, uint8 inputs, B 128, K 8, lr 0.1), N 4
+   over the ranks (2 workers a rank) through ``FlagshipBench(dist=)``:
+   each rank's round ms, device and end-to-end samples/s summed over the
+   ranks beside phase 10a's one-rank N 4, and a profiled window of 2
+   rounds a rank: the merge all-reduce's ms (``kubeml::kavg_merge``) and
+   its share of the round, the device-busy ms and idle share; then 10b's
+   f32 round over the ranks (TF32 off, deterministic cuDNN, N 4, K 2, B 16,
+   worker 2 masked): the merged weights within ``KR_F32_RTOL`` of each
+   leaf's largest entry of one rank's, bit-equal on the ranks and on every
+   row; no hand-written kernel launches; (c) ViT-Tiny at phase 14c's
+   configuration (depth 4, B 256, K 8, bf16), N 2 over the ranks: each
+   flash kernel launches ``ENC_DEPTH x VIT_K`` = 32 times a rank a round
+   (one rank's N 2: 64), losses within ``MR_LOSS_ATOL`` and weights within
+   ``KR_VIT_W_RTOL`` of each leaf's largest entry of one rank's, bit-equal
+   on the ranks; (b) 10c's ResNet-18 function as a K-AVG job through
+   ``/train`` (rank 0 ``LocalCluster`` over HTTP, rank 1 the follower
+   loop, as ``kubeml start`` runs them), 3 epochs at a requested
+   parallelism of 3: rounded to 2 with the history's note, the stubbed
+   scheduler's answers 4, 3 (rounded to 2, noted) and 2 give the trace
+   [2, 4, 2]; ``/infer`` at each epoch's end answers 409 before the first
+   checkpoint and then serves it; each epoch's loss within
+   ``MR_LOSS_ATOL`` of a one-rank job fed the same trace; checkpoints
+   ep00000-ep00002 and final; the final served by the parameter server
+   equals the job's own ``infer``; no hand-written kernel launches;
+23. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Any failure raises and the script exits non-zero; without a CUDA device it
 exits non-zero before printing any result.
@@ -1862,24 +1891,24 @@ def reset_kernel_counts() -> None:
 
 
 def kavg_flagship(n_workers: int, smi: str, plain_sps=None,
-                  reps: int = KAVG_REPS):
+                  reps: int = KAVG_REPS, rounds: int = KAVG_ROUNDS):
     """10a: the flagship at bench.py's configuration with ``n_workers``
-    packed on the card (best of ``reps`` runs of 20 rounds, device and
-    end to end): round ms, device and end-to-end samples/s, peak
+    packed on the card (best of ``reps`` runs of ``rounds`` rounds, device
+    and end to end): round ms, device and end-to-end samples/s, peak
     memory, a profiler window of 2 rounds, the FLOPs per sample against the
     bf16 peak; the plain loop's samples/s (measured at N 1, passed in
     after). Returns the row and the plain loop's samples/s."""
     from kubeml_tpu_torch.benchmarks.harness import FlagshipBench
 
     bench = FlagshipBench(n_workers, KAVG_B, KAVG_K, device="cuda")
-    row = bench.measure(KAVG_ROUNDS, reps)
+    row = bench.measure(rounds, reps)
     steps = KAVG_ROUNDS * KAVG_K
     if plain_sps is None:
         plain_sps = bench.plain_loop(steps)
     tag = f"N {n_workers}"
     log(f"  {tag}: round {row['round_ms']:.3f} ms ({n_workers} x {KAVG_K} "
         f"steps of B {KAVG_B}); device {row['value']:.1f} samples/s (slabs "
-        f"resident, best of {reps} x {KAVG_ROUNDS} rounds); end-to-end "
+        f"resident, best of {reps} x {rounds} rounds); end-to-end "
         f"{row['end_to_end']:.1f} samples/s (staged through "
         f"RoundPrefetcher); max memory allocated "
         f"{row['max_memory_allocated'] / 2**30:.3f} GiB; loss "
@@ -4421,8 +4450,8 @@ MR = dict(
     # benchmarks.longcontext.make_trainer), MR_STEPS steps on each mesh,
     # the last under a profiler window; depth cut from 8 to 4 blocks
     # (width, heads, B and L kept) to keep the script within its time with
-    # phase 19
-    model=dict(vocab_size=32000, max_len=2048, embed_dim=512, depth=4,
+    # phase 19, and to 2 with phase 22
+    model=dict(vocab_size=32000, max_len=2048, embed_dim=512, depth=2,
                num_heads=FLASH_H, remat=True, dtype=torch.bfloat16),
     tokens=TRAIN_TOKENS, L=2048,
     meshes=(("sp=2 ulysses", dict(sp=2), "ulysses"),
@@ -4732,11 +4761,12 @@ def multirank_phase(smi, cfg=MR):
 # the follower loop (engine.follower.run_follower). The model is phase 16b's
 # flagship at full width, its sequence parallelism by Ulysses, cut from 8
 # to JR_DEPTH blocks (width, heads, B and L kept) to keep the script
-# within its time with phase 19, on 16b's token set (LC_TRAIN rows to
+# within its time with phase 19 (4 blocks) and phase 22 (2), on 16b's
+# token set (LC_TRAIN rows to
 # train, 4 steps an epoch at B 8, LC_TEST to validate, one eval batch an
 # epoch).
 JR_JOB, JR_ELASTIC, JR_BROKEN = "lc-ranks", "lc-elastic", "lc-nofn"
-JR_WORLD, JR_TIMEOUT_S, JR_SEED, JR_DEPTH = 2, 900.0, 18, 4
+JR_WORLD, JR_TIMEOUT_S, JR_SEED, JR_DEPTH = 2, 900.0, 18, 2
 JR_FN = LC_FN.replace("remat=True, dtype=dtype, mesh=self.mesh)",
                       "remat=True, dtype=dtype, mesh=self.mesh,\n"
                       "                                 sp_impl=\"ulysses\")"
@@ -5657,14 +5687,15 @@ def pipeline_phase(smi, root):
 # the kernels and runs the one-rank references first. (a) bench_moe
 # (kubeml_tpu/benchmarks/transformers.py:107-125: the GPT-2-small skeleton,
 # vocab 32000, L 512, 12 heads of 64, 8 experts, top-2, capacity 1.25, an
-# MoE block every other block, B 16, bf16, AdamW 3e-4) at full width and
-# depth (12 blocks, not cut) trained over ep=2, then at MOE_DEPTH over
+# MoE block every other block, B 16, bf16, AdamW 3e-4) at full width,
+# depth cut from 12 to MOE_EP_DEPTH (MOE_DEPTH, 4) blocks to make room for
+# phase 22, trained over ep=2, then at MOE_DEPTH over
 # dp=2, tp=2 and sp=2 (Ulysses), each from the weights (seed 0), batch and
 # step seeds of a one-rank trainer (benchmarks.transformers.MoEBench);
 # (b) MOE_FN's model at MOE_DEPTH as an SPMD job through /train over ep=2
 # with ep-sharded checkpoints, resumed under dp=2, its final served.
 MOE_EP_WORLD, MOE_EP_TIMEOUT_S, MOE_EP_SEED = 2, 900.0, 20
-MOE_EP_DEPTH = 12
+MOE_EP_DEPTH = MOE_DEPTH
 MOE_EP_MESHES = (("ep=2", dict(ep=2), "ring", MOE_EP_DEPTH),
                  ("dp=2", dict(dp=2), "ring", MOE_DEPTH),
                  ("tp=2", dict(tp=2), "ring", MOE_DEPTH),
@@ -6495,6 +6526,431 @@ def serving_mesh_phase(smi, root, mm_rows):
     return sum(r["int8"]["launches"][1] for r in ranks)
 
 
+# --- phase 22: K-AVG over ranks ------------------------------------------------
+
+# Two ranks share the H100 over gloo, as in phases 17-21, each holding its
+# block of the global worker axis (KAvgTrainer(dist=)); the parent runs the
+# one-rank references first. (a) the flagship at bench.py's configuration,
+# N KR_N over the ranks (2 workers a rank), against phase 10a's one-rank
+# N 4 (KR_ROUNDS rounds, one run), then 10b's f32 round over the ranks;
+# (c) ViT-Tiny at phase 14c's configuration, N KR_VIT_N (one worker a
+# rank), against one rank's N 2; (b) 10c's ResNet-18 function as a K-AVG
+# job through /train, rank 0 the control plane and rank 1 a follower.
+KR_WORLD, KR_TIMEOUT_S = 2, 900.0
+KR_N, KR_ROUNDS = 4, 5
+# (a) f32 over the ranks: worker 2 (rank 1's first) masked
+KR_F32_MASK = (1.0, 1.0, 0.0, 1.0)
+# (b) the job: requested parallelism 3 (rounded to 2 over two ranks), the
+# scheduler's answers after each epoch (3 rounded to 2): trace [2, 4, 2];
+# the one-rank reference is fed the rounded answers
+KR_JOB, KR_ASK, KR_LEVELS, KR_REF_LEVELS = "kavg-ranks", 3, (4, 3, 2), (4, 2, 2)
+KR_TRACE = [2, 4, 2]
+# (b) the banded set at half 10c's size
+KR_TRAIN, KR_TEST = 2048, 512
+# (c) ViT-Tiny's rounds over the ranks: one warm-up and KR_VIT_ROUNDS more,
+# all counted; the flash kernels launch ENC_DEPTH x VIT_K times a local
+# worker a round
+KR_VIT_N, KR_VIT_ROUNDS = 2, 3
+# (a) f32: a rank's merged weights against one rank's, each leaf's largest
+# difference against its largest entry (the workers run the same kernels;
+# only the order of the merge's sums may differ)
+KR_F32_RTOL = 1e-6
+# (c) bf16: each leaf's largest difference within 4 bf16 ulps of its
+# largest entry after the rounds (a 1-ulp difference in the merge's cast
+# feeds the next rounds' steps), the losses within MR_LOSS_ATOL
+KR_VIT_W_RTOL = 2.0 ** -5
+
+
+def kr_profile(bench, rounds: int = 2) -> dict:
+    """A profiler window (CPU and CUDA) over ``rounds`` of ``bench``'s
+    rounds on this rank: the wall, the device-busy ms (0.0 when the
+    profiler saw no device time) and each ``kubeml::`` span's ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            loss = bench.round()
+        float(loss)
+        wall = 1e3 * (time.perf_counter() - t0)
+    busy, spans = 0.0, {}
+    for evt in prof.key_averages():
+        if evt.key.startswith("kubeml::"):
+            spans[evt.key] = evt.cpu_time_total / 1e3
+        elif (str(getattr(evt, "device_type", "")).endswith("CUDA")
+              and not getattr(evt, "is_user_annotation", False)):
+            t = getattr(evt, "self_device_time_total", None)
+            busy += (t if t is not None else evt.self_cuda_time_total) / 1e3
+    return dict(wall_ms=wall, busy_ms=busy, spans=spans, rounds=rounds)
+
+
+def kr_f32_round(dist=None):
+    """22a's f32 round (TF32 off, deterministic cuDNN): ResNet-18, N KR_N,
+    K 2, B 16, worker 2 masked, from the seed-0 weights, on this rank's rows
+    (all of them without ``dist``). Returns replica 0 (flat, on the host),
+    the loss, and whether every local row holds the same bits."""
+    from kubeml_tpu_torch.benchmarks.harness import LR, make_synthetic_model
+    from kubeml_tpu_torch.engine.kavg import KAvgTrainer
+    from kubeml_tpu_torch.models.resnet import ResNet18
+
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        r = np.random.default_rng(1)
+        x = r.normal(size=(KR_N, 2, 16, 32, 32, 3)).astype(np.float32)
+        y = r.integers(0, 10, size=(KR_N, 2, 16)).astype(np.int64)
+        m = np.ones((KR_N, 2, 16), np.float32)
+        t = KAvgTrainer(make_synthetic_model(ResNet18(num_classes=10)),
+                        precision="f32", device="cuda" if dist is None
+                        else None, dist=dist)
+        a, b = t.local_rows(KR_N)
+        v = t.init_variables(0, x[0, 0], KR_N)
+        v, loss = t.sync_round(v, x[a:b], y[a:b], m[a:b], lr=LR,
+                               worker_mask=np.array(KR_F32_MASK, np.float32))
+        same = all(torch.equal(leaf, leaf[:1].expand_as(leaf))
+                   for c in v.values() for leaf in c.values())
+        return dict(merged=_flat(t.reference_variables(v)),
+                    loss=float(loss), rows_same=same)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+
+
+def kr_vit(dist=None) -> dict:
+    """22c: ViT-Tiny at phase 14c's configuration (depth ENC_DEPTH, B
+    256, K VIT_K, bf16), N KR_VIT_N over the ranks (all of them without
+    ``dist``), each worker its own seeded batch: a warm-up round and
+    KR_VIT_ROUNDS more, the flash counters set to 0 before the first and
+    read after the last; each round's loss and ms, and replica 0."""
+    from kubeml_tpu_torch.benchmarks.harness import make_synthetic_model
+    from kubeml_tpu_torch.benchmarks.transformers import LR
+    from kubeml_tpu_torch.engine.kavg import KAvgTrainer
+    from kubeml_tpu_torch.models.layers import fold_in
+    from kubeml_tpu_torch.models.vit import ViT
+
+    module = ViT(num_classes=100, patch_size=4, embed_dim=192,
+                 depth=ENC_DEPTH, num_heads=3, dtype=torch.bfloat16)
+    t = KAvgTrainer(make_synthetic_model(module, "vit-ranks"),
+                    precision="bf16",
+                    device="cuda" if dist is None else None, dist=dist)
+    r = np.random.default_rng(SEED + 22)
+    B = ENC_VIT["B"]
+    x = r.normal(size=(KR_VIT_N, VIT_K, B, 32, 32, 3)).astype(np.float32)
+    y = r.integers(0, 100, size=(KR_VIT_N, VIT_K, B)).astype(np.int64)
+    m = np.ones((KR_VIT_N, VIT_K, B), np.float32)
+    a, b = t.local_rows(KR_VIT_N)
+    v = t.init_variables(SEED, x[0, 0], KR_VIT_N)
+    staged = t.stage_round(x[a:b], y[a:b], m[a:b], KR_VIT_N)
+    losses, ms = [], []
+    reset_flash_counts()
+    for i in range(1 + KR_VIT_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v, loss = t.sync_round(v, *staged, lr=LR, rng=fold_in(SEED, i))
+        losses.append(float(loss))
+        ms.append(1e3 * (time.perf_counter() - t0))
+    counts = flash_counts()
+    return dict(losses=losses, ms=ms, launches=counts,
+                rounds=1 + KR_VIT_ROUNDS, local=b - a,
+                weights=_flat(t.reference_variables(v)))
+
+
+def kr_request(default_parallelism: int):
+    """22b's request: phase 10c's job (B 64, K 4, lr 0.05, bf16, 3 epochs,
+    a checkpoint every epoch, no goal-accuracy stop)."""
+    from kubeml_tpu_torch.api.types import TrainOptions, TrainRequest
+
+    return TrainRequest(
+        model_type="resnet18", batch_size=64, epochs=3, dataset="bands",
+        lr=0.05, function_name="bands", job_id=KR_JOB,
+        options=TrainOptions(default_parallelism=default_parallelism, k=4,
+                             precision="bf16", goal_accuracy=101.0,
+                             checkpoint_every=1, save_model=True))
+
+
+def kr_reference_job(root):
+    """22b's one-rank TrainJob: the same function, data and request at
+    parallelism 2, fed the rounded answers (trace [2, 4, 2])."""
+    from kubeml_tpu_torch.engine.job import TrainJob
+    from kubeml_tpu_torch.functions.registry import FunctionRegistry
+    from kubeml_tpu_torch.storage import (CheckpointStore, HistoryStore,
+                                          ShardStore)
+
+    cfg = cp_config(root)
+    cfg.ensure_dirs()
+    FunctionRegistry(config=cfg).create("bands", BANDS_FN % 64)
+    ShardStore(config=cfg).create("bands", *banded_images(KR_TRAIN, 2),
+                                  *banded_images(KR_TEST, 3))
+    levels = list(KR_REF_LEVELS)
+    job = TrainJob(KR_JOB, kr_request(2),
+                   FunctionRegistry(config=cfg).load("bands"),
+                   store=ShardStore(config=cfg),
+                   history_store=HistoryStore(config=cfg),
+                   checkpoint_store=CheckpointStore(config=cfg),
+                   on_epoch_end=lambda state: levels.pop(0), device="cuda")
+    h = job.train()
+    return dict(train=list(h.train_loss), val=list(h.validation_loss),
+                acc=list(h.accuracy), par=list(h.parallelism))
+
+
+def kr_leader(root):
+    """22b on rank 0: the control plane over HTTP, the banded set and the
+    ResNet-18 function uploaded, the job trained through /train, /infer
+    asked at every epoch's end (inside the stubbed scheduler's answer) and
+    after the finish, beside the job's own in-memory ``infer``."""
+    from kubeml_tpu_torch.api.errors import KubeMLError
+    from kubeml_tpu_torch.cluster import LocalCluster
+    from kubeml_tpu_torch.controller import KubemlClient
+
+    cfg = cp_config(root)
+    probe = banded_images(16, 4)[0]
+    out = {}
+    with LocalCluster(config=cfg) as cluster:
+        client = KubemlClient(cluster.controller_url, timeout=600)
+        client.datasets().create("bands", *banded_images(KR_TRAIN, 2),
+                                 *banded_images(KR_TEST, 3))
+        client.functions().create("bands", BANDS_FN % 64)
+        levels, asked, probes = list(KR_LEVELS), [], []
+
+        def answer(job_id, state):
+            asked.append(state.parallelism)
+            try:
+                probes.append(("served", np.asarray(
+                    client.networks().infer(KR_JOB, probe)).tolist()))
+            except KubeMLError as e:
+                probes.append((e.status_code, e.message))
+            return levels.pop(0)
+
+        cluster.ps._epoch_end = answer
+        t0 = time.monotonic()
+        reset_kernel_counts()
+        client.networks().train(kr_request(KR_ASK))
+        jr_wait_started(cluster, KR_JOB)
+        with cluster.ps._lock:
+            job = cluster.ps._jobs[KR_JOB].job
+        h = cp_wait_job(cluster, KR_JOB)
+        out.update(wall=time.monotonic() - t0, launches=kernel_counts())
+        out.update(train=list(h.train_loss), val=list(h.validation_loss),
+                   acc=list(h.accuracy), par=list(h.parallelism),
+                   notes=list(h.notes), error=h.task.get("error"),
+                   epoch_s=list(h.epoch_duration), asked=asked, probes=probes,
+                   tags=cluster.ps._ckpt_store.tags(KR_JOB))
+        out["served"] = np.asarray(client.networks().infer(KR_JOB, probe))
+        out["own"] = np.asarray(job.infer(probe))
+    return out
+
+
+def kr_rank(rank, out_dir, root):
+    """One rank of phase 22 (started by ``parallel.distributed.spawn``):
+    the process group over gloo, the kernels the parent built, then 22a,
+    22a's f32 round and 22c on both ranks, and 22b with the control plane
+    on rank 0 and the follower loop on rank 1, as ``kubeml start`` runs
+    them."""
+    from kubeml_tpu_torch.benchmarks.harness import FlagshipBench
+    from kubeml_tpu_torch.engine.follower import run_follower
+    from kubeml_tpu_torch.parallel.distributed import (get_dist_context,
+                                                       init_distributed)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(backend="gloo", device="cuda")
+    from kubeml_tpu_torch.ops import kernels
+
+    kernels.library(build=False)
+    dist = get_dist_context()
+    res = {}
+    t0 = time.monotonic()
+    reset_kernel_counts()
+    bench = FlagshipBench(KR_N, KAVG_B, KAVG_K, dist=dist)
+    row = bench.measure(KR_ROUNDS, reps=1)
+    res["a"] = dict(row=row, profile=kr_profile(bench),
+                    samples_per_round=bench.samples_per_round,
+                    launches=kernel_counts(), seconds=time.monotonic() - t0)
+    del bench
+    torch.cuda.empty_cache()
+    res["a_f32"] = kr_f32_round(dist)
+    t0 = time.monotonic()
+    res["c"] = kr_vit(dist)
+    res["c"]["seconds"] = time.monotonic() - t0
+    torch.cuda.empty_cache()
+    if rank == 0:
+        res["b"] = kr_leader(root)
+    else:
+        reset_kernel_counts()
+        res["b"] = dict(followed=run_follower(config=cp_config(root)),
+                        launches=kernel_counts())
+    torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+
+
+def kr_leaf_errors(got, want):
+    """Each leaf's largest |got - want| against its largest |want|: the
+    worst (ratio, leaf)."""
+    return max((float(np.abs(got[k].astype(np.float64) - want[k]).max())
+                / max(float(np.abs(want[k]).max()), 1e-30), k) for k in want)
+
+
+def kavg_ranks_phase(smi, root, row4):
+    """Phase 22 (see the module docstring). ``row4`` is phase 10a's
+    one-rank N 4 row. Returns the flash launches (fwd, dq, dkv) of 22c,
+    summed over the ranks."""
+    from kubeml_tpu_torch.parallel.distributed import spawn
+
+    t0 = time.monotonic()
+    ref_f32 = kr_f32_round()
+    ref_vit = kr_vit()
+    ref_job = kr_reference_job(Path(root) / "kavg-ranks-ref")
+    torch.cuda.empty_cache()
+    log(f"  22 one-rank references [{smi}] ({time.monotonic() - t0:.1f} s): "
+        f"f32 N {KR_N} round loss {ref_f32['loss']:.6f}; ViT-Tiny N "
+        f"{KR_VIT_N} losses {[round(v, 5) for v in ref_vit['losses']]}, "
+        f"flash launches {ref_vit['launches']} over {ref_vit['rounds']} "
+        f"rounds; TrainJob parallelism {ref_job['par']}, train loss "
+        f"{ref_job['train']}, validation accuracy {ref_job['acc']} %")
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kr_") as tmp:
+        spawn(kr_rank, KR_WORLD, args=(tmp, str(Path(root) / "kavg-ranks")),
+              timeout_s=KR_TIMEOUT_S)
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                 for r in range(KR_WORLD)]
+    log(f"  22 {KR_WORLD} ranks over gloo on {smi}: "
+        f"{time.monotonic() - t0:.1f} s, spawn included (22a "
+        f"{ranks[0]['a']['seconds']:.1f} s, 22c "
+        f"{ranks[0]['c']['seconds']:.1f} s, 22b "
+        f"{ranks[0]['b']['wall']:.1f} s)")
+    bad = []
+    # 22a: the flagship
+    rows = [r["a"]["row"] for r in ranks]
+    # the merge's buffer: every leaf of one replica in f32, and N losses
+    mbytes = 4 * (sum(v.size for v in ranks[0]["a_f32"]["merged"].values())
+                  + KR_N)
+    dev = sum(r["value"] for r in rows)
+    e2e = sum(r["end_to_end"] for r in rows)
+    for i, r in enumerate(ranks):
+        a, p = r["a"], r["a"]["profile"]
+        per = p["wall_ms"] / p["rounds"]
+        merge = p["spans"].get("kubeml::kavg_merge", 0.0) / p["rounds"]
+        stats = p["spans"].get("kubeml::kavg_stats", 0.0) / p["rounds"]
+        idle = (f"{1 - p['busy_ms'] / p['wall_ms']:.3f}" if p["busy_ms"] > 0
+                else "not measured (no device time recorded)")
+        log(f"  22a rank {i} [{smi}]: round {a['row']['round_ms']:.3f} ms "
+            f"({KR_N // KR_WORLD} x {KAVG_K} steps of B {KAVG_B}; "
+            f"{KR_ROUNDS} rounds, resident slabs); device "
+            f"{a['row']['value']:.1f} samples/s, end to end "
+            f"{a['row']['end_to_end']:.1f} (staged through RoundPrefetcher); "
+            f"profiled window {per:.3f} ms a round, of which the merge "
+            f"all-reduce (kubeml::kavg_merge: host copies and the gloo op "
+            f"over {mbytes / 1e6:.1f} MB of f32 sums) {merge:.3f} ms = "
+            f"{merge / per:.3f} ({merge / a['row']['round_ms']:.3f} of the "
+            f"unprofiled round) and "
+            f"the statistics' (kubeml::kavg_stats) {stats:.3f} ms; device "
+            f"busy {p['busy_ms'] / p['rounds']:.3f} ms a round, idle share "
+            f"{idle}; loss {a['row']['first_loss']:.4f} -> "
+            f"{a['row']['loss']:.4f}")
+        if r["a"]["launches"] != (0,) * 5 or not np.isfinite(
+                a["row"]["loss"]):
+            bad.append(f"22a rank {i}: launches {r['a']['launches']}, loss "
+                       f"{a['row']['loss']}")
+        if p["spans"].get("kubeml::kavg_merge", 0.0) <= 0:
+            bad.append(f"22a rank {i}: no merge span in the window")
+    log(f"  22a over {KR_WORLD} ranks, N {KR_N} [{smi}]: device "
+        f"{dev:.1f} samples/s, end to end {e2e:.1f} samples/s (summed over "
+        f"the ranks); one rank's N 4 (phase 10a): round "
+        f"{row4['round_ms']:.3f} ms, device {row4['value']:.1f}, end to end "
+        f"{row4['end_to_end']:.1f} samples/s")
+    # 22a f32
+    f32 = [r["a_f32"] for r in ranks]
+    err = kr_leaf_errors(f32[0]["merged"], ref_f32["merged"])
+    same = all(np.array_equal(f32[0]["merged"][k], f32[1]["merged"][k])
+               for k in f32[0]["merged"])
+    log(f"  22a f32 N {KR_N} K 2 B 16, worker mask {list(KR_F32_MASK)} "
+        f"[{smi}]: rank 0's merged weights against one rank's: worst leaf "
+        f"{err[1]} at {err[0]:.2e} of its largest entry (tolerance "
+        f"{KR_F32_RTOL}); ranks bit-equal: {same}; rows of each rank "
+        f"bit-equal: {[x['rows_same'] for x in f32]}; loss "
+        f"{f32[0]['loss']:.6f} (one rank {ref_f32['loss']:.6f})")
+    if not (err[0] <= KR_F32_RTOL and same
+            and all(x["rows_same"] for x in f32)
+            and f32[0]["loss"] == f32[1]["loss"]):
+        bad.append(f"22a f32: worst leaf {err}, ranks bit-equal {same}, "
+                   f"losses {[x['loss'] for x in f32]}")
+    # 22c: ViT-Tiny
+    per_round = ENC_DEPTH * VIT_K
+    vit = [r["c"] for r in ranks]
+    loss_err = max(abs(a - b) for a, b in zip(vit[0]["losses"],
+                                               ref_vit["losses"]))
+    werr = kr_leaf_errors(vit[0]["weights"], ref_vit["weights"])
+    vsame = all(np.array_equal(vit[0]["weights"][k], vit[1]["weights"][k])
+                for k in vit[0]["weights"])
+    want_rank = (per_round * (KR_VIT_N // KR_WORLD) * vit[0]["rounds"],) * 3
+    want_one = (per_round * KR_VIT_N * ref_vit["rounds"],) * 3
+    log(f"  22c ViT-Tiny depth {ENC_DEPTH}, B {ENC_VIT['B']}, K {VIT_K}, "
+        f"N {KR_VIT_N} over {KR_WORLD} ranks [{smi}]: flash launches a rank "
+        f"{[v['launches'] for v in vit]} over {vit[0]['rounds']} rounds = "
+        f"{[tuple(c // v['rounds'] for c in v['launches']) for v in vit]} a "
+        f"round (one rank's N {KR_VIT_N}: "
+        f"{tuple(c // ref_vit['rounds'] for c in ref_vit['launches'])}); "
+        f"losses {[round(v, 5) for v in vit[0]['losses']]} (one rank "
+        f"{[round(v, 5) for v in ref_vit['losses']]}; largest difference "
+        f"{loss_err:.2e}, tolerance {MR_LOSS_ATOL}); weights' worst leaf "
+        f"{werr[1]} at {werr[0]:.2e} of its largest entry (tolerance "
+        f"{KR_VIT_W_RTOL}); ranks bit-equal: {vsame}; round ms a rank "
+        f"{[round(x, 1) for x in vit[0]['ms'][1:]]}, one rank "
+        f"{[round(x, 1) for x in ref_vit['ms'][1:]]}")
+    if any(v["launches"] != want_rank for v in vit) or \
+            ref_vit["launches"] != want_one:
+        bad.append(f"22c: flash launches {[v['launches'] for v in vit]} "
+                   f"(want {want_rank} a rank), one rank "
+                   f"{ref_vit['launches']} (want {want_one})")
+    if not (loss_err <= MR_LOSS_ATOL and werr[0] <= KR_VIT_W_RTOL and vsame):
+        bad.append(f"22c: losses {loss_err}, weights {werr}, ranks "
+                   f"bit-equal {vsame}")
+    # 22b: the job through /train
+    b = ranks[0]["b"]
+    held = max(abs(x - y) for x, y in zip(b["train"], ref_job["train"]))
+    log(f"  22b {KR_JOB} through /train over {KR_WORLD} ranks [{smi}]: "
+        f"requested parallelism {KR_ASK}, the scheduler's answers "
+        f"{list(KR_LEVELS)}: parallelism {b['par']} (asked at {b['asked']}), "
+        f"notes {b['notes']}; train loss {[round(v, 5) for v in b['train']]} "
+        f"against the one-rank job's {[round(v, 5) for v in ref_job['train']]}"
+        f" (largest difference {held:.2e}, tolerance {MR_LOSS_ATOL}); "
+        f"validation accuracy {b['acc']} % (one rank {ref_job['acc']}); "
+        f"epoch s {[round(v, 3) for v in b['epoch_s']]}; checkpoints "
+        f"{b['tags']}; /infer at each epoch's end "
+        f"{[p[0] for p in b['probes']]}; the final served by the parameter "
+        f"server {'equals' if np.array_equal(b['served'], b['own']) else 'DIFFERS FROM'}"
+        f" the job's own infer; the follower ran {ranks[1]['b']['followed']} "
+        f"job(s); hand-written kernel launches {b['launches']}, "
+        f"{ranks[1]['b']['launches']}")
+    if b["error"] or b["par"] != KR_TRACE or held > MR_LOSS_ATOL or len(
+            b["train"]) != len(ref_job["train"]):
+        bad.append(f"22b: error {b['error']}, parallelism {b['par']}, losses "
+                   f"{b['train']} against {ref_job['train']}")
+    if ref_job["par"] != KR_TRACE:
+        bad.append(f"22b: the one-rank job's parallelism {ref_job['par']}")
+    notes = [f"requested parallelism {KR_ASK} rounded to 2 (must be a "
+             f"multiple of the {KR_WORLD} host processes)",
+             f"epoch 2: scheduler parallelism 3 rounded to 2 (multiple of "
+             f"{KR_WORLD} host processes)"]
+    if b["notes"] != notes:
+        bad.append(f"22b: notes {b['notes']}, want {notes}")
+    probes = [p[0] for p in b["probes"]]
+    if probes[:2] != [409, "served"]:
+        bad.append(f"22b: /infer during training {b['probes']}")
+    if not np.array_equal(b["served"], b["own"]):
+        bad.append("22b: the served final differs from the job's infer")
+    if b["tags"] != ["ep00000", "ep00001", "ep00002", "final"]:
+        bad.append(f"22b: checkpoints {b['tags']}")
+    if ranks[1]["b"]["followed"] != 1 or any(b["launches"]) or any(
+            ranks[1]["b"]["launches"]):
+        bad.append(f"22b: follower {ranks[1]['b']}")
+    if bad:
+        raise AssertionError("phase 22: " + "; ".join(bad))
+    return tuple(sum(v["launches"][i] for v in vit) for i in range(3))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one NVIDIA card",
@@ -6520,7 +6976,7 @@ def phases(root: str) -> int:
 
     # 1. device
     smi = nvidia_smi()
-    log("[1/22 device]")
+    log("[1/23 device]")
     log(smi)
     log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} devices "
@@ -6535,7 +6991,7 @@ def phases(root: str) -> int:
     spills = [f"{lines[i - 1].split('for ')[-1][:70]}: {ln.strip()}"
               for i, ln in enumerate(lines)
               if re.search(r"[1-9]\d* bytes (stack frame|spill)", ln)]
-    log(f"[2/22 build] {time.monotonic() - t0:.2f} s (nvcc "
+    log(f"[2/23 build] {time.monotonic() - t0:.2f} s (nvcc "
         f"{kernels.build_seconds:.2f} s), kernels with a stack frame or "
         f"spills: {len(spills)}")
     for ln in spills:
@@ -6551,7 +7007,7 @@ def phases(root: str) -> int:
     check_compiled(kernels.library()._name, build_log)
 
     # 3. kernels against their plain versions
-    log("[3/22 kernels]")
+    log("[3/23 kernels]")
     timer = Timer()
     g = torch.Generator().manual_seed(SEED)
     pa_rows = check_paged_attention(timer, g)
@@ -6564,7 +7020,7 @@ def phases(root: str) -> int:
     del timer
 
     # 4. serve f32: kernel engine, then the plain (gather) twin
-    log("[4/22 serve f32]")
+    log("[4/23 serve f32]")
     serve_tiny()
     reqs = workload(np.random.default_rng(SEED))
     model = gpt2_small()
@@ -6607,7 +7063,7 @@ def phases(root: str) -> int:
     del model
 
     # 5. serve int8: int8 weights through the kernel, int8 KV pages
-    log("[5/22 serve int8]")
+    log("[5/23 serve int8]")
     q_kw = dict(quantize="int8", int8_matmul=True, kv_quant="int8", **common)
     qdec = PagedBatchingDecoder(gpt2_small(), **q_kw)
     if (not qdec.int8_matmul or qdec.int8_matmul_impl != "cuda"
@@ -6656,20 +7112,20 @@ def phases(root: str) -> int:
     torch.cuda.empty_cache()
 
     # 6. speculative decoding and chunked prefill through both kernels
-    log("[6/22 spec + chunked]")
+    log("[6/23 spec + chunked]")
     t0 = time.monotonic()
     spec_launches = spec_phase(smi)
     log(f"  phase 6: {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     # 7. flash kernels against their plain versions, and the L sweep
-    log("[7/22 flash kernels]")
+    log("[7/23 flash kernels]")
     timer = Timer()
     flash_errs, sweep = check_flash(timer, g)
     del timer
 
     # 8. train: the kernel path, its profile, then the plain path
-    log("[8/22 train bf16]")
+    log("[8/23 train bf16]")
     krow, kcounts = train_run("kernel path", flash=True)
     want = (2 * DEPTH * krow["steps_run"], DEPTH * krow["steps_run"],
             DEPTH * krow["steps_run"])
@@ -6692,19 +7148,20 @@ def phases(root: str) -> int:
                              f"{pcounts}")
 
     # 9. f32: one step through the kernels against the plain path
-    log("[9/22 train f32 parity]")
+    log("[9/23 train f32 parity]")
     check_f32_step()
 
     # 10. K-AVG: the flagship at bench.py's configuration, the merge's
     # correctness, and TrainJob end to end; none of the five hand-written
     # kernels is on this path (convs, BatchNorm and dense layers run in
     # cuDNN and cuBLAS, as the JAX path runs them in XLA)
-    log("[10/22 k-avg]")
+    log("[10/23 k-avg]")
     reset_kernel_counts()
     log("  10a flagship: ResNet-18, CIFAR-10 shapes, bf16, uint8 inputs, "
         f"B {KAVG_B}, K {KAVG_K}, lr 0.1, SGD momentum 0.9")
     row1, plain_sps = kavg_flagship(1, smi)
-    kavg_flagship(4, smi, plain_sps, reps=1)
+    row4, _ = kavg_flagship(4, smi, plain_sps, reps=1,
+                            rounds=KAVG_ROUNDS // 2)
     log("  10b correctness")
     kavg_correctness()
     log("  10c TrainJob")
@@ -6716,34 +7173,34 @@ def phases(root: str) -> int:
         raise AssertionError(f"the K-AVG path launched {counts}")
 
     # 11. serving resilience through both serving kernels
-    log("[11/22 resilience]")
+    log("[11/23 resilience]")
     t0 = time.monotonic()
     res_launches = resilience_phase(smi)
     log(f"  phase 11: {time.monotonic() - t0:.1f} s")
 
     # 12. checkpoints served through the parameter server
-    log("[12/22 checkpoint serving]")
+    log("[12/23 checkpoint serving]")
     t0 = time.monotonic()
     ckpt = checkpoint_phase(smi, root, run, qrun, kavg)
     ckpt_launches = ckpt["launches"]
     log(f"  phase 12: {time.monotonic() - t0:.1f} s")
 
     # 13. the control plane over HTTP: training, serving, SIGTERM
-    log("[13/22 control plane]")
+    log("[13/23 control plane]")
     t0 = time.monotonic()
     cp_launches = control_plane_phase(smi, root, run, qrun, ckpt, kavg)
     log(f"  phase 13: {time.monotonic() - t0:.1f} s")
 
     # 14. the encoders: the flash kernels at their shapes, BERT-base and
     # ViT-Tiny trained by K-AVG, VGG-11, a ViT TrainJob with transforms
-    log("[14/22 encoders]")
+    log("[14/23 encoders]")
     t0 = time.monotonic()
     enc_rows, enc_launches, bert_row, vit_row = encoder_phase(smi, root)
     log(f"  phase 14: {time.monotonic() - t0:.1f} s")
 
     # 15. MoE trained at bench_moe's width through the flash kernels and
     # served by the dense slot engine; GPT-2-small through the dense engine
-    log("[15/22 moe + dense engine]")
+    log("[15/23 moe + dense engine]")
     t0 = time.monotonic()
     moe_row, moe_errs, moe_times, moe_counts, dense_launches = moe_phase(
         smi, root, run)
@@ -6751,14 +7208,14 @@ def phases(root: str) -> int:
 
     # 16. the one-shot speculative generate through paged attention, and
     # the long-context flagship's SPMD job with sharded checkpoints
-    log("[16/22 one-shot spec + spmd job]")
+    log("[16/23 one-shot spec + spmd job]")
     t0 = time.monotonic()
     spec16, flash16, served16 = spec_spmd_phase(smi, root, krow["step_ms"])
     log(f"  phase 16: {time.monotonic() - t0:.1f} s")
 
     # 17. multi-rank SPMD: two gloo ranks on the card, attention and the
     # flagship's training over sp (Ulysses, ring), tp and dp
-    log("[17/22 multi-rank spmd]")
+    log("[17/23 multi-rank spmd]")
     t0 = time.monotonic()
     flash17 = multirank_phase(smi)
     log(f"  phase 17: {time.monotonic() - t0:.1f} s")
@@ -6766,7 +7223,7 @@ def phases(root: str) -> int:
     # 18. the SPMD job over ranks: two gloo ranks on the card, the
     # flagship trained through /train over tp=2, resumed over sp=2,
     # remeshed dp 2 -> 1 -> 2, its 2-shard final served
-    log("[18/22 spmd job over ranks]")
+    log("[18/23 spmd job over ranks]")
     t0 = time.monotonic()
     flash18, served18 = ranks_phase(smi, root)
     log(f"  phase 18: {time.monotonic() - t0:.1f} s")
@@ -6775,7 +7232,7 @@ def phases(root: str) -> int:
     # masked flash check, PipelinedLM over pp=2, the flagship as
     # PipelinedCausalLM trained through /train over pp=2, resumed, its
     # stage-sharded final served flat
-    log("[19/22 pipeline over ranks]")
+    log("[19/23 pipeline over ranks]")
     t0 = time.monotonic()
     flash19, served19 = pipeline_phase(smi, root)
     log(f"  phase 19: {time.monotonic() - t0:.1f} s")
@@ -6783,7 +7240,7 @@ def phases(root: str) -> int:
     # 20. MoE over ranks: two gloo ranks on the card, bench_moe at full
     # depth over ep=2 and at MOE_DEPTH over dp, tp and sp; a MoE job
     # through /train over ep=2, resumed under dp=2, its final served
-    log("[20/22 moe over ranks]")
+    log("[20/23 moe over ranks]")
     t0 = time.monotonic()
     flash20, moe_ep_times = moe_ep_phase(smi, root)
     log(f"  phase 20: {time.monotonic() - t0:.1f} s")
@@ -6791,13 +7248,21 @@ def phases(root: str) -> int:
     # 21. meshed serving: two gloo ranks on the card, the int8 matmul at
     # the tp=2 shard shapes, GPT-2-small served over tp=2 in f32 and int8,
     # phases 18's and 20's sharded finals served on serving meshes
-    log("[21/22 meshed serving]")
+    log("[21/23 meshed serving]")
     t0 = time.monotonic()
     served21 = serving_mesh_phase(smi, root, sm_rows)
     log(f"  phase 21: {time.monotonic() - t0:.1f} s")
 
-    # 22. results
-    log("[22/22 results]")
+    # 22. K-AVG over ranks: two gloo ranks on the card, the flagship's
+    # rounds and the merge over the ranks, a K-AVG job through /train,
+    # ViT-Tiny through the flash kernels
+    log("[22/23 k-avg over ranks]")
+    t0 = time.monotonic()
+    flash22 = kavg_ranks_phase(smi, root, row4)
+    log(f"  phase 22: {time.monotonic() - t0:.1f} s")
+
+    # 23. results
+    log("[23/23 results]")
     pa = pa_rows[0]   # the decode step: L = 1, f32 arena
     mm = next(r for r in mm_rows if r["M"] == 8 and r["N"] == VOCAB
               and r["x"] == "float32")  # the lm_head at decode
@@ -6828,10 +7293,10 @@ def phases(root: str) -> int:
     err_a = flash_errs[("a train", torch.bfloat16)]
     # launches: the training path of phase 8, the encoders' of phase 14,
     # the MoE LM's of phase 15, the SPMD job's of phase 16 and the ranks'
-    # of phases 17, 18, 19 and 20
+    # of phases 17, 18, 19, 20 and 22
     fwd_n, dq_n, dkv_n = (sum(c) for c in zip(
         kcounts, enc_launches, moe_counts, flash16, flash17, flash18,
-        flash19, flash20))
+        flash19, flash20, flash22))
     for name, line_no, count, err, ms, plain, lib in (
             ("flash_fwd", 120, fwd_n, err_a["out"], tr["fwd_ms"],
              tr["fwd_plain_ms"], tr["fwd_library_ms"]),
@@ -6851,7 +7316,8 @@ def phases(root: str) -> int:
         f"{prow['value']:.1f}")
     log(f"  flash launches: phase 8 {kcounts}, phase 14 {enc_launches}, "
         f"phase 15 {moe_counts}, phase 16 {flash16}, phase 17 {flash17}, "
-        f"phase 18 {flash18}, phase 19 {flash19}, phase 20 {flash20}; "
+        f"phase 18 {flash18}, phase 19 {flash19}, phase 20 {flash20}, "
+        f"phase 22 {flash22}; "
         f"serving launches "
         f"(paged_attention, int8_matmul) of phase 16: one-shot spec {spec16}"
         f", the SPMD final served {served16}; of phase 18 {served18}; of "

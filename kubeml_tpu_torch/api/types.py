@@ -156,26 +156,15 @@ class TrainOptions(_JsonMixin):
 
     def check_ported(self, world: int = 1) -> None:
         """Raise ``KubeMLError`` (400) for an option a job of this package
-        cannot run on a cluster of ``world`` ranks, each refusal naming
-        the item of the port (ROADMAP Queue 1) that lifts it: an SPMD
-        mesh that does not divide the world (``mesh_shape_for`` with
-        ``dp`` filling the rest; a ``pp`` axis trains a pipelined model
-        over its ranks, an ``ep`` axis a MoE model's expert stacks), and a
-        K-AVG job over several ranks or with a mesh axis other than
-        ``worker`` above 1 (multi-card K-AVG, item 1.5)."""
+        cannot run on a cluster of ``world`` ranks: an SPMD mesh that does
+        not divide the world (``mesh_shape_for`` with ``dp`` filling the
+        rest; a ``pp`` axis trains a pipelined model over its ranks, an
+        ``ep`` axis a MoE model's expert stacks). A K-AVG job runs on any
+        world with any ``mesh_shape``, as in JAX, where K-AVG reads the
+        ``worker`` axis only (its cap below the world is the trainer's
+        error, as JAX's)."""
         shape = dict(self.mesh_shape or {})
         if self.engine != "spmd":
-            if world > 1:
-                raise KubeMLError(
-                    f"not ported to kubeml_tpu_torch yet: a K-AVG job on a "
-                    f"cluster of {world} ranks (multi-card K-AVG, ROADMAP "
-                    f"Queue 1 item 1.5); run it on one rank, or as an "
-                    f"--engine spmd job", 400)
-            if any(int(n) > 1 for ax, n in shape.items() if ax != "worker"):
-                raise KubeMLError(
-                    f"not ported to kubeml_tpu_torch yet: mesh_shape "
-                    f"{shape} on a K-AVG job spans several devices "
-                    f"(multi-card K-AVG, ROADMAP Queue 1 item 1.5)", 400)
             return
         from ..parallel.mesh import mesh_shape_for
 

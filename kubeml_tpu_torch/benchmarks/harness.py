@@ -137,32 +137,36 @@ class FlagshipBench:
     """``bench.py``'s measurement of the flagship on the port, for
     ``n_workers`` K-AVG workers packed on one device: slabs ``[n_workers,
     k, batch, 32, 32, 3]`` of uint8 from ``np.random.default_rng(SEED)``,
-    weights from ``SEED``, SGD(LR, momentum 0.9)."""
+    weights from ``SEED``, SGD(LR, momentum 0.9). With ``dist`` (a
+    ``DistContext`` of several ranks) the workers split over the ranks:
+    this rank holds and measures its rows of the same global slabs, and
+    ``samples_per_round`` counts its own."""
 
     def __init__(self, n_workers: int = 1, batch: int = 128, k: int = 8,
-                 device=None):
+                 device=None, dist=None):
         from ..engine.kavg import KAvgTrainer
 
         self.fs = flagship(dtype=torch.bfloat16)
         self.model = make_synthetic_model(self.fs.module, "bench-synthetic",
                                           uint8_inputs=True)
         self.trainer = KAvgTrainer(self.model, precision="bf16",
-                                   device=device)
+                                   device=device, dist=dist)
         self.device = self.trainer.device
         self.n_workers, self.batch, self.k = n_workers, batch, k
         r = np.random.default_rng(SEED)
+        a, b = self.trainer.local_rows(n_workers)
         self.x = r.integers(0, 256, size=(n_workers, k, batch,
                                           *self.fs.sample_shape)
-                            ).astype(np.uint8)
+                            ).astype(np.uint8)[a:b]
         self.y = r.integers(0, self.fs.num_classes,
-                            size=(n_workers, k, batch)).astype(np.int64)
-        self.mask = np.ones((n_workers, k, batch), np.float32)
+                            size=(n_workers, k, batch)).astype(np.int64)[a:b]
+        self.mask = np.ones((b - a, k, batch), np.float32)
         self.variables = self.trainer.init_variables(SEED, self.x[0, 0],
                                                      n_workers)
         # the round's slabs, resident on the device after the first round
         self.staged = self.trainer.stage_round(self.x, self.y, self.mask,
                                                n_workers)
-        self.samples_per_round = n_workers * k * batch
+        self.samples_per_round = (b - a) * k * batch
 
     def round(self, staged=None) -> torch.Tensor:
         """One sync round (on the resident slabs unless given others);

@@ -5,7 +5,9 @@ Each round's zero-copy mmap slices are assembled into one uniform
 ``[N, steps, B, ...]`` slab, built on a background thread one round ahead
 of the consumer. Workers own sample ranges of slightly different sizes;
 ragged tails are zero-padded to the plan's shape and a ``[N, steps, B]``
-float mask (1.0 = real sample) marks the real samples.
+float mask (1.0 = real sample) marks the real samples. Over ranks a
+rank assembles only its block of worker rows (``worker_rows``), exactly
+those rows of the full slab.
 """
 
 from __future__ import annotations
@@ -23,12 +25,14 @@ from .sharding import RoundPlan, plan_eval
 
 @dataclass
 class RoundBatch:
-    """One sync round of data for all N workers."""
+    """One sync round of data: all N workers, or over ranks this rank's
+    ``worker_rows`` block of the worker axis."""
 
-    x: np.ndarray  # [N, steps, B, ...]
-    y: np.ndarray  # [N, steps, B, ...]
-    mask: np.ndarray  # [N, steps, B] float32
+    x: np.ndarray  # [rows, steps, B, ...]
+    y: np.ndarray  # [rows, steps, B, ...]
+    mask: np.ndarray  # [rows, steps, B] float32
     round_index: int
+    worker_rows: Tuple[int, int] = (0, 0)  # [start, end) of the worker axis
 
 
 def _worker_round_slice(handle: DatasetHandle, split: str, plan: RoundPlan,
@@ -62,14 +66,22 @@ def _pack(dst: np.ndarray, srcs: List[Optional[np.ndarray]],
 
 
 def build_round(handle: DatasetHandle, split: str, plan: RoundPlan,
-                round_index: int, transform=None) -> RoundBatch:
-    """Assemble the uniform padded ``[N, steps, B, ...]`` slabs of one
-    round (``transform`` applied to each worker's real samples first)."""
-    n, steps, bsz = plan.n_workers, plan.steps_per_round, plan.batch_size
+                round_index: int, transform=None,
+                worker_rows: Optional[Tuple[int, int]] = None) -> RoundBatch:
+    """Assemble the uniform padded ``[rows, steps, B, ...]`` slabs of one
+    round (``transform`` applied to each worker's real samples first).
+
+    ``worker_rows`` ([start, end) of the worker axis) restricts the slab
+    to one rank's block: only those workers' samples are read. A block
+    whose workers are all exhausted while another rank's still hold data
+    is a slab of zeros with a zero mask (its shapes probed with one
+    sample through ``transform``), so every rank runs the same rounds."""
+    ws, we = worker_rows if worker_rows is not None else (0, plan.n_workers)
+    n, steps, bsz = we - ws, plan.steps_per_round, plan.batch_size
     per_round = steps * bsz
     xs, ys, counts = [], [], []
     x0 = y0 = None
-    for w in range(n):
+    for w in range(ws, we):
         x, y = _worker_round_slice(handle, split, plan, w, round_index)
         if x is None:
             xs.append(None)
@@ -83,7 +95,12 @@ def build_round(handle: DatasetHandle, split: str, plan: RoundPlan,
         ys.append(y0)
         counts.append(len(x0))
     if x0 is None:
-        raise ValueError(f"round {round_index}: no worker has data")
+        if worker_rows is None:
+            raise ValueError(f"round {round_index}: no worker has data")
+        x0 = np.asarray(handle.raw(split, "data")[:1])
+        y0 = np.asarray(handle.raw(split, "labels")[:1])
+        if transform is not None:
+            x0, y0 = (np.asarray(a) for a in transform(x0, y0))
     X = np.empty((n, per_round, *x0.shape[1:]), x0.dtype)
     Y = np.empty((n, per_round, *y0.shape[1:]), y0.dtype)
     _pack(X, xs, counts)
@@ -96,20 +113,23 @@ def build_round(handle: DatasetHandle, split: str, plan: RoundPlan,
         y=Y.reshape(n, steps, bsz, *y0.shape[1:]),
         mask=M.reshape(n, steps, bsz),
         round_index=round_index,
+        worker_rows=(ws, we),
     )
 
 
 class RoundLoader:
     """Iterates an epoch's RoundBatches, built ``prefetch`` rounds ahead on
-    a background thread."""
+    a background thread; ``worker_rows`` as :func:`build_round`'s."""
 
     def __init__(self, handle: DatasetHandle, split: str, plan: RoundPlan,
-                 transform=None, prefetch: int = 2):
+                 transform=None, prefetch: int = 2,
+                 worker_rows: Optional[Tuple[int, int]] = None):
         self.handle = handle
         self.split = split
         self.plan = plan
         self.transform = transform
         self.prefetch = max(1, prefetch)
+        self.worker_rows = worker_rows
 
     def __len__(self) -> int:
         return self.plan.num_rounds
@@ -135,7 +155,7 @@ class RoundLoader:
                         return
                     if not put_or_abort(build_round(
                             self.handle, self.split, self.plan, r,
-                            self.transform)):
+                            self.transform, self.worker_rows)):
                         return
                 put_or_abort(None)
             except Exception as e:  # surfaced in the consumer
@@ -156,10 +176,12 @@ class RoundLoader:
 
 
 def validation_loader(handle: DatasetHandle, n_workers: int, batch_size: int,
-                      transform=None, max_steps_per_round: int = 32
+                      transform=None, max_steps_per_round: int = 32,
+                      worker_rows: Optional[Tuple[int, int]] = None
                       ) -> RoundLoader:
     """Stream the test split in rounds of at most ``max_steps_per_round``
-    steps, so peak memory stays one round."""
+    steps, so peak memory stays one round; ``worker_rows`` as
+    :func:`build_round`'s."""
     plan = plan_eval(
         num_docs=handle.num_subsets("test"),
         n_workers=n_workers,
@@ -168,4 +190,5 @@ def validation_loader(handle: DatasetHandle, n_workers: int, batch_size: int,
         num_samples=handle.num_samples("test"),
         max_steps_per_round=max_steps_per_round,
     )
-    return RoundLoader(handle, "test", plan, transform=transform)
+    return RoundLoader(handle, "test", plan, transform=transform,
+                       worker_rows=worker_rows)

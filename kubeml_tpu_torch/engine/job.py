@@ -35,14 +35,38 @@ parameter server's ``/infer`` on a live job): it answers from a copy of
 replica 0 taken at the last round's edge, through a module of its own,
 as the JAX engine answers from the variables it rebinds at a round's end.
 
-Not ported yet (``ROADMAP.md``): a K-AVG job over several ranks (a
-``dist`` of more than one rank, or any rank of a process group, is
-refused with a 400 by ``check_ported``: multi-card K-AVG, item 1.5), the
-background
-compile of the next parallelism level (eager PyTorch compiles nothing),
-tracer spans, and the retry of a round on a transient
-accelerator error (a CUDA fault poisons the context, so a retry in the
-same process cannot recover).
+**Over ranks** (``dist``, a ``parallel.distributed.DistContext`` of P
+ranks; JAX :77-113, 236-312, 432-441, 454-456, 723-738, 767-862,
+904-984): every rank runs the same job in lockstep, its trainer holding
+and loading only its block of worker rows (``KAvgTrainer.local_rows``).
+
+* The parallelism is a multiple of P: the request's, the health resize's
+  and the scheduler's answer are rounded to ``max(P, p // P * P)``, the
+  rounding noted in the history (JAX's notes).
+* Rank 0 (the leader, whose job thread the parameter server runs) decides
+  and broadcasts over the store: the stop at every epoch and round (a
+  preempt reaches the leader alone, so the fast yield is one-rank only,
+  and a preempted job over ranks leaves at the stop's next broadcast) and
+  the scheduler's answer. Chaos masks are drawn in lockstep from the job
+  id's seed on every rank; an injector passed in is one rank's and is
+  refused over ranks (a ``ValueError``).
+* The leader alone pushes metrics and writes the history, the
+  checkpoints and the final export; every rank computes them (the round's
+  results are global, so the histories agree). A resume restores the
+  checkpoint the leader picks (broadcast), read by every rank from the
+  checkpoint store, which the ranks must share.
+* ``infer`` and ``generate`` during training serve the leader's newest
+  checkpoint (serving the live replicas would need the other ranks), a
+  409 before the first one; the finished job serves its final weights.
+* ``heartbeat`` is stamped at construction, every round, every
+  validation round and every checkpoint, so the stall watchdog of the
+  parameter server and the followers reads progress.
+
+Not ported yet (``ROADMAP.md``): the background compile of the next
+parallelism level (eager PyTorch compiles nothing), tracer spans, and
+the retry of a round on a transient accelerator error (a CUDA fault
+poisons the context, so a retry in the same process cannot recover):
+every round runs once, as JAX's rounds over several processes do.
 """
 
 from __future__ import annotations
@@ -90,10 +114,21 @@ class TrainJob:
         health_threshold: int = 3,
         dist=None,
     ):
-        from ..parallel.distributed import process_count
+        from ..parallel import distributed
 
-        request.options.check_ported(
-            dist.size if dist is not None else process_count())
+        if dist is None and distributed.process_count() > 1:
+            dist = distributed.get_dist_context()
+        self.dist = dist
+        world = dist.size if dist is not None else 1
+        self._multi = world > 1
+        self._leader = dist is None or dist.is_leader
+        request.options.check_ported(world)
+        if self._multi and chaos is not None:
+            # an injector passed in lives in this process only; the one the
+            # options make is seeded from the job id, so every rank draws
+            # the same masks in lockstep
+            raise ValueError("custom chaos injectors are single-process "
+                             "only; use options.chaos_prob in multi-host mode")
         self.job_id = job_id
         self.request = request
         self.model = model
@@ -104,10 +139,21 @@ class TrainJob:
         self.on_metrics = on_metrics
         self.seed = seed
         self.parallelism = request.options.default_parallelism
-        # {"worker": d} caps the devices the workers span: on one card
-        # there is nothing to cap
+        notes = []
+        if self._multi:
+            # the worker axis splits evenly over the ranks
+            requested = self.parallelism
+            self.parallelism = self._round_to_world(requested)
+            if self.parallelism != requested:
+                note = (f"requested parallelism {requested} rounded to "
+                        f"{self.parallelism} (must be a multiple of the "
+                        f"{world} host processes)")
+                log.warning("%s: %s", job_id, note)
+                notes.append(note)
         self.trainer = KAvgTrainer(model, precision=request.options.precision,
-                                   device=device)
+                                   device=device,
+                                   mesh_shape=request.options.mesh_shape,
+                                   dist=dist)
         # the option-derived injector is seeded from the job id, as the JAX
         # package's, so the same job draws the same masks in either package
         if chaos is None and request.options.chaos_prob > 0.0:
@@ -123,15 +169,23 @@ class TrainJob:
         self._last_spread: list = []
         self._last_round_skew = -1.0
         self.history = History(id=job_id, task={"request": request.to_dict()})
+        self.history.notes.extend(notes)
         self.stop_event = threading.Event()
         # checkpoint-and-yield: preempt() rides the stop machinery, but the
         # job then writes a resume checkpoint instead of the final export
         self.preempt_event = threading.Event()
+        # progress stamp for the stall watchdog; heartbeat_cold doubles its
+        # allowance until the first round is done
+        self.heartbeat = time.time()
+        self.heartbeat_cold = True
         self.exit_error: Optional[str] = None
         self._stacked_vars = None
         # replica 0 at the last round's edge, for infer from other threads
         self._published = None
         self._final_variables = None
+        # over ranks: the leader's newest checkpointed weights (the port's
+        # layout, on the host) and their epoch, which infer serves
+        self._latest_snapshot: Optional[tuple] = None
         # the async periodic checkpoint write in flight (at most one)
         self._ckpt_thread: Optional[threading.Thread] = None
 
@@ -182,7 +236,7 @@ class TrainJob:
             acc_pct = None
             epochs_run = 0
             for epoch in range(start_epoch, req.epochs):
-                if self.stop_event.is_set():
+                if self._sync_stop():
                     log.info("%s: stop requested, exiting at epoch %d",
                              self.job_id, epoch)
                     break
@@ -193,13 +247,19 @@ class TrainJob:
                 if self.stop_event.is_set() and np.isnan(train_loss):
                     break  # stopped mid-epoch before any round completed
                 # a preempted job skips the resize, the scheduler's answer,
-                # validation and the periodic checkpoint: it yields
-                yielding = self.preempt_event.is_set()
+                # validation and the periodic checkpoint: it yields. One
+                # rank only: over ranks those hold collectives and the
+                # preempt reaches the leader alone, so the job leaves at
+                # the stop's next broadcast
+                yielding = self.preempt_event.is_set() and not self._multi
 
                 # health-based resize: persistently dead workers shrink the
-                # worker axis at the epoch boundary
+                # worker axis at the epoch boundary (the health state is
+                # the same on every rank, and so is its rounding)
                 if not opts.static_parallelism:
                     healthy_p = self.health.suggest_parallelism(self.parallelism)
+                    if self._multi:
+                        healthy_p = self._round_to_world(healthy_p)
                     if healthy_p < self.parallelism:
                         log.warning(
                             "%s: %d persistently failed worker(s); resizing "
@@ -209,11 +269,29 @@ class TrainJob:
                         self._resize(healthy_p)
 
                 # elastic re-evaluation: the scheduler answers with this
-                # epoch's elapsed time unless parallelism is static
-                if (not opts.static_parallelism and not yielding
-                        and self.on_epoch_end is not None):
-                    new_p = self.on_epoch_end(JobState(
-                        parallelism=self.parallelism, elapsed_time=elapsed))
+                # epoch's elapsed time unless parallelism is static; over
+                # ranks the leader asks and every rank takes its answer,
+                # rounded to the world
+                if not opts.static_parallelism and not yielding and (
+                        self.on_epoch_end is not None or self._multi):
+                    new_p = None
+                    if self._leader and self.on_epoch_end is not None:
+                        new_p = self.on_epoch_end(JobState(
+                            parallelism=self.parallelism,
+                            elapsed_time=elapsed))
+                    if self._multi:
+                        _, p = self.dist.broadcast_flags(
+                            parallelism=new_p or 0)
+                        new_p = p or None
+                        if new_p:
+                            asked, new_p = new_p, self._round_to_world(new_p)
+                            if new_p != asked:
+                                note = (f"epoch {epoch + 1}: scheduler "
+                                        f"parallelism {asked} rounded to "
+                                        f"{new_p} (multiple of "
+                                        f"{self.dist.size} host processes)")
+                                log.warning("%s: %s", self.job_id, note)
+                                self.history.notes.append(note)
                     if new_p and new_p != self.parallelism:
                         log.info("%s: parallelism %d -> %d", self.job_id,
                                  self.parallelism, new_p)
@@ -242,8 +320,9 @@ class TrainJob:
                                 if self._last_round_skew >= 0
                                 else self._epoch_signal(())),
                 )
-                self._push_metrics(train_loss, val_loss, acc_pct, elapsed,
-                                   used_parallelism, epoch + 1)
+                if self._leader:
+                    self._push_metrics(train_loss, val_loss, acc_pct,
+                                       elapsed, used_parallelism, epoch + 1)
                 if (opts.checkpoint_every > 0 and not yielding
                         and (epoch + 1) % opts.checkpoint_every == 0):
                     self._save_checkpoint(epoch)
@@ -260,9 +339,10 @@ class TrainJob:
 
             # final validation if the last epoch did not run one;
             # validate_every == 0 opts out of validation entirely, and a
-            # resume with nothing left to train keeps the restored history
+            # resume with nothing left to train keeps the restored history.
+            # Over ranks the stop is the leader's (validation is collective)
             if (opts.validate_every > 0 and acc_pct is None and epochs_run > 0
-                    and not self.stop_event.is_set()):
+                    and not self._sync_stop()):
                 val_acc, val_loss = self._validate(dataset, handle)
                 self.history.validation_loss.append(float(val_loss))
                 self.history.accuracy.append(float(val_acc * 100.0))
@@ -275,7 +355,7 @@ class TrainJob:
             # resume checkpoint instead
             if self.preempt_event.is_set():
                 self._save_yield_checkpoint()
-            elif opts.save_model and (
+            elif self._leader and opts.save_model and (
                     epochs_run > 0
                     or FINAL_TAG not in self.checkpoint_store.tags(self.job_id)):
                 self.checkpoint_store.save(
@@ -294,10 +374,28 @@ class TrainJob:
             # a failed job records its error, so pollers see the outcome
             if self.exit_error is not None and isinstance(self.history.task, dict):
                 self.history.task["error"] = self.exit_error
-            self.history_store.save(self.history)
+            if self._leader:
+                self.history_store.save(self.history)
         return self.history
 
     # --- internals ---
+
+    def _round_to_world(self, p: int) -> int:
+        """``p`` rounded down to a multiple of the ranks, at least one a
+        rank (JAX :97-108)."""
+        size = self.dist.size
+        return max(size, (p // size) * size)
+
+    def _sync_stop(self) -> bool:
+        """The stop decision every rank agrees on: the leader's, broadcast
+        over ranks, so no rank leaves the lockstep loop while the others
+        still issue collectives."""
+        stop = self.stop_event.is_set()
+        if self._multi:
+            stop, _ = self.dist.broadcast_flags(stop=stop)
+            if stop:
+                self.stop_event.set()
+        return stop
 
     def _resize(self, new_p: int) -> None:
         self._stacked_vars = self.trainer.resize(self._stacked_vars,
@@ -317,7 +415,9 @@ class TrainJob:
             subset_size=handle.subset_size,
             num_samples=handle.num_samples("train"),
         )
-        loader = RoundLoader(handle, "train", plan, transform=dataset.transform)
+        loader = RoundLoader(handle, "train", plan, transform=dataset.transform,
+                             worker_rows=self.trainer.local_rows(
+                                 self.parallelism))
         epoch_seed = fold_in(self.seed, epoch + 1)
         losses = []
         skipped = 0
@@ -329,8 +429,10 @@ class TrainJob:
         self._last_round_skew = -1.0
         for rb, staged in RoundPrefetcher(self.trainer, loader,
                                           self.parallelism):
-            if self.stop_event.is_set():
+            if self._sync_stop():
                 break
+            # the plan's, the same on every rank (a rank loads its rows only)
+            data_bearing = plan.data_bearing(rb.round_index)
             worker_mask = None
             if self.chaos is not None:
                 worker_mask = self.chaos.mask(self.parallelism)
@@ -344,7 +446,6 @@ class TrainJob:
                 # no healthy data-bearing worker: skip the round here (the
                 # weights keep their pre-round value), so a NaN loss from
                 # the trainer always means real divergence
-                data_bearing = plan.data_bearing(rb.round_index)
                 if float((worker_mask * data_bearing).sum()) == 0.0:
                     skipped += 1
                     log.warning("%s: round %d skipped: no healthy "
@@ -355,8 +456,11 @@ class TrainJob:
             self._stacked_vars, loss = self.trainer.sync_round(
                 self._stacked_vars, *staged, lr=req.lr, epoch=epoch,
                 worker_mask=worker_mask,
-                rng=fold_in(epoch_seed, rb.round_index))
+                rng=fold_in(epoch_seed, rb.round_index),
+                data_bearing=data_bearing)
             self._publish()
+            self.heartbeat = time.time()
+            self.heartbeat_cold = False
             # host wall time of the round's dispatch (the card runs behind)
             self._last_round_times.append(time.time() - t_round)
             if self.trainer.last_round_stats is not None:
@@ -409,11 +513,23 @@ class TrainJob:
                     max(self._last_round_times) / med)
 
     def _validate(self, dataset: KubeDataset, handle):
+        """(accuracy, loss) over the test split; stamps ``heartbeat`` at
+        every evaluated round, so a sweep longer than the function timeout
+        is no stall."""
+        self.heartbeat = time.time()
         dataset.set_mode(False)
-        loader = validation_loader(handle, self.parallelism,
-                                   self.request.batch_size,
-                                   transform=dataset.transform)
-        acc, loss = self.trainer.evaluate_rounds(self._stacked_vars, loader)
+        loader = validation_loader(
+            handle, self.parallelism, self.request.batch_size,
+            transform=dataset.transform,
+            worker_rows=self.trainer.local_rows(self.parallelism))
+
+        def stamping(rounds):
+            for rb in rounds:
+                self.heartbeat = time.time()
+                yield rb
+
+        acc, loss = self.trainer.evaluate_rounds(self._stacked_vars,
+                                                 stamping(loader))
         dataset.set_mode(True)
         return acc, loss
 
@@ -436,12 +552,17 @@ class TrainJob:
         """The periodic checkpoint: the host copy of this epoch's weights
         is taken here (training goes on updating the replicas in place);
         the write and the retention prune run on a background thread, at
-        most one in flight. A failure is logged, not raised."""
+        most one in flight. A failure is logged, not raised. Over ranks
+        the leader alone writes, and keeps the weights for ``infer``."""
+        self.heartbeat = time.time()
+        if not self._leader:
+            return
         try:
             self._join_checkpoint()
-            variables = to_flax_variables(
-                self.trainer.reference_variables(self._stacked_vars),
-                self.model.module)
+            host = self.trainer.reference_variables(self._stacked_vars)
+            if self._multi:
+                self._latest_snapshot = (host, epoch)
+            variables = to_flax_variables(host, self.model.module)
             meta = self._checkpoint_meta()
 
             def write():
@@ -465,9 +586,9 @@ class TrainJob:
         """A preempted job's resume checkpoint: the current weights under
         the last completed epoch's tag, written before the job returns
         (the atomic publish leaves the old or the new file, never a torn
-        one). Nothing completed: nothing to write."""
+        one). Nothing completed: nothing to write. The leader's only."""
         completed = len(self.history.train_loss)
-        if completed <= 0:
+        if completed <= 0 or not self._leader:
             return
         try:
             self.checkpoint_store.save(
@@ -481,13 +602,29 @@ class TrainJob:
     def _restore_latest(self) -> int:
         """Restore the newest checkpoint onto every worker with its
         history; returns the epoch to go on from (0: nothing to
-        restore)."""
+        restore). Over ranks the leader picks it and broadcasts its tag,
+        and every rank reads that checkpoint (the store must be shared; a
+        rank that lacks the file fails here)."""
         from .resume import extend_history, select_resume_checkpoint
 
-        best = select_resume_checkpoint(self.checkpoint_store, self.job_id)
-        if best is None:
-            return 0
-        start_epoch, ck = best
+        if self._multi:
+            sel = None
+            if self._leader:
+                best = select_resume_checkpoint(self.checkpoint_store,
+                                                self.job_id)
+                if best is not None:
+                    sel = {"epoch": best[0], "tag": best[1].tag}
+            sel = self.dist.broadcast_obj(sel)
+            if sel is None:
+                return 0
+            start_epoch = int(sel["epoch"])
+            ck = self.checkpoint_store.restore(self.job_id, tag=sel["tag"])
+        else:
+            best = select_resume_checkpoint(self.checkpoint_store,
+                                            self.job_id)
+            if best is None:
+                return 0
+            start_epoch, ck = best
         self._stacked_vars = self.trainer.place_reference(
             from_flax_variables(ck.variables, self.model.module),
             self.parallelism)
@@ -530,21 +667,73 @@ class TrainJob:
         """The model's ``infer`` on the merged weights of the last
         completed round (of the init or restore before the first): the
         replicas change in place inside a round, so a call from another
-        thread reads the copy published at the round's edge."""
-        published = self._published
-        if published is None:
-            raise KubeMLError(f"job {self.job_id} has no model yet", 400)
-        return self.trainer.infer_replica(published, x)
+        thread reads the copy published at the round's edge. Over ranks,
+        the newest checkpoint's weights (see :meth:`_serving_weights`)."""
+        return self.trainer.infer_replica(self._serving_weights(), x)
 
     def generate(self, req) -> dict:
         """Serve a ``GenerateRequest`` from the live model (JAX :909-930):
-        the one-shot dense ``generate_from_request`` on the same published
-        replica-0 weights :meth:`infer` reads."""
-        published = self._published
-        if published is None:
+        the one-shot dense ``generate_from_request`` on the weights
+        :meth:`infer` reads."""
+        return self.trainer.generate_replica(
+            self._serving_weights("generation needs one"), req)
+
+    def _serving_weights(self, detail: Optional[str] = None):
+        """The weights live serving reads: on one rank the published
+        replica 0; over ranks (JAX :932-984) the final weights once the
+        job finished, else the leader's newest checkpoint, from memory or
+        from the store (serving the live replicas would need the other
+        ranks, which are inside the round loop), and a 409 before the
+        first, whose text ends with ``detail`` where given."""
+        if not self._multi:
+            published = self._published
+            if published is None:
+                raise KubeMLError(f"job {self.job_id} has no model yet", 400)
+            return published
+        if self._stacked_vars is None:
             raise KubeMLError(f"job {self.job_id} has no model yet", 400)
-        return self.trainer.generate_replica(published, req)
+        if self._final_variables is not None:
+            host = self._final_variables
+        else:
+            snap = self._latest_snapshot or self._restore_serving_snapshot()
+            if snap is None:
+                every = self.request.options.checkpoint_every
+                detail = detail or (
+                    f"retry after the first checkpoint (checkpoint_every="
+                    f"{every})" if every > 0 else
+                    "it runs without checkpoints (checkpoint_every=0), so "
+                    "inference is available once it finishes")
+                raise KubeMLError(
+                    f"job {self.job_id} is training multi-host and has no "
+                    f"checkpoint yet; {detail}", 409)
+            host = snap[0]
+        return {c: {k: torch.as_tensor(v).to(self.trainer.device)
+                    for k, v in leaves.items()} for c, leaves in host.items()}
+
+    def _restore_serving_snapshot(self):
+        """The newest epoch checkpoint off the store, for serving during
+        training after a restart (the leader's only); None without one."""
+        if not self._leader:
+            return None
+        from .resume import select_resume_checkpoint
+
+        try:
+            best = select_resume_checkpoint(self.checkpoint_store,
+                                            self.job_id)
+            if best is None:
+                return None
+            ck = best[1]
+            host = from_flax_variables(ck.variables, self.model.module)
+            # a snapshot the training thread took meanwhile is newer
+            if self._latest_snapshot is None:
+                self._latest_snapshot = (host, ck.epoch)
+            return self._latest_snapshot
+        except Exception:
+            log.exception("%s: serving-snapshot restore failed", self.job_id)
+            return None
 
     def _publish(self) -> None:
-        """Publish replica 0 of the (merged) replicas for ``infer``."""
-        self._published = self.trainer.snapshot(self._stacked_vars)
+        """Publish replica 0 of the (merged) replicas for ``infer`` (one
+        rank: over ranks infer serves checkpoints)."""
+        if not self._multi:
+            self._published = self.trainer.snapshot(self._stacked_vars)

@@ -29,6 +29,35 @@ take part are not run: they add nothing to the average or the loss.
 ``sync_round`` updates the stacked variables in place (the JAX engine
 donates them) and returns them with the round's loss as a 0-d tensor on
 the device; reading it waits for the round.
+
+**Over ranks** (``dist``, a ``parallel.distributed.DistContext`` of P
+ranks; JAX :145-226, 239-371, 827-899): one rank stands for one JAX
+process with one device. The global worker axis of N workers splits into
+P contiguous blocks (:func:`worker_mesh`, :meth:`KAvgTrainer.local_rows`):
+rank r holds rows ``local_worker_rows(N, r, P)``, so its stacked variables
+and its slabs have N / P leading rows, while every method takes the
+global N and ``worker_mask`` stays the global ``[N]`` host array. A round
+is still one global round:
+
+* the participants are ``worker_mask * data_bearing`` over all N workers
+  (the job passes the plan's ``data_bearing``; without it the ranks sum
+  their local flags), so the early returns (no healthy worker, no
+  participant) are taken on every rank alike and no rank waits alone in
+  a collective;
+* each rank sums its participants' weighted replicas in f32 into one flat
+  buffer that also holds every worker's loss at its global index; one
+  all-reduce (SUM, span ``kubeml::kavg_merge``) gives every rank the
+  global sums, which it divides by the global denominator and casts back,
+  so every rank ends bit-equal to every other; the round loss and the
+  loss spread read the global losses;
+* the pre-merge divergence is measured against the merged mean, so with
+  round statistics on its numerator is a second all-reduce of one number
+  (``kubeml::kavg_stats``);
+* dropout seeds take the global worker index;
+* evaluation sums each rank's rows and all-reduces the three sums once.
+
+``resize``, ``reference_variables`` and ``snapshot`` need no collective:
+after a merge each rank's row 0 is the global replica 0.
 """
 
 from __future__ import annotations
@@ -37,8 +66,9 @@ import copy
 import math
 import threading
 from collections import deque
+from dataclasses import dataclass
 from types import SimpleNamespace
-from typing import Callable, Iterable, List, Optional, Tuple, Union
+from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -46,6 +76,8 @@ import torch
 from ..api.config import get_config
 from ..api.errors import MergeError
 from ..models.layers import fold_in, seed_of, takes_rng
+from ..parallel import distributed
+from ..parallel.collectives import _all_reduce, _span
 from ..runtime.model import KubeModel, Variables, bind
 from ..utils.device import resolve_device
 
@@ -63,38 +95,87 @@ def _leaves(tree: Variables) -> List[torch.Tensor]:
     return [v for leaves in tree.values() for v in leaves.values()]
 
 
+@dataclass(frozen=True)
+class RankDevice:
+    """The device of rank ``process_index`` (one card a rank), as JAX's
+    device list carries each device's process."""
+
+    process_index: int
+
+
+def worker_mesh(n_workers: int, devices: Optional[List[RankDevice]] = None,
+                n_procs: int = 1) -> List[RankDevice]:
+    """The devices the 1-D ``worker`` axis spans (JAX :48): the largest
+    count that divides N, process-major so that each rank feeds a
+    contiguous block of worker rows, every rank an equal block. With one
+    card a rank, the default ``devices`` are every rank's."""
+    if devices is None:
+        devices = [RankDevice(r) for r in range(distributed.process_count())]
+    return distributed.pick_worker_devices(n_workers, devices, n_procs)
+
+
+def _weighted_sums(tree: Variables, weights: np.ndarray,
+                   extra: int = 0) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """``sum_w weights[w] * leaf[w]`` over the leading worker axis of every
+    leaf, in f32, in one flat buffer of ``extra`` more zeros: (the buffer,
+    a view of it shaped like one replica for each leaf). Summed with
+    multi-tensor (``_foreach``) kernels, one pass per contributing
+    worker."""
+    leaves = _leaves(tree)
+    sizes = [v[0].numel() for v in leaves]
+    flat = torch.zeros(sum(sizes) + extra, device=leaves[0].device)
+    views = _views(flat, leaves)
+    for w in np.flatnonzero(weights):
+        torch._foreach_add_(views, [v[int(w)].float() for v in leaves],
+                            alpha=float(weights[w]))
+    return flat, views
+
+
+def _views(flat: torch.Tensor, leaves: List[torch.Tensor]
+           ) -> List[torch.Tensor]:
+    """Views of ``flat``, in order, shaped like one replica of each
+    leaf."""
+    out, at = [], 0
+    for v in leaves:
+        n = v[0].numel()
+        out.append(flat[at:at + n].view(v.shape[1:]))
+        at += n
+    return out
+
+
+def _means(tree: Variables, sums: List[torch.Tensor], denom: float
+           ) -> Variables:
+    """Each leaf's mean from its f32 sum: divided by ``denom`` and cast
+    back to the leaf's dtype, integer leaves rounded."""
+    leaves = _leaves(tree)
+    floats = [i for i, v in enumerate(leaves) if v.is_floating_point()]
+    out = {}
+    if floats:
+        for i, m in zip(floats, torch._foreach_div([sums[i] for i in floats],
+                                                   denom)):
+            out[id(leaves[i])] = m.to(leaves[i].dtype)
+    for i, v in enumerate(leaves):
+        if not v.is_floating_point():
+            out[id(v)] = (sums[i] / denom).round().to(v.dtype)
+    return _tree_map(lambda leaf: out[id(leaf)], tree)
+
+
 def _mean_over_workers(tree: Variables, weights: np.ndarray) -> Variables:
     """Mask-weighted mean over the leading worker axis of every leaf:
     ``sum_w weights[w] * leaf[w] / max(sum(weights), 1)`` in f32, cast back
     to the leaf's dtype; integer leaves are rounded. ``weights`` is the
-    host's ``[N]`` float array. Float leaves are reduced together with
-    multi-tensor (``_foreach``) kernels, one pass per contributing
-    worker."""
+    host's ``[N]`` float array."""
     weights = np.asarray(weights, np.float32)
-    denom = max(float(weights.sum()), 1.0)
-    rows = [(int(w), float(weights[w])) for w in np.flatnonzero(weights)]
-    floats = [v for v in _leaves(tree) if v.is_floating_point()]
-    means = {}
-    if floats:
-        if rows:
-            w0, a0 = rows[0]
-            acc = torch._foreach_mul([v[w0].float() for v in floats], a0)
-            for w, a in rows[1:]:
-                torch._foreach_add_(acc, [v[w].float() for v in floats],
-                                    alpha=a)
-            torch._foreach_div_(acc, denom)
-        else:
-            acc = [torch.zeros(v.shape[1:], device=v.device) for v in floats]
-        means = {id(v): m.to(v.dtype) for v, m in zip(floats, acc)}
+    _, sums = _weighted_sums(tree, weights)
+    return _means(tree, sums, max(float(weights.sum()), 1.0))
 
-    def avg(leaf: torch.Tensor) -> torch.Tensor:
-        if leaf.is_floating_point():
-            return means[id(leaf)]
-        w = torch.from_numpy(weights).to(leaf.device, non_blocking=True)
-        w = w.reshape((-1,) + (1,) * (leaf.ndim - 1))
-        return ((leaf.float() * w).sum(0) / denom).round().to(leaf.dtype)
 
-    return _tree_map(avg, tree)
+def _sum_over_ranks(t: torch.Tensor, span: str) -> torch.Tensor:
+    """``t`` summed over every rank (an all-reduce over the world),
+    traced as ``span`` (under gloo the card's queue drains before it
+    opens, as ``parallel.collectives`` traces its operations)."""
+    with _span(span, t):
+        return _all_reduce(t, None)
 
 
 def _broadcast_to_workers(tree: Variables, n: int) -> Variables:
@@ -147,18 +228,40 @@ class RoundPrefetcher:
 
 
 class KAvgTrainer:
-    """K-AVG sync rounds of one model on one device.
+    """K-AVG sync rounds of one model on one device, or over ranks.
 
-    ``device`` defaults to the current CUDA card and raises without one
-    (``resolve_device``); the CPU runs only when asked for. ``precision``
-    "bf16" casts float inputs to bf16 before ``model.preprocess`` (uint8
-    stays uint8); the model's own ``dtype`` sets its compute precision."""
+    ``device`` defaults to the current CUDA card (over ranks, the rank's
+    device) and raises without one (``resolve_device``); the CPU runs
+    only when asked for. ``precision`` "bf16" casts float inputs to bf16
+    before ``model.preprocess`` (uint8 stays uint8); the model's own
+    ``dtype`` sets its compute precision. ``mesh_shape``'s ``{"worker":
+    d}`` caps the devices the worker axis may span, as in JAX; its other
+    axes do not concern K-AVG. ``dist`` (a ``DistContext``; by default the
+    process's when it runs over several ranks) runs the rounds over ranks
+    (see the module docstring)."""
 
     def __init__(self, model: KubeModel, precision: str = "bf16",
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 mesh_shape: Optional[Dict[str, int]] = None, dist=None):
+        if dist is None and distributed.process_count() > 1:
+            dist = distributed.get_dist_context()
+        self.dist = dist
+        self.world = dist.size if dist is not None else 1
+        self.rank = dist.rank if dist is not None else 0
+        self._multi = self.world > 1
+        if self._multi and device is None:
+            device = distributed.local_device()
         self.model = model
         self.precision = precision
         self.device = resolve_device(device)
+        self.devices = [RankDevice(r) for r in range(self.world)]
+        if mesh_shape and "worker" in mesh_shape:
+            cap = mesh_shape["worker"]
+            if not isinstance(cap, int) or cap < 1:
+                raise ValueError(f"mesh_shape['worker'] must be a positive "
+                                 f"int, got {cap!r}")
+            self.devices = self.devices[:cap]
+        self._meshes: Dict[int, List[RankDevice]] = {}
         # per-round [worker-loss spread, pre-merge weight divergence]
         # (KUBEML_ROUND_STATS), a device tensor read at the epoch's end
         self.round_stats = get_config().round_stats
@@ -186,6 +289,28 @@ class KAvgTrainer:
         if self._module is None:
             self._module = self.model.module.to(self.device)
         return self._module
+
+    # --- the worker axis ---
+
+    def mesh_for(self, n_workers: int) -> List[RankDevice]:
+        """The devices the ``n_workers`` workers span (JAX :212); raises
+        JAX's errors where the world cannot split them (a ``worker`` cap
+        below the world, N not a multiple of the ranks)."""
+        if n_workers not in self._meshes:
+            self._meshes[n_workers] = worker_mesh(n_workers, self.devices,
+                                                  self.world)
+        return self._meshes[n_workers]
+
+    def local_rows(self, n_workers: int) -> Tuple[int, int]:
+        """[start, end) block of the ``n_workers`` worker rows this rank
+        feeds and holds (JAX :218): all of them on one rank."""
+        self.mesh_for(n_workers)
+        return distributed.local_worker_rows(n_workers, self.rank,
+                                             self.world)
+
+    def _local_count(self, n_workers: int) -> int:
+        start, end = self.local_rows(n_workers)
+        return end - start
 
     # --- staging ---
 
@@ -245,17 +370,20 @@ class KAvgTrainer:
 
     def place_reference(self, variables, n_workers: int) -> Variables:
         """Broadcast one replica (tensors or numpy arrays, e.g. from
-        ``interop.from_flax.from_flax_variables``) across ``n_workers``
-        rows on the device: the inverse of :meth:`reference_variables`."""
+        ``interop.from_flax.from_flax_variables``) across this rank's rows
+        of ``n_workers`` on the device: the inverse of
+        :meth:`reference_variables`. Over ranks every rank must pass the
+        same replica."""
         one = _tree_map(lambda v: torch.as_tensor(v).to(self.device),
                         variables)
-        return _broadcast_to_workers(one, n_workers)
+        return _broadcast_to_workers(one, self._local_count(n_workers))
 
     def init_variables(self, generator: Union[torch.Generator, int],
                        sample_x, n_workers: int) -> Variables:
         """Initialise one replica from ``generator`` (or an integer seed)
-        on the CPU, so the weights do not depend on the device, and
-        broadcast it across the worker axis on the device."""
+        on the CPU, so the weights do not depend on the device (nor on the
+        rank: every rank draws the same), and broadcast it across this
+        rank's rows of the worker axis on the device."""
         if not isinstance(generator, torch.Generator):
             generator = torch.Generator().manual_seed(int(generator))
         return self.place_reference(self.model.init(generator, sample_x),
@@ -264,10 +392,12 @@ class KAvgTrainer:
     def resize(self, stacked_vars: Variables, old_n: int, new_n: int
                ) -> Variables:
         """Elastic resize between epochs: replicas are identical after a
-        sync, so replica 0 is broadcast to ``new_n`` rows."""
+        sync, so replica 0 is broadcast to this rank's rows of ``new_n``
+        (no collective over ranks: every rank holds replica 0)."""
         if old_n == new_n:
             return stacked_vars
-        return _broadcast_to_workers(self._replica0(stacked_vars), new_n)
+        return _broadcast_to_workers(self._replica0(stacked_vars),
+                                     self._local_count(new_n))
 
     def reference_variables(self, stacked_vars: Variables):
         """Replica 0 of the (post-sync) variables as numpy arrays: the
@@ -286,32 +416,43 @@ class KAvgTrainer:
     def sync_round(self, stacked_vars: Variables, batch_x, batch_y, mask,
                    lr: float, epoch: int = 0,
                    worker_mask: Optional[np.ndarray] = None,
-                   rng: Union[int, torch.Generator, None] = None
+                   rng: Union[int, torch.Generator, None] = None,
+                   data_bearing: Optional[np.ndarray] = None
                    ) -> Tuple[Variables, torch.Tensor]:
         """Run one K-step-and-average round. Returns (stacked variables,
         updated in place; mean loss as a 0-d device tensor).
 
-        ``worker_mask`` (float [N], 1.0 = healthy) leaves failed workers
-        out of the average and the loss; with no healthy worker the round
-        raises :class:`MergeError`.
+        ``worker_mask`` (float [N] over the global worker axis, 1.0 =
+        healthy) leaves failed workers out of the average and the loss;
+        with no healthy worker the round raises :class:`MergeError`.
+        ``data_bearing`` (bool [N], the plan's) names the workers that
+        hold data this round; without it, it is read from the mask (over
+        ranks: each rank's flags summed over the ranks).
 
         ``rng`` (an int seed or a ``torch.Generator``; the JAX round's
         dropout key) seeds the dropout of a module whose forward takes a
         generator: worker w's step s draws from one generator on the
         trainer's device seeded with ``fold_in(fold_in(seed_of(rng), w),
-        s)`` (``models.layers.fold_in``), the counterpart of JAX's
-        ``fold_in(split(rng, N)[w], s)``. The masks are not JAX's, but the
-        same seed draws the same masks, workers and steps draw different
-        ones, and a worker that does not take part draws nothing. Without
-        ``rng`` no generator is passed."""
+        s)`` (``models.layers.fold_in``; w the global worker index), the
+        counterpart of JAX's ``fold_in(split(rng, N)[w], s)``. The masks
+        are not JAX's, but the same seed draws the same masks, workers and
+        steps draw different ones, and a worker that does not take part
+        draws nothing. Without ``rng`` no generator is passed."""
         n, steps = batch_x.shape[0], batch_x.shape[1]
-        wm = (np.ones(n, np.float32) if worker_mask is None
+        start, total_n = self.rank * n, self.world * n
+        wm = (np.ones(total_n, np.float32) if worker_mask is None
               else np.asarray(worker_mask, np.float32))
+        if wm.shape != (total_n,):
+            raise ValueError(f"worker_mask holds {wm.shape} entries for "
+                             f"{total_n} workers")
         if float(wm.sum()) == 0.0:
             raise MergeError("no healthy workers responded in this sync round")
         x, y, m, m_host = self._on_device(batch_x, batch_y, mask)
-        valid = m_host.reshape(n, steps, -1).sum(-1) > 0  # [N, steps]
-        weights = wm * valid.any(axis=1)  # healthy AND holding data
+        valid = m_host.reshape(n, steps, -1).sum(-1) > 0  # [n, steps]
+        # healthy AND holding data, over the global worker axis: every
+        # rank takes the same decisions from it
+        weights = wm * self._data_bearing(valid.any(axis=1), data_bearing,
+                                          start)
         self.model.lr, self.model.epoch = lr, epoch
         if float(weights.sum()) == 0.0:
             # no effective participant: the pre-round weights (replica 0)
@@ -321,11 +462,12 @@ class KAvgTrainer:
             self.last_round_stats = (torch.stack([nan, nan])
                                      if self.round_stats else None)
             return stacked_vars, nan
+        local = weights[start:start + n]
         x = self.model.preprocess(self._cast_input(x))
         module = self.module
         round_seed = (seed_of(rng) if rng is not None and takes_rng(module)
                       else None)
-        workers = [int(w) for w in np.flatnonzero(weights)]
+        workers = [int(w) for w in np.flatnonzero(local)]
         losses = []
         for w in workers:
             bind(module, _tree_map(lambda v: v[w], stacked_vars))
@@ -336,7 +478,7 @@ class KAvgTrainer:
                 kw = {}
                 if round_seed is not None:
                     kw["rng"] = self._generator.manual_seed(
-                        fold_in(fold_in(round_seed, w), s))
+                        fold_in(fold_in(round_seed, start + w), s))
                 logits = module(x[w, s], train=True, **kw)
                 pl = self.model.per_sample_loss(logits, y[w, s])
                 mb = m[w, s]
@@ -346,27 +488,60 @@ class KAvgTrainer:
                 opt.step()
                 total = total + loss.detach()
             losses.append(total / len(valid_steps))
-        worker_losses = torch.stack(losses)
+        # the merge: this rank's weighted sums and every worker's loss at
+        # its global index in one buffer, summed over the ranks at once
+        flat, sums = _weighted_sums(stacked_vars, local, extra=total_n)
+        at = flat.numel() - total_n
+        for w, loss in zip(workers, losses):
+            flat[at + start + w] = loss
+        if self._multi:
+            flat = _sum_over_ranks(flat, "kubeml::kavg_merge")
+            sums = _views(flat, _leaves(stacked_vars))
+        worker_losses = flat[at:]
+        denom = max(float(weights.sum()), 1.0)
+        part = [int(w) for w in np.flatnonzero(weights)]
         # weights are host numbers: no host-to-device copy, which would
         # wait for the round to finish on the card
-        mean_loss = torch.stack([l * float(weights[w]) for l, w in
-                                 zip(losses, workers)]).sum() / max(
-                                     float(weights.sum()), 1.0)
-        mean = _mean_over_workers(stacked_vars, weights)
+        mean_loss = torch.stack([worker_losses[w] * float(weights[w])
+                                 for w in part]).sum() / denom
+        mean = _means(stacked_vars, sums, denom)
         self.last_round_stats = (
-            self._round_stats(stacked_vars, mean, weights, workers,
-                              worker_losses) if self.round_stats else None)
+            self._round_stats(stacked_vars, mean, local, workers,
+                              torch.stack([worker_losses[w] for w in part]),
+                              denom) if self.round_stats else None)
         _assign_workers(stacked_vars, mean)
         return stacked_vars, mean_loss
 
-    @staticmethod
-    def _round_stats(stacked: Variables, mean: Variables, weights: np.ndarray,
-                     workers: List[int], worker_losses: torch.Tensor
+    def _data_bearing(self, local: np.ndarray, given: Optional[np.ndarray],
+                      start: int) -> np.ndarray:
+        """The global [N] data-bearing flags as floats: ``given``, checked
+        against this rank's own rows, or the local flags (summed over the
+        ranks when there are several)."""
+        if given is not None:
+            given = np.asarray(given, bool)
+            if not np.array_equal(given[start:start + len(local)], local):
+                raise ValueError(
+                    f"data_bearing {given.tolist()} disagrees with the mask "
+                    f"of rows [{start}, {start + len(local)})")
+            return given.astype(np.float32)
+        if not self._multi:
+            return local.astype(np.float32)
+        flags = torch.zeros(self.world * len(local), device=self.device)
+        flags[start:start + len(local)] = torch.from_numpy(
+            local.astype(np.float32)).to(self.device)
+        flags = _sum_over_ranks(flags, "kubeml::kavg_flags")
+        return (flags.cpu().numpy() > 0).astype(np.float32)
+
+    def _round_stats(self, stacked: Variables, mean: Variables,
+                     weights: np.ndarray, workers: List[int],
+                     worker_losses: torch.Tensor, denom: float
                      ) -> torch.Tensor:
         """[worker-loss spread, pre-merge weight divergence] over the
-        round's participants: max - min of their losses, and the
-        participant-weighted Frobenius norm of (replica - mean) over the
-        float leaves, relative to the mean's norm."""
+        round's participants (``worker_losses``: every rank's): max - min
+        of their losses, and the participant-weighted Frobenius norm of
+        (replica - mean) over the float leaves, relative to the mean's
+        norm. ``weights`` and ``workers`` are this rank's rows; over ranks
+        the divergence's numerator is summed over the ranks."""
         spread = worker_losses.max() - worker_losses.min()
         pairs = [(v, mv.float()) for v, mv in zip(_leaves(stacked),
                                                   _leaves(mean))
@@ -377,9 +552,10 @@ class KAvgTrainer:
             d = torch._foreach_sub([v[w].float() for v, _ in pairs], means)
             num = num + float(weights[w]) * torch.stack(
                 torch._foreach_norm(d)).pow(2).sum()
+        if self._multi:
+            num = _sum_over_ranks(num, "kubeml::kavg_stats")
         den = torch.stack(torch._foreach_norm(means)).pow(2).sum()
-        divergence = ((num / max(float(weights.sum()), 1.0)).sqrt()
-                      / den.sqrt().clamp_min(1e-12))
+        divergence = ((num / denom).sqrt() / den.sqrt().clamp_min(1e-12))
         return torch.stack([spread, divergence])
 
     # --- validation / inference ---
@@ -404,14 +580,17 @@ class KAvgTrainer:
     def evaluate(self, stacked_vars: Variables, batch_x, batch_y, mask
                  ) -> Tuple[float, float]:
         """Masked (accuracy, loss) of replica 0 over one ``[N, steps, B,
-        ...]`` validation slab, sample-weighted."""
+        ...]`` validation slab (this rank's rows of it over ranks),
+        sample-weighted."""
         return self.evaluate_rounds(
             stacked_vars, [SimpleNamespace(x=batch_x, y=batch_y, mask=mask)])
 
     def evaluate_rounds(self, stacked_vars: Variables, rounds
                         ) -> Tuple[float, float]:
         """Streamed evaluation: masked sums accumulated over an iterable
-        of RoundBatches (peak memory is one round)."""
+        of RoundBatches (peak memory is one round). Over ranks each rank
+        sums its own rows, and the three sums are summed over the ranks
+        (every rank must evaluate)."""
         variables = self._replica0(stacked_vars)
         csum = lsum = msum = 0.0
         for rb in rounds:
@@ -419,6 +598,11 @@ class KAvgTrainer:
             csum += float(c)
             lsum += float(l)
             msum += float(m)
+        if self._multi:
+            sums = torch.tensor([csum, lsum, msum], dtype=torch.float64,
+                                device=self.device)
+            csum, lsum, msum = _sum_over_ranks(
+                sums, "kubeml::kavg_eval").cpu().tolist()
         denom = max(msum, 1.0)
         return csum / denom, lsum / denom
 

@@ -21,8 +21,9 @@ The training lifecycle:
   are not live), :meth:`get_task`, :meth:`wait`, :meth:`prune_tasks`,
   :meth:`stop_running_jobs` (shutdown: journals kept for the next boot);
 * :meth:`infer` on a live job answers from the job's merged weights of
-  its last completed round (``TrainJob.infer``; an SPMD job answers
-  between its steps, and with 409 while it trains over ranks).
+  its last completed round (``TrainJob.infer``; over ranks from its
+  newest checkpoint, a 409 before the first; an SPMD job answers between
+  its steps, and with 409 while it trains over ranks).
 
 Over ranks (``dist``, a ``DistContext`` of several ranks; JAX :173-230,
 583-667) the server runs on rank 0 and every other rank runs

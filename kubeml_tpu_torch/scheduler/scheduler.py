@@ -7,9 +7,8 @@ running job queues an epoch-end re-evaluation and blocks until the loop's
 answer reaches it through the PS (``ParameterServer.update_task``).
 
 A request the cluster cannot run (``TrainOptions.check_ported`` over the
-parameter server's ranks: an SPMD mesh that does not divide them, a
-K-AVG job over several ranks, multi-card K-AVG being a later item of the
-port) is refused with a 400 at submission. A preempted job is requeued
+parameter server's ranks: an SPMD mesh that does not divide them) is
+refused with a 400 at submission. A preempted job is requeued
 at once with
 ``resume=True`` (the preemption monitor, which would park it until
 serving pressure clears, is not ported).

@@ -281,18 +281,19 @@ def test_stacked_leaves_cross_the_converters():
 def test_meshes_take_pp_and_refuse_ep():
     """A pp axis, and an ep axis (MoE expert sharding) beside it, need the
     process group as every axis does, and an SPMD job takes both on a
-    cluster they fit; ep is refused where it still stands: a cluster it
-    does not fit, and a K-AVG job (multi-card K-AVG, item 1.5)."""
+    cluster they fit; ep is refused where it still stands, a cluster it
+    does not fit, and a K-AVG job takes it (K-AVG reads only the worker
+    axis, as in JAX)."""
     for axes in ({"pp": 2}, {"pp": 2, "ep": 2}):
         with pytest.raises(RuntimeError, match="init_distributed"):
             make_mesh(axes, devices=["cpu"] * 2 ** len(axes))
     TrainOptions(engine="spmd", mesh_shape={"pp": 2, "tp": 2}).check_ported(4)
     TrainOptions(engine="spmd", mesh_shape={"ep": 2}).check_ported(2)
     TrainOptions(engine="spmd", mesh_shape={"pp": 2, "ep": 2}).check_ported(4)
+    TrainOptions(mesh_shape={"ep": 2}).check_ported(1)
     for opts, world, words in (
             (TrainOptions(engine="spmd", mesh_shape={"ep": 2}), 1,
-             "does not fit a cluster of 1"),
-            (TrainOptions(mesh_shape={"ep": 2}), 1, "item 1.5")):
+             "does not fit a cluster of 1"),):
         with pytest.raises(KubeMLError, match=words) as e:
             opts.check_ported(world)
         assert e.value.status_code == 400

@@ -366,9 +366,9 @@ def test_follower_ends_when_the_leader_dies(tmp_path):
 
 def test_check_ported_takes_the_cluster_world():
     """The boundary: a mesh that divides the world runs, a pp axis (the
-    pipeline) and an ep axis (MoE expert sharding) included; a mesh that
-    does not fit and a K-AVG job over ranks are refused, the K-AVG cases
-    naming their item."""
+    pipeline) and an ep axis (MoE expert sharding) included, and so does a
+    K-AVG job on any world with any mesh_shape (JAX's K-AVG reads only the
+    worker axis); an SPMD mesh that does not fit is refused."""
     TrainOptions(engine="spmd", mesh_shape={"tp": 2}).check_ported(2)
     TrainOptions(engine="spmd", mesh_shape={"sp": 2, "tp": 2}).check_ported(8)
     TrainOptions(engine="spmd", mesh_shape={"pp": 2}).check_ported(2)
@@ -378,14 +378,15 @@ def test_check_ported_takes_the_cluster_world():
                                             "tp": 2}).check_ported(8)
     TrainOptions(engine="spmd").check_ported(4)
     TrainOptions(k=4).check_ported(1)
+    TrainOptions(k=4).check_ported(2)
+    TrainOptions(mesh_shape={"dp": 2}).check_ported(1)
+    TrainOptions(mesh_shape={"worker": 1, "tp": 4}).check_ported(3)
     cases = [(TrainOptions(engine="spmd", mesh_shape={"tp": 2}), 3,
               "does not fit a cluster of 3"),
              (TrainOptions(engine="spmd", mesh_shape={"pp": 2}), 3,
               "does not fit a cluster of 3"),
              (TrainOptions(engine="spmd", mesh_shape={"ep": 2}), 3,
-              "does not fit a cluster of 3"),
-             (TrainOptions(k=4), 2, "item 1.5"),
-             (TrainOptions(mesh_shape={"dp": 2}), 1, "item 1.5")]
+              "does not fit a cluster of 3")]
     for opts, world, words in cases:
         with pytest.raises(KubeMLError, match=words) as e:
             opts.check_ported(world)

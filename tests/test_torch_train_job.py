@@ -153,26 +153,17 @@ def test_train_job_matches_jax(stores, tmp_config):
     {"sharded_checkpoints": True}, {"mesh_shape": {"dp": 2}}],
     ids=["spmd", "checkpoint_every", "resume", "sharded", "mesh"])
 def test_unported_options_raise(opts, tmp_path):
-    """Options whose modules the port lacks raise 400 (a mesh of several
-    cards); checkpoints, resume, the SPMD engine and sharded checkpoints
-    are ported now and construct a job."""
+    """Options whose modules the port once lacked construct a job now:
+    checkpoints, resume, the SPMD engine, sharded checkpoints, and a K-AVG
+    job's mesh_shape (K-AVG reads only the worker axis, as in JAX)."""
     req = _request(ttypes, **opts)
-
-    def make():
-        return TrainJob("job-x", req, TorchLeNet(),
-                        store=ShardStore(root=tmp_path / "d"),
-                        history_store=HistoryStore(root=tmp_path / "h"),
-                        checkpoint_store=CheckpointStore(
-                            root=tmp_path / "c"), device="cpu")
-
-    if set(opts) & {"checkpoint_every", "resume", "engine",
-                    "sharded_checkpoints"}:
-        req.options.check_ported()
-        assert make().request.options == req.options
-        return
-    with pytest.raises(KubeMLError, match="not ported") as e:
-        make()
-    assert e.value.status_code == 400
+    req.options.check_ported()
+    job = TrainJob("job-x", req, TorchLeNet(),
+                   store=ShardStore(root=tmp_path / "d"),
+                   history_store=HistoryStore(root=tmp_path / "h"),
+                   checkpoint_store=CheckpointStore(root=tmp_path / "c"),
+                   device="cpu")
+    assert job.request.options == req.options
     # the JAX package reads the same request
     assert jtypes.TrainRequest.from_json(req.to_json()).to_dict() == req.to_dict()
 
