@@ -6,7 +6,8 @@ with the dense slot engine, the one-shot speculative ``generate`` and the
 SPMD job with sharded checkpoints, multi-rank SPMD (two ranks on the
 card over gloo), the SPMD job over ranks through the control plane, the
 pipeline over ``pp`` ranks, MoE expert parallelism over ``ep`` ranks,
-meshed serving over two ranks, and K-AVG over two ranks.
+meshed serving over two ranks, K-AVG over two ranks, and standalone job
+runners with the preemption monitor.
 Run from the repo root::
 
     python3 chip_smoke.py
@@ -57,7 +58,7 @@ Phases, each reported on its own lines:
    through the int8 matmul and int8 KV pages; (c) ``spec="draft"`` with a
    random drafter (E 256, depth 2, 4 heads), adaptive k; (d)
    ``prefill_chunk_tokens=128``, alone and with (a); (e) sampled (a) and
-   (d), each run twice. Greedy tokens of a, c and d must equal the spec-off
+   (d) on the mix's first ``SPEC_E_N`` requests, each run twice. Greedy tokens of a, c and d must equal the spec-off
    monolithic engine's, except where the spec-off path's two largest
    logits at the first differing position lie within ``NEAR_TIE``; (a)
    must emit more than one token a row-step; (c) must floor k at 1 or trip
@@ -215,7 +216,7 @@ Phases, each reported on its own lines:
    attends over a dense cache on the plain path, int8 dequantized in each
    step); (c) phase 4's GPT-2-small weights served with
    ``serving_paged=False`` (the dense engine) through the parameter
-   server: f32 greedy tokens equal to phase 4's paged engine and int8
+   server, on the mix's first ``DENSE_N`` requests: f32 greedy tokens equal to phase 4's paged engine and int8
    (``serving_quantize=int8``, the int8 matmul) tokens equal to a paged
    engine with the same int8 weights and f32 pages, near ties as in
    phase 6; under int8, ``int8_matmul`` launches 73 times a forward and
@@ -373,8 +374,9 @@ Phases, each reported on its own lines:
    runs the dense ``BatchingDecoder`` over ``serving_mesh({"tp": 2})``
    with GPT-2-small at full width and depth (seeded weights) and phase
    3's 16-request mix (``SM_SAMPLED``'s requests of it sampled with
-   ``SAMPLE``, the others greedy), rank 1 follows it (``serve_follower``),
-   in f32 and in int8 through the int8 matmul: greedy tokens equal to one
+   ``SAMPLE``, the others greedy; the f32 mix its first ``SM_F32_N``
+   requests), rank 1 follows it (``serve_follower``), in f32 and in int8
+   through the int8 matmul: greedy tokens equal to one
    rank's dense decoder but for near ties (``NEAR_TIE``), sampled tokens
    equal,
    each rank's launches
@@ -416,7 +418,44 @@ Phases, each reported on its own lines:
    ``MR_LOSS_ATOL`` of a one-rank job fed the same trace; checkpoints
    ep00000-ep00002 and final; the final served by the parameter server
    equals the job's own ``infer``; no hand-written kernel launches;
-23. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+23. standalone runners and preemption - one ``LocalCluster`` with
+   ``standalone_jobs`` and the preemption monitor (JAX's burst thresholds:
+   interval 0.2 s, queue depth 3, 429/s 1.0, sustain 2, resume sustain 5,
+   cooldown 10 s; 2 serving slots, queue limit 6). (a) phase 22b's
+   ResNet-18 function on the banded set, 3 epochs at parallelism 2,
+   first threaded in this process (the native library built and every
+   round packed by ``kml_pack``: no fallback counted; each epoch's weights
+   through the three KMW1 codecs: payload bytes and encode ms, raw and
+   delta decoded bit-equal, delta-int8 within the int8 step's half), then
+   through ``/train`` in a runner process on the card, held at its second
+   epoch's first step (``SA_HOLD``): a live ``/infer`` of the first
+   epoch's publish through the PS's tensor socket and its KMW1 wire
+   (``tensor_sockets`` off; its tree bit-equal to the socket's), one
+   answer a route, and the runner's own JSON ``/infer``, equal
+   predictions; its first epoch's losses within ``SA_SAME_RTOL`` of the
+   threaded job's, no fallback in the runner's log, non-zero
+   ``kubeml_dataplane_bytes_total`` on ``/metrics``; spawn to
+   ``LISTENING`` (the PS's record) and ``/train`` to the first epoch; (c)
+   phase 12's ``final-int8`` GPT-2-small served by the same parameter
+   server (int8 weights through the int8 matmul, int8 KV pages) while the
+   held runner waits: phase 3's 16 requests at once (429s retried) preempt
+   it exactly once in its second epoch, it parks with 2 epochs in its
+   history, is requeued with ``resume=True`` once calm, and a new runner
+   restores ``ep00001`` and trains epoch 3, ending with the JAX package's
+   ``loss_parity`` against the threaded job; the burst's tokens equal
+   phase 12b's but for near ties (``INT8_NEAR_TIE``), both kernels
+   launch; overload to the preempt request, the yield histogram from
+   ``/metrics``, the time parked (the controller's parked ids polled) and
+   the burst's TTFT p50 before and after the reclaim; (b) phase 16b's
+   SPMD job at depth ``JR_DEPTH``, threaded and then inside a
+   ``JobRunner`` of this process through ``/start``: losses within
+   ``MR_SAME_TOL``, flash launches 4/2/2 (fwd/dQ/dK-dV) a step and 2 a
+   validation forward, the threaded job's counts, a ``/generate``
+   answered while steps remain (its launches those of the same request
+   on the threaded job's model); a second job
+   preempted through ``/preempt`` after its first epoch ends
+   ``preempted`` with a resume checkpoint;
+24. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Any failure raises and the script exits non-zero; without a CUDA device it
 exits non-zero before printing any result.
@@ -889,10 +928,11 @@ def workload(rng):
     return reqs
 
 
-def serve(dec, reqs, sample=False):
-    """Drive ``dec`` through the workload. First a calibration request (the
-    eos request's prompt, 16 tokens) picks the eos id as its 10th token;
-    then every request is submitted from its own thread, except that
+def serve(dec, reqs, sample=False, n=16):
+    """Drive ``dec`` through the workload (its first ``n`` requests). First
+    a calibration request (the eos request's prompt, 16 tokens) picks the
+    eos id as its 10th token; then every request is submitted from its own
+    thread, except that
     sharers 2-4 wait for sharer 1's first token (its prefill registers the
     shared pages). Greedy, or ``sample``d with ``SAMPLE``'s knobs and
     request i seeded 1000 + i (the calibration 1016): every request, or
@@ -909,7 +949,7 @@ def serve(dec, reqs, sample=False):
         prompts=[reqs[5]["prompt"].tolist()], max_new_tokens=16,
         **knobs(16))), timeout=600)
     eos = calib["tokens"][0][9]
-    results, entries, errors = [None] * 16, [None] * 16, []
+    results, entries, errors = [None] * n, [None] * n, []
     first_sharer = threading.Event()
 
     def client(i):
@@ -931,7 +971,7 @@ def serve(dec, reqs, sample=False):
 
     steps = time_steps(dec)
     t0 = time.monotonic()
-    threads = [threading.Thread(target=client, args=(i,)) for i in range(16)]
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
     for t in threads:
         t.start()
     for t in threads:
@@ -1204,6 +1244,9 @@ SAMPLE = dict(temperature=0.8, top_k=50)
 # scores k+1 positions in one forward and a chunk attends in query tiles:
 # the same f32 sums in other orders, ~1e-6 apart)
 NEAR_TIE = 1e-5
+# 6e's sampled repeats run the mix's first SPEC_E_N requests (cut from 16
+# to make room for phase 23)
+SPEC_E_N = 8
 # the long-prompt probe: 4 rows of 32-token prompts decode one token a step
 # while a 896-token prompt prefills, monolithic or in chunks
 ITL_SHORT, ITL_LONG, ITL_NEW = 32, 896, 160
@@ -1380,13 +1423,13 @@ def spec_phase(smi):
                     spec_adaptive=False)
     total = [0, 0]
 
-    def mode(tag, model, sample=False, **kw):
+    def mode(tag, model, sample=False, n=16, **kw):
         dec = PagedBatchingDecoder(model, **common, **kw)
         if dec.telemetry()["paged_attn_kernel"] != 1.0:
             raise AssertionError(f"{tag}: the engine does not read through "
                                  f"the kernel")
         paged_attention.launches = int8_matmul.launches = 0
-        run = serve(dec, reqs, sample)
+        run = serve(dec, reqs, sample, n=n)
         launches = (paged_attention.launches, int8_matmul.launches)
         dec.close()
         total[0] += launches[0]
@@ -1426,8 +1469,10 @@ def spec_phase(smi):
             raise AssertionError(f"{tag}: no prompt prefilled in chunks")
     for tag, kw in (("a", selfspec),
                     ("d", dict(prefill_chunk_tokens=PREFILL_CHUNK))):
-        e1, _ = mode(f"e sampled {tag}", target, sample=True, **kw)
-        e2, _ = mode(f"e sampled {tag}, again", target, sample=True, **kw)
+        e1, _ = mode(f"e sampled {tag}", target, sample=True, n=SPEC_E_N,
+                     **kw)
+        e2, _ = mode(f"e sampled {tag}, again", target, sample=True,
+                     n=SPEC_E_N, **kw)
         if token_lists(e1) != token_lists(e2):
             raise AssertionError(f"e: sampled {tag} did not reproduce")
         log(f"  e sampled {tag}: the repeat is token-identical "
@@ -2395,10 +2440,11 @@ def streamed(ps, job, req):
     return {"tokens": [toks], "lengths": [len(toks)]}, first
 
 
-def serve_ps(ps, job, reqs, eos):
+def serve_ps(ps, job, reqs, eos, n=16):
     """``serve``'s workload through ``ps.generate`` from threads, with the
     hand-built engine's eos id: the calibration request, streamed (its
-    first token is the fresh decoder's first), then the 16 requests,
+    first token is the fresh decoder's first), then the first ``n``
+    requests,
     request 0 streamed so that sharers 2-4 start once its first token
     landed. Returns ``serve``'s dict (timings from the decoder's
     telemetry) with the calibration's TTFT."""
@@ -2407,7 +2453,7 @@ def serve_ps(ps, job, reqs, eos):
     calib, calib_ttft = streamed(ps, job, GenerateRequest(
         prompts=[reqs[5]["prompt"].tolist()], max_new_tokens=16,
         stream=True))
-    results, errors = [None] * 16, []
+    results, errors = [None] * n, []
     first_sharer = threading.Event()
 
     def client(i):
@@ -2433,7 +2479,7 @@ def serve_ps(ps, job, reqs, eos):
             first_sharer.set()
 
     t0 = time.monotonic()
-    threads = [threading.Thread(target=client, args=(i,)) for i in range(16)]
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
     for t in threads:
         t.start()
     for t in threads:
@@ -3925,6 +3971,11 @@ def ab_row(engine, weights, tele, tokens_per_s):
             "weights": weights, **telemetry_row(tele, tokens_per_s)}
 
 
+# 15c serves the mix's first DENSE_N requests (cut from 16 to make room
+# for phase 23)
+DENSE_N = 8
+
+
 def dense_serve(smi, root, run):
     """15c: phase 4's GPT-2-small weights saved as ``final`` (and
     ``final-int8``) and served through ``ParameterServer.generate`` with
@@ -3966,7 +4017,7 @@ def dense_serve(smi, root, run):
     ps = ParameterServer(config=cfg)
     reset_kernel_counts()
     cold_serving(ps, DENSE_JOB)
-    drun = serve_ps(ps, DENSE_JOB, reqs, run["eos"])
+    drun = serve_ps(ps, DENSE_JOB, reqs, run["eos"], n=DENSE_N)
     f_launches = kernel_counts()
     if not isinstance(ps._decoders[DENSE_JOB][0], BatchingDecoder):
         raise AssertionError("15c f32: not served by the dense engine")
@@ -3990,7 +4041,7 @@ def dense_serve(smi, root, run):
     qref = PagedBatchingDecoder(gpt2_small(), quantize="int8",
                                 int8_matmul=True, **common)
     reset_kernel_counts()
-    qprun = serve(qref, reqs)
+    qprun = serve(qref, reqs, n=DENSE_N)
     report_serve("15c paged int8 weights, f32 pages", qprun)
     rows.append(ab_row("paged", "int8", qprun["tele"],
                        qprun["tokens_per_s"]))
@@ -3998,7 +4049,7 @@ def dense_serve(smi, root, run):
                                        int8_matmul=True))
     reset_kernel_counts()
     cold_serving(ps, DENSE_JOB)
-    qrun = serve_ps(ps, DENSE_JOB, reqs, qprun["eos"])
+    qrun = serve_ps(ps, DENSE_JOB, reqs, qprun["eos"], n=DENSE_N)
     q_launches = kernel_counts()
     qdec = ps._decoders[DENSE_JOB][0]
     forwards = int(qrun["tele"]["admission_waves"]
@@ -4034,7 +4085,7 @@ def dense_serve(smi, root, run):
             ("paged", lambda: PagedBatchingDecoder(gpt2_small(),
                                                    **common))):
         dec = build()
-        sampled[name] = serve(dec, reqs, sample=True)
+        sampled[name] = serve(dec, reqs, sample=True, n=DENSE_N)
         dec.close()
     a, b = token_lists(sampled["slot"]), token_lists(sampled["paged"])
     if a != b:
@@ -4646,7 +4697,7 @@ def mr_rank(rank, out_dir, cfg):
     init_distributed(backend="gloo", device="cuda")
     from kubeml_tpu_torch.ops import kernels
 
-    kernels.library(build=False)
+    kernels.library()
     res = dict(attn=mr_attention(rank, cfg), train=mr_train(rank, cfg))
     torch.save(res, Path(out_dir) / f"rank{rank}.pt")
 
@@ -5041,7 +5092,7 @@ def jr_rank(rank, out_dir, root, smi):
     init_distributed(backend="gloo", device="cuda")
     from kubeml_tpu_torch.ops import kernels
 
-    kernels.library(build=False)
+    kernels.library()
     records = []
     job_instrument(records)
     if rank == 0:
@@ -5509,7 +5560,7 @@ def pp_rank(rank, out_dir, root, smi):
     init_distributed(backend="gloo", device="cuda")
     from kubeml_tpu_torch.ops import kernels
 
-    kernels.library(build=False)
+    kernels.library()
     res = dict(lm=pp_lm_check(rank))
     records = []
     job_instrument(records, profiled=True)
@@ -6016,7 +6067,7 @@ def moe_ep_rank(rank, out_dir, root, smi):
     init_distributed(backend="gloo", device="cuda")
     from kubeml_tpu_torch.ops import kernels
 
-    kernels.library(build=False)
+    kernels.library()
     res = dict(train=moe_ep_train(rank))
     records = []
     job_instrument(records)
@@ -6224,6 +6275,9 @@ SM_MM_SHAPES = [(M, K, N) for M in (1, 8, 40)
 # 1000 + i): 3 in the first wave of 8 slots, 12 a sharer admitted after
 # request 0's first token, 9 and 15 queued until a slot frees mid-stream
 SM_SAMPLED = (3, 9, 12, 15)
+# 21b's f32 mix runs the mix's first SM_F32_N requests (the int8 mix all
+# 16): cut from 16 to make room for phase 23
+SM_F32_N = 8
 # 21c: the served requests a final, (rows, prompt tokens, new tokens), and
 # the serving meshes, each with the finals it serves (tp=4 needs more ranks
 # than the world holds: logged, served on one rank)
@@ -6368,7 +6422,7 @@ def sm_rank(rank, out_dir, root, smi):
     init_distributed(backend="gloo", device="cuda")
     from kubeml_tpu_torch.ops import kernels
 
-    kernels.library(build=False)
+    kernels.library()
     mesh = serving_mesh({"tp": 2})
     reqs = workload(np.random.default_rng(SEED))
     res = {}
@@ -6382,7 +6436,8 @@ def sm_rank(rank, out_dir, root, smi):
             comm = {}
             sm_comm(dec._shard, comm)
             comm["on"] = tag == "f32"
-            run = sm_summary(serve(dec, reqs, sample=SM_SAMPLED))
+            run = sm_summary(serve(dec, reqs, sample=SM_SAMPLED,
+                                   n=SM_F32_N if tag == "f32" else 16))
             comm["on"] = False
             res[tag] = dict(run=run, comm=comm, mesh=dict(dec.mesh.shape),
                             impl=dec.int8_matmul_impl if dec.int8_matmul
@@ -6438,8 +6493,9 @@ def serving_mesh_phase(smi, root, mm_rows):
                        ("int8", dict(quantize="int8", int8_matmul=True))):
         dec = BatchingDecoder(gpt2_small(), slots=SLOTS, chunk_steps=CHUNK,
                               device="cuda", **knobs)
-        one[tag] = dict(run=sm_summary(serve(dec, reqs,
-                                             sample=SM_SAMPLED)))
+        one[tag] = dict(run=sm_summary(serve(
+            dec, reqs, sample=SM_SAMPLED,
+            n=SM_F32_N if tag == "f32" else 16)))
         modules[tag] = dec.module
         dec.close()
     log(f"  21b one-rank references {time.monotonic() - t0:.1f} s")
@@ -6465,14 +6521,15 @@ def serving_mesh_phase(smi, root, mm_rows):
         # rows of token_lists: the calibration first, then request i at
         # i + 1; the sampled rows are held exactly, the greedy ones by
         # check_rows (the sampled ones given the reference's rows there)
-        rows = [i + 1 for i in SM_SAMPLED]
+        rows = [i + 1 for i in SM_SAMPLED if i + 1 < len(w["tokens"])]
         differ = [b - 1 for b in rows if g["tokens"][b] != w["tokens"][b]]
         if differ:
             bad.append(f"21b {tag}: sampled requests {differ} differ from "
                        f"one rank's")
         else:
-            log(f"  21b {tag} sampled ({SAMPLE}, requests {SM_SAMPLED} of "
-                f"the mix seeded 1000 + i): the same "
+            log(f"  21b {tag} sampled ({SAMPLE}, requests "
+                f"{[b - 1 for b in rows]} of the mix seeded 1000 + i): the "
+                f"same "
                 f"{sum(len(g['tokens'][b]) for b in rows)} tokens as one "
                 f"rank")
         got = [w["tokens"][b] if b in rows else t
@@ -6537,7 +6594,7 @@ def serving_mesh_phase(smi, root, mm_rows):
 # rank), against one rank's N 2; (b) 10c's ResNet-18 function as a K-AVG
 # job through /train, rank 0 the control plane and rank 1 a follower.
 KR_WORLD, KR_TIMEOUT_S = 2, 900.0
-KR_N, KR_ROUNDS = 4, 5
+KR_N, KR_ROUNDS = 4, 3
 # (a) f32 over the ranks: worker 2 (rank 1's first) masked
 KR_F32_MASK = (1.0, 1.0, 0.0, 1.0)
 # (b) the job: requested parallelism 3 (rounded to 2 over two ranks), the
@@ -6759,7 +6816,7 @@ def kr_rank(rank, out_dir, root):
     init_distributed(backend="gloo", device="cuda")
     from kubeml_tpu_torch.ops import kernels
 
-    kernels.library(build=False)
+    kernels.library()
     dist = get_dist_context()
     res = {}
     t0 = time.monotonic()
@@ -6951,6 +7008,634 @@ def kavg_ranks_phase(smi, root, row4):
     return tuple(sum(v["launches"][i] for v in vit) for i in range(3))
 
 
+# --- phase 23: standalone runners and preemption ---------------------------
+
+# 23a/23c: phase 22b's ResNet-18 function on the banded set (KR_TRAIN +
+# KR_TEST), 3 epochs at parallelism 2, in a runner process on the card;
+# the job holds its epoch SA_HOLD + 1's first step while the gate file
+# exists: the live /infer checks read epoch SA_HOLD's publish through every
+# route, and 23c's burst finds the job training (the gate opens once it is
+# preempted). The yield lands in epoch SA_HOLD + 1, so the resumed runner
+# trains the epochs after it
+SA_JOB, SA_EPOCHS, SA_HOLD = "kavg-standalone", 3, 1
+# the runner's epochs 1..SA_HOLD against the threaded job's, relative (the
+# same function, data, seed and card: tests/test_torch_standalone.py's 1e-6)
+SA_SAME_RTOL = 1e-6
+SA_PROBE = 64  # images a live /infer
+SA_FN = BANDS_FN + """
+
+import os
+import time
+
+
+class HeldBands(Bands):
+    def per_sample_loss(self, logits, y):
+        # hold the epoch's first step while the gate file exists
+        gate = os.environ.get("KUBEML_SMOKE_GATE", "")
+        while gate and self.epoch >= %d and os.path.exists(gate):
+            time.sleep(0.01)
+        return super().per_sample_loss(logits, y)
+
+
+def main():
+    return HeldBands()
+"""
+# 23c: the burst thresholds of the JAX package's colocation test
+# (tests/test_preemption.py:731-738)
+SA_PREEMPT = dict(preempt_monitor=True, preempt_interval=0.2,
+                  preempt_queue_depth=3, preempt_overload_rate=1.0,
+                  preempt_sustain=2, preempt_resume_sustain=5,
+                  preempt_cooldown=10.0, serving_slots=2,
+                  serving_queue_limit=6)
+# 23b: the flagship's SPMD job at depth JR_DEPTH inside a JobRunner of this
+# process; its losses against the same job run threaded, within MR_SAME_TOL
+RUNNER_LC_JOB, RUNNER_LC_PREEMPT = "lc-runner", "lc-runner-preempt"
+
+
+def sa_request(job, fn="bands"):
+    """23a/23c's request: phase 22b's (B 64, K 4, lr 0.05, bf16), 3 epochs
+    at a static parallelism of 2."""
+    from kubeml_tpu_torch.api.types import TrainOptions, TrainRequest
+
+    return TrainRequest(
+        model_type="resnet18", batch_size=64, epochs=SA_EPOCHS,
+        dataset="bands", lr=0.05, function_name=fn, job_id=job,
+        options=TrainOptions(default_parallelism=2, k=4, precision="bf16",
+                             goal_accuracy=101.0, static_parallelism=True))
+
+
+def loss_parity(base_losses, losses) -> tuple:
+    """The JAX package's rule (benchmarks/scenarios.py:758-770): the final
+    loss within the baseline's late wobble, floored at 0.05. Returns
+    (holds, delta, tolerance)."""
+    tol = (max(0.05, 3 * float(np.mean(np.abs(np.diff(base_losses[-5:])))))
+           if len(base_losses) >= 5 else 0.05)
+    delta = abs(float(losses[-1]) - float(base_losses[-1]))
+    return delta <= tol, delta, tol
+
+
+def flat_bits(tree, prefix=""):
+    """{path: (dtype, shape, bytes)} of a host tree (numpy leaves, bf16 as
+    torch tensors)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_bits(v, f"{prefix}{k}/"))
+        else:
+            a = (v.view(torch.int16).numpy() if isinstance(v, torch.Tensor)
+                 else np.asarray(v))
+            out[prefix + k] = (str(v.dtype), tuple(a.shape), a.tobytes())
+    return out
+
+
+def sa_codecs(trees):
+    """Each KMW1 codec over the threaded job's epoch weights: every
+    payload's bytes and encode ms, the decoded chain bit-equal to the
+    weights (raw, delta) or each leaf within the int8 step's half plus f32
+    rounding (delta-int8)."""
+    from kubeml_tpu_torch.engine.dataplane import (CODECS, DeltaDecoder,
+                                                   DeltaEncoder)
+
+    rows = {}
+    for codec in CODECS:
+        enc, dec, prev = DeltaEncoder(codec), DeltaDecoder(), None
+        sizes, ms, worst = [], [], 0.0
+        for e, tree in enumerate(trees, start=1):
+            t0 = time.perf_counter()
+            payload = enc.encode(tree, e)
+            ms.append(1e3 * (time.perf_counter() - t0))
+            sizes.append(len(payload))
+            got, _ = dec.decode(payload)
+            want, have = _flat(tree), _flat(got)
+            if codec != "delta-int8":
+                if flat_bits(got) != flat_bits(tree):
+                    raise AssertionError(f"23a {codec}: epoch {e} decodes "
+                                         f"to other weights")
+                continue
+            for k, w in want.items():
+                err = float(np.abs(have[k].astype(np.float64) - w).max())
+                step = (float(np.abs(w - prev[k]).max()) if prev is not None
+                        else 0.0)
+                bound = step / 254.0 * (1 + 1e-3) + 1e-6 * float(
+                    np.abs(w).max())
+                if not err <= bound:
+                    raise AssertionError(f"23a delta-int8: epoch {e} leaf "
+                                         f"{k} error {err:.3e} > {bound:.3e}")
+                worst = max(worst, err)
+            prev = have
+        rows[codec] = dict(bytes=sizes, ms=ms, worst=worst)
+    return rows
+
+
+def sa_root(root):
+    """Phase 23's data root: the banded set, the ResNet-18 functions (plain
+    and held), GPT-2-small's function and phase 12's finals (linked)."""
+    from kubeml_tpu_torch.functions.registry import FunctionRegistry
+    from kubeml_tpu_torch.storage import ShardStore
+
+    cfg = cp_config(Path(root) / "standalone")
+    cfg.ensure_dirs()
+    src = Path(root) / "checkpoints" / GPT2_JOB
+    if not src.is_dir():
+        raise AssertionError(f"23: phase 12's finals are gone ({src})")
+    (cfg.checkpoints_dir / GPT2_JOB).symlink_to(src)
+    reg = FunctionRegistry(config=cfg)
+    reg.create("bands", BANDS_FN % 64)
+    reg.create("bands-held", SA_FN % (64, SA_HOLD))
+    reg.create("gpt2", GPT2_FN % (VOCAB, MAX_LEN, SEED))
+    ShardStore(config=cfg).create("bands", *banded_images(KR_TRAIN, 2),
+                                  *banded_images(KR_TEST, 3))
+    return cfg.data_root
+
+
+def sa_threaded(data_root):
+    """23a's reference: the same request run threaded in this process, each
+    epoch's reference weights kept. Returns (history, weights by epoch)."""
+    from kubeml_tpu_torch.engine.job import TrainJob
+    from kubeml_tpu_torch.functions.registry import FunctionRegistry
+    from kubeml_tpu_torch.storage import (CheckpointStore, HistoryStore,
+                                          ShardStore)
+
+    cfg = cp_config(data_root)
+    trees = []
+    req = sa_request("sa-threaded")
+    model = FunctionRegistry(config=cfg).load("bands")
+    model._set_params(lr=req.lr, batch_size=req.batch_size, epoch=0,
+                      k=req.options.k, task="train")
+    job = TrainJob(req.job_id, req, model, store=ShardStore(config=cfg),
+                   history_store=HistoryStore(config=cfg),
+                   checkpoint_store=CheckpointStore(config=cfg),
+                   on_epoch_weights=lambda v, e: trees.append(v),
+                   device="cuda")
+    return job.train(), trees
+
+
+def runner_state(url):
+    from kubeml_tpu_torch.utils import http_client as http
+
+    return http.check(http.get(f"{url}/state", timeout=(5.0, 30.0)))
+
+
+def sa_wait(cond, what, limit=600.0):
+    deadline = time.monotonic() + limit
+    while time.monotonic() < deadline:
+        got = cond()
+        if got:
+            return got
+        time.sleep(0.02)
+    raise AssertionError(f"23: no {what} within {limit} s")
+
+
+def sa_record(cluster, jid):
+    """The job's PS record once its runner took the task."""
+    def rec():
+        with cluster.ps._lock:
+            r = cluster.ps._jobs.get(jid)
+        return r if r is not None and r.url is not None and \
+            r.task.status == "running" else None
+
+    return sa_wait(rec, f"runner for {jid}")
+
+
+def sa_done(cluster, jid, epochs):
+    """The history of ``jid`` once it holds ``epochs`` epochs and no record,
+    queue entry or park holds the job."""
+    def done():
+        with cluster.ps._lock:
+            if jid in cluster.ps._jobs:
+                return None
+        if jid in cluster.scheduler.queue.job_ids() or (
+                cluster.preemption is not None
+                and jid in cluster.preemption.parked_ids()):
+            return None
+        try:
+            h = cluster.history_store.get(jid)
+        except Exception:
+            return None
+        return h if len(h.train_loss) >= epochs else None
+
+    return sa_wait(done, f"end of {jid}")
+
+
+def standalone_kavg(smi, cluster):
+    """23a: the held job through /train in a runner on the card and, while
+    it is held, its live /infer through the PS's socket and wire routes and
+    the runner's own JSON ``/infer``. Returns the report's numbers; the job
+    stays held."""
+    from kubeml_tpu_torch.controller import KubemlClient
+    from kubeml_tpu_torch.native.bindings import TensorClient
+    from kubeml_tpu_torch.native.weights import read_version
+    from kubeml_tpu_torch.utils import http_client as http
+
+    ps, cfg = cluster.ps, cluster.cfg
+    client = KubemlClient(cluster.controller_url, timeout=600)
+    t0 = time.monotonic()
+    client.networks().train(sa_request(SA_JOB, fn="bands-held"))
+    rec = sa_record(cluster, SA_JOB)
+    sa_wait(lambda: runner_state(rec.url)["epochs"] >= 1, "first epoch")
+    first_epoch_s = time.monotonic() - t0
+    sock = cfg.job_socket_path(SA_JOB)
+
+    def held():
+        if runner_state(rec.url)["epochs"] < SA_HOLD or not sock.exists():
+            return False
+        with TensorClient(str(sock)) as c:
+            return read_version(c) == SA_HOLD
+
+    sa_wait(held, "the held epoch's publish")
+    probe = banded_images(SA_PROBE, 4)[0]
+    routes0 = dict(ps.infer_routes)
+    out = dict(listening_s=rec.listening_s, first_epoch_s=first_epoch_s)
+    t1 = time.perf_counter()
+    ps._socket_weights(SA_JOB, rec)
+    out["socket_ms"] = 1e3 * (time.perf_counter() - t1)
+    got_socket = ps.infer(SA_JOB, probe)
+    tree_socket = ps._socket_cache[SA_JOB][1]
+    cfg.tensor_sockets = False
+    try:
+        t1 = time.perf_counter()
+        ps._wire_weights(SA_JOB, rec)
+        out["wire_ms"] = 1e3 * (time.perf_counter() - t1)
+        got_wire = ps.infer(SA_JOB, probe)
+        tree_wire = ps._wire_cache[SA_JOB][1]
+    finally:
+        cfg.tensor_sockets = True
+    # the runner's own JSON /infer, the PS's last route
+    got_json = http.check(http.post(f"{rec.url}/infer", json={
+        "data": probe.tolist()}, timeout=(5.0, 120.0)))["predictions"]
+    routes = {k: ps.infer_routes[k] - routes0[k] for k in routes0}
+    if routes != {"socket": 1, "wire": 1, "json": 0}:
+        raise AssertionError(f"23a: /infer routes {routes}")
+    if flat_bits(tree_wire) != flat_bits(tree_socket):
+        raise AssertionError(f"23a: the wire's weights ({cfg.dataplane_codec}"
+                             f") differ from the socket's")
+    if not got_socket == got_wire == got_json:
+        raise AssertionError("23a: the routes' predictions differ")
+    out.update(routes=routes, predictions=len(got_json))
+    return out
+
+
+def runner_spmd(smi, root):
+    """23b: phase 16b's job at depth JR_DEPTH, threaded, then inside a
+    ``JobRunner`` of this process through ``/start`` with a ``/generate``
+    between its steps, then a second job preempted through ``/preempt``.
+    The generate's own launches are those of the same request on the
+    threaded job's model. Returns the flash launches (fwd, dq, dkv) of the
+    runner's jobs."""
+    from kubeml_tpu_torch.api import GenerateRequest
+    from kubeml_tpu_torch.engine.job_runner import JobRunner
+    from kubeml_tpu_torch.engine.spmd_job import SPMDJob
+    from kubeml_tpu_torch.functions.registry import FunctionRegistry
+    from kubeml_tpu_torch.storage import (CheckpointStore, HistoryStore,
+                                          ShardStore)
+    from kubeml_tpu_torch.utils import http_client as http
+
+    cfg = cp_config(Path(root) / "runner-spmd")
+    cfg.ensure_dirs()
+    x, y = jr_tokens()
+    ShardStore(config=cfg).create("lc-tokens", x[:LC_TRAIN], y[:LC_TRAIN],
+                                  x[LC_TRAIN:], y[LC_TRAIN:])
+    FunctionRegistry(config=cfg).create("lcranks", JR_FN)
+    req = jr_request(RUNNER_LC_JOB, LC_EPOCHS, save_model=False)
+    model = FunctionRegistry(config=cfg).load("lcranks")
+    model._set_params(lr=req.lr, batch_size=req.batch_size, epoch=0, k=1,
+                      task="train")
+    reset_flash_counts()
+    threaded = SPMDJob(req.job_id, req, model, store=ShardStore(config=cfg),
+                       history_store=HistoryStore(config=cfg),
+                       checkpoint_store=CheckpointStore(config=cfg),
+                       device="cuda")
+    want = threaded.train()
+    threaded_counts = flash_counts()
+    body = {"prompts": [[int(t) for t in x[0, :16]]], "max_new_tokens": 8}
+    reset_flash_counts()
+    threaded.generate(GenerateRequest.parse_request(body))
+    gen = flash_counts()
+    runner = JobRunner(RUNNER_LC_JOB, config=cfg, device="cuda").start()
+    reset_flash_counts()
+    t0 = time.monotonic()
+    http.check(http.post(f"{runner.url}/start", json={
+        "job_id": RUNNER_LC_JOB, "parameters": req.to_dict()},
+        timeout=(5.0, 120.0)))
+    sa_wait(lambda: runner.job is not None
+            and not runner.job.heartbeat_cold, "23b first step", 300)
+    reply = http.check(http.post(f"{runner.url}/generate", json=body,
+                                 timeout=(5.0, 120.0)))
+    # the job's dK/dV launches so far: a step's JR_DEPTH each; fewer than
+    # the job's total once it ends means steps ran after the generate
+    at_reply = flash_counts()[2] - gen[2]
+    sa_wait(runner.done.is_set, "23b job", 600)
+    wall = time.monotonic() - t0
+    counts = tuple(a - b for a, b in zip(flash_counts(), gen))
+    got = runner.job.history
+    state = runner_state(runner.url)
+    runner.stop()
+    # a second job, preempted through the runner's route once its first
+    # epoch is in (the resume checkpoint is the epoch's)
+    preq = jr_request(RUNNER_LC_PREEMPT, LC_EPOCHS + 1, save_model=False)
+    prunner = JobRunner(RUNNER_LC_PREEMPT, config=cfg, device="cuda").start()
+    before = flash_counts()
+    http.check(http.post(f"{prunner.url}/start", json={
+        "job_id": RUNNER_LC_PREEMPT, "parameters": preq.to_dict()},
+        timeout=(5.0, 120.0)))
+    sa_wait(lambda: prunner.job is not None
+            and len(prunner.job.history.train_loss) >= 1,
+            "23b preempted job's first epoch", 300)
+    ans = http.check(http.post(f"{prunner.url}/preempt",
+                               timeout=(5.0, 60.0)))
+    sa_wait(prunner.done.is_set, "23b yield", 300)
+    pstate = runner_state(prunner.url)
+    pcounts = tuple(a - b for a, b in zip(flash_counts(), before))
+    prunner.stop()
+    tags = CheckpointStore(config=cfg).tags(RUNNER_LC_PREEMPT)
+    steps = LC_EPOCHS * (LC_TRAIN // LC_B)
+    evals = LC_EPOCHS * (LC_TEST // LC_B)
+    per_step = ((counts[0] - JR_DEPTH * evals) / steps, counts[1] / steps,
+                counts[2] / steps)
+    diff = max(abs(a - b) / max(abs(b), 1.0) for a, b in zip(
+        got.train_loss + got.validation_loss,
+        want.train_loss + want.validation_loss))
+    log(f"  23b {RUNNER_LC_JOB} in a JobRunner of this process [{smi}]: "
+        f"/start to the end {wall:.1f} s, status {state['status']}, train "
+        f"loss {got.train_loss}, eval loss {got.validation_loss} (the "
+        f"threaded job's {want.train_loss}, {want.validation_loss}; largest "
+        f"relative difference {diff:.2e}); flash launches {counts}, a step "
+        f"{per_step} with {evals} validation forwards of {JR_DEPTH} fwd "
+        f"(threaded {threaded_counts}); /generate between steps (dK/dV "
+        f"launches at its answer {at_reply} of {counts[2]}): "
+        f"{reply['lengths']} tokens, its flash launches {gen} (the same "
+        f"request on the threaded job's model)")
+    log(f"  23b {RUNNER_LC_PREEMPT}: /preempt answered {ans}, status "
+        f"{pstate['status']} after {pstate['epochs']} epochs, checkpoints "
+        f"{tags}, flash launches {pcounts}")
+    if state["status"] != "finished" or not diff <= MR_SAME_TOL:
+        raise AssertionError(f"23b: status {state['status']}, losses "
+                             f"{diff:.2e} apart")
+    if per_step != (2 * JR_DEPTH, JR_DEPTH, JR_DEPTH) or \
+            counts != threaded_counts:
+        raise AssertionError(f"23b: flash launches {counts}, a step "
+                             f"{per_step}, threaded {threaded_counts}")
+    if not JR_DEPTH <= at_reply < counts[2] or reply["lengths"] != [8]:
+        raise AssertionError(f"23b: /generate not between steps (dK/dV "
+                             f"launches at its answer {at_reply} of "
+                             f"{counts[2]}), {reply['lengths']}")
+    if ans != {"status": "preempting"} or pstate["status"] != "preempted" \
+            or not tags:
+        raise AssertionError(f"23b: preempt {ans}, {pstate}, {tags}")
+    return tuple(a + b + c for a, b, c in zip(counts, gen, pcounts))
+
+
+def sa_burst(ps, reqs, eos):
+    """23c's burst: the 16 requests of phase 3's mix at once from threads,
+    streamed through ``ps.generate``, each retried after a 429 until
+    admitted. Returns the tokens, (admitted at, TTFT) of each and the
+    429s."""
+    from kubeml_tpu_torch.api import GenerateRequest
+    from kubeml_tpu_torch.api.errors import KubeMLError
+
+    tokens, timing, errors, refused = [None] * 16, [None] * 16, [], [0]
+
+    def client(i):
+        r = reqs[i]
+        req = GenerateRequest(prompts=[r["prompt"].tolist()],
+                              max_new_tokens=r["max_new"],
+                              eos_id=eos if i == 5 else None, stream=True)
+        try:
+            while True:
+                t0 = time.monotonic()
+                try:
+                    parts = ps.generate(GPT2_JOB, req)
+                    break
+                except KubeMLError as e:
+                    if e.status_code != 429:
+                        raise
+                    refused[0] += 1
+                    time.sleep(0.05)
+            toks, first = [], None
+            for part in parts:
+                if "tokens" in part:
+                    first = first if first is not None else time.monotonic()
+                    toks += part["tokens"]
+            tokens[i], timing[i] = toks, (t0, first - t0)
+        except Exception as e:  # surfaced below, after the join
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(16)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"23c: burst clients failed or hung: {errors}")
+    return tokens, timing, refused[0]
+
+
+def colocation(smi, cluster, dec, gate, qrun, qprun):
+    """23c: a serving burst through ``dec`` (the int8 engine) preempts 23a's
+    held job: the gate opens once the PS counts the preemption, the job
+    yields at its round's edge, parks, is requeued with resume=True once
+    serving is calm and finishes in a new runner. The preempt, the park
+    and the requeue are stamped by polling the PS's preemption counter and
+    the controller's parked ids every 5 ms. Returns the report's
+    numbers."""
+    from kubeml_tpu_torch.ops.int8_matmul import int8_matmul
+    from kubeml_tpu_torch.ops.paged_attention import paged_attention
+
+    ps, ctl = cluster.ps, cluster.preemption
+    reqs = workload(np.random.default_rng(SEED))
+    stamps = {}
+    burst_done, job_done = threading.Event(), threading.Event()
+
+    def watch():
+        while not job_done.is_set():
+            now = time.monotonic()
+            if "preempt" not in stamps and (
+                    ps.metrics.preemptions_snapshot() or burst_done.is_set()):
+                if not burst_done.is_set():
+                    stamps["preempt"] = now
+                # the held job yields once it can reach its round's edge
+                gate.unlink(missing_ok=True)
+            parked = SA_JOB in ctl.parked_ids()
+            if parked and "park" not in stamps:
+                stamps["park"] = now
+                # the history the preempted runner left
+                try:
+                    stamps["epochs_parked"] = len(
+                        cluster.history_store.get(SA_JOB).train_loss)
+                except Exception as e:  # reported by the gate
+                    stamps["epochs_parked"] = repr(e)
+            elif not parked and "park" in stamps:
+                stamps.setdefault("requeue", now)
+            time.sleep(0.005)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    try:
+        paged_attention.launches = int8_matmul.launches = 0
+        watcher.start()
+        t_burst = time.monotonic()
+        tokens, timing, refused = sa_burst(ps, reqs, qrun["eos"])
+        burst_s = time.monotonic() - t_burst
+        burst_done.set()
+        launches = (paged_attention.launches, int8_matmul.launches)
+        h = sa_done(cluster, SA_JOB, SA_EPOCHS)
+    finally:
+        burst_done.set()
+        job_done.set()
+        watcher.join()
+    ties = check_greedy("23c", tokens, token_lists(qprun)[1:],
+                        [r["prompt"] for r in reqs], dec,
+                        against="phase 12b's final-int8 serving",
+                        tie=INT8_NEAR_TIE)
+    park_t = stamps.get("park", float("inf"))
+    before = sorted(t for t0, t in timing if t0 < park_t)
+    after = sorted(t for t0, t in timing if t0 >= park_t)
+    return dict(history=h, launches=launches, tokens=sum(map(len, tokens)),
+                ties=ties, burst_s=burst_s, refused=refused, stamps=stamps,
+                t_burst=t_burst, before=before, after=after,
+                preemptions=ps.metrics.preemptions_snapshot())
+
+
+def standalone_phase(smi, root, qrun, qprun):
+    """Phase 23 (see the module docstring). Returns the flash launches of
+    23b and the (paged_attention, int8_matmul) launches of 23c."""
+    import os
+
+    from kubeml_tpu_torch.api import GenerateRequest
+    from kubeml_tpu_torch.cluster import LocalCluster
+    from kubeml_tpu_torch.native import fallback_counts, native_available
+    from kubeml_tpu_torch.native.bindings import reset_fallback_counts
+
+    if not native_available():
+        raise AssertionError("23: the native library did not build")
+    reset_fallback_counts()
+    t0 = time.monotonic()
+    data_root = sa_root(root)
+    threaded, trees = sa_threaded(data_root)
+    if any(fallback_counts().values()):
+        raise AssertionError(f"23a: native fallbacks {fallback_counts()}")
+    codecs = sa_codecs(trees)
+    log(f"  23a threaded reference [{smi}]: train loss "
+        f"{[round(v, 4) for v in threaded.train_loss]}, epoch s "
+        f"{[round(v, 3) for v in threaded.epoch_duration]} "
+        f"({time.monotonic() - t0:.1f} s); packed by kml_pack (fallbacks "
+        f"{fallback_counts()})")
+    for codec, r in codecs.items():
+        log(f"  23a KMW1 {codec} over its epoch weights: payload bytes "
+            f"{r['bytes']} (the first a full snapshot), encode ms "
+            f"{[round(v, 1) for v in r['ms']]}"
+            + (f", worst leaf error {r['worst']:.3e}"
+               if codec == "delta-int8" else ", decoded bit-equal"))
+    gate = Path(data_root) / "hold.gate"
+    gate.touch()
+    os.environ["KUBEML_SMOKE_GATE"] = str(gate)
+    cfg = cp_config(data_root, standalone_jobs=True, serving_quantize="int8",
+                    kv_quant="int8", int8_matmul=True,
+                    serving_chunk_steps=CHUNK,
+                    serving_page_tokens=PAGE_TOKENS, **SA_PREEMPT)
+    try:
+        with LocalCluster(config=cfg) as cluster:
+            ps = cluster.ps
+            dec, load_ms, build_ms = cold_serving(ps, GPT2_JOB)
+            if (not dec.int8_matmul or dec.int8_matmul_impl != "cuda"
+                    or dec.kv_quant != "int8" or dec.paged_attn != "cuda"):
+                raise AssertionError("23c: the served engine does not run "
+                                     "both kernels")
+            ps.generate(GPT2_JOB, GenerateRequest(prompts=[[1, 2, 3]],
+                                                  max_new_tokens=2))
+            t0 = time.monotonic()
+            a = standalone_kavg(smi, cluster)
+            log(f"  23a {SA_JOB} in a runner [{smi}]: spawn to LISTENING "
+                f"{a['listening_s']:.2f} s, /train to the first epoch "
+                f"{a['first_epoch_s']:.2f} s; held at epoch {SA_HOLD + 1}'s "
+                f"first step: live /infer of {a['predictions']} images "
+                f"equal through the socket ({a['socket_ms']:.1f} ms cold "
+                f"fetch), the {cfg.dataplane_codec} wire "
+                f"({a['wire_ms']:.1f} ms, tree bit-equal to the socket's) "
+                f"and the runner's JSON ({time.monotonic() - t0:.1f} s)")
+            t0 = time.monotonic()
+            c = colocation(smi, cluster, dec, gate, qrun, qprun)
+            log_text = (cfg.logs_dir / f"job-{SA_JOB}.log").read_text()
+            metrics = http_text(f"{cluster.ps_api.url}/metrics")
+    finally:
+        os.environ.pop("KUBEML_SMOKE_GATE", None)
+    h = c["history"]
+    holds, delta, tol = loss_parity(threaded.train_loss, h.train_loss)
+    diffs = [max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(
+        getattr(h, k)[:SA_HOLD], getattr(threaded, k)[:SA_HOLD]))
+        for k in ("train_loss", "validation_loss")]
+    st = c["stamps"]
+    snap = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"^kubeml_preempt_yield_seconds_(sum|count) (\S+)$", metrics, re.M)}
+    # the requeued runner's part of the log: its restore, then its epochs
+    resumed = log_text.partition(": resumed from checkpoint ")[2]
+    resumed_epochs = re.findall(r": epoch (\d+)/%d " % SA_EPOCHS, resumed)
+    parked = st.get("epochs_parked")
+
+    def p50(v):
+        return f"{1e3 * v[len(v) // 2]:.1f} ms ({len(v)})" if v else "n/a"
+
+    dp = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r'^kubeml_dataplane_bytes_total\{phase="([^"]+)"\} (\S+)$', metrics,
+        re.M)}
+    log(f"  23c colocation [{smi}]: decoder cold load {load_ms:.1f} ms + "
+        f"build {build_ms:.1f} ms; the burst (16 requests, 2 slots, queue "
+        f"limit 6) {c['burst_s']:.2f} s, {c['refused']} answers 429 "
+        f"retried, {c['tokens']} tokens equal to phase 12b's (near ties "
+        f"within {INT8_NEAR_TIE} {c['ties'] or 'none'}); preemptions "
+        f"{c['preemptions']}; overload to the preempt request "
+        f"{st.get('preempt', float('nan')) - c['t_burst']:.3f} s; "
+        f"kubeml_preempt_yield_seconds sum {snap.get('sum', 0.0):.3f} over "
+        f"{snap.get('count', 0.0):.0f}; parked "
+        f"{st.get('requeue', float('nan')) - st.get('park', float('nan')):.3f}"
+        f" s; TTFT p50 before the reclaim {p50(c['before'])}, after "
+        f"{p50(c['after'])}; launches paged_attention {c['launches'][0]}, "
+        f"int8_matmul {c['launches'][1]} ({time.monotonic() - t0:.1f} s)")
+    log(f"  23a/c {SA_JOB}: parallelism {h.parallelism}, train loss "
+        f"{[round(v, 4) for v in h.train_loss]}, epoch s "
+        f"{[round(v, 3) for v in h.epoch_duration]} (the preempted "
+        f"runner's {parked} epochs, its last cut short by the yield, then "
+        f"the requeued runner's epochs {resumed_epochs} after its restore "
+        f"from {resumed.split(' ', 1)[0] or 'nothing'}) beside the threaded "
+        f"job's {[round(v, 4) for v in threaded.train_loss]}, "
+        f"{[round(v, 3) for v in threaded.epoch_duration]}: epochs 1-"
+        f"{SA_HOLD} train/eval loss relative differences {diffs[0]:.2e}/"
+        f"{diffs[1]:.2e} (tolerance {SA_SAME_RTOL}), final delta "
+        f"{delta:.4f}, loss_parity (tolerance {tol:.4f}) {holds}; /metrics "
+        f"data-plane bytes {dp}")
+    if c["preemptions"] != {"serving-overload": 1} or \
+            snap.get("count") != 1.0:
+        raise AssertionError(f"23c: preemptions {c['preemptions']}, yields "
+                             f"{snap}")
+    if not holds or len(h.train_loss) != SA_EPOCHS or h.task.get("error") \
+            or h.parallelism != threaded.parallelism:
+        raise AssertionError(f"23c: the resumed job {h.train_loss}, "
+                             f"{h.parallelism}, {h.task.get('error')}, "
+                             f"parity {delta} > {tol}")
+    # the yield lands in epoch SA_HOLD + 1; the requeued runner trains the
+    # epochs after it, and appends them to the history it restored
+    want_resumed = [str(e) for e in range(SA_HOLD + 2, SA_EPOCHS + 1)]
+    if parked != SA_HOLD + 1 or resumed_epochs != want_resumed:
+        raise AssertionError(f"23c: {parked} epochs at the park (want "
+                             f"{SA_HOLD + 1}); the requeued runner trained "
+                             f"epochs {resumed_epochs} (want {want_resumed})")
+    if not max(diffs) <= SA_SAME_RTOL:
+        raise AssertionError(f"23a: epochs 1-{SA_HOLD} differ from the "
+                             f"threaded job's by {diffs} (relative)")
+    if "requeue" not in st or min(c["launches"]) <= 0:
+        raise AssertionError(f"23c: requeue {st}, launches {c['launches']}")
+    if "fallback" in log_text:
+        raise AssertionError("23a: the runners' log holds a native fallback")
+    for phase in ("weights.publish", f"weights.encode.{cfg.dataplane_codec}",
+                  "weights.fetch", "stage_round"):
+        if not dp.get(phase, 0.0) > 0:
+            raise AssertionError(f"23a: /metrics shows no {phase} bytes: "
+                                 f"{dp}")
+    t0 = time.monotonic()
+    flash_b = runner_spmd(smi, root)
+    log(f"  23b {time.monotonic() - t0:.1f} s")
+    return flash_b, c["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one NVIDIA card",
@@ -6976,7 +7661,7 @@ def phases(root: str) -> int:
 
     # 1. device
     smi = nvidia_smi()
-    log("[1/23 device]")
+    log("[1/24 device]")
     log(smi)
     log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} devices "
@@ -6991,7 +7676,7 @@ def phases(root: str) -> int:
     spills = [f"{lines[i - 1].split('for ')[-1][:70]}: {ln.strip()}"
               for i, ln in enumerate(lines)
               if re.search(r"[1-9]\d* bytes (stack frame|spill)", ln)]
-    log(f"[2/23 build] {time.monotonic() - t0:.2f} s (nvcc "
+    log(f"[2/24 build] {time.monotonic() - t0:.2f} s (nvcc "
         f"{kernels.build_seconds:.2f} s), kernels with a stack frame or "
         f"spills: {len(spills)}")
     for ln in spills:
@@ -7007,7 +7692,7 @@ def phases(root: str) -> int:
     check_compiled(kernels.library()._name, build_log)
 
     # 3. kernels against their plain versions
-    log("[3/23 kernels]")
+    log("[3/24 kernels]")
     timer = Timer()
     g = torch.Generator().manual_seed(SEED)
     pa_rows = check_paged_attention(timer, g)
@@ -7020,7 +7705,7 @@ def phases(root: str) -> int:
     del timer
 
     # 4. serve f32: kernel engine, then the plain (gather) twin
-    log("[4/23 serve f32]")
+    log("[4/24 serve f32]")
     serve_tiny()
     reqs = workload(np.random.default_rng(SEED))
     model = gpt2_small()
@@ -7063,7 +7748,7 @@ def phases(root: str) -> int:
     del model
 
     # 5. serve int8: int8 weights through the kernel, int8 KV pages
-    log("[5/23 serve int8]")
+    log("[5/24 serve int8]")
     q_kw = dict(quantize="int8", int8_matmul=True, kv_quant="int8", **common)
     qdec = PagedBatchingDecoder(gpt2_small(), **q_kw)
     if (not qdec.int8_matmul or qdec.int8_matmul_impl != "cuda"
@@ -7112,20 +7797,20 @@ def phases(root: str) -> int:
     torch.cuda.empty_cache()
 
     # 6. speculative decoding and chunked prefill through both kernels
-    log("[6/23 spec + chunked]")
+    log("[6/24 spec + chunked]")
     t0 = time.monotonic()
     spec_launches = spec_phase(smi)
     log(f"  phase 6: {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     # 7. flash kernels against their plain versions, and the L sweep
-    log("[7/23 flash kernels]")
+    log("[7/24 flash kernels]")
     timer = Timer()
     flash_errs, sweep = check_flash(timer, g)
     del timer
 
     # 8. train: the kernel path, its profile, then the plain path
-    log("[8/23 train bf16]")
+    log("[8/24 train bf16]")
     krow, kcounts = train_run("kernel path", flash=True)
     want = (2 * DEPTH * krow["steps_run"], DEPTH * krow["steps_run"],
             DEPTH * krow["steps_run"])
@@ -7148,14 +7833,14 @@ def phases(root: str) -> int:
                              f"{pcounts}")
 
     # 9. f32: one step through the kernels against the plain path
-    log("[9/23 train f32 parity]")
+    log("[9/24 train f32 parity]")
     check_f32_step()
 
     # 10. K-AVG: the flagship at bench.py's configuration, the merge's
     # correctness, and TrainJob end to end; none of the five hand-written
     # kernels is on this path (convs, BatchNorm and dense layers run in
     # cuDNN and cuBLAS, as the JAX path runs them in XLA)
-    log("[10/23 k-avg]")
+    log("[10/24 k-avg]")
     reset_kernel_counts()
     log("  10a flagship: ResNet-18, CIFAR-10 shapes, bf16, uint8 inputs, "
         f"B {KAVG_B}, K {KAVG_K}, lr 0.1, SGD momentum 0.9")
@@ -7173,34 +7858,34 @@ def phases(root: str) -> int:
         raise AssertionError(f"the K-AVG path launched {counts}")
 
     # 11. serving resilience through both serving kernels
-    log("[11/23 resilience]")
+    log("[11/24 resilience]")
     t0 = time.monotonic()
     res_launches = resilience_phase(smi)
     log(f"  phase 11: {time.monotonic() - t0:.1f} s")
 
     # 12. checkpoints served through the parameter server
-    log("[12/23 checkpoint serving]")
+    log("[12/24 checkpoint serving]")
     t0 = time.monotonic()
     ckpt = checkpoint_phase(smi, root, run, qrun, kavg)
     ckpt_launches = ckpt["launches"]
     log(f"  phase 12: {time.monotonic() - t0:.1f} s")
 
     # 13. the control plane over HTTP: training, serving, SIGTERM
-    log("[13/23 control plane]")
+    log("[13/24 control plane]")
     t0 = time.monotonic()
     cp_launches = control_plane_phase(smi, root, run, qrun, ckpt, kavg)
     log(f"  phase 13: {time.monotonic() - t0:.1f} s")
 
     # 14. the encoders: the flash kernels at their shapes, BERT-base and
     # ViT-Tiny trained by K-AVG, VGG-11, a ViT TrainJob with transforms
-    log("[14/23 encoders]")
+    log("[14/24 encoders]")
     t0 = time.monotonic()
     enc_rows, enc_launches, bert_row, vit_row = encoder_phase(smi, root)
     log(f"  phase 14: {time.monotonic() - t0:.1f} s")
 
     # 15. MoE trained at bench_moe's width through the flash kernels and
     # served by the dense slot engine; GPT-2-small through the dense engine
-    log("[15/23 moe + dense engine]")
+    log("[15/24 moe + dense engine]")
     t0 = time.monotonic()
     moe_row, moe_errs, moe_times, moe_counts, dense_launches = moe_phase(
         smi, root, run)
@@ -7208,14 +7893,14 @@ def phases(root: str) -> int:
 
     # 16. the one-shot speculative generate through paged attention, and
     # the long-context flagship's SPMD job with sharded checkpoints
-    log("[16/23 one-shot spec + spmd job]")
+    log("[16/24 one-shot spec + spmd job]")
     t0 = time.monotonic()
     spec16, flash16, served16 = spec_spmd_phase(smi, root, krow["step_ms"])
     log(f"  phase 16: {time.monotonic() - t0:.1f} s")
 
     # 17. multi-rank SPMD: two gloo ranks on the card, attention and the
     # flagship's training over sp (Ulysses, ring), tp and dp
-    log("[17/23 multi-rank spmd]")
+    log("[17/24 multi-rank spmd]")
     t0 = time.monotonic()
     flash17 = multirank_phase(smi)
     log(f"  phase 17: {time.monotonic() - t0:.1f} s")
@@ -7223,7 +7908,7 @@ def phases(root: str) -> int:
     # 18. the SPMD job over ranks: two gloo ranks on the card, the
     # flagship trained through /train over tp=2, resumed over sp=2,
     # remeshed dp 2 -> 1 -> 2, its 2-shard final served
-    log("[18/23 spmd job over ranks]")
+    log("[18/24 spmd job over ranks]")
     t0 = time.monotonic()
     flash18, served18 = ranks_phase(smi, root)
     log(f"  phase 18: {time.monotonic() - t0:.1f} s")
@@ -7232,7 +7917,7 @@ def phases(root: str) -> int:
     # masked flash check, PipelinedLM over pp=2, the flagship as
     # PipelinedCausalLM trained through /train over pp=2, resumed, its
     # stage-sharded final served flat
-    log("[19/23 pipeline over ranks]")
+    log("[19/24 pipeline over ranks]")
     t0 = time.monotonic()
     flash19, served19 = pipeline_phase(smi, root)
     log(f"  phase 19: {time.monotonic() - t0:.1f} s")
@@ -7240,7 +7925,7 @@ def phases(root: str) -> int:
     # 20. MoE over ranks: two gloo ranks on the card, bench_moe at full
     # depth over ep=2 and at MOE_DEPTH over dp, tp and sp; a MoE job
     # through /train over ep=2, resumed under dp=2, its final served
-    log("[20/23 moe over ranks]")
+    log("[20/24 moe over ranks]")
     t0 = time.monotonic()
     flash20, moe_ep_times = moe_ep_phase(smi, root)
     log(f"  phase 20: {time.monotonic() - t0:.1f} s")
@@ -7248,7 +7933,7 @@ def phases(root: str) -> int:
     # 21. meshed serving: two gloo ranks on the card, the int8 matmul at
     # the tp=2 shard shapes, GPT-2-small served over tp=2 in f32 and int8,
     # phases 18's and 20's sharded finals served on serving meshes
-    log("[21/23 meshed serving]")
+    log("[21/24 meshed serving]")
     t0 = time.monotonic()
     served21 = serving_mesh_phase(smi, root, sm_rows)
     log(f"  phase 21: {time.monotonic() - t0:.1f} s")
@@ -7256,13 +7941,21 @@ def phases(root: str) -> int:
     # 22. K-AVG over ranks: two gloo ranks on the card, the flagship's
     # rounds and the merge over the ranks, a K-AVG job through /train,
     # ViT-Tiny through the flash kernels
-    log("[22/23 k-avg over ranks]")
+    log("[22/24 k-avg over ranks]")
     t0 = time.monotonic()
     flash22 = kavg_ranks_phase(smi, root, row4)
     log(f"  phase 22: {time.monotonic() - t0:.1f} s")
 
-    # 23. results
-    log("[23/23 results]")
+    # 23. standalone runners and preemption: a K-AVG job in a runner
+    # process, the SPMD job inside a JobRunner, a serving burst preempting
+    # a runner's job, which resumes
+    log("[23/24 standalone runners + preemption]")
+    t0 = time.monotonic()
+    flash23, served23 = standalone_phase(smi, root, qrun, ckpt["qprun"])
+    log(f"  phase 23: {time.monotonic() - t0:.1f} s")
+
+    # 24. results
+    log("[24/24 results]")
     pa = pa_rows[0]   # the decode step: L = 1, f32 arena
     mm = next(r for r in mm_rows if r["M"] == 8 and r["N"] == VOCAB
               and r["x"] == "float32")  # the lm_head at decode
@@ -7273,7 +7966,7 @@ def phases(root: str) -> int:
          "launches": (f32_launches + q_launches[0] + spec_launches[0]
                       + res_launches[0] + ckpt_launches[0]
                       + cp_launches[0] + spec16[0] + served16[0]
-                      + served18[0] + served19[0]),
+                      + served18[0] + served19[0] + served23[0]),
          "max_abs_err": pa["max_abs_err"], "ms": pa["ms"],
          "plain_ms": pa["plain_ms"], "bound_ms": pa["bound_ms"],
          "bound_by": pa["bound_by"], "library_ms": pa["library_ms"]},
@@ -7283,7 +7976,8 @@ def phases(root: str) -> int:
          "launches": (q_launches[1] + spec_launches[1] + res_launches[1]
                       + ckpt_launches[1] + cp_launches[1]
                       + dense_launches[1] + spec16[1] + served16[1]
-                      + served18[1] + served19[1] + served21),
+                      + served18[1] + served19[1] + served21
+                      + served23[1]),
          "max_abs_err": mm["max_abs_err"], "ms": mm["ms"],
          "plain_ms": mm["plain_ms"], "bound_ms": mm["bound_ms"],
          "bound_by": mm["bound_by"], "library_ms": mm["library_ms"]},
@@ -7292,11 +7986,11 @@ def phases(root: str) -> int:
     tr = sweep[2048]
     err_a = flash_errs[("a train", torch.bfloat16)]
     # launches: the training path of phase 8, the encoders' of phase 14,
-    # the MoE LM's of phase 15, the SPMD job's of phase 16 and the ranks'
-    # of phases 17, 18, 19, 20 and 22
+    # the MoE LM's of phase 15, the SPMD job's of phase 16, the ranks' of
+    # phases 17, 18, 19, 20 and 22 and the runner's SPMD jobs of phase 23
     fwd_n, dq_n, dkv_n = (sum(c) for c in zip(
         kcounts, enc_launches, moe_counts, flash16, flash17, flash18,
-        flash19, flash20, flash22))
+        flash19, flash20, flash22, flash23))
     for name, line_no, count, err, ms, plain, lib in (
             ("flash_fwd", 120, fwd_n, err_a["out"], tr["fwd_ms"],
              tr["fwd_plain_ms"], tr["fwd_library_ms"]),
@@ -7317,12 +8011,12 @@ def phases(root: str) -> int:
     log(f"  flash launches: phase 8 {kcounts}, phase 14 {enc_launches}, "
         f"phase 15 {moe_counts}, phase 16 {flash16}, phase 17 {flash17}, "
         f"phase 18 {flash18}, phase 19 {flash19}, phase 20 {flash20}, "
-        f"phase 22 {flash22}; "
+        f"phase 22 {flash22}, phase 23 {flash23}; "
         f"serving launches "
         f"(paged_attention, int8_matmul) of phase 16: one-shot spec {spec16}"
         f", the SPMD final served {served16}; of phase 18 {served18}; of "
         f"phase 19 {served19}; int8_matmul of phase 21 (both ranks) "
-        f"{served21}")
+        f"{served21}; of phase 23's burst {served23}")
     t = moe_times
     log(f"  flash at the MoE shape B {MOE_B} L {MOE_L} H {MOE_H} causal "
         f"(bf16): fwd {t['fwd_ms']:.4f} ms (plain {t['fwd_plain_ms']:.4f}, "

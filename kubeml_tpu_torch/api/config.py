@@ -23,8 +23,15 @@ answer at an epoch's end (``KUBEML_UPDATE_TIMEOUT``), the seconds the
 leader waits for a follower's start acknowledgement of a job over ranks
 (``KUBEML_DIST_ACK_TIMEOUT``), the preempt grace,
 the scale-decision log's sizes and the job journal under the data root.
-``standalone_jobs`` and ``preempt_monitor`` are read so that a set value
-can be refused with a 400 that names it (not ported).
+
+Standalone job runners (``STANDALONE_JOBS``: each job in a runner process
+of its own, ``engine/job_runner.py``), their weight channels (the tensor
+socket, ``KUBEML_TENSOR_SOCKETS``, at :meth:`Config.job_socket_path`, and
+the KMW1 wire's codec, ``KUBEML_DATAPLANE_CODEC``), the native round
+packer (``KUBEML_NATIVE_LOADER``), the staging depth
+(``KUBEML_DATAPLANE_PREFETCH``) and the preemption monitor
+(``KUBEML_PREEMPT_*``, ``scheduler/preemption.py``) take the JAX
+package's variables and defaults.
 """
 
 from __future__ import annotations
@@ -74,9 +81,25 @@ class Config:
     # freeze scale-up in the elastic policy
     limit_parallelism: bool = field(
         default_factory=lambda: _env_bool("LIMIT_PARALLELISM", False))
-    # standalone job runners: not ported (a set value is refused)
+    # run each job in a runner process of its own (the reference's job
+    # pod) instead of a thread of the parameter server
     standalone_jobs: bool = field(
         default_factory=lambda: _env_bool("STANDALONE_JOBS", False))
+    # pack round slabs through the native parallel packer
+    use_native_loader: bool = field(
+        default_factory=lambda: _env_bool("KUBEML_NATIVE_LOADER", True))
+    # standalone runners publish each epoch's weights into a socket-served
+    # native tensor store, which the parameter server reads for a live
+    # job's /infer
+    tensor_sockets: bool = field(
+        default_factory=lambda: _env_bool("KUBEML_TENSOR_SOCKETS", True))
+    # the KMW1 weight wire's codec: "raw", "delta" (lossless) or
+    # "delta-int8" (int8 deltas with error feedback)
+    dataplane_codec: str = field(default_factory=lambda: os.environ.get(
+        "KUBEML_DATAPLANE_CODEC", "delta"))
+    # rounds staged ahead of the one computing (1: double buffering)
+    dataplane_prefetch: int = field(
+        default_factory=lambda: _env_int("KUBEML_DATAPLANE_PREFETCH", 1))
     # the policy's cap (None: max(8, the visible cards))
     max_parallelism: Optional[int] = field(default_factory=lambda: (
         int(os.environ["KUBEML_MAX_PARALLELISM"])
@@ -97,9 +120,31 @@ class Config:
     # seconds a preempted job has to yield before it is abandoned
     preempt_grace: float = field(
         default_factory=lambda: _env_float("KUBEML_PREEMPT_GRACE", 60.0))
-    # the preemption monitor: not ported (a set value is refused)
+    # the preemption monitor: reclaim the card from the lowest-priority
+    # training job while serving is overloaded (off by default)
     preempt_monitor: bool = field(
         default_factory=lambda: _env_bool("KUBEML_PREEMPT_MONITOR", False))
+    # its poll period (s)
+    preempt_interval: float = field(
+        default_factory=lambda: _env_float("KUBEML_PREEMPT_INTERVAL", 1.0))
+    # overload thresholds, any one crossing counts: queued decode rows,
+    # 429s a second over the window, request p99 seconds (0: off)
+    preempt_queue_depth: int = field(
+        default_factory=lambda: _env_int("KUBEML_PREEMPT_QUEUE_DEPTH", 8))
+    preempt_overload_rate: float = field(
+        default_factory=lambda: _env_float("KUBEML_PREEMPT_OVERLOAD_RATE",
+                                           1.0))
+    preempt_p99: float = field(
+        default_factory=lambda: _env_float("KUBEML_PREEMPT_P99", 0.0))
+    # consecutive overloaded polls before a preemption, consecutive calm
+    # polls before the parked jobs requeue
+    preempt_sustain: int = field(
+        default_factory=lambda: _env_int("KUBEML_PREEMPT_SUSTAIN", 3))
+    preempt_resume_sustain: int = field(
+        default_factory=lambda: _env_int("KUBEML_PREEMPT_RESUME_SUSTAIN", 5))
+    # seconds between two preemptions
+    preempt_cooldown: float = field(
+        default_factory=lambda: _env_float("KUBEML_PREEMPT_COOLDOWN", 30.0))
     # scale-decision audit: newest decisions a job, jobs kept
     decision_log_size: int = field(
         default_factory=lambda: _env_int("KUBEML_DECISION_LOG_SIZE", 64))
@@ -198,6 +243,31 @@ class Config:
         from ..parallel.mesh import parse_mesh_spec
 
         return parse_mesh_spec(self.serving_mesh)
+
+    def job_socket_path(self, job_id: str) -> Path:
+        """The unix socket of a standalone job's tensor server, under the
+        system temporary directory (a socket path holds at most ~107
+        bytes) in a directory named by a digest of the data root, so two
+        clusters do not collide. The directory is made mode 0700 and its
+        owner checked: the socket carries no authentication, so another
+        user must not be able to bind its name and serve weights."""
+        import hashlib
+        import tempfile
+
+        ns = hashlib.md5(str(self.data_root).encode()).hexdigest()[:8]
+        d = Path(tempfile.gettempdir()) / f"kubeml-{ns}"
+        d.mkdir(mode=0o700, exist_ok=True)
+        st = d.stat()
+        if st.st_uid != os.getuid():
+            raise PermissionError(
+                f"socket directory {d} is owned by uid {st.st_uid}, not us "
+                f"({os.getuid()}); refusing to exchange weights through it")
+        os.chmod(d, 0o700)  # an existing directory made looser
+        return d / f"{job_id}.sock"
+
+    @property
+    def logs_dir(self) -> Path:
+        return self.data_root / "logs"
 
     @property
     def datasets_dir(self) -> Path:

@@ -17,11 +17,14 @@
 * ``dataset create|delete|list``, ``function create|delete|get|list``;
 * ``task list|stop|preempt|prune``, ``jobs``, ``decisions <id>``;
 * ``history get|delete|list|prune``;
-* ``checkpoint list|export|quantize|delete``.
+* ``checkpoint list|export|quantize|delete``;
+* ``logs [--id ID] [--follow]``: a standalone job's own log
+  (``<data root>/logs/job-<id>.log``, its runner writes it), else the
+  cluster's ``logs/kubeml.log`` (``start`` writes it) filtered by the id.
 
-``dataset create-text``, ``generate --text``, ``trace``, ``slo``, ``top``,
-``profile`` and ``logs`` exit with code 2 and name the module they wait
-for (not ported).
+``dataset create-text``, ``generate --text``, ``trace``, ``slo``, ``top``
+and ``profile`` exit with code 2 and name the module they wait for (not
+ported).
 """
 
 from __future__ import annotations
@@ -286,8 +289,40 @@ _UNPORTED = {
     "slo": "ps/slo.py",
     "top": "utils/timeseries.py",
     "profile": "utils/profiler.py",
-    "logs": "the cluster log files of the JAX package's cli",
 }
+
+
+def cmd_logs(args) -> int:
+    """The job's runner log first (``logs/job-<id>.log``), else the
+    cluster log filtered by the id (JAX cli.py:387-420)."""
+    cfg = get_config()
+    per_job = args.id is not None and cfg.logs_dir / f"job-{args.id}.log"
+    if per_job and per_job.exists():
+        log_file = per_job
+    else:
+        log_file = cfg.logs_dir / "kubeml.log"
+    if not log_file.exists():
+        print(f"no log file at {log_file}", file=sys.stderr)
+        return 1
+    filter_id = None if log_file == per_job else args.id
+    with open(log_file) as f:
+        for line in f:
+            if filter_id is None or filter_id in line:
+                print(line.rstrip())
+    if args.follow:
+        with open(log_file) as f:
+            f.seek(0, 2)
+            try:
+                while True:
+                    line = f.readline()
+                    if not line:
+                        time.sleep(0.5)
+                        continue
+                    if filter_id is None or filter_id in line:
+                        print(line.rstrip(), flush=True)
+            except KeyboardInterrupt:
+                pass
+    return 0
 
 
 def cmd_start(args) -> int:
@@ -301,9 +336,12 @@ def cmd_start(args) -> int:
 
     cfg = get_config()
     cfg.ensure_dirs()
+    cfg.logs_dir.mkdir(parents=True, exist_ok=True)
     logging.basicConfig(
         level=logging.DEBUG if cfg.debug else logging.INFO,
-        format="%(asctime)s %(name)s %(levelname)s %(message)s")
+        format="%(asctime)s %(name)s %(levelname)s %(message)s",
+        handlers=[logging.StreamHandler(),
+                  logging.FileHandler(cfg.logs_dir / "kubeml.log")])
     # a cluster over ranks: rank 0 boots the control plane, every other
     # rank follows its job announcements (JAX cli.py:805-825)
     if init_distributed(backend=args.backend, device=args.device) and \
@@ -484,6 +522,11 @@ def build_parser() -> argparse.ArgumentParser:
     cd = csub.add_parser("delete")
     cd.add_argument("--id", required=True)
     c.set_defaults(fn=cmd_checkpoint)
+
+    lg = sub.add_parser("logs", help="show cluster logs")
+    lg.add_argument("--id", default=None, help="filter by job id")
+    lg.add_argument("--follow", "-f", action="store_true")
+    lg.set_defaults(fn=cmd_logs)
 
     for name, module in _UNPORTED.items():
         u = sub.add_parser(name, help=f"not ported ({module})")

@@ -18,9 +18,14 @@ run_follower`` instead (JAX :42-55); its parameter server announces each
 job to the followers (and, under ``serving_mesh``, each meshed decoder:
 ``/generate`` over the first ranks of the group), and ``stop`` stops the
 running jobs and closes the meshed decoders before it releases the
-followers. Not ported: the preemption monitor (a set
-``preempt_monitor`` is refused with a 400), standalone runners and the
-telemetry sampler.
+followers.
+
+With ``preempt_monitor`` the cluster runs the preemption controller
+(``scheduler/preemption.py``): it watches the serving overload signals,
+preempts the lowest-priority training job and parks it until serving is
+calm. With ``standalone_jobs`` each job runs in a runner process of its
+own (``engine/job_runner.py``); ``stop`` ends them with SIGTERM, keeping
+their journal entries. Not ported: the telemetry sampler.
 """
 
 from __future__ import annotations
@@ -29,7 +34,6 @@ import logging
 from typing import Optional
 
 from .api.config import Config, get_config
-from .api.errors import KubeMLError
 from .controller.controller import Controller
 from .functions.registry import FunctionRegistry
 from .ps.parameter_server import ParameterServer
@@ -49,10 +53,6 @@ class LocalCluster:
     def __init__(self, config: Optional[Config] = None, device=None,
                  serve_http: bool = True):
         self.cfg = config or get_config()
-        if self.cfg.preempt_monitor:
-            raise KubeMLError("the preemption monitor (KUBEML_PREEMPT_MONITOR,"
-                              " scheduler/preemption.py) is not ported to "
-                              "kubeml_tpu_torch yet", 400)
         from .parallel.distributed import get_dist_context, process_count
 
         self.dist = None
@@ -73,6 +73,13 @@ class LocalCluster:
             dist=self.dist)
         self.scheduler = Scheduler(self.ps, config=self.cfg)
         self.ps.bind_scheduler(self.scheduler)
+        self.preemption = None
+        if self.cfg.preempt_monitor:
+            from .scheduler.preemption import PreemptionController
+
+            self.preemption = PreemptionController(
+                self.scheduler, self.ps, config=self.cfg)
+            self.scheduler.preemption = self.preemption
         self.controller = Controller(
             self.scheduler, self.ps, store=self.store,
             history_store=self.history_store, registry=self.registry,
@@ -83,6 +90,12 @@ class LocalCluster:
 
     def start(self, recover: bool = True) -> "LocalCluster":
         self.scheduler.start()
+        if self.preemption is not None:
+            self.preemption.start()
+            log.info("preemption controller running (queue>=%d, 429/s>=%g, "
+                     "p99>=%gs; grace %gs)", self.cfg.preempt_queue_depth,
+                     self.cfg.preempt_overload_rate, self.cfg.preempt_p99,
+                     self.cfg.preempt_grace)
         if self.serve_http:
             self.controller.start()
             self.cfg.controller_port = self.controller.service.port
@@ -113,6 +126,9 @@ class LocalCluster:
         # the scheduler: a job thread waiting for an epoch-end answer gives
         # up after update_timeout at the latest, and a stopped job answers
         # nobody
+        if self.preemption is not None:
+            self.preemption.stop()
+        self.ps.shutdown_standalone_jobs()
         self.ps.stop_running_jobs()
         self.ps.announce_shutdown()
         self.scheduler.stop()

@@ -1,5 +1,5 @@
 """Round loader: the host-side data pipeline feeding the K-AVG engine; the
-port's copy of ``kubeml_tpu/data/loader.py`` (numpy packing path).
+port's copy of ``kubeml_tpu/data/loader.py``.
 
 Each round's zero-copy mmap slices are assembled into one uniform
 ``[N, steps, B, ...]`` slab, built on a background thread one round ahead
@@ -7,7 +7,9 @@ of the consumer. Workers own sample ranges of slightly different sizes;
 ragged tails are zero-padded to the plan's shape and a ``[N, steps, B]``
 float mask (1.0 = real sample) marks the real samples. Over ranks a
 rank assembles only its block of worker rows (``worker_rows``), exactly
-those rows of the full slab.
+those rows of the full slab. The slabs are packed by the native parallel
+packer (``native.pack_rounds``; ``KUBEML_NATIVE_LOADER=0`` or no C++
+compiler: numpy, a counted fallback).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from ..api.config import get_config
+from ..native import pack_rounds
 from ..storage.store import DatasetHandle
 from .sharding import RoundPlan, plan_eval
 
@@ -50,19 +54,6 @@ def _worker_round_slice(handle: DatasetHandle, split: str, plan: RoundPlan,
     if a >= b:
         return None, None
     return handle.raw(split, "data")[a:b], handle.raw(split, "labels")[a:b]
-
-
-def _pack(dst: np.ndarray, srcs: List[Optional[np.ndarray]],
-          counts: List[int]) -> None:
-    """Fill ``dst [N, per_round, ...]``: worker w gets
-    ``srcs[w][:counts[w]]``, then zeros."""
-    per_round = dst.shape[1]
-    for w, (s, c) in enumerate(zip(srcs, counts)):
-        c = min(int(c), per_round) if s is not None else 0
-        if c > 0:
-            dst[w, :c] = s[:c]
-        if c < per_round:
-            dst[w, c:] = 0
 
 
 def build_round(handle: DatasetHandle, split: str, plan: RoundPlan,
@@ -103,8 +94,9 @@ def build_round(handle: DatasetHandle, split: str, plan: RoundPlan,
             x0, y0 = (np.asarray(a) for a in transform(x0, y0))
     X = np.empty((n, per_round, *x0.shape[1:]), x0.dtype)
     Y = np.empty((n, per_round, *y0.shape[1:]), y0.dtype)
-    _pack(X, xs, counts)
-    _pack(Y, ys, counts)
+    use_native = get_config().use_native_loader
+    pack_rounds(X, xs, counts, native=use_native)
+    pack_rounds(Y, ys, counts, native=use_native)
     M = np.zeros((n, per_round), np.float32)
     for w, c in enumerate(counts):
         M[w, : min(c, per_round)] = 1.0

@@ -113,6 +113,7 @@ class TrainJob:
         chaos: Optional[FailureInjector] = None,
         health_threshold: int = 3,
         dist=None,
+        on_epoch_weights: Optional[Callable[[dict, int], None]] = None,
     ):
         from ..parallel import distributed
 
@@ -137,6 +138,9 @@ class TrainJob:
         self._checkpoint_store = checkpoint_store
         self.on_epoch_end = on_epoch_end
         self.on_metrics = on_metrics
+        # (reference weights on the host, epoch) after each epoch on one
+        # rank: a standalone runner publishes them for live serving
+        self.on_epoch_weights = on_epoch_weights
         self.seed = seed
         self.parallelism = request.options.default_parallelism
         notes = []
@@ -326,6 +330,14 @@ class TrainJob:
                 if (opts.checkpoint_every > 0 and not yielding
                         and (epoch + 1) % opts.checkpoint_every == 0):
                     self._save_checkpoint(epoch)
+                if self.on_epoch_weights is not None and not self._multi:
+                    try:
+                        self.on_epoch_weights(
+                            self.trainer.reference_variables(
+                                self._stacked_vars), epoch)
+                    except Exception:
+                        log.exception("%s: epoch weights publish failed "
+                                      "(non-fatal)", self.job_id)
                 log.info(
                     "%s: epoch %d/%d loss=%.4f acc=%s parallelism=%d %.2fs",
                     self.job_id, epoch + 1, req.epochs, train_loss,

@@ -207,21 +207,28 @@ class RoundPrefetcher:
     ``trainer.stage_round``, which never waits on the card: on a CUDA
     trainer round i+1 crosses from pinned host memory on a side stream
     while round i computes (double buffering, the JAX engine's default
-    depth). Parallelism must stay fixed while iterating (it does within an
-    epoch)."""
+    depth). ``depth`` rounds are kept in flight (``dataplane_prefetch``,
+    ``KUBEML_DATAPLANE_PREFETCH``, by default; 0 stages each round just
+    before it computes). Parallelism must stay fixed while iterating (it
+    does within an epoch)."""
 
     def __init__(self, trainer: "KAvgTrainer", rounds: Iterable,
-                 n_workers: int):
+                 n_workers: int, depth: Optional[int] = None):
         self.trainer = trainer
         self.rounds = rounds
         self.n_workers = n_workers
+        if depth is None:
+            from ..api.config import get_config
+
+            depth = get_config().dataplane_prefetch
+        self.depth = max(0, int(depth))
 
     def __iter__(self):
         buf: deque = deque()
         for rb in self.rounds:
             buf.append((rb, self.trainer.stage_round(rb.x, rb.y, rb.mask,
                                                      self.n_workers)))
-            if len(buf) == 2:
+            if len(buf) > self.depth:
                 yield buf.popleft()
         while buf:
             yield buf.popleft()
@@ -330,9 +337,24 @@ class KAvgTrainer:
         ``(x, y, mask)`` for ``sync_round``: x and y on the device, the
         mask on the host (the round's step and worker decisions are made
         from it there). On the CPU a plain pass-through."""
-        x = self._cast_input(_as_tensor(batch_x))
+        if (self.precision == "bf16" and isinstance(batch_x, np.ndarray)
+                and batch_x.dtype == np.float32):
+            # the host cast through the native multithreaded pass (JAX
+            # :251-259): round to nearest even, as torch's cast
+            from ..native import f32_to_bf16
+
+            x = torch.from_numpy(f32_to_bf16(batch_x).view(np.int16)).view(
+                torch.bfloat16)
+        else:
+            x = self._cast_input(_as_tensor(batch_x))
         y = _as_tensor(batch_y)
         m = _as_tensor(mask).float()
+        # data-plane accounting: the host -> device bytes this round stages
+        # (the copy does not block, so bytes only)
+        from ..utils import profiler
+
+        profiler.account("stage_round", sum(
+            t.numel() * t.element_size() for t in (x, y, m)))
         if self.device.type != "cuda":
             return x.to(self.device), y.to(self.device), m
         if self._copy_stream is None:

@@ -5,7 +5,9 @@ shared library with a plain C interface, loaded with :mod:`ctypes`. The
 build runs at first use, into ``csrc/build/<hash of sources and flags>/``
 (listed in ``.gitignore``), one ``nvcc`` per source started together and
 then one link, so a fresh checkout builds everything the first time a
-kernel is launched. Nothing here runs at import time: this module imports
+kernel is launched. The build holds the directory's cross-process lock
+(``utils.buildlock``): processes that reach it at once (a parameter
+server and its job runners, the ranks of a group) build once. Nothing here runs at import time: this module imports
 on a host without ``nvcc`` or a card, where only the plain PyTorch versions
 run.
 
@@ -27,6 +29,8 @@ import threading
 import time
 from pathlib import Path
 from typing import List, Optional
+
+from ..utils.buildlock import build_lock
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = CSRC / "build"
@@ -119,21 +123,19 @@ def _build(out_dir: Path) -> Path:
     return so
 
 
-def library(build: bool = True) -> ctypes.CDLL:
-    """The loaded kernel library, built on first call. ``build=False``
-    loads a library another process built and raises if there is none:
-    ranks started after one build load it, so no two ``nvcc`` runs race
-    on the build directory."""
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call by the first
+    process to get here; the others load what it built."""
     global _lib
     with _lock:
         if _lib is None:
             so = BUILD_ROOT / _digest() / "libkubeml_kernels.so"
             if not so.exists():
-                if not build:
-                    raise RuntimeError(f"no built kernel library at {so}: "
-                                       f"build it once (library()) before "
-                                       f"starting the ranks")
-                so = _build(so.parent)
+                # one nvcc over the .o files at a time: a process that
+                # waited here loads what the holder built
+                with build_lock(so.parent):
+                    if not so.exists():
+                        _build(so.parent)
             lib = ctypes.CDLL(str(so))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)

@@ -17,9 +17,11 @@
 
 Every series goes by the JAX package's name and labels. HELP/TYPE
 headers render even with no series, so the exported metric set does not
-depend on traffic. Not ported: the SLO series, the resilience and
-data-plane counters (their modules wait for ``ROADMAP.md`` Queue 1
-item 7).
+depend on traffic. The data-plane counters (``utils.profiler``) render
+last; a standalone runner's counter deltas arrive as sequenced batches in
+its ``MetricUpdate.dataplane`` and are folded in at most once each (the
+job's sequence high-water mark, JAX :532-625). Not ported: the SLO series
+and the resilience counters.
 """
 
 from __future__ import annotations
@@ -374,6 +376,10 @@ class MetricsRegistry:
         self._queue_source: Optional[Callable[[], dict]] = None
         self._decision_source: Optional[Callable[[], dict]] = None
         self._serving_source: Optional[Callable[[], dict]] = None
+        # {job_id: highest applied dataplane batch seq}, oldest first: a
+        # runner re-sends a batch until a push is acknowledged, and a
+        # redelivered batch must not count twice
+        self._dp_applied: Dict[str, int] = {}
 
     def set_serving_source(self, source: Callable[[], dict]) -> None:
         self._serving_source = source
@@ -427,6 +433,22 @@ class MetricsRegistry:
 
     def update(self, u: MetricUpdate) -> None:
         """A job's per-epoch push."""
+        if u.dataplane:
+            from ..utils import profiler
+
+            with self._lock:
+                applied = self._dp_applied.get(u.job_id, 0)
+                fresh = [b for b in u.dataplane if isinstance(b, dict)
+                         and int(b.get("seq", 0)) > applied]
+                if fresh:
+                    self._dp_applied.pop(u.job_id, None)  # newest last
+                    self._dp_applied[u.job_id] = max(
+                        int(b["seq"]) for b in fresh)
+                    # a backstop only: clear() drops a finished job's mark
+                    while len(self._dp_applied) > 4096:
+                        self._dp_applied.pop(next(iter(self._dp_applied)))
+            for b in fresh:
+                profiler.merge_counters(b.get("phases") or {})
         with self._lock:
             jid = u.job_id
             self._values[("kubeml_job_validation_loss", jid)] = \
@@ -497,6 +519,8 @@ class MetricsRegistry:
         with self._lock:
             for key in [k for k in self._values if k[1] == job_id]:
                 del self._values[key]
+            # the runner ends with its job: no more redeliveries
+            self._dp_applied.pop(job_id, None)
 
     def get(self, metric: str, job_id: str) -> float:
         with self._lock:
@@ -592,4 +616,7 @@ class MetricsRegistry:
                     if snap:
                         lines += render_histogram(metric, snap, "model", m,
                                                   extra)
+        from ..utils import profiler
+
+        lines += profiler.render_metrics()
         return "\n".join(lines) + "\n"

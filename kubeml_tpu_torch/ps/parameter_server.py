@@ -100,12 +100,35 @@ before it lets go (``serving.batcher.send_pending_closes``).
 :meth:`announce_shutdown` closes the meshed decoders before it releases
 the followers.
 
-Not ported yet, each refused with a 400 that names it: standalone job
-runners (``standalone_jobs``; over ranks JAX's own refusal) and serving
-a job's epoch checkpoints before its final export. The heartbeat monitor
-of hung threaded jobs, traces and the time-series store are not ported
-either. An unknown id is a 404. The server runs on the card unless given
-``device="cpu"``.
+Standalone jobs (``standalone_jobs``; JAX :303-600): each job runs in a
+runner process of its own (``engine/job_runner.py``, the reference's job
+pod), spawned with the server's device (the kernel and the native
+libraries are built first, so no runner compiles), which prints
+``LISTENING <port>`` and takes the task on ``/start``; ``/update``,
+``/stop`` and ``/preempt`` go to the runner's routes, the runner reports
+its end on ``/finish/{jobId}`` (:meth:`finish_standalone`) and
+:meth:`shutdown_standalone_jobs` ends them at shutdown. A preempted runner
+that has not yielded within the grace gets a SIGKILL. Over ranks
+``standalone_jobs`` is JAX's 400. A live standalone job's ``/infer`` is
+served here (JAX :1163-1212, :1455-1560), in JAX's order: from the
+runner's tensor socket (``native.weights.fetch_variables`` through a
+per-job ``FetchCache``), else by pulling its weights on the KMW1 wire
+(``GET /weights?since=N`` into a per-job ``DeltaDecoder``, re-pulled in
+full on ``BaseVersionMismatch``), else the runner's own JSON ``/infer``;
+:attr:`ParameterServer.infer_routes` counts the answers by route
+(``socket``, ``wire``, ``json``). ``/generate`` is forwarded to the
+runner.
+
+The liveness monitor (``_monitor_loop``, every 2 s while jobs run) fails
+a standalone job whose runner died without reporting (its slot freed; a
+preempted one keeps its journal and is requeued) and a threaded job whose
+heartbeat is older than ``function_timeout`` (twice that before its first
+round); the wedged thread is abandoned. Jobs over ranks have the stall
+watchdog on every rank instead.
+
+A model id with epoch checkpoints but no final export and no live record
+is a 404, as in JAX. Traces and the time-series store are not ported. The
+server runs on the card unless given ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -123,7 +146,7 @@ import torch
 
 from ..api.config import Config, get_config
 from ..api.errors import (CheckpointNotFoundError, JobNotFoundError,
-                          KubeMLError, StorageError)
+                          KubeMLError, error_from_envelope)
 from ..api.types import (GenerateRequest, History, JobState, JobStateEnum,
                          TrainTask, generate_timeout)
 from ..engine import job_class_for
@@ -156,10 +179,6 @@ SERVING_CACHE_SIZE = 4
 DECODER_CACHE_SIZE = 2
 
 
-def _not_ported(what: str) -> KubeMLError:
-    return KubeMLError(f"{what} is not ported to kubeml_tpu_torch yet", 400)
-
-
 @dataclass
 class _UpdateBox:
     """One pending epoch-end answer of the scheduler."""
@@ -179,6 +198,11 @@ class _JobRecord:
     keep_journal: bool = False
     # wall time of the first preempt request (None: never preempted)
     preempt_t0: Optional[float] = None
+    # a standalone job: its runner process (subprocess.Popen) and URL
+    proc: Optional[object] = None
+    url: Optional[str] = None
+    # its seconds from the spawn to the LISTENING line
+    listening_s: Optional[float] = None
 
 
 class ParameterServer:
@@ -215,6 +239,17 @@ class ParameterServer:
         self._dist_lock = threading.RLock()
         self._dist_run = 0  # per-announcement nonce of the ack keys
         self._mesh_axes = None  # serving_mesh's axes once checked
+        self._monitor: Optional[threading.Thread] = None  # liveness watch
+        # a live standalone job's weights: (model, tree, version,
+        # FetchCache) from its tensor socket, and (model, tree,
+        # DeltaDecoder) from its KMW1 wire; a decode holds the job's lock
+        # (the decoder is stateful)
+        self._socket_cache: Dict[str, tuple] = {}
+        self._wire_cache: Dict[str, tuple] = {}
+        self._wire_locks: Dict[str, threading.Lock] = {}
+        # live standalone /infer answers by route
+        self.infer_routes: Dict[str, int] = {"socket": 0, "wire": 0,
+                                             "json": 0}
 
     @property
     def world(self) -> int:
@@ -235,7 +270,8 @@ class ParameterServer:
                     "standalone job runners are a single-host deployment "
                     "mode; training over ranks runs jobs threaded on every "
                     "rank", 400)
-            raise _not_ported("standalone job runners (STANDALONE_JOBS)")
+            self._start_standalone(task)
+            return
         req = task.parameters
         placeholder = self._reserve_slot(task)
         try:
@@ -264,6 +300,7 @@ class ParameterServer:
         task.status = JobStateEnum.RUNNING
         self.metrics.task_started("train")
         thread.start()
+        self._ensure_monitor()
 
     def _reserve_slot(self, task: TrainTask) -> _JobRecord:
         """Take the job's index slot (a duplicate id is a 400), drop a
@@ -274,6 +311,8 @@ class ParameterServer:
                 raise KubeMLError(f"job {task.job_id} already exists", 400)
             self._jobs[task.job_id] = placeholder
             self._serving_cache.pop(task.job_id, None)
+            self._socket_cache.pop(task.job_id, None)
+            self._wire_cache.pop(task.job_id, None)
         try:
             self._journal.record(task.job_id, task.parameters)
         except Exception:
@@ -304,6 +343,248 @@ class ParameterServer:
         self.history_store.save(History(
             id=task.job_id,
             task={"request": task.parameters.to_dict(), "error": str(error)}))
+
+    # --- standalone runners (JAX :303-600) ---
+
+    def _start_standalone(self, task: TrainTask) -> None:
+        """Spawn the job's runner on this server's device, read its port,
+        hand it the task (with retries, one idempotency key)."""
+        import subprocess
+        import sys
+        import uuid
+
+        from ..native import native_available
+        from ..utils import http_client
+
+        placeholder = self._reserve_slot(task)
+        try:
+            if self.device.type == "cuda":
+                # the runners load the kernels; none compiles them
+                from ..ops import kernels
+
+                kernels.library()
+            native_available()  # built here, so no runner falls back
+            env = dict(os.environ, KUBEML_DATA_ROOT=str(self.cfg.data_root),
+                       KUBEML_HOST=self.cfg.host,
+                       KUBEML_SCHEDULER_PORT=str(self.cfg.scheduler_port),
+                       KUBEML_PS_PORT=str(self.cfg.ps_port))
+            t0 = time.monotonic()
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "kubeml_tpu_torch.engine.job_runner",
+                 "--job-id", task.job_id, "--port", "0",
+                 "--device", str(self.device)],
+                stdout=subprocess.PIPE, text=True, env=env)
+            # the runner prints its port first; a crashed one gives EOF
+            line = proc.stdout.readline().strip()
+            listening_s = time.monotonic() - t0
+            if not line.startswith("LISTENING "):
+                proc.kill()
+                proc.wait()
+                raise KubeMLError(
+                    f"job runner for {task.job_id} failed to start: "
+                    f"{line!r}", 500)
+            url = f"http://{self.cfg.advertise_host}:{int(line.split()[1])}"
+            # user code prints into the pipe: drain it into the log, or the
+            # runner blocks once it fills
+            threading.Thread(target=self._drain_runner_output,
+                             args=(task.job_id, proc.stdout),
+                             name=f"job-{task.job_id}-stdout",
+                             daemon=True).start()
+            # routable before the task is handed over: a job that fails at
+            # once posts /finish at once
+            with self._lock:
+                placeholder.proc = proc
+                placeholder.url = url
+                placeholder.listening_s = listening_s
+            last = None
+            start_key = uuid.uuid4().hex
+            for attempt in range(10):
+                try:
+                    r = http_client.post(f"{url}/start", json=task.to_dict(),
+                                         timeout=http_client.timeouts(30),
+                                         idempotency_key=start_key)
+                    if r.status_code < 400:
+                        break
+                    last = r.text
+                except http_client.TransportError as e:
+                    last = str(e)
+                time.sleep(0.2 * (attempt + 1))
+            else:
+                proc.kill()
+                raise KubeMLError(f"could not start job {task.job_id} on "
+                                  f"its runner: {last}", 500)
+        except Exception as e:
+            self._fail_start(task, e)
+            raise
+        task.status = JobStateEnum.RUNNING
+        self.metrics.task_started("train")
+        self._ensure_monitor()
+        log.info("standalone job %s running at %s (pid %d, LISTENING after "
+                 "%.2fs)", task.job_id, url, proc.pid, listening_s)
+
+    def _fail_dead_record(self, job_id: str, record: _JobRecord,
+                          error: str) -> bool:
+        """The teardown of a job whose runner or thread died without
+        finishing: a stale record is left alone, a preempted one ends
+        ``preempted`` (its journal and checkpoint resume it), any other is
+        failed with a history."""
+        with self._lock:
+            if self._jobs.get(job_id) is not record:
+                return False
+        if record.preempt_t0 is not None:
+            log.warning("preempted job %s terminated before a clean yield "
+                        "(%s); resuming from its newest checkpoint", job_id,
+                        error)
+            record.task.status = JobStateEnum.PREEMPTED
+            return self._finish(job_id, expect=record)
+        record.task.status = JobStateEnum.FAILED
+        self._ensure_failure_history(job_id, record.task.parameters, error)
+        return self._finish(job_id, expect=record)
+
+    def _handle_runner_death(self, job_id: str, record: _JobRecord) -> bool:
+        """A runner that exited without its /finish (a crash, a kill, or its
+        stall watchdog's exit 74)."""
+        from ..utils.watchdog import STALL_EXIT_CODE
+
+        rc = record.proc.returncode
+        if rc == STALL_EXIT_CODE:
+            msg = (f"job runner stalled (no progress within "
+                   f"KUBEML_FUNCTION_TIMEOUT) and recycled itself (exit "
+                   f"{rc}): the card was released with the process")
+        else:
+            msg = f"job runner exited with code {rc}"
+        handled = self._fail_dead_record(job_id, record, msg)
+        if handled:
+            log.error("standalone job %s runner exited (code %s) without "
+                      "reporting; marked failed", job_id, rc)
+        return handled
+
+    def _ensure_monitor(self) -> None:
+        """Start the liveness monitor unless it runs."""
+        with self._lock:
+            if self._monitor is not None and self._monitor.is_alive():
+                return
+            self._monitor = threading.Thread(
+                target=self._monitor_loop, name="ps-job-monitor", daemon=True)
+            self._monitor.start()
+
+    def _monitor_loop(self) -> None:
+        while True:
+            time.sleep(2.0)
+            with self._lock:
+                records = list(self._jobs.items())
+                if not records:
+                    self._monitor = None  # a new job starts it again
+                    return
+            timeout = self.cfg.function_timeout
+            for jid, record in records:
+                if record.proc is not None:
+                    if record.proc.poll() is not None:
+                        self._handle_runner_death(jid, record)
+                    continue
+                job = record.job
+                if not (timeout and timeout > 0 and job is not None
+                        and record.thread is not None
+                        and record.thread.is_alive()):
+                    continue
+                if getattr(job, "dist", None) is not None:
+                    continue  # over ranks: the stall watchdog's
+                hb = getattr(job, "heartbeat", None)
+                if hb is None:
+                    continue
+                stale = time.time() - hb
+                # twice the allowance before the first round lands
+                allowed = timeout * (2.0 if getattr(job, "heartbeat_cold",
+                                                    False) else 1.0)
+                if stale > allowed:
+                    self._handle_wedged_job(jid, record, stale, timeout,
+                                            allowed)
+
+    def _handle_wedged_job(self, job_id: str, record: _JobRecord,
+                           stale: float, timeout: float,
+                           allowed: float) -> None:
+        """Fail a threaded job whose user code stopped making progress: the
+        thread is abandoned (Python cannot kill it), the job failed and its
+        slot freed."""
+        try:
+            record.job.stop()  # cooperative; a wedged thread ignores it
+        except Exception:
+            pass
+        extra = (f", cold-start allowance {allowed:g}s"
+                 if allowed != timeout else "")
+        handled = self._fail_dead_record(
+            job_id, record,
+            f"job made no progress for {stale:.0f}s (function execution "
+            f"timeout {timeout:g}s; KUBEML_FUNCTION_TIMEOUT{extra}) — user "
+            f"code abandoned")
+        if handled:
+            log.error("job %s: heartbeat stale for %.0fs; thread abandoned "
+                      "and job marked failed", job_id, stale)
+
+    @staticmethod
+    def _drain_runner_output(job_id: str, stream) -> None:
+        try:
+            for line in stream:
+                log.info("[job %s] %s", job_id, line.rstrip())
+        except (ValueError, OSError):
+            pass  # closed at the reap
+
+    def finish_standalone(self, job_id: str, status: str = "",
+                          error: Optional[str] = None) -> None:
+        """``/finish/{jobId}``, a runner's report of its end (JAX
+        :493-510); a 404 for a threaded or unknown job."""
+        with self._lock:
+            record = self._jobs.get(job_id)
+        if record is None or record.proc is None:
+            raise JobNotFoundError(job_id)
+        record.task.status = {
+            "finished": JobStateEnum.FINISHED,
+            "stopped": JobStateEnum.STOPPED,
+            "failed": JobStateEnum.FAILED,
+            "preempted": JobStateEnum.PREEMPTED,
+        }.get(status, JobStateEnum.FINISHED if not error
+              else JobStateEnum.FAILED)
+        if record.task.status == JobStateEnum.PREEMPTED:
+            # preempted on the runner's own route: the journal survives
+            record.keep_journal = True
+        self._finish(job_id)
+        self._reap(record)
+
+    def _reap(self, record: _JobRecord) -> None:
+        def reap():
+            try:
+                record.proc.wait(timeout=30)
+            except Exception:
+                record.proc.kill()
+
+        threading.Thread(target=reap, name="job-reaper", daemon=True).start()
+
+    def shutdown_standalone_jobs(self) -> None:
+        """SIGTERM every live runner (cluster stop); their journals stay
+        for the next boot's resume."""
+        with self._lock:
+            records = [r for r in self._jobs.values() if r.proc is not None]
+        for r in records:
+            r.keep_journal = True
+            try:
+                r.proc.terminate()
+            except Exception:
+                pass
+
+    def _runner_call(self, job_id: str, record: _JobRecord, method: str,
+                     route: str, **kw):
+        """One call to a runner's route: a 502 when it cannot be reached,
+        its own error when it answers one."""
+        from ..utils import http_client
+
+        try:
+            r = http_client.request(method, f"{record.url}{route}",
+                                    timeout=http_client.timeouts(10), **kw)
+        except http_client.TransportError as e:
+            raise KubeMLError(f"job {job_id} runner unreachable: {e}", 502)
+        if r.status_code >= 400:
+            raise error_from_envelope(r.content, r.status_code)
+        return r
 
     def _run_job(self, task: TrainTask, job: TrainJob,
                  record: Optional[_JobRecord] = None) -> None:
@@ -397,6 +678,10 @@ class ParameterServer:
                                   and record is not expect):
                 return False
             self._jobs.pop(job_id, None)
+            # the socket and the wire end with the runner
+            self._socket_cache.pop(job_id, None)
+            self._wire_cache.pop(job_id, None)
+            self._wire_locks.pop(job_id, None)
         if not record.keep_journal:
             try:
                 self._journal.clear(job_id)
@@ -457,6 +742,17 @@ class ParameterServer:
             record = self._jobs.get(job_id)
         if record is None:
             raise JobNotFoundError(job_id)
+        if record.url is not None:
+            from ..utils import http_client
+
+            try:
+                http_client.post(f"{record.url}/update",
+                                 json={"parallelism": parallelism},
+                                 timeout=http_client.timeouts(10),
+                                 idempotency_key=True)
+            except http_client.TransportError as e:
+                log.warning("job %s: update delivery failed: %s", job_id, e)
+            return
         box = record.update_box
         if box is None:
             log.warning("job %s: update with no pending epoch-end request",
@@ -547,14 +843,22 @@ class ParameterServer:
         if first:
             record.preempt_t0 = time.time()
         record.keep_journal = True
-        if record.job is None:
+        try:
+            if record.url is not None:
+                self._runner_call(job_id, record, "POST", "/preempt",
+                                  idempotency_key=True)
+            elif record.job is None:
+                raise KubeMLError(f"job {job_id} is still starting", 409)
+            else:
+                record.job.preempt()
+                if record.update_box is not None:
+                    # the yield must not wait out the scheduler's answer
+                    record.update_box.event.set()
+        except Exception:
+            # the signal never reached the job: a retry is again the first
             if first:
                 record.preempt_t0 = None
-            raise KubeMLError(f"job {job_id} is still starting", 409)
-        record.job.preempt()
-        if record.update_box is not None:
-            # the yield must not wait out the scheduler's answer
-            record.update_box.event.set()
+            raise
         if first:
             self.metrics.preemption(reason)
             log.info("preempting job %s (%s; grace %.0fs)", job_id, reason,
@@ -567,9 +871,9 @@ class ParameterServer:
     def _preempt_grace_watch(self, job_id: str, record: _JobRecord,
                              grace: float) -> None:
         """A preempted job that has not freed its slot within ``grace`` is
-        abandoned with the ``preempted`` status (its thread stopped
-        cooperatively): the journal entry and its newest checkpoint keep
-        it resumable."""
+        ended with the ``preempted`` status (a runner gets a SIGKILL, a
+        thread is stopped cooperatively and abandoned): the journal entry
+        and its newest checkpoint keep it resumable."""
         deadline = record.preempt_t0 + max(0.0, grace)
         while time.time() < deadline:
             with self._lock:
@@ -584,10 +888,17 @@ class ParameterServer:
                     "checkpoint)", job_id, grace)
         self.metrics.preemption("hard-kill")
         record.task.status = JobStateEnum.PREEMPTED
-        try:
-            record.job.stop()
-        except Exception:
-            pass
+        if record.proc is not None:
+            try:
+                record.proc.kill()
+            except Exception:
+                pass
+            self._reap(record)
+        else:
+            try:
+                record.job.stop()
+            except Exception:
+                pass
         self._finish(job_id, expect=record)
 
     def stop_task(self, job_id: str) -> None:
@@ -596,16 +907,32 @@ class ParameterServer:
             record = self._jobs.get(job_id)
         if record is None:
             raise JobNotFoundError(job_id)
+        if record.url is not None:
+            self._runner_call(job_id, record, "DELETE", "/stop")
+            return
         if record.job is None:
             raise KubeMLError(f"job {job_id} is still starting", 409)
         record.job.stop()
 
     def wait(self, job_id: str, timeout: Optional[float] = None) -> bool:
-        """Join a job's thread; True once it has ended (or no such job)."""
+        """Join a job's thread, or poll a standalone job's record until its
+        runner reports; True once it has ended (or no such job)."""
         with self._lock:
             record = self._jobs.get(job_id)
         if record is None:
             return True
+        if record.proc is not None:
+            deadline = time.time() + (timeout if timeout is not None
+                                      else 3600.0)
+            while time.time() < deadline:
+                with self._lock:
+                    if self._jobs.get(job_id) is not record:
+                        return True
+                if record.proc.poll() is not None:
+                    self._handle_runner_death(job_id, record)
+                    return True
+                time.sleep(0.1)
+            return False
         if record.thread is None:
             return False  # still starting
         try:
@@ -615,12 +942,17 @@ class ParameterServer:
         return not record.thread.is_alive()
 
     def prune_tasks(self) -> int:
-        """``kubeml task prune``: tear down records whose job thread died
-        without finishing; returns the count."""
+        """``kubeml task prune``: tear down records whose job thread or
+        runner died without finishing; returns the count."""
         with self._lock:
             candidates = list(self._jobs.items())
         pruned = 0
         for job_id, record in candidates:
+            if record.proc is not None:
+                if (record.proc.poll() is not None
+                        and self._handle_runner_death(job_id, record)):
+                    pruned += 1
+                continue
             if (record.thread is not None and record.thread.ident is not None
                     and not record.thread.is_alive()):
                 with self._lock:
@@ -666,13 +998,6 @@ class ParameterServer:
                 send_pending_closes()
                 self.dist.broadcast_obj({"cmd": "shutdown"})
 
-    def finish_standalone(self, job_id: str, status: str = "",
-                          error: Optional[str] = None) -> None:
-        """``/finish/{jobId}``, a standalone runner's callback: the port
-        runs threaded jobs only, so no record has a runner (a 404, as the
-        JAX server answers for a threaded job)."""
-        raise JobNotFoundError(job_id)
-
     # --- /infer and /generate ---
 
     def infer(self, model_id: str, data) -> list:
@@ -682,11 +1007,144 @@ class ParameterServer:
             record = self._jobs.get(model_id)
         if record is None:
             return self._infer_from_checkpoint(model_id, data)
+        if record.url is not None:
+            return self._infer_standalone(model_id, record, data)
         if record.job is None:
             raise KubeMLError(f"job {model_id} is still starting", 503)
         self.metrics.task_started("inference")
         try:
-            return np.asarray(record.job.infer(np.asarray(data))).tolist()
+            return np.asarray(record.job.infer(json_batch(data))).tolist()
+        finally:
+            self.metrics.task_finished("inference")
+
+    # --- a live standalone job's /infer (JAX :1163-1212, :1455-1560) ---
+
+    def _infer_standalone(self, model_id: str, record: _JobRecord,
+                          data) -> list:
+        """The runner's tensor socket, else its KMW1 wire, else its JSON
+        ``/infer``; :attr:`infer_routes` counts the route that answered."""
+        for route, fetch in (("socket", self._socket_weights),
+                             ("wire", self._wire_weights)):
+            try:
+                got = fetch(model_id, record)
+            except Exception:
+                log.debug("%s weights of %s failed; next route", route,
+                          model_id, exc_info=True)
+                continue
+            if got is not None:
+                out = self._infer_live(record, got[0], got[1], data)
+                self._count_route(route)
+                return out
+        r = self._runner_call(model_id, record, "POST", "/infer",
+                              json={"data": data})
+        self._count_route("json")
+        return r.json()["predictions"]
+
+    def _count_route(self, route: str) -> None:
+        with self._lock:
+            self.infer_routes[route] += 1
+
+    def _socket_weights(self, model_id: str, record: _JobRecord):
+        """(model, host tree) of the runner's newest published epoch from
+        its tensor socket, pulling only the leaves whose version moved; an
+        epoch cached here serves while a publish is in progress. None when
+        the socket is off or absent or nothing was published."""
+        if not self.cfg.tensor_sockets:
+            return None
+        sock = self.cfg.job_socket_path(model_id)
+        if not sock.exists():
+            return None
+        from ..native.bindings import TensorClient
+        from ..native.weights import (FetchCache, fetch_variables,
+                                      read_version)
+
+        with self._lock:
+            cached = self._socket_cache.get(model_id)
+        with TensorClient(str(sock), timeout=10) as client:
+            version = read_version(client)
+            if version is None:
+                if cached is None:
+                    return None
+            elif cached is None or cached[2] != version:
+                fetch_cache = (cached[3] if cached is not None
+                               else FetchCache())
+                variables, version = fetch_variables(client,
+                                                     cache=fetch_cache)
+                if variables is None:
+                    return None
+                model = self.registry.load(
+                    record.task.parameters.function_name)
+                cached = (model, variables, version, fetch_cache)
+                with self._lock:
+                    self._socket_cache[model_id] = cached
+        return cached[0], cached[1]
+
+    def _wire_weights(self, model_id: str, record: _JobRecord):
+        """(model, host tree) pulled over the runner's ``GET /weights``:
+        one 204 while current, the delta when one version behind, a full
+        snapshot otherwise (and after a ``BaseVersionMismatch``). None
+        before the runner published anything."""
+        from ..engine import dataplane
+        from ..engine.dataplane import BaseVersionMismatch, DeltaDecoder
+        from ..utils import http_client
+
+        with self._lock:
+            wire_lock = self._wire_locks.setdefault(model_id,
+                                                    threading.Lock())
+            cached = self._wire_cache.get(model_id)
+        # the GET runs outside the job's lock: only the decode and the
+        # cache swap need it
+        since_v = cached[2].version if cached is not None else None
+        url = f"{record.url}/weights"
+        since = f"?since={since_v}" if since_v is not None else ""
+        r = http_client.get(url + since, timeout=http_client.timeouts(60))
+        if r.status_code == 404:
+            return None
+        if r.status_code >= 400:
+            raise error_from_envelope(r.content, r.status_code)
+        if r.status_code == 204:
+            return cached[0], cached[1]
+        target = int(r.headers.get(dataplane.VERSION_HEADER.lower(), "0"))
+        # the model before the decode: the decoder advances in place, and
+        # nothing that can raise may follow it
+        model = self.registry.load(record.task.parameters.function_name)
+        with wire_lock:
+            with self._lock:
+                cached = self._wire_cache.get(model_id)
+            decoder = cached[2] if cached is not None else DeltaDecoder()
+            if cached is not None and decoder.version == target:
+                return cached[0], cached[1]  # decoded meanwhile
+            try:
+                variables, _ = decoder.decode(r.content)
+            except BaseVersionMismatch:
+                # the runner keeps one delta step: a full snapshot, a fresh
+                # chain
+                decoder = DeltaDecoder()
+                r = http_client.get(url, timeout=http_client.timeouts(60))
+                if r.status_code >= 400:
+                    return None
+                variables, _ = decoder.decode(r.content)
+            with self._lock:
+                self._wire_cache[model_id] = (model, variables, decoder)
+        return model, variables
+
+    def _infer_live(self, record: _JobRecord, model, variables, data) -> list:
+        """``model.infer`` on a live job's host tree (the port's layout), on
+        this server's device, the input cast as the job's trainer casts
+        it."""
+        bf16 = record.task.parameters.options.precision == "bf16"
+        self.metrics.task_started("inference")
+        try:
+            with torch.no_grad():
+                dev_vars = {c: {k: torch.as_tensor(v).to(self.device)
+                                for k, v in leaves.items()}
+                            for c, leaves in variables.items()}
+                model.module.to(self.device)
+                x = torch.as_tensor(json_batch(data)).to(self.device)
+                if bf16 and x.is_floating_point():
+                    x = x.to(torch.bfloat16)
+                out = model.infer(dev_vars, model.preprocess(x))
+            return out.cpu().numpy().tolist()
         finally:
             self.metrics.task_finished("inference")
 
@@ -701,7 +1159,7 @@ class ParameterServer:
         self.metrics.task_started("inference")
         try:
             with torch.no_grad():
-                x = torch.as_tensor(np.asarray(data)).to(self.device)
+                x = torch.as_tensor(json_batch(data)).to(self.device)
                 out = model.infer(variables, model.preprocess(x))
             return out.cpu().numpy().tolist()
         finally:
@@ -717,6 +1175,20 @@ class ParameterServer:
             req = GenerateRequest.parse_request({**req, "model_id": model_id})
         with self._lock:
             record = self._jobs.get(model_id)
+        if record is not None and record.url is not None:
+            from ..utils import http_client
+
+            # the runner serves one-shot only: forwarded unstreamed, the
+            # answer re-wrapped for a streaming client
+            fwd = {**req.to_dict(), "stream": False}
+            try:
+                r = http_client.post(
+                    f"{record.url}/generate", json=fwd,
+                    timeout=http_client.timeouts(generate_timeout(req)))
+            except http_client.TransportError as e:
+                raise KubeMLError(f"job {model_id} runner unreachable: {e}",
+                                  502)
+            return self._maybe_stream(http_client.check(r), req)
         if record is not None:
             if record.job is None:
                 raise KubeMLError(f"job {model_id} is still starting", 503)
@@ -1037,6 +1509,12 @@ class ParameterServer:
 
         return one(tree)
 
+    def serving_telemetry(self) -> dict:
+        """{model_id: telemetry} of the resident decoders: the overload
+        signals the preemption controller polls (queue depth, 429
+        counters, request p99)."""
+        return self._serving_telemetry()
+
     def _serving_telemetry(self) -> dict:
         """{model_id: telemetry} of the resident decoders (the serving
         source of ``metrics.render()``)."""
@@ -1220,14 +1698,7 @@ class ParameterServer:
                 cached = None  # deleted or replaced since it was cached
                 self._serving_cache.pop(model_id, None)
         if mtime is None:
-            try:
-                live = bool(self._ckpt_store.epochs(model_id))
-            except StorageError:
-                live = False
-            if live:
-                raise _not_ported(
-                    f"serving job {model_id!r} before its final export "
-                    f"(live jobs)")
+            # epoch checkpoints alone do not serve (JAX :1896-1897)
             raise JobNotFoundError(model_id)
         if cached is None:
             cached = self._build_serving(model_id, kind, tag, mtime)
@@ -1236,6 +1707,13 @@ class ParameterServer:
                 while len(self._serving_cache) > SERVING_CACHE_SIZE:
                     self._serving_cache.pop(next(iter(self._serving_cache)))
         return cached
+
+
+def json_batch(data) -> np.ndarray:
+    """A request's JSON array as a host batch: float64 (what JSON numbers
+    parse to) as float32, as JAX's default dtypes take it."""
+    x = np.asarray(data)
+    return x.astype(np.float32) if x.dtype == np.float64 else x
 
 
 class NotMeshable(ValueError):

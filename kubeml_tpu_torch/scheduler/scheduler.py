@@ -8,10 +8,10 @@ answer reaches it through the PS (``ParameterServer.update_task``).
 
 A request the cluster cannot run (``TrainOptions.check_ported`` over the
 parameter server's ranks: an SPMD mesh that does not divide them) is
-refused with a 400 at submission. A preempted job is requeued
-at once with
-``resume=True`` (the preemption monitor, which would park it until
-serving pressure clears, is not ported).
+refused with a 400 at submission. A preempted job is requeued at once
+with ``resume=True``, or, with a preemption controller bound
+(``preemption``, ``KUBEML_PREEMPT_MONITOR``), parked until serving
+pressure clears.
 """
 
 from __future__ import annotations
@@ -55,6 +55,9 @@ class Scheduler:
             limit_parallelism=self.cfg.limit_parallelism)
         # device-seconds per tenant, charged from every epoch-end report
         self.usage = TenantUsage()
+        # the preemption controller (scheduler/preemption.py) when the
+        # monitor runs: it parks preempted jobs; None requeues them at once
+        self.preemption = None
         self.queue = TaskQueue(usage=self.usage)
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -113,11 +116,15 @@ class Scheduler:
             self._active_ids.discard(job_id)
 
     def job_preempted(self, task: TrainTask) -> None:
-        """A preempted job's slot freed: requeue it with ``resume=True``.
+        """A preempted job's slot freed: park it with the preemption
+        controller when one is bound, else requeue it with ``resume=True``.
         A failure is logged; the journal keeps the job for the next boot."""
         req = TrainRequest.from_dict(task.parameters.to_dict())
         req.job_id = task.job_id
         req.options.resume = True
+        if self.preemption is not None:
+            self.preemption.park(task.job_id, req)
+            return
         try:
             self.submit_train(req)
             log.info("requeued preempted job %s (resume=True)", task.job_id)

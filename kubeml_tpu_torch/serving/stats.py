@@ -80,7 +80,8 @@ class Histogram:
 
 class Series:
     """A bounded ring of ``(t, cumulative value)`` samples of one counter,
-    queried for its increase and rate over a trailing window."""
+    queried for its increase and rate over a trailing window (the counter
+    queries of JAX's ``utils/timeseries.py::Series``)."""
 
     __slots__ = ("_samples", "_lock")
 
@@ -97,10 +98,22 @@ class Series:
         with self._lock:
             return list(self._samples)
 
-    def increase(self, window: float, now: float) -> float:
+    def samples(self, window: Optional[float] = None,
+                now: Optional[float] = None) -> List[Tuple[float, float]]:
+        """The samples with ``t >= now - window`` (all without a
+        window)."""
+        out = self._snap()
+        if window is None:
+            return out
+        cut = now - float(window)
+        return [s for s in out if s[0] >= cut]
+
+    def increase(self, window: float, now: float,
+                 reset: str = "count") -> float:
         """The sum of positive steps in ``[now - window, now]``, anchored at
-        the last sample at or before the window start (a negative step is
-        a reset, and its new value counts)."""
+        the last sample at or before the window start. A negative step is
+        a reset: ``reset="count"`` counts the new value, ``"clamp"`` counts
+        nothing (for a sum of counters whose parts can disappear)."""
         cut = now - float(window)
         base, inc, prev = None, 0.0, None
         for t, v in self._snap():
@@ -110,18 +123,21 @@ class Series:
             if prev is None:
                 prev = base if base is not None else v
             d = v - prev
-            inc += d if d >= 0 else v
+            if d >= 0:
+                inc += d
+            elif reset == "count":
+                inc += v
             prev = v
         return inc
 
     def rate(self, window: float, now: float,
-             span: Optional[str] = None) -> float:
+             span: Optional[str] = None, reset: str = "count") -> float:
         """``increase / window``; ``span="elapsed"`` divides by the time
         the window's samples actually cover (a fresh burst reads as its
         burst rate)."""
-        inc = self.increase(window, now)
+        inc = self.increase(window, now, reset=reset)
         if span == "elapsed":
-            inside = [s for s in self._snap() if s[0] >= now - window]
+            inside = self.samples(window, now)
             if not inside:
                 return 0.0
             denom = max(now - inside[0][0], 1e-3)

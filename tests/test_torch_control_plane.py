@@ -487,10 +487,26 @@ def test_cli_commands(cluster, tmp_path, capsys):
     assert run_cli(capsys, url, "dataset", "delete", "-n", "blobs")[0] == 0
     assert run_cli(capsys, url, "function", "delete", "-n", "lenet")[0] == 0
     for argv in (("trace", jid), ("slo",), ("top",), ("profile", jid),
-                 ("logs",), ("dataset", "create-text", "-n", "t"),
+                 ("dataset", "create-text", "-n", "t"),
                  ("generate", "-n", jid, "--text", "hi")):
         rc, _, err = run_cli(capsys, url, *argv)
         assert rc == 2 and "not ported" in err, argv
+    # `logs` is ported: the cluster log (which `cli start` writes) filtered
+    # by the id, and a missing log reported as JAX's command reports it
+    from kubeml_tpu_torch.api import config as port_cfg
+
+    saved = port_cfg.get_config()
+    port_cfg.set_config(Config(data_root=tmp_path / "logsroot"))
+    try:
+        rc, _, err = run_cli(capsys, url, "logs", "--id", jid)
+        assert rc == 1 and "no log file at" in err
+        logs = tmp_path / "logsroot" / "logs"
+        logs.mkdir(parents=True)
+        (logs / "kubeml.log").write_text(f"a {jid} epoch 1/1\nother job\n")
+        rc, out, _ = run_cli(capsys, url, "logs", "--id", jid)
+        assert rc == 0 and out == f"a {jid} epoch 1/1\n"
+    finally:
+        port_cfg.set_config(saved)
 
 
 TINY_GPT_FN = """

@@ -423,8 +423,8 @@ def test_drain_and_restore_in_a_fresh_server(tmp_path, weights, drainer):
 def test_not_found_and_not_ported(tmp_path, weights, caplog):
     """404 for an unknown or malformed id; a serving mesh on a server of
     one rank logs and serves on that rank with the same tokens (JAX's
-    fallback); 400 naming what is missing for a job's epoch checkpoints
-    before its final; a model with no decode path is the one-shot path's
+    fallback); 404 for a job's epoch checkpoints before its final (as
+    JAX's ``_load_serving``); a model with no decode path is the one-shot path's
     400, as in the JAX server. A
     sharded final (ported now) serves the tokens of the same weights'
     flat final and quantizes into a sharded ``final-int8``."""
@@ -448,9 +448,12 @@ def test_not_found_and_not_ported(tmp_path, weights, caplog):
     store = CheckpointStore(root=proot / "checkpoints")
     store.save("livejob", {"params": {"w": np.zeros(2, np.float32)}},
                epoch=0)
-    with pytest.raises(KubeMLError, match="live jobs") as e:
-        ps.generate("livejob", req)
-    assert e.value.status_code == 400
+    # epoch checkpoints without a final export serve nothing: JAX's 404
+    for call in (lambda: ps.generate("livejob", req),
+                 lambda: ps.infer("livejob", [[1]])):
+        with pytest.raises(KubeMLError) as e:
+            call()
+        assert e.value.status_code == 404
     ps.registry.create("lenetfn", LENET_FN)
     store.save("lenetjob", {"params": {"w": np.zeros(2, np.float32)}},
                tag=FINAL_TAG, meta={"request": {"function_name": "lenetfn"}})

@@ -275,7 +275,7 @@ def cuda_ulysses_rank(rank: int, out: str, dtype_name: str) -> None:
     from kubeml_tpu_torch.parallel.ulysses import ulysses_attention
 
     assert D.init_distributed(backend="gloo", device="cuda")
-    kernels.library(build=False)
+    kernels.library()
     mesh = make_mesh(sp=2)
     dtype = getattr(torch, dtype_name)
     g = torch.Generator().manual_seed(0)
