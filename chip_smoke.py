@@ -6,8 +6,9 @@ with the dense slot engine, the one-shot speculative ``generate`` and the
 SPMD job with sharded checkpoints, multi-rank SPMD (two ranks on the
 card over gloo), the SPMD job over ranks through the control plane, the
 pipeline over ``pp`` ranks, MoE expert parallelism over ``ep`` ranks,
-meshed serving over two ranks, K-AVG over two ranks, and standalone job
-runners with the preemption monitor.
+meshed serving over two ranks, K-AVG over two ranks, standalone job
+runners with the preemption monitor, and a text corpus with a trained BPE
+training GPT-2-small through the CLI under chaos on every HTTP hop.
 Run from the repo root::
 
     python3 chip_smoke.py
@@ -87,16 +88,16 @@ Phases, each reported on its own lines:
    flagship's full width (E 512, depth 8, vocab 32000, remat, AdamW),
    L 2048: one warm-up and 10 timed steps through the kernels (launches
    per step held to fwd 2 x depth, dq and dkv depth; the loss must fall),
-   a profiler window over 3 steps, then the same run on the plain path;
+   a profiler window over one step, then the same run on the plain path;
 9. train f32 - one step through the kernels against the plain path from
    the same weights and batch: loss and every parameter's gradient;
 10. K-AVG - (a) the flagship at ``bench.py``'s configuration (ResNet-18,
    CIFAR-10 shapes, bf16, uint8 inputs, B 128, K 8, lr 0.1, SGD momentum
    0.9) through ``benchmarks.harness.FlagshipBench`` at N 1 and N 4 packed
-   on the card: round ms, device samples/s (slabs resident, best of 3 x 20
-   rounds at N 1, 1 x 10 at N 4), end-to-end samples/s (staged through
+   on the card: round ms, device samples/s (slabs resident, best of 2 x 20
+   rounds at N 1, 1 x 5 at N 4), end-to-end samples/s (staged through
    ``RoundPrefetcher``),
-   peak memory, a profiler window of 2 rounds (idle share, top kernels),
+   peak memory, a profiler window of one round (idle share, top kernels),
    FLOPs a sample against the bf16 peak, and a plain PyTorch loop of the
    same 160 SGD steps as the yardstick; (b) f32 with TF32 off and
    deterministic cuDNN, N 4, K 2: the merged weights equal the mean of four
@@ -179,7 +180,7 @@ Phases, each reported on its own lines:
    ``KAvgTrainer``: each flash kernel launches depth x K = 16 times a
    round, the loss falls over the ~20
    rounds, samples/s, round ms, peak memory, the idle share of a
-   profiled window of 2 rounds, FLOPs a sample against the bf16 peak, and
+   profiled window of one round, FLOPs a sample against the bf16 peak, and
    the round through the plain path (``FLASH_MIN_KV_LEN = None``) beside
    the kernels'; a round repeated from the same weights and rng is
    bit-identical and another rng moves the weights; [CLS] logits through
@@ -206,7 +207,7 @@ Phases, each reported on its own lines:
    overflow lies in [0, 1]; tokens/s and step ms (best of 3 x 8 steps),
    peak memory, analytic FLOPs a step against the bf16 peak beside the
    useful expert FFNs and the dispatch/combine share, a profiled window
-   of 2 steps (idle share, top kernels); (b) those weights' f32 copy
+   of one step (idle share, top kernels); (b) those weights' f32 copy
    saved as ``final`` and quantized into ``final-int8``, each served by
    ``ParameterServer.generate`` through the dense ``BatchingDecoder`` (8
    slots; 16 requests from threads, prompts 16-400 tokens, 32-96 new):
@@ -226,7 +227,7 @@ Phases, each reported on its own lines:
 16. the one-shot speculative ``generate`` and the SPMD job - (a)
    ``make_speculative_generate_fn`` on phase 6's coherent-tail
    GPT-2-small target, ``spec="self"`` at exit 6 and ``spec="draft"``
-   with phase 6's drafter, k 4, at B 1 and B 8 (prompts of 64, 64 new
+   with phase 6's drafter, k 4, at B 1 and B 8 (prompts of 64, 32 new
    tokens) with f32 and with int8 weights (the int8 matmul): greedy tokens
    equal to the spec-off ``generate`` but for near ties (``NEAR_TIE``,
    logged with their margin), the acceptance accounting and tokens/s
@@ -260,7 +261,7 @@ Phases, each reported on its own lines:
    (``MR_ATTN_TOL``), each flash kernel launching once a rank a call
    under Ulysses and never under the ring; (b) the
    long-context flagship (phase 8's configuration at full width cut to 2
-   blocks, B 8 x L 2048, bf16, remat, AdamW 3e-4) trained 3 steps over
+   blocks, B 8 x L 2048, bf16, remat, AdamW 3e-4) trained 2 steps over
    ``sp=2`` (Ulysses),
    ``sp=2`` (ring), ``tp=2`` and ``dp=2`` from the weights (seed 0) and
    batch of a one-rank ``SPMDTrainer``: every step's loss within
@@ -277,8 +278,9 @@ Phases, each reported on its own lines:
    (HTTP on port 0), rank 1 ``engine.follower.run_follower``; the parent
    first runs the one-rank ``SPMDJob`` references from the same seed and
    batches. The model is 16b's flagship at full width cut to
-   ``JR_DEPTH`` (2) blocks (Ulysses under sp) on 16b's token set (B 8, 4
-   steps an epoch, one eval batch). (a) ``/train`` with
+   ``JR_DEPTH`` (2) blocks (Ulysses under sp) on a token set of 16b's
+   shape with ``JR_TRAIN`` (16) rows to train (B 8, 2 steps an epoch, one
+   eval batch). (a) ``/train`` with
    ``engine="spmd"``, ``tp=2``, 2 epochs, ``sharded_checkpoints``,
    ``checkpoint_every=1``: each epoch's train and eval loss within
    ``MR_LOSS_ATOL`` of the one-rank job's, flash launches a rank a step
@@ -336,7 +338,7 @@ Phases, each reported on its own lines:
    plain / SDPA / bound ms; then ``bench_moe`` at full width cut to
    ``MOE_EP_DEPTH`` (4) blocks (E 768, 12 heads, vocab 32000, 8 experts,
    top-2, capacity 1.25, an MoE block every other block, B 16 x L 512,
-   bf16, AdamW 3e-4) trained 3 steps by ``SPMDTrainer`` over ``ep=2``
+   bf16, AdamW 3e-4) trained 2 steps by ``SPMDTrainer`` over ``ep=2``
    (each rank 4 experts),
    and at ``MOE_DEPTH`` over ``dp=2``, ``tp=2`` and ``sp=2`` (Ulysses),
    from the weights, batch and step seeds of a one-rank trainer
@@ -373,9 +375,10 @@ Phases, each reported on its own lines:
    reported here; (b) two ranks share the card over gloo: rank 0
    runs the dense ``BatchingDecoder`` over ``serving_mesh({"tp": 2})``
    with GPT-2-small at full width and depth (seeded weights) and phase
-   3's 16-request mix (``SM_SAMPLED``'s requests of it sampled with
-   ``SAMPLE``, the others greedy; the f32 mix its first ``SM_F32_N``
-   requests), rank 1 follows it (``serve_follower``), in f32 and in int8
+   3's 16-request mix with at most ``SM_MAX_NEW`` (48) new tokens a
+   request (``SM_SAMPLED``'s requests of it sampled with ``SAMPLE``, the
+   others greedy; the f32 mix its first ``SM_F32_N`` requests), rank 1
+   follows it (``serve_follower``), in f32 and in int8
    through the int8 matmul: greedy tokens equal to one
    rank's dense decoder but for near ties (``NEAR_TIE``), sampled tokens
    equal,
@@ -397,8 +400,8 @@ Phases, each reported on its own lines:
    configuration (ResNet-18, bf16, uint8 inputs, B 128, K 8, lr 0.1), N 4
    over the ranks (2 workers a rank) through ``FlagshipBench(dist=)``:
    each rank's round ms, device and end-to-end samples/s summed over the
-   ranks beside phase 10a's one-rank N 4, and a profiled window of 2
-   rounds a rank: the merge all-reduce's ms (``kubeml::kavg_merge``) and
+   ranks beside phase 10a's one-rank N 4, and a profiled window of one
+   round a rank: the merge all-reduce's ms (``kubeml::kavg_merge``) and
    its share of the round, the device-busy ms and idle share; then 10b's
    f32 round over the ranks (TF32 off, deterministic cuDNN, N 4, K 2, B 16,
    worker 2 masked): the merged weights within ``KR_F32_RTOL`` of each
@@ -455,7 +458,46 @@ Phases, each reported on its own lines:
    on the threaded job's model); a second job
    preempted through ``/preempt`` after its first epoch ends
    ``preempted`` with a resume checkpoint;
-24. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+25. text and chaos - one ``LocalCluster`` on the card, driven through
+   the CLI (``python -m kubeml_tpu_torch.cli`` in a child process) and the
+   client. (a) ``kubeml dataset create-text --seq-len 1024 --train-bpe
+   4096`` of seven Markdown files no change to the port edits
+   (``TX_FILES``, about 230 KB, documents at blank lines): the asset at
+   ``GET /dataset/{name}/tokenizer`` equal to ``data.bpe.train_bpe`` on
+   the same text in this process, the stored train and test rows equal
+   to ``pack_corpus`` and the 90/10 split; the upload's seconds, the
+   vocabulary reached, tokens against bytes, rows; (b) ``GPTSmall`` at the
+   asset's vocabulary and ``max_len`` 1024 (768 x 12, 12 heads; bf16 to
+   train, f32 to serve) trained by ``kubeml train --engine spmd`` (B 8, 3
+   epochs, AdamW 3e-4, validation every epoch), waited on through its
+   history over HTTP, twice: chaos off, then with JAX's acceptance
+   settings (``TX_CHAOS``: 10 % server faults, 5 % client faults, 5
+   attempts, budget 10, breaker threshold 100) in this process's
+   environment and config, on from then to the phase's end (a change of
+   the chaos variables starts the seeded fault sequence over), first
+   ``TX_PROBES`` (200) dataset reads through the client (those that fail
+   after their retries counted, the others equal): the chaos job
+   finishes, its per-epoch train and eval losses within ``TX_LOSS_RTOL``
+   (relative) of the chaos-off job's (or of two chaos-off jobs' measured
+   gap, a third job run only then), each loss falling, one history and
+   one final a submitted job;
+   ``/metrics`` (read at the phase's end) counting injections in every
+   server mode and the client's, and retries; flash launches a step of
+   12/12/12 (no remat) with 12 a validation batch, and the first step's first flash forward (B 8, L
+   1024, 12 heads, bf16, causal) and the three kernels on its inputs held
+   against the plain versions; step ms and wall, with and without chaos,
+   and the injections by mode; (c) with chaos still on, the chaos job's
+   final served through ``/generate`` in f32, then quantized and served
+   as ``final-int8`` by a cluster with int8 serving: ``kubeml generate
+   --text`` (a prompt with multi-byte characters, 64 new tokens, greedy)
+   with and without ``--stream`` print the same text, equal to the
+   decoded tokens of an in-process ``ParameterServer.generate`` of the
+   same prompt; paged attention 12 and the int8 matmul 73 (int8; 0 in
+   f32) launches a forward; the int8 matmul held against ``int8_dot`` at
+   every int8 (K, N), the ``lm_head`` at the trained vocabulary among
+   them; TTFT and tokens/s through the client;
+26. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last
+   (there is no phase 24).
 
 Any failure raises and the script exits non-zero; without a CUDA device it
 exits non-zero before printing any result.
@@ -474,6 +516,7 @@ import sys
 import tempfile
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -1041,11 +1084,11 @@ def device_profile(run, also: str = ""):
     idle share, and the five kernels with the most device time, then any
     other kernel whose name holds ``also``. Returns the busy ms (0.0 when
     the profiler saw no device time) and the (ms, launches, name) of every
-    kernel."""
+    kernel. Only device activity is recorded: the host's operator events
+    are read by no metric here and cost seconds to aggregate."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         run()
         torch.cuda.synchronize()
@@ -1830,18 +1873,15 @@ def train_run(tag, flash: bool):
 
 
 def train_profile() -> float:
-    """A profiler window over 3 kernel-path training steps (after one
-    warm-up step); returns the device-busy ms per step."""
+    """A profiler window over one kernel-path training step (after one
+    warm-up step); returns its device-busy ms."""
     from kubeml_tpu_torch.benchmarks.longcontext import make_trainer
 
     trainer, tokens = make_trainer(2048, TRAIN_TOKENS, "bf16", device="cuda")
     trainer.train_step(tokens)
 
-    def run():
-        for _ in range(3):
-            trainer.train_step(tokens)
-
-    busy_ms = device_profile(run, also="flash_")[0] / 3
+    busy_ms = device_profile(lambda: trainer.train_step(tokens),
+                             also="flash_")[0]
     del trainer
     torch.cuda.empty_cache()
     return busy_ms
@@ -1940,8 +1980,8 @@ def kavg_flagship(n_workers: int, smi: str, plain_sps=None,
     """10a: the flagship at bench.py's configuration with ``n_workers``
     packed on the card (best of ``reps`` runs of ``rounds`` rounds, device
     and end to end): round ms, device and end-to-end samples/s, peak
-    memory, a profiler window of 2 rounds, the FLOPs per sample against the
-    bf16 peak; the plain loop's samples/s (measured at N 1, passed in
+    memory, a profiler window of one round, the FLOPs per sample against
+    the bf16 peak; the plain loop's samples/s (measured at N 1, passed in
     after). Returns the row and the plain loop's samples/s."""
     from kubeml_tpu_torch.benchmarks.harness import FlagshipBench
 
@@ -1968,11 +2008,11 @@ def kavg_flagship(n_workers: int, smi: str, plain_sps=None,
         f"{achieved / 1e12:.2f} TFLOP/s = "
         f"{achieved / PEAK_OPS[torch.bfloat16]:.4f} of the bf16 dense peak "
         f"(989 TFLOP/s) [{smi}]")
-    busy = device_profile(lambda: [bench.round() for _ in range(2)])[0]
+    busy = device_profile(bench.round)[0]
     if busy > 0:
-        log(f"  {tag}: device busy {busy / 2:.3f} ms a round, unprofiled "
+        log(f"  {tag}: device busy {busy:.3f} ms a round, unprofiled "
             f"round {row['round_ms']:.3f} ms: idle share "
-            f"{1 - busy / (2 * row['round_ms']):.3f} of the unprofiled round")
+            f"{1 - busy / row['round_ms']:.3f} of the unprofiled round")
     if not (np.isfinite(row["first_loss"]) and np.isfinite(row["loss"])):
         raise AssertionError(f"{tag}: flagship losses {row['first_loss']} "
                              f"-> {row['loss']}")
@@ -3412,14 +3452,14 @@ def enc_train(tag, bench, smi, rounds: int, per_round: int):
     """The encoder's bench configuration on the card (its main path, the
     flash counts zeroed before and read after): one warm-up and
     3 x ``rounds`` timed rounds, every round launching each flash kernel
-    ``per_round`` times; a profiler window of 2 rounds; the loss falls;
+    ``per_round`` times; a profiler window of one round; the loss falls;
     then the round through the plain path (``FLASH_MIN_KV_LEN = None``)
     and through the kernels again. Returns the row and the launches."""
     from kubeml_tpu_torch.ops import attention
 
     reset_flash_counts()
     row = bench.measure(rounds, reps=3)
-    busy = device_profile(lambda: [bench.round() for _ in range(2)])[0]
+    busy = device_profile(bench.round)[0]
     last = float(bench.round())
     counts = flash_counts()
     n_rounds = bench.rounds_run
@@ -3456,9 +3496,9 @@ def enc_train(tag, bench, smi, rounds: int, per_round: int):
         f"flash launches a round {row['flash_launches_per_round']} "
         f"[{smi}]")
     if busy > 0:
-        log(f"  {tag}: device busy {busy / 2:.3f} ms a round, unprofiled "
+        log(f"  {tag}: device busy {busy:.3f} ms a round, unprofiled "
             f"round {row['round_ms']:.3f} ms: idle share "
-            f"{1 - busy / (2 * row['round_ms']):.3f}")
+            f"{1 - busy / row['round_ms']:.3f}")
     log(f"  {tag}: round through the kernels {row['round_ms']:.3f} ms, "
         f"through the plain path (FLASH_MIN_KV_LEN = None) {plain_ms:.3f} "
         f"ms, through the kernels again {kernel_again:.3f} ms [{smi}]")
@@ -3835,7 +3875,7 @@ def moe_train(smi):
     bench_moe's configuration trained by SPMDTrainer (the flash counts
     zeroed before and read after): one warm-up and 3 x MOE_STEPS timed
     steps, each flash kernel MOE_DEPTH launches a step, the loss falling, the
-    overflow in [0, 1]; a profiler window of 2 steps. Returns the bench,
+    overflow in [0, 1]; a profiler window of one step. Returns the bench,
     its row, the bf16 errors, the times and the launches."""
     from kubeml_tpu_torch.benchmarks.transformers import MoEBench
 
@@ -3857,7 +3897,7 @@ def moe_train(smi):
     bench = MoEBench(MOE_B, MOE_L, device="cuda", depth=MOE_DEPTH)
     reset_flash_counts()
     row = bench.measure(MOE_STEPS, reps=3)
-    busy = device_profile(lambda: [bench.step() for _ in range(2)])[0]
+    busy = device_profile(bench.step)[0]
     counts = flash_counts()
     n = bench.steps_run
     per_step = tuple(row["flash_launches_per_step"].values())
@@ -3890,9 +3930,9 @@ def moe_train(smi):
         f"{row['dispatch_combine_over_expert_ffn']:.2f} x the expert FFNs "
         f"at capacity")
     if busy > 0:
-        log(f"  15a: device busy {busy / 2:.3f} ms a step, unprofiled step "
+        log(f"  15a: device busy {busy:.3f} ms a step, unprofiled step "
             f"{row['step_ms']:.3f} ms: idle share "
-            f"{1 - busy / (2 * row['step_ms']):.3f}")
+            f"{1 - busy / row['step_ms']:.3f}")
     return bench, row, errs[torch.bfloat16], times, counts
 
 
@@ -4124,7 +4164,7 @@ def moe_phase(smi, root, run):
 # --- phase 16: the one-shot speculative generate and the SPMD job -------
 
 # 16a: prompts of ONESHOT_LP tokens, ONESHOT_NEW new tokens, at B 1 and 8
-ONESHOT_LP, ONESHOT_NEW, ONESHOT_BATCHES = 64, 64, (1, 8)
+ONESHOT_LP, ONESHOT_NEW, ONESHOT_BATCHES = 64, 32, (1, 8)
 # int8 matmul launches of one self-drafting forward (EXIT_LAYER blocks of
 # 6 projections and the lm_head)
 INT8_PER_DRAFT = 6 * EXIT_LAYER + 1
@@ -4296,9 +4336,9 @@ def lc_module(tree):
     return load_tree(module, flat, int8_impl="dot").eval()
 
 
-def lc_int8_check(smi, module, phase="16b"):
-    """The int8 matmul on the flagship's int8 projections (every distinct
-    (K, N), the restored weights) at LC_MM_M, f32 x, against int8_dot
+def lc_int8_check(smi, module, phase="16b", ms=LC_MM_M):
+    """The int8 matmul on a module's int8 projections (every distinct (K,
+    N), the restored weights) at the M of ``ms``, f32 x, against int8_dot
     within MM_RTOL."""
     from kubeml_tpu_torch.models.layers import QuantizableDense
     from kubeml_tpu_torch.ops.int8_matmul import int8_dot, int8_matmul
@@ -4310,7 +4350,7 @@ def lc_int8_check(smi, module, phase="16b"):
             layers.setdefault(tuple(m.kernel_q.shape), m)
     worst = 0.0
     for (K, N), m in sorted(layers.items()):
-        for M in LC_MM_M:
+        for M in ms:
             x = torch.randn(M, K, generator=g).cuda()
             y = int8_matmul(x, m.kernel_q, m.kernel_s)
             ref = int8_dot(x, m.kernel_q, m.kernel_s)
@@ -4322,7 +4362,7 @@ def lc_int8_check(smi, module, phase="16b"):
                     f"{err} > {MM_RTOL[torch.float32]} x {scale}")
             worst = max(worst, err / scale)
     log(f"  {phase} int8_matmul against int8_dot [{smi}]: (K, N) "
-        f"{sorted(layers)} x M {LC_MM_M}, f32, worst max abs err / "
+        f"{sorted(layers)} x M {ms}, f32, worst max abs err / "
         f"max |ref| {worst:.3g} (limit {MM_RTOL[torch.float32]})")
 
 
@@ -4509,7 +4549,7 @@ MR = dict(
             ("sp=2 ring", dict(sp=2), "ring"),
             ("tp=2", dict(tp=2), "ring"),
             ("dp=2", dict(dp=2), "ring")))
-MR_STEPS = 3
+MR_STEPS = 2  # the second under the profiler window
 # (a) over ranks against the plain version on the card, and the ring
 # against the one-rank path (the flash kernels), for out, dQ, dK and dV:
 # the largest abs error over max(1, the largest |reference|); bf16
@@ -4812,12 +4852,12 @@ def multirank_phase(smi, cfg=MR):
 # the follower loop (engine.follower.run_follower). The model is phase 16b's
 # flagship at full width, its sequence parallelism by Ulysses, cut from 8
 # to JR_DEPTH blocks (width, heads, B and L kept) to keep the script
-# within its time with phase 19 (4 blocks) and phase 22 (2), on 16b's
-# token set (LC_TRAIN rows to
-# train, 4 steps an epoch at B 8, LC_TEST to validate, one eval batch an
-# epoch).
+# within its time with phase 19 (4 blocks) and phase 22 (2), on a token
+# set of 16b's shape cut to JR_TRAIN rows to train (2 steps an epoch at B
+# 8) and LC_TEST to validate (one eval batch an epoch).
 JR_JOB, JR_ELASTIC, JR_BROKEN = "lc-ranks", "lc-elastic", "lc-nofn"
 JR_WORLD, JR_TIMEOUT_S, JR_SEED, JR_DEPTH = 2, 900.0, 18, 2
+JR_TRAIN = 16
 JR_FN = LC_FN.replace("remat=True, dtype=dtype, mesh=self.mesh)",
                       "remat=True, dtype=dtype, mesh=self.mesh,\n"
                       "                                 sp_impl=\"ulysses\")"
@@ -4830,7 +4870,7 @@ JR_BROKEN_FN = ("import os\n"
                 "this rank')\n" + JR_FN)
 # 18c: the scheduler's answers after each epoch (the last changes nothing)
 JR_LEVELS = (1, 2, 2)
-# Each epoch's mean train loss (4 steps) and eval loss over ranks against
+# Each epoch's mean train loss (2 steps) and eval loss over ranks against
 # the one-rank job's from the same seed and batches: phase 17's
 # MR_LOSS_ATOL, whose bf16 reasons hold here over 8-12 steps.
 
@@ -4846,9 +4886,9 @@ def jr_request(job, epochs, fn="lcranks", **opts):
                              validate_every=1, **opts))
 
 
-def jr_tokens():
+def jr_tokens(n_train: int = LC_TRAIN):
     rng = np.random.default_rng(JR_SEED)
-    x = rng.integers(1, LC_VOCAB, size=(LC_TRAIN + LC_TEST, LC_L)
+    x = rng.integers(1, LC_VOCAB, size=(n_train + LC_TEST, LC_L)
                      ).astype(np.int32)
     return x, np.zeros(len(x), np.int64)
 
@@ -4865,9 +4905,9 @@ def jr_reference(root):
 
     cfg = cp_config(root)
     cfg.ensure_dirs()
-    x, y = jr_tokens()
-    ShardStore(config=cfg).create("lc-tokens", x[:LC_TRAIN], y[:LC_TRAIN],
-                                  x[LC_TRAIN:], y[LC_TRAIN:])
+    x, y = jr_tokens(JR_TRAIN)
+    ShardStore(config=cfg).create("lc-tokens", x[:JR_TRAIN], y[:JR_TRAIN],
+                                  x[JR_TRAIN:], y[JR_TRAIN:])
     FunctionRegistry(config=cfg).create("lcranks", JR_FN)
 
     def job(req, **kw):
@@ -4983,12 +5023,12 @@ def jr_leader(root, smi):
 
     out = {"wall": {}}
     cfg = cp_config(root)
-    x, y = jr_tokens()
+    x, y = jr_tokens(JR_TRAIN)
     sharded = dict(sharded_checkpoints=True, checkpoint_every=1)
     with LocalCluster(config=cfg) as cluster:
         client = KubemlClient(cluster.controller_url, timeout=600)
-        client.datasets().create("lc-tokens", x[:LC_TRAIN], y[:LC_TRAIN],
-                                 x[LC_TRAIN:], y[LC_TRAIN:])
+        client.datasets().create("lc-tokens", x[:JR_TRAIN], y[:JR_TRAIN],
+                                 x[JR_TRAIN:], y[JR_TRAIN:])
         client.functions().create("lcranks", JR_FN)
         client.functions().create("lcbroken", JR_BROKEN_FN)
         # 18a, and 18e's live inference while it trains over ranks
@@ -5165,7 +5205,7 @@ def ranks_phase(smi, root):
         f"{time.monotonic() - t0:.1f} s, spawn included; walls (s) "
         f"{ {k: round(v, 1) for k, v in lead['wall'].items()} }")
     bad = []
-    steps = LC_TRAIN // LC_B
+    steps = JR_TRAIN // LC_B
     per_step = (2 * JR_DEPTH, JR_DEPTH, JR_DEPTH)
 
     def job_counts(jid):
@@ -6278,6 +6318,16 @@ SM_SAMPLED = (3, 9, 12, 15)
 # 21b's f32 mix runs the mix's first SM_F32_N requests (the int8 mix all
 # 16): cut from 16 to make room for phase 23
 SM_F32_N = 8
+# 21b's requests stop at SM_MAX_NEW new tokens (the mix's 32-128 cut):
+# decode steps over tp=2 cost 86-90 ms
+SM_MAX_NEW = 48
+
+
+def sm_workload():
+    """Phase 3's mix with each request's new tokens capped at
+    SM_MAX_NEW."""
+    return [dict(r, max_new=min(r["max_new"], SM_MAX_NEW))
+            for r in workload(np.random.default_rng(SEED))]
 # 21c: the served requests a final, (rows, prompt tokens, new tokens), and
 # the serving meshes, each with the finals it serves (tp=4 needs more ranks
 # than the world holds: logged, served on one rank)
@@ -6424,7 +6474,7 @@ def sm_rank(rank, out_dir, root, smi):
 
     kernels.library()
     mesh = serving_mesh({"tp": 2})
-    reqs = workload(np.random.default_rng(SEED))
+    reqs = sm_workload()
     res = {}
     t0 = time.monotonic()
     for tag, knobs in (("f32", {}),
@@ -6486,7 +6536,7 @@ def serving_mesh_phase(smi, root, mm_rows):
             f"{r['bound_ms']:.5f} by {r['bound_by']})")
     # 21b's one-rank references: the dense engine alone on the card
     t0 = time.monotonic()
-    reqs = workload(np.random.default_rng(SEED))
+    reqs = sm_workload()
     prompts = [reqs[5]["prompt"]] + [r["prompt"] for r in reqs]
     one, modules = {}, {}
     for tag, knobs in (("f32", {}),
@@ -6618,7 +6668,7 @@ KR_F32_RTOL = 1e-6
 KR_VIT_W_RTOL = 2.0 ** -5
 
 
-def kr_profile(bench, rounds: int = 2) -> dict:
+def kr_profile(bench, rounds: int = 1) -> dict:
     """A profiler window (CPU and CUDA) over ``rounds`` of ``bench``'s
     rounds on this rank: the wall, the device-busy ms (0.0 when the
     profiler saw no device time) and each ``kubeml::`` span's ms."""
@@ -7636,6 +7686,471 @@ def standalone_phase(smi, root, qrun, qprun):
     return flash_b, c["launches"]
 
 
+# --- phase 25: a text corpus with a trained BPE, the text LM trained under
+# chaos, and prompted with text -----------------------------------------
+
+# the corpus: files no change to the port edits, so the same text at every
+# commit (blank lines split each into documents)
+TX_FILES = ("docs/design.md", "docs/user-guide.md", "docs/api.md",
+            "SURVEY.md", "VERDICT.md", "BASELINE.md", "PARITY.md")
+TX_DATASET, TX_FN = "text-corpus", "textlm"
+TX_SEQ, TX_BPE, TX_B, TX_EPOCHS, TX_LR = 1024, 4096, 8, 3, 3e-4
+TX_DEPTH = 12  # GPTSmall's blocks; no remat: one forward launch a block
+# JAX's acceptance settings (tests/test_resilience.py:626-642)
+TX_CHAOS = {"KUBEML_CHAOS": "0.1", "KUBEML_CHAOS_CLIENT": "0.05",
+            "KUBEML_CHAOS_SEED": "1234", "KUBEML_CHAOS_DELAY": "0.05",
+            "KUBEML_RETRY_ATTEMPTS": "5", "KUBEML_RETRY_BUDGET": "10",
+            "KUBEML_BREAKER_THRESHOLD": "100"}
+# the chaos job's losses against the chaos-off job's (relative); the
+# measured gap of two chaos-off jobs when that is larger
+TX_LOSS_RTOL = 1e-6
+TX_PROMPT, TX_NEW = "naïve café — the parameter server", 64
+# reads through the client under chaos after the jobs (about 20 server and
+# 10 client faults), so that every fault mode is met
+TX_PROBES = 200
+TX_FN_SRC = """
+import torch
+from kubeml_tpu_torch.data.dataset import KubeDataset
+from kubeml_tpu_torch.models.gpt import GPTSmall
+from kubeml_tpu_torch.parallel.trainer import adamw
+from kubeml_tpu_torch.runtime.model import KubeModel
+
+
+class TextLM(KubeModel):
+    def __init__(self):
+        super().__init__(KubeDataset("text-corpus"))
+
+    def build(self):
+        # GPT-2-small width and depth at the trained vocabulary: bf16
+        # compute to train, f32 to serve
+        dtype = torch.bfloat16 if self.task == "train" else torch.float32
+        return GPTSmall(vocab_size=VOCAB, max_len=1024, dtype=dtype)
+
+    def configure_optimizers(self, params):
+        return adamw(self.lr)(params)
+"""
+
+
+def tx_cli(url, *argv, timeout: float = 900.0):
+    """``python -m kubeml_tpu_torch.cli --url <url> <argv>`` in a child
+    process, as a user runs it (with this process's environment: chaos
+    too, while it is on); returns (stdout, seconds)."""
+    import os
+
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONIOENCODING="utf-8",
+               PYTHONPATH=os.pathsep.join(filter(None, (
+                   str(here), os.environ.get("PYTHONPATH")))))
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "kubeml_tpu_torch.cli", "--url", url, *argv],
+        cwd=str(here), env=env, capture_output=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"25: kubeml {' '.join(argv[:2])} exited "
+                             f"{proc.returncode}: "
+                             f"{proc.stderr.decode('utf-8')[-2000:]}")
+    return proc.stdout.decode("utf-8"), time.monotonic() - t0
+
+
+@contextmanager
+def tx_chaos(root):
+    """JAX's acceptance chaos for the ``with`` body: its variables in this
+    process's environment (the CLI's children inherit them) and a process
+    config read with them (the retry and breaker knobs), both restored
+    after; the breakers, budgets and counters start afresh, so that the
+    breakers take the chaos config's threshold."""
+    import os
+
+    from kubeml_tpu_torch.api.config import get_config, set_config
+    from kubeml_tpu_torch.utils import resilience
+
+    saved_env = {k: os.environ.get(k) for k in TX_CHAOS}
+    saved_cfg = get_config()
+    os.environ.update(TX_CHAOS)
+    set_config(cp_config(root))
+    resilience.reset_state()
+    try:
+        yield
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        set_config(saved_cfg)
+
+
+def tx_corpus() -> str:
+    here = Path(__file__).resolve().parent
+    return "\n\n".join((here / f).read_text(encoding="utf-8")
+                       for f in TX_FILES)
+
+
+def text_upload(smi, cluster, root):
+    """25a (see the module docstring). Returns the tokenizer asset and the
+    train and test row counts."""
+    from kubeml_tpu_torch.controller import KubemlClient
+    from kubeml_tpu_torch.data.bpe import train_bpe
+    from kubeml_tpu_torch.data.text import pack_corpus
+
+    corpus = tx_corpus()
+    path = Path(root) / "corpus.txt"
+    path.write_text(corpus, encoding="utf-8")
+    out, upload_s = tx_cli(cluster.controller_url, "dataset", "create-text",
+                           "-n", TX_DATASET, "--corpus", str(path),
+                           "--seq-len", str(TX_SEQ), "--train-bpe",
+                           str(TX_BPE))
+    packing = json.loads(out)["packing"]
+    asset = KubemlClient(cluster.controller_url).datasets().tokenizer(
+        TX_DATASET)
+    t0 = time.monotonic()
+    spec = train_bpe(corpus, TX_BPE)
+    bpe_s = time.monotonic() - t0
+    if asset != spec:
+        raise AssertionError("25a: the served tokenizer asset differs from "
+                             "train_bpe on the same text")
+    rows, meta = pack_corpus(corpus, TX_SEQ, spec)
+    n_test = max(1, len(rows) // 10)
+    handle = cluster.store.get(TX_DATASET)
+    train, test = handle.raw("train", "data"), handle.raw("test", "data")
+    if not (meta == packing and np.array_equal(train, rows[:-n_test])
+            and np.array_equal(test, rows[-n_test:])):
+        raise AssertionError(f"25a: stored rows {train.shape}/{test.shape} "
+                             f"or packing {packing} differ from pack_corpus "
+                             f"and the 90/10 split ({meta})")
+    n_bytes = len(corpus.encode("utf-8"))
+    log(f"  25a [{smi}]: kubeml dataset create-text of {len(TX_FILES)} "
+        f"files, {n_bytes} bytes, {meta['documents']} documents: "
+        f"{upload_s:.1f} s (the CLI's process included), vocabulary "
+        f"{spec['vocab_size']} of {TX_BPE} ({len(spec['merges'])} merges), "
+        f"{meta['tokens']} tokens ({n_bytes / meta['tokens']:.2f} bytes a "
+        f"token), rows train {len(train)} test {len(test)} of {TX_SEQ}; the "
+        f"asset equal to train_bpe here ({bpe_s:.1f} s), the rows to "
+        f"pack_corpus and the 90/10 split")
+    return spec, len(train), len(test)
+
+
+def tx_wait(client, jid):
+    """The job's history, polled over HTTP until it exists, and the polls
+    that failed after their retries (chaos can exhaust a request's
+    attempts: the next poll goes on)."""
+    from kubeml_tpu_torch.api.errors import KubeMLError
+
+    deadline = time.monotonic() + CP_JOB_DEADLINE
+    failed = 0
+    while time.monotonic() < deadline:
+        try:
+            return client.histories().get(jid), failed
+        except KubeMLError as e:
+            if e.status_code < 500:
+                if e.status_code != 404:
+                    raise
+            else:
+                failed += 1
+        time.sleep(0.1)
+    raise AssertionError(f"25b: job {jid} left no history within "
+                         f"{CP_JOB_DEADLINE} s")
+
+
+def tx_probes(client) -> int:
+    """TX_PROBES reads of the dataset's summary through the client, each
+    equal to the first; returns the reads that failed after their retries.
+    Run right after chaos is turned on: a fixed seed starts the same fault
+    sequence whenever the chaos variables change, and these reads meet its
+    opening run."""
+    from kubeml_tpu_torch.api.errors import KubeMLError
+
+    want = client.datasets().get(TX_DATASET).to_dict()
+    failed = 0
+    t0 = time.monotonic()
+    for _ in range(TX_PROBES):
+        try:
+            got = client.datasets().get(TX_DATASET).to_dict()
+        except KubeMLError as e:
+            if e.status_code < 500:
+                raise
+            failed += 1
+            continue
+        if got != want:
+            raise AssertionError("25b: a dataset summary changed under "
+                                 "chaos")
+    log(f"  25b: {TX_PROBES} dataset reads under chaos, {failed} failed "
+        f"after their retries ({time.monotonic() - t0:.1f} s)")
+    return failed
+
+
+def tx_train(smi, cluster, tag, n_train, n_test):
+    """One ``kubeml train --engine spmd`` of the text LM, waited on through
+    its history over HTTP; checks its epochs, the falling loss and the
+    flash launches a step. Returns (job id, history, flash launches, wall
+    seconds, the last epoch's ms a step)."""
+    from kubeml_tpu_torch.controller import KubemlClient
+
+    client = KubemlClient(cluster.controller_url, timeout=600)
+    reset_flash_counts()
+    t0 = time.monotonic()
+    out, _ = tx_cli(cluster.controller_url, "train", "-f", TX_FN, "-d",
+                    TX_DATASET, "-e", str(TX_EPOCHS), "-b", str(TX_B),
+                    "--lr", str(TX_LR), "-p", "1", "--static", "--engine",
+                    "spmd")
+    jid = out.strip().splitlines()[-1]
+    hist, failed = tx_wait(client, jid)
+    cp_wait_job(cluster, jid)
+    wall = time.monotonic() - t0
+    counts = flash_counts()
+    steps = TX_EPOCHS * (n_train // TX_B)
+    evals = TX_EPOCHS * (n_test // TX_B)
+    per_step = ((counts[0] - TX_DEPTH * evals) / steps, counts[1] / steps,
+                counts[2] / steps)
+    step_ms = 1e3 * hist.epoch_duration[-1] / (n_train // TX_B)
+    log(f"  25b {tag} job {jid} [{smi}]: {TX_EPOCHS} epochs x "
+        f"{n_train // TX_B} steps of B {TX_B} x L {TX_SEQ}: train loss "
+        f"{hist.train_loss}, eval loss {hist.validation_loss}, {wall:.1f} s "
+        f"from the CLI's train to the history ({failed} polls failed after "
+        f"their retries), epoch s "
+        f"{[round(v, 3) for v in hist.epoch_duration]}, last epoch "
+        f"{step_ms:.2f} ms a step; flash launches fwd/dq/dkv {counts}, a "
+        f"step {per_step} ({evals} validation forwards of {TX_DEPTH} fwd "
+        f"apart)")
+    if (hist.task or {}).get("error") or len(hist.train_loss) != TX_EPOCHS:
+        raise AssertionError(f"25b {tag}: the job ended with "
+                             f"{hist.train_loss}, error "
+                             f"{(hist.task or {}).get('error')}")
+    if not hist.train_loss[-1] < hist.train_loss[0]:
+        raise AssertionError(f"25b {tag}: the loss did not fall: "
+                             f"{hist.train_loss}")
+    if per_step != (TX_DEPTH, TX_DEPTH, TX_DEPTH):
+        raise AssertionError(f"25b {tag}: flash launches a step {per_step}"
+                             f", the model gives {TX_DEPTH} each")
+    return jid, hist, counts, wall, step_ms
+
+
+def tx_loss_gap(a, b) -> float:
+    """The largest relative difference of two histories' losses."""
+    pairs = list(zip(a.train_loss + a.validation_loss,
+                     b.train_loss + b.validation_loss))
+    return max(abs(x - y) / max(abs(y), 1e-30) for x, y in pairs)
+
+
+class TxFirstForward:
+    """Keeps the first flash forward's inputs and outputs (the first
+    step's first block) while installed, then holds them, and the three
+    kernels on those inputs, against the plain versions."""
+
+    def __init__(self):
+        from kubeml_tpu_torch.ops import flash_attention as fa
+
+        self.fa, self.launch, self.kept = fa, fa._flash_fwd_cuda, {}
+
+    def _keep(self, q, k, v, valid, causal):
+        out, lse = self.launch(q, k, v, valid, causal)
+        if not self.kept:
+            self.kept.update(q=q.detach().clone(), k=k.detach().clone(),
+                             v=v.detach().clone(), valid=valid.clone(),
+                             causal=causal, out=out.detach().clone(),
+                             lse=lse.clone())
+        return out, lse
+
+    def __enter__(self):
+        self.fa._flash_fwd_cuda = self._keep
+        return self
+
+    def __exit__(self, *exc):
+        self.fa._flash_fwd_cuda = self.launch
+
+    def check(self, smi):
+        kept = self.kept
+        q, k, v, valid = kept["q"], kept["k"], kept["v"], kept["valid"]
+        ro, rl = self.fa.flash_attention_fwd_ref(q, k, v, valid,
+                                                 kept["causal"])
+        out_err, _ = flash_tile_err(kept["out"], ro)
+        lse_err, _ = flash_tile_err(kept["lse"], rl)
+        tol = FLASH_TILE_RTOL[q.dtype]
+        log(f"  25b the first step's first flash forward [{smi}]: "
+            f"{tuple(q.shape)} {str(q.dtype).split('.')[-1]} causal "
+            f"{kept['causal']}: worst 64-row tile's relative error out "
+            f"{out_err:.2e} (tolerance {tol:.2e}), lse {lse_err:.2e}")
+        if not (kept["causal"] and out_err <= tol
+                and lse_err <= FLASH_TILE_RTOL[torch.float32]):
+            raise AssertionError(f"25b: the first flash forward differs "
+                                 f"from its plain version: out {out_err}, "
+                                 f"lse {lse_err}")
+        g = torch.Generator().manual_seed(SEED + 25)
+        do = torch.randn(q.shape, generator=g).to(q.dtype).cuda()
+        check_flash_case("25b (the first forward's inputs)", q, k, v, do,
+                         valid, True)
+        kept.clear()
+
+
+def chaos_counts(metrics: str) -> dict:
+    """``kubeml_chaos_injected_total`` by mode and the summed
+    ``kubeml_http_retries_total`` of a /metrics text."""
+    out = {m: float(v) for m, v in re.findall(
+        r'kubeml_chaos_injected_total\{mode="(\w+)"\} (\S+)', metrics)}
+    out["retries"] = sum(float(v) for v in re.findall(
+        r'kubeml_http_retries_total\{dest="[^"]*"\} (\S+)', metrics))
+    return out
+
+
+def text_train(smi, cluster, root, spec, n_train, n_test, chaos):
+    """25b (see the module docstring); ``chaos`` (an ExitStack) holds
+    ``tx_chaos`` from the chaos job on, left on for 25c. Returns the chaos
+    job's id and the flash launches of the jobs."""
+    from kubeml_tpu_torch.controller import KubemlClient
+
+    client = KubemlClient(cluster.controller_url, timeout=600)
+    client.functions().create(TX_FN, TX_FN_SRC.replace(
+        "VOCAB", str(spec["vocab_size"])))
+    first = TxFirstForward()
+    with first:
+        base, bhist, bcounts, bwall, bstep = tx_train(
+            smi, cluster, "chaos off", n_train, n_test)
+    first.check(smi)
+    chaos.enter_context(tx_chaos(root))
+    tx_probes(client)
+    jid, hist, counts, wall, step = tx_train(smi, cluster, "chaos on",
+                                             n_train, n_test)
+    gap = tx_loss_gap(hist, bhist)
+    gate, total = TX_LOSS_RTOL, tuple(a + b for a, b in zip(bcounts, counts))
+    submitted = [base, jid]
+    if gap > TX_LOSS_RTOL:
+        # the card's own spread: a second chaos-off job
+        chaos.close()
+        again, ahist, acounts, _, _ = tx_train(
+            smi, cluster, "chaos off again", n_train, n_test)
+        gate = max(TX_LOSS_RTOL, tx_loss_gap(ahist, bhist))
+        submitted.append(again)
+        total = tuple(a + b for a, b in zip(total, acounts))
+        log(f"  25b two chaos-off jobs ({base}, {again}) differ by "
+            f"{gate:.3e} (relative): the chaos job's gate")
+        chaos.enter_context(tx_chaos(root))
+        tx_probes(client)
+    log(f"  25b chaos [{smi}]: {TX_CHAOS}: the chaos job's losses "
+        f"{gap:.3e} (relative) from the chaos-off job's (gate {gate:.3e}); "
+        f"wall {wall:.1f} s against {bwall:.1f} s, last epoch "
+        f"{step:.2f} ms a step against {bstep:.2f}")
+    if gap > gate:
+        raise AssertionError(f"25b: the chaos job's losses {hist.train_loss} "
+                             f"/ {hist.validation_loss} are {gap:.3e} from "
+                             f"the chaos-off job's {bhist.train_loss} / "
+                             f"{bhist.validation_loss}")
+    # each submit ran once: one history each, each with its final
+    ran = [h.id for h in client.histories().list()
+           if ((h.task or {}).get("request") or {}).get("dataset")
+           == TX_DATASET]
+    jobs = client.checkpoints().list_jobs()
+    if sorted(ran) != sorted(submitted) or not all(
+            "final" in jobs.get(j, []) for j in ran):
+        raise AssertionError(f"25b: histories {ran} and finals {jobs} for "
+                             f"the submitted jobs {submitted}")
+    log(f"  25b: {len(submitted)} jobs submitted, one history each, each "
+        f"with its final")
+    return jid, total
+
+
+def tx_serve(smi, cluster, jid, tok, tag, int8: bool):
+    """25c's requests on one cluster (chaos on): ``kubeml generate --text``
+    without and with ``--stream``, the in-process ``ParameterServer
+    .generate`` of the same prompt, and one streamed request through the
+    client for its TTFT and tokens/s. Returns the (paged_attention,
+    int8_matmul) launches."""
+    from kubeml_tpu_torch.api import GenerateRequest
+    from kubeml_tpu_torch.controller import KubemlClient
+    from kubeml_tpu_torch.data.text import EOS_ID
+    from kubeml_tpu_torch.ops.int8_matmul import int8_matmul
+    from kubeml_tpu_torch.ops.paged_attention import paged_attention
+
+    url = cluster.controller_url
+    argv = ("generate", "-n", jid, "--text", TX_PROMPT, "--max-new-tokens",
+            str(TX_NEW))
+    paged_attention.launches = int8_matmul.launches = 0
+    text, cli_s = tx_cli(url, *argv)
+    streamed, stream_s = tx_cli(url, *argv, "--stream")
+    ids = tok.encode(TX_PROMPT).tolist()
+    ref = cluster.ps.generate(jid, GenerateRequest(
+        model_id=jid, prompts=[ids], max_new_tokens=TX_NEW, eos_id=EOS_ID))
+    want = tok.decode(ref["tokens"][0]) + "\n"
+    client = KubemlClient(url, timeout=600)
+    t0, ttft, n = time.monotonic(), None, 0
+    for rec in client.networks().generate(jid, [ids], max_new_tokens=TX_NEW,
+                                          eos_id=EOS_ID, stream=True):
+        if rec.get("tokens"):
+            ttft = ttft or time.monotonic() - t0
+            n += len(rec["tokens"])
+    wall = time.monotonic() - t0
+    launches = (paged_attention.launches, int8_matmul.launches)
+    tele = cluster.ps._decoders[jid][0].telemetry()
+    forwards = int(tele["admission_waves"] + tele["device_steps"])
+    log(f"  25c {tag} [{smi}]: {len(ids)}-token prompt {TX_PROMPT!r}, "
+        f"{ref['lengths'][0]} new tokens: {want[:-1]!r}; the CLI "
+        f"{cli_s:.1f} s, streamed {stream_s:.1f} s (processes included); "
+        f"through the client TTFT {ttft * 1e3:.1f} ms, {n / wall:.1f} "
+        f"tokens/s; launches paged_attention {launches[0]}, int8_matmul "
+        f"{launches[1]} over {forwards} forwards")
+    if not text == streamed == want:
+        raise AssertionError(f"25c {tag}: the CLI printed {text!r}, streamed "
+                             f"{streamed!r}, the in-process generate "
+                             f"decodes to {want!r}")
+    if launches != (PA_PER_FORWARD * forwards,
+                    INT8_PER_FORWARD * forwards if int8 else 0):
+        raise AssertionError(f"25c {tag}: launches {launches} over "
+                             f"{forwards} forwards")
+    if int8:
+        lc_int8_check(smi, cluster.ps._decoders[jid][0].module, "25c",
+                      ms=(1, len(ids), 2 * len(ids)))
+    return launches
+
+
+def text_phase(smi, root):
+    """Phase 25 (see the module docstring). Returns the flash launches of
+    25b and the (paged_attention, int8_matmul) launches of 25c."""
+    from contextlib import ExitStack
+
+    from kubeml_tpu_torch.cluster import LocalCluster
+    from kubeml_tpu_torch.controller import KubemlClient
+    from kubeml_tpu_torch.data.bpe import BPETokenizer
+    from kubeml_tpu_torch.utils import resilience
+
+    root = Path(root) / "text"
+    root.mkdir(parents=True, exist_ok=True)
+    # chaos stays on from the chaos job to the end: each change of its
+    # variables would start its fault sequence over
+    chaos = ExitStack()
+    try:
+        with LocalCluster(config=cp_config(root)) as cluster:
+            t0 = time.monotonic()
+            spec, n_train, n_test = text_upload(smi, cluster, root)
+            log(f"  25a {time.monotonic() - t0:.1f} s")
+            t0 = time.monotonic()
+            jid, flash = text_train(smi, cluster, root, spec, n_train,
+                                    n_test, chaos)
+            log(f"  25b {time.monotonic() - t0:.1f} s")
+            t0 = time.monotonic()
+            tok = BPETokenizer(spec)
+            f32 = tx_serve(smi, cluster, jid, tok, "f32", int8=False)
+            KubemlClient(cluster.controller_url,
+                         timeout=600).checkpoints().quantize(jid)
+        with LocalCluster(config=cp_config(
+                root, serving_quantize="int8", int8_matmul=True)) as cluster:
+            q = tx_serve(smi, cluster, jid, tok, "final-int8", int8=True)
+            injected = chaos_counts(http_text(
+                f"{cluster.ps_api.url}/metrics"))
+    finally:
+        chaos.close()
+        resilience.reset_state()
+    log(f"  25b-c under chaos [{smi}]: /metrics injected {injected} "
+        f"(retries summed over destinations)")
+    if not (all(injected.get(m, 0) > 0 for m in
+                ("delay", "error", "reset", "client"))
+            and injected["retries"] > 0):
+        raise AssertionError(f"25: /metrics shows injections {injected}")
+    n = spec["vocab_size"]
+    log(f"  25c {time.monotonic() - t0:.1f} s; the int8 lm_head's N {n}: "
+        + ("a multiple of 16, the kernel's TMA route" if n % 16 == 0
+           else "the kernel's row-copy route"))
+    return flash, (f32[0] + q[0], f32[1] + q[1])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one NVIDIA card",
@@ -7661,7 +8176,7 @@ def phases(root: str) -> int:
 
     # 1. device
     smi = nvidia_smi()
-    log("[1/24 device]")
+    log("[1/26 device]")
     log(smi)
     log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} devices "
@@ -7676,7 +8191,7 @@ def phases(root: str) -> int:
     spills = [f"{lines[i - 1].split('for ')[-1][:70]}: {ln.strip()}"
               for i, ln in enumerate(lines)
               if re.search(r"[1-9]\d* bytes (stack frame|spill)", ln)]
-    log(f"[2/24 build] {time.monotonic() - t0:.2f} s (nvcc "
+    log(f"[2/26 build] {time.monotonic() - t0:.2f} s (nvcc "
         f"{kernels.build_seconds:.2f} s), kernels with a stack frame or "
         f"spills: {len(spills)}")
     for ln in spills:
@@ -7692,7 +8207,7 @@ def phases(root: str) -> int:
     check_compiled(kernels.library()._name, build_log)
 
     # 3. kernels against their plain versions
-    log("[3/24 kernels]")
+    log("[3/26 kernels]")
     timer = Timer()
     g = torch.Generator().manual_seed(SEED)
     pa_rows = check_paged_attention(timer, g)
@@ -7705,7 +8220,7 @@ def phases(root: str) -> int:
     del timer
 
     # 4. serve f32: kernel engine, then the plain (gather) twin
-    log("[4/24 serve f32]")
+    log("[4/26 serve f32]")
     serve_tiny()
     reqs = workload(np.random.default_rng(SEED))
     model = gpt2_small()
@@ -7748,7 +8263,7 @@ def phases(root: str) -> int:
     del model
 
     # 5. serve int8: int8 weights through the kernel, int8 KV pages
-    log("[5/24 serve int8]")
+    log("[5/26 serve int8]")
     q_kw = dict(quantize="int8", int8_matmul=True, kv_quant="int8", **common)
     qdec = PagedBatchingDecoder(gpt2_small(), **q_kw)
     if (not qdec.int8_matmul or qdec.int8_matmul_impl != "cuda"
@@ -7797,20 +8312,20 @@ def phases(root: str) -> int:
     torch.cuda.empty_cache()
 
     # 6. speculative decoding and chunked prefill through both kernels
-    log("[6/24 spec + chunked]")
+    log("[6/26 spec + chunked]")
     t0 = time.monotonic()
     spec_launches = spec_phase(smi)
     log(f"  phase 6: {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     # 7. flash kernels against their plain versions, and the L sweep
-    log("[7/24 flash kernels]")
+    log("[7/26 flash kernels]")
     timer = Timer()
     flash_errs, sweep = check_flash(timer, g)
     del timer
 
     # 8. train: the kernel path, its profile, then the plain path
-    log("[8/24 train bf16]")
+    log("[8/26 train bf16]")
     krow, kcounts = train_run("kernel path", flash=True)
     want = (2 * DEPTH * krow["steps_run"], DEPTH * krow["steps_run"],
             DEPTH * krow["steps_run"])
@@ -7833,20 +8348,20 @@ def phases(root: str) -> int:
                              f"{pcounts}")
 
     # 9. f32: one step through the kernels against the plain path
-    log("[9/24 train f32 parity]")
+    log("[9/26 train f32 parity]")
     check_f32_step()
 
     # 10. K-AVG: the flagship at bench.py's configuration, the merge's
     # correctness, and TrainJob end to end; none of the five hand-written
     # kernels is on this path (convs, BatchNorm and dense layers run in
     # cuDNN and cuBLAS, as the JAX path runs them in XLA)
-    log("[10/24 k-avg]")
+    log("[10/26 k-avg]")
     reset_kernel_counts()
     log("  10a flagship: ResNet-18, CIFAR-10 shapes, bf16, uint8 inputs, "
         f"B {KAVG_B}, K {KAVG_K}, lr 0.1, SGD momentum 0.9")
-    row1, plain_sps = kavg_flagship(1, smi)
+    row1, plain_sps = kavg_flagship(1, smi, reps=2)
     row4, _ = kavg_flagship(4, smi, plain_sps, reps=1,
-                            rounds=KAVG_ROUNDS // 2)
+                            rounds=KAVG_ROUNDS // 4)
     log("  10b correctness")
     kavg_correctness()
     log("  10c TrainJob")
@@ -7858,34 +8373,34 @@ def phases(root: str) -> int:
         raise AssertionError(f"the K-AVG path launched {counts}")
 
     # 11. serving resilience through both serving kernels
-    log("[11/24 resilience]")
+    log("[11/26 resilience]")
     t0 = time.monotonic()
     res_launches = resilience_phase(smi)
     log(f"  phase 11: {time.monotonic() - t0:.1f} s")
 
     # 12. checkpoints served through the parameter server
-    log("[12/24 checkpoint serving]")
+    log("[12/26 checkpoint serving]")
     t0 = time.monotonic()
     ckpt = checkpoint_phase(smi, root, run, qrun, kavg)
     ckpt_launches = ckpt["launches"]
     log(f"  phase 12: {time.monotonic() - t0:.1f} s")
 
     # 13. the control plane over HTTP: training, serving, SIGTERM
-    log("[13/24 control plane]")
+    log("[13/26 control plane]")
     t0 = time.monotonic()
     cp_launches = control_plane_phase(smi, root, run, qrun, ckpt, kavg)
     log(f"  phase 13: {time.monotonic() - t0:.1f} s")
 
     # 14. the encoders: the flash kernels at their shapes, BERT-base and
     # ViT-Tiny trained by K-AVG, VGG-11, a ViT TrainJob with transforms
-    log("[14/24 encoders]")
+    log("[14/26 encoders]")
     t0 = time.monotonic()
     enc_rows, enc_launches, bert_row, vit_row = encoder_phase(smi, root)
     log(f"  phase 14: {time.monotonic() - t0:.1f} s")
 
     # 15. MoE trained at bench_moe's width through the flash kernels and
     # served by the dense slot engine; GPT-2-small through the dense engine
-    log("[15/24 moe + dense engine]")
+    log("[15/26 moe + dense engine]")
     t0 = time.monotonic()
     moe_row, moe_errs, moe_times, moe_counts, dense_launches = moe_phase(
         smi, root, run)
@@ -7893,14 +8408,14 @@ def phases(root: str) -> int:
 
     # 16. the one-shot speculative generate through paged attention, and
     # the long-context flagship's SPMD job with sharded checkpoints
-    log("[16/24 one-shot spec + spmd job]")
+    log("[16/26 one-shot spec + spmd job]")
     t0 = time.monotonic()
     spec16, flash16, served16 = spec_spmd_phase(smi, root, krow["step_ms"])
     log(f"  phase 16: {time.monotonic() - t0:.1f} s")
 
     # 17. multi-rank SPMD: two gloo ranks on the card, attention and the
     # flagship's training over sp (Ulysses, ring), tp and dp
-    log("[17/24 multi-rank spmd]")
+    log("[17/26 multi-rank spmd]")
     t0 = time.monotonic()
     flash17 = multirank_phase(smi)
     log(f"  phase 17: {time.monotonic() - t0:.1f} s")
@@ -7908,7 +8423,7 @@ def phases(root: str) -> int:
     # 18. the SPMD job over ranks: two gloo ranks on the card, the
     # flagship trained through /train over tp=2, resumed over sp=2,
     # remeshed dp 2 -> 1 -> 2, its 2-shard final served
-    log("[18/24 spmd job over ranks]")
+    log("[18/26 spmd job over ranks]")
     t0 = time.monotonic()
     flash18, served18 = ranks_phase(smi, root)
     log(f"  phase 18: {time.monotonic() - t0:.1f} s")
@@ -7917,7 +8432,7 @@ def phases(root: str) -> int:
     # masked flash check, PipelinedLM over pp=2, the flagship as
     # PipelinedCausalLM trained through /train over pp=2, resumed, its
     # stage-sharded final served flat
-    log("[19/24 pipeline over ranks]")
+    log("[19/26 pipeline over ranks]")
     t0 = time.monotonic()
     flash19, served19 = pipeline_phase(smi, root)
     log(f"  phase 19: {time.monotonic() - t0:.1f} s")
@@ -7925,7 +8440,7 @@ def phases(root: str) -> int:
     # 20. MoE over ranks: two gloo ranks on the card, bench_moe at full
     # depth over ep=2 and at MOE_DEPTH over dp, tp and sp; a MoE job
     # through /train over ep=2, resumed under dp=2, its final served
-    log("[20/24 moe over ranks]")
+    log("[20/26 moe over ranks]")
     t0 = time.monotonic()
     flash20, moe_ep_times = moe_ep_phase(smi, root)
     log(f"  phase 20: {time.monotonic() - t0:.1f} s")
@@ -7933,7 +8448,7 @@ def phases(root: str) -> int:
     # 21. meshed serving: two gloo ranks on the card, the int8 matmul at
     # the tp=2 shard shapes, GPT-2-small served over tp=2 in f32 and int8,
     # phases 18's and 20's sharded finals served on serving meshes
-    log("[21/24 meshed serving]")
+    log("[21/26 meshed serving]")
     t0 = time.monotonic()
     served21 = serving_mesh_phase(smi, root, sm_rows)
     log(f"  phase 21: {time.monotonic() - t0:.1f} s")
@@ -7941,7 +8456,7 @@ def phases(root: str) -> int:
     # 22. K-AVG over ranks: two gloo ranks on the card, the flagship's
     # rounds and the merge over the ranks, a K-AVG job through /train,
     # ViT-Tiny through the flash kernels
-    log("[22/24 k-avg over ranks]")
+    log("[22/26 k-avg over ranks]")
     t0 = time.monotonic()
     flash22 = kavg_ranks_phase(smi, root, row4)
     log(f"  phase 22: {time.monotonic() - t0:.1f} s")
@@ -7949,13 +8464,21 @@ def phases(root: str) -> int:
     # 23. standalone runners and preemption: a K-AVG job in a runner
     # process, the SPMD job inside a JobRunner, a serving burst preempting
     # a runner's job, which resumes
-    log("[23/24 standalone runners + preemption]")
+    log("[23/26 standalone runners + preemption]")
     t0 = time.monotonic()
     flash23, served23 = standalone_phase(smi, root, qrun, ckpt["qprun"])
     log(f"  phase 23: {time.monotonic() - t0:.1f} s")
 
-    # 24. results
-    log("[24/24 results]")
+    # 25. a text corpus uploaded with a trained BPE, GPT-2-small trained on
+    # it through the CLI with and without chaos on every HTTP hop, and
+    # prompted with text in f32 and int8
+    log("[25/26 text + chaos]")
+    t0 = time.monotonic()
+    flash25, served25 = text_phase(smi, root)
+    log(f"  phase 25: {time.monotonic() - t0:.1f} s")
+
+    # 26. results
+    log("[26/26 results]")
     pa = pa_rows[0]   # the decode step: L = 1, f32 arena
     mm = next(r for r in mm_rows if r["M"] == 8 and r["N"] == VOCAB
               and r["x"] == "float32")  # the lm_head at decode
@@ -7966,7 +8489,8 @@ def phases(root: str) -> int:
          "launches": (f32_launches + q_launches[0] + spec_launches[0]
                       + res_launches[0] + ckpt_launches[0]
                       + cp_launches[0] + spec16[0] + served16[0]
-                      + served18[0] + served19[0] + served23[0]),
+                      + served18[0] + served19[0] + served23[0]
+                      + served25[0]),
          "max_abs_err": pa["max_abs_err"], "ms": pa["ms"],
          "plain_ms": pa["plain_ms"], "bound_ms": pa["bound_ms"],
          "bound_by": pa["bound_by"], "library_ms": pa["library_ms"]},
@@ -7977,7 +8501,7 @@ def phases(root: str) -> int:
                       + ckpt_launches[1] + cp_launches[1]
                       + dense_launches[1] + spec16[1] + served16[1]
                       + served18[1] + served19[1] + served21
-                      + served23[1]),
+                      + served23[1] + served25[1]),
          "max_abs_err": mm["max_abs_err"], "ms": mm["ms"],
          "plain_ms": mm["plain_ms"], "bound_ms": mm["bound_ms"],
          "bound_by": mm["bound_by"], "library_ms": mm["library_ms"]},
@@ -7987,10 +8511,11 @@ def phases(root: str) -> int:
     err_a = flash_errs[("a train", torch.bfloat16)]
     # launches: the training path of phase 8, the encoders' of phase 14,
     # the MoE LM's of phase 15, the SPMD job's of phase 16, the ranks' of
-    # phases 17, 18, 19, 20 and 22 and the runner's SPMD jobs of phase 23
+    # phases 17, 18, 19, 20 and 22, the runner's SPMD jobs of phase 23 and
+    # the text LM's jobs of phase 25
     fwd_n, dq_n, dkv_n = (sum(c) for c in zip(
         kcounts, enc_launches, moe_counts, flash16, flash17, flash18,
-        flash19, flash20, flash22, flash23))
+        flash19, flash20, flash22, flash23, flash25))
     for name, line_no, count, err, ms, plain, lib in (
             ("flash_fwd", 120, fwd_n, err_a["out"], tr["fwd_ms"],
              tr["fwd_plain_ms"], tr["fwd_library_ms"]),
@@ -8011,12 +8536,13 @@ def phases(root: str) -> int:
     log(f"  flash launches: phase 8 {kcounts}, phase 14 {enc_launches}, "
         f"phase 15 {moe_counts}, phase 16 {flash16}, phase 17 {flash17}, "
         f"phase 18 {flash18}, phase 19 {flash19}, phase 20 {flash20}, "
-        f"phase 22 {flash22}, phase 23 {flash23}; "
+        f"phase 22 {flash22}, phase 23 {flash23}, phase 25 {flash25}; "
         f"serving launches "
         f"(paged_attention, int8_matmul) of phase 16: one-shot spec {spec16}"
         f", the SPMD final served {served16}; of phase 18 {served18}; of "
         f"phase 19 {served19}; int8_matmul of phase 21 (both ranks) "
-        f"{served21}; of phase 23's burst {served23}")
+        f"{served21}; of phase 23's burst {served23}; of phase 25's text "
+        f"generation {served25}")
     t = moe_times
     log(f"  flash at the MoE shape B {MOE_B} L {MOE_L} H {MOE_H} causal "
         f"(bf16): fwd {t['fwd_ms']:.4f} ms (plain {t['fwd_plain_ms']:.4f}, "

@@ -25,6 +25,8 @@ device on a host without CUDA they raise (:func:`resolve_device`).
 * ``storage`` - the dataset ``ShardStore`` and the ``HistoryStore``, in the
   JAX package's on-disk formats;
 * ``data`` - ``KubeDataset``, shard and round planning, the round loader;
+  ``data.text`` and ``data.bpe``, a text corpus packed to token rows with
+  the byte tokenizer or a BPE trained on it;
 * ``engine`` - K-AVG: ``KAvgTrainer`` (local SGD on N workers, then the
   mask-weighted average; on one card the workers run in a Python loop),
   ``TrainJob`` (the elastic epoch loop) and failure injection;
@@ -35,12 +37,21 @@ device on a host without CUDA they raise (:func:`resolve_device`).
   continuous-batching engine ``PagedBatchingDecoder``;
 * ``ps``, ``scheduler``, ``controller``, ``storage.service``, ``cluster``
   and ``cli`` - the control plane over HTTP (``utils.httpd``, the standard
-  library's server; ``utils.http_client``, its client): the parameter
+  library's server; ``utils.http_client``, its client, every call under
+  ``utils.resilience``'s retries, breakers and chaos): the parameter
   server's job lifecycle and serving routes, the elastic scheduler, the
   REST gateway with ``KubemlClient``, ``LocalCluster`` and
   ``python -m kubeml_tpu_torch.cli``.
 """
 
-from .utils.device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    # imported on first use, so that the CLI's client commands, which need
+    # no tensor, start without importing torch
+    if name == "resolve_device":
+        from .utils.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

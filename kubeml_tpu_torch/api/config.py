@@ -117,6 +117,23 @@ class Config:
     # connect timeout of the port's HTTP client
     http_connect_timeout: float = field(
         default_factory=lambda: _env_float("KUBEML_CONNECT_TIMEOUT", 3.05))
+    # bounded retries of idempotent or keyed calls: attempts in all, the
+    # backoff's base and cap (seconds, jittered)
+    retry_attempts: int = field(
+        default_factory=lambda: _env_int("KUBEML_RETRY_ATTEMPTS", 3))
+    retry_backoff: float = field(
+        default_factory=lambda: _env_float("KUBEML_RETRY_BACKOFF", 0.1))
+    retry_backoff_max: float = field(
+        default_factory=lambda: _env_float("KUBEML_RETRY_BACKOFF_MAX", 2.0))
+    # a destination's retries earn this fraction of its first attempts
+    retry_budget: float = field(
+        default_factory=lambda: _env_float("KUBEML_RETRY_BUDGET", 0.2))
+    # consecutive transport failures that open a destination's circuit,
+    # and the open state's cooldown before the half-open probe
+    breaker_threshold: int = field(
+        default_factory=lambda: _env_int("KUBEML_BREAKER_THRESHOLD", 5))
+    breaker_cooldown: float = field(
+        default_factory=lambda: _env_float("KUBEML_BREAKER_COOLDOWN", 5.0))
     # seconds a preempted job has to yield before it is abandoned
     preempt_grace: float = field(
         default_factory=lambda: _env_float("KUBEML_PREEMPT_GRACE", 60.0))

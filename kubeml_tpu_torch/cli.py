@@ -12,9 +12,13 @@
   run_follower`` until the leader shuts down; with ``KUBEML_SERVING_MESH``
   (e.g. ``tp=2``) set on every rank, ``/generate`` of a finished causal LM
   runs over the first ranks of the group;
-* ``train``, ``infer``, ``generate`` (token arrays, ``--stream`` prints the
-  deltas as they arrive);
-* ``dataset create|delete|list``, ``function create|delete|get|list``;
+* ``train``, ``infer``, ``generate`` (token arrays, or ``--text``: the
+  prompt encoded and the answer decoded with the tokenizer of the model's
+  dataset, bytes when it has none; ``--stream`` prints the deltas as
+  they arrive);
+* ``dataset create|create-text|delete|list`` (``create-text`` uploads a
+  corpus, optionally training a BPE on it), ``function
+  create|delete|get|list``;
 * ``task list|stop|preempt|prune``, ``jobs``, ``decisions <id>``;
 * ``history get|delete|list|prune``;
 * ``checkpoint list|export|quantize|delete``;
@@ -22,9 +26,10 @@
   (``<data root>/logs/job-<id>.log``, its runner writes it), else the
   cluster's ``logs/kubeml.log`` (``start`` writes it) filtered by the id.
 
-``dataset create-text``, ``generate --text``, ``trace``, ``slo``, ``top``
-and ``profile`` exit with code 2 and name the module they wait for (not
-ported).
+``trace``, ``slo``, ``top`` and ``profile`` exit with code 2 and name the
+module they wait for (not ported). Every call goes through
+``utils.http_client``: retries and circuit breakers per
+``KUBEML_RETRY_*``/``KUBEML_BREAKER_*``, chaos per ``KUBEML_CHAOS*``.
 """
 
 from __future__ import annotations
@@ -117,24 +122,121 @@ def cmd_infer(args) -> int:
     return 0
 
 
+def _model_tokenizer(client, model_id: str):
+    """The tokenizer of the model's dataset (a trained BPE or a vocab
+    asset), or None for bytes. Only a 404 means bytes (no history for the
+    id, or a dataset without an asset): any other failure raises, since
+    the wrong vocabulary would print garbage with exit code 0."""
+    try:
+        hist = client.histories().get(model_id)
+    except KubeMLError as e:
+        if e.status_code == 404:
+            return None
+        raise
+    dataset = (hist.task or {}).get("request", {}).get("dataset")
+    if not dataset:
+        return None
+    try:
+        spec = client.datasets().tokenizer(dataset)
+    except KubeMLError as e:
+        if e.status_code == 404:
+            return None
+        raise
+    from .data.bpe import tokenizer_from_spec
+
+    return tokenizer_from_spec(spec)
+
+
+class _TextStream:
+    """A streamed answer's text as it arrives: ``byte_decode``'s rules
+    record by record (PAD or EOS ends the text, ids outside the vocabulary
+    are skipped), through an incremental UTF-8 decoder so that a
+    character split across two records prints whole."""
+
+    def __init__(self, tok):
+        import codecs
+
+        self.tok = tok
+        self.done = False
+        self.decoder = codecs.getincrementaldecoder("utf-8")("replace")
+
+    def feed(self, tokens) -> str:
+        from .data.text import BYTE_OFFSET, BYTE_VOCAB, EOS_ID, PAD_ID
+
+        raw = bytearray()
+        for t in tokens:
+            if self.done or t in (PAD_ID, EOS_ID):
+                self.done = True
+                break
+            if self.tok is not None:
+                raw.extend(self.tok.decode_bytes(t) or b"")
+            elif BYTE_OFFSET <= t < BYTE_VOCAB:
+                raw.append(t - BYTE_OFFSET)
+        return self.decoder.decode(bytes(raw)) if raw else ""
+
+    def end(self) -> str:
+        return self.decoder.decode(b"", final=True)
+
+
 def cmd_generate(args) -> int:
     import numpy as np
 
+    tok = None
     if args.text is not None:
-        return _not_ported("generate --text", "data/text.py, data/bpe.py")
-    prompts = np.load(args.datafile, allow_pickle=False)
+        if args.output:
+            print("error: --output applies to token-array mode; --text "
+                  "prints decoded text", file=sys.stderr)
+            return 2
+        if not args.text:
+            print("error: --text prompt is empty", file=sys.stderr)
+            return 2
+        from .data.text import byte_encode
+
+        try:
+            tok = _model_tokenizer(_client(args), args.network)
+        except Exception as e:
+            print(f"error: resolving the model's tokenizer failed: {e}",
+                  file=sys.stderr)
+            return 1
+        prompts = (tok.encode(args.text) if tok is not None
+                   else byte_encode(args.text))[None]
+        if prompts.shape[1] == 0:
+            print("error: --text prompt encodes to zero tokens",
+                  file=sys.stderr)
+            return 2
+    else:
+        prompts = np.load(args.datafile, allow_pickle=False)
+    eos_id = args.eos_id
+    if args.text is not None and eos_id is None:
+        from .data.text import EOS_ID
+
+        eos_id = EOS_ID  # text models emit EOS between documents
     kw = dict(max_new_tokens=args.max_new_tokens,
               temperature=args.temperature, top_k=args.top_k,
-              eos_id=args.eos_id, seed=args.seed)
+              eos_id=eos_id, seed=args.seed)
     net = _client(args).networks()
     if args.stream:
+        text = _TextStream(tok) if args.text is not None else None
         for rec in net.generate(args.network, prompts, stream=True, **kw):
             if "error" in rec:
                 print(f"error: {rec['error']}", file=sys.stderr)
                 return 1
-            _print(rec)
+            if text is None:
+                _print(rec)
+            else:
+                piece = text.feed(rec.get("tokens", ()))
+                if piece:
+                    print(piece, end="", flush=True)
+        if text is not None:
+            print(text.end())
         return 0
     out = net.generate(args.network, prompts, **kw)
+    if args.text is not None:
+        from .data.text import byte_decode
+
+        print(tok.decode(out["tokens"][0]) if tok is not None
+              else byte_decode(out["tokens"][0]))
+        return 0
     if args.output:
         np.save(args.output, np.asarray(out["tokens"], np.int32))
         print(f"{args.output}: {np.asarray(out['tokens']).shape} tokens, "
@@ -149,6 +251,17 @@ def cmd_dataset(args) -> int:
     if args.action == "create":
         _print(c.create(args.name, args.traindata, args.trainlabels,
                         args.testdata, args.testlabels).to_dict())
+    elif args.action == "create-text":
+        from pathlib import Path
+
+        corpus = Path(args.corpus).read_text()
+        test = (Path(args.test_corpus).read_text() if args.test_corpus
+                else None)
+        tokenizer = (json.loads(Path(args.tokenizer).read_text())
+                     if args.tokenizer else None)
+        _print(c.create_text(args.name, corpus, corpus_test=test,
+                             seq_len=args.seq_len, tokenizer=tokenizer,
+                             train_bpe=args.train_bpe))
     elif args.action == "delete":
         c.delete(args.name)
         print(f"deleted {args.name}")
@@ -429,7 +542,9 @@ def build_parser() -> argparse.ArgumentParser:
     gsrc.add_argument("--datafile", default=None,
                       help=".npy int array [batch, prompt_len] of token ids")
     gsrc.add_argument("--text", default=None,
-                      help="prompt as text (not ported)")
+                      help="prompt as text, encoded with the tokenizer of "
+                           "the model's dataset (bytes without one); the "
+                           "answer prints as text")
     g.add_argument("--max-new-tokens", type=int, default=32)
     g.add_argument("--temperature", type=float, default=0.0,
                    help="0 = greedy; > 0 samples (seeded by --seed)")
@@ -451,9 +566,21 @@ def build_parser() -> argparse.ArgumentParser:
     dc.add_argument("--trainlabels", required=True)
     dc.add_argument("--testdata", required=True)
     dc.add_argument("--testlabels", required=True)
-    dt = dsub.add_parser("create-text", help="text corpora (not ported)")
-    dt.set_defaults(fn=lambda a: _not_ported("dataset create-text",
-                                             "data/text.py"), unported=True)
+    dt = dsub.add_parser("create-text",
+                         help="upload a text corpus as a packed LM token "
+                              "dataset")
+    dt.add_argument("--name", "-n", required=True)
+    dt.add_argument("--corpus", required=True,
+                    help="UTF-8 text file; blank lines separate documents")
+    dt.add_argument("--test-corpus", default=None,
+                    help="held-out corpus (default: 90/10 row split)")
+    dt.add_argument("--seq-len", type=int, default=512)
+    dt.add_argument("--tokenizer", default=None,
+                    help="vocab-JSON tokenizer asset (default: byte-level)")
+    dt.add_argument("--train-bpe", type=int, default=None, metavar="VOCAB",
+                    help="train a byte-level BPE of this vocab size on the "
+                         "corpus at create time (stored as the dataset's "
+                         "tokenizer)")
     dd = dsub.add_parser("delete")
     dd.add_argument("--name", "-n", required=True)
     dsub.add_parser("list")

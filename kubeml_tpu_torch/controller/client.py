@@ -3,7 +3,8 @@
 (``utils.http_client``).
 
 ``client.networks().train/infer/generate``, ``client.datasets()
-.create/get/list/delete`` (a multipart upload of four ``.npy`` files),
+.create/create_text/tokenizer/get/list/delete`` (a multipart upload of
+four ``.npy`` files, or of a text corpus),
 ``client.tasks().list/stop/preempt/prune/jobs/decisions``,
 ``client.histories().get/delete/list/prune``, ``client.functions()`` and
 ``client.checkpoints().list/list_jobs/export/quantize/delete``. A 4xx or
@@ -13,6 +14,7 @@
 from __future__ import annotations
 
 import io
+import json
 import os
 from pathlib import Path
 from typing import Any, List, Optional, Union
@@ -62,8 +64,8 @@ class _Networks(_Part):
     def infer(self, model_id: str, data: Any) -> list:
         body = InferRequest(model_id=model_id, data=np.asarray(data).tolist())
         return http.check(http.post(f"{self.c.url}/infer",
-                                    json=body.to_dict(),
-                                    timeout=self._t()))["predictions"]
+                                    json=body.to_dict(), timeout=self._t(),
+                                    retryable=True))["predictions"]
 
     def generate(self, model_id: str, prompts: Any, *,
                  max_new_tokens: int = 32, temperature: float = 0.0,
@@ -81,7 +83,7 @@ class _Networks(_Part):
         timeout = self._t(generate_timeout(body,
                                            floor=max(self.c.timeout, 120)))
         r = http.post(f"{self.c.url}/generate", json=body.to_dict(),
-                      timeout=timeout, stream=stream)
+                      timeout=timeout, stream=stream, retryable=True)
         return http.ndjson(r) if stream else http.check(r)
 
 
@@ -96,7 +98,30 @@ class _Datasets(_Part):
             timeout=self._t(max(self.c.timeout, 300)),
             idempotency_key=True)))
 
+    def create_text(self, name: str, corpus: str, *, corpus_test=None,
+                    seq_len: int = 512, tokenizer: Optional[dict] = None,
+                    train_bpe: Optional[int] = None) -> dict:
+        """Upload a text corpus: the server tokenizes it (bytes, a
+        vocab-JSON ``tokenizer`` asset, or a BPE of ``train_bpe`` ids
+        trained on this corpus inside the request) and packs
+        ``[N, seq_len]`` rows. The summary and the packing record."""
+        files = {"corpus": ("corpus.txt", corpus.encode("utf-8")),
+                 "seq-len": (None, str(seq_len))}
+        if corpus_test is not None:
+            files["corpus-test"] = ("corpus-test.txt",
+                                    corpus_test.encode("utf-8"))
+        if tokenizer is not None:
+            files["tokenizer"] = ("tokenizer.json",
+                                  json.dumps(tokenizer).encode())
+        if train_bpe is not None:
+            files["train-bpe"] = (None, str(int(train_bpe)))
+        return http.check(http.post(
+            f"{self.c.url}/dataset/{name}", files=files,
+            timeout=self._t(max(self.c.timeout, 300)),
+            idempotency_key=True))
+
     def tokenizer(self, name: str) -> dict:
+        """The dataset's tokenizer asset (a 404 for a byte-level one)."""
         return self._get(f"/dataset/{name}/tokenizer")
 
     def get(self, name: str) -> DatasetSummary:

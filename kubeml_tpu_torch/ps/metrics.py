@@ -20,8 +20,10 @@ headers render even with no series, so the exported metric set does not
 depend on traffic. The data-plane counters (``utils.profiler``) render
 last; a standalone runner's counter deltas arrive as sequenced batches in
 its ``MetricUpdate.dataplane`` and are folded in at most once each (the
-job's sequence high-water mark, JAX :532-625). Not ported: the SLO series
-and the resilience counters.
+job's sequence high-water mark, JAX :532-625). The control plane's
+resilience counters (retries, budget, breakers, deadlines, replays, chaos
+injections, HTTP bytes; ``utils.resilience.render_metrics``) render
+before them. Not ported: the SLO series.
 """
 
 from __future__ import annotations
@@ -616,7 +618,8 @@ class MetricsRegistry:
                     if snap:
                         lines += render_histogram(metric, snap, "model", m,
                                                   extra)
-        from ..utils import profiler
+        from ..utils import profiler, resilience
 
+        lines += resilience.render_metrics()
         lines += profiler.render_metrics()
         return "\n".join(lines) + "\n"

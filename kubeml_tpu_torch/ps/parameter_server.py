@@ -400,9 +400,14 @@ class ParameterServer:
             start_key = uuid.uuid4().hex
             for attempt in range(10):
                 try:
+                    # this loop is the retry schedule (no retries under it),
+                    # and a refused connect while the runner boots must not
+                    # open a breaker on its new port; the one key still
+                    # makes every delivery replay-safe
                     r = http_client.post(f"{url}/start", json=task.to_dict(),
                                          timeout=http_client.timeouts(30),
-                                         idempotency_key=start_key)
+                                         idempotency_key=start_key,
+                                         retryable=False, use_breaker=False)
                     if r.status_code < 400:
                         break
                     last = r.text
@@ -1036,7 +1041,7 @@ class ParameterServer:
                 self._count_route(route)
                 return out
         r = self._runner_call(model_id, record, "POST", "/infer",
-                              json={"data": data})
+                              json={"data": data}, retryable=True)
         self._count_route("json")
         return r.json()["predictions"]
 
@@ -1097,7 +1102,8 @@ class ParameterServer:
         since_v = cached[2].version if cached is not None else None
         url = f"{record.url}/weights"
         since = f"?since={since_v}" if since_v is not None else ""
-        r = http_client.get(url + since, timeout=http_client.timeouts(60))
+        r = http_client.get(url + since, timeout=http_client.timeouts(60),
+                            retryable=True)
         if r.status_code == 404:
             return None
         if r.status_code >= 400:
@@ -1120,7 +1126,8 @@ class ParameterServer:
                 # the runner keeps one delta step: a full snapshot, a fresh
                 # chain
                 decoder = DeltaDecoder()
-                r = http_client.get(url, timeout=http_client.timeouts(60))
+                r = http_client.get(url, timeout=http_client.timeouts(60),
+                                    retryable=True)
                 if r.status_code >= 400:
                     return None
                 variables, _ = decoder.decode(r.content)
@@ -1184,7 +1191,8 @@ class ParameterServer:
             try:
                 r = http_client.post(
                     f"{record.url}/generate", json=fwd,
-                    timeout=http_client.timeouts(generate_timeout(req)))
+                    timeout=http_client.timeouts(generate_timeout(req)),
+                    retryable=True)
             except http_client.TransportError as e:
                 raise KubeMLError(f"job {model_id} runner unreachable: {e}",
                                   502)

@@ -184,7 +184,7 @@ class PSClient:
     def infer(self, model_id: str, data):
         return http.check(http.post(
             f"{self.url}/infer", json={"model_id": model_id, "data": data},
-            timeout=self._timeout()))["predictions"]
+            timeout=self._timeout(), retryable=True))["predictions"]
 
     def stop_task(self, job_id: str) -> None:
         http.check(http.delete(f"{self.url}/stop/{job_id}",

@@ -100,13 +100,13 @@ class SchedulerClient:
         return http.check(http.post(
             f"{self.url}/infer",
             json=InferRequest(model_id=model_id, data=data).to_dict(),
-            timeout=self._timeout()))["predictions"]
+            timeout=self._timeout(), retryable=True))["predictions"]
 
     def generate(self, req: GenerateRequest):
         timeout = self._timeout(generate_timeout(
             req, floor=max(self.timeout, 120)))
         r = http.post(f"{self.url}/generate", json=req.to_dict(),
-                      timeout=timeout, stream=req.stream)
+                      timeout=timeout, stream=req.stream, retryable=True)
         return http.ndjson(r) if req.stream else http.check(r)
 
     def update_job(self, task: TrainTask) -> None:

@@ -6,13 +6,25 @@ named ``x-train``, ``y-train``, ``x-test`` and ``y-test`` (read with
 ``allow_pickle=False``: a pickled upload is refused with a 400, where the
 JAX service would unpickle it); ``DELETE /dataset/<name>``,
 ``GET /dataset/<name>`` (its summary) and ``GET /dataset`` (the list)
-answer from the store's manifests. A text corpus (a ``corpus`` part) is
-refused with a 400 that names ``data/text.py`` (not ported).
+answer from the store's manifests.
+
+A text corpus is the other upload form: a ``corpus`` part (UTF-8, blank
+lines between documents) with optional ``corpus-test``, ``seq-len``
+(default 512), ``tokenizer`` (a JSON asset) or ``train-bpe`` (a vocabulary
+size: ``data.bpe.train_bpe`` trains a merge table on the corpus inside the
+request) parts, packed to ``[N, seq-len]`` token rows by
+``data.text.pack_corpus``; without ``corpus-test`` the last tenth of the
+rows (at least one) is the test split. The packing record and the
+tokenizer asset go into the manifest's ``meta`` (the controller serves the
+asset at ``GET /dataset/{name}/tokenizer``). A corpus that is not UTF-8,
+packs to a single row, or comes with both ``train-bpe`` and a tokenizer is
+a 400.
 """
 
 from __future__ import annotations
 
 import io
+import json
 from email.message import Message
 from email.parser import BytesParser
 from email.policy import HTTP
@@ -46,11 +58,10 @@ def parse_multipart(body: bytes, content_type: str) -> Dict[str, bytes]:
 
 def create_dataset_from_upload(store, name: str,
                                files: Dict[str, bytes]) -> dict:
-    """Create a dataset from a parsed upload of the four arrays (the
-    storage service and the controller share it)."""
+    """Create a dataset from a parsed upload: the four arrays, or a text
+    corpus (the storage service and the controller share it)."""
     if "corpus" in files:
-        raise KubeMLError("text corpora (data/text.py) are not ported to "
-                          "kubeml_tpu_torch yet", 400)
+        return _create_text(store, name, files)
     missing = [f for f in REQUIRED_FILES if f not in files]
     if missing:
         raise KubeMLError(f"missing upload files: {missing}", 400)
@@ -58,6 +69,57 @@ def create_dataset_from_upload(store, name: str,
     return store.create(name, x_train=arrays["x-train"],
                         y_train=arrays["y-train"], x_test=arrays["x-test"],
                         y_test=arrays["y-test"]).to_dict()
+
+
+def _utf8(files: Dict[str, bytes], part: str) -> str:
+    try:
+        return files[part].decode("utf-8")
+    except UnicodeDecodeError as e:
+        raise KubeMLError(f"{part} is not valid UTF-8: {e}", 400)
+
+
+def _create_text(store, name: str, files: Dict[str, bytes]) -> dict:
+    """The ``corpus`` form (JAX storage/service.py:52-120)."""
+    from ..data.text import pack_corpus
+
+    try:
+        seq_len = int((files.get("seq-len") or b"512").decode().strip()
+                      or 512)
+    except ValueError:
+        raise KubeMLError("seq-len must be an integer", 400)
+    spec = None
+    if "tokenizer" in files:
+        try:
+            spec = json.loads(files["tokenizer"])
+        except ValueError as e:
+            raise KubeMLError(f"tokenizer asset is not valid JSON: {e}", 400)
+    corpus = _utf8(files, "corpus")
+    if "train-bpe" in files:
+        if spec is not None:
+            raise KubeMLError("train-bpe and a supplied tokenizer asset are "
+                              "mutually exclusive", 400)
+        try:
+            bpe_vocab = int(files["train-bpe"].decode().strip())
+        except ValueError:
+            raise KubeMLError("train-bpe must be an integer vocab size", 400)
+        from ..data.bpe import train_bpe
+
+        spec = train_bpe(corpus, bpe_vocab)
+    rows, meta = pack_corpus(corpus, seq_len, spec)
+    if "corpus-test" in files:
+        test_rows, _ = pack_corpus(_utf8(files, "corpus-test"), seq_len, spec)
+    else:
+        if len(rows) < 2:
+            raise KubeMLError("corpus packs to a single row — supply more "
+                              "text or an explicit corpus-test part", 400)
+        n_test = max(1, len(rows) // 10)
+        test_rows, rows = rows[-n_test:], rows[:-n_test]
+    summary = store.create(
+        name, x_train=rows, y_train=np.zeros(len(rows), np.int64),
+        x_test=test_rows, y_test=np.zeros(len(test_rows), np.int64),
+        meta={"packing": meta,
+              **({"tokenizer": spec} if spec is not None else {})})
+    return {**summary.to_dict(), "packing": meta}
 
 
 def decode_array(payload: bytes, field: str) -> np.ndarray:

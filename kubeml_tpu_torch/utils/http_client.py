@@ -1,24 +1,37 @@
-"""Outbound HTTP of the port's clients, on the standard library only: the
-counterpart of ``kubeml_tpu/utils/traced_http.py`` without tracing,
-retries or circuit breakers.
+"""Outbound HTTP of the port's services and clients, on the standard library
+only: the counterpart of ``kubeml_tpu/utils/traced_http.py`` (without its
+tracing).
 
-:func:`request` sends one call through ``http.client``:
+:func:`request` builds one call and sends it through
+``utils.resilience.resilient_request`` (the breaker, client chaos, bounded
+retries, the deadline):
 
 * a JSON body (``json=``), raw bytes (``data=``) or a multipart upload
-  (``files={field: (filename, bytes)}``), and query ``params``;
-* the ``x-kubeml-deadline`` header: the deadline bound to the calling
-  thread (``utils.resilience.bind_deadline``: a server thread forwards the
-  one its request arrived with), else now + the read timeout;
+  (``files={field: (filename, bytes)}``), and query ``params``; the body
+  is built once and every attempt sends the same bytes;
 * ``idempotency_key`` (``True`` mints one) as ``x-kubeml-idempotency-key``,
   so the server answers a retried POST from its record;
-* ``timeout``: seconds, or ``(connect, read)``.
+* ``retryable``: whether to retry; by default an idempotent method (GET,
+  HEAD, PUT, DELETE) or a keyed call. A retry follows a transport error
+  or a 500/502/503/504; a 429 is returned to the caller at once;
+* ``use_breaker=False``: for a caller that owns its retry schedule (the
+  PS's hand-over to a booting runner): its failures neither consult nor
+  open the destination's breaker;
+* the ``x-kubeml-deadline`` header: the deadline bound to the calling
+  thread (``utils.resilience.bind_deadline``: a server thread forwards the
+  one its request arrived with), which also gates the retries and clamps
+  each read timeout; with none bound each attempt stamps now + its read
+  timeout, so a read timeout does not use up the retries;
+* ``timeout``: seconds, or ``(connect, read)``;
+* ``stream=True`` leaves the body unread for
+  :meth:`HTTPResponse.iter_lines`: a call is retried only until an answer
+  that is not a retryable status has arrived, never mid-stream.
 
-The answer is a :class:`HTTPResponse`; ``stream=True`` leaves the body
-unread for :meth:`HTTPResponse.iter_lines`. :func:`check` turns a 4xx/5xx
-into the typed ``KubeMLError`` of its envelope
-(``api.errors.error_from_envelope``), and :func:`ndjson` reads a streamed
-answer line by line. A peer that cannot be reached raises
-:class:`TransportError` (a 503).
+:func:`check` turns a 4xx/5xx into the typed ``KubeMLError`` of its
+envelope (``api.errors.error_from_envelope``), and :func:`ndjson` reads a
+streamed answer line by line. A peer that cannot be reached raises
+:class:`TransportError` (a 503; :class:`CircuitOpenError` and
+:class:`DeadlineExpiredError` are its kinds).
 """
 
 from __future__ import annotations
@@ -26,21 +39,16 @@ from __future__ import annotations
 import http.client
 import json as _json
 import socket
-import time
 import uuid
 from typing import Any, Dict, Iterator, Optional, Tuple
 from urllib.parse import urlencode, urlsplit
 
-from ..api.errors import KubeMLError, error_from_envelope
+from ..api.errors import error_from_envelope
 from . import resilience
+from .resilience import (CircuitOpenError, DeadlineExpiredError,  # noqa: F401
+                         TransportError)
 
 DEFAULT_CONNECT_TIMEOUT = 3.05
-
-
-class TransportError(KubeMLError):
-    """The peer could not be reached, or the connection broke."""
-
-    status_code = 503
 
 
 class HTTPResponse:
@@ -135,19 +143,42 @@ def _multipart(files: Dict[str, tuple]) -> Tuple[bytes, str]:
     return body, f"multipart/form-data; boundary={boundary}"
 
 
+def send(method: str, url: str, *, headers: Dict[str, str], timeout=None,
+         body: Optional[bytes] = None, stream: bool = False
+         ) -> HTTPResponse:
+    """One attempt through ``http.client``; :class:`TransportError` when
+    the peer cannot be reached, times out (504) or breaks the answer."""
+    parts = urlsplit(url)
+    path = (parts.path or "/") + (f"?{parts.query}" if parts.query else "")
+    connect, read = _split_timeout(timeout)
+    conn = http.client.HTTPConnection(parts.hostname, parts.port or 80,
+                                      timeout=connect)
+    try:
+        conn.connect()
+        conn.sock.settimeout(read)
+        conn.request(method, path, body=body, headers=headers)
+        resp = conn.getresponse()
+    except (OSError, http.client.HTTPException) as e:
+        conn.close()
+        if isinstance(e, socket.timeout):
+            raise TransportError(f"{method} {url} timed out: {e}", 504)
+        raise TransportError(f"cannot reach {parts.netloc} ({method} "
+                             f"{url}): {e}")
+    return HTTPResponse(conn, resp, stream)
+
+
 def request(method: str, url: str, *, json: Any = None,
             data: Optional[bytes] = None,
             files: Optional[Dict[str, tuple]] = None,
             params: Optional[Dict[str, str]] = None,
             headers: Optional[Dict[str, str]] = None, timeout=None,
-            stream: bool = False, idempotency_key=None) -> HTTPResponse:
-    parts = urlsplit(url)
-    path = parts.path or "/"
-    query = parts.query
+            stream: bool = False, idempotency_key=None,
+            retryable: Optional[bool] = None,
+            use_breaker: bool = True) -> HTTPResponse:
     if params:
-        query = "&".join(q for q in (query, urlencode(params)) if q)
-    if query:
-        path += "?" + query
+        parts = urlsplit(url)
+        query = "&".join(q for q in (parts.query, urlencode(params)) if q)
+        url = parts._replace(query=query).geturl()
     hdrs = dict(headers or {})
     body = data
     if json is not None:
@@ -160,29 +191,21 @@ def request(method: str, url: str, *, json: Any = None,
         idempotency_key = uuid.uuid4().hex
     if idempotency_key:
         hdrs.setdefault(resilience.IDEMPOTENCY_HEADER, idempotency_key)
-    connect, read = _split_timeout(timeout)
+    # a bound deadline is the chain's budget (it gates and clamps the
+    # retries); at the origin each attempt stamps its own
     deadline = resilience.current_deadline()
-    if deadline is None and read is not None:
-        deadline = time.time() + read
+    stamp_origin = (deadline is None
+                    and resilience.DEADLINE_HEADER not in hdrs)
     if deadline is not None:
         hdrs.setdefault(resilience.DEADLINE_HEADER,
                         resilience.format_deadline(deadline))
-        remaining = max(deadline - time.time(), 0.001)
-        read = remaining if read is None else min(read, remaining)
-    conn = http.client.HTTPConnection(parts.hostname, parts.port or 80,
-                                      timeout=connect)
-    try:
-        conn.connect()
-        conn.sock.settimeout(read)
-        conn.request(method, path, body=body, headers=hdrs)
-        resp = conn.getresponse()
-    except (OSError, http.client.HTTPException) as e:
-        conn.close()
-        if isinstance(e, socket.timeout):
-            raise TransportError(f"{method} {url} timed out: {e}", 504)
-        raise TransportError(f"cannot reach {parts.netloc} ({method} "
-                             f"{url}): {e}")
-    return HTTPResponse(conn, resp, stream)
+    if retryable is None:
+        retryable = (method.upper() in resilience.IDEMPOTENT_METHODS
+                     or bool(idempotency_key))
+    return resilience.resilient_request(
+        method, url, retryable=retryable, deadline=deadline,
+        stamp_origin=stamp_origin, use_breaker=use_breaker, headers=hdrs,
+        timeout=timeout, body=body, stream=stream)
 
 
 def check(resp: HTTPResponse) -> Any:

@@ -15,10 +15,17 @@ A stdlib ``ThreadingHTTPServer`` (one thread a connection) with:
   504 before any work, otherwise the deadline is bound to the handler
   thread (``utils.resilience.bind_deadline``);
 * idempotent replay: a POST with an ``x-kubeml-idempotency-key`` runs
-  once; a retried delivery gets the recorded 2xx answer.
+  once; a retried delivery gets the recorded 2xx answer;
+* chaos (``utils.resilience.chaos``, off unless ``KUBEML_CHAOS`` is set):
+  before the deadline check, the replay cache and dispatch, so that an
+  injected fault never leaves half-applied state, a request may be
+  delayed, answered with a 500, or reset (the socket shut down with no
+  answer); ``/health`` and ``/metrics`` are exempt. Injections count
+  under ``kubeml_chaos_injected_total``, deadline refusals and replays
+  under their own counters.
 
 Port 0 binds any free port; :attr:`Service.port` then holds the bound one.
-Not ported: the tracing spans and the chaos hooks of the JAX server.
+Not ported: the tracing spans of the JAX server.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from __future__ import annotations
 import json
 import logging
 import re
+import socket
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -206,8 +214,31 @@ class Service:
                     val = router.replay.get(method, path, key)
                     state = "replay" if val is not None else "owner"
                 if state == "replay":
+                    resilience.incr("kubeml_http_idempotent_replays_total",
+                                    router.name)
                     return val, False
                 return None, True
+
+            def _inject_chaos(self, path: str) -> Optional[str]:
+                """Maybe sleep; "error" or "reset" when the request must
+                fail instead of running."""
+                fault = resilience.chaos().server_fault(path)
+                if fault is None:
+                    return None
+                mode, delay = fault
+                if mode == "delay":
+                    time.sleep(delay)
+                    return None
+                return mode
+
+            def _chaos_reset(self):
+                """Drop the connection with no answer: the client sees a
+                reset or an EOF."""
+                self.close_connection = True
+                try:
+                    self.connection.shutdown(socket.SHUT_RDWR)
+                except OSError:
+                    pass
 
             def _handle(self, method: str):
                 owner = False
@@ -218,10 +249,22 @@ class Service:
                     length = int(self.headers.get("Content-Length") or 0)
                     body = self.rfile.read(length) if length else b""
                     internal = path in INTERNAL_PATHS
+                    if not internal:
+                        # chaos first: a reset hits requests that would
+                        # have been refused or replayed too
+                        mode = self._inject_chaos(path)
+                        if mode == "reset":
+                            self._chaos_reset()
+                            return
+                        if mode == "error":
+                            raise KubeMLError("chaos: injected server fault",
+                                              500)
                     deadline = resilience.parse_deadline(
                         self.headers.get(resilience.DEADLINE_HEADER))
                     if (deadline is not None and not internal
                             and deadline <= time.time()):
+                        resilience.incr("kubeml_http_deadline_rejected_total",
+                                        router.name)
                         raise KubeMLError(
                             f"deadline expired {path} ({router.name})", 504)
                     resp = None

@@ -62,6 +62,28 @@ class Model(KubeModel):
 """
 
 
+TEXT_LM_FN = """
+from kubeml_tpu_torch.data.dataset import KubeDataset
+from kubeml_tpu_torch.data.text import BYTE_VOCAB
+from kubeml_tpu_torch.models.gpt import CausalTransformer
+from kubeml_tpu_torch.parallel.trainer import adamw
+from kubeml_tpu_torch.runtime.model import KubeModel
+
+
+class Model(KubeModel):
+    def __init__(self):
+        super().__init__(KubeDataset("t"))
+
+    def build(self):
+        return CausalTransformer(vocab_size=BYTE_VOCAB, max_len=32,
+                                 embed_dim=16, depth=1, num_heads=2,
+                                 mesh=self.mesh, device="cpu")
+
+    def configure_optimizers(self, params):
+        return adamw(self.lr)(params)
+"""
+
+
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
     before = torch.get_num_threads()
@@ -486,11 +508,34 @@ def test_cli_commands(cluster, tmp_path, capsys):
     assert rc == 0 and "pruned" in out
     assert run_cli(capsys, url, "dataset", "delete", "-n", "blobs")[0] == 0
     assert run_cli(capsys, url, "function", "delete", "-n", "lenet")[0] == 0
-    for argv in (("trace", jid), ("slo",), ("top",), ("profile", jid),
-                 ("dataset", "create-text", "-n", "t"),
-                 ("generate", "-n", jid, "--text", "hi")):
+    for argv in (("trace", jid), ("slo",), ("top",), ("profile", jid)):
         rc, _, err = run_cli(capsys, url, *argv)
         assert rc == 2 and "not ported" in err, argv
+    # `dataset create-text` and `generate --text` are ported: a byte-level
+    # corpus, a one-epoch LM trained on it, prompted with text (streamed
+    # and not, the same text)
+    corpus = tmp_path / "corpus.txt"
+    corpus.write_text("\n\n".join(f"document {i} of a tiny corpus"
+                                   for i in range(24)))
+    rc, out, _ = run_cli(capsys, url, "dataset", "create-text", "-n", "t",
+                         "--corpus", str(corpus), "--seq-len", "16")
+    assert rc == 0 and '"tokenizer": "byte"' in out, out
+    (tmp_path / "tlm.py").write_text(TEXT_LM_FN)
+    assert run_cli(capsys, url, "function", "create", "-n", "tlm",
+                   "--code", str(tmp_path / "tlm.py"))[0] == 0
+    rc, out, _ = run_cli(capsys, url, "train", "-f", "tlm", "-d", "t", "-e",
+                         "1", "-b", "4", "--engine", "spmd")
+    assert rc == 0
+    lm = out.strip()
+    wait_job(cluster, lm, 1)
+    texts = []
+    for extra in ((), ("--stream",)):
+        rc, out, err = run_cli(capsys, url, "generate", "-n", lm, "--text",
+                               "document 3", "--max-new-tokens", "6",
+                               *extra)
+        assert rc == 0, err
+        texts.append(out)
+    assert texts[0] == texts[1] and texts[0].endswith("\n")
     # `logs` is ported: the cluster log (which `cli start` writes) filtered
     # by the id, and a missing log reported as JAX's command reports it
     from kubeml_tpu_torch.api import config as port_cfg

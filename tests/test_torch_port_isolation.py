@@ -89,6 +89,43 @@ def test_control_plane_modules_keep_their_own_copies(module):
     assert not _offenders(path)
 
 
+@pytest.mark.parametrize("module", [
+    "data/text.py", "data/bpe.py", "storage/service.py",
+    "utils/resilience.py", "utils/http_client.py", "utils/httpd.py",
+    "controller/client.py", "cli.py", "ps/metrics.py"])
+def test_text_and_resilience_modules_keep_their_own_copies(module):
+    """The text data path (the byte tokenizer, ``pack_corpus``, the BPE
+    trainer) and the retrying HTTP layer copy what they need of the JAX
+    package's JAX-free ``data/text``, ``data/bpe`` and
+    ``utils/resilience`` and speak HTTP through the standard library."""
+    path = REPO / "kubeml_tpu_torch" / module
+    assert path.is_file() and path in _port_sources()
+    assert not _offenders(path)
+
+
+def test_the_cli_client_path_imports_no_torch():
+    """The CLI's client commands (and the text path they read) start
+    without torch: the package's ``resolve_device``, ``data``'s names and
+    ``controller.Controller`` are imported on first use, and
+    ``data.text.PAD_ID`` is the models' pad id."""
+    code = ("import sys\n"
+            "import kubeml_tpu_torch.cli, kubeml_tpu_torch.data.bpe, "
+            "kubeml_tpu_torch.controller.client\n"
+            "sys.exit(1 if 'torch' in sys.modules else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    from kubeml_tpu_torch import resolve_device
+    from kubeml_tpu_torch.controller import Controller
+    from kubeml_tpu_torch.data import KubeDataset, plan_epoch
+    from kubeml_tpu_torch.data.text import PAD_ID
+    from kubeml_tpu_torch.models.gpt import PAD_ID as MODEL_PAD_ID
+
+    assert callable(resolve_device) and callable(plan_epoch)
+    assert Controller.__name__ == "Controller" and KubeDataset
+    assert PAD_ID == MODEL_PAD_ID == 0
+
+
 def test_importing_the_port_loads_no_jax_module():
     code = (
         "import sys\n"
@@ -115,7 +152,8 @@ def test_importing_the_port_loads_no_jax_module():
         "kubeml_tpu_torch.ps.transport, kubeml_tpu_torch.storage.service, "
         "kubeml_tpu_torch.storage.sharded_checkpoint, "
         "kubeml_tpu_torch.engine.spmd_job, kubeml_tpu_torch.engine.follower, "
-        "kubeml_tpu_torch.engine.failures\n"
+        "kubeml_tpu_torch.engine.failures, kubeml_tpu_torch.data.text, "
+        "kubeml_tpu_torch.data.bpe, kubeml_tpu_torch.utils.http_client\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
