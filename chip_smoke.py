@@ -7,8 +7,9 @@ SPMD job with sharded checkpoints, multi-rank SPMD (two ranks on the
 card over gloo), the SPMD job over ranks through the control plane, the
 pipeline over ``pp`` ranks, MoE expert parallelism over ``ep`` ranks,
 meshed serving over two ranks, K-AVG over two ranks, standalone job
-runners with the preemption monitor, and a text corpus with a trained BPE
-training GPT-2-small through the CLI under chaos on every HTTP hop.
+runners with the preemption monitor, a text corpus with a trained BPE
+training GPT-2-small through the CLI under chaos on every HTTP hop, and
+tracing and profiling across every hop down to the kernels on the card.
 Run from the repo root::
 
     python3 chip_smoke.py
@@ -438,7 +439,11 @@ Phases, each reported on its own lines:
    predictions; its first epoch's losses within ``SA_SAME_RTOL`` of the
    threaded job's, no fallback in the runner's log, non-zero
    ``kubeml_dataplane_bytes_total`` on ``/metrics``; spawn to
-   ``LISTENING`` (the PS's record) and ``/train`` to the first epoch; (c)
+   ``LISTENING`` (the PS's record) and ``/train`` to the first epoch; the
+   runners trace (``KUBEML_TRACE``) and so does this process: after the
+   job, its trace through the controller holds one trace id and no
+   dangling parent, and ``worker`` spans of the first runner's pid, not
+   this process's, with ``job.epoch`` among them; (c)
    phase 12's ``final-int8`` GPT-2-small served by the same parameter
    server (int8 weights through the int8 matmul, int8 KV pages) while the
    held runner waits: phase 3's 16 requests at once (429s retried) preempt
@@ -464,7 +469,8 @@ Phases, each reported on its own lines:
    4096`` of seven Markdown files no change to the port edits
    (``TX_FILES``, about 230 KB, documents at blank lines): the asset at
    ``GET /dataset/{name}/tokenizer`` equal to ``data.bpe.train_bpe`` on
-   the same text in this process, the stored train and test rows equal
+   the same text in a child process that runs beside the upload (both
+   runs' seconds printed), the stored train and test rows equal
    to ``pack_corpus`` and the 90/10 split; the upload's seconds, the
    vocabulary reached, tokens against bytes, rows; (b) ``GPTSmall`` at the
    asset's vocabulary and ``max_len`` 1024 (768 x 12, 12 heads; bf16 to
@@ -496,7 +502,44 @@ Phases, each reported on its own lines:
    f32) launches a forward; the int8 matmul held against ``int8_dot`` at
    every int8 (K, N), the ``lm_head`` at the trained vocabulary among
    them; TTFT and tokens/s through the client;
-26. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last
+26. traced - a fresh ``LocalCluster`` on phase 25's data root with int8
+   serving (``final-int8`` through the int8 matmul), this process's
+   tracer on and ``KUBEML_FLIGHT_DIR`` set. (a) ``kubeml train --engine
+   spmd`` of 25b's text LM (1 epoch of 9 steps, B 8 x L 1024, bf16, a
+   checkpoint) through ``cli.main`` in this process, so its ``cli.train``
+   root is in the same tracer: the task's trace through ``GET /tasks/{id}/
+   trace`` holds one trace id, one root, no dangling parent, the services
+   cli, controller, scheduler, ps and worker, every ``job.epoch`` under
+   ``ps.job.run``; ``kubeml trace -o`` writes one process row a service;
+   ``kubeml profile`` has a ``job.checkpoint`` row with bytes; flash
+   12/12/12 a step; (b) one ``/generate`` of 25c's prompt (64 new tokens)
+   to 25's ``final-int8`` with a ``traceparent`` made here: the request's
+   trace holds only that trace id; the server span under the traceparent
+   (``controller POST /generate``: in a ``LocalCluster`` the PS's
+   generate is the controller's route, in its process) is the parent of
+   ``serving.request``, which is the parent of ``serving.queue_wait``,
+   ``serving.prefill`` and ``serving.decode``; both serving kernels
+   launch; ``kubeml_http_{sent,received}_bytes_total{route="/generate"}``
+   above 0 on ``/metrics``; (c) a ``ProfileSession("smoke",
+   device_trace_dir=...)`` over two train steps of (a)'s model and one
+   (b)-style request (int8 weights through the int8 matmul) in a process
+   of its own (started with phase 25, it builds its models while 25 and
+   26a-b run; the profiler in this process records no kernel once phases
+   17-20 spawned ranks): no ``device_trace_error``, the Chrome trace's
+   CUDA kernel events name ``flash_fwd_wgmma_kernel``,
+   ``flash_dq_wgmma_kernel``,
+   ``flash_dkv_wgmma_kernel``, ``paged_attention_ring_kernel`` and
+   ``int8_mm_wgmma_kernel``, the report classifies the train step
+   compute-bound and the request transfer-bound at the H100's peaks
+   (``utils.profiler.CARD_PEAKS``); (d) a job whose first step fails,
+   submitted through ``cli.main`` with ``KUBEML_ERROR_WEBHOOK`` at a
+   receiver on 127.0.0.1: one report, context ``job-failure`` (or
+   ``job-start-failure``), the job's ``task_id``, a ``trace_id`` of the
+   job's trace and a non-empty ``flight_recorder`` tail; a
+   ``flight-*.json`` in ``KUBEML_FLIGHT_DIR``. Printed, not gated: span
+   and dropped counts, ``kubeml trace``/``profile`` seconds, the traced
+   step beside 25b's, the request's TTFT, the device trace's size;
+27. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last
    (there is no phase 24).
 
 Any failure raises and the script exits non-zero; without a CUDA device it
@@ -7282,6 +7325,7 @@ def standalone_kavg(smi, cluster):
     t0 = time.monotonic()
     client.networks().train(sa_request(SA_JOB, fn="bands-held"))
     rec = sa_record(cluster, SA_JOB)
+    pid = rec.proc.pid
     sa_wait(lambda: runner_state(rec.url)["epochs"] >= 1, "first epoch")
     first_epoch_s = time.monotonic() - t0
     sock = cfg.job_socket_path(SA_JOB)
@@ -7295,7 +7339,8 @@ def standalone_kavg(smi, cluster):
     sa_wait(held, "the held epoch's publish")
     probe = banded_images(SA_PROBE, 4)[0]
     routes0 = dict(ps.infer_routes)
-    out = dict(listening_s=rec.listening_s, first_epoch_s=first_epoch_s)
+    out = dict(listening_s=rec.listening_s, first_epoch_s=first_epoch_s,
+               pid=pid)
     t1 = time.perf_counter()
     ps._socket_weights(SA_JOB, rec)
     out["socket_ms"] = 1e3 * (time.perf_counter() - t1)
@@ -7552,8 +7597,10 @@ def standalone_phase(smi, root, qrun, qprun):
 
     from kubeml_tpu_torch.api import GenerateRequest
     from kubeml_tpu_torch.cluster import LocalCluster
+    from kubeml_tpu_torch.controller import KubemlClient
     from kubeml_tpu_torch.native import fallback_counts, native_available
     from kubeml_tpu_torch.native.bindings import reset_fallback_counts
+    from kubeml_tpu_torch.utils import tracing
 
     if not native_available():
         raise AssertionError("23: the native library did not build")
@@ -7578,6 +7625,15 @@ def standalone_phase(smi, root, qrun, qprun):
     gate = Path(data_root) / "hold.gate"
     gate.touch()
     os.environ["KUBEML_SMOKE_GATE"] = str(gate)
+    # the runners trace (KUBEML_TRACE, inherited) and post their spans to
+    # the PS; this process traces too (enabled first: with the variable set
+    # a disabled tracer would enable itself with a flush at exit), so the
+    # runners' spans stitch under the controller's
+    tracer = tracing.get_tracer()
+    tracer.clear()
+    tracer.enable()
+    tracer.service = "kubeml"
+    os.environ["KUBEML_TRACE"] = str(Path(data_root) / "runner-traces")
     cfg = cp_config(data_root, standalone_jobs=True, serving_quantize="int8",
                     kv_quant="int8", int8_matmul=True,
                     serving_chunk_steps=CHUNK,
@@ -7606,8 +7662,28 @@ def standalone_phase(smi, root, qrun, qprun):
             c = colocation(smi, cluster, dec, gate, qrun, qprun)
             log_text = (cfg.logs_dir / f"job-{SA_JOB}.log").read_text()
             metrics = http_text(f"{cluster.ps_api.url}/metrics")
+            t1 = time.monotonic()
+            trace = tr_fetch(KubemlClient(cluster.controller_url,
+                                          timeout=600), SA_JOB)
+            trace_s = time.monotonic() - t1
     finally:
         os.environ.pop("KUBEML_SMOKE_GATE", None)
+        os.environ.pop("KUBEML_TRACE", None)
+        tracer.disable()
+        tracer.clear()
+    tr_stitched("23a", trace)
+    runner = [s for s in trace["spans"] if s["service"] == "worker"
+              and s["pid"] != os.getpid()]
+    pids = sorted({s["pid"] for s in runner})
+    names = sorted({s["name"] for s in runner})
+    log(f"  23a trace of {SA_JOB} [{smi}]: {len(trace['spans'])} spans "
+        f"({trace['dropped']} dropped) in one trace id, no dangling parent "
+        f"({trace_s:.2f} s to fetch); {len(runner)} worker spans from the "
+        f"runner pids {pids} (the first runner {a['pid']}, this process "
+        f"{os.getpid()}): {names}")
+    if a["pid"] not in pids or "job.epoch" not in names:
+        raise AssertionError(f"23a: the runners' spans: pids {pids} (the "
+                             f"first runner {a['pid']}), names {names}")
     h = c["history"]
     holds, delta, tol = loss_parity(threaded.train_loss, h.train_loss)
     diffs = [max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(
@@ -7786,26 +7862,63 @@ def tx_corpus() -> str:
                        for f in TX_FILES)
 
 
+# the reference BPE of 25a, trained in a child process while the upload
+# runs: ``python -c TX_BPE_CHILD <corpus> <vocabulary> <out.json>``
+TX_BPE_CHILD = """
+import json, sys, time
+from pathlib import Path
+from kubeml_tpu_torch.data.bpe import train_bpe
+t0 = time.monotonic()
+spec = train_bpe(Path(sys.argv[1]).read_text(encoding="utf-8"),
+                 int(sys.argv[2]))
+Path(sys.argv[3]).write_text(json.dumps(
+    {"spec": spec, "seconds": time.monotonic() - t0}))
+"""
+
+
+def tx_bpe_child(path, out):
+    """The reference ``train_bpe`` of the corpus at ``path`` in a child
+    process, its answer to ``out``; returns the process."""
+    import os
+
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, (
+        str(here), os.environ.get("PYTHONPATH")))))
+    return subprocess.Popen(
+        [sys.executable, "-c", TX_BPE_CHILD, str(path), str(TX_BPE),
+         str(out)], cwd=str(here), env=env)
+
+
 def text_upload(smi, cluster, root):
     """25a (see the module docstring). Returns the tokenizer asset and the
     train and test row counts."""
     from kubeml_tpu_torch.controller import KubemlClient
-    from kubeml_tpu_torch.data.bpe import train_bpe
     from kubeml_tpu_torch.data.text import pack_corpus
 
     corpus = tx_corpus()
     path = Path(root) / "corpus.txt"
     path.write_text(corpus, encoding="utf-8")
-    out, upload_s = tx_cli(cluster.controller_url, "dataset", "create-text",
-                           "-n", TX_DATASET, "--corpus", str(path),
-                           "--seq-len", str(TX_SEQ), "--train-bpe",
-                           str(TX_BPE))
+    ref_out = Path(root) / "bpe-reference.json"
+    t0 = time.monotonic()
+    child = tx_bpe_child(path, ref_out)
+    try:
+        out, upload_s = tx_cli(cluster.controller_url, "dataset",
+                               "create-text", "-n", TX_DATASET, "--corpus",
+                               str(path), "--seq-len", str(TX_SEQ),
+                               "--train-bpe", str(TX_BPE))
+        code = child.wait(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if code != 0:
+        raise AssertionError(f"25a: the reference train_bpe exited {code}")
+    both_s = time.monotonic() - t0
+    ref = json.loads(ref_out.read_text())
+    spec, bpe_s = ref["spec"], ref["seconds"]
     packing = json.loads(out)["packing"]
     asset = KubemlClient(cluster.controller_url).datasets().tokenizer(
         TX_DATASET)
-    t0 = time.monotonic()
-    spec = train_bpe(corpus, TX_BPE)
-    bpe_s = time.monotonic() - t0
     if asset != spec:
         raise AssertionError("25a: the served tokenizer asset differs from "
                              "train_bpe on the same text")
@@ -7825,8 +7938,9 @@ def text_upload(smi, cluster, root):
         f"{spec['vocab_size']} of {TX_BPE} ({len(spec['merges'])} merges), "
         f"{meta['tokens']} tokens ({n_bytes / meta['tokens']:.2f} bytes a "
         f"token), rows train {len(train)} test {len(test)} of {TX_SEQ}; the "
-        f"asset equal to train_bpe here ({bpe_s:.1f} s), the rows to "
-        f"pack_corpus and the 90/10 split")
+        f"asset equal to train_bpe in a child process ({bpe_s:.1f} s, "
+        f"beside the upload: both done {both_s:.1f} s after the start), the "
+        f"rows to pack_corpus and the 90/10 split")
     return spec, len(train), len(test)
 
 
@@ -7995,7 +8109,8 @@ def chaos_counts(metrics: str) -> dict:
 def text_train(smi, cluster, root, spec, n_train, n_test, chaos):
     """25b (see the module docstring); ``chaos`` (an ExitStack) holds
     ``tx_chaos`` from the chaos job on, left on for 25c. Returns the chaos
-    job's id and the flash launches of the jobs."""
+    job's id, the flash launches of the jobs and the chaos-off job's last
+    epoch's ms a step."""
     from kubeml_tpu_torch.controller import KubemlClient
 
     client = KubemlClient(cluster.controller_url, timeout=600)
@@ -8045,7 +8160,7 @@ def text_train(smi, cluster, root, spec, n_train, n_test, chaos):
                              f"the submitted jobs {submitted}")
     log(f"  25b: {len(submitted)} jobs submitted, one history each, each "
         f"with its final")
-    return jid, total
+    return jid, total, bstep
 
 
 def tx_serve(smi, cluster, jid, tok, tag, int8: bool):
@@ -8103,7 +8218,10 @@ def tx_serve(smi, cluster, jid, tok, tag, int8: bool):
 
 def text_phase(smi, root):
     """Phase 25 (see the module docstring). Returns the flash launches of
-    25b and the (paged_attention, int8_matmul) launches of 25c."""
+    25b, the (paged_attention, int8_matmul) launches of 25c and what phase
+    26 reuses: the data root, the chaos job's id (its ``final-int8``
+    served), the tokenizer asset, the row counts and the chaos-off job's
+    ms a step."""
     from contextlib import ExitStack
 
     from kubeml_tpu_torch.cluster import LocalCluster
@@ -8122,8 +8240,8 @@ def text_phase(smi, root):
             spec, n_train, n_test = text_upload(smi, cluster, root)
             log(f"  25a {time.monotonic() - t0:.1f} s")
             t0 = time.monotonic()
-            jid, flash = text_train(smi, cluster, root, spec, n_train,
-                                    n_test, chaos)
+            jid, flash, step_ms = text_train(smi, cluster, root, spec,
+                                             n_train, n_test, chaos)
             log(f"  25b {time.monotonic() - t0:.1f} s")
             t0 = time.monotonic()
             tok = BPETokenizer(spec)
@@ -8148,7 +8266,523 @@ def text_phase(smi, root):
     log(f"  25c {time.monotonic() - t0:.1f} s; the int8 lm_head's N {n}: "
         + ("a multiple of 16, the kernel's TMA route" if n % 16 == 0
            else "the kernel's row-copy route"))
-    return flash, (f32[0] + q[0], f32[1] + q[1])
+    return flash, (f32[0] + q[0], f32[1] + q[1]), dict(
+        root=root, jid=jid, spec=spec, n_train=n_train, n_test=n_test,
+        step_ms=step_ms)
+
+
+# --- phase 26: tracing and profiling --------------------------------------
+
+# the services a traced train request crosses in a LocalCluster
+TR_SERVICES = {"cli", "controller", "scheduler", "ps", "worker"}
+# the hand-written kernels the device trace must name (26c)
+TR_KERNELS = ("flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel",
+              "flash_dkv_wgmma_kernel", "paged_attention_ring_kernel",
+              "int8_mm_wgmma_kernel")
+TR_DEADLINE = 300.0  # seconds any wait of phase 26 may take
+# seconds 26c's process waits for its go: it starts with phase 25
+TR_CHILD_WAIT = 1200.0
+# 26d: a function that loads and builds, and fails in the job thread at
+# the first step's forward
+TR_FAIL_FN = "tracefail"
+TR_FAIL_SRC = """
+import torch
+from kubeml_tpu_torch.data.dataset import KubeDataset
+from kubeml_tpu_torch.models.gpt import CausalTransformer
+from kubeml_tpu_torch.parallel.trainer import adamw
+from kubeml_tpu_torch.runtime.model import KubeModel
+
+
+class Planted(CausalTransformer):
+    def forward(self, *args, **kwargs):
+        raise RuntimeError("26d: a planted failure in the first step")
+
+
+class FailingLM(KubeModel):
+    def __init__(self):
+        super().__init__(KubeDataset("text-corpus"))
+
+    def build(self):
+        return Planted(vocab_size=VOCAB, max_len=1024, embed_dim=64, depth=1,
+                       num_heads=2)
+
+    def configure_optimizers(self, params):
+        return adamw(self.lr)(params)
+"""
+
+
+def tr_cli(*argv):
+    """``kubeml_tpu_torch.cli.main(argv)`` in this process (its spans land
+    in this process's tracer, as a user's CLI would hand its trace
+    context on); returns (stdout, seconds). A non-zero exit fails 26."""
+    import contextlib
+    import io
+
+    from kubeml_tpu_torch import cli
+
+    out = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(list(argv))
+    if rc != 0:
+        raise AssertionError(f"26: kubeml {' '.join(argv[2:4])} exited {rc}")
+    return out.getvalue(), time.monotonic() - t0
+
+
+def tr_fetch(client, task_id):
+    """The task's merged trace through the controller (``GET /tasks/{id}/
+    trace``, the client's retries); a fetch that fails after them fails
+    26."""
+    trace = client.tasks().trace(task_id)
+    if not trace.get("spans"):
+        raise AssertionError(f"26: an empty trace for {task_id}")
+    return trace
+
+
+def tr_stitched(tag, trace, root=None):
+    """One trace id, every span in it, no dangling parent and, with
+    ``root``, one root span of that name. Returns the spans by id."""
+    spans, ids = trace["spans"], trace["trace_ids"]
+    by_id = {s["span_id"]: s for s in spans}
+    roots = [s["name"] for s in spans if not s["parent_id"]]
+    dangling = [s["name"] for s in spans
+                if s["parent_id"] and s["parent_id"] not in by_id]
+    if len(ids) != 1 or any(s["trace_id"] != ids[0] for s in spans):
+        raise AssertionError(f"{tag}: trace ids {ids}")
+    if dangling or (root is not None and roots != [root]):
+        raise AssertionError(f"{tag}: roots {roots}, spans whose parent is "
+                             f"missing {dangling}")
+    return by_id
+
+
+def tr_job(smi, cluster, ctx, out_dir):
+    """26a (see the module docstring). Returns the flash launches."""
+    from kubeml_tpu_torch.controller import KubemlClient
+
+    url = cluster.controller_url
+    client = KubemlClient(url, timeout=600)
+    reset_flash_counts()
+    t0 = time.monotonic()
+    out, _ = tr_cli("--url", url, "train", "-f", TX_FN, "-d", TX_DATASET,
+                    "-e", "1", "-b", str(TX_B), "--lr", str(TX_LR), "-p",
+                    "1", "--static", "--engine", "spmd",
+                    "--checkpoint-every", "1")
+    jid = out.strip().splitlines()[-1]
+    hist, _ = tx_wait(client, jid)
+    cp_wait_job(cluster, jid)
+    wall = time.monotonic() - t0
+    counts = flash_counts()
+    steps = ctx["n_train"] // TX_B
+    evals = ctx["n_test"] // TX_B
+    per_step = ((counts[0] - TX_DEPTH * evals) / steps, counts[1] / steps,
+                counts[2] / steps)
+    step_ms = 1e3 * hist.epoch_duration[-1] / steps
+    if (hist.task or {}).get("error") or len(hist.train_loss) != 1:
+        raise AssertionError(f"26a: the job ended with {hist.train_loss}, "
+                             f"error {(hist.task or {}).get('error')}")
+    if per_step != (TX_DEPTH, TX_DEPTH, TX_DEPTH):
+        raise AssertionError(f"26a: flash launches a step {per_step}")
+    trace = tr_fetch(client, jid)
+    spans = trace["spans"]
+    by_id = tr_stitched("26a", trace, root="cli.train")
+    services = {s["service"] for s in spans}
+    if not TR_SERVICES <= services:
+        raise AssertionError(f"26a: services {services}")
+    epochs = [s for s in spans if s["name"] == "job.epoch"]
+    if not epochs or any(by_id[s["parent_id"]]["name"] != "ps.job.run"
+                         for s in epochs):
+        raise AssertionError(f"26a: job.epoch spans {epochs}")
+    path = Path(out_dir) / f"trace-{jid}.json"
+    _, trace_s = tr_cli("--url", url, "trace", jid, "-o", str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    rows = [e["args"]["name"] for e in events if e["ph"] == "M"]
+    if sorted(rows) != sorted(services):
+        raise AssertionError(f"26a: process rows {rows} for the services "
+                             f"{services}")
+    out, profile_s = tr_cli("--url", url, "profile", jid)
+    phases = {r["phase"]: r for r in json.loads(out)["phases"]}
+    ckpt = phases.get("job.checkpoint", {})
+    if not ckpt.get("bytes", 0) > 0:
+        raise AssertionError(f"26a: the profile's job.checkpoint row "
+                             f"{ckpt}")
+    log(f"  26a traced job {jid} [{smi}]: kubeml train --engine spmd, 1 "
+        f"epoch x {steps} steps of B {TX_B} x L {TX_SEQ}, a checkpoint: "
+        f"{wall:.1f} s from the CLI's train to the history; "
+        f"{len(spans)} spans ({trace['dropped']} dropped) from "
+        f"{sorted(services)}, one trace id, root cli.train, "
+        f"{len(epochs)} job.epoch under ps.job.run; kubeml trace "
+        f"{trace_s:.2f} s ({len(events)} events, {len(rows)} process "
+        f"rows), kubeml profile {profile_s:.2f} s (job.checkpoint "
+        f"{ckpt['bytes'] / 1e6:.1f} MB in {ckpt['seconds']:.2f} s); "
+        f"step {step_ms:.2f} ms traced (its only epoch, the first step "
+        f"included) beside 25b's untraced {ctx['step_ms']:.2f} ms (its "
+        f"last epoch); flash launches fwd/dq/dkv {counts}, a step "
+        f"{per_step}")
+    return counts
+
+
+def tr_request(smi, cluster, ctx):
+    """26b (see the module docstring). Returns the (paged_attention,
+    int8_matmul) launches."""
+    from kubeml_tpu_torch.controller import KubemlClient
+    from kubeml_tpu_torch.data.bpe import BPETokenizer
+    from kubeml_tpu_torch.data.text import EOS_ID
+    from kubeml_tpu_torch.ops.int8_matmul import int8_matmul
+    from kubeml_tpu_torch.ops.paged_attention import paged_attention
+    from kubeml_tpu_torch.utils import http_client as http
+    from kubeml_tpu_torch.utils import tracing
+
+    url = cluster.controller_url
+    ids = BPETokenizer(ctx["spec"]).encode(TX_PROMPT).tolist()
+    parent = tracing.TraceContext(tracing.new_trace_id(),
+                                  tracing.new_span_id())
+    paged_attention.launches = int8_matmul.launches = 0
+    t0 = time.monotonic()
+    result = http.check(http.post(
+        f"{url}/generate", json={"model_id": ctx["jid"], "prompts": [ids],
+                                 "max_new_tokens": TX_NEW,
+                                 "eos_id": EOS_ID},
+        headers={"traceparent": parent.traceparent()},
+        timeout=(5.0, 600.0)))
+    wall = time.monotonic() - t0
+    launches = (paged_attention.launches, int8_matmul.launches)
+    rid = result["request_id"]
+    trace = tr_fetch(KubemlClient(url, timeout=600), rid)
+    spans = trace["spans"]
+    if trace["trace_ids"] != [parent.trace_id]:
+        raise AssertionError(f"26b: trace ids {trace['trace_ids']}, the "
+                             f"traceparent's {parent.trace_id}")
+    by_name = {}
+    for s in spans:
+        by_name.setdefault(s["name"], []).append(s)
+    server = [s for s in spans if s["parent_id"] == parent.span_id]
+    req = by_name.get("serving.request", [])
+    kids = {n: by_name.get(n, []) for n in (
+        "serving.queue_wait", "serving.prefill", "serving.decode")}
+    if (len(server) != 1 or len(req) != 1
+            or req[0]["parent_id"] != server[0]["span_id"]
+            or any(len(v) != 1 or v[0]["parent_id"] != req[0]["span_id"]
+                   for v in kids.values())):
+        raise AssertionError(f"26b: the request's spans "
+                             f"{[(s['name'], s['parent_id']) for s in spans]}"
+                             f" under the traceparent {parent.span_id}")
+    if min(launches) <= 0:
+        raise AssertionError(f"26b: launches {launches}")
+    metrics = http_text(f"{cluster.ps_api.url}/metrics")
+    moved = {m: float(v) for m, v in re.findall(
+        r'^(kubeml_http_(?:sent|received)_bytes_total)\{route="/generate"\}'
+        r' (\S+)$', metrics, re.M)}
+    if not (moved.get("kubeml_http_sent_bytes_total", 0) > 0
+            and moved.get("kubeml_http_received_bytes_total", 0) > 0):
+        raise AssertionError(f"26b: /metrics byte counters for /generate "
+                             f"{moved}")
+    ttft = (kids["serving.queue_wait"][0]["duration"]
+            + kids["serving.prefill"][0]["duration"])
+    log(f"  26b traced request {rid} [{smi}]: /generate of "
+        f"{ctx['jid']}'s final-int8, {len(ids)} prompt tokens, "
+        f"{result['lengths'][0]} new, {wall:.2f} s; {len(spans)} spans "
+        f"({trace['dropped']} dropped) under the traceparent: "
+        f"{server[0]['name']} -> serving.request -> queue_wait, prefill, "
+        f"decode; TTFT {1e3 * ttft:.1f} ms (queue wait + prefill, from the "
+        f"spans); launches paged_attention {launches[0]}, int8_matmul "
+        f"{launches[1]}; /metrics {moved}")
+    return launches
+
+
+def tr_spawn_device_child(out_dir):
+    """26c's process (``device_trace_child``), started with phase 25: it
+    loads the kernels and builds its models at the text LM's vocabulary
+    (``TX_BPE``, which 25a's BPE reaches) while phases 25 and 26a-b run,
+    then waits for ``go``."""
+    import os
+
+    here = Path(__file__).resolve().parent
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, (
+        str(here), os.environ.get("PYTHONPATH")))))
+    return subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.device_trace_child(sys.argv[1]))",
+         str(out_dir)], cwd=str(here), env=env)
+
+
+def tr_go(out_dir, vocab, prompt) -> None:
+    """Release 26c's process: the trained vocabulary and the prompt."""
+    out_dir = Path(out_dir)
+    tmp = out_dir / "go.tmp"
+    tmp.write_text(json.dumps({"vocab": vocab, "prompt": prompt}))
+    tmp.replace(out_dir / "go")
+
+
+def _dt_models(vocab):
+    """26c's GPT-2-small to train (bf16, AdamW) and its ``final-int8``
+    style engine (int8 weights through the int8 matmul), on the card."""
+    from kubeml_tpu_torch.models.gpt import GPTSmall
+    from kubeml_tpu_torch.parallel.trainer import SPMDTrainer, adamw
+    from kubeml_tpu_torch.serving import PagedBatchingDecoder
+
+    g = torch.Generator().manual_seed(SEED + 26)
+    tokens = torch.randint(1, vocab, (TX_B, TX_SEQ), generator=g).cuda()
+    model = GPTSmall(vocab_size=vocab, max_len=TX_SEQ, dtype=torch.bfloat16,
+                     seed=SEED, device="cuda")
+    trainer = SPMDTrainer(model, precision="bf16", optimizer=adamw(TX_LR))
+    trainer.init(tokens)
+    dec = PagedBatchingDecoder(
+        GPTSmall(vocab_size=vocab, max_len=TX_SEQ, seed=SEED, device="cuda"),
+        quantize="int8", int8_matmul=True, slots=SLOTS,
+        page_tokens=PAGE_TOKENS, chunk_steps=CHUNK, device="cuda")
+    return tokens, model, trainer, dec
+
+
+def device_trace_child(out_dir: str) -> int:
+    """26c in a process of its own (CUPTI in this script's process records
+    no kernel once phases 17-20 have spawned ranks): GPT-2-small at the
+    text LM's vocabulary (B 8 x L 1024, bf16, AdamW) and a ``final-int8``
+    style engine built while phase 25 runs; once ``go`` names the
+    vocabulary (a rebuild if it is not ``TX_BPE``) and the prompt, one
+    warm step and request, then a ``ProfileSession`` with a device trace
+    over two train steps and one request of 64 new tokens. Writes
+    ``result.json`` (the report, the card's peaks, the launches)."""
+    from kubeml_tpu_torch.api import GenerateRequest
+    from kubeml_tpu_torch.ops import kernels
+    from kubeml_tpu_torch.ops.int8_matmul import int8_matmul
+    from kubeml_tpu_torch.ops.paged_attention import paged_attention
+    from kubeml_tpu_torch.utils.profiler import ProfileSession, device_peaks
+
+    out = Path(out_dir)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.library()
+    vocab = TX_BPE
+    tokens, model, trainer, dec = _dt_models(vocab)
+    try:
+        deadline = time.monotonic() + TR_CHILD_WAIT
+        while not (out / "go").exists():
+            if time.monotonic() > deadline:
+                raise TimeoutError("26c: no go")
+            time.sleep(0.05)
+        go = json.loads((out / "go").read_text())
+        prompt = go["prompt"]
+        if go["vocab"] != vocab:
+            dec.close()
+            vocab = go["vocab"]
+            tokens, model, trainer, dec = _dt_models(vocab)
+        # warm: the first step and request build their caches outside the
+        # window
+        trainer.train_step(tokens)
+        dec.wait(dec.submit(GenerateRequest(prompts=[prompt],
+                                            max_new_tokens=2)), timeout=600)
+        torch.cuda.synchronize()
+        # a train step's FLOPs: 6 per parameter a token, and causal
+        # attention's 6 B L^2 E a block (forward and backward); its bytes:
+        # f32 weights read and written, gradients written and read, AdamW's
+        # two f32 moments read and written (32 bytes a parameter)
+        n_train = sum(p.numel() for p in model.parameters())
+        step_flops = (6 * n_train * TX_B * TX_SEQ
+                      + 6 * TX_DEPTH * TX_B * TX_SEQ ** 2 * model.embed_dim)
+        step_bytes = 32 * n_train
+        # a request: every forward reads the engine's weights once (int8
+        # matrices, their scales, the f32 rest), 2 FLOPs a weight a token
+        weights = list(dec.module.state_dict().values())
+        w_bytes = sum(t.numel() * t.element_size() for t in weights)
+        w_elems = sum(t.numel() for t in weights)
+        req = GenerateRequest(prompts=[prompt], max_new_tokens=TX_NEW)
+        reset_flash_counts()
+        paged_attention.launches = int8_matmul.launches = 0
+        tele0 = dec.telemetry()
+        with ProfileSession("smoke", device_trace_dir=out / "trace") as s:
+            for _ in range(2):
+                with s.phase("train_step", bytes=step_bytes,
+                             flops=step_flops):
+                    trainer.train_step(tokens)
+                    torch.cuda.synchronize()
+            with s.phase("serve_request") as ph:
+                got = dec.wait(dec.submit(req), timeout=600)
+                torch.cuda.synchronize()
+                tele = dec.telemetry()
+                forwards = (tele["admission_waves"] + tele["device_steps"]
+                            - tele0["admission_waves"]
+                            - tele0["device_steps"])
+                ph.bytes = forwards * w_bytes
+                ph.flops = 2 * w_elems * (len(prompt) + got["lengths"][0])
+        (out / "result.json").write_text(json.dumps({
+            "report": s.report(), "peaks": device_peaks(),
+            "flash": flash_counts(),
+            "serving": (paged_attention.launches, int8_matmul.launches),
+            "forwards": forwards, "new_tokens": got["lengths"][0]}))
+    finally:
+        dec.close()
+    return 0
+
+
+def tr_device_result(smi, child, out_dir):
+    """26c's gates on the child's result and its Chrome trace. Returns
+    (flash launches, (paged_attention, int8_matmul) launches)."""
+    from kubeml_tpu_torch.utils.profiler import CARD_PEAKS
+
+    out_dir = Path(out_dir)
+    code = child.wait(timeout=TR_DEADLINE)
+    if code != 0:
+        raise AssertionError(f"26c: the device-trace process exited {code}")
+    res = json.loads((out_dir / "result.json").read_text())
+    report = res["report"]
+    if report.get("device_trace_error"):
+        raise AssertionError(f"26c: device_trace_error "
+                             f"{report['device_trace_error']}")
+    files = sorted((out_dir / "trace").glob("*.json"))
+    if len(files) != 1:
+        raise AssertionError(f"26c: device trace files {files}")
+    size = files[0].stat().st_size
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e.get("name", "") for e in events
+               if e.get("cat") == "kernel"]
+    named = {k: sum(k in n for n in kernels) for k in TR_KERNELS}
+    if not all(named.values()):
+        raise AssertionError(f"26c: the device trace's CUDA kernel events "
+                             f"({len(kernels)}) name {named}")
+    peak, bw = CARD_PEAKS["h100"]
+    rows = {r["phase"]: r for r in report["phases"]}
+    want = {"train_step": "compute-bound", "serve_request": "transfer-bound"}
+    for name, bound in want.items():
+        r = rows[name]
+        h100 = ("compute-bound" if r["flops"] / peak >= r["bytes"] / bw
+                else "transfer-bound")
+        if r["bound"] != bound or h100 != bound:
+            raise AssertionError(f"26c: {name} classified {r['bound']} "
+                                 f"({h100} at the H100's peaks)")
+    if tuple(res["peaks"]) != (peak, bw):
+        raise AssertionError(f"26c: the report took the peaks "
+                             f"{res['peaks']}, not the H100's")
+    log(f"  26c device trace [{smi}]: ProfileSession over 2 train steps "
+        f"and one request ({res['new_tokens']} new tokens, "
+        f"{res['forwards']} forwards) in a process of its own: "
+        f"{files[0].name} {size / 1e6:.1f} MB, {len(events)} events, "
+        f"{len(kernels)} CUDA kernel events, the hand-written ones by name "
+        f"{named}; phases "
+        + "; ".join(f"{n} x{r['count']} {r['seconds']:.3f} s "
+                    f"{r['bytes'] / 1e9:.2f} GB {r['flops'] / 1e12:.2f} "
+                    f"TFLOP {r['bound']}" for n, r in rows.items())
+        + f" (peaks {peak / 1e12:.0f} TFLOP/s, {bw / 1e12:.2f} TB/s); "
+        f"launches flash {res['flash']}, paged_attention/int8_matmul "
+        f"{res['serving']}")
+    return tuple(res["flash"]), tuple(res["serving"])
+
+
+def tr_webhook(smi, cluster, ctx, flight_dir):
+    """26d (see the module docstring)."""
+    import os
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from kubeml_tpu_torch.controller import KubemlClient
+
+    got = []
+
+    class Hook(BaseHTTPRequestHandler):
+        def do_POST(self):
+            n = int(self.headers.get("Content-Length") or 0)
+            got.append(json.loads(self.rfile.read(n)))
+            self.send_response(200)
+            self.end_headers()
+
+        def log_message(self, *args):
+            pass
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Hook)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = cluster.controller_url
+    client = KubemlClient(url, timeout=600)
+    os.environ["KUBEML_ERROR_WEBHOOK"] = \
+        f"http://127.0.0.1:{server.server_port}/hook"
+    try:
+        client.functions().create(TR_FAIL_FN, TR_FAIL_SRC.replace(
+            "VOCAB", str(ctx["spec"]["vocab_size"])))
+        out, _ = tr_cli("--url", url, "train", "-f", TR_FAIL_FN, "-d",
+                        TX_DATASET, "-e", "1", "-b", str(TX_B), "-p", "1",
+                        "--static", "--engine", "spmd")
+        jid = out.strip().splitlines()[-1]
+        deadline = time.monotonic() + TR_DEADLINE
+        while not got and time.monotonic() < deadline:
+            time.sleep(0.05)
+        cp_wait_job(cluster, jid)
+    finally:
+        os.environ.pop("KUBEML_ERROR_WEBHOOK", None)
+        server.shutdown()
+        server.server_close()
+        thread.join(10)
+    if len(got) != 1:
+        raise AssertionError(f"26d: the receiver got {len(got)} reports")
+    body = got[0]
+    trace = tr_fetch(client, jid)
+    dumps = sorted(Path(flight_dir).glob("flight-*.json"))
+    if (body.get("context") not in ("job-start-failure", "job-failure")
+            or body.get("task_id") != jid
+            or body.get("trace_id") not in trace["trace_ids"]
+            or not body.get("flight_recorder")):
+        raise AssertionError(
+            f"26d: the report {sorted(body)}: context "
+            f"{body.get('context')}, task {body.get('task_id')}, trace "
+            f"{body.get('trace_id')} (the job's {trace['trace_ids']}), "
+            f"flight tail {len(body.get('flight_recorder') or [])}")
+    if not dumps:
+        raise AssertionError(f"26d: no flight-*.json in {flight_dir}")
+    log(f"  26d error hook [{smi}]: job {jid} failed in its first step; "
+        f"the receiver got context {body['context']} with task_id, "
+        f"trace_id (the job's trace) and {len(body['flight_recorder'])} "
+        f"flight-recorder events ({body['error'][:60]!r}); "
+        f"{len(dumps)} flight dump(s) in KUBEML_FLIGHT_DIR: "
+        f"{dumps[0].name}")
+
+
+def trace_phase(smi, root, ctx, child, device_dir):
+    """Phase 26 (see the module docstring); ``child`` is 26c's process
+    (``tr_spawn_device_child(device_dir)``, started with phase 25). Returns
+    the flash launches of 26a and 26c and the (paged_attention,
+    int8_matmul) launches of 26b and 26c."""
+    import os
+
+    from kubeml_tpu_torch.cluster import LocalCluster
+    from kubeml_tpu_torch.data.bpe import BPETokenizer
+    from kubeml_tpu_torch.utils import tracing
+    from kubeml_tpu_torch.utils.profiler import get_recorder
+
+    torch.cuda.empty_cache()
+    work = Path(tempfile.mkdtemp(prefix="trace_", dir=root))
+    flight = work / "flight"
+    tracer = tracing.get_tracer()
+    tracer.clear()
+    tracer.enable()
+    tracer.service = "kubeml"
+    # the flight recorder on from here, whatever earlier phases recorded
+    get_recorder()
+    os.environ["KUBEML_FLIGHT_DIR"] = str(flight)
+    prompt = BPETokenizer(ctx["spec"]).encode(TX_PROMPT).tolist()
+    try:
+        with LocalCluster(config=cp_config(
+                ctx["root"], serving_quantize="int8",
+                int8_matmul=True)) as cluster:
+            t0 = time.monotonic()
+            flash_a = tr_job(smi, cluster, ctx, work)
+            log(f"  26a {time.monotonic() - t0:.1f} s")
+            t0 = time.monotonic()
+            served_b = tr_request(smi, cluster, ctx)
+            log(f"  26b {time.monotonic() - t0:.1f} s")
+            t0 = time.monotonic()
+            tr_go(device_dir, ctx["spec"]["vocab_size"], prompt)
+            tr_webhook(smi, cluster, ctx, flight)
+            log(f"  26d {time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
+        flash_c, served_c = tr_device_result(smi, child, device_dir)
+        log(f"  26c {time.monotonic() - t0:.1f} s after 26d (its process "
+            f"started with phase 25)")
+    finally:
+        os.environ.pop("KUBEML_FLIGHT_DIR", None)
+        tracer.disable()
+        tracer.clear()
+    return (tuple(a + c for a, c in zip(flash_a, flash_c)),
+            tuple(b + c for b, c in zip(served_b, served_c)))
 
 
 def main() -> int:
@@ -8176,7 +8810,7 @@ def phases(root: str) -> int:
 
     # 1. device
     smi = nvidia_smi()
-    log("[1/26 device]")
+    log("[1/27 device]")
     log(smi)
     log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} devices "
@@ -8191,7 +8825,7 @@ def phases(root: str) -> int:
     spills = [f"{lines[i - 1].split('for ')[-1][:70]}: {ln.strip()}"
               for i, ln in enumerate(lines)
               if re.search(r"[1-9]\d* bytes (stack frame|spill)", ln)]
-    log(f"[2/26 build] {time.monotonic() - t0:.2f} s (nvcc "
+    log(f"[2/27 build] {time.monotonic() - t0:.2f} s (nvcc "
         f"{kernels.build_seconds:.2f} s), kernels with a stack frame or "
         f"spills: {len(spills)}")
     for ln in spills:
@@ -8207,7 +8841,7 @@ def phases(root: str) -> int:
     check_compiled(kernels.library()._name, build_log)
 
     # 3. kernels against their plain versions
-    log("[3/26 kernels]")
+    log("[3/27 kernels]")
     timer = Timer()
     g = torch.Generator().manual_seed(SEED)
     pa_rows = check_paged_attention(timer, g)
@@ -8220,7 +8854,7 @@ def phases(root: str) -> int:
     del timer
 
     # 4. serve f32: kernel engine, then the plain (gather) twin
-    log("[4/26 serve f32]")
+    log("[4/27 serve f32]")
     serve_tiny()
     reqs = workload(np.random.default_rng(SEED))
     model = gpt2_small()
@@ -8263,7 +8897,7 @@ def phases(root: str) -> int:
     del model
 
     # 5. serve int8: int8 weights through the kernel, int8 KV pages
-    log("[5/26 serve int8]")
+    log("[5/27 serve int8]")
     q_kw = dict(quantize="int8", int8_matmul=True, kv_quant="int8", **common)
     qdec = PagedBatchingDecoder(gpt2_small(), **q_kw)
     if (not qdec.int8_matmul or qdec.int8_matmul_impl != "cuda"
@@ -8312,20 +8946,20 @@ def phases(root: str) -> int:
     torch.cuda.empty_cache()
 
     # 6. speculative decoding and chunked prefill through both kernels
-    log("[6/26 spec + chunked]")
+    log("[6/27 spec + chunked]")
     t0 = time.monotonic()
     spec_launches = spec_phase(smi)
     log(f"  phase 6: {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     # 7. flash kernels against their plain versions, and the L sweep
-    log("[7/26 flash kernels]")
+    log("[7/27 flash kernels]")
     timer = Timer()
     flash_errs, sweep = check_flash(timer, g)
     del timer
 
     # 8. train: the kernel path, its profile, then the plain path
-    log("[8/26 train bf16]")
+    log("[8/27 train bf16]")
     krow, kcounts = train_run("kernel path", flash=True)
     want = (2 * DEPTH * krow["steps_run"], DEPTH * krow["steps_run"],
             DEPTH * krow["steps_run"])
@@ -8348,14 +8982,14 @@ def phases(root: str) -> int:
                              f"{pcounts}")
 
     # 9. f32: one step through the kernels against the plain path
-    log("[9/26 train f32 parity]")
+    log("[9/27 train f32 parity]")
     check_f32_step()
 
     # 10. K-AVG: the flagship at bench.py's configuration, the merge's
     # correctness, and TrainJob end to end; none of the five hand-written
     # kernels is on this path (convs, BatchNorm and dense layers run in
     # cuDNN and cuBLAS, as the JAX path runs them in XLA)
-    log("[10/26 k-avg]")
+    log("[10/27 k-avg]")
     reset_kernel_counts()
     log("  10a flagship: ResNet-18, CIFAR-10 shapes, bf16, uint8 inputs, "
         f"B {KAVG_B}, K {KAVG_K}, lr 0.1, SGD momentum 0.9")
@@ -8373,34 +9007,34 @@ def phases(root: str) -> int:
         raise AssertionError(f"the K-AVG path launched {counts}")
 
     # 11. serving resilience through both serving kernels
-    log("[11/26 resilience]")
+    log("[11/27 resilience]")
     t0 = time.monotonic()
     res_launches = resilience_phase(smi)
     log(f"  phase 11: {time.monotonic() - t0:.1f} s")
 
     # 12. checkpoints served through the parameter server
-    log("[12/26 checkpoint serving]")
+    log("[12/27 checkpoint serving]")
     t0 = time.monotonic()
     ckpt = checkpoint_phase(smi, root, run, qrun, kavg)
     ckpt_launches = ckpt["launches"]
     log(f"  phase 12: {time.monotonic() - t0:.1f} s")
 
     # 13. the control plane over HTTP: training, serving, SIGTERM
-    log("[13/26 control plane]")
+    log("[13/27 control plane]")
     t0 = time.monotonic()
     cp_launches = control_plane_phase(smi, root, run, qrun, ckpt, kavg)
     log(f"  phase 13: {time.monotonic() - t0:.1f} s")
 
     # 14. the encoders: the flash kernels at their shapes, BERT-base and
     # ViT-Tiny trained by K-AVG, VGG-11, a ViT TrainJob with transforms
-    log("[14/26 encoders]")
+    log("[14/27 encoders]")
     t0 = time.monotonic()
     enc_rows, enc_launches, bert_row, vit_row = encoder_phase(smi, root)
     log(f"  phase 14: {time.monotonic() - t0:.1f} s")
 
     # 15. MoE trained at bench_moe's width through the flash kernels and
     # served by the dense slot engine; GPT-2-small through the dense engine
-    log("[15/26 moe + dense engine]")
+    log("[15/27 moe + dense engine]")
     t0 = time.monotonic()
     moe_row, moe_errs, moe_times, moe_counts, dense_launches = moe_phase(
         smi, root, run)
@@ -8408,14 +9042,14 @@ def phases(root: str) -> int:
 
     # 16. the one-shot speculative generate through paged attention, and
     # the long-context flagship's SPMD job with sharded checkpoints
-    log("[16/26 one-shot spec + spmd job]")
+    log("[16/27 one-shot spec + spmd job]")
     t0 = time.monotonic()
     spec16, flash16, served16 = spec_spmd_phase(smi, root, krow["step_ms"])
     log(f"  phase 16: {time.monotonic() - t0:.1f} s")
 
     # 17. multi-rank SPMD: two gloo ranks on the card, attention and the
     # flagship's training over sp (Ulysses, ring), tp and dp
-    log("[17/26 multi-rank spmd]")
+    log("[17/27 multi-rank spmd]")
     t0 = time.monotonic()
     flash17 = multirank_phase(smi)
     log(f"  phase 17: {time.monotonic() - t0:.1f} s")
@@ -8423,7 +9057,7 @@ def phases(root: str) -> int:
     # 18. the SPMD job over ranks: two gloo ranks on the card, the
     # flagship trained through /train over tp=2, resumed over sp=2,
     # remeshed dp 2 -> 1 -> 2, its 2-shard final served
-    log("[18/26 spmd job over ranks]")
+    log("[18/27 spmd job over ranks]")
     t0 = time.monotonic()
     flash18, served18 = ranks_phase(smi, root)
     log(f"  phase 18: {time.monotonic() - t0:.1f} s")
@@ -8432,7 +9066,7 @@ def phases(root: str) -> int:
     # masked flash check, PipelinedLM over pp=2, the flagship as
     # PipelinedCausalLM trained through /train over pp=2, resumed, its
     # stage-sharded final served flat
-    log("[19/26 pipeline over ranks]")
+    log("[19/27 pipeline over ranks]")
     t0 = time.monotonic()
     flash19, served19 = pipeline_phase(smi, root)
     log(f"  phase 19: {time.monotonic() - t0:.1f} s")
@@ -8440,7 +9074,7 @@ def phases(root: str) -> int:
     # 20. MoE over ranks: two gloo ranks on the card, bench_moe at full
     # depth over ep=2 and at MOE_DEPTH over dp, tp and sp; a MoE job
     # through /train over ep=2, resumed under dp=2, its final served
-    log("[20/26 moe over ranks]")
+    log("[20/27 moe over ranks]")
     t0 = time.monotonic()
     flash20, moe_ep_times = moe_ep_phase(smi, root)
     log(f"  phase 20: {time.monotonic() - t0:.1f} s")
@@ -8448,7 +9082,7 @@ def phases(root: str) -> int:
     # 21. meshed serving: two gloo ranks on the card, the int8 matmul at
     # the tp=2 shard shapes, GPT-2-small served over tp=2 in f32 and int8,
     # phases 18's and 20's sharded finals served on serving meshes
-    log("[21/26 meshed serving]")
+    log("[21/27 meshed serving]")
     t0 = time.monotonic()
     served21 = serving_mesh_phase(smi, root, sm_rows)
     log(f"  phase 21: {time.monotonic() - t0:.1f} s")
@@ -8456,7 +9090,7 @@ def phases(root: str) -> int:
     # 22. K-AVG over ranks: two gloo ranks on the card, the flagship's
     # rounds and the merge over the ranks, a K-AVG job through /train,
     # ViT-Tiny through the flash kernels
-    log("[22/26 k-avg over ranks]")
+    log("[22/27 k-avg over ranks]")
     t0 = time.monotonic()
     flash22 = kavg_ranks_phase(smi, root, row4)
     log(f"  phase 22: {time.monotonic() - t0:.1f} s")
@@ -8464,7 +9098,7 @@ def phases(root: str) -> int:
     # 23. standalone runners and preemption: a K-AVG job in a runner
     # process, the SPMD job inside a JobRunner, a serving burst preempting
     # a runner's job, which resumes
-    log("[23/26 standalone runners + preemption]")
+    log("[23/27 standalone runners + preemption]")
     t0 = time.monotonic()
     flash23, served23 = standalone_phase(smi, root, qrun, ckpt["qprun"])
     log(f"  phase 23: {time.monotonic() - t0:.1f} s")
@@ -8472,13 +9106,31 @@ def phases(root: str) -> int:
     # 25. a text corpus uploaded with a trained BPE, GPT-2-small trained on
     # it through the CLI with and without chaos on every HTTP hop, and
     # prompted with text in f32 and int8
-    log("[25/26 text + chaos]")
-    t0 = time.monotonic()
-    flash25, served25 = text_phase(smi, root)
-    log(f"  phase 25: {time.monotonic() - t0:.1f} s")
+    log("[25/27 text + chaos]")
+    # 26c's process builds its models while phases 25 and 26a-b run
+    device_dir = Path(root) / "device-trace"
+    child = tr_spawn_device_child(device_dir)
+    try:
+        t0 = time.monotonic()
+        flash25, served25, text_ctx = text_phase(smi, root)
+        log(f"  phase 25: {time.monotonic() - t0:.1f} s")
 
-    # 26. results
-    log("[26/26 results]")
+        # 26. tracing and profiling: a traced job from the CLI's root span
+        # to the job's epochs, a traced request's serving spans, device
+        # traces naming the hand-written kernels, the error hook and the
+        # flight recorder
+        log("[26/27 traced]")
+        t0 = time.monotonic()
+        flash26, served26 = trace_phase(smi, root, text_ctx, child,
+                                        device_dir)
+        log(f"  phase 26: {time.monotonic() - t0:.1f} s [{smi}]")
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+
+    # 27. results
+    log("[27/27 results]")
     pa = pa_rows[0]   # the decode step: L = 1, f32 arena
     mm = next(r for r in mm_rows if r["M"] == 8 and r["N"] == VOCAB
               and r["x"] == "float32")  # the lm_head at decode
@@ -8490,7 +9142,7 @@ def phases(root: str) -> int:
                       + res_launches[0] + ckpt_launches[0]
                       + cp_launches[0] + spec16[0] + served16[0]
                       + served18[0] + served19[0] + served23[0]
-                      + served25[0]),
+                      + served25[0] + served26[0]),
          "max_abs_err": pa["max_abs_err"], "ms": pa["ms"],
          "plain_ms": pa["plain_ms"], "bound_ms": pa["bound_ms"],
          "bound_by": pa["bound_by"], "library_ms": pa["library_ms"]},
@@ -8501,7 +9153,7 @@ def phases(root: str) -> int:
                       + ckpt_launches[1] + cp_launches[1]
                       + dense_launches[1] + spec16[1] + served16[1]
                       + served18[1] + served19[1] + served21
-                      + served23[1] + served25[1]),
+                      + served23[1] + served25[1] + served26[1]),
          "max_abs_err": mm["max_abs_err"], "ms": mm["ms"],
          "plain_ms": mm["plain_ms"], "bound_ms": mm["bound_ms"],
          "bound_by": mm["bound_by"], "library_ms": mm["library_ms"]},
@@ -8511,11 +9163,12 @@ def phases(root: str) -> int:
     err_a = flash_errs[("a train", torch.bfloat16)]
     # launches: the training path of phase 8, the encoders' of phase 14,
     # the MoE LM's of phase 15, the SPMD job's of phase 16, the ranks' of
-    # phases 17, 18, 19, 20 and 22, the runner's SPMD jobs of phase 23 and
-    # the text LM's jobs of phase 25
+    # phases 17, 18, 19, 20 and 22, the runner's SPMD jobs of phase 23,
+    # the text LM's jobs of phase 25 and the traced job and device-trace
+    # steps of phase 26
     fwd_n, dq_n, dkv_n = (sum(c) for c in zip(
         kcounts, enc_launches, moe_counts, flash16, flash17, flash18,
-        flash19, flash20, flash22, flash23, flash25))
+        flash19, flash20, flash22, flash23, flash25, flash26))
     for name, line_no, count, err, ms, plain, lib in (
             ("flash_fwd", 120, fwd_n, err_a["out"], tr["fwd_ms"],
              tr["fwd_plain_ms"], tr["fwd_library_ms"]),
@@ -8536,13 +9189,14 @@ def phases(root: str) -> int:
     log(f"  flash launches: phase 8 {kcounts}, phase 14 {enc_launches}, "
         f"phase 15 {moe_counts}, phase 16 {flash16}, phase 17 {flash17}, "
         f"phase 18 {flash18}, phase 19 {flash19}, phase 20 {flash20}, "
-        f"phase 22 {flash22}, phase 23 {flash23}, phase 25 {flash25}; "
-        f"serving launches "
+        f"phase 22 {flash22}, phase 23 {flash23}, phase 25 {flash25}, "
+        f"phase 26 {flash26}; serving launches "
         f"(paged_attention, int8_matmul) of phase 16: one-shot spec {spec16}"
         f", the SPMD final served {served16}; of phase 18 {served18}; of "
         f"phase 19 {served19}; int8_matmul of phase 21 (both ranks) "
         f"{served21}; of phase 23's burst {served23}; of phase 25's text "
-        f"generation {served25}")
+        f"generation {served25}; of phase 26's traced request and device "
+        f"trace {served26}")
     t = moe_times
     log(f"  flash at the MoE shape B {MOE_B} L {MOE_L} H {MOE_H} causal "
         f"(bf16): fwd {t['fwd_ms']:.4f} ms (plain {t['fwd_plain_ms']:.4f}, "

@@ -243,8 +243,8 @@ class JobState(_JsonMixin):
 @dataclass
 class TrainTask(_JsonMixin):
     """A scheduled training task: controller -> scheduler -> PS -> job.
-    ``trace_parent`` is carried for the JAX package's wire format; the
-    port records no traces."""
+    ``trace_parent`` is the submitting request's W3C ``traceparent``
+    (``utils.tracing``): the job's spans stitch under it."""
 
     job_id: str = ""
     parameters: TrainRequest = field(default_factory=TrainRequest)

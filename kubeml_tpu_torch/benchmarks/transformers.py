@@ -57,11 +57,10 @@ import torch
 from torch import nn
 
 from ..models.layers import fold_in
+from ..utils.profiler import H100_PEAK_BF16_FLOPS as PEAK_BF16_FLOPS
 from .harness import SEED, _sync, make_synthetic_model, train_flops_per_sample
 
 LR = 1e-3
-# published H100 SXM dense bf16 peak (NVIDIA data sheet), 700 W
-PEAK_BF16_FLOPS = 989e12
 
 
 def flash_counts() -> dict:

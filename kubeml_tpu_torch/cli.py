@@ -26,9 +26,18 @@
   (``<data root>/logs/job-<id>.log``, its runner writes it), else the
   cluster's ``logs/kubeml.log`` (``start`` writes it) filtered by the id.
 
-``trace``, ``slo``, ``top`` and ``profile`` exit with code 2 and name the
-module they wait for (not ported). Every call goes through
-``utils.http_client``: retries and circuit breakers per
+* ``trace <task-id> [-o out.json]``: the task's merged trace (the spans
+  of every process that touched it, one ``trace_id``) as one
+  Chrome/Perfetto file; ``profile <task-id> [-o out.json]``: its per-phase
+  byte/FLOP attribution (``utils.profiler.attribution_report``), ``-o``
+  writing the Perfetto trace with counter tracks. A request id of
+  ``generate`` works as well as a job id.
+
+With ``KUBEML_TRACE`` set, ``train`` opens the trace's root span,
+``cli.train``, and its submit carries it, so every span of the job stitches
+under it. ``slo`` and ``top`` exit with code 2 and name the modules they
+wait for (``ps/slo.py``, ``utils/timeseries.py``: not ported). Every call
+goes through ``utils.http_client``: retries and circuit breakers per
 ``KUBEML_RETRY_*``/``KUBEML_BREAKER_*``, chaos per ``KUBEML_CHAOS*``.
 """
 
@@ -110,7 +119,14 @@ def cmd_train(args) -> int:
             save_model=not args.no_save_model, chaos_prob=args.chaos_prob,
             engine=args.engine, mesh_shape=mesh_shape,
             priority=args.priority, tenant=args.tenant))
-    print(_client(args).networks().train(req))
+    # with KUBEML_TRACE set this is the trace's root: the submit's
+    # traceparent makes every downstream span its descendant
+    from .utils.tracing import get_tracer
+
+    with get_tracer().span("cli.train", service="cli",
+                           function=args.function, dataset=args.dataset):
+        job_id = _client(args).networks().train(req)
+    print(job_id)
     return 0
 
 
@@ -390,18 +406,73 @@ def cmd_checkpoint(args) -> int:
     return 0
 
 
+def cmd_trace(args) -> int:
+    """``kubeml trace <task-id> [-o out.json]``: the task's merged spans
+    as one Chrome/Perfetto trace (stdout, or the file), with a summary of
+    its processes and trace ids."""
+    from .utils.tracing import merge_chrome_trace
+
+    data = _client(args).tasks().trace(args.id)
+    spans = data.get("spans", [])
+    chrome = merge_chrome_trace(spans)
+    services = sorted({s.get("service") or "?" for s in spans})
+    summary = (f"{len(spans)} spans from {len(services)} processes "
+               f"({', '.join(services)}), trace ids {data.get('trace_ids')}")
+    if args.out:
+        from pathlib import Path
+
+        out = Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(chrome))
+        print(f"{out}: {summary}")
+    else:
+        _print(chrome)
+        print(summary, file=sys.stderr)  # stdout stays JSON
+    if data.get("dropped"):
+        print(f"warning: {data['dropped']} spans dropped at the collector "
+              f"cap", file=sys.stderr)
+    return 0
+
+
+def cmd_profile(args) -> int:
+    """``kubeml profile <task-id> [-o out.json]``: the task's spans folded
+    into a per-phase report (wall seconds, bytes, FLOPs, achieved
+    bandwidth, the roofline verdict) with each process's data-plane
+    counters; ``-o`` writes the Perfetto trace with counter tracks."""
+    from .utils.profiler import attribution_report, perfetto_with_counters
+
+    data = _client(args).tasks().trace(args.id)
+    spans = data.get("spans", [])
+    report = attribution_report(spans, counters=data.get("counters"))
+    report["task_id"] = args.id
+    report["trace_ids"] = data.get("trace_ids")
+    if args.out:
+        from pathlib import Path
+
+        out = Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(perfetto_with_counters(spans)))
+        report["perfetto_trace"] = str(out)
+        print(f"{out}: Perfetto trace with counter tracks "
+              f"({len(spans)} spans)", file=sys.stderr)
+    _print(report)
+    if data.get("dropped"):
+        print(f"warning: {data['dropped']} spans dropped at the collector "
+              f"cap; byte totals are a floor", file=sys.stderr)
+    return 0
+
+
 def _not_ported(command: str, module: str) -> int:
     print(f"error: {command} needs {module}, which is not ported to "
           f"kubeml_tpu_torch yet", file=sys.stderr)
     return 2
 
 
-# commands whose modules wait for a later port
+# commands whose modules wait for the next slice (ROADMAP.md Queue 1
+# item 2b)
 _UNPORTED = {
-    "trace": "utils/tracing.py, ps/traces.py",
-    "slo": "ps/slo.py",
+    "slo": "ps/slo.py, utils/timeseries.py",
     "top": "utils/timeseries.py",
-    "profile": "utils/profiler.py",
 }
 
 
@@ -452,9 +523,16 @@ def cmd_start(args) -> int:
     cfg.logs_dir.mkdir(parents=True, exist_ok=True)
     logging.basicConfig(
         level=logging.DEBUG if cfg.debug else logging.INFO,
-        format="%(asctime)s %(name)s %(levelname)s %(message)s",
+        format="%(asctime)s %(name)s %(levelname)s "
+               "[trace=%(trace_id)s task=%(task_id)s] %(message)s",
         handlers=[logging.StreamHandler(),
                   logging.FileHandler(cfg.logs_dir / "kubeml.log")])
+    # every line carries its thread's trace and task ids ("-" outside a
+    # request or a job)
+    from .utils.tracing import add_log_context, get_tracer
+
+    add_log_context()
+    get_tracer().service = "kubeml"
     # a cluster over ranks: rank 0 boots the control plane, every other
     # rank follows its job announcements (JAX cli.py:805-825)
     if init_distributed(backend=args.backend, device=args.device) and \
@@ -654,6 +732,21 @@ def build_parser() -> argparse.ArgumentParser:
     lg.add_argument("--id", default=None, help="filter by job id")
     lg.add_argument("--follow", "-f", action="store_true")
     lg.set_defaults(fn=cmd_logs)
+
+    tr = sub.add_parser("trace", help="a task's merged distributed trace "
+                                      "as one Chrome/Perfetto file")
+    tr.add_argument("id", help="task (job) id, or a generate request id")
+    tr.add_argument("--out", "-o", default=None,
+                    help="write the trace here (default: stdout)")
+    tr.set_defaults(fn=cmd_trace)
+
+    pr = sub.add_parser("profile", help="a task's per-phase byte/FLOP "
+                                        "attribution")
+    pr.add_argument("id", help="task (job) id, or a generate request id")
+    pr.add_argument("--out", "-o", default=None,
+                    help="also write the Perfetto trace with counter "
+                         "tracks here")
+    pr.set_defaults(fn=cmd_profile)
 
     for name, module in _UNPORTED.items():
         u = sub.add_parser(name, help=f"not ported ({module})")

@@ -163,6 +163,14 @@ class _Tasks(_Part):
     def prune(self) -> int:
         return self._delete("/tasks")["pruned"]
 
+    def trace(self, job_id: str) -> dict:
+        """The task's merged trace: ``{"task_id", "trace_ids", "dropped",
+        "spans": [span dicts], "counters": {service: data-plane
+        snapshot}}``; ``utils.tracing.merge_chrome_trace`` renders the
+        spans, ``utils.profiler.attribution_report`` folds them into the
+        ``kubeml profile`` report."""
+        return self._get(f"/tasks/{job_id}/trace")
+
 
 class _Histories(_Part):
     def get(self, job_id: str) -> History:

@@ -3,7 +3,8 @@ of ``kubeml_tpu/controller/controller.py``.
 
 Routes: ``/train``, ``/infer``, ``/generate`` (one-shot or a chunked
 ndjson stream), ``/dataset[/{name}[/tokenizer]]``, ``/tasks[/{id}]``,
-``/tasks/{id}/preempt``, ``/jobs``, ``/jobs/{id}/decisions``,
+``/tasks/{id}/preempt``, ``/tasks/{id}/trace``, ``/jobs``,
+``/jobs/{id}/decisions``,
 ``/history[/{id}]``, ``/checkpoint[/{id}[/export|/quantize]]``,
 ``/function[/{name}]`` and ``/health``. ``/train`` checks that the
 dataset and the function exist (404 otherwise) before it queues.
@@ -14,8 +15,11 @@ list, export and delete the sharded checkpoints of the SPMD engine
 sharded one writes it through the flat store once, assembled on the
 host.
 
-``/tasks/{id}/trace``, ``/slo`` and ``/metrics/history`` answer a 400
-that names their module (``ROADMAP.md`` Queue 1).
+``/tasks/{id}/trace`` is the task's merged trace: the spans of every
+process that touched it, collected at the parameter server (a 404 when
+none was recorded: the cluster traces only with ``KUBEML_TRACE`` set).
+``/slo`` and ``/metrics/history`` answer a 400 that names their modules
+(``ROADMAP.md`` Queue 1 item 2b).
 """
 
 from __future__ import annotations
@@ -65,10 +69,9 @@ class Controller:
         router.route("DELETE", "/tasks", self._task_prune)
         router.route("DELETE", "/tasks/{id}", self._task_stop)
         router.route("POST", "/tasks/{id}/preempt", self._task_preempt)
-        router.route("GET", "/tasks/{id}/trace", unported_route(
-            "task traces", "utils/tracing.py, ps/traces.py"))
-        router.route("GET", "/slo", unported_route("SLO status",
-                                                   "ps/slo.py"))
+        router.route("GET", "/tasks/{id}/trace", self._task_trace)
+        router.route("GET", "/slo", unported_route(
+            "SLO status", "ps/slo.py, utils/timeseries.py"))
         router.route("GET", "/metrics/history", unported_route(
             "the sampled metrics history", "utils/timeseries.py"))
         router.route("GET", "/history", self._history_list)
@@ -163,6 +166,16 @@ class Controller:
                              reason=str(body.get("reason") or "operator"),
                              grace=parse_grace_seconds(body.get("grace")))
         return {"status": "preempting"}
+
+    def _task_trace(self, req: Request):
+        """The task's merged trace; ``kubeml trace`` writes it as one
+        Chrome/Perfetto file."""
+        trace = self.ps.get_trace(req.params["id"])
+        if not trace.get("spans"):
+            raise KubeMLError(
+                f"no trace recorded for task {req.params['id']!r} "
+                f"(is KUBEML_TRACE set on the cluster?)", 404)
+        return trace
 
     def _task_prune(self, req: Request):
         return {"pruned": self.ps.prune_tasks()}

@@ -25,6 +25,12 @@ the control plane (``cluster.LocalCluster``) and every other rank runs
   the leader's engine runs, in the same order;
 * on ``shutdown``: return.
 
+A follower's spans carry the service ``worker-{rank}``; a job runs under
+the task's trace context (``TrainTask.trace_parent``) and its id, and at
+its end the rank posts its spans to the leader's parameter server
+(``utils.tracing.post_task_spans`` to ``ps_url``), so the job's trace
+holds every rank.
+
 The leader runs one job over ranks at a time (the parameter server's
 dist lock), since every rank must issue its collectives in one order.
 Datasets, deployed functions and checkpoints must be visible to every
@@ -63,6 +69,7 @@ def run_follower(config=None) -> int:
     from ..storage.checkpoint import CheckpointStore
     from ..storage.history import HistoryStore
     from ..storage.store import ShardStore
+    from ..utils import tracing
     from ..utils.watchdog import arm_stall_watchdog
     from . import job_class_for
     from .failures import is_one_sided_fault
@@ -71,6 +78,9 @@ def run_follower(config=None) -> int:
     dist = get_dist_context()
     if dist.is_leader:
         raise RuntimeError("run_follower must not run on rank 0")
+    # one worker rank of every job it follows: its spans read per rank in
+    # the merged trace
+    tracing.get_tracer().service = f"worker-{dist.rank}"
     registry = FunctionRegistry(config=cfg)
     store = ShardStore(config=cfg)
     history_store = HistoryStore(config=cfg)
@@ -127,7 +137,10 @@ def run_follower(config=None) -> int:
             job, cfg.function_timeout,
             f"dist job {task.job_id} (follower {dist.rank})")
         try:
-            job.train()
+            with tracing.use_context(
+                    tracing.parse_traceparent(task.trace_parent)), \
+                    tracing.bind_task(task.job_id):
+                job.train()
             log.info("follower %d: job %s done", dist.rank, task.job_id)
         except KubeMLError as e:
             if is_one_sided_fault(e):
@@ -138,6 +151,8 @@ def run_follower(config=None) -> int:
                       task.job_id, e)
         finally:
             guard.set()
+            # this rank's spans to the leader's collector
+            tracing.post_task_spans(cfg.ps_url, task.job_id)
         jobs += 1
 
 

@@ -62,11 +62,17 @@ and loading only its block of worker rows (``KAvgTrainer.local_rows``).
   validation round and every checkpoint, so the stall watchdog of the
   parameter server and the followers reads progress.
 
-Not ported yet (``ROADMAP.md``): the background compile of the next
-parallelism level (eager PyTorch compiles nothing), tracer spans, and
-the retry of a round on a transient accelerator error (a CUDA fault
-poisons the context, so a retry in the same process cannot recover):
-every round runs once, as JAX's rounds over several processes do.
+* Spans (``utils.tracing``, service ``worker``, JAX's names and
+  attributes): ``job.epoch``, ``job.round`` (with the bytes of the
+  round's slab), ``job.merge`` (the epoch's blocking read), ``job.validate``,
+  ``job.checkpoint`` (with the bytes of the weights it writes) and
+  ``job.yield_checkpoint``.
+
+Not ported (``ROADMAP.md``): the background compile of the next
+parallelism level (eager PyTorch compiles nothing) and the retry of a
+round on a transient accelerator error (a CUDA fault poisons the
+context, so a retry in the same process cannot recover): every round
+runs once, as JAX's rounds over several processes do.
 """
 
 from __future__ import annotations
@@ -91,6 +97,8 @@ from ..runtime.model import KubeModel
 from ..storage.checkpoint import FINAL_TAG, CheckpointStore
 from ..storage.history import HistoryStore
 from ..storage.store import ShardStore
+from ..utils.profiler import tree_nbytes
+from ..utils.tracing import get_tracer
 from .failures import FailureInjector, WorkerHealth
 from .kavg import KAvgTrainer, RoundPrefetcher
 
@@ -165,6 +173,7 @@ class TrainJob:
                                     seed=zlib.crc32(job_id.encode()) & 0x7FFFFFFF)
         self.chaos = chaos
         self.health = WorkerHealth(threshold=health_threshold)
+        self.tracer = get_tracer()
         # per-epoch feeds of the metrics push, reset in _train_epoch
         self._last_round_times: list = []
         self._last_merge_s = -1.0
@@ -246,7 +255,10 @@ class TrainJob:
                     break
                 t0 = time.time()
                 used_parallelism = self.parallelism
-                train_loss = self._train_epoch(epoch, handle, dataset)
+                with self.tracer.span("job.epoch", service="worker",
+                                      job=self.job_id, epoch=epoch,
+                                      parallelism=self.parallelism):
+                    train_loss = self._train_epoch(epoch, handle, dataset)
                 elapsed = time.time() - t0
                 if self.stop_event.is_set() and np.isnan(train_loss):
                     break  # stopped mid-epoch before any round completed
@@ -465,11 +477,18 @@ class TrainJob:
                                 rb.round_index)
                     continue
             t_round = time.time()
-            self._stacked_vars, loss = self.trainer.sync_round(
-                self._stacked_vars, *staged, lr=req.lr, epoch=epoch,
-                worker_mask=worker_mask,
-                rng=fold_in(epoch_seed, rb.round_index),
-                data_bearing=data_bearing)
+            # the slab the round staged rides its span, so `kubeml
+            # profile` can classify the rounds
+            slab_bytes = int(sum(getattr(a, "nbytes", 0)
+                                 for a in (rb.x, rb.y, rb.mask)))
+            with self.tracer.span("job.round", service="worker",
+                                  job=self.job_id, epoch=epoch,
+                                  round=rb.round_index, bytes=slab_bytes):
+                self._stacked_vars, loss = self.trainer.sync_round(
+                    self._stacked_vars, *staged, lr=req.lr, epoch=epoch,
+                    worker_mask=worker_mask,
+                    rng=fold_in(epoch_seed, rb.round_index),
+                    data_bearing=data_bearing)
             self._publish()
             self.heartbeat = time.time()
             self.heartbeat_cold = False
@@ -494,6 +513,8 @@ class TrainJob:
         t_merge = time.time()
         mean_loss = float(torch.stack(losses).mean())
         self._last_merge_s = time.time() - t_merge
+        self.tracer.record("job.merge", self._last_merge_s, service="worker",
+                           job=self.job_id, epoch=epoch)
         self._finalize_round_stats()
         return mean_loss
 
@@ -540,8 +561,10 @@ class TrainJob:
                 self.heartbeat = time.time()
                 yield rb
 
-        acc, loss = self.trainer.evaluate_rounds(self._stacked_vars,
-                                                 stamping(loader))
+        with self.tracer.span("job.validate", service="worker",
+                              job=self.job_id):
+            acc, loss = self.trainer.evaluate_rounds(self._stacked_vars,
+                                                     stamping(loader))
         dataset.set_mode(True)
         return acc, loss
 
@@ -570,29 +593,38 @@ class TrainJob:
         if not self._leader:
             return
         try:
-            self._join_checkpoint()
-            host = self.trainer.reference_variables(self._stacked_vars)
-            if self._multi:
-                self._latest_snapshot = (host, epoch)
-            variables = to_flax_variables(host, self.model.module)
-            meta = self._checkpoint_meta()
-
-            def write():
-                try:
-                    self.checkpoint_store.save(self.job_id, variables,
-                                               epoch=epoch, meta=meta)
-                    self.checkpoint_store.prune_epochs(
-                        self.job_id, self.request.options.checkpoint_keep)
-                except Exception:
-                    log.exception("%s: checkpoint write failed (non-fatal)",
-                                  self.job_id)
-
-            self._ckpt_thread = threading.Thread(
-                target=write, name=f"ckpt-{self.job_id}", daemon=True)
-            self._ckpt_thread.start()
+            with self.tracer.span("job.checkpoint", service="worker",
+                                  job=self.job_id, epoch=epoch) as span:
+                self._checkpoint_in_background(epoch, span)
         except Exception:
             log.exception("%s: checkpoint save failed (non-fatal)",
                           self.job_id)
+
+    def _checkpoint_in_background(self, epoch: int, span) -> None:
+        """The host copy now, the write on the checkpoint thread; the
+        span (None untraced) takes the bytes written."""
+        self._join_checkpoint()
+        host = self.trainer.reference_variables(self._stacked_vars)
+        if self._multi:
+            self._latest_snapshot = (host, epoch)
+        variables = to_flax_variables(host, self.model.module)
+        meta = self._checkpoint_meta()
+        if span is not None:
+            span.attrs["bytes"] = tree_nbytes(variables)
+
+        def write():
+            try:
+                self.checkpoint_store.save(self.job_id, variables,
+                                           epoch=epoch, meta=meta)
+                self.checkpoint_store.prune_epochs(
+                    self.job_id, self.request.options.checkpoint_keep)
+            except Exception:
+                log.exception("%s: checkpoint write failed (non-fatal)",
+                              self.job_id)
+
+        self._ckpt_thread = threading.Thread(
+            target=write, name=f"ckpt-{self.job_id}", daemon=True)
+        self._ckpt_thread.start()
 
     def _save_yield_checkpoint(self) -> None:
         """A preempted job's resume checkpoint: the current weights under
@@ -603,10 +635,12 @@ class TrainJob:
         if completed <= 0 or not self._leader:
             return
         try:
-            self.checkpoint_store.save(
-                self.job_id, to_flax_variables(self._final_variables,
-                                               self.model.module),
-                epoch=completed - 1, meta=self._checkpoint_meta())
+            with self.tracer.span("job.yield_checkpoint", service="worker",
+                                  job=self.job_id, epoch=completed - 1):
+                self.checkpoint_store.save(
+                    self.job_id, to_flax_variables(self._final_variables,
+                                                   self.model.module),
+                    epoch=completed - 1, meta=self._checkpoint_meta())
         except Exception:
             log.exception("%s: yield checkpoint failed (resume falls back "
                           "to the previous checkpoint)", self.job_id)

@@ -40,8 +40,16 @@ fails the job and frees its slot.
 The runner runs on the device ``--device`` names, the PS's own; one asked
 for ``cuda`` on a host without a card exits with an error (the job is
 failed, never run on the CPU). The PS builds the kernel library before it
-spawns a runner on a card, so runners load it. Where JAX opens a span or
-binds a trace context, the port does nothing: tracing is a later slice.
+spawns a runner on a card, so runners load it.
+
+Tracing (JAX :167-181, :252-255, :299-329, :411-416, :538-543): the
+runner's spans carry the service ``worker`` and its log lines the bound
+trace and task ids. The task's context (the ``/start`` hop's
+``traceparent``, or ``TrainTask.trace_parent``) is bound to the job
+thread and the publish thread, so the job's spans, the
+``runner.publish_weights`` spans and every outbound hop stitch under the
+request; at the job's end the runner posts its spans to the PS's
+collector (``utils.tracing.post_task_spans``) before it signals done.
 """
 
 from __future__ import annotations
@@ -87,6 +95,7 @@ class JobRunner:
         # a fresh box per epoch-end request: a late answer for epoch N
         # must not satisfy epoch N+1's wait
         self._update_box: Optional[list] = None  # [Event, parallelism]
+        self._trace_ctx = None  # the task's trace context, from /start
         # data-plane counter hand-off to the PS: each push cuts the delta
         # since the last cut into a sequenced batch; unacknowledged batches
         # ride every push, and the PS applies each seq at most once
@@ -145,6 +154,7 @@ class JobRunner:
 
     def _publish_worker(self) -> None:
         from ..native.weights import PublishState, publish_variables
+        from ..utils import tracing
         from .dataplane import WeightsWire
 
         while True:
@@ -156,16 +166,21 @@ class JobRunner:
                     return
             variables, epoch = item
             try:
-                store = self._tensor_store
-                if store is not None:  # None once shutdown detached it
-                    if self._publish_state is None:
-                        self._publish_state = PublishState()
-                    publish_variables(store, variables, epoch + 1,
-                                      state=self._publish_state)
-                wire = self._weights_wire
-                if wire is None:
-                    wire = self._weights_wire = WeightsWire()
-                wire.publish(variables, epoch + 1)
+                with tracing.use_context(self._trace_ctx), \
+                        tracing.bind_task(self.job_id), \
+                        tracing.get_tracer().span(
+                            "runner.publish_weights", service="worker",
+                            job=self.job_id, epoch=epoch):
+                    store = self._tensor_store
+                    if store is not None:  # None once shutdown detached it
+                        if self._publish_state is None:
+                            self._publish_state = PublishState()
+                        publish_variables(store, variables, epoch + 1,
+                                          state=self._publish_state)
+                    wire = self._weights_wire
+                    if wire is None:
+                        wire = self._weights_wire = WeightsWire()
+                    wire.publish(variables, epoch + 1)
             except Exception:
                 log.exception("%s: weight publish failed (non-fatal)",
                               self.job_id)
@@ -212,6 +227,7 @@ class JobRunner:
         from ..storage.checkpoint import CheckpointStore
         from ..storage.history import HistoryStore
         from ..storage.store import ShardStore
+        from ..utils import tracing
         from . import job_class_for
         from .job import TrainJob
 
@@ -219,6 +235,8 @@ class JobRunner:
             if self.job is not None:
                 raise KubeMLError(f"job {self.job_id} already started", 400)
             task = TrainTask.parse_request(req.json() or {})
+            self._trace_ctx = (tracing.current_context()
+                               or tracing.parse_traceparent(task.trace_parent))
             request = task.parameters
             model = FunctionRegistry(config=self.cfg).load(
                 request.function_name)
@@ -254,6 +272,7 @@ class JobRunner:
         # a step wedged in user code would hold the card while the PS frees
         # the slot: the runner ends itself instead (exit 74), the card is
         # released with the process and the PS's monitor fails the job
+        from ..utils import tracing
         from ..utils.watchdog import arm_stall_watchdog
 
         self.job.heartbeat = time.time()
@@ -264,7 +283,9 @@ class JobRunner:
                       "the job FAILED and frees the slot; it is NOT "
                       "resumed"))
         try:
-            self.job.train()
+            with tracing.use_context(self._trace_ctx), \
+                    tracing.bind_task(self.job_id):
+                self.job.train()
             if getattr(self.job, "preempted", False):
                 self.status = "preempted"
             else:
@@ -276,6 +297,11 @@ class JobRunner:
             log.error("job %s failed: %s", self.job_id, e)
         finally:
             guard.set()
+            # this process's spans reach the collector before the PS
+            # learns the job ended (a trace fetched once the task is gone
+            # holds them) and before `done` (the PS may reap the runner
+            # right after)
+            tracing.post_task_spans(self.cfg.ps_url, self.job_id)
             self._notify_ps_finished()
             self.done.set()
 
@@ -357,13 +383,15 @@ class JobRunner:
         """Ask the scheduler (``/job``); its answer arrives on ``/update``
         through the PS. A dead scheduler keeps the parallelism."""
         from ..api.types import TrainTask
-        from ..utils import http_client
+        from ..utils import http_client, tracing
 
         box = [threading.Event(), 0]
         with self._lock:
             self._update_box = box
+        ctx = tracing.current_context() or self._trace_ctx
         task = TrainTask(job_id=self.job_id, parameters=self.job.request,
-                         state=state)
+                         state=state,
+                         trace_parent=ctx.traceparent() if ctx else "")
         try:
             http_client.post(f"{self.cfg.scheduler_url}/job",
                              json=task.to_dict(),
@@ -473,9 +501,17 @@ def main(argv=None) -> int:
     parser.add_argument("--linger", type=float, default=5.0,
                         help="seconds to keep serving after the job finishes")
     args = parser.parse_args(argv)
-    fmt = f"%(asctime)s job-{args.job_id} %(name)s %(levelname)s %(message)s"
-    logging.basicConfig(level=logging.INFO, format=fmt)
+    fmt = f"%(asctime)s job-{args.job_id} %(name)s %(levelname)s "
+    logging.basicConfig(
+        level=logging.INFO,
+        format=fmt + "[trace=%(trace_id)s task=%(task_id)s] %(message)s")
     from ..api.config import get_config
+    from ..utils import tracing
+
+    # this process is the job's worker: its spans read "worker" in the
+    # merged trace, its log lines carry the bound trace and task ids
+    tracing.get_tracer().service = "worker"
+    tracing.add_log_context()
 
     cfg = get_config()
     # the per-job log (the reference's `kubectl logs job-<id>`,
@@ -483,7 +519,7 @@ def main(argv=None) -> int:
     try:
         cfg.logs_dir.mkdir(parents=True, exist_ok=True)
         handler = logging.FileHandler(cfg.logs_dir / f"job-{args.job_id}.log")
-        handler.setFormatter(logging.Formatter(fmt))
+        handler.setFormatter(logging.Formatter(fmt + "%(message)s"))
         logging.getLogger().addHandler(handler)
     except OSError as e:
         log.warning("per-job log file unavailable: %s", e)

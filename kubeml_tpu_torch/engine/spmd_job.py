@@ -86,6 +86,8 @@ from ..storage.history import HistoryStore
 from ..storage.sharded_checkpoint import ShardedCheckpointStore
 from ..storage.store import ShardStore
 from ..utils.device import resolve_device
+from ..utils.profiler import tree_nbytes
+from ..utils.tracing import get_tracer
 
 log = logging.getLogger("kubeml.spmdjob")
 
@@ -159,6 +161,7 @@ class SPMDJob:
         # allowance while the first step runs (it builds the kernels)
         self.heartbeat: Optional[float] = time.time()
         self.heartbeat_cold = True
+        self.tracer = get_tracer()
         self.exit_error: Optional[str] = None
         self._dataset_handle = None
         self._initialized = False
@@ -271,17 +274,20 @@ class SPMDJob:
                     # waiting for the members is no stall
                     self.heartbeat = None
                 losses = []
-                for i, batch in enumerate(
-                        self._token_batches("train", req.batch_size)
-                        if member else ()):
-                    if self.stop_event.is_set() and not multi:
-                        break
-                    with self._step_lock:
-                        losses.append(self.trainer.train_step(
-                            batch, rng=fold_in(self.seed,
-                                               epoch * 100003 + i)))
-                    self.heartbeat = time.time()
-                    self.heartbeat_cold = False
+                with self.tracer.span("job.epoch", service="worker",
+                                      job=self.job_id, epoch=epoch,
+                                      engine="spmd"):
+                    for i, batch in enumerate(
+                            self._token_batches("train", req.batch_size)
+                            if member else ()):
+                        if self.stop_event.is_set() and not multi:
+                            break
+                        with self._step_lock:
+                            losses.append(self.trainer.train_step(
+                                batch, rng=fold_in(self.seed,
+                                                   epoch * 100003 + i)))
+                        self.heartbeat = time.time()
+                        self.heartbeat_cold = False
                 if member and not losses:
                     break  # stopped before the epoch's first step
                 # the epoch's one device->host read of its losses
@@ -436,12 +442,15 @@ class SPMDJob:
         split's batches, (None, None) with none."""
         self.heartbeat = time.time()
         losses, accs = [], []
-        for batch in self._token_batches("test", self.request.batch_size):
-            with self._step_lock:
-                l, a = self.trainer.eval_metrics(batch)
-            self.heartbeat = time.time()
-            losses.append(l)
-            accs.append(a)
+        with self.tracer.span("job.validate", service="worker",
+                              job=self.job_id, engine="spmd"):
+            for batch in self._token_batches("test",
+                                             self.request.batch_size):
+                with self._step_lock:
+                    l, a = self.trainer.eval_metrics(batch)
+                self.heartbeat = time.time()
+                losses.append(l)
+                accs.append(a)
         if not losses:
             return None, None
         return float(np.mean(losses)), float(np.mean(accs))
@@ -486,17 +495,21 @@ class SPMDJob:
         if self.request.options.sharded_checkpoints:
             self._save_checkpoint_sharded(epoch)
             return
-        variables = self._host_params()
-        if not self._leader:
-            return
-        try:
-            self.checkpoint_store.save(self.job_id, to_flax(variables),
-                                       epoch=epoch, meta=self._meta())
-            self.checkpoint_store.prune_epochs(
-                self.job_id, self.request.options.checkpoint_keep)
-        except Exception:
-            log.exception("%s: checkpoint save failed (non-fatal)",
-                          self.job_id)
+        with self.tracer.span("job.checkpoint", service="worker",
+                              job=self.job_id, epoch=epoch) as span:
+            variables = self._host_params()
+            if not self._leader:
+                return
+            if span is not None:
+                span.attrs["bytes"] = tree_nbytes(variables)
+            try:
+                self.checkpoint_store.save(self.job_id, to_flax(variables),
+                                           epoch=epoch, meta=self._meta())
+                self.checkpoint_store.prune_epochs(
+                    self.job_id, self.request.options.checkpoint_keep)
+            except Exception:
+                log.exception("%s: checkpoint save failed (non-fatal)",
+                              self.job_id)
 
     def _save_checkpoint_sharded(self, epoch: int,
                                  tag: Optional[str] = None) -> None:
@@ -507,9 +520,14 @@ class SPMDJob:
         if self._multi:
             barrier = lambda t: self.dist.barrier(f"{t}/{epoch}")  # noqa: E731
         store = self._sharded_store()
-        store.save(self.job_id, self._flax_params(), epoch=epoch,
-                   tag=tag or f"ep{epoch:05d}", meta=self._meta(),
-                   mesh=self.mesh, barrier=barrier)
+        with self.tracer.span("job.checkpoint", service="worker",
+                              job=self.job_id, epoch=epoch,
+                              sharded=True) as span:
+            store.save(self.job_id, self._flax_params(), epoch=epoch,
+                       tag=tag or f"ep{epoch:05d}", meta=self._meta(),
+                       mesh=self.mesh, barrier=barrier)
+            if span is not None and store.last_save:
+                span.attrs["bytes"] = int(store.last_save["bytes"])
         self.last_save = store.last_save
 
     def _load(self, flat) -> None:

@@ -47,6 +47,7 @@ import json
 import logging
 import os
 import socket
+import sys
 import tempfile
 import threading
 import time
@@ -490,6 +491,18 @@ def _rank_main(rank: int, fn: Callable, world: int, coordinator: str,
         fn(rank, *args)
     finally:
         shutdown()
+    # the rank's work is done (its results written by fn): end the process
+    # here. The interpreter's exit ends the daemon threads still alive (a
+    # job's stall watchdog, a server's, a cluster's loops) by pthread_exit
+    # when they next take the GIL, and one doing so inside a torch binding
+    # unwinds through C++ frames that cannot be unwound: "terminate called
+    # without an active exception", and the rank dies of SIGABRT after its
+    # work (CPython 3.12; the stack ends in PyEval_RestoreThread from
+    # libtorch_python under pthread_exit).
+    logging.shutdown()
+    for stream in (sys.stdout, sys.stderr):
+        stream.flush()
+    os._exit(0)
 
 
 def spawn(fn: Callable, world: int, args: tuple = (),
@@ -499,7 +512,9 @@ def spawn(fn: Callable, world: int, args: tuple = (),
     directory, so no port is fixed), ``KUBEML_NUM_PROCESSES`` and
     ``KUBEML_PROCESS_ID`` set and one torch thread; ``fn`` calls
     :func:`init_distributed`.
-    ``fn`` must be importable (a module-level function). Raises if a rank
+    ``fn`` must be importable (a module-level function); a rank whose
+    ``fn`` returns leaves the process group and exits at once, without the
+    interpreter's finalization (see ``_rank_main``). Raises if a rank
     fails, and stops every rank and raises ``TimeoutError`` when they have
     not all finished after ``timeout_s``."""
     import torch.multiprocessing as mp

@@ -127,8 +127,18 @@ round); the wedged thread is abandoned. Jobs over ranks have the stall
 watchdog on every rank instead.
 
 A model id with epoch checkpoints but no final export and no live record
-is a 404, as in JAX. Traces and the time-series store are not ported. The
-server runs on the card unless given ``device="cpu"``.
+is a 404, as in JAX.
+
+Tracing (JAX :141, :232-240, :669-678, :821-862): a job thread runs under
+the submitting request's trace context (bound on the starting thread, or
+carried on ``TrainTask.trace_parent``) and the task's id, inside one
+``ps.job.run`` span. :meth:`post_trace` keeps the spans a runner or a
+follower posts (``ps.traces.TraceStore``); :meth:`get_trace` merges them
+with this process's own, deduplicated by ``span_id``. A failed job or
+start reports through ``utils.errorhook.report_error`` (the stall
+watchdog's report waits: its process exits right after). The
+time-series store is not ported. The server runs on the card unless
+given ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -167,9 +177,12 @@ from ..storage.sharded_checkpoint import (ShardedCheckpointStore,
                                           apply_remap_host)
 from ..storage.history import HistoryStore
 from ..storage.store import ShardStore
+from ..utils import tracing
 from ..utils.device import resolve_device
+from ..utils.errorhook import report_error
 from .journal import JobJournal
 from .metrics import MetricsRegistry
+from .traces import TraceStore
 
 log = logging.getLogger("kubeml.ps")
 
@@ -250,6 +263,9 @@ class ParameterServer:
         # live standalone /infer answers by route
         self.infer_routes: Dict[str, int] = {"socket": 0, "wire": 0,
                                              "json": 0}
+        # the spans runners and followers post; the controller's
+        # /tasks/{id}/trace merges them with this process's own
+        self.traces = TraceStore()
 
     @property
     def world(self) -> int:
@@ -292,8 +308,13 @@ class ParameterServer:
             self._fail_start(task, e)
             raise
         runner = self._run_job if self.dist is None else self._run_job_dist
-        thread = threading.Thread(target=runner,
-                                  args=(task, job, placeholder),
+        # the job thread would be a new root: it takes the submitter's
+        # context (bound here by the scheduler loop or the HTTP server, or
+        # carried on the task), so its job.* spans stitch
+        ctx = (tracing.current_context()
+               or tracing.parse_traceparent(task.trace_parent))
+        thread = threading.Thread(target=self._run_job_traced,
+                                  args=(runner, ctx, task, job, placeholder),
                                   name=f"job-{task.job_id}", daemon=True)
         placeholder.job = job
         placeholder.thread = thread
@@ -319,10 +340,13 @@ class ParameterServer:
             log.exception("journaling job %s failed (non-fatal)", task.job_id)
         return placeholder
 
-    def _ensure_failure_history(self, job_id: str, request,
-                                error: str) -> None:
+    def _ensure_failure_history(self, job_id: str, request, error: str,
+                                sync_report: bool = False) -> None:
         """A dead job's history exists afterwards (pollers key off it);
-        one the job saved itself is kept."""
+        one the job saved itself is kept. Reports the failure through the
+        error hook first, waiting for the post with ``sync_report`` (the
+        stall watchdog exits the process right after)."""
+        report_error("job-failure", error, wait=sync_report, job_id=job_id)
         try:
             self.history_store.get(job_id)
         except Exception:
@@ -340,6 +364,7 @@ class ParameterServer:
             self._journal.clear(task.job_id)
         except Exception:
             pass
+        report_error("job-start-failure", str(error), job_id=task.job_id)
         self.history_store.save(History(
             id=task.job_id,
             task={"request": task.parameters.to_dict(), "error": str(error)}))
@@ -591,6 +616,15 @@ class ParameterServer:
             raise error_from_envelope(r.content, r.status_code)
         return r
 
+    def _run_job_traced(self, runner, ctx, task: TrainTask, job,
+                        record: Optional[_JobRecord]) -> None:
+        """The job thread's entry: the submitter's trace context and the
+        task id bound, one ``ps.job.run`` span over the whole run."""
+        with tracing.use_context(ctx), tracing.bind_task(task.job_id):
+            with tracing.get_tracer().span("ps.job.run", service="ps",
+                                           job=task.job_id):
+                runner(task, job, record)
+
     def _run_job(self, task: TrainTask, job: TrainJob,
                  record: Optional[_JobRecord] = None) -> None:
         try:
@@ -610,6 +644,13 @@ class ParameterServer:
         except Exception as e:
             task.status = JobStateEnum.FAILED
             log.error("job %s failed: %s", task.job_id, e)
+            # a thread woken after its record was failed (and reported) by
+            # the liveness monitor does not report again
+            with self._lock:
+                current = (record is None
+                           or self._jobs.get(task.job_id) is record)
+            if current:
+                report_error("job-failure", str(e), job_id=task.job_id)
         finally:
             # expect: a thread abandoned by the preempt grace must not tear
             # down a resubmitted job that reused the id
@@ -656,7 +697,7 @@ class ParameterServer:
                 if record is not None:
                     record.keep_journal = True
                 self._ensure_failure_history(task.job_id, task.parameters,
-                                             reason)
+                                             reason, sync_report=True)
 
             # stamped now: the thread may have queued on the dist lock
             # behind a long job
@@ -767,6 +808,46 @@ class ParameterServer:
         box.event.set()
 
     # --- queries and control ---
+
+    # --- traces ---
+
+    def post_trace(self, task_id: str, spans: List[dict],
+                   counters: Optional[dict] = None,
+                   service: str = "") -> None:
+        """``POST /traces/{taskId}``: a runner's or a follower's finished
+        spans of a task (``utils.tracing.post_task_spans``), with its
+        data-plane counters."""
+        self.traces.add(task_id, spans)
+        if counters:
+            self.traces.add_counters(task_id, service or "worker", counters)
+
+    def get_trace(self, task_id: str) -> dict:
+        """A task's merged spans: those posted by other processes and this
+        process's own (the control plane's and the threaded jobs' share
+        its tracer), deduplicated by ``span_id`` and ordered by start;
+        the trace ids, the spans dropped at the cap, and each process's
+        counters (this one's under its tracer's service)."""
+        tracer = tracing.get_tracer()
+        merged: List[dict] = []
+        seen = set()
+        for d in self.traces.get(task_id) + tracer.task_dicts(task_id):
+            sid = d.get("span_id")
+            if sid and sid in seen:
+                continue
+            if sid:
+                seen.add(sid)
+            merged.append(d)
+        merged.sort(key=lambda d: d.get("start", 0.0))
+        trace_ids = sorted({d["trace_id"] for d in merged
+                            if d.get("trace_id")})
+        from ..utils import profiler
+
+        counters = self.traces.get_counters(task_id)
+        counters.setdefault(tracer.service or "ps",
+                            profiler.counters_snapshot())
+        return {"task_id": task_id, "trace_ids": trace_ids,
+                "dropped": self.traces.dropped(task_id), "spans": merged,
+                "counters": counters}
 
     def list_tasks(self) -> List[TrainTask]:
         """``/tasks``."""

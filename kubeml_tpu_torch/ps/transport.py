@@ -4,9 +4,11 @@
 Routes: ``/start``, ``/update/{jobId}``, ``/infer``, ``/stop/{jobId}``,
 ``/preempt/{jobId}``, ``/jobs``, ``/tasks``, ``/metrics`` (the Prometheus
 exposition), ``/metrics/{jobId}`` and ``/finish/{jobId}`` (a standalone
-runner's pushes), ``/serving/drain``, ``/serving/restored`` and
-``/health``. ``/metrics/history``, ``/slo`` and ``/traces/{taskId}``
-answer a 400 that names their module (not ported).
+runner's pushes), ``POST``/``GET /traces/{taskId}`` (the span collector,
+``ps/traces.py``: a runner or a follower posts its spans, the controller
+reads the merged trace), ``/serving/drain``, ``/serving/restored`` and
+``/health``. ``/metrics/history`` and ``/slo`` answer a 400 that names
+their module (``utils/timeseries.py``, ``ps/slo.py``: not ported).
 
 :meth:`PSAPI.start` on the main thread takes SIGTERM: drain the serving
 decoders (their stragglers become KMS1 frames in ``snap_dir``), then the
@@ -32,10 +34,12 @@ log = logging.getLogger("kubeml.ps")
 
 
 def unported_route(what: str, module: str):
-    """A handler that answers 400 naming the module a route waits for."""
+    """A handler that answers 400 naming the modules a route waits for
+    (the time-series store and the SLOs, the next slice of the port)."""
     def handler(req: Request):
         raise KubeMLError(f"{what} ({module}) is not ported to "
-                          f"kubeml_tpu_torch yet", 400)
+                          f"kubeml_tpu_torch yet (ROADMAP.md Queue 1 item "
+                          f"2b)", 400)
     return handler
 
 
@@ -54,13 +58,12 @@ class PSAPI:
         router.route("GET", "/metrics", self._metrics)
         router.route("GET", "/metrics/history", unported_route(
             "the sampled metrics history", "utils/timeseries.py"))
-        router.route("GET", "/slo", unported_route("SLO status",
-                                                   "ps/slo.py"))
+        router.route("GET", "/slo", unported_route(
+            "SLO status", "ps/slo.py, utils/timeseries.py"))
         router.route("POST", "/metrics/{jobId}", self._metrics_update)
         router.route("POST", "/finish/{jobId}", self._finish)
-        traces = unported_route("trace collection", "ps/traces.py")
-        router.route("POST", "/traces/{taskId}", traces)
-        router.route("GET", "/traces/{taskId}", traces)
+        router.route("POST", "/traces/{taskId}", self._traces_post)
+        router.route("GET", "/traces/{taskId}", self._traces_get)
         router.route("POST", "/serving/drain", self._serving_drain)
         router.route("GET", "/serving/restored", self._serving_restored)
         self.service = Service(router, self.cfg.host, self.cfg.ps_port)
@@ -114,6 +117,21 @@ class PSAPI:
                                   status=body.get("status", ""),
                                   error=body.get("error"))
         return {}
+
+    def _traces_post(self, req: Request):
+        body = req.json() or {}
+        spans = body.get("spans")
+        if not isinstance(spans, list):
+            raise KubeMLError("trace payload must be {spans: [...]}", 400)
+        counters = body.get("counters")
+        self.ps.post_trace(
+            req.params["taskId"], spans,
+            counters=counters if isinstance(counters, dict) else None,
+            service=str(body.get("service") or ""))
+        return {"accepted": len(spans)}
+
+    def _traces_get(self, req: Request):
+        return self.ps.get_trace(req.params["taskId"])
 
     def _serving_drain(self, req: Request):
         body = req.json() or {}
@@ -209,6 +227,20 @@ class PSClient:
 
     def metrics_text(self) -> str:
         return http.get(f"{self.url}/metrics", timeout=self._timeout()).text
+
+    def post_trace(self, task_id: str, spans: list,
+                   counters: Optional[dict] = None,
+                   service: str = "") -> None:
+        payload: dict = {"spans": spans}
+        if counters:
+            payload["counters"] = counters
+            payload["service"] = service or "worker"
+        http.check(http.post(f"{self.url}/traces/{task_id}", json=payload,
+                             timeout=self._timeout(), idempotency_key=True))
+
+    def get_trace(self, task_id: str) -> dict:
+        return http.check(http.get(f"{self.url}/traces/{task_id}",
+                                   timeout=self._timeout()))
 
     def drain_serving(self, grace: Optional[float] = None) -> dict:
         body: dict = {}

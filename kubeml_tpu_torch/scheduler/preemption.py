@@ -15,8 +15,10 @@ same decisions on the same telemetry.
 * **requeue** — the yielded job arrives PARKED (``Scheduler.job_preempted``
   -> :meth:`PreemptionController.park`); after
   ``KUBEML_PREEMPT_RESUME_SUSTAIN`` consecutive calm polls every parked
-  job is resubmitted with ``resume=True`` under its own id. The journal
-  keeps a parked job across a control-plane crash.
+  job is resubmitted with ``resume=True`` under its own id, and under
+  the trace context of its first submission, so the resumed job's spans
+  continue its trace. The journal keeps a parked job across a
+  control-plane crash.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from ..api.config import Config, get_config
 from ..api.errors import KubeMLError
 from ..api.types import JobStateEnum, TrainRequest
 from ..serving.stats import Series
+from ..utils import tracing
 
 log = logging.getLogger("kubeml.preemption")
 
@@ -49,6 +52,8 @@ class PreemptionController:
         self._lock = threading.Lock()
         # {job_id: resume TrainRequest} — yielded jobs waiting for calm
         self._parked: Dict[str, TrainRequest] = {}
+        # each parked job's trace context (its TrainTask.trace_parent)
+        self._trace_parents: Dict[str, str] = {}
         self._overloaded_polls = 0
         self._calm_polls = 0
         self._last_preempt = 0.0
@@ -185,10 +190,13 @@ class PreemptionController:
 
     # --- parked jobs ---
 
-    def park(self, job_id: str, request: TrainRequest) -> None:
-        """Hold a yielded job until pressure clears (scheduler.job_preempted)."""
+    def park(self, job_id: str, request: TrainRequest,
+             trace_parent: str = "") -> None:
+        """Hold a yielded job until pressure clears (scheduler.job_preempted),
+        with the ``traceparent`` its requeue continues."""
         with self._lock:
             self._parked[job_id] = request
+            self._trace_parents[job_id] = trace_parent
         log.info("parked preempted job %s until serving pressure clears "
                  "(%d parked)", job_id, len(self._parked))
 
@@ -206,14 +214,18 @@ class PreemptionController:
         for job_id, req in items:
             req.options.resume = True
             req.job_id = job_id
+            with self._lock:
+                parent = self._trace_parents.get(job_id, "")
             try:
-                self.scheduler.submit_train(req)
+                with tracing.use_context(tracing.parse_traceparent(parent)):
+                    self.scheduler.submit_train(req)
             except KubeMLError as e:
                 log.warning("requeue of parked job %s deferred: %s",
                             job_id, e.message)
                 continue
             with self._lock:
                 self._parked.pop(job_id, None)
+                self._trace_parents.pop(job_id, None)
             n += 1
             log.info("requeued preempted job %s (resume=True)", job_id)
         return n

@@ -6,6 +6,11 @@ policy for its parallelism and starts it on the parameter server. A
 running job queues an epoch-end re-evaluation and blocks until the loop's
 answer reaches it through the PS (``ParameterServer.update_task``).
 
+The submitting request's trace context rides the task across the queue
+(``TrainTask.trace_parent``); the loop binds it again and opens a
+``scheduler.schedule`` span under it, so the parameter server's
+``/start`` and every hop after it stitch under the request.
+
 A request the cluster cannot run (``TrainOptions.check_ported`` over the
 parameter server's ranks: an SPMD mesh that does not divide them) is
 refused with a 400 at submission. A preempted job is requeued at once
@@ -26,6 +31,7 @@ import torch
 from ..api.config import Config, get_config
 from ..api.errors import KubeMLError
 from ..api.types import JobState, TrainRequest, TrainTask
+from ..utils import tracing
 from .decisions import DecisionLog
 from .policy import SchedulerPolicy, ThroughputBasedPolicy
 from .queue import TaskQueue, TenantUsage, task_tenant
@@ -94,8 +100,11 @@ class Scheduler:
                                   409)
             job_id = request.job_id or create_job_id()
             self._active_ids.add(job_id)
-        self.queue.push(TrainTask(job_id=job_id, parameters=request,
-                                  state=JobState()))
+        # the queue loses the thread: the request's context rides the task
+        ctx = tracing.current_context()
+        self.queue.push(TrainTask(
+            job_id=job_id, parameters=request, state=JobState(),
+            trace_parent=ctx.traceparent() if ctx else ""))
         log.info("queued train task %s (%s on %s)", job_id,
                  request.function_name, request.dataset)
         return job_id
@@ -117,16 +126,21 @@ class Scheduler:
 
     def job_preempted(self, task: TrainTask) -> None:
         """A preempted job's slot freed: park it with the preemption
-        controller when one is bound, else requeue it with ``resume=True``.
-        A failure is logged; the journal keeps the job for the next boot."""
+        controller when one is bound, else requeue it with ``resume=True``,
+        under the task's trace context either way (the resumed job's
+        spans continue its trace). A failure is logged; the journal keeps
+        the job for the next boot."""
         req = TrainRequest.from_dict(task.parameters.to_dict())
         req.job_id = task.job_id
         req.options.resume = True
         if self.preemption is not None:
-            self.preemption.park(task.job_id, req)
+            self.preemption.park(task.job_id, req,
+                                 trace_parent=task.trace_parent)
             return
         try:
-            self.submit_train(req)
+            with tracing.use_context(tracing.parse_traceparent(
+                    task.trace_parent)):
+                self.submit_train(req)
             log.info("requeued preempted job %s (resume=True)", task.job_id)
         except KubeMLError as e:
             log.warning("requeue of preempted job %s deferred: %s",
@@ -177,6 +191,16 @@ class Scheduler:
                 log.exception("scheduling task %s failed", task.job_id)
 
     def _schedule(self, task: TrainTask) -> None:
+        # the submitter's context, carried on the task, is this span's
+        # parent and that of the hops it makes (the PS's /start, /update)
+        with tracing.use_context(tracing.parse_traceparent(
+                task.trace_parent)):
+            with tracing.get_tracer().span("scheduler.schedule",
+                                           service="scheduler",
+                                           job=task.job_id):
+                self._schedule_inner(task)
+
+    def _schedule_inner(self, task: TrainTask) -> None:
         decision = self.policy.calculate_parallelism(task)
         if decision is None:
             log.debug("dropping stale update for finished job %s",

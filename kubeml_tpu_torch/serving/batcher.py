@@ -96,7 +96,9 @@ from ..models.generation import (GenerationInputError, PAD_ID,
 from ..models.layers import QuantizableDense, load_tree
 from ..ops.int8_matmul import resolve_int8_matmul
 from ..ops.paged_attention import resolve_kv_quant, resolve_paged_attn
+from ..utils import tracing
 from ..utils.device import resolve_device
+from ..utils.errorhook import report_error
 from ..utils.resilience import current_deadline
 from . import kvsnap
 from .kvpool import KVPool
@@ -237,7 +239,12 @@ class _Entry:
     # absolute deadline (unix seconds, ``utils.resilience``): a request
     # still queued past it fails with 504
     deadline: Optional[float] = None
+    # the request's id (in its result: `kubeml trace <request-id>` finds
+    # its serving spans), the wall clock at submit (the spans' anchor)
+    # and the submitter's trace context (the serving spans' parent)
     request_id: str = ""
+    wall0: float = 0.0
+    trace_ctx: Optional[object] = None
     # a waiter that gives up once a row holds this many tokens (0 = never),
     # set by a benchmark on the entry under the decoder's lock before the
     # row is admitted: the engine cancels the request itself at that
@@ -357,7 +364,9 @@ class _SlotEngine:
                        stream_q=queue.Queue() if req.stream else None,
                        submitted_at=time.monotonic(),
                        deadline=current_deadline(),
-                       request_id=self._next_request_id())
+                       request_id=self._next_request_id(),
+                       wall0=time.time(),
+                       trace_ctx=tracing.current_context())
         for i in range(B):
             entry.rows.append(_Row(
                 entry=entry, index=i,
@@ -411,6 +420,7 @@ class _SlotEngine:
             # nobody reads the result: free the rows' slots and pages
             if self._claim_outcome(entry):
                 self.stats.timed_out()
+                self._finish_timeline(entry, "timeout")
             self.cancel(entry)
             raise KubeMLError("generation timed out", 504)
         if entry.error is not None:
@@ -422,6 +432,7 @@ class _SlotEngine:
         free their slot and pages at the next chunk edge."""
         if self._claim_outcome(entry):
             self.stats.canceled()
+            self._finish_timeline(entry, "canceled")
         with self._cond:
             for row in entry.rows:
                 row.canceled = True
@@ -481,15 +492,18 @@ class _SlotEngine:
         snap["draining"] = 1.0 if self._drain_mode else 0.0
         return snap
 
-    def _fail_entry(self, entry: _Entry, error: Exception, counter) -> None:
+    def _fail_entry(self, entry: _Entry, error: Exception, counter,
+                    outcome: str = "failed") -> None:
         """Fail one entry's waiters: rows done, the error set, the single
-        outcome claimed through ``counter``, waiter and stream released."""
+        outcome claimed through ``counter`` (and its spans emitted as
+        ``outcome``), waiter and stream released."""
         for row in entry.rows:
             row.done = True
         if entry.error is None:
             entry.error = error
         if self._claim_outcome(entry):
             counter()
+            self._finish_timeline(entry, outcome)
         entry.done_evt.set()
         if entry.stream_q is not None:
             entry.stream_q.put(None)
@@ -524,7 +538,7 @@ class _SlotEngine:
             self._fail_entry(entry, OverloadedError(
                 "request shed from the decode queue under sustained "
                 "overload (oldest-first)", retry_after=hint),
-                self.stats.shed)
+                self.stats.shed, outcome="shed")
         return freed
 
     def _retry_after_hint(self) -> float:
@@ -566,7 +580,8 @@ class _SlotEngine:
             for entry in doomed:
                 self._fail_entry(entry, KubeMLError(
                     "request deadline expired while queued for a decode "
-                    "slot", 504), self.stats.deadline_expired)
+                    "slot", 504), self.stats.deadline_expired,
+                    outcome="expired")
 
     def _busy(self) -> bool:
         return any(r is not None for r in self._slot_rows)
@@ -678,9 +693,56 @@ class _SlotEngine:
         if entry.finished():
             if self._claim_outcome(entry):
                 self.stats.completed(time.monotonic() - entry.submitted_at)
+                self._finish_timeline(entry, "completed")
             entry.done_evt.set()
             if entry.stream_q is not None:
                 entry.stream_q.put(None)
+
+    def _finish_timeline(self, entry: _Entry, outcome: str) -> None:
+        """The request's span tree, when tracing is on (JAX :1034-1082):
+        ``serving.request`` tagged ``job=<request_id>`` under the
+        submitter's context, with ``serving.queue_wait``,
+        ``serving.prefill`` and ``serving.decode`` children built from the
+        rows' timeline. Called once an entry, by whichever site claimed
+        its outcome; never fails the serving path."""
+        tracer = tracing.get_tracer()
+        if not tracer.enabled:
+            return
+        try:
+            now = time.monotonic()
+            sub = entry.submitted_at
+            slot_at = min((r.slot_at for r in entry.rows if r.slot_at),
+                          default=0.0)
+            first = min((r.first_emit_at for r in entry.rows
+                         if r.first_emit_at), default=0.0)
+            last = max((r.last_emit_at for r in entry.rows), default=0.0)
+            wall = entry.wall0 - sub  # monotonic -> wall clock
+            ctx = entry.trace_ctx
+            req = tracer.add_span(
+                "serving.request", entry.wall0, (last or now) - sub,
+                trace_id=ctx.trace_id if ctx is not None else None,
+                parent_id=ctx.span_id if ctx is not None else None,
+                job=entry.request_id, model=self.name,
+                rows=len(entry.rows),
+                tokens=sum(len(r.out) for r in entry.rows),
+                outcome=outcome,
+                itl_p99=_itl_quantile(entry.rows, 0.99),
+                hol_stall_seconds=sum(r.hol_stall for r in entry.rows))
+            if req is None:
+                return
+            kw = dict(trace_id=req.trace_id, parent_id=req.span_id,
+                      job=entry.request_id)
+            if slot_at:
+                tracer.add_span("serving.queue_wait", entry.wall0,
+                                slot_at - sub, **kw)
+                if first:
+                    tracer.add_span("serving.prefill", wall + slot_at,
+                                    first - slot_at, **kw)
+            if first and last > first:
+                tracer.add_span("serving.decode", wall + first,
+                                last - first, **kw)
+        except Exception:
+            log.debug("serving timeline emission failed", exc_info=True)
 
     def _claim_outcome(self, entry: _Entry) -> bool:
         """Each request counts exactly one outcome (completed, timed out,
@@ -1024,7 +1086,9 @@ class PagedBatchingDecoder(_SlotEngine):
                        stream_q=queue.Queue() if stream else None,
                        submitted_at=time.monotonic(),
                        deadline=current_deadline(),
-                       request_id=snap.request_id or self._next_request_id())
+                       request_id=snap.request_id or self._next_request_id(),
+                       wall0=time.time(),
+                       trace_ctx=tracing.current_context())
         rows.append(_Row(entry=entry, index=0,
                          prompt=np.asarray(snap.prompt, np.int32),
                          max_new=int(snap.max_new), temp=float(snap.temp),
@@ -1055,6 +1119,7 @@ class PagedBatchingDecoder(_SlotEngine):
         if done:
             if self._claim_outcome(entry):
                 self.stats.completed(0.0)
+                self._finish_timeline(entry, "completed")
             entry.done_evt.set()
             if entry.stream_q is not None:
                 entry.stream_q.put(None)
@@ -1245,6 +1310,7 @@ class PagedBatchingDecoder(_SlotEngine):
         except Exception as e:
             self.stats.pool_audit(False)
             log.error("%s: KVPool invariant audit FAILED: %s", self.name, e)
+            report_error("serving.pool_audit", f"{self.name}: {e}")
             raise
         self.stats.pool_audit(True)
 

@@ -172,6 +172,12 @@ class ShardedCheckpointStore:
         except Exception:
             tmp.unlink(missing_ok=True)
             raise
+        # this rank's checkpoint bytes and write bandwidth (the barrier
+        # waits are part of a save's cost), as a span when tracing is on
+        from ..utils import profiler
+
+        profiler.record_io("ckpt.save", sum(b.nbytes for b in blobs.values()),
+                           time.perf_counter() - t0, job=job_id, tag=tag)
         if barrier is not None:
             barrier(f"ckpt/{job_id}/{tag}")
         if rank == 0:
@@ -241,6 +247,7 @@ class ShardedCheckpointStore:
         if mesh is not None and (remap is not None or not mesh.member):
             raise ValueError("a restore onto a mesh takes no remap and "
                              "needs a rank of the mesh")
+        t_restore = time.perf_counter()
         d = self._dir(job_id, tag)
         mpath = d / MANIFEST
         try:
@@ -292,6 +299,12 @@ class ShardedCheckpointStore:
                 pairs[tgt] = _from_stored(arr, spec["dtype"])
         finally:
             readers.close()
+        from ..utils import profiler
+
+        profiler.record_io(
+            "ckpt.restore", sum(getattr(a, "nbytes", 0)
+                                for a in pairs.values()),
+            time.perf_counter() - t_restore, job=job_id, tag=tag)
         return ShardedCheckpoint(
             job_id=manifest.get("job_id", job_id),
             tag=manifest.get("tag", tag),

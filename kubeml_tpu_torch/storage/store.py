@@ -74,7 +74,14 @@ class DatasetHandle:
             raise DataError(
                 f"empty subset range [{start}, {end}) for split {split!r} of {self.name!r}"
             )
-        return self._load(split, "data")[lo:hi], self._load(split, "labels")[lo:hi]
+        x = self._load(split, "data")[lo:hi]
+        y = self._load(split, "labels")[lo:hi]
+        # the dataset bytes entering the input pipeline (mmap slices fault
+        # lazily: bytes only, no blocking time to make a bandwidth of)
+        from ..utils import profiler
+
+        profiler.account("dataset.read", x.nbytes + y.nbytes)
+        return x, y
 
     def summary(self) -> DatasetSummary:
         return DatasetSummary(

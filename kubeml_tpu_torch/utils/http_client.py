@@ -1,6 +1,5 @@
 """Outbound HTTP of the port's services and clients, on the standard library
-only: the counterpart of ``kubeml_tpu/utils/traced_http.py`` (without its
-tracing).
+only: the counterpart of ``kubeml_tpu/utils/traced_http.py``.
 
 :func:`request` builds one call and sends it through
 ``utils.resilience.resilient_request`` (the breaker, client chaos, bounded
@@ -25,7 +24,14 @@ retries, the deadline):
 * ``timeout``: seconds, or ``(connect, read)``;
 * ``stream=True`` leaves the body unread for
   :meth:`HTTPResponse.iter_lines`: a call is retried only until an answer
-  that is not a retryable status has arrived, never mid-stream.
+  that is not a retryable status has arrived, never mid-stream;
+* the calling thread's trace context (``utils.tracing``) as a
+  ``traceparent`` header (the caller's own header wins), so the spans of
+  a request stitch across every hop;
+* the bytes of every call, by route family (:func:`route_label`), into
+  ``kubeml_http_{sent,received}_bytes_total{route}``: the request body
+  as sent, the answer's body, or a streamed answer's ``Content-Length``
+  (a chunked stream counts nothing received).
 
 :func:`check` turns a 4xx/5xx into the typed ``KubeMLError`` of its
 envelope (``api.errors.error_from_envelope``), and :func:`ndjson` reads a
@@ -45,6 +51,7 @@ from urllib.parse import urlencode, urlsplit
 
 from ..api.errors import error_from_envelope
 from . import resilience
+from .tracing import trace_headers
 from .resilience import (CircuitOpenError, DeadlineExpiredError,  # noqa: F401
                          TransportError)
 
@@ -167,6 +174,33 @@ def send(method: str, url: str, *, headers: Dict[str, str], timeout=None,
     return HTTPResponse(conn, resp, stream)
 
 
+def route_label(url: str) -> str:
+    """A URL's route family, its first path segment (``/update/job-17``
+    -> ``/update``): ids never become label values."""
+    segments = [s for s in (urlsplit(url).path or "/").split("/") if s]
+    return f"/{segments[0]}" if segments else "/"
+
+
+def _account_bytes(url: str, body: Optional[bytes], resp: HTTPResponse,
+                   streamed: bool) -> None:
+    """Count a call's bytes by route: the body sent, the answer's body
+    (a streamed answer's ``Content-Length``, its body left to the
+    caller). Never fails the call it measured."""
+    try:
+        route = route_label(url)
+        if body:
+            resilience.incr("kubeml_http_sent_bytes_total", route, len(body))
+        if streamed:
+            received = int(resp.headers.get("content-length") or 0)
+        else:
+            received = len(resp.content or b"")
+        if received:
+            resilience.incr("kubeml_http_received_bytes_total", route,
+                            received)
+    except Exception:
+        pass
+
+
 def request(method: str, url: str, *, json: Any = None,
             data: Optional[bytes] = None,
             files: Optional[Dict[str, tuple]] = None,
@@ -179,7 +213,7 @@ def request(method: str, url: str, *, json: Any = None,
         parts = urlsplit(url)
         query = "&".join(q for q in (parts.query, urlencode(params)) if q)
         url = parts._replace(query=query).geturl()
-    hdrs = dict(headers or {})
+    hdrs = trace_headers(headers)
     body = data
     if json is not None:
         body = _json.dumps(json).encode()
@@ -202,10 +236,12 @@ def request(method: str, url: str, *, json: Any = None,
     if retryable is None:
         retryable = (method.upper() in resilience.IDEMPOTENT_METHODS
                      or bool(idempotency_key))
-    return resilience.resilient_request(
+    resp = resilience.resilient_request(
         method, url, retryable=retryable, deadline=deadline,
         stamp_origin=stamp_origin, use_breaker=use_breaker, headers=hdrs,
         timeout=timeout, body=body, stream=stream)
+    _account_bytes(url, body, resp, stream)
+    return resp
 
 
 def check(resp: HTTPResponse) -> Any:

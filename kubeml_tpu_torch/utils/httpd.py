@@ -22,10 +22,15 @@ A stdlib ``ThreadingHTTPServer`` (one thread a connection) with:
   delayed, answered with a 500, or reset (the socket shut down with no
   answer); ``/health`` and ``/metrics`` are exempt. Injections count
   under ``kubeml_chaos_injected_total``, deadline refusals and replays
-  under their own counters.
+  under their own counters;
+* tracing (``utils.tracing``): the inbound ``traceparent`` is bound to
+  the handler thread (its outbound hops forward it even where this
+  process records nothing), and each request records one server span,
+  ``"{router} {METHOD} {path}"`` under the router's service, except
+  ``/health`` and ``/metrics`` (probes and scrapes would crowd every
+  trace).
 
 Port 0 binds any free port; :attr:`Service.port` then holds the bound one.
-Not ported: the tracing spans of the JAX server.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
 from ..api.errors import KubeMLError
-from . import resilience
+from . import resilience, tracing
 
 log = logging.getLogger("kubeml.httpd")
 
@@ -240,6 +245,18 @@ class Service:
                 except OSError:
                     pass
 
+            def _dispatch(self, method, path, query, body, internal):
+                """The route's answer, inside a server span unless the
+                path is internal."""
+                if internal:
+                    return router.dispatch(method, path, query, body,
+                                           self.headers)
+                with tracing.get_tracer().span(
+                        f"{router.name} {method} {path}",
+                        service=router.name, method=method, path=path):
+                    return router.dispatch(method, path, query, body,
+                                           self.headers)
+
             def _handle(self, method: str):
                 owner = False
                 idem_key = None
@@ -274,11 +291,14 @@ class Service:
                         resp, owner = self._replay(method, path, idem_key,
                                                    deadline)
                     if resp is None:
+                        ctx = tracing.parse_traceparent(
+                            self.headers.get("traceparent"))
                         with resilience.bind_deadline(
-                                None if internal else deadline):
-                            resp = router.dispatch(
+                                None if internal else deadline), \
+                                tracing.use_context(ctx):
+                            resp = self._dispatch(
                                 method, path, parse_qs(parsed.query), body,
-                                self.headers)
+                                internal)
                 except KubeMLError as e:
                     resp = _error_response(e)
                 except (BrokenPipeError, ConnectionResetError):

@@ -1,6 +1,5 @@
 """Guardrails on user code the port runs in process: its own copy of
-``kubeml_tpu/utils/watchdog.py`` (the flight-recorder dump aside: the
-port has no ``utils/profiler.py``).
+``kubeml_tpu/utils/watchdog.py``.
 
 * :func:`run_with_timeout` runs a call on a watchdog thread; past the
   timeout the call is abandoned on its daemon thread (Python cannot kill a
@@ -14,7 +13,9 @@ port has no ``utils/profiler.py``).
   hanging in a collective only some ranks joined. Abandoning the thread,
   as :func:`run_with_timeout` does, would leave the peers inside it. The
   leader's job thread and every follower arm it; the journal keeps the
-  job, so a supervised restart resumes it.
+  job, so a supervised restart resumes it. Before the exit it dumps the
+  flight recorder (``utils.profiler``; to ``KUBEML_FLIGHT_DIR`` when
+  set).
 """
 
 from __future__ import annotations
@@ -41,10 +42,11 @@ def arm_stall_watchdog(job, timeout: float, what: str,
                        ) -> threading.Event:
     """Watch ``job.heartbeat`` from a daemon thread: once it is older than
     ``timeout`` seconds (twice that while ``job.heartbeat_cold``, the
-    first step, which builds the kernels), log why, run
-    ``on_stall(reason)`` (the leader writes the failure history) and
-    ``os._exit(STALL_EXIT_CODE)``. Returns an event; set it to disarm.
-    ``timeout <= 0`` arms nothing (the event comes back set)."""
+    first step, which builds the kernels), log why, dump the flight
+    recorder, run ``on_stall(reason)`` (the leader writes the failure
+    history and reports it) and ``os._exit(STALL_EXIT_CODE)``. Returns an
+    event; set it to disarm. ``timeout <= 0`` arms nothing (the event
+    comes back set)."""
     stop = threading.Event()
     if timeout is None or timeout <= 0:
         stop.set()
@@ -64,6 +66,15 @@ def arm_stall_watchdog(job, timeout: float, what: str,
                       f"{allowed:g}s; KUBEML_FUNCTION_TIMEOUT); terminating "
                       f"this process; {recovery}")
             log.error("%s", reason)
+            # the postmortem: recent spans and counters, before the exit
+            try:
+                from .profiler import get_recorder
+
+                dump = get_recorder().dump(f"watchdog:{what}")
+                if dump is not None:
+                    log.error("flight recorder dumped to %s", dump)
+            except Exception:
+                log.debug("flight recorder dump failed", exc_info=True)
             if on_stall is not None:
                 try:
                     on_stall(reason)

@@ -19,6 +19,7 @@ history) with a deadline and a message, never on the task list. Held:
   processes serving a tiny GPT: the drained rows restore in the second.
 """
 
+import json
 import os
 import signal
 import subprocess
@@ -455,7 +456,12 @@ def run_cli(capsys, url, *argv):
     return rc, out.out, out.err
 
 
-def test_cli_commands(cluster, tmp_path, capsys):
+def test_cli_commands(cluster, tmp_path, capsys, monkeypatch):
+    from kubeml_tpu_torch.utils import tracing
+
+    tracer = tracing.get_tracer()
+    tracer.clear()
+    monkeypatch.setattr(tracer, "enabled", True)
     url = cluster.controller_url
     x, y = blobs(256, 0)
     files = {}
@@ -508,7 +514,13 @@ def test_cli_commands(cluster, tmp_path, capsys):
     assert rc == 0 and "pruned" in out
     assert run_cli(capsys, url, "dataset", "delete", "-n", "blobs")[0] == 0
     assert run_cli(capsys, url, "function", "delete", "-n", "lenet")[0] == 0
-    for argv in (("trace", jid), ("slo",), ("top",), ("profile", jid)):
+    # the job ran traced: its merged trace and its per-phase profile
+    rc, out, _ = run_cli(capsys, url, "trace", jid)
+    assert rc == 0 and len(json.loads(out)["traceEvents"]) > 0
+    rc, out, _ = run_cli(capsys, url, "profile", jid)
+    assert rc == 0 and "job.epoch" in {
+        r["phase"] for r in json.loads(out)["phases"]}
+    for argv in (("slo",), ("top",)):
         rc, _, err = run_cli(capsys, url, *argv)
         assert rc == 2 and "not ported" in err, argv
     # `dataset create-text` and `generate --text` are ported: a byte-level

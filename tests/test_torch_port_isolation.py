@@ -103,6 +103,38 @@ def test_text_and_resilience_modules_keep_their_own_copies(module):
     assert not _offenders(path)
 
 
+@pytest.mark.parametrize("module", [
+    "utils/tracing.py", "utils/errorhook.py", "ps/traces.py",
+    "utils/profiler.py", "utils/http_client.py", "utils/httpd.py",
+    "utils/watchdog.py", "serving/batcher.py", "engine/follower.py",
+    "engine/job_runner.py", "cli.py"])
+def test_tracing_modules_keep_their_own_copies(module):
+    """Tracing and profiling (the tracer, the flight recorder, the error
+    hook, the span collector, and the call sites that open spans) copy
+    what they need of the JAX package's JAX-free ``utils/tracing``,
+    ``utils/profiler``, ``utils/errorhook`` and ``ps/traces``."""
+    path = REPO / "kubeml_tpu_torch" / module
+    assert path.is_file() and path in _port_sources()
+    assert not _offenders(path)
+
+
+def test_trace_and_profile_commands_import_no_torch():
+    """``kubeml trace`` and ``kubeml profile`` run in a client process:
+    the tracer, the profiler's reports and the error hook import no
+    torch."""
+    code = ("import sys\n"
+            "import kubeml_tpu_torch.utils.tracing, "
+            "kubeml_tpu_torch.utils.profiler, "
+            "kubeml_tpu_torch.utils.errorhook\n"
+            "from kubeml_tpu_torch.utils.profiler import attribution_report\n"
+            "from kubeml_tpu_torch.utils.tracing import merge_chrome_trace\n"
+            "merge_chrome_trace([]); attribution_report([])\n"
+            "sys.exit(1 if 'torch' in sys.modules else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_the_cli_client_path_imports_no_torch():
     """The CLI's client commands (and the text path they read) start
     without torch: the package's ``resolve_device``, ``data``'s names and

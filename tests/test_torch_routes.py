@@ -10,10 +10,11 @@ one-shot and streamed, ``/infer``, listings, unknown ids (404), bad
 bodies (400), wrong methods (405), the PS's job routes,
 ``/serving/restored`` and ``/serving/drain``. Held equal: the status
 codes, the JSON bodies (error envelopes byte for byte, ``created_at``
-taken out) and the greedy tokens. The port answers a live job's
-``/generate`` and the routes of its unported modules (``/slo``,
-``/metrics/history``, ``/tasks/{id}/trace``, ``/traces/{id}``) with a 400
-that names them, where the JAX package serves them.
+taken out) and the greedy tokens. The trace routes (``/tasks/{id}/
+trace``, ``/traces/{id}``) answer an unknown task as JAX's do. The port
+answers a live job's ``/generate`` and the routes of its unported modules
+(``/slo``, ``/metrics/history``) with a 400 that names them, where the
+JAX package serves them.
 """
 
 import pytest
@@ -223,16 +224,30 @@ def test_infer_on_the_final_matches(clusters):
     assert pb == jb
 
 
+def test_trace_routes_of_an_unknown_task_answer_as_jax(clusters):
+    """The controller's ``/tasks/{id}/trace`` of a task with no spans is
+    JAX's 404, envelope and all; the PS's ``/traces/{id}`` is an empty
+    trace, and a malformed post JAX's 400."""
+    (js, jb), (ps_, pb) = both(clusters, "GET", "/tasks/nope1234/trace")
+    assert js == ps_ == 404 and pb == jb
+    (js, jb), (ps_, pb) = both(clusters, "GET", "/traces/nope1234", ps=True)
+    assert js == ps_ == 200
+    keys = ("task_id", "trace_ids", "dropped", "spans")
+    assert {k: pb[k] for k in keys} == {k: jb[k] for k in keys}
+    assert pb["spans"] == []
+    (js, jb), (ps_, pb) = both(clusters, "POST", "/traces/nope1234",
+                               body={"spans": "x"}, ps=True)
+    assert js == ps_ == 400 and pb == jb
+
+
 def test_port_refuses_what_it_has_not_ported(clusters):
     jc, pc = clusters
     for path, ps, module in (("/slo", False, "ps/slo.py"),
                              ("/metrics/history", False,
                               "utils/timeseries.py"),
-                             ("/tasks/x/trace", False, "ps/traces.py"),
                              ("/slo", True, "ps/slo.py"),
                              ("/metrics/history", True,
-                              "utils/timeseries.py"),
-                             ("/traces/x", True, "ps/traces.py")):
+                              "utils/timeseries.py")):
         base = pc.ps_api.url if ps else pc.controller_url
         status, body = call(base, "GET", path)
         assert status == 400 and module in body["error"], (path, body)

@@ -11,6 +11,10 @@ depth 2, 4 heads, f32); both jobs resume from one flat checkpoint that
 JAX wrote of its initial weights, so they start equal. The ranks run in
 ``tests/torch_job_ranks.py``, which imports no JAX.
 
+World 2's jobs are traced: each trace holds the follower's spans from
+its own process under the task's context, and the sharded job's
+checkpoint writes on rank 1 as ``worker-1`` spans.
+
 Tolerances (as ``tests/test_torch_spmd_job.py``'s one-card parity):
 per-epoch train and eval losses within rel 1e-4 (f32; over ranks the
 cross-entropy and the gradients are summed in other orders), next-token
@@ -158,10 +162,15 @@ def roots(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def world2(roots):
+    """The tp=2 job over 2 ranks, then a 1-epoch job with sharded
+    checkpoints (every rank writes its slices), both traced."""
     return R.run(J.cluster_rank, 2, dict(
         root=str(roots["pcfg"].data_root),
         jobs=[dict(id="tp2w2", epochs=2, opts=dict(resume=True, **TP2),
-                   probe=True)]))
+                   probe=True, trace=True),
+              dict(id="trace2", epochs=1,
+                   opts=dict(mesh_shape={"tp": 2}, **SHARDED),
+                   trace=True)]))
 
 
 @pytest.fixture(scope="module")
@@ -210,6 +219,36 @@ def test_remesh_4_2_4_equals_jax(roots, world4):
     assert got["parallelism"] == [4, 2, 4]
     assert got["asked"] == [4, 2, 4]
     _held(got, roots["jax"]["elastic"])
+
+
+def test_jobs_over_ranks_trace_the_followers_spans(world2):
+    """Each job's trace holds one trace id under its ``cli.train`` root,
+    no dangling parent, the follower's spans from its own process
+    (``job.epoch`` among them, under the task's context) and its counters
+    under ``worker-1``; the sharded job's checkpoint writes on rank 1 are
+    ``worker-1`` spans with their bytes."""
+    for jid in ("tp2w2", "trace2"):
+        got = world2[0]["jobs"][jid]
+        assert got["error"] is None, got
+        trace = got["trace"]
+        spans = trace["spans"]
+        assert len(trace["trace_ids"]) == 1
+        by_id = {s["span_id"]: s for s in spans}
+        roots = [s for s in spans if not s["parent_id"]]
+        assert [r["name"] for r in roots] == ["cli.train"]
+        assert all(s["parent_id"] in by_id for s in spans if s["parent_id"])
+        leader = {s["pid"] for s in spans if s["name"] == "ps.job.run"}
+        follower = [s for s in spans if s["pid"] not in leader]
+        assert len(leader) == 1 and follower
+        epochs = [s for s in follower if s["name"] == "job.epoch"]
+        assert len(epochs) == len(got["train_loss"])
+        assert all(by_id[s["parent_id"]]["name"] == "cli.train"
+                   for s in epochs)
+        assert "worker-1" in trace["counters"]
+    saves = [s for s in world2[0]["jobs"]["trace2"]["trace"]["spans"]
+             if s["service"] == "worker-1"]
+    assert saves and {s["name"] for s in saves} == {"ckpt.save"}
+    assert all(s["attrs"]["bytes"] > 0 for s in saves)
 
 
 def test_live_inference_over_ranks_answers_409(world2):

@@ -1,6 +1,7 @@
 """Rank functions for ``tests/test_torch_spmd_ranks.py``: a cluster over
-gloo ranks on the CPU, rank 0 the leader (``LocalCluster``, no HTTP) and
-every other rank a follower (``engine.follower.run_follower``).
+gloo ranks on the CPU, rank 0 the leader (``LocalCluster``, no HTTP unless
+a job is traced: then the followers post their spans to its PS) and every
+other rank a follower (``engine.follower.run_follower``).
 
 Spawned ranks import this module to find their function, so it imports
 torch and the port only, never JAX. A rank writes what the test checks to
@@ -25,6 +26,7 @@ from kubeml_tpu_torch.api.types import (GenerateRequest, JobState,
                                         TrainOptions, TrainRequest,
                                         TrainTask)
 from kubeml_tpu_torch.parallel import distributed as D
+from kubeml_tpu_torch.utils import tracing
 
 # a token LM of JAX tests/test_spmd_job.py (vocab 64, max_len 16, E 32,
 # depth 2, 4 heads), built over the job's mesh
@@ -112,9 +114,12 @@ def run_job(cluster, spec: dict) -> dict:
     job id (and a ``key`` to file its result under when an id runs
     twice), epochs and options, and optionally ``levels`` (the answers of
     a stubbed ``on_epoch_end``, in order), ``probe`` (ask the live job
-    for inference and generation right after its start) and ``metrics``
+    for inference and generation right after its start), ``metrics``
     (keep each epoch's ``MetricUpdate`` as the parameter server takes it,
-    with the ``/metrics`` line of its MoE overflow gauge right after)."""
+    with the ``/metrics`` line of its MoE overflow gauge right after) and
+    ``trace`` (submit under a ``cli.train`` root span, the task carrying
+    its context as the scheduler's would, and keep the task's merged
+    trace once every follower's spans have reached the collector)."""
     ps = cluster.ps
     levels = list(spec.get("levels", ()))
     asked, updates = [], []
@@ -137,8 +142,14 @@ def run_job(cluster, spec: dict) -> dict:
                      parameters=request(spec["id"], spec["epochs"],
                                         **spec["opts"]))
     out = {}
+    tracer = tracing.get_tracer()
     try:
-        ps.start_task(task)
+        if spec.get("trace"):
+            with tracer.span("cli.train", service="cli"):
+                task.trace_parent = tracing.current_context().traceparent()
+                ps.start_task(task)
+        else:
+            ps.start_task(task)
     except KubeMLError as e:
         return dict(start_error=(e.status_code, e.message))
     with ps._lock:  # a job that could not start may be gone already
@@ -155,6 +166,16 @@ def run_job(cluster, spec: dict) -> dict:
             except KubeMLError as e:
                 out[what] = (e.status_code, e.message)
     assert ps.wait(spec["id"], timeout=240), f"job {spec['id']} hung"
+    if spec.get("trace"):
+        # each follower posts its spans when its part of the job ends
+        followers = {f"worker-{r}" for r in range(1, D.process_count())}
+        deadline = time.monotonic() + 60
+        while True:
+            out["trace"] = ps.get_trace(spec["id"])
+            if followers <= set(out["trace"]["counters"]) or \
+                    time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
     out.update(_history(cluster, spec["id"]), status=str(task.status),
                asked=asked, last_save=getattr(job, "last_save", None),
                restore_bytes=getattr(job, "last_restore_bytes", None),
@@ -175,9 +196,19 @@ def cluster_rank(rank: int, out: str, spec: dict) -> None:
     root = spec["roots"][rank] if "roots" in spec else spec["root"]
     cfg = Config(data_root=Path(root), **spec.get("cfg", {}))
     res = {}
+    # a traced world: every rank traces, and the leader serves HTTP (on
+    # free ports) so that the followers can post their spans to its PS
+    traced = any(job.get("trace") for job in spec["jobs"])
+    if traced:
+        tracing.get_tracer().enable()
+        for key in ("controller_port", "scheduler_port", "ps_port",
+                    "storage_port"):
+            setattr(cfg, key, 0)
     if rank == 0:
-        cluster = LocalCluster(config=cfg, device="cpu", serve_http=False)
+        cluster = LocalCluster(config=cfg, device="cpu", serve_http=traced)
         cluster.start(recover=False)
+        if traced:
+            D.get_dist_context().put("test/ps_port", str(cfg.ps_port))
         try:
             res["jobs"] = {job.get("key", job["id"]): run_job(cluster, job)
                            for job in spec["jobs"]}
@@ -188,6 +219,8 @@ def cluster_rank(rank: int, out: str, spec: dict) -> None:
             LocalCluster(config=cfg, device="cpu", serve_http=False)
         except RuntimeError as e:
             res["cluster_refused"] = str(e)
+        if traced:
+            cfg.ps_port = int(D.get_dist_context().get("test/ps_port"))
         res["jobs_followed"] = run_follower(config=cfg)
     if spec.get("restore"):
         from kubeml_tpu_torch.interop.from_flax import from_flax
